@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""On-card smoke run of paddle_tpu_torch, the PyTorch/CUDA port.
+
+    python3 chip_smoke.py            # from the repository root, one CUDA card
+    python3 chip_smoke.py --profile  # also: where the serving step's time
+                                     # goes (chiprun_out/profile_serving.json)
+
+In order, it:
+
+1. prints the card (nvidia-smi name and power limit) and the toolchain
+   (torch, its CUDA, nvcc);
+2. builds the hand-written kernels from paddle_tpu_torch/kernels/csrc;
+3. holds each kernel against its plain PyTorch version on the card, at
+   the serving path's shapes plus ragged ones, and times kernel, plain
+   version and one PyTorch library call with CUDA events;
+4. serves a seeded Poisson trace of 24 requests with GPT-2 small
+   (random weights from a seed) through ServingEngine, with every
+   kernel's launch count reset just before and read just after; checks
+   every request finished OK with its full budget, a greedy and a
+   sampled request equal their run_solo bit for bit, and the launch
+   counts equal the per-step count times the engine's steps;
+5. runs a narrow config through the engine on the card and on the CPU
+   (plain path) with the same weights, in a pool of three slots and in
+   one of one slot, and holds the logits of every step against each
+   other;
+6. with --profile, serves a short trace under torch.profiler and reports
+   device busy time and idle share, torch calls, device time by kernel
+   and host time by engine span;
+7. prints the kernels line and, last, the result line.
+
+Any failure raises and exits non-zero.  It imports torch and the port,
+never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# GPT-2 small serving pool of the smoke run
+N_SLOTS, WIDTH, T_MAX = 8, 16, 1024
+# H100 SXM published peaks (NVIDIA data sheet) used for bound_ms
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
+def _sh(cmd):
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        return (out.stdout or out.stderr).strip()
+    except OSError as e:
+        return "unavailable (%s)" % e
+
+
+def _time_ms(fn, reps=5, inner=20):
+    """Device time of one call, in ms: `inner` calls are captured into a
+    CUDA graph, and the median over `reps` replays, each timed with CUDA
+    events, is divided by `inner`.  The replay takes Python and the
+    launch path out of the number: launched one by one from Python, a
+    kernel of a few microseconds would measure the host instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return sorted(times)[len(times) // 2]
+
+
+def _bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernels(dev):
+    """Each kernel against its plain version at the path's shapes and
+    ragged ones; returns {name: record} with error and times."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import (
+        MM_ACTS,
+        add_layer_norm_plain,
+        flash_attention_qvec,
+        flash_attention_qvec_plain,
+        fused_add_layer_norm,
+        matmul_bias_act,
+        matmul_bias_act_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    rec = {}
+    rows = N_SLOTS * WIDTH  # 128 rows per step
+    d_model, d_ff = 768, 3072
+
+    # ---- fused_add_layer_norm: 16 R H bytes ---------------------------
+    err = 0.0
+    for r in (rows, 7, 1):
+        x, y = randn(r, d_model), randn(r, d_model)
+        gam, bet = randn(d_model), randn(d_model)
+        outs = fused_add_layer_norm(x, y, gam, bet, 1e-5)
+        plain = add_layer_norm_plain(x, y, gam, bet, 1e-5)
+        for got, want in zip(outs, plain):  # s, y, mean, variance
+            err = max(err, (got - want).abs().max().item())
+    assert err <= 1e-5, ("fused_add_layer_norm disagrees", err)
+    x, y = randn(rows, d_model), randn(rows, d_model)
+    gam, bet = randn(d_model), randn(d_model)
+    b, fl = _bound_ms(16 * rows * d_model + 8 * d_model + 8 * rows,
+                      10 * rows * d_model)
+    rec["fused_add_layer_norm"] = dict(
+        route="cuda", source="paddle_tpu_torch/kernels/csrc/add_layer_norm.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:1400",
+        shape="x, y [%d, %d]" % (rows, d_model), max_abs_err=err,
+        ms=_time_ms(lambda: fused_add_layer_norm(x, y, gam, bet, 1e-5)),
+        plain_ms=_time_ms(lambda: add_layer_norm_plain(x, y, gam, bet, 1e-5)),
+        library_ms=_time_ms(lambda: F.layer_norm(x + y, (d_model,), gam, bet,
+                                                 1e-5)),
+        bound_ms=b, bound_by=fl)
+
+    # ---- matmul_bias_act: unit-scale outputs (w ~ N(0, 1/K)) ----------
+    err = 0.0
+    cases = [(rows, d_model, d_ff, "gelu"), (rows, d_ff, d_model, ""),
+             (100, d_model, d_ff, "gelu")]
+    cases += [(37, 100, 70, a) for a in MM_ACTS]
+    # split-K with a ragged last slice (K = 1000, 1600: 2 and 3 slices)
+    cases += [(37, 1000, 70, "gelu"), (45, 1600, 90, "swish")]
+    for m, k, n, act in cases:
+        xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
+        for bias in (bm, None):
+            out = matmul_bias_act(xm, wm, bias, act)
+            ref = matmul_bias_act_plain(xm, wm, bias, act)
+            err = max(err, (out - ref).abs().max().item())
+    assert err <= 1e-4, ("matmul_bias_act disagrees", err)
+    times = {}
+    for tag, (k, n, act) in (("ffn_in", (d_model, d_ff, "gelu")),
+                             ("ffn_out", (d_ff, d_model, ""))):
+        xm, wm, bm = randn(rows, k), randn(k, n, scale=k ** -0.5), randn(n)
+        lib = ((lambda: F.gelu(torch.addmm(bm, xm, wm))) if act
+               else (lambda: torch.addmm(bm, xm, wm)))
+        b, fl = _bound_ms(4 * (rows * k + k * n + n + rows * n),
+                          2 * rows * k * n)
+        times[tag] = dict(
+            ms=_time_ms(lambda: matmul_bias_act(xm, wm, bm, act)),
+            plain_ms=_time_ms(lambda: matmul_bias_act_plain(xm, wm, bm, act)),
+            library_ms=_time_ms(lib), bound_ms=b, bound_by=fl)
+        print("matmul_bias_act %s [%d, %d] @ [%d, %d] %s: %s" % (
+            tag, rows, k, k, n, act or "identity", json.dumps(times[tag])))
+    # each shape launches once per layer and step: the line reports the
+    # launch-weighted mean over both, with each shape's own numbers beside
+    rec["matmul_bias_act"] = dict(
+        route="cuda", source="paddle_tpu_torch/kernels/csrc/matmul_bias_act.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:1257",
+        shape="mean of ffn_in [%d, %d] @ [%d, %d] + bias, gelu and ffn_out "
+              "[%d, %d] @ [%d, %d] + bias, one launch each per layer" % (
+                  rows, d_model, d_model, d_ff, rows, d_ff, d_ff, d_model),
+        max_abs_err=err, bound_by=times["ffn_in"]["bound_by"],
+        per_shape=times)
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        rec["matmul_bias_act"][key] = sum(
+            t[key] for t in times.values()) / len(times)
+
+    # ---- flash_attention_qvec: live K/V prefix bytes -------------------
+    heads, dh, tq, tk = 12, 64, WIDTH, T_MAX
+    err = 0.0
+    # per slot: 0, mid-cache, Tk - Tq, a decode row, and width-0 free slots;
+    # then head dim 128 over three key slices (the last one ragged, and
+    # dead for the row at 0), and one slice of 40 keys
+    slot_q = [0, 500, tk - tq, 37, 0, 250, 999, 1]
+    for d, qs_slots, n_tk in ((dh, slot_q, tk), (128, [0, 130, 300 - 4], 300),
+                              (64, [3, 0], 40)):
+        bh = len(qs_slots) * (heads if d == dh else 2)
+        per = bh // len(qs_slots)
+        tq_ = tq if d == dh else 4
+        q, k_, v = randn(bh, tq_, d), randn(bh, n_tk, d), randn(bh, n_tk, d)
+        qs = torch.tensor(qs_slots, device=dev).repeat_interleave(per)
+        out = flash_attention_qvec(q, k_, v, qs, d ** -0.5)
+        ref = flash_attention_qvec_plain(q, k_, v, qs, d ** -0.5)
+        err = max(err, (out - ref).abs().max().item())
+    assert err <= 1e-5, ("flash_attention_qvec disagrees", err)
+    bh = N_SLOTS * heads
+    q, k_, v = randn(bh, tq, dh), randn(bh, tk, dh), randn(bh, tk, dh)
+    qs = torch.full((bh,), tk - tq, device=dev, dtype=torch.long)  # full cache
+    live = tk  # every row's cutoff reaches the last key
+    mask = (qs[:, None, None] + torch.arange(tq, device=dev)[None, :, None]
+            >= torch.arange(tk, device=dev)[None, None, :])
+    b, fl = _bound_ms(4 * (2 * bh * tq * dh + 2 * bh * live * dh) + 4 * bh,
+                      4 * bh * tq * live * dh)
+    rec["flash_attention_qvec"] = dict(
+        route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/flash_attention_qvec.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:621",
+        shape="q [%d, %d, %d], k/v [%d, %d, %d], qstart = Tk - Tq" % (
+            bh, tq, dh, bh, tk, dh),
+        max_abs_err=err,
+        ms=_time_ms(lambda: flash_attention_qvec(q, k_, v, qs, dh ** -0.5)),
+        plain_ms=_time_ms(lambda: flash_attention_qvec_plain(q, k_, v, qs,
+                                                             dh ** -0.5)),
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k_, v, attn_mask=mask, scale=dh ** -0.5)),
+        bound_ms=b, bound_by=fl)
+    torch.cuda.synchronize()
+    return rec
+
+
+def serve_gpt2_small(dev):
+    """The main path: GPT-2 small served through the engine on the card."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import gpt2
+    from paddle_tpu_torch.serving import ServingEngine, make_poisson_trace
+
+    hp = gpt2.GPT2Config
+    scope = ptt.Scope()
+    with ptt.scope_guard(scope):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        _, startup, _, _ = gpt2.gpt2_logits_program(hp, seq_len=T_MAX)
+        startup.random_seed = 1234
+        exe.run(startup)
+        eng = ServingEngine(exe, hp, n_slots=N_SLOTS, width=WIDTH, t_max=T_MAX)
+        trace = make_poisson_trace(24, rate=0.5, prompt_len_range=(16, 384),
+                                   out_len_range=(16, 64),
+                                   vocab_size=hp.vocab_size, seed=0)
+        kernels.reset_launch_counts()
+        results, stats = eng.run(trace)
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        steps = stats["steps"]
+        per_step = {"flash_attention_qvec": hp.n_layer,
+                    "matmul_bias_act": 2 * hp.n_layer,
+                    "fused_add_layer_norm": 2 * hp.n_layer + 1}
+        for name, n in per_step.items():
+            assert launches[name] == n * steps, (
+                "launch count", name, launches[name], n, steps)
+        for r in trace:
+            res = results[r.rid]
+            assert res["status"] == "OK", (r.rid, res["status"])
+            toks = res["tokens"]
+            assert toks.size == r.max_new_tokens, (r.rid, toks.size)
+            assert ((toks >= 0) & (toks < hp.vocab_size)).all(), r.rid
+        greedy = next(r for r in trace if r.greedy)
+        sampled = next(r for r in trace if not r.greedy)
+        for r in (greedy, sampled):
+            solo, _ = eng.run_solo(r)
+            assert np.array_equal(solo, results[r.rid]["tokens"]), (
+                "pooled != solo", r.rid)
+        print("served %d requests in %d steps: %.1f tokens/s, step p50 %.3f "
+              "ms, mean %.3f ms; pooled == solo for rid %d (greedy) and %d "
+              "(sampled); launches %s" % (
+                  len(trace), steps, stats["tokens_per_s"],
+                  stats["step_s_p50"] * 1e3, stats["step_s_mean"] * 1e3,
+                  greedy.rid, sampled.rid, json.dumps(launches)))
+    return launches, eng, scope
+
+
+def profile_serving(eng, scope, out_dir):
+    """Where the serving step's time goes: a torch.profiler trace of a
+    short seeded trace through the same engine.  Writes the device busy
+    share, device time by kernel and host time by engine span to
+    out_dir/profile_serving.json and prints a summary."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.serving import make_poisson_trace
+
+    trace = make_poisson_trace(6, rate=0.5, prompt_len_range=(16, 384),
+                               out_len_range=(16, 64),
+                               vocab_size=eng.hp.vocab_size, seed=1)
+    with ptt.scope_guard(scope):
+        eng.run(trace[:1])  # warm the allocator outside the window
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, stats = eng.run(trace)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    device, spans = {}, {}
+    busy = []
+    torch_calls = 0  # aten ops entered from Python, not from another op
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("aten::"):
+            parent = e.cpu_parent
+            torch_calls += not (parent and parent.name.startswith("aten::"))
+        dur = e.time_range.end - e.time_range.start
+        span = e.name.startswith(("serve_", "executor_run", "feed_upload"))
+        if e.device_type == DeviceType.CUDA:
+            # the engine's spans are mirrored onto the device timeline as
+            # annotations; only kernels and copies count as busy
+            if span or getattr(e, "is_user_annotation", False):
+                continue
+            device[e.name] = device.get(e.name, 0.0) + dur
+            busy.append((e.time_range.start, e.time_range.end))
+        elif span:
+            spans[e.name] = spans.get(e.name, 0.0) + dur
+    busy.sort()
+    busy_us, end = 0.0, float("-inf")
+    for s, e in busy:  # union of device intervals
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    top = sorted(device.items(), key=lambda kv: -kv[1])
+    report = {
+        "steps": stats["steps"], "wall_us": wall_us,
+        "device_busy_us": busy_us,
+        "device_idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
+        "torch_calls": torch_calls,
+        "host_spans_us": spans,
+        "device_us_by_kernel": dict(top),
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "profile_serving.json")
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+    print("profile: %d steps, wall %.1f ms/step, device busy %.1f ms/step, "
+          "%.0f torch calls/step, idle share %s; written to %s" % (
+              stats["steps"], wall_us / 1e3 / stats["steps"],
+              busy_us / 1e3 / stats["steps"], torch_calls / stats["steps"],
+              "not measured (no device events)" if not busy_us
+              else "%.3f" % report["device_idle_share"], path))
+    print("profile host spans (ms/step): %s" % json.dumps(
+        {k: v / 1e3 / stats["steps"] for k, v in sorted(spans.items())}))
+    print("profile device top 12 (ms/step): %s" % json.dumps(
+        {k[:70]: v / 1e3 / stats["steps"] for k, v in top[:12]}))
+
+
+def card_matches_cpu(dev, n_slots):
+    """A narrow config (head dim 64) served on the card and on the CPU
+    plain path with the same weights: logits of every step agree, and
+    the card's run launched every kernel."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import gpt2
+    from paddle_tpu_torch.serving import ServingEngine, make_poisson_trace
+
+    class Narrow(gpt2.GPT2Config):
+        vocab_size, n_ctx, d_model, n_layer, n_head = 97, 64, 128, 2, 2
+
+    logits = {}
+    for kind in ("cpu", "cuda"):
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+            exe = ptt.Executor(place)
+            _, startup, _, _ = gpt2.gpt2_logits_program(Narrow, seq_len=48)
+            if kind == "cpu":
+                startup.random_seed = 5
+                exe.run(startup)
+                weights = {n: scope.find_var(n).clone()
+                           for n in scope.local_var_names()}
+            else:
+                for n, w in weights.items():
+                    scope.set(n, w.to(dev))
+            eng = ServingEngine(exe, Narrow, n_slots=n_slots, width=4,
+                                t_max=48)
+            seen = logits[kind] = []
+            run = exe.run
+
+            def recording(program=None, feed=None, fetch_list=None, **kw):
+                out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+                if program is eng.step_main:
+                    seen.append(out[0])
+                return out
+
+            exe.run = recording
+            trace = make_poisson_trace(5, rate=0.7, prompt_len_range=(2, 20),
+                                       out_len_range=(4, 9),
+                                       vocab_size=Narrow.vocab_size, seed=3,
+                                       sampled_fraction=0.0)
+            kernels.reset_launch_counts()
+            eng.run(trace)
+    launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    assert all(launched.values()), ("a kernel did not launch", launched)
+    assert len(logits["cpu"]) == len(logits["cuda"]) > 0
+    err = 0.0
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert b.shape == a.shape and np.isfinite(b).all()
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
+        err = max(err, float(np.abs(b - a).max()))
+    print("narrow GPT-2, %d slot(s), on the card vs the CPU plain path: %d "
+          "steps, max abs logit difference %.3g, launches %s" % (
+              n_slots, len(logits["cpu"]), err, json.dumps(launched)))
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch", "kernels")):
+        print("chip_smoke: run from a checkout of the repository (no "
+              "paddle_tpu_torch package beside this script)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    smi = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    print(smi)
+    print("torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
+    from paddle_tpu_torch.kernels import build
+
+    print("nvcc: %s" % _sh([build.nvcc_path(), "--version"]).splitlines()[-1])
+    t0 = time.time()
+    build.load()
+    print("kernels built in %.1f s from %s" % (time.time() - t0, build.CSRC))
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  " + line.strip())
+
+    rec = check_kernels(dev)
+    for name, r in rec.items():
+        print("%s: max_abs_err %.3g, %s" % (name, r["max_abs_err"], json.dumps(
+            {k: v for k, v in r.items() if k.endswith("ms") or k == "shape"})))
+    launches, eng, scope = serve_gpt2_small(dev)
+    for n_slots in (3, 1):  # a one-slot pool has a one-row QStart
+        card_matches_cpu(dev, n_slots)
+    if "--profile" in sys.argv[1:]:
+        profile_serving(eng, scope, os.path.join(ROOT, "chiprun_out"))
+
+    kernels = []
+    for name, r in rec.items():
+        entry = {"name": name, "route": r["route"], "source": r["source"],
+                 "replaces": r["replaces"], "launches": launches[name]}
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape"):
+            entry[key] = r[key]
+        if "per_shape" in r:
+            entry["per_shape"] = r["per_shape"]
+        kernels.append(entry)
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

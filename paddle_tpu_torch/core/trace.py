@@ -1,0 +1,136 @@
+"""Eager block runner (the counterpart of ``paddle_tpu/core/trace.py``).
+
+The reference traces a block's ops into one jitted XLA function.  Here
+the block runs op by op through the PyTorch lowerings, on tensors that
+already live on the executor's device.  What carries over unchanged:
+
+- the DCE mask (``dce_mask``): ops reachable from the fetches, plus
+  every op writing persistable state, run; the rest are skipped;
+- the state split: the block reads scope state it does not produce,
+  and every persistable it writes goes back into the scope after the
+  run (the reference threads these as donated outputs).
+
+A run's plan (keep mask, state reads, persistable writes) depends only
+on the program version, the feed and fetch names and the scope, so the
+executor memoizes it; ``RunPlan`` is that memo.
+"""
+
+from .registry import get_op
+
+__all__ = ["dce_mask", "analyze_block", "RunPlan", "build_plan", "run_block"]
+
+
+class _RunContextError(RuntimeError):
+    """Lowering failure annotated with op/block/shape context."""
+
+
+def dce_mask(program, block_idx, fetch_names):
+    """Keep ops reachable from the fetch targets or writing persistable
+    state (interpreter side-effect semantics), as the reference does."""
+    blk = program.block(block_idx)
+
+    def is_persistable(name):
+        v = blk._find_var_recursive(name)
+        return v is not None and v.persistable
+
+    needed = set(fetch_names)
+    keep = [False] * len(blk.ops)
+    for i in range(len(blk.ops) - 1, -1, -1):
+        op = blk.ops[i]
+        outs = op.output_arg_names()
+        if any(n in needed for n in outs) or any(is_persistable(n) for n in outs):
+            keep[i] = True
+            needed.update(op.input_arg_names())
+    return keep
+
+
+def analyze_block(program, block_idx, feed_names, fetch_names, keep):
+    """(reads, writes): names the kept ops read before any kept op
+    writes them (scope state), and every name they write."""
+    defined = set(feed_names)
+    reads, writes = [], []
+    for i, op in enumerate(program.block(block_idx).ops):
+        if not keep[i]:
+            continue
+        for n in op.input_arg_names():
+            if n not in defined and n not in reads:
+                reads.append(n)
+        for n in op.output_arg_names():
+            defined.add(n)
+            if n not in writes:
+                writes.append(n)
+    for n in fetch_names:
+        if n not in defined and n not in reads:
+            reads.append(n)
+    return reads, writes
+
+
+class RunPlan:
+    def __init__(self, block_idx, keep, state_names, updated, fetch_names):
+        self.block_idx = block_idx
+        self.keep = keep
+        self.state_names = state_names
+        self.updated = updated
+        self.fetch_names = fetch_names
+
+
+def build_plan(program, block_idx, feed_names, fetch_names, scope):
+    keep = dce_mask(program, block_idx, fetch_names)
+    reads, writes = analyze_block(program, block_idx, feed_names,
+                                  fetch_names, keep)
+    missing = [n for n in reads if not scope.has_var(n)]
+    if missing:
+        raise RuntimeError(
+            "variables %s are read by the program but neither fed nor found "
+            "in scope — run the startup program first" % missing)
+    block = program.block(block_idx)
+
+    def is_persistable(name):
+        v = block._find_var_recursive(name)
+        return v is not None and v.persistable
+
+    updated = [n for n in writes if n in reads or is_persistable(n)]
+    return RunPlan(block_idx, keep, list(reads), updated, list(fetch_names))
+
+
+def run_block(program, plan, feeds, scope, ctx):
+    """Run the plan's kept ops eagerly.  Returns the fetched tensors and
+    writes every updated persistable back into `scope`."""
+    env = {n: scope.find_var(n) for n in plan.state_names}
+    env.update(feeds)
+    blk = program.block(plan.block_idx)
+    for idx, op in enumerate(blk.ops):
+        if not plan.keep[idx]:
+            continue
+        ctx.op_idx = (plan.block_idx << 20) | idx
+        ins = {}
+        for slot, names in op.inputs.items():
+            vals = []
+            for n in names:
+                if n not in env:
+                    raise RuntimeError("op %s reads undefined var %s"
+                                       % (op.type, n))
+                vals.append(env[n])
+            ins[slot] = vals
+        try:
+            outs = get_op(op.type).lower(ctx, ins, op.attrs)
+        except Exception as e:
+            shapes = {slot: [tuple(getattr(v, "shape", ())) for v in vals]
+                      for slot, vals in ins.items()}
+            raise _RunContextError(
+                "while running op '%s' (block %d, op %d) with input shapes "
+                "%s: %s: %s" % (op.type, plan.block_idx, idx, shapes,
+                                type(e).__name__, e)) from e
+        for slot, names in op.outputs.items():
+            for n, v in zip(names, outs.get(slot) or ()):
+                if n and v is not None:
+                    env[n] = v
+    fetches = []
+    for n in plan.fetch_names:
+        if n not in env:
+            raise RuntimeError("fetch var %s was never produced" % n)
+        fetches.append(env[n])
+    for n in plan.updated:
+        if n in env:
+            scope.set(n, env[n])
+    return fetches

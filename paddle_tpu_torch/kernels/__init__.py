@@ -1,0 +1,24 @@
+"""Hand-written Hopper kernels (the counterpart of
+``paddle_tpu/ops/pallas_kernels.py``), one module per kernel, each with
+its plain PyTorch version beside it.  ``build.py`` compiles ``csrc/``
+at first use."""
+
+from .add_layer_norm import add_layer_norm_plain, fused_add_layer_norm
+from .flash_attention import (
+    NEG_INF,
+    flash_attention_qvec,
+    flash_attention_qvec_plain,
+)
+from .matmul_epilogue import (
+    MM_ACTS,
+    matmul_bias_act,
+    matmul_bias_act_plain,
+    mm_act,
+)
+
+KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec)
+
+
+def reset_launch_counts():
+    for fn in KERNELS:
+        fn.launches = 0

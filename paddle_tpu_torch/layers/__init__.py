@@ -1,0 +1,5 @@
+"""Layer builders (the counterpart of ``paddle_tpu/layers``)."""
+
+from .io import *  # noqa: F401,F403
+from .nn import *  # noqa: F401,F403
+from .tensor import *  # noqa: F401,F403

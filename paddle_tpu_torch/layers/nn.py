@@ -1,0 +1,200 @@
+"""Neural-net layers (the counterpart of ``paddle_tpu/layers/nn.py``):
+the builders the serving slice and the GPT-2 logits program call.  Each
+appends ops through LayerHelper exactly as the reference does, so the
+same calls generate the same var and parameter names."""
+
+import numpy as np
+
+from ..initializer import Constant
+from ..layer_helper import LayerHelper
+
+__all__ = [
+    "fc", "embedding", "layer_norm", "mul", "matmul", "reshape", "transpose",
+    "slice", "elementwise_add", "elementwise_mul", "gather",
+    "fused_attention", "slot_cache_write",
+]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully-connected: per input a mul op, summed, bias, activation."""
+    helper = LayerHelper("fc", **locals())
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var, param_attr_ in zip(
+            helper.multiple_input(),
+            helper.multiple_param_attr(len(helper.multiple_input()))):
+        param_shape = [int(np.prod(input_var.shape[num_flatten_dims:]))] + [size]
+        w = helper.create_parameter(attr=param_attr_, shape=param_shape,
+                                    dtype=dtype, is_bias=False)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            "mul", inputs={"X": [input_var], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) != 1:
+        raise NotImplementedError("fc over several inputs (the sum op) is not "
+                                  "ported yet")
+    pre_act = helper.append_bias_op(mul_results[0], dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    helper = LayerHelper("embedding", **locals())
+    w = helper.create_parameter(attr=helper.param_attr, shape=size,
+                                dtype=dtype, is_bias=False)
+    tmp = helper.create_variable_for_type_inference(dtype)
+    padding_idx = (-1 if padding_idx is None else padding_idx
+                   if padding_idx >= 0 else size[0] + padding_idx)
+    helper.append_op(
+        "lookup_table", inputs={"W": [w], "Ids": [input]},
+        outputs={"Out": [tmp]},
+        attrs={"padding_idx": padding_idx, "is_sparse": bool(is_sparse),
+               "is_distributed": bool(is_distributed)})
+    return tmp
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", **locals())
+    dtype = helper.input_dtype()
+    param_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=helper.param_attr, shape=param_shape, dtype=dtype,
+            default_initializer=Constant(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=param_shape, dtype=dtype,
+            is_bias=True)]
+    mean_out = helper.create_variable_for_type_inference(dtype,
+                                                         stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference(dtype,
+                                                        stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "layer_norm", inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean_out], "Variance": [var_out]},
+        attrs={"begin_norm_axis": begin_norm_axis, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "mul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "matmul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)})
+    return out
+
+
+def _simple(op_type, x, attrs=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs=attrs or {})
+    return out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("reshape2", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape)})
+    return helper.append_activation(out) if act else out
+
+
+def transpose(x, perm, name=None):
+    return _simple("transpose2", x, {"axis": list(perm)}, name)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "slice", inputs={"Input": [input]}, outputs={"Out": [out]},
+        attrs={"axes": list(axes), "starts": list(starts),
+               "ends": list(ends)})
+    return out
+
+
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    if act:
+        helper.kwargs["act"] = act
+        return helper.append_activation(out)
+    return out
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def fused_attention(q, k, v, causal=False, scale=None, bias=None, window=0,
+                    segment_ids=None, qstart=None, name=None):
+    """Fused scaled-dot-product attention over [batch, heads, T, d]; a
+    [batch] qstart keeps per-row offset-causal cutoffs (the ragged
+    serving step)."""
+    window = int(window)
+    if window < 0:
+        raise ValueError("fused_attention: window must be >= 0")
+    if window and not causal:
+        raise ValueError("fused_attention: window requires causal=True")
+    if qstart is not None and not causal:
+        raise ValueError("fused_attention: qstart requires causal=True "
+                         "(it defines the global causal cutoffs)")
+    helper = LayerHelper("fused_attention", **locals())
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    if segment_ids is not None:
+        inputs["SegmentIds"] = [segment_ids]
+    if qstart is not None:
+        inputs["QStart"] = [qstart]
+    helper.append_op("fused_attention", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"causal": causal, "scale": scale,
+                            "window": int(window)})
+    return out
+
+
+def slot_cache_write(cache, new, pos, width, name=None):
+    """Per-row ragged KV-cache write; returns the updated full-length
+    cache (the caller assigns it back to the persistable var)."""
+    helper = LayerHelper("slot_cache_write", **locals())
+    out = helper.create_variable_for_type_inference(cache.dtype)
+    helper.append_op("slot_cache_write",
+                     inputs={"Cache": [cache], "New": [new], "Pos": [pos],
+                             "Width": [width]},
+                     outputs={"Out": [out]})
+    return out

@@ -1,0 +1,40 @@
+"""Tensor-building layers (the counterpart of
+``paddle_tpu/layers/tensor.py``): the builders the serving slice calls."""
+
+from .. import framework
+from ..layer_helper import LayerHelper
+
+__all__ = ["create_parameter", "assign", "fill_constant"]
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter", name=name)
+    if attr is None:
+        attr = ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
+
+
+def assign(input, output=None):
+    if not isinstance(input, framework.Variable):
+        raise NotImplementedError(
+            "assign from a host value (assign_value) is not ported yet")
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("assign", inputs={"X": [input]}, outputs={"Out": [output]})
+    return output
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value)})
+    out.stop_gradient = True
+    return out

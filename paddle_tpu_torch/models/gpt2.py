@@ -1,0 +1,190 @@
+"""GPT-2-style decoder-only LM (the counterpart of
+``paddle_tpu/models/gpt2.py``): ``GPT2Config`` (GPT-2 small by
+default), ``gpt2_lm``, ``gpt2_logits_program`` (its startup initializes
+the weights) and ``gpt2_ragged_step_program`` (the serving engine's
+step).  Built under ``unique_name.guard()`` as in the reference, so the
+parameter names are the reference's and weights cross between the
+packages by name (``paddle_tpu_torch.io.params_from_numpy``).
+
+Options whose kernels or ops are not ported yet raise: ``use_swiglu``
+(ROADMAP B6), ``use_rotary`` and ``n_kv_head < n_head`` (ROADMAP A5).
+"""
+
+from .. import framework, layers, unique_name
+from ..initializer import Normal
+from ..param_attr import ParamAttr
+
+__all__ = ["GPT2Config", "gpt2_lm", "gpt2_logits_program",
+           "gpt2_ragged_step_program"]
+
+
+class GPT2Config:
+    """GPT-2 small: vocab 50257, n_ctx 1024, d_model 768, 12 layers, 12
+    heads, learned positions, gelu MLP, untied head."""
+
+    vocab_size = 50257
+    n_ctx = 1024
+    d_model = 768
+    n_layer = 12
+    n_head = 12
+    n_kv_head = None
+    use_rotary = False
+    use_swiglu = False
+    ffn_multiple_of = 1
+    tie_embeddings = False
+    dropout = 0.1
+    recompute = False
+    partition_family = "gpt2"
+
+
+def _check_ported(hp):
+    if getattr(hp, "use_swiglu", False):
+        raise NotImplementedError("use_swiglu needs the matmul_swiglu kernel "
+                                  "(ROADMAP B6), not ported yet")
+    if getattr(hp, "use_rotary", False):
+        raise NotImplementedError("use_rotary is not ported yet (ROADMAP A5)")
+    n_kv = getattr(hp, "n_kv_head", None)
+    if n_kv is not None and n_kv < hp.n_head:
+        raise NotImplementedError("grouped-query attention (n_kv_head < "
+                                  "n_head) is not ported yet (ROADMAP A5)")
+
+
+def _pa(base, std=0.02):
+    return ParamAttr(name=unique_name.generate(base),
+                     initializer=Normal(0.0, std))
+
+
+def _attn(x, hp, is_test, cache=None):
+    from . import transformer as tfm
+
+    return tfm.multi_head_attention(
+        x, x, x, None, hp.d_model, hp.n_head, dropout_rate=0.0,
+        is_test=is_test, fused=True, causal=cache is None, cache=cache,
+        n_kv_head=getattr(hp, "n_kv_head", None),
+        rotary=getattr(hp, "use_rotary", False))
+
+
+def _block(x, hp, is_test, cache=None):
+    """One decoder block: x + attn(ln(x)), then x + ffn(ln(x))."""
+    if hp.dropout and not is_test:
+        raise NotImplementedError("dropout (training) is not ported yet")
+    a = _attn(layers.layer_norm(x, begin_norm_axis=2), hp, is_test, cache)
+    x = layers.elementwise_add(x, a)
+    ln = layers.layer_norm(x, begin_norm_axis=2)
+    h = layers.fc(ln, size=4 * hp.d_model, num_flatten_dims=2, act="gelu",
+                  param_attr=_pa("ffn_in.w"), bias_attr=_pa("ffn_in.b"))
+    h = layers.fc(h, size=hp.d_model, num_flatten_dims=2,
+                  param_attr=_pa("ffn_out.w"))
+    return layers.elementwise_add(x, h)
+
+
+def _tied_logits(x, hp, emb_name):
+    """x @ emb.w^T when tie_embeddings, else a separate softmax_out.w."""
+    if getattr(hp, "tie_embeddings", False):
+        w = framework.default_main_program().global_block().var(emb_name)
+        return layers.matmul(x, w, transpose_y=True)
+    return layers.fc(x, size=hp.vocab_size, num_flatten_dims=2,
+                     bias_attr=False, param_attr=_pa("softmax_out.w"))
+
+
+def gpt2_lm(ids, hp=GPT2Config, is_test=False):
+    """[B, T] token ids -> [B, T, vocab] next-token logits."""
+    _check_ported(hp)
+    emb_attr = _pa("emb.w")
+    tok = layers.embedding(ids, size=[hp.vocab_size, hp.d_model],
+                           param_attr=emb_attr)
+    pos_table = layers.create_parameter(
+        shape=[hp.n_ctx, hp.d_model], dtype="float32",
+        attr=_pa("pos_emb.w", 0.01))
+    pos = layers.slice(pos_table, axes=[0], starts=[0], ends=[ids.shape[1]])
+    x = layers.elementwise_add(tok, pos, axis=1)
+    for _ in range(hp.n_layer):
+        x = _block(x, hp, is_test)
+    x = layers.layer_norm(x, begin_norm_axis=2)
+    return _tied_logits(x, hp, emb_attr.name)
+
+
+def gpt2_logits_program(hp=GPT2Config, seq_len=128):
+    """Inference program fetching the full [B, T, vocab] logits; its
+    startup program initializes every weight."""
+    main = framework.Program()
+    startup = framework.Program()
+    with framework.program_guard(main, startup), unique_name.guard():
+        ids = layers.data("ids", shape=[seq_len], dtype="int64")
+        logits = gpt2_lm(ids, hp, is_test=True)
+    return main, startup, ["ids"], [logits]
+
+
+def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
+                             cache_prefix="gpt2"):
+    """The continuous-batching serving step: width-W decode over a pool
+    of `batch` cache slots, each at its own position.
+
+        feeds:  step_ids [B, W] int64, pos_rows [B] int64,
+                width_rows [B] int64, pos_mat [B, W] int64
+        fetch:  logits [B, W, vocab] — row b column i predicts position
+                pos_rows[b] + i + 1
+        state:  per-layer <cache_prefix>_{k,v}cache_<i> persistables,
+                float32 (the kernels take float32; the reference's
+                cache_dtype waits for their bf16 forms)
+
+    Cache writes go through slot_cache_write (per-row position and
+    width, out-of-width columns dropped) and attention masks per-row
+    offset-causal (fused_attention with a vector qstart).  Row b's
+    logits depend only on row b's request, the serving engine's
+    pooled == solo contract.  Returns (main, cache_startup, feeds,
+    fetches, cache_names)."""
+    _check_ported(hp)
+    from .decode_cache import add_cache_zero_fills, create_kv_caches
+
+    t_max = t_max or hp.n_ctx
+    assert t_max <= hp.n_ctx, (
+        "t_max %d exceeds the position table n_ctx %d" % (t_max, hp.n_ctx))
+    width = int(width)
+    assert 1 <= width <= t_max, (width, t_max)
+    dh = hp.d_model // hp.n_head
+    main = framework.Program()
+    cache_startup = framework.Program()
+    throwaway_startup = framework.Program()  # weights come by name
+    with framework.program_guard(main, throwaway_startup), unique_name.guard():
+        ids = layers.data("step_ids", shape=[batch, width], dtype="int64",
+                          append_batch_size=False)
+        pos_rows = layers.data("pos_rows", shape=[batch], dtype="int64",
+                               append_batch_size=False)
+        width_rows = layers.data("width_rows", shape=[batch], dtype="int64",
+                                 append_batch_size=False)
+        pos_mat = layers.data("pos_mat", shape=[batch, width], dtype="int64",
+                              append_batch_size=False)
+        emb_attr = _pa("emb.w")
+        tok = layers.embedding(ids, size=[hp.vocab_size, hp.d_model],
+                               param_attr=emb_attr)
+        tok = layers.reshape(tok, shape=[batch, width, hp.d_model])
+        pos_table = layers.create_parameter(
+            shape=[hp.n_ctx, hp.d_model], dtype="float32",
+            attr=_pa("pos_emb.w", 0.01))
+        x = layers.elementwise_add(tok, layers.gather(pos_table, pos_mat))
+        kv_caches, cache_names = create_kv_caches(
+            main.global_block(), cache_prefix, hp.n_layer, batch, hp.n_head,
+            t_max, dh)
+        add_cache_zero_fills(
+            cache_startup,
+            [(n, (batch, hp.n_head, t_max, dh)) for n in cache_names])
+        for cache in kv_caches:
+            cache["pos_rows"] = pos_rows
+            cache["width_rows"] = width_rows
+            x = _block(x, hp, is_test=True, cache=cache)
+        x = layers.layer_norm(x, begin_norm_axis=2)
+        logits = _tied_logits(x, hp, emb_attr.name)
+        _apply_decode_epilogue_passes(main, logits)
+    feeds = ["step_ids", "pos_rows", "width_rows", "pos_mat"]
+    return main, cache_startup, feeds, [logits], cache_names
+
+
+def _apply_decode_epilogue_passes(main, logits):
+    """Apply the matmul-epilogue fuse bundle, protecting the logits fetch
+    (a fuse deletes every intermediate of its chain)."""
+    from ..transpiler import apply_pass
+
+    prev = tuple(getattr(main, "_protected_fetch_names", ()) or ())
+    main._protected_fetch_names = tuple(dict.fromkeys(prev + (logits.name,)))
+    apply_pass(main, "matmul_epilogue_fuse_pass")

@@ -1,0 +1,3 @@
+"""Op lowerings; importing this package registers them all."""
+
+from . import math_ops, nn_ops, tensor_ops  # noqa: F401

@@ -1,0 +1,212 @@
+"""paddle_tpu_torch kernels: each plain PyTorch version against the JAX
+entry point it replaces, run as tests/test_pallas_kernels.py runs it
+(Pallas interpret mode on the CPU), plus the wrappers' dispatch rules:
+CPU and meta tensors take the plain version without counting a launch,
+and the kernel path raises rather than falling back.
+
+Tolerance: rtol = atol = 1e-5 in float32 — the two sides sum in
+different orders (XLA vs PyTorch CPU kernels), nothing else differs."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.ops import pallas_kernels as pk
+from paddle_tpu_torch import framework, unique_name
+from paddle_tpu_torch.core import scope as scope_mod
+from paddle_tpu_torch.kernels import (
+    MM_ACTS,
+    add_layer_norm_plain,
+    build,
+    flash_attention_qvec,
+    flash_attention_qvec_plain,
+    fused_add_layer_norm,
+    matmul_bias_act,
+    matmul_bias_act_plain,
+)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_state():
+    """Fresh port programs, scope and name counters per test."""
+    old_main = framework.switch_main_program(framework.Program())
+    old_startup = framework.switch_startup_program(framework.Program())
+    old_gen = unique_name.switch()
+    old_scope = scope_mod._switch_scope(scope_mod.Scope())
+    yield
+    framework.switch_main_program(old_main)
+    framework.switch_startup_program(old_startup)
+    unique_name.switch(old_gen)
+    scope_mod._switch_scope(old_scope)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# matmul_bias_act
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("act", [a for a in MM_ACTS])
+def test_matmul_bias_act_plain_matches_reference(act, with_bias):
+    rng = np.random.RandomState(20)
+    x = rng.randn(24, 40).astype("float32")
+    w = (rng.randn(40, 48) * 0.2).astype("float32")
+    b = rng.randn(48).astype("float32") if with_bias else None
+    ref = pk.matmul_bias_act(jnp.asarray(x), jnp.asarray(w),
+                             None if b is None else jnp.asarray(b), act, 8, 48)
+    out = matmul_bias_act_plain(_t(x), _t(w), None if b is None else _t(b),
+                                act)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_matmul_bias_act_plain_matches_reference_ragged_rows():
+    """M not a multiple of any tile (7 rows), odd K and N."""
+    rng = np.random.RandomState(21)
+    x = rng.randn(7, 12).astype("float32")
+    w = (rng.randn(12, 20) * 0.3).astype("float32")
+    b = rng.randn(20).astype("float32")
+    ref = pk.matmul_bias_act(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                             "gelu", 1, 20)
+    out = matmul_bias_act(_t(x), _t(w), _t(b), "gelu")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_matmul_bias_act_unknown_activation_raises():
+    x = torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="unsupported activation"):
+        matmul_bias_act(x, torch.zeros(3, 4), None, "elu")
+
+
+# ---------------------------------------------------------------------------
+# fused_add_layer_norm
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rows", [24, 7])
+def test_add_layer_norm_plain_matches_reference(rows):
+    rng = np.random.RandomState(24)
+    x = rng.randn(rows, 32).astype("float32")
+    y = rng.randn(rows, 32).astype("float32")
+    g = (rng.rand(32) + 0.5).astype("float32")
+    b = rng.randn(32).astype("float32")
+    rs, ro = pk.fused_add_layer_norm(jnp.asarray(x), jnp.asarray(y),
+                                     jnp.asarray(g), jnp.asarray(b), 1e-5,
+                                     8 if rows % 8 == 0 else 1)
+    s, o, mean, var = fused_add_layer_norm(_t(x), _t(y), _t(g), _t(b), 1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), **TOL)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ro), **TOL)
+    # the row statistics the fused_residual_ln op outputs (the reference
+    # lowering recomputes them from the sum)
+    rsum = np.asarray(rs)
+    assert mean.shape == var.shape == (rows,)
+    np.testing.assert_allclose(mean.numpy(), rsum.mean(-1), **TOL)
+    np.testing.assert_allclose(var.numpy(), rsum.var(-1), **TOL)
+    plain = add_layer_norm_plain(_t(x), _t(y), _t(g), _t(b), 1e-5)
+    for got, want in zip((s, o, mean, var), plain):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_qvec
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("tq,tk,qstarts", [
+    (8, 16, [0, 3, 5, 8, 2, 7]),   # 8 = Tk - Tq
+    (4, 16, [0, 6, 12, 12, 1, 9]),  # 0, mid-cache and Tk - Tq
+])
+def test_flash_attention_qvec_plain_matches_reference(tq, tk, qstarts):
+    rng = np.random.RandomState(30)
+    bh, d = len(qstarts), 8
+    q = rng.randn(bh, tq, d).astype("float32")
+    k = rng.randn(bh, tk, d).astype("float32")
+    v = rng.randn(bh, tk, d).astype("float32")
+    qs = np.array(qstarts, "int32")
+    ref = pk.flash_attention_qvec(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(qs), None,
+                                  tq, 8)
+    out = flash_attention_qvec(_t(q), _t(k), _t(v), _t(qs.astype("int64")))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    plain = flash_attention_qvec_plain(_t(q), _t(k), _t(v), _t(qs))
+    np.testing.assert_array_equal(out.numpy(), plain.numpy())
+
+
+# ---------------------------------------------------------------------------
+# wrapper dispatch: plain for CPU/meta without a launch; no fallback
+# ---------------------------------------------------------------------------
+def _calls(device):
+    x = torch.ones(4, 64, device=device)
+    g = torch.ones(64, device=device)
+    yield lambda: fused_add_layer_norm(x, x, g, g)
+    yield lambda: matmul_bias_act(x, torch.ones(64, 8, device=device),
+                                  torch.ones(8, device=device), "gelu")
+    q = torch.ones(2, 4, 64, device=device)
+    yield lambda: flash_attention_qvec(q, q, q, torch.zeros(2, device=device,
+                                                            dtype=torch.long))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_wrappers_take_plain_path_without_counting(device):
+    fns = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec)
+    before = [f.launches for f in fns]
+    for call in _calls(device):
+        out = call()
+        out = out[0] if isinstance(out, tuple) else out
+        assert out.device.type == device
+    assert [f.launches for f in fns] == before
+
+
+def test_kernel_path_raises_when_the_library_cannot_build(monkeypatch,
+                                                         tmp_path):
+    """A tensor routed to the kernel path with no buildable library
+    raises — never a silent plain fallback."""
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "DEFAULT_NVCC", "/nonexistent/bin/nvcc")
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    before = matmul_bias_act.launches
+    for call in _calls("cpu"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert matmul_bias_act.launches == before
+
+
+def test_declared_signatures_match_the_c_sources():
+    """build.SIGNATURES (the ctypes argument types) against every
+    `extern "C"` entry point in csrc: a pointer or stream is c_void_p,
+    an int c_int, a float c_float, in order.  No compiler runs here, so
+    this is what catches a drifted declaration before the card does."""
+    import ctypes
+    import os
+    import re
+
+    kinds = {}
+    for path in build.sources():
+        with open(path) as f:
+            src = f.read()
+        for name, params in re.findall(r'extern "C" int (ptt_\w+)\(([^)]*)\)',
+                                       src):
+            kinds[name] = tuple(
+                ctypes.c_void_p if ("*" in p or "cudaStream_t" in p)
+                else ctypes.c_float if p.split()[0] == "float"
+                else ctypes.c_int
+                for p in (q.strip() for q in params.split(",")))
+    assert set(kinds) == set(build.SIGNATURES), os.listdir(build.CSRC)
+    for name, argtypes in build.SIGNATURES.items():
+        assert kinds[name] == argtypes, name
+
+
+def test_kernel_path_refuses_bf16_and_grad(monkeypatch):
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    x = torch.ones(4, 64, dtype=torch.bfloat16)
+    g = torch.ones(64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        fused_add_layer_norm(x, x, g, g)
+    w = torch.ones(64, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        matmul_bias_act(torch.ones(4, 64), w, None, "")

@@ -1,0 +1,244 @@
+"""paddle_tpu_torch op lowerings against the reference lowerings on
+shared numpy inputs (the tests/op_test.py pattern): every op type of the
+serving slice's programs, the ops the builders emit before fusion, and
+the GPT-2 logits program's main and startup ops.  The reference runs
+its dense (non-Pallas) lowerings on the CPU.
+
+Tolerance: rtol = atol = 1e-5 in float32 (summation order only); index
+and copy ops match exactly.  Random init ops cannot match the
+reference's threefry streams, so they are held to shape, dtype, range
+and moments instead."""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu  # noqa: F401  (registers the reference lowerings)
+from paddle_tpu.core.registry import LowerCtx as RefCtx
+from paddle_tpu.core.registry import get_op as ref_op
+from paddle_tpu_torch import framework, unique_name
+from paddle_tpu_torch.core import scope as scope_mod
+from paddle_tpu_torch.core.registry import LowerCtx, get_op
+from paddle_tpu_torch.ops import nn_ops
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_state():
+    """Fresh port programs, scope and name counters per test."""
+    old_main = framework.switch_main_program(framework.Program())
+    old_startup = framework.switch_startup_program(framework.Program())
+    old_gen = unique_name.switch()
+    old_scope = scope_mod._switch_scope(scope_mod.Scope())
+    yield
+    framework.switch_main_program(old_main)
+    framework.switch_startup_program(old_startup)
+    unique_name.switch(old_gen)
+    scope_mod._switch_scope(old_scope)
+
+
+def _run_both(op_type, ins, attrs):
+    """Run one op through both lowerings on copies of the same numpy
+    inputs; returns ({slot: [np]} reference, {slot: [np]} port)."""
+    import jax.numpy as jnp
+
+    r = ref_op(op_type).lower(
+        RefCtx(), {s: [jnp.asarray(a) for a in v] for s, v in ins.items()},
+        attrs)
+    t = get_op(op_type).lower(
+        LowerCtx(device="cpu"),
+        {s: [torch.tensor(a) for a in v] for s, v in ins.items()}, attrs)
+    return ({s: [np.asarray(a) for a in v] for s, v in r.items()},
+            {s: [a.numpy() for a in v] for s, v in t.items()})
+
+
+def _check(op_type, ins, attrs, exact=False):
+    ref, out = _run_both(op_type, ins, attrs)
+    assert set(out) == set(ref), (op_type, set(out), set(ref))
+    for slot in ref:
+        for a, b in zip(ref[slot], out[slot]):
+            assert a.shape == b.shape, (op_type, slot, a.shape, b.shape)
+            if exact:
+                np.testing.assert_array_equal(b, a.astype(b.dtype))
+            else:
+                np.testing.assert_allclose(b, a, **TOL)
+
+
+_R = np.random.RandomState(5)
+_F = lambda *s: _R.randn(*s).astype("float32")  # noqa: E731
+_I = lambda hi, *s: _R.randint(0, hi, s).astype("int64")  # noqa: E731
+
+_CASES = {
+    "lookup_table": ("lookup_table", {"W": [_F(11, 6)], "Ids": [_I(11, 3, 4)]},
+                     {"padding_idx": -1}, True),
+    "lookup_table_pad": ("lookup_table",
+                         {"W": [_F(11, 6)], "Ids": [_I(11, 3, 4)]},
+                         {"padding_idx": 2}, True),
+    "reshape2": ("reshape2", {"X": [_F(2, 3, 4)]}, {"shape": [2, 12]}, True),
+    "reshape2_zero": ("reshape2", {"X": [_F(2, 3, 4)]}, {"shape": [0, -1]},
+                      True),
+    "transpose2": ("transpose2", {"X": [_F(2, 3, 4, 5)]},
+                   {"axis": [0, 2, 1, 3]}, True),
+    "gather": ("gather", {"X": [_F(9, 4)], "Index": [_I(9, 2, 3)]}, {}, True),
+    "assign": ("assign", {"X": [_F(3, 4)]}, {}, True),
+    "slice": ("slice", {"Input": [_F(8, 4)]},
+              {"axes": [0], "starts": [0], "ends": [5]}, True),
+    "fill_constant": ("fill_constant", {},
+                      {"shape": [2, 3], "dtype": "float32", "value": 0.5},
+                      True),
+    "mul": ("mul", {"X": [_F(2, 3, 4)], "Y": [_F(4, 5)]},
+            {"x_num_col_dims": 2, "y_num_col_dims": 1}, False),
+    "matmul_ty": ("matmul", {"X": [_F(2, 3, 4)], "Y": [_F(5, 4)]},
+                  {"transpose_X": False, "transpose_Y": True, "alpha": 1.0},
+                  False),
+    "elementwise_add": ("elementwise_add", {"X": [_F(2, 3, 4)],
+                                            "Y": [_F(2, 3, 4)]},
+                        {"axis": -1}, False),
+    "elementwise_add_axis1": ("elementwise_add", {"X": [_F(2, 3, 4)],
+                                                  "Y": [_F(3, 4)]},
+                              {"axis": 1}, False),
+    "elementwise_mul_axis0": ("elementwise_mul", {"X": [_F(3, 2, 4, 2)],
+                                                  "Y": [_F(3)]},
+                              {"axis": 0}, False),
+    "gelu": ("gelu", {"X": [_F(4, 7)]}, {}, False),
+    "layer_norm": ("layer_norm", {"X": [_F(2, 3, 8)], "Scale": [_F(8)],
+                                  "Bias": [_F(8)]},
+                   {"begin_norm_axis": 2, "epsilon": 1e-5}, False),
+    "fused_residual_ln": ("fused_residual_ln",
+                          {"X": [_F(2, 3, 8)], "Y": [_F(2, 3, 8)],
+                           "Scale": [_F(8)], "Bias": [_F(8)]},
+                          {"epsilon": 1e-5, "begin_norm_axis": 2}, False),
+    "fused_attention_qvec": (
+        "fused_attention",
+        {"Q": [_F(3, 2, 4, 8)], "K": [_F(3, 2, 12, 8)], "V": [_F(3, 2, 12, 8)],
+         "QStart": [np.array([0, 5, 8], "int64")]},
+        {"causal": True, "scale": 8 ** -0.5, "window": 0}, False),
+    "fused_attention_qvec_one_row": (
+        "fused_attention",
+        {"Q": [_F(1, 2, 4, 8)], "K": [_F(1, 2, 12, 8)], "V": [_F(1, 2, 12, 8)],
+         "QStart": [np.array([6], "int64")]},
+        {"causal": True, "scale": 8 ** -0.5, "window": 0}, False),
+    "fused_attention_causal": (
+        "fused_attention",
+        {"Q": [_F(2, 2, 6, 8)], "K": [_F(2, 2, 6, 8)], "V": [_F(2, 2, 6, 8)]},
+        {"causal": True, "scale": None, "window": 0}, False),
+    "fused_attention_bias": (
+        "fused_attention",
+        {"Q": [_F(2, 2, 3, 8)], "K": [_F(2, 2, 6, 8)], "V": [_F(2, 2, 6, 8)],
+         "Bias": [np.where(_R.rand(2, 6) < 0.3, -1e9, 0).astype("float32")]},
+        {"causal": False, "scale": 0.3, "window": 0}, False),
+    "fused_attention_scalar_qstart": (
+        "fused_attention",
+        {"Q": [_F(2, 2, 3, 8)], "K": [_F(2, 2, 9, 8)], "V": [_F(2, 2, 9, 8)],
+         "QStart": [np.array([4], "int64")]},
+        {"causal": True, "scale": None, "window": 0}, False),
+}
+for _act in ("", "relu", "tanh", "sigmoid", "gelu", "swish"):
+    _CASES["fc_" + (_act or "none")] = (
+        "fc", {"Input": [_F(2, 3, 6)], "W": [_F(6, 5)], "Bias": [_F(5)]},
+        {"in_num_col_dims": 2, "activation_type": _act}, False)
+_CASES["fc_nobias"] = ("fc", {"Input": [_F(4, 6)], "W": [_F(6, 5)]},
+                       {"in_num_col_dims": 1, "activation_type": "gelu"},
+                       False)
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_lowering_matches_reference(case):
+    op_type, ins, attrs, exact = _CASES[case]
+    _check(op_type, ins, attrs, exact)
+
+
+@pytest.mark.parametrize("pos,width", [
+    ([0, 3, 6], [4, 2, 0]),     # dropped beyond width; a free (width-0) row
+    ([5, 6, 7], [4, 4, 4]),     # dropped past t_max = 8
+    ([4, 0, 7], [3, 4, 1]),     # ends at t_max exactly; a full row; the last cell
+])
+def test_slot_cache_write_matches_reference_and_drops(pos, width):
+    B, H, W, T, D = 3, 2, 4, 8, 2
+    cache = _F(B, H, T, D)
+    new = _F(B, H, W, D)
+    ins = {"Cache": [cache], "New": [new], "Pos": [np.array(pos, "int64")],
+           "Width": [np.array(width, "int64")]}
+    ref, out = _run_both("slot_cache_write", ins, {})
+    np.testing.assert_array_equal(out["Out"][0], ref["Out"][0])
+    # never clamped: every cell outside the valid writes keeps its value
+    expect = cache.copy()
+    for b in range(B):
+        for i in range(min(width[b], T - pos[b])):
+            expect[b, :, pos[b] + i] = new[b, :, i]
+    np.testing.assert_array_equal(out["Out"][0], expect)
+
+
+@pytest.mark.parametrize("op_type,attrs", [
+    ("gaussian_random", {"shape": [64, 64], "dtype": "float32", "mean": 0.5,
+                         "std": 0.02, "seed": 0}),
+    ("uniform_random", {"shape": [64, 64], "dtype": "float32", "min": -0.2,
+                        "max": 0.3, "seed": 0}),
+])
+def test_random_init_ops_match_reference_distribution(op_type, attrs):
+    ref, out = _run_both(op_type, {}, attrs)
+    a, b = ref["Out"][0], out["Out"][0]
+    assert a.shape == b.shape and b.dtype == np.float32
+    if op_type == "uniform_random":
+        lo, hi = attrs["min"], attrs["max"]
+        mean, std = (lo + hi) / 2, (hi - lo) / 12 ** 0.5
+        assert b.min() >= lo and b.max() < hi
+    else:
+        mean, std = attrs["mean"], attrs["std"]
+    # each package's draw holds the op's own moments to 4 standard errors;
+    # the two draws are not compared with each other, since independent
+    # draws differ by about one standard error by chance
+    n = b.size
+    for draw in (a, b):
+        assert abs(draw.mean() - mean) < 4 * std / n ** 0.5
+        assert abs(draw.std() - std) < 4 * std / (2 * n) ** 0.5
+    # seeded: the same run context draws the same numbers
+    again = get_op(op_type).lower(LowerCtx(device="cpu"), {}, attrs)
+    np.testing.assert_array_equal(again["Out"][0].numpy(), b)
+
+
+@pytest.mark.parametrize("b,n_qstart,window,kernel", [
+    (3, 3, 0, True),   # the ragged step's per-row QStart
+    (1, 1, 0, True),   # a one-slot pool: one row, one base
+    (3, 1, 0, False),  # one base for three rows: the scalar form (B9)
+    (1, 1, 2, False),  # a window needs the scalar form
+])
+def test_fused_attention_qstart_dispatch(monkeypatch, b, n_qstart, window,
+                                         kernel):
+    """Which QStart forms reach the flash_attention_qvec wrapper (and so
+    its CUDA kernel on the card); the others take the plain path, which
+    refuses a CUDA tensor."""
+    calls = []
+    real = nn_ops.flash_attention_qvec
+
+    def spy(*args):
+        calls.append(args[3].tolist())
+        return real(*args)
+
+    monkeypatch.setattr(nn_ops, "flash_attention_qvec", spy)
+    q = torch.tensor(_F(b, 2, 3, 8))
+    k = torch.tensor(_F(b, 2, 9, 8))
+    qs = torch.arange(4, 4 + n_qstart)
+    out = get_op("fused_attention").lower(
+        LowerCtx(device="cpu"), {"Q": [q], "K": [k], "V": [k], "QStart": [qs]},
+        {"causal": True, "scale": None, "window": window})
+    assert out["Out"][0].shape == (b, 2, 3, 8)
+    if kernel:
+        # one base per (batch row, head) row of the kernel
+        assert calls == [np.repeat(qs.numpy(), 2).tolist()]
+    else:
+        assert calls == []
+
+
+def test_unported_attention_forms_raise_on_cuda_tensors():
+    """The forms whose kernel is not ported refuse a CUDA tensor, naming
+    the ROADMAP item, instead of running a plain path on the card."""
+
+    class _OnCuda:
+        device = torch.device("cuda")
+
+    with pytest.raises(NotImplementedError, match="B3, B9"):
+        nn_ops._not_on_cuda(_OnCuda(), "fused_attention causal", "B3, B9")
+    with pytest.raises(NotImplementedError, match="B1"):
+        nn_ops._not_on_cuda(_OnCuda(), "plain layer_norm", "B1")
