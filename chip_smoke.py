@@ -2,8 +2,8 @@
 """On-card smoke run of paddle_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
-    python3 chip_smoke.py --profile  # also: where the serving step's time
-                                     # goes (chiprun_out/profile_serving.json)
+    python3 chip_smoke.py --profile  # also: where the serving and training
+                                     # steps' time goes (chiprun_out/)
 
 In order, it:
 
@@ -11,8 +11,8 @@ In order, it:
    (torch, its CUDA, nvcc);
 2. builds the hand-written kernels from paddle_tpu_torch/kernels/csrc;
 3. holds each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes plus ragged ones, and times kernel, plain
-   version and one PyTorch library call with CUDA events;
+   the serving and training paths' shapes plus ragged ones, and times
+   kernel, plain version and one PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
    kernel's launch count reset just before and read just after; checks
@@ -25,8 +25,18 @@ In order, it:
    other;
 6. with --profile, serves a short trace under torch.profiler and reports
    device busy time and idle share, torch calls, device time by kernel
-   and host time by engine span;
-7. prints the kernels line and, last, the result line.
+   and host time by engine span (chiprun_out/profile_serving.json);
+7. trains Transformer-base (the WMT program: 6+6 layers, d_model 512,
+   vocab 10000, dropout and label smoothing 0.1, noam lr, Adam) on batch
+   64 x 64 from seeded random weights: one warm-up step, 10 timed steps
+   with every launch count reset just before and read just after and
+   held to the count the program implies, then one step twice from the
+   same saved state, bit for bit, and one step whose dropout_grad ops
+   must redraw their forward ops' masks (with --profile, 3 more steps
+   under the profiler, chiprun_out/profile_training.json);
+8. trains a narrow WMT config 3 steps on the card and on the CPU plain
+   path from the same weights and holds the losses to 1e-5 relative;
+9. prints the kernels line and, last, the result line.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -42,6 +52,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # GPT-2 small serving pool of the smoke run
 N_SLOTS, WIDTH, T_MAX = 8, 16, 1024
+# Transformer-base training step: batch 64 x (64 source, 64 target) tokens
+TRAIN_BATCH, TRAIN_LEN = 64, 64
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_LEN  # 4096 target rows per step
+HP_D_MODEL, HP_VOCAB = 512, 10000  # ModelHyperParams' d_model, trg vocab
+TRAIN_STEPS = 10
+SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
+                   "flash_attention_qvec")
 # H100 SXM published peaks (NVIDIA data sheet) used for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -120,9 +137,11 @@ def check_kernels(dev):
 
     # ---- fused_add_layer_norm: 16 R H bytes ---------------------------
     err = 0.0
-    for r in (rows, 7, 1):
-        x, y = randn(r, d_model), randn(r, d_model)
-        gam, bet = randn(d_model), randn(d_model)
+    # the serving rows, ragged ones, and the training step's [4096, 512]
+    for r, h in ((rows, d_model), (7, d_model), (1, d_model),
+                 (TRAIN_ROWS, HP_D_MODEL), (5, HP_D_MODEL)):
+        x, y = randn(r, h), randn(r, h)
+        gam, bet = randn(h), randn(h)
         outs = fused_add_layer_norm(x, y, gam, bet, 1e-5)
         plain = add_layer_norm_plain(x, y, gam, bet, 1e-5)
         for got, want in zip(outs, plain):  # s, y, mean, variance
@@ -141,6 +160,18 @@ def check_kernels(dev):
         library_ms=_time_ms(lambda: F.layer_norm(x + y, (d_model,), gam, bet,
                                                  1e-5)),
         bound_ms=b, bound_by=fl)
+    x, y = randn(TRAIN_ROWS, HP_D_MODEL), randn(TRAIN_ROWS, HP_D_MODEL)
+    gam, bet = randn(HP_D_MODEL), randn(HP_D_MODEL)
+    b, fl = _bound_ms(16 * TRAIN_ROWS * HP_D_MODEL + 8 * HP_D_MODEL
+                      + 8 * TRAIN_ROWS, 10 * TRAIN_ROWS * HP_D_MODEL)
+    rec["fused_add_layer_norm"]["per_shape"] = {"train [%d, %d]" % (
+        TRAIN_ROWS, HP_D_MODEL): dict(
+            ms=_time_ms(lambda: fused_add_layer_norm(x, y, gam, bet, 1e-5)),
+            plain_ms=_time_ms(lambda: add_layer_norm_plain(x, y, gam, bet,
+                                                           1e-5)),
+            library_ms=_time_ms(lambda: F.layer_norm(
+                x + y, (HP_D_MODEL,), gam, bet, 1e-5)),
+            bound_ms=b, bound_by=fl)}
 
     # ---- matmul_bias_act: unit-scale outputs (w ~ N(0, 1/K)) ----------
     err = 0.0
@@ -149,6 +180,9 @@ def check_kernels(dev):
     cases += [(37, 100, 70, a) for a in MM_ACTS]
     # split-K with a ragged last slice (K = 1000, 1600: 2 and 3 slices)
     cases += [(37, 1000, 70, "gelu"), (45, 1600, 90, "swish")]
+    # the training step's FFN: K = 2048 runs slices of 768, 768 and 512
+    cases += [(TRAIN_ROWS, HP_D_MODEL, 4 * HP_D_MODEL, "relu"),
+              (TRAIN_ROWS, 4 * HP_D_MODEL, HP_D_MODEL, "")]
     for m, k, n, act in cases:
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         for bias in (bm, None):
@@ -157,19 +191,22 @@ def check_kernels(dev):
             err = max(err, (out - ref).abs().max().item())
     assert err <= 1e-4, ("matmul_bias_act disagrees", err)
     times = {}
-    for tag, (k, n, act) in (("ffn_in", (d_model, d_ff, "gelu")),
-                             ("ffn_out", (d_ff, d_model, ""))):
-        xm, wm, bm = randn(rows, k), randn(k, n, scale=k ** -0.5), randn(n)
-        lib = ((lambda: F.gelu(torch.addmm(bm, xm, wm))) if act
+    for tag, (m, k, n, act) in (
+            ("ffn_in", (rows, d_model, d_ff, "gelu")),
+            ("ffn_out", (rows, d_ff, d_model, "")),
+            ("train_ffn_in", (TRAIN_ROWS, HP_D_MODEL, 4 * HP_D_MODEL, "relu")),
+            ("train_ffn_out", (TRAIN_ROWS, 4 * HP_D_MODEL, HP_D_MODEL, ""))):
+        xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
+        act_fn = {"gelu": F.gelu, "relu": F.relu}.get(act)
+        lib = ((lambda: act_fn(torch.addmm(bm, xm, wm))) if act
                else (lambda: torch.addmm(bm, xm, wm)))
-        b, fl = _bound_ms(4 * (rows * k + k * n + n + rows * n),
-                          2 * rows * k * n)
+        b, fl = _bound_ms(4 * (m * k + k * n + n + m * n), 2 * m * k * n)
         times[tag] = dict(
             ms=_time_ms(lambda: matmul_bias_act(xm, wm, bm, act)),
             plain_ms=_time_ms(lambda: matmul_bias_act_plain(xm, wm, bm, act)),
             library_ms=_time_ms(lib), bound_ms=b, bound_by=fl)
         print("matmul_bias_act %s [%d, %d] @ [%d, %d] %s: %s" % (
-            tag, rows, k, k, n, act or "identity", json.dumps(times[tag])))
+            tag, m, k, k, n, act or "identity", json.dumps(times[tag])))
     # each shape launches once per layer and step: the line reports the
     # launch-weighted mean over both, with each shape's own numbers beside
     rec["matmul_bias_act"] = dict(
@@ -181,8 +218,8 @@ def check_kernels(dev):
         max_abs_err=err, bound_by=times["ffn_in"]["bound_by"],
         per_shape=times)
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        rec["matmul_bias_act"][key] = sum(
-            t[key] for t in times.values()) / len(times)
+        rec["matmul_bias_act"][key] = (
+            times["ffn_in"][key] + times["ffn_out"][key]) / 2
 
     # ---- flash_attention_qvec: live K/V prefix bytes -------------------
     heads, dh, tq, tk = 12, 64, WIDTH, T_MAX
@@ -223,6 +260,118 @@ def check_kernels(dev):
         library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
             q, k_, v, attn_mask=mask, scale=dh ** -0.5)),
         bound_ms=b, bound_by=fl)
+    torch.cuda.synchronize()
+    rec.update(check_linear_xent(dev, randn, g))
+    return rec
+
+
+def _events_ms(fn, reps=5):
+    """Device time of one call of a ms-scale function (autograd inside,
+    so no graph capture): CUDA events around `reps` calls after two
+    warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_linear_xent(dev, randn, g):
+    """The three linear cross-entropy kernels (forward, dx, dw) against
+    the plain version on the card: the training path's shapes (R 4096, H
+    512, V 10000, eps 0.1) and ragged ones (R 100, V 1007, labels -1 and
+    V in the batch, eps 0 and 0.1; R 70, H 600, V 300).  Limit: 1e-4 of the largest
+    magnitude of each of loss, dx and dw."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import linear_xent as lx
+
+    R, H, V, eps = TRAIN_ROWS, HP_D_MODEL, HP_VOCAB, 0.1
+    err = {"loss": 0.0, "dx": 0.0, "dw": 0.0}  # relative to the max magnitude
+    err_abs = dict(err)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    def note(key, *pairs):
+        for a, b in pairs:
+            err[key] = max(err[key], rel(a, b))
+            err_abs[key] = max(err_abs[key], (a - b).abs().max().item())
+
+    # H 600 takes the backward's form for H > 512 (16-deep staged slices)
+    for r, h, v, e in ((R, H, V, eps), (100, H, 1007, 0.0), (100, H, 1007, 0.1),
+                       (70, 600, 300, 0.1)):
+        x, w = randn(r, h), randn(h, v, scale=h ** -0.5)
+        lbl = torch.randint(0, v, (r,), generator=g, device=dev)
+        lbl[0], lbl[1] = -1, v  # outside the vocab: smoothing term only
+        dy = torch.rand(r, 1, generator=g, device=dev)
+        loss, lse = lx.linear_xent_fwd(x, w, lbl, e)
+        p_loss, p_lse = lx.linear_xent_plain(x, w, lbl, e)
+        dx = lx.linear_xent_dx(x, w, lbl, lse, dy, e)
+        dw = lx.linear_xent_dw(x, w, lbl, lse, dy, e)
+        p_dx, p_dw = lx.linear_xent_grad_plain(x, w, lbl, p_lse, dy, e)
+        note("loss", (loss, p_loss), (lse, p_lse))
+        note("dx", (dx, p_dx))
+        note("dw", (dw, p_dw))
+    for k, v_ in err.items():
+        assert v_ <= 1e-4, ("linear_xent disagrees", k, v_)
+
+    x, w = randn(R, H), randn(H, V, scale=H ** -0.5)
+    lbl = torch.randint(0, V, (R,), generator=g, device=dev)
+    dy = torch.rand(R, 1, generator=g, device=dev)
+    _, lse = lx.linear_xent_fwd(x, w, lbl, eps)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def library_fwd():
+        return F.cross_entropy(torch.matmul(x, w), lbl, label_smoothing=eps,
+                               reduction="none")
+
+    def library_fwd_bwd():
+        loss = F.cross_entropy(torch.matmul(xg, wg), lbl, label_smoothing=eps,
+                               reduction="none")
+        return torch.autograd.grad(loss, (xg, wg), dy.reshape(-1))
+
+    plain_grad = _events_ms(
+        lambda: lx.linear_xent_grad_plain(x, w, lbl, lse, dy, eps))
+    lib_fwd_bwd = _events_ms(library_fwd_bwd)
+    fwd_bytes = 4 * (R * H + H * V) + 8 * R + 4 * 2 * R
+    bwd_bytes = 4 * (R * H + H * V) + 8 * R + 4 * 2 * R
+    specs = (
+        ("linear_xent_fwd", ":1647 (_lxent_fwd)",
+         lambda: lx.linear_xent_fwd(x, w, lbl, eps),
+         lambda: lx.linear_xent_plain(x, w, lbl, eps), library_fwd,
+         fwd_bytes, 2 * R * H * V, "loss"),
+        ("linear_xent_dx", ":1680 (_lxent_bwd dx)",
+         lambda: lx.linear_xent_dx(x, w, lbl, lse, dy, eps), None, None,
+         bwd_bytes + 4 * R * H, 4 * R * H * V, "dx"),
+        ("linear_xent_dw", ":1693 (_lxent_bwd dw)",
+         lambda: lx.linear_xent_dw(x, w, lbl, lse, dy, eps), None, None,
+         bwd_bytes + 4 * H * V, 4 * R * H * V, "dw"),
+    )
+    rec = {}
+    for name, site, kern, plain, lib, nbytes, flops, e in specs:
+        b, fl = _bound_ms(nbytes, flops)
+        rec[name] = dict(
+            route="cuda", source="paddle_tpu_torch/kernels/csrc/linear_xent.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site.split()[0],
+            shape="x [%d, %d], w [%d, %d], eps %.1f%s" % (
+                R, H, H, V, eps, "" if plain else
+                "; plain_ms is the plain backward (dx and dw together), "
+                "library_ms matmul + cross_entropy forward and backward"),
+            max_abs_err=err_abs[e], max_rel_err=err[e],
+            ms=_time_ms(kern, reps=5, inner=5),
+            plain_ms=_time_ms(plain, reps=5, inner=5) if plain else plain_grad,
+            library_ms=_time_ms(lib, reps=5, inner=5) if lib else lib_fwd_bwd,
+            bound_ms=b, bound_by=fl)
     torch.cuda.synchronize()
     return rec
 
@@ -278,13 +427,64 @@ def serve_gpt2_small(dev):
     return launches, eng, scope
 
 
+def _profile_report(prof, wall_us, steps, name, out_dir):
+    """Device busy share, device time by kernel, torch calls and host time
+    by span from one torch.profiler window of `steps` steps; written to
+    out_dir/profile_<name>.json and summarized."""
+    from torch.autograd import DeviceType
+
+    device, spans = {}, {}
+    busy = []
+    torch_calls = 0  # aten ops entered from Python, not from another op
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("aten::"):
+            parent = e.cpu_parent
+            torch_calls += not (parent and parent.name.startswith("aten::"))
+        dur = e.time_range.end - e.time_range.start
+        span = e.name.startswith(("serve_", "executor_run", "feed_upload",
+                                  "op_grad"))
+        if e.device_type == DeviceType.CUDA:
+            # the spans are mirrored onto the device timeline as
+            # annotations; only kernels and copies count as busy
+            if span or getattr(e, "is_user_annotation", False):
+                continue
+            device[e.name] = device.get(e.name, 0.0) + dur
+            busy.append((e.time_range.start, e.time_range.end))
+        elif span:
+            spans[e.name] = spans.get(e.name, 0.0) + dur
+    busy.sort()
+    busy_us, end = 0.0, float("-inf")
+    for s, e in busy:  # union of device intervals
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    top = sorted(device.items(), key=lambda kv: -kv[1])
+    report = {
+        "steps": steps, "wall_us": wall_us, "device_busy_us": busy_us,
+        "device_idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
+        "torch_calls": torch_calls, "host_spans_us": spans,
+        "device_us_by_kernel": dict(top),
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "profile_%s.json" % name)
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+    print("profile %s: %d steps, wall %.1f ms/step, device busy %.1f ms/step, "
+          "%.0f torch calls/step, idle share %s; written to %s" % (
+              name, steps, wall_us / 1e3 / steps, busy_us / 1e3 / steps,
+              torch_calls / steps,
+              "not measured (no device events)" if not busy_us
+              else "%.3f" % report["device_idle_share"], path))
+    print("profile %s host spans (ms/step): %s" % (name, json.dumps(
+        {k: v / 1e3 / steps for k, v in sorted(spans.items())})))
+    print("profile %s device top 12 (ms/step): %s" % (name, json.dumps(
+        {k[:70]: v / 1e3 / steps for k, v in top[:12]})))
+
+
 def profile_serving(eng, scope, out_dir):
     """Where the serving step's time goes: a torch.profiler trace of a
-    short seeded trace through the same engine.  Writes the device busy
-    share, device time by kernel and host time by engine span to
-    out_dir/profile_serving.json and prints a summary."""
+    short seeded trace through the same engine."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import paddle_tpu_torch as ptt
@@ -302,53 +502,25 @@ def profile_serving(eng, scope, out_dir):
             _, stats = eng.run(trace)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    device, spans = {}, {}
-    busy = []
-    torch_calls = 0  # aten ops entered from Python, not from another op
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith("aten::"):
-            parent = e.cpu_parent
-            torch_calls += not (parent and parent.name.startswith("aten::"))
-        dur = e.time_range.end - e.time_range.start
-        span = e.name.startswith(("serve_", "executor_run", "feed_upload"))
-        if e.device_type == DeviceType.CUDA:
-            # the engine's spans are mirrored onto the device timeline as
-            # annotations; only kernels and copies count as busy
-            if span or getattr(e, "is_user_annotation", False):
-                continue
-            device[e.name] = device.get(e.name, 0.0) + dur
-            busy.append((e.time_range.start, e.time_range.end))
-        elif span:
-            spans[e.name] = spans.get(e.name, 0.0) + dur
-    busy.sort()
-    busy_us, end = 0.0, float("-inf")
-    for s, e in busy:  # union of device intervals
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    top = sorted(device.items(), key=lambda kv: -kv[1])
-    report = {
-        "steps": stats["steps"], "wall_us": wall_us,
-        "device_busy_us": busy_us,
-        "device_idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
-        "torch_calls": torch_calls,
-        "host_spans_us": spans,
-        "device_us_by_kernel": dict(top),
-    }
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "profile_serving.json")
-    with open(path, "w") as f:
-        json.dump(report, f, indent=1)
-    print("profile: %d steps, wall %.1f ms/step, device busy %.1f ms/step, "
-          "%.0f torch calls/step, idle share %s; written to %s" % (
-              stats["steps"], wall_us / 1e3 / stats["steps"],
-              busy_us / 1e3 / stats["steps"], torch_calls / stats["steps"],
-              "not measured (no device events)" if not busy_us
-              else "%.3f" % report["device_idle_share"], path))
-    print("profile host spans (ms/step): %s" % json.dumps(
-        {k: v / 1e3 / stats["steps"] for k, v in sorted(spans.items())}))
-    print("profile device top 12 (ms/step): %s" % json.dumps(
-        {k[:70]: v / 1e3 / stats["steps"] for k, v in top[:12]}))
+    _profile_report(prof, wall_us, stats["steps"], "serving", out_dir)
+
+
+def profile_training(run_step, out_dir, steps=3):
+    """Where the training step's time goes: `steps` steps of the same
+    program under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _profile_report(prof, wall_us, steps, "training", out_dir)
 
 
 def card_matches_cpu(dev, n_slots):
@@ -399,7 +571,8 @@ def card_matches_cpu(dev, n_slots):
             kernels.reset_launch_counts()
             eng.run(trace)
     launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-    assert all(launched.values()), ("a kernel did not launch", launched)
+    assert all(launched[n] for n in SERVING_KERNELS), (
+        "a kernel did not launch", launched)
     assert len(logits["cpu"]) == len(logits["cuda"]) > 0
     err = 0.0
     for a, b in zip(logits["cpu"], logits["cuda"]):
@@ -409,6 +582,173 @@ def card_matches_cpu(dev, n_slots):
     print("narrow GPT-2, %d slot(s), on the card vs the CPU plain path: %d "
           "steps, max abs logit difference %.3g, launches %s" % (
               n_slots, len(logits["cpu"]), err, json.dumps(launched)))
+
+
+def _expected_train_launches(main):
+    """Kernel launches per training step, read off the program: each
+    fused op launches its kernel once, and its grad op once more (the
+    grad re-runs the forward rule under torch.func.vjp); the linear
+    cross entropy's grad also launches dx and dw."""
+    ops = [op.type for op in main.global_block().ops]
+    return {
+        "matmul_bias_act": ops.count("fc") + ops.count("fc_grad"),
+        "fused_add_layer_norm": (ops.count("fused_residual_ln")
+                                 + ops.count("fused_residual_ln_grad")),
+        "linear_xent_fwd": (ops.count("fused_linear_xent")
+                            + ops.count("fused_linear_xent_grad")),
+        "linear_xent_dx": ops.count("fused_linear_xent_grad"),
+        "linear_xent_dw": ops.count("fused_linear_xent_grad"),
+        "flash_attention_qvec": 0,
+    }
+
+
+def train_transformer_base(dev, profile_dir=None):
+    """The training path: Transformer-base (ModelHyperParams: vocab
+    10000/10000, d_model 512, d_inner 2048, 8 heads, 6+6 layers, dropout
+    0.1, label smoothing 0.1, noam lr, Adam) on batch 64 x 64 tokens,
+    random weights from a seed.  One warm-up step, then TRAIN_STEPS timed
+    steps with every launch count reset just before and read just after;
+    then the same step twice from one saved state, bit for bit, and a
+    step checking every dropout_grad against its forward op's mask."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import transformer as tfm
+
+    hp = tfm.ModelHyperParams
+    main, startup, _, fetch = tfm.wmt_transformer_program(
+        hp, src_len=TRAIN_LEN, trg_len=TRAIN_LEN)
+    startup.random_seed = main.random_seed = 4321
+    per_step = _expected_train_launches(main)
+    assert per_step == {"matmul_bias_act": 48, "fused_add_layer_norm": 60,
+                        "linear_xent_fwd": 2, "linear_xent_dx": 1,
+                        "linear_xent_dw": 1, "flash_attention_qvec": 0}, per_step
+    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
+    n_tok = float(batch["lbl_weight"].sum())
+    scope = ptt.Scope()
+    with ptt.scope_guard(scope):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        exe.run(startup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = float(exe.run(main, feed=batch, fetch_list=[fetch[0]])[0].sum())
+        assert 8.0 < first < 10.5, ("first loss far from ln 10000", first)
+        kernels.reset_launch_counts()
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, tok = exe.run(main, feed=batch, fetch_list=fetch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss.sum()))
+            assert float(tok.sum()) == n_tok
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        assert all(np.isfinite(losses)), losses
+        for name, n in per_step.items():
+            assert launches[name] == n * TRAIN_STEPS, (
+                "launch count", name, launches[name], n, TRAIN_STEPS)
+
+        # the same step twice from one saved state: a fresh executor each
+        # time, so both draw the same dropout masks
+        state = {n: scope.find_var(n).clone() for n in scope.local_var_names()}
+        runs = []
+        for _ in range(2):
+            for n, v in state.items():
+                scope.set(n, v.clone())
+            loss = ptt.Executor(ptt.CUDAPlace(0)).run(
+                main, feed=batch, fetch_list=[fetch[0]])[0]
+            runs.append((loss, {n: scope.find_var(n).clone() for n in state}))
+        assert np.array_equal(runs[0][0], runs[1][0]), "loss not reproducible"
+        differ = [n for n in state if not torch.equal(runs[0][1][n],
+                                                      runs[1][1][n])]
+        assert not differ, ("updated state not reproducible", differ[:5])
+        moved = sum(not torch.equal(runs[0][1][n], state[n]) for n in state)
+
+        # each dropout_grad redraws its forward op's mask on the card: its
+        # X@GRAD is Out@GRAD times the forward's Mask, bit for bit
+        block = main.global_block()
+        names = []
+        for op in block.ops:
+            if op.type == "dropout_grad":
+                fwd = block.ops[op.attrs["__fwd_op_idx__"]]
+                names += [fwd.outputs["Mask"][0], op.inputs["Out@GRAD"][0],
+                          op.outputs["X@GRAD"][0]]
+        vals = exe.run(main, feed=batch, fetch_list=names, return_numpy=False)
+        for i in range(0, len(vals), 3):
+            mask, dout, dx = vals[i:i + 3]
+            assert torch.equal(dx, dout * mask), ("dropout_grad mask", names[i])
+            assert 0.85 < float(mask.mean()) < 0.95, (names[i], mask.mean())
+        if profile_dir:
+            profile_training(lambda: exe.run(main, feed=batch,
+                                             fetch_list=fetch), profile_dir)
+    p50 = sorted(times)[len(times) // 2]
+    print("trained Transformer-base %d steps (batch %d x %d): step p50 %.3f "
+          "ms, mean %.3f ms; %.1f target tokens/s (%d non-pad target tokens "
+          "a step), %.1f target rows/s; losses %s (first %.4f); peak memory "
+          "%.2f GB; launches per step %s; one step from a saved state twice: "
+          "bit-equal loss and %d updated state tensors; %d dropout_grad ops "
+          "redrew their forward masks" % (
+              TRAIN_STEPS, TRAIN_BATCH, TRAIN_LEN, p50 * 1e3,
+              sum(times) / len(times) * 1e3, n_tok / p50, n_tok,
+              TRAIN_ROWS / p50, json.dumps([round(v, 6) for v in losses]),
+              first, peak / 1e9,
+              json.dumps({k: v // TRAIN_STEPS for k, v in launches.items()}),
+              moved, len(names) // 3))
+    return launches
+
+
+def train_card_matches_cpu(dev):
+    """A narrow WMT Transformer (2+2 layers, d_model 64, dropout 0)
+    trained 3 steps from the same weights on the card and on the CPU
+    plain path: losses agree to 1e-5 relative, and the card's run
+    launched every kernel of the training path."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import transformer as tfm
+
+    class Narrow(tfm.ModelHyperParams):
+        src_vocab_size = trg_vocab_size = 1000
+        max_length, d_model, d_inner_hid, n_head, n_layer = 64, 64, 256, 4, 2
+        dropout = 0.0
+
+    main, startup, _, fetch = tfm.wmt_transformer_program(
+        Narrow, src_len=16, trg_len=16)
+    startup.random_seed = 7
+    batch = tfm.make_fake_batch(8, 16, 16, Narrow, seed=3)
+    losses = {}
+    for kind in ("cpu", "cuda"):
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+            exe = ptt.Executor(place)
+            if kind == "cpu":
+                exe.run(startup)
+                weights = {n: scope.find_var(n).clone()
+                           for n in scope.local_var_names()}
+            else:
+                for n, w in weights.items():
+                    scope.set(n, w.to(dev))
+            kernels.reset_launch_counts()
+            losses[kind] = [float(exe.run(main, feed=batch,
+                                          fetch_list=[fetch[0]])[0].sum())
+                            for _ in range(3)]
+    launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    want = _expected_train_launches(main)
+    for name, n in want.items():
+        assert launched[name] == 3 * n, ("launch count", name, launched)
+    assert np.isfinite(losses["cuda"]).all()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))
+    print("narrow WMT trained 3 steps on the card vs the CPU plain path: "
+          "losses %s vs %s, max relative difference %.3g, launches %s" % (
+              losses["cuda"], losses["cpu"], err, json.dumps(launched)))
 
 
 def main():
@@ -447,21 +787,34 @@ def main():
     for name, r in rec.items():
         print("%s: max_abs_err %.3g, %s" % (name, r["max_abs_err"], json.dumps(
             {k: v for k, v in r.items() if k.endswith("ms") or k == "shape"})))
-    launches, eng, scope = serve_gpt2_small(dev)
+    profile_dir = (os.path.join(ROOT, "chiprun_out")
+                   if "--profile" in sys.argv[1:] else None)
+    served, eng, scope = serve_gpt2_small(dev)
     for n_slots in (3, 1):  # a one-slot pool has a one-row QStart
         card_matches_cpu(dev, n_slots)
-    if "--profile" in sys.argv[1:]:
-        profile_serving(eng, scope, os.path.join(ROOT, "chiprun_out"))
+    if profile_dir:
+        profile_serving(eng, scope, profile_dir)
+    del eng, scope
+    torch.cuda.empty_cache()
+    trained = train_transformer_base(dev, profile_dir)
+    train_card_matches_cpu(dev)
 
+    # launches: the serving run's plus the training run's, each counted
+    # from 0 just before its main path and read just after
     kernels = []
     for name, r in rec.items():
+        by_path = {"serving": served[name], "training": trained[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
-                 "replaces": r["replaces"], "launches": launches[name]}
+                 "replaces": r["replaces"],
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path}
+        assert entry["launches"] > 0, ("kernel never launched", name)
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape"):
             entry[key] = r[key]
-        if "per_shape" in r:
-            entry["per_shape"] = r["per_shape"]
+        for key in ("per_shape", "max_rel_err"):
+            if key in r:
+                entry[key] = r[key]
         kernels.append(entry)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,30 +4,38 @@
 Each op registers one lowering: a plain function from input tensors
 (``{slot: [tensor]}``) plus static attrs to output tensors.  The same
 rule runs the op in the executor and, on ``meta`` tensors, infers its
-output shapes at build time (``layer_helper.infer_shape``).  This
-module holds forward lowerings only; ``<type>_grad`` ops arrive with
-the training slice.
+output shapes at build time (``layer_helper.infer_shape``).
+
+Gradients come from the lowering itself: an op ``<type>_grad`` built by
+``backward.py`` is lowered generically by ``lower_grad_op``, the vjp
+(``torch.func.vjp``) of the forward rule, as the reference lowers it
+with ``jax.vjp``.  Ops whose forward rule sits on a kernel get the
+kernel's ``torch.autograd.Function`` backward through the same vjp.
 """
 
 import torch
 
-__all__ = ["register", "get_op", "is_registered", "LowerCtx", "OPS"]
+__all__ = ["register", "get_op", "is_registered", "LowerCtx", "OPS",
+           "lower_grad_op"]
 
 
 class OpDef:
-    def __init__(self, type, lower):
+    def __init__(self, type, lower, no_grad_inputs=None):
         self.type = type
         self.lower = lower  # fn(ctx, ins, attrs) -> {slot: [tensors]}
+        # input slots that never take a gradient (ids, labels, optimizer
+        # state), beside the integer inputs, which never do
+        self.no_grad_inputs = set(no_grad_inputs or ())
 
 
 OPS = {}
 
 
-def register(type_):
+def register(type_, no_grad_inputs=None):
     """Decorator: register a lowering rule for op `type_`."""
 
     def deco(fn):
-        OPS[type_] = OpDef(type_, fn)
+        OPS[type_] = OpDef(type_, fn, no_grad_inputs)
         return fn
 
     return deco
@@ -88,3 +96,70 @@ class LowerCtx:
         g = torch.Generator(device=self.device or "cpu")
         g.manual_seed(fold_seed(self.seed, kind, value))
         return g
+
+
+def lower_grad_op(ctx, ins, attrs):
+    """Generic lowering of a ``<type>_grad`` op: the vjp of the forward
+    rule (the reference's ``lower_grad_op``, ``torch.func.vjp`` in place
+    of ``jax.vjp``).
+
+    The grad op (built by ``backward.py``) carries the forward op's
+    type, attrs, input and output slots, output names and index as
+    ``__fwd_*__`` attrs.  Its inputs are the forward inputs under their
+    slot names plus ``<out-slot>@GRAD``; its outputs are
+    ``<in-slot>@GRAD`` for the differentiable inputs: the float inputs
+    outside the op's ``no_grad_inputs``.  A missing output cotangent is
+    zeros, and an integer output takes none.
+
+    The re-run of the forward rule sees ``op_idx = __fwd_op_idx__``, so
+    a random op (dropout) draws the forward op's mask again.  That index
+    is the forward op's plain position in its block, while the runner
+    sets ``(block << 20) | idx``: the two agree in block 0, the only
+    block a training program differentiates, as in the reference.
+    ``torch.func.vjp`` runs under the executor's ``torch.no_grad()``.
+    """
+    opdef = get_op(attrs["__fwd_type__"])
+    fwd_attrs = attrs["__fwd_attrs__"]
+    in_slots = attrs["__fwd_in_slots__"]
+    out_slots = attrs["__fwd_out_slots__"]
+    fwd_ins = {s: ins[s] for s in in_slots if s in ins}
+    diff_pos = [(s, i) for s in in_slots
+                if s not in opdef.no_grad_inputs and s in fwd_ins
+                for i, v in enumerate(fwd_ins[s])
+                if torch.is_tensor(v) and v.is_floating_point()]
+    sub_ctx = LowerCtx(ctx.seed, ctx.device)
+    sub_ctx.op_idx = attrs.get("__fwd_op_idx__", ctx.op_idx)
+    kept = []  # (slot, index) of each float output, in vjp order
+
+    def fwd_fn(*diff_vals):
+        merged = {s: list(v) for s, v in fwd_ins.items()}
+        for (s, i), v in zip(diff_pos, diff_vals):
+            merged[s][i] = v
+        outs = opdef.lower(sub_ctx, merged, fwd_attrs)
+        flat = []
+        kept.clear()
+        for s in out_slots:
+            for i, o in enumerate(outs.get(s) or ()):
+                if torch.is_tensor(o) and o.is_floating_point():
+                    kept.append((s, i))
+                    flat.append(o)
+        return tuple(flat)
+
+    primals = [fwd_ins[s][i] for s, i in diff_pos]
+    if not primals:
+        return {}
+    fwd_flat, vjp_fn = torch.func.vjp(fwd_fn, *primals)
+    cots = []
+    for (s, i), ref in zip(kept, fwd_flat):
+        g = ins.get(s + "@GRAD")
+        if g is not None and i < len(g) and g[i] is not None:
+            cots.append(g[i].to(ref.dtype).reshape(ref.shape))
+        else:
+            cots.append(torch.zeros_like(ref))
+    grads = vjp_fn(tuple(cots))
+    result = {}
+    for (s, i), g in zip(diff_pos, grads):
+        lst = result.setdefault(s + "@GRAD", [])
+        lst.extend([None] * (i + 1 - len(lst)))
+        lst[i] = g
+    return result

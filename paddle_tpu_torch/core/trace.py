@@ -13,9 +13,21 @@ already live on the executor's device.  What carries over unchanged:
 A run's plan (keep mask, state reads, persistable writes) depends only
 on the program version, the feed and fetch names and the scope, so the
 executor memoizes it; ``RunPlan`` is that memo.
+
+``<type>_grad`` ops built by ``backward.py`` run through the generic
+``lower_grad_op`` (the vjp of the forward rule).  An op that overwrites
+its own inputs (the lr schedule's ``increment``, Adam's in-place
+updates) leaves env holding its outputs under the input names; where a
+grad op re-runs such an op's forward rule, the runner keeps the op's
+inputs as they were before it ran (the reference's input snapshots).
+Only ops a kept grad op refers to are snapshotted, so Adam's in-place
+updates keep no second copy of the parameters.  Each grad op runs inside
+an ``op_grad:<forward type>`` profiler span, so a trace splits the
+backward's host time by op type.
 """
 
-from .registry import get_op
+from ..profiler import RecordEvent
+from .registry import OPS, get_op, lower_grad_op
 
 __all__ = ["dce_mask", "analyze_block", "RunPlan", "build_plan", "run_block"]
 
@@ -65,13 +77,21 @@ def analyze_block(program, block_idx, feed_names, fetch_names, keep):
     return reads, writes
 
 
+def _is_grad_op(op):
+    return op.type.endswith("_grad") and "__fwd_type__" in op.attrs
+
+
 class RunPlan:
-    def __init__(self, block_idx, keep, state_names, updated, fetch_names):
+    def __init__(self, block_idx, keep, state_names, updated, fetch_names,
+                 snap_idx=frozenset()):
         self.block_idx = block_idx
         self.keep = keep
         self.state_names = state_names
         self.updated = updated
         self.fetch_names = fetch_names
+        # forward ops that overwrite their inputs and whose grad op runs:
+        # their inputs are kept as they were before the op ran
+        self.snap_idx = snap_idx
 
 
 def build_plan(program, block_idx, feed_names, fetch_names, scope):
@@ -90,7 +110,16 @@ def build_plan(program, block_idx, feed_names, fetch_names, scope):
         return v is not None and v.persistable
 
     updated = [n for n in writes if n in reads or is_persistable(n)]
-    return RunPlan(block_idx, keep, list(reads), updated, list(fetch_names))
+    snap_idx = set()
+    for i, op in enumerate(block.ops):
+        if keep[i] and _is_grad_op(op):
+            j = op.attrs.get("__fwd_op_idx__")
+            fwd = block.ops[j] if j is not None and j < len(block.ops) else None
+            if fwd is not None and (set(fwd.output_arg_names())
+                                    & set(fwd.input_arg_names())):
+                snap_idx.add(j)
+    return RunPlan(block_idx, keep, list(reads), updated, list(fetch_names),
+                   frozenset(snap_idx))
 
 
 def run_block(program, plan, feeds, scope, ctx):
@@ -99,21 +128,35 @@ def run_block(program, plan, feeds, scope, ctx):
     env = {n: scope.find_var(n) for n in plan.state_names}
     env.update(feeds)
     blk = program.block(plan.block_idx)
+    snapshots = {}
     for idx, op in enumerate(blk.ops):
         if not plan.keep[idx]:
             continue
         ctx.op_idx = (plan.block_idx << 20) | idx
+        is_grad = _is_grad_op(op)
+        snap = snapshots.get(op.attrs.get("__fwd_op_idx__")) if is_grad else None
+        if idx in plan.snap_idx:
+            snapshots[idx] = {n: env[n] for n in op.input_arg_names()
+                              if n in env}
         ins = {}
         for slot, names in op.inputs.items():
+            use_snap = snap if not slot.endswith("@GRAD") else None
             vals = []
             for n in names:
+                if use_snap is not None and n in use_snap:
+                    vals.append(use_snap[n])
+                    continue
                 if n not in env:
                     raise RuntimeError("op %s reads undefined var %s"
                                        % (op.type, n))
                 vals.append(env[n])
             ins[slot] = vals
         try:
-            outs = get_op(op.type).lower(ctx, ins, op.attrs)
+            if op.type not in OPS and is_grad:
+                with RecordEvent("op_grad", cat=op.attrs["__fwd_type__"]):
+                    outs = lower_grad_op(ctx, ins, op.attrs)
+            else:
+                outs = get_op(op.type).lower(ctx, ins, op.attrs)
         except Exception as e:
             shapes = {slot: [tuple(getattr(v, "shape", ())) for v in vals]
                       for slot, vals in ins.items()}

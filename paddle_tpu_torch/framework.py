@@ -26,7 +26,14 @@ __all__ = [
     "default_main_program",
     "default_startup_program",
     "program_guard",
+    "grad_var_name",
 ]
+
+GRAD_VAR_SUFFIX = "@GRAD"
+
+
+def grad_var_name(var_name):
+    return var_name + GRAD_VAR_SUFFIX
 
 
 def _to_dtype_str(dtype):
@@ -58,6 +65,47 @@ class Variable:
     def __repr__(self):
         return "Variable(name=%s, shape=%s, dtype=%s)" % (
             self.name, self.shape, self.dtype)
+
+    # numpy-style operators (the reference's math_op_patch): each appends
+    # the same op the reference appends (scale for scalar add/sub/mul/div,
+    # else an elementwise op against a fill_constant)
+    def _binary(self, other, op, reverse=False):
+        from .layers import math_op_patch
+
+        return math_op_patch.binary(self, other, op, reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", reverse=True)
+
+    def __pow__(self, other):
+        return self._binary(other, "elementwise_pow")
+
+    def __rpow__(self, other):
+        return self._binary(other, "elementwise_pow", reverse=True)
+
+    def __neg__(self):
+        from .layers import math_op_patch
+
+        return math_op_patch.scale(self, -1.0)
 
 
 class Parameter(Variable):
@@ -95,7 +143,10 @@ class Operator:
             for slot, vs in (outputs or {}).items()}
         self.attrs = dict(attrs) if attrs else {}
         if "op_role" not in self.attrs and block is not None:
-            self.attrs["op_role"] = "forward"
+            prog = block.program
+            self.attrs["op_role"] = prog.op_role
+            if prog._op_role_var:
+                self.attrs["op_role_var"] = list(prog._op_role_var)
 
     def input_arg_names(self):
         return [n for names in self.inputs.values() for n in names if n]
@@ -150,6 +201,9 @@ class Block:
     def has_var(self, name):
         return self._find_var_recursive(name) is not None
 
+    def has_var_local(self, name):
+        return name in self.vars
+
     def _find_var_recursive(self, name):
         blk = self
         while blk is not None:
@@ -180,9 +234,28 @@ class Program:
         self.current_block_idx = 0
         self._seed = 0
         self._version = 0
+        self.op_role = "forward"
+        self._op_role_var = []
 
     def _bump_version(self):
         self._version += 1
+
+    @contextlib.contextmanager
+    def _op_role_guard(self, role, role_var=None):
+        """Tag the ops appended inside with an op role (and an optional
+        op_role_var [param, grad] pair), as the reference does."""
+        prev_role, prev_var = self.op_role, self._op_role_var
+        self.op_role = role
+        self._op_role_var = list(role_var or [])
+        try:
+            yield
+        finally:
+            self.op_role, self._op_role_var = prev_role, prev_var
+
+    def _optimized_guard(self, param_and_grad):
+        names = [p.name if isinstance(p, Variable) else p
+                 for p in param_and_grad if p is not None]
+        return self._op_role_guard("optimize", names)
 
     @property
     def random_seed(self):

@@ -8,7 +8,7 @@ import math
 
 import numpy as np
 
-__all__ = ["Constant", "Uniform", "Normal", "Xavier"]
+__all__ = ["Constant", "Uniform", "Normal", "Xavier", "NumpyArrayInitializer"]
 
 
 class Initializer:
@@ -74,6 +74,21 @@ class XavierInitializer(Initializer):
             return UniformInitializer(-limit, limit, self.seed)(var, block)
         return NormalInitializer(0.0, math.sqrt(2.0 / (fi + fo)),
                                  self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """Initialize from a host array (an ``assign_value`` op carrying the
+    values), e.g. the Transformer's sinusoid position tables."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        return block.append_op(
+            "assign_value", outputs={"Out": [var]},
+            attrs={"shape": list(self.value.shape),
+                   "values": self.value.flatten().tolist(),
+                   "np_dtype": str(self.value.dtype)})
 
 
 Constant = ConstantInitializer

@@ -9,6 +9,14 @@ from .flash_attention import (
     flash_attention_qvec,
     flash_attention_qvec_plain,
 )
+from .linear_xent import (
+    fused_linear_xent,
+    linear_xent_dw,
+    linear_xent_dx,
+    linear_xent_fwd,
+    linear_xent_grad_plain,
+    linear_xent_plain,
+)
 from .matmul_epilogue import (
     MM_ACTS,
     matmul_bias_act,
@@ -16,7 +24,9 @@ from .matmul_epilogue import (
     mm_act,
 )
 
-KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec)
+# every kernel wrapper, each with its launch count
+KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
+           linear_xent_fwd, linear_xent_dx, linear_xent_dw)
 
 
 def reset_launch_counts():

@@ -43,6 +43,9 @@ SIGNATURES = {
     "ptt_add_layer_norm": (_P,) * 8 + (_I, _I, _F, _P),
     "ptt_matmul_bias_act": (_P,) * 5 + (_I,) * 5 + (_P,),
     "ptt_flash_attention_qvec": (_P,) * 7 + (_I,) * 5 + (_F, _P),
+    "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _P),
+    "ptt_linear_xent_dx": (_P,) * 6 + (_I,) * 3 + (_F, _P),
+    "ptt_linear_xent_dw": (_P,) * 6 + (_I,) * 3 + (_F, _P),
 }
 
 _lib = None
@@ -147,8 +150,10 @@ def use_kernel(t):
 
 
 def check_inputs(name, *tensors):
-    """What every kernel takes: float32, contiguous, on one CUDA device,
-    forward only."""
+    """What every kernel takes: float32, contiguous, on one CUDA device.
+    Whether autograd is on decides nothing here: the kernels' wrappers
+    are ``torch.autograd.Function``s, whose backward is a kernel or a
+    dense recompute."""
     dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.float32:
@@ -160,10 +165,6 @@ def check_inputs(name, *tensors):
         if not t.is_contiguous():
             raise ValueError("%s: the CUDA kernel takes contiguous tensors"
                              % name)
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(
-                "%s: the CUDA kernel is forward only; autograd comes with the "
-                "training slice" % name)
 
 
 def launch(fn_name, *args):

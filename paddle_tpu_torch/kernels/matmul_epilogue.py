@@ -6,7 +6,15 @@ Replaces ``paddle_tpu/ops/pallas_kernels.py`` ``matmul_bias_act``
 ``csrc/matmul_bias_act.cu``.  ``matmul_bias_act_plain`` is the plain
 PyTorch version (the reference's ``_mm_dense``): CPU and meta tensors
 take it, CUDA tensors launch the kernel.
+
+``matmul_bias_act`` is a ``torch.autograd.Function`` (the reference's
+``jax.custom_vjp``): the forward launches the kernel, the backward is
+the dense recompute of the reference's ``_mm_vjp_bwd`` (z = x @ w + b
+again, then dz = dy act'(z), dx = dz w^T, dw = x^T dz, db = sum dz).
+The JAX package has no backward kernel for it either.
 """
+
+import math
 
 import torch
 
@@ -48,10 +56,27 @@ def matmul_bias_act_plain(x2d, w, bias=None, act=""):
     return mm_act(z, act).to(x2d.dtype)
 
 
-def matmul_bias_act(x2d, w, bias=None, act=""):
-    """act(x2d @ w + bias); act in MM_ACTS, bias [N] or None."""
-    if act not in _ACT_CODE:
-        raise ValueError("matmul epilogue: unsupported activation %r" % (act,))
+def mm_act_grad(z, act):
+    """d act(z) / dz for the epilogue activations, in float32."""
+    if act in ("", "identity"):
+        return torch.ones_like(z)
+    if act == "relu":
+        return (z > 0).to(z.dtype)
+    if act == "tanh":
+        return 1.0 - torch.tanh(z).square()
+    if act == "sigmoid":
+        s = torch.sigmoid(z)
+        return s * (1.0 - s)
+    if act == "gelu":
+        return (0.5 * (1.0 + torch.erf(z * math.sqrt(0.5)))
+                + z * torch.exp(-0.5 * z.square()) / math.sqrt(2.0 * math.pi))
+    if act == "swish":
+        s = torch.sigmoid(z)
+        return s + z * s * (1.0 - s)
+    raise ValueError("matmul epilogue: unsupported activation %r" % (act,))
+
+
+def _mm_forward(x2d, w, bias, act):
     if not build.use_kernel(x2d):
         return matmul_bias_act_plain(x2d, w, bias, act)
     tensors = (x2d, w) if bias is None else (x2d, w, bias)
@@ -75,6 +100,39 @@ def matmul_bias_act(x2d, w, bias=None, act=""):
                  K, K_SLICE, _ACT_CODE[act])
     matmul_bias_act.launches += 1
     return out
+
+
+class _MatmulBiasAct(torch.autograd.Function):
+    @staticmethod
+    def forward(x2d, w, bias, act):
+        return _mm_forward(x2d, w, bias, act)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x2d, w, bias, act = inputs
+        ctx.save_for_backward(x2d, w, bias)
+        ctx.act = act
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, w, bias = ctx.saved_tensors
+        xf, wf = x2d.float(), w.float()
+        z = torch.matmul(xf, wf)
+        if bias is not None:
+            z = z + bias.reshape(1, -1).float()
+        dz = dy.float() * mm_act_grad(z, ctx.act)
+        dx = torch.matmul(dz, wf.t()).to(x2d.dtype)
+        dw = torch.matmul(xf.t(), dz).to(w.dtype)
+        db = None if bias is None else dz.sum(0).to(bias.dtype)
+        return dx, dw, db, None
+
+
+def matmul_bias_act(x2d, w, bias=None, act=""):
+    """act(x2d @ w + bias); act in MM_ACTS, bias [N] or None.
+    Differentiable in x2d, w and bias (dense backward)."""
+    if act not in _ACT_CODE:
+        raise ValueError("matmul epilogue: unsupported activation %r" % (act,))
+    return _MatmulBiasAct.apply(x2d, w, bias, act)
 
 
 matmul_bias_act.launches = 0

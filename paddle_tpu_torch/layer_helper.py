@@ -140,6 +140,22 @@ class LayerHelper:
             dtype=dtype, shape=None, persistable=False,
             stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, **kwargs)
+
+    def create_or_get_global_variable(self, name, *args, **kwargs):
+        block = self.main_program.global_block()
+        if not block.has_var_local(name):
+            return self.create_global_variable(name=name, *args, **kwargs)
+        return block.vars[name]
+
+    def set_variable_initializer(self, var, initializer):
+        sb = self.startup_program.global_block()
+        sv = sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                           persistable=True)
+        initializer(sv, sb)
+
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         block = self.main_program.current_block()
         op = block.append_op(type, inputs, outputs, attrs)

@@ -1,5 +1,6 @@
 """Neural-net layers (the counterpart of ``paddle_tpu/layers/nn.py``):
-the builders the serving slice and the GPT-2 logits program call.  Each
+the builders the serving slice, the GPT-2 logits program and the WMT
+Transformer's training program call.  Each
 appends ops through LayerHelper exactly as the reference does, so the
 same calls generate the same var and parameter names."""
 
@@ -10,8 +11,11 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "fc", "embedding", "layer_norm", "mul", "matmul", "reshape", "transpose",
-    "slice", "elementwise_add", "elementwise_mul", "gather",
-    "fused_attention", "slot_cache_write",
+    "slice", "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_min",
+    "elementwise_pow", "gather", "fused_attention", "slot_cache_write",
+    "dropout", "softmax", "softmax_with_cross_entropy", "label_smooth",
+    "reduce_sum", "unsqueeze", "one_hot", "scale",
 ]
 
 
@@ -148,8 +152,108 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "scale", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"scale": float(scale), "bias": float(bias),
+               "bias_after_scale": bias_after_scale})
+    if act:
+        helper.kwargs["act"] = act
+        return helper.append_activation(out)
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        "dropout", inputs={"X": [x]}, outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
+def softmax(input, use_cudnn=True, name=None, axis=-1):
+    return _simple("softmax", input, {"axis": axis}, name)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        "softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op("label_smooth", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"epsilon": epsilon})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op("reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    return _simple("unsqueeze2", input, {"axes": list(axes)}, name)
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"depth": depth})
+    return out
 
 
 def gather(input, index, overwrite=True):

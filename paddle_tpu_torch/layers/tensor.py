@@ -1,10 +1,11 @@
 """Tensor-building layers (the counterpart of
-``paddle_tpu/layers/tensor.py``): the builders the serving slice calls."""
+``paddle_tpu/layers/tensor.py``): the builders the serving and training slices call."""
 
 from .. import framework
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "assign", "fill_constant"]
+__all__ = ["create_parameter", "create_global_var", "assign",
+           "fill_constant"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -16,6 +17,17 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
         attr = ParamAttr(name=name)
     return helper.create_parameter(attr, shape, dtype, is_bias,
                                    default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    from ..initializer import Constant
+
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(dtype=dtype, shape=shape,
+                                        persistable=persistable, name=name)
+    helper.set_variable_initializer(var, Constant(value))
+    return var
 
 
 def assign(input, output=None):

@@ -1,3 +1,3 @@
 """Op lowerings; importing this package registers them all."""
 
-from . import math_ops, nn_ops, tensor_ops  # noqa: F401
+from . import math_ops, nn_ops, optimizer_ops, tensor_ops  # noqa: F401

@@ -1,13 +1,16 @@
-"""Elementwise / activation / matmul op lowerings (the counterpart of
-``paddle_tpu/ops/math_ops.py``), limited to the ops the serving slice
-and the GPT-2 logits program run.  ``mul`` and ``matmul`` are plain
-products outside any kernel of the reference, so they stay
-``torch.matmul`` here too.
+"""Elementwise / activation / matmul / reduction / loss op lowerings
+(the counterpart of ``paddle_tpu/ops/math_ops.py``), limited to the ops
+the serving slice, the GPT-2 logits program and the WMT Transformer's
+training step run.  ``mul`` and ``matmul`` are plain products outside
+any kernel of the reference, so they stay ``torch.matmul`` here too.
+``fused_linear_xent`` sits on the hand-written linear cross-entropy
+kernels (``kernels/linear_xent.py``).
 """
 
 import torch
 
 from ..core.registry import register
+from ..kernels import fused_linear_xent
 from .common import bcast_y
 
 
@@ -23,8 +26,148 @@ def _elementwise(fn):
     return lower
 
 
-register("elementwise_add")(_elementwise(torch.add))
-register("elementwise_mul")(_elementwise(torch.mul))
+for _name, _fn in (("elementwise_add", torch.add),
+                   ("elementwise_sub", torch.sub),
+                   ("elementwise_mul", torch.mul),
+                   ("elementwise_div", torch.div),
+                   ("elementwise_min", torch.minimum),
+                   ("elementwise_pow", torch.pow)):
+    register(_name)(_elementwise(_fn))
+
+
+@register("scale")
+def _scale(ctx, ins, attrs):
+    x = ins["X"][0]
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": [x * s + b]}
+    return {"Out": [(x + b) * s]}
+
+
+@register("sum")
+def _sum(ctx, ins, attrs):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+def _reduce(fn):
+    def lower(ctx, ins, attrs):
+        x = ins["X"][0]
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False):
+            out = fn(x)
+            if keep:
+                out = out.reshape((1,) * x.dim())
+            return {"Out": [out]}
+        dim = attrs.get("dim", [0])
+        dims = tuple(d % x.dim() for d in (
+            dim if isinstance(dim, (list, tuple)) else [dim]))
+        return {"Out": [fn(x, dim=dims, keepdim=keep)]}
+
+    return lower
+
+
+register("reduce_sum")(_reduce(torch.sum))
+
+
+@register("softmax")
+def _softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+def _take_label(x, label):
+    """x[..., label] along the last axis; label [..., 1] or [...] int."""
+    lbl = label.long()
+    if lbl.dim() == x.dim():
+        lbl = lbl[..., 0]
+    return torch.gather(x, -1, lbl[..., None])
+
+
+@register("label_smooth", no_grad_inputs=("PriorDist",))
+def _label_smooth(ctx, ins, attrs):
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.0)
+    prior = ins.get("PriorDist", [None])[0]
+    if prior is None:
+        prior = 1.0 / x.shape[-1]
+    return {"Out": [(1 - eps) * x + eps * prior]}
+
+
+@register("softmax_with_cross_entropy", no_grad_inputs=("Label",))
+def _softmax_xent(ctx, ins, attrs):
+    """The reference's dense form (its hard-label kernel form,
+    fused_softmax_xent, is still to be ported: ROADMAP B7).  The WMT
+    builder emits the soft-label form, which its fuse passes fold into
+    fused_linear_xent before the program runs."""
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    logp = torch.log_softmax(logits, dim=-1)
+    if attrs.get("soft_label", False):
+        loss = -(label * logp).sum(-1, keepdim=True)
+    else:
+        lp = _take_label(logp, label)
+        ig = attrs.get("ignore_index", -100)
+        if ig >= 0:
+            lbl = label if label.dim() == logits.dim() else label[..., None]
+            lp = lp * (lbl.long() != ig).to(logp.dtype)
+        loss = -lp
+    return {"Softmax": [logp.exp()], "Loss": [loss]}
+
+
+@register("smooth_label_xent", no_grad_inputs=("Label",))
+def _smooth_label_xent(ctx, ins, attrs):
+    """Label-smoothed softmax cross-entropy in closed form (the target of
+    smooth_label_xent_fuse_pass): with s = (1-eps) onehot(y) + eps/V,
+    -sum(s logp) = (1-eps)(lse - z[y]) + eps (lse - mean(z)).  A label
+    outside [0, V) (one_hot's all-zero row) gives the smoothing term
+    only."""
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    eps = float(attrs.get("epsilon", 0.0))
+    lg = logits.float()
+    v = lg.shape[-1]
+    lse = torch.logsumexp(lg, dim=-1, keepdim=True)
+    lbl = label.long()
+    if lbl.dim() == lg.dim():
+        lbl = lbl[..., 0]
+    valid = ((lbl >= 0) & (lbl < v))[..., None]
+    ly = torch.gather(lg, -1, lbl.clamp(0, v - 1)[..., None])
+    smooth = (eps * (lse - lg.mean(-1, keepdim=True)) if eps
+              else torch.zeros_like(lse))
+    loss = torch.where(valid, (1.0 - eps) * (lse - ly),
+                       torch.zeros_like(lse)) + smooth
+    return {"Loss": [loss.to(logits.dtype)]}
+
+
+@register("fused_linear_xent", no_grad_inputs=("Label",))
+def _fused_linear_xent(ctx, ins, attrs):
+    """Logits-free projected cross entropy (the target of
+    linear_xent_fuse_pass): X [..., H], W [H, V] (or [V, H] with
+    transpose_w), Label [..., 1] int.  On CUDA tensors the [R, V] logits
+    never exist in device memory: the forward kernel streams vocab
+    tiles through an online logsumexp and the backward kernels
+    recompute each tile's softmax from the saved lse.
+
+    transpose_w (the tied-embedding x @ W^T form) passes a contiguous
+    [H, V] copy of W, as the reference does: the kernels read [H, V]
+    tiles.  The copy is weights-sized, far below the [R, V] logits the
+    fusion removes; a [V, H]-layout kernel would remove it (a documented
+    limit of the reference too)."""
+    x, w, label = ins["X"][0], ins["W"][0], ins["Label"][0]
+    eps = float(attrs.get("epsilon", 0.0))
+    if attrs.get("transpose_w", False):
+        w = w.t()
+    h = x.shape[-1]
+    loss = fused_linear_xent(x.reshape(-1, h).contiguous(), w.contiguous(),
+                             label.reshape(-1).long().contiguous(), eps)
+    return {"Loss": [loss.reshape(tuple(x.shape[:-1]) + (1,)).to(x.dtype)]}
+
+
+@register("relu")
+def _relu(ctx, ins, attrs):
+    return {"Out": [torch.relu(ins["X"][0])]}
 
 
 @register("gelu")

@@ -1,5 +1,6 @@
 """Neural-net op lowerings (the counterpart of ``paddle_tpu/ops/nn_ops.py``),
-limited to the ops of the serving slice and the GPT-2 logits program.
+limited to the ops of the serving slice, the GPT-2 logits program and
+the WMT Transformer's training step.
 
 Three ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
 ``fc`` on ``matmul_bias_act``, ``fused_residual_ln`` on
@@ -50,6 +51,29 @@ def _layer_norm(ctx, ins, attrs):
     return {"Y": [y.to(x.dtype)],
             "Mean": [mean.reshape(mean.shape[:begin])],
             "Variance": [var.reshape(var.shape[:begin])]}
+
+
+@register("dropout")
+def _dropout(ctx, ins, attrs):
+    """Both implementations of the reference: downgrade_in_infer (train
+    x * mask, test x (1 - p)) and upscale_in_train (train x / (1 - p) at
+    kept positions, test x).  The keep mask is drawn from the run's
+    generator for this op (``LowerCtx.rng``): the grad op's re-run of
+    this rule sees the forward op's index and draws the same mask."""
+    x = ins["X"][0]
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False):
+        out = x if impl == "upscale_in_train" else x * (1.0 - p)
+        return {"Out": [out], "Mask": [torch.ones_like(x)]}
+    keep = torch.rand(x.shape, generator=ctx.rng(attrs), device=x.device,
+                      dtype=torch.float32) < (1.0 - p)
+    mask = keep.to(x.dtype)
+    if impl == "upscale_in_train":
+        out = torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    else:
+        out = x * mask
+    return {"Out": [out], "Mask": [mask]}
 
 
 @register("fc")

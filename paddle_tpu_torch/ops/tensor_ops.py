@@ -1,9 +1,10 @@
 """Tensor creation / manipulation op lowerings (the counterpart of
-``paddle_tpu/ops/tensor_ops.py``), limited to the ops the serving slice
-and the GPT-2 logits program run.  Random ops draw from the run's
+``paddle_tpu/ops/tensor_ops.py``), limited to the ops the serving slice,
+the GPT-2 logits program and the WMT Transformer's training step run.  Random ops draw from the run's
 seeded ``torch.Generator`` (``LowerCtx.rng``).
 """
 
+import numpy as np
 import torch
 
 from ..core.registry import register
@@ -23,6 +24,21 @@ def _fill_constant(ctx, ins, attrs):
     return {"Out": [torch.full(_shape(attrs), float(attrs.get("value", 0.0)),
                                dtype=tdt(attrs.get("dtype", "float32")),
                                device=_device(ctx))]}
+
+
+@register("fill_zeros_like")
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+@register("assign_value")
+def _assign_value(ctx, ins, attrs):
+    vals = np.array(attrs["values"],
+                    dtype=np.dtype(attrs.get("np_dtype", "float32")))
+    if attrs.get("shape"):
+        vals = vals.reshape(attrs["shape"])
+    out = torch.from_numpy(vals).to(tdt(str(vals.dtype)))
+    return {"Out": [out.to(_device(ctx))]}
 
 
 @register("uniform_random")
@@ -67,6 +83,14 @@ def _transpose(ctx, ins, attrs):
     return {"Out": [ins["X"][0].permute(*attrs["axis"])]}
 
 
+@register("unsqueeze2")
+def _unsqueeze(ctx, ins, attrs):
+    x = ins["X"][0]
+    for a in sorted(attrs["axes"]):
+        x = x.unsqueeze(a)
+    return {"Out": [x]}
+
+
 @register("slice")
 def _slice(ctx, ins, attrs):
     x = ins["Input"][0]
@@ -82,7 +106,7 @@ def _slice(ctx, ins, attrs):
     return {"Out": [out]}
 
 
-@register("gather")
+@register("gather", no_grad_inputs=("Index",))
 def _gather(ctx, ins, attrs):
     x, idx = ins["X"][0], ins["Index"][0]
     axis = attrs.get("axis", 0)
@@ -91,14 +115,39 @@ def _gather(ctx, ins, attrs):
     return {"Out": [out.reshape(shape)]}
 
 
-@register("lookup_table")
+@register("lookup_table", no_grad_inputs=("Ids",))
 def _lookup_table(ctx, ins, attrs):
+    """Embedding rows.  ``F.embedding`` rather than ``index_select``: its
+    CUDA backward sums each row's gradients in a sorted, fixed order
+    (index_select's scatters with float atomics), so a training step is
+    bit-reproducible from the same state."""
     w, ids = ins["W"][0], ins["Ids"][0].long()
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids[..., 0]
-    out = w.index_select(0, ids.reshape(-1)).reshape(
-        tuple(ids.shape) + (w.shape[1],))
+    out = torch.nn.functional.embedding(ids, w)
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out * (ids != pad).to(out.dtype)[..., None]
     return {"Out": [out]}
+
+
+@register("one_hot", no_grad_inputs=("X",))
+def _one_hot(ctx, ins, attrs):
+    """float32 one-hot rows; an id outside [0, depth) gives a zero row
+    (the reference's jax.nn.one_hot convention)."""
+    x = ins["X"][0].long()
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x[..., 0]
+    depth = int(attrs["depth"])
+    cols = torch.arange(depth, device=x.device)
+    return {"Out": [(x[..., None] == cols).to(torch.float32)]}
+
+
+@register("increment")
+def _increment(ctx, ins, attrs):
+    """x + step in x's dtype.  The op overwrites its input var (the lr
+    schedule's step counter), so the runner keeps the input as it was
+    where a grad op re-runs it."""
+    x = ins["X"][0]
+    return {"Out": [x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
+                                     device=x.device)]}

@@ -1,10 +1,14 @@
 """Fuse passes (the counterpart of ``paddle_tpu/transpiler/fuse_passes.py``):
 ``fc_fuse_pass`` (mul + bias add [+ act] -> fc), ``residual_ln_fuse_pass``
-(residual add + layer_norm -> fused_residual_ln) and the
-``matmul_epilogue_fuse_pass`` bundle the decode and serving builders
-apply.  The fused ops' lowerings sit on the matmul-epilogue and add-LN
-kernels.  SwiGLU fusion waits for the matmul_swiglu kernel (ROADMAP
-B6)."""
+(residual add + layer_norm -> fused_residual_ln), the
+``matmul_epilogue_fuse_pass`` bundle the builders apply, and the loss
+chain of the training builders: ``smooth_label_xent_fuse_pass``
+(one_hot -> label_smooth -> soft-label xent -> smooth_label_xent) and
+``linear_xent_fuse_pass`` (vocab projection + xent -> fused_linear_xent).
+The fused ops' lowerings sit on the matmul-epilogue, add-LN and linear
+cross-entropy kernels.  SwiGLU fusion waits for the matmul_swiglu kernel
+(ROADMAP B6).  Each pass records how many chains it fused on the program
+(``_fc_fused_count`` ...), as the reference does."""
 
 from .. import framework as _fw
 from .pass_registry import OpPattern, Pass, apply_pass, register_pass
@@ -117,9 +121,11 @@ class FcFusePass(Pass):
             _replace_chain(block, program, chain, [fc])
             return True
 
+        n = 0
         for pat in ([["mul", "elementwise_add", a] for a in _FC_ACTS]
                     + [["mul", "elementwise_add"]]):
-            OpPattern(pat).rewrite(block, fuse)
+            n += OpPattern(pat).rewrite(block, fuse)
+        program._fc_fused_count = n
         return program
 
 
@@ -132,6 +138,7 @@ class ResidualLnFusePass(Pass):
 
     def apply(self, program, scope=None):
         block = program.global_block()
+        n = 0
         changed = True
         while changed:
             changed = False
@@ -179,8 +186,10 @@ class ResidualLnFusePass(Pass):
                 block.ops.remove(add)
                 block.ops.remove(ln)
                 program._bump_version()
+                n += 1
                 changed = True
                 break
+        program._residual_ln_fused_count = n
         return program
 
 
@@ -192,4 +201,133 @@ def _matmul_epilogue_fuse(program, scope):
     matmul_swiglu kernel lands, so no SwiGLU diamond reaches here."""
     for name in ("fc_fuse_pass", "residual_ln_fuse_pass"):
         apply_pass(program, name, scope=scope)
+    program._matmul_epilogue_fused_count = (
+        program._fc_fused_count + program._residual_ln_fused_count)
     return program
+
+
+@register_pass("smooth_label_xent_fuse_pass")
+class SmoothLabelXentFusePass(Pass):
+    """one_hot -> label_smooth -> softmax_with_cross_entropy(soft_label)
+    => ONE smooth_label_xent op reading the int labels, so no [N, V]
+    one-hot, smoothed-label or log-softmax array exists.  Conditions, as
+    the reference's: uniform prior (no PriorDist), soft labels, no
+    ignore_index, the xent's Softmax output unread, the logits' last dim
+    equal to the one_hot depth, no other reader of the intermediates."""
+
+    def apply(self, program, scope=None):
+        block = program.global_block()
+
+        def fuse(chain):
+            oh, smooth, xent = chain
+            if not bool(xent.attrs.get("soft_label", False)):
+                return False
+            if int(xent.attrs.get("ignore_index", -100)) >= 0:
+                return False
+            if smooth.inputs.get("PriorDist"):
+                return False
+            if not _chain_safe(program, chain):
+                return False
+            softmax_out = xent.outputs.get("Softmax", [None])[0]
+            if softmax_out:
+                protected = getattr(program, "_protected_fetch_names", ())
+                if softmax_out in protected or _consumers_all_blocks(
+                        program, softmax_out, exclude=(xent,)):
+                    return False
+            if _consumers_all_blocks(program, oh.outputs["Out"][0],
+                                     exclude=(oh, smooth)):
+                return False
+            if _consumers_all_blocks(program, smooth.outputs["Out"][0],
+                                     exclude=(smooth, xent)):
+                return False
+            logits_name = xent.inputs["Logits"][0]
+            lv = block._find_var_recursive(logits_name)
+            if lv is None or lv.shape is None:
+                return False
+            if int(lv.shape[-1]) != int(oh.attrs.get("depth", -1)):
+                return False
+            fused = _mk_op(
+                block, "smooth_label_xent",
+                {"Logits": [logits_name], "Label": [oh.inputs["X"][0]]},
+                {"Loss": list(xent.outputs["Loss"])},
+                {"epsilon": float(smooth.attrs.get("epsilon", 0.0))})
+            _replace_chain(block, program, chain, [fused])
+            return True
+
+        program._smooth_xent_fused_count = OpPattern(
+            ["one_hot", "label_smooth", "softmax_with_cross_entropy"]
+        ).rewrite(block, fuse)
+        return program
+
+
+@register_pass("linear_xent_fuse_pass")
+class LinearXentFusePass(Pass):
+    """The vocab projection (mul, or matmul(transpose_Y) for tied
+    embeddings) feeding softmax_with_cross_entropy (hard label) or
+    smooth_label_xent => ONE fused_linear_xent op: the [R, V] logits and
+    their gradient never exist in device memory.  Conditions, as the
+    reference's: 2-D weight, a mul split at the last axis, hard labels,
+    no ignore_index, the Softmax output unread, single-consumer logits.
+    Out-of-range labels get the smoothing term only after fusion (the
+    one_hot convention)."""
+
+    def apply(self, program, scope=None):
+        block = program.global_block()
+
+        def fuse(chain):
+            proj, xent = chain
+            x_name, w_name = proj.inputs["X"][0], proj.inputs["Y"][0]
+            if proj.type == "mul":
+                if int(proj.attrs.get("y_num_col_dims", 1)) != 1:
+                    return False
+                xv = block._find_var_recursive(x_name)
+                if xv is None or xv.shape is None:
+                    return False
+                if int(proj.attrs.get("x_num_col_dims", 1)) != len(xv.shape) - 1:
+                    return False
+                transpose_w = False
+            else:  # matmul: only the tied-embedding x @ W^T form
+                if (not proj.attrs.get("transpose_Y", False)
+                        or proj.attrs.get("transpose_X", False)
+                        or float(proj.attrs.get("alpha", 1.0)) != 1.0):
+                    return False
+                transpose_w = True
+            wv = block._find_var_recursive(w_name)
+            if wv is None or wv.shape is None or len(wv.shape) != 2:
+                return False
+            logits_name = proj.outputs["Out"][0]
+            if xent.inputs.get("Logits", [None])[0] != logits_name:
+                return False
+            if xent.type == "softmax_with_cross_entropy":
+                if bool(xent.attrs.get("soft_label", False)):
+                    return False
+                if int(xent.attrs.get("ignore_index", -100)) >= 0:
+                    return False
+                softmax_out = xent.outputs.get("Softmax", [None])[0]
+                if softmax_out:
+                    protected = getattr(program, "_protected_fetch_names", ())
+                    if softmax_out in protected or _consumers_all_blocks(
+                            program, softmax_out, exclude=(xent,)):
+                        return False
+                eps = 0.0
+            else:
+                eps = float(xent.attrs.get("epsilon", 0.0))
+            if _consumers_all_blocks(program, logits_name, exclude=(xent,)):
+                return False
+            if not _chain_safe(program, chain):
+                return False
+            fused = _mk_op(
+                block, "fused_linear_xent",
+                {"X": [x_name], "W": [w_name],
+                 "Label": list(xent.inputs["Label"])},
+                {"Loss": list(xent.outputs["Loss"])},
+                {"epsilon": eps, "transpose_w": transpose_w})
+            _replace_chain(block, program, chain, [fused])
+            return True
+
+        n = 0
+        for head in ("mul", "matmul"):
+            for tail in ("softmax_with_cross_entropy", "smooth_label_xent"):
+                n += OpPattern([head, tail]).rewrite(block, fuse)
+        program._linear_xent_fused_count = n
+        return program

@@ -1,8 +1,10 @@
 """paddle_tpu_torch kernels: each plain PyTorch version against the JAX
 entry point it replaces, run as tests/test_pallas_kernels.py runs it
-(Pallas interpret mode on the CPU), plus the wrappers' dispatch rules:
-CPU and meta tensors take the plain version without counting a launch,
-and the kernel path raises rather than falling back.
+(Pallas interpret mode on the CPU), forward and, through the wrappers'
+``torch.autograd.Function``s under ``torch.func.vjp``, backward against
+the reference's ``jax.vjp``; plus the wrappers' dispatch rules: CPU and
+meta tensors take the plain version without counting a launch, and the
+kernel path raises rather than falling back.
 
 Tolerance: rtol = atol = 1e-5 in float32 — the two sides sum in
 different orders (XLA vs PyTorch CPU kernels), nothing else differs."""
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops import pallas_kernels as pk
@@ -23,6 +26,12 @@ from paddle_tpu_torch.kernels import (
     flash_attention_qvec,
     flash_attention_qvec_plain,
     fused_add_layer_norm,
+    fused_linear_xent,
+    linear_xent_dw,
+    linear_xent_dx,
+    linear_xent_fwd,
+    linear_xent_grad_plain,
+    linear_xent_plain,
     matmul_bias_act,
     matmul_bias_act_plain,
 )
@@ -145,11 +154,21 @@ def _calls(device):
     q = torch.ones(2, 4, 64, device=device)
     yield lambda: flash_attention_qvec(q, q, q, torch.zeros(2, device=device,
                                                             dtype=torch.long))
+    w = torch.ones(64, 10, device=device)
+    lbl = torch.zeros(4, device=device, dtype=torch.long)
+    row = torch.ones(4, 1, device=device)
+    yield lambda: linear_xent_fwd(x, w, lbl, 0.1)
+    yield lambda: linear_xent_dx(x, w, lbl, row, row, 0.1)
+    yield lambda: linear_xent_dw(x, w, lbl, row, row, 0.1)
+
+
+_LAUNCHED = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
+             linear_xent_fwd, linear_xent_dx, linear_xent_dw)
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_wrappers_take_plain_path_without_counting(device):
-    fns = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec)
+    fns = _LAUNCHED
     before = [f.launches for f in fns]
     for call in _calls(device):
         out = call()
@@ -169,11 +188,11 @@ def test_kernel_path_raises_when_the_library_cannot_build(monkeypatch,
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(build, "_lib", None)
     monkeypatch.setattr(build, "use_kernel", lambda t: True)
-    before = matmul_bias_act.launches
+    before = [f.launches for f in _LAUNCHED]
     for call in _calls("cpu"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
-    assert matmul_bias_act.launches == before
+    assert [f.launches for f in _LAUNCHED] == before
 
 
 def test_declared_signatures_match_the_c_sources():
@@ -202,11 +221,112 @@ def test_declared_signatures_match_the_c_sources():
 
 
 def test_kernel_path_refuses_bf16_and_grad(monkeypatch):
+    """The kernel path refuses bf16.  Grad is no longer refused: each
+    wrapper is a torch.autograd.Function, so a tensor that requires grad
+    reaches the launch (recorded here instead of run) and the result
+    carries a grad_fn."""
     monkeypatch.setattr(build, "use_kernel", lambda t: True)
     x = torch.ones(4, 64, dtype=torch.bfloat16)
     g = torch.ones(64, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         fused_add_layer_norm(x, x, g, g)
+    launched = []
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *args: launched.append(name))
     w = torch.ones(64, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        matmul_bias_act(torch.ones(4, 64), w, None, "")
+    out = matmul_bias_act(torch.ones(4, 64), w, None, "")
+    assert launched == ["ptt_matmul_bias_act"] and out.grad_fn is not None
+    x = torch.ones(4, 64, requires_grad=True)
+    gam = torch.ones(64, requires_grad=True)
+    s, o, _, _ = fused_add_layer_norm(x, x, gam, gam)
+    assert launched[-1] == "ptt_add_layer_norm" and o.grad_fn is not None
+    loss = fused_linear_xent(x, torch.ones(64, 10, requires_grad=True),
+                             torch.zeros(4, dtype=torch.long), 0.1)
+    assert launched[-1] == "ptt_linear_xent_fwd" and loss.grad_fn is not None
+
+
+# ---------------------------------------------------------------------------
+# fused_linear_xent: forward, dx and dw against the Pallas kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("R,H,V,eps", [
+    (16, 24, 10, 0.0),   # V not a multiple of the vocab tile (4)
+    (16, 24, 10, 0.1),
+    (20, 16, 50, 0.1),   # R not a multiple of the row tile (8)
+    (13, 8, 33, 0.0),    # odd everything
+])
+def test_linear_xent_matches_reference_kernel(R, H, V, eps):
+    """The plain version (loss, lse) and the autograd wrapper's (loss,
+    dx, dw) against the reference's fused_linear_xent (Pallas interpret
+    mode, block_r 8, block_v 4) under jax.vjp, with labels outside
+    [0, V) in the batch.  rtol 1e-5, atol 1e-6."""
+    rng = np.random.RandomState(27)
+    x = rng.randn(R, H).astype("float32")
+    w = (rng.randn(H, V) * 0.3).astype("float32")
+    lbl = rng.randint(0, V, (R,)).astype("int64")
+    lbl[1], lbl[5] = -1, V  # both outside the vocab: smoothing term only
+    dy = rng.rand(R, 1).astype("float32")
+    tol = dict(rtol=1e-5, atol=1e-6)
+
+    loss_r, vjp = jax.vjp(
+        lambda a, b: pk.fused_linear_xent(a, b, jnp.asarray(lbl, "int32"),
+                                          eps, 8, 4),
+        jnp.asarray(x), jnp.asarray(w))
+    dx_r, dw_r = vjp(jnp.asarray(dy))
+    dense = np.asarray(pk._linear_xent_dense(jnp.asarray(x), jnp.asarray(w),
+                                             jnp.asarray(lbl, "int32"), eps))
+
+    loss, lse = linear_xent_plain(_t(x), _t(w), _t(lbl), eps)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(loss_r), **tol)
+    np.testing.assert_allclose(loss.numpy(), dense, **tol)
+    lg = x.astype("float64") @ w.astype("float64")
+    np.testing.assert_allclose(
+        lse.numpy()[:, 0], np.log(np.exp(lg).sum(-1)), **tol)
+
+    xt, wt = _t(x), _t(w)
+    out, vjp_t = torch.func.vjp(
+        lambda a, b: fused_linear_xent(a, b, _t(lbl), eps), xt, wt)
+    dx, dw = vjp_t(_t(dy))
+    np.testing.assert_allclose(out.numpy(), np.asarray(loss_r), **tol)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_r), **tol)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_r), **tol)
+    gdx, gdw = linear_xent_grad_plain(xt, wt, _t(lbl), lse, _t(dy), eps)
+    np.testing.assert_array_equal(gdx.numpy(), dx.numpy())
+    np.testing.assert_array_equal(gdw.numpy(), dw.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the dense backward of the PR 1 kernels, through torch.func.vjp
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("act", ["", "relu", "gelu", "tanh", "sigmoid",
+                                 "swish"])
+def test_matmul_bias_act_vjp_matches_reference(act):
+    rng = np.random.RandomState(28)
+    x = rng.randn(12, 20).astype("float32")
+    w = (rng.randn(20, 24) * 0.3).astype("float32")
+    b = rng.randn(24).astype("float32")
+    dy = rng.randn(12, 24).astype("float32")
+    _, vjp = jax.vjp(lambda a, c, d: pk.matmul_bias_act(a, c, d, act, 4, 24),
+                     jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ref = vjp(jnp.asarray(dy))
+    _, vjp_t = torch.func.vjp(
+        lambda a, c, d: matmul_bias_act(a, c, d, act), _t(x), _t(w), _t(b))
+    for got, want in zip(vjp_t(_t(dy)), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_add_layer_norm_vjp_matches_reference():
+    """Cotangents on both outputs (the sum and the normalized rows); the
+    row statistics take none, as in the reference."""
+    rng = np.random.RandomState(29)
+    x, y = (rng.randn(10, 32).astype("float32") for _ in range(2))
+    g = (rng.rand(32) + 0.5).astype("float32")
+    b = rng.randn(32).astype("float32")
+    ds, dout = (rng.randn(10, 32).astype("float32") for _ in range(2))
+    _, vjp = jax.vjp(lambda *a: pk.fused_add_layer_norm(*a, 1e-5, 2),
+                     *(jnp.asarray(a) for a in (x, y, g, b)))
+    ref = vjp((jnp.asarray(ds), jnp.asarray(dout)))
+    _, vjp_t = torch.func.vjp(
+        lambda *a: fused_add_layer_norm(*a, 1e-5)[:2],
+        *(_t(a) for a in (x, y, g, b)))
+    for got, want in zip(vjp_t((_t(ds), _t(dout))), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -1,8 +1,10 @@
 """paddle_tpu_torch op lowerings against the reference lowerings on
 shared numpy inputs (the tests/op_test.py pattern): every op type of the
-serving slice's programs, the ops the builders emit before fusion, and
-the GPT-2 logits program's main and startup ops.  The reference runs
-its dense (non-Pallas) lowerings on the CPU.
+serving slice's programs, of the WMT Transformer's training step, the
+ops the builders emit before fusion, and the GPT-2 logits program's main
+and startup ops; and every ``<op>_grad`` of the training step, the port's
+``lower_grad_op`` (torch.func.vjp) against the reference's (jax.vjp).
+The reference runs its dense (non-Pallas) lowerings on the CPU.
 
 Tolerance: rtol = atol = 1e-5 in float32 (summation order only); index
 and copy ops match exactly.  Random init ops cannot match the
@@ -141,6 +143,83 @@ for _act in ("", "relu", "tanh", "sigmoid", "gelu", "swish"):
 _CASES["fc_nobias"] = ("fc", {"Input": [_F(4, 6)], "W": [_F(6, 5)]},
                        {"in_num_col_dims": 1, "activation_type": "gelu"},
                        False)
+_LBL = _I(13, 2, 5, 1)
+_LBL[0, 0, 0] = -1  # outside the vocab: the smoothing term only
+_CASES.update({
+    "scale": ("scale", {"X": [_F(3, 4)]},
+              {"scale": 1.5, "bias": -0.5, "bias_after_scale": True}, False),
+    "scale_bias_first": ("scale", {"X": [_F(3, 4)]},
+                         {"scale": 2.0, "bias": 1.0,
+                          "bias_after_scale": False}, False),
+    "sum": ("sum", {"X": [_F(3, 4), _F(3, 4), _F(3, 4)]}, {}, False),
+    "softmax": ("softmax", {"X": [_F(2, 3, 7)]}, {"axis": -1}, False),
+    "relu": ("relu", {"X": [_F(3, 5)]}, {}, True),
+    "elementwise_sub": ("elementwise_sub", {"X": [_F(2, 3)], "Y": [_F(2, 3)]},
+                        {"axis": -1}, False),
+    "elementwise_div": ("elementwise_div", {"X": [_F(2, 3)],
+                                            "Y": [_F(2, 3) + 3.0]},
+                        {"axis": -1}, False),
+    "elementwise_min": ("elementwise_min", {"X": [_F(1)], "Y": [_F(1)]},
+                        {"axis": -1}, True),
+    "elementwise_pow": ("elementwise_pow",
+                        {"X": [np.abs(_F(1)) + 0.5],
+                         "Y": [np.array([-0.5], "float32")]},
+                        {"axis": -1}, False),
+    "reduce_sum_all": ("reduce_sum", {"X": [_F(2, 3, 4)]},
+                       {"dim": [0], "keep_dim": False, "reduce_all": True},
+                       False),
+    "reduce_sum_dim": ("reduce_sum", {"X": [_F(2, 3, 4)]},
+                       {"dim": [1, -1], "keep_dim": True, "reduce_all": False},
+                       False),
+    "unsqueeze2": ("unsqueeze2", {"X": [_F(2, 5)]}, {"axes": [2]}, True),
+    "one_hot": ("one_hot", {"X": [_LBL]}, {"depth": 13}, True),
+    "increment": ("increment", {"X": [np.array([3.0], "float32")]},
+                  {"step": 1.0}, True),
+    "fill_zeros_like": ("fill_zeros_like", {"X": [_F(2, 3)]}, {}, True),
+    "assign_value": ("assign_value", {},
+                     {"shape": [2, 2], "values": [0.5, 1.0, -2.0, 3.0],
+                      "np_dtype": "float32"}, True),
+    "label_smooth": ("label_smooth",
+                     {"X": [np.eye(7, dtype="float32")[[1, 4, 6]]]},
+                     {"epsilon": 0.1}, False),
+    "softmax_with_cross_entropy_soft": (
+        "softmax_with_cross_entropy",
+        {"Logits": [_F(2, 5, 13)],
+         "Label": [np.full((2, 5, 13), 1 / 13, "float32")]},
+        {"soft_label": True, "ignore_index": -100}, False),
+    "smooth_label_xent": ("smooth_label_xent",
+                          {"Logits": [_F(2, 5, 13)], "Label": [_LBL]},
+                          {"epsilon": 0.1}, False),
+    "fused_linear_xent": ("fused_linear_xent",
+                          {"X": [_F(2, 5, 6)], "W": [_F(6, 13)],
+                           "Label": [_LBL]},
+                          {"epsilon": 0.1, "transpose_w": False}, False),
+    "fused_linear_xent_tied": ("fused_linear_xent",
+                               {"X": [_F(2, 5, 6)], "W": [_F(13, 6)],
+                                "Label": [_LBL]},
+                               {"epsilon": 0.0, "transpose_w": True}, False),
+    "dropout_is_test": ("dropout", {"X": [_F(3, 4)]},
+                        {"dropout_prob": 0.3, "is_test": True, "seed": 0,
+                         "dropout_implementation": "downgrade_in_infer"},
+                        False),
+    "dropout_upscale_is_test": ("dropout", {"X": [_F(3, 4)]},
+                                {"dropout_prob": 0.3, "is_test": True,
+                                 "seed": 0,
+                                 "dropout_implementation": "upscale_in_train"},
+                                True),
+    "dropout_p0": ("dropout", {"X": [_F(3, 4)]},
+                   {"dropout_prob": 0.0, "is_test": False, "seed": 0,
+                    "dropout_implementation": "downgrade_in_infer"}, True),
+    "sgd": ("sgd", {"Param": [_F(3, 4)], "Grad": [_F(3, 4)],
+                    "LearningRate": [np.array([0.1], "float32")]}, {}, False),
+    "adam": ("adam", {"Param": [_F(3, 4)], "Grad": [_F(3, 4)],
+                      "Moment1": [_F(3, 4) * 0.1],
+                      "Moment2": [np.abs(_F(3, 4)) * 0.1],
+                      "Beta1Pow": [np.array([0.9 ** 3], "float32")],
+                      "Beta2Pow": [np.array([0.997 ** 3], "float32")],
+                      "LearningRate": [np.array([1e-3], "float32")]},
+             {"beta1": 0.9, "beta2": 0.997, "epsilon": 1e-9}, False),
+})
 
 
 @pytest.mark.parametrize("case", sorted(_CASES))
@@ -242,3 +321,93 @@ def test_unported_attention_forms_raise_on_cuda_tensors():
         nn_ops._not_on_cuda(_OnCuda(), "fused_attention causal", "B3, B9")
     with pytest.raises(NotImplementedError, match="B1"):
         nn_ops._not_on_cuda(_OnCuda(), "plain layer_norm", "B1")
+
+
+def _grad_attrs(op_type, fwd_attrs, ins, out_slots, idx=7):
+    """The bookkeeping attrs backward.py gives a grad op."""
+    return {"__fwd_type__": op_type, "__fwd_attrs__": dict(fwd_attrs),
+            "__fwd_in_slots__": list(ins), "__fwd_out_slots__": out_slots,
+            "__fwd_out_names__": {s: [s.lower()] for s in out_slots},
+            "__fwd_op_idx__": idx}
+
+
+_GRAD_CASES = {
+    name: _CASES[name] for name in (
+        "fc_relu", "fc_none", "fused_residual_ln", "fused_linear_xent",
+        "fused_linear_xent_tied", "smooth_label_xent", "softmax", "matmul_ty",
+        "mul", "lookup_table", "scale", "elementwise_add_axis1",
+        "elementwise_mul_axis0", "elementwise_div", "elementwise_sub",
+        "reduce_sum_all", "reduce_sum_dim", "dropout_is_test", "dropout_p0",
+        "sum", "transpose2", "reshape2", "slice", "unsqueeze2")}
+_GRAD_CASES["elementwise_pow"] = ("elementwise_pow",
+                                  {"X": [np.abs(_F(3)) + 0.5],
+                                   "Y": [np.abs(_F(3)) + 0.5]},
+                                  {"axis": -1}, False)
+_GRAD_CASES["elementwise_min"] = ("elementwise_min",
+                                  {"X": [_F(3, 4)], "Y": [_F(3, 4)]},
+                                  {"axis": -1}, False)
+_GRAD_CASES["matmul_batched"] = ("matmul", {"X": [_F(2, 3, 4, 5)],
+                                            "Y": [_F(2, 3, 5, 4)]},
+                                 {"transpose_X": False, "transpose_Y": False,
+                                  "alpha": 0.5}, False)
+
+
+@pytest.mark.parametrize("case", sorted(_GRAD_CASES))
+def test_grad_lowering_matches_reference(case):
+    """<op>_grad through the port's lower_grad_op (torch.func.vjp of the
+    forward rule) against the reference's (jax.vjp), with the same
+    cotangents for every float output; rtol = atol = 1e-5."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.core.registry import lower_grad_op as ref_grad
+    from paddle_tpu_torch.core.registry import lower_grad_op
+
+    op_type, ins, attrs, _ = _GRAD_CASES[case]
+    fwd, _ = _run_both(op_type, ins, attrs)
+    out_slots = list(fwd)
+    cots = {s + "@GRAD": [_F(*a.shape) if a.shape else np.float32(_R.randn())
+                          for a in fwd[s]]
+            for s in out_slots if np.issubdtype(fwd[s][0].dtype, np.floating)}
+    gattrs = _grad_attrs(op_type, attrs, ins, out_slots)
+    gins = dict(ins, **cots)
+    ref = ref_grad(RefCtx(), None,
+                   {s: [jnp.asarray(a) for a in v] for s, v in gins.items()},
+                   gattrs)
+    out = lower_grad_op(LowerCtx(device="cpu"),
+                        {s: [torch.tensor(np.asarray(a)) for a in v]
+                         for s, v in gins.items()}, gattrs)
+    assert set(out) == set(ref), (case, set(out), set(ref))
+    for slot in ref:
+        for a, b in zip(ref[slot], out[slot]):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                       atol=1e-5, err_msg=slot)
+
+
+def test_dropout_grad_redraws_the_forward_mask():
+    """The grad op re-runs dropout under the forward op's index
+    (__fwd_op_idx__) and so draws the forward's mask: the gradient is the
+    cotangent times that mask.  The index is the op's plain position,
+    which equals the runner's (block << 20) | idx in block 0, the block a
+    training program differentiates (as in the reference)."""
+    from paddle_tpu_torch.core.registry import lower_grad_op
+
+    x = torch.tensor(_F(64, 32))
+    attrs = {"dropout_prob": 0.5, "is_test": False, "seed": 0,
+             "dropout_implementation": "downgrade_in_infer"}
+    ctx = LowerCtx(seed=11, device="cpu")
+    ctx.op_idx = (0 << 20) | 5
+    fwd = get_op("dropout").lower(ctx, {"X": [x]}, attrs)
+    mask = fwd["Mask"][0]
+    assert 0.3 < float(mask.mean()) < 0.7
+    dy = torch.tensor(_F(64, 32))
+    gctx = LowerCtx(seed=11, device="cpu")
+    gctx.op_idx = 99  # the grad op's own position must not matter
+    g = lower_grad_op(gctx, {"X": [x], "Out@GRAD": [dy]},
+                      _grad_attrs("dropout", attrs, {"X": None},
+                                  ["Out", "Mask"], idx=5))
+    np.testing.assert_array_equal(g["X@GRAD"][0].numpy(),
+                                  (dy * mask).numpy())
+    other = lower_grad_op(gctx, {"X": [x], "Out@GRAD": [dy]},
+                          _grad_attrs("dropout", attrs, {"X": None},
+                                      ["Out", "Mask"], idx=6))
+    assert not torch.equal(other["X@GRAD"][0], g["X@GRAD"][0])
