@@ -36,7 +36,19 @@ In order, it:
    under the profiler, chiprun_out/profile_training.json);
 8. trains a narrow WMT config 3 steps on the card and on the CPU plain
    path from the same weights and holds the losses to 1e-5 relative;
-9. prints the kernels line and, last, the result line.
+9. trains GPT-2 small (gpt2_lm_program: vocab 50257, d_model 768, 12
+   layers, 12 heads, dropout 0.1, untied head, Adam) on batch 8 x 1024
+   from seeded random weights: one warm-up step (its loss near ln
+   50257), 10 timed steps with every launch count reset just before and
+   read just after and held to the count the program implies, then one
+   step twice from the same saved state, bit for bit, and one step whose
+   dropout_grad ops must redraw their forward ops' masks (with
+   --profile, 3 more steps under the profiler,
+   chiprun_out/profile_training_gpt2.json);
+10. trains a narrow GPT-2 (vocab 1000, d_model 256, 4 heads, 2 layers,
+   seq 128, dropout 0) 3 steps on the card and on the CPU plain path from
+   the same weights and holds the losses to 1e-5 relative;
+11. prints the kernels line and, last, the result line.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -57,8 +69,14 @@ TRAIN_BATCH, TRAIN_LEN = 64, 64
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_LEN  # 4096 target rows per step
 HP_D_MODEL, HP_VOCAB = 512, 10000  # ModelHyperParams' d_model, trg vocab
 TRAIN_STEPS = 10
+# GPT-2 small training step: batch 8 x 1024 tokens
+GPT2_BATCH, GPT2_LEN = 8, 1024
+GPT2_ROWS = GPT2_BATCH * GPT2_LEN  # 8192 target rows per step
+GPT2_D, GPT2_VOCAB, GPT2_HEADS = 768, 50257, 12
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
+GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
+                "flash_attention_dq", "flash_attention_dkv")
 # H100 SXM published peaks (NVIDIA data sheet) used for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -137,9 +155,11 @@ def check_kernels(dev):
 
     # ---- fused_add_layer_norm: 16 R H bytes ---------------------------
     err = 0.0
-    # the serving rows, ragged ones, and the training step's [4096, 512]
+    # the serving rows, ragged ones, the WMT step's [4096, 512] and the
+    # GPT-2 step's [8192, 768]
     for r, h in ((rows, d_model), (7, d_model), (1, d_model),
-                 (TRAIN_ROWS, HP_D_MODEL), (5, HP_D_MODEL)):
+                 (TRAIN_ROWS, HP_D_MODEL), (5, HP_D_MODEL),
+                 (GPT2_ROWS, GPT2_D)):
         x, y = randn(r, h), randn(r, h)
         gam, bet = randn(h), randn(h)
         outs = fused_add_layer_norm(x, y, gam, bet, 1e-5)
@@ -160,18 +180,19 @@ def check_kernels(dev):
         library_ms=_time_ms(lambda: F.layer_norm(x + y, (d_model,), gam, bet,
                                                  1e-5)),
         bound_ms=b, bound_by=fl)
-    x, y = randn(TRAIN_ROWS, HP_D_MODEL), randn(TRAIN_ROWS, HP_D_MODEL)
-    gam, bet = randn(HP_D_MODEL), randn(HP_D_MODEL)
-    b, fl = _bound_ms(16 * TRAIN_ROWS * HP_D_MODEL + 8 * HP_D_MODEL
-                      + 8 * TRAIN_ROWS, 10 * TRAIN_ROWS * HP_D_MODEL)
-    rec["fused_add_layer_norm"]["per_shape"] = {"train [%d, %d]" % (
-        TRAIN_ROWS, HP_D_MODEL): dict(
+    per_shape = rec["fused_add_layer_norm"]["per_shape"] = {}
+    for tag, r, h in (("train", TRAIN_ROWS, HP_D_MODEL),
+                      ("gpt2", GPT2_ROWS, GPT2_D)):
+        x, y = randn(r, h), randn(r, h)
+        gam, bet = randn(h), randn(h)
+        b, fl = _bound_ms(16 * r * h + 8 * h + 8 * r, 10 * r * h)
+        per_shape["%s [%d, %d]" % (tag, r, h)] = dict(
             ms=_time_ms(lambda: fused_add_layer_norm(x, y, gam, bet, 1e-5)),
             plain_ms=_time_ms(lambda: add_layer_norm_plain(x, y, gam, bet,
                                                            1e-5)),
-            library_ms=_time_ms(lambda: F.layer_norm(
-                x + y, (HP_D_MODEL,), gam, bet, 1e-5)),
-            bound_ms=b, bound_by=fl)}
+            library_ms=_time_ms(lambda: F.layer_norm(x + y, (h,), gam, bet,
+                                                     1e-5)),
+            bound_ms=b, bound_by=fl)
 
     # ---- matmul_bias_act: unit-scale outputs (w ~ N(0, 1/K)) ----------
     err = 0.0
@@ -183,6 +204,9 @@ def check_kernels(dev):
     # the training step's FFN: K = 2048 runs slices of 768, 768 and 512
     cases += [(TRAIN_ROWS, HP_D_MODEL, 4 * HP_D_MODEL, "relu"),
               (TRAIN_ROWS, 4 * HP_D_MODEL, HP_D_MODEL, "")]
+    # the GPT-2 training step's FFN: K = 3072 runs four slices of 768
+    cases += [(GPT2_ROWS, GPT2_D, 4 * GPT2_D, "gelu"),
+              (GPT2_ROWS, 4 * GPT2_D, GPT2_D, "")]
     for m, k, n, act in cases:
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         for bias in (bm, None):
@@ -195,7 +219,9 @@ def check_kernels(dev):
             ("ffn_in", (rows, d_model, d_ff, "gelu")),
             ("ffn_out", (rows, d_ff, d_model, "")),
             ("train_ffn_in", (TRAIN_ROWS, HP_D_MODEL, 4 * HP_D_MODEL, "relu")),
-            ("train_ffn_out", (TRAIN_ROWS, 4 * HP_D_MODEL, HP_D_MODEL, ""))):
+            ("train_ffn_out", (TRAIN_ROWS, 4 * HP_D_MODEL, HP_D_MODEL, "")),
+            ("gpt2_ffn_in", (GPT2_ROWS, GPT2_D, 4 * GPT2_D, "gelu")),
+            ("gpt2_ffn_out", (GPT2_ROWS, 4 * GPT2_D, GPT2_D, ""))):
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         act_fn = {"gelu": F.gelu, "relu": F.relu}.get(act)
         lib = ((lambda: act_fn(torch.addmm(bm, xm, wm))) if act
@@ -262,6 +288,8 @@ def check_kernels(dev):
         bound_ms=b, bound_by=fl)
     torch.cuda.synchronize()
     rec.update(check_linear_xent(dev, randn, g))
+    rec.update(check_layer_norm(randn))
+    rec.update(check_flash_attention(dev, randn))
     return rec
 
 
@@ -288,8 +316,10 @@ def check_linear_xent(dev, randn, g):
     """The three linear cross-entropy kernels (forward, dx, dw) against
     the plain version on the card: the training path's shapes (R 4096, H
     512, V 10000, eps 0.1) and ragged ones (R 100, V 1007, labels -1 and
-    V in the batch, eps 0 and 0.1; R 70, H 600, V 300).  Limit: 1e-4 of the largest
-    magnitude of each of loss, dx and dw."""
+    V in the batch, eps 0 and 0.1; R 70, H 600, V 300), and the GPT-2
+    path's (R 8192, H 768, V 50257, eps 0: the wide-H form), timed as
+    `per_shape`.  Limit: 1e-4 of the largest magnitude of each of loss,
+    dx and dw."""
     import torch
     import torch.nn.functional as F
 
@@ -309,7 +339,7 @@ def check_linear_xent(dev, randn, g):
 
     # H 600 takes the backward's form for H > 512 (16-deep staged slices)
     for r, h, v, e in ((R, H, V, eps), (100, H, 1007, 0.0), (100, H, 1007, 0.1),
-                       (70, 600, 300, 0.1)):
+                       (70, 600, 300, 0.1), (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0)):
         x, w = randn(r, h), randn(h, v, scale=h ** -0.5)
         lbl = torch.randint(0, v, (r,), generator=g, device=dev)
         lbl[0], lbl[1] = -1, v  # outside the vocab: smoothing term only
@@ -324,6 +354,35 @@ def check_linear_xent(dev, randn, g):
         note("dw", (dw, p_dw))
     for k, v_ in err.items():
         assert v_ <= 1e-4, ("linear_xent disagrees", k, v_)
+
+    rec = {}
+    for name, site, e in (("linear_xent_fwd", ":1647", "loss"),
+                          ("linear_xent_dx", ":1680", "dx"),
+                          ("linear_xent_dw", ":1693", "dw")):
+        rec[name] = dict(
+            route="cuda", source="paddle_tpu_torch/kernels/csrc/linear_xent.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site,
+            max_abs_err=err_abs[e], max_rel_err=err[e])
+    for tag, (r, h, v, e) in (("wmt", (R, H, V, eps)),
+                              ("gpt2", (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0))):
+        for name, times in _lxent_times(dev, randn, g, r, h, v, e,
+                                        slow=tag == "gpt2").items():
+            if tag == "wmt":
+                rec[name].update(times)
+            else:
+                rec[name]["per_shape"] = {times.pop("shape"): times}
+    torch.cuda.synchronize()
+    return rec
+
+
+def _lxent_times(dev, randn, g, R, H, V, eps, slow):
+    """Times of the three linear cross-entropy kernels at one shape,
+    beside the plain version and matmul + cross_entropy.  `slow` shapes
+    (hundreds of ms a call) are timed with CUDA events over 3 calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import linear_xent as lx
 
     x, w = randn(R, H), randn(H, V, scale=H ** -0.5)
     lbl = torch.randint(0, V, (R,), generator=g, device=dev)
@@ -340,33 +399,173 @@ def check_linear_xent(dev, randn, g):
                                reduction="none")
         return torch.autograd.grad(loss, (xg, wg), dy.reshape(-1))
 
+    def timed(fn):
+        return _events_ms(fn, reps=3) if slow else _time_ms(fn, reps=5,
+                                                             inner=5)
+
     plain_grad = _events_ms(
         lambda: lx.linear_xent_grad_plain(x, w, lbl, lse, dy, eps))
     lib_fwd_bwd = _events_ms(library_fwd_bwd)
     fwd_bytes = 4 * (R * H + H * V) + 8 * R + 4 * 2 * R
     bwd_bytes = 4 * (R * H + H * V) + 8 * R + 4 * 2 * R
+    shape = "x [%d, %d], w [%d, %d], eps %.1f" % (R, H, H, V, eps)
     specs = (
-        ("linear_xent_fwd", ":1647 (_lxent_fwd)",
+        ("linear_xent_fwd",
          lambda: lx.linear_xent_fwd(x, w, lbl, eps),
          lambda: lx.linear_xent_plain(x, w, lbl, eps), library_fwd,
-         fwd_bytes, 2 * R * H * V, "loss"),
-        ("linear_xent_dx", ":1680 (_lxent_bwd dx)",
+         fwd_bytes, 2 * R * H * V),
+        ("linear_xent_dx",
          lambda: lx.linear_xent_dx(x, w, lbl, lse, dy, eps), None, None,
-         bwd_bytes + 4 * R * H, 4 * R * H * V, "dx"),
-        ("linear_xent_dw", ":1693 (_lxent_bwd dw)",
+         bwd_bytes + 4 * R * H, 4 * R * H * V),
+        ("linear_xent_dw",
          lambda: lx.linear_xent_dw(x, w, lbl, lse, dy, eps), None, None,
-         bwd_bytes + 4 * H * V, 4 * R * H * V, "dw"),
+         bwd_bytes + 4 * H * V, 4 * R * H * V),
+    )
+    out = {}
+    for name, kern, plain, lib, nbytes, flops in specs:
+        b, fl = _bound_ms(nbytes, flops)
+        out[name] = dict(
+            shape=shape + ("" if plain else
+                           "; plain_ms is the plain backward (dx and dw "
+                           "together), library_ms matmul + cross_entropy "
+                           "forward and backward"),
+            ms=timed(kern), plain_ms=timed(plain) if plain else plain_grad,
+            library_ms=timed(lib) if lib else lib_fwd_bwd,
+            bound_ms=b, bound_by=fl)
+    return out
+
+
+def check_layer_norm(randn):
+    """fused_layer_norm against its plain version at the GPT-2 path's
+    [8192, 768] rows and ragged row counts; limit 1e-5 absolute on the
+    output and the row statistics."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import fused_layer_norm, layer_norm_plain
+
+    err = 0.0
+    for r in (GPT2_ROWS, 7, 1000):
+        x = randn(r, GPT2_D, scale=2.0) + 0.5
+        gam, bet = randn(GPT2_D), randn(GPT2_D)
+        for got, want in zip(fused_layer_norm(x, gam, bet, 1e-5),
+                             layer_norm_plain(x, gam, bet, 1e-5)):
+            err = max(err, (got - want).abs().max().item())
+    assert err <= 1e-5, ("fused_layer_norm disagrees", err)
+    R, H = GPT2_ROWS, GPT2_D
+    x, gam, bet = randn(R, H), randn(H), randn(H)
+    b, fl = _bound_ms(8 * R * H + 8 * H + 8 * R, 8 * R * H)
+    return {"fused_layer_norm": dict(
+        route="cuda", source="paddle_tpu_torch/kernels/csrc/layer_norm.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:724",
+        shape="x [%d, %d]" % (R, H), max_abs_err=err,
+        ms=_time_ms(lambda: fused_layer_norm(x, gam, bet, 1e-5)),
+        plain_ms=_time_ms(lambda: layer_norm_plain(x, gam, bet, 1e-5)),
+        library_ms=_time_ms(lambda: F.layer_norm(x, (H,), gam, bet, 1e-5)),
+        bound_ms=b, bound_by=fl)}
+
+
+def check_flash_attention(dev, randn):
+    """The three flash-attention kernels (forward, dq, dk/dv) against the
+    plain version on the card: the GPT-2 path's shapes (BH 96, T 1024, d
+    64, causal), a key bias with some keys at -1e9 (causal; non-causal
+    with Tq != Tk), ragged lengths, and head dim 128.  Limit: 1e-4 of the
+    largest magnitude of each of o, dq, dk, dv and dkbias (lse: 1e-4
+    absolute)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import (
+        flash_attention_dkv,
+        flash_attention_dq,
+        flash_attention_fwd,
+        flash_attention_grad_plain,
+        flash_attention_plain,
+    )
+
+    err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}  # relative to the max magnitude
+    err_abs = dict(err)
+
+    def note(key, got, want):
+        err[key] = max(err[key], ((got - want).abs().max()
+                                  / want.abs().max().clamp_min(1e-30)).item())
+        err_abs[key] = max(err_abs[key], (got - want).abs().max().item())
+
+    bh, t, d = GPT2_BATCH * GPT2_HEADS, GPT2_LEN, GPT2_D // GPT2_HEADS
+    cases = [(bh, t, t, d, True, False),   # the GPT-2 path
+             (6, 300, 300, 64, True, True),
+             (5, 200, 333, 64, False, True),
+             (4, 384, 384, 128, True, True),
+             (3, 130, 70, 128, False, False)]
+    for n, tq, tk, dh, causal, with_bias in cases:
+        q, k, v = randn(n, tq, dh), randn(n, tk, dh), randn(n, tk, dh)
+        do = randn(n, tq, dh)
+        kb = None
+        if with_bias:
+            kb = randn(n, tk)
+            kb[:, -3:] = -1e9
+        scale = dh ** -0.5
+        o, lse = flash_attention_fwd(q, k, v, kb, causal, scale)
+        p_o, p_lse = flash_attention_plain(q, k, v, kb, causal, scale)
+        note("fwd", o, p_o)
+        assert (lse - p_lse).abs().max().item() <= 1e-4, ("lse", n, tq)
+        delta = (do * o).sum(-1)
+        dq = flash_attention_dq(q, k, v, kb, lse, do, delta, causal, scale)
+        dk, dv, dkb = flash_attention_dkv(q, k, v, kb, lse, do, delta,
+                                             causal, scale)
+        p_dq, p_dk, p_dv, p_dkb = flash_attention_grad_plain(
+            q, k, v, kb, p_lse, do, delta, causal, scale)
+        note("dq", dq, p_dq)
+        note("dkv", dk, p_dk)
+        note("dkv", dv, p_dv)
+        if kb is not None:
+            note("dkv", dkb, p_dkb)
+        else:
+            assert dkb is None
+    for key, val in err.items():
+        assert val <= 1e-4, ("flash_attention disagrees", key, val)
+
+    q, k, v, do = (randn(bh, t, d) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, None, True, scale)
+    delta = (do * o).sum(-1)
+    qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
+
+    def library_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(out, (qg, kg, vg), do)
+
+    plain_grad = _events_ms(lambda: flash_attention_grad_plain(
+        q, k, v, None, lse, do, delta, True, scale))
+    lib_fwd_bwd = _events_ms(library_fwd_bwd)
+    pairs = t * (t + 1) // 2  # the causal half the kernels compute
+    row = 4 * bh * t * d  # bytes of one [BH, T, d] operand
+    specs = (
+        ("flash_attention_fwd", ":279 (_flash_fwd)",
+         lambda: flash_attention_fwd(q, k, v, None, True, scale),
+         lambda: flash_attention_plain(q, k, v, None, True, scale),
+         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+         4 * row + 4 * bh * t, 4 * bh * pairs * d, "fwd"),
+        ("flash_attention_dq", ":447 (_flash_bwd dq)",
+         lambda: flash_attention_dq(q, k, v, None, lse, do, delta, True,
+                                       scale), None, None,
+         5 * row + 8 * bh * t, 6 * bh * pairs * d, "dq"),
+        ("flash_attention_dkv", ":471 (_flash_bwd dk/dv)",
+         lambda: flash_attention_dkv(q, k, v, None, lse, do, delta, True,
+                                        scale), None, None,
+         6 * row + 8 * bh * t, 8 * bh * pairs * d, "dkv"),
     )
     rec = {}
     for name, site, kern, plain, lib, nbytes, flops, e in specs:
         b, fl = _bound_ms(nbytes, flops)
         rec[name] = dict(
-            route="cuda", source="paddle_tpu_torch/kernels/csrc/linear_xent.cu",
+            route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             replaces="paddle_tpu/ops/pallas_kernels.py" + site.split()[0],
-            shape="x [%d, %d], w [%d, %d], eps %.1f%s" % (
-                R, H, H, V, eps, "" if plain else
-                "; plain_ms is the plain backward (dx and dw together), "
-                "library_ms matmul + cross_entropy forward and backward"),
+            shape="q, k, v [%d, %d, %d], causal%s" % (
+                bh, t, d, "" if plain else
+                "; plain_ms is the plain backward (dq, dk and dv together), "
+                "library_ms scaled_dot_product_attention forward and "
+                "backward"),
             max_abs_err=err_abs[e], max_rel_err=err[e],
             ms=_time_ms(kern, reps=5, inner=5),
             plain_ms=_time_ms(plain, reps=5, inner=5) if plain else plain_grad,
@@ -505,8 +704,8 @@ def profile_serving(eng, scope, out_dir):
     _profile_report(prof, wall_us, stats["steps"], "serving", out_dir)
 
 
-def profile_training(run_step, out_dir, steps=3):
-    """Where the training step's time goes: `steps` steps of the same
+def profile_training(run_step, out_dir, steps=3, name="training"):
+    """Where a training step's time goes: `steps` steps of the same
     program under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -520,7 +719,7 @@ def profile_training(run_step, out_dir, steps=3):
             run_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _profile_report(prof, wall_us, steps, "training", out_dir)
+    _profile_report(prof, wall_us, steps, name, out_dir)
 
 
 def card_matches_cpu(dev, n_slots):
@@ -588,7 +787,10 @@ def _expected_train_launches(main):
     """Kernel launches per training step, read off the program: each
     fused op launches its kernel once, and its grad op once more (the
     grad re-runs the forward rule under torch.func.vjp); the linear
-    cross entropy's grad also launches dx and dw."""
+    cross entropy's grad also launches dx and dw, and fused_attention's
+    grad dq and dk/dv.  In the training programs every layer_norm is the
+    kernel form (last axis, Scale and Bias) and no fused_attention has a
+    QStart, a window or segment ids."""
     ops = [op.type for op in main.global_block().ops]
     return {
         "matmul_bias_act": ops.count("fc") + ops.count("fc_grad"),
@@ -599,34 +801,29 @@ def _expected_train_launches(main):
         "linear_xent_dx": ops.count("fused_linear_xent_grad"),
         "linear_xent_dw": ops.count("fused_linear_xent_grad"),
         "flash_attention_qvec": 0,
+        "fused_layer_norm": (ops.count("layer_norm")
+                             + ops.count("layer_norm_grad")),
+        "flash_attention_fwd": (ops.count("fused_attention")
+                                + ops.count("fused_attention_grad")),
+        "flash_attention_dq": ops.count("fused_attention_grad"),
+        "flash_attention_dkv": ops.count("fused_attention_grad"),
     }
 
 
-def train_transformer_base(dev, profile_dir=None):
-    """The training path: Transformer-base (ModelHyperParams: vocab
-    10000/10000, d_model 512, d_inner 2048, 8 heads, 6+6 layers, dropout
-    0.1, label smoothing 0.1, noam lr, Adam) on batch 64 x 64 tokens,
-    random weights from a seed.  One warm-up step, then TRAIN_STEPS timed
-    steps with every launch count reset just before and read just after;
-    then the same step twice from one saved state, bit for bit, and a
-    step checking every dropout_grad against its forward op's mask."""
+def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
+                   first_range, per_step, profile_dir, profile_name):
+    """One training path on the card: one warm-up step (its loss within
+    `first_range`), then TRAIN_STEPS timed steps with every launch count
+    reset just before and read just after and held to `per_step` times
+    the steps; then the same step twice from one saved state, bit for
+    bit, and a step checking every dropout_grad against its forward op's
+    mask.  Prints the path's line and returns the launch counts."""
     import numpy as np
     import torch
 
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch.models import transformer as tfm
 
-    hp = tfm.ModelHyperParams
-    main, startup, _, fetch = tfm.wmt_transformer_program(
-        hp, src_len=TRAIN_LEN, trg_len=TRAIN_LEN)
-    startup.random_seed = main.random_seed = 4321
-    per_step = _expected_train_launches(main)
-    assert per_step == {"matmul_bias_act": 48, "fused_add_layer_norm": 60,
-                        "linear_xent_fwd": 2, "linear_xent_dx": 1,
-                        "linear_xent_dw": 1, "flash_attention_qvec": 0}, per_step
-    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
-    n_tok = float(batch["lbl_weight"].sum())
     scope = ptt.Scope()
     with ptt.scope_guard(scope):
         exe = ptt.Executor(ptt.CUDAPlace(0))
@@ -634,7 +831,8 @@ def train_transformer_base(dev, profile_dir=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         first = float(exe.run(main, feed=batch, fetch_list=[fetch[0]])[0].sum())
-        assert 8.0 < first < 10.5, ("first loss far from ln 10000", first)
+        assert first_range[0] < first < first_range[1], (
+            "first loss out of range", label, first, first_range)
         kernels.reset_launch_counts()
         losses, times = [], []
         for _ in range(TRAIN_STEPS):
@@ -650,7 +848,7 @@ def train_transformer_base(dev, profile_dir=None):
         assert all(np.isfinite(losses)), losses
         for name, n in per_step.items():
             assert launches[name] == n * TRAIN_STEPS, (
-                "launch count", name, launches[name], n, TRAIN_STEPS)
+                "launch count", label, name, launches[name], n, TRAIN_STEPS)
 
         # the same step twice from one saved state: a fresh executor each
         # time, so both draw the same dropout masks
@@ -667,6 +865,7 @@ def train_transformer_base(dev, profile_dir=None):
                                                       runs[1][1][n])]
         assert not differ, ("updated state not reproducible", differ[:5])
         moved = sum(not torch.equal(runs[0][1][n], state[n]) for n in state)
+        del runs, state
 
         # each dropout_grad redraws its forward op's mask on the card: its
         # X@GRAD is Out@GRAD times the forward's Mask, bit for bit
@@ -677,50 +876,95 @@ def train_transformer_base(dev, profile_dir=None):
                 fwd = block.ops[op.attrs["__fwd_op_idx__"]]
                 names += [fwd.outputs["Mask"][0], op.inputs["Out@GRAD"][0],
                           op.outputs["X@GRAD"][0]]
+        assert names, "no dropout_grad op"
         vals = exe.run(main, feed=batch, fetch_list=names, return_numpy=False)
         for i in range(0, len(vals), 3):
             mask, dout, dx = vals[i:i + 3]
             assert torch.equal(dx, dout * mask), ("dropout_grad mask", names[i])
             assert 0.85 < float(mask.mean()) < 0.95, (names[i], mask.mean())
+        del vals
         if profile_dir:
             profile_training(lambda: exe.run(main, feed=batch,
-                                             fetch_list=fetch), profile_dir)
+                                             fetch_list=fetch), profile_dir,
+                             name=profile_name)
     p50 = sorted(times)[len(times) // 2]
-    print("trained Transformer-base %d steps (batch %d x %d): step p50 %.3f "
-          "ms, mean %.3f ms; %.1f target tokens/s (%d non-pad target tokens "
-          "a step), %.1f target rows/s; losses %s (first %.4f); peak memory "
-          "%.2f GB; launches per step %s; one step from a saved state twice: "
-          "bit-equal loss and %d updated state tensors; %d dropout_grad ops "
-          "redrew their forward masks" % (
-              TRAIN_STEPS, TRAIN_BATCH, TRAIN_LEN, p50 * 1e3,
-              sum(times) / len(times) * 1e3, n_tok / p50, n_tok,
-              TRAIN_ROWS / p50, json.dumps([round(v, 6) for v in losses]),
-              first, peak / 1e9,
+    print("trained %s %d steps: step p50 %.3f ms, mean %.3f ms; %.1f target "
+          "tokens/s (%d non-pad target tokens a step), %.1f target rows/s; "
+          "losses %s (first %.4f); peak memory %.2f GB; launches per step %s; "
+          "one step from a saved state twice: bit-equal loss and %d updated "
+          "state tensors; %d dropout_grad ops redrew their forward masks" % (
+              label, TRAIN_STEPS, p50 * 1e3, sum(times) / len(times) * 1e3,
+              n_tok / p50, n_tok, rows / p50,
+              json.dumps([round(v, 6) for v in losses]), first, peak / 1e9,
               json.dumps({k: v // TRAIN_STEPS for k, v in launches.items()}),
               moved, len(names) // 3))
     return launches
 
 
-def train_card_matches_cpu(dev):
-    """A narrow WMT Transformer (2+2 layers, d_model 64, dropout 0)
-    trained 3 steps from the same weights on the card and on the CPU
-    plain path: losses agree to 1e-5 relative, and the card's run
-    launched every kernel of the training path."""
+def train_transformer_base(dev, profile_dir=None):
+    """The WMT training path: Transformer-base (ModelHyperParams: vocab
+    10000/10000, d_model 512, d_inner 2048, 8 heads, 6+6 layers, dropout
+    0.1, label smoothing 0.1, noam lr, Adam) on batch 64 x 64 tokens,
+    random weights from a seed, through _train_on_card."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    hp = tfm.ModelHyperParams
+    main, startup, _, fetch = tfm.wmt_transformer_program(
+        hp, src_len=TRAIN_LEN, trg_len=TRAIN_LEN)
+    startup.random_seed = main.random_seed = 4321
+    per_step = _expected_train_launches(main)
+    assert per_step == {"matmul_bias_act": 48, "fused_add_layer_norm": 60,
+                        "linear_xent_fwd": 2, "linear_xent_dx": 1,
+                        "linear_xent_dw": 1, "flash_attention_qvec": 0,
+                        "fused_layer_norm": 0, "flash_attention_fwd": 0,
+                        "flash_attention_dq": 0,
+                        "flash_attention_dkv": 0}, per_step
+    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
+    return _train_on_card(
+        "Transformer-base (batch %d x %d)" % (TRAIN_BATCH, TRAIN_LEN), main,
+        startup, fetch, batch, float(batch["lbl_weight"].sum()), TRAIN_ROWS,
+        (8.0, 10.5), per_step, profile_dir, "training")
+
+
+def train_gpt2_small(dev, profile_dir=None):
+    """The GPT-2 training path: gpt2_lm_program(GPT2Config) — vocab
+    50257, n_ctx 1024, d_model 768, 12 layers, 12 heads, dropout 0.1,
+    untied head, Adam lr 3e-4 — on make_fake_lm_batch(8, 1024, seed=0),
+    random weights from a seed, through _train_on_card.  The first loss
+    must be near ln 50257 = 10.82 (random weights at std 0.02 give
+    near-uniform logits)."""
+    import math
+
+    from paddle_tpu_torch.models import gpt2
+
+    hp = gpt2.GPT2Config
+    main, startup, _, fetch = gpt2.gpt2_lm_program(hp, seq_len=GPT2_LEN)
+    startup.random_seed = main.random_seed = 2024
+    per_step = _expected_train_launches(main)
+    assert per_step == {"matmul_bias_act": 48, "fused_add_layer_norm": 48,
+                        "linear_xent_fwd": 2, "linear_xent_dx": 1,
+                        "linear_xent_dw": 1, "flash_attention_qvec": 0,
+                        "fused_layer_norm": 2, "flash_attention_fwd": 24,
+                        "flash_attention_dq": 12,
+                        "flash_attention_dkv": 12}, per_step
+    batch = gpt2.make_fake_lm_batch(GPT2_BATCH, GPT2_LEN, hp, seed=0)
+    ln_v = math.log(hp.vocab_size)
+    return _train_on_card(
+        "GPT-2 small (batch %d x %d)" % (GPT2_BATCH, GPT2_LEN), main, startup,
+        fetch, batch, float(batch["loss_weight"].sum()), GPT2_ROWS,
+        (ln_v - 0.5, ln_v + 0.5), per_step, profile_dir, "training_gpt2")
+
+
+def _card_matches_cpu(label, main, startup, fetch, batch, must_launch):
+    """A narrow program trained 3 steps from the same weights on the card
+    and on the CPU plain path: losses agree to 1e-5 relative, every
+    launch count is 3 steps of what the program implies, and each of
+    `must_launch` launched."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch.models import transformer as tfm
 
-    class Narrow(tfm.ModelHyperParams):
-        src_vocab_size = trg_vocab_size = 1000
-        max_length, d_model, d_inner_hid, n_head, n_layer = 64, 64, 256, 4, 2
-        dropout = 0.0
-
-    main, startup, _, fetch = tfm.wmt_transformer_program(
-        Narrow, src_len=16, trg_len=16)
-    startup.random_seed = 7
-    batch = tfm.make_fake_batch(8, 16, 16, Narrow, seed=3)
     losses = {}
     for kind in ("cpu", "cuda"):
         scope = ptt.Scope()
@@ -733,7 +977,7 @@ def train_card_matches_cpu(dev):
                            for n in scope.local_var_names()}
             else:
                 for n, w in weights.items():
-                    scope.set(n, w.to(dev))
+                    scope.set(n, w.to(place.torch_device()))
             kernels.reset_launch_counts()
             losses[kind] = [float(exe.run(main, feed=batch,
                                           fetch_list=[fetch[0]])[0].sum())
@@ -742,13 +986,51 @@ def train_card_matches_cpu(dev):
     want = _expected_train_launches(main)
     for name, n in want.items():
         assert launched[name] == 3 * n, ("launch count", name, launched)
+    assert all(launched[n] for n in must_launch), launched
     assert np.isfinite(losses["cuda"]).all()
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
     err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                    losses["cpu"]))
-    print("narrow WMT trained 3 steps on the card vs the CPU plain path: "
+    print("narrow %s trained 3 steps on the card vs the CPU plain path: "
           "losses %s vs %s, max relative difference %.3g, launches %s" % (
-              losses["cuda"], losses["cpu"], err, json.dumps(launched)))
+              label, losses["cuda"], losses["cpu"], err, json.dumps(launched)))
+
+
+def train_card_matches_cpu(dev):
+    """A narrow WMT Transformer (2+2 layers, d_model 64, dropout 0)."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    class Narrow(tfm.ModelHyperParams):
+        src_vocab_size = trg_vocab_size = 1000
+        max_length, d_model, d_inner_hid, n_head, n_layer = 64, 64, 256, 4, 2
+        dropout = 0.0
+
+    main, startup, _, fetch = tfm.wmt_transformer_program(
+        Narrow, src_len=16, trg_len=16)
+    startup.random_seed = 7
+    _card_matches_cpu("WMT", main, startup, fetch,
+                      tfm.make_fake_batch(8, 16, 16, Narrow, seed=3),
+                      ("matmul_bias_act", "fused_add_layer_norm",
+                       "linear_xent_fwd", "linear_xent_dx", "linear_xent_dw"))
+
+
+def gpt2_train_card_matches_cpu(dev):
+    """A narrow GPT-2 (vocab 1000, d_model 256, 4 heads of 64, 2 layers,
+    seq 128, dropout 0): every kernel of the GPT-2 training path."""
+    from paddle_tpu_torch.models import gpt2
+
+    class Narrow(gpt2.GPT2Config):
+        vocab_size, n_ctx, d_model, n_layer, n_head = 1000, 128, 256, 2, 4
+        dropout = 0.0
+
+    main, startup, _, fetch = gpt2.gpt2_lm_program(Narrow, seq_len=128)
+    startup.random_seed = 9
+    _card_matches_cpu("GPT-2", main, startup, fetch,
+                      gpt2.make_fake_lm_batch(4, 128, Narrow, seed=3),
+                      GPT2_KERNELS + ("matmul_bias_act",
+                                      "fused_add_layer_norm",
+                                      "linear_xent_fwd", "linear_xent_dx",
+                                      "linear_xent_dw"))
 
 
 def main():
@@ -798,12 +1080,16 @@ def main():
     torch.cuda.empty_cache()
     trained = train_transformer_base(dev, profile_dir)
     train_card_matches_cpu(dev)
+    torch.cuda.empty_cache()
+    trained_gpt2 = train_gpt2_small(dev, profile_dir)
+    gpt2_train_card_matches_cpu(dev)
 
-    # launches: the serving run's plus the training run's, each counted
-    # from 0 just before its main path and read just after
+    # launches: each path's run, counted from 0 just before it and read
+    # just after
     kernels = []
     for name, r in rec.items():
-        by_path = {"serving": served[name], "training": trained[name]}
+        by_path = {"serving": served[name], "wmt_training": trained[name],
+                   "gpt2_training": trained_gpt2[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),

@@ -10,15 +10,18 @@ import numpy as np
 import torch
 
 from .core.scope import global_scope
+from .places import default_place
 
 __all__ = ["params_from_numpy"]
 
 
 def params_from_numpy(arrays, scope=None, place=None):
     """Copy every array into `scope` (default: the global scope) as a
-    tensor on `place` (default: the CPU).  Returns the names set."""
+    tensor on `place` (default: ``default_place()``, the card, which
+    raises where there is none: pass ``CPUPlace()`` for the CPU).
+    Returns the names set."""
     scope = scope if scope is not None else global_scope()
-    device = place.torch_device() if place is not None else torch.device("cpu")
+    device = (place if place is not None else default_place()).torch_device()
     for name, arr in arrays.items():
         scope.set(name, torch.tensor(np.asarray(arr), device=device))
     return sorted(arrays)

@@ -6,9 +6,16 @@ at first use."""
 from .add_layer_norm import add_layer_norm_plain, fused_add_layer_norm
 from .flash_attention import (
     NEG_INF,
+    flash_attention,
+    flash_attention_dkv,
+    flash_attention_dq,
+    flash_attention_fwd,
+    flash_attention_grad_plain,
+    flash_attention_plain,
     flash_attention_qvec,
     flash_attention_qvec_plain,
 )
+from .layer_norm import fused_layer_norm, layer_norm_plain
 from .linear_xent import (
     fused_linear_xent,
     linear_xent_dw,
@@ -26,7 +33,8 @@ from .matmul_epilogue import (
 
 # every kernel wrapper, each with its launch count
 KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
-           linear_xent_fwd, linear_xent_dx, linear_xent_dw)
+           linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
+           flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
 
 
 def reset_launch_counts():

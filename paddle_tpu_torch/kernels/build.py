@@ -46,6 +46,10 @@ SIGNATURES = {
     "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _P),
     "ptt_linear_xent_dx": (_P,) * 6 + (_I,) * 3 + (_F, _P),
     "ptt_linear_xent_dw": (_P,) * 6 + (_I,) * 3 + (_F, _P),
+    "ptt_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
+    "ptt_flash_attention_fwd": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    "ptt_flash_attention_dq": (_P,) * 8 + (_I,) * 5 + (_F, _P),
+    "ptt_flash_attention_dkv": (_P,) * 10 + (_I,) * 5 + (_F, _P),
 }
 
 _lib = None

@@ -1,6 +1,6 @@
 """Neural-net layers (the counterpart of ``paddle_tpu/layers/nn.py``):
-the builders the serving slice, the GPT-2 logits program and the WMT
-Transformer's training program call.  Each
+the builders the serving slice and the GPT-2 and WMT Transformer
+programs call.  Each
 appends ops through LayerHelper exactly as the reference does, so the
 same calls generate the same var and parameter names."""
 
@@ -15,7 +15,7 @@ __all__ = [
     "elementwise_div", "elementwise_min",
     "elementwise_pow", "gather", "fused_attention", "slot_cache_write",
     "dropout", "softmax", "softmax_with_cross_entropy", "label_smooth",
-    "reduce_sum", "unsqueeze", "one_hot", "scale",
+    "reduce_sum", "unsqueeze", "one_hot", "scale", "clip",
 ]
 
 
@@ -113,6 +113,10 @@ def _simple(op_type, x, attrs=None, name=None):
     helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs=attrs or {})
     return out
+
+
+def clip(x, min, max, name=None):
+    return _simple("clip", x, {"min": float(min), "max": float(max)}, name)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):

@@ -1,21 +1,27 @@
 """GPT-2-style decoder-only LM (the counterpart of
 ``paddle_tpu/models/gpt2.py``): ``GPT2Config`` (GPT-2 small by
-default), ``gpt2_lm``, ``gpt2_logits_program`` (its startup initializes
-the weights) and ``gpt2_ragged_step_program`` (the serving engine's
-step).  Built under ``unique_name.guard()`` as in the reference, so the
-parameter names are the reference's and weights cross between the
-packages by name (``paddle_tpu_torch.io.params_from_numpy``).
+default), ``gpt2_lm``, ``gpt2_lm_program`` (causal-LM training: forward,
+fuse passes, backward, Adam), ``make_fake_lm_batch``,
+``gpt2_logits_program`` (its startup initializes the weights) and
+``gpt2_ragged_step_program`` (the serving engine's step).  Built under
+``unique_name.guard()`` as in the reference, so the parameter names are
+the reference's and weights cross between the packages by name
+(``paddle_tpu_torch.io.params_from_numpy``).
 
 Options whose kernels or ops are not ported yet raise: ``use_swiglu``
-(ROADMAP B6), ``use_rotary`` and ``n_kv_head < n_head`` (ROADMAP A5).
+(ROADMAP B6), ``use_rotary`` and ``n_kv_head < n_head`` (ROADMAP A5),
+``recompute`` (A9), and ``gpt2_lm_program``'s ``use_bf16`` (A3) and
+``mesh`` (A7).
 """
+
+import numpy as np
 
 from .. import framework, layers, unique_name
 from ..initializer import Normal
 from ..param_attr import ParamAttr
 
-__all__ = ["GPT2Config", "gpt2_lm", "gpt2_logits_program",
-           "gpt2_ragged_step_program"]
+__all__ = ["GPT2Config", "gpt2_lm", "gpt2_lm_program", "make_fake_lm_batch",
+           "gpt2_logits_program", "gpt2_ragged_step_program"]
 
 
 class GPT2Config:
@@ -65,16 +71,19 @@ def _attn(x, hp, is_test, cache=None):
 
 
 def _block(x, hp, is_test, cache=None):
-    """One decoder block: x + attn(ln(x)), then x + ffn(ln(x))."""
-    if hp.dropout and not is_test:
-        raise NotImplementedError("dropout (training) is not ported yet")
+    """One decoder block: x + dropout(attn(ln(x))), then
+    x + dropout(ffn(ln(x))); dropout only when training."""
     a = _attn(layers.layer_norm(x, begin_norm_axis=2), hp, is_test, cache)
+    if hp.dropout and not is_test:
+        a = layers.dropout(a, hp.dropout, is_test=is_test)
     x = layers.elementwise_add(x, a)
     ln = layers.layer_norm(x, begin_norm_axis=2)
     h = layers.fc(ln, size=4 * hp.d_model, num_flatten_dims=2, act="gelu",
                   param_attr=_pa("ffn_in.w"), bias_attr=_pa("ffn_in.b"))
     h = layers.fc(h, size=hp.d_model, num_flatten_dims=2,
                   param_attr=_pa("ffn_out.w"))
+    if hp.dropout and not is_test:
+        h = layers.dropout(h, hp.dropout, is_test=is_test)
     return layers.elementwise_add(x, h)
 
 
@@ -98,10 +107,66 @@ def gpt2_lm(ids, hp=GPT2Config, is_test=False):
         attr=_pa("pos_emb.w", 0.01))
     pos = layers.slice(pos_table, axes=[0], starts=[0], ends=[ids.shape[1]])
     x = layers.elementwise_add(tok, pos, axis=1)
+    if hp.dropout and not is_test:
+        x = layers.dropout(x, hp.dropout, is_test=is_test)
     for _ in range(hp.n_layer):
         x = _block(x, hp, is_test)
     x = layers.layer_norm(x, begin_norm_axis=2)
     return _tied_logits(x, hp, emb_attr.name)
+
+
+def gpt2_lm_program(hp=GPT2Config, seq_len=128, lr=3e-4, is_test=False,
+                    use_bf16=False, mesh=None):
+    """(main, startup, feeds, [loss, token_count]) for causal-LM
+    training: ids/labels [B, T] int64 and loss_weight [B, T] float feeds;
+    the loss is the weighted mean token cross entropy (an all-pad batch
+    gives 0, never 0/0).  linear_xent_fuse_pass (the [B, T, V] logits
+    never exist) and matmul_epilogue_fuse_pass run before Adam.minimize,
+    as in the reference.  The reference's rematerialization hook emits
+    nothing without its HBM-budget flag, and the port has no flags, so
+    it emits nothing here either."""
+    if use_bf16:
+        raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
+                                  "(ROADMAP A3)")
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded training is not ported yet "
+                                  "(ROADMAP A7)")
+    if getattr(hp, "recompute", False) and not is_test:
+        raise NotImplementedError("per-layer rematerialization "
+                                  "(layers.recompute) is not ported yet "
+                                  "(ROADMAP A9)")
+    from .. import optimizer
+    from ..transpiler.pass_registry import apply_pass
+
+    main = framework.Program()
+    startup = framework.Program()
+    with framework.program_guard(main, startup), unique_name.guard():
+        ids = layers.data("ids", shape=[seq_len], dtype="int64")
+        lbl = layers.data("labels", shape=[seq_len], dtype="int64")
+        w = layers.data("loss_weight", shape=[seq_len], dtype="float32")
+        logits = gpt2_lm(ids, hp, is_test)
+        cost = layers.softmax_with_cross_entropy(logits,
+                                                 layers.unsqueeze(lbl, [2]))
+        cost = layers.elementwise_mul(cost, layers.unsqueeze(w, [2]))
+        tokens = layers.reduce_sum(w)
+        loss = layers.elementwise_div(layers.reduce_sum(cost),
+                                      layers.clip(tokens, 1e-5, 1e30))
+        apply_pass(main, "linear_xent_fuse_pass")
+        apply_pass(main, "matmul_epilogue_fuse_pass")
+        if not is_test:
+            optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, ["ids", "labels", "loss_weight"], [loss, tokens]
+
+
+def make_fake_lm_batch(batch_size, seq_len, hp=GPT2Config, seed=0):
+    """A seeded synthetic batch: next-token labels, every weight 1."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, hp.vocab_size, (batch_size, seq_len + 1)).astype("int64")
+    return {
+        "ids": ids[:, :-1],
+        "labels": ids[:, 1:],
+        "loss_weight": np.ones((batch_size, seq_len), "float32"),
+    }
 
 
 def gpt2_logits_program(hp=GPT2Config, seq_len=128):

@@ -1,8 +1,8 @@
 """Elementwise / activation / matmul / reduction / loss op lowerings
 (the counterpart of ``paddle_tpu/ops/math_ops.py``), limited to the ops
-the serving slice, the GPT-2 logits program and the WMT Transformer's
-training step run.  ``mul`` and ``matmul`` are plain products outside
-any kernel of the reference, so they stay ``torch.matmul`` here too.
+the serving slice and the GPT-2 and WMT Transformer training steps
+run.  ``mul`` and ``matmul`` are plain products outside any kernel of
+the reference, so they stay ``torch.matmul`` here too.
 ``fused_linear_xent`` sits on the hand-written linear cross-entropy
 kernels (``kernels/linear_xent.py``).
 """
@@ -43,6 +43,11 @@ def _scale(ctx, ins, attrs):
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}
+
+
+@register("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs["min"], attrs["max"])]}
 
 
 @register("sum")

@@ -1,16 +1,20 @@
 """Neural-net op lowerings (the counterpart of ``paddle_tpu/ops/nn_ops.py``),
-limited to the ops of the serving slice, the GPT-2 logits program and
-the WMT Transformer's training step.
+limited to the ops of the serving slice and the GPT-2 and WMT
+Transformer training steps.
 
-Three ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
+Five ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
 ``fc`` on ``matmul_bias_act``, ``fused_residual_ln`` on
-``fused_add_layer_norm`` and ``fused_attention``'s per-row QStart form
-on ``flash_attention_qvec``.  Each wrapper takes its plain version for
-CPU and meta tensors and launches its kernel for CUDA tensors.  The op
-forms whose reference kernel is not ported yet (plain ``layer_norm``,
-and ``fused_attention`` with causal / bias / scalar QStart / window /
-segments) run their plain version on CPU and meta tensors and raise on
-a CUDA tensor, so no plain path runs silently on the card.
+``fused_add_layer_norm``, ``layer_norm`` over the last axis with Scale
+and Bias on ``fused_layer_norm``, ``fused_attention``'s per-row QStart
+form on ``flash_attention_qvec`` and its forms without a QStart (causal
+or not, with or without a key Bias) on ``flash_attention``.  Each
+wrapper takes its plain version for CPU and meta tensors and launches
+its kernel for CUDA tensors.  ``layer_norm``'s other forms are the
+reference's own XLA branch, which has no kernel: they stay plain
+PyTorch on any device.  The ``fused_attention`` forms whose reference
+kernel is not ported yet (scalar QStart, sliding window, segment ids)
+run their plain version on CPU and meta tensors and raise on a CUDA
+tensor, so no plain path runs silently on the card.
 """
 
 import numpy as np
@@ -19,8 +23,10 @@ import torch
 from ..core.registry import register
 from ..kernels import (
     NEG_INF,
+    flash_attention,
     flash_attention_qvec,
     fused_add_layer_norm,
+    fused_layer_norm,
     matmul_bias_act,
 )
 
@@ -34,10 +40,21 @@ def _not_on_cuda(t, what, item):
 
 @register("layer_norm")
 def _layer_norm(ctx, ins, attrs):
+    """The kernel form, as in the reference: the norm over the last axis
+    with both Scale and Bias.  Any other form is the reference's dense
+    branch."""
     x = ins["X"][0]
-    _not_on_cuda(x, "plain layer_norm (kernel fused_layer_norm)", "B1")
     begin = attrs.get("begin_norm_axis", 1)
     eps = attrs.get("epsilon", 1e-5)
+    if begin == x.dim() - 1 and ins.get("Scale") and ins.get("Bias"):
+        h = x.shape[-1]
+        y, mean, var = fused_layer_norm(
+            x.reshape(-1, h).contiguous(),
+            ins["Scale"][0].reshape(h).contiguous(),
+            ins["Bias"][0].reshape(h).contiguous(), eps)
+        lead = tuple(x.shape[:-1])
+        return {"Y": [y.reshape(x.shape)], "Mean": [mean.reshape(lead)],
+                "Variance": [var.reshape(lead)]}
     axes = tuple(range(begin, x.dim()))
     xf = x.float()
     mean = xf.mean(dim=axes, keepdim=True)
@@ -48,9 +65,10 @@ def _layer_norm(ctx, ins, attrs):
         y = y * ins["Scale"][0].reshape(norm_shape).float()
     if ins.get("Bias"):
         y = y + ins["Bias"][0].reshape(norm_shape).float()
+    # the statistics take no gradient, as in the reference
     return {"Y": [y.to(x.dtype)],
-            "Mean": [mean.reshape(mean.shape[:begin])],
-            "Variance": [var.reshape(var.shape[:begin])]}
+            "Mean": [mean.reshape(mean.shape[:begin]).detach()],
+            "Variance": [var.reshape(var.shape[:begin]).detach()]}
 
 
 @register("dropout")
@@ -133,7 +151,9 @@ def _dense_attention(q, k, v, causal, scale, kbias=None, window=0, seg=None,
 def _fused_attention(ctx, ins, attrs):
     """Fused scaled-dot-product attention over [batch, heads, T, d].  The
     per-row QStart form (the ragged serving step) launches the
-    flash_attention_qvec kernel on CUDA tensors."""
+    flash_attention_qvec kernel on CUDA tensors, and the forms without a
+    QStart, window or segment ids (causal or not, with an optional key
+    Bias) the flash_attention kernels."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     causal = bool(attrs.get("causal", False))
     window = int(attrs.get("window", 0) or 0)
@@ -177,12 +197,17 @@ def _fused_attention(ctx, ins, attrs):
         qsv = qstart[:, None].expand(b, h).reshape(b * h)
         out = flash_attention_qvec(qf, kf, vf, qsv, float(scale))
         return {"Out": [out.reshape(b, h, t, d)]}
-    _not_on_cuda(q, "fused_attention with causal / bias / scalar QStart "
-                 "(kernels flash_attention, flash_attention_piece)", "B3, B9")
     kbias = None
     if ins.get("Bias"):
         kbias = ins["Bias"][0].reshape(b, tk).float()
         kbias = kbias[:, None, :].expand(b, h, tk).reshape(b * h, tk)
+    if qstart is None and not window and not ins.get("SegmentIds"):
+        out = flash_attention(qf, kf, vf, kbias, causal, float(scale))
+        return {"Out": [out.reshape(b, h, t, d)]}
+    _not_on_cuda(q, "fused_attention with a scalar QStart, a window or "
+                 "segment ids (kernels flash_attention_piece, "
+                 "flash_attention's window and segment forms)",
+                 "B9, B3-window/segments")
     seg = None
     if ins.get("SegmentIds"):
         if t != tk:

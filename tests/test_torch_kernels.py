@@ -23,10 +23,18 @@ from paddle_tpu_torch.kernels import (
     MM_ACTS,
     add_layer_norm_plain,
     build,
+    flash_attention,
+    flash_attention_dkv,
+    flash_attention_dq,
+    flash_attention_fwd,
+    flash_attention_grad_plain,
+    flash_attention_plain,
     flash_attention_qvec,
     flash_attention_qvec_plain,
     fused_add_layer_norm,
+    fused_layer_norm,
     fused_linear_xent,
+    layer_norm_plain,
     linear_xent_dw,
     linear_xent_dx,
     linear_xent_fwd,
@@ -160,10 +168,17 @@ def _calls(device):
     yield lambda: linear_xent_fwd(x, w, lbl, 0.1)
     yield lambda: linear_xent_dx(x, w, lbl, row, row, 0.1)
     yield lambda: linear_xent_dw(x, w, lbl, row, row, 0.1)
+    yield lambda: fused_layer_norm(x, g, g)
+    lse = torch.zeros(2, 4, device=device)
+    kb = torch.zeros(2, 4, device=device)
+    yield lambda: flash_attention_fwd(q, q, q, kb, True)
+    yield lambda: flash_attention_dq(q, q, q, kb, lse, q, lse, True)
+    yield lambda: flash_attention_dkv(q, q, q, None, lse, q, lse, False)
 
 
 _LAUNCHED = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
-             linear_xent_fwd, linear_xent_dx, linear_xent_dw)
+             linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
+             flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -330,3 +345,129 @@ def test_add_layer_norm_vjp_matches_reference():
         *(_t(a) for a in (x, y, g, b)))
     for got, want in zip(vjp_t((_t(ds), _t(dout))), ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# fused_layer_norm
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rows", [24, 7])
+def test_layer_norm_plain_and_vjp_match_reference(rows):
+    """The plain version's output and statistics, and the autograd
+    wrapper's vjp, against the reference's fused_layer_norm (Pallas
+    interpret mode) under jax.vjp.  rtol = atol = 1e-5."""
+    rng = np.random.RandomState(31)
+    x = (rng.randn(rows, 48) * 2 + 0.5).astype("float32")
+    g = (rng.rand(48) + 0.5).astype("float32")
+    b = rng.randn(48).astype("float32")
+    dy = rng.randn(rows, 48).astype("float32")
+    ref, vjp = jax.vjp(lambda *a: pk.fused_layer_norm(*a, 1e-5),
+                       *(jnp.asarray(a) for a in (x, g, b)))
+    ref_grads = vjp(jnp.asarray(dy))
+    y, mean, var = layer_norm_plain(_t(x), _t(g), _t(b), 1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), **TOL)
+    assert mean.shape == var.shape == (rows,)
+    np.testing.assert_allclose(mean.numpy(), x.mean(-1), **TOL)
+    np.testing.assert_allclose(var.numpy(), x.var(-1), **TOL)
+    out, vjp_t = torch.func.vjp(lambda *a: fused_layer_norm(*a, 1e-5)[0],
+                                _t(x), _t(g), _t(b))
+    np.testing.assert_array_equal(out.numpy(), y.numpy())
+    for got, want in zip(vjp_t(_t(dy)), ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: forward, dq and dk/dv against the Pallas kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("causal,with_bias,tq,tk", [
+    (True, False, 256, 256),   # two 128-blocks a side: the causal block skip
+    (True, True, 256, 256),
+    (False, True, 256, 256),
+    (False, False, 12, 20),    # Tq != Tk, one block a side
+    (True, True, 12, 12),
+])
+def test_flash_attention_matches_reference_kernel(causal, with_bias, tq, tk):
+    """flash_attention_plain's (o, lse) against the reference's _flash_fwd,
+    and the autograd wrapper's (dq, dk, dv, dkbias) under torch.func.vjp
+    and flash_attention_grad_plain's against the reference's
+    flash_attention under jax.vjp, all in Pallas interpret mode (blocks
+    of 128 or the whole length).  rtol = atol = 1e-5."""
+    rng = np.random.RandomState(32)
+    bh, d, scale = 3, 16, 0.3
+    q = rng.randn(bh, tq, d).astype("float32")
+    k = rng.randn(bh, tk, d).astype("float32")
+    v = rng.randn(bh, tk, d).astype("float32")
+    do = rng.randn(bh, tq, d).astype("float32")
+    kb = None
+    if with_bias:
+        kb = rng.randn(bh, tk).astype("float32")
+        kb[:, -2:] = -1e9  # masked keys: zero probability and gradient
+    bq, bk = min(tq, 128), min(tk, 128)
+    jkb = None if kb is None else jnp.asarray(kb)
+    r_o, r_lse = pk._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jkb if kb is not None else jnp.zeros((bh, tk), jnp.float32),
+        causal, scale, bq, bk)
+    prim = [jnp.asarray(a) for a in (q, k, v)] + ([jkb] if kb is not None
+                                                  else [])
+    r_out, vjp = jax.vjp(
+        lambda *a: pk.flash_attention(*a[:3], a[3] if len(a) > 3 else None,
+                                      causal, scale, bq, bk), *prim)
+    r_grads = vjp(jnp.asarray(do))
+    np.testing.assert_allclose(np.asarray(r_out), np.asarray(r_o), **TOL)
+
+    tkb = None if kb is None else _t(kb)
+    o, lse = flash_attention_plain(_t(q), _t(k), _t(v), tkb, causal, scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(r_o), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(r_lse), **TOL)
+
+    tprim = [_t(a) for a in (q, k, v)] + ([tkb] if kb is not None else [])
+    out, vjp_t = torch.func.vjp(
+        lambda *a: flash_attention(*a[:3], a[3] if len(a) > 3 else None,
+                                   causal, scale), *tprim)
+    grads = vjp_t(_t(do))
+    np.testing.assert_array_equal(out.numpy(), o.numpy())
+    assert len(grads) == len(r_grads)
+    for got, want in zip(grads, r_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    delta = (_t(do) * o).sum(-1)
+    plain = flash_attention_grad_plain(_t(q), _t(k), _t(v), tkb, lse, _t(do),
+                                       delta, causal, scale)
+    for got, want in zip(plain, r_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if kb is not None:
+        assert np.abs(plain[3].numpy()[:, -2:]).max() == 0.0
+
+
+def test_flash_attention_grad_guards_rows_without_a_key():
+    """A row whose lse is the NEG_INF sentinel takes no gradient (the
+    reference's lse <= NEG_INF / 2 guard)."""
+    rng = np.random.RandomState(33)
+    q, k, v, do = (_t(rng.randn(1, 4, 8).astype("float32")) for _ in range(4))
+    lse = torch.zeros(1, 4)
+    lse[0, 2] = -1e30
+    delta = torch.zeros(1, 4)
+    dq, dk, dv, dkb = flash_attention_grad_plain(q, k, v, None, lse, do,
+                                                 delta, True, 0.5)
+    assert float(dq[0, 2].abs().max()) == 0.0
+    dq2, _, _, _ = flash_attention_grad_plain(q, k, v, None, torch.zeros(1, 4),
+                                              do, delta, True, 0.5)
+    assert float(dq2[0, 2].abs().max()) > 0.0
+
+
+def test_flash_attention_kernel_path_checks_shapes(monkeypatch):
+    """On the kernel path the wrapper refuses what the kernels cannot
+    take: causal with Tq != Tk, a head dim other than 64 and 128, a key
+    bias of the wrong shape."""
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch", lambda *a: None)
+    q = torch.ones(2, 4, 64)
+    k = torch.ones(2, 6, 64)
+    with pytest.raises(ValueError, match="causal requires"):
+        flash_attention_fwd(q, k, k, None, True)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_fwd(torch.ones(2, 4, 32), torch.ones(2, 4, 32),
+                            torch.ones(2, 4, 32))
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention_fwd(q, k, k, torch.zeros(2, 4))
+    o, lse = flash_attention_fwd(q, k, k, torch.zeros(2, 6))
+    assert o.shape == (2, 4, 64) and lse.shape == (2, 4)

@@ -198,6 +198,15 @@ _CASES.update({
                                {"X": [_F(2, 5, 6)], "W": [_F(13, 6)],
                                 "Label": [_LBL]},
                                {"epsilon": 0.0, "transpose_w": True}, False),
+    "clip": ("clip", {"X": [_F(4, 5)]}, {"min": -0.5, "max": 0.7}, False),
+    "clip_scalar": ("clip", {"X": [np.array([3.0], "float32")]},
+                    {"min": 1e-5, "max": 1e30}, False),
+    "layer_norm_axis1": ("layer_norm", {"X": [_F(2, 3, 8)],
+                                        "Scale": [_F(24)], "Bias": [_F(24)]},
+                         {"begin_norm_axis": 1, "epsilon": 1e-5}, False),
+    "layer_norm_no_bias": ("layer_norm", {"X": [_F(2, 3, 8)],
+                                          "Scale": [_F(8)]},
+                           {"begin_norm_axis": 2, "epsilon": 1e-5}, False),
     "dropout_is_test": ("dropout", {"X": [_F(3, 4)]},
                         {"dropout_prob": 0.3, "is_test": True, "seed": 0,
                          "dropout_implementation": "downgrade_in_infer"},
@@ -310,17 +319,96 @@ def test_fused_attention_qstart_dispatch(monkeypatch, b, n_qstart, window,
         assert calls == []
 
 
-def test_unported_attention_forms_raise_on_cuda_tensors():
-    """The forms whose kernel is not ported refuse a CUDA tensor, naming
-    the ROADMAP item, instead of running a plain path on the card."""
+def test_unported_attention_forms_raise_on_cuda_tensors(monkeypatch):
+    """The forms whose kernel is not ported (scalar QStart, window,
+    segment ids) refuse a CUDA tensor, naming the ROADMAP items, instead
+    of running a plain path on the card; the guard passes CPU tensors."""
 
     class _OnCuda:
         device = torch.device("cuda")
 
-    with pytest.raises(NotImplementedError, match="B3, B9"):
-        nn_ops._not_on_cuda(_OnCuda(), "fused_attention causal", "B3, B9")
-    with pytest.raises(NotImplementedError, match="B1"):
-        nn_ops._not_on_cuda(_OnCuda(), "plain layer_norm", "B1")
+    with pytest.raises(NotImplementedError, match="B9, B3-window/segments"):
+        nn_ops._not_on_cuda(_OnCuda(), "fused_attention window",
+                            "B9, B3-window/segments")
+    nn_ops._not_on_cuda(torch.zeros(1), "fused_attention window", "B9")
+    guarded = []
+    monkeypatch.setattr(nn_ops, "_not_on_cuda",
+                        lambda t, what, item: guarded.append(item))
+    q = torch.tensor(_F(1, 2, 4, 8))
+    lower = get_op("fused_attention").lower
+    for ins, attrs in (
+            ({"QStart": [torch.tensor([1])]}, {"window": 2}),
+            ({"SegmentIds": [torch.zeros(1, 4, dtype=torch.long)]}, {}),
+            ({}, {"window": 2})):
+        lower(LowerCtx(device="cpu"), dict({"Q": [q], "K": [q], "V": [q]},
+                                           **ins),
+              dict({"causal": True, "scale": None, "window": 0}, **attrs))
+    assert guarded == ["B9, B3-window/segments"] * 3
+
+
+@pytest.mark.parametrize("ins,attrs,kernel", [
+    ({}, {"causal": True}, True),
+    ({"Bias": [np.zeros((2, 5), "float32")]}, {"causal": False}, True),
+    ({}, {"causal": False}, True),
+    ({"SegmentIds": [np.zeros((2, 5), "int64")]}, {"causal": True}, False),
+    ({}, {"causal": True, "window": 2}, False),
+])
+def test_fused_attention_flash_dispatch(monkeypatch, ins, attrs, kernel):
+    """The forms without a QStart, window or segment ids reach the
+    flash_attention wrapper (and so its kernels on the card), with the
+    Bias broadcast over heads as a [B*H, Tk] key bias."""
+    calls = []
+    real = nn_ops.flash_attention
+
+    def spy(q, k, v, kbias, causal, scale):
+        calls.append((tuple(q.shape), None if kbias is None
+                      else tuple(kbias.shape), causal))
+        return real(q, k, v, kbias, causal, scale)
+
+    monkeypatch.setattr(nn_ops, "flash_attention", spy)
+    q = torch.tensor(_F(2, 3, 5, 8))
+    feeds = {s: [torch.tensor(a) for a in v] for s, v in ins.items()}
+    out = get_op("fused_attention").lower(
+        LowerCtx(device="cpu"), dict({"Q": [q], "K": [q], "V": [q]}, **feeds),
+        dict({"scale": None, "window": 0}, **attrs))
+    assert out["Out"][0].shape == (2, 3, 5, 8)
+    if kernel:
+        assert calls == [((6, 5, 8), (6, 5) if ins else None,
+                          attrs["causal"])]
+    else:
+        assert calls == []
+
+
+@pytest.mark.parametrize("shape,begin,scale,bias,kernel", [
+    ((2, 3, 8), 2, True, True, True),     # the GPT-2 form
+    ((6, 8), 1, True, True, True),
+    ((2, 3, 8), 1, True, True, False),    # the norm over two axes
+    ((2, 3, 8), 2, True, False, False),   # no Bias
+    ((2, 3, 8), 2, False, True, False),   # no Scale
+])
+def test_layer_norm_dispatch(monkeypatch, shape, begin, scale, bias, kernel):
+    """As in the reference: the norm over the last axis with Scale and
+    Bias goes to fused_layer_norm (its CUDA kernel on the card); any
+    other form is the dense branch, plain PyTorch on any device."""
+    calls = []
+    real = nn_ops.fused_layer_norm
+
+    def spy(x2d, g, b, eps):
+        calls.append(tuple(x2d.shape))
+        return real(x2d, g, b, eps)
+
+    monkeypatch.setattr(nn_ops, "fused_layer_norm", spy)
+    width = int(np.prod(shape[begin:]))
+    ins = {"X": [_F(*shape)]}
+    if scale:
+        ins["Scale"] = [_F(width)]
+    if bias:
+        ins["Bias"] = [_F(width)]
+    attrs = {"begin_norm_axis": begin, "epsilon": 1e-5}
+    ref, out = _run_both("layer_norm", ins, attrs)
+    for slot in ref:
+        np.testing.assert_allclose(out[slot][0], ref[slot][0], **TOL)
+    assert calls == ([(int(np.prod(shape[:-1])), shape[-1])] if kernel else [])
 
 
 def _grad_attrs(op_type, fwd_attrs, ins, out_slots, idx=7):
@@ -338,7 +426,9 @@ _GRAD_CASES = {
         "mul", "lookup_table", "scale", "elementwise_add_axis1",
         "elementwise_mul_axis0", "elementwise_div", "elementwise_sub",
         "reduce_sum_all", "reduce_sum_dim", "dropout_is_test", "dropout_p0",
-        "sum", "transpose2", "reshape2", "slice", "unsqueeze2")}
+        "sum", "transpose2", "reshape2", "slice", "unsqueeze2", "clip",
+        "layer_norm", "layer_norm_axis1", "fused_attention_causal",
+        "fused_attention_bias")}
 _GRAD_CASES["elementwise_pow"] = ("elementwise_pow",
                                   {"X": [np.abs(_F(3)) + 0.5],
                                    "Y": [np.abs(_F(3)) + 0.5]},

@@ -146,6 +146,21 @@ def test_executor_without_cuda_raises(monkeypatch):
     assert ptt.Executor(ptt.CPUPlace()).device.type == "cpu"
 
 
+def test_params_from_numpy_defaults_to_the_card(monkeypatch):
+    """Weights go where the executor runs by default: the card, which
+    raises without one; the CPU only when asked for."""
+    from paddle_tpu_torch.io import params_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scope = ptt.Scope()
+    w = {"w": np.ones((2, 3), "float32")}
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        params_from_numpy(w, scope)
+    assert not scope.has_var("w")
+    assert params_from_numpy(w, scope, ptt.CPUPlace()) == ["w"]
+    assert scope.find_var("w").device.type == "cpu"
+
+
 def test_cache_startup_and_reset_run_on_cpu():
     """The cache startup zeroes every cache; the reset program zeroes
     exactly the slots whose keep mask is 0."""

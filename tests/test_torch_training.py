@@ -101,7 +101,7 @@ def test_wmt_training_matches_reference_over_adam_steps():
     scope = ptt.Scope()
     exe = ptt.Executor(ptt.CPUPlace())
     with ptt.scope_guard(scope):
-        params_from_numpy(init, scope)
+        params_from_numpy(init, scope, ptt.CPUPlace())
         losses = [float(exe.run(main, feed=batch, fetch_list=[fetch[0]])[0]
                         .sum()) for _ in range(5)]
     np.testing.assert_allclose(losses, r_losses, rtol=1e-5)
@@ -190,7 +190,7 @@ def test_grad_of_an_op_that_overwrites_its_input():
     xv = np.array([1.0, -2.0, 0.5], "float32")
     wv = np.array([0.5, 3.0, -1.0], "float32")
     with ptt.scope_guard(scope):
-        params_from_numpy({"w": wv}, scope)
+        params_from_numpy({"w": wv}, scope, ptt.CPUPlace())
         got_w, got_x = exe.run(main, feed={"x": xv}, fetch_list=[gw, gx])
     y0 = 2 * xv
     np.testing.assert_allclose(got_w, 2 * y0 * y0 * wv, rtol=1e-6)
