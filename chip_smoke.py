@@ -48,7 +48,21 @@ In order, it:
 10. trains a narrow GPT-2 (vocab 1000, d_model 256, 4 heads, 2 layers,
    seq 128, dropout 0) 3 steps on the card and on the CPU plain path from
    the same weights and holds the losses to 1e-5 relative;
-11. prints the kernels line and, last, the result line.
+11. serves the same 24-request trace with the modern-decoder GPT-2
+   options at TinyLlama-1.1B's widths (vocab 32000, n_ctx 2048, d_model
+   2048, 22 layers, 32 query and 4 KV heads, rotary positions, SwiGLU
+   FFN 5632 wide; random weights from a seed; t_max 2048), with the same
+   checks (matmul_swiglu 22 launches an engine step beside the GPT-2
+   kernels), then a narrow modern config on the card and the CPU in a
+   three-slot and a one-slot pool (with --profile:
+   chiprun_out/profile_serving_llama.json);
+12. trains that TinyLlama-width config (dropout 0, Adam) on batch 2 x
+   2048: one warm-up step (its loss near ln 32000), 5 timed steps with
+   the launch counts held to the program's, then one step twice from the
+   same saved state, bit for bit (with --profile,
+   chiprun_out/profile_training_llama.json); then a narrow modern config
+   3 steps on the card and on the CPU, losses within 1e-5 relative;
+13. prints the kernels line and, last, the result line.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -73,6 +87,11 @@ TRAIN_STEPS = 10
 GPT2_BATCH, GPT2_LEN = 8, 1024
 GPT2_ROWS = GPT2_BATCH * GPT2_LEN  # 8192 target rows per step
 GPT2_D, GPT2_VOCAB, GPT2_HEADS = 768, 50257, 12
+# TinyLlama-1.1B's widths: served at t_max 2048, trained on 2 x 2048 tokens
+LLAMA_BATCH, LLAMA_LEN = 2, 2048
+LLAMA_ROWS = LLAMA_BATCH * LLAMA_LEN  # 4096 target rows per step
+LLAMA_D, LLAMA_FF, LLAMA_VOCAB, LLAMA_HEADS = 2048, 5632, 32000, 32
+LLAMA_STEPS = 5  # timed steps: a ~3 s step keeps the run well in its limit
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
 GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
@@ -80,6 +99,43 @@ GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
 # H100 SXM published peaks (NVIDIA data sheet) used for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+
+
+def tinyllama_config():
+    """TinyLlama-1.1B's published config (TinyLlama/TinyLlama-1.1B: hidden
+    2048, intermediate 5632, 22 layers, 32 query and 4 KV heads, vocab
+    32000, context 2048, RoPE base 10000, untied head) as a GPT2Config
+    with the modern-decoder options: SwiGLU's 2/3 of 4 x 2048 = 5461
+    rounds up to 5632 at ffn_multiple_of 256.  Kept from the repo's
+    builder: LayerNorm with a bias where TinyLlama has RMSNorm, a bias on
+    ffn_out, random weights.  Dropout 0, as in LLaMA pretraining."""
+    from paddle_tpu_torch.models import gpt2
+
+    class TinyLlama(gpt2.GPT2Config):
+        vocab_size, n_ctx, d_model, n_layer = 32000, 2048, 2048, 22
+        n_head, n_kv_head = 32, 4
+        use_rotary = use_swiglu = True
+        ffn_multiple_of = 256
+        dropout = 0.0
+        tie_embeddings = False
+
+    return TinyLlama
+
+
+def narrow_modern_config():
+    """A narrow config with every modern-decoder option, head dim 64 (the
+    kernels' width): vocab 1000, n_ctx 128, d_model 256, 4 query and 2 KV
+    heads, 2 layers, SwiGLU at ffn_multiple_of 64, rotary, dropout 0."""
+    from paddle_tpu_torch.models import gpt2
+
+    class NarrowModern(gpt2.GPT2Config):
+        vocab_size, n_ctx, d_model, n_layer = 1000, 128, 256, 2
+        n_head, n_kv_head = 4, 2
+        use_rotary = use_swiglu = True
+        ffn_multiple_of = 64
+        dropout = 0.0
+
+    return NarrowModern
 
 
 def _sh(cmd):
@@ -155,11 +211,12 @@ def check_kernels(dev):
 
     # ---- fused_add_layer_norm: 16 R H bytes ---------------------------
     err = 0.0
-    # the serving rows, ragged ones, the WMT step's [4096, 512] and the
-    # GPT-2 step's [8192, 768]
+    # the serving rows, ragged ones, the WMT step's [4096, 512], the GPT-2
+    # step's [8192, 768] and the TinyLlama steps' [4096, 2048] and
+    # [128, 2048]
     for r, h in ((rows, d_model), (7, d_model), (1, d_model),
                  (TRAIN_ROWS, HP_D_MODEL), (5, HP_D_MODEL),
-                 (GPT2_ROWS, GPT2_D)):
+                 (GPT2_ROWS, GPT2_D), (LLAMA_ROWS, LLAMA_D), (rows, LLAMA_D)):
         x, y = randn(r, h), randn(r, h)
         gam, bet = randn(h), randn(h)
         outs = fused_add_layer_norm(x, y, gam, bet, 1e-5)
@@ -182,7 +239,9 @@ def check_kernels(dev):
         bound_ms=b, bound_by=fl)
     per_shape = rec["fused_add_layer_norm"]["per_shape"] = {}
     for tag, r, h in (("train", TRAIN_ROWS, HP_D_MODEL),
-                      ("gpt2", GPT2_ROWS, GPT2_D)):
+                      ("gpt2", GPT2_ROWS, GPT2_D),
+                      ("llama_train", LLAMA_ROWS, LLAMA_D),
+                      ("llama_serve", rows, LLAMA_D)):
         x, y = randn(r, h), randn(r, h)
         gam, bet = randn(h), randn(h)
         b, fl = _bound_ms(16 * r * h + 8 * h + 8 * r, 10 * r * h)
@@ -207,6 +266,9 @@ def check_kernels(dev):
     # the GPT-2 training step's FFN: K = 3072 runs four slices of 768
     cases += [(GPT2_ROWS, GPT2_D, 4 * GPT2_D, "gelu"),
               (GPT2_ROWS, 4 * GPT2_D, GPT2_D, "")]
+    # the TinyLlama steps' ffn_out: K = 5632 runs seven slices of 768 and a
+    # ragged last one of 256
+    cases += [(LLAMA_ROWS, LLAMA_FF, LLAMA_D, ""), (rows, LLAMA_FF, LLAMA_D, "")]
     for m, k, n, act in cases:
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         for bias in (bm, None):
@@ -221,16 +283,20 @@ def check_kernels(dev):
             ("train_ffn_in", (TRAIN_ROWS, HP_D_MODEL, 4 * HP_D_MODEL, "relu")),
             ("train_ffn_out", (TRAIN_ROWS, 4 * HP_D_MODEL, HP_D_MODEL, "")),
             ("gpt2_ffn_in", (GPT2_ROWS, GPT2_D, 4 * GPT2_D, "gelu")),
-            ("gpt2_ffn_out", (GPT2_ROWS, 4 * GPT2_D, GPT2_D, ""))):
+            ("gpt2_ffn_out", (GPT2_ROWS, 4 * GPT2_D, GPT2_D, "")),
+            ("llama_ffn_out", (LLAMA_ROWS, LLAMA_FF, LLAMA_D, "")),
+            ("llama_serve_ffn_out", (rows, LLAMA_FF, LLAMA_D, ""))):
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         act_fn = {"gelu": F.gelu, "relu": F.relu}.get(act)
         lib = ((lambda: act_fn(torch.addmm(bm, xm, wm))) if act
                else (lambda: torch.addmm(bm, xm, wm)))
         b, fl = _bound_ms(4 * (m * k + k * n + n + m * n), 2 * m * k * n)
+        inner = 5 if m * k * n > 2e10 else 20  # the Llama step: ~6 ms a call
         times[tag] = dict(
-            ms=_time_ms(lambda: matmul_bias_act(xm, wm, bm, act)),
-            plain_ms=_time_ms(lambda: matmul_bias_act_plain(xm, wm, bm, act)),
-            library_ms=_time_ms(lib), bound_ms=b, bound_by=fl)
+            ms=_time_ms(lambda: matmul_bias_act(xm, wm, bm, act), inner=inner),
+            plain_ms=_time_ms(lambda: matmul_bias_act_plain(xm, wm, bm, act),
+                              inner=inner),
+            library_ms=_time_ms(lib, inner=inner), bound_ms=b, bound_by=fl)
         print("matmul_bias_act %s [%d, %d] @ [%d, %d] %s: %s" % (
             tag, m, k, k, n, act or "identity", json.dumps(times[tag])))
     # each shape launches once per layer and step: the line reports the
@@ -254,10 +320,14 @@ def check_kernels(dev):
     # then head dim 128 over three key slices (the last one ragged, and
     # dead for the row at 0), and one slice of 40 keys
     slot_q = [0, 500, tk - tq, 37, 0, 250, 999, 1]
-    for d, qs_slots, n_tk in ((dh, slot_q, tk), (128, [0, 130, 300 - 4], 300),
-                              (64, [3, 0], 40)):
-        bh = len(qs_slots) * (heads if d == dh else 2)
-        per = bh // len(qs_slots)
+    # the TinyLlama serving step: 8 slots x 32 heads over its t_max 2048
+    # cache (16 key slices)
+    llama_q = [0, 1000, LLAMA_LEN - tq, 37, 0, 1500, 2000, 1]
+    for d, qs_slots, n_tk, per in ((dh, slot_q, tk, heads),
+                                   (128, [0, 130, 300 - 4], 300, 2),
+                                   (64, [3, 0], 40, 2),
+                                   (dh, llama_q, LLAMA_LEN, LLAMA_HEADS)):
+        bh = len(qs_slots) * per
         tq_ = tq if d == dh else 4
         q, k_, v = randn(bh, tq_, d), randn(bh, n_tk, d), randn(bh, n_tk, d)
         qs = torch.tensor(qs_slots, device=dev).repeat_interleave(per)
@@ -265,32 +335,97 @@ def check_kernels(dev):
         ref = flash_attention_qvec_plain(q, k_, v, qs, d ** -0.5)
         err = max(err, (out - ref).abs().max().item())
     assert err <= 1e-5, ("flash_attention_qvec disagrees", err)
-    bh = N_SLOTS * heads
-    q, k_, v = randn(bh, tq, dh), randn(bh, tk, dh), randn(bh, tk, dh)
-    qs = torch.full((bh,), tk - tq, device=dev, dtype=torch.long)  # full cache
-    live = tk  # every row's cutoff reaches the last key
-    mask = (qs[:, None, None] + torch.arange(tq, device=dev)[None, :, None]
-            >= torch.arange(tk, device=dev)[None, None, :])
-    b, fl = _bound_ms(4 * (2 * bh * tq * dh + 2 * bh * live * dh) + 4 * bh,
-                      4 * bh * tq * live * dh)
     rec["flash_attention_qvec"] = dict(
         route="cuda",
         source="paddle_tpu_torch/kernels/csrc/flash_attention_qvec.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:621",
         shape="q [%d, %d, %d], k/v [%d, %d, %d], qstart = Tk - Tq" % (
-            bh, tq, dh, bh, tk, dh),
-        max_abs_err=err,
+            N_SLOTS * heads, tq, dh, N_SLOTS * heads, tk, dh),
+        max_abs_err=err, **_qvec_times(dev, randn, N_SLOTS * heads, tq, tk, dh))
+    bh = N_SLOTS * LLAMA_HEADS
+    rec["flash_attention_qvec"]["per_shape"] = {
+        "llama_serve q [%d, %d, %d], k/v [%d, %d, %d]" % (
+            bh, tq, dh, bh, LLAMA_LEN, dh):
+        _qvec_times(dev, randn, bh, tq, LLAMA_LEN, dh)}
+    torch.cuda.synchronize()
+    rec.update(check_linear_xent(dev, randn, g))
+    rec.update(check_layer_norm(randn))
+    rec.update(check_flash_attention(dev, randn))
+    rec.update(check_matmul_swiglu(randn))
+    return rec
+
+
+def _qvec_times(dev, randn, bh, tq, tk, dh):
+    """flash_attention_qvec's times at one shape with every row's cutoff at
+    the last key (qstart = Tk - Tq), beside the plain version and masked
+    scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import (flash_attention_qvec,
+                                          flash_attention_qvec_plain)
+
+    q, k_, v = randn(bh, tq, dh), randn(bh, tk, dh), randn(bh, tk, dh)
+    qs = torch.full((bh,), tk - tq, device=dev, dtype=torch.long)
+    live = tk  # every row's cutoff reaches the last key
+    mask = (qs[:, None, None] + torch.arange(tq, device=dev)[None, :, None]
+            >= torch.arange(tk, device=dev)[None, None, :])
+    b, fl = _bound_ms(4 * (2 * bh * tq * dh + 2 * bh * live * dh) + 4 * bh,
+                      4 * bh * tq * live * dh)
+    return dict(
         ms=_time_ms(lambda: flash_attention_qvec(q, k_, v, qs, dh ** -0.5)),
         plain_ms=_time_ms(lambda: flash_attention_qvec_plain(q, k_, v, qs,
                                                              dh ** -0.5)),
         library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
             q, k_, v, attn_mask=mask, scale=dh ** -0.5)),
         bound_ms=b, bound_by=fl)
+
+
+def check_matmul_swiglu(randn):
+    """matmul_swiglu against its plain version at the TinyLlama paths'
+    shapes (training x [4096, 2048], serving x [128, 2048], both against
+    wg/wu [2048, 5632]) and a ragged one ([200, 1000] @ [1000, 333]);
+    limit 1e-4 of the plain output's largest magnitude.  Timed beside the
+    plain version and the library's two matmuls + silu(g) * u."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import matmul_swiglu, matmul_swiglu_plain
+
+    shapes = (("train", LLAMA_ROWS, LLAMA_D, LLAMA_FF),
+              ("serve", N_SLOTS * WIDTH, LLAMA_D, LLAMA_FF),
+              ("ragged", 200, 1000, 333))
+    err = err_abs = 0.0
+    times = {}
+    for tag, m, k, n in shapes:
+        x = randn(m, k)
+        wg, wu = randn(k, n, scale=k ** -0.5), randn(k, n, scale=k ** -0.5)
+        out = matmul_swiglu(x, wg, wu)
+        ref = matmul_swiglu_plain(x, wg, wu)
+        diff = (out - ref).abs().max()
+        err = max(err, (diff / ref.abs().max()).item())
+        err_abs = max(err_abs, diff.item())
+        if tag == "ragged":
+            continue
+        inner = 5 if tag == "train" else 20  # ~10 ms a call in training
+        b, fl = _bound_ms(4 * (m * k + 2 * k * n + m * n), 4 * m * k * n)
+        times["%s [%d, %d] @ [%d, %d]" % (tag, m, k, k, n)] = dict(
+            ms=_time_ms(lambda: matmul_swiglu(x, wg, wu), inner=inner),
+            plain_ms=_time_ms(lambda: matmul_swiglu_plain(x, wg, wu),
+                              inner=inner),
+            library_ms=_time_ms(lambda: F.silu(torch.matmul(x, wg))
+                                * torch.matmul(x, wu), inner=inner),
+            bound_ms=b, bound_by=fl)
+    assert err <= 1e-4, ("matmul_swiglu disagrees", err)
     torch.cuda.synchronize()
-    rec.update(check_linear_xent(dev, randn, g))
-    rec.update(check_layer_norm(randn))
-    rec.update(check_flash_attention(dev, randn))
-    return rec
+    head = times["train [%d, %d] @ [%d, %d]" % (LLAMA_ROWS, LLAMA_D, LLAMA_D,
+                                                 LLAMA_FF)]
+    return {"matmul_swiglu": dict(
+        route="cuda", source="paddle_tpu_torch/kernels/csrc/matmul_bias_act.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:1325",
+        shape="x [%d, %d], wg/wu [%d, %d] (training); per_shape adds the "
+              "serving step's" % (LLAMA_ROWS, LLAMA_D, LLAMA_D, LLAMA_FF),
+        max_abs_err=err_abs, max_rel_err=err, per_shape=times, **head)}
 
 
 def _events_ms(fn, reps=5):
@@ -316,10 +451,11 @@ def check_linear_xent(dev, randn, g):
     """The three linear cross-entropy kernels (forward, dx, dw) against
     the plain version on the card: the training path's shapes (R 4096, H
     512, V 10000, eps 0.1) and ragged ones (R 100, V 1007, labels -1 and
-    V in the batch, eps 0 and 0.1; R 70, H 600, V 300), and the GPT-2
-    path's (R 8192, H 768, V 50257, eps 0: the wide-H form), timed as
-    `per_shape`.  Limit: 1e-4 of the largest magnitude of each of loss,
-    dx and dw."""
+    V in the batch, eps 0 and 0.1; R 70, H 600, V 300), the GPT-2 path's
+    (R 8192, H 768, V 50257, eps 0: the wide-H form) and the TinyLlama
+    path's (R 4096, H 2048, V 32000, eps 0: the wide-H form over 8 H
+    slices), the last two timed as `per_shape`.  Limit: 1e-4 of the
+    largest magnitude of each of loss, dx and dw."""
     import torch
     import torch.nn.functional as F
 
@@ -339,7 +475,8 @@ def check_linear_xent(dev, randn, g):
 
     # H 600 takes the backward's form for H > 512 (16-deep staged slices)
     for r, h, v, e in ((R, H, V, eps), (100, H, 1007, 0.0), (100, H, 1007, 0.1),
-                       (70, 600, 300, 0.1), (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0)):
+                       (70, 600, 300, 0.1), (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0),
+                       (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB, 0.0)):
         x, w = randn(r, h), randn(h, v, scale=h ** -0.5)
         lbl = torch.randint(0, v, (r,), generator=g, device=dev)
         lbl[0], lbl[1] = -1, v  # outside the vocab: smoothing term only
@@ -363,14 +500,17 @@ def check_linear_xent(dev, randn, g):
             route="cuda", source="paddle_tpu_torch/kernels/csrc/linear_xent.cu",
             replaces="paddle_tpu/ops/pallas_kernels.py" + site,
             max_abs_err=err_abs[e], max_rel_err=err[e])
-    for tag, (r, h, v, e) in (("wmt", (R, H, V, eps)),
-                              ("gpt2", (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0))):
+    for tag, (r, h, v, e) in (
+            ("wmt", (R, H, V, eps)),
+            ("gpt2", (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0)),
+            ("llama", (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB, 0.0))):
         for name, times in _lxent_times(dev, randn, g, r, h, v, e,
-                                        slow=tag == "gpt2").items():
+                                        slow=tag != "wmt").items():
             if tag == "wmt":
                 rec[name].update(times)
             else:
-                rec[name]["per_shape"] = {times.pop("shape"): times}
+                rec[name].setdefault("per_shape", {})[
+                    "%s %s" % (tag, times.pop("shape"))] = times
     torch.cuda.synchronize()
     return rec
 
@@ -437,42 +577,54 @@ def _lxent_times(dev, randn, g, R, H, V, eps, slow):
 
 def check_layer_norm(randn):
     """fused_layer_norm against its plain version at the GPT-2 path's
-    [8192, 768] rows and ragged row counts; limit 1e-5 absolute on the
-    output and the row statistics."""
+    [8192, 768] rows, the TinyLlama paths' [4096, 2048] and [128, 2048],
+    and ragged row counts; limit 1e-5 absolute on the output and the row
+    statistics.  Timed at GPT-2's shape, the TinyLlama ones as
+    `per_shape`."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import fused_layer_norm, layer_norm_plain
 
     err = 0.0
-    for r in (GPT2_ROWS, 7, 1000):
-        x = randn(r, GPT2_D, scale=2.0) + 0.5
-        gam, bet = randn(GPT2_D), randn(GPT2_D)
+    for r, h in ((GPT2_ROWS, GPT2_D), (7, GPT2_D), (1000, GPT2_D),
+                 (LLAMA_ROWS, LLAMA_D), (N_SLOTS * WIDTH, LLAMA_D)):
+        x = randn(r, h, scale=2.0) + 0.5
+        gam, bet = randn(h), randn(h)
         for got, want in zip(fused_layer_norm(x, gam, bet, 1e-5),
                              layer_norm_plain(x, gam, bet, 1e-5)):
             err = max(err, (got - want).abs().max().item())
     assert err <= 1e-5, ("fused_layer_norm disagrees", err)
-    R, H = GPT2_ROWS, GPT2_D
-    x, gam, bet = randn(R, H), randn(H), randn(H)
-    b, fl = _bound_ms(8 * R * H + 8 * H + 8 * R, 8 * R * H)
+
+    def times(R, H):
+        x, gam, bet = randn(R, H), randn(H), randn(H)
+        b, fl = _bound_ms(8 * R * H + 8 * H + 8 * R, 8 * R * H)
+        return dict(
+            ms=_time_ms(lambda: fused_layer_norm(x, gam, bet, 1e-5)),
+            plain_ms=_time_ms(lambda: layer_norm_plain(x, gam, bet, 1e-5)),
+            library_ms=_time_ms(lambda: F.layer_norm(x, (H,), gam, bet,
+                                                     1e-5)),
+            bound_ms=b, bound_by=fl)
+
     return {"fused_layer_norm": dict(
         route="cuda", source="paddle_tpu_torch/kernels/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:724",
-        shape="x [%d, %d]" % (R, H), max_abs_err=err,
-        ms=_time_ms(lambda: fused_layer_norm(x, gam, bet, 1e-5)),
-        plain_ms=_time_ms(lambda: layer_norm_plain(x, gam, bet, 1e-5)),
-        library_ms=_time_ms(lambda: F.layer_norm(x, (H,), gam, bet, 1e-5)),
-        bound_ms=b, bound_by=fl)}
+        shape="x [%d, %d]" % (GPT2_ROWS, GPT2_D), max_abs_err=err,
+        per_shape={"%s [%d, %d]" % (tag, r, h): times(r, h)
+                   for tag, r, h in (("llama_train", LLAMA_ROWS, LLAMA_D),
+                                     ("llama_serve", N_SLOTS * WIDTH,
+                                      LLAMA_D))},
+        **times(GPT2_ROWS, GPT2_D))}
 
 
 def check_flash_attention(dev, randn):
     """The three flash-attention kernels (forward, dq, dk/dv) against the
     plain version on the card: the GPT-2 path's shapes (BH 96, T 1024, d
-    64, causal), a key bias with some keys at -1e9 (causal; non-causal
-    with Tq != Tk), ragged lengths, and head dim 128.  Limit: 1e-4 of the
-    largest magnitude of each of o, dq, dk, dv and dkbias (lse: 1e-4
-    absolute)."""
+    64, causal), the TinyLlama path's (BH 64, T 2048, d 64, causal; timed
+    as `per_shape`), a key bias with some keys at -1e9 (causal;
+    non-causal with Tq != Tk), ragged lengths, and head dim 128.  Limit:
+    1e-4 of the largest magnitude of each of o, dq, dk, dv and dkbias
+    (lse: 1e-4 absolute)."""
     import torch
-    import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import (
         flash_attention_dkv,
@@ -491,7 +643,9 @@ def check_flash_attention(dev, randn):
         err_abs[key] = max(err_abs[key], (got - want).abs().max().item())
 
     bh, t, d = GPT2_BATCH * GPT2_HEADS, GPT2_LEN, GPT2_D // GPT2_HEADS
+    llama_bh = LLAMA_BATCH * LLAMA_HEADS
     cases = [(bh, t, t, d, True, False),   # the GPT-2 path
+             (llama_bh, LLAMA_LEN, LLAMA_LEN, d, True, False),  # TinyLlama
              (6, 300, 300, 64, True, True),
              (5, 200, 333, 64, False, True),
              (4, 384, 384, 128, True, True),
@@ -524,6 +678,41 @@ def check_flash_attention(dev, randn):
     for key, val in err.items():
         assert val <= 1e-4, ("flash_attention disagrees", key, val)
 
+    rec = {}
+    for name, site in (("flash_attention_fwd", ":279"),
+                       ("flash_attention_dq", ":447"),
+                       ("flash_attention_dkv", ":471")):
+        rec[name] = dict(
+            route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site)
+    for tag, n, t_ in (("gpt2", bh, t), ("llama", llama_bh, LLAMA_LEN)):
+        for name, times in _flash_times(randn, n, t_, d).items():
+            if tag == "gpt2":
+                rec[name].update(times)
+            else:
+                rec[name]["per_shape"] = {"llama " + times.pop("shape"): times}
+    for name, e in (("flash_attention_fwd", "fwd"), ("flash_attention_dq", "dq"),
+                    ("flash_attention_dkv", "dkv")):
+        rec[name].update(max_abs_err=err_abs[e], max_rel_err=err[e])
+    torch.cuda.synchronize()
+    return rec
+
+
+def _flash_times(randn, bh, t, d):
+    """Times of the three flash-attention kernels at one causal shape,
+    beside the plain version and scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import (
+        flash_attention_dkv,
+        flash_attention_dq,
+        flash_attention_fwd,
+        flash_attention_grad_plain,
+        flash_attention_plain,
+    )
+
     q, k, v, do = (randn(bh, t, d) for _ in range(4))
     scale = d ** -0.5
     o, lse = flash_attention_fwd(q, k, v, None, True, scale)
@@ -540,43 +729,44 @@ def check_flash_attention(dev, randn):
     pairs = t * (t + 1) // 2  # the causal half the kernels compute
     row = 4 * bh * t * d  # bytes of one [BH, T, d] operand
     specs = (
-        ("flash_attention_fwd", ":279 (_flash_fwd)",
+        ("flash_attention_fwd",
          lambda: flash_attention_fwd(q, k, v, None, True, scale),
          lambda: flash_attention_plain(q, k, v, None, True, scale),
          lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-         4 * row + 4 * bh * t, 4 * bh * pairs * d, "fwd"),
-        ("flash_attention_dq", ":447 (_flash_bwd dq)",
+         4 * row + 4 * bh * t, 4 * bh * pairs * d),
+        ("flash_attention_dq",
          lambda: flash_attention_dq(q, k, v, None, lse, do, delta, True,
                                        scale), None, None,
-         5 * row + 8 * bh * t, 6 * bh * pairs * d, "dq"),
-        ("flash_attention_dkv", ":471 (_flash_bwd dk/dv)",
+         5 * row + 8 * bh * t, 6 * bh * pairs * d),
+        ("flash_attention_dkv",
          lambda: flash_attention_dkv(q, k, v, None, lse, do, delta, True,
                                         scale), None, None,
-         6 * row + 8 * bh * t, 8 * bh * pairs * d, "dkv"),
+         6 * row + 8 * bh * t, 8 * bh * pairs * d),
     )
-    rec = {}
-    for name, site, kern, plain, lib, nbytes, flops, e in specs:
+    out = {}
+    for name, kern, plain, lib, nbytes, flops in specs:
         b, fl = _bound_ms(nbytes, flops)
-        rec[name] = dict(
-            route="cuda",
-            source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
-            replaces="paddle_tpu/ops/pallas_kernels.py" + site.split()[0],
+        out[name] = dict(
             shape="q, k, v [%d, %d, %d], causal%s" % (
                 bh, t, d, "" if plain else
                 "; plain_ms is the plain backward (dq, dk and dv together), "
                 "library_ms scaled_dot_product_attention forward and "
                 "backward"),
-            max_abs_err=err_abs[e], max_rel_err=err[e],
             ms=_time_ms(kern, reps=5, inner=5),
             plain_ms=_time_ms(plain, reps=5, inner=5) if plain else plain_grad,
             library_ms=_time_ms(lib, reps=5, inner=5) if lib else lib_fwd_bwd,
             bound_ms=b, bound_by=fl)
-    torch.cuda.synchronize()
-    return rec
+    return out
 
 
-def serve_gpt2_small(dev):
-    """The main path: GPT-2 small served through the engine on the card."""
+def _serve_on_card(label, hp, t_max, per_step, seed):
+    """One serving path on the card: `hp` with random weights from `seed`
+    through ServingEngine(n_slots=8, width=16, t_max), the seeded
+    24-request Poisson trace, every launch count reset just before and
+    read just after and held to `per_step` times the engine's steps;
+    every request OK with its full budget, a greedy and a sampled request
+    equal to their run_solo bit for bit.  Returns (launches, eng,
+    scope)."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
@@ -584,14 +774,13 @@ def serve_gpt2_small(dev):
     from paddle_tpu_torch.models import gpt2
     from paddle_tpu_torch.serving import ServingEngine, make_poisson_trace
 
-    hp = gpt2.GPT2Config
     scope = ptt.Scope()
     with ptt.scope_guard(scope):
         exe = ptt.Executor(ptt.CUDAPlace(0))
-        _, startup, _, _ = gpt2.gpt2_logits_program(hp, seq_len=T_MAX)
-        startup.random_seed = 1234
+        _, startup, _, _ = gpt2.gpt2_logits_program(hp, seq_len=t_max)
+        startup.random_seed = seed
         exe.run(startup)
-        eng = ServingEngine(exe, hp, n_slots=N_SLOTS, width=WIDTH, t_max=T_MAX)
+        eng = ServingEngine(exe, hp, n_slots=N_SLOTS, width=WIDTH, t_max=t_max)
         trace = make_poisson_trace(24, rate=0.5, prompt_len_range=(16, 384),
                                    out_len_range=(16, 64),
                                    vocab_size=hp.vocab_size, seed=0)
@@ -599,12 +788,9 @@ def serve_gpt2_small(dev):
         results, stats = eng.run(trace)
         launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
         steps = stats["steps"]
-        per_step = {"flash_attention_qvec": hp.n_layer,
-                    "matmul_bias_act": 2 * hp.n_layer,
-                    "fused_add_layer_norm": 2 * hp.n_layer + 1}
         for name, n in per_step.items():
             assert launches[name] == n * steps, (
-                "launch count", name, launches[name], n, steps)
+                "launch count", label, name, launches[name], n, steps)
         for r in trace:
             res = results[r.rid]
             assert res["status"] == "OK", (r.rid, res["status"])
@@ -616,14 +802,41 @@ def serve_gpt2_small(dev):
         for r in (greedy, sampled):
             solo, _ = eng.run_solo(r)
             assert np.array_equal(solo, results[r.rid]["tokens"]), (
-                "pooled != solo", r.rid)
-        print("served %d requests in %d steps: %.1f tokens/s, step p50 %.3f "
-              "ms, mean %.3f ms; pooled == solo for rid %d (greedy) and %d "
-              "(sampled); launches %s" % (
-                  len(trace), steps, stats["tokens_per_s"],
+                "pooled != solo", label, r.rid)
+        print("served %s: %d requests in %d steps: %.1f tokens/s, step p50 "
+              "%.3f ms, mean %.3f ms; pooled == solo for rid %d (greedy) and "
+              "%d (sampled); launches %s" % (
+                  label, len(trace), steps, stats["tokens_per_s"],
                   stats["step_s_p50"] * 1e3, stats["step_s_mean"] * 1e3,
                   greedy.rid, sampled.rid, json.dumps(launches)))
     return launches, eng, scope
+
+
+def serve_gpt2_small(dev):
+    """The first serving path: GPT-2 small served through the engine on
+    the card, t_max 1024."""
+    from paddle_tpu_torch.models import gpt2
+
+    hp = gpt2.GPT2Config
+    return _serve_on_card(
+        "GPT-2 small", hp, T_MAX,
+        {"flash_attention_qvec": hp.n_layer,
+         "matmul_bias_act": 2 * hp.n_layer,
+         "fused_add_layer_norm": 2 * hp.n_layer + 1}, 1234)
+
+
+def serve_tinyllama(dev):
+    """The modern-decoder serving path at TinyLlama-1.1B's widths, t_max
+    2048.  Per engine step: matmul_swiglu and matmul_bias_act (ffn_out)
+    once per layer, flash_attention_qvec once per layer, add-LN twice per
+    layer, and one plain layer norm: under rotary no position add
+    precedes block 0's first norm."""
+    hp = tinyllama_config()
+    return _serve_on_card(
+        "TinyLlama-1.1B widths", hp, hp.n_ctx,
+        {"matmul_swiglu": 22, "matmul_bias_act": 22,
+         "flash_attention_qvec": 22, "fused_add_layer_norm": 44,
+         "fused_layer_norm": 1}, 1235)
 
 
 def _profile_report(prof, wall_us, steps, name, out_dir):
@@ -680,7 +893,7 @@ def _profile_report(prof, wall_us, steps, name, out_dir):
         {k[:70]: v / 1e3 / steps for k, v in top[:12]})))
 
 
-def profile_serving(eng, scope, out_dir):
+def profile_serving(eng, scope, out_dir, name="serving"):
     """Where the serving step's time goes: a torch.profiler trace of a
     short seeded trace through the same engine."""
     import torch
@@ -701,7 +914,7 @@ def profile_serving(eng, scope, out_dir):
             _, stats = eng.run(trace)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    _profile_report(prof, wall_us, stats["steps"], "serving", out_dir)
+    _profile_report(prof, wall_us, stats["steps"], name, out_dir)
 
 
 def profile_training(run_step, out_dir, steps=3, name="training"):
@@ -722,19 +935,27 @@ def profile_training(run_step, out_dir, steps=3, name="training"):
     _profile_report(prof, wall_us, steps, name, out_dir)
 
 
-def card_matches_cpu(dev, n_slots):
-    """A narrow config (head dim 64) served on the card and on the CPU
-    plain path with the same weights: logits of every step agree, and
-    the card's run launched every kernel."""
+def narrow_gpt2_config():
+    """A narrow GPT-2 for serving card vs CPU: vocab 97, n_ctx 64, d_model
+    128, 2 layers, 2 heads of 64 (the kernels' head width)."""
+    from paddle_tpu_torch.models import gpt2
+
+    class Narrow(gpt2.GPT2Config):
+        vocab_size, n_ctx, d_model, n_layer, n_head = 97, 64, 128, 2, 2
+
+    return Narrow
+
+
+def card_matches_cpu(dev, n_slots, Narrow, must_launch):
+    """The narrow config `Narrow` served on the card and on the CPU plain
+    path with the same weights: logits of every step agree, and the
+    card's run launched each kernel of `must_launch`."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import gpt2
     from paddle_tpu_torch.serving import ServingEngine, make_poisson_trace
-
-    class Narrow(gpt2.GPT2Config):
-        vocab_size, n_ctx, d_model, n_layer, n_head = 97, 64, 128, 2, 2
 
     logits = {}
     for kind in ("cpu", "cuda"):
@@ -770,7 +991,7 @@ def card_matches_cpu(dev, n_slots):
             kernels.reset_launch_counts()
             eng.run(trace)
     launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-    assert all(launched[n] for n in SERVING_KERNELS), (
+    assert all(launched[n] for n in must_launch), (
         "a kernel did not launch", launched)
     assert len(logits["cpu"]) == len(logits["cuda"]) > 0
     err = 0.0
@@ -778,9 +999,10 @@ def card_matches_cpu(dev, n_slots):
         assert b.shape == a.shape and np.isfinite(b).all()
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
         err = max(err, float(np.abs(b - a).max()))
-    print("narrow GPT-2, %d slot(s), on the card vs the CPU plain path: %d "
+    print("%s, %d slot(s), on the card vs the CPU plain path: %d "
           "steps, max abs logit difference %.3g, launches %s" % (
-              n_slots, len(logits["cpu"]), err, json.dumps(launched)))
+              Narrow.__name__, n_slots,
+              len(logits["cpu"]), err, json.dumps(launched)))
 
 
 def _expected_train_launches(main):
@@ -807,17 +1029,21 @@ def _expected_train_launches(main):
                                 + ops.count("fused_attention_grad")),
         "flash_attention_dq": ops.count("fused_attention_grad"),
         "flash_attention_dkv": ops.count("fused_attention_grad"),
+        "matmul_swiglu": (ops.count("fused_swiglu")
+                          + ops.count("fused_swiglu_grad")),
     }
 
 
 def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
-                   first_range, per_step, profile_dir, profile_name):
+                   first_range, per_step, profile_dir, profile_name,
+                   steps=TRAIN_STEPS, dropout=True):
     """One training path on the card: one warm-up step (its loss within
-    `first_range`), then TRAIN_STEPS timed steps with every launch count
+    `first_range`), then `steps` timed steps with every launch count
     reset just before and read just after and held to `per_step` times
-    the steps; then the same step twice from one saved state, bit for
-    bit, and a step checking every dropout_grad against its forward op's
-    mask.  Prints the path's line and returns the launch counts."""
+    the steps; then the same step twice from one saved state (kept on
+    the host), bit for bit, and, for a path with `dropout`, a step
+    checking every dropout_grad against its forward op's mask.  Prints
+    the path's line and returns the launch counts."""
     import numpy as np
     import torch
 
@@ -835,7 +1061,7 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
             "first loss out of range", label, first, first_range)
         kernels.reset_launch_counts()
         losses, times = [], []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss, tok = exe.run(main, feed=batch, fetch_list=fetch)
@@ -847,42 +1073,52 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
         peak = torch.cuda.max_memory_allocated()
         assert all(np.isfinite(losses)), losses
         for name, n in per_step.items():
-            assert launches[name] == n * TRAIN_STEPS, (
-                "launch count", label, name, launches[name], n, TRAIN_STEPS)
+            assert launches[name] == n * steps, (
+                "launch count", label, name, launches[name], n, steps)
 
         # the same step twice from one saved state: a fresh executor each
-        # time, so both draw the same dropout masks
-        state = {n: scope.find_var(n).clone() for n in scope.local_var_names()}
-        runs = []
+        # time, so both draw the same dropout masks.  The state and the
+        # first run's result wait on the host: at 1.1 B parameters three
+        # device copies of the weights and Adam moments would not fit
+        # beside the step.
+        where = {n: scope.find_var(n).device for n in scope.local_var_names()}
+        state = {n: scope.find_var(n).cpu() for n in where}
+        first_run = None
         for _ in range(2):
             for n, v in state.items():
-                scope.set(n, v.clone())
+                scope.set(n, v.to(where[n]))
             loss = ptt.Executor(ptt.CUDAPlace(0)).run(
                 main, feed=batch, fetch_list=[fetch[0]])[0]
-            runs.append((loss, {n: scope.find_var(n).clone() for n in state}))
-        assert np.array_equal(runs[0][0], runs[1][0]), "loss not reproducible"
-        differ = [n for n in state if not torch.equal(runs[0][1][n],
-                                                      runs[1][1][n])]
+            after = {n: scope.find_var(n).cpu() for n in state}
+            if first_run is None:
+                first_run = (loss, after)
+        assert np.array_equal(first_run[0], loss), "loss not reproducible"
+        differ = [n for n in state if not torch.equal(first_run[1][n],
+                                                      after[n])]
         assert not differ, ("updated state not reproducible", differ[:5])
-        moved = sum(not torch.equal(runs[0][1][n], state[n]) for n in state)
-        del runs, state
+        moved = sum(not torch.equal(after[n], state[n]) for n in state)
+        del first_run, after, state
 
         # each dropout_grad redraws its forward op's mask on the card: its
         # X@GRAD is Out@GRAD times the forward's Mask, bit for bit
         block = main.global_block()
         names = []
         for op in block.ops:
-            if op.type == "dropout_grad":
+            if dropout and op.type == "dropout_grad":
                 fwd = block.ops[op.attrs["__fwd_op_idx__"]]
                 names += [fwd.outputs["Mask"][0], op.inputs["Out@GRAD"][0],
                           op.outputs["X@GRAD"][0]]
-        assert names, "no dropout_grad op"
-        vals = exe.run(main, feed=batch, fetch_list=names, return_numpy=False)
-        for i in range(0, len(vals), 3):
-            mask, dout, dx = vals[i:i + 3]
-            assert torch.equal(dx, dout * mask), ("dropout_grad mask", names[i])
-            assert 0.85 < float(mask.mean()) < 0.95, (names[i], mask.mean())
-        del vals
+        assert names or not dropout, "no dropout_grad op"
+        if names:
+            vals = exe.run(main, feed=batch, fetch_list=names,
+                           return_numpy=False)
+            for i in range(0, len(vals), 3):
+                mask, dout, dx = vals[i:i + 3]
+                assert torch.equal(dx, dout * mask), ("dropout_grad mask",
+                                                      names[i])
+                assert 0.85 < float(mask.mean()) < 0.95, (names[i],
+                                                          mask.mean())
+            del vals
         if profile_dir:
             profile_training(lambda: exe.run(main, feed=batch,
                                              fetch_list=fetch), profile_dir,
@@ -893,10 +1129,10 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
           "losses %s (first %.4f); peak memory %.2f GB; launches per step %s; "
           "one step from a saved state twice: bit-equal loss and %d updated "
           "state tensors; %d dropout_grad ops redrew their forward masks" % (
-              label, TRAIN_STEPS, p50 * 1e3, sum(times) / len(times) * 1e3,
+              label, steps, p50 * 1e3, sum(times) / len(times) * 1e3,
               n_tok / p50, n_tok, rows / p50,
               json.dumps([round(v, 6) for v in losses]), first, peak / 1e9,
-              json.dumps({k: v // TRAIN_STEPS for k, v in launches.items()}),
+              json.dumps({k: v // steps for k, v in launches.items()}),
               moved, len(names) // 3))
     return launches
 
@@ -918,7 +1154,8 @@ def train_transformer_base(dev, profile_dir=None):
                         "linear_xent_dw": 1, "flash_attention_qvec": 0,
                         "fused_layer_norm": 0, "flash_attention_fwd": 0,
                         "flash_attention_dq": 0,
-                        "flash_attention_dkv": 0}, per_step
+                        "flash_attention_dkv": 0,
+                        "matmul_swiglu": 0}, per_step
     batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
     return _train_on_card(
         "Transformer-base (batch %d x %d)" % (TRAIN_BATCH, TRAIN_LEN), main,
@@ -946,13 +1183,47 @@ def train_gpt2_small(dev, profile_dir=None):
                         "linear_xent_dw": 1, "flash_attention_qvec": 0,
                         "fused_layer_norm": 2, "flash_attention_fwd": 24,
                         "flash_attention_dq": 12,
-                        "flash_attention_dkv": 12}, per_step
+                        "flash_attention_dkv": 12,
+                        "matmul_swiglu": 0}, per_step
     batch = gpt2.make_fake_lm_batch(GPT2_BATCH, GPT2_LEN, hp, seed=0)
     ln_v = math.log(hp.vocab_size)
     return _train_on_card(
         "GPT-2 small (batch %d x %d)" % (GPT2_BATCH, GPT2_LEN), main, startup,
         fetch, batch, float(batch["loss_weight"].sum()), GPT2_ROWS,
         (ln_v - 0.5, ln_v + 0.5), per_step, profile_dir, "training_gpt2")
+
+
+def train_tinyllama(dev, profile_dir=None):
+    """The modern-decoder training path at TinyLlama-1.1B's widths:
+    gpt2_lm_program(tinyllama_config(), seq_len=2048) — rotary, SwiGLU
+    (fused_swiglu on matmul_swiglu), grouped-query attention, dropout 0,
+    Adam lr 3e-4 — on make_fake_lm_batch(2, 2048, seed=0), random weights
+    from a seed, through _train_on_card (5 timed steps, no dropout
+    masks to check).  The first loss must be within 0.5 of ln 32000 =
+    10.37."""
+    import math
+
+    from paddle_tpu_torch.models import gpt2
+
+    hp = tinyllama_config()
+    main, startup, _, fetch = gpt2.gpt2_lm_program(hp, seq_len=LLAMA_LEN)
+    startup.random_seed = main.random_seed = 2025
+    assert main._swiglu_fused_count == hp.n_layer
+    per_step = _expected_train_launches(main)
+    assert per_step == {"matmul_bias_act": 44, "fused_add_layer_norm": 88,
+                        "linear_xent_fwd": 2, "linear_xent_dx": 1,
+                        "linear_xent_dw": 1, "flash_attention_qvec": 0,
+                        "fused_layer_norm": 2, "flash_attention_fwd": 44,
+                        "flash_attention_dq": 22,
+                        "flash_attention_dkv": 22,
+                        "matmul_swiglu": 44}, per_step
+    batch = gpt2.make_fake_lm_batch(LLAMA_BATCH, LLAMA_LEN, hp, seed=0)
+    ln_v = math.log(hp.vocab_size)
+    return _train_on_card(
+        "TinyLlama-1.1B widths (batch %d x %d)" % (LLAMA_BATCH, LLAMA_LEN),
+        main, startup, fetch, batch, float(batch["loss_weight"].sum()),
+        LLAMA_ROWS, (ln_v - 0.5, ln_v + 0.5), per_step, profile_dir,
+        "training_llama", steps=LLAMA_STEPS, dropout=False)
 
 
 def _card_matches_cpu(label, main, startup, fetch, batch, must_launch):
@@ -1033,6 +1304,24 @@ def gpt2_train_card_matches_cpu(dev):
                                       "linear_xent_dw"))
 
 
+def llama_train_card_matches_cpu(dev):
+    """The narrow modern-decoder config (narrow_modern_config, seq 128):
+    every kernel of the TinyLlama-width training path, matmul_swiglu
+    included; RoPE's angles reach 127 rad, where the card's and the
+    CPU's float32 sin/cos may differ in the last bits."""
+    from paddle_tpu_torch.models import gpt2
+
+    hp = narrow_modern_config()
+    main, startup, _, fetch = gpt2.gpt2_lm_program(hp, seq_len=128)
+    startup.random_seed = 11
+    _card_matches_cpu("modern config", main, startup, fetch,
+                      gpt2.make_fake_lm_batch(4, 128, hp, seed=3),
+                      GPT2_KERNELS + ("matmul_swiglu", "matmul_bias_act",
+                                      "fused_add_layer_norm",
+                                      "linear_xent_fwd", "linear_xent_dx",
+                                      "linear_xent_dw"))
+
+
 def main():
     try:
         import torch
@@ -1073,7 +1362,7 @@ def main():
                    if "--profile" in sys.argv[1:] else None)
     served, eng, scope = serve_gpt2_small(dev)
     for n_slots in (3, 1):  # a one-slot pool has a one-row QStart
-        card_matches_cpu(dev, n_slots)
+        card_matches_cpu(dev, n_slots, narrow_gpt2_config(), SERVING_KERNELS)
     if profile_dir:
         profile_serving(eng, scope, profile_dir)
     del eng, scope
@@ -1083,13 +1372,27 @@ def main():
     torch.cuda.empty_cache()
     trained_gpt2 = train_gpt2_small(dev, profile_dir)
     gpt2_train_card_matches_cpu(dev)
+    torch.cuda.empty_cache()
+    served_llama, eng, scope = serve_tinyllama(dev)
+    for n_slots in (3, 1):
+        card_matches_cpu(dev, n_slots, narrow_modern_config(),
+                         SERVING_KERNELS + ("matmul_swiglu",
+                                            "fused_layer_norm"))
+    if profile_dir:
+        profile_serving(eng, scope, profile_dir, name="serving_llama")
+    del eng, scope
+    torch.cuda.empty_cache()
+    trained_llama = train_tinyllama(dev, profile_dir)
+    llama_train_card_matches_cpu(dev)
 
     # launches: each path's run, counted from 0 just before it and read
     # just after
     kernels = []
     for name, r in rec.items():
         by_path = {"serving": served[name], "wmt_training": trained[name],
-                   "gpt2_training": trained_gpt2[name]}
+                   "gpt2_training": trained_gpt2[name],
+                   "llama_serving": served_llama[name],
+                   "llama_training": trained_llama[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),

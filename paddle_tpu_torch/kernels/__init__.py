@@ -30,11 +30,13 @@ from .matmul_epilogue import (
     matmul_bias_act_plain,
     mm_act,
 )
+from .matmul_swiglu import matmul_swiglu, matmul_swiglu_plain
 
 # every kernel wrapper, each with its launch count
 KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
-           flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
+           flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+           matmul_swiglu)
 
 
 def reset_launch_counts():

@@ -42,6 +42,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ptt_add_layer_norm": (_P,) * 8 + (_I, _I, _F, _P),
     "ptt_matmul_bias_act": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 3 + (_P,),
     "ptt_flash_attention_qvec": (_P,) * 7 + (_I,) * 5 + (_F, _P),
     "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _P),
     "ptt_linear_xent_dx": (_P,) * 6 + (_I,) * 3 + (_F, _P),

@@ -1,6 +1,6 @@
 """Neural-net layers (the counterpart of ``paddle_tpu/layers/nn.py``):
-the builders the serving slice and the GPT-2 and WMT Transformer
-programs call.  Each
+the builders the serving slice and the GPT-2 (modern-decoder options
+included) and WMT Transformer programs call.  Each
 appends ops through LayerHelper exactly as the reference does, so the
 same calls generate the same var and parameter names."""
 
@@ -15,7 +15,8 @@ __all__ = [
     "elementwise_div", "elementwise_min",
     "elementwise_pow", "gather", "fused_attention", "slot_cache_write",
     "dropout", "softmax", "softmax_with_cross_entropy", "label_smooth",
-    "reduce_sum", "unsqueeze", "one_hot", "scale", "clip",
+    "reduce_sum", "unsqueeze", "one_hot", "scale", "clip", "swish", "expand",
+    "rotary_embed",
 ]
 
 
@@ -117,6 +118,28 @@ def _simple(op_type, x, attrs=None, name=None):
 
 def clip(x, min, max, name=None):
     return _simple("clip", x, {"min": float(min), "max": float(max)}, name)
+
+
+def swish(x, beta=1.0, name=None):
+    return _simple("swish", x, {"beta": beta}, name)
+
+
+def expand(x, expand_times, name=None):
+    return _simple("expand", x, {"expand_times": list(expand_times)}, name)
+
+
+def rotary_embed(x, pos=None, base=10000.0, name=None):
+    """Rotary position embedding over per-head projections [B, H, T, Dh]
+    (rotate-half); pos: none (arange(T)), [T], or per-row [B, T] (the
+    ragged serving step)."""
+    helper = LayerHelper("rotary_embed", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x]}
+    if pos is not None:
+        inputs["Pos"] = [pos]
+    helper.append_op("rotary_embed", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"base": base})
+    return out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):

@@ -8,10 +8,13 @@ fuse passes, backward, Adam), ``make_fake_lm_batch``,
 the reference's and weights cross between the packages by name
 (``paddle_tpu_torch.io.params_from_numpy``).
 
-Options whose kernels or ops are not ported yet raise: ``use_swiglu``
-(ROADMAP B6), ``use_rotary`` and ``n_kv_head < n_head`` (ROADMAP A5),
-``recompute`` (A9), and ``gpt2_lm_program``'s ``use_bf16`` (A3) and
-``mesh`` (A7).
+The modern-decoder options of ``GPT2Config`` are ported: ``n_kv_head``
+(grouped-query attention), ``use_rotary`` (RoPE on q and k instead of
+the position table), ``use_swiglu`` (the gated SiLU FFN, ``ffn_gate.w``
+and ``ffn_up.w`` in place of ``ffn_in.w``, its hidden width 2/3 of 4 d
+rounded up to ``ffn_multiple_of``; the matmul_swiglu kernel).  Options
+not ported yet raise: ``recompute`` (ROADMAP A9), and
+``gpt2_lm_program``'s ``use_bf16`` (A3) and ``mesh`` (A7).
 """
 
 import numpy as np
@@ -43,18 +46,6 @@ class GPT2Config:
     partition_family = "gpt2"
 
 
-def _check_ported(hp):
-    if getattr(hp, "use_swiglu", False):
-        raise NotImplementedError("use_swiglu needs the matmul_swiglu kernel "
-                                  "(ROADMAP B6), not ported yet")
-    if getattr(hp, "use_rotary", False):
-        raise NotImplementedError("use_rotary is not ported yet (ROADMAP A5)")
-    n_kv = getattr(hp, "n_kv_head", None)
-    if n_kv is not None and n_kv < hp.n_head:
-        raise NotImplementedError("grouped-query attention (n_kv_head < "
-                                  "n_head) is not ported yet (ROADMAP A5)")
-
-
 def _pa(base, std=0.02):
     return ParamAttr(name=unique_name.generate(base),
                      initializer=Normal(0.0, std))
@@ -78,8 +69,20 @@ def _block(x, hp, is_test, cache=None):
         a = layers.dropout(a, hp.dropout, is_test=is_test)
     x = layers.elementwise_add(x, a)
     ln = layers.layer_norm(x, begin_norm_axis=2)
-    h = layers.fc(ln, size=4 * hp.d_model, num_flatten_dims=2, act="gelu",
-                  param_attr=_pa("ffn_in.w"), bias_attr=_pa("ffn_in.b"))
+    if getattr(hp, "use_swiglu", False):
+        # silu(ln W_g) * (ln W_u), the hidden width 2/3 of 4 d (the gelu
+        # MLP's parameter count) rounded up to ffn_multiple_of
+        mult = int(getattr(hp, "ffn_multiple_of", 1) or 1)
+        hid = -(-int(4 * hp.d_model * 2 // 3) // mult) * mult
+        gate = layers.fc(ln, size=hid, num_flatten_dims=2, act="swish",
+                         bias_attr=False, param_attr=_pa("ffn_gate.w"))
+        up = layers.fc(ln, size=hid, num_flatten_dims=2, bias_attr=False,
+                       param_attr=_pa("ffn_up.w"))
+        h = layers.elementwise_mul(gate, up)
+    else:
+        h = layers.fc(ln, size=4 * hp.d_model, num_flatten_dims=2,
+                      act="gelu", param_attr=_pa("ffn_in.w"),
+                      bias_attr=_pa("ffn_in.b"))
     h = layers.fc(h, size=hp.d_model, num_flatten_dims=2,
                   param_attr=_pa("ffn_out.w"))
     if hp.dropout and not is_test:
@@ -98,15 +101,18 @@ def _tied_logits(x, hp, emb_name):
 
 def gpt2_lm(ids, hp=GPT2Config, is_test=False):
     """[B, T] token ids -> [B, T, vocab] next-token logits."""
-    _check_ported(hp)
     emb_attr = _pa("emb.w")
     tok = layers.embedding(ids, size=[hp.vocab_size, hp.d_model],
                            param_attr=emb_attr)
-    pos_table = layers.create_parameter(
-        shape=[hp.n_ctx, hp.d_model], dtype="float32",
-        attr=_pa("pos_emb.w", 0.01))
-    pos = layers.slice(pos_table, axes=[0], starts=[0], ends=[ids.shape[1]])
-    x = layers.elementwise_add(tok, pos, axis=1)
+    if getattr(hp, "use_rotary", False):
+        x = tok  # positions enter through RoPE on q and k
+    else:
+        pos_table = layers.create_parameter(
+            shape=[hp.n_ctx, hp.d_model], dtype="float32",
+            attr=_pa("pos_emb.w", 0.01))
+        pos = layers.slice(pos_table, axes=[0], starts=[0],
+                           ends=[ids.shape[1]])
+        x = layers.elementwise_add(tok, pos, axis=1)
     if hp.dropout and not is_test:
         x = layers.dropout(x, hp.dropout, is_test=is_test)
     for _ in range(hp.n_layer):
@@ -189,9 +195,10 @@ def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
                 width_rows [B] int64, pos_mat [B, W] int64
         fetch:  logits [B, W, vocab] — row b column i predicts position
                 pos_rows[b] + i + 1
-        state:  per-layer <cache_prefix>_{k,v}cache_<i> persistables,
-                float32 (the kernels take float32; the reference's
-                cache_dtype waits for their bf16 forms)
+        state:  per-layer <cache_prefix>_{k,v}cache_<i> persistables
+                [batch, n_kv_head or n_head, t_max, dh], float32 (the
+                kernels take float32; the reference's cache_dtype waits
+                for their bf16 forms)
 
     Cache writes go through slot_cache_write (per-row position and
     width, out-of-width columns dropped) and attention masks per-row
@@ -199,7 +206,6 @@ def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
     logits depend only on row b's request, the serving engine's
     pooled == solo contract.  Returns (main, cache_startup, feeds,
     fetches, cache_names)."""
-    _check_ported(hp)
     from .decode_cache import add_cache_zero_fills, create_kv_caches
 
     t_max = t_max or hp.n_ctx
@@ -224,19 +230,26 @@ def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
         tok = layers.embedding(ids, size=[hp.vocab_size, hp.d_model],
                                param_attr=emb_attr)
         tok = layers.reshape(tok, shape=[batch, width, hp.d_model])
-        pos_table = layers.create_parameter(
-            shape=[hp.n_ctx, hp.d_model], dtype="float32",
-            attr=_pa("pos_emb.w", 0.01))
-        x = layers.elementwise_add(tok, layers.gather(pos_table, pos_mat))
+        rotary = getattr(hp, "use_rotary", False)
+        if rotary:
+            x = tok  # RoPE rotates q and k by pos_mat in the attention
+        else:
+            pos_table = layers.create_parameter(
+                shape=[hp.n_ctx, hp.d_model], dtype="float32",
+                attr=_pa("pos_emb.w", 0.01))
+            x = layers.elementwise_add(tok, layers.gather(pos_table, pos_mat))
+        n_kv = getattr(hp, "n_kv_head", None) or hp.n_head
         kv_caches, cache_names = create_kv_caches(
-            main.global_block(), cache_prefix, hp.n_layer, batch, hp.n_head,
+            main.global_block(), cache_prefix, hp.n_layer, batch, n_kv,
             t_max, dh)
         add_cache_zero_fills(
             cache_startup,
-            [(n, (batch, hp.n_head, t_max, dh)) for n in cache_names])
+            [(n, (batch, n_kv, t_max, dh)) for n in cache_names])
         for cache in kv_caches:
             cache["pos_rows"] = pos_rows
             cache["width_rows"] = width_rows
+            if rotary:
+                cache["pos_mat"] = pos_mat
             x = _block(x, hp, is_test=True, cache=cache)
         x = layers.layer_norm(x, begin_norm_axis=2)
         logits = _tied_logits(x, hp, emb_attr.name)

@@ -1,11 +1,12 @@
 """Transformer (the counterpart of ``paddle_tpu/models/transformer.py``):
 the encoder-decoder Transformer-base of the WMT training program
 (``wmt_transformer_program``, label smoothing, noam lr, Adam) and
-``multi_head_attention``'s two ported forms: the unfused training form
-(batched matmul / softmax / dropout) and the fused ragged-cache form of
-the serving step.  Parameter names (mha_q.w ... softmax_out.w) are the
-reference's, so the programs built here list the same ops over the same
-names as the reference's."""
+``multi_head_attention``'s ported forms: the unfused training form
+(batched matmul / softmax / dropout), the fused (flash) form, and the
+fused ragged-cache form of the serving step, each with grouped-query
+attention and rotary positions as options.  Parameter names (mha_q.w
+... softmax_out.w) are the reference's, so the programs built here list
+the same ops over the same names as the reference's."""
 
 import numpy as np
 
@@ -78,35 +79,66 @@ def multi_head_attention(queries, keys, values, attn_bias, d_model, n_head,
 
     Ported forms: the unfused form (fused=False, no cache: batched
     matmul, softmax, attention-prob dropout, matmul), the fused form
-    without a cache (its causal / key-bias kernels B3 are still to port:
-    it runs on CPU tensors only), and the RAGGED cache mode of the
-    serving step — a cache dict carrying "k"/"v" [B, H, T_max, Dh]
-    persistables plus "pos_rows" [B] and "width_rows" [B]; each row
-    writes its K/V at its own position with its own valid width
+    without a cache (flash attention, causal or with a key-padding
+    bias), and the RAGGED cache mode of the serving step — a cache dict
+    carrying "k"/"v" [B, n_kv, T_max, Dh] persistables plus "pos_rows"
+    [B] and "width_rows" [B] (and "pos_mat" [B, W] under rotary); each
+    row writes its K/V at its own position with its own valid width
     (slot_cache_write) and attends with its own offset-causal cutoff
-    (fused_attention with a vector qstart).  The scalar-pos decode step,
-    grouped-query attention and rotary positions raise here."""
-    if n_kv_head is not None and n_kv_head < n_head:
-        raise NotImplementedError("grouped-query attention (n_kv_head < "
-                                  "n_head) is not ported yet (ROADMAP A5)")
-    if rotary:
-        raise NotImplementedError("rotary positions are not ported yet "
-                                  "(ROADMAP A5)")
+    (fused_attention with a vector qstart).  The scalar-pos decode step
+    raises here.
+
+    n_kv_head < n_head is grouped-query attention: k/v project to
+    n_kv_head heads, each shared by a contiguous group of n_head /
+    n_kv_head query heads and tiled back to n_head before attention (on
+    the ragged cache path too, as in the reference: the cache holds
+    n_kv heads, the attention kernel reads full heads).  rotary=True
+    rotates q and k after the head split (RoPE): positions arange(T) in
+    training, the cache's pos_mat on the ragged path, so cached keys are
+    stored rotated."""
     dh = d_model // n_head
+    n_kv = n_kv_head or n_head
+    if n_head % n_kv:
+        raise ValueError(
+            "n_kv_head (%d) must divide n_head (%d)" % (n_kv, n_head))
     q = layers.fc(queries, size=d_model, num_flatten_dims=2, bias_attr=False,
                   param_attr=_pa("mha_q.w"))
-    k = layers.fc(keys, size=d_model, num_flatten_dims=2, bias_attr=False,
+    k = layers.fc(keys, size=n_kv * dh, num_flatten_dims=2, bias_attr=False,
                   param_attr=_pa("mha_k.w"))
-    v = layers.fc(values, size=d_model, num_flatten_dims=2, bias_attr=False,
+    v = layers.fc(values, size=n_kv * dh, num_flatten_dims=2, bias_attr=False,
                   param_attr=_pa("mha_v.w"))
 
-    def split_heads(x):
+    def split_heads(x, heads):
         b, t = x.shape[0], x.shape[1]
-        x = layers.reshape(x, [b, t, n_head, dh])
+        x = layers.reshape(x, [b, t, heads, dh])
         return layers.transpose(x, [0, 2, 1, 3])  # [B, heads, T, Dh]
 
-    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    def repeat_kv(x):
+        """[B, n_kv, T, Dh] -> [B, n_head, T, Dh]: each kv head serves a
+        contiguous group of query heads."""
+        if n_kv == n_head:
+            return x
+        g = n_head // n_kv
+        b, _, t, _ = x.shape
+        x = layers.reshape(x, [b, n_kv, 1, t, dh])
+        x = layers.expand(x, [1, 1, g, 1, 1])
+        return layers.reshape(x, [b, n_head, t, dh])
+
+    q = split_heads(q, n_head)
+    k, v = split_heads(k, n_kv), split_heads(v, n_kv)
+    if rotary:
+        rpos = None
+        if cache is not None:
+            if "pos_rows" in cache and "pos_mat" not in cache:
+                raise ValueError(
+                    "ragged cached attention with rotary needs pos_mat "
+                    "(per-row absolute positions [B, W]) — without it "
+                    "every slot would silently rotate at arange(W)")
+            rpos = cache.get("pos_mat")
+        q = layers.rotary_embed(q, pos=rpos)
+        k = layers.rotary_embed(k, pos=rpos)
     if cache is None and not fused:
+        k, v = repeat_kv(k), repeat_kv(v)
         product = layers.matmul(q, k, transpose_y=True, alpha=dh ** -0.5)
         if attn_bias is not None:
             product = layers.elementwise_add(product, attn_bias)
@@ -119,7 +151,8 @@ def multi_head_attention(queries, keys, values, attn_bias, d_model, n_head,
             raise ValueError(
                 "fused attention cannot consume the dense [B,H,Tq,Tk] "
                 "attn_bias — pass its rank-1 key-padding row as kpad_bias")
-        ctx = layers.fused_attention(q, k, v, bias=kpad_bias, causal=causal,
+        ctx = layers.fused_attention(q, repeat_kv(k), repeat_kv(v),
+                                     bias=kpad_bias, causal=causal,
                                      scale=dh ** -0.5)
     else:
         if attn_bias is not None or kpad_bias is not None:
@@ -138,9 +171,11 @@ def multi_head_attention(queries, keys, values, attn_bias, d_model, n_head,
         if "width_rows" not in cache:
             raise ValueError("ragged cached attention needs width_rows "
                              "alongside pos_rows (per-row valid write widths)")
-        if int(cache["k"].shape[1]) != n_head:
-            raise ValueError("cache has %d kv heads but the model has %d"
-                             % (int(cache["k"].shape[1]), n_head))
+        if int(cache["k"].shape[1]) != n_kv:
+            raise ValueError(
+                "cache has %d kv heads but n_kv_head is %d — create the "
+                "caches with the model's kv head count"
+                % (int(cache["k"].shape[1]), n_kv))
         from ..layer_helper import LayerHelper
 
         helper = LayerHelper("cached_attention")
@@ -154,8 +189,8 @@ def multi_head_attention(queries, keys, values, attn_bias, d_model, n_head,
 
         k_full = write_cache(cache["k"], k)
         v_full = write_cache(cache["v"], v)
-        ctx = layers.fused_attention(q, k_full, v_full, causal=True,
-                                     qstart=cache["pos_rows"],
+        ctx = layers.fused_attention(q, repeat_kv(k_full), repeat_kv(v_full),
+                                     causal=True, qstart=cache["pos_rows"],
                                      scale=dh ** -0.5)  # [B, H, W, Dh]
     ctx = layers.transpose(ctx, [0, 2, 1, 3])
     b, t = ctx.shape[0], ctx.shape[1]

@@ -1,8 +1,9 @@
 """Elementwise / activation / matmul / reduction / loss op lowerings
 (the counterpart of ``paddle_tpu/ops/math_ops.py``), limited to the ops
-the serving slice and the GPT-2 and WMT Transformer training steps
-run.  ``mul`` and ``matmul`` are plain products outside any kernel of
-the reference, so they stay ``torch.matmul`` here too.
+the serving slice and the GPT-2 (with its modern-decoder options) and
+WMT Transformer training steps run.  ``mul`` and ``matmul`` are plain
+products outside any kernel of the reference, so they stay
+``torch.matmul`` here too.
 ``fused_linear_xent`` sits on the hand-written linear cross-entropy
 kernels (``kernels/linear_xent.py``).
 """
@@ -180,6 +181,14 @@ def _gelu(ctx, ins, attrs):
     approximate = "tanh" if attrs.get("approximate", False) else "none"
     return {"Out": [torch.nn.functional.gelu(ins["X"][0],
                                              approximate=approximate)]}
+
+
+@register("swish")
+def _swish(ctx, ins, attrs):
+    """x sigmoid(beta x): fc(act="swish") emits it (the SwiGLU gate
+    before swiglu_fuse_pass folds it into fused_swiglu)."""
+    x = ins["X"][0]
+    return {"Out": [x * torch.sigmoid(attrs.get("beta", 1.0) * x)]}
 
 
 def _flatten2(x, ncol):

@@ -1,9 +1,11 @@
 """Neural-net op lowerings (the counterpart of ``paddle_tpu/ops/nn_ops.py``),
-limited to the ops of the serving slice and the GPT-2 and WMT
-Transformer training steps.
+limited to the ops of the serving slice and the GPT-2 (with its
+modern-decoder options: rotary positions, SwiGLU) and WMT Transformer
+training steps.
 
-Five ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
-``fc`` on ``matmul_bias_act``, ``fused_residual_ln`` on
+Six ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
+``fc`` on ``matmul_bias_act``, ``fused_swiglu`` on ``matmul_swiglu``,
+``fused_residual_ln`` on
 ``fused_add_layer_norm``, ``layer_norm`` over the last axis with Scale
 and Bias on ``fused_layer_norm``, ``fused_attention``'s per-row QStart
 form on ``flash_attention_qvec`` and its forms without a QStart (causal
@@ -28,6 +30,7 @@ from ..kernels import (
     fused_add_layer_norm,
     fused_layer_norm,
     matmul_bias_act,
+    matmul_swiglu,
 )
 
 
@@ -105,6 +108,19 @@ def _fc(ctx, ins, attrs):
     out = matmul_bias_act(x2, w.contiguous(), bias,
                           attrs.get("activation_type", "") or "")
     return {"Out": [out.reshape(tuple(x.shape[:k]) + (w.shape[-1],))]}
+
+
+@register("fused_swiglu")
+def _fused_swiglu(ctx, ins, attrs):
+    """Fused SwiGLU gating (the target of swiglu_fuse_pass): silu(x @
+    GateW) * (x @ UpW) on the matmul_swiglu kernel, X flattened to 2-D
+    at x_num_col_dims.  The reference's VMEM gate (mm_epilogue_ok) has
+    no counterpart: a shape the kernel cannot take raises."""
+    x, wg, wu = ins["X"][0], ins["GateW"][0], ins["UpW"][0]
+    k = int(attrs.get("x_num_col_dims", 1))
+    x2 = x.reshape(int(np.prod(x.shape[:k])), -1).contiguous()
+    out = matmul_swiglu(x2, wg.contiguous(), wu.contiguous())
+    return {"Out": [out.reshape(tuple(x.shape[:k]) + (wg.shape[-1],))]}
 
 
 @register("fused_residual_ln")
@@ -258,3 +274,35 @@ def _slot_cache_write(ctx, ins, attrs):
     vals = torch.where(valid[:, None, :, None], new.to(cache.dtype), kept)
     cache.scatter_(2, index, vals)
     return {"Out": [cache]}
+
+
+@register("rotary_embed", no_grad_inputs=("Pos",))
+def _rotary_embed(ctx, ins, attrs):
+    """Rotary position embedding (rotate-half) of per-head projections X
+    [B, H, T, Dh].  Pos: none (positions arange(T)), [T], or per-row
+    [B, T] (the ragged serving step: each slot at its own positions).
+    freq and the angles are float32 in the reference's order, freq =
+    base ** (-arange(half) / half), then pos * freq: at positions in the
+    thousands the angle's float32 rounding is ~1e-4 rad, so the order is
+    part of the result."""
+    x = ins["X"][0]
+    base = float(attrs.get("base", 10000.0))
+    if x.shape[-1] % 2:
+        raise ValueError("rotary_embed: head dim must be even (rotate-half "
+                         "pairs), got %d" % x.shape[-1])
+    half = x.shape[-1] // 2
+    f32 = dict(dtype=torch.float32, device=x.device)
+    freq = base ** (-torch.arange(half, **f32) / half)
+    pos = ins["Pos"][0] if ins.get("Pos") else None
+    if pos is not None and pos.dim() == 2:
+        ang = pos.to(torch.float32)[:, :, None] * freq  # [B, T, half]
+        sin, cos = torch.sin(ang)[:, None], torch.cos(ang)[:, None]
+    else:
+        pos = (torch.arange(x.shape[2], **f32) if pos is None
+               else pos.reshape(-1).to(torch.float32))
+        ang = pos[:, None] * freq  # [T, half]
+        sin, cos = torch.sin(ang), torch.cos(ang)
+    sin, cos = sin.to(x.dtype), cos.to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return {"Out": [torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                              -1)]}

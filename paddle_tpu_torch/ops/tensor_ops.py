@@ -1,6 +1,7 @@
 """Tensor creation / manipulation op lowerings (the counterpart of
 ``paddle_tpu/ops/tensor_ops.py``), limited to the ops the serving slice,
-the GPT-2 logits program and the WMT Transformer's training step run.  Random ops draw from the run's
+the GPT-2 programs (grouped-query attention's ``expand`` included) and
+the WMT Transformer's training step run.  Random ops draw from the run's
 seeded ``torch.Generator`` (``LowerCtx.rng``).
 """
 
@@ -104,6 +105,13 @@ def _slice(ctx, ins, attrs):
     for a in sorted(attrs.get("decrease_axis", []), reverse=True):
         out = out.squeeze(a)
     return {"Out": [out]}
+
+
+@register("expand")
+def _expand(ctx, ins, attrs):
+    """Tile X expand_times along each axis (jnp.tile's semantics): GQA's
+    repeat_kv tiles each kv head over its query group."""
+    return {"Out": [torch.tile(ins["X"][0], tuple(attrs["expand_times"]))]}
 
 
 @register("gather", no_grad_inputs=("Index",))

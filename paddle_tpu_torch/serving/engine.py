@@ -72,8 +72,9 @@ class ServingEngine:
          self.cache_names) = gpt2.gpt2_ragged_step_program(
             hp, batch=self.n_slots, t_max=self.t_max, width=self.width)
         dh = hp.d_model // hp.n_head
+        n_kv = getattr(hp, "n_kv_head", None) or hp.n_head
         self.reset_prog = make_slot_reset_program(
-            [(n, (self.n_slots, hp.n_head, self.t_max, dh))
+            [(n, (self.n_slots, n_kv, self.t_max, dh))
              for n in self.cache_names],
             self.n_slots)
         self.pool = SlotPool(self.n_slots, self.width, self.t_max)

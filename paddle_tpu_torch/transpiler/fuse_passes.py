@@ -1,14 +1,15 @@
 """Fuse passes (the counterpart of ``paddle_tpu/transpiler/fuse_passes.py``):
-``fc_fuse_pass`` (mul + bias add [+ act] -> fc), ``residual_ln_fuse_pass``
+``fc_fuse_pass`` (mul + bias add [+ act] -> fc), ``swiglu_fuse_pass``
+(the SwiGLU FFN diamond -> fused_swiglu), ``residual_ln_fuse_pass``
 (residual add + layer_norm -> fused_residual_ln), the
 ``matmul_epilogue_fuse_pass`` bundle the builders apply, and the loss
 chain of the training builders: ``smooth_label_xent_fuse_pass``
 (one_hot -> label_smooth -> soft-label xent -> smooth_label_xent) and
 ``linear_xent_fuse_pass`` (vocab projection + xent -> fused_linear_xent).
-The fused ops' lowerings sit on the matmul-epilogue, add-LN and linear
-cross-entropy kernels.  SwiGLU fusion waits for the matmul_swiglu kernel
-(ROADMAP B6).  Each pass records how many chains it fused on the program
-(``_fc_fused_count`` ...), as the reference does."""
+The fused ops' lowerings sit on the matmul-epilogue, matmul-SwiGLU,
+add-LN and linear cross-entropy kernels.  Each pass records how many
+chains it fused on the program (``_fc_fused_count`` ...), as the
+reference does."""
 
 from .. import framework as _fw
 from .pass_registry import OpPattern, Pass, apply_pass, register_pass
@@ -193,16 +194,115 @@ class ResidualLnFusePass(Pass):
         return program
 
 
+def _producer_ops(block):
+    """name -> the LAST op writing it (the reference's
+    analysis.graph.producer_ops)."""
+    prod = {}
+    for op in block.ops:
+        for n in op.output_arg_names():
+            prod[n] = op
+    return prod
+
+
+def _swiglu_diamond(program, block, producers, emul):
+    """(gate mul, swish, up mul, x_num_col_dims) when `emul` closes a
+    SwiGLU diamond that may fuse, else None."""
+    xn = emul.inputs.get("X", [None])[0]
+    yn = emul.inputs.get("Y", [None])[0]
+    if xn is None or yn is None:
+        return None
+    for gate_out, up_out in ((xn, yn), (yn, xn)):
+        act = producers.get(gate_out)
+        umul = producers.get(up_out)
+        if (act is None or act.type != "swish" or umul is None
+                or umul.type != "mul"):
+            continue
+        if float(act.attrs.get("beta", 1.0)) != 1.0:
+            continue
+        gmul = producers.get(act.inputs["X"][0])
+        if gmul is None or gmul.type != "mul":
+            continue
+        if gmul.inputs["X"][0] != umul.inputs["X"][0]:
+            continue  # both sides must project the same x
+        ncd = int(gmul.attrs.get("x_num_col_dims", 1))
+        if ncd != int(umul.attrs.get("x_num_col_dims", 1)):
+            continue
+        if (int(gmul.attrs.get("y_num_col_dims", 1)) != 1
+                or int(umul.attrs.get("y_num_col_dims", 1)) != 1):
+            continue
+        wg = block._find_var_recursive(gmul.inputs["Y"][0])
+        wu = block._find_var_recursive(umul.inputs["Y"][0])
+        if (wg is None or wu is None or wg.shape is None or wu.shape is None
+                or len(wg.shape) != 2 or list(wg.shape) != list(wu.shape)):
+            continue
+        # every intermediate has one consumer, in all blocks
+        inter = [(gmul.outputs["Out"][0], act), (act.outputs["Out"][0], emul),
+                 (umul.outputs["Out"][0], emul)]
+        if any(_consumers_all_blocks(program, name) != [consumer]
+               for name, consumer in inter):
+            continue
+        if not _chain_safe(program, [gmul, act, umul, emul]):
+            continue
+        return gmul, act, umul, ncd
+    return None
+
+
+@register_pass("swiglu_fuse_pass")
+class SwigluFusePass(Pass):
+    """mul(x, Wg) -> swish beside mul(x, Wu), joined by elementwise_mul
+    => ONE fused_swiglu op (the GPT-2 use_swiglu FFN diamond), whose
+    lowering runs the matmul_swiglu kernel: the gate and up
+    pre-activations never reach device memory.  Conditions, as the
+    reference's: beta-1 swish, the same x and flatten dims on both muls,
+    2-D weights of one shape, single-consumer intermediates across all
+    blocks, protected fetches."""
+
+    def apply(self, program, scope=None):
+        block = program.global_block()
+        n = 0
+        changed = True
+        while changed:
+            changed = False
+            producers = _producer_ops(block)
+            for emul in list(block.ops):
+                if (emul.type != "elementwise_mul"
+                        or int(emul.attrs.get("axis", -1)) != -1):
+                    continue
+                hit = _swiglu_diamond(program, block, producers, emul)
+                if hit is None:
+                    continue
+                gmul, act, umul, ncd = hit
+                fused = _mk_op(
+                    block, "fused_swiglu",
+                    {"X": [gmul.inputs["X"][0]], "GateW": gmul.inputs["Y"],
+                     "UpW": umul.inputs["Y"]},
+                    {"Out": [emul.outputs["Out"][0]]},
+                    {"x_num_col_dims": ncd})
+                # at the elementwise_mul's slot, where every fused input
+                # is defined (the chain need not be contiguous)
+                block.ops.insert(block.ops.index(emul), fused)
+                for op in (gmul, act, umul, emul):
+                    block.ops.remove(op)
+                program._bump_version()
+                n += 1
+                changed = True
+                break
+        program._swiglu_fused_count = n
+        return program
+
+
 @register_pass("matmul_epilogue_fuse_pass")
 def _matmul_epilogue_fuse(program, scope):
-    """fc (mul + bias + act) and residual-add + layer_norm pairs collapse
-    into their fused ops.  The reference bundle also runs
-    swiglu_fuse_pass; the port's builders refuse use_swiglu until the
-    matmul_swiglu kernel lands, so no SwiGLU diamond reaches here."""
-    for name in ("fc_fuse_pass", "residual_ln_fuse_pass"):
+    """fc (mul + bias + act), SwiGLU diamonds and residual-add +
+    layer_norm pairs collapse into their fused ops, in the reference's
+    order: fc_fuse_pass needs a bias add, so the bias-free SwiGLU gate
+    (mul -> swish) survives it for swiglu_fuse_pass."""
+    for name in ("fc_fuse_pass", "swiglu_fuse_pass",
+                 "residual_ln_fuse_pass"):
         apply_pass(program, name, scope=scope)
     program._matmul_epilogue_fused_count = (
-        program._fc_fused_count + program._residual_ln_fused_count)
+        program._fc_fused_count + program._swiglu_fused_count
+        + program._residual_ln_fused_count)
     return program
 
 

@@ -42,6 +42,8 @@ from paddle_tpu_torch.kernels import (
     linear_xent_plain,
     matmul_bias_act,
     matmul_bias_act_plain,
+    matmul_swiglu,
+    matmul_swiglu_plain,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -174,11 +176,13 @@ def _calls(device):
     yield lambda: flash_attention_fwd(q, q, q, kb, True)
     yield lambda: flash_attention_dq(q, q, q, kb, lse, q, lse, True)
     yield lambda: flash_attention_dkv(q, q, q, None, lse, q, lse, False)
+    yield lambda: matmul_swiglu(x, w, w)
 
 
 _LAUNCHED = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
              linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
-             flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
+             flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+             matmul_swiglu)
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -471,3 +475,57 @@ def test_flash_attention_kernel_path_checks_shapes(monkeypatch):
         flash_attention_fwd(q, k, k, torch.zeros(2, 4))
     o, lse = flash_attention_fwd(q, k, k, torch.zeros(2, 6))
     assert o.shape == (2, 4, 64) and lse.shape == (2, 4)
+
+
+# ---------------------------------------------------------------------------
+# matmul_swiglu
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M,K,N,bm,bn", [
+    (24, 40, 48, 8, 48),
+    (21, 19, 15, 7, 5),   # no dimension a multiple of the CUDA tile
+    (1, 33, 70, 1, 35),   # one row (a one-slot serving step)
+])
+def test_matmul_swiglu_matches_reference_kernel(M, K, N, bm, bn):
+    """The plain version against the reference's matmul_swiglu (Pallas
+    interpret mode), and the autograd wrapper's vjp against the
+    reference's custom vjp and jax.vjp of _swiglu_dense, on ragged
+    shapes.  rtol = atol = 1e-5."""
+    rng = np.random.RandomState(34)
+    x = rng.randn(M, K).astype("float32")
+    wg = (rng.randn(K, N) * K ** -0.5).astype("float32")
+    wu = (rng.randn(K, N) * K ** -0.5).astype("float32")
+    dy = rng.randn(M, N).astype("float32")
+    args = (jnp.asarray(x), jnp.asarray(wg), jnp.asarray(wu))
+    out_r, vjp_r = jax.vjp(lambda a, b, c: pk.matmul_swiglu(a, b, c, bm, bn),
+                           *args)
+    _, vjp_d = jax.vjp(pk._swiglu_dense, *args)
+    plain = matmul_swiglu_plain(_t(x), _t(wg), _t(wu))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(out_r), **TOL)
+    out, vjp_t = torch.func.vjp(matmul_swiglu, _t(x), _t(wg), _t(wu))
+    np.testing.assert_array_equal(out.numpy(), plain.numpy())
+    for got, kern, dense in zip(vjp_t(_t(dy)), vjp_r(jnp.asarray(dy)),
+                                vjp_d(jnp.asarray(dy))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(dense), **TOL)
+
+
+def test_matmul_swiglu_kernel_path_checks(monkeypatch):
+    """On the kernel path the wrapper refuses bf16 and mismatched
+    weights, and launches with (M, N, K) into a fresh [M, N] output that
+    carries a grad_fn."""
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    launched = []
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *args: launched.append((name, args[4:])))
+    x, w = torch.ones(5, 12), torch.ones(12, 7, requires_grad=True)
+    with pytest.raises(TypeError, match="float32"):
+        matmul_swiglu(x.bfloat16(), w.bfloat16(), w.bfloat16())
+    with pytest.raises(ValueError, match="shapes"):
+        matmul_swiglu(x, w, torch.ones(12, 6))
+    with pytest.raises(ValueError, match="shapes"):
+        matmul_swiglu(x, torch.ones(11, 7), torch.ones(11, 7))
+    before = matmul_swiglu.launches
+    out = matmul_swiglu(x, w, w)
+    assert launched == [("ptt_matmul_swiglu", (5, 7, 12))]
+    assert out.shape == (5, 7) and out.grad_fn is not None
+    assert matmul_swiglu.launches == before + 1

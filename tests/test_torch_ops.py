@@ -1,8 +1,10 @@
 """paddle_tpu_torch op lowerings against the reference lowerings on
 shared numpy inputs (the tests/op_test.py pattern): every op type of the
-serving slice's programs, of the WMT Transformer's training step, the
-ops the builders emit before fusion, and the GPT-2 logits program's main
-and startup ops; and every ``<op>_grad`` of the training step, the port's
+serving slice's programs, of the WMT Transformer's and GPT-2's training
+steps (the modern-decoder options' swish, expand, rotary_embed and
+fused_swiglu included), the ops the builders emit before fusion, and the
+GPT-2 logits program's main and startup ops; and every ``<op>_grad`` of
+the training steps, the port's
 ``lower_grad_op`` (torch.func.vjp) against the reference's (jax.vjp).
 The reference runs its dense (non-Pallas) lowerings on the CPU.
 
@@ -221,6 +223,29 @@ _CASES.update({
                     "dropout_implementation": "downgrade_in_infer"}, True),
     "sgd": ("sgd", {"Param": [_F(3, 4)], "Grad": [_F(3, 4)],
                     "LearningRate": [np.array([0.1], "float32")]}, {}, False),
+    "swish": ("swish", {"X": [_F(4, 7) * 3]}, {"beta": 1.0}, False),
+    "swish_beta": ("swish", {"X": [_F(4, 7) * 3]}, {"beta": 0.7}, False),
+    "expand": ("expand", {"X": [_F(2, 3, 1, 4, 5)]},
+               {"expand_times": [1, 1, 3, 1, 1]}, True),
+    "expand_every_axis": ("expand", {"X": [_F(2, 3)]},
+                          {"expand_times": [2, 3]}, True),
+    "rotary_embed": ("rotary_embed", {"X": [_F(2, 3, 5, 8)]},
+                     {"base": 10000.0}, False),
+    "rotary_embed_pos": ("rotary_embed",
+                         {"X": [_F(2, 3, 5, 8)],
+                          "Pos": [np.array([3, 9, 17, 30, 31], "int64")]},
+                         {"base": 10000.0}, False),
+    "rotary_embed_pos_rows": ("rotary_embed",
+                              {"X": [_F(2, 3, 4, 8)],
+                               "Pos": [np.array([[0, 1, 2, 3],
+                                                 [25, 26, 27, 28]], "int64")]},
+                              {"base": 500.0}, False),
+    "fused_swiglu": ("fused_swiglu",
+                     {"X": [_F(2, 3, 6)], "GateW": [_F(6, 5)],
+                      "UpW": [_F(6, 5)]}, {"x_num_col_dims": 2}, False),
+    "fused_swiglu_2d": ("fused_swiglu",
+                        {"X": [_F(7, 6)], "GateW": [_F(6, 9)],
+                         "UpW": [_F(6, 9)]}, {"x_num_col_dims": 1}, False),
     "adam": ("adam", {"Param": [_F(3, 4)], "Grad": [_F(3, 4)],
                       "Moment1": [_F(3, 4) * 0.1],
                       "Moment2": [np.abs(_F(3, 4)) * 0.1],
@@ -428,7 +453,9 @@ _GRAD_CASES = {
         "reduce_sum_all", "reduce_sum_dim", "dropout_is_test", "dropout_p0",
         "sum", "transpose2", "reshape2", "slice", "unsqueeze2", "clip",
         "layer_norm", "layer_norm_axis1", "fused_attention_causal",
-        "fused_attention_bias")}
+        "fused_attention_bias", "swish", "swish_beta", "expand",
+        "expand_every_axis", "rotary_embed", "rotary_embed_pos",
+        "rotary_embed_pos_rows", "fused_swiglu", "fused_swiglu_2d")}
 _GRAD_CASES["elementwise_pow"] = ("elementwise_pow",
                                   {"X": [np.abs(_F(3)) + 0.5],
                                    "Y": [np.abs(_F(3)) + 0.5]},

@@ -4,8 +4,10 @@ GPT-2 logits program with its startup have the reference's op sequence
 (types, slot names, var names, attrs), parameter names, and every var's
 inferred shape and dtype.  Dtypes compare up to the dtype policy:
 the reference runs int64 as int32 on the device, the port keeps int64.
-Also: the options still to be ported raise, and Executor() with no CUDA
-device raises."""
+The modern-decoder options (SwiGLU, rotary, grouped-query attention)
+build the reference's programs, training and serving.  Also: the engine
+options still to be ported raise, and Executor() with no CUDA device
+raises."""
 
 import numpy as np
 import pytest
@@ -117,13 +119,109 @@ def test_logits_program_and_startup_match_reference():
     assert p_fetch[0].shape == (-1, 24, 61)
 
 
-@pytest.mark.parametrize("option", [{"use_swiglu": True},
-                                    {"use_rotary": True},
-                                    {"n_kv_head": 2}])
-def test_unported_model_options_raise(option):
-    hp = _tiny(port_gpt2.GPT2Config, **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_gpt2.gpt2_ragged_step_program(hp, batch=2, t_max=8, width=2)
+_MODERN = {
+    "swiglu": dict(use_swiglu=True, ffn_multiple_of=8),
+    "rotary": dict(use_rotary=True),
+    "gqa": dict(n_kv_head=2),
+    "all": dict(use_swiglu=True, ffn_multiple_of=8, use_rotary=True,
+                n_kv_head=2),
+}
+
+
+def _both(builder, option, **kw):
+    """The reference's and the port's `builder` on the tiny config with
+    the `option` set."""
+    return (getattr(ref_gpt2, builder)(
+                _tiny(ref_gpt2.GPT2Config, **_MODERN[option]), **kw),
+            getattr(port_gpt2, builder)(
+                _tiny(port_gpt2.GPT2Config, **_MODERN[option]), **kw))
+
+
+@pytest.mark.parametrize("option", sorted(_MODERN))
+def test_modern_decoder_training_program_matches_reference(option):
+    """The GPT-2 training program (forward, fuse passes, backward, Adam)
+    with each modern-decoder option alone and all three together, op for
+    op: one fused_swiglu per layer under SwiGLU, RoPE on q and k and no
+    position table under rotary, narrowed k/v projections and expand
+    under GQA."""
+    (r_main, r_start, _, _), (p_main, p_start, _, _) = _both(
+        "gpt2_lm_program", option, seq_len=16)
+    _assert_same_program(r_start, p_start)
+    _assert_same_program(r_main, p_main)
+    for count in ("_swiglu_fused_count", "_fc_fused_count",
+                  "_residual_ln_fused_count", "_matmul_epilogue_fused_count",
+                  "_linear_xent_fused_count"):
+        assert getattr(p_main, count) == getattr(r_main, count), count
+    hp = _MODERN[option]
+    types = [o.type for o in p_main.global_block().ops]
+    n_layer = 2
+    swiglu = hp.get("use_swiglu", False)
+    assert p_main._swiglu_fused_count == (n_layer if swiglu else 0)
+    assert types.count("fused_swiglu") == types.count(
+        "fused_swiglu_grad") == (n_layer if swiglu else 0)
+    assert "swish" not in types  # every gate folded into its fused_swiglu
+    assert types.count("rotary_embed") == (
+        2 * n_layer if hp.get("use_rotary") else 0)
+    assert types.count("expand") == (2 * n_layer if "n_kv_head" in hp else 0)
+    params = {p.name: tuple(p.shape)
+              for p in p_main.global_block().all_parameters()}
+    assert ("pos_emb.w_0" in params) != bool(hp.get("use_rotary"))
+    assert params["mha_k.w_0"] == (64, 16 * (2 if "n_kv_head" in hp else 4))
+    if swiglu:  # 2/3 of 4 x 64 = 170, rounded up to a multiple of 8
+        assert params["ffn_gate.w_0"] == params["ffn_up.w_0"] == (64, 176)
+        assert "ffn_in.w_0" not in params
+
+
+@pytest.mark.parametrize("option", sorted(_MODERN))
+def test_modern_decoder_serving_programs_match_reference(option):
+    """The logits program with its startup, and the ragged serving step
+    with its cache startup and slot reset: n_kv_head caches, pos_mat
+    rotating q and k, fused_swiglu in the step."""
+    hp_kw = _MODERN[option]
+    for r, p in (_both("gpt2_logits_program", option, seq_len=16),
+                 _both("gpt2_ragged_step_program", option, batch=3, t_max=24,
+                       width=4)):
+        _assert_same_program(r[0], p[0])
+        _assert_same_program(r[1], p[1])
+    n_kv = hp_kw.get("n_kv_head", 4)
+    names = p[4]
+    assert names == r[4]
+    for n in names:
+        assert p[0].global_block().var(n).shape == (3, n_kv, 24, 16)
+    shapes = [(n, (3, n_kv, 24, 16)) for n in names]
+    _assert_same_program(ref_dc.make_slot_reset_program(shapes, 3),
+                         port_dc.make_slot_reset_program(shapes, 3))
+    step_types = [o.type for o in p[0].global_block().ops]
+    assert step_types.count("fused_swiglu") == (
+        2 if hp_kw.get("use_swiglu") else 0)
+    assert p[0]._swiglu_fused_count == r[0]._swiglu_fused_count
+    if hp_kw.get("use_rotary"):
+        rot = [o for o in p[0].global_block().ops if o.type == "rotary_embed"]
+        assert len(rot) == 4 and all(o.inputs["Pos"] == ["pos_mat"]
+                                     for o in rot)
+
+
+def test_ragged_rotary_cache_needs_pos_mat():
+    """The reference's guard: a ragged cache under rotary without
+    pos_mat would rotate every slot at arange(W)."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer as tfm
+
+    x = layers.data("x", shape=[2, 4, 64], dtype="float32",
+                    append_batch_size=False)
+    rows = layers.data("rows", shape=[2], dtype="int64",
+                       append_batch_size=False)
+    blk = framework.default_main_program().global_block()
+    cache = {nm: blk.create_var(name=nm, shape=[2, 4, 8, 16],
+                                dtype="float32", persistable=True)
+             for nm in ("k", "v")}
+    cache.update(pos_rows=rows, width_rows=rows)
+    with pytest.raises(ValueError, match="pos_mat"):
+        tfm.multi_head_attention(x, x, x, None, 64, 4, cache=cache,
+                                 fused=True, rotary=True)
+    with pytest.raises(ValueError, match="kv heads"):
+        tfm.multi_head_attention(x, x, x, None, 64, 4, cache=cache,
+                                 fused=True, n_kv_head=2)
 
 
 @pytest.mark.parametrize("option", ["draft", "prefix_rows", "mesh",

@@ -90,20 +90,20 @@ class _Recorder:
         exe.run = recording_run
 
 
-def _lockstep(engine, trace):
+def _lockstep(engine, trace, ref_hp=RefHP, port_hp=PortHP):
     """The reference engine run over a seeded scope, and the port engine
     over the same weights, each driven through `trace(request_cls)`; the
     port engine is held in lockstep to the reference's tokens."""
     with pfluid.program_guard(pfluid.Program(), pfluid.Program()), \
             pfluid.scope_guard(pfluid.Scope()):
-        _, ref_start, _, _ = ref_gpt2.gpt2_logits_program(RefHP, seq_len=24)
+        _, ref_start, _, _ = ref_gpt2.gpt2_logits_program(ref_hp, seq_len=24)
         ref_start.random_seed = 7
         ref_exe = pfluid.Executor(pfluid.CPUPlace())
         ref_exe.run(ref_start)
         scope = pfluid.global_scope()
         weights = {n: np.asarray(scope.find_var(n))
                    for n in scope.local_var_names()}
-        ref_eng = RefEngine(ref_exe, RefHP, **engine)
+        ref_eng = RefEngine(ref_exe, ref_hp, **engine)
         ref_rec = _Recorder(ref_exe, ref_eng.step_main)
         ref_picks = []
         pick = ref_eng._pick_tokens
@@ -120,7 +120,7 @@ def _lockstep(engine, trace):
     params_from_numpy(weights, port_scope, ptt.CPUPlace())
     with ptt.scope_guard(port_scope):
         port_exe = ptt.Executor(ptt.CPUPlace())
-        port_eng = ServingEngine(port_exe, PortHP, **engine)
+        port_eng = ServingEngine(port_exe, port_hp, **engine)
         port_rec = _Recorder(port_exe, port_eng.step_main)
         port_picks = []
         own_pick = port_eng._pick_tokens
