@@ -11,8 +11,10 @@ In order, it:
    (torch, its CUDA, nvcc);
 2. builds the hand-written kernels from paddle_tpu_torch/kernels/csrc;
 3. holds each kernel against its plain PyTorch version on the card, at
-   the serving and training paths' shapes plus ragged ones, and times
-   kernel, plain version and one PyTorch library call with CUDA events;
+   the serving and training paths' shapes plus ragged ones (the softmax
+   cross entropy at BERT's NSP [32, 2] and MLM-wide [4096, 30522]), and
+   times kernel, plain version and one PyTorch library call with CUDA
+   events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
    kernel's launch count reset just before and read just after; checks
@@ -62,7 +64,20 @@ In order, it:
    same saved state, bit for bit (with --profile,
    chiprun_out/profile_training_llama.json); then a narrow modern config
    3 steps on the card and on the CPU, losses within 1e-5 relative;
-13. prints the kernels line and, last, the result line.
+13. pretrains BERT-base (bert_pretrain_program: vocab 30522, hidden 768,
+   12 layers, 12 heads, dropout 0.1, fused attention with the
+   key-padding bias, MLM over every position and NSP, Adam lr 1e-4) on
+   batch 32 x 128 with ragged lengths: one warm-up step (its loss near
+   ln 30522 + ln 2), 10 timed steps with the launch counts held to the
+   program's (the softmax cross-entropy kernels under the NSP head
+   included), the bit-equal repeat and the dropout masks (with
+   --profile, chiprun_out/profile_training_bert.json); then a narrow
+   BERT 3 steps on the card and on the CPU, the total, MLM and NSP
+   losses within 1e-5 relative;
+14. trains Transformer-base with hp.fused_attn (every attention on the
+   flash kernels, causal and key-bias forms) 1 + 3 steps with the same
+   checks, and a narrow fused_attn WMT config card vs CPU;
+15. prints the kernels line and, last, the result line.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -81,7 +96,7 @@ N_SLOTS, WIDTH, T_MAX = 8, 16, 1024
 # Transformer-base training step: batch 64 x (64 source, 64 target) tokens
 TRAIN_BATCH, TRAIN_LEN = 64, 64
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_LEN  # 4096 target rows per step
-HP_D_MODEL, HP_VOCAB = 512, 10000  # ModelHyperParams' d_model, trg vocab
+HP_D_MODEL, HP_VOCAB, HP_HEADS = 512, 10000, 8  # ModelHyperParams' widths
 TRAIN_STEPS = 10
 # GPT-2 small training step: batch 8 x 1024 tokens
 GPT2_BATCH, GPT2_LEN = 8, 1024
@@ -92,6 +107,11 @@ LLAMA_BATCH, LLAMA_LEN = 2, 2048
 LLAMA_ROWS = LLAMA_BATCH * LLAMA_LEN  # 4096 target rows per step
 LLAMA_D, LLAMA_FF, LLAMA_VOCAB, LLAMA_HEADS = 2048, 5632, 32000, 32
 LLAMA_STEPS = 5  # timed steps: a ~3 s step keeps the run well in its limit
+# BERT-base pretraining step: batch 32 x 128 tokens (MLM over every
+# position, NSP on [CLS])
+BERT_BATCH, BERT_LEN = 32, 128
+BERT_ROWS = BERT_BATCH * BERT_LEN  # 4096 MLM rows per step
+BERT_D, BERT_FF, BERT_VOCAB, BERT_HEADS = 768, 3072, 30522, 12
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
 GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
@@ -212,11 +232,12 @@ def check_kernels(dev):
     # ---- fused_add_layer_norm: 16 R H bytes ---------------------------
     err = 0.0
     # the serving rows, ragged ones, the WMT step's [4096, 512], the GPT-2
-    # step's [8192, 768] and the TinyLlama steps' [4096, 2048] and
-    # [128, 2048]
+    # step's [8192, 768], the TinyLlama steps' [4096, 2048] and
+    # [128, 2048] and the BERT step's [4096, 768]
     for r, h in ((rows, d_model), (7, d_model), (1, d_model),
                  (TRAIN_ROWS, HP_D_MODEL), (5, HP_D_MODEL),
-                 (GPT2_ROWS, GPT2_D), (LLAMA_ROWS, LLAMA_D), (rows, LLAMA_D)):
+                 (GPT2_ROWS, GPT2_D), (LLAMA_ROWS, LLAMA_D), (rows, LLAMA_D),
+                 (BERT_ROWS, BERT_D)):
         x, y = randn(r, h), randn(r, h)
         gam, bet = randn(h), randn(h)
         outs = fused_add_layer_norm(x, y, gam, bet, 1e-5)
@@ -241,7 +262,8 @@ def check_kernels(dev):
     for tag, r, h in (("train", TRAIN_ROWS, HP_D_MODEL),
                       ("gpt2", GPT2_ROWS, GPT2_D),
                       ("llama_train", LLAMA_ROWS, LLAMA_D),
-                      ("llama_serve", rows, LLAMA_D)):
+                      ("llama_serve", rows, LLAMA_D),
+                      ("bert", BERT_ROWS, BERT_D)):
         x, y = randn(r, h), randn(r, h)
         gam, bet = randn(h), randn(h)
         b, fl = _bound_ms(16 * r * h + 8 * h + 8 * r, 10 * r * h)
@@ -269,6 +291,12 @@ def check_kernels(dev):
     # the TinyLlama steps' ffn_out: K = 5632 runs seven slices of 768 and a
     # ragged last one of 256
     cases += [(LLAMA_ROWS, LLAMA_FF, LLAMA_D, ""), (rows, LLAMA_FF, LLAMA_D, "")]
+    # the BERT step's FFN (relu), MLM transform (gelu), pooler (tanh) and
+    # NSP head (N = 2)
+    cases += [(BERT_ROWS, BERT_D, BERT_FF, "relu"),
+              (BERT_ROWS, BERT_FF, BERT_D, ""),
+              (BERT_ROWS, BERT_D, BERT_D, "gelu"),
+              (BERT_BATCH, BERT_D, BERT_D, "tanh"), (BERT_BATCH, BERT_D, 2, "")]
     for m, k, n, act in cases:
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         for bias in (bm, None):
@@ -285,7 +313,10 @@ def check_kernels(dev):
             ("gpt2_ffn_in", (GPT2_ROWS, GPT2_D, 4 * GPT2_D, "gelu")),
             ("gpt2_ffn_out", (GPT2_ROWS, 4 * GPT2_D, GPT2_D, "")),
             ("llama_ffn_out", (LLAMA_ROWS, LLAMA_FF, LLAMA_D, "")),
-            ("llama_serve_ffn_out", (rows, LLAMA_FF, LLAMA_D, ""))):
+            ("llama_serve_ffn_out", (rows, LLAMA_FF, LLAMA_D, "")),
+            ("bert_ffn_in", (BERT_ROWS, BERT_D, BERT_FF, "relu")),
+            ("bert_ffn_out", (BERT_ROWS, BERT_FF, BERT_D, "")),
+            ("bert_mlm_trans", (BERT_ROWS, BERT_D, BERT_D, "gelu"))):
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         act_fn = {"gelu": F.gelu, "relu": F.relu}.get(act)
         lib = ((lambda: act_fn(torch.addmm(bm, xm, wm))) if act
@@ -352,6 +383,7 @@ def check_kernels(dev):
     rec.update(check_layer_norm(randn))
     rec.update(check_flash_attention(dev, randn))
     rec.update(check_matmul_swiglu(randn))
+    rec.update(check_softmax_xent(dev, randn, g))
     return rec
 
 
@@ -454,7 +486,8 @@ def check_linear_xent(dev, randn, g):
     V in the batch, eps 0 and 0.1; R 70, H 600, V 300), the GPT-2 path's
     (R 8192, H 768, V 50257, eps 0: the wide-H form) and the TinyLlama
     path's (R 4096, H 2048, V 32000, eps 0: the wide-H form over 8 H
-    slices), the last two timed as `per_shape`.  Limit: 1e-4 of the
+    slices) and the BERT path's MLM head (R 4096, H 768, V 30522, eps 0),
+    the last three timed as `per_shape`.  Limit: 1e-4 of the
     largest magnitude of each of loss, dx and dw."""
     import torch
     import torch.nn.functional as F
@@ -476,7 +509,8 @@ def check_linear_xent(dev, randn, g):
     # H 600 takes the backward's form for H > 512 (16-deep staged slices)
     for r, h, v, e in ((R, H, V, eps), (100, H, 1007, 0.0), (100, H, 1007, 0.1),
                        (70, 600, 300, 0.1), (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0),
-                       (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB, 0.0)):
+                       (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB, 0.0),
+                       (BERT_ROWS, BERT_D, BERT_VOCAB, 0.0)):
         x, w = randn(r, h), randn(h, v, scale=h ** -0.5)
         lbl = torch.randint(0, v, (r,), generator=g, device=dev)
         lbl[0], lbl[1] = -1, v  # outside the vocab: smoothing term only
@@ -503,7 +537,8 @@ def check_linear_xent(dev, randn, g):
     for tag, (r, h, v, e) in (
             ("wmt", (R, H, V, eps)),
             ("gpt2", (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0)),
-            ("llama", (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB, 0.0))):
+            ("llama", (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB, 0.0)),
+            ("bert", (BERT_ROWS, BERT_D, BERT_VOCAB, 0.0))):
         for name, times in _lxent_times(dev, randn, g, r, h, v, e,
                                         slow=tag != "wmt").items():
             if tag == "wmt":
@@ -575,19 +610,102 @@ def _lxent_times(dev, randn, g, R, H, V, eps, slow):
     return out
 
 
+def check_softmax_xent(dev, randn, g):
+    """The two softmax cross-entropy kernels (forward, backward) against
+    their plain versions on the card: the BERT path's NSP head [32, 2],
+    the MLM head's width [4096, 30522] (the row form), a ragged [1000,
+    1001] (the warp form, 32 columns a lane) and a ragged [37, 1500] (the
+    row form), with labels -1 and C among them; limit 1e-5 of the largest
+    magnitude of the loss and of dx.  Two runs at [4096, 30522] must be
+    bit-equal.  Timed at every shape but the last, with in-range labels,
+    beside the plain version and F.cross_entropy (forward; forward and
+    backward for the backward kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import softmax_xent as sx
+
+    shapes = (("nsp", BERT_BATCH, 2), ("mlm", BERT_ROWS, BERT_VOCAB),
+              ("ragged", 1000, 1001), ("ragged_row", 37, 1500))
+    err = {"fwd": 0.0, "bwd": 0.0}
+    err_abs = dict(err)
+    times = {"fwd": {}, "bwd": {}}
+    for tag, r, c in shapes:
+        x = randn(r, c, scale=3.0)
+        lbl = torch.randint(0, c, (r,), generator=g, device=dev)
+        dy = torch.rand(r, 1, generator=g, device=dev)
+        bad = lbl.clone()
+        bad[0], bad[-1] = -1, c  # no column: the loss is the lse
+        for key, got, want in (
+                ("fwd", sx.softmax_xent_fwd(x, bad), sx.softmax_xent_plain(
+                    x, bad)),
+                ("bwd", sx.softmax_xent_bwd(x, bad, dy),
+                 sx.softmax_xent_grad_plain(x, bad, dy))):
+            diff = (got - want).abs().max()
+            err[key] = max(err[key], (diff / want.abs().max()).item())
+            err_abs[key] = max(err_abs[key], diff.item())
+        if tag == "mlm":
+            assert torch.equal(sx.softmax_xent_fwd(x, bad),
+                               sx.softmax_xent_fwd(x, bad)), "fwd not bit-equal"
+            assert torch.equal(sx.softmax_xent_bwd(x, bad, dy),
+                               sx.softmax_xent_bwd(x, bad, dy)), (
+                                   "bwd not bit-equal")
+        if tag == "ragged_row":
+            continue
+        xg = x.clone().requires_grad_()
+
+        def library_fwd_bwd():
+            loss = F.cross_entropy(xg, lbl, reduction="none")
+            return torch.autograd.grad(loss, (xg,), dy.reshape(-1))
+
+        key = "%s [%d, %d]" % (tag, r, c)
+        b, fl = _bound_ms(4 * r * c + 12 * r, 4 * r * c)
+        times["fwd"][key] = dict(
+            ms=_time_ms(lambda: sx.softmax_xent_fwd(x, lbl)),
+            plain_ms=_time_ms(lambda: sx.softmax_xent_plain(x, lbl)),
+            library_ms=_time_ms(lambda: F.cross_entropy(x, lbl,
+                                                        reduction="none")),
+            bound_ms=b, bound_by=fl)
+        b, fl = _bound_ms(8 * r * c + 12 * r, 6 * r * c)
+        times["bwd"][key] = dict(
+            ms=_time_ms(lambda: sx.softmax_xent_bwd(x, lbl, dy)),
+            plain_ms=_time_ms(lambda: sx.softmax_xent_grad_plain(x, lbl, dy)),
+            library_ms=_events_ms(library_fwd_bwd, reps=10),
+            bound_ms=b, bound_by=fl)
+    for key, val in err.items():
+        assert val <= 1e-5, ("softmax_xent disagrees", key, val)
+    torch.cuda.synchronize()
+    rec = {}
+    head = "nsp [%d, 2]" % BERT_BATCH
+    for name, key, site in (("softmax_xent_fwd", "fwd", ":1004"),
+                            ("softmax_xent_bwd", "bwd", ":1078")):
+        per_shape = times[key]
+        rec[name] = dict(
+            route="cuda", source="paddle_tpu_torch/kernels/csrc/softmax_xent.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site,
+            shape="logits [%d, 2] (the NSP head)%s" % (
+                BERT_BATCH, "" if key == "fwd" else
+                "; library_ms is F.cross_entropy forward and backward"),
+            max_abs_err=err_abs[key], max_rel_err=err[key],
+            per_shape={k: v for k, v in per_shape.items() if k != head},
+            **per_shape[head])
+    return rec
+
+
 def check_layer_norm(randn):
     """fused_layer_norm against its plain version at the GPT-2 path's
     [8192, 768] rows, the TinyLlama paths' [4096, 2048] and [128, 2048],
-    and ragged row counts; limit 1e-5 absolute on the output and the row
-    statistics.  Timed at GPT-2's shape, the TinyLlama ones as
-    `per_shape`."""
+    the BERT path's [4096, 768], and ragged row counts; limit 1e-5
+    absolute on the output and the row statistics.  Timed at GPT-2's
+    shape, the others as `per_shape`."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import fused_layer_norm, layer_norm_plain
 
     err = 0.0
     for r, h in ((GPT2_ROWS, GPT2_D), (7, GPT2_D), (1000, GPT2_D),
-                 (LLAMA_ROWS, LLAMA_D), (N_SLOTS * WIDTH, LLAMA_D)):
+                 (LLAMA_ROWS, LLAMA_D), (N_SLOTS * WIDTH, LLAMA_D),
+                 (BERT_ROWS, BERT_D)):
         x = randn(r, h, scale=2.0) + 0.5
         gam, bet = randn(h), randn(h)
         for got, want in zip(fused_layer_norm(x, gam, bet, 1e-5),
@@ -612,16 +730,20 @@ def check_layer_norm(randn):
         per_shape={"%s [%d, %d]" % (tag, r, h): times(r, h)
                    for tag, r, h in (("llama_train", LLAMA_ROWS, LLAMA_D),
                                      ("llama_serve", N_SLOTS * WIDTH,
-                                      LLAMA_D))},
+                                      LLAMA_D),
+                                     ("bert", BERT_ROWS, BERT_D))},
         **times(GPT2_ROWS, GPT2_D))}
 
 
 def check_flash_attention(dev, randn):
     """The three flash-attention kernels (forward, dq, dk/dv) against the
     plain version on the card: the GPT-2 path's shapes (BH 96, T 1024, d
-    64, causal), the TinyLlama path's (BH 64, T 2048, d 64, causal; timed
-    as `per_shape`), a key bias with some keys at -1e9 (causal;
-    non-causal with Tq != Tk), ragged lengths, and head dim 128.  Limit:
+    64, causal), the TinyLlama path's (BH 64, T 2048, d 64, causal), the
+    BERT path's (BH 384, T 128, d 64, key-padding bias, not causal) and
+    WMT fused_attn's (BH 512, T 64: key bias, causal and not), the last
+    three timed as `per_shape` (WMT's non-causal form), a key bias with
+    some keys at -1e9 (causal; non-causal with Tq != Tk), ragged lengths,
+    and head dim 128.  Limit:
     1e-4 of the largest magnitude of each of o, dq, dk, dv and dkbias
     (lse: 1e-4 absolute)."""
     import torch
@@ -649,7 +771,13 @@ def check_flash_attention(dev, randn):
              (6, 300, 300, 64, True, True),
              (5, 200, 333, 64, False, True),
              (4, 384, 384, 128, True, True),
-             (3, 130, 70, 128, False, False)]
+             (3, 130, 70, 128, False, False),
+             # the BERT path: key-padding bias, not causal
+             (BERT_BATCH * BERT_HEADS, BERT_LEN, BERT_LEN, d, False, True),
+             # WMT's fused_attn path: the source key bias (encoder, cross
+             # attention) and the decoder's causal form with a key bias
+             (TRAIN_BATCH * HP_HEADS, TRAIN_LEN, TRAIN_LEN, d, False, True),
+             (TRAIN_BATCH * HP_HEADS, TRAIN_LEN, TRAIN_LEN, d, True, True)]
     for n, tq, tk, dh, causal, with_bias in cases:
         q, k, v = randn(n, tq, dh), randn(n, tk, dh), randn(n, tk, dh)
         do = randn(n, tq, dh)
@@ -686,12 +814,16 @@ def check_flash_attention(dev, randn):
             route="cuda",
             source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             replaces="paddle_tpu/ops/pallas_kernels.py" + site)
-    for tag, n, t_ in (("gpt2", bh, t), ("llama", llama_bh, LLAMA_LEN)):
-        for name, times in _flash_times(randn, n, t_, d).items():
+    for tag, n, t_, causal in (
+            ("gpt2", bh, t, True), ("llama", llama_bh, LLAMA_LEN, True),
+            ("bert", BERT_BATCH * BERT_HEADS, BERT_LEN, False),
+            ("wmt", TRAIN_BATCH * HP_HEADS, TRAIN_LEN, False)):
+        for name, times in _flash_times(randn, n, t_, d, causal).items():
             if tag == "gpt2":
                 rec[name].update(times)
             else:
-                rec[name]["per_shape"] = {"llama " + times.pop("shape"): times}
+                rec[name].setdefault("per_shape", {})[
+                    "%s %s" % (tag, times.pop("shape"))] = times
     for name, e in (("flash_attention_fwd", "fwd"), ("flash_attention_dq", "dq"),
                     ("flash_attention_dkv", "dkv")):
         rec[name].update(max_abs_err=err_abs[e], max_rel_err=err[e])
@@ -699,9 +831,11 @@ def check_flash_attention(dev, randn):
     return rec
 
 
-def _flash_times(randn, bh, t, d):
-    """Times of the three flash-attention kernels at one causal shape,
-    beside the plain version and scaled_dot_product_attention."""
+def _flash_times(randn, bh, t, d, causal=True):
+    """Times of the three flash-attention kernels at one shape, causal or
+    (BERT's form) with a key-padding bias masking the last quarter of
+    the keys, beside the plain version and scaled_dot_product_attention
+    (with the bias as its additive mask)."""
     import torch
     import torch.nn.functional as F
 
@@ -715,40 +849,51 @@ def _flash_times(randn, bh, t, d):
 
     q, k, v, do = (randn(bh, t, d) for _ in range(4))
     scale = d ** -0.5
-    o, lse = flash_attention_fwd(q, k, v, None, True, scale)
+    kb = mask = None
+    if not causal:
+        kb = torch.zeros(bh, t, device=q.device)
+        kb[:, t - t // 4:] = -1e9
+        mask = kb[:, None, :]
+    o, lse = flash_attention_fwd(q, k, v, kb, causal, scale)
     delta = (do * o).sum(-1)
     qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
 
+    def library(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask,
+                                              is_causal=causal)
+
     def library_fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        return torch.autograd.grad(out, (qg, kg, vg), do)
+        return torch.autograd.grad(library(qg, kg, vg), (qg, kg, vg), do)
 
     plain_grad = _events_ms(lambda: flash_attention_grad_plain(
-        q, k, v, None, lse, do, delta, True, scale))
+        q, k, v, kb, lse, do, delta, causal, scale))
     lib_fwd_bwd = _events_ms(library_fwd_bwd)
-    pairs = t * (t + 1) // 2  # the causal half the kernels compute
+    # the causal half the kernels compute, or every (query, key) pair
+    pairs = t * (t + 1) // 2 if causal else t * t
     row = 4 * bh * t * d  # bytes of one [BH, T, d] operand
+    bias = 0 if causal else 4 * bh * t  # the key bias (and dkbias) bytes
     specs = (
         ("flash_attention_fwd",
-         lambda: flash_attention_fwd(q, k, v, None, True, scale),
-         lambda: flash_attention_plain(q, k, v, None, True, scale),
-         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-         4 * row + 4 * bh * t, 4 * bh * pairs * d),
+         lambda: flash_attention_fwd(q, k, v, kb, causal, scale),
+         lambda: flash_attention_plain(q, k, v, kb, causal, scale),
+         lambda: library(q, k, v),
+         4 * row + 4 * bh * t + bias, 4 * bh * pairs * d),
         ("flash_attention_dq",
-         lambda: flash_attention_dq(q, k, v, None, lse, do, delta, True,
+         lambda: flash_attention_dq(q, k, v, kb, lse, do, delta, causal,
                                        scale), None, None,
-         5 * row + 8 * bh * t, 6 * bh * pairs * d),
+         5 * row + 8 * bh * t + bias, 6 * bh * pairs * d),
         ("flash_attention_dkv",
-         lambda: flash_attention_dkv(q, k, v, None, lse, do, delta, True,
+         lambda: flash_attention_dkv(q, k, v, kb, lse, do, delta, causal,
                                         scale), None, None,
-         6 * row + 8 * bh * t, 8 * bh * pairs * d),
+         6 * row + 8 * bh * t + 2 * bias, 8 * bh * pairs * d),
     )
     out = {}
     for name, kern, plain, lib, nbytes, flops in specs:
         b, fl = _bound_ms(nbytes, flops)
         out[name] = dict(
-            shape="q, k, v [%d, %d, %d], causal%s" % (
-                bh, t, d, "" if plain else
+            shape="q, k, v [%d, %d, %d], %s%s" % (
+                bh, t, d, "causal" if causal else "key-padding bias",
+                "" if plain else
                 "; plain_ms is the plain backward (dq, dk and dv together), "
                 "library_ms scaled_dot_product_attention forward and "
                 "backward"),
@@ -1009,11 +1154,21 @@ def _expected_train_launches(main):
     """Kernel launches per training step, read off the program: each
     fused op launches its kernel once, and its grad op once more (the
     grad re-runs the forward rule under torch.func.vjp); the linear
-    cross entropy's grad also launches dx and dw, and fused_attention's
-    grad dq and dk/dv.  In the training programs every layer_norm is the
-    kernel form (last axis, Scale and Bias) and no fused_attention has a
-    QStart, a window or segment ids."""
-    ops = [op.type for op in main.global_block().ops]
+    cross entropy's grad also launches dx and dw, fused_attention's grad
+    dq and dk/dv, and the grad of a softmax_with_cross_entropy of the
+    kernel form the softmax cross-entropy backward.  In the training
+    programs every layer_norm is the kernel form (last axis, Scale and
+    Bias) and no fused_attention has a QStart, a window or segment
+    ids."""
+    from paddle_tpu_torch.ops.math_ops import softmax_xent_kernel_form
+
+    block = main.global_block()
+    ops = [op.type for op in block.ops]
+    sxent = [op.type for op in block.ops
+             if op.type.startswith("softmax_with_cross_entropy")
+             and softmax_xent_kernel_form(
+                 op.attrs.get("__fwd_attrs__", op.attrs),
+                 len(block.vars[op.inputs["Logits"][0]].shape))]
     return {
         "matmul_bias_act": ops.count("fc") + ops.count("fc_grad"),
         "fused_add_layer_norm": (ops.count("fused_residual_ln")
@@ -1031,19 +1186,25 @@ def _expected_train_launches(main):
         "flash_attention_dkv": ops.count("fused_attention_grad"),
         "matmul_swiglu": (ops.count("fused_swiglu")
                           + ops.count("fused_swiglu_grad")),
+        "softmax_xent_fwd": len(sxent),
+        "softmax_xent_bwd": sxent.count("softmax_with_cross_entropy_grad"),
     }
 
 
 def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
                    first_range, per_step, profile_dir, profile_name,
-                   steps=TRAIN_STEPS, dropout=True):
+                   steps=TRAIN_STEPS, dropout=True, loss_parts=None):
     """One training path on the card: one warm-up step (its loss within
     `first_range`), then `steps` timed steps with every launch count
     reset just before and read just after and held to `per_step` times
     the steps; then the same step twice from one saved state (kept on
     the host), bit for bit, and, for a path with `dropout`, a step
-    checking every dropout_grad against its forward op's mask.  Prints
-    the path's line and returns the launch counts."""
+    checking every dropout_grad against its forward op's mask.  fetch[1]
+    is the step's token count, held to `n_tok`, unless `loss_parts`
+    names fetch[1:] as parts of the loss (BERT's MLM and NSP losses),
+    which are then printed.  Prints the path's line (tokens/s counts
+    `n_tok` a step, examples/s the batch's rows) and returns the launch
+    counts."""
     import numpy as np
     import torch
 
@@ -1064,14 +1225,19 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
         for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss, tok = exe.run(main, feed=batch, fetch_list=fetch)
+            out = exe.run(main, feed=batch, fetch_list=fetch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            losses.append(float(loss.sum()))
-            assert float(tok.sum()) == n_tok
+            losses.append(float(out[0].sum()))
+            if loss_parts is None:
+                assert float(out[1].sum()) == n_tok
+            else:
+                parts = [float(v.sum()) for v in out[1:]]
         launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
         peak = torch.cuda.max_memory_allocated()
         assert all(np.isfinite(losses)), losses
+        if loss_parts:
+            assert all(np.isfinite(parts)), parts
         for name, n in per_step.items():
             assert launches[name] == n * steps, (
                 "launch count", label, name, launches[name], n, steps)
@@ -1124,14 +1290,18 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
                                              fetch_list=fetch), profile_dir,
                              name=profile_name)
     p50 = sorted(times)[len(times) // 2]
-    print("trained %s %d steps: step p50 %.3f ms, mean %.3f ms; %.1f target "
-          "tokens/s (%d non-pad target tokens a step), %.1f target rows/s; "
-          "losses %s (first %.4f); peak memory %.2f GB; launches per step %s; "
-          "one step from a saved state twice: bit-equal loss and %d updated "
-          "state tensors; %d dropout_grad ops redrew their forward masks" % (
+    examples = len(next(iter(batch.values())))
+    print("trained %s %d steps: step p50 %.3f ms, mean %.3f ms; %.1f "
+          "tokens/s (%d a step), %.1f rows/s, %.1f examples/s; losses %s "
+          "(first %.4f)%s; peak memory %.2f GB; launches per step %s; one "
+          "step from a saved state twice: bit-equal loss and %d updated state "
+          "tensors; %d dropout_grad ops redrew their forward masks" % (
               label, steps, p50 * 1e3, sum(times) / len(times) * 1e3,
-              n_tok / p50, n_tok, rows / p50,
-              json.dumps([round(v, 6) for v in losses]), first, peak / 1e9,
+              n_tok / p50, n_tok, rows / p50, examples / p50,
+              json.dumps([round(v, 6) for v in losses]), first,
+              "; last step's %s" % ", ".join(
+                  "%s %.6f" % kv for kv in zip(loss_parts, parts))
+              if loss_parts else "", peak / 1e9,
               json.dumps({k: v // steps for k, v in launches.items()}),
               moved, len(names) // 3))
     return launches
@@ -1155,7 +1325,8 @@ def train_transformer_base(dev, profile_dir=None):
                         "fused_layer_norm": 0, "flash_attention_fwd": 0,
                         "flash_attention_dq": 0,
                         "flash_attention_dkv": 0,
-                        "matmul_swiglu": 0}, per_step
+                        "matmul_swiglu": 0, "softmax_xent_fwd": 0,
+                        "softmax_xent_bwd": 0}, per_step
     batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
     return _train_on_card(
         "Transformer-base (batch %d x %d)" % (TRAIN_BATCH, TRAIN_LEN), main,
@@ -1184,7 +1355,8 @@ def train_gpt2_small(dev, profile_dir=None):
                         "fused_layer_norm": 2, "flash_attention_fwd": 24,
                         "flash_attention_dq": 12,
                         "flash_attention_dkv": 12,
-                        "matmul_swiglu": 0}, per_step
+                        "matmul_swiglu": 0, "softmax_xent_fwd": 0,
+                        "softmax_xent_bwd": 0}, per_step
     batch = gpt2.make_fake_lm_batch(GPT2_BATCH, GPT2_LEN, hp, seed=0)
     ln_v = math.log(hp.vocab_size)
     return _train_on_card(
@@ -1216,7 +1388,8 @@ def train_tinyllama(dev, profile_dir=None):
                         "fused_layer_norm": 2, "flash_attention_fwd": 44,
                         "flash_attention_dq": 22,
                         "flash_attention_dkv": 22,
-                        "matmul_swiglu": 44}, per_step
+                        "matmul_swiglu": 44, "softmax_xent_fwd": 0,
+                        "softmax_xent_bwd": 0}, per_step
     batch = gpt2.make_fake_lm_batch(LLAMA_BATCH, LLAMA_LEN, hp, seed=0)
     ln_v = math.log(hp.vocab_size)
     return _train_on_card(
@@ -1228,8 +1401,9 @@ def train_tinyllama(dev, profile_dir=None):
 
 def _card_matches_cpu(label, main, startup, fetch, batch, must_launch):
     """A narrow program trained 3 steps from the same weights on the card
-    and on the CPU plain path: losses agree to 1e-5 relative, every
-    launch count is 3 steps of what the program implies, and each of
+    and on the CPU plain path: every fetch (the loss, and BERT's MLM and
+    NSP losses or the token count) agrees to 1e-5 relative, every launch
+    count is 3 steps of what the program implies, and each of
     `must_launch` launched."""
     import numpy as np
 
@@ -1250,9 +1424,8 @@ def _card_matches_cpu(label, main, startup, fetch, batch, must_launch):
                 for n, w in weights.items():
                     scope.set(n, w.to(place.torch_device()))
             kernels.reset_launch_counts()
-            losses[kind] = [float(exe.run(main, feed=batch,
-                                          fetch_list=[fetch[0]])[0].sum())
-                            for _ in range(3)]
+            losses[kind] = [[float(v.sum()) for v in exe.run(
+                main, feed=batch, fetch_list=fetch)] for _ in range(3)]
     launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     want = _expected_train_launches(main)
     for name, n in want.items():
@@ -1260,15 +1433,19 @@ def _card_matches_cpu(label, main, startup, fetch, batch, must_launch):
     assert all(launched[n] for n in must_launch), launched
     assert np.isfinite(losses["cuda"]).all()
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
-    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
-                                                   losses["cpu"]))
+    err = max(abs(a - b) / abs(b) for x, y in zip(losses["cuda"],
+                                                   losses["cpu"])
+              for a, b in zip(x, y))
     print("narrow %s trained 3 steps on the card vs the CPU plain path: "
           "losses %s vs %s, max relative difference %.3g, launches %s" % (
               label, losses["cuda"], losses["cpu"], err, json.dumps(launched)))
 
 
-def train_card_matches_cpu(dev):
-    """A narrow WMT Transformer (2+2 layers, d_model 64, dropout 0)."""
+def train_card_matches_cpu(dev, fused_attn=False):
+    """A narrow WMT Transformer (2+2 layers, dropout 0): d_model 64 with
+    4 heads, or with `fused_attn` d_model 128 with 2 heads of 64 (the
+    flash-attention kernels' width), whose attention is the flash
+    kernels' causal and key-bias forms."""
     from paddle_tpu_torch.models import transformer as tfm
 
     class Narrow(tfm.ModelHyperParams):
@@ -1276,13 +1453,119 @@ def train_card_matches_cpu(dev):
         max_length, d_model, d_inner_hid, n_head, n_layer = 64, 64, 256, 4, 2
         dropout = 0.0
 
+    class NarrowFused(Narrow):
+        d_model, n_head, fused_attn = 128, 2, True
+
+    hp = NarrowFused if fused_attn else Narrow
     main, startup, _, fetch = tfm.wmt_transformer_program(
-        Narrow, src_len=16, trg_len=16)
+        hp, src_len=16, trg_len=16)
     startup.random_seed = 7
-    _card_matches_cpu("WMT", main, startup, fetch,
-                      tfm.make_fake_batch(8, 16, 16, Narrow, seed=3),
-                      ("matmul_bias_act", "fused_add_layer_norm",
-                       "linear_xent_fwd", "linear_xent_dx", "linear_xent_dw"))
+    must = ("matmul_bias_act", "fused_add_layer_norm", "linear_xent_fwd",
+            "linear_xent_dx", "linear_xent_dw")
+    if fused_attn:
+        must += GPT2_KERNELS[1:]  # flash attention forward, dq, dk/dv
+    _card_matches_cpu("WMT" + (" fused_attn" if fused_attn else ""), main,
+                      startup, fetch,
+                      tfm.make_fake_batch(8, 16, 16, hp, seed=3), must)
+
+
+def train_transformer_base_fused_attn(dev):
+    """WMT's hp.fused_attn path at Transformer-base's widths, batch 64 x
+    64, 1 + 3 steps through _train_on_card: every attention on the flash
+    kernels (the encoder's and the cross attention's source key bias,
+    the decoder's causal form with the target key bias), per step
+    forward 36, dq 18 and dk/dv 18 launches beside B2, B4 and B5."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    class Fused(tfm.ModelHyperParams):
+        fused_attn = True
+
+    main, startup, _, fetch = tfm.wmt_transformer_program(
+        Fused, src_len=TRAIN_LEN, trg_len=TRAIN_LEN)
+    startup.random_seed = main.random_seed = 4322
+    per_step = _expected_train_launches(main)
+    assert per_step == {"matmul_bias_act": 48, "fused_add_layer_norm": 60,
+                        "linear_xent_fwd": 2, "linear_xent_dx": 1,
+                        "linear_xent_dw": 1, "flash_attention_qvec": 0,
+                        "fused_layer_norm": 0, "flash_attention_fwd": 36,
+                        "flash_attention_dq": 18,
+                        "flash_attention_dkv": 18,
+                        "matmul_swiglu": 0, "softmax_xent_fwd": 0,
+                        "softmax_xent_bwd": 0}, per_step
+    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, Fused,
+                                seed=0)
+    return _train_on_card(
+        "Transformer-base, fused_attn (batch %d x %d)" % (TRAIN_BATCH,
+                                                          TRAIN_LEN),
+        main, startup, fetch, batch, float(batch["lbl_weight"].sum()),
+        TRAIN_ROWS, (8.0, 10.5), per_step, None, None, steps=3)
+
+
+def bert_base_config():
+    """BERT-base (BertConfig's defaults: google-research/bert
+    uncased_L-12_H-768_A-12, vocab 30522, hidden 768, 12 layers, 12
+    heads, intermediate 3072, 512 positions, dropout 0.1) with its
+    attention on the flash kernels (fused_attn)."""
+    from paddle_tpu_torch.models import bert
+
+    class BertBase(bert.BertConfig):
+        fused_attn = True
+
+    return BertBase
+
+
+def train_bert_base(dev, profile_dir=None):
+    """The BERT pretraining path: bert_pretrain_program(bert_base_config(),
+    seq_len=128, lr=1e-4) — MLM over every position, NSP on [CLS], Adam —
+    on make_fake_bert_batch(32, 128, seed=0) (ragged lengths in [64, 128],
+    so the key bias masks pads), random weights from a seed, through
+    _train_on_card.  The first loss must be near ln 30522 + ln 2 = 11.02
+    (random weights at std 0.02 give near-uniform logits)."""
+    import math
+
+    from paddle_tpu_torch.models import bert
+
+    hp = bert_base_config()
+    main, startup, _, fetch = bert.bert_pretrain_program(hp, seq_len=BERT_LEN,
+                                                         lr=1e-4)
+    startup.random_seed = main.random_seed = 2026
+    per_step = _expected_train_launches(main)
+    assert per_step == {"matmul_bias_act": 54, "fused_add_layer_norm": 48,
+                        "linear_xent_fwd": 2, "linear_xent_dx": 1,
+                        "linear_xent_dw": 1, "flash_attention_qvec": 0,
+                        "fused_layer_norm": 4, "flash_attention_fwd": 24,
+                        "flash_attention_dq": 12,
+                        "flash_attention_dkv": 12,
+                        "matmul_swiglu": 0, "softmax_xent_fwd": 2,
+                        "softmax_xent_bwd": 1}, per_step
+    batch = bert.make_fake_bert_batch(BERT_BATCH, BERT_LEN, hp, seed=0)
+    ln = math.log(hp.vocab_size) + math.log(2)
+    return _train_on_card(
+        "BERT-base (batch %d x %d)" % (BERT_BATCH, BERT_LEN), main, startup,
+        fetch, batch, BERT_ROWS, BERT_ROWS, (ln - 0.5, ln + 0.5), per_step,
+        profile_dir, "training_bert", loss_parts=("mlm", "nsp"))
+
+
+def bert_train_card_matches_cpu(dev):
+    """A narrow BERT (vocab 1000, d_model 256, 4 heads of 64, 2 layers,
+    seq 128, dropout 0, fused_attn, ragged lengths): every kernel of the
+    BERT training path, the softmax cross-entropy kernels included; the
+    total, MLM and NSP losses agree."""
+    from paddle_tpu_torch.models import bert
+
+    class Narrow(bert.BertConfig):
+        vocab_size, max_position, d_model, d_inner_hid = 1000, 128, 256, 1024
+        n_head, n_layer, dropout, fused_attn = 4, 2, 0.0, True
+
+    main, startup, _, fetch = bert.bert_pretrain_program(Narrow, seq_len=128)
+    startup.random_seed = 13
+    _card_matches_cpu("BERT", main, startup, fetch,
+                      bert.make_fake_bert_batch(8, 128, Narrow, seed=3),
+                      GPT2_KERNELS + ("matmul_bias_act",
+                                      "fused_add_layer_norm",
+                                      "linear_xent_fwd", "linear_xent_dx",
+                                      "linear_xent_dw", "softmax_xent_fwd",
+                                      "softmax_xent_bwd"))
 
 
 def gpt2_train_card_matches_cpu(dev):
@@ -1384,6 +1667,12 @@ def main():
     torch.cuda.empty_cache()
     trained_llama = train_tinyllama(dev, profile_dir)
     llama_train_card_matches_cpu(dev)
+    torch.cuda.empty_cache()
+    trained_bert = train_bert_base(dev, profile_dir)
+    bert_train_card_matches_cpu(dev)
+    torch.cuda.empty_cache()
+    trained_wmt_fused = train_transformer_base_fused_attn(dev)
+    train_card_matches_cpu(dev, fused_attn=True)
 
     # launches: each path's run, counted from 0 just before it and read
     # just after
@@ -1392,7 +1681,9 @@ def main():
         by_path = {"serving": served[name], "wmt_training": trained[name],
                    "gpt2_training": trained_gpt2[name],
                    "llama_serving": served_llama[name],
-                   "llama_training": trained_llama[name]}
+                   "llama_training": trained_llama[name],
+                   "bert_training": trained_bert[name],
+                   "wmt_fused_attn_training": trained_wmt_fused[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),

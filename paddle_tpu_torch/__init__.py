@@ -10,8 +10,9 @@ only: never jax, and nothing of ``paddle_tpu``.
     exe = fluid.Executor()               # CUDAPlace(0); raises with no GPU
     exe = fluid.Executor(fluid.CPUPlace())
 
-The port grows slice by slice; this slice covers the continuous-batching
-serving path of GPT-2 (``serving.ServingEngine``).
+The port grows slice by slice: continuous-batching serving of GPT-2
+(``serving.ServingEngine``, the modern-decoder options included) and
+training of the WMT Transformer, GPT-2 and BERT (``models``).
 """
 
 from . import ops  # noqa: F401  (registers the op lowerings)

@@ -31,12 +31,19 @@ from .matmul_epilogue import (
     mm_act,
 )
 from .matmul_swiglu import matmul_swiglu, matmul_swiglu_plain
+from .softmax_xent import (
+    fused_softmax_xent,
+    softmax_xent_bwd,
+    softmax_xent_fwd,
+    softmax_xent_grad_plain,
+    softmax_xent_plain,
+)
 
 # every kernel wrapper, each with its launch count
 KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
            flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
-           matmul_swiglu)
+           matmul_swiglu, softmax_xent_fwd, softmax_xent_bwd)
 
 
 def reset_launch_counts():

@@ -51,6 +51,8 @@ SIGNATURES = {
     "ptt_flash_attention_fwd": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     "ptt_flash_attention_dq": (_P,) * 8 + (_I,) * 5 + (_F, _P),
     "ptt_flash_attention_dkv": (_P,) * 10 + (_I,) * 5 + (_F, _P),
+    "ptt_softmax_xent_fwd": (_P,) * 3 + (_I, _I, _P),
+    "ptt_softmax_xent_bwd": (_P,) * 4 + (_I, _I, _P),
 }
 
 _lib = None

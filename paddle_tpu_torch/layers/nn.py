@@ -1,6 +1,6 @@
 """Neural-net layers (the counterpart of ``paddle_tpu/layers/nn.py``):
 the builders the serving slice and the GPT-2 (modern-decoder options
-included) and WMT Transformer programs call.  Each
+included), WMT Transformer and BERT pretraining programs call.  Each
 appends ops through LayerHelper exactly as the reference does, so the
 same calls generate the same var and parameter names."""
 
@@ -15,8 +15,8 @@ __all__ = [
     "elementwise_div", "elementwise_min",
     "elementwise_pow", "gather", "fused_attention", "slot_cache_write",
     "dropout", "softmax", "softmax_with_cross_entropy", "label_smooth",
-    "reduce_sum", "unsqueeze", "one_hot", "scale", "clip", "swish", "expand",
-    "rotary_embed",
+    "reduce_sum", "mean", "squeeze", "unsqueeze", "one_hot",
+    "scale", "clip", "swish", "expand", "rotary_embed",
 ]
 
 
@@ -269,6 +269,15 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     helper.append_op("reduce_sum", inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs=attrs)
     return out
+
+
+def mean(x, name=None):
+    """The mean of every element, as a [1] tensor."""
+    return _simple("mean", x, name=name)
+
+
+def squeeze(input, axes, name=None):
+    return _simple("squeeze2", input, {"axes": list(axes)}, name)
 
 
 def unsqueeze(input, axes, name=None):

@@ -1,17 +1,19 @@
 """Elementwise / activation / matmul / reduction / loss op lowerings
 (the counterpart of ``paddle_tpu/ops/math_ops.py``), limited to the ops
-the serving slice and the GPT-2 (with its modern-decoder options) and
-WMT Transformer training steps run.  ``mul`` and ``matmul`` are plain
-products outside any kernel of the reference, so they stay
+the serving slice and the GPT-2 (with its modern-decoder options), WMT
+Transformer and BERT pretraining steps run.  ``mul`` and ``matmul`` are
+plain products outside any kernel of the reference, so they stay
 ``torch.matmul`` here too.
 ``fused_linear_xent`` sits on the hand-written linear cross-entropy
-kernels (``kernels/linear_xent.py``).
+kernels (``kernels/linear_xent.py``), the hard-label 2-D form of
+``softmax_with_cross_entropy`` on the softmax cross-entropy kernels
+(``kernels/softmax_xent.py``).
 """
 
 import torch
 
 from ..core.registry import register
-from ..kernels import fused_linear_xent
+from ..kernels import fused_linear_xent, fused_softmax_xent
 from .common import bcast_y
 
 
@@ -78,6 +80,12 @@ def _reduce(fn):
 
 
 register("reduce_sum")(_reduce(torch.sum))
+register("reduce_mean")(_reduce(torch.mean))
+
+
+@register("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].mean().reshape(1)]}
 
 
 @register("softmax")
@@ -103,13 +111,26 @@ def _label_smooth(ctx, ins, attrs):
     return {"Out": [(1 - eps) * x + eps * prior]}
 
 
+def softmax_xent_kernel_form(attrs, logits_dim):
+    """Whether softmax_with_cross_entropy runs on fused_softmax_xent:
+    hard labels, no ignore_index, 2-D logits (the reference's dispatch)."""
+    return (not attrs.get("soft_label", False)
+            and attrs.get("ignore_index", -100) < 0 and logits_dim == 2)
+
+
 @register("softmax_with_cross_entropy", no_grad_inputs=("Label",))
 def _softmax_xent(ctx, ins, attrs):
-    """The reference's dense form (its hard-label kernel form,
-    fused_softmax_xent, is still to be ported: ROADMAP B7).  The WMT
-    builder emits the soft-label form, which its fuse passes fold into
-    fused_linear_xent before the program runs."""
+    """The kernel form (BERT's NSP head) goes to fused_softmax_xent, as
+    in the reference: its kernels on CUDA tensors, Softmax computed
+    beside them.  Every other form is the reference's dense one; the WMT
+    builder's soft-label form and the LM heads' 3-D form are folded into
+    fused_linear_xent by the fuse passes before the program runs."""
     logits, label = ins["Logits"][0], ins["Label"][0]
+    if softmax_xent_kernel_form(attrs, logits.dim()):
+        loss = fused_softmax_xent(logits.contiguous(),
+                                  label.reshape(-1).long().contiguous())
+        return {"Softmax": [torch.softmax(logits, dim=-1)],
+                "Loss": [loss.to(logits.dtype)]}
     logp = torch.log_softmax(logits, dim=-1)
     if attrs.get("soft_label", False):
         loss = -(label * logp).sum(-1, keepdim=True)
@@ -174,6 +195,13 @@ def _fused_linear_xent(ctx, ins, attrs):
 @register("relu")
 def _relu(ctx, ins, attrs):
     return {"Out": [torch.relu(ins["X"][0])]}
+
+
+@register("tanh")
+def _tanh(ctx, ins, attrs):
+    """fc(act="tanh") emits it (BERT's pooler, before fc_fuse_pass folds
+    it into the fc op)."""
+    return {"Out": [torch.tanh(ins["X"][0])]}
 
 
 @register("gelu")

@@ -1,8 +1,9 @@
 """Tensor creation / manipulation op lowerings (the counterpart of
 ``paddle_tpu/ops/tensor_ops.py``), limited to the ops the serving slice,
-the GPT-2 programs (grouped-query attention's ``expand`` included) and
-the WMT Transformer's training step run.  Random ops draw from the run's
-seeded ``torch.Generator`` (``LowerCtx.rng``).
+the GPT-2 programs (grouped-query attention's ``expand`` included), the
+WMT Transformer's training step and BERT pretraining (``squeeze2``) run.
+Random ops draw from the run's seeded ``torch.Generator``
+(``LowerCtx.rng``).
 """
 
 import numpy as np
@@ -84,6 +85,22 @@ def _transpose(ctx, ins, attrs):
     return {"Out": [ins["X"][0].permute(*attrs["axis"])]}
 
 
+@register("squeeze2")
+def _squeeze(ctx, ins, attrs):
+    """Drop unit axes: every one for empty `axes`, else those listed
+    (negative ones wrap); a listed axis that is not of size 1 raises,
+    as jnp.squeeze does in the reference."""
+    x = ins["X"][0]
+    axes = attrs.get("axes", [])
+    if not axes:
+        return {"Out": [x.squeeze()]}
+    dims = sorted({int(a) % x.dim() for a in axes})
+    if any(x.shape[d] != 1 for d in dims):
+        raise ValueError("squeeze: axes %s of shape %s are not all of size 1"
+                         % (list(axes), tuple(x.shape)))
+    return {"Out": [x.squeeze(tuple(dims))]}
+
+
 @register("unsqueeze2")
 def _unsqueeze(ctx, ins, attrs):
     x = ins["X"][0]
@@ -123,16 +140,42 @@ def _gather(ctx, ins, attrs):
     return {"Out": [out.reshape(shape)]}
 
 
+class _Embedding(torch.autograd.Function):
+    """Embedding rows whose backward sums each row's gradients in one
+    fixed order on every device, so a training step is bit-reproducible
+    from the same state: ``index_put`` with ``accumulate`` sorts the ids
+    and sums each run of equal ids in order.  PyTorch's own CUDA
+    backward of ``F.embedding`` is not reproducible once more than 3072
+    ids hold a row thousands of times (BERT's 2-row segment table over
+    32 x 128 tokens: two runs differed by 6e-5 on an H100), and
+    ``index_select``'s backward scatters with float atomics."""
+
+    @staticmethod
+    def forward(ids, w):
+        return torch.nn.functional.embedding(ids, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ids, w = inputs
+        ctx.save_for_backward(ids)
+        ctx.rows = w.shape[0]
+
+    @staticmethod
+    def backward(ctx, dout):
+        ids, = ctx.saved_tensors
+        h = dout.shape[-1]
+        dw = dout.new_zeros((ctx.rows, h)).index_put(
+            (ids.reshape(-1),), dout.reshape(-1, h), accumulate=True)
+        return None, dw
+
+
 @register("lookup_table", no_grad_inputs=("Ids",))
 def _lookup_table(ctx, ins, attrs):
-    """Embedding rows.  ``F.embedding`` rather than ``index_select``: its
-    CUDA backward sums each row's gradients in a sorted, fixed order
-    (index_select's scatters with float atomics), so a training step is
-    bit-reproducible from the same state."""
+    """Embedding rows, with a reproducible backward (``_Embedding``)."""
     w, ids = ins["W"][0], ins["Ids"][0].long()
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids[..., 0]
-    out = torch.nn.functional.embedding(ids, w)
+    out = _Embedding.apply(ids, w)
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out * (ids != pad).to(out.dtype)[..., None]

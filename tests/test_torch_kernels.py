@@ -34,6 +34,7 @@ from paddle_tpu_torch.kernels import (
     fused_add_layer_norm,
     fused_layer_norm,
     fused_linear_xent,
+    fused_softmax_xent,
     layer_norm_plain,
     linear_xent_dw,
     linear_xent_dx,
@@ -44,6 +45,10 @@ from paddle_tpu_torch.kernels import (
     matmul_bias_act_plain,
     matmul_swiglu,
     matmul_swiglu_plain,
+    softmax_xent_bwd,
+    softmax_xent_fwd,
+    softmax_xent_grad_plain,
+    softmax_xent_plain,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -177,12 +182,14 @@ def _calls(device):
     yield lambda: flash_attention_dq(q, q, q, kb, lse, q, lse, True)
     yield lambda: flash_attention_dkv(q, q, q, None, lse, q, lse, False)
     yield lambda: matmul_swiglu(x, w, w)
+    yield lambda: softmax_xent_fwd(x, lbl)
+    yield lambda: softmax_xent_bwd(x, lbl, row)
 
 
 _LAUNCHED = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
              linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
              flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
-             matmul_swiglu)
+             matmul_swiglu, softmax_xent_fwd, softmax_xent_bwd)
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -529,3 +536,98 @@ def test_matmul_swiglu_kernel_path_checks(monkeypatch):
     assert launched == [("ptt_matmul_swiglu", (5, 7, 12))]
     assert out.shape == (5, 7) and out.grad_fn is not None
     assert matmul_swiglu.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# fused_softmax_xent: forward and backward against the Pallas kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("R,C", [
+    (32, 2),      # the BERT path's NSP head
+    (300, 1001),  # the kernel's warp form at its widest share (32 a lane)
+    (7, 1500),    # the kernel's row form, R not a multiple of 8
+])
+def test_softmax_xent_matches_reference_kernel(R, C):
+    """The plain versions and the autograd wrapper (forward, and dx under
+    torch.func.vjp) against the reference's fused_softmax_xent (Pallas
+    interpret mode) under jax.vjp, with labels -1 and C in the batch (no
+    column: the loss is the lse, the one-hot row zero).  rtol 1e-5, atol
+    1e-6."""
+    rng = np.random.RandomState(31)
+    x = (rng.randn(R, C) * 3).astype("float32")
+    lbl = rng.randint(0, C, (R,)).astype("int64")
+    lbl[0], lbl[-1] = -1, C
+    dy = rng.rand(R, 1).astype("float32")
+    tol = dict(rtol=1e-5, atol=1e-6)
+
+    loss_r, vjp = jax.vjp(
+        lambda a: pk.fused_softmax_xent(a, jnp.asarray(lbl, "int32")),
+        jnp.asarray(x))
+    dx_r, = vjp(jnp.asarray(dy))
+    lg = x.astype("float64")
+    lse = np.log(np.exp(lg - lg.max(-1, keepdims=True)).sum(-1)) + lg.max(-1)
+    np.testing.assert_allclose(np.asarray(loss_r)[[0, -1], 0], lse[[0, -1]],
+                               rtol=1e-6)
+
+    loss = softmax_xent_plain(_t(x), _t(lbl))
+    assert loss.shape == (R, 1) and loss.dtype == torch.float32
+    np.testing.assert_allclose(loss.numpy(), np.asarray(loss_r), **tol)
+    dx = softmax_xent_grad_plain(_t(x), _t(lbl), _t(dy))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_r), **tol)
+
+    # [R, 1] labels, as the op feeds them before its reshape
+    out, vjp_t = torch.func.vjp(
+        lambda a: fused_softmax_xent(a, _t(lbl[:, None])), _t(x))
+    dx_t, = vjp_t(_t(dy))
+    np.testing.assert_allclose(out.numpy(), np.asarray(loss_r), **tol)
+    np.testing.assert_allclose(dx_t.numpy(), np.asarray(dx_r), **tol)
+    np.testing.assert_array_equal(dx_t.numpy(), dx.numpy())
+
+
+@pytest.mark.parametrize("logits,labels,match", [
+    (torch.zeros(2, 3, 4), torch.zeros(6, dtype=torch.long), "2-D"),
+    (torch.zeros(4, 3), torch.zeros(3, dtype=torch.long), r"\[rows\]=4"),
+    (torch.zeros(4, 3), torch.zeros(4, 2, dtype=torch.long), r"\[rows\]=4"),
+    (torch.zeros(4, 3), torch.zeros(1, 4, 1, dtype=torch.long),
+     r"\[rows\]=4"),
+    (torch.zeros(4, 3), torch.zeros(4), "integers"),
+    (torch.zeros(4, 3), torch.zeros(4, dtype=torch.bool), "integers"),
+])
+def test_softmax_xent_shape_contract_is_loud(logits, labels, match):
+    """The reference's _sxent_validate errors, on any device."""
+    with pytest.raises(ValueError, match=match):
+        fused_softmax_xent(logits, labels)
+
+
+def test_softmax_xent_kernel_path_checks(monkeypatch):
+    """On the kernel path each wrapper refuses bf16, labels that are not
+    contiguous int64 and a dy of the wrong size, and launches with (R, C)
+    into fresh outputs; the autograd wrapper's backward launches the
+    backward kernel, counted once."""
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    launched = []
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *args: launched.append((name, args[-2:])))
+    x, lbl = torch.ones(5, 3), torch.zeros(5, dtype=torch.long)
+    with pytest.raises(TypeError, match="float32"):
+        softmax_xent_fwd(x.bfloat16(), lbl)
+    with pytest.raises(TypeError, match="int64"):
+        softmax_xent_fwd(x, lbl.int())
+    with pytest.raises(TypeError, match="int64"):
+        softmax_xent_fwd(x, torch.zeros(10, dtype=torch.long)[::2])
+    with pytest.raises(ValueError, match="shapes"):
+        softmax_xent_bwd(x, lbl, torch.ones(4, 1))
+    with pytest.raises(ValueError, match="shapes"):
+        softmax_xent_fwd(torch.ones(5, 0), lbl)
+    assert launched == []
+    fwd0, bwd0 = softmax_xent_fwd.launches, softmax_xent_bwd.launches
+    loss = softmax_xent_fwd(x, lbl)
+    assert loss.shape == (5, 1) and launched == [("ptt_softmax_xent_fwd",
+                                                  (5, 3))]
+    xg = x.clone().requires_grad_()
+    out = fused_softmax_xent(xg, lbl[:, None])
+    (dx,) = torch.autograd.grad(out.sum(), (xg,))
+    assert dx.shape == (5, 3)
+    assert [n for n, _ in launched] == ["ptt_softmax_xent_fwd"] * 2 + [
+        "ptt_softmax_xent_bwd"]
+    assert softmax_xent_fwd.launches == fwd0 + 2
+    assert softmax_xent_bwd.launches == bwd0 + 1

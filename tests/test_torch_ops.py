@@ -246,6 +246,39 @@ _CASES.update({
     "fused_swiglu_2d": ("fused_swiglu",
                         {"X": [_F(7, 6)], "GateW": [_F(6, 9)],
                          "UpW": [_F(6, 9)]}, {"x_num_col_dims": 1}, False),
+    "tanh": ("tanh", {"X": [_F(4, 7) * 2]}, {}, False),
+    "mean": ("mean", {"X": [_F(3, 4, 5)]}, {}, False),
+    "reduce_mean_all": ("reduce_mean", {"X": [_F(2, 3, 4)]},
+                        {"dim": [0], "keep_dim": True, "reduce_all": True},
+                        False),
+    "reduce_mean_dim": ("reduce_mean", {"X": [_F(2, 3, 4)]},
+                        {"dim": [-1, 0], "keep_dim": False,
+                         "reduce_all": False}, False),
+    "squeeze2": ("squeeze2", {"X": [_F(4, 1, 6)]}, {"axes": [1]}, True),
+    "squeeze2_negative": ("squeeze2", {"X": [_F(4, 6, 1)]}, {"axes": [-1]},
+                          True),
+    "squeeze2_every_unit_axis": ("squeeze2", {"X": [_F(1, 4, 1, 6)]},
+                                 {"axes": []}, True),
+    "squeeze2_two_axes": ("squeeze2", {"X": [_F(1, 4, 1)]}, {"axes": [0, 2]},
+                          True),
+    # the NSP head's form: the fused_softmax_xent path of both packages
+    # (the reference's dense branch on the CPU); labels inside [0, C)
+    "softmax_with_cross_entropy_hard_2d": (
+        "softmax_with_cross_entropy",
+        {"Logits": [_F(6, 5) * 3], "Label": [_I(5, 6, 1)]},
+        {"soft_label": False, "ignore_index": -100}, False),
+    "softmax_with_cross_entropy_hard_2d_flat_label": (
+        "softmax_with_cross_entropy",
+        {"Logits": [_F(6, 2) * 3], "Label": [_I(2, 6)]},
+        {"soft_label": False, "ignore_index": -100}, False),
+    "softmax_with_cross_entropy_ignore_index": (
+        "softmax_with_cross_entropy",
+        {"Logits": [_F(6, 5)], "Label": [_I(5, 6, 1)]},
+        {"soft_label": False, "ignore_index": 2}, False),
+    "softmax_with_cross_entropy_hard_3d": (
+        "softmax_with_cross_entropy",
+        {"Logits": [_F(2, 3, 5)], "Label": [_I(5, 2, 3, 1)]},
+        {"soft_label": False, "ignore_index": -100}, False),
     "adam": ("adam", {"Param": [_F(3, 4)], "Grad": [_F(3, 4)],
                       "Moment1": [_F(3, 4) * 0.1],
                       "Moment2": [np.abs(_F(3, 4)) * 0.1],
@@ -436,6 +469,41 @@ def test_layer_norm_dispatch(monkeypatch, shape, begin, scale, bias, kernel):
     assert calls == ([(int(np.prod(shape[:-1])), shape[-1])] if kernel else [])
 
 
+@pytest.mark.parametrize("shape,attrs,kernel", [
+    ((6, 2), {}, True),                       # the NSP head
+    ((6, 5), {"ignore_index": 2}, False),     # an ignore_index
+    ((2, 3, 5), {}, False),                   # 3-D logits
+])
+def test_softmax_with_cross_entropy_dispatch(monkeypatch, shape, attrs,
+                                             kernel):
+    """As in the reference: hard labels with no ignore_index over 2-D
+    logits go to fused_softmax_xent (its CUDA kernels on the card), every
+    other form is the dense branch."""
+    from paddle_tpu_torch.ops import math_ops
+
+    calls = []
+    real = math_ops.fused_softmax_xent
+
+    def spy(logits, labels):
+        calls.append((tuple(logits.shape), tuple(labels.shape)))
+        return real(logits, labels)
+
+    monkeypatch.setattr(math_ops, "fused_softmax_xent", spy)
+    ins = {"Logits": [_F(*shape)], "Label": [_I(shape[-1], *shape[:-1], 1)]}
+    ref, out = _run_both("softmax_with_cross_entropy", ins,
+                         dict({"soft_label": False, "ignore_index": -100},
+                              **attrs))
+    for slot in ref:
+        np.testing.assert_allclose(out[slot][0], ref[slot][0], **TOL)
+    assert calls == ([(shape, (shape[0],))] if kernel else [])
+
+
+def test_squeeze_of_a_non_unit_axis_raises():
+    with pytest.raises(ValueError, match="size 1"):
+        get_op("squeeze2").lower(LowerCtx(device="cpu"),
+                                 {"X": [torch.zeros(2, 3)]}, {"axes": [1]})
+
+
 def _grad_attrs(op_type, fwd_attrs, ins, out_slots, idx=7):
     """The bookkeeping attrs backward.py gives a grad op."""
     return {"__fwd_type__": op_type, "__fwd_attrs__": dict(fwd_attrs),
@@ -455,7 +523,13 @@ _GRAD_CASES = {
         "layer_norm", "layer_norm_axis1", "fused_attention_causal",
         "fused_attention_bias", "swish", "swish_beta", "expand",
         "expand_every_axis", "rotary_embed", "rotary_embed_pos",
-        "rotary_embed_pos_rows", "fused_swiglu", "fused_swiglu_2d")}
+        "rotary_embed_pos_rows", "fused_swiglu", "fused_swiglu_2d", "tanh",
+        "mean", "reduce_mean_all", "reduce_mean_dim", "squeeze2",
+        "squeeze2_negative", "squeeze2_every_unit_axis",
+        "softmax_with_cross_entropy_hard_2d",
+        "softmax_with_cross_entropy_hard_2d_flat_label",
+        "softmax_with_cross_entropy_ignore_index",
+        "softmax_with_cross_entropy_hard_3d")}
 _GRAD_CASES["elementwise_pow"] = ("elementwise_pow",
                                   {"X": [np.abs(_F(3)) + 0.5],
                                    "Y": [np.abs(_F(3)) + 0.5]},

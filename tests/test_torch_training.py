@@ -71,6 +71,28 @@ def test_wmt_program_and_startup_match_reference():
         p for p in p_main.global_block().all_parameters() if p.trainable])
 
 
+def test_wmt_fused_attn_program_matches_reference():
+    """hp.fused_attn: every attention is fused_attention (causal with the
+    target key bias in the decoder's self attention, the source key bias
+    elsewhere) and the dense masks reach it as rank-1 key biases."""
+    r_main, r_start, _, _ = ref_tfm.wmt_transformer_program(
+        _tiny(ref_tfm.ModelHyperParams, fused_attn=True), src_len=SRC,
+        trg_len=TRG)
+    p_main, p_start, _, _ = port_tfm.wmt_transformer_program(
+        _tiny(port_tfm.ModelHyperParams, fused_attn=True), src_len=SRC,
+        trg_len=TRG)
+    _assert_same_program(r_start, p_start)
+    _assert_same_program(r_main, p_main)
+    ops = p_main.global_block().ops
+    types = [o.type for o in ops]
+    assert "softmax" not in types and "matmul" not in types
+    fused = [o for o in ops if o.type == "fused_attention"]
+    assert len(fused) == 3 * 2  # encoder self; decoder self and cross
+    assert types.count("fused_attention_grad") == len(fused)
+    assert sum(o.attrs["causal"] for o in fused) == 2
+    assert all(o.inputs.get("Bias") for o in fused)
+
+
 def _train_reference(hp, lr, steps, batch):
     main, start, _, fetch = ref_tfm.wmt_transformer_program(
         hp, src_len=SRC, trg_len=TRG, learning_rate=lr, warmup_steps=2)
@@ -91,13 +113,24 @@ def _train_reference(hp, lr, steps, batch):
 def test_wmt_training_matches_reference_over_adam_steps():
     """Dropout 0, five Adam steps (noam warmup 2, so the parameters
     move) from the reference's startup arrays, carried over as numpy."""
+    _train_against_reference(fused_attn=False)
+
+
+def test_wmt_fused_attn_training_matches_reference_over_adam_steps():
+    """The same with hp.fused_attn: flash attention's causal and key-bias
+    forms in place of the batched matmul / softmax attention."""
+    _train_against_reference(fused_attn=True)
+
+
+def _train_against_reference(fused_attn):
     batch = ref_tfm.make_fake_batch(BATCH, SRC, TRG,
                                     _tiny(ref_tfm.ModelHyperParams), seed=1)
     init, r_losses, r_final = _train_reference(
-        _tiny(ref_tfm.ModelHyperParams, dropout=0.0), 0.005, 5, batch)
+        _tiny(ref_tfm.ModelHyperParams, dropout=0.0, fused_attn=fused_attn),
+        0.005, 5, batch)
     main, start, _, fetch = port_tfm.wmt_transformer_program(
-        _tiny(port_tfm.ModelHyperParams, dropout=0.0), src_len=SRC,
-        trg_len=TRG, learning_rate=0.005, warmup_steps=2)
+        _tiny(port_tfm.ModelHyperParams, dropout=0.0, fused_attn=fused_attn),
+        src_len=SRC, trg_len=TRG, learning_rate=0.005, warmup_steps=2)
     scope = ptt.Scope()
     exe = ptt.Executor(ptt.CPUPlace())
     with ptt.scope_guard(scope):
