@@ -11,10 +11,12 @@ In order, it:
    (torch, its CUDA, nvcc);
 2. builds the hand-written kernels from paddle_tpu_torch/kernels/csrc;
 3. holds each kernel against its plain PyTorch version on the card, at
-   the serving and training paths' shapes plus ragged ones (the softmax
-   cross entropy at BERT's NSP [32, 2] and MLM-wide [4096, 30522]), and
-   times kernel, plain version and one PyTorch library call with CUDA
-   events;
+   the serving, training and decode paths' shapes plus ragged ones (the
+   softmax cross entropy at BERT's NSP [32, 2] and MLM-wide [4096,
+   30522]; flash_attention_piece's forward at the chunked prefills'
+   shapes and its backward, with an lse cotangent, at ring-like ones;
+   flash_attention_qvec's backward at the serving shape), and times
+   kernel, plain version and one PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
    kernel's launch count reset just before and read just after; checks
@@ -77,7 +79,25 @@ In order, it:
 14. trains Transformer-base with hp.fused_attn (every attention on the
    flash kernels, causal and key-bias forms) 1 + 3 steps with the same
    checks, and a narrow fused_attn WMT config card vs CPU;
-15. prints the kernels line and, last, the result line.
+15. decodes GPT-2 small with the KV cache (gpt2_decode_step_program at
+   batch 4, t_max 1024, one token and 64 wide; 4 seeded prompts of 200
+   tokens): chunked prefill against one-token prefill (over a chunk and
+   a ragged one), cached greedy (56 new tokens) against greedy_generate
+   on gpt2_logits_program step by step over the first 16, seeded sampling (top-k 40, top-p 0.9) and beam 4 over 2 prompts
+   (programs at batch 8, the cache reorder every step), every run's
+   launches held to its program's (flash_attention_piece's forward 12
+   per wide step, flash_attention's 12 per one-token step); prints the
+   one-token step's p50 and decode tokens/s, the chunked prefill's
+   tokens/s and the beam step's p50 (with --profile,
+   chiprun_out/profile_decode.json); then a narrow GPT-2 decoded greedy,
+   sampled and by beam on the card and on the CPU, tokens equal and
+   logits within 1e-5 relative;
+16. decodes at TinyLlama-1.1B's widths (t_max 2048, batch 2, prompts of
+   256, chunks of 128, 32 new tokens, greedy) with the same checks (the
+   GQA fold puts flash_attention at Tq 8 with a key bias; with
+   --profile, chiprun_out/profile_decode_llama.json), and the narrow
+   modern config card vs CPU;
+17. prints the kernels line and, last, the result line.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -112,6 +132,27 @@ LLAMA_STEPS = 5  # timed steps: a ~3 s step keeps the run well in its limit
 BERT_BATCH, BERT_LEN = 32, 128
 BERT_ROWS = BERT_BATCH * BERT_LEN  # 4096 MLM rows per step
 BERT_D, BERT_FF, BERT_VOCAB, BERT_HEADS = 768, 3072, 30522, 12
+# KV-cached decode: GPT-2 small over 4 prompts of 200 tokens (chunked
+# prefill 64 wide, 56 new tokens; beam 4 over 2 prompts), and the
+# TinyLlama widths over 2 prompts of 256 (chunks of 128, 32 new tokens)
+DECODE_BATCH, DECODE_PROMPT, DECODE_WIDTH, DECODE_NEW = 4, 200, 64, 56
+BEAM_PROMPTS, BEAM_SIZE, BEAM_NEW, SAMPLE_NEW = 2, 4, 16, 24
+LLAMA_DECODE_BATCH, LLAMA_DECODE_PROMPT = 2, 256
+LLAMA_DECODE_WIDTH, LLAMA_DECODE_NEW = 128, 32
+# the decode checks: chunked against one-token prefill over the prompt's
+# first chunk and 8 tokens of the next; cached against uncached greedy
+# over the first 16 new tokens
+PREFILL_CHECK_EXTRA, GREEDY_CHECK_NEW = 8, 16
+# rows of the decode programs' fc, fused_swiglu, add-LN and layer norm
+# launches: GPT-2's one-token and wide steps (batch 4), its beam steps
+# (batch 8), and the TinyLlama widths' (batch 2)
+DECODE_ROWS = (
+    ("gpt2_decode", DECODE_BATCH, GPT2_D),
+    ("gpt2_prefill", DECODE_BATCH * DECODE_WIDTH, GPT2_D),
+    ("gpt2_beam", BEAM_PROMPTS * BEAM_SIZE, GPT2_D),
+    ("gpt2_beam_prefill", BEAM_PROMPTS * BEAM_SIZE * DECODE_WIDTH, GPT2_D),
+    ("llama_decode", LLAMA_DECODE_BATCH, LLAMA_D),
+    ("llama_prefill", LLAMA_DECODE_BATCH * LLAMA_DECODE_WIDTH, LLAMA_D))
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
 GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
@@ -228,16 +269,24 @@ def check_kernels(dev):
     rec = {}
     rows = N_SLOTS * WIDTH  # 128 rows per step
     d_model, d_ff = 768, 3072
+    marks = [time.time()]
+
+    def mark(what):
+        """Prints the wall seconds of the check that just ended."""
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        print("kernel check %s: %.1f s" % (what, marks[-1] - marks[-2]))
 
     # ---- fused_add_layer_norm: 16 R H bytes ---------------------------
     err = 0.0
     # the serving rows, ragged ones, the WMT step's [4096, 512], the GPT-2
     # step's [8192, 768], the TinyLlama steps' [4096, 2048] and
-    # [128, 2048] and the BERT step's [4096, 768]
+    # [128, 2048], the BERT step's [4096, 768] and the decode steps' rows
     for r, h in ((rows, d_model), (7, d_model), (1, d_model),
                  (TRAIN_ROWS, HP_D_MODEL), (5, HP_D_MODEL),
                  (GPT2_ROWS, GPT2_D), (LLAMA_ROWS, LLAMA_D), (rows, LLAMA_D),
-                 (BERT_ROWS, BERT_D)):
+                 (BERT_ROWS, BERT_D)) + tuple(
+                     (r, h) for _, r, h in DECODE_ROWS):
         x, y = randn(r, h), randn(r, h)
         gam, bet = randn(h), randn(h)
         outs = fused_add_layer_norm(x, y, gam, bet, 1e-5)
@@ -263,7 +312,7 @@ def check_kernels(dev):
                       ("gpt2", GPT2_ROWS, GPT2_D),
                       ("llama_train", LLAMA_ROWS, LLAMA_D),
                       ("llama_serve", rows, LLAMA_D),
-                      ("bert", BERT_ROWS, BERT_D)):
+                      ("bert", BERT_ROWS, BERT_D)) + DECODE_ROWS:
         x, y = randn(r, h), randn(r, h)
         gam, bet = randn(h), randn(h)
         b, fl = _bound_ms(16 * r * h + 8 * h + 8 * r, 10 * r * h)
@@ -274,6 +323,8 @@ def check_kernels(dev):
             library_ms=_time_ms(lambda: F.layer_norm(x + y, (h,), gam, bet,
                                                      1e-5)),
             bound_ms=b, bound_by=fl)
+
+    mark("fused_add_layer_norm")
 
     # ---- matmul_bias_act: unit-scale outputs (w ~ N(0, 1/K)) ----------
     err = 0.0
@@ -297,6 +348,16 @@ def check_kernels(dev):
               (BERT_ROWS, BERT_FF, BERT_D, ""),
               (BERT_ROWS, BERT_D, BERT_D, "gelu"),
               (BERT_BATCH, BERT_D, BERT_D, "tanh"), (BERT_BATCH, BERT_D, 2, "")]
+    # the decode steps' FFN: GPT-2's gelu ffn_in and ffn_out, the
+    # TinyLlama widths' ffn_out (its ffn_in is matmul_swiglu)
+    decode_fc = []
+    for tag, r, h in DECODE_ROWS:
+        if h == GPT2_D:
+            decode_fc += [(tag + "_ffn_in", (r, h, 4 * h, "gelu")),
+                          (tag + "_ffn_out", (r, 4 * h, h, ""))]
+        else:
+            decode_fc.append((tag + "_ffn_out", (r, LLAMA_FF, h, "")))
+    cases += [shape for _, shape in decode_fc]
     for m, k, n, act in cases:
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         for bias in (bm, None):
@@ -316,7 +377,8 @@ def check_kernels(dev):
             ("llama_serve_ffn_out", (rows, LLAMA_FF, LLAMA_D, "")),
             ("bert_ffn_in", (BERT_ROWS, BERT_D, BERT_FF, "relu")),
             ("bert_ffn_out", (BERT_ROWS, BERT_FF, BERT_D, "")),
-            ("bert_mlm_trans", (BERT_ROWS, BERT_D, BERT_D, "gelu"))):
+            ("bert_mlm_trans", (BERT_ROWS, BERT_D, BERT_D, "gelu")),
+            *decode_fc):
         xm, wm, bm = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         act_fn = {"gelu": F.gelu, "relu": F.relu}.get(act)
         lib = ((lambda: act_fn(torch.addmm(bm, xm, wm))) if act
@@ -343,6 +405,8 @@ def check_kernels(dev):
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
         rec["matmul_bias_act"][key] = (
             times["ffn_in"][key] + times["ffn_out"][key]) / 2
+
+    mark("matmul_bias_act")
 
     # ---- flash_attention_qvec: live K/V prefix bytes -------------------
     heads, dh, tq, tk = 12, 64, WIDTH, T_MAX
@@ -379,11 +443,19 @@ def check_kernels(dev):
             bh, tq, dh, bh, LLAMA_LEN, dh):
         _qvec_times(dev, randn, bh, tq, LLAMA_LEN, dh)}
     torch.cuda.synchronize()
+    mark("flash_attention_qvec")
     rec.update(check_linear_xent(dev, randn, g))
+    mark("linear_xent")
     rec.update(check_layer_norm(randn))
+    mark("fused_layer_norm")
     rec.update(check_flash_attention(dev, randn))
+    mark("flash_attention")
     rec.update(check_matmul_swiglu(randn))
+    mark("matmul_swiglu")
     rec.update(check_softmax_xent(dev, randn, g))
+    mark("softmax_xent")
+    rec.update(check_attention_pieces(dev, randn))
+    mark("flash_attention_piece, qvec backward")
     return rec
 
 
@@ -415,8 +487,9 @@ def _qvec_times(dev, randn, bh, tq, tk, dh):
 
 def check_matmul_swiglu(randn):
     """matmul_swiglu against its plain version at the TinyLlama paths'
-    shapes (training x [4096, 2048], serving x [128, 2048], both against
-    wg/wu [2048, 5632]) and a ragged one ([200, 1000] @ [1000, 333]);
+    shapes (training x [4096, 2048], serving x [128, 2048], one-token
+    decode x [2, 2048], chunked prefill x [256, 2048], all against wg/wu
+    [2048, 5632]) and a ragged one ([200, 1000] @ [1000, 333]);
     limit 1e-4 of the plain output's largest magnitude.  Timed beside the
     plain version and the library's two matmuls + silu(g) * u."""
     import torch
@@ -426,7 +499,9 @@ def check_matmul_swiglu(randn):
 
     shapes = (("train", LLAMA_ROWS, LLAMA_D, LLAMA_FF),
               ("serve", N_SLOTS * WIDTH, LLAMA_D, LLAMA_FF),
-              ("ragged", 200, 1000, 333))
+              ("ragged", 200, 1000, 333)) + tuple(
+                  (tag, r, h, LLAMA_FF) for tag, r, h in DECODE_ROWS
+                  if h == LLAMA_D)
     err = err_abs = 0.0
     times = {}
     for tag, m, k, n in shapes:
@@ -456,7 +531,8 @@ def check_matmul_swiglu(randn):
         route="cuda", source="paddle_tpu_torch/kernels/csrc/matmul_bias_act.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:1325",
         shape="x [%d, %d], wg/wu [%d, %d] (training); per_shape adds the "
-              "serving step's" % (LLAMA_ROWS, LLAMA_D, LLAMA_D, LLAMA_FF),
+              "serving and decode steps'" % (LLAMA_ROWS, LLAMA_D, LLAMA_D,
+                                             LLAMA_FF),
         max_abs_err=err_abs, max_rel_err=err, per_shape=times, **head)}
 
 
@@ -695,9 +771,9 @@ def check_softmax_xent(dev, randn, g):
 def check_layer_norm(randn):
     """fused_layer_norm against its plain version at the GPT-2 path's
     [8192, 768] rows, the TinyLlama paths' [4096, 2048] and [128, 2048],
-    the BERT path's [4096, 768], and ragged row counts; limit 1e-5
-    absolute on the output and the row statistics.  Timed at GPT-2's
-    shape, the others as `per_shape`."""
+    the BERT path's [4096, 768], the decode steps' rows (DECODE_ROWS),
+    and ragged row counts; limit 1e-5 absolute on the output and the row
+    statistics.  Timed at GPT-2's shape, the others as `per_shape`."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import fused_layer_norm, layer_norm_plain
@@ -705,7 +781,8 @@ def check_layer_norm(randn):
     err = 0.0
     for r, h in ((GPT2_ROWS, GPT2_D), (7, GPT2_D), (1000, GPT2_D),
                  (LLAMA_ROWS, LLAMA_D), (N_SLOTS * WIDTH, LLAMA_D),
-                 (BERT_ROWS, BERT_D)):
+                 (BERT_ROWS, BERT_D)) + tuple(
+                     (r, h) for _, r, h in DECODE_ROWS):
         x = randn(r, h, scale=2.0) + 0.5
         gam, bet = randn(h), randn(h)
         for got, want in zip(fused_layer_norm(x, gam, bet, 1e-5),
@@ -731,7 +808,8 @@ def check_layer_norm(randn):
                    for tag, r, h in (("llama_train", LLAMA_ROWS, LLAMA_D),
                                      ("llama_serve", N_SLOTS * WIDTH,
                                       LLAMA_D),
-                                     ("bert", BERT_ROWS, BERT_D))},
+                                     ("bert", BERT_ROWS, BERT_D))
+                   + DECODE_ROWS},
         **times(GPT2_ROWS, GPT2_D))}
 
 
@@ -741,9 +819,12 @@ def check_flash_attention(dev, randn):
     64, causal), the TinyLlama path's (BH 64, T 2048, d 64, causal), the
     BERT path's (BH 384, T 128, d 64, key-padding bias, not causal) and
     WMT fused_attn's (BH 512, T 64: key bias, causal and not), the last
-    three timed as `per_shape` (WMT's non-causal form), a key bias with
-    some keys at -1e9 (causal; non-causal with Tq != Tk), ragged lengths,
-    and head dim 128.  Limit:
+    three timed as `per_shape` (WMT's non-causal form), the one-token
+    decode steps' forms (GPT-2's Tq 1 over BH 48 x 1024 keys, the
+    TinyLlama widths' GQA fold at Tq 8 over BH 8 x 2048 keys, both with
+    a key bias; timed as `per_shape`), a key bias with some keys at -1e9
+    (causal; non-causal with Tq != Tk), ragged lengths, and head dim
+    128.  Limit:
     1e-4 of the largest magnitude of each of o, dq, dk, dv and dkbias
     (lse: 1e-4 absolute)."""
     import torch
@@ -777,7 +858,12 @@ def check_flash_attention(dev, randn):
              # WMT's fused_attn path: the source key bias (encoder, cross
              # attention) and the decoder's causal form with a key bias
              (TRAIN_BATCH * HP_HEADS, TRAIN_LEN, TRAIN_LEN, d, False, True),
-             (TRAIN_BATCH * HP_HEADS, TRAIN_LEN, TRAIN_LEN, d, True, True)]
+             (TRAIN_BATCH * HP_HEADS, TRAIN_LEN, TRAIN_LEN, d, True, True),
+             # the one-token decode steps: GPT-2's Tq 1 over its cache, and
+             # the TinyLlama widths' GQA fold (Tq 8 over 4 kv heads)
+             (DECODE_BATCH * GPT2_HEADS, 1, T_MAX, d, False, True),
+             (LLAMA_DECODE_BATCH * 4, LLAMA_HEADS // 4, LLAMA_LEN, d, False,
+              True)]
     for n, tq, tk, dh, causal, with_bias in cases:
         q, k, v = randn(n, tq, dh), randn(n, tk, dh), randn(n, tk, dh)
         do = randn(n, tq, dh)
@@ -824,11 +910,50 @@ def check_flash_attention(dev, randn):
             else:
                 rec[name].setdefault("per_shape", {})[
                     "%s %s" % (tag, times.pop("shape"))] = times
+    for tag, n, tq, t_, pos in (
+            ("gpt2 decode", DECODE_BATCH * GPT2_HEADS, 1, T_MAX,
+             DECODE_PROMPT + DECODE_NEW - 1),
+            ("llama decode (GQA fold)", LLAMA_DECODE_BATCH * 4,
+             LLAMA_HEADS // 4, LLAMA_LEN,
+             LLAMA_DECODE_PROMPT + LLAMA_DECODE_NEW - 1)):
+        times = _flash_decode_times(randn, n, tq, t_, d, pos)
+        rec["flash_attention_fwd"]["per_shape"][
+            "%s %s" % (tag, times.pop("shape"))] = times
     for name, e in (("flash_attention_fwd", "fwd"), ("flash_attention_dq", "dq"),
                     ("flash_attention_dkv", "dkv")):
         rec[name].update(max_abs_err=err_abs[e], max_rel_err=err[e])
     torch.cuda.synchronize()
     return rec
+
+
+def _flash_decode_times(randn, bh, tq, tk, d, pos):
+    """The flash forward at a one-token decode step's shape: q [BH, Tq,
+    d] over the whole cache k/v [BH, Tk, d] with decode_pos_mask's key
+    bias (0 up to `pos`, -1e30 beyond), beside the plain version and
+    scaled_dot_product_attention with the bias as its additive mask.
+    The kernel reads every key: the bias, not the tiles, masks the
+    cache's tail; the bound counts the same."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import (flash_attention_fwd,
+                                          flash_attention_plain)
+
+    q, k, v = randn(bh, tq, d), randn(bh, tk, d), randn(bh, tk, d)
+    kb = torch.zeros(bh, tk, device=q.device)
+    kb[:, pos + 1:] = -1e30
+    scale = d ** -0.5
+    b, fl = _bound_ms(4 * (2 * bh * tq * d + 2 * bh * tk * d + bh * tk
+                           + bh * tq), 4 * bh * tq * tk * d)
+    return dict(
+        shape="q [%d, %d, %d], k/v [%d, %d, %d], key bias to %d" % (
+            bh, tq, d, bh, tk, d, pos),
+        ms=_time_ms(lambda: flash_attention_fwd(q, k, v, kb, False, scale)),
+        plain_ms=_time_ms(lambda: flash_attention_plain(q, k, v, kb, False,
+                                                        scale)),
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=kb[:, None, :], scale=scale)),
+        bound_ms=b, bound_by=fl)
 
 
 def _flash_times(randn, bh, t, d, causal=True):
@@ -902,6 +1027,238 @@ def _flash_times(randn, bh, t, d, causal=True):
             library_ms=_time_ms(lib, reps=5, inner=5) if lib else lib_fwd_bwd,
             bound_ms=b, bound_by=fl)
     return out
+
+
+def _pairs(tq, tk, qbases):
+    """Causal (query, key) pairs a based attention computes: query i of a
+    row with base b sees keys 0 .. min(Tk - 1, b + i)."""
+    return sum(sum(max(0, min(tk, b + i + 1)) for i in range(tq))
+               for b in qbases)
+
+
+def _based_bounds(bh, tq, tk, d, qbases):
+    """(fwd, dq, dkv) bound records of the based kernels over rows whose
+    query bases are `qbases` (one per row): bytes of q, o (or do, dq),
+    lse and delta, and of the keys each row needs (dk and dv are written
+    whole), against 4, 6 and 8 flops per pair and head-dim column."""
+    pairs = _pairs(tq, tk, qbases)
+    keys = sum(min(tk, max(0, b + tq)) for b in qbases)  # needed K/V rows
+    qrow, krow = 4 * tq * d, 4 * d
+    fwd = _bound_ms(2 * bh * qrow + 2 * keys * krow + 4 * bh * tq,
+                    4 * pairs * d)
+    dq = _bound_ms(3 * bh * qrow + 2 * keys * krow + 8 * bh * tq,
+                   6 * pairs * d)
+    dkv = _bound_ms(2 * bh * qrow + 2 * keys * krow + 2 * bh * tk * krow
+                    + 8 * bh * tq, 8 * pairs * d)
+    return fwd, dq, dkv
+
+
+def check_attention_pieces(dev, randn):
+    """flash_attention_piece (B9: the based forward, dq and dk/dv kernels
+    with one offset for every row) and flash_attention_qvec's backward
+    (B8: the based dq and dk/dv with a base per row) against their plain
+    versions on the card.  B9's forward (o and lse) at the GPT-2 chunked
+    prefill's shape (q [48, 64, 64] over k/v [48, 1024, 64], qoff 0, 192,
+    960), at the TinyLlama-width chunk's (q [64, 128, 64] over [64, 2048,
+    64], qoff 0, 128, 1920) and a ragged one (q [6, 37, 64] over [6, 1000,
+    64], qoff 500); its backward with nonzero cotangents on o and lse at
+    ring-like shapes (Tq = Tk = 1024, BH 48, qoff 0: the diagonal chunk;
+    qoff 1024: off-diagonal, every key visible) and at the prefill shape;
+    B8's backward at the serving shape (q [96, 16, 64], k/v [96, 1024,
+    64], mixed per-row bases), its forward's lse included.  Limits as
+    the B3 rows: 1e-4 of the largest magnitude of o, dq, dk and dv, 1e-4
+    absolute on the lse; every rerun bit-equal.  Timed with CUDA events
+    beside the plain version and scaled_dot_product_attention with the
+    same boolean mask."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import (
+        flash_attention_grad_plain,
+        flash_attention_piece,
+        flash_attention_piece_dkv,
+        flash_attention_piece_dq,
+        flash_attention_piece_fwd,
+        flash_attention_piece_grad_plain,
+        flash_attention_piece_plain,
+        flash_attention_plain,
+        flash_attention_qvec,
+        flash_attention_qvec_dkv,
+        flash_attention_qvec_dq,
+    )
+
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    d = GPT2_D // GPT2_HEADS
+    scale = d ** -0.5
+    err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "qvec_dq": 0.0,
+           "qvec_dkv": 0.0}
+    err_abs = dict(err)
+
+    def note(key, got, want):
+        assert bool(torch.isfinite(got).all()), ("not finite", key)
+        err[key] = max(err[key], ((got - want).abs().max()
+                                  / want.abs().max().clamp_min(1e-30)).item())
+        err_abs[key] = max(err_abs[key], (got - want).abs().max().item())
+
+    def same(a, b):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), "rerun differs"
+
+    pre_bh = DECODE_BATCH * GPT2_HEADS  # 48
+    llama_bh = LLAMA_DECODE_BATCH * LLAMA_HEADS  # 64
+    for bh, tq, tk, qoffs in ((pre_bh, DECODE_WIDTH, T_MAX, (0, 192, 960)),
+                              (llama_bh, LLAMA_DECODE_WIDTH, LLAMA_LEN,
+                               (0, 128, 1920)),
+                              (6, 37, 1000, (500,))):
+        q, k, v = randn(bh, tq, d), randn(bh, tk, d), randn(bh, tk, d)
+        for off in qoffs:
+            qoff = torch.tensor([off], device=dev)
+            o, lse = flash_attention_piece_fwd(q, k, v, True, scale, qoff)
+            p_o, p_lse = flash_attention_piece_plain(q, k, v, True, scale,
+                                                     qoff)
+            note("fwd", o, p_o)
+            assert (lse - p_lse).abs().max().item() <= 1e-4, ("lse", bh, off)
+            same((o, lse), flash_attention_piece_fwd(q, k, v, True, scale,
+                                                     qoff))
+    for bh, tq, tk, off in ((pre_bh, T_MAX, T_MAX, 0),
+                            (pre_bh, T_MAX, T_MAX, T_MAX),
+                            (pre_bh, DECODE_WIDTH, T_MAX, 192)):
+        q, k, v, do = randn(bh, tq, d), randn(bh, tk, d), randn(bh, tk, d), \
+            randn(bh, tq, d)
+        dlse = randn(bh, tq)
+        qoff = torch.tensor([off], device=dev)
+        o, lse = flash_attention_piece_fwd(q, k, v, True, scale, qoff)
+        _, vjp = torch.func.vjp(
+            lambda a, b, c: flash_attention_piece(a, b, c, True, scale, qoff),
+            q, k, v)
+        grads = vjp((do, dlse))
+        want = flash_attention_piece_grad_plain(q, k, v, o, lse, do, dlse,
+                                                True, scale, qoff)
+        note("dq", grads[0], want[0])
+        note("dkv", grads[1], want[1])
+        note("dkv", grads[2], want[2])
+        same(grads, vjp((do, dlse)))
+    heads = GPT2_HEADS
+    slot_q = [0, 500, T_MAX - WIDTH, 37, 0, 250, 983, 1]
+    bh = N_SLOTS * heads
+    qs = torch.tensor(slot_q, device=dev).repeat_interleave(heads)
+    q, k, v, do = randn(bh, WIDTH, d), randn(bh, T_MAX, d), \
+        randn(bh, T_MAX, d), randn(bh, WIDTH, d)
+    o, lse = fa._qvec_forward(q, k, v, qs, scale, True)
+    p_o, p_lse = flash_attention_plain(q, k, v, None, True, scale, qs)
+    note("fwd", o, p_o)
+    assert (lse - p_lse).abs().max().item() <= 1e-4, "qvec lse"
+    assert torch.equal(o, flash_attention_qvec(q, k, v, qs, scale)), (
+        "the lse output changed the serving forward's bits")
+    _, vjp = torch.func.vjp(
+        lambda a, b, c: flash_attention_qvec(a, b, c, qs, scale), q, k, v)
+    grads = vjp(do)
+    want = flash_attention_grad_plain(q, k, v, None, p_lse, do,
+                                      (do * p_o).sum(-1), True, scale, qs)
+    note("qvec_dq", grads[0], want[0])
+    note("qvec_dkv", grads[1], want[1])
+    note("qvec_dkv", grads[2], want[2])
+    same(grads, vjp(do))
+    for key, val in err.items():
+        assert val <= 1e-4, ("based flash attention disagrees", key, val)
+
+    rec = {}
+    for name, site, e in (
+            ("flash_attention_piece_fwd", ":279", "fwd"),
+            ("flash_attention_piece_dq", ":447", "dq"),
+            ("flash_attention_piece_dkv", ":471", "dkv"),
+            ("flash_attention_qvec_dq", ":447", "qvec_dq"),
+            ("flash_attention_qvec_dkv", ":471", "qvec_dkv")):
+        rec[name] = dict(
+            route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site,
+            max_abs_err=err_abs[e], max_rel_err=err[e])
+
+    def piece_times(bh, tq, tk, off):
+        q, k, v, do = (randn(bh, n, d) for n in (tq, tk, tk, tq))
+        dlse = randn(bh, tq)
+        qoff = torch.tensor([off], device=dev)
+        o, lse = flash_attention_piece_fwd(q, k, v, True, scale, qoff)
+        delta = (do * o).sum(-1) - dlse
+        mask = (off + torch.arange(tq, device=dev)[:, None]
+                >= torch.arange(tk, device=dev)[None, :])
+        qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
+        fwd_b, dq_b, dkv_b = _based_bounds(bh, tq, tk, d, [off] * bh)
+        shape = "q [%d, %d, %d], k/v [%d, %d, %d], qoff %d" % (
+            bh, tq, d, bh, tk, d, off)
+        bwd_note = ("; plain_ms is the plain backward (dq, dk and dv "
+                    "together), library_ms scaled_dot_product_attention "
+                    "forward and backward")
+        plain_bwd = _events_ms(lambda: flash_attention_piece_grad_plain(
+            q, k, v, o, lse, do, dlse, True, scale, qoff))
+        lib_bwd = _events_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                           scale=scale), (qg, kg, vg), do))
+        return {
+            "flash_attention_piece_fwd": dict(
+                shape=shape,
+                ms=_time_ms(lambda: flash_attention_piece_fwd(
+                    q, k, v, True, scale, qoff), inner=5),
+                plain_ms=_time_ms(lambda: flash_attention_piece_plain(
+                    q, k, v, True, scale, qoff), inner=5),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale), inner=5),
+                bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+            "flash_attention_piece_dq": dict(
+                shape=shape + bwd_note,
+                ms=_time_ms(lambda: flash_attention_piece_dq(
+                    q, k, v, lse, do, delta, True, scale, qoff), inner=5),
+                plain_ms=plain_bwd, library_ms=lib_bwd,
+                bound_ms=dq_b[0], bound_by=dq_b[1]),
+            "flash_attention_piece_dkv": dict(
+                shape=shape + bwd_note,
+                ms=_time_ms(lambda: flash_attention_piece_dkv(
+                    q, k, v, lse, do, delta, True, scale, qoff), inner=5),
+                plain_ms=plain_bwd, library_ms=lib_bwd,
+                bound_ms=dkv_b[0], bound_by=dkv_b[1])}
+
+    # the GPT-2 path's chunk is the forward's row; the ring's diagonal
+    # chunk the backward's (no path of the repo runs it yet)
+    for tag, args in (("gpt2 prefill", (pre_bh, DECODE_WIDTH, T_MAX, 192)),
+                      ("llama prefill", (llama_bh, LLAMA_DECODE_WIDTH,
+                                         LLAMA_LEN, 128)),
+                      ("ring diagonal", (pre_bh, T_MAX, T_MAX, 0)),
+                      ("ring off-diagonal", (pre_bh, T_MAX, T_MAX, T_MAX))):
+        for name, times in piece_times(*args).items():
+            main_row = (tag == "gpt2 prefill" if name.endswith("fwd")
+                        else tag == "ring diagonal")
+            if main_row:
+                rec[name].update(times)
+            else:
+                rec[name].setdefault("per_shape", {})[
+                    "%s %s" % (tag, times.pop("shape"))] = times
+
+    delta = (do * o).sum(-1)
+    mask = (qs[:, None, None] + torch.arange(WIDTH, device=dev)[None, :, None]
+            >= torch.arange(T_MAX, device=dev)[None, None, :])
+    qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
+    _, dq_b, dkv_b = _based_bounds(bh, WIDTH, T_MAX, d, qs.tolist())
+    plain_bwd = _events_ms(lambda: flash_attention_grad_plain(
+        q, k, v, None, lse, do, delta, True, scale, qs))
+    lib_bwd = _events_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                       scale=scale), (qg, kg, vg), do))
+    shape = ("q [%d, %d, %d], k/v [%d, %d, %d], per-row bases %s x %d "
+             "heads; plain_ms is the plain backward (dq, dk and dv "
+             "together), library_ms scaled_dot_product_attention forward "
+             "and backward" % (bh, WIDTH, d, bh, T_MAX, d, slot_q, heads))
+    for name, fn, b in (
+            ("flash_attention_qvec_dq", lambda: flash_attention_qvec_dq(
+                q, k, v, lse, do, delta, qs, scale), dq_b),
+            ("flash_attention_qvec_dkv", lambda: flash_attention_qvec_dkv(
+                q, k, v, lse, do, delta, qs, scale), dkv_b)):
+        rec[name].update(shape=shape, ms=_time_ms(fn, inner=5),
+                         plain_ms=plain_bwd, library_ms=lib_bwd,
+                         bound_ms=b[0], bound_by=b[1])
+    torch.cuda.synchronize()
+    return rec
 
 
 def _serve_on_card(label, hp, t_max, per_step, seed):
@@ -1605,6 +1962,367 @@ def llama_train_card_matches_cpu(dev):
                                       "linear_xent_dw"))
 
 
+def _decode_launches(main):
+    """Kernel launches of one run of a decode program, read off its ops:
+    fc on matmul_bias_act, fused_swiglu on matmul_swiglu,
+    fused_residual_ln on add-LN, every layer_norm (the kernel form in
+    these programs) on layer norm, and fused_attention on the B3 forward
+    (key bias or causal), on B9's forward (one QStart for a batch of
+    several rows) or on the qvec forward (a QStart per row).  A program
+    without these ops (the cache startup, the beam reorder) launches
+    nothing."""
+    from paddle_tpu_torch import kernels
+
+    block = main.global_block()
+    want = {fn.__name__: 0 for fn in kernels.KERNELS}
+    by_type = {"fc": "matmul_bias_act", "fused_swiglu": "matmul_swiglu",
+               "fused_residual_ln": "fused_add_layer_norm",
+               "layer_norm": "fused_layer_norm"}
+    for op in block.ops:
+        if op.type in by_type:
+            want[by_type[op.type]] += 1
+        elif op.type == "fused_attention":
+            qs = op.inputs.get("QStart")
+            if not qs:
+                want["flash_attention_fwd"] += 1
+            elif (block.var(qs[0]).shape[0] == 1
+                  and block.var(op.inputs["Q"][0]).shape[0] > 1):
+                want["flash_attention_piece_fwd"] += 1
+            else:
+                want["flash_attention_qvec"] += 1
+    return want
+
+
+class _DecodeRuns:
+    """An executor's run, wrapped for a decode phase: every run starts
+    with every launch count at 0 and ends with the counts held to what
+    its program implies; keeps each program's host times (each run ends
+    with the fetch copied to the host), the slices of its fetches that
+    `keep[id(program)](fetch, k)` picks for its k-th run, the number of
+    runs by feed names, and the phase's launch totals."""
+
+    def __init__(self, exe):
+        import collections
+
+        import torch
+
+        from paddle_tpu_torch import kernels
+
+        self.totals = {fn.__name__: 0 for fn in kernels.KERNELS}
+        self.times, self.kept, self.keep = {}, {}, {}
+        self.feeds = collections.Counter()
+        want_by_program = {}
+        run = exe.run
+
+        def checked_run(program=None, feed=None, fetch_list=None, **kw):
+            key = id(program)
+            if key not in want_by_program:
+                want_by_program[key] = (program, _decode_launches(program))
+            want = want_by_program[key][1]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+            torch.cuda.synchronize()
+            self.times.setdefault(key, []).append(time.perf_counter() - t0)
+            got = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+            assert got == want, ("launches of a decode run", got, want)
+            for name, n in got.items():
+                self.totals[name] += n
+            self.feeds[tuple(sorted(feed or ()))] += 1
+            if key in self.keep:
+                kept = self.kept.setdefault(key, [])
+                kept.append(self.keep[key](out[0], len(kept)))
+            return out
+
+        exe.run = checked_run
+
+
+def _p50_ms(times):
+    return sorted(times)[len(times) // 2] * 1e3
+
+
+def _rel_err(got, want):
+    import numpy as np
+
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def _last_chunk_start(p, width, t_max):
+    """Where run_chunked_ids starts its last chunk of a p-token prompt."""
+    last = ((p - 1) // width) * width
+    return max(0, t_max - width) if last + width > t_max else last
+
+
+def _decode_on_card(label, hp, t_max, batch, prompt_len, width, new, seed,
+                    beam_and_sample, profile_dir, profile_name):
+    """One KV-cached decode path on the card: `hp` with random weights
+    from `seed`, gpt2_decode_step_program at batch `batch` (one token)
+    and at width `width` (the chunked prefill), t_max `t_max`, over
+    seeded prompts of `prompt_len` tokens.  Checks: chunked prefill's
+    last-position logits within 1e-4 of one-token prefill's (relative to
+    their largest magnitude) over the prompts' first `width` +
+    PREFILL_CHECK_EXTRA tokens (a full chunk, then a ragged one);
+    greedy_generate_cached (`new` tokens, chunked prefill) equal to
+    greedy_generate on gpt2_logits_program (seq_len prompt + `new`)
+    token for token over the first GREEDY_CHECK_NEW new tokens wherever
+    the top-2 logit margin exceeds 1e-3, the logits compared step by
+    step (1e-4 relative); with
+    `beam_and_sample`, seeded sample_generate_cached (top-k 40, top-p
+    0.9) and beam_generate_cached (beam 4 over 2 prompts, step and wide
+    programs at batch 8, the reorder program every step) finish with
+    finite logits and scores.  Every run's launches are held to its
+    program's.  Prints the one-token step's p50 and decode tokens/s,
+    the chunked prefill's tokens/s and the beam step's p50; with a
+    profile dir, a torch.profiler window of 8 one-token steps.  Returns
+    the phase's launch totals."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt2
+
+    scope = ptt.Scope()
+    with ptt.scope_guard(scope):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        total = prompt_len + new
+        logits_main, start, _, logits_fetch = gpt2.gpt2_logits_program(
+            hp, seq_len=total)
+        start.random_seed = seed
+        exe.run(start)
+        step, cache_start, _, fetch, _ = gpt2.gpt2_decode_step_program(
+            hp, batch=batch, t_max=t_max)
+        wide, _, _, wide_fetch, _ = gpt2.gpt2_decode_step_program(
+            hp, batch=batch, t_max=t_max, width=width)
+        prefill = (wide, wide_fetch, width, t_max)
+        runs = _DecodeRuns(exe)
+        prompts = np.random.RandomState(seed).randint(
+            1, hp.vocab_size, (batch, prompt_len)).astype("int64")
+
+        # chunked prefill against one-token prefill: a chunk and a ragged
+        # one carry the cache from chunk to chunk as the whole prompt does
+        head = prompts[:, :width + PREFILL_CHECK_EXTRA]
+        exe.run(cache_start)
+        one = gpt2._prefill_cached(exe, step, fetch, head)
+        exe.run(cache_start)
+        chunked = gpt2.prefill_cached_chunked(exe, wide, wide_fetch, head,
+                                              width, t_max)
+        assert chunked.shape == one.shape == (batch, hp.vocab_size)
+        prefill_err = _rel_err(chunked, one)
+        assert prefill_err <= 1e-4, ("chunked != one-token prefill", label,
+                                     prefill_err)
+
+        # cached greedy against uncached greedy, step by step: the
+        # prefill's logits at the prompt's last position, then each step's
+        last_c0 = _last_chunk_start(prompt_len, width, t_max)
+        runs.keep[id(step)] = lambda lg, k: lg
+        runs.keep[id(wide)] = lambda lg, k: lg[:, prompt_len - 1 - last_c0]
+        n_wide = len(runs.times[id(wide)])
+        cached = gpt2.greedy_generate_cached(exe, step, cache_start, fetch,
+                                             prompts, new, prefill=prefill)
+        cached_logits = ([runs.kept[id(wide)][-1]]
+                         + runs.kept[id(step)][-(new - 1):])
+        step_times = runs.times[id(step)][-(new - 1):]
+        step_p50 = _p50_ms(step_times)
+        n_chunks = len(runs.times[id(wide)]) - n_wide
+        assert n_chunks == -(-prompt_len // width)
+        prefill_s = sum(runs.times[id(wide)][-n_chunks:])
+        runs.keep[id(logits_main)] = (
+            lambda lg, k: np.array(lg[:, prompt_len - 1 + k]))
+        uncached = gpt2.greedy_generate(exe, logits_main, logits_fetch,
+                                        prompts, GREEDY_CHECK_NEW)
+        assert cached.shape == (batch, total)
+        assert uncached.shape == (batch, prompt_len + GREEDY_CHECK_NEW)
+        np.testing.assert_array_equal(cached[:, :prompt_len], prompts)
+        logit_err, compared, near_ties = 0.0, 0, 0
+        for i, (a, b) in enumerate(zip(cached_logits,
+                                       runs.kept[id(logits_main)])):
+            assert np.isfinite(a).all()
+            logit_err = max(logit_err, _rel_err(a, b))
+            assert logit_err <= 1e-4, ("cached != uncached logits", label, i,
+                                       logit_err)
+            compared += 1
+            top2 = np.sort(b, axis=-1)[:, -2:]
+            clear = top2[:, 1] - top2[:, 0] > 1e-3
+            tok_c, tok_u = cached[:, prompt_len + i], uncached[:, prompt_len + i]
+            assert (tok_c == tok_u)[clear].all(), ("cached != uncached tokens",
+                                                   label, i)
+            if not (tok_c == tok_u).all():
+                near_ties += 1
+                break  # a near tie decided differently: the rows diverge
+        assert compared == GREEDY_CHECK_NEW or near_ties, compared
+        print("%s decode: batch %d, prompt %d, chunked prefill (width %d) "
+              "within %.3g of one-token prefill over %d tokens; the whole "
+              "prompt's %d chunks in %.1f ms (%.1f tokens/s); cached greedy "
+              "== uncached over %d steps (max logit difference %.3g "
+              "relative, %d near-tie stops); one-token step p50 %.3f ms "
+              "(mean %.3f), %.1f decode tokens/s" % (
+                  label, batch, prompt_len, width, prefill_err,
+                  head.shape[1], n_chunks, prefill_s * 1e3,
+                  batch * prompt_len / prefill_s, compared,
+                  logit_err, near_ties, step_p50,
+                  1e3 * sum(step_times) / len(step_times),
+                  batch * 1e3 / step_p50))
+
+        if beam_and_sample:
+            sampled = gpt2.sample_generate_cached(
+                exe, step, cache_start, fetch, prompts, SAMPLE_NEW,
+                top_k=40, top_p=0.9, seed=0, prefill=prefill)
+            assert sampled.shape == (batch, prompt_len + SAMPLE_NEW)
+            assert ((sampled >= 0) & (sampled < hp.vocab_size)).all()
+            assert all(np.isfinite(lg).all()
+                       for lg in runs.kept[id(step)][-(SAMPLE_NEW - 1):])
+            rows = BEAM_PROMPTS * BEAM_SIZE
+            bstep, bstart, _, bfetch, _ = gpt2.gpt2_decode_step_program(
+                hp, batch=rows, t_max=t_max)
+            bwide, _, _, bwide_fetch, _ = gpt2.gpt2_decode_step_program(
+                hp, batch=rows, t_max=t_max, width=width)
+            reorders = runs.feeds[("parents",)]
+            ids, scores = gpt2.beam_generate_cached(
+                exe, bstep, bstart, bfetch, prompts[:BEAM_PROMPTS], BEAM_NEW,
+                beam_size=BEAM_SIZE,
+                prefill=(bwide, bwide_fetch, width, t_max))
+            assert ids.shape == (BEAM_PROMPTS, prompt_len + BEAM_NEW)
+            assert np.isfinite(scores).all(), scores
+            n_steps = len(runs.times[id(bstep)])
+            assert n_steps == BEAM_NEW - 1
+            assert runs.feeds[("parents",)] - reorders == n_steps
+            print("%s decode: seeded sample (top-k 40, top-p 0.9) %d tokens; "
+                  "beam %d over %d prompts: %d steps, each after a cache "
+                  "reorder, step p50 %.3f ms, scores %s" % (
+                      label, SAMPLE_NEW, BEAM_SIZE, BEAM_PROMPTS, n_steps,
+                      _p50_ms(runs.times[id(bstep)]), scores.tolist()))
+
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            tok = cached[:, -1:]
+            exe.run(cache_start)  # the beam's batch-8 caches share names
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(8):
+                    exe.run(step, feed={"step_ids": tok, "pos": np.array(
+                        [min(total - 1 + i, t_max - 1)], "int64")},
+                            fetch_list=fetch)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            _profile_report(prof, wall_us, 8, profile_name, profile_dir)
+    return runs.totals
+
+
+def decode_gpt2_small(dev, profile_dir=None):
+    """KV-cached decoding of GPT-2 small at full width: batch 4, t_max
+    1024, 4 seeded prompts of 200 tokens, chunked prefill 64 wide, 56 new
+    tokens greedy, then seeded sampling and beam 4 over 2 prompts."""
+    from paddle_tpu_torch.models import gpt2
+
+    return _decode_on_card("GPT-2 small", gpt2.GPT2Config, T_MAX,
+                           DECODE_BATCH, DECODE_PROMPT, DECODE_WIDTH,
+                           DECODE_NEW, 1236, True, profile_dir, "decode")
+
+
+def decode_tinyllama(dev, profile_dir=None):
+    """KV-cached greedy decoding at TinyLlama-1.1B's widths: batch 2,
+    t_max 2048, prompts of 256 tokens, chunked prefill 128 wide, 32 new
+    tokens; the one path through the GQA fold (B3 at Tq 8 with a key
+    bias) and rotary on pos / pos_vec."""
+    return _decode_on_card("TinyLlama-1.1B widths", tinyllama_config(),
+                           LLAMA_LEN, LLAMA_DECODE_BATCH, LLAMA_DECODE_PROMPT,
+                           LLAMA_DECODE_WIDTH, LLAMA_DECODE_NEW, 1237, False,
+                           profile_dir, "decode_llama")
+
+
+def decode_card_matches_cpu(dev, Narrow, must_launch):
+    """The narrow config `Narrow` decoded on the card and on the CPU plain
+    path from the same weights: greedy (chunked prefill 8 wide), seeded
+    sample (top-k 8, top-p 0.9, temperature 0.8) and beam 3, two prompts
+    of 11 tokens, t_max 48.  Tokens and beam ids equal, beam scores and
+    every run's logits within 1e-5 relative; the card's runs launched
+    each kernel of `must_launch`."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import gpt2
+
+    t_max, width = 48, 8
+    prompts = np.random.RandomState(4).randint(
+        1, Narrow.vocab_size, (2, 11)).astype("int64")
+    results, logits = {}, {}
+    launched = {fn.__name__: 0 for fn in kernels.KERNELS}
+    for kind in ("cpu", "cuda"):
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+            exe = ptt.Executor(place)
+            _, startup, _, _ = gpt2.gpt2_logits_program(Narrow, seq_len=t_max)
+            if kind == "cpu":
+                startup.random_seed = 6
+                exe.run(startup)
+                weights = {n: scope.find_var(n).clone()
+                           for n in scope.local_var_names()}
+            else:
+                for n, w in weights.items():
+                    scope.set(n, w.to(dev))
+            progs = {}
+            for rows in (2, 6):
+                step, start, _, fetch, _ = gpt2.gpt2_decode_step_program(
+                    Narrow, batch=rows, t_max=t_max)
+                wide, _, _, wide_fetch, _ = gpt2.gpt2_decode_step_program(
+                    Narrow, batch=rows, t_max=t_max, width=width)
+                progs[rows] = (step, start, fetch,
+                               (wide, wide_fetch, width, t_max))
+            seen = logits[kind] = []
+            run = exe.run
+
+            def recording(program=None, feed=None, fetch_list=None, **kw):
+                kernels.reset_launch_counts()
+                out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+                if kind == "cuda":
+                    for fn in kernels.KERNELS:
+                        launched[fn.__name__] += fn.launches
+                if fetch_list:
+                    seen.append(out[0])
+                return out
+
+            exe.run = recording
+            step, start, fetch, prefill = progs[2]
+            greedy = gpt2.greedy_generate_cached(exe, step, start, fetch,
+                                                 prompts, 10, prefill=prefill)
+            sample = gpt2.sample_generate_cached(
+                exe, step, start, fetch, prompts, 10, temperature=0.8,
+                top_k=8, top_p=0.9, seed=1, prefill=prefill)
+            step, start, fetch, prefill = progs[6]
+            beam = gpt2.beam_generate_cached(exe, step, start, fetch, prompts,
+                                             8, beam_size=3, prefill=prefill)
+            results[kind] = (greedy, sample, beam)
+    cpu, card = results["cpu"], results["cuda"]
+    for a, b in zip(cpu[:2] + cpu[2][:1], card[:2] + card[2][:1]):
+        np.testing.assert_array_equal(b, a)
+    np.testing.assert_allclose(card[2][1], cpu[2][1], rtol=1e-5)
+    assert len(logits["cpu"]) == len(logits["cuda"]) > 0
+    err = max(_rel_err(b, a) for a, b in zip(logits["cpu"], logits["cuda"]))
+    assert err <= 1e-5, ("card != CPU decode logits", Narrow.__name__, err)
+    assert all(launched[n] for n in must_launch), (
+        "a kernel did not launch", launched)
+    print("%s decoded on the card vs the CPU plain path (greedy, sample, "
+          "beam): tokens equal, %d runs' logits within %.3g relative; "
+          "launches %s" % (Narrow.__name__, len(logits["cpu"]), err,
+                           json.dumps(launched)))
+
+
+DECODE_KERNELS = ("flash_attention_fwd", "flash_attention_piece_fwd",
+                  "matmul_bias_act", "fused_add_layer_norm")
+# held on the card by the kernel phase only: no path of the repo trains
+# through chunked attention or the ragged step yet (ring attention is
+# ROADMAP A7; the reference's draft training and prefix tuning are not
+# ported)
+OFF_PATH_KERNELS = ("flash_attention_piece_dq", "flash_attention_piece_dkv",
+                    "flash_attention_qvec_dq", "flash_attention_qvec_dkv")
+
+
 def main():
     try:
         import torch
@@ -1637,7 +2355,15 @@ def main():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
+    laps = [time.time()]
+
+    def lap(phase):
+        """Prints the wall seconds since the last phase ended."""
+        laps.append(time.time())
+        print("phase %s: %.1f s" % (phase, laps[-1] - laps[-2]))
+
     rec = check_kernels(dev)
+    lap("kernels")
     for name, r in rec.items():
         print("%s: max_abs_err %.3g, %s" % (name, r["max_abs_err"], json.dumps(
             {k: v for k, v in r.items() if k.endswith("ms") or k == "shape"})))
@@ -1649,12 +2375,15 @@ def main():
     if profile_dir:
         profile_serving(eng, scope, profile_dir)
     del eng, scope
+    lap("gpt2 serving")
     torch.cuda.empty_cache()
     trained = train_transformer_base(dev, profile_dir)
     train_card_matches_cpu(dev)
+    lap("wmt training")
     torch.cuda.empty_cache()
     trained_gpt2 = train_gpt2_small(dev, profile_dir)
     gpt2_train_card_matches_cpu(dev)
+    lap("gpt2 training")
     torch.cuda.empty_cache()
     served_llama, eng, scope = serve_tinyllama(dev)
     for n_slots in (3, 1):
@@ -1664,15 +2393,31 @@ def main():
     if profile_dir:
         profile_serving(eng, scope, profile_dir, name="serving_llama")
     del eng, scope
+    lap("llama serving")
     torch.cuda.empty_cache()
     trained_llama = train_tinyllama(dev, profile_dir)
     llama_train_card_matches_cpu(dev)
+    lap("llama training")
     torch.cuda.empty_cache()
     trained_bert = train_bert_base(dev, profile_dir)
     bert_train_card_matches_cpu(dev)
+    lap("bert training")
     torch.cuda.empty_cache()
     trained_wmt_fused = train_transformer_base_fused_attn(dev)
     train_card_matches_cpu(dev, fused_attn=True)
+    lap("wmt fused_attn training")
+    torch.cuda.empty_cache()
+    decoded = decode_gpt2_small(dev, profile_dir)
+    lap("gpt2 decode")
+    decode_card_matches_cpu(dev, narrow_gpt2_config(), DECODE_KERNELS)
+    lap("narrow gpt2 decode, card vs CPU")
+    torch.cuda.empty_cache()
+    decoded_llama = decode_tinyllama(dev, profile_dir)
+    lap("llama decode")
+    decode_card_matches_cpu(dev, narrow_modern_config(),
+                            DECODE_KERNELS + ("matmul_swiglu",
+                                              "fused_layer_norm"))
+    lap("narrow modern decode, card vs CPU")
 
     # launches: each path's run, counted from 0 just before it and read
     # just after
@@ -1683,12 +2428,15 @@ def main():
                    "llama_serving": served_llama[name],
                    "llama_training": trained_llama[name],
                    "bert_training": trained_bert[name],
-                   "wmt_fused_attn_training": trained_wmt_fused[name]}
+                   "wmt_fused_attn_training": trained_wmt_fused[name],
+                   "gpt2_decode": decoded[name],
+                   "llama_decode": decoded_llama[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path}
-        assert entry["launches"] > 0, ("kernel never launched", name)
+        assert entry["launches"] > 0 or name in OFF_PATH_KERNELS, (
+            "kernel never launched", name)
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape"):
             entry[key] = r[key]

@@ -6,13 +6,22 @@ at first use."""
 from .add_layer_norm import add_layer_norm_plain, fused_add_layer_norm
 from .flash_attention import (
     NEG_INF,
+    attention_scores,
     flash_attention,
     flash_attention_dkv,
     flash_attention_dq,
     flash_attention_fwd,
     flash_attention_grad_plain,
+    flash_attention_piece,
+    flash_attention_piece_dkv,
+    flash_attention_piece_dq,
+    flash_attention_piece_fwd,
+    flash_attention_piece_grad_plain,
+    flash_attention_piece_plain,
     flash_attention_plain,
     flash_attention_qvec,
+    flash_attention_qvec_dkv,
+    flash_attention_qvec_dq,
     flash_attention_qvec_plain,
 )
 from .layer_norm import fused_layer_norm, layer_norm_plain
@@ -43,7 +52,10 @@ from .softmax_xent import (
 KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
            flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
-           matmul_swiglu, softmax_xent_fwd, softmax_xent_bwd)
+           matmul_swiglu, softmax_xent_fwd, softmax_xent_bwd,
+           flash_attention_piece_fwd, flash_attention_piece_dq,
+           flash_attention_piece_dkv, flash_attention_qvec_dq,
+           flash_attention_qvec_dkv)
 
 
 def reset_launch_counts():

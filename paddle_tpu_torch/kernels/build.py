@@ -43,14 +43,14 @@ SIGNATURES = {
     "ptt_add_layer_norm": (_P,) * 8 + (_I, _I, _F, _P),
     "ptt_matmul_bias_act": (_P,) * 5 + (_I,) * 5 + (_P,),
     "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 3 + (_P,),
-    "ptt_flash_attention_qvec": (_P,) * 7 + (_I,) * 5 + (_F, _P),
+    "ptt_flash_attention_qvec": (_P,) * 8 + (_I,) * 5 + (_F, _P),
     "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _P),
     "ptt_linear_xent_dx": (_P,) * 6 + (_I,) * 3 + (_F, _P),
     "ptt_linear_xent_dw": (_P,) * 6 + (_I,) * 3 + (_F, _P),
     "ptt_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
-    "ptt_flash_attention_fwd": (_P,) * 6 + (_I,) * 5 + (_F, _P),
-    "ptt_flash_attention_dq": (_P,) * 8 + (_I,) * 5 + (_F, _P),
-    "ptt_flash_attention_dkv": (_P,) * 10 + (_I,) * 5 + (_F, _P),
+    "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _P),
+    "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 6 + (_F, _P),
+    "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 6 + (_F, _P),
     "ptt_softmax_xent_fwd": (_P,) * 3 + (_I, _I, _P),
     "ptt_softmax_xent_bwd": (_P,) * 4 + (_I, _I, _P),
 }

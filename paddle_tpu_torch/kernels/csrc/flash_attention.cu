@@ -1,6 +1,10 @@
 // flash_attention: blocked online-softmax attention over q [BH, Tq, d] and
 // k, v [BH, Tk, d], float32, with an optional additive key bias kb [BH, Tk]
-// and causal masking (Tq == Tk, query i sees keys 0 .. i).  Three kernels:
+// and causal masking.  Query row i of head row b sits at global position
+// base(b) + i and, causal, sees keys 0 .. base(b) + i, where the optional
+// query base is read on the device: qbase[b * qstride] (stride 0: one
+// scalar offset for every row; stride 1: a [BH] vector of per-row bases).
+// With no base, base(b) = 0 and causal needs Tq == Tk.  Three kernels:
 //
 //   forward  o = softmax(q k^T * scale + kb) v, and lse [BH, Tq], the row
 //            log-sum-exp the backward rebuilds the probabilities from;
@@ -13,7 +17,12 @@
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py flash_attention (_flash_fwd,
 // kernel body _flash_fwd_kernel; _flash_bwd, kernel bodies _flash_dq_kernel
-// and _flash_dkv_kernel; causal block skip _band).  The window and segment
+// and _flash_dkv_kernel; causal block skip _band), and the same three
+// pallas_calls with a query base: flash_attention_piece (scalar qoff, the
+// chunked-decode and ring-attention piece) and the backward of
+// flash_attention_qvec (per-row qvec).  The piece's lse cotangent folds
+// into delta in the caller (delta = rowsum(o * dO) - dlse, as _flash_bwd
+// does), so the kernels do not change for it.  The window and segment
 // forms are not ported here.
 //
 // Bound on the card: operations.  At the GPT-2 training shapes (BH 96, T
@@ -40,10 +49,11 @@
 // row-major operand; each thread owns 4 rows x d/16 output columns.  The
 // online softmax keeps each row's running max and sum in registers; a
 // row's 64 scores sit in 16 lanes of one half-warp, reduced with xor
-// shuffles (every lane ends with the same bits).  Key tiles wholly above
-// the diagonal are skipped (the _band block skip); the diagonal tile and
-// the ragged tails of Tq and Tk are masked in the kernel: a masked score
-// contributes exactly zero.  The backward keeps the reference's guard
+// shuffles (every lane ends with the same bits).  Key tiles wholly past a
+// tile's last query (in global positions) are skipped (the _band block
+// skip), and so are query tiles wholly before a key tile in dk/dv; the
+// diagonal tile and the ragged tails of Tq and Tk are masked in the
+// kernel: a masked score contributes exactly zero.  The backward keeps the reference's guard
 // lse <= NEG_INF / 2 -> p = 0.  No atomics: every sum runs in a fixed
 // order, so a result is a pure function of the inputs.
 #include "common.cuh"
@@ -103,13 +113,21 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0,
   }
 }
 
-// the number of key tiles a query tile [q0, q0 + BQ) reads: with causal
-// masking none past its last query (the _band block skip)
-__device__ __forceinline__ int key_tiles(int q0, int Tq, int Tk, bool causal) {
+// the number of key tiles a query tile [q0, q0 + BQ) of a row with query
+// base qpos0 reads: with causal masking none past the global position of
+// its last query (the _band block skip)
+__device__ __forceinline__ int key_tiles(int q0, int Tq, int Tk, bool causal,
+                                         int qpos0) {
   const int nk = (Tk + BK - 1) / BK;
   if (!causal) return nk;
-  const int last = min(q0 + BQ, Tq) - 1;
+  const int last = qpos0 + min(q0 + BQ, Tq) - 1;
+  if (last < 0) return 0;
   return min(nk, last / BK + 1);
+}
+
+// the row's query base: qbase[bh * qstride], or 0 without one
+__device__ __forceinline__ int query_base(const int* qbase, int qstride, int bh) {
+  return qbase != nullptr ? qbase[static_cast<long>(bh) * qstride] : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -119,8 +137,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ kb,
-    float* __restrict__ o, float* __restrict__ lse, int Tq, int Tk,
-    bool causal, float scale) {
+    const int* __restrict__ qbase, float* __restrict__ o,
+    float* __restrict__ lse, int Tq, int Tk, bool causal, int qstride,
+    float scale) {
   constexpr int G = D / 64;  // column groups of 64: thread columns g*64 + tx*4 + e
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [D][BQ], q * scale
@@ -132,6 +151,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
   const int nq = gridDim.y;
   const int q0 = (causal ? nq - 1 - blockIdx.y : blockIdx.y) * BQ;  // heavy tiles first
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int qpos0 = query_base(qbase, qstride, bh);
   const float* qb = q + static_cast<long>(bh) * Tq * D;
   const float* kbase = k + static_cast<long>(bh) * Tk * D;
   const float* vbase = v + static_cast<long>(bh) * Tk * D;
@@ -146,7 +166,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
     for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kt = key_tiles(q0, Tq, Tk, causal);
+  const int n_kt = key_tiles(q0, Tq, Tk, causal, qpos0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // Q is staged; the previous tile's K, V, P are consumed
@@ -176,12 +196,13 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qrow = q0 + ty * 4 + i;
+      const int qpos = qpos0 + qrow;
       bool valid[4];
       float mx = ptt::kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx * 4 + j;
-        valid[j] = key < Tk && (!causal || key <= qrow);
+        valid[j] = key < Tk && (!causal || key <= qpos);
         s[i][j] = valid[j] ? s[i][j] + kbs[tx * 4 + j] : ptt::kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -249,8 +270,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ kb,
     const float* __restrict__ lse, const float* __restrict__ dout,
-    const float* __restrict__ delta, float* __restrict__ dq, int Tq, int Tk,
-    bool causal, float scale) {
+    const float* __restrict__ delta, const int* __restrict__ qbase,
+    float* __restrict__ dq, int Tq, int Tk, bool causal, int qstride,
+    float scale) {
   constexpr int G = D / 64;
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [D][BQ]
@@ -265,6 +287,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
   const int q0 = (causal ? nq - 1 - blockIdx.y : blockIdx.y) * BQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long qoff = static_cast<long>(bh) * Tq;
+  const int qpos0 = query_base(qbase, qstride, bh);
   const float* kbase = k + static_cast<long>(bh) * Tk * D;
   const float* vbase = v + static_cast<long>(bh) * Tk * D;
 
@@ -280,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
     for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kt = key_tiles(q0, Tq, Tk, causal);
+  const int n_kt = key_tiles(q0, Tq, Tk, causal, qpos0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
@@ -321,7 +344,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx * 4 + j;
-        const bool valid = live && key < Tk && (!causal || key <= qrow);
+        const bool valid = live && key < Tk && (!causal || key <= qpos0 + qrow);
         const float p = valid ? expf(s[i][j] * scale + kbs[tx * 4 + j] - lse_r[i]) : 0.f;
         ds[j] = p * (dp[i][j] - delta_r[i]);
       }
@@ -372,9 +395,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ kb,
     const float* __restrict__ lse, const float* __restrict__ dout,
-    const float* __restrict__ delta, float* __restrict__ dk,
-    float* __restrict__ dv, float* __restrict__ dkb, int Tq, int Tk,
-    bool causal, float scale) {
+    const float* __restrict__ delta, const int* __restrict__ qbase,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dkb,
+    int Tq, int Tk, bool causal, int qstride, float scale) {
   constexpr int G = D / 64;
   constexpr int QPT = QB / 16;  // queries of the score tile per thread
   extern __shared__ float4 smem4[];
@@ -392,7 +415,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long qoff = static_cast<long>(bh) * Tq;
   const long koff = static_cast<long>(bh) * Tk;
-  const float* qbase = q + qoff * D;
+  const int qpos0 = query_base(qbase, qstride, bh);
+  const float* qrows = q + qoff * D;
   const float* obase = dout + qoff * D;
 
   load_t<D>(Kt, k + koff * D, k0, BK, Tk, 1.f);
@@ -408,14 +432,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
   }
 
   const int nqt = (Tq + QB - 1) / QB;
-  // causal: a query tile that ends before this key tile sees none of it
-  const int qt_start = causal ? k0 / QB : 0;
+  // causal: a query tile whose last query (global position qpos0 + q0 +
+  // QB - 1) comes before this key tile sees none of it
+  const int qt_start = causal ? max(0, (k0 - qpos0) / QB) : 0;
   for (int qt = qt_start; qt < nqt; ++qt) {
     const int q0 = qt * QB;
     __syncthreads();  // K, V are staged; the previous query tile is consumed
-    load_t<D>(Qt, qbase, q0, QB, Tq, 1.f);
+    load_t<D>(Qt, qrows, q0, QB, Tq, 1.f);
     load_t<D>(dOt, obase, q0, QB, Tq, 1.f);
-    load_rows<D>(Qs, qbase, q0, QB, Tq);
+    load_rows<D>(Qs, qrows, q0, QB, Tq);
     load_rows<D>(dOs, obase, q0, QB, Tq);
     if (threadIdx.x < QB) {
       const int r = q0 + threadIdx.x;
@@ -457,7 +482,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
         const int rl = tx * QPT + j;
         const int qrow = q0 + rl;
         const float lse_v = lse_s[rl];
-        const bool valid = key < Tk && qrow < Tq && (!causal || key <= qrow) &&
+        const bool valid = key < Tk && qrow < Tq && (!causal || key <= qpos0 + qrow) &&
                            lse_v > ptt::kNegInf / 2;
         p[j] = valid ? expf(st[i][j] * scale + kbv[i] - lse_v) : 0.f;
         ds[j] = p[j] * (dpt[i][j] - delta_s[rl]);
@@ -527,95 +552,108 @@ int prepare(K kernel, size_t smem) {
 
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, const float* kb,
-               float* o, float* lse, int BH, int Tq, int Tk, bool causal,
-               float scale, cudaStream_t stream) {
+               const int* qbase, float* o, float* lse, int BH, int Tq, int Tk,
+               bool causal, int qstride, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * 64 + 64 * D + 64 * 64);
   static int ready = prepare(fwd_kernel<D>, smem);
   if (ready != 0) return ready;
   const dim3 grid(BH, (Tq + BQ - 1) / BQ);
-  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, kb, o, lse, Tq, Tk,
-                                                   causal, scale);
+  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, kb, qbase, o, lse, Tq,
+                                                   Tk, causal, qstride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const float* q, const float* k, const float* v, const float* kb,
               const float* lse, const float* dout, const float* delta,
-              float* dq, int BH, int Tq, int Tk, bool causal, float scale,
-              cudaStream_t stream) {
+              const int* qbase, float* dq, int BH, int Tq, int Tk, bool causal,
+              int qstride, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * D * 64 + 64 * D + 64 * 64);
   static int ready = prepare(dq_kernel<D>, smem);
   if (ready != 0) return ready;
   const dim3 grid(BH, (Tq + BQ - 1) / BQ);
   dq_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, kb, lse, dout, delta,
-                                                  dq, Tq, Tk, causal, scale);
+                                                  qbase, dq, Tq, Tk, causal,
+                                                  qstride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int QB>
 int launch_dkv(const float* q, const float* k, const float* v, const float* kb,
                const float* lse, const float* dout, const float* delta,
-               float* dk, float* dv, float* dkb, int BH, int Tq, int Tk,
-               bool causal, float scale, cudaStream_t stream) {
+               const int* qbase, float* dk, float* dv, float* dkb, int BH,
+               int Tq, int Tk, bool causal, int qstride, float scale,
+               cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * BK + 4 * D * QB + 2 * BK * QB);
   static int ready = prepare(dkv_kernel<D, QB>, smem);
   if (ready != 0) return ready;
   const dim3 grid(BH, (Tk + BK - 1) / BK);
   dkv_kernel<D, QB><<<grid, kThreads, smem, stream>>>(
-      q, k, v, kb, lse, dout, delta, dk, dv, dkb, Tq, Tk, causal, scale);
+      q, k, v, kb, lse, dout, delta, qbase, dk, dv, dkb, Tq, Tk, causal, qstride,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// kb [BH, Tk] or null; o [BH, Tq, d]; lse [BH, Tq].  causal needs Tq == Tk.
+// kb [BH, Tk] or null; qbase (int32, read at b * qstride) or null;
+// o [BH, Tq, d]; lse [BH, Tq].  causal without a query base needs Tq == Tk.
 extern "C" int ptt_flash_attention_fwd(const float* q, const float* k,
                                        const float* v, const float* kb,
-                                       float* o, float* lse, int BH, int Tq,
-                                       int Tk, int d, int causal, float scale,
+                                       const int* qbase, float* o, float* lse,
+                                       int BH, int Tq, int Tk, int d,
+                                       int causal, int qstride, float scale,
                                        cudaStream_t stream) {
   if (BH == 0 || Tq == 0) return static_cast<int>(cudaSuccess);
-  if (Tk == 0 || (causal && Tq != Tk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (Tk == 0 || (causal && qbase == nullptr && Tq != Tk) || qstride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
-    return launch_fwd<64>(q, k, v, kb, o, lse, BH, Tq, Tk, causal != 0, scale, stream);
+    return launch_fwd<64>(q, k, v, kb, qbase, o, lse, BH, Tq, Tk, causal != 0, qstride,
+                          scale, stream);
   if (d == 128)
-    return launch_fwd<128>(q, k, v, kb, o, lse, BH, Tq, Tk, causal != 0, scale, stream);
+    return launch_fwd<128>(q, k, v, kb, qbase, o, lse, BH, Tq, Tk, causal != 0, qstride,
+                           scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// delta [BH, Tq] = rowsum(o * dout); dq [BH, Tq, d]
+// delta [BH, Tq] = rowsum(o * dout) (minus the lse cotangent, if any);
+// dq [BH, Tq, d]
 extern "C" int ptt_flash_attention_dq(const float* q, const float* k,
                                       const float* v, const float* kb,
-                                      const float* lse, const float* dout,
-                                      const float* delta, float* dq, int BH,
-                                      int Tq, int Tk, int d, int causal,
-                                      float scale, cudaStream_t stream) {
+                                      const int* qbase, const float* lse,
+                                      const float* dout, const float* delta,
+                                      float* dq, int BH, int Tq, int Tk, int d,
+                                      int causal, int qstride, float scale,
+                                      cudaStream_t stream) {
   if (BH == 0 || Tq == 0) return static_cast<int>(cudaSuccess);
-  if (Tk == 0 || (causal && Tq != Tk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (Tk == 0 || (causal && qbase == nullptr && Tq != Tk) || qstride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
-    return launch_dq<64>(q, k, v, kb, lse, dout, delta, dq, BH, Tq, Tk, causal != 0,
-                         scale, stream);
+    return launch_dq<64>(q, k, v, kb, lse, dout, delta, qbase, dq, BH, Tq, Tk,
+                         causal != 0, qstride, scale, stream);
   if (d == 128)
-    return launch_dq<128>(q, k, v, kb, lse, dout, delta, dq, BH, Tq, Tk, causal != 0,
-                          scale, stream);
+    return launch_dq<128>(q, k, v, kb, lse, dout, delta, qbase, dq, BH, Tq, Tk,
+                          causal != 0, qstride, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dk, dv [BH, Tk, d]; dkb [BH, Tk] or null (no key bias)
 extern "C" int ptt_flash_attention_dkv(const float* q, const float* k,
                                        const float* v, const float* kb,
-                                       const float* lse, const float* dout,
-                                       const float* delta, float* dk,
-                                       float* dv, float* dkb, int BH, int Tq,
-                                       int Tk, int d, int causal, float scale,
+                                       const int* qbase, const float* lse,
+                                       const float* dout, const float* delta,
+                                       float* dk, float* dv, float* dkb,
+                                       int BH, int Tq, int Tk, int d,
+                                       int causal, int qstride, float scale,
                                        cudaStream_t stream) {
   if (BH == 0 || Tk == 0) return static_cast<int>(cudaSuccess);
-  if (Tq == 0 || (causal && Tq != Tk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (Tq == 0 || (causal && qbase == nullptr && Tq != Tk) || qstride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
-    return launch_dkv<64, 64>(q, k, v, kb, lse, dout, delta, dk, dv, dkb, BH, Tq, Tk,
-                              causal != 0, scale, stream);
+    return launch_dkv<64, 64>(q, k, v, kb, lse, dout, delta, qbase, dk, dv, dkb, BH, Tq,
+                              Tk, causal != 0, qstride, scale, stream);
   if (d == 128)
-    return launch_dkv<128, 32>(q, k, v, kb, lse, dout, delta, dk, dv, dkb, BH, Tq, Tk,
-                               causal != 0, scale, stream);
+    return launch_dkv<128, 32>(q, k, v, kb, lse, dout, delta, qbase, dk, dv, dkb, BH, Tq,
+                               Tk, causal != 0, qstride, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,6 +7,11 @@
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py flash_attention_qvec
 // (_flash_fwd with qvec, kernel body _flash_fwd_kernel, block skip _band).
+// Like _flash_fwd it can also give each query row's log-sum-exp, lse [BH,
+// Tq] = m + log(l) from the (m, l) it already holds, through an optional
+// pointer: the backward (flash_attention.cu's dq and dk/dv with a per-row
+// query base) rebuilds the probabilities from it.  The serving step passes
+// null, and its output bits do not depend on it.
 //
 // Bound on the card: memory.  A decode step reads the live K/V prefix of
 // every row (2 * 4 * d bytes per key) and does about 4 d flops per key and
@@ -44,13 +49,14 @@ constexpr int BKV = 32;      // keys per shared-memory tile (one per lane)
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = BQ / kWarps;
 
-// With one slice (gridDim.z == 1) it writes o; otherwise slice blockIdx.z's
-// partials: part_o [BH, Tq, slices, D] and part_ml [BH, Tq, slices, 2].
+// With one slice (gridDim.z == 1) it writes o (and lse, if not null);
+// otherwise slice blockIdx.z's partials: part_o [BH, Tq, slices, D] and
+// part_ml [BH, Tq, slices, 2].
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32) qvec_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ qstart,
-    float* __restrict__ o, float* __restrict__ part_o,
+    float* __restrict__ o, float* __restrict__ lse, float* __restrict__ part_o,
     float* __restrict__ part_ml, int Tq, int Tk, int kv_chunk, float scale) {
   constexpr int DPL = D / 32;  // output columns per lane
   __shared__ float Qs[BQ][D];
@@ -135,6 +141,8 @@ __global__ void __launch_bounds__(kWarps * 32) qvec_kernel(
 #pragma unroll
       for (int dd = 0; dd < DPL; ++dd)
         o[qbase + static_cast<long>(q0 + r) * D + lane + 32 * dd] = acc[rr][dd] / safe_l;
+      if (lse != nullptr && lane == 0)
+        lse[static_cast<long>(bh) * Tq + q0 + r] = m[rr] + logf(safe_l);
     } else {
       const long prow = (static_cast<long>(bh) * Tq + q0 + r) * slices + blockIdx.z;
 #pragma unroll
@@ -152,7 +160,7 @@ __global__ void __launch_bounds__(kWarps * 32) qvec_kernel(
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32) qvec_combine(
     const float* __restrict__ part_o, const float* __restrict__ part_ml,
-    float* __restrict__ o, int rows, int slices) {
+    float* __restrict__ o, float* __restrict__ lse, int rows, int slices) {
   constexpr int DPL = D / 32;
   const long row = static_cast<long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -173,44 +181,46 @@ __global__ void __launch_bounds__(kWarps * 32) qvec_combine(
   const float safe_l = l == 0.f ? 1.f : l;
 #pragma unroll
   for (int dd = 0; dd < DPL; ++dd) o[row * D + lane + 32 * dd] = acc[dd] / safe_l;
+  if (lse != nullptr && lane == 0) lse[row] = mx + logf(safe_l);
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const int* qstart,
-           float* o, float* part_o, float* part_ml, int BH, int Tq, int Tk,
-           int kv_chunk, float scale, cudaStream_t stream) {
+           float* o, float* lse, float* part_o, float* part_ml, int BH, int Tq,
+           int Tk, int kv_chunk, float scale, cudaStream_t stream) {
   const int slices = Tk > kv_chunk ? (Tk + kv_chunk - 1) / kv_chunk : 1;
   if (slices > 1 && (part_o == nullptr || part_ml == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(BH, (Tq + BQ - 1) / BQ, slices);
-  qvec_kernel<D><<<grid, kWarps * 32, 0, stream>>>(q, k, v, qstart, o, part_o,
-                                                   part_ml, Tq, Tk, kv_chunk,
-                                                   scale);
+  qvec_kernel<D><<<grid, kWarps * 32, 0, stream>>>(q, k, v, qstart, o, lse,
+                                                   part_o, part_ml, Tq, Tk,
+                                                   kv_chunk, scale);
   if (slices > 1) {
     const int rows = BH * Tq;
     qvec_combine<D><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
-        part_o, part_ml, o, rows, slices);
+        part_o, part_ml, o, lse, rows, slices);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// part_o [BH, Tq, slices, d] and part_ml [BH, Tq, slices, 2] floats, with
-// slices = ceil(Tk / kv_chunk), when Tk > kv_chunk; else unused
+// lse [BH, Tq] or null; part_o [BH, Tq, slices, d] and part_ml [BH, Tq,
+// slices, 2] floats, with slices = ceil(Tk / kv_chunk), when Tk > kv_chunk;
+// else unused
 extern "C" int ptt_flash_attention_qvec(const float* q, const float* k,
                                         const float* v, const int* qstart,
-                                        float* o, float* part_o,
+                                        float* o, float* lse, float* part_o,
                                         float* part_ml, int BH, int Tq,
                                         int Tk, int d, int kv_chunk,
                                         float scale, cudaStream_t stream) {
   if (BH == 0 || Tq == 0) return static_cast<int>(cudaSuccess);
   if (kv_chunk <= 0 || kv_chunk % BKV != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
-    return launch<64>(q, k, v, qstart, o, part_o, part_ml, BH, Tq, Tk, kv_chunk,
+    return launch<64>(q, k, v, qstart, o, lse, part_o, part_ml, BH, Tq, Tk, kv_chunk,
                       scale, stream);
   if (d == 128)
-    return launch<128>(q, k, v, qstart, o, part_o, part_ml, BH, Tq, Tk, kv_chunk,
+    return launch<128>(q, k, v, qstart, o, lse, part_o, part_ml, BH, Tq, Tk, kv_chunk,
                        scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,7 @@
-"""Flash attention: the training form (forward, dq, dk/dv) and the
-per-row offset-causal serving form (forward).
+"""Flash attention: the training form (forward, dq, dk/dv), the
+chunked-decode / ring piece (forward, dq, dk/dv with a scalar query
+offset) and the per-row offset-causal serving form (forward, dq,
+dk/dv with a per-row query base).
 
 ``flash_attention`` replaces ``paddle_tpu/ops/pallas_kernels.py``
 ``flash_attention``: the forward ``_flash_fwd`` (kernel body
@@ -7,40 +9,58 @@ per-row offset-causal serving form (forward).
 dk/dv calls run ``_flash_dq_kernel`` and ``_flash_dkv_kernel``.  The
 CUDA kernels are ``csrc/flash_attention.cu``.  Over q [BH, Tq, d] and
 k, v [BH, Tk, d] with an optional additive key bias [BH, Tk] and causal
-masking (Tq == Tk):
+masking:
 
     s = q k^T * scale + kbias,   lse = logsumexp(s),   o = exp(s - lse) v
 
 and the backward rebuilds p = exp(s - lse) from the saved lse:
 
-    delta = rowsum(o * do),   ds = p * (do v^T - delta),
+    delta = rowsum(o * do) - dlse,   ds = p * (do v^T - delta),
     dq = scale * ds k,   dk = scale * ds^T q,   dv = p^T do,
-    dkbias = column sums of ds.
+    dkbias = column sums of ds,
+
+where dlse, the cotangent of the lse output, is zero except for the
+piece.  Causal masking is in global positions: query i of head row b
+sits at base(b) + i and sees keys 0 .. base(b) + i.  The three forms
+differ only in the base, which the same three kernels read on the
+device (no host sync on a position):
+
+- ``flash_attention`` (B3): base 0, Tq == Tk when causal;
+- ``flash_attention_piece`` (B9, the reference's ``flash_attention_piece``:
+  ``_flash_fwd``/``_flash_bwd`` with a scalar ``qoff``): one offset for
+  every row, Tq != Tk allowed; returns (o, lse), differentiable through
+  both (the lse cotangent folds into delta, as ``_flash_bwd`` does);
+- ``flash_attention_qvec`` (B8, ``_flash_fwd``/``_flash_bwd`` with
+  ``qvec``): a [BH] base per row.  Its forward is
+  ``csrc/flash_attention_qvec.cu`` (a key-split kernel for the serving
+  step's few rows), which gives the lse the backward needs only when a
+  gradient is wanted; the serving step asks for none.
 
 ``flash_attention_plain`` (o, lse) and ``flash_attention_grad_plain``
-(dq, dk, dv, dkbias) are the plain PyTorch versions (the reference's
-``_dense_attention``, with its lse): CPU and meta tensors take them,
-CUDA tensors launch the kernels.  ``flash_attention`` is a
-``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): its
-forward saves o and lse, its backward launches dq and dk/dv.  The
-sliding-window and segment-id forms are still to be ported (ROADMAP
+(dq, dk, dv, dkbias) are the plain PyTorch versions of all three (the
+reference's ``_dense_attention``, with its lse);
+``flash_attention_piece_plain`` and ``flash_attention_piece_grad_plain``
+name the piece's, ``flash_attention_qvec_plain`` the serving forward's.
+CPU and meta tensors take them, CUDA tensors launch the kernels or
+raise.  The forms are ``torch.autograd.Function``s (the reference's
+``jax.custom_vjp``): the forward saves o and lse, the backward launches
+dq and dk/dv in a nested function.  Each form counts its own launches.
+The sliding-window and segment-id forms are still to be ported (ROADMAP
 B3-window/segments): they raise on CUDA tensors.
-
-``flash_attention_qvec`` replaces ``flash_attention_qvec`` (``_flash_fwd``
-with ``qvec``); the CUDA kernel is ``csrc/flash_attention_qvec.cu``.
-``flash_attention_qvec_plain`` is its plain version (the dense
-vector-QStart branch of the reference's ``fused_attention`` lowering).
-Its backward (dq, dk/dv) is still to be ported, see ROADMAP.
 """
 
 import torch
 
 from . import build
 
-__all__ = ["flash_attention", "flash_attention_plain",
+__all__ = ["flash_attention", "flash_attention_plain", "attention_scores",
            "flash_attention_grad_plain", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv",
-           "flash_attention_qvec", "flash_attention_qvec_plain", "NEG_INF"]
+           "flash_attention_piece", "flash_attention_piece_plain",
+           "flash_attention_piece_grad_plain", "flash_attention_piece_fwd",
+           "flash_attention_piece_dq", "flash_attention_piece_dkv",
+           "flash_attention_qvec", "flash_attention_qvec_plain",
+           "flash_attention_qvec_dq", "flash_attention_qvec_dkv", "NEG_INF"]
 
 NEG_INF = -1e30
 # the qvec kernel's fixed key split: keys in slices of this many (a
@@ -48,39 +68,45 @@ NEG_INF = -1e30
 KV_CHUNK = 128
 
 
-def _scores(q, k, kbias, causal, scale):
+def attention_scores(q, k, kbias, causal, scale, qbase=None, window=0):
     """[BH, Tq, Tk] float32 scores with the key bias and the causal mask
-    (NEG_INF) applied."""
+    (NEG_INF) applied; query i of row b at global position qbase[b] + i
+    (a one-element qbase serves every row), keys at their indices."""
     s = torch.einsum("bqd,bkd->bqk", q, k).float() * float(scale)
     if kbias is not None:
         s = s + kbias[:, None, :].float()
     if causal:
         tq, tk = q.shape[1], k.shape[1]
-        keep = (torch.arange(tq, device=q.device)[:, None]
-                >= torch.arange(tk, device=q.device)[None, :])
-        s = torch.where(keep[None], s, torch.full((), NEG_INF,
-                                                  device=q.device))
+        q_pos = torch.arange(tq, device=q.device)[None, :]
+        if qbase is not None:
+            q_pos = qbase.reshape(-1, 1).to(q.device).long() + q_pos
+        gap = q_pos[:, :, None] - torch.arange(tk, device=q.device)
+        keep = gap >= 0
+        if window:
+            keep = keep & (gap < int(window))
+        s = torch.where(keep, s, torch.full((), NEG_INF, device=q.device))
     return s
 
 
-def flash_attention_plain(q, k, v, kbias=None, causal=False, scale=None):
+def flash_attention_plain(q, k, v, kbias=None, causal=False, scale=None,
+                          qbase=None, window=0):
     """(o [BH, Tq, d], lse [BH, Tq] float32)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = _scores(q, k, kbias, causal, scale)
+    s = attention_scores(q, k, kbias, causal, scale, qbase, window)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v), lse
 
 
 def flash_attention_grad_plain(q, k, v, kbias, lse, do, delta, causal=False,
-                               scale=None):
+                               scale=None, qbase=None, window=0):
     """(dq, dk, dv, dkbias [BH, Tk] float32) from the saved lse and
-    delta = rowsum(o * do); rows whose lse is the NEG_INF sentinel take
-    no gradient (the reference's guard)."""
+    delta = rowsum(o * do) - dlse; rows whose lse is the NEG_INF
+    sentinel take no gradient (the reference's guard)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = _scores(q, k, kbias, causal, scale)
+    s = attention_scores(q, k, kbias, causal, scale, qbase, window)
     lse = lse.float()[..., None]
     p = torch.where(lse <= NEG_INF / 2, torch.zeros((), device=q.device),
                     torch.exp(s - lse))
@@ -93,7 +119,30 @@ def flash_attention_grad_plain(q, k, v, kbias, lse, do, delta, causal=False,
     return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(1))
 
 
-def _check(name, q, k, v, kbias, causal, *rows):
+def _delta(o, do, dlse=None):
+    """rowsum(o * do) - dlse: the backward's per-row term, with the lse
+    cotangent folded in."""
+    delta = (do.float() * o.float()).sum(-1)
+    return delta if dlse is None else delta - dlse.float()
+
+
+def flash_attention_piece_plain(q, k, v, causal=False, scale=None, qoff=None,
+                                window=0):
+    """The piece's (o, lse): attention of the query chunk at global
+    offset qoff (a one-element int tensor) against one K/V chunk, o
+    normalized within the chunk."""
+    return flash_attention_plain(q, k, v, None, causal, scale, qoff, window)
+
+
+def flash_attention_piece_grad_plain(q, k, v, o, lse, do, dlse, causal=False,
+                                     scale=None, qoff=None, window=0):
+    """The piece's (dq, dk, dv) from the cotangents of both outputs."""
+    return flash_attention_grad_plain(q, k, v, None, lse, do,
+                                      _delta(o, do, dlse), causal, scale,
+                                      qoff, window)[:3]
+
+
+def _check(name, q, k, v, kbias, causal, qbase, *rows):
     build.check_inputs(name, q, k, v, *rows,
                        *(() if kbias is None else (kbias,)))
     bh, tq, d = q.shape
@@ -103,9 +152,12 @@ def _check(name, q, k, v, kbias, causal, *rows):
         raise ValueError("%s: shapes q %s k %s v %s kbias %s" % (
             name, tuple(q.shape), tuple(k.shape), tuple(v.shape),
             None if kbias is None else tuple(kbias.shape)))
-    if causal and tq != tk:
+    if causal and qbase is None and tq != tk:
         raise ValueError("%s: causal requires Tq == Tk, got %d vs %d"
                          % (name, tq, tk))
+    if qbase is not None and qbase.numel() not in (1, bh):
+        raise ValueError("%s: the query base has %d entries, not 1 or BH = "
+                         "%d" % (name, qbase.numel(), bh))
     if d not in (64, 128):
         raise ValueError("%s: the CUDA kernels are built for head dims 64 "
                          "and 128, got %d" % (name, d))
@@ -115,75 +167,212 @@ def _check(name, q, k, v, kbias, causal, *rows):
     return bh, tq, tk, d
 
 
-def flash_attention_fwd(q, k, v, kbias=None, causal=False, scale=None):
-    """Forward kernel: (o, lse)."""
-    if not build.use_kernel(q):
-        return flash_attention_plain(q, k, v, kbias, causal, scale)
-    bh, tq, tk, d = _check("flash_attention_fwd", q, k, v, kbias, causal)
+def _qbase_arg(qbase, device):
+    """(int32 tensor on the device, stride): stride 0 reads one offset
+    for every row, stride 1 one base per row; a device-side cast, no
+    host sync."""
+    if qbase is None:
+        return None, 0
+    qb = qbase.reshape(-1).to(device=device, dtype=torch.int32).contiguous()
+    return qb, int(qb.numel() > 1)
+
+
+def _no_window(name, window):
+    if window:
+        raise NotImplementedError(
+            "%s with a sliding window has no CUDA kernel yet (ROADMAP "
+            "B3-window/segments); it runs on CPU tensors only" % name)
+
+
+def _fwd(name, q, k, v, kbias, causal, scale, qbase=None):
+    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase)
     if scale is None:
         scale = d ** -0.5
+    qb, stride = _qbase_arg(qbase, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    build.launch("ptt_flash_attention_fwd", q, k, v, kbias, o, lse, bh, tq,
-                 tk, d, int(bool(causal)), float(scale))
-    flash_attention_fwd.launches += 1
+    build.launch("ptt_flash_attention_fwd", q, k, v, kbias, qb, o, lse, bh,
+                 tq, tk, d, int(bool(causal)), stride, float(scale))
     return o, lse
+
+
+def _dq(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None):
+    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase, lse, do,
+                           delta)
+    if scale is None:
+        scale = d ** -0.5
+    qb, stride = _qbase_arg(qbase, q.device)
+    dq = torch.empty_like(q)
+    build.launch("ptt_flash_attention_dq", q, k, v, kbias, qb, lse, do, delta,
+                 dq, bh, tq, tk, d, int(bool(causal)), stride, float(scale))
+    return dq
+
+
+def _dkv(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None):
+    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase, lse, do,
+                           delta)
+    if scale is None:
+        scale = d ** -0.5
+    qb, stride = _qbase_arg(qbase, q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dkb = (torch.empty((bh, tk), dtype=torch.float32, device=q.device)
+           if kbias is not None else None)
+    build.launch("ptt_flash_attention_dkv", q, k, v, kbias, qb, lse, do,
+                 delta, dk, dv, dkb, bh, tq, tk, d, int(bool(causal)), stride,
+                 float(scale))
+    return dk, dv, dkb
+
+
+def flash_attention_fwd(q, k, v, kbias=None, causal=False, scale=None):
+    """B3's forward kernel: (o, lse)."""
+    if not build.use_kernel(q):
+        return flash_attention_plain(q, k, v, kbias, causal, scale)
+    out = _fwd("flash_attention_fwd", q, k, v, kbias, causal, scale)
+    flash_attention_fwd.launches += 1
+    return out
 
 
 def flash_attention_dq(q, k, v, kbias, lse, do, delta, causal=False,
                        scale=None):
-    """dq kernel: one block per query tile walks the key tiles in order."""
+    """B3's dq kernel: one block per query tile walks the key tiles in
+    order."""
     if not build.use_kernel(q):
         return flash_attention_grad_plain(q, k, v, kbias, lse, do, delta,
                                           causal, scale)[0]
-    bh, tq, tk, d = _check("flash_attention_dq", q, k, v, kbias, causal,
-                           lse, do, delta)
-    if scale is None:
-        scale = d ** -0.5
-    dq = torch.empty_like(q)
-    build.launch("ptt_flash_attention_dq", q, k, v, kbias, lse, do, delta, dq,
-                 bh, tq, tk, d, int(bool(causal)), float(scale))
+    dq = _dq("flash_attention_dq", q, k, v, kbias, lse, do, delta, causal,
+             scale)
     flash_attention_dq.launches += 1
     return dq
 
 
 def flash_attention_dkv(q, k, v, kbias, lse, do, delta, causal=False,
                         scale=None):
-    """dk/dv kernel: (dk, dv, dkbias or None); one block per key tile
-    walks the query tiles in order."""
+    """B3's dk/dv kernel: (dk, dv, dkbias or None); one block per key
+    tile walks the query tiles in order."""
     if not build.use_kernel(q):
         _, dk, dv, dkb = flash_attention_grad_plain(q, k, v, kbias, lse, do,
                                                     delta, causal, scale)
         return dk, dv, (dkb if kbias is not None else None)
-    bh, tq, tk, d = _check("flash_attention_dkv", q, k, v, kbias, causal,
-                           lse, do, delta)
-    if scale is None:
-        scale = d ** -0.5
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    dkb = (torch.empty((bh, tk), dtype=torch.float32, device=q.device)
-           if kbias is not None else None)
-    build.launch("ptt_flash_attention_dkv", q, k, v, kbias, lse, do, delta,
-                 dk, dv, dkb, bh, tq, tk, d, int(bool(causal)), float(scale))
+    out = _dkv("flash_attention_dkv", q, k, v, kbias, lse, do, delta, causal,
+               scale)
     flash_attention_dkv.launches += 1
-    return dk, dv, dkb
+    return out
 
 
-for _fn in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv):
+def flash_attention_piece_fwd(q, k, v, causal=False, scale=None, qoff=None,
+                              window=0):
+    """B9's forward: the based forward kernel with one offset for every
+    row; (o, lse)."""
+    if not build.use_kernel(q):
+        return flash_attention_piece_plain(q, k, v, causal, scale, qoff,
+                                           window)
+    _no_window("flash_attention_piece", window)
+    out = _fwd("flash_attention_piece_fwd", q, k, v, None, causal, scale,
+               qoff)
+    flash_attention_piece_fwd.launches += 1
+    return out
+
+
+def flash_attention_piece_dq(q, k, v, lse, do, delta, causal=False,
+                             scale=None, qoff=None, window=0):
+    """B9's dq: the based dq kernel with one offset for every row."""
+    if not build.use_kernel(q):
+        return flash_attention_grad_plain(q, k, v, None, lse, do, delta,
+                                          causal, scale, qoff, window)[0]
+    _no_window("flash_attention_piece", window)
+    dq = _dq("flash_attention_piece_dq", q, k, v, None, lse, do, delta,
+             causal, scale, qoff)
+    flash_attention_piece_dq.launches += 1
+    return dq
+
+
+def flash_attention_piece_dkv(q, k, v, lse, do, delta, causal=False,
+                              scale=None, qoff=None, window=0):
+    """B9's dk/dv: (dk, dv) from the based dk/dv kernel."""
+    if not build.use_kernel(q):
+        return flash_attention_grad_plain(q, k, v, None, lse, do, delta,
+                                          causal, scale, qoff, window)[1:3]
+    _no_window("flash_attention_piece", window)
+    dk, dv, _ = _dkv("flash_attention_piece_dkv", q, k, v, None, lse, do,
+                     delta, causal, scale, qoff)
+    flash_attention_piece_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_qvec_dq(q, k, v, lse, do, delta, qstart, scale=None):
+    """B8's dq: the based dq kernel with one base per row (causal)."""
+    if not build.use_kernel(q):
+        return flash_attention_grad_plain(q, k, v, None, lse, do, delta, True,
+                                          scale, qstart)[0]
+    dq = _dq("flash_attention_qvec_dq", q, k, v, None, lse, do, delta, True,
+             scale, qstart)
+    flash_attention_qvec_dq.launches += 1
+    return dq
+
+
+def flash_attention_qvec_dkv(q, k, v, lse, do, delta, qstart, scale=None):
+    """B8's dk/dv: (dk, dv) from the based dk/dv kernel, one base per
+    row (causal)."""
+    if not build.use_kernel(q):
+        return flash_attention_grad_plain(q, k, v, None, lse, do, delta, True,
+                                          scale, qstart)[1:3]
+    dk, dv, _ = _dkv("flash_attention_qvec_dkv", q, k, v, None, lse, do,
+                     delta, True, scale, qstart)
+    flash_attention_qvec_dkv.launches += 1
+    return dk, dv
+
+
+for _fn in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+            flash_attention_piece_fwd, flash_attention_piece_dq,
+            flash_attention_piece_dkv, flash_attention_qvec_dq,
+            flash_attention_qvec_dkv):
     _fn.launches = 0
 
 
-def _flash_grad(q, k, v, kbias, lse, do, delta, causal, scale):
-    """(dq, dk, dv[, dkbias]): the dq and dk/dv kernels on CUDA tensors,
-    one plain pass for all four otherwise."""
-    if build.use_kernel(q):
+def _flash_grad(form, q, k, v, kbias, qbase, lse, do, delta, causal, scale,
+                window):
+    """(dq, dk, dv[, dkbias]) of one form ("flash", "piece", "qvec"):
+    its dq and dk/dv kernels on CUDA tensors, one plain pass for all
+    four otherwise."""
+    if not build.use_kernel(q):
+        dq, dk, dv, dkb = flash_attention_grad_plain(
+            q, k, v, kbias, lse, do, delta, causal, scale, qbase, window)
+    elif form == "flash":
         dq = flash_attention_dq(q, k, v, kbias, lse, do, delta, causal, scale)
         dk, dv, dkb = flash_attention_dkv(q, k, v, kbias, lse, do, delta,
                                           causal, scale)
+    elif form == "piece":
+        dq = flash_attention_piece_dq(q, k, v, lse, do, delta, causal, scale,
+                                      qbase, window)
+        dk, dv = flash_attention_piece_dkv(q, k, v, lse, do, delta, causal,
+                                           scale, qbase, window)
     else:
-        dq, dk, dv, dkb = flash_attention_grad_plain(q, k, v, kbias, lse, do,
-                                                     delta, causal, scale)
+        dq = flash_attention_qvec_dq(q, k, v, lse, do, delta, qbase, scale)
+        dk, dv = flash_attention_qvec_dkv(q, k, v, lse, do, delta, qbase,
+                                          scale)
     return (dq, dk, dv) if kbias is None else (dq, dk, dv, dkb)
+
+
+class _FlashAttentionGrad(torch.autograd.Function):
+    """(dq, dk, dv[, dkbias]) as a function of its own.  Under
+    torch.func.vjp a backward sees wrapped tensors, which have no
+    storage for a kernel to read; an autograd.Function's forward is
+    handed the plain tensors underneath.  Not differentiable again."""
+
+    @staticmethod
+    def forward(form, q, k, v, kbias, qbase, lse, do, delta, causal, scale,
+                window):
+        return _flash_grad(form, q, k, v, kbias, qbase, lse, do, delta,
+                           causal, scale, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash_attention has no second derivative")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -202,31 +391,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, kbias, o, lse = ctx.saved_tensors
-        delta = (do.float() * o.float()).sum(-1)
         grads = _FlashAttentionGrad.apply(
-            q, k, v, kbias, lse, do.contiguous(), delta.contiguous(),
-            ctx.causal, ctx.scale)
+            "flash", q, k, v, kbias, None, lse, do.contiguous(),
+            _delta(o, do).contiguous(), ctx.causal, ctx.scale, 0)
         dkb = grads[3] if kbias is not None else None
         return grads[0], grads[1], grads[2], dkb, None, None
-
-
-class _FlashAttentionGrad(torch.autograd.Function):
-    """(dq, dk, dv[, dkbias]) as a function of its own.  Under
-    torch.func.vjp the backward above sees wrapped tensors, which have
-    no storage for a kernel to read; an autograd.Function's forward is
-    handed the plain tensors underneath.  Not differentiable again."""
-
-    @staticmethod
-    def forward(q, k, v, kbias, lse, do, delta, causal, scale):
-        return _flash_grad(q, k, v, kbias, lse, do, delta, causal, scale)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("flash_attention has no second derivative")
 
 
 def flash_attention(q, k, v, kbias=None, causal=False, scale=None):
@@ -237,6 +406,41 @@ def flash_attention(q, k, v, kbias=None, causal=False, scale=None):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, kbias, bool(causal), float(scale))[0]
+
+
+class _FlashAttentionPiece(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, qoff, causal, scale, window):
+        return flash_attention_piece_fwd(q, k, v, causal, scale, qoff, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, qoff, causal, scale, window = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, qoff, o, lse)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, qoff, o, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionGrad.apply(
+            "piece", q, k, v, None, qoff, lse, do.contiguous(),
+            _delta(o, do, dlse).contiguous(), ctx.causal, ctx.scale,
+            ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_piece(q, k, v, causal=False, scale=None, qoff=None,
+                          window=0):
+    """(o, lse) of the query chunk q [BH, Tq, d] at global offset qoff (a
+    one-element int tensor, read on the device; None is offset 0)
+    against one K/V chunk k/v [BH, Tk, d], Tq != Tk allowed; o is
+    softmax-normalized within the chunk.  Differentiable in q, k and v
+    through both outputs."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttentionPiece.apply(q, k, v, qoff, bool(causal),
+                                      float(scale), int(window))
 
 
 def flash_attention_qvec_plain(q, k, v, qstart, scale=None):
@@ -255,9 +459,11 @@ def flash_attention_qvec_plain(q, k, v, qstart, scale=None):
     return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
 
 
-def flash_attention_qvec(q, k, v, qstart, scale=None):
-    """Per-row-qstart causal attention; see flash_attention_qvec_plain."""
+def _qvec_forward(q, k, v, qstart, scale, with_lse):
+    """The serving forward: o, or (o, lse) with `with_lse`."""
     if not build.use_kernel(q):
+        if with_lse:
+            return flash_attention_plain(q, k, v, None, True, scale, qstart)
         return flash_attention_qvec_plain(q, k, v, qstart, scale)
     build.check_inputs("flash_attention_qvec", q, k, v)
     bh, tq, d = q.shape
@@ -274,20 +480,54 @@ def flash_attention_qvec(q, k, v, qstart, scale=None):
     if max(q.numel(), k.numel(), q.numel() * slices) >= 2 ** 31:
         raise ValueError("flash_attention_qvec: operands exceed the "
                          "kernel's 32-bit row indexing")
-    if scale is None:
-        scale = d ** -0.5
     qs = qstart.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     part_o = part_ml = None
     if slices > 1:
         part_o = torch.empty((bh, tq, slices, d), dtype=torch.float32,
                              device=q.device)
         part_ml = torch.empty((bh, tq, slices, 2), dtype=torch.float32,
                               device=q.device)
-    build.launch("ptt_flash_attention_qvec", q, k, v, qs, out, part_o, part_ml,
-                 bh, tq, tk, d, KV_CHUNK, float(scale))
+    build.launch("ptt_flash_attention_qvec", q, k, v, qs, out, lse, part_o,
+                 part_ml, bh, tq, tk, d, KV_CHUNK, float(scale))
     flash_attention_qvec.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+class _FlashAttentionQvec(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, qstart, scale):
+        return _qvec_forward(q, k, v, qstart, scale, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, qstart, scale = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, qstart, o, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, qstart, o, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionGrad.apply(
+            "qvec", q, k, v, None, qstart, lse, do.contiguous(),
+            _delta(o, do).contiguous(), True, ctx.scale, 0)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_qvec(q, k, v, qstart, scale=None):
+    """Per-row-qstart causal attention; see flash_attention_qvec_plain.
+    Differentiable in q, k and v: where a gradient is wanted the forward
+    also gives the lse, and the backward runs the based dq and dk/dv
+    kernels on CUDA tensors.  Its launch count is the forward's."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttentionQvec.apply(q, k, v, qstart, float(scale))[0]
+    return _qvec_forward(q, k, v, qstart, float(scale), False)
 
 
 flash_attention_qvec.launches = 0

@@ -61,7 +61,9 @@ def mm_act_grad(z, act):
     if act in ("", "identity"):
         return torch.ones_like(z)
     if act == "relu":
-        return (z > 0).to(z.dtype)
+        # 0.5 at z == 0: the derivative of the reference's jnp.maximum,
+        # which splits a tie between its two arguments
+        return (z > 0).to(z.dtype) + 0.5 * (z == 0).to(z.dtype)
     if act == "tanh":
         return 1.0 - torch.tanh(z).square()
     if act == "sigmoid":

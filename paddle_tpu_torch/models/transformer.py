@@ -3,7 +3,8 @@ the encoder-decoder Transformer-base of the WMT training program
 (``wmt_transformer_program``, label smoothing, noam lr, Adam) and
 ``multi_head_attention``'s ported forms: the unfused training form
 (batched matmul / softmax / dropout), the fused (flash) form, and the
-fused ragged-cache form of the serving step, each with grouped-query
+cached forms of the decode step (one token or a chunk at a scalar
+position) and of the serving step (ragged), each with grouped-query
 attention and rotary positions as options.  Parameter names (mha_q.w
 ... softmax_out.w) are the reference's, so the programs built here list
 the same ops over the same names as the reference's."""
@@ -80,22 +81,30 @@ def multi_head_attention(queries, keys, values, attn_bias, d_model, n_head,
     Ported forms: the unfused form (fused=False, no cache: batched
     matmul, softmax, attention-prob dropout, matmul), the fused form
     without a cache (flash attention, causal or with a key-padding
-    bias), and the RAGGED cache mode of the serving step — a cache dict
-    carrying "k"/"v" [B, n_kv, T_max, Dh] persistables plus "pos_rows"
-    [B] and "width_rows" [B] (and "pos_mat" [B, W] under rotary); each
-    row writes its K/V at its own position with its own valid width
-    (slot_cache_write) and attends with its own offset-causal cutoff
-    (fused_attention with a vector qstart).  The scalar-pos decode step
-    raises here.
+    bias), and the cache forms, whose cache dict carries "k"/"v" [B,
+    n_kv, T_max, Dh] persistables:
+
+    - the decode step, with the scalar "pos" [1] (and "pos_vec" [W]
+      when W > 1): the W current tokens' K/V land at pos .. pos + W - 1
+      (seq_cache_write); a one-token step attends with the rank-1 <=pos
+      key bias (decode_pos_mask), a W-wide chunk with the offset-causal
+      scalar qstart (the flash_attention_piece kernel);
+    - the RAGGED serving step, with "pos_rows" [B] and "width_rows" [B]
+      (and "pos_mat" [B, W] under rotary): each row writes its K/V at
+      its own position with its own valid width (slot_cache_write) and
+      attends with its own offset-causal cutoff (fused_attention with a
+      vector qstart).
 
     n_kv_head < n_head is grouped-query attention: k/v project to
     n_kv_head heads, each shared by a contiguous group of n_head /
-    n_kv_head query heads and tiled back to n_head before attention (on
-    the ragged cache path too, as in the reference: the cache holds
-    n_kv heads, the attention kernel reads full heads).  rotary=True
-    rotates q and k after the head split (RoPE): positions arange(T) in
-    training, the cache's pos_mat on the ragged path, so cached keys are
-    stored rotated."""
+    n_kv_head query heads.  They are tiled back to n_head before
+    attention in training, on the ragged path and in the W-wide decode
+    chunk; the one-token step instead folds the group onto the
+    length-1 query-time axis (heads n_kv, Tq = g), so its per-step K/V
+    reads are n_kv-sized, as in the reference.  rotary=True rotates q
+    and k after the head split (RoPE): positions arange(T) in training,
+    else the cache's pos_mat, pos_vec or pos (in that order), so cached
+    keys are stored rotated."""
     dh = d_model // n_head
     n_kv = n_kv_head or n_head
     if n_head % n_kv:
@@ -134,7 +143,13 @@ def multi_head_attention(queries, keys, values, attn_bias, d_model, n_head,
                     "ragged cached attention with rotary needs pos_mat "
                     "(per-row absolute positions [B, W]) — without it "
                     "every slot would silently rotate at arange(W)")
-            rpos = cache.get("pos_mat")
+            for key in ("pos_mat", "pos_vec", "pos"):
+                if key in cache:
+                    rpos = cache[key]
+                    break
+            if rpos is None:
+                raise KeyError(
+                    "cached rotary attention needs pos/pos_vec/pos_mat")
         q = layers.rotary_embed(q, pos=rpos)
         k = layers.rotary_embed(k, pos=rpos)
     if cache is None and not fused:
@@ -165,33 +180,72 @@ def multi_head_attention(queries, keys, values, attn_bias, d_model, n_head,
         if dropout_rate:
             raise ValueError("cached decode is inference-only: dropout_rate "
                              "must be 0")
-        if "pos_rows" not in cache:
-            raise NotImplementedError("the scalar-pos cached decode step is "
-                                      "not ported yet (ROADMAP A5)")
-        if "width_rows" not in cache:
+        from ..layer_helper import LayerHelper
+
+        helper = LayerHelper("cached_attention")
+        ragged = "pos_rows" in cache
+        if ragged and "width_rows" not in cache:
             raise ValueError("ragged cached attention needs width_rows "
                              "alongside pos_rows (per-row valid write widths)")
+
+        def write_cache(cvar, new):
+            """The updated full-length cache, assigned back into the
+            persistable var."""
+            if ragged:
+                out = layers.slot_cache_write(cvar, new, cache["pos_rows"],
+                                              cache["width_rows"])
+            else:
+                out = helper.create_variable_for_type_inference(cvar.dtype)
+                helper.append_op(
+                    "seq_cache_write",
+                    inputs={"Cache": [cvar], "New": [new],
+                            "Pos": [cache["pos"]]},
+                    outputs={"Out": [out]})
+            helper.append_op("assign", inputs={"X": [out]},
+                             outputs={"Out": [cvar]})
+            return out
+
         if int(cache["k"].shape[1]) != n_kv:
             raise ValueError(
                 "cache has %d kv heads but n_kv_head is %d — create the "
                 "caches with the model's kv head count"
                 % (int(cache["k"].shape[1]), n_kv))
-        from ..layer_helper import LayerHelper
-
-        helper = LayerHelper("cached_attention")
-
-        def write_cache(cvar, new):
-            out = layers.slot_cache_write(cvar, new, cache["pos_rows"],
-                                          cache["width_rows"])
-            helper.append_op("assign", inputs={"X": [out]},
-                             outputs={"Out": [cvar]})
-            return out
-
         k_full = write_cache(cache["k"], k)
         v_full = write_cache(cache["v"], v)
-        ctx = layers.fused_attention(q, repeat_kv(k_full), repeat_kv(v_full),
-                                     causal=True, qstart=cache["pos_rows"],
-                                     scale=dh ** -0.5)  # [B, H, W, Dh]
+        t_max = int(cache["k"].shape[2])
+        bsz = int(cache["k"].shape[0])
+        width = int(q.shape[2])
+
+        def pos_bias():
+            # the one-token step masks with the rank-1 <=pos key bias
+            bias = helper.create_variable_for_type_inference("float32")
+            helper.append_op(
+                "decode_pos_mask", inputs={"Pos": [cache["pos"]]},
+                outputs={"Out": [bias]},
+                attrs={"t_max": t_max, "batch": bsz})
+            return bias
+
+        if ragged or width > 1:
+            # per-row (ragged) or scalar (chunk) offset-causal cutoffs;
+            # GQA tiles K/V back to n_head: the group fold below needs
+            # the length-1 query-time axis
+            ctx = layers.fused_attention(
+                q, repeat_kv(k_full), repeat_kv(v_full), causal=True,
+                qstart=cache["pos_rows"] if ragged else cache["pos"],
+                scale=dh ** -0.5)  # [B, H, W, Dh]
+        elif n_kv == n_head:
+            ctx = layers.fused_attention(q, k_full, v_full, bias=pos_bias(),
+                                         causal=False, scale=dh ** -0.5)
+        else:
+            # the g query heads of a group attend one kv head: fold the
+            # group onto the query-time axis (heads n_kv, Tq = g), the
+            # key bias broadcast over the g rows
+            g = n_head // n_kv
+            q_g = layers.reshape(q, [bsz, n_kv, g, dh])
+            ctx = layers.fused_attention(q_g, k_full, v_full,
+                                         bias=pos_bias(), causal=False,
+                                         scale=dh ** -0.5)  # [B, n_kv, g, Dh]
+            ctx = layers.reshape(ctx, [bsz, n_head, 1, dh])
     ctx = layers.transpose(ctx, [0, 2, 1, 3])
     b, t = ctx.shape[0], ctx.shape[1]
     ctx = layers.reshape(ctx, [b, t, d_model])

@@ -50,7 +50,13 @@ def _scale(ctx, ins, attrs):
 
 @register("clip")
 def _clip(ctx, ins, attrs):
-    return {"Out": [torch.clamp(ins["X"][0], attrs["min"], attrs["max"])]}
+    """max then min against tensor bounds: their derivatives split a tie
+    0.5 / 0.5 at a bound, as the reference's jnp.clip does
+    (torch.clamp's gives 1 there)."""
+    x = ins["X"][0]
+    lo = torch.tensor(attrs["min"], dtype=x.dtype, device=x.device)
+    hi = torch.tensor(attrs["max"], dtype=x.dtype, device=x.device)
+    return {"Out": [torch.minimum(torch.maximum(x, lo), hi)]}
 
 
 @register("sum")
@@ -194,7 +200,11 @@ def _fused_linear_xent(ctx, ins, attrs):
 
 @register("relu")
 def _relu(ctx, ins, attrs):
-    return {"Out": [torch.relu(ins["X"][0])]}
+    """torch.maximum against zero: its derivative is 0.5 at x == 0, as
+    the reference's jnp.maximum's (torch.relu's is 0)."""
+    x = ins["X"][0]
+    return {"Out": [torch.maximum(x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))]}
 
 
 @register("tanh")

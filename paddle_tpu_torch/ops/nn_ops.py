@@ -1,22 +1,24 @@
 """Neural-net op lowerings (the counterpart of ``paddle_tpu/ops/nn_ops.py``),
-limited to the ops of the serving slice and the GPT-2 (with its
-modern-decoder options: rotary positions, SwiGLU) and WMT Transformer
-training steps.
+limited to the ops of the serving slice, the KV-cached decode step and
+the GPT-2 (with its modern-decoder options: rotary positions, SwiGLU)
+and WMT Transformer training steps.
 
 Six ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
 ``fc`` on ``matmul_bias_act``, ``fused_swiglu`` on ``matmul_swiglu``,
 ``fused_residual_ln`` on
 ``fused_add_layer_norm``, ``layer_norm`` over the last axis with Scale
-and Bias on ``fused_layer_norm``, ``fused_attention``'s per-row QStart
-form on ``flash_attention_qvec`` and its forms without a QStart (causal
-or not, with or without a key Bias) on ``flash_attention``.  Each
-wrapper takes its plain version for CPU and meta tensors and launches
-its kernel for CUDA tensors.  ``layer_norm``'s other forms are the
-reference's own XLA branch, which has no kernel: they stay plain
-PyTorch on any device.  The ``fused_attention`` forms whose reference
-kernel is not ported yet (scalar QStart, sliding window, segment ids)
-run their plain version on CPU and meta tensors and raise on a CUDA
-tensor, so no plain path runs silently on the card.
+and Bias on ``fused_layer_norm``, and ``fused_attention``: its per-row
+QStart form on ``flash_attention_qvec``, its scalar-QStart form (the
+chunked decode step) on ``flash_attention_piece`` and its forms without
+a QStart (causal or not, with or without a key Bias) on
+``flash_attention``.  Each wrapper takes its plain version for CPU and
+meta tensors and launches its kernel for CUDA tensors.
+``layer_norm``'s other forms are the reference's own XLA branch, which
+has no kernel: they stay plain PyTorch on any device.  The
+``fused_attention`` forms whose reference kernel is not ported yet
+(sliding window, segment ids) run their plain version on CPU and meta
+tensors and raise on a CUDA tensor, so no plain path runs silently on
+the card.
 """
 
 import numpy as np
@@ -25,7 +27,10 @@ import torch
 from ..core.registry import register
 from ..kernels import (
     NEG_INF,
+    attention_scores,
     flash_attention,
+    flash_attention_piece,
+    flash_attention_plain,
     flash_attention_qvec,
     fused_add_layer_norm,
     fused_layer_norm,
@@ -140,25 +145,13 @@ def _fused_residual_ln(ctx, ins, attrs):
             "Mean": [mean.reshape(lead)], "Variance": [var.reshape(lead)]}
 
 
-def _dense_attention(q, k, v, causal, scale, kbias=None, window=0, seg=None,
-                     qoff=None):
-    """Plain attention over [BH, T, d] (the reference's _dense_attention):
-    the CPU path of the fused_attention forms without a CUDA kernel."""
-    s = torch.einsum("bqd,bkd->bqk", q, k).float() * scale
-    neg = torch.full((), NEG_INF, device=q.device)
-    if kbias is not None:
-        s = s + kbias[:, None, :].float()
-    if seg is not None:
-        s = torch.where(seg[:, :, None] == seg[:, None, :], s, neg)
-    if causal:
-        tq, tk = q.shape[1], k.shape[1]
-        base = 0 if qoff is None else qoff.reshape(()).long()
-        q_pos = base + torch.arange(tq, device=q.device)
-        k_pos = torch.arange(tk, device=q.device)
-        keep = q_pos[:, None] >= k_pos[None, :]
-        if window:
-            keep = keep & (q_pos[:, None] - k_pos[None, :] < int(window))
-        s = torch.where(keep[None], s, neg)
+def _segment_attention(q, k, v, causal, scale, kbias, window, seg):
+    """Plain attention over [BH, T, d] where a query sees a key only if
+    their segment ids match: the CPU path of fused_attention's
+    SegmentIds form."""
+    s = attention_scores(q, k, kbias, causal, scale, window=window)
+    s = torch.where(seg[:, :, None] == seg[:, None, :], s,
+                    torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
 
@@ -167,9 +160,11 @@ def _dense_attention(q, k, v, causal, scale, kbias=None, window=0, seg=None,
 def _fused_attention(ctx, ins, attrs):
     """Fused scaled-dot-product attention over [batch, heads, T, d].  The
     per-row QStart form (the ragged serving step) launches the
-    flash_attention_qvec kernel on CUDA tensors, and the forms without a
-    QStart, window or segment ids (causal or not, with an optional key
-    Bias) the flash_attention kernels."""
+    flash_attention_qvec kernel on CUDA tensors, the scalar-QStart form
+    (chunked decode: query i at global position QStart + i, keys at
+    their cache indices, Tq != Tk) the flash_attention_piece kernel, and
+    the forms without a QStart, window or segment ids (causal or not,
+    with an optional key Bias) the flash_attention kernels."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     causal = bool(attrs.get("causal", False))
     window = int(attrs.get("window", 0) or 0)
@@ -213,26 +208,74 @@ def _fused_attention(ctx, ins, attrs):
         qsv = qstart[:, None].expand(b, h).reshape(b * h)
         out = flash_attention_qvec(qf, kf, vf, qsv, float(scale))
         return {"Out": [out.reshape(b, h, t, d)]}
+    if qstart is not None:
+        # the ring's offset-causal piece is chunked decode: the piece is
+        # softmax-normalized within its K/V, here the whole cache; the
+        # reference's dense branch for large blocks is a VMEM limit of
+        # the TPU, so every size takes the kernel
+        out, _lse = flash_attention_piece(qf, kf, vf, True, float(scale),
+                                          qstart, window)
+        return {"Out": [out.reshape(b, h, t, d)]}
     kbias = None
     if ins.get("Bias"):
         kbias = ins["Bias"][0].reshape(b, tk).float()
         kbias = kbias[:, None, :].expand(b, h, tk).reshape(b * h, tk)
-    if qstart is None and not window and not ins.get("SegmentIds"):
+    if not window and not ins.get("SegmentIds"):
         out = flash_attention(qf, kf, vf, kbias, causal, float(scale))
         return {"Out": [out.reshape(b, h, t, d)]}
-    _not_on_cuda(q, "fused_attention with a scalar QStart, a window or "
-                 "segment ids (kernels flash_attention_piece, "
-                 "flash_attention's window and segment forms)",
-                 "B9, B3-window/segments")
-    seg = None
-    if ins.get("SegmentIds"):
-        if t != tk:
-            raise ValueError("fused_attention: SegmentIds requires Tq == Tk")
-        seg = ins["SegmentIds"][0].reshape(b, t)
-        seg = seg[:, None, :].expand(b, h, t).reshape(b * h, t)
-    out = _dense_attention(qf, kf, vf, causal, float(scale), kbias,
-                           window=window, seg=seg, qoff=qstart)
+    _not_on_cuda(q, "fused_attention with a window or segment ids "
+                 "(flash_attention's window and segment forms)",
+                 "B3-window/segments")
+    if not ins.get("SegmentIds"):
+        out, _lse = flash_attention_plain(qf, kf, vf, kbias, causal,
+                                          float(scale), window=window)
+        return {"Out": [out.reshape(b, h, t, d)]}
+    if t != tk:
+        raise ValueError("fused_attention: SegmentIds requires Tq == Tk")
+    seg = ins["SegmentIds"][0].reshape(b, t)
+    seg = seg[:, None, :].expand(b, h, t).reshape(b * h, t)
+    out = _segment_attention(qf, kf, vf, causal, float(scale), kbias, window,
+                             seg)
     return {"Out": [out.reshape(b, h, t, d)]}
+
+
+@register("seq_cache_write", no_grad_inputs=("Pos",))
+def _seq_cache_write(ctx, ins, attrs):
+    """KV-cache update for incremental decode: the [B, H, W, D] chunk New
+    lands in Cache [B, H, T, D] at time indices Pos .. Pos + W - 1 (W 1:
+    the one-token step; W > 1: the chunked-prefill write).  Pos is
+    clamped into [0, T - W], as the reference's dynamic_update_slice
+    clamps its start: callers validate lengths up front
+    (decode_cache.validate_cached_call).  The clamp and the indices are
+    computed on the device, so the step does no host sync on Pos.
+
+    The update is IN PLACE, as slot_cache_write's: Out aliases Cache,
+    and the program's following ``assign(Out -> Cache)`` stores the same
+    tensor back."""
+    cache, new = ins["Cache"][0], ins["New"][0]
+    if cache.device.type == "meta":
+        return {"Out": [cache]}  # shape inference: Out is Cache's shape
+    t_max, w = cache.shape[2], new.shape[2]
+    if w > t_max:
+        raise ValueError("seq_cache_write: width %d exceeds the cache's %d "
+                         "time steps" % (w, t_max))
+    pos = ins["Pos"][0].reshape(()).long().clamp(0, t_max - w)
+    idx = pos + torch.arange(w, device=cache.device)
+    cache.index_copy_(2, idx, new.to(cache.dtype))
+    return {"Out": [cache]}
+
+
+@register("decode_pos_mask", no_grad_inputs=("Pos",))
+def _decode_pos_mask(ctx, ins, attrs):
+    """[B, T] additive key bias for the one-token cached step: 0 at key
+    positions <= Pos, -1e30 beyond (the rank-1 Bias of
+    fused_attention)."""
+    t, b = int(attrs["t_max"]), int(attrs["batch"])
+    pos = ins["Pos"][0].reshape(())
+    keys = torch.arange(t, device=pos.device)
+    row = torch.where(keys <= pos, torch.zeros((), device=pos.device),
+                      torch.full((), -1e30, device=pos.device))
+    return {"Out": [row[None, :].expand(b, t).contiguous()]}
 
 
 @register("slot_cache_write")

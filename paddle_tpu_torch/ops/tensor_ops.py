@@ -151,31 +151,41 @@ class _Embedding(torch.autograd.Function):
     ``index_select``'s backward scatters with float atomics."""
 
     @staticmethod
-    def forward(ids, w):
+    def forward(ids, w, sparse):
         return torch.nn.functional.embedding(ids, w)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ids, w = inputs
+        ids, w, sparse = inputs
         ctx.save_for_backward(ids)
         ctx.rows = w.shape[0]
+        ctx.sparse = sparse
 
     @staticmethod
     def backward(ctx, dout):
+        if ctx.sparse:
+            # the reference emits SelectedRows and runs lazy Adam (only
+            # the touched rows decay and move); a dense gradient would
+            # train every row instead
+            raise NotImplementedError(
+                "lookup_table with is_sparse=True: the SelectedRows "
+                "gradient is not ported yet (ROADMAP A1); build the "
+                "embedding with is_sparse=False")
         ids, = ctx.saved_tensors
         h = dout.shape[-1]
         dw = dout.new_zeros((ctx.rows, h)).index_put(
             (ids.reshape(-1),), dout.reshape(-1, h), accumulate=True)
-        return None, dw
+        return None, dw, None
 
 
 @register("lookup_table", no_grad_inputs=("Ids",))
 def _lookup_table(ctx, ins, attrs):
-    """Embedding rows, with a reproducible backward (``_Embedding``)."""
+    """Embedding rows, with a reproducible backward (``_Embedding``).
+    With ``is_sparse`` the forward runs and a gradient raises."""
     w, ids = ins["W"][0], ins["Ids"][0].long()
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids[..., 0]
-    out = _Embedding.apply(ids, w)
+    out = _Embedding.apply(ids, w, bool(attrs.get("is_sparse", False)))
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out * (ids != pad).to(out.dtype)[..., None]

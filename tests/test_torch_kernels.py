@@ -28,8 +28,16 @@ from paddle_tpu_torch.kernels import (
     flash_attention_dq,
     flash_attention_fwd,
     flash_attention_grad_plain,
+    flash_attention_piece,
+    flash_attention_piece_dkv,
+    flash_attention_piece_dq,
+    flash_attention_piece_fwd,
+    flash_attention_piece_grad_plain,
+    flash_attention_piece_plain,
     flash_attention_plain,
     flash_attention_qvec,
+    flash_attention_qvec_dkv,
+    flash_attention_qvec_dq,
     flash_attention_qvec_plain,
     fused_add_layer_norm,
     fused_layer_norm,
@@ -184,12 +192,25 @@ def _calls(device):
     yield lambda: matmul_swiglu(x, w, w)
     yield lambda: softmax_xent_fwd(x, lbl)
     yield lambda: softmax_xent_bwd(x, lbl, row)
+    k = torch.ones(2, 6, 64, device=device)
+    qoff = torch.full((1,), 2, device=device, dtype=torch.long)
+    qs = torch.zeros(2, device=device, dtype=torch.long)
+    yield lambda: flash_attention_piece_fwd(q, k, k, True, None, qoff)
+    yield lambda: flash_attention_piece_dq(q, k, k, lse, q, lse, True, None,
+                                           qoff)
+    yield lambda: flash_attention_piece_dkv(q, k, k, lse, q, lse, True, None,
+                                            qoff)
+    yield lambda: flash_attention_qvec_dq(q, k, k, lse, q, lse, qs)
+    yield lambda: flash_attention_qvec_dkv(q, k, k, lse, q, lse, qs)
 
 
 _LAUNCHED = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
              linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
              flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
-             matmul_swiglu, softmax_xent_fwd, softmax_xent_bwd)
+             matmul_swiglu, softmax_xent_fwd, softmax_xent_bwd,
+             flash_attention_piece_fwd, flash_attention_piece_dq,
+             flash_attention_piece_dkv, flash_attention_qvec_dq,
+             flash_attention_qvec_dkv)
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -482,6 +503,168 @@ def test_flash_attention_kernel_path_checks_shapes(monkeypatch):
         flash_attention_fwd(q, k, k, torch.zeros(2, 4))
     o, lse = flash_attention_fwd(q, k, k, torch.zeros(2, 6))
     assert o.shape == (2, 4, 64) and lse.shape == (2, 4)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_piece and the qvec backward: the based kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("qoff", [0, 128])
+def test_flash_attention_piece_matches_reference_kernel(qoff):
+    """flash_attention_piece_plain's (o, lse) against the reference's
+    flash_attention_piece (Pallas interpret mode, blocks 128), and the
+    autograd wrapper's (dq, dk, dv) under torch.func.vjp and
+    flash_attention_piece_grad_plain's against its jax.vjp, with nonzero
+    cotangents on both o and lse: BH 2, Tq 128 at global offset qoff
+    over Tk 256 (qoff 128: the chunk's last query sees every key).
+    rtol = atol = 1e-5."""
+    rng = np.random.RandomState(36)
+    bh, tq, tk, d, scale = 2, 128, 256, 64, 0.125
+    q = rng.randn(bh, tq, d).astype("float32")
+    k = rng.randn(bh, tk, d).astype("float32")
+    v = rng.randn(bh, tk, d).astype("float32")
+    do = rng.randn(bh, tq, d).astype("float32")
+    dlse = rng.randn(bh, tq).astype("float32")
+    jqoff = jnp.asarray(np.array([qoff], "int32"))
+    (r_o, r_lse), vjp = jax.vjp(
+        lambda a, b, c: pk.flash_attention_piece(a, b, c, True, scale, 128,
+                                                 128, 0, jqoff),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    r_grads = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+
+    tqoff = torch.tensor([qoff])
+    o, lse = flash_attention_piece_plain(_t(q), _t(k), _t(v), True, scale,
+                                         tqoff)
+    np.testing.assert_allclose(o.numpy(), np.asarray(r_o), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(r_lse), **TOL)
+    out, vjp_t = torch.func.vjp(
+        lambda a, b, c: flash_attention_piece(a, b, c, True, scale, tqoff),
+        _t(q), _t(k), _t(v))
+    np.testing.assert_array_equal(out[0].numpy(), o.numpy())
+    np.testing.assert_array_equal(out[1].numpy(), lse.numpy())
+    grads = vjp_t((_t(do), _t(dlse)))
+    plain = flash_attention_piece_grad_plain(_t(q), _t(k), _t(v), o, lse,
+                                             _t(do), _t(dlse), True, scale,
+                                             tqoff)
+    for got, pl, want in zip(grads, plain, r_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(pl.numpy(), np.asarray(want), **TOL)
+    # the lse cotangent reaches the gradient
+    no_dlse = flash_attention_piece_grad_plain(
+        _t(q), _t(k), _t(v), o, lse, _t(do), torch.zeros(bh, tq), True,
+        scale, tqoff)
+    assert float((no_dlse[0] - plain[0]).abs().max()) > 1e-3
+
+
+def test_flash_attention_qvec_backward_matches_reference_kernel():
+    """flash_attention_qvec's vjp (its autograd function: the forward with
+    the lse, the based dq and dk/dv) against the reference's
+    flash_attention_qvec under jax.vjp (Pallas interpret mode) at per-row
+    bases 0, mid-cache and Tk - Tq.  rtol = atol = 1e-5."""
+    rng = np.random.RandomState(37)
+    bh, tq, tk, d = 4, 16, 64, 16
+    q = rng.randn(bh, tq, d).astype("float32")
+    k = rng.randn(bh, tk, d).astype("float32")
+    v = rng.randn(bh, tk, d).astype("float32")
+    do = rng.randn(bh, tq, d).astype("float32")
+    qs = np.array([0, 20, 48, 5], "int32")
+    r_out, vjp = jax.vjp(
+        lambda a, b, c: pk.flash_attention_qvec(a, b, c, jnp.asarray(qs),
+                                                None, tq, 32),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    r_grads = vjp(jnp.asarray(do))
+    out, vjp_t = torch.func.vjp(
+        lambda a, b, c: flash_attention_qvec(a, b, c,
+                                             _t(qs.astype("int64"))),
+        _t(q), _t(k), _t(v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(r_out), **TOL)
+    for got, want in zip(vjp_t(_t(do)), r_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_based_kernels_take_the_query_base_on_the_device(monkeypatch):
+    """On the kernel path the piece passes its offset as a one-element
+    int32 tensor read at stride 0 (Tq != Tk allowed under causal), the
+    qvec backward its [BH] bases at stride 1, and the qvec forward asks
+    for the lse only where a gradient is wanted; each counts its own
+    launches."""
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    launched = []
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *args: launched.append((name, args)))
+    q, k = torch.ones(2, 4, 64), torch.ones(2, 6, 64)
+    lse = torch.zeros(2, 4)
+    before = {f.__name__: f.launches for f in _LAUNCHED}
+    flash_attention_piece_fwd(q, k, k, True, None, torch.tensor([2]))
+    flash_attention_piece_dkv(q, k, k, lse, q, lse, True, None,
+                              torch.tensor([2]))
+    flash_attention_qvec_dq(q, k, k, lse, q, lse, torch.tensor([1, 2]))
+    name, args = launched[0]
+    assert name == "ptt_flash_attention_fwd"
+    assert args[4].dtype == torch.int32 and args[4].tolist() == [2]
+    assert args[7:13] == (2, 4, 6, 64, 1, 0)  # BH, Tq, Tk, d, causal, stride
+    name, args = launched[1]
+    assert name == "ptt_flash_attention_dkv" and args[4].tolist() == [2]
+    assert args[11:17] == (2, 4, 6, 64, 1, 0)
+    name, args = launched[2]
+    assert name == "ptt_flash_attention_dq" and args[4].tolist() == [1, 2]
+    assert args[9:15] == (2, 4, 6, 64, 1, 1)
+    qs = torch.tensor([1, 2])
+    flash_attention_qvec(q, k, k, qs)
+    assert launched[-1][0] == "ptt_flash_attention_qvec"
+    assert launched[-1][1][5] is None  # no lse on the serving path
+    flash_attention_qvec(q.clone().requires_grad_(), k, k, qs)
+    assert launched[-1][1][5].shape == (2, 4)
+    after = {f.__name__: f.launches for f in _LAUNCHED}
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {"flash_attention_piece_fwd": 1, "flash_attention_piece_dkv": 1,
+            "flash_attention_qvec_dq": 1, "flash_attention_qvec": 2}
+    with pytest.raises(ValueError, match="query base"):
+        flash_attention_piece_fwd(q, k, k, True, None, torch.tensor([1, 2, 3]))
+
+
+@pytest.mark.cuda
+def test_based_kernels_match_plain_on_the_card():
+    """On a CUDA card: B9's forward (o, lse) and backward (with an lse
+    cotangent) at a ragged shape and offsets 0 and 500, and B8's
+    backward at mixed per-row bases, against the plain versions (1e-4 of
+    each output's largest magnitude), reruns bit-equal.  Skips without a
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+
+    def close(got, want):
+        err = (got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+        assert float(err) <= 1e-4
+
+    q, k, v, do = rnd(6, 37, 64), rnd(6, 1000, 64), rnd(6, 1000, 64), \
+        rnd(6, 37, 64)
+    dlse = rnd(6, 37)
+    for off in (0, 500):
+        qoff = torch.tensor([off], device=dev)
+        o, lse = flash_attention_piece_fwd(q, k, v, True, None, qoff)
+        p_o, p_lse = flash_attention_piece_plain(q, k, v, True, None, qoff)
+        close(o, p_o)
+        close(lse, p_lse)
+        _, vjp = torch.func.vjp(
+            lambda a, b, c: flash_attention_piece(a, b, c, True, None, qoff),
+            q, k, v)
+        grads = vjp((do, dlse))
+        for got, want in zip(grads, flash_attention_piece_grad_plain(
+                q, k, v, o, lse, do, dlse, True, None, qoff)):
+            close(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(grads, vjp((do, dlse))))
+    qs = torch.tensor([0, 500, 1000 - 37, 3, 250, 999 - 37], device=dev)
+    _, vjp = torch.func.vjp(lambda a, b, c: flash_attention_qvec(a, b, c, qs),
+                            q, k, v)
+    o, lse = flash_attention_plain(q, k, v, None, True, None, qs)
+    delta = (do * o).sum(-1)
+    want = flash_attention_grad_plain(q, k, v, None, lse, do, delta, True,
+                                      None, qs)
+    for got, w in zip(vjp(do), want):
+        close(got, w)
 
 
 # ---------------------------------------------------------------------------

@@ -137,6 +137,22 @@ _CASES = {
         {"Q": [_F(2, 2, 3, 8)], "K": [_F(2, 2, 9, 8)], "V": [_F(2, 2, 9, 8)],
          "QStart": [np.array([4], "int64")]},
         {"causal": True, "scale": None, "window": 0}, False),
+    "fused_attention_window": (
+        "fused_attention",
+        {"Q": [_F(2, 2, 6, 8)], "K": [_F(2, 2, 6, 8)], "V": [_F(2, 2, 6, 8)],
+         "Bias": [np.where(_R.rand(2, 6) < 0.3, -1e9, 0).astype("float32")]},
+        {"causal": True, "scale": None, "window": 2}, False),
+    "fused_attention_segments": (
+        "fused_attention",
+        {"Q": [_F(2, 2, 6, 8)], "K": [_F(2, 2, 6, 8)], "V": [_F(2, 2, 6, 8)],
+         "SegmentIds": [np.array([[0, 0, 1, 1, 1, 2], [0, 1, 1, 1, 1, 1]],
+                                 "int32")]},
+        {"causal": True, "scale": None, "window": 3}, False),
+    "fused_attention_scalar_qstart_window": (
+        "fused_attention",
+        {"Q": [_F(2, 2, 3, 8)], "K": [_F(2, 2, 9, 8)], "V": [_F(2, 2, 9, 8)],
+         "QStart": [np.array([4], "int64")]},
+        {"causal": True, "scale": None, "window": 2}, False),
 }
 for _act in ("", "relu", "tanh", "sigmoid", "gelu", "swish"):
     _CASES["fc_" + (_act or "none")] = (
@@ -353,8 +369,9 @@ def test_random_init_ops_match_reference_distribution(op_type, attrs):
 def test_fused_attention_qstart_dispatch(monkeypatch, b, n_qstart, window,
                                          kernel):
     """Which QStart forms reach the flash_attention_qvec wrapper (and so
-    its CUDA kernel on the card); the others take the plain path, which
-    refuses a CUDA tensor."""
+    its CUDA kernel on the card); the others take flash_attention_piece
+    (B9's kernel on the card, whose window form refuses a CUDA
+    tensor)."""
     calls = []
     real = nn_ops.flash_attention_qvec
 
@@ -378,17 +395,21 @@ def test_fused_attention_qstart_dispatch(monkeypatch, b, n_qstart, window,
 
 
 def test_unported_attention_forms_raise_on_cuda_tensors(monkeypatch):
-    """The forms whose kernel is not ported (scalar QStart, window,
-    segment ids) refuse a CUDA tensor, naming the ROADMAP items, instead
-    of running a plain path on the card; the guard passes CPU tensors."""
+    """The forms whose kernel is not ported (window, segment ids) refuse
+    a CUDA tensor, naming the ROADMAP item, instead of running a plain
+    path on the card; the guard passes CPU tensors.  A window on the
+    scalar-QStart form reaches flash_attention_piece, whose kernel path
+    refuses it before any launch."""
+    from paddle_tpu_torch.kernels import build, flash_attention_piece
 
     class _OnCuda:
         device = torch.device("cuda")
 
-    with pytest.raises(NotImplementedError, match="B9, B3-window/segments"):
+    with pytest.raises(NotImplementedError, match="B3-window/segments"):
         nn_ops._not_on_cuda(_OnCuda(), "fused_attention window",
-                            "B9, B3-window/segments")
-    nn_ops._not_on_cuda(torch.zeros(1), "fused_attention window", "B9")
+                            "B3-window/segments")
+    nn_ops._not_on_cuda(torch.zeros(1), "fused_attention window",
+                        "B3-window/segments")
     guarded = []
     monkeypatch.setattr(nn_ops, "_not_on_cuda",
                         lambda t, what, item: guarded.append(item))
@@ -401,7 +422,12 @@ def test_unported_attention_forms_raise_on_cuda_tensors(monkeypatch):
         lower(LowerCtx(device="cpu"), dict({"Q": [q], "K": [q], "V": [q]},
                                            **ins),
               dict({"causal": True, "scale": None, "window": 0}, **attrs))
-    assert guarded == ["B9, B3-window/segments"] * 3
+    assert guarded == ["B3-window/segments"] * 2
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch", lambda *a: pytest.fail("launched"))
+    qk = torch.ones(2, 4, 64)
+    with pytest.raises(NotImplementedError, match="B3-window/segments"):
+        flash_attention_piece(qk, qk, qk, True, None, torch.tensor([1]), 2)
 
 
 @pytest.mark.parametrize("ins,attrs,kernel", [
@@ -602,3 +628,76 @@ def test_dropout_grad_redraws_the_forward_mask():
                           _grad_attrs("dropout", attrs, {"X": None},
                                       ["Out", "Mask"], idx=6))
     assert not torch.equal(other["X@GRAD"][0], g["X@GRAD"][0])
+
+
+def test_sparse_lookup_table_gradient_raises():
+    """is_sparse: the reference's SelectedRows gradient and lazy Adam are
+    not ported (ROADMAP A1), so the gradient raises instead of training
+    every row densely; the forward (inference) still runs."""
+    from paddle_tpu_torch.core.registry import lower_grad_op
+
+    ins = {"W": [_F(11, 6)], "Ids": [_I(11, 3, 4)]}
+    attrs = {"padding_idx": -1, "is_sparse": True}
+    ref, out = _run_both("lookup_table", ins, attrs)
+    np.testing.assert_array_equal(out["Out"][0], ref["Out"][0])
+    gins = dict(ins, **{"Out@GRAD": [_F(3, 4, 6)]})
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        lower_grad_op(LowerCtx(device="cpu"),
+                      {s: [torch.tensor(a) for a in v]
+                       for s, v in gins.items()},
+                      _grad_attrs("lookup_table", attrs, ins, ["Out"]))
+
+
+def _ref_and_port_grads(op_type, ins, attrs, cot):
+    """The reference's and the port's grad of `op_type` for the output
+    cotangent `cot`."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.core.registry import lower_grad_op as ref_grad
+    from paddle_tpu_torch.core.registry import lower_grad_op
+
+    gattrs = _grad_attrs(op_type, attrs, ins, ["Out"])
+    gins = dict(ins, **{"Out@GRAD": [cot]})
+    ref = ref_grad(RefCtx(), None,
+                   {s: [jnp.asarray(a) for a in v] for s, v in gins.items()},
+                   gattrs)
+    out = lower_grad_op(LowerCtx(device="cpu"),
+                        {s: [torch.tensor(a) for a in v]
+                         for s, v in gins.items()}, gattrs)
+    return ref, out
+
+
+def test_clip_gradient_splits_ties_as_the_reference():
+    """clip(1, 2) at x = [0.5, 1, 1.5, 2, 2.5]: the gradient is 0.5 at
+    both bounds, as jnp.clip's."""
+    x = np.array([0.5, 1.0, 1.5, 2.0, 2.5], "float32")
+    ref, out = _ref_and_port_grads("clip", {"X": [x]},
+                                   {"min": 1.0, "max": 2.0},
+                                   np.ones(5, "float32"))
+    np.testing.assert_array_equal(out["X@GRAD"][0].numpy(),
+                                  np.asarray(ref["X@GRAD"][0]))
+    np.testing.assert_array_equal(out["X@GRAD"][0].numpy(),
+                                  [0.0, 0.5, 1.0, 0.5, 0.0])
+
+
+def test_relu_gradients_at_zero_match_the_reference():
+    """The relu op and fc's relu epilogue (the matmul_bias_act backward)
+    give the gradient 0.5 at an exact 0, as jnp.maximum's."""
+    x = np.array([[-1.0, 0.0, 2.0]], "float32")
+    ref, out = _ref_and_port_grads("relu", {"X": [x]}, {},
+                                   np.ones((1, 3), "float32"))
+    np.testing.assert_array_equal(out["X@GRAD"][0].numpy(),
+                                  np.asarray(ref["X@GRAD"][0]))
+    np.testing.assert_array_equal(out["X@GRAD"][0].numpy(),
+                                  [[0.0, 0.5, 1.0]])
+    # fc: x @ I + 0 puts the pre-activation at exactly [-1, 0, 2]
+    fc_ins = {"Input": [x], "W": [np.eye(3, dtype="float32")],
+              "Bias": [np.zeros(3, "float32")]}
+    attrs = {"in_num_col_dims": 1, "activation_type": "relu"}
+    ref, out = _ref_and_port_grads("fc", fc_ins, attrs,
+                                   np.ones((1, 3), "float32"))
+    for slot in ("Input@GRAD", "W@GRAD", "Bias@GRAD"):
+        np.testing.assert_array_equal(out[slot][0].numpy(),
+                                      np.asarray(ref[slot][0]))
+    np.testing.assert_array_equal(out["Bias@GRAD"][0].numpy(),
+                                  [0.0, 0.5, 1.0])
