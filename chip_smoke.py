@@ -15,8 +15,10 @@ In order, it:
    softmax cross entropy at BERT's NSP [32, 2] and MLM-wide [4096,
    30522]; flash_attention_piece's forward at the chunked prefills'
    shapes and its backward, with an lse cotangent, at ring-like ones;
-   flash_attention_qvec's backward at the serving shape), and times
-   kernel, plain version and one PyTorch library call with CUDA events;
+   flash_attention_qvec's backward at the serving shape; fused_lstm and
+   fused_gru at the recurrent paths' shapes with ragged lengths), and
+   times kernel, plain version and one PyTorch library call with CUDA
+   events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
    kernel's launch count reset just before and read just after; checks
@@ -97,7 +99,24 @@ In order, it:
    GQA fold puts flash_attention at Tq 8 with a key bias; with
    --profile, chiprun_out/profile_decode_llama.json), and the narrow
    modern config card vs CPU;
-17. prints the kernels line and, last, the result line.
+17. trains the stacked dynamic LSTM (build_stacked_lstm_train at
+   bench.py's setting: dict 10000, 64 tokens, emb and hidden 512, 3
+   layers, 2 classes, Adam 1e-3) on batch 32 x 64: one warm-up step (its
+   loss near ln 2), 5 timed steps with the launch counts held to the
+   program's (fused_lstm 4 a step: layers 1 and 3, forward and grad;
+   layer 2 is reversed, the reference's plain scan), the bit-equal
+   repeat (with --profile, chiprun_out/profile_training_lstm.json); then
+   the narrow LSTM of the CPU tests 3 steps on the card and the CPU;
+18. trains the GRU seq2seq model (build_seq2seq_train at Paddle's
+   benchmark machine_translation widths: 512, dictionaries 30000, Adam
+   1e-3) on batch 32 x 50 the same way (its first loss near ln 30000;
+   fused_gru 4 a step; chiprun_out/profile_training_seq2seq.json), and
+   the narrow seq2seq card vs CPU;
+19. beam-decodes with build_decode_step at those widths (beam 4 over 2
+   sentences, 16 steps through BeamSearchDecoder; fused_gru at T 50 and
+   at T 1 from H0 every step), prints the decode step's p50, and the
+   narrow decode step card vs CPU (tokens equal, log-probs 1e-5);
+20. prints the kernels line and, last, the result line.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -153,6 +172,16 @@ DECODE_ROWS = (
     ("gpt2_beam_prefill", BEAM_PROMPTS * BEAM_SIZE * DECODE_WIDTH, GPT2_D),
     ("llama_decode", LLAMA_DECODE_BATCH, LLAMA_D),
     ("llama_prefill", LLAMA_DECODE_BATCH * LLAMA_DECODE_WIDTH, LLAMA_D))
+# the stacked dynamic LSTM (bench.py's stacked_lstm setting, after Paddle's
+# benchmark/fluid/models/stacked_dynamic_lstm.py): dict 10000, 64 tokens,
+# emb and hidden 512, 3 layers, batch 32
+LSTM_BATCH, LSTM_LEN, LSTM_DICT, LSTM_H, LSTM_STACK = 32, 64, 10000, 512, 3
+# the GRU seq2seq model at Paddle's benchmark machine_translation widths
+# (512, dictionaries 30000), batch 32 x 50 tokens; beam 4 over 2
+# sentences, 16 steps
+S2S_BATCH, S2S_LEN, S2S_DICT, S2S_H = 32, 50, 30000, 512
+S2S_BEAM, S2S_BEAM_SENTS, S2S_BEAM_STEPS = 4, 2, 16
+RNN_STEPS = 5  # timed steps of each recurrent training path
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
 GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
@@ -456,6 +485,8 @@ def check_kernels(dev):
     mark("softmax_xent")
     rec.update(check_attention_pieces(dev, randn))
     mark("flash_attention_piece, qvec backward")
+    rec.update(check_recurrent(dev, randn, g))
+    mark("fused_lstm, fused_gru")
     return rec
 
 
@@ -1513,7 +1544,8 @@ def _expected_train_launches(main):
     grad re-runs the forward rule under torch.func.vjp); the linear
     cross entropy's grad also launches dx and dw, fused_attention's grad
     dq and dk/dv, and the grad of a softmax_with_cross_entropy of the
-    kernel form the softmax cross-entropy backward.  In the training
+    kernel form the softmax cross-entropy backward; padded_lstm and
+    padded_gru launch theirs in the forward direction only.  In the training
     programs every layer_norm is the kernel form (last axis, Scale and
     Bias) and no fused_attention has a QStart, a window or segment
     ids."""
@@ -1545,7 +1577,22 @@ def _expected_train_launches(main):
                           + ops.count("fused_swiglu_grad")),
         "softmax_xent_fwd": len(sxent),
         "softmax_xent_bwd": sxent.count("softmax_with_cross_entropy_grad"),
+        "fused_lstm": _forward_recurrent(block, "padded_lstm"),
+        "fused_gru": _forward_recurrent(block, "padded_gru"),
     }
+
+
+def _forward_recurrent(block, op_type):
+    """Ops of `op_type` and their grads in the forward direction: each
+    launches its recurrent kernel once (the grad re-runs the forward
+    rule; the backward itself is the plain scan's vjp).  The reverse
+    direction is the reference's plain scan and launches nothing."""
+    n = 0
+    for op in block.ops:
+        if op.type in (op_type, op_type + "_grad"):
+            n += not op.attrs.get("__fwd_attrs__", op.attrs).get(
+                "is_reverse", False)
+    return n
 
 
 def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
@@ -1558,8 +1605,9 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
     the host), bit for bit, and, for a path with `dropout`, a step
     checking every dropout_grad against its forward op's mask.  fetch[1]
     is the step's token count, held to `n_tok`, unless `loss_parts`
-    names fetch[1:] as parts of the loss (BERT's MLM and NSP losses),
-    which are then printed.  Prints the path's line (tokens/s counts
+    names fetch[1:] (BERT's MLM and NSP losses, the LSTM classifier's
+    accuracy; none for a program that fetches its loss alone), which are
+    then printed.  Prints the path's line (tokens/s counts
     `n_tok` a step, examples/s the batch's rows) and returns the launch
     counts."""
     import numpy as np
@@ -1683,7 +1731,8 @@ def train_transformer_base(dev, profile_dir=None):
                         "flash_attention_dq": 0,
                         "flash_attention_dkv": 0,
                         "matmul_swiglu": 0, "softmax_xent_fwd": 0,
-                        "softmax_xent_bwd": 0}, per_step
+                        "softmax_xent_bwd": 0, "fused_lstm": 0,
+                        "fused_gru": 0}, per_step
     batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
     return _train_on_card(
         "Transformer-base (batch %d x %d)" % (TRAIN_BATCH, TRAIN_LEN), main,
@@ -1713,7 +1762,8 @@ def train_gpt2_small(dev, profile_dir=None):
                         "flash_attention_dq": 12,
                         "flash_attention_dkv": 12,
                         "matmul_swiglu": 0, "softmax_xent_fwd": 0,
-                        "softmax_xent_bwd": 0}, per_step
+                        "softmax_xent_bwd": 0, "fused_lstm": 0,
+                        "fused_gru": 0}, per_step
     batch = gpt2.make_fake_lm_batch(GPT2_BATCH, GPT2_LEN, hp, seed=0)
     ln_v = math.log(hp.vocab_size)
     return _train_on_card(
@@ -1746,7 +1796,8 @@ def train_tinyllama(dev, profile_dir=None):
                         "flash_attention_dq": 22,
                         "flash_attention_dkv": 22,
                         "matmul_swiglu": 44, "softmax_xent_fwd": 0,
-                        "softmax_xent_bwd": 0}, per_step
+                        "softmax_xent_bwd": 0, "fused_lstm": 0,
+                        "fused_gru": 0}, per_step
     batch = gpt2.make_fake_lm_batch(LLAMA_BATCH, LLAMA_LEN, hp, seed=0)
     ln_v = math.log(hp.vocab_size)
     return _train_on_card(
@@ -1848,7 +1899,8 @@ def train_transformer_base_fused_attn(dev):
                         "flash_attention_dq": 18,
                         "flash_attention_dkv": 18,
                         "matmul_swiglu": 0, "softmax_xent_fwd": 0,
-                        "softmax_xent_bwd": 0}, per_step
+                        "softmax_xent_bwd": 0, "fused_lstm": 0,
+                        "fused_gru": 0}, per_step
     batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, Fused,
                                 seed=0)
     return _train_on_card(
@@ -1894,7 +1946,8 @@ def train_bert_base(dev, profile_dir=None):
                         "flash_attention_dq": 12,
                         "flash_attention_dkv": 12,
                         "matmul_swiglu": 0, "softmax_xent_fwd": 2,
-                        "softmax_xent_bwd": 1}, per_step
+                        "softmax_xent_bwd": 1, "fused_lstm": 0,
+                        "fused_gru": 0}, per_step
     batch = bert.make_fake_bert_batch(BERT_BATCH, BERT_LEN, hp, seed=0)
     ln = math.log(hp.vocab_size) + math.log(2)
     return _train_on_card(
@@ -1966,9 +2019,10 @@ def _decode_launches(main):
     """Kernel launches of one run of a decode program, read off its ops:
     fc on matmul_bias_act, fused_swiglu on matmul_swiglu,
     fused_residual_ln on add-LN, every layer_norm (the kernel form in
-    these programs) on layer norm, and fused_attention on the B3 forward
+    these programs) on layer norm, fused_attention on the B3 forward
     (key bias or causal), on B9's forward (one QStart for a batch of
-    several rows) or on the qvec forward (a QStart per row).  A program
+    several rows) or on the qvec forward (a QStart per row), and a
+    forward padded_gru or padded_lstm on its recurrent kernel.  A program
     without these ops (the cache startup, the beam reorder) launches
     nothing."""
     from paddle_tpu_torch import kernels
@@ -1981,6 +2035,9 @@ def _decode_launches(main):
     for op in block.ops:
         if op.type in by_type:
             want[by_type[op.type]] += 1
+        elif op.type in ("padded_lstm", "padded_gru"):
+            if not op.attrs.get("is_reverse", False):
+                want["fused_" + op.type[len("padded_"):]] += 1
         elif op.type == "fused_attention":
             qs = op.inputs.get("QStart")
             if not qs:
@@ -2313,6 +2370,353 @@ def decode_card_matches_cpu(dev, Narrow, must_launch):
                            json.dumps(launched)))
 
 
+def check_recurrent(dev, randn, g):
+    """fused_lstm (B11) and fused_gru (B10) against their plain versions
+    on the card at every shape the recurrent paths give them: the LSTM
+    path's xproj [32, 64, 4 x 512], the seq2seq training GRUs' [32, 50,
+    3 x 512], the decode step's encoder [8, 50, 3 x 512] and its one GRU
+    step [8, 1, 3 x 512] from a nonzero h0, and the narrow legs' H 16;
+    with ragged lengths (0, 1 and T among them) and full ones; plus H 200
+    and 700 (700 over 132 SMs leaves the last block 4 of its 6 units)
+    and 200 rows at H 512 (more rows than one staged tile).  Limit 1e-5
+    absolute on hs and cs (2e-6 measured on the H100 at the paths'
+    shapes: the kernel's fixed-order dot and the plain version's matmul
+    differ in summation order over up to 64 steps); every rerun is
+    bit-equal.  Timed with CUDA events (a cooperative launch, so no
+    graph capture) at the paths' full-length shapes, beside the plain
+    version and, for the LSTM, torch.nn.LSTM (cuDNN)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import (fused_gru, fused_lstm,
+                                          gru_seq_plain, lstm_seq_plain)
+
+    def inputs(b, t, h, gates, ragged):
+        if ragged:
+            lens = torch.randint(0, t + 1, (b,), generator=g, device=dev)
+            lens[0], lens[-1] = 0, t
+            lens[1 % b] = min(1, t)
+        else:
+            lens = torch.full((b,), t, device=dev, dtype=torch.long)
+        return (randn(b, t, gates * h), randn(h, gates * h, scale=h ** -0.5),
+                randn(b, h), randn(b, h), lens)
+
+    def run(kind, x, w, h0, c0, lens, plain=False):
+        if kind == "lstm":
+            fn = lstm_seq_plain if plain else fused_lstm
+            return fn(x, w, h0, c0, lens)
+        return ((gru_seq_plain if plain else fused_gru)(x, w, h0, lens),)
+
+    rows = S2S_BEAM * S2S_BEAM_SENTS
+    shapes = [("lstm", LSTM_BATCH, LSTM_LEN, LSTM_H),
+              ("lstm", 4, 12, 16), ("lstm", 5, 7, 200), ("lstm", 6, 9, 700),
+              ("lstm", 200, 5, LSTM_H),
+              ("gru", S2S_BATCH, S2S_LEN, S2S_H),
+              ("gru", rows, S2S_LEN, S2S_H),
+              ("gru", rows, 1, S2S_H), ("gru", 4, 8, 16), ("gru", 5, 7, 200),
+              ("gru", 6, 9, 700), ("gru", 200, 5, S2S_H)]
+    err = {"lstm": 0.0, "gru": 0.0}
+    for kind, b, t, h in shapes:
+        for ragged in (True, False):
+            args = inputs(b, t, h, 4 if kind == "lstm" else 3, ragged)
+            got = run(kind, *args)
+            again = run(kind, *args)
+            assert all(torch.equal(a, c) for a, c in zip(got, again)), (
+                "rerun not bit-equal", kind, b, t, h)
+            want = run(kind, *args, plain=True)
+            err[kind] = max(err[kind], max((a - c).abs().max().item()
+                                           for a, c in zip(got, want)))
+    assert max(err.values()) <= 1e-5, ("recurrent kernels disagree", err)
+
+    def times(kind, b, t, h):
+        gates = 4 if kind == "lstm" else 3
+        x, w, h0, c0, lens = inputs(b, t, h, gates, False)
+        states = 2 if kind == "lstm" else 1
+        # the work this run's lengths need: each valid step's product
+        # h [b, H] @ W [H, gates H]; bytes: xproj, W, the initial states
+        # and the lengths read once, hs (and cs) written once
+        steps = int(lens.sum())
+        b_ms, by = _bound_ms(4 * (b * t * gates * h + h * gates * h
+                                  + states * b * h + b + states * b * t * h),
+                             2 * steps * h * gates * h)
+        rec = dict(ms=_events_ms(lambda: run(kind, x, w, h0, c0, lens), 10),
+                   plain_ms=_events_ms(
+                       lambda: run(kind, x, w, h0, c0, lens, plain=True), 3),
+                   bound_ms=b_ms, bound_by=by, library_ms=None)
+        if kind == "lstm":
+            cudnn = torch.nn.LSTM(h, h, batch_first=True).to(dev)
+            xin = randn(b, t, h)
+            with torch.no_grad():
+                rec["library_ms"] = _events_ms(
+                    lambda: cudnn(xin, (h0[None], c0[None])), 10)
+        return rec
+
+    lstm = times("lstm", LSTM_BATCH, LSTM_LEN, LSTM_H)
+    gru = times("gru", S2S_BATCH, S2S_LEN, S2S_H)
+    gru_shapes = {
+        "decode encoder xproj [%d, %d, %d]" % (rows, S2S_LEN, 3 * S2S_H):
+        times("gru", rows, S2S_LEN, S2S_H),
+        "decode step xproj [%d, 1, %d], nonzero h0" % (rows, 3 * S2S_H):
+        times("gru", rows, 1, S2S_H)}
+    torch.cuda.synchronize()
+    return {
+        "fused_lstm": dict(
+            route="cuda", source="paddle_tpu_torch/kernels/csrc/recurrent.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py:948",
+            shape="xproj [%d, %d, %d], W [%d, %d], full lengths" % (
+                LSTM_BATCH, LSTM_LEN, 4 * LSTM_H, LSTM_H, 4 * LSTM_H),
+            max_abs_err=err["lstm"],
+            library_note="torch.nn.LSTM (cuDNN, gate order i|f|g|o, hidden "
+                         "and input 512) also computes the input product "
+                         "x W_ih that the kernel is handed as xproj",
+            **lstm),
+        "fused_gru": dict(
+            route="cuda", source="paddle_tpu_torch/kernels/csrc/recurrent.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py:834",
+            shape="xproj [%d, %d, %d], W [%d, %d], full lengths" % (
+                S2S_BATCH, S2S_LEN, 3 * S2S_H, S2S_H, 3 * S2S_H),
+            max_abs_err=err["gru"],
+            library_note="none: no PyTorch call computes this GRU; cuDNN's "
+                         "(torch.nn.GRU) applies the reset after the "
+                         "recurrent product, r * (W_hn h + b_hn), where this "
+                         "one forms (r h) W_c",
+            per_shape=gru_shapes, **gru)}
+
+
+def _rnn_program(build, *args, **kw):
+    """A recurrent model's program under a fresh name generator, with
+    Adam(1e-3) on its loss unless `adam=False`: (main, startup,
+    builder's outputs)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer, unique_name
+
+    adam = kw.pop("adam", True)
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), unique_name.guard():
+        out = build(*args, **kw)
+        if adam:
+            optimizer.Adam(1e-3).minimize(out[1])
+    return main, startup, out
+
+
+def _lstm_batch(batch, t, dict_size, seed, ragged=False):
+    """Seeded words below dict_size, binary labels, and lengths: full, or
+    ragged in [1, t]."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, t + 1, batch) if ragged else np.full(batch, t)
+    return {"words": rng.randint(0, dict_size, (batch, t)).astype("int64"),
+            "seq_len": lens.astype("int64"),
+            "label": rng.randint(0, 2, (batch, 1)).astype("int64")}
+
+
+def _s2s_batch(batch, t, src_dict, tgt_dict, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"src_word_id": rng.randint(0, src_dict, (batch, t)),
+            "target_language_word": rng.randint(0, tgt_dict, (batch, t)),
+            "target_language_next_word": rng.randint(0, tgt_dict, (batch, t))}
+
+
+def train_stacked_lstm(dev, profile_dir=None):
+    """The stacked dynamic LSTM training path: build_stacked_lstm_train at
+    bench.py's stacked_lstm setting (dict 10000, 64 tokens, emb and
+    hidden 512, 3 layers, 2 classes, Adam 1e-3) on batch 32 x 64 of seeded
+    words, full lengths, random weights from a seed, through
+    _train_on_card.  Layers 1 and 3 run fused_lstm; layer 2 is reversed
+    and runs the reference's plain scan.  The first loss must be near
+    ln 2 (near-uniform class scores)."""
+    import math
+
+    from paddle_tpu_torch.models import stacked_dynamic_lstm as sdl
+
+    main, startup, (_, loss, acc) = _rnn_program(
+        sdl.build_stacked_lstm_train, LSTM_DICT, LSTM_LEN, emb_dim=LSTM_H,
+        hidden_dim=LSTM_H, stacked_num=LSTM_STACK, class_dim=2)
+    startup.random_seed = main.random_seed = 2027
+    per_step = _expected_train_launches(main)
+    assert per_step["fused_lstm"] == 4 and sum(per_step.values()) == 4, \
+        per_step
+    batch = _lstm_batch(LSTM_BATCH, LSTM_LEN, LSTM_DICT, seed=0)
+    tokens = LSTM_BATCH * LSTM_LEN
+    return _train_on_card(
+        "stacked dynamic LSTM (batch %d x %d)" % (LSTM_BATCH, LSTM_LEN), main,
+        startup, [loss, acc], batch, tokens, tokens,
+        (math.log(2) - 0.1, math.log(2) + 0.1), per_step, profile_dir,
+        "training_lstm", steps=RNN_STEPS, dropout=False,
+        loss_parts=("accuracy",))
+
+
+def train_seq2seq(dev, profile_dir=None):
+    """The GRU seq2seq training path: build_seq2seq_train at Paddle's
+    benchmark machine_translation widths (embedding and hidden 512,
+    source and target dictionaries 30000, Adam 1e-3) on batch 32 of 50
+    source and 50 target tokens, random weights from a seed, through
+    _train_on_card.  Both GRUs (encoder, teacher-forced decoder) run
+    fused_gru.  The first loss must be near ln 30000."""
+    import math
+
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup, (_, loss) = _rnn_program(
+        mt.build_seq2seq_train, S2S_DICT, S2S_DICT, S2S_LEN, S2S_LEN,
+        embed_dim=S2S_H, hidden_dim=S2S_H)
+    startup.random_seed = main.random_seed = 2028
+    per_step = _expected_train_launches(main)
+    assert per_step["fused_gru"] == 4 and sum(per_step.values()) == 4, \
+        per_step
+    batch = _s2s_batch(S2S_BATCH, S2S_LEN, S2S_DICT, S2S_DICT, seed=0)
+    tokens = S2S_BATCH * S2S_LEN
+    ln_v = math.log(S2S_DICT)
+    return _train_on_card(
+        "GRU seq2seq (batch %d x %d)" % (S2S_BATCH, S2S_LEN), main, startup,
+        [loss], batch, tokens, tokens, (ln_v - 0.5, ln_v + 0.5), per_step,
+        profile_dir, "training_seq2seq", steps=RNN_STEPS, dropout=False,
+        loss_parts=())
+
+
+def lstm_train_card_matches_cpu(dev):
+    """The narrow stacked LSTM of the CPU tests (vocab 61, emb and hidden
+    16, 3 layers, 12 tokens, batch 4, ragged lengths)."""
+    from paddle_tpu_torch.models import stacked_dynamic_lstm as sdl
+
+    main, startup, (_, loss, acc) = _rnn_program(
+        sdl.build_stacked_lstm_train, 61, 12, emb_dim=16, hidden_dim=16,
+        stacked_num=3, class_dim=2)
+    startup.random_seed = 15
+    _card_matches_cpu("stacked LSTM", main, startup, [loss, acc],
+                      _lstm_batch(4, 12, 61, seed=3, ragged=True),
+                      ("fused_lstm",))
+
+
+def seq2seq_train_card_matches_cpu(dev):
+    """The narrow seq2seq of the CPU tests (vocabularies 61 and 53, widths
+    16, 8 tokens, batch 4)."""
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup, (_, loss) = _rnn_program(
+        mt.build_seq2seq_train, 61, 53, 8, 8, embed_dim=16, hidden_dim=16)
+    startup.random_seed = 17
+    _card_matches_cpu("GRU seq2seq", main, startup, [loss],
+                      _s2s_batch(4, 8, 61, 53, seed=3), ("fused_gru",))
+
+
+def _beam_decode(exe, main, logp, new_h, src, beam, hidden, steps):
+    """One BeamSearchDecoder run over a decode step program: (ids,
+    scores, every step's log-probs)."""
+    import numpy as np
+
+    from paddle_tpu_torch.contrib.decoder import BeamSearchDecoder
+
+    logps = []
+
+    def step_fn(tokens, states):
+        lp, nh = exe.run(main, feed={
+            "src_word_id": src,
+            "cur_token": np.asarray(tokens).reshape(-1, 1).astype("int64"),
+            "prev_hidden": np.asarray(states, "float32")},
+            fetch_list=[logp, new_h])
+        logps.append(lp)
+        return lp, nh
+
+    dec = BeamSearchDecoder(step_fn, beam, start_token=1, end_token=0,
+                            max_len=steps)
+    ids, scores = dec.decode(len(src) // beam, init_states=np.zeros(
+        (len(src), hidden), "float32"))
+    return ids, scores, logps
+
+
+def decode_seq2seq(dev):
+    """The GRU beam decode path: build_decode_step at the seq2seq widths
+    (dictionaries 30000, embedding and hidden 512, source 50 tokens),
+    random weights from a seed, driven by BeamSearchDecoder: beam 4 over
+    2 sentences, 16 steps.  Each step re-encodes the source (fused_gru at
+    T 50) and takes one GRU step from the previous hidden state
+    (fused_gru at T 1 with H0); every run's launches are held to its
+    program's, every step's log-probs are finite with rows that
+    normalize."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup, (_, logp, new_h) = _rnn_program(
+        mt.build_decode_step, S2S_DICT, S2S_DICT, S2S_LEN, embed_dim=S2S_H,
+        hidden_dim=S2S_H, adam=False)
+    startup.random_seed = 2029
+    rng = np.random.RandomState(5)
+    src = np.repeat(rng.randint(2, S2S_DICT, (S2S_BEAM_SENTS, S2S_LEN)),
+                    S2S_BEAM, axis=0).astype("int64")
+    with ptt.scope_guard(ptt.Scope()):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        exe.run(startup)
+        runs = _DecodeRuns(exe)
+        t0 = time.perf_counter()
+        ids, scores, logps = _beam_decode(exe, main, logp, new_h, src,
+                                          S2S_BEAM, S2S_H, S2S_BEAM_STEPS)
+        wall = time.perf_counter() - t0
+    rows = S2S_BEAM * S2S_BEAM_SENTS
+    for lp in logps:
+        assert lp.shape == (rows, S2S_DICT) and np.isfinite(lp).all()
+        mass = np.exp(lp.astype("float64")).sum(-1)
+        assert np.abs(mass - 1).max() < 1e-3, mass
+    assert ids.shape[:2] == (S2S_BEAM_SENTS, S2S_BEAM)
+    assert np.isfinite(scores).all()
+    launches = runs.totals
+    assert launches["fused_gru"] == 2 * len(logps) > 0, launches
+    p50 = _p50_ms(runs.times[id(main)])
+    print("decoded GRU seq2seq (beam %d over %d sentences, source %d): %d "
+          "steps in %.3f s, decode step p50 %.3f ms, %.1f hypothesis "
+          "tokens/s; scores %s; launches %s" % (
+              S2S_BEAM, S2S_BEAM_SENTS, S2S_LEN, len(logps), wall, p50,
+              rows / p50 * 1e3, json.dumps(np.round(scores, 4).tolist()),
+              json.dumps(launches)))
+    return launches
+
+
+def seq2seq_decode_card_matches_cpu(dev):
+    """The narrow decode step of the CPU tests (vocabularies 61 and 53,
+    widths 16, source 8), beam 4 over 2 sentences, 6 steps, on the card
+    and on the CPU from the same weights: the same tokens, and every
+    step's log-probs within 1e-5 of their largest magnitude."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup, (_, logp, new_h) = _rnn_program(
+        mt.build_decode_step, 61, 53, 8, embed_dim=16, hidden_dim=16,
+        adam=False)
+    startup.random_seed = 19
+    rng = np.random.RandomState(9)
+    src = np.repeat(rng.randint(2, 61, (2, 8)), 4, axis=0).astype("int64")
+    out = {}
+    for kind in ("cpu", "cuda"):
+        with ptt.scope_guard(ptt.Scope()):
+            place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+            exe = ptt.Executor(place)
+            if kind == "cpu":
+                exe.run(startup)
+                weights = {n: ptt.global_scope().find_var(n).clone()
+                           for n in ptt.global_scope().local_var_names()}
+            else:
+                for n, w in weights.items():
+                    ptt.global_scope().set(n, w.to(place.torch_device()))
+            kernels.reset_launch_counts()
+            out[kind] = _beam_decode(exe, main, logp, new_h, src, 4, 16, 6)
+    launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    assert launched["fused_gru"] == 2 * len(out["cuda"][2]) > 0, launched
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    err = max(_rel_err(a, b) for a, b in zip(out["cuda"][2], out["cpu"][2]))
+    assert len(out["cuda"][2]) == len(out["cpu"][2]) and err <= 1e-5, err
+    print("narrow GRU seq2seq beam-decoded on the card vs the CPU plain "
+          "path: tokens equal over %d steps, log-probs within %.3g of their "
+          "largest magnitude; launches %s" % (len(out["cpu"][2]), err,
+                                               json.dumps(launched)))
+
+
 DECODE_KERNELS = ("flash_attention_fwd", "flash_attention_piece_fwd",
                   "matmul_bias_act", "fused_add_layer_norm")
 # held on the card by the kernel phase only: no path of the repo trains
@@ -2418,6 +2822,16 @@ def main():
                             DECODE_KERNELS + ("matmul_swiglu",
                                               "fused_layer_norm"))
     lap("narrow modern decode, card vs CPU")
+    torch.cuda.empty_cache()
+    trained_lstm = train_stacked_lstm(dev, profile_dir)
+    lstm_train_card_matches_cpu(dev)
+    lap("lstm training")
+    trained_s2s = train_seq2seq(dev, profile_dir)
+    seq2seq_train_card_matches_cpu(dev)
+    lap("seq2seq training")
+    decoded_s2s = decode_seq2seq(dev)
+    seq2seq_decode_card_matches_cpu(dev)
+    lap("seq2seq beam decode")
 
     # launches: each path's run, counted from 0 just before it and read
     # just after
@@ -2430,7 +2844,10 @@ def main():
                    "bert_training": trained_bert[name],
                    "wmt_fused_attn_training": trained_wmt_fused[name],
                    "gpt2_decode": decoded[name],
-                   "llama_decode": decoded_llama[name]}
+                   "llama_decode": decoded_llama[name],
+                   "lstm_training": trained_lstm[name],
+                   "seq2seq_training": trained_s2s[name],
+                   "seq2seq_decode": decoded_s2s[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),
@@ -2440,7 +2857,7 @@ def main():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape"):
             entry[key] = r[key]
-        for key in ("per_shape", "max_rel_err"):
+        for key in ("per_shape", "max_rel_err", "library_note"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -11,8 +11,9 @@ only: never jax, and nothing of ``paddle_tpu``.
     exe = fluid.Executor(fluid.CPUPlace())
 
 The port grows slice by slice: continuous-batching serving of GPT-2
-(``serving.ServingEngine``, the modern-decoder options included) and
-training of the WMT Transformer, GPT-2 and BERT (``models``).
+(``serving.ServingEngine``, the modern-decoder options included),
+KV-cached decoding, and training of the WMT Transformer, GPT-2, BERT,
+the stacked dynamic LSTM and the GRU seq2seq model (``models``).
 """
 
 from . import ops  # noqa: F401  (registers the op lowerings)

@@ -40,6 +40,13 @@ from .matmul_epilogue import (
     mm_act,
 )
 from .matmul_swiglu import matmul_swiglu, matmul_swiglu_plain
+from .recurrent import (
+    fused_gru,
+    fused_lstm,
+    gru_seq_plain,
+    lstm_cell,
+    lstm_seq_plain,
+)
 from .softmax_xent import (
     fused_softmax_xent,
     softmax_xent_bwd,
@@ -55,7 +62,7 @@ KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            matmul_swiglu, softmax_xent_fwd, softmax_xent_bwd,
            flash_attention_piece_fwd, flash_attention_piece_dq,
            flash_attention_piece_dkv, flash_attention_qvec_dq,
-           flash_attention_qvec_dkv)
+           flash_attention_qvec_dkv, fused_lstm, fused_gru)
 
 
 def reset_launch_counts():

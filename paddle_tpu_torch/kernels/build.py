@@ -53,6 +53,8 @@ SIGNATURES = {
     "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 6 + (_F, _P),
     "ptt_softmax_xent_fwd": (_P,) * 3 + (_I, _I, _P),
     "ptt_softmax_xent_bwd": (_P,) * 4 + (_I, _I, _P),
+    "ptt_lstm_seq": (_P,) * 7 + (_I,) * 3 + (_P,),
+    "ptt_gru_seq": (_P,) * 6 + (_I,) * 3 + (_P,),
 }
 
 _lib = None

@@ -1,6 +1,7 @@
 """Neural-net layers (the counterpart of ``paddle_tpu/layers/nn.py``):
-the builders the serving slice and the GPT-2 (modern-decoder options
-included), WMT Transformer and BERT pretraining programs call.  Each
+the builders the serving slice, the GPT-2 (modern-decoder options
+included), WMT Transformer and BERT pretraining programs and the
+recurrent models (stacked LSTM classifier, GRU seq2seq) call.  Each
 appends ops through LayerHelper exactly as the reference does, so the
 same calls generate the same var and parameter names."""
 
@@ -16,7 +17,8 @@ __all__ = [
     "elementwise_pow", "gather", "fused_attention", "slot_cache_write",
     "dropout", "softmax", "softmax_with_cross_entropy", "label_smooth",
     "reduce_sum", "mean", "squeeze", "unsqueeze", "one_hot",
-    "scale", "clip", "swish", "expand", "rotary_embed",
+    "scale", "clip", "swish", "expand", "rotary_embed", "dynamic_lstm",
+    "dynamic_gru", "cross_entropy", "topk", "reduce_mean", "log", "tanh",
 ]
 
 
@@ -38,10 +40,13 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
             outputs={"Out": [tmp]},
             attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError("fc over several inputs (the sum op) is not "
-                                  "ported yet")
-    pre_act = helper.append_bias_op(mul_results[0], dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -114,6 +119,14 @@ def _simple(op_type, x, attrs=None, name=None):
     helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs=attrs or {})
     return out
+
+
+def tanh(x, name=None):
+    return _simple("tanh", x, name=name)
+
+
+def log(x, name=None):
+    return _simple("log", x, name=name)
 
 
 def clip(x, min, max, name=None):
@@ -246,6 +259,28 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "cross_entropy", inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op("top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
+
+
 def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
                  name=None):
     helper = LayerHelper("label_smooth", name=name)
@@ -258,17 +293,25 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
+def _reduce(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     if dim is None:
         attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
     else:
         attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
                  "keep_dim": keep_dim, "reduce_all": False}
-    helper.append_op("reduce_sum", inputs={"X": [input]},
-                     outputs={"Out": [out]}, attrs=attrs)
+    helper.append_op(op_type, inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs=attrs)
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
 
 
 def mean(x, name=None):
@@ -338,3 +381,61 @@ def slot_cache_write(cache, new, pos, width, name=None):
                              "Width": [width]},
                      outputs={"Out": [out]})
     return out
+
+
+# ---------------------------------------------------------------------------
+# recurrent layers over padded [batch, time, gates * hidden] input, the
+# projection done by a preceding fc (the reference's dynamic_lstm contract)
+# ---------------------------------------------------------------------------
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=False, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None,
+                 seq_len=None):
+    """LSTM over padded [B, T, 4 hidden] input (size = 4 hidden): the
+    padded_lstm op.  Returns (hidden [B, T, hidden], last cell [B,
+    hidden])."""
+    helper = LayerHelper("lstm", **locals())
+    hidden_size = size // 4
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[hidden_size, 4 * hidden_size],
+                                dtype=dtype)
+    b = helper.create_parameter(attr=helper.bias_attr,
+                                shape=[4 * hidden_size], dtype=dtype,
+                                is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    last_h = helper.create_variable_for_type_inference(dtype)
+    last_c = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [w], "Bias": [b]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op(
+        "padded_lstm", inputs=inputs,
+        outputs={"Hidden": [hidden], "LastH": [last_h], "LastC": [last_c]},
+        attrs={"is_reverse": is_reverse})
+    return hidden, last_c
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, h_0=None, dtype="float32", name=None,
+                seq_len=None):
+    """GRU over padded [B, T, 3 size] projected input: the padded_gru
+    op.  Returns the hidden sequence [B, T, size]."""
+    helper = LayerHelper("gru", **locals())
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[size, 3 * size], dtype=dtype)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    last_h = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [w]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    helper.append_op("padded_gru", inputs=inputs,
+                     outputs={"Hidden": [hidden], "LastH": [last_h]},
+                     attrs={"is_reverse": is_reverse})
+    return hidden

@@ -5,7 +5,7 @@ from .. import framework
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "create_global_var", "assign",
-           "fill_constant"]
+           "fill_constant", "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -49,4 +49,12 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                      attrs={"shape": list(shape), "dtype": dtype,
                             "value": float(value)})
     out.stop_gradient = True
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op("concat", inputs={"X": input}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
     return out

@@ -1,7 +1,9 @@
 """Elementwise / activation / matmul / reduction / loss op lowerings
 (the counterpart of ``paddle_tpu/ops/math_ops.py``), limited to the ops
-the serving slice and the GPT-2 (with its modern-decoder options), WMT
-Transformer and BERT pretraining steps run.  ``mul`` and ``matmul`` are
+the serving slice, the GPT-2 (with its modern-decoder options), WMT
+Transformer and BERT pretraining steps and the recurrent models (the
+stacked LSTM classifier's cross entropy and accuracy, the GRU seq2seq
+model's) run.  ``mul`` and ``matmul`` are
 plain products outside any kernel of the reference, so they stay
 ``torch.matmul`` here too.
 ``fused_linear_xent`` sits on the hand-written linear cross-entropy
@@ -196,6 +198,49 @@ def _fused_linear_xent(ctx, ins, attrs):
     loss = fused_linear_xent(x.reshape(-1, h).contiguous(), w.contiguous(),
                              label.reshape(-1).long().contiguous(), eps)
     return {"Loss": [loss.reshape(tuple(x.shape[:-1]) + (1,)).to(x.dtype)]}
+
+
+@register("cross_entropy", no_grad_inputs=("Label",))
+def _cross_entropy(ctx, ins, attrs):
+    """-log of the probability X gives the label (hard), or -sum(label
+    log X) (soft), X clipped below at 1e-20 first.  The clip is
+    torch.maximum against a tensor bound, whose derivative splits a tie
+    0.5 / 0.5 as the reference's jnp.clip does."""
+    x, label = ins["X"][0], ins["Label"][0]
+    floor = torch.tensor(1e-20, dtype=x.dtype, device=x.device)
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(torch.maximum(x, floor))).sum(
+            -1, keepdim=True)
+    else:
+        loss = -torch.log(torch.maximum(_take_label(x, label), floor))
+    return {"Y": [loss]}
+
+
+@register("top_k", no_grad_inputs=("X",))
+def _top_k(ctx, ins, attrs):
+    vals, idx = torch.topk(ins["X"][0], int(attrs["k"]))
+    return {"Out": [vals], "Indices": [idx]}
+
+
+@register("accuracy", no_grad_inputs=("Out", "Indices", "Label"))
+def _accuracy(ctx, ins, attrs):
+    """The share of rows whose label is among their top-k indices, with
+    the count of such rows and of all rows."""
+    idx, label = ins["Indices"][0], ins["Label"][0]
+    if label.dim() < idx.dim():
+        label = label[..., None]
+    correct = (idx == label.to(idx.dtype)).any(-1)
+    total = correct.shape[0]
+    num_correct = correct.to(torch.int64).sum()
+    return {"Accuracy": [(num_correct.float() / total).reshape(1)],
+            "Correct": [num_correct.reshape(1)],
+            "Total": [torch.full((1,), total, dtype=torch.int64,
+                                 device=idx.device)]}
+
+
+@register("log")
+def _log(ctx, ins, attrs):
+    return {"Out": [torch.log(ins["X"][0])]}
 
 
 @register("relu")

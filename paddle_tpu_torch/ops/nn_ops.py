@@ -1,9 +1,10 @@
 """Neural-net op lowerings (the counterpart of ``paddle_tpu/ops/nn_ops.py``),
-limited to the ops of the serving slice, the KV-cached decode step and
-the GPT-2 (with its modern-decoder options: rotary positions, SwiGLU)
-and WMT Transformer training steps.
+limited to the ops of the serving slice, the KV-cached decode step, the
+GPT-2 (with its modern-decoder options: rotary positions, SwiGLU) and
+WMT Transformer training steps, and the recurrent models (the stacked
+LSTM classifier, the GRU seq2seq model).
 
-Six ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
+Seven ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
 ``fc`` on ``matmul_bias_act``, ``fused_swiglu`` on ``matmul_swiglu``,
 ``fused_residual_ln`` on
 ``fused_add_layer_norm``, ``layer_norm`` over the last axis with Scale
@@ -11,8 +12,10 @@ and Bias on ``fused_layer_norm``, and ``fused_attention``: its per-row
 QStart form on ``flash_attention_qvec``, its scalar-QStart form (the
 chunked decode step) on ``flash_attention_piece`` and its forms without
 a QStart (causal or not, with or without a key Bias) on
-``flash_attention``.  Each wrapper takes its plain version for CPU and
-meta tensors and launches its kernel for CUDA tensors.
+``flash_attention``, and the forward direction of ``padded_lstm`` and
+``padded_gru`` on ``fused_lstm`` and ``fused_gru``.  Each wrapper takes
+its plain version for CPU and meta tensors and launches its kernel for
+CUDA tensors.
 ``layer_norm``'s other forms are the reference's own XLA branch, which
 has no kernel: they stay plain PyTorch on any device.  The
 ``fused_attention`` forms whose reference kernel is not ported yet
@@ -33,7 +36,10 @@ from ..kernels import (
     flash_attention_plain,
     flash_attention_qvec,
     fused_add_layer_norm,
+    fused_gru,
     fused_layer_norm,
+    fused_lstm,
+    lstm_cell,
     matmul_bias_act,
     matmul_swiglu,
 )
@@ -349,3 +355,95 @@ def _rotary_embed(ctx, ins, attrs):
     x1, x2 = x[..., :half], x[..., half:]
     return {"Out": [torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                               -1)]}
+
+
+def _state(ins, slot, like, hid):
+    """An initial state input, or zeros [B, H] (the reference's default)."""
+    if ins.get(slot):
+        return ins[slot][0].contiguous()
+    return torch.zeros((like.shape[0], hid), dtype=like.dtype,
+                       device=like.device)
+
+
+def _lengths(seq_len, like):
+    """[B] row lengths: SeqLen, or the full time axis."""
+    if seq_len is not None:
+        return seq_len.reshape(-1)
+    return torch.full((like.shape[0],), like.shape[1], dtype=torch.int64,
+                      device=like.device)
+
+
+def _hold(m, new, old):
+    """The reference's length mask: new where m is 1, old where 0."""
+    return m * new + (1 - m) * old
+
+
+@register("padded_lstm")
+def _padded_lstm(ctx, ins, attrs):
+    """LSTM over padded [B, T, 4H] projected input (Input), Weight
+    [H, 4H], optional Bias [4H], SeqLen [B], H0 and C0 [B, H].  The
+    forward direction runs fused_lstm (its kernel on CUDA tensors) on
+    xproj + Bias, the bias folded in before the scan; masking holds the
+    state past each row's length, so LastH/LastC are the last step.  The
+    reverse direction is the reference's plain scan over the flipped
+    time axis, the bias added inside each step, on any device (the
+    reference has no kernel for it); LastH/LastC are its final carry."""
+    xproj, w = ins["Input"][0], ins["Weight"][0]
+    b = ins["Bias"][0] if ins.get("Bias") else None
+    seq_len = ins["SeqLen"][0] if ins.get("SeqLen") else None
+    bsz, t, h4 = xproj.shape
+    hid = h4 // 4
+    h0 = _state(ins, "H0", xproj, hid)
+    c0 = _state(ins, "C0", xproj, hid)
+    if not attrs.get("is_reverse", False):
+        xg = xproj if b is None else xproj + b.reshape(1, 1, -1)
+        hs, cs = fused_lstm(xg.contiguous(), w.contiguous(), h0, c0,
+                            _lengths(seq_len, xproj))
+        return {"Hidden": [hs], "CellSeq": [cs], "LastH": [hs[:, -1, :]],
+                "LastC": [cs[:, -1, :]]}
+    c, h = c0, h0
+    hs, cs = [None] * t, [None] * t
+    for ti in reversed(range(t)):
+        gates = xproj[:, ti] + h @ w
+        if b is not None:
+            gates = gates + b
+        c_new, h_new = lstm_cell(c, h, gates)
+        if seq_len is not None:
+            m = (ti < seq_len).to(h.dtype)[:, None]
+            c_new, h_new = _hold(m, c_new, c), _hold(m, h_new, h)
+        c, h = c_new, h_new
+        hs[ti], cs[ti] = h, c
+    return {"Hidden": [torch.stack(hs, 1)], "CellSeq": [torch.stack(cs, 1)],
+            "LastH": [h], "LastC": [c]}
+
+
+@register("padded_gru")
+def _padded_gru(ctx, ins, attrs):
+    """GRU over padded [B, T, 3H] projected input, Weight [H, 3H]
+    (update | reset | candidate), optional SeqLen and H0.  The forward
+    direction runs fused_gru (its kernel on CUDA tensors); the reverse
+    direction is the reference's plain scan on any device."""
+    xproj, w = ins["Input"][0], ins["Weight"][0]
+    seq_len = ins["SeqLen"][0] if ins.get("SeqLen") else None
+    bsz, t, h3 = xproj.shape
+    hid = h3 // 3
+    h0 = _state(ins, "H0", xproj, hid)
+    if not attrs.get("is_reverse", False):
+        hs = fused_gru(xproj.contiguous(), w.contiguous(), h0,
+                       _lengths(seq_len, xproj))
+        return {"Hidden": [hs], "LastH": [hs[:, -1, :]]}
+    w_rz, w_c = w[:, :2 * hid], w[:, 2 * hid:]
+    h = h0
+    hs = [None] * t
+    for ti in reversed(range(t)):
+        x_t = xproj[:, ti]
+        # gate layout [update|reset|state], h = u*c + (1-u)*h_prev
+        u, r = torch.chunk(torch.sigmoid(x_t[:, :2 * hid] + h @ w_rz), 2,
+                           dim=-1)
+        c = torch.tanh(x_t[:, 2 * hid:] + (r * h) @ w_c)
+        h_new = u * c + (1 - u) * h
+        if seq_len is not None:
+            h_new = _hold((ti < seq_len).to(h.dtype)[:, None], h_new, h)
+        h = h_new
+        hs[ti] = h
+    return {"Hidden": [torch.stack(hs, 1)], "LastH": [h]}

@@ -1,7 +1,8 @@
 """Tensor creation / manipulation op lowerings (the counterpart of
 ``paddle_tpu/ops/tensor_ops.py``), limited to the ops the serving slice,
 the GPT-2 programs (grouped-query attention's ``expand`` included), the
-WMT Transformer's training step and BERT pretraining (``squeeze2``) run.
+WMT Transformer's training step, BERT pretraining (``squeeze2``) and the
+GRU seq2seq model (``concat``) run.
 Random ops draw from the run's seeded ``torch.Generator``
 (``LowerCtx.rng``).
 """
@@ -107,6 +108,11 @@ def _unsqueeze(ctx, ins, attrs):
     for a in sorted(attrs["axes"]):
         x = x.unsqueeze(a)
     return {"Out": [x]}
+
+
+@register("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
 
 
 @register("slice")
