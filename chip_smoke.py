@@ -116,7 +116,18 @@ In order, it:
    sentences, 16 steps through BeamSearchDecoder; fused_gru at T 50 and
    at T 1 from H0 every step), prints the decode step's p50, and the
    narrow decode step card vs CPU (tokens equal, log-probs 1e-5);
-20. prints the kernels line and, last, the result line.
+20. trains Transformer-base vocab-parallel (the WMT program on a {"dp":
+   1, "mp": 2} mesh whose rule table vocab-shards softmax_out.w): two
+   ranks spawned on the one card over a gloo group, each holding its
+   [512, 5000] slab and running sharded_linear_xent's kernels (parts 2,
+   dx 1, dw 1 a step, no fused_linear_xent), 2 warm-up steps and 5 timed;
+   the first 3 steps' losses and the gathered softmax_out.w against a
+   one-process unsharded run, the replicated state bit-equal across the
+   ranks, and the narrow config of the CPU tests on the card's ranks vs
+   the CPU's; the kernel phase holds the three B12 kernels at the path's
+   shapes, a ragged R and TinyLlama's widths on mp 4 (with --profile,
+   rank 0's chiprun_out/profile_training_vocab_parallel.json);
+21. prints the kernels line and, last, the result line.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -137,6 +148,10 @@ TRAIN_BATCH, TRAIN_LEN = 64, 64
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_LEN  # 4096 target rows per step
 HP_D_MODEL, HP_VOCAB, HP_HEADS = 512, 10000, 8  # ModelHyperParams' widths
 TRAIN_STEPS = 10
+# the vocab-parallel path: Transformer-base on a {"dp": 1, "mp": 2} mesh,
+# softmax_out.w vocab-sharded; two ranks share the one card over gloo
+VP_MP = 2
+VP_WARMUP, VP_STEPS = 2, 5
 # GPT-2 small training step: batch 8 x 1024 tokens
 GPT2_BATCH, GPT2_LEN = 8, 1024
 GPT2_ROWS = GPT2_BATCH * GPT2_LEN  # 8192 target rows per step
@@ -475,6 +490,8 @@ def check_kernels(dev):
     mark("flash_attention_qvec")
     rec.update(check_linear_xent(dev, randn, g))
     mark("linear_xent")
+    rec.update(check_sharded_linear_xent(dev, randn, g))
+    mark("sharded_linear_xent")
     rec.update(check_layer_norm(randn))
     mark("fused_layer_norm")
     rec.update(check_flash_attention(dev, randn))
@@ -713,6 +730,150 @@ def _lxent_times(dev, randn, g, R, H, V, eps, slow):
                            "forward and backward"),
             ms=timed(kern), plain_ms=timed(plain) if plain else plain_grad,
             library_ms=timed(lib) if lib else lib_fwd_bwd,
+            bound_ms=b, bound_by=fl)
+    return out
+
+
+def check_sharded_linear_xent(dev, randn, g):
+    """sharded_linear_xent's three kernels (parts, dx, dw) against their
+    plain versions on one vocab shard: the vocab-parallel path's x [4096,
+    512], w_local [512, 5000] (mp 2, the slab at col0 5000 of 10000), eps
+    0.1, labels over the whole vocab (half outside the shard) with a few at
+    -1 and 10000; a ragged R of 4095; and the wide-H form at TinyLlama's
+    widths on mp 4, [4096, 2048] x [2048, 8000] of 32000, eps 0.  The lse
+    handed to dx/dw is a global one (this shard's plus log 2).  Limit:
+    1e-4 of the largest magnitude of each output; a rerun is bit-equal.
+    Each shape is timed: the path's in the record, the others as
+    `per_shape`."""
+    import torch
+
+    import importlib
+
+    slx = importlib.import_module("paddle_tpu_torch.kernels.sharded_linear_xent")
+
+    err = {"parts": 0.0, "dx": 0.0, "dw": 0.0}  # relative to the max magnitude
+    err_abs = dict(err)
+
+    def note(key, a, b):
+        err[key] = max(err[key], ((a - b).abs().max() / b.abs().max()
+                                  .clamp_min(1e-30)).item())
+        err_abs[key] = max(err_abs[key], (a - b).abs().max().item())
+
+    shapes = ((TRAIN_ROWS, HP_D_MODEL, HP_VOCAB // VP_MP, 0.1, HP_VOCAB, 1),
+              (TRAIN_ROWS - 1, HP_D_MODEL, HP_VOCAB // VP_MP, 0.1, HP_VOCAB, 0),
+              (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB // 4, 0.0, LLAMA_VOCAB, 2))
+    for r, h, v, eps, vt, shard in shapes:
+        x, w = randn(r, h), randn(h, v, scale=h ** -0.5)
+        lbl = torch.randint(0, vt, (r,), generator=g, device=dev)
+        lbl[:3] = torch.tensor([-1, vt, shard * v], device=dev)
+        lbl_local = lbl - shard * v
+        valid = ((lbl >= 0) & (lbl < vt)).float()
+        dy = torch.rand(r, 1, generator=g, device=dev)
+        parts = slx.linear_xent_parts(x, w, lbl_local)
+        p_parts = slx.linear_xent_parts_plain(x, w, lbl_local)
+        assert all(torch.equal(a, b) for a, b in zip(
+            parts, slx.linear_xent_parts(x, w, lbl_local))), "parts rerun"
+        for a, b in zip(parts, p_parts):
+            note("parts", a, b)
+        lse = p_parts[0] + 0.6931471805599453
+        args = (x, w, lbl_local, valid, lse, dy, eps, vt)
+        dx, dw = slx.linear_xent_dx_sharded(*args), slx.linear_xent_dw_sharded(*args)
+        assert torch.equal(dx, slx.linear_xent_dx_sharded(*args)), "dx rerun"
+        assert torch.equal(dw, slx.linear_xent_dw_sharded(*args)), "dw rerun"
+        p_dx, p_dw = slx.linear_xent_grad_sharded_plain(*args)
+        note("dx", dx, p_dx)
+        note("dw", dw, p_dw)
+    for k, v_ in err.items():
+        assert v_ <= 1e-4, ("sharded_linear_xent disagrees", k, v_)
+
+    rec = {}
+    for name, site, e in (("linear_xent_parts", ":1818", "parts"),
+                          ("linear_xent_dx_sharded", ":1900", "dx"),
+                          ("linear_xent_dw_sharded", ":1914", "dw")):
+        rec[name] = dict(
+            route="cuda", source="paddle_tpu_torch/kernels/csrc/linear_xent.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site,
+            max_abs_err=err_abs[e], max_rel_err=err[e])
+    for tag, (r, h, v, eps, vt, shard) in (("wmt_vp", shapes[0]),
+                                           ("ragged", shapes[1]),
+                                           ("llama_mp4", shapes[2])):
+        for name, times in _sharded_lxent_times(
+                dev, randn, g, r, h, v, eps, vt, shard,
+                slow=tag == "llama_mp4").items():
+            if tag == "wmt_vp":
+                rec[name].update(times)
+            else:
+                rec[name].setdefault("per_shape", {})[
+                    "%s %s" % (tag, times.pop("shape"))] = times
+    torch.cuda.synchronize()
+    return rec
+
+
+def _sharded_lxent_times(dev, randn, g, R, H, V, eps, vocab_total, shard,
+                         slow):
+    """Times of the three sharded kernels at one shape, beside their plain
+    versions and the dense PyTorch yardsticks: matmul, logsumexp, the
+    gold-column gather and the row sum (parts); the same logits, softmax,
+    g, g @ w^T and x^T @ g (dx and dw).  `slow` shapes are timed with CUDA
+    events over 3 calls."""
+    import torch
+
+    import importlib
+
+    slx = importlib.import_module("paddle_tpu_torch.kernels.sharded_linear_xent")
+
+    x, w = randn(R, H), randn(H, V, scale=H ** -0.5)
+    lbl = torch.randint(0, vocab_total, (R,), generator=g, device=dev)
+    lbl_local = lbl - shard * V
+    valid = ((lbl >= 0) & (lbl < vocab_total)).float()
+    dy = torch.rand(R, 1, generator=g, device=dev)
+    lse = slx.linear_xent_parts(x, w, lbl_local)[0] + 0.6931471805599453
+    args = (x, w, lbl_local, valid, lse, dy, eps, vocab_total)
+    cols = torch.arange(V, device=dev)[None, :]
+    inside = ((lbl_local >= 0) & (lbl_local < V))
+
+    def library_parts():
+        z = torch.matmul(x, w)
+        gold = z.gather(1, lbl_local.clamp(0, V - 1)[:, None]) * inside[:, None]
+        return torch.logsumexp(z, -1, keepdim=True), gold, z.sum(-1, keepdim=True)
+
+    def library_bwd():
+        z = torch.matmul(x, w)
+        p = torch.exp(z - lse)
+        gg = valid[:, None] * (1.0 - eps) * (p - (cols == lbl_local[:, None]).float())
+        if eps:
+            gg = gg + eps * (p - 1.0 / vocab_total)
+        gg = gg * dy
+        return gg @ w.t(), x.t() @ gg
+
+    def timed(fn):
+        return _events_ms(fn, reps=3) if slow else _time_ms(fn, reps=5,
+                                                             inner=5)
+
+    plain_grad = _events_ms(lambda: slx.linear_xent_grad_sharded_plain(*args))
+    lib_bwd = _events_ms(library_bwd)
+    in_bytes = 4 * (R * H + H * V) + 8 * R
+    shape = "x [%d, %d], w_local [%d, %d] of %d, eps %.1f" % (
+        R, H, H, V, vocab_total, eps)
+    specs = (
+        ("linear_xent_parts", lambda: slx.linear_xent_parts(x, w, lbl_local),
+         lambda: slx.linear_xent_parts_plain(x, w, lbl_local), library_parts,
+         in_bytes + 4 * 3 * R, 2 * R * H * V),
+        ("linear_xent_dx_sharded", lambda: slx.linear_xent_dx_sharded(*args),
+         None, None, in_bytes + 4 * 3 * R + 4 * R * H, 4 * R * H * V),
+        ("linear_xent_dw_sharded", lambda: slx.linear_xent_dw_sharded(*args),
+         None, None, in_bytes + 4 * 3 * R + 4 * H * V, 4 * R * H * V),
+    )
+    out = {}
+    for name, kern, plain, lib, nbytes, flops in specs:
+        b, fl = _bound_ms(nbytes, flops)
+        out[name] = dict(
+            shape=shape + ("" if plain else
+                           "; plain_ms is the plain backward (dx and dw "
+                           "together), library_ms the dense logits, softmax, "
+                           "g @ w^T and x^T @ g"),
+            ms=timed(kern), plain_ms=timed(plain) if plain else plain_grad,
+            library_ms=timed(lib) if lib else lib_bwd,
             bound_ms=b, bound_by=fl)
     return out
 
@@ -1910,6 +2071,290 @@ def train_transformer_base_fused_attn(dev):
         TRAIN_ROWS, (8.0, 10.5), per_step, None, None, steps=3)
 
 
+class TinyVocabParallelWMT:
+    """The narrow WMT config of the CPU tests' vocab-parallel runs: vocab
+    64, d_model 32, d_inner 64, 4 heads, 2+2 layers, dropout 0, batch 4 x
+    8 (a subclass of ModelHyperParams is made where it is used)."""
+
+    attrs = dict(src_vocab_size=64, trg_vocab_size=64, max_length=16,
+                 d_model=32, d_inner_hid=64, n_head=4, n_layer=2, dropout=0.0)
+    batch, length = 4, 8
+
+
+def _vp_program(hp, mesh, length):
+    """The WMT training program with softmax_out.w vocab-sharded over `mesh`
+    (the vocab-only rule table; None: unstamped), seed 4321."""
+    from paddle_tpu_torch.models import transformer as tfm
+    from paddle_tpu_torch.parallel import P, TrainPartitionRules, annotate_spmd
+
+    main, startup, _, fetch = tfm.wmt_transformer_program(
+        hp, src_len=length, trg_len=length, mesh=mesh)
+    if mesh is not None:
+        annotate_spmd(main, mesh, TrainPartitionRules(
+            [(r"softmax_out\.w", P(None, "mp"))]))
+    startup.random_seed = main.random_seed = 4321
+    return main, startup, fetch
+
+
+def _vocab_slab_names(names):
+    """softmax_out.w and its Adam moments: the vocab-sharded persistables."""
+    return sorted(n for n in names if n.startswith("softmax_out.w")
+                  and "pow" not in n)
+
+
+def _state_sums(scope, names):
+    """One int per tensor: the sum of its float32 bit patterns, on the
+    card (equal sums for bit-equal tensors)."""
+    import torch
+
+    return {n: int(scope.find_var(n).contiguous().view(torch.int32)
+                   .to(torch.int64).sum()) for n in names}
+
+
+def _vp_rank(rank, store, out_dir, profile_dir):
+    """One rank of the vocab-parallel phase on cuda:0, on a gloo group
+    named explicitly (NCCL refuses two ranks on one card).  Writes its
+    results, or its traceback, to out_dir/rank<r>.pkl; the parent fails
+    the phase on either a traceback or a nonzero exit."""
+    import pickle
+    import traceback
+
+    path = os.path.join(out_dir, "rank%d.pkl" % rank)
+    try:
+        out = _vp_rank_run(rank, store, out_dir, profile_dir)
+    except BaseException:
+        with open(path, "wb") as f:
+            pickle.dump({"error": traceback.format_exc()}, f)
+        raise
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _vp_rank_run(rank, store, out_dir, profile_dir):
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.executor import gather_persistable
+    from paddle_tpu_torch.models import transformer as tfm
+    from paddle_tpu_torch.parallel import collective, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    collective.init_distributed_env("file://" + store, VP_MP, rank,
+                                    backend="gloo")
+    mesh = make_mesh({"dp": 1, "mp": VP_MP})
+    hp = tfm.ModelHyperParams
+    main, startup, fetch = _vp_program(hp, mesh, TRAIN_LEN)
+    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
+    out = {}
+    scope = ptt.Scope()
+    with ptt.scope_guard(scope):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        exe.run(startup)
+        names = scope.local_var_names()
+        slabs = _vocab_slab_names(names)
+        whole = [n for n in names if n not in slabs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the 2 warm-up steps and one more: the exactness steps
+        out["losses"] = [float(exe.run(main, feed=batch, fetch_list=[fetch[0]])
+                               [0].sum()) for _ in range(VP_WARMUP + 1)]
+        w = gather_persistable(scope, main, slabs[0])
+        if rank == 0:
+            np.save(os.path.join(out_dir, "w_gathered.npy"), w.cpu().numpy())
+        out["held"] = {n: tuple(scope.find_var(n).shape) for n in slabs}
+        out["sums_exact"] = _state_sums(scope, whole)
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(VP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = exe.run(main, feed=batch, fetch_list=fetch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            assert float(loss[1].sum()) == float(batch["lbl_weight"].sum())
+            out["losses"].append(float(loss[0].sum()))
+        out["launches"] = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        out["times"] = times
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["sums_last"] = _state_sums(scope, whole)
+        if profile_dir:
+            # rank 0's process under the profiler (its own kernels: the
+            # idle share counts the card's time with rank 1 as idle); rank
+            # 1 runs the same 1 + 3 steps, so the collectives pair up
+            def step():
+                exe.run(main, feed=batch, fetch_list=fetch)
+
+            if rank == 0:
+                profile_training(step, profile_dir,
+                                 name="training_vocab_parallel")
+            else:
+                for _ in range(4):
+                    step()
+    del scope, exe
+    torch.cuda.empty_cache()
+
+    # the narrow config on the card's two ranks and on the CPU's (the same
+    # gloo group, CPU tensors): 3 steps each from the same weights
+    narrow = type("NarrowVP", (hp,), TinyVocabParallelWMT.attrs)
+    n_batch = tfm.make_fake_batch(TinyVocabParallelWMT.batch,
+                                  TinyVocabParallelWMT.length,
+                                  TinyVocabParallelWMT.length, narrow, seed=0)
+    out["narrow"] = {}
+    for kind in ("cpu", "cuda"):
+        main, startup, fetch = _vp_program(narrow, mesh,
+                                           TinyVocabParallelWMT.length)
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+            exe = ptt.Executor(place)
+            if kind == "cpu":
+                exe.run(startup)
+                weights = {n: scope.find_var(n).clone()
+                           for n in scope.local_var_names()}
+            else:
+                for n, v in weights.items():
+                    scope.set(n, v.to(place.torch_device()))
+            out["narrow"][kind] = [float(exe.run(
+                main, feed=n_batch, fetch_list=[fetch[0]])[0].sum())
+                for _ in range(3)]
+    collective.barrier()
+    return out
+
+
+def train_vocab_parallel(dev, smi, profile_dir=None):
+    """Transformer-base (the WMT program of train_transformer_base, seed
+    4321, batch 64 x 64) on a {"dp": 1, "mp": 2} mesh whose rule table
+    vocab-shards softmax_out.w: two ranks on cuda:0 over gloo, each
+    holding the [512, 5000] slab of its mp coordinate and running
+    sharded_linear_xent's kernels.  First a one-process unsharded run of
+    the same program, weights and batch (3 steps); then the ranks run 2
+    warm-up steps and one more (the three exactness steps: losses within
+    1e-5 relative at step 1 and 1e-4 at steps 2-3, the gathered
+    softmax_out.w within 1e-4 of its largest magnitude), then 5 timed
+    steps with the launch counts reset just before and read just after,
+    held per step to parts 2 / dx 1 / dw 1 (no B4), add-LN 60,
+    matmul_bias_act 48; every replicated persistable bit-equal across the
+    ranks after step 3 and after the last; and the narrow config of the
+    CPU tests 3 steps on the card's two ranks against the CPU's (1e-5
+    relative).  With `profile_dir`, rank 0 profiles 3 more steps
+    (chiprun_out/profile_training_vocab_parallel.json).  Returns rank 0's
+    launches over the timed steps."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tfm
+
+    hp = tfm.ModelHyperParams
+    main, startup, fetch = _vp_program(hp, None, TRAIN_LEN)
+    per_step = _expected_train_launches(main)
+    for kind in ("fwd", "dx", "dw"):  # the projection moves to B12's kernels
+        sharded = "linear_xent_parts" if kind == "fwd" else (
+            "linear_xent_%s_sharded" % kind)
+        per_step[sharded] = per_step.pop("linear_xent_" + kind)
+        per_step["linear_xent_" + kind] = 0
+    assert {k: per_step[k] for k in (
+        "linear_xent_parts", "linear_xent_dx_sharded",
+        "linear_xent_dw_sharded", "linear_xent_fwd", "fused_add_layer_norm",
+        "matmul_bias_act")} == {
+            "linear_xent_parts": 2, "linear_xent_dx_sharded": 1,
+            "linear_xent_dw_sharded": 1, "linear_xent_fwd": 0,
+            "fused_add_layer_norm": 60, "matmul_bias_act": 48}, per_step
+    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
+    scope = ptt.Scope()
+    with ptt.scope_guard(scope):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        exe.run(startup)
+        base = [float(exe.run(main, feed=batch, fetch_list=[fetch[0]])[0].sum())
+                for _ in range(VP_WARMUP + 1)]
+        w_base = scope.find_var(_vocab_slab_names(
+            scope.local_var_names())[0]).cpu().numpy()
+    del scope, exe
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        procs = [ctx.Process(target=_vp_rank,
+                             args=(r, os.path.join(d, "store"), d,
+                                   profile_dir))
+                 for r in range(VP_MP)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+        assert not hung, "a vocab-parallel rank hung"
+        res = []
+        for r in range(VP_MP):
+            path = os.path.join(d, "rank%d.pkl" % r)
+            assert os.path.exists(path), ("rank %d left no result, exit %s"
+                                          % (r, procs[r].exitcode))
+            with open(path, "rb") as f:
+                res.append(pickle.load(f))
+            assert "error" not in res[r], "rank %d failed:\n%s" % (
+                r, res[r]["error"])
+        assert [p.exitcode for p in procs] == [0] * VP_MP, [
+            p.exitcode for p in procs]
+        w_vp = np.load(os.path.join(d, "w_gathered.npy"))
+        ranks_s = time.time() - t0
+    r0 = res[0]
+    exact = r0["losses"][:VP_WARMUP + 1]
+    rel = [abs(a - b) / abs(b) for a, b in zip(exact, base)]
+    assert rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4, (exact, base, rel)
+    w_err = float(np.abs(w_vp - w_base).max() / np.abs(w_base).max())
+    assert w_vp.shape == w_base.shape == (HP_D_MODEL, HP_VOCAB) and (
+        w_err <= 1e-4), (w_vp.shape, w_err)
+    for r in range(1, VP_MP):
+        assert res[r]["losses"] == r0["losses"], "ranks disagree on the loss"
+        for key in ("sums_exact", "sums_last"):
+            differ = [n for n, v in r0[key].items() if res[r][key][n] != v]
+            assert not differ, ("replicated state differs across ranks", key,
+                                differ[:5])
+    for out in res:
+        assert all(shape == (HP_D_MODEL, HP_VOCAB // VP_MP)
+                   for shape in out["held"].values()), out["held"]
+        assert len(out["held"]) == 3, out["held"]
+        assert np.isfinite(out["losses"]).all()
+        np.testing.assert_allclose(out["narrow"]["cuda"], out["narrow"]["cpu"],
+                                   rtol=1e-5)
+    for name, n in per_step.items():
+        assert r0["launches"][name] == n * VP_STEPS, (
+            "launch count", name, r0["launches"][name], n)
+    times = r0["times"]
+    p50 = sorted(times)[len(times) // 2]
+    n_tok = float(batch["lbl_weight"].sum())
+    print("trained Transformer-base vocab-parallel (mp %d, batch %d x %d; %s; "
+          "%d ranks time-slice ONE card over gloo, so this is no multi-card "
+          "step time) %d timed steps after %d warm-up: step p50 %.3f ms, mean "
+          "%.3f ms, %.1f target tokens/s (%d a step); peak memory per rank "
+          "%s GB; losses %s vs the unsharded run's %s (relative differences "
+          "%s), gathered softmax_out.w within %.3g of its largest magnitude "
+          "after step %d; replicated state bit-equal across the ranks; launches "
+          "per step per rank %s; narrow config on the card's ranks %s vs the "
+          "CPU's %s; ranks' wall %.1f s" % (
+              VP_MP, TRAIN_BATCH, TRAIN_LEN, smi, VP_MP, VP_STEPS, VP_WARMUP,
+              p50 * 1e3, sum(times) / len(times) * 1e3, n_tok / p50, n_tok,
+              [round(o["peak"] / 1e9, 3) for o in res],
+              json.dumps([round(v, 6) for v in r0["losses"]]),
+              json.dumps([round(v, 6) for v in base]),
+              ["%.3g" % v for v in rel], w_err, VP_WARMUP + 1,
+              json.dumps({k: v // VP_STEPS for k, v in r0["launches"].items()
+                          if v}),
+              r0["narrow"]["cuda"], r0["narrow"]["cpu"], ranks_s))
+    return r0["launches"]
+
+
 def bert_base_config():
     """BERT-base (BertConfig's defaults: google-research/bert
     uncased_L-12_H-768_A-12, vocab 30522, hidden 768, 12 layers, 12
@@ -2832,6 +3277,9 @@ def main():
     decoded_s2s = decode_seq2seq(dev)
     seq2seq_decode_card_matches_cpu(dev)
     lap("seq2seq beam decode")
+    torch.cuda.empty_cache()
+    trained_vp = train_vocab_parallel(dev, smi, profile_dir)
+    lap("wmt vocab-parallel training (2 ranks on one card)")
 
     # launches: each path's run, counted from 0 just before it and read
     # just after
@@ -2847,7 +3295,8 @@ def main():
                    "llama_decode": decoded_llama[name],
                    "lstm_training": trained_lstm[name],
                    "seq2seq_training": trained_s2s[name],
-                   "seq2seq_decode": decoded_s2s[name]}
+                   "seq2seq_decode": decoded_s2s[name],
+                   "wmt_vocab_parallel_training": trained_vp[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),

@@ -75,11 +75,14 @@ def fold_seed(seed, *data):
 
 class LowerCtx:
     """Per-run context handed to lowering rules: the run's base seed
-    (the executor folds in its step counter) and the device."""
+    (the executor folds in its step counter), the device, the block
+    being run and the op's index in it (the mesh-aware lowerings read
+    the op's weight names through ``block.ops[op_idx]``)."""
 
-    def __init__(self, seed=0, device=None):
+    def __init__(self, seed=0, device=None, block=None):
         self.seed = int(seed)
         self.device = torch.device(device) if device is not None else None
+        self.block = block
         self.op_idx = 0
 
     def rng(self, attrs=None):
@@ -111,8 +114,9 @@ def lower_grad_op(ctx, ins, attrs):
     outside the op's ``no_grad_inputs``.  A missing output cotangent is
     zeros, and an integer output takes none.
 
-    The re-run of the forward rule sees ``op_idx = __fwd_op_idx__``, so
-    a random op (dropout) draws the forward op's mask again.  That index
+    The re-run of the forward rule sees ``op_idx = __fwd_op_idx__`` and
+    the same block, so a random op (dropout) draws the forward op's mask
+    again and a mesh-aware lowering finds the forward op's weights.  That index
     is the forward op's plain position in its block, while the runner
     sets ``(block << 20) | idx``: the two agree in block 0, the only
     block a training program differentiates, as in the reference.
@@ -127,7 +131,7 @@ def lower_grad_op(ctx, ins, attrs):
                 if s not in opdef.no_grad_inputs and s in fwd_ins
                 for i, v in enumerate(fwd_ins[s])
                 if torch.is_tensor(v) and v.is_floating_point()]
-    sub_ctx = LowerCtx(ctx.seed, ctx.device)
+    sub_ctx = LowerCtx(ctx.seed, ctx.device, ctx.block)
     sub_ctx.op_idx = attrs.get("__fwd_op_idx__", ctx.op_idx)
     kept = []  # (slot, index) of each float output, in vjp order
 

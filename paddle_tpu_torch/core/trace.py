@@ -128,6 +128,7 @@ def run_block(program, plan, feeds, scope, ctx):
     env = {n: scope.find_var(n) for n in plan.state_names}
     env.update(feeds)
     blk = program.block(plan.block_idx)
+    ctx.block = blk
     snapshots = {}
     for idx, op in enumerate(blk.ops):
         if not plan.keep[idx]:

@@ -11,7 +11,22 @@ There is no jit here, so no compile: what the executor memoizes per
 (DCE mask and state split).  ``compile_count`` counts those plans, so
 the serving engine's contract that occupancy churn never re-plans its
 step reads the same way it does in the reference.
+
+A program stamped by ``parallel.annotate_spmd`` runs as this rank's
+shard of the job (the reference's ``_run_spmd`` runs one program over
+the whole mesh): every persistable the rule table shards is held in the
+scope as this rank's slab, cut once from the full value at the first
+run that reads it; the op lowerings see the mesh through
+``spmd_lowering``; and a fetch of a sharded var returns the full value,
+gathered over its axis, as the reference's global arrays do.  Ported:
+the vocab-sharded projection of ``fused_linear_xent`` on a ``dp`` axis
+of size 1.  A ``dp`` axis of size > 1, or a table sharding any other
+persistable over an axis of size > 1, raises (ROADMAP A7); an axis of
+size 1 shards nothing, so on such a mesh a stamped program runs exactly
+as the unstamped one.
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -20,10 +35,12 @@ from . import framework
 from .core import scope as scope_mod
 from .core.registry import LowerCtx, fold_seed
 from .core.trace import build_plan, run_block
+from .parallel import collective
+from .parallel.partition_rules import spmd_lowering
 from .places import default_place
 from .profiler import RecordEvent
 
-__all__ = ["Executor", "global_scope", "scope_guard"]
+__all__ = ["Executor", "global_scope", "scope_guard", "gather_persistable"]
 
 global_scope = scope_mod.global_scope
 scope_guard = scope_mod.scope_guard
@@ -39,6 +56,88 @@ def _kind(dtype_str):
 
 def as_numpy(t):
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+
+
+def _declared_shape(program, name):
+    var = program.global_block()._find_var_recursive(name)
+    if var is None or var.shape is None:
+        return None
+    shape = tuple(int(d) for d in var.shape)
+    return shape if all(d >= 0 for d in shape) else None
+
+
+def _slab_of(program, name):
+    """(mesh, LocalSlice) of `name` under the program's stamp, or None
+    when the program is unstamped or the var is held whole."""
+    spmd = getattr(program, "_spmd", None)
+    shape = _declared_shape(program, name)
+    if spmd is None or shape is None:
+        return None
+    mesh, rules = spmd["mesh"], spmd["rules"]
+    if rules.match(name)[0] is None:
+        return None
+    sl = rules.sharding_for(mesh, name, shape)
+    return (mesh, sl) if sl is not None else None
+
+
+def _gather(value, mesh, sl):
+    """The full value of a slab (a collective over the slab's axis: every
+    rank of it calls this); anything else as it is."""
+    if tuple(value.shape) != sl.shape:
+        return value
+    return collective.all_gather(value, mesh.group(sl.axis), dim=sl.dim)
+
+
+def gather_persistable(scope, program, name):
+    """The full value of persistable `name` of a stamped `program`,
+    gathered from the ranks' slabs where the scope holds a slab (every
+    rank of the job calls it), else the scope's value."""
+    value = scope.find_var(name)
+    found = _slab_of(program, name)
+    return value if found is None else _gather(value, *found)
+
+
+def _vocab_projections(block):
+    """Names of the weights fed untransposed to fused_linear_xent: the
+    only persistables the port holds as vocab slabs."""
+    return {op.inputs["W"][0] for op in block.ops
+            if op.type == "fused_linear_xent"
+            and not op.attrs.get("transpose_w", False)}
+
+
+def _spmd_layout(program, plan):
+    """The stamped program's slabs among the plan's state, as [(name,
+    LocalSlice)], and its fetches' as [(index, LocalSlice)]; raises for
+    what the port does not shard yet."""
+    spmd = program._spmd
+    mesh, rules = spmd["mesh"], spmd["rules"]
+    dp_axis = getattr(rules, "dp_axis", None)
+    if dp_axis and mesh.size(dp_axis) > 1:
+        raise NotImplementedError(
+            "a %s axis of size %d (data parallelism: the gradient "
+            "all-reduce and the global-batch loss) is not ported yet "
+            "(ROADMAP A7)" % (dp_axis, mesh.size(dp_axis)))
+    block = program.global_block()
+    vocab = _vocab_projections(block)
+    base = getattr(rules, "base_name", lambda n: n)
+    slabs = []
+    for name in plan.state_names:
+        var = block._find_var_recursive(name)
+        found = _slab_of(program, name) if var is not None and \
+            var.persistable else None
+        if found is None:
+            continue
+        sl = found[1]
+        if base(name) not in vocab or sl.dim != 1:
+            raise NotImplementedError(
+                "%s: the rule table splits dim %d over %s = %d; the port "
+                "shards only the vocab projection of fused_linear_xent so "
+                "far (tensor-parallel trunks, sharded embeddings: ROADMAP "
+                "A7)" % (name, sl.dim, sl.axis, mesh.size(sl.axis)))
+        slabs.append((name, sl))
+    fetches = [(i, found[1]) for i, n in enumerate(plan.fetch_names)
+               for found in [_slab_of(program, n)] if found is not None]
+    return mesh, rules, slabs, fetches
 
 
 class Executor:
@@ -89,6 +188,23 @@ class Executor:
                 scope.set(n, torch.as_tensor(np.asarray(v),
                                              device=self.device))
 
+    @staticmethod
+    def _place_slabs(slabs, scope):
+        """Replace each sharded persistable that the scope holds whole by
+        this rank's slab (narrowed, then contiguous).  A value already
+        of the slab's shape was placed by an earlier run."""
+        for name, sl in slabs:
+            v = scope.find_var(name)
+            shape = tuple(v.shape)
+            if shape == sl.full_shape:
+                scope.set(name, v.narrow(sl.dim, sl.start,
+                                         sl.size).contiguous())
+            elif shape != sl.shape:
+                raise ValueError(
+                    "%s: the scope holds %s, neither the whole var %s nor "
+                    "this rank's slab %s" % (name, shape, sl.full_shape,
+                                             sl.shape))
+
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         if program is None:
@@ -105,18 +221,28 @@ class Executor:
                tuple(fetch_names), id(scope))
         entry = self._plans.get(key)
         if entry is None or entry[0] is not program:
-            entry = (program, build_plan(program, 0, list(feeds), fetch_names,
-                                         scope))
+            plan = build_plan(program, 0, list(feeds), fetch_names, scope)
+            layout = (_spmd_layout(program, plan)
+                      if getattr(program, "_spmd", None) else None)
+            entry = (program, plan, layout)
             self._plans[key] = entry
             self._plans_built += 1
-        plan = entry[1]
+        _, plan, layout = entry
         self._commit_state(plan, scope)
+        lowering = contextlib.nullcontext()
+        if layout is not None:
+            mesh, rules, slabs, fetch_slabs = layout
+            self._place_slabs(slabs, scope)
+            lowering = spmd_lowering(mesh, rules)
         ctx = LowerCtx(seed=fold_seed(program.random_seed or 90157,
                                       self._step),
                        device=self.device)
         self._step += 1
-        with RecordEvent("executor_run"), torch.no_grad():
+        with RecordEvent("executor_run"), torch.no_grad(), lowering:
             fetches = run_block(program, plan, feeds, scope, ctx)
+            if layout is not None:
+                for i, sl in fetch_slabs:
+                    fetches[i] = _gather(fetches[i], mesh, sl)
         if return_numpy:
             return [as_numpy(t) for t in fetches]
         return fetches

@@ -47,6 +47,14 @@ from .recurrent import (
     lstm_cell,
     lstm_seq_plain,
 )
+from .sharded_linear_xent import (
+    linear_xent_dw_sharded,
+    linear_xent_dx_sharded,
+    linear_xent_grad_sharded_plain,
+    linear_xent_parts,
+    linear_xent_parts_plain,
+    sharded_linear_xent,
+)
 from .softmax_xent import (
     fused_softmax_xent,
     softmax_xent_bwd,
@@ -62,7 +70,8 @@ KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            matmul_swiglu, softmax_xent_fwd, softmax_xent_bwd,
            flash_attention_piece_fwd, flash_attention_piece_dq,
            flash_attention_piece_dkv, flash_attention_qvec_dq,
-           flash_attention_qvec_dkv, fused_lstm, fused_gru)
+           flash_attention_qvec_dkv, fused_lstm, fused_gru, linear_xent_parts,
+           linear_xent_dx_sharded, linear_xent_dw_sharded)
 
 
 def reset_launch_counts():

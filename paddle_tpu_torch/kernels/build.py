@@ -47,6 +47,9 @@ SIGNATURES = {
     "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _P),
     "ptt_linear_xent_dx": (_P,) * 6 + (_I,) * 3 + (_F, _P),
     "ptt_linear_xent_dw": (_P,) * 6 + (_I,) * 3 + (_F, _P),
+    "ptt_linear_xent_parts": (_P,) * 7 + (_I,) * 4 + (_P,),
+    "ptt_linear_xent_dx_sharded": (_P,) * 7 + (_I,) * 4 + (_F, _P),
+    "ptt_linear_xent_dw_sharded": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     "ptt_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
     "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _P),
     "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 6 + (_F, _P),

@@ -42,6 +42,24 @@
 //   once per H slice.
 // No atomics anywhere: every output sums in one fixed order, so a step is
 // bit-reproducible from the same state.
+//
+// sharded_linear_xent: the same three passes over ONE vocab shard, w_local
+// [H, V/n], with labels in local column coordinates (label - col0: a label
+// of another shard is negative or >= V/n and matches no column, and a
+// column past the slab is masked before its label is compared).
+// - parts: the forward's streaming pass and split merge, emitting per row
+//   this shard's lse_j = m + log l, gold_j and the logit sum sum_j and no
+//   loss; the caller combines the shards (max and sums over ranks).
+// - dx / dw: the backward passes above with the row validity `valid` [R]
+//   (from the GLOBAL labels) and the smoothing denominator vocab_total
+//   given, instead of derived from the local V.  dx is this shard's
+//   partial of g @ w_local^T; the caller sums it over the shards.
+// Replaces: paddle_tpu/ops/pallas_kernels.py sharded_linear_xent:
+// _lxent_parts (kernel body _lxent_parts_kernel) and _lxent_bwd_sharded,
+// whose dx and dw calls run _lxent_dx_kernel_sharded and
+// _lxent_dw_kernel_sharded over _lxent_grad_tile with valid/vocab_total.
+// Bound: operations, as the unsharded forms (2 R H V/n for parts, twice
+// that for dx and for dw).
 #include "common.cuh"
 
 namespace {
@@ -121,6 +139,14 @@ __device__ __forceinline__ float grad_elem(float z, float lse, float dy,
   float g = valid ? (1.f - eps) * (p - (gold ? 1.f : 0.f)) : 0.f;
   if (eps != 0.f) g += eps * (p - inv_v);
   return g * dy;
+}
+
+// Does row gr (< R) take the label term?  The unsharded form derives it
+// from its label; the sharded form is handed it (vld != nullptr), since a
+// local label cannot tell an other shard's column from outside the vocab.
+__device__ __forceinline__ bool row_valid(const float* __restrict__ vld,
+                                          int gr, long long lbl, int V) {
+  return vld != nullptr ? vld[gr] != 0.f : (lbl >= 0 && lbl < V);
 }
 
 // per-split partials: part[(split * 4 + q) * R + row], q = max, sum of
@@ -219,11 +245,35 @@ __global__ void lxent_fwd_combine(const float* __restrict__ part,
   lse[r] = ls;
 }
 
+// the same merge for one vocab shard: lse_j, gold_j and sum_j, no loss
+__global__ void lxent_parts_combine(const float* __restrict__ part,
+                                    float* __restrict__ lse,
+                                    float* __restrict__ gold_out,
+                                    float* __restrict__ sum_out, int R,
+                                    int splits) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  float mx = ptt::kNegInf;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part[static_cast<long>(s) * 4 * R + r]);
+  float l = 0.f, gold = 0.f, zsum = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const long base = static_cast<long>(s) * 4 * R + r;
+    l += part[base + R] * expf(part[base] - mx);
+    gold += part[base + 2L * R];
+    zsum += part[base + 3L * R];
+  }
+  lse[r] = mx + logf(l);
+  gold_out[r] = gold;
+  sum_out[r] = zsum;
+}
+
+// vld: nullptr (unsharded) or the row validity [R] (sharded); VT: the
+// smoothing denominator (V unsharded, the whole vocab sharded)
 __global__ void __launch_bounds__(kThreads) lxent_dx_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
-    const long long* __restrict__ labels, const float* __restrict__ lse,
-    const float* __restrict__ dy, float* __restrict__ dx, int R, int H, int V,
-    float eps) {
+    const long long* __restrict__ labels, const float* __restrict__ vld,
+    const float* __restrict__ lse, const float* __restrict__ dy,
+    float* __restrict__ dx, int R, int H, int V, int VT, float eps) {
   constexpr int TM = 2, BR = 32;
   __shared__ __align__(16) float xs[BK][BR + PAD];
   __shared__ __align__(16) float ws[BK][BV];
@@ -234,15 +284,17 @@ __global__ void __launch_bounds__(kThreads) lxent_dx_kernel(
   const int rg = tid / 32, hg = tid % 32;  // dx tile: rows rg 4 .., h hg 4 .. and 128 + hg 4 ..
   const int r0 = blockIdx.x * BR;
   const int h0 = blockIdx.y * HS;
-  const float inv_v = 1.f / static_cast<float>(V);
+  const float inv_v = 1.f / static_cast<float>(VT);
   long long lbl[TM];
   float rl[TM], rdy[TM];
+  bool rvalid[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gr = r0 + ty * TM + i;
     lbl[i] = gr < R ? labels[gr] : -1;
     rl[i] = gr < R ? lse[gr] : 0.f;
     rdy[i] = gr < R ? dy[gr] : 0.f;
+    rvalid[i] = gr < R && row_valid(vld, gr, lbl[i], V);
   }
   float acc[4][8];
 #pragma unroll
@@ -256,12 +308,11 @@ __global__ void __launch_bounds__(kThreads) lxent_dx_kernel(
     logits_tile<TM>(x, w, R, H, V, r0, v0, xs, ws, z);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const bool valid = lbl[i] >= 0 && lbl[i] < V;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int gv = v0 + tx * 4 + j;
         gs[tx * 4 + j][ty * TM + i] =
-            gv < V ? grad_elem(z[i][j], rl[i], rdy[i], valid, gv == lbl[i], eps, inv_v)
+            gv < V ? grad_elem(z[i][j], rl[i], rdy[i], rvalid[i], gv == lbl[i], eps, inv_v)
                    : 0.f;
       }
     }
@@ -302,9 +353,9 @@ __global__ void __launch_bounds__(kThreads) lxent_dx_kernel(
 
 __global__ void __launch_bounds__(kThreads) lxent_dw_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
-    const long long* __restrict__ labels, const float* __restrict__ lse,
-    const float* __restrict__ dy, float* __restrict__ dw, int R, int H, int V,
-    float eps) {
+    const long long* __restrict__ labels, const float* __restrict__ vld,
+    const float* __restrict__ lse, const float* __restrict__ dy,
+    float* __restrict__ dw, int R, int H, int V, int VT, float eps) {
   constexpr int TM = 2, BR = 32;
   __shared__ __align__(16) float xs[BK][BR + PAD];
   __shared__ __align__(16) float ws[BK][BV];
@@ -315,7 +366,7 @@ __global__ void __launch_bounds__(kThreads) lxent_dw_kernel(
   const int hg = tid / 8, vg = tid % 8;    // dw tile: h hg 4 .. and 128 + hg 4 .., v vg 4 .. and 32 + vg 4 ..
   const int v0 = blockIdx.x * BV;
   const int h0 = blockIdx.y * HS;
-  const float inv_v = 1.f / static_cast<float>(V);
+  const float inv_v = 1.f / static_cast<float>(VT);
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -333,7 +384,7 @@ __global__ void __launch_bounds__(kThreads) lxent_dw_kernel(
       const long long lbl = row ? labels[gr] : -1;
       const float rl = row ? lse[gr] : 0.f;
       const float rdy = row ? dy[gr] : 0.f;
-      const bool valid = lbl >= 0 && lbl < V;
+      const bool valid = row && row_valid(vld, gr, lbl, V);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int gv = v0 + tx * 4 + j;
@@ -454,9 +505,9 @@ __device__ __forceinline__ void load_w_tile(const float* __restrict__ w,
 // one block per 32-row tile, all of H: dx[r0:r0+32, :] = g @ w^T
 __global__ void __launch_bounds__(kThreads) lxent_dx_resident_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
-    const long long* __restrict__ labels, const float* __restrict__ lse,
-    const float* __restrict__ dy, float* __restrict__ dx, int R, int H, int V,
-    float eps) {
+    const long long* __restrict__ labels, const float* __restrict__ vld,
+    const float* __restrict__ lse, const float* __restrict__ dy,
+    float* __restrict__ dx, int R, int H, int V, int VT, float eps) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                          // [H][32 + PAD], x^T, resident
   float* ws = xs + H * (32 + PAD);           // [H][64 + PAD], w vocab tile
@@ -465,15 +516,17 @@ __global__ void __launch_bounds__(kThreads) lxent_dx_resident_kernel(
   const int tx = tid % 16, ty = tid / 16;    // logits tile layout
   const int rg = tid / 32, lane = tid % 32;  // dx: rows rg 4 .., h = lane + 32 j
   const int r0 = blockIdx.x * 32;
-  const float inv_v = 1.f / static_cast<float>(V);
+  const float inv_v = 1.f / static_cast<float>(VT);
   long long lbl[2];
   float rl[2], rdy[2];
+  bool rvalid[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int gr = r0 + ty * 2 + i;
     lbl[i] = gr < R ? labels[gr] : -1;
     rl[i] = gr < R ? lse[gr] : 0.f;
     rdy[i] = gr < R ? dy[gr] : 0.f;
+    rvalid[i] = gr < R && row_valid(vld, gr, lbl[i], V);
   }
   load_x_tile(x, xs, R, H, r0);  // waited for with the first w tile
   float acc[4][kResidentH / 32];
@@ -492,12 +545,11 @@ __global__ void __launch_bounds__(kThreads) lxent_dx_resident_kernel(
     resident_logits_32x64(xs, ws, H, ty, tx, z);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const bool valid = lbl[i] >= 0 && lbl[i] < V;
       float gv4[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int gv = v0 + tx * 4 + j;
-        gv4[j] = gv < V ? grad_elem(z[i][j], rl[i], rdy[i], valid,
+        gv4[j] = gv < V ? grad_elem(z[i][j], rl[i], rdy[i], rvalid[i],
                                     gv == lbl[i], eps, inv_v)
                         : 0.f;
       }
@@ -547,9 +599,9 @@ constexpr int BVW = 32;  // vocab columns per dw block
 // one block per 32-column vocab tile, all of H: dw[:, v0:v0+32] = x^T @ g
 __global__ void __launch_bounds__(kThreads) lxent_dw_resident_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
-    const long long* __restrict__ labels, const float* __restrict__ lse,
-    const float* __restrict__ dy, float* __restrict__ dw, int R, int H, int V,
-    float eps) {
+    const long long* __restrict__ labels, const float* __restrict__ vld,
+    const float* __restrict__ lse, const float* __restrict__ dy,
+    float* __restrict__ dw, int R, int H, int V, int VT, float eps) {
   extern __shared__ __align__(16) float smem[];
   float* ws = smem;                  // [H][32 + PAD], w vocab tile, resident
   float* xbuf = ws + H * (BVW + PAD);  // 2 x [H][32 + PAD], x^T row tiles
@@ -558,7 +610,7 @@ __global__ void __launch_bounds__(kThreads) lxent_dw_resident_kernel(
   const int tx = tid % 8, ty = tid / 8;        // logits: row ty, cols tx 4 ..
   const int vg = tid / 64, hl = tid % 64;      // dw: v vg 8 .., h = hl + 64 j
   const int v0 = blockIdx.x * BVW;
-  const float inv_v = 1.f / static_cast<float>(V);
+  const float inv_v = 1.f / static_cast<float>(VT);
   load_w_tile(w, ws, H, V, v0, BVW);  // waited for with the first x tile
   load_x_tile(x, xbuf, R, H, 0);
   float acc[kResidentH / 64][8];
@@ -590,7 +642,7 @@ __global__ void __launch_bounds__(kThreads) lxent_dw_resident_kernel(
       const long long lbl = row ? labels[gr] : -1;
       const float rl = row ? lse[gr] : 0.f;
       const float rdy = row ? dy[gr] : 0.f;
-      const bool valid = lbl >= 0 && lbl < V;
+      const bool valid = row && row_valid(vld, gr, lbl, V);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int gv = v0 + tx * 4 + j;
@@ -647,33 +699,24 @@ size_t dw_resident_smem(int H) {
                           BVW * (32 + PAD));
 }
 
-}  // namespace
-
-// workspace: [splits, 4, R] floats
-extern "C" int ptt_linear_xent_fwd(const float* x, const float* w,
-                                   const long long* labels, float* loss,
-                                   float* lse, float* workspace, int R, int H,
-                                   int V, int splits, float eps,
-                                   cudaStream_t stream) {
-  if (R == 0) return static_cast<int>(cudaSuccess);
-  if (H <= 0 || V <= 0 || splits <= 0 || workspace == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+// the forward's streaming pass over the vocab splits; returns the split
+// count used (every used split has a tile)
+int launch_fwd_parts(const float* x, const float* w, const long long* labels,
+                     float* workspace, int R, int H, int V, int splits,
+                     cudaStream_t stream) {
   const int n_vt = (V + BV - 1) / BV;
   const int per = (n_vt + splits - 1) / splits;  // tiles per split
-  const int used = (n_vt + per - 1) / per;       // every used split has a tile
+  const int used = (n_vt + per - 1) / per;
   lxent_fwd_kernel<<<dim3((R + 63) / 64, used), kThreads, 0, stream>>>(
       x, w, labels, workspace, R, H, V, per);
-  lxent_fwd_combine<<<(R + 255) / 256, 256, 0, stream>>>(workspace, labels, loss,
-                                                          lse, R, V, used, eps);
-  return static_cast<int>(cudaGetLastError());
+  return used;
 }
 
-extern "C" int ptt_linear_xent_dx(const float* x, const float* w,
-                                  const long long* labels, const float* lse,
-                                  const float* dy, float* dx, int R, int H,
-                                  int V, float eps, cudaStream_t stream) {
+int launch_dx(const float* x, const float* w, const long long* labels,
+              const float* vld, const float* lse, const float* dy, float* dx,
+              int R, int H, int V, int VT, float eps, cudaStream_t stream) {
   if (R == 0 || H == 0) return static_cast<int>(cudaSuccess);
-  if (V <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (V <= 0 || VT <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (H <= kResidentH) {
     const size_t smem = dx_resident_smem(H);
     // the dynamic shared-memory limit is raised once, at the first launch
@@ -683,19 +726,19 @@ extern "C" int ptt_linear_xent_dx(const float* x, const float* w,
         static_cast<int>(dx_resident_smem(kResidentH)));
     if (raised != cudaSuccess) return static_cast<int>(raised);
     lxent_dx_resident_kernel<<<(R + 31) / 32, kThreads, smem, stream>>>(
-        x, w, labels, lse, dy, dx, R, H, V, eps);
+        x, w, labels, vld, lse, dy, dx, R, H, V, VT, eps);
   } else {
     lxent_dx_kernel<<<dim3((R + 31) / 32, (H + HS - 1) / HS), kThreads, 0, stream>>>(
-        x, w, labels, lse, dy, dx, R, H, V, eps);
+        x, w, labels, vld, lse, dy, dx, R, H, V, VT, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ptt_linear_xent_dw(const float* x, const float* w,
-                                  const long long* labels, const float* lse,
-                                  const float* dy, float* dw, int R, int H,
-                                  int V, float eps, cudaStream_t stream) {
+int launch_dw(const float* x, const float* w, const long long* labels,
+              const float* vld, const float* lse, const float* dy, float* dw,
+              int R, int H, int V, int VT, float eps, cudaStream_t stream) {
   if (H == 0 || V == 0) return static_cast<int>(cudaSuccess);
+  if (VT <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaMemsetAsync(
       dw, 0, sizeof(float) * static_cast<size_t>(H) * V, stream));
   if (H <= kResidentH) {
@@ -707,10 +750,81 @@ extern "C" int ptt_linear_xent_dw(const float* x, const float* w,
         static_cast<int>(dw_resident_smem(kResidentH)));
     if (raised != cudaSuccess) return static_cast<int>(raised);
     lxent_dw_resident_kernel<<<(V + BVW - 1) / BVW, kThreads, smem, stream>>>(
-        x, w, labels, lse, dy, dw, R, H, V, eps);
+        x, w, labels, vld, lse, dy, dw, R, H, V, VT, eps);
   } else {
     lxent_dw_kernel<<<dim3((V + BV - 1) / BV, (H + HS - 1) / HS), kThreads, 0, stream>>>(
-        x, w, labels, lse, dy, dw, R, H, V, eps);
+        x, w, labels, vld, lse, dy, dw, R, H, V, VT, eps);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// workspace: [splits, 4, R] floats
+extern "C" int ptt_linear_xent_fwd(const float* x, const float* w,
+                                   const long long* labels, float* loss,
+                                   float* lse, float* workspace, int R, int H,
+                                   int V, int splits, float eps,
+                                   cudaStream_t stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  if (H <= 0 || V <= 0 || splits <= 0 || workspace == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int used = launch_fwd_parts(x, w, labels, workspace, R, H, V, splits, stream);
+  lxent_fwd_combine<<<(R + 255) / 256, 256, 0, stream>>>(workspace, labels, loss,
+                                                          lse, R, V, used, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ptt_linear_xent_dx(const float* x, const float* w,
+                                  const long long* labels, const float* lse,
+                                  const float* dy, float* dx, int R, int H,
+                                  int V, float eps, cudaStream_t stream) {
+  return launch_dx(x, w, labels, nullptr, lse, dy, dx, R, H, V, V, eps, stream);
+}
+
+extern "C" int ptt_linear_xent_dw(const float* x, const float* w,
+                                  const long long* labels, const float* lse,
+                                  const float* dy, float* dw, int R, int H,
+                                  int V, float eps, cudaStream_t stream) {
+  return launch_dw(x, w, labels, nullptr, lse, dy, dw, R, H, V, V, eps, stream);
+}
+
+// one vocab shard's parts: w is the [H, V] slab, labels local; lse, gold
+// and sum [R]; workspace [splits, 4, R] floats
+extern "C" int ptt_linear_xent_parts(const float* x, const float* w,
+                                     const long long* labels, float* lse,
+                                     float* gold, float* sum, float* workspace,
+                                     int R, int H, int V, int splits,
+                                     cudaStream_t stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  if (H <= 0 || V <= 0 || splits <= 0 || workspace == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int used = launch_fwd_parts(x, w, labels, workspace, R, H, V, splits, stream);
+  lxent_parts_combine<<<(R + 255) / 256, 256, 0, stream>>>(workspace, lse, gold,
+                                                            sum, R, used);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one vocab shard's dx partial / dw slab: valid [R] from the global labels,
+// vocab_total the whole vocab
+extern "C" int ptt_linear_xent_dx_sharded(const float* x, const float* w,
+                                          const long long* labels,
+                                          const float* valid, const float* lse,
+                                          const float* dy, float* dx, int R,
+                                          int H, int V, int vocab_total,
+                                          float eps, cudaStream_t stream) {
+  if (valid == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dx(x, w, labels, valid, lse, dy, dx, R, H, V, vocab_total, eps,
+                   stream);
+}
+
+extern "C" int ptt_linear_xent_dw_sharded(const float* x, const float* w,
+                                          const long long* labels,
+                                          const float* valid, const float* lse,
+                                          const float* dy, float* dw, int R,
+                                          int H, int V, int vocab_total,
+                                          float eps, cudaStream_t stream) {
+  if (valid == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dw(x, w, labels, valid, lse, dy, dw, R, H, V, vocab_total, eps,
+                   stream);
 }

@@ -16,7 +16,9 @@ generator (no ``unique_name.guard()``), so the same generator state
 gives the reference's parameter names, and weights cross between the
 packages by name (``paddle_tpu_torch.io.params_from_numpy``).  Options
 not ported yet raise: ``hp.recompute`` (ROADMAP A9), and
-``bert_pretrain_program``'s ``use_bf16`` (A3) and ``mesh`` (A7).
+``bert_pretrain_program``'s ``use_bf16`` (A3).  Its ``mesh``
+stamps the program with the family's training rules: the executor runs
+the vocab projection's slab and raises for the trunk's entries (A7).
 """
 
 import numpy as np
@@ -96,9 +98,6 @@ def bert_pretrain_program(hp=BertConfig, seq_len=128, lr=1e-4, is_test=False,
     if use_bf16:
         raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
                                   "(ROADMAP A3)")
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded training is not ported yet "
-                                  "(ROADMAP A7)")
     from .. import optimizer
     from ..transpiler.pass_registry import apply_pass
 
@@ -149,6 +148,15 @@ def bert_pretrain_program(hp=BertConfig, seq_len=128, lr=1e-4, is_test=False,
         apply_pass(main, "matmul_epilogue_fuse_pass")
         if not is_test:
             optimizer.Adam(learning_rate=lr).minimize(total)
+    if mesh is not None:
+        # the training stamp: the family's rules lifted to training names
+        # (grads and Adam moments follow their param); the executor runs
+        # the vocab projection's slab and raises for what is not ported
+        from ..parallel.partition_rules import (annotate_spmd,
+                                                train_partition_rules_for)
+
+        annotate_spmd(main, mesh, train_partition_rules_for(
+            getattr(hp, "partition_family", "bert")))
     feeds = ["src_ids", "seg_ids", "input_mask", "mlm_labels", "mlm_weight",
              "nsp_label"]
     return main, startup, feeds, [total, mlm_loss, nsp_loss]

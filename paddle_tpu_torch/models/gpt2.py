@@ -18,7 +18,9 @@ the position table), ``use_swiglu`` (the gated SiLU FFN, ``ffn_gate.w``
 and ``ffn_up.w`` in place of ``ffn_in.w``, its hidden width 2/3 of 4 d
 rounded up to ``ffn_multiple_of``; the matmul_swiglu kernel).  Options
 not ported yet raise: ``recompute`` (ROADMAP A9), and
-``gpt2_lm_program``'s ``use_bf16`` (A3) and ``mesh`` (A7).
+``gpt2_lm_program``'s ``use_bf16`` (A3).  Its ``mesh``
+stamps the program with the family's training rules: the executor runs
+the vocab projection's slab and raises for the trunk's entries (A7).
 """
 
 import numpy as np
@@ -141,9 +143,6 @@ def gpt2_lm_program(hp=GPT2Config, seq_len=128, lr=3e-4, is_test=False,
     if use_bf16:
         raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
                                   "(ROADMAP A3)")
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded training is not ported yet "
-                                  "(ROADMAP A7)")
     if getattr(hp, "recompute", False) and not is_test:
         raise NotImplementedError("per-layer rematerialization "
                                   "(layers.recompute) is not ported yet "
@@ -168,6 +167,15 @@ def gpt2_lm_program(hp=GPT2Config, seq_len=128, lr=3e-4, is_test=False,
         apply_pass(main, "matmul_epilogue_fuse_pass")
         if not is_test:
             optimizer.Adam(learning_rate=lr).minimize(loss)
+    if mesh is not None:
+        # the training stamp: the family's rules lifted to training names
+        # (grads and Adam moments follow their param); the executor runs
+        # the vocab projection's slab and raises for what is not ported
+        from ..parallel.partition_rules import (annotate_spmd,
+                                                train_partition_rules_for)
+
+        annotate_spmd(main, mesh, train_partition_rules_for(
+            getattr(hp, "partition_family", "gpt2")))
     return main, startup, ["ids", "labels", "loss_weight"], [loss, tokens]
 
 

@@ -345,9 +345,6 @@ def wmt_transformer_program(hp=ModelHyperParams, src_len=64, trg_len=64,
     if use_bf16:
         raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
                                   "(ROADMAP A3)")
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded training is not ported yet "
-                                  "(ROADMAP A7)")
     from .. import framework, optimizer
     from ..transpiler.pass_registry import apply_pass
 
@@ -390,6 +387,15 @@ def wmt_transformer_program(hp=ModelHyperParams, src_len=64, trg_len=64,
             opt = optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.997,
                                  epsilon=1e-9)
             opt.minimize(avg_cost)
+    if mesh is not None:
+        # the training stamp: the family's rules lifted to training names
+        # (grads and Adam moments follow their param); the executor runs
+        # the vocab projection's slab and raises for what is not ported
+        from ..parallel.partition_rules import (annotate_spmd,
+                                                train_partition_rules_for)
+
+        annotate_spmd(main, mesh, train_partition_rules_for(
+            getattr(hp, "partition_family", "transformer")))
     feeds = ["src_word", "trg_word", "lbl_word", "src_slf_attn_bias",
              "trg_slf_attn_bias", "trg_src_attn_bias", "lbl_weight"]
     return main, startup, feeds, [avg_cost, token_count]

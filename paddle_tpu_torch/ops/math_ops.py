@@ -17,6 +17,7 @@ import torch
 from ..core.registry import register
 from ..kernels import fused_linear_xent, fused_softmax_xent
 from .common import bcast_y
+from .spmd_epilogue import spmd_linear_xent
 
 
 def _elementwise(fn):
@@ -189,14 +190,21 @@ def _fused_linear_xent(ctx, ins, attrs):
     [H, V] copy of W, as the reference does: the kernels read [H, V]
     tiles.  The copy is weights-sized, far below the [R, V] logits the
     fusion removes; a [V, H]-layout kernel would remove it (a documented
-    limit of the reference too)."""
+    limit of the reference too).
+
+    Under a live mesh whose rule table vocab-shards W, the rank runs
+    ``sharded_linear_xent`` on its slab (``spmd_epilogue``)."""
     x, w, label = ins["X"][0], ins["W"][0], ins["Label"][0]
     eps = float(attrs.get("epsilon", 0.0))
-    if attrs.get("transpose_w", False):
+    transpose_w = bool(attrs.get("transpose_w", False))
+    if transpose_w:
         w = w.t()
     h = x.shape[-1]
-    loss = fused_linear_xent(x.reshape(-1, h).contiguous(), w.contiguous(),
-                             label.reshape(-1).long().contiguous(), eps)
+    x2, w = x.reshape(-1, h).contiguous(), w.contiguous()
+    lbl = label.reshape(-1).long().contiguous()
+    loss = spmd_linear_xent(ctx, x2, w, lbl, eps, transpose_w)
+    if loss is None:
+        loss = fused_linear_xent(x2, w, lbl, eps)
     return {"Loss": [loss.reshape(tuple(x.shape[:-1]) + (1,)).to(x.dtype)]}
 
 

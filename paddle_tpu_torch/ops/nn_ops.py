@@ -43,6 +43,8 @@ from ..kernels import (
     matmul_bias_act,
     matmul_swiglu,
 )
+from .spmd_epilogue import (spmd_add_layer_norm, spmd_matmul_bias_act,
+                            spmd_matmul_swiglu)
 
 
 def _not_on_cuda(t, what, item):
@@ -116,8 +118,10 @@ def _fc(ctx, ins, attrs):
     k = int(attrs.get("in_num_col_dims", 1))
     x2 = x.reshape(int(np.prod(x.shape[:k])), -1).contiguous()
     bias = ins["Bias"][0].reshape(-1).contiguous() if ins.get("Bias") else None
-    out = matmul_bias_act(x2, w.contiguous(), bias,
-                          attrs.get("activation_type", "") or "")
+    act = attrs.get("activation_type", "") or ""
+    out = spmd_matmul_bias_act(ctx, x2, w, bias, act)
+    if out is None:
+        out = matmul_bias_act(x2, w.contiguous(), bias, act)
     return {"Out": [out.reshape(tuple(x.shape[:k]) + (w.shape[-1],))]}
 
 
@@ -130,7 +134,9 @@ def _fused_swiglu(ctx, ins, attrs):
     x, wg, wu = ins["X"][0], ins["GateW"][0], ins["UpW"][0]
     k = int(attrs.get("x_num_col_dims", 1))
     x2 = x.reshape(int(np.prod(x.shape[:k])), -1).contiguous()
-    out = matmul_swiglu(x2, wg.contiguous(), wu.contiguous())
+    out = spmd_matmul_swiglu(ctx, x2, wg, wu)
+    if out is None:
+        out = matmul_swiglu(x2, wg.contiguous(), wu.contiguous())
     return {"Out": [out.reshape(tuple(x.shape[:k]) + (wg.shape[-1],))]}
 
 
@@ -142,10 +148,12 @@ def _fused_residual_ln(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
     eps = attrs.get("epsilon", 1e-5)
     h = x.shape[-1]
-    s2, o2, mean, var = fused_add_layer_norm(
-        x.reshape(-1, h).contiguous(), y.reshape(-1, h).contiguous(),
-        ins["Scale"][0].reshape(h).contiguous(),
-        ins["Bias"][0].reshape(h).contiguous(), eps)
+    x2, y2 = x.reshape(-1, h).contiguous(), y.reshape(-1, h).contiguous()
+    gamma = ins["Scale"][0].reshape(h).contiguous()
+    beta = ins["Bias"][0].reshape(h).contiguous()
+    res = spmd_add_layer_norm(ctx, x2, y2, gamma, beta, eps)
+    s2, o2, mean, var = (res if res is not None else
+                         fused_add_layer_norm(x2, y2, gamma, beta, eps))
     lead = tuple(x.shape[:-1])
     return {"Sum": [s2.reshape(x.shape)], "Y": [o2.reshape(x.shape)],
             "Mean": [mean.reshape(lead)], "Variance": [var.reshape(lead)]}

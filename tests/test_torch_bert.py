@@ -29,6 +29,7 @@ from paddle_tpu_torch import framework, unique_name
 from paddle_tpu_torch.core import scope as scope_mod
 from paddle_tpu_torch.io import params_from_numpy
 from paddle_tpu_torch.models import bert as port_bert
+from paddle_tpu_torch.parallel.mesh import Mesh
 
 from test_torch_program import _assert_same_program
 
@@ -239,13 +240,19 @@ def test_bert_config_is_bert_base():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"use_bf16": True}, "A3"), ({"mesh": object()}, "A7"),
+    ({"use_bf16": True}, "A3"),
+    ({"mesh": Mesh(("dp", "mp"), (1, 2), (0, 0), {})}, "A7"),
     ({"hp_recompute": True}, "A9")])
 def test_bert_pretrain_program_unported_options_raise(option, item):
     hp = _tiny(port_bert.BertConfig,
                recompute=option.pop("hp_recompute", False))
     with pytest.raises(NotImplementedError, match=item):
-        port_bert.bert_pretrain_program(hp, seq_len=SEQ, **option)
+        main, startup, _, fetch = port_bert.bert_pretrain_program(hp, seq_len=SEQ, **option)
+        # a mesh stamps the program with the family's rules, and the
+        # executor refuses their trunk entries at mp 2 before any step
+        exe = ptt.Executor(ptt.CPUPlace())
+        exe.run(startup)
+        exe.run(main, feed=port_bert.make_fake_bert_batch(BATCH, SEQ, hp), fetch_list=fetch[:1])
 
 
 def test_bert_step_reaches_the_kernel_wrappers(monkeypatch):

@@ -23,6 +23,7 @@ from paddle_tpu_torch import framework, unique_name
 from paddle_tpu_torch.core import scope as scope_mod
 from paddle_tpu_torch.io import params_from_numpy
 from paddle_tpu_torch.models import gpt2 as port_gpt2
+from paddle_tpu_torch.parallel.mesh import Mesh
 
 from test_torch_program import _assert_same_program
 
@@ -179,13 +180,19 @@ def test_make_fake_lm_batch_matches_reference():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"use_bf16": True}, "A3"), ({"mesh": object()}, "A7"),
+    ({"use_bf16": True}, "A3"),
+    ({"mesh": Mesh(("dp", "mp"), (1, 2), (0, 0), {})}, "A7"),
     ({"hp_recompute": True}, "A9")])
 def test_gpt2_lm_program_unported_options_raise(option, item):
     hp = _tiny(port_gpt2.GPT2Config,
                recompute=option.pop("hp_recompute", False))
     with pytest.raises(NotImplementedError, match=item):
-        port_gpt2.gpt2_lm_program(hp, seq_len=SEQ, **option)
+        main, startup, _, fetch = port_gpt2.gpt2_lm_program(hp, seq_len=SEQ, **option)
+        # a mesh stamps the program with the family's rules, and the
+        # executor refuses their trunk entries at mp 2 before any step
+        exe = ptt.Executor(ptt.CPUPlace())
+        exe.run(startup)
+        exe.run(main, feed=port_gpt2.make_fake_lm_batch(BATCH, SEQ, hp), fetch_list=fetch[:1])
 
 
 def test_gpt2_step_reaches_the_new_kernel_wrappers(monkeypatch):
