@@ -127,7 +127,19 @@ In order, it:
    the CPU's; the kernel phase holds the three B12 kernels at the path's
    shapes, a ragged R and TinyLlama's widths on mp 4 (with --profile,
    rank 0's chiprun_out/profile_training_vocab_parallel.json);
-21. prints the kernels line and, last, the result line.
+21. trains the packed causal LM (examples/packed_training_torch.py's
+   build at GPT-2 small's vocab 50257, width 768, 12 heads and context
+   1024; one attention block over packed segment ids, Adam) on the first
+   8 rows of 64 seeded ragged sequences (lengths log-uniform in [8,
+   1024]) packed into rows of 1024: one warm-up step (its masked loss
+   near ln 50257), 10 timed steps with the launch counts held to the
+   program's (flash forward 2, dq 1, dk/dv 1), the bit-equal repeat;
+   then the same with a 256-position sliding window (the window and
+   the segment ids in one kernel call), and a narrow packed LM at window
+   0 and 48 card vs CPU; the kernel phase holds the segment and window
+   forms of B3 and B9 (with --profile, chiprun_out/profile_training_packed
+   and profile_training_packed_window.json);
+22. prints the kernels line and, last, the result line.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -197,6 +209,12 @@ LSTM_BATCH, LSTM_LEN, LSTM_DICT, LSTM_H, LSTM_STACK = 32, 64, 10000, 512, 3
 S2S_BATCH, S2S_LEN, S2S_DICT, S2S_H = 32, 50, 30000, 512
 S2S_BEAM, S2S_BEAM_SENTS, S2S_BEAM_STEPS = 4, 2, 16
 RNN_STEPS = 5  # timed steps of each recurrent training path
+# the packed causal LM (examples/packed_training_torch.py) at GPT-2 small's
+# vocab, width, heads and context: 64 seeded ragged sequences packed into
+# rows of 1024, the first 8 rows kept; its one attention block causal over
+# the packed segment ids, and with a 256-position sliding window
+PACKED_ROWS, PACKED_SEQS, PACKED_WINDOW = 8, 64, 256
+PACKED_STEPS = 10
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
 GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
@@ -241,6 +259,34 @@ def narrow_modern_config():
         dropout = 0.0
 
     return NarrowModern
+
+
+def _example(name):
+    """An example module of the repository, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def packed_batch(n_rows, seq_len, vocab, n_seqs, seed=0):
+    """(feed, seg) of the packed LM: `n_seqs` sequences with lengths
+    log-uniform in [8, seq_len] and tokens uniform in [1, vocab), all
+    from RandomState(seed), packed by the example's make_feed into rows
+    of `seq_len`; the first `n_rows` rows kept.  seg is the packing's
+    segment ids (feed["seg"] drops each segment's last token, which has
+    no label, into segment 0, as the example feeds it)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lengths = np.exp(rng.uniform(np.log(8), np.log(seq_len), n_seqs))
+    seqs = [rng.randint(1, vocab, int(n)) for n in lengths]
+    feed, seg = _example("packed_training_torch").make_feed(seqs, seq_len)
+    assert seg.shape[0] >= n_rows, seg.shape
+    return {k: a[:n_rows] for k, a in feed.items()}, seg[:n_rows]
 
 
 def _sh(cmd):
@@ -1016,9 +1062,14 @@ def check_flash_attention(dev, randn):
     TinyLlama widths' GQA fold at Tq 8 over BH 8 x 2048 keys, both with
     a key bias; timed as `per_shape`), a key bias with some keys at -1e9
     (causal; non-causal with Tq != Tk), ragged lengths, and head dim
-    128.  Limit:
+    128; then the packed LM paths' forms: their own segment ids (causal,
+    and non-causal with a key bias), window 256 alone and with the ids
+    (timed as `per_shape`, the bound over the visible pairs), window 200
+    at T 1000 (with ragged ids and a key bias too) and window 100 with
+    ids at head dim 128.  Limit:
     1e-4 of the largest magnitude of each of o, dq, dk, dv and dkbias
     (lse: 1e-4 absolute)."""
+    import numpy as np
     import torch
 
     from paddle_tpu_torch.kernels import (
@@ -1081,6 +1132,56 @@ def check_flash_attention(dev, randn):
             note("dkv", dkb, p_dkb)
         else:
             assert dkb is None
+    # the packed LM paths' forms: their own segment ids over the heads
+    # (causal; and non-causal with a key bias, the bidirectional packing
+    # form), window 256 alone and with the ids, a window that is no
+    # multiple of the tile at a ragged T, window and ids at head dim 128
+    # the ids as the path's fused_attention hands them to the kernels:
+    # each row's ids repeated over its heads
+    path_seg = torch.tensor(packed_batch(
+        PACKED_ROWS, GPT2_LEN, GPT2_VOCAB, PACKED_SEQS)[0]["seg"],
+        device=dev).repeat_interleave(GPT2_HEADS, 0)
+    pbh = path_seg.shape[0]  # the packed paths' batch x heads rows
+    rng = np.random.RandomState(1)
+
+    def ragged_ids(n, t_):
+        cuts = np.sort(rng.randint(1, t_, (n, 6)), axis=1)
+        ids = (np.arange(t_)[None, :, None] >= cuts[:, None, :]).sum(-1) + 1
+        ids[:, t_ - t_ // 10:] = 0  # a padding tail
+        return torch.tensor(ids, dtype=torch.int32, device=dev)
+
+    for n, t_, dh, causal, with_bias, window, seg in (
+            (pbh, t, d, True, False, 0, path_seg),
+            (pbh, t, d, False, True, 0, path_seg),
+            (pbh, t, d, True, False, PACKED_WINDOW, None),
+            (pbh, t, d, True, False, PACKED_WINDOW, path_seg),
+            (6, 1000, 64, True, False, 200, None),
+            (5, 1000, 64, True, True, 200, ragged_ids(5, 1000)),
+            (4, 384, 128, True, False, 100, ragged_ids(4, 384))):
+        q, k, v, do = (randn(n, t_, dh) for _ in range(4))
+        kb = randn(n, t_) if with_bias else None
+        scale = dh ** -0.5
+        o, lse = flash_attention_fwd(q, k, v, kb, causal, scale, window, seg)
+        p_o, p_lse = flash_attention_plain(q, k, v, kb, causal, scale, None,
+                                           window, seg)
+        note("fwd", o, p_o)
+        assert (lse - p_lse).abs().max().item() <= 1e-4, ("lse", n, window)
+        delta = (do * o).sum(-1)
+        dq = flash_attention_dq(q, k, v, kb, lse, do, delta, causal, scale,
+                                window, seg)
+        dk, dv, dkb = flash_attention_dkv(q, k, v, kb, lse, do, delta, causal,
+                                          scale, window, seg)
+        p_dq, p_dk, p_dv, p_dkb = flash_attention_grad_plain(
+            q, k, v, kb, p_lse, do, delta, causal, scale, None, window, seg)
+        for key, got, want in (("dq", dq, p_dq), ("dkv", dk, p_dk),
+                               ("dkv", dv, p_dv)) + (
+                                   (("dkv", dkb, p_dkb),) if with_bias
+                                   else ()):
+            note(key, got, want)
+        again = flash_attention_dkv(q, k, v, kb, lse, do, delta, causal,
+                                    scale, window, seg)
+        assert all(torch.equal(a, b) for a, b in zip((dk, dv), again)), (
+            "dk/dv rerun differs")
     for key, val in err.items():
         assert val <= 1e-4, ("flash_attention disagrees", key, val)
 
@@ -1102,6 +1203,16 @@ def check_flash_attention(dev, randn):
             else:
                 rec[name].setdefault("per_shape", {})[
                     "%s %s" % (tag, times.pop("shape"))] = times
+    # the packed LM paths' shapes: B3's segment form, its window form and
+    # both together (the bound counts the visible pairs only)
+    for tag, forms in (("packed", dict(seg=path_seg)),
+                       ("window", dict(window=PACKED_WINDOW)),
+                       ("packed window", dict(window=PACKED_WINDOW,
+                                              seg=path_seg))):
+        for name, times in _flash_times(randn, pbh, t, d, True,
+                                        **forms).items():
+            rec[name]["per_shape"]["%s %s" % (tag, times.pop("shape"))] = \
+                times
     for tag, n, tq, t_, pos in (
             ("gpt2 decode", DECODE_BATCH * GPT2_HEADS, 1, T_MAX,
              DECODE_PROMPT + DECODE_NEW - 1),
@@ -1148,11 +1259,31 @@ def _flash_decode_times(randn, bh, tq, tk, d, pos):
         bound_ms=b, bound_by=fl)
 
 
-def _flash_times(randn, bh, t, d, causal=True):
+def _visible(t, causal, window=0, seg=None, dev=None):
+    """[BH or 1, T, T] bool: the (query, key) pairs the causal mask, the
+    window and the segment ids leave visible."""
+    import torch
+
+    pos = torch.arange(t, device=dev if seg is None else seg.device)
+    gap = pos[:, None] - pos[None, :]
+    vis = (gap >= 0) if causal else torch.ones_like(gap, dtype=torch.bool)
+    if window:
+        vis = vis & (gap < window)
+    vis = vis[None]
+    if seg is not None:
+        vis = vis & (seg[:, :, None] == seg[:, None, :])
+    return vis
+
+
+def _flash_times(randn, bh, t, d, causal=True, window=0, seg=None):
     """Times of the three flash-attention kernels at one shape, causal or
     (BERT's form) with a key-padding bias masking the last quarter of
-    the keys, beside the plain version and scaled_dot_product_attention
-    (with the bias as its additive mask)."""
+    the keys, with an optional window and segment ids [BH, T], beside
+    the plain version and scaled_dot_product_attention with the same
+    mask (the boolean mask of the visible pairs, the key bias added).
+    The bound counts the visible pairs only: the kernels skip the tiles
+    outside the causal band and the window, not those of other
+    segments."""
     import torch
     import torch.nn.functional as F
 
@@ -1171,45 +1302,62 @@ def _flash_times(randn, bh, t, d, causal=True):
         kb = torch.zeros(bh, t, device=q.device)
         kb[:, t - t // 4:] = -1e9
         mask = kb[:, None, :]
-    o, lse = flash_attention_fwd(q, k, v, kb, causal, scale)
+    forms = dict(window=window, seg=seg)
+    if window or seg is not None:
+        vis = _visible(t, causal, window, seg, q.device)
+        mask = (vis if kb is None else torch.where(
+            vis, kb[:, None, :], torch.full((), float("-inf"),
+                                            device=q.device)))
+        pairs = int(vis.sum()) * (bh if vis.shape[0] == 1 else 1)
+    else:
+        # the causal half the kernels compute, or every (query, key) pair
+        pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+    o, lse = flash_attention_fwd(q, k, v, kb, causal, scale, **forms)
     delta = (do * o).sum(-1)
     qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
 
     def library(q_, k_, v_):
-        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask,
-                                              is_causal=causal)
+        return F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=mask, is_causal=causal and mask is None)
 
     def library_fwd_bwd():
         return torch.autograd.grad(library(qg, kg, vg), (qg, kg, vg), do)
 
     plain_grad = _events_ms(lambda: flash_attention_grad_plain(
-        q, k, v, kb, lse, do, delta, causal, scale))
+        q, k, v, kb, lse, do, delta, causal, scale, None, window, seg))
     lib_fwd_bwd = _events_ms(library_fwd_bwd)
-    # the causal half the kernels compute, or every (query, key) pair
-    pairs = t * (t + 1) // 2 if causal else t * t
     row = 4 * bh * t * d  # bytes of one [BH, T, d] operand
     bias = 0 if causal else 4 * bh * t  # the key bias (and dkbias) bytes
+    bias += 0 if seg is None else 4 * bh * t  # the int32 segment ids
     specs = (
         ("flash_attention_fwd",
-         lambda: flash_attention_fwd(q, k, v, kb, causal, scale),
-         lambda: flash_attention_plain(q, k, v, kb, causal, scale),
+         lambda: flash_attention_fwd(q, k, v, kb, causal, scale, **forms),
+         lambda: flash_attention_plain(q, k, v, kb, causal, scale, None,
+                                       window, seg),
          lambda: library(q, k, v),
-         4 * row + 4 * bh * t + bias, 4 * bh * pairs * d),
+         4 * row + 4 * bh * t + bias, 4 * pairs * d),
         ("flash_attention_dq",
          lambda: flash_attention_dq(q, k, v, kb, lse, do, delta, causal,
-                                       scale), None, None,
-         5 * row + 8 * bh * t + bias, 6 * bh * pairs * d),
+                                    scale, **forms), None, None,
+         5 * row + 8 * bh * t + bias, 6 * pairs * d),
         ("flash_attention_dkv",
          lambda: flash_attention_dkv(q, k, v, kb, lse, do, delta, causal,
-                                        scale), None, None,
-         6 * row + 8 * bh * t + 2 * bias, 8 * bh * pairs * d),
+                                     scale, **forms), None, None,
+         6 * row + 8 * bh * t + bias + (0 if causal else 4 * bh * t),
+         8 * pairs * d),
     )
+    what = "causal" if causal else "key-padding bias"
+    if window:
+        what += ", window %d" % window
+    if seg is not None:
+        what += ", packed segment ids (%d visible pairs of %d)" % (
+            pairs, bh * t * t)
     out = {}
     for name, kern, plain, lib, nbytes, flops in specs:
         b, fl = _bound_ms(nbytes, flops)
         out[name] = dict(
             shape="q, k, v [%d, %d, %d], %s%s" % (
-                bh, t, d, "causal" if causal else "key-padding bias",
+                bh, t, d, what,
                 "" if plain else
                 "; plain_ms is the plain backward (dq, dk and dv together), "
                 "library_ms scaled_dot_product_attention forward and "
@@ -1221,20 +1369,27 @@ def _flash_times(randn, bh, t, d, causal=True):
     return out
 
 
-def _pairs(tq, tk, qbases):
+def _first_key(p, window):
+    """The first key a query at global position p sees: 0, or under a
+    window the first of its last `window` positions."""
+    return max(0, p - window + 1) if window else 0
+
+
+def _pairs(tq, tk, qbases, window=0):
     """Causal (query, key) pairs a based attention computes: query i of a
-    row with base b sees keys 0 .. min(Tk - 1, b + i)."""
-    return sum(sum(max(0, min(tk, b + i + 1)) for i in range(tq))
-               for b in qbases)
+    row with base b sees keys _first_key(b + i) .. min(Tk - 1, b + i)."""
+    return sum(sum(max(0, min(tk, b + i + 1) - _first_key(b + i, window))
+                   for i in range(tq)) for b in qbases)
 
 
-def _based_bounds(bh, tq, tk, d, qbases):
+def _based_bounds(bh, tq, tk, d, qbases, window=0):
     """(fwd, dq, dkv) bound records of the based kernels over rows whose
     query bases are `qbases` (one per row): bytes of q, o (or do, dq),
     lse and delta, and of the keys each row needs (dk and dv are written
     whole), against 4, 6 and 8 flops per pair and head-dim column."""
-    pairs = _pairs(tq, tk, qbases)
-    keys = sum(min(tk, max(0, b + tq)) for b in qbases)  # needed K/V rows
+    pairs = _pairs(tq, tk, qbases, window)
+    keys = sum(max(0, min(tk, b + tq) - _first_key(b, window))
+               for b in qbases)  # needed K/V rows
     qrow, krow = 4 * tq * d, 4 * d
     fwd = _bound_ms(2 * bh * qrow + 2 * keys * krow + 4 * bh * tq,
                     4 * pairs * d)
@@ -1257,11 +1412,14 @@ def check_attention_pieces(dev, randn):
     ring-like shapes (Tq = Tk = 1024, BH 48, qoff 0: the diagonal chunk;
     qoff 1024: off-diagonal, every key visible) and at the prefill shape;
     B8's backward at the serving shape (q [96, 16, 64], k/v [96, 1024,
-    64], mixed per-row bases), its forward's lse included.  Limits as
-    the B3 rows: 1e-4 of the largest magnitude of o, dq, dk and dv, 1e-4
-    absolute on the lse; every rerun bit-equal.  Timed with CUDA events
-    beside the plain version and scaled_dot_product_attention with the
-    same boolean mask."""
+    64], mixed per-row bases), its forward's lse included; B9 with window
+    256 at the ring shapes (qoff 0 and 1024: there the rows from 255 on
+    see no key and must keep the lse sentinel and zero dq) and at the
+    prefill chunk (qoff 192 and 960, the cache's last chunk).  Limits as the B3 rows: 1e-4 of
+    the largest magnitude of o (of the rows that see a key), dq, dk and
+    dv, 1e-4 absolute on the lse; every rerun bit-equal.  Timed with
+    CUDA events beside the plain version and
+    scaled_dot_product_attention with the same boolean mask."""
     import importlib
 
     import torch
@@ -1331,6 +1489,42 @@ def check_attention_pieces(dev, randn):
         note("dkv", grads[1], want[1])
         note("dkv", grads[2], want[2])
         same(grads, vjp((do, dlse)))
+    # B9 with a window (the ring's, in global positions) at the ring
+    # shapes, qoff 0 and 1024 (there the rows from 255 on see no key:
+    # they keep the lse sentinel and take zero gradients; their o is
+    # defined-garbage and not compared), and at the GPT-2 prefill chunk
+    win = PACKED_WINDOW
+    for bh, tq, tk, off in ((pre_bh, T_MAX, T_MAX, 0),
+                            (pre_bh, T_MAX, T_MAX, T_MAX),
+                            (pre_bh, DECODE_WIDTH, T_MAX, 192),
+                            (pre_bh, DECODE_WIDTH, T_MAX,
+                             T_MAX - DECODE_WIDTH)):
+        q, k, v, do = randn(bh, tq, d), randn(bh, tk, d), randn(bh, tk, d), \
+            randn(bh, tq, d)
+        dlse = randn(bh, tq)
+        qoff = torch.tensor([off], device=dev)
+        live = off + torch.arange(tq, device=dev) - (tk - 1) < win
+        o, lse = flash_attention_piece_fwd(q, k, v, True, scale, qoff, win)
+        p_o, p_lse = flash_attention_piece_plain(q, k, v, True, scale, qoff,
+                                                 win)
+        note("fwd", o[:, live], p_o[:, live])
+        assert (lse - p_lse)[:, live].abs().max().item() <= 1e-4, (
+            "window lse", off)
+        assert bool((lse[:, ~live] <= fa.NEG_INF / 2).all()), "sentinel"
+        assert bool((~live).any()) == (off == T_MAX)
+        same((o, lse), flash_attention_piece_fwd(q, k, v, True, scale, qoff,
+                                                 win))
+        _, vjp = torch.func.vjp(
+            lambda a, b, c: flash_attention_piece(a, b, c, True, scale, qoff,
+                                                  win), q, k, v)
+        grads = vjp((do, dlse))
+        want = flash_attention_piece_grad_plain(q, k, v, o, lse, do, dlse,
+                                                True, scale, qoff, win)
+        note("dq", grads[0], want[0])
+        note("dkv", grads[1], want[1])
+        note("dkv", grads[2], want[2])
+        assert grads[0][:, ~live].abs().sum().item() == 0.0, "dead-row dq"
+        same(grads, vjp((do, dlse)))
     heads = GPT2_HEADS
     slot_q = [0, 500, T_MAX - WIDTH, 37, 0, 250, 983, 1]
     bh = N_SLOTS * heads
@@ -1368,23 +1562,25 @@ def check_attention_pieces(dev, randn):
             replaces="paddle_tpu/ops/pallas_kernels.py" + site,
             max_abs_err=err_abs[e], max_rel_err=err[e])
 
-    def piece_times(bh, tq, tk, off):
+    def piece_times(bh, tq, tk, off, window=0):
         q, k, v, do = (randn(bh, n, d) for n in (tq, tk, tk, tq))
         dlse = randn(bh, tq)
         qoff = torch.tensor([off], device=dev)
-        o, lse = flash_attention_piece_fwd(q, k, v, True, scale, qoff)
+        o, lse = flash_attention_piece_fwd(q, k, v, True, scale, qoff, window)
         delta = (do * o).sum(-1) - dlse
-        mask = (off + torch.arange(tq, device=dev)[:, None]
-                >= torch.arange(tk, device=dev)[None, :])
+        gap = (off + torch.arange(tq, device=dev)[:, None]
+               - torch.arange(tk, device=dev)[None, :])
+        mask = (gap >= 0) & ((gap < window) if window else True)
         qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
-        fwd_b, dq_b, dkv_b = _based_bounds(bh, tq, tk, d, [off] * bh)
-        shape = "q [%d, %d, %d], k/v [%d, %d, %d], qoff %d" % (
-            bh, tq, d, bh, tk, d, off)
+        fwd_b, dq_b, dkv_b = _based_bounds(bh, tq, tk, d, [off] * bh, window)
+        shape = "q [%d, %d, %d], k/v [%d, %d, %d], qoff %d%s" % (
+            bh, tq, d, bh, tk, d, off,
+            ", window %d" % window if window else "")
         bwd_note = ("; plain_ms is the plain backward (dq, dk and dv "
                     "together), library_ms scaled_dot_product_attention "
                     "forward and backward")
         plain_bwd = _events_ms(lambda: flash_attention_piece_grad_plain(
-            q, k, v, o, lse, do, dlse, True, scale, qoff))
+            q, k, v, o, lse, do, dlse, True, scale, qoff, window))
         lib_bwd = _events_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
                                            scale=scale), (qg, kg, vg), do))
@@ -1392,22 +1588,24 @@ def check_attention_pieces(dev, randn):
             "flash_attention_piece_fwd": dict(
                 shape=shape,
                 ms=_time_ms(lambda: flash_attention_piece_fwd(
-                    q, k, v, True, scale, qoff), inner=5),
+                    q, k, v, True, scale, qoff, window), inner=5),
                 plain_ms=_time_ms(lambda: flash_attention_piece_plain(
-                    q, k, v, True, scale, qoff), inner=5),
+                    q, k, v, True, scale, qoff, window), inner=5),
                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, scale=scale), inner=5),
                 bound_ms=fwd_b[0], bound_by=fwd_b[1]),
             "flash_attention_piece_dq": dict(
                 shape=shape + bwd_note,
                 ms=_time_ms(lambda: flash_attention_piece_dq(
-                    q, k, v, lse, do, delta, True, scale, qoff), inner=5),
+                    q, k, v, lse, do, delta, True, scale, qoff, window),
+                    inner=5),
                 plain_ms=plain_bwd, library_ms=lib_bwd,
                 bound_ms=dq_b[0], bound_by=dq_b[1]),
             "flash_attention_piece_dkv": dict(
                 shape=shape + bwd_note,
                 ms=_time_ms(lambda: flash_attention_piece_dkv(
-                    q, k, v, lse, do, delta, True, scale, qoff), inner=5),
+                    q, k, v, lse, do, delta, True, scale, qoff, window),
+                    inner=5),
                 plain_ms=plain_bwd, library_ms=lib_bwd,
                 bound_ms=dkv_b[0], bound_by=dkv_b[1])}
 
@@ -1417,7 +1615,12 @@ def check_attention_pieces(dev, randn):
                       ("llama prefill", (llama_bh, LLAMA_DECODE_WIDTH,
                                          LLAMA_LEN, 128)),
                       ("ring diagonal", (pre_bh, T_MAX, T_MAX, 0)),
-                      ("ring off-diagonal", (pre_bh, T_MAX, T_MAX, T_MAX))):
+                      ("ring off-diagonal", (pre_bh, T_MAX, T_MAX, T_MAX)),
+                      ("ring diagonal window", (pre_bh, T_MAX, T_MAX, 0,
+                                                PACKED_WINDOW)),
+                      ("gpt2 prefill window", (pre_bh, DECODE_WIDTH, T_MAX,
+                                               T_MAX - DECODE_WIDTH,
+                                               PACKED_WINDOW))):
         for name, times in piece_times(*args).items():
             main_row = (tag == "gpt2 prefill" if name.endswith("fwd")
                         else tag == "ring diagonal")
@@ -1708,8 +1911,8 @@ def _expected_train_launches(main):
     kernel form the softmax cross-entropy backward; padded_lstm and
     padded_gru launch theirs in the forward direction only.  In the training
     programs every layer_norm is the kernel form (last axis, Scale and
-    Bias) and no fused_attention has a QStart, a window or segment
-    ids."""
+    Bias) and no fused_attention has a QStart: its window and segment-id
+    forms launch the same three flash kernels."""
     from paddle_tpu_torch.ops.math_ops import softmax_xent_kernel_form
 
     block = main.global_block()
@@ -3162,6 +3365,62 @@ def seq2seq_decode_card_matches_cpu(dev):
                                                json.dumps(launched)))
 
 
+def train_packed_lm(dev, window=0, profile_dir=None):
+    """The packed causal-LM path: examples/packed_training_torch.py's
+    build(8, vocab=50257, seq_len=1024, d_model=768, heads=12, window)
+    (GPT-2 small's published vocab, width, heads and context; the
+    example's one attention block, causal over the packed segment ids,
+    with a sliding window if `window`; Adam 3e-3), fed the first 8 rows
+    of packed_batch, random weights from a seed, f32, through
+    _train_on_card: one warm-up step (its masked loss near ln 50257),
+    PACKED_STEPS timed steps with the launch counts held to the
+    program's (flash forward 2, dq 1, dk/dv 1 a step: the example's
+    layers.fc emits mul + elementwise_add and it runs no fuse pass, so
+    its products are plain matmuls, as the reference's are XLA dots, and
+    matmul_bias_act launches on this path none), and the bit-equal
+    repeat.  Tokens/s counts the non-pad targets (seg_for_loss > 0)."""
+    import math
+
+    feed, seg = packed_batch(PACKED_ROWS, GPT2_LEN, GPT2_VOCAB, PACKED_SEQS)
+    main, startup, loss = _example("packed_training_torch").build(
+        PACKED_ROWS, vocab=GPT2_VOCAB, seq_len=GPT2_LEN, d_model=GPT2_D,
+        heads=GPT2_HEADS, window=window)
+    startup.random_seed = main.random_seed = 2026
+    per_step = _expected_train_launches(main)
+    want = dict.fromkeys(per_step, 0)
+    want.update(flash_attention_fwd=2, flash_attention_dq=1,
+                flash_attention_dkv=1)
+    assert per_step == want, per_step
+    n_tok = float((feed["seg"] > 0).sum())
+    print("packed %d sequences (lengths log-uniform in [8, %d]) into rows "
+          "of %d, the first %d kept: segments per row %s, fill %.4f, %d "
+          "target tokens" % (PACKED_SEQS, GPT2_LEN, GPT2_LEN, PACKED_ROWS,
+                             [len(set(r[r > 0].tolist())) for r in seg],
+                             float((seg > 0).mean()), n_tok))
+    ln_v = math.log(GPT2_VOCAB)
+    return _train_on_card(
+        "packed LM at GPT-2 small's widths (batch %d x %d%s)" % (
+            PACKED_ROWS, GPT2_LEN, ", window %d" % window if window else ""),
+        main, startup, [loss], feed, n_tok, PACKED_ROWS * GPT2_LEN,
+        (ln_v - 0.5, ln_v + 0.5), per_step, profile_dir,
+        "training_packed" + ("_window" if window else ""),
+        steps=PACKED_STEPS, dropout=False, loss_parts=())
+
+
+def packed_train_card_matches_cpu(dev):
+    """The packed LM narrowed (vocab 1000, rows of 128, d_model 256, 4
+    heads of 64, 6 rows of packed_batch) at window 0 and 48, 3 Adam
+    steps on the card and on the CPU plain path from the same weights:
+    losses within 1e-5 relative, every flash kernel launched."""
+    for window in (0, 48):
+        feed, _ = packed_batch(6, 128, 1000, 24, seed=1)
+        main, startup, loss = _example("packed_training_torch").build(
+            6, vocab=1000, seq_len=128, d_model=256, heads=4, window=window)
+        startup.random_seed = 11
+        _card_matches_cpu("packed LM (window %d)" % window, main, startup,
+                          [loss], feed, GPT2_KERNELS[1:])
+
+
 DECODE_KERNELS = ("flash_attention_fwd", "flash_attention_piece_fwd",
                   "matmul_bias_act", "fused_add_layer_norm")
 # held on the card by the kernel phase only: no path of the repo trains
@@ -3278,6 +3537,14 @@ def main():
     seq2seq_decode_card_matches_cpu(dev)
     lap("seq2seq beam decode")
     torch.cuda.empty_cache()
+    trained_packed = train_packed_lm(dev, 0, profile_dir)
+    lap("packed LM training")
+    torch.cuda.empty_cache()
+    trained_packed_window = train_packed_lm(dev, PACKED_WINDOW, profile_dir)
+    lap("packed LM training, window %d" % PACKED_WINDOW)
+    packed_train_card_matches_cpu(dev)
+    lap("narrow packed LM, card vs CPU")
+    torch.cuda.empty_cache()
     trained_vp = train_vocab_parallel(dev, smi, profile_dir)
     lap("wmt vocab-parallel training (2 ranks on one card)")
 
@@ -3296,6 +3563,8 @@ def main():
                    "lstm_training": trained_lstm[name],
                    "seq2seq_training": trained_s2s[name],
                    "seq2seq_decode": decoded_s2s[name],
+                   "packed_lm_training": trained_packed[name],
+                   "packed_lm_window_training": trained_packed_window[name],
                    "wmt_vocab_parallel_training": trained_vp[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],

@@ -13,7 +13,8 @@ only: never jax, and nothing of ``paddle_tpu``.
 The port grows slice by slice: continuous-batching serving of GPT-2
 (``serving.ServingEngine``, the modern-decoder options included),
 KV-cached decoding, and training of the WMT Transformer, GPT-2, BERT,
-the stacked dynamic LSTM and the GRU seq2seq model (``models``).
+the stacked dynamic LSTM and the GRU seq2seq model (``models``), and of
+a causal LM on packed sequences (``reader.pack_sequences``).
 """
 
 from . import ops  # noqa: F401  (registers the op lowerings)

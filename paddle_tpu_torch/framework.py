@@ -107,6 +107,23 @@ class Variable:
 
         return math_op_patch.scale(self, -1.0)
 
+    def __lt__(self, other):
+        return self._binary(other, "less_than")
+
+    def __le__(self, other):
+        return self._binary(other, "less_equal")
+
+    def __gt__(self, other):
+        return self._binary(other, "greater_than")
+
+    def __ge__(self, other):
+        return self._binary(other, "greater_equal")
+
+    def astype(self, dtype):
+        from .layers import tensor as tensor_layers
+
+        return tensor_layers.cast(self, dtype)
+
 
 class Parameter(Variable):
     """A persistable, trainable Variable."""

@@ -5,8 +5,6 @@ at first use."""
 
 from .add_layer_norm import add_layer_norm_plain, fused_add_layer_norm
 from .flash_attention import (
-    NEG_INF,
-    attention_scores,
     flash_attention,
     flash_attention_dkv,
     flash_attention_dq,

@@ -51,9 +51,9 @@ SIGNATURES = {
     "ptt_linear_xent_dx_sharded": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     "ptt_linear_xent_dw_sharded": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     "ptt_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
-    "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _P),
-    "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 6 + (_F, _P),
-    "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 6 + (_F, _P),
+    "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P, _P),
+    "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 6 + (_F, _I, _P, _P),
+    "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 6 + (_F, _I, _P, _P),
     "ptt_softmax_xent_fwd": (_P,) * 3 + (_I, _I, _P),
     "ptt_softmax_xent_bwd": (_P,) * 4 + (_I, _I, _P),
     "ptt_lstm_seq": (_P,) * 7 + (_I,) * 3 + (_P,),

@@ -1,10 +1,13 @@
 // flash_attention: blocked online-softmax attention over q [BH, Tq, d] and
-// k, v [BH, Tk, d], float32, with an optional additive key bias kb [BH, Tk]
-// and causal masking.  Query row i of head row b sits at global position
-// base(b) + i and, causal, sees keys 0 .. base(b) + i, where the optional
-// query base is read on the device: qbase[b * qstride] (stride 0: one
-// scalar offset for every row; stride 1: a [BH] vector of per-row bases).
-// With no base, base(b) = 0 and causal needs Tq == Tk.  Three kernels:
+// k, v [BH, Tk, d], float32, with an optional additive key bias kb [BH, Tk],
+// causal masking, an optional sliding window and optional segment ids.
+// Query row i of head row b sits at global position p = base(b) + i and,
+// causal, sees keys 0 .. p, where the optional query base is read on the
+// device: qbase[b * qstride] (stride 0: one scalar offset for every row;
+// stride 1: a [BH] vector of per-row bases).  With no base, base(b) = 0
+// and causal needs Tq == Tk.  A window w > 0 (causal only) keeps the keys
+// j with p - j < w.  Segment ids seg [BH, T] (Tq == Tk, no base; sequence
+// packing) keep the keys j with seg[b, j] == seg[b, i].  Three kernels:
 //
 //   forward  o = softmax(q k^T * scale + kb) v, and lse [BH, Tq], the row
 //            log-sum-exp the backward rebuilds the probabilities from;
@@ -22,8 +25,9 @@
 // chunked-decode and ring-attention piece) and the backward of
 // flash_attention_qvec (per-row qvec).  The piece's lse cotangent folds
 // into delta in the caller (delta = rowsum(o * dO) - dlse, as _flash_bwd
-// does), so the kernels do not change for it.  The window and segment
-// forms are not ported here.
+// does), so the kernels do not change for it.  The sliding window is
+// _band's (in global positions), the segment ids are the has_seg operands
+// of _unpack_flash_refs, compared per score tile as the reference does.
 //
 // Bound on the card: operations.  At the GPT-2 training shapes (BH 96, T
 // 1024, d 64, causal) the forward does 2 matrix products over the causal
@@ -56,6 +60,17 @@
 // kernel: a masked score contributes exactly zero.  The backward keeps the reference's guard
 // lse <= NEG_INF / 2 -> p = 0.  No atomics: every sum runs in a fixed
 // order, so a result is a pure function of the inputs.
+//
+// The window bounds the tiles walked from both sides: a query tile starts
+// at the key tile of its first query's first visible key, and in dk/dv a
+// key tile stops before the first query tile that lies wholly past its
+// window, so the work scales with the window, not with T.  Segment ids
+// skip no tile (as in the reference): each block stages its query tile's
+// and each key tile's ids in shared memory and masks per entry.  In a
+// packed row the early key tiles are wholly masked for a later segment's
+// queries; such an entry adds exactly 0 to l, the accumulators and every
+// gradient, and a row that sees no key at all (a window past the piece's
+// keys) keeps lse = NEG_INF, the sentinel the backward guards on.
 #include "common.cuh"
 
 namespace {
@@ -125,6 +140,32 @@ __device__ __forceinline__ int key_tiles(int q0, int Tq, int Tk, bool causal,
   return min(nk, last / BK + 1);
 }
 
+// the first key tile a query tile [q0, ...) of a row with query base qpos0
+// reads: under a window none before its first query's first visible key
+// (the _band window skip; clamped before dividing, as C division truncates
+// toward zero)
+__device__ __forceinline__ int first_key_tile(int q0, int window, int qpos0) {
+  const long first = static_cast<long>(qpos0) + q0 - window + 1;
+  return (window <= 0 || first <= 0) ? 0 : static_cast<int>(first / BK);
+}
+
+// the visibility of key `key` to the query at global position qpos with
+// segment ids sq, sk: in range, causal, in the window, in the segment
+__device__ __forceinline__ bool visible(int key, int Tk, int qpos, bool causal,
+                                        int window, const int* seg, int sq, int sk) {
+  return key < Tk && (!causal || key <= qpos) &&
+         (window <= 0 || static_cast<long>(qpos) - key < window) &&
+         (seg == nullptr || sq == sk);
+}
+
+// a segment tile: ids [r0, r0 + n) of a row into dst (0 past T or without ids)
+__device__ __forceinline__ void load_seg(int* dst, const int* seg, int r0, int n, int T) {
+  if (threadIdx.x < n) {
+    const int r = r0 + threadIdx.x;
+    dst[threadIdx.x] = (seg != nullptr && r < T) ? seg[r] : 0;
+  }
+}
+
 // the row's query base: qbase[bh * qstride], or 0 without one
 __device__ __forceinline__ int query_base(const int* qbase, int qstride, int bh) {
   return qbase != nullptr ? qbase[static_cast<long>(bh) * qstride] : 0;
@@ -139,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
     const float* __restrict__ v, const float* __restrict__ kb,
     const int* __restrict__ qbase, float* __restrict__ o,
     float* __restrict__ lse, int Tq, int Tk, bool causal, int qstride,
-    float scale) {
+    float scale, int window, const int* __restrict__ seg) {
   constexpr int G = D / 64;  // column groups of 64: thread columns g*64 + tx*4 + e
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [D][BQ], q * scale
@@ -147,6 +188,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
   float* Vs = Kt + D * BK;                      // [BK][D]
   float* Ps = Vs + BK * D;                      // [BQ][BK]
   __shared__ float kbs[BK];
+  __shared__ int segq[BQ], segk[BK];
   const int bh = blockIdx.x;
   const int nq = gridDim.y;
   const int q0 = (causal ? nq - 1 - blockIdx.y : blockIdx.y) * BQ;  // heavy tiles first
@@ -155,8 +197,10 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
   const float* qb = q + static_cast<long>(bh) * Tq * D;
   const float* kbase = k + static_cast<long>(bh) * Tk * D;
   const float* vbase = v + static_cast<long>(bh) * Tk * D;
+  const int* segb = seg != nullptr ? seg + static_cast<long>(bh) * Tk : nullptr;
 
   load_t<D>(Qt, qb, q0, BQ, Tq, scale);
+  load_seg(segq, segb, q0, BQ, Tq);
   float acc[4][4 * G], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -167,7 +211,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
   }
 
   const int n_kt = key_tiles(q0, Tq, Tk, causal, qpos0);
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = first_key_tile(q0, window, qpos0); kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // Q is staged; the previous tile's K, V, P are consumed
     load_t<D>(Kt, kbase, k0, BK, Tk, 1.f);
@@ -176,6 +220,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
       const int j = k0 + threadIdx.x;
       kbs[threadIdx.x] = (kb != nullptr && j < Tk) ? kb[static_cast<long>(bh) * Tk + j] : 0.f;
     }
+    load_seg(segk, segb, k0, BK, Tk);
     __syncthreads();
 
     float s[4][4];
@@ -202,7 +247,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx * 4 + j;
-        valid[j] = key < Tk && (!causal || key <= qpos);
+        valid[j] = visible(key, Tk, qpos, causal, window, segb, segq[ty * 4 + i],
+                           segk[tx * 4 + j]);
         s[i][j] = valid[j] ? s[i][j] + kbs[tx * 4 + j] : ptt::kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -272,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
     const float* __restrict__ lse, const float* __restrict__ dout,
     const float* __restrict__ delta, const int* __restrict__ qbase,
     float* __restrict__ dq, int Tq, int Tk, bool causal, int qstride,
-    float scale) {
+    float scale, int window, const int* __restrict__ seg) {
   constexpr int G = D / 64;
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [D][BQ]
@@ -282,6 +328,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
   float* Ks = Vt + D * BK;                      // [BK][D]
   float* dSs = Ks + BK * D;                     // [BQ][BK]
   __shared__ float kbs[BK];
+  __shared__ int segq[BQ], segk[BK];
   const int bh = blockIdx.x;
   const int nq = gridDim.y;
   const int q0 = (causal ? nq - 1 - blockIdx.y : blockIdx.y) * BQ;
@@ -290,9 +337,11 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
   const int qpos0 = query_base(qbase, qstride, bh);
   const float* kbase = k + static_cast<long>(bh) * Tk * D;
   const float* vbase = v + static_cast<long>(bh) * Tk * D;
+  const int* segb = seg != nullptr ? seg + static_cast<long>(bh) * Tk : nullptr;
 
   load_t<D>(Qt, q + qoff * D, q0, BQ, Tq, 1.f);
   load_t<D>(dOt, dout + qoff * D, q0, BQ, Tq, 1.f);
+  load_seg(segq, segb, q0, BQ, Tq);
   float lse_r[4], delta_r[4], acc[4][4 * G];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -304,7 +353,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
   }
 
   const int n_kt = key_tiles(q0, Tq, Tk, causal, qpos0);
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = first_key_tile(q0, window, qpos0); kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
     load_t<D>(Kt, kbase, k0, BK, Tk, 1.f);
@@ -314,6 +363,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
       const int j = k0 + threadIdx.x;
       kbs[threadIdx.x] = (kb != nullptr && j < Tk) ? kb[static_cast<long>(bh) * Tk + j] : 0.f;
     }
+    load_seg(segk, segb, k0, BK, Tk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -344,7 +394,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx * 4 + j;
-        const bool valid = live && key < Tk && (!causal || key <= qpos0 + qrow);
+        const bool valid = live && visible(key, Tk, qpos0 + qrow, causal, window, segb,
+                                           segq[ty * 4 + i], segk[tx * 4 + j]);
         const float p = valid ? expf(s[i][j] * scale + kbs[tx * 4 + j] - lse_r[i]) : 0.f;
         ds[j] = p * (dp[i][j] - delta_r[i]);
       }
@@ -397,7 +448,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
     const float* __restrict__ lse, const float* __restrict__ dout,
     const float* __restrict__ delta, const int* __restrict__ qbase,
     float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dkb,
-    int Tq, int Tk, bool causal, int qstride, float scale) {
+    int Tq, int Tk, bool causal, int qstride, float scale, int window,
+    const int* __restrict__ seg) {
   constexpr int G = D / 64;
   constexpr int QPT = QB / 16;  // queries of the score tile per thread
   extern __shared__ float4 smem4[];
@@ -410,6 +462,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
   float* PTs = dOs + QB * D;                    // [BK][QB]
   float* dSTs = PTs + BK * QB;                  // [BK][QB]
   __shared__ float lse_s[QB], delta_s[QB];
+  __shared__ int segq[QB];
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BK;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -418,14 +471,17 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
   const int qpos0 = query_base(qbase, qstride, bh);
   const float* qrows = q + qoff * D;
   const float* obase = dout + qoff * D;
+  const int* segb = seg != nullptr ? seg + koff : nullptr;
 
   load_t<D>(Kt, k + koff * D, k0, BK, Tk, 1.f);
   load_t<D>(Vt, v + koff * D, k0, BK, Tk, 1.f);
   float kbv[4], dkb_acc[4], dk_acc[4][4 * G], dv_acc[4][4 * G];
+  int segk[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
     kbv[i] = (kb != nullptr && key < Tk) ? kb[koff + key] : 0.f;
+    segk[i] = (segb != nullptr && key < Tk) ? segb[key] : 0;
     dkb_acc[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < 4 * G; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
@@ -435,7 +491,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
   // causal: a query tile whose last query (global position qpos0 + q0 +
   // QB - 1) comes before this key tile sees none of it
   const int qt_start = causal ? max(0, (k0 - qpos0) / QB) : 0;
-  for (int qt = qt_start; qt < nqt; ++qt) {
+  // window: the query tiles from the first whose first query (global
+  // position qpos0 + q0) is at or past k0 + BK - 1 + window see none of it
+  int qt_end = nqt;
+  if (window > 0) {
+    const long lim = static_cast<long>(k0) + BK - 1 + window - qpos0;
+    const long tiles = lim <= 0 ? 0 : (lim + QB - 1) / QB;
+    qt_end = tiles < nqt ? static_cast<int>(tiles) : nqt;
+  }
+  for (int qt = qt_start; qt < qt_end; ++qt) {
     const int q0 = qt * QB;
     __syncthreads();  // K, V are staged; the previous query tile is consumed
     load_t<D>(Qt, qrows, q0, QB, Tq, 1.f);
@@ -447,6 +511,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
       lse_s[threadIdx.x] = r < Tq ? lse[qoff + r] : 0.f;
       delta_s[threadIdx.x] = r < Tq ? delta[qoff + r] : 0.f;
     }
+    load_seg(segq, segb, q0, QB, Tq);
     __syncthreads();
 
     float st[4][QPT], dpt[4][QPT];
@@ -482,8 +547,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(
         const int rl = tx * QPT + j;
         const int qrow = q0 + rl;
         const float lse_v = lse_s[rl];
-        const bool valid = key < Tk && qrow < Tq && (!causal || key <= qpos0 + qrow) &&
-                           lse_v > ptt::kNegInf / 2;
+        const bool valid = qrow < Tq && lse_v > ptt::kNegInf / 2 &&
+                           visible(key, Tk, qpos0 + qrow, causal, window, segb, segq[rl],
+                                   segk[i]);
         p[j] = valid ? expf(st[i][j] * scale + kbv[i] - lse_v) : 0.f;
         ds[j] = p[j] * (dpt[i][j] - delta_s[rl]);
         dkb_acc[i] += ds[j];
@@ -553,13 +619,15 @@ int prepare(K kernel, size_t smem) {
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v, const float* kb,
                const int* qbase, float* o, float* lse, int BH, int Tq, int Tk,
-               bool causal, int qstride, float scale, cudaStream_t stream) {
+               bool causal, int qstride, float scale, int window, const int* seg,
+               cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * 64 + 64 * D + 64 * 64);
   static int ready = prepare(fwd_kernel<D>, smem);
   if (ready != 0) return ready;
   const dim3 grid(BH, (Tq + BQ - 1) / BQ);
   fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, kb, qbase, o, lse, Tq,
-                                                   Tk, causal, qstride, scale);
+                                                   Tk, causal, qstride, scale, window,
+                                                   seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -567,14 +635,15 @@ template <int D>
 int launch_dq(const float* q, const float* k, const float* v, const float* kb,
               const float* lse, const float* dout, const float* delta,
               const int* qbase, float* dq, int BH, int Tq, int Tk, bool causal,
-              int qstride, float scale, cudaStream_t stream) {
+              int qstride, float scale, int window, const int* seg,
+              cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * D * 64 + 64 * D + 64 * 64);
   static int ready = prepare(dq_kernel<D>, smem);
   if (ready != 0) return ready;
   const dim3 grid(BH, (Tq + BQ - 1) / BQ);
   dq_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, kb, lse, dout, delta,
                                                   qbase, dq, Tq, Tk, causal,
-                                                  qstride, scale);
+                                                  qstride, scale, window, seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,37 +651,48 @@ template <int D, int QB>
 int launch_dkv(const float* q, const float* k, const float* v, const float* kb,
                const float* lse, const float* dout, const float* delta,
                const int* qbase, float* dk, float* dv, float* dkb, int BH,
-               int Tq, int Tk, bool causal, int qstride, float scale,
-               cudaStream_t stream) {
+               int Tq, int Tk, bool causal, int qstride, float scale, int window,
+               const int* seg, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * BK + 4 * D * QB + 2 * BK * QB);
   static int ready = prepare(dkv_kernel<D, QB>, smem);
   if (ready != 0) return ready;
   const dim3 grid(BH, (Tk + BK - 1) / BK);
   dkv_kernel<D, QB><<<grid, kThreads, smem, stream>>>(
       q, k, v, kb, lse, dout, delta, qbase, dk, dv, dkb, Tq, Tk, causal, qstride,
-      scale);
+      scale, window, seg);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The operands the three kernels take: causal without a query base needs
+// Tq == Tk; a window (0: none) needs causal; segment ids need Tq == Tk and
+// no query base.
+static bool bad_operands(const int* qbase, int Tq, int Tk, int causal, int qstride,
+                         int window, const int* seg) {
+  return (causal && qbase == nullptr && Tq != Tk) || qstride < 0 || window < 0 ||
+         (window > 0 && !causal) || (seg != nullptr && (qbase != nullptr || Tq != Tk));
+}
+
 // kb [BH, Tk] or null; qbase (int32, read at b * qstride) or null;
-// o [BH, Tq, d]; lse [BH, Tq].  causal without a query base needs Tq == Tk.
+// o [BH, Tq, d]; lse [BH, Tq]; window 0 or the causal window; seg [BH, T]
+// int32 segment ids or null.
 extern "C" int ptt_flash_attention_fwd(const float* q, const float* k,
                                        const float* v, const float* kb,
                                        const int* qbase, float* o, float* lse,
                                        int BH, int Tq, int Tk, int d,
                                        int causal, int qstride, float scale,
+                                       int window, const int* seg,
                                        cudaStream_t stream) {
   if (BH == 0 || Tq == 0) return static_cast<int>(cudaSuccess);
-  if (Tk == 0 || (causal && qbase == nullptr && Tq != Tk) || qstride < 0)
+  if (Tk == 0 || bad_operands(qbase, Tq, Tk, causal, qstride, window, seg))
     return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
     return launch_fwd<64>(q, k, v, kb, qbase, o, lse, BH, Tq, Tk, causal != 0, qstride,
-                          scale, stream);
+                          scale, window, seg, stream);
   if (d == 128)
     return launch_fwd<128>(q, k, v, kb, qbase, o, lse, BH, Tq, Tk, causal != 0, qstride,
-                           scale, stream);
+                           scale, window, seg, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -624,16 +704,17 @@ extern "C" int ptt_flash_attention_dq(const float* q, const float* k,
                                       const float* dout, const float* delta,
                                       float* dq, int BH, int Tq, int Tk, int d,
                                       int causal, int qstride, float scale,
+                                      int window, const int* seg,
                                       cudaStream_t stream) {
   if (BH == 0 || Tq == 0) return static_cast<int>(cudaSuccess);
-  if (Tk == 0 || (causal && qbase == nullptr && Tq != Tk) || qstride < 0)
+  if (Tk == 0 || bad_operands(qbase, Tq, Tk, causal, qstride, window, seg))
     return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
     return launch_dq<64>(q, k, v, kb, lse, dout, delta, qbase, dq, BH, Tq, Tk,
-                         causal != 0, qstride, scale, stream);
+                         causal != 0, qstride, scale, window, seg, stream);
   if (d == 128)
     return launch_dq<128>(q, k, v, kb, lse, dout, delta, qbase, dq, BH, Tq, Tk,
-                          causal != 0, qstride, scale, stream);
+                          causal != 0, qstride, scale, window, seg, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -645,15 +726,16 @@ extern "C" int ptt_flash_attention_dkv(const float* q, const float* k,
                                        float* dk, float* dv, float* dkb,
                                        int BH, int Tq, int Tk, int d,
                                        int causal, int qstride, float scale,
+                                       int window, const int* seg,
                                        cudaStream_t stream) {
   if (BH == 0 || Tk == 0) return static_cast<int>(cudaSuccess);
-  if (Tq == 0 || (causal && qbase == nullptr && Tq != Tk) || qstride < 0)
+  if (Tq == 0 || bad_operands(qbase, Tq, Tk, causal, qstride, window, seg))
     return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
     return launch_dkv<64, 64>(q, k, v, kb, lse, dout, delta, qbase, dk, dv, dkb, BH, Tq,
-                              Tk, causal != 0, qstride, scale, stream);
+                              Tk, causal != 0, qstride, scale, window, seg, stream);
   if (d == 128)
     return launch_dkv<128, 32>(q, k, v, kb, lse, dout, delta, qbase, dk, dv, dkb, BH, Tq,
-                               Tk, causal != 0, qstride, scale, stream);
+                               Tk, causal != 0, qstride, scale, window, seg, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

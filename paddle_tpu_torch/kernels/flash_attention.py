@@ -8,8 +8,8 @@ dk/dv with a per-row query base).
 ``_flash_fwd_kernel``) and the backward ``_flash_bwd``, whose dq and
 dk/dv calls run ``_flash_dq_kernel`` and ``_flash_dkv_kernel``.  The
 CUDA kernels are ``csrc/flash_attention.cu``.  Over q [BH, Tq, d] and
-k, v [BH, Tk, d] with an optional additive key bias [BH, Tk] and causal
-masking:
+k, v [BH, Tk, d] with an optional additive key bias [BH, Tk], causal
+masking, an optional sliding window and optional segment ids:
 
     s = q k^T * scale + kbias,   lse = logsumexp(s),   o = exp(s - lse) v
 
@@ -21,15 +21,22 @@ and the backward rebuilds p = exp(s - lse) from the saved lse:
 
 where dlse, the cotangent of the lse output, is zero except for the
 piece.  Causal masking is in global positions: query i of head row b
-sits at base(b) + i and sees keys 0 .. base(b) + i.  The three forms
-differ only in the base, which the same three kernels read on the
-device (no host sync on a position):
+sits at p = base(b) + i and sees keys 0 .. p; a window w > 0 (causal
+only, the reference's ``_band``) keeps the keys j with p - j < w, and
+segment ids seg [BH, T] (sequence packing: Tq == Tk, no base) keep the
+keys whose id equals the query's.  A row that sees no key (a window
+past a piece's keys) keeps lse = NEG_INF, takes zero gradients, and its
+o is defined-garbage, as in the reference.  The three forms differ only
+in the base, which the same three kernels read on the device (no host
+sync on a position):
 
-- ``flash_attention`` (B3): base 0, Tq == Tk when causal;
+- ``flash_attention`` (B3): base 0, Tq == Tk when causal; the window
+  and the segment ids, alone or together;
 - ``flash_attention_piece`` (B9, the reference's ``flash_attention_piece``:
   ``_flash_fwd``/``_flash_bwd`` with a scalar ``qoff``): one offset for
-  every row, Tq != Tk allowed; returns (o, lse), differentiable through
-  both (the lse cotangent folds into delta, as ``_flash_bwd`` does);
+  every row, Tq != Tk allowed, with an optional window; returns (o,
+  lse), differentiable through both (the lse cotangent folds into
+  delta, as ``_flash_bwd`` does);
 - ``flash_attention_qvec`` (B8, ``_flash_fwd``/``_flash_bwd`` with
   ``qvec``): a [BH] base per row.  Its forward is
   ``csrc/flash_attention_qvec.cu`` (a key-split kernel for the serving
@@ -38,15 +45,13 @@ device (no host sync on a position):
 
 ``flash_attention_plain`` (o, lse) and ``flash_attention_grad_plain``
 (dq, dk, dv, dkbias) are the plain PyTorch versions of all three (the
-reference's ``_dense_attention``, with its lse);
+reference's ``_dense_attention``, with its lse and its segment mask);
 ``flash_attention_piece_plain`` and ``flash_attention_piece_grad_plain``
 name the piece's, ``flash_attention_qvec_plain`` the serving forward's.
 CPU and meta tensors take them, CUDA tensors launch the kernels or
 raise.  The forms are ``torch.autograd.Function``s (the reference's
 ``jax.custom_vjp``): the forward saves o and lse, the backward launches
 dq and dk/dv in a nested function.  Each form counts its own launches.
-The sliding-window and segment-id forms are still to be ported (ROADMAP
-B3-window/segments): they raise on CUDA tensors.
 """
 
 import torch
@@ -68,13 +73,32 @@ NEG_INF = -1e30
 KV_CHUNK = 128
 
 
-def attention_scores(q, k, kbias, causal, scale, qbase=None, window=0):
-    """[BH, Tq, Tk] float32 scores with the key bias and the causal mask
-    (NEG_INF) applied; query i of row b at global position qbase[b] + i
-    (a one-element qbase serves every row), keys at their indices."""
+def _check_form(name, tq, tk, causal, qbase, window, seg):
+    """The masks the kernels take, as the reference asserts them: a
+    window needs causal; segment ids need Tq == Tk and no query base."""
+    if window < 0:
+        raise ValueError("%s: window must be >= 0, got %d" % (name, window))
+    if window and not causal:
+        raise ValueError("%s: a window requires causal=True" % name)
+    if seg is not None and (qbase is not None or tq != tk):
+        raise ValueError("%s: segment ids require Tq == Tk and no query "
+                         "base" % name)
+
+
+def attention_scores(q, k, kbias, causal, scale, qbase=None, window=0,
+                     seg=None):
+    """[BH, Tq, Tk] float32 scores with the key bias, the causal and
+    window masks and the segment mask (NEG_INF) applied; query i of row
+    b at global position qbase[b] + i (a one-element qbase serves every
+    row), keys at their indices; seg [BH, T] segment ids."""
+    _check_form("attention_scores", q.shape[1], k.shape[1], causal, qbase,
+                int(window), seg)
     s = torch.einsum("bqd,bkd->bqk", q, k).float() * float(scale)
     if kbias is not None:
         s = s + kbias[:, None, :].float()
+    if seg is not None:
+        s = torch.where(seg[:, :, None] == seg[:, None, :], s,
+                        torch.full((), NEG_INF, device=q.device))
     if causal:
         tq, tk = q.shape[1], k.shape[1]
         q_pos = torch.arange(tq, device=q.device)[None, :]
@@ -89,24 +113,24 @@ def attention_scores(q, k, kbias, causal, scale, qbase=None, window=0):
 
 
 def flash_attention_plain(q, k, v, kbias=None, causal=False, scale=None,
-                          qbase=None, window=0):
+                          qbase=None, window=0, seg=None):
     """(o [BH, Tq, d], lse [BH, Tq] float32)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = attention_scores(q, k, kbias, causal, scale, qbase, window)
+    s = attention_scores(q, k, kbias, causal, scale, qbase, window, seg)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v), lse
 
 
 def flash_attention_grad_plain(q, k, v, kbias, lse, do, delta, causal=False,
-                               scale=None, qbase=None, window=0):
+                               scale=None, qbase=None, window=0, seg=None):
     """(dq, dk, dv, dkbias [BH, Tk] float32) from the saved lse and
     delta = rowsum(o * do) - dlse; rows whose lse is the NEG_INF
     sentinel take no gradient (the reference's guard)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = attention_scores(q, k, kbias, causal, scale, qbase, window)
+    s = attention_scores(q, k, kbias, causal, scale, qbase, window, seg)
     lse = lse.float()[..., None]
     p = torch.where(lse <= NEG_INF / 2, torch.zeros((), device=q.device),
                     torch.exp(s - lse))
@@ -142,16 +166,23 @@ def flash_attention_piece_grad_plain(q, k, v, o, lse, do, dlse, causal=False,
                                       qoff, window)[:3]
 
 
-def _check(name, q, k, v, kbias, causal, qbase, *rows):
+def _check(name, q, k, v, kbias, causal, qbase, window, seg, *rows):
     build.check_inputs(name, q, k, v, *rows,
                        *(() if kbias is None else (kbias,)))
     bh, tq, d = q.shape
     tk = k.shape[1]
     if (tuple(k.shape) != (bh, tk, d) or tuple(v.shape) != (bh, tk, d)
-            or (kbias is not None and tuple(kbias.shape) != (bh, tk))):
-        raise ValueError("%s: shapes q %s k %s v %s kbias %s" % (
+            or (kbias is not None and tuple(kbias.shape) != (bh, tk))
+            or (seg is not None and tuple(seg.shape) != (bh, tk))):
+        raise ValueError("%s: shapes q %s k %s v %s kbias %s seg %s" % (
             name, tuple(q.shape), tuple(k.shape), tuple(v.shape),
-            None if kbias is None else tuple(kbias.shape)))
+            None if kbias is None else tuple(kbias.shape),
+            None if seg is None else tuple(seg.shape)))
+    _check_form(name, tq, tk, causal, qbase, window, seg)
+    if seg is not None and (seg.is_floating_point()
+                            or seg.device != q.device):
+        raise ValueError("%s: segment ids must be an integer tensor on %s"
+                         % (name, q.device))
     if causal and qbase is None and tq != tk:
         raise ValueError("%s: causal requires Tq == Tk, got %d vs %d"
                          % (name, tq, tk))
@@ -177,40 +208,45 @@ def _qbase_arg(qbase, device):
     return qb, int(qb.numel() > 1)
 
 
-def _no_window(name, window):
-    if window:
-        raise NotImplementedError(
-            "%s with a sliding window has no CUDA kernel yet (ROADMAP "
-            "B3-window/segments); it runs on CPU tensors only" % name)
+def _seg_arg(seg):
+    """The [BH, T] segment ids as int32 on their device, or None."""
+    if seg is None:
+        return None
+    return seg.to(dtype=torch.int32).contiguous()
 
 
-def _fwd(name, q, k, v, kbias, causal, scale, qbase=None):
-    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase)
+def _fwd(name, q, k, v, kbias, causal, scale, qbase=None, window=0,
+         seg=None):
+    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase, window, seg)
     if scale is None:
         scale = d ** -0.5
     qb, stride = _qbase_arg(qbase, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     build.launch("ptt_flash_attention_fwd", q, k, v, kbias, qb, o, lse, bh,
-                 tq, tk, d, int(bool(causal)), stride, float(scale))
+                 tq, tk, d, int(bool(causal)), stride, float(scale),
+                 int(window), _seg_arg(seg))
     return o, lse
 
 
-def _dq(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None):
-    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase, lse, do,
-                           delta)
+def _dq(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None,
+        window=0, seg=None):
+    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase, window, seg,
+                           lse, do, delta)
     if scale is None:
         scale = d ** -0.5
     qb, stride = _qbase_arg(qbase, q.device)
     dq = torch.empty_like(q)
     build.launch("ptt_flash_attention_dq", q, k, v, kbias, qb, lse, do, delta,
-                 dq, bh, tq, tk, d, int(bool(causal)), stride, float(scale))
+                 dq, bh, tq, tk, d, int(bool(causal)), stride, float(scale),
+                 int(window), _seg_arg(seg))
     return dq
 
 
-def _dkv(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None):
-    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase, lse, do,
-                           delta)
+def _dkv(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None,
+         window=0, seg=None):
+    bh, tq, tk, d = _check(name, q, k, v, kbias, causal, qbase, window, seg,
+                           lse, do, delta)
     if scale is None:
         scale = d ** -0.5
     qb, stride = _qbase_arg(qbase, q.device)
@@ -220,42 +256,47 @@ def _dkv(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None):
            if kbias is not None else None)
     build.launch("ptt_flash_attention_dkv", q, k, v, kbias, qb, lse, do,
                  delta, dk, dv, dkb, bh, tq, tk, d, int(bool(causal)), stride,
-                 float(scale))
+                 float(scale), int(window), _seg_arg(seg))
     return dk, dv, dkb
 
 
-def flash_attention_fwd(q, k, v, kbias=None, causal=False, scale=None):
+def flash_attention_fwd(q, k, v, kbias=None, causal=False, scale=None,
+                        window=0, seg=None):
     """B3's forward kernel: (o, lse)."""
     if not build.use_kernel(q):
-        return flash_attention_plain(q, k, v, kbias, causal, scale)
-    out = _fwd("flash_attention_fwd", q, k, v, kbias, causal, scale)
+        return flash_attention_plain(q, k, v, kbias, causal, scale, None,
+                                     window, seg)
+    out = _fwd("flash_attention_fwd", q, k, v, kbias, causal, scale, None,
+               window, seg)
     flash_attention_fwd.launches += 1
     return out
 
 
 def flash_attention_dq(q, k, v, kbias, lse, do, delta, causal=False,
-                       scale=None):
+                       scale=None, window=0, seg=None):
     """B3's dq kernel: one block per query tile walks the key tiles in
     order."""
     if not build.use_kernel(q):
         return flash_attention_grad_plain(q, k, v, kbias, lse, do, delta,
-                                          causal, scale)[0]
+                                          causal, scale, None, window,
+                                          seg)[0]
     dq = _dq("flash_attention_dq", q, k, v, kbias, lse, do, delta, causal,
-             scale)
+             scale, None, window, seg)
     flash_attention_dq.launches += 1
     return dq
 
 
 def flash_attention_dkv(q, k, v, kbias, lse, do, delta, causal=False,
-                        scale=None):
+                        scale=None, window=0, seg=None):
     """B3's dk/dv kernel: (dk, dv, dkbias or None); one block per key
     tile walks the query tiles in order."""
     if not build.use_kernel(q):
         _, dk, dv, dkb = flash_attention_grad_plain(q, k, v, kbias, lse, do,
-                                                    delta, causal, scale)
+                                                    delta, causal, scale,
+                                                    None, window, seg)
         return dk, dv, (dkb if kbias is not None else None)
     out = _dkv("flash_attention_dkv", q, k, v, kbias, lse, do, delta, causal,
-               scale)
+               scale, None, window, seg)
     flash_attention_dkv.launches += 1
     return out
 
@@ -267,9 +308,8 @@ def flash_attention_piece_fwd(q, k, v, causal=False, scale=None, qoff=None,
     if not build.use_kernel(q):
         return flash_attention_piece_plain(q, k, v, causal, scale, qoff,
                                            window)
-    _no_window("flash_attention_piece", window)
     out = _fwd("flash_attention_piece_fwd", q, k, v, None, causal, scale,
-               qoff)
+               qoff, window)
     flash_attention_piece_fwd.launches += 1
     return out
 
@@ -280,9 +320,8 @@ def flash_attention_piece_dq(q, k, v, lse, do, delta, causal=False,
     if not build.use_kernel(q):
         return flash_attention_grad_plain(q, k, v, None, lse, do, delta,
                                           causal, scale, qoff, window)[0]
-    _no_window("flash_attention_piece", window)
     dq = _dq("flash_attention_piece_dq", q, k, v, None, lse, do, delta,
-             causal, scale, qoff)
+             causal, scale, qoff, window)
     flash_attention_piece_dq.launches += 1
     return dq
 
@@ -293,9 +332,8 @@ def flash_attention_piece_dkv(q, k, v, lse, do, delta, causal=False,
     if not build.use_kernel(q):
         return flash_attention_grad_plain(q, k, v, None, lse, do, delta,
                                           causal, scale, qoff, window)[1:3]
-    _no_window("flash_attention_piece", window)
     dk, dv, _ = _dkv("flash_attention_piece_dkv", q, k, v, None, lse, do,
-                     delta, causal, scale, qoff)
+                     delta, causal, scale, qoff, window)
     flash_attention_piece_dkv.launches += 1
     return dk, dv
 
@@ -331,17 +369,19 @@ for _fn in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
 
 
 def _flash_grad(form, q, k, v, kbias, qbase, lse, do, delta, causal, scale,
-                window):
+                window, seg):
     """(dq, dk, dv[, dkbias]) of one form ("flash", "piece", "qvec"):
     its dq and dk/dv kernels on CUDA tensors, one plain pass for all
     four otherwise."""
     if not build.use_kernel(q):
         dq, dk, dv, dkb = flash_attention_grad_plain(
-            q, k, v, kbias, lse, do, delta, causal, scale, qbase, window)
+            q, k, v, kbias, lse, do, delta, causal, scale, qbase, window,
+            seg)
     elif form == "flash":
-        dq = flash_attention_dq(q, k, v, kbias, lse, do, delta, causal, scale)
+        dq = flash_attention_dq(q, k, v, kbias, lse, do, delta, causal, scale,
+                                window, seg)
         dk, dv, dkb = flash_attention_dkv(q, k, v, kbias, lse, do, delta,
-                                          causal, scale)
+                                          causal, scale, window, seg)
     elif form == "piece":
         dq = flash_attention_piece_dq(q, k, v, lse, do, delta, causal, scale,
                                       qbase, window)
@@ -362,9 +402,9 @@ class _FlashAttentionGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(form, q, k, v, kbias, qbase, lse, do, delta, causal, scale,
-                window):
+                window, seg):
         return _flash_grad(form, q, k, v, kbias, qbase, lse, do, delta,
-                           causal, scale, window)
+                           causal, scale, window, seg)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -377,35 +417,40 @@ class _FlashAttentionGrad(torch.autograd.Function):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(q, k, v, kbias, causal, scale):
-        return flash_attention_fwd(q, k, v, kbias, causal, scale)
+    def forward(q, k, v, kbias, causal, scale, window, seg):
+        return flash_attention_fwd(q, k, v, kbias, causal, scale, window, seg)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, kbias, causal, scale = inputs
+        q, k, v, kbias, causal, scale, window, seg = inputs
         o, lse = output
-        ctx.save_for_backward(q, k, v, kbias, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.save_for_backward(q, k, v, kbias, seg, o, lse)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         ctx.mark_non_differentiable(lse)
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, kbias, o, lse = ctx.saved_tensors
+        q, k, v, kbias, seg, o, lse = ctx.saved_tensors
         grads = _FlashAttentionGrad.apply(
             "flash", q, k, v, kbias, None, lse, do.contiguous(),
-            _delta(o, do).contiguous(), ctx.causal, ctx.scale, 0)
+            _delta(o, do).contiguous(), ctx.causal, ctx.scale, ctx.window,
+            seg)
         dkb = grads[3] if kbias is not None else None
-        return grads[0], grads[1], grads[2], dkb, None, None
+        return grads[0], grads[1], grads[2], dkb, None, None, None, None
 
 
-def flash_attention(q, k, v, kbias=None, causal=False, scale=None):
+def flash_attention(q, k, v, kbias=None, causal=False, scale=None, window=0,
+                    seg=None):
     """Attention over q [BH, Tq, d], k/v [BH, Tk, d] float32, with an
-    optional additive key bias [BH, Tk] and causal masking (Tq == Tk).
-    Differentiable in q, k, v and kbias (the backward runs the dq and
-    dk/dv kernels on CUDA tensors)."""
+    optional additive key bias [BH, Tk], causal masking (Tq == Tk), an
+    optional sliding window (causal only) and optional [BH, T] integer
+    segment ids (Tq == Tk).  Differentiable in q, k, v and kbias (the
+    backward runs the dq and dk/dv kernels on CUDA tensors); the segment
+    ids take no gradient."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, kbias, bool(causal), float(scale))[0]
+    return _FlashAttention.apply(q, k, v, kbias, bool(causal), float(scale),
+                                 int(window), seg)[0]
 
 
 class _FlashAttentionPiece(torch.autograd.Function):
@@ -426,7 +471,7 @@ class _FlashAttentionPiece(torch.autograd.Function):
         dq, dk, dv = _FlashAttentionGrad.apply(
             "piece", q, k, v, None, qoff, lse, do.contiguous(),
             _delta(o, do, dlse).contiguous(), ctx.causal, ctx.scale,
-            ctx.window)
+            ctx.window, None)
         return dq, dk, dv, None, None, None, None
 
 
@@ -434,9 +479,10 @@ def flash_attention_piece(q, k, v, causal=False, scale=None, qoff=None,
                           window=0):
     """(o, lse) of the query chunk q [BH, Tq, d] at global offset qoff (a
     one-element int tensor, read on the device; None is offset 0)
-    against one K/V chunk k/v [BH, Tk, d], Tq != Tk allowed; o is
-    softmax-normalized within the chunk.  Differentiable in q, k and v
-    through both outputs."""
+    against one K/V chunk k/v [BH, Tk, d], Tq != Tk allowed, with an
+    optional sliding window in global positions; o is softmax-normalized
+    within the chunk.  Differentiable in q, k and v through both
+    outputs."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _FlashAttentionPiece.apply(q, k, v, qoff, bool(causal),
@@ -514,7 +560,7 @@ class _FlashAttentionQvec(torch.autograd.Function):
         q, k, v, qstart, o, lse = ctx.saved_tensors
         dq, dk, dv = _FlashAttentionGrad.apply(
             "qvec", q, k, v, None, qstart, lse, do.contiguous(),
-            _delta(o, do).contiguous(), True, ctx.scale, 0)
+            _delta(o, do).contiguous(), True, ctx.scale, 0, None)
         return dq, dk, dv, None, None
 
 

@@ -1,12 +1,16 @@
 """Operator overloading on Variables (the counterpart of
-``paddle_tpu/layers/math_op_patch.py``): ``var * 2.0``, ``step ** -0.5``
-and the like append the ops the reference appends — a ``scale`` for a
-scalar add/sub/mul/div, else an elementwise op against a
-``fill_constant``."""
+``paddle_tpu/layers/math_op_patch.py``): ``var * 2.0``, ``step ** -0.5``,
+``seg > 0`` and the like append the ops the reference appends — a
+``scale`` for a scalar add/sub/mul/div, else an elementwise or compare
+op (a bool Out) against a ``fill_constant``."""
 
 import numpy as np
 
 from ..layer_helper import LayerHelper
+
+
+_COMPARE = ("less_than", "less_equal", "greater_than", "greater_equal",
+            "equal", "not_equal")
 
 
 def scale(var, scale_val=1.0, bias=0.0):
@@ -41,7 +45,8 @@ def binary(var, other, op, reverse=False):
 
         other = tensor_layers.fill_constant([1], var.dtype, float(other))
     x, y = (other, var) if reverse else (var, other)
-    out = helper.create_variable_for_type_inference(var.dtype)
+    out = helper.create_variable_for_type_inference(
+        "bool" if op in _COMPARE else var.dtype)
     helper.append_op(op, inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
                      attrs={"axis": -1})
     return out

@@ -1,10 +1,12 @@
 """Tensor-building layers (the counterpart of
 ``paddle_tpu/layers/tensor.py``): the builders the serving and training slices call."""
 
+import numpy as np
+
 from .. import framework
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "create_global_var", "assign",
+__all__ = ["create_parameter", "create_global_var", "assign", "cast",
            "fill_constant", "concat"]
 
 
@@ -39,6 +41,16 @@ def assign(input, output=None):
         output = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("assign", inputs={"X": [input]}, outputs={"Out": [output]})
     return output
+
+
+def cast(x, dtype):
+    if not isinstance(dtype, str):
+        dtype = np.dtype(dtype).name
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):

@@ -1,9 +1,10 @@
 """Elementwise / activation / matmul / reduction / loss op lowerings
 (the counterpart of ``paddle_tpu/ops/math_ops.py``), limited to the ops
 the serving slice, the GPT-2 (with its modern-decoder options), WMT
-Transformer and BERT pretraining steps and the recurrent models (the
+Transformer and BERT pretraining steps, the recurrent models (the
 stacked LSTM classifier's cross entropy and accuracy, the GRU seq2seq
-model's) run.  ``mul`` and ``matmul`` are
+model's) and the packed causal LM (the compare ops of its loss mask)
+run.  ``mul`` and ``matmul`` are
 plain products outside any kernel of the reference, so they stay
 ``torch.matmul`` here too.
 ``fused_linear_xent`` sits on the hand-written linear cross-entropy
@@ -39,6 +40,21 @@ for _name, _fn in (("elementwise_add", torch.add),
                    ("elementwise_min", torch.minimum),
                    ("elementwise_pow", torch.pow)):
     register(_name)(_elementwise(_fn))
+
+
+def _compare(fn):
+    def lower(ctx, ins, attrs):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [fn(x, bcast_y(x, y, attrs.get("axis", -1)))]}
+
+    return lower
+
+
+# comparisons: a bool Out, no gradient to either input
+for _name, _fn in (("less_than", torch.lt), ("less_equal", torch.le),
+                   ("greater_than", torch.gt), ("greater_equal", torch.ge),
+                   ("equal", torch.eq), ("not_equal", torch.ne)):
+    register(_name, no_grad_inputs=("X", "Y"))(_compare(_fn))
 
 
 @register("scale")

@@ -10,18 +10,15 @@ Seven ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
 ``fused_add_layer_norm``, ``layer_norm`` over the last axis with Scale
 and Bias on ``fused_layer_norm``, and ``fused_attention``: its per-row
 QStart form on ``flash_attention_qvec``, its scalar-QStart form (the
-chunked decode step) on ``flash_attention_piece`` and its forms without
-a QStart (causal or not, with or without a key Bias) on
-``flash_attention``, and the forward direction of ``padded_lstm`` and
-``padded_gru`` on ``fused_lstm`` and ``fused_gru``.  Each wrapper takes
-its plain version for CPU and meta tensors and launches its kernel for
-CUDA tensors.
+chunked decode step, with or without a window) on
+``flash_attention_piece`` and its forms without a QStart (causal or
+not, with or without a key Bias, a sliding window or SegmentIds: the
+packed causal LM) on ``flash_attention``, and the forward direction of
+``padded_lstm`` and ``padded_gru`` on ``fused_lstm`` and ``fused_gru``.
+Each wrapper takes its plain version for CPU and meta tensors and
+launches its kernel for CUDA tensors.
 ``layer_norm``'s other forms are the reference's own XLA branch, which
-has no kernel: they stay plain PyTorch on any device.  The
-``fused_attention`` forms whose reference kernel is not ported yet
-(sliding window, segment ids) run their plain version on CPU and meta
-tensors and raise on a CUDA tensor, so no plain path runs silently on
-the card.
+has no kernel: they stay plain PyTorch on any device.
 """
 
 import numpy as np
@@ -29,11 +26,8 @@ import torch
 
 from ..core.registry import register
 from ..kernels import (
-    NEG_INF,
-    attention_scores,
     flash_attention,
     flash_attention_piece,
-    flash_attention_plain,
     flash_attention_qvec,
     fused_add_layer_norm,
     fused_gru,
@@ -45,13 +39,6 @@ from ..kernels import (
 )
 from .spmd_epilogue import (spmd_add_layer_norm, spmd_matmul_bias_act,
                             spmd_matmul_swiglu)
-
-
-def _not_on_cuda(t, what, item):
-    if t.device.type == "cuda":
-        raise NotImplementedError(
-            "%s has no CUDA kernel yet (ROADMAP %s); it runs on CPU tensors "
-            "only" % (what, item))
 
 
 @register("layer_norm")
@@ -159,26 +146,17 @@ def _fused_residual_ln(ctx, ins, attrs):
             "Mean": [mean.reshape(lead)], "Variance": [var.reshape(lead)]}
 
 
-def _segment_attention(q, k, v, causal, scale, kbias, window, seg):
-    """Plain attention over [BH, T, d] where a query sees a key only if
-    their segment ids match: the CPU path of fused_attention's
-    SegmentIds form."""
-    s = attention_scores(q, k, kbias, causal, scale, window=window)
-    s = torch.where(seg[:, :, None] == seg[:, None, :], s,
-                    torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
-
-
 @register("fused_attention")
 def _fused_attention(ctx, ins, attrs):
     """Fused scaled-dot-product attention over [batch, heads, T, d].  The
     per-row QStart form (the ragged serving step) launches the
     flash_attention_qvec kernel on CUDA tensors, the scalar-QStart form
     (chunked decode: query i at global position QStart + i, keys at
-    their cache indices, Tq != Tk) the flash_attention_piece kernel, and
-    the forms without a QStart, window or segment ids (causal or not,
-    with an optional key Bias) the flash_attention kernels."""
+    their cache indices, Tq != Tk; an optional window) the
+    flash_attention_piece kernel, and the forms without a QStart (causal
+    or not, with an optional key Bias, window and SegmentIds: [batch, T]
+    ids, a query sees only keys of its own id) the flash_attention
+    kernels."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     causal = bool(attrs.get("causal", False))
     window = int(attrs.get("window", 0) or 0)
@@ -234,22 +212,15 @@ def _fused_attention(ctx, ins, attrs):
     if ins.get("Bias"):
         kbias = ins["Bias"][0].reshape(b, tk).float()
         kbias = kbias[:, None, :].expand(b, h, tk).reshape(b * h, tk)
-    if not window and not ins.get("SegmentIds"):
-        out = flash_attention(qf, kf, vf, kbias, causal, float(scale))
-        return {"Out": [out.reshape(b, h, t, d)]}
-    _not_on_cuda(q, "fused_attention with a window or segment ids "
-                 "(flash_attention's window and segment forms)",
-                 "B3-window/segments")
-    if not ins.get("SegmentIds"):
-        out, _lse = flash_attention_plain(qf, kf, vf, kbias, causal,
-                                          float(scale), window=window)
-        return {"Out": [out.reshape(b, h, t, d)]}
-    if t != tk:
-        raise ValueError("fused_attention: SegmentIds requires Tq == Tk")
-    seg = ins["SegmentIds"][0].reshape(b, t)
-    seg = seg[:, None, :].expand(b, h, t).reshape(b * h, t)
-    out = _segment_attention(qf, kf, vf, causal, float(scale), kbias, window,
-                             seg)
+    seg = None
+    if ins.get("SegmentIds"):
+        # sequence packing: [B, T] ids, broadcast over the heads
+        if t != tk:
+            raise ValueError("fused_attention: SegmentIds requires Tq == Tk")
+        seg = ins["SegmentIds"][0].reshape(b, t)
+        seg = seg[:, None, :].expand(b, h, t).reshape(b * h, t)
+    out = flash_attention(qf, kf, vf, kbias, causal, float(scale), window,
+                          seg)
     return {"Out": [out.reshape(b, h, t, d)]}
 
 

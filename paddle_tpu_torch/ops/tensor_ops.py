@@ -1,8 +1,8 @@
 """Tensor creation / manipulation op lowerings (the counterpart of
 ``paddle_tpu/ops/tensor_ops.py``), limited to the ops the serving slice,
 the GPT-2 programs (grouped-query attention's ``expand`` included), the
-WMT Transformer's training step, BERT pretraining (``squeeze2``) and the
-GRU seq2seq model (``concat``) run.
+WMT Transformer's training step, BERT pretraining (``squeeze2``), the
+GRU seq2seq model (``concat``) and the packed causal LM (``cast``) run.
 Random ops draw from the run's seeded ``torch.Generator``
 (``LowerCtx.rng``).
 """
@@ -65,6 +65,13 @@ def _gaussian_random(ctx, ins, attrs):
 @register("assign")
 def _assign(ctx, ins, attrs):
     return {"Out": [ins["X"][0]]}
+
+
+@register("cast")
+def _cast(ctx, ins, attrs):
+    """X to out_dtype.  A float-to-float cast takes its gradient through
+    the generic vjp; a bool or int X takes none (not a float input)."""
+    return {"Out": [ins["X"][0].to(tdt(attrs["out_dtype"]))]}
 
 
 def _resolve_reshape(x, shape):
@@ -137,15 +144,6 @@ def _expand(ctx, ins, attrs):
     return {"Out": [torch.tile(ins["X"][0], tuple(attrs["expand_times"]))]}
 
 
-@register("gather", no_grad_inputs=("Index",))
-def _gather(ctx, ins, attrs):
-    x, idx = ins["X"][0], ins["Index"][0]
-    axis = attrs.get("axis", 0)
-    out = x.index_select(axis, idx.reshape(-1).long())
-    shape = list(x.shape[:axis]) + list(idx.shape) + list(x.shape[axis + 1:])
-    return {"Out": [out.reshape(shape)]}
-
-
 class _Embedding(torch.autograd.Function):
     """Embedding rows whose backward sums each row's gradients in one
     fixed order on every device, so a training step is bit-reproducible
@@ -182,6 +180,24 @@ class _Embedding(torch.autograd.Function):
         dw = dout.new_zeros((ctx.rows, h)).index_put(
             (ids.reshape(-1),), dout.reshape(-1, h), accumulate=True)
         return None, dw, None
+
+
+@register("gather", no_grad_inputs=("Index",))
+def _gather(ctx, ins, attrs):
+    """Rows of X at Index along `axis`.  Along axis 0 (the position
+    tables' gather) the rows go through ``_Embedding``, whose backward
+    sums repeated indices in a fixed order, so a training step is
+    bit-reproducible on the card."""
+    x, idx = ins["X"][0], ins["Index"][0]
+    axis = attrs.get("axis", 0)
+    idx = idx.reshape(-1).long()
+    if axis == 0:
+        out = _Embedding.apply(idx, x.reshape(x.shape[0], -1), False)
+    else:
+        out = x.index_select(axis, idx)
+    shape = list(x.shape[:axis]) + list(ins["Index"][0].shape) + list(
+        x.shape[axis + 1:])
+    return {"Out": [out.reshape(shape)]}
 
 
 @register("lookup_table", no_grad_inputs=("Ids",))

@@ -372,9 +372,10 @@ def test_decode_step_reaches_the_attention_kernels(monkeypatch):
     seen = []
     real_flash, real_piece = nn_ops.flash_attention, nn_ops.flash_attention_piece
 
-    def flash(q, k, v, kbias, causal, scale):
+    def flash(q, k, v, kbias, causal, scale, window, seg):
+        assert window == 0 and seg is None
         seen.append(("flash", tuple(q.shape), kbias is not None, causal))
-        return real_flash(q, k, v, kbias, causal, scale)
+        return real_flash(q, k, v, kbias, causal, scale, window, seg)
 
     def piece(q, k, v, causal, scale, qoff, window):
         assert torch.is_tensor(qoff) and qoff.numel() == 1

@@ -13,6 +13,8 @@ and copy ops match exactly.  Random init ops cannot match the
 reference's threefry streams, so they are held to shape, dtype, range
 and moments instead."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -395,59 +397,78 @@ def test_fused_attention_qstart_dispatch(monkeypatch, b, n_qstart, window,
 
 
 def test_unported_attention_forms_raise_on_cuda_tensors(monkeypatch):
-    """The forms whose kernel is not ported (window, segment ids) refuse
-    a CUDA tensor, naming the ROADMAP item, instead of running a plain
-    path on the card; the guard passes CPU tensors.  A window on the
-    scalar-QStart form reaches flash_attention_piece, whose kernel path
-    refuses it before any launch."""
+    """The attention forms with no kernel, as in the reference, raise
+    before any launch: a window on the per-row QStart form, a window
+    without causal, segment ids beside a query base.  The window and
+    segment forms are ported: on the kernel path they launch B3's (or
+    B9's) kernels with the window and the int32 ids as operands."""
     from paddle_tpu_torch.kernels import build, flash_attention_piece
 
-    class _OnCuda:
-        device = torch.device("cuda")
-
-    with pytest.raises(NotImplementedError, match="B3-window/segments"):
-        nn_ops._not_on_cuda(_OnCuda(), "fused_attention window",
-                            "B3-window/segments")
-    nn_ops._not_on_cuda(torch.zeros(1), "fused_attention window",
-                        "B3-window/segments")
-    guarded = []
-    monkeypatch.setattr(nn_ops, "_not_on_cuda",
-                        lambda t, what, item: guarded.append(item))
-    q = torch.tensor(_F(1, 2, 4, 8))
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    launched = []
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *args: launched.append((name, args)))
+    q = torch.ones(2, 2, 4, 64)
     lower = get_op("fused_attention").lower
+    with pytest.raises(ValueError, match="per-row QStart"):
+        lower(LowerCtx(device="cpu"),
+              {"Q": [q], "K": [q], "V": [q], "QStart": [torch.tensor([1, 2])]},
+              {"causal": True, "scale": None, "window": 2})
+    with pytest.raises(ValueError, match="window requires causal"):
+        lower(LowerCtx(device="cpu"), {"Q": [q], "K": [q], "V": [q]},
+              {"causal": False, "scale": None, "window": 2})
+    qk = torch.ones(2, 4, 64)
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    with pytest.raises(ValueError, match="segment ids require"):
+        fa._fwd("flash_attention_fwd", qk, qk, qk, None, True, None,
+                torch.tensor([1]), 0, torch.zeros(2, 4, dtype=torch.long))
+    assert launched == []
+    seg = torch.tensor([[1, 1, 2, 0], [1, 2, 2, 2]])
     for ins, attrs in (
             ({"QStart": [torch.tensor([1])]}, {"window": 2}),
-            ({"SegmentIds": [torch.zeros(1, 4, dtype=torch.long)]}, {}),
-            ({}, {"window": 2})):
+            ({"SegmentIds": [seg]}, {}),
+            ({}, {"window": 2}),
+            ({"SegmentIds": [seg]}, {"window": 3})):
         lower(LowerCtx(device="cpu"), dict({"Q": [q], "K": [q], "V": [q]},
                                            **ins),
               dict({"causal": True, "scale": None, "window": 0}, **attrs))
-    assert guarded == ["B3-window/segments"] * 2
-    monkeypatch.setattr(build, "use_kernel", lambda t: True)
-    monkeypatch.setattr(build, "launch", lambda *a: pytest.fail("launched"))
-    qk = torch.ones(2, 4, 64)
-    with pytest.raises(NotImplementedError, match="B3-window/segments"):
-        flash_attention_piece(qk, qk, qk, True, None, torch.tensor([1]), 2)
+    assert [name for name, _ in launched] == ["ptt_flash_attention_fwd"] * 4
+    for (_, args), window, with_seg in zip(launched, (2, 0, 2, 3),
+                                           (False, True, False, True)):
+        assert args[-2] == window
+        if with_seg:
+            # the [B, T] ids broadcast over the heads, as int32
+            assert args[-1].dtype == torch.int32
+            assert args[-1].tolist() == seg.repeat_interleave(2, 0).tolist()
+        else:
+            assert args[-1] is None
+    flash_attention_piece(qk, qk, qk, True, None, torch.tensor([1]), 2)
+    assert launched[-1][0] == "ptt_flash_attention_fwd"
+    assert launched[-1][1][-2] == 2
 
 
 @pytest.mark.parametrize("ins,attrs,kernel", [
     ({}, {"causal": True}, True),
     ({"Bias": [np.zeros((2, 5), "float32")]}, {"causal": False}, True),
     ({}, {"causal": False}, True),
-    ({"SegmentIds": [np.zeros((2, 5), "int64")]}, {"causal": True}, False),
-    ({}, {"causal": True, "window": 2}, False),
+    ({"SegmentIds": [np.zeros((2, 5), "int64")]}, {"causal": True}, True),
+    ({}, {"causal": True, "window": 2}, True),
 ])
 def test_fused_attention_flash_dispatch(monkeypatch, ins, attrs, kernel):
-    """The forms without a QStart, window or segment ids reach the
-    flash_attention wrapper (and so its kernels on the card), with the
-    Bias broadcast over heads as a [B*H, Tk] key bias."""
+    """The forms without a QStart (window and segment ids included) reach
+    the flash_attention wrapper (and so its kernels on the card), with
+    the Bias broadcast over heads as a [B*H, Tk] key bias and the
+    SegmentIds as [B*H, T] ids."""
     calls = []
     real = nn_ops.flash_attention
 
-    def spy(q, k, v, kbias, causal, scale):
+    def spy(q, k, v, kbias, causal, scale, window, seg):
         calls.append((tuple(q.shape), None if kbias is None
                       else tuple(kbias.shape), causal))
-        return real(q, k, v, kbias, causal, scale)
+        assert window == attrs.get("window", 0)
+        assert (seg is None) == ("SegmentIds" not in ins)
+        assert seg is None or tuple(seg.shape) == (6, 5)
+        return real(q, k, v, kbias, causal, scale, window, seg)
 
     monkeypatch.setattr(nn_ops, "flash_attention", spy)
     q = torch.tensor(_F(2, 3, 5, 8))
@@ -457,7 +478,7 @@ def test_fused_attention_flash_dispatch(monkeypatch, ins, attrs, kernel):
         dict({"scale": None, "window": 0}, **attrs))
     assert out["Out"][0].shape == (2, 3, 5, 8)
     if kernel:
-        assert calls == [((6, 5, 8), (6, 5) if ins else None,
+        assert calls == [((6, 5, 8), (6, 5) if "Bias" in ins else None,
                           attrs["causal"])]
     else:
         assert calls == []
