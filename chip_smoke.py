@@ -222,6 +222,8 @@ GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
 # H100 SXM published peaks (NVIDIA data sheet) used for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# 3xTF32: three TF32 tensor-core products (495 TFLOP/s) per float32 product
+TF32X3_FLOPS_PER_S = 495e12 / 3
 
 
 def tinyllama_config():
@@ -649,21 +651,41 @@ def _events_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def _print_ptxas(source, names):
+    """ptxas's lines for the kernels of one source file whose entry names
+    contain one of `names`: registers, shared memory and spills."""
+    from paddle_tpu_torch.kernels import build
+
+    log = build.build_log
+    part = log[log.find("== " + source):].split("\n== ")[0]
+    keep = False
+    for line in part.splitlines():
+        if "Compiling entry function" in line:
+            keep = any(n in line for n in names)
+        if keep and ("Compiling entry" in line or "registers" in line
+                     or "spill" in line):
+            print("  " + line.strip())
+
+
 def check_linear_xent(dev, randn, g):
     """The three linear cross-entropy kernels (forward, dx, dw) against
     the plain version on the card: the training path's shapes (R 4096, H
     512, V 10000, eps 0.1) and ragged ones (R 100, V 1007, labels -1 and
     V in the batch, eps 0 and 0.1; R 70, H 600, V 300), the GPT-2 path's
-    (R 8192, H 768, V 50257, eps 0: the wide-H form) and the TinyLlama
-    path's (R 4096, H 2048, V 32000, eps 0: the wide-H form over 8 H
-    slices) and the BERT path's MLM head (R 4096, H 768, V 30522, eps 0),
-    the last three timed as `per_shape`.  Limit: 1e-4 of the
-    largest magnitude of each of loss, dx and dw."""
+    (R 8192, H 768, V 50257, eps 0: 3 slices, odd V) and the TinyLlama
+    path's (R 4096, H 2048, V 32000, eps 0: 8 slices) and the BERT path's
+    MLM head (R 4096, H 768, V 30522, eps 0: V % 4 = 2), the last three
+    timed as `per_shape`; and the plan's edges at a small R and V: H 776
+    (4 slices, the last 8 wide), H 2050 (8 slices of 288), H 4096 (8 of
+    512), H 6400 (8 of 800: dx / dw in passes of 768 and 32), R 8191, odd
+    V.  Limit: 1e-4 of the largest magnitude of each of
+    loss, dx and dw; every kernel's rerun is bit-equal."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import linear_xent as lx
 
+    _print_ptxas("linear_xent.cu", ("lxent",))
     R, H, V, eps = TRAIN_ROWS, HP_D_MODEL, HP_VOCAB, 0.1
     err = {"loss": 0.0, "dx": 0.0, "dw": 0.0}  # relative to the max magnitude
     err_abs = dict(err)
@@ -676,11 +698,13 @@ def check_linear_xent(dev, randn, g):
             err[key] = max(err[key], rel(a, b))
             err_abs[key] = max(err_abs[key], (a - b).abs().max().item())
 
-    # H 600 takes the backward's form for H > 512 (16-deep staged slices)
     for r, h, v, e in ((R, H, V, eps), (100, H, 1007, 0.0), (100, H, 1007, 0.1),
                        (70, 600, 300, 0.1), (GPT2_ROWS, GPT2_D, GPT2_VOCAB, 0.0),
                        (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB, 0.0),
-                       (BERT_ROWS, BERT_D, BERT_VOCAB, 0.0)):
+                       (BERT_ROWS, BERT_D, BERT_VOCAB, 0.0),
+                       (300, 776, 1001, 0.1), (100, 2050, 999, 0.1),
+                       (200, 4096, 515, 0.0), (64, 6400, 300, 0.1),
+                       (8191, H, 777, 0.1)):
         x, w = randn(r, h), randn(h, v, scale=h ** -0.5)
         lbl = torch.randint(0, v, (r,), generator=g, device=dev)
         lbl[0], lbl[1] = -1, v  # outside the vocab: smoothing term only
@@ -689,10 +713,20 @@ def check_linear_xent(dev, randn, g):
         p_loss, p_lse = lx.linear_xent_plain(x, w, lbl, e)
         dx = lx.linear_xent_dx(x, w, lbl, lse, dy, e)
         dw = lx.linear_xent_dw(x, w, lbl, lse, dy, e)
+        again = lx.linear_xent_fwd(x, w, lbl, e)
+        assert torch.equal(loss, again[0]) and torch.equal(lse, again[1]), (
+            "linear_xent_fwd rerun", r, h, v)
+        assert torch.equal(dx, lx.linear_xent_dx(x, w, lbl, lse, dy, e)), (
+            "linear_xent_dx rerun", r, h, v)
+        assert torch.equal(dw, lx.linear_xent_dw(x, w, lbl, lse, dy, e)), (
+            "linear_xent_dw rerun", r, h, v)
         p_dx, p_dw = lx.linear_xent_grad_plain(x, w, lbl, p_lse, dy, e)
         note("loss", (loss, p_loss), (lse, p_lse))
         note("dx", (dx, p_dx))
         note("dw", (dw, p_dw))
+        print("linear_xent [%d, %d] x [%d, %d] eps %.1f plan %s: relative "
+              "error so far %s" % (r, h, h, v, e, tuple(lx.lxent_plan(r, h, v)),
+                                   {k: "%.3g" % v_ for k, v_ in err.items()}))
     for k, v_ in err.items():
         assert v_ <= 1e-4, ("linear_xent disagrees", k, v_)
 
@@ -776,7 +810,8 @@ def _lxent_times(dev, randn, g, R, H, V, eps, slow):
                            "forward and backward"),
             ms=timed(kern), plain_ms=timed(plain) if plain else plain_grad,
             library_ms=timed(lib) if lib else lib_fwd_bwd,
-            bound_ms=b, bound_by=fl)
+            bound_ms=b, bound_by=fl,
+            bound_ms_3xtf32=flops / TF32X3_FLOPS_PER_S * 1e3)
     return out
 
 
@@ -785,12 +820,13 @@ def check_sharded_linear_xent(dev, randn, g):
     plain versions on one vocab shard: the vocab-parallel path's x [4096,
     512], w_local [512, 5000] (mp 2, the slab at col0 5000 of 10000), eps
     0.1, labels over the whole vocab (half outside the shard) with a few at
-    -1 and 10000; a ragged R of 4095; and the wide-H form at TinyLlama's
-    widths on mp 4, [4096, 2048] x [2048, 8000] of 32000, eps 0.  The lse
-    handed to dx/dw is a global one (this shard's plus log 2).  Limit:
-    1e-4 of the largest magnitude of each output; a rerun is bit-equal.
-    Each shape is timed: the path's in the record, the others as
-    `per_shape`."""
+    -1 and 10000; a ragged R of 4095; TinyLlama's widths on mp 4, [4096,
+    2048] x [2048, 8000] of 32000, eps 0 (8 slices); and the plan's edges
+    at a small R and V: H 776 (4 slices, the last 8 wide), H 4096 (8 of
+    512) and H 6400 (8 of 800, in passes), odd slabs.  The lse handed to dx/dw is a global one (this
+    shard's plus log 2).  Limit: 1e-4 of the largest magnitude of each
+    output; a rerun is bit-equal.  The first three shapes are timed: the
+    path's in the record, the others as `per_shape`."""
     import torch
 
     import importlib
@@ -808,7 +844,9 @@ def check_sharded_linear_xent(dev, randn, g):
     shapes = ((TRAIN_ROWS, HP_D_MODEL, HP_VOCAB // VP_MP, 0.1, HP_VOCAB, 1),
               (TRAIN_ROWS - 1, HP_D_MODEL, HP_VOCAB // VP_MP, 0.1, HP_VOCAB, 0),
               (LLAMA_ROWS, LLAMA_D, LLAMA_VOCAB // 4, 0.0, LLAMA_VOCAB, 2))
-    for r, h, v, eps, vt, shard in shapes:
+    for r, h, v, eps, vt, shard in shapes + ((300, 776, 1001, 0.1, 3003, 1),
+                                             (200, 4096, 515, 0.0, 2060, 3),
+                                             (64, 6400, 301, 0.1, 903, 2)):
         x, w = randn(r, h), randn(h, v, scale=h ** -0.5)
         lbl = torch.randint(0, vt, (r,), generator=g, device=dev)
         lbl[:3] = torch.tensor([-1, vt, shard * v], device=dev)
@@ -920,7 +958,8 @@ def _sharded_lxent_times(dev, randn, g, R, H, V, eps, vocab_total, shard,
                            "g @ w^T and x^T @ g"),
             ms=timed(kern), plain_ms=timed(plain) if plain else plain_grad,
             library_ms=timed(lib) if lib else lib_bwd,
-            bound_ms=b, bound_by=fl)
+            bound_ms=b, bound_by=fl,
+            bound_ms_3xtf32=flops / TF32X3_FLOPS_PER_S * 1e3)
     return out
 
 
@@ -3575,7 +3614,8 @@ def main():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape"):
             entry[key] = r[key]
-        for key in ("per_shape", "max_rel_err", "library_note"):
+        for key in ("per_shape", "max_rel_err", "library_note",
+                    "bound_ms_3xtf32"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

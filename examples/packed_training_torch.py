@@ -1,7 +1,7 @@
 """Train a small causal LM on PACKED ragged sequences with
-paddle_tpu_torch, end to end, on the CPU:
+paddle_tpu_torch, end to end, on the CUDA card (``--cpu``: on the CPU):
 
-    python examples/packed_training_torch.py
+    python examples/packed_training_torch.py [--cpu]
 
 The port's counterpart of ``examples/packed_training.py``.  Ragged
 token sequences (lengths 3..14) pack into fixed [N, 16] rows
@@ -98,7 +98,10 @@ def successor_sequences(n=24, seed=0):
     return seqs
 
 
-def main(steps=60):
+def main(steps=60, place=None):
+    """Train `steps` Adam steps on `place` (default: the card,
+    ``fluid.default_place()``, which raises without one); returns the
+    masked losses."""
     seqs = successor_sequences()
     feed, seg = make_feed(seqs, L)
     n_rows = seg.shape[0]
@@ -107,7 +110,7 @@ def main(steps=60):
     assert n_rows < len(seqs)
 
     main_p, startup, loss = build(n_rows)
-    exe = fluid.Executor(fluid.CPUPlace())
+    exe = fluid.Executor(place if place is not None else fluid.default_place())
     exe.run(startup)
     losses = []
     for step in range(steps):
@@ -122,4 +125,6 @@ def main(steps=60):
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    main(place=fluid.CPUPlace() if "--cpu" in sys.argv[1:] else None)

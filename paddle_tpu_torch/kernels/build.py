@@ -44,12 +44,14 @@ SIGNATURES = {
     "ptt_matmul_bias_act": (_P,) * 5 + (_I,) * 5 + (_P,),
     "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 3 + (_P,),
     "ptt_flash_attention_qvec": (_P,) * 8 + (_I,) * 5 + (_F, _P),
-    "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 4 + (_F, _P),
-    "ptt_linear_xent_dx": (_P,) * 6 + (_I,) * 3 + (_F, _P),
-    "ptt_linear_xent_dw": (_P,) * 6 + (_I,) * 3 + (_F, _P),
-    "ptt_linear_xent_parts": (_P,) * 7 + (_I,) * 4 + (_P,),
-    "ptt_linear_xent_dx_sharded": (_P,) * 7 + (_I,) * 4 + (_F, _P),
-    "ptt_linear_xent_dw_sharded": (_P,) * 7 + (_I,) * 4 + (_F, _P),
+    # the linear cross entropy's shape ints, then its plan's four (hs, n,
+    # stages, smem: linear_xent.lxent_plan)
+    "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 8 + (_F, _P),
+    "ptt_linear_xent_dx": (_P,) * 6 + (_I,) * 7 + (_F, _P),
+    "ptt_linear_xent_dw": (_P,) * 6 + (_I,) * 7 + (_F, _P),
+    "ptt_linear_xent_parts": (_P,) * 7 + (_I,) * 8 + (_P,),
+    "ptt_linear_xent_dx_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
+    "ptt_linear_xent_dw_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
     "ptt_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
     "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P, _P),
     "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 6 + (_F, _I, _P, _P),

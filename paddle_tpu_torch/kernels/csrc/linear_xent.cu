@@ -1,134 +1,372 @@
 // fused_linear_xent: the logits-free projected cross entropy, forward and
 // backward, over x [R, H], w [H, V], int64 labels [R], all float32
-// row-major.  The logits z = x @ w exist only as register tiles; no [R, V]
-// buffer is ever written.  Per row, with valid = (0 <= label < V):
+// row-major.  The logits z = x @ w exist only as register and shared-memory
+// tiles; no [R, V] buffer is ever written.  Per row, with valid = (0 <=
+// label < V):
 //
 //   loss = valid (1 - eps) (lse - z[label]) + eps (lse - sum_v z / V)
 //   g    = dy (valid (1 - eps) (p - onehot) + eps (p - 1 / V)),  p = exp(z - lse)
 //   dx   = g @ w^T,   dw = x^T @ g
 //
-// Replaces: paddle_tpu/ops/pallas_kernels.py fused_linear_xent: the
-// forward _lxent_fwd (kernel body _lxent_fwd_kernel) and the backward
-// _lxent_bwd, whose dx and dw calls run _lxent_dx_kernel and
-// _lxent_dw_kernel over _lxent_grad_tile.
+// Replaces: paddle_tpu/ops/pallas_kernels.py fused_linear_xent, the forward
+// _lxent_fwd (pallas_call :1647, body _lxent_fwd_kernel) and the backward
+// _lxent_bwd, whose dx (:1680) and dw (:1693) calls run _lxent_dx_kernel and
+// _lxent_dw_kernel over _lxent_grad_tile; and sharded_linear_xent's
+// _lxent_parts (:1818) and _lxent_bwd_sharded (dx :1900, dw :1914).
 //
-// Bound on the card: operations.  At R 4096, H 512, V 10000 the forward
-// does 2 R H V = 41.9 GFLOP on 29 MB, dx and dw each twice that (the
-// logits tile is recomputed from the saved lse), so with TF32 off all
-// three are bound by the float32 (non-tensor-core) rate.
+// Bound on the card: operations.  The forward does 2 R H V FLOPs, dx and dw
+// 4 R H V each (the logits are recomputed from the saved lse, then one
+// product).  With TF32 off that is the float32 rate (67 TFLOP/s); these
+// kernels run the products on the tensor cores in 3xTF32 (three TF32
+// products per float32 product at 495 TFLOP/s, i.e. ops / 165 TFLOP/s).
 //
-// Design.  Ragged edges load zeros; vocab columns >= V are masked in the
-// kernel, so a ragged V needs no padded copy of w.  Every logits element
-// sums over H in ascending order with fmaf, in all three kernels, so the
-// backward recomputes exactly the forward's z.
-// - forward: one block per (64-row tile, vocab split).  A block computes
-//   each [64, 64] logits tile by walking H in 16-deep steps through shared
-//   memory (4 x 4 register micro-tile a thread), and walks its split's
-//   vocab tiles in order, keeping per row the running max, sum of
-//   exponentials, gold logit and logit sum (row reductions are fixed
-//   butterflies over 16 lanes).  A second pass merges the splits of each
-//   row in split order.  The split count depends on R and V alone.
-// - dx (H <= 512): one block per 32-row tile, owning all of H.  The x tile
-//   stays in shared memory; per vocab tile in order, the whole [H, 64] w
-//   tile is loaded, z and g are formed, and g @ w_tile^T is accumulated in
-//   registers (4 rows x H / 32 columns a thread).
-// - dw (H <= 512): one block per 32-column vocab tile, owning all of H.
-//   The w tile stays in shared memory; per 32-row tile in order, z and g
-//   are formed (rows >= R give zero) and x_tile^T @ g is accumulated
-//   (H / 64 x 8 a thread), while the next x tile loads into the other of
-//   two buffers (rows >= R load zero).
-// - Wider H falls back to blocks of (32-row or 64-column tile, 256-wide H
-//   slice) that stage 16-deep slices as the forward does and recompute z
-//   once per H slice.
+// Arithmetic: 3xTF32.  Every operand element is split as it leaves shared
+// memory, big = cvt.rna.tf32.f32(a), small = cvt.rna.tf32.f32(a - big),
+// and each product accumulates small*big + big*small + big*big in f32 with
+// mma.sync.m16n8k8.tf32; the tensor cores get only cvt's TF32 values, never
+// raw float32 bits.  The CPU tests emulate it: within 1e-5 of the largest
+// magnitude against float64 at K 768 and 2048, where one TF32 product
+// misses 1e-4.  The tensor core's own accumulation rounds toward zero, so a
+// long contraction (dx over V, dw over R) adds each 16-deep product,
+// started from zero, to a float32 sum.
+//
+// Design, one for every H.  H is cut into n slices of HS columns (the plan,
+// lxent_plan in linear_xent.py: HS 256 while n <= 8, else n = 8).  A
+// logits tile [64 rows, 64 vocab columns] is the sum over the slices, in
+// ascending order, of per-slice partials, each a fresh 3xTF32 accumulation
+// over its slice in 64-deep steps by warp pairs (the even and the odd
+// 8-deep steps, added).  The forward, dx and dw all compute every logit
+// that way, so the backward recomputes the forward's z.
+// - Staging: a ring of buffers in dynamic shared memory fed by cp.async
+//   (16-byte copies where the rows are 16-byte aligned, else 4-byte;
+//   masked elements zero-fill, so a ragged V needs no padded copy of w),
+//   one __syncthreads a stage.  Rows are XOR-swizzled so that every
+//   fragment load is free of bank conflicts in the orientations a tile is
+//   read in.  dx and dw keep the slice's fixed operand resident (HS 256:
+//   dx's x [64, 256], dw's w [256, 64]) and hold the tile's chunks of the
+//   other in the ring until the second product has read them; wider
+//   slices stream both operands and stage the second product's again.
+// - forward / parts: one block per (64-row tile, vocab split); the block
+//   adds the slices' partials itself, keeps per thread the running max,
+//   sum of exponentials, gold logit and logit sum of its rows over the
+//   columns it holds, merges them in a fixed order at the end, and a second
+//   pass merges the splits of each row in split order.
+// - dx / dw: a thread-block cluster of n blocks along H, one per slice
+//   (cudaLaunchKernelEx, cluster dimension n).  Per tile every block
+//   computes its slice's partial into shared memory, the cluster meets at a
+//   barrier, each block adds its 1/n share of the tile over the n partials
+//   in slice order through distributed shared memory, and after a second
+//   barrier every block gathers the shares, so all hold a bit-identical z
+//   (~48 KB of peers' shared memory read a block and tile), forms g from z and
+//   the saved lse, and accumulates its slice of the output: dx blocks (one
+//   per row tile, walking the vocab tiles) g @ w[slice, vtile]^T into
+//   [64, HS]; dw blocks (one per vocab tile, walking the row tiles)
+//   x[rtile, slice]^T @ g into [HS, 64].  With two cluster barriers a tile
+//   the buffers need no second copy; a last barrier precedes exit, since
+//   peers may still read a block's shared memory.  Each logits tile is
+//   computed once per kernel: 2 x 2 R H V FLOPs a backward kernel.  A
+//   block's registers hold at most 768 output columns (rows for dw); a
+//   slice wider than that (H > 8 x 768) is done in passes of 768, each
+//   walking all tiles again, so the logits are computed ceil(HS / 768)
+//   times there.
 // No atomics anywhere: every output sums in one fixed order, so a step is
 // bit-reproducible from the same state.
 //
-// sharded_linear_xent: the same three passes over ONE vocab shard, w_local
+// Why mma.sync and not yet wgmma: tf32 wgmma takes both operands K-major
+// in shared memory, and w [H, V] is MN-major for the logits product, as is
+// x for dw's x^T @ g; a wgmma form needs a transposing stage and separate
+// big / small tiles.  It is the next step (ROADMAP B4a).
+//
+// sharded_linear_xent: the same passes over ONE vocab shard, w_local
 // [H, V/n], with labels in local column coordinates (label - col0: a label
-// of another shard is negative or >= V/n and matches no column, and a
-// column past the slab is masked before its label is compared).
-// - parts: the forward's streaming pass and split merge, emitting per row
-//   this shard's lse_j = m + log l, gold_j and the logit sum sum_j and no
-//   loss; the caller combines the shards (max and sums over ranks).
-// - dx / dw: the backward passes above with the row validity `valid` [R]
-//   (from the GLOBAL labels) and the smoothing denominator vocab_total
-//   given, instead of derived from the local V.  dx is this shard's
-//   partial of g @ w_local^T; the caller sums it over the shards.
-// Replaces: paddle_tpu/ops/pallas_kernels.py sharded_linear_xent:
-// _lxent_parts (kernel body _lxent_parts_kernel) and _lxent_bwd_sharded,
-// whose dx and dw calls run _lxent_dx_kernel_sharded and
-// _lxent_dw_kernel_sharded over _lxent_grad_tile with valid/vocab_total.
-// Bound: operations, as the unsharded forms (2 R H V/n for parts, twice
-// that for dx and for dw).
+// of another shard is negative or >= V/n and matches no column).
+// - parts: the forward's pass and split merge, emitting per row this
+//   shard's lse_j = m + log l, gold_j and the logit sum sum_j and no loss;
+//   the caller combines the shards (max and sums over ranks).
+// - dx / dw: the backward passes with the row validity `valid` [R] (from
+//   the GLOBAL labels) and the smoothing denominator vocab_total given,
+//   instead of derived from the local V.  dx is this shard's partial of
+//   g @ w_local^T; the caller sums it over the shards.
 #include "common.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int BK = 16;   // depth of one staged step over H
-constexpr int BV = 64;   // vocab columns per logits tile
-constexpr int HS = 256;  // hidden columns owned by one dx / dw block
-constexpr int PAD = 4;   // shared-row padding: fewer bank conflicts, 16-byte rows
+constexpr int BR = 64;        // rows of a logits tile
+constexpr int BV = 64;        // vocab columns of a logits tile
+constexpr int KC = 64;        // depth of a logits stage: x [BR][KC], w [KC][BV]
+constexpr int KG = 16;        // depth of a product stage: dx w^T [SW][KG], dw x [KG][SW]
+constexpr int kSubHS = 768;   // the widest pass a dx / dw block's registers hold
+constexpr int kResHS = 256;   // the widest slice whose operand stays resident
+constexpr int kTile = BR * BV;
+constexpr int kSmemMax = 232448;
 
-__device__ __forceinline__ float group16_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// ---- shared-memory layout: XOR swizzles ------------------------------------
+// A tile row stores column c at c ^ sw(row).  Each swizzle moves whole
+// 4-float groups (16-byte copies stay whole) and maps a fragment load's 32
+// lanes onto distinct banks (a 64-bit load's 16 lanes of a half-warp onto
+// distinct bank pairs):
+// - swz, rows of a multiple of 32 floats read as 8 rows x 4 columns (rows by
+//   lane / 4; also as 8 rows x 4 column pairs) or 4 rows x 8 columns (rows
+//   by lane % 4): x stages, the g tile, dw's x^T stages;
+// - swz_w, w [h][v] stages and tiles, read as rows 2t and 2t + 1 x 8
+//   columns (the logits) and as 8 rows x 4 column pairs (dx's g @ w^T);
+// - swz16, dx's w^T stage [HS][16], read as 8 rows x 4 column pairs.
+__device__ __forceinline__ int swz(int row) {
+  return ((row & 3) << 3) | (((row >> 2) & 1) << 2);
+}
+__device__ __forceinline__ int swz_w(int row) {
+  return ((row & 3) ^ ((row >> 2) & 1)) << 3;
+}
+__device__ __forceinline__ int swz16(int row) { return ((row >> 1) & 1) << 3; }
+
+enum Swizzle { kSwz, kSwzW, kSwz16 };
+
+template <int SW>
+__device__ __forceinline__ int swizzle(int row) {
+  return SW == kSwz ? swz(row) : SW == kSwzW ? swz_w(row) : swz16(row);
 }
 
-__device__ __forceinline__ float group16_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// ---- 3xTF32 on mma.sync ------------------------------------------------------
+// a TF32 operand: a rounded to nearest (ties away from zero)
+__device__ __forceinline__ unsigned tf32_rna(float a) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
 }
 
-// z = x[r0 : r0 + 16 TM, :] @ w[:, v0 : v0 + BV] over all of H.  Thread
-// (ty, tx) = (tid / 16, tid % 16) owns rows ty TM .. ty TM + TM - 1 and
-// columns tx 4 .. tx 4 + 3 of the tile.  Ends with a __syncthreads().
-template <int TM>
-__device__ __forceinline__ void logits_tile(const float* __restrict__ x,
-                                            const float* __restrict__ w, int R,
-                                            int H, int V, int r0, int v0,
-                                            float (*xs)[16 * TM + PAD],
-                                            float (*ws)[BV], float (&z)[TM][4]) {
-  constexpr int BR = 16 * TM;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) z[i][j] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += BK) {
-    for (int i = tid; i < BR * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK;  // neighbouring threads: neighbouring k
-      const int gr = r0 + r, gk = k0 + c;
-      xs[c][r] = (gr < R && gk < H) ? x[static_cast<long>(gr) * H + gk] : 0.f;
+struct Split {
+  unsigned big, small;
+};
+
+// a = big + small (the mask keeps big's value exactly its 19 TF32 bits)
+__device__ __forceinline__ Split split(float a) {
+  Split s;
+  s.big = tf32_rna(a);
+  s.small = tf32_rna(a - __uint_as_float(s.big & 0xffffe000u));
+  return s;
+}
+
+// two neighbouring floats of shared memory, split
+__device__ __forceinline__ void split2(const float* p, Split& lo, Split& hi) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  lo = split(v.x);
+  hi = split(v.y);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], unsigned a0, unsigned a1,
+                                         unsigned a2, unsigned a3, unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: small*big, big*small, big*big, in that order.
+// A fragment (m16 x k8): a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4),
+// a[3] (g + 8, t + 4); B fragment (k8 x n8): b[0] (t, g), b[1] (t + 4, g);
+// D: d[0..1] (g, 2t..2t+1), d[2..3] (g + 8, 2t..2t+1); g = lane / 4, t = lane % 4.
+// In the logits and in dx's g @ w^T, fragment k t is depth 2t and k t + 4
+// depth 2t + 1 of the 8-deep step (the same permutation on both sides), so
+// a[0] and a[2] are neighbours in shared memory and load as one float2.
+__device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4],
+                                     const Split (&b)[2]) {
+  mma_tf32(d, a[0].small, a[1].small, a[2].small, a[3].small, b[0].big, b[1].big);
+  mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b[0].small, b[1].small);
+  mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b[0].big, b[1].big);
+}
+
+// ---- cp.async staging ---------------------------------------------------------
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n groups are pending (n = stages - 2: 0, 1 or 2)
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy src[r0 + i, c0 + j] (row stride ld, bounds rows < nr, cols < nc) for
+// i < rows, j < cols into dst[i * cols + (j ^ sw(i))]; out of bounds
+// zero-fills.  vec: 16-byte copies (ld, c0 and nc multiples of 4 and src
+// 16-byte aligned, so a 4-group is wholly in or out).  Inlined with a
+// constant `cols` where the tile fixes it.
+template <int SW>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
+                                     int rows, int cols, long ld, int r0, int c0,
+                                     int nr, int nc, bool vec) {
+  if (vec) {
+    const int G = cols / 4;
+    for (int i = threadIdx.x; i < rows * G; i += kThreads) {
+      const int r = i / G, c = (i % G) * 4;
+      const bool in = r0 + r < nr && c0 + c < nc;
+      cp_async16(dst + r * cols + (c ^ swizzle<SW>(r)),
+                 in ? src + (r0 + r) * ld + c0 + c : src, in);
     }
-    for (int i = tid; i < BK * BV; i += kThreads) {
-      const int r = i / BV, c = i % BV;  // neighbouring threads: neighbouring v
-      const int gk = k0 + r, gv = v0 + c;
-      ws[r][c] = (gk < H && gv < V) ? w[static_cast<long>(gk) * V + gv] : 0.f;
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i % cols;
+      const bool in = r0 + r < nr && c0 + c < nc;
+      cp_async4(dst + r * cols + (c ^ swizzle<SW>(r)),
+                in ? src + (r0 + r) * ld + c0 + c : src, in);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM];
-      if (TM == 4) {
-        const float4 av = *reinterpret_cast<const float4*>(&xs[kk][ty * TM]);
-        a[0] = av.x; a[1] = av.y; a[2 % TM] = av.z; a[3 % TM] = av.w;
-      } else {
-        const float2 av = *reinterpret_cast<const float2*>(&xs[kk][ty * TM]);
-        a[0] = av.x; a[1 % TM] = av.y;
-      }
-      const float4 bv = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) z[i][j] = fmaf(a[i], b[j], z[i][j]);
-    }
-    __syncthreads();
   }
+}
+
+// A ring of `slots` stage buffers, filled in order by `feed(slot)` (which
+// stages the next step and advances itself) `ahead` stages ahead of their
+// use and consumed in the same order.  consume() waits for the oldest
+// stage, meets the block at one barrier and feeds stage q + ahead into slot
+// (q + ahead) % slots, whose last stage q + ahead - slots the block is done
+// with: the one before (slots = ahead + 1), or a tile's whole set of
+// stages, kept for a second product (slots = stages a tile + ahead).
+struct Ring {
+  float* base;
+  int stage_floats, slots, ahead, left;  // left: stages still to feed
+  int read = 0, write = 0;
+
+  __device__ __forceinline__ int next(int i) const { return i + 1 == slots ? 0 : i + 1; }
+  __device__ __forceinline__ const float* slot(int i) const {
+    return base + i * stage_floats;
+  }
+  template <class Feed>
+  __device__ __forceinline__ void feed_one(Feed& feed) {
+    if (left > 0) {
+      feed(base + write * stage_floats);
+      --left;
+    }
+    write = next(write);
+    cp_async_commit();
+  }
+  template <class Feed>
+  __device__ __forceinline__ void prologue(Feed& feed) {
+    for (int i = 0; i < ahead; ++i) feed_one(feed);
+  }
+  template <class Feed>
+  __device__ __forceinline__ const float* consume(Feed& feed) {
+    cp_async_wait(ahead - 1);
+    __syncthreads();
+    feed_one(feed);
+    const float* s = base + read * stage_floats;
+    read = next(read);
+    return s;
+  }
+};
+
+// ---- the logits tile ------------------------------------------------------------
+// A [64, 64] logits tile is computed by warp pairs: warp (q, kh) = (warp % 4,
+// warp / 4) accumulates the 32 x 32 quadrant q (rows 32 (q / 2) .., columns
+// 32 (q % 2) ..) over the even (kh 0) or odd (kh 1) k-steps of each stage; the two
+// halves are added (kh 0 + kh 1) through shared memory.  After that a
+// thread holds z[j][e] of row 32 (q / 2) + 16 kh + g + 8 (e / 2) and column
+// 32 (q % 2) + 8 j + 2 t + e % 2.
+__device__ __forceinline__ int z_row(int i) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return ((warp & 3) >> 1) * 32 + (warp >> 2) * 16 + (lane >> 2) + 8 * i;
+}
+__device__ __forceinline__ int z_col(int j) {  // + e
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp & 1) * 32 + j * 8 + 2 * (lane & 3);
+}
+
+// acc += this warp's k-half of x_stage @ w_stage over one KC-deep stage
+// (k-steps kh, kh + 2, ..); xs: x [BR][KC] of rows xstride apart (swz of
+// the row), ws: w [KC][BV] (swz_w)
+__device__ __forceinline__ void logits_stage(const float* xs, int xstride,
+                                             const float* ws,
+                                             float (&acc)[2][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q = warp & 3, kh = warp >> 2;
+  const int rb = (q >> 1) * 32 + g;
+  const int sr = swz(rb);  // the same for rb + 8, + 16, + 24
+  const int cb = (q & 1) * 32 + g;
+#pragma unroll
+  for (int ks = 0; ks < KC / 16; ++ks) {
+    const int kk = (2 * ks + kh) * 8;
+    Split a[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = rb + 16 * mi;
+      split2(xs + r * xstride + ((kk + 2 * t) ^ sr), a[mi][0], a[mi][2]);
+      split2(xs + (r + 8) * xstride + ((kk + 2 * t) ^ sr), a[mi][1], a[mi][3]);
+    }
+    const int s0 = swz_w(kk + 2 * t), s1 = swz_w(kk + 2 * t + 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int v = cb + 8 * j;
+      Split b[2];
+      b[0] = split(ws[(kk + 2 * t) * BV + (v ^ s0)]);
+      b[1] = split(ws[(kk + 2 * t + 1) * BV + (v ^ s1)]);
+      mma3(acc[0][j], a[0], b);
+      mma3(acc[1][j], a[1], b);
+    }
+  }
+}
+
+// a warp's k-half partial into a partial buffer [kh][q][mi][j][lane][4]
+// (2 kTile floats)
+__device__ __forceinline__ void put_half(const float (&acc)[2][4][4], float* buf) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int base = ((warp >> 2) * 4 + (warp & 3)) * 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(buf + (((base + mi) * 4 + j) * 32 + lane) * 4) =
+          make_float4(acc[mi][j][0], acc[mi][j][1], acc[mi][j][2], acc[mi][j][3]);
+}
+
+// this thread's 16 logits of a partial buffer (local or a peer's): kh 0 + kh 1
+__device__ __forceinline__ void get_sum(const float* buf, float (&z)[4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = warp & 3, mi = warp >> 2;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 a = *reinterpret_cast<const float4*>(
+        buf + ((((0 * 4 + q) * 2 + mi) * 4 + j) * 32 + lane) * 4);
+    const float4 b = *reinterpret_cast<const float4*>(
+        buf + ((((1 * 4 + q) * 2 + mi) * 4 + j) * 32 + lane) * 4);
+    z[j][0] = a.x + b.x; z[j][1] = a.y + b.y; z[j][2] = a.z + b.z; z[j][3] = a.w + b.w;
+  }
+}
+
+// the logits stages of one slice: [h_begin, min(h_begin + HS, H)) in
+// KC-deep steps (the last one masked at the slice's end)
+__device__ __forceinline__ int slice_stages(int h_begin, int H, int HS) {
+  return (min(HS, H - h_begin) + KC - 1) / KC;
+}
+
+// stage a logits step: x[r0 .., h0 ..] and w[h0 .., v0 ..], zero from h_end
+// (the slice's end) on
+__device__ __forceinline__ void stage_logits(float* slot, const float* __restrict__ x,
+                                             const float* __restrict__ w, int R,
+                                             int H, int V, int r0, int h0, int h_end,
+                                             int v0, bool xvec, bool wvec) {
+  stage<kSwz>(slot, x, BR, KC, H, r0, h0, R, h_end, xvec);
+  stage<kSwzW>(slot + BR * KC, w, KC, BV, V, h0, v0, h_end, V, wvec);
 }
 
 // d loss / d z at one logits element (valid column), times dy
@@ -149,73 +387,201 @@ __device__ __forceinline__ bool row_valid(const float* __restrict__ vld,
   return vld != nullptr ? vld[gr] != 0.f : (lbl >= 0 && lbl < V);
 }
 
+// The cluster's z, as a reduce-scatter and a gather: every block puts its
+// two k-halves in part [2 kTile]; after a cluster barrier block c adds, for
+// the float4s of the tile it owns (a 1/n share, owner(f) = f n / 1024), the
+// n slices' partials in slice order, each its kh 0 + kh 1, into zs [kTile];
+// after a second barrier every thread reads its 16 logits from their
+// owners.  All blocks hold the same z, each having read ~48 KB of its
+// peers' shared memory whatever n.
+__device__ __forceinline__ void cluster_sum(const float (&acc)[2][4][4], float* part,
+                                            float* zs, int n,
+                                            cg::cluster_group& cluster,
+                                            float (&z)[4][4]) {
+  constexpr int F = kTile / 4;  // float4s of a tile
+  put_half(acc, part);
+  cluster.sync();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int hi = ((c + 1) * F + n - 1) / n;
+  for (int f = (c * F + n - 1) / n + threadIdx.x; f < hi; f += kThreads) {
+    float4 sum;
+    for (int r = 0; r < n; ++r) {
+      const float4* p = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r));
+      const float4 a = p[f], b = p[F + f];
+      const float4 sl = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+      if (r == 0) {
+        sum = sl;
+      } else {
+        sum.x += sl.x; sum.y += sl.y; sum.z += sl.z; sum.w += sl.w;
+      }
+    }
+    reinterpret_cast<float4*>(zs)[f] = sum;
+  }
+  cluster.sync();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int f = ((((warp & 3) * 2 + (warp >> 2)) * 4 + j) * 32 + lane);
+    const float4 v = reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(zs, (f * n) / F))[f];
+    z[j][0] = v.x; z[j][1] = v.y; z[j][2] = v.z; z[j][3] = v.w;
+  }
+}
+
+// g of this thread's logits (rows r0 + z_row, columns v0 + z_col) into gs
+// [BR][BV] (swizzled); rows >= R and columns >= V give 0
+__device__ __forceinline__ void store_grad(const float (&z)[4][4], float* gs,
+                                           const long long (&lbl)[2], const float (&rl)[2],
+                                           const float (&rdy)[2], const bool (&rok)[2],
+                                           const bool (&rvalid)[2], int v0, int V,
+                                           float eps, float inv_v) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = z_row(i);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = z_col(j);
+      float out[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gv = v0 + c + e;
+        out[e] = (rok[i] && gv < V)
+                     ? grad_elem(z[j][2 * i + e], rl[i], rdy[i], rvalid[i],
+                                 gv == lbl[i], eps, inv_v)
+                     : 0.f;
+      }
+      *reinterpret_cast<float2*>(gs + r * BV + (c ^ swz(r))) = make_float2(out[0], out[1]);
+    }
+  }
+}
+
+// ---- forward: one block per (row tile, vocab split) -----------------------------
 // per-split partials: part[(split * 4 + q) * R + row], q = max, sum of
 // exponentials, gold logit, logit sum
-__global__ void __launch_bounds__(kThreads) lxent_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, 1) lxent_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const long long* __restrict__ labels, float* __restrict__ part, int R,
-    int H, int V, int tiles_per_split) {
-  constexpr int TM = 4, BR = 64;
-  __shared__ __align__(16) float xs[BK][BR + PAD];
-  __shared__ __align__(16) float ws[BK][BV];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+    int H, int V, int HS, int stages, int stage_floats, int tiles_per_split,
+    bool xvec, bool wvec) {
+  extern __shared__ __align__(16) float smem[];
+  float* xch = smem + stages * stage_floats;  // [2][2 kTile]: the k-halves
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int t = lane & 3;
   const int r0 = blockIdx.x * BR;
   const int n_vt = (V + BV - 1) / BV;
   const int t_begin = blockIdx.y * tiles_per_split;
   const int t_end = min(n_vt, t_begin + tiles_per_split);
-  long long lbl[TM];
-  float m[TM], l[TM], gold[TM], zsum[TM];
+  int steps = 0;  // logits stages a tile, over all slices
+  for (int h0 = 0; h0 < H; h0 += HS) steps += slice_stages(h0, H, HS);
+  Ring ring{smem, stage_floats, stages, stages - 1, (t_end - t_begin) * steps};
+  int f_tile = t_begin, f_slice = 0, f_h = 0;  // the next stage to feed
+  auto feed = [&](float* slot) {
+    const int h_end = min(H, f_slice + HS);
+    stage_logits(slot, x, w, R, H, V, r0, f_h, h_end, f_tile * BV, xvec, wvec);
+    f_h += KC;
+    if (f_h >= h_end) {
+      f_slice += HS;
+      if (f_slice >= H) {
+        f_slice = 0;
+        ++f_tile;
+      }
+      f_h = f_slice;
+    }
+  };
+  long long lbl[2];
+  float m[2], l[2], gold[2], zsum[2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = r0 + ty * TM + i;
+  for (int i = 0; i < 2; ++i) {
+    const int gr = r0 + z_row(i);
     lbl[i] = gr < R ? labels[gr] : -1;
     m[i] = ptt::kNegInf;
     l[i] = gold[i] = zsum[i] = 0.f;
   }
-  for (int t = t_begin; t < t_end; ++t) {
-    const int v0 = t * BV;
-    float z[TM][4];
-    logits_tile<TM>(x, w, R, H, V, r0, v0, xs, ws, z);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float tmax = ptt::kNegInf, tz = 0.f, tg = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gv = v0 + tx * 4 + j;
-        if (gv < V) {
-          tmax = fmaxf(tmax, z[i][j]);
-          tz += z[i][j];
-          if (gv == lbl[i]) tg += z[i][j];
-        }
+  ring.prologue(feed);
+  int buf = 0;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int v0 = tile * BV;
+    float z[4][4] = {};
+    for (int h0 = 0; h0 < H; h0 += HS) {  // the slices, in order
+      float acc[2][4][4] = {};
+      const int n_st = slice_stages(h0, H, HS);
+      for (int s = 0; s < n_st; ++s) {
+        const float* st = ring.consume(feed);
+        logits_stage(st, KC, st + BR * KC, acc);
       }
-      tmax = group16_max(tmax);
+      float* xb = xch + buf * 2 * kTile;
+      put_half(acc, xb);
+      __syncthreads();
+      float sl[4][4];
+      get_sum(xb, sl);
+      buf ^= 1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) z[j][e] = h0 == 0 ? sl[j][e] : z[j][e] + sl[j][e];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float tmax = ptt::kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int gv = v0 + z_col(j) + e;
+          const float zv = z[j][2 * i + e];
+          if (gv < V) {
+            tmax = fmaxf(tmax, zv);
+            zsum[i] += zv;
+            if (gv == lbl[i]) gold[i] += zv;
+          }
+        }
       const float m_new = fmaxf(m[i], tmax);
       float ts = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (v0 + tx * 4 + j < V) ts += expf(z[i][j] - m_new);
-      }
-      ts = group16_sum(ts);
-      tz = group16_sum(tz);
-      tg = group16_sum(tg);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (v0 + z_col(j) + e < V) ts += expf(z[j][2 * i + e] - m_new);
+        }
       l[i] = l[i] * expf(m[i] - m_new) + ts;
       m[i] = m_new;
-      gold[i] += tg;
-      zsum[i] += tz;
     }
   }
-  if (tx == 0) {
+  // merge a row's statistics over the 4 lanes of a quad, then over the
+  // two column quadrants, in a fixed order
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gr = r0 + ty * TM + i;
-      if (gr >= R) continue;
-      const long base = static_cast<long>(blockIdx.y) * 4 * R + gr;
-      part[base] = m[i];
-      part[base + R] = l[i];
-      part[base + 2L * R] = gold[i];
-      part[base + 3L * R] = zsum[i];
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
+      const float mn = fmaxf(m[i], mo);
+      l[i] = l[i] * expf(m[i] - mn) + lo * expf(mo - mn);
+      m[i] = mn;
+      gold[i] += __shfl_xor_sync(0xffffffffu, gold[i], off);
+      zsum[i] += __shfl_xor_sync(0xffffffffu, zsum[i], off);
     }
+  }
+  cp_async_wait(0);
+  __syncthreads();  // the ring's last readers are done; reuse it
+  float* stat = smem;  // [2 column quadrants][BR rows][4]
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* s = stat + (((tid >> 5) & 1) * BR + z_row(i)) * 4;
+      s[0] = m[i]; s[1] = l[i]; s[2] = gold[i]; s[3] = zsum[i];
+    }
+  }
+  __syncthreads();
+  if (tid < BR && r0 + tid < R) {
+    const float* a = stat + tid * 4;
+    const float* b = stat + (BR + tid) * 4;
+    const float mn = fmaxf(a[0], b[0]);
+    const long base = static_cast<long>(blockIdx.y) * 4 * R + r0 + tid;
+    part[base] = mn;
+    part[base + R] = a[1] * expf(a[0] - mn) + b[1] * expf(b[0] - mn);
+    part[base + 2L * R] = a[2] + b[2];
+    part[base + 3L * R] = a[3] + b[3];
   }
 }
 
@@ -267,509 +633,536 @@ __global__ void lxent_parts_combine(const float* __restrict__ part,
   sum_out[r] = zsum;
 }
 
+// ---- dx: a cluster of n blocks along H per 64-row tile ---------------------------
+// Block c owns dx[r0 .. r0 + 64, c HS .. (c + 1) HS).  Per vocab tile: the
+// slice's logits stages, the cluster sum, g into gs, then acc += g @ w^T
+// over the tile's 64 vocab columns, 16 at a time.  Warp (wr, wc) = (warp /
+// 4, warp % 4) owns rows 32 wr .. and columns (SW / 4) wc .. of the
+// block's [64, SW] columns of this pass: NJ n8 tiles (SW / 32 used).
+// - NJ 8 (HS <= 256, every shape up to H 2048): one pass, SW = HS; the
+//   block's x [64, HS] stays in shared memory, and the ring's stages are
+//   the tile's w chunks [KC, 64], kept until the product has read them (w^T
+//   from the same tiles), so each operand crosses from L2 once a tile.
+// - NJ 24 (wider slices): passes of SW <= kSubHS columns; a stage holds x
+//   and w chunks, and the product stages w^T [SW, 16] again.
 // vld: nullptr (unsharded) or the row validity [R] (sharded); VT: the
-// smoothing denominator (V unsharded, the whole vocab sharded)
-__global__ void __launch_bounds__(kThreads) lxent_dx_kernel(
+// smoothing denominator (V unsharded, the whole vocab sharded).
+template <int NJ>
+__global__ void __launch_bounds__(kThreads, 1) lxent_dx_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const long long* __restrict__ labels, const float* __restrict__ vld,
     const float* __restrict__ lse, const float* __restrict__ dy,
-    float* __restrict__ dx, int R, int H, int V, int VT, float eps) {
-  constexpr int TM = 2, BR = 32;
-  __shared__ __align__(16) float xs[BK][BR + PAD];
-  __shared__ __align__(16) float ws[BK][BV];
-  __shared__ __align__(16) float gs[BV][BR + PAD];  // g tile, gs[v][r]
-  __shared__ __align__(16) float wt[BK][HS + PAD];  // w^T chunk, wt[v][h]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // logits tile layout
-  const int rg = tid / 32, hg = tid % 32;  // dx tile: rows rg 4 .., h hg 4 .. and 128 + hg 4 ..
-  const int r0 = blockIdx.x * BR;
-  const int h0 = blockIdx.y * HS;
-  const float inv_v = 1.f / static_cast<float>(VT);
-  long long lbl[TM];
-  float rl[TM], rdy[TM];
-  bool rvalid[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = r0 + ty * TM + i;
-    lbl[i] = gr < R ? labels[gr] : -1;
-    rl[i] = gr < R ? lse[gr] : 0.f;
-    rdy[i] = gr < R ? dy[gr] : 0.f;
-    rvalid[i] = gr < R && row_valid(vld, gr, lbl[i], V);
-  }
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const int n_vt = (V + BV - 1) / BV;
-  for (int t = 0; t < n_vt; ++t) {
-    const int v0 = t * BV;
-    float z[TM][4];
-    logits_tile<TM>(x, w, R, H, V, r0, v0, xs, ws, z);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gv = v0 + tx * 4 + j;
-        gs[tx * 4 + j][ty * TM + i] =
-            gv < V ? grad_elem(z[i][j], rl[i], rdy[i], rvalid[i], gv == lbl[i], eps, inv_v)
-                   : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int c0 = 0; c0 < BV; c0 += BK) {
-      for (int i = tid; i < BK * HS; i += kThreads) {
-        const int h = i / BK, c = i % BK;  // neighbouring threads: neighbouring v
-        const int gh = h0 + h, gv = v0 + c0 + c;
-        wt[c][h] = (gh < H && gv < V) ? w[static_cast<long>(gh) * V + gv] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&gs[c0 + kk][rg * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&wt[kk][hg * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&wt[kk][128 + hg * 4]);
-        const float a[4] = {av.x, av.y, av.z, av.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = r0 + rg * 4 + i;
-    if (gr >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gh = h0 + (j < 4 ? hg * 4 + j : 128 + hg * 4 + (j - 4));
-      if (gh < H) dx[static_cast<long>(gr) * H + gh] = acc[i][j];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) lxent_dw_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const long long* __restrict__ labels, const float* __restrict__ vld,
-    const float* __restrict__ lse, const float* __restrict__ dy,
-    float* __restrict__ dw, int R, int H, int V, int VT, float eps) {
-  constexpr int TM = 2, BR = 32;
-  __shared__ __align__(16) float xs[BK][BR + PAD];
-  __shared__ __align__(16) float ws[BK][BV];
-  __shared__ __align__(16) float gs[BR][BV + PAD];  // g tile, gs[r][v]
-  __shared__ __align__(16) float xt[BK][HS + PAD];  // x^T chunk, xt[r][h]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // logits tile layout
-  const int hg = tid / 8, vg = tid % 8;    // dw tile: h hg 4 .. and 128 + hg 4 .., v vg 4 .. and 32 + vg 4 ..
-  const int v0 = blockIdx.x * BV;
-  const int h0 = blockIdx.y * HS;
-  const float inv_v = 1.f / static_cast<float>(VT);
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const int n_rt = (R + BR - 1) / BR;
-  for (int rt = 0; rt < n_rt; ++rt) {
-    const int r0 = rt * BR;
-    float z[TM][4];
-    logits_tile<TM>(x, w, R, H, V, r0, v0, xs, ws, z);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gr = r0 + ty * TM + i;
-      const bool row = gr < R;  // the row tail gives zero
-      const long long lbl = row ? labels[gr] : -1;
-      const float rl = row ? lse[gr] : 0.f;
-      const float rdy = row ? dy[gr] : 0.f;
-      const bool valid = row && row_valid(vld, gr, lbl, V);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gv = v0 + tx * 4 + j;
-        gs[ty * TM + i][tx * 4 + j] =
-            (row && gv < V) ? grad_elem(z[i][j], rl, rdy, valid, gv == lbl, eps, inv_v)
-                            : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int c0 = 0; c0 < BR; c0 += BK) {
-      for (int i = tid; i < BK * HS; i += kThreads) {
-        const int c = i / HS, h = i % HS;  // neighbouring threads: neighbouring h
-        const int gr = r0 + c0 + c, gh = h0 + h;
-        xt[c][h] = (gr < R && gh < H) ? x[static_cast<long>(gr) * H + gh] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&xt[kk][hg * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&xt[kk][128 + hg * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&gs[c0 + kk][vg * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&gs[c0 + kk][32 + vg * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gh = h0 + (i < 4 ? hg * 4 + i : 128 + hg * 4 + (i - 4));
-    if (gh >= H) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gv = v0 + (j < 4 ? vg * 4 + j : 32 + vg * 4 + (j - 4));
-      if (gv < V) dw[static_cast<long>(gh) * V + gv] = acc[i][j];
-    }
-  }
-}
-
-// ---- backward with operands resident in shared memory (H <= kResidentH) ----
-// The kernels above stage 16-deep slices of x and w through shared memory
-// with two barriers per slice, and at 8 warps an SM each slice waits out a
-// round trip to L2.  Below, a block keeps its fixed operand (dx: the x row
-// tile; dw: the w vocab tile) in shared memory for its whole life and loads
-// the other one whole per tile, so the logits tile is computed with no
-// barrier inside the H loop; and each block owns all of H, so the logits
-// are recomputed once per (row tile, vocab tile) instead of once per H slice.
-
-constexpr int kResidentH = 512;
-
-// Bulk tile loads go through cp.async: every element's copy is in flight
-// at once, where a load-then-store loop keeps one a thread in flight.  A
-// masked element copies 0 bytes and zero-fills (its source pointer is
-// still a valid address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool pred) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// z[2][4] for rows ty 2 .. ty 2 + 1 and columns tx 4 .. tx 4 + 3 of a
-// [32, 64] tile: xs is x^T [H][32 + PAD], ws is w [H][64 + PAD]
-__device__ __forceinline__ void resident_logits_32x64(const float* xs,
-                                                      const float* ws, int H,
-                                                      int ty, int tx,
-                                                      float (&z)[2][4]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) z[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < H; ++k) {
-    const float2 a = *reinterpret_cast<const float2*>(&xs[k * (32 + PAD) + ty * 2]);
-    const float4 b = *reinterpret_cast<const float4*>(&ws[k * (BV + PAD) + tx * 4]);
-    const float av[2] = {a.x, a.y};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) z[i][j] = fmaf(av[i], bv[j], z[i][j]);
-  }
-}
-
-// x rows [r0, r0 + 32) into xs[k][r] (x^T), zeros past R; the caller
-// waits (cp_async_wait_all) and synchronizes before reading
-__device__ __forceinline__ void load_x_tile(const float* __restrict__ x,
-                                            float* xs, int R, int H, int r0) {
-  for (int i = threadIdx.x; i < 32 * H; i += kThreads) {
-    const int r = i / H, k = i % H;  // neighbouring threads: neighbouring k
-    const int gr = r0 + r;
-    cp_async4(&xs[k * (32 + PAD) + r],
-              x + (gr < R ? static_cast<long>(gr) * H + k : 0), gr < R);
-  }
-}
-
-// w[:, v0 : v0 + n] into ws[k][c] (row stride n + PAD), zeros past V
-__device__ __forceinline__ void load_w_tile(const float* __restrict__ w,
-                                            float* ws, int H, int V, int v0,
-                                            int n) {
-  for (int i = threadIdx.x; i < H * n; i += kThreads) {
-    const int k = i / n, c = i % n;  // neighbouring threads: neighbouring v
-    const int gv = v0 + c;
-    cp_async4(&ws[k * (n + PAD) + c],
-              w + (gv < V ? static_cast<long>(k) * V + gv : 0), gv < V);
-  }
-}
-
-// one block per 32-row tile, all of H: dx[r0:r0+32, :] = g @ w^T
-__global__ void __launch_bounds__(kThreads) lxent_dx_resident_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const long long* __restrict__ labels, const float* __restrict__ vld,
-    const float* __restrict__ lse, const float* __restrict__ dy,
-    float* __restrict__ dx, int R, int H, int V, int VT, float eps) {
+    float* __restrict__ dx, int R, int H, int V, int VT, float eps, int HS,
+    int n, int stages, int stage_floats, bool xvec, bool wvec) {
+  constexpr bool kRes = NJ * 32 <= kResHS;
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                          // [H][32 + PAD], x^T, resident
-  float* ws = xs + H * (32 + PAD);           // [H][64 + PAD], w vocab tile
-  float* gs = ws + H * (BV + PAD);           // [32][64 + PAD], g tile
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;    // logits tile layout
-  const int rg = tid / 32, lane = tid % 32;  // dx: rows rg 4 .., h = lane + 32 j
-  const int r0 = blockIdx.x * 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  float* xs = smem;                                     // [BR][HS] (kRes)
+  float* ring_base = xs + (kRes ? BR * HS : 0);
+  float* part = ring_base + stages * stage_floats;      // [2 kTile]: the k-halves
+  float* zs = part + 2 * kTile;                         // [kTile]: the owned share of z
+  float* gs = zs + kTile;                               // [BR][BV]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h0 = static_cast<int>(cluster.block_rank()) * HS;
+  const int h_end = min(H, h0 + HS);
+  const int r0 = blockIdx.y * BR;
+  const int n_vt = (V + BV - 1) / BV;
+  const int n_lg = slice_stages(h0, H, HS);
+  const int per_tile = kRes ? n_lg : n_lg + BV / KG;
+  const int passes = (HS + kSubHS - 1) / kSubHS;  // the same in every block
+  Ring ring{ring_base, stage_floats, stages, kRes ? stages - n_lg : stages - 1,
+            passes * n_vt * per_tile};
+  int f_pass = 0, f_tile = 0, f_step = 0;
+  auto feed = [&](float* slot) {
+    if (kRes)  // w[h0 + KC f_step .., v0 ..]
+      stage<kSwzW>(slot, w, KC, BV, V, h0 + f_step * KC, f_tile * BV, h_end,
+                             V, wvec);
+    else if (f_step < n_lg)
+      stage_logits(slot, x, w, R, H, V, r0, h0 + f_step * KC, h_end, f_tile * BV,
+                   xvec, wvec);
+    else  // w^T rows of the pass's columns, vocab columns v0 + KG (f_step - n_lg) ..
+      stage<kSwz16>(slot, w, min(kSubHS, HS - f_pass * kSubHS), KG, V,
+                              h0 + f_pass * kSubHS,
+                              f_tile * BV + (f_step - n_lg) * KG, H, V, wvec);
+    if (++f_step == per_tile) {
+      f_step = 0;
+      if (++f_tile == n_vt) {
+        f_tile = 0;
+        ++f_pass;
+      }
+    }
+  };
   const float inv_v = 1.f / static_cast<float>(VT);
   long long lbl[2];
   float rl[2], rdy[2];
-  bool rvalid[2];
+  bool rok[2], rvalid[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int gr = r0 + ty * 2 + i;
-    lbl[i] = gr < R ? labels[gr] : -1;
-    rl[i] = gr < R ? lse[gr] : 0.f;
-    rdy[i] = gr < R ? dy[gr] : 0.f;
-    rvalid[i] = gr < R && row_valid(vld, gr, lbl[i], V);
+    const int gr = r0 + z_row(i);
+    rok[i] = gr < R;
+    lbl[i] = rok[i] ? labels[gr] : -1;
+    rl[i] = rok[i] ? lse[gr] : 0.f;
+    rdy[i] = rok[i] ? dy[gr] : 0.f;
+    rvalid[i] = rok[i] && row_valid(vld, gr, lbl[i], V);
   }
-  load_x_tile(x, xs, R, H, r0);  // waited for with the first w tile
-  float acc[4][kResidentH / 32];
+  const int wr = warp >> 2, wc = warp & 3;
+  if (kRes) {  // the block's x rows, its slice: one group before the ring's
+    stage<kSwz>(xs, x, BR, HS, H, r0, h0, R, h_end, xvec);
+    cp_async_commit();
+  }
+  ring.prologue(feed);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int p0 = h0 + pass * kSubHS;               // the pass's first column
+    const int sw = min(kSubHS, HS - pass * kSubHS);  // and its width
+    const int nj = sw / 32;                          // n8 tiles a warp
+    const int hw = wc * (sw / 4);  // the warp's first column in the pass
+    float acc[2][NJ][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < kResidentH / 32; ++j) acc[i][j] = 0.f;
-  const int n_vt = (V + BV - 1) / BV;
-  for (int t = 0; t < n_vt; ++t) {
-    const int v0 = t * BV;
-    __syncthreads();  // the last tile's readers of ws and gs are done
-    load_w_tile(w, ws, H, V, v0, BV);
-    cp_async_wait_all();
-    __syncthreads();
-    float z[2][4];
-    resident_logits_32x64(xs, ws, H, ty, tx, z);
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float gv4[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gv = v0 + tx * 4 + j;
-        gv4[j] = gv < V ? grad_elem(z[i][j], rl[i], rdy[i], rvalid[i],
-                                    gv == lbl[i], eps, inv_v)
-                        : 0.f;
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int tile = 0; tile < n_vt; ++tile) {
+      const int first = ring.read;  // the slot of this tile's first stage
+      float lg[2][4][4] = {};
+      for (int s = 0; s < n_lg; ++s) {
+        const float* st = ring.consume(feed);
+        if (kRes)
+          logits_stage(xs + s * KC, HS, st, lg);
+        else
+          logits_stage(st, KC, st + BR * KC, lg);
       }
-      *reinterpret_cast<float4*>(&gs[(ty * 2 + i) * (BV + PAD) + tx * 4]) =
-          make_float4(gv4[0], gv4[1], gv4[2], gv4[3]);
-    }
-    __syncthreads();
-    // acc[i][j] += sum over the tile's v of g[rg 4 + i][v] w[lane + 32 j][v],
-    // v ascending
-    for (int c = 0; c < BV; c += 4) {
-      float4 a[4];
+      float z[4][4];
+      cluster_sum(lg, part, zs, n, cluster, z);
+      store_grad(z, gs, lbl, rl, rdy, rok, rvalid, tile * BV, V, eps, inv_v);
+      // gs is read after the next barrier: the resident form's own, the
+      // streaming form's next consume
+      if (kRes) __syncthreads();
+      for (int k = 0; k < BV / KG; ++k) {
+        // w^T: the resident form reads the tile's w chunk wc (the warp's
+        // HS / 4 = KC columns of the slice), the streaming form a w^T stage
+        const float* wt;
+        int wt_stride;
+        if (kRes) {
+          if (wc >= n_lg) break;  // past the slice's end: never stored
+          int sl = first + wc;
+          if (sl >= stages) sl -= stages;
+          wt = ring.slot(sl) + k * KG;
+          wt_stride = BV;
+        } else {
+          wt = ring.consume(feed);  // [SW][KG], swz16
+          wt_stride = KG;
+        }
+        Split a[KG / 8][2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&gs[(rg * 4 + i) * (BV + PAD) + c]);
+        for (int kk = 0; kk < KG / 8; ++kk) {
+          const int kv = k * KG + kk * 8;  // column of gs
 #pragma unroll
-      for (int j = 0; j < kResidentH / 32; ++j) {
-        const int h = lane + 32 * j;
-        if (h < H) {
-          const float4 b = *reinterpret_cast<const float4*>(&ws[h * (BV + PAD) + c]);
+          for (int i = 0; i < 2; ++i) {
+            const int r = wr * 32 + i * 16 + g;
+            const int sr = swz(r);
+            split2(gs + r * BV + ((kv + 2 * t) ^ sr), a[kk][i][0], a[kk][i][2]);
+            split2(gs + (r + 8) * BV + ((kv + 2 * t) ^ sr), a[kk][i][1], a[kk][i][3]);
+          }
+        }
+        // a 16-deep product starts from zero and is added to the running sum
+        // in float32: the mma's own accumulation rounds toward zero, and over
+        // all of V its bias grew to 2e-4 of dx at GPT-2's V
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float s = acc[i][j];
-            s = fmaf(a[i].x, b.x, s);
-            s = fmaf(a[i].y, b.y, s);
-            s = fmaf(a[i].z, b.z, s);
-            s = fmaf(a[i].w, b.w, s);
-            acc[i][j] = s;
+        for (int j = 0; j < NJ; ++j) {
+          if (j < nj) {
+            const int h = kRes ? j * 8 + g : hw + j * 8 + g;  // row of wt
+            const int sh = kRes ? swz_w(h) : swz16(h);
+            const int kb = kRes ? k * KG : 0;                 // wt's column base
+            float d[2][4] = {};
+#pragma unroll
+            for (int kk = 0; kk < KG / 8; ++kk) {
+              Split b[2];
+              split2(wt - kb + h * wt_stride + ((kb + kk * 8 + 2 * t) ^ sh), b[0], b[1]);
+              mma3(d[0], a[kk][0], b);
+              mma3(d[1], a[kk][1], b);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[0][j][e] += d[0][e];
+              acc[1][j][e] += d[1][e];
+            }
           }
         }
       }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = r0 + rg * 4 + i;
-    if (gr >= R) continue;
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < kResidentH / 32; ++j) {
-      const int h = lane + 32 * j;
-      if (h < H) dx[static_cast<long>(gr) * H + h] = acc[i][j];
-    }
+      for (int j = 0; j < NJ; ++j) {
+        if (j >= nj) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gr = r0 + wr * 32 + i * 16 + g + 8 * (e >> 1);
+          const int gh = p0 + hw + j * 8 + 2 * t + (e & 1);
+          if (gr < R && gh < H) dx[static_cast<long>(gr) * H + gh] = acc[i][j][e];
+        }
+      }
   }
+  cp_async_wait(0);
+  cluster.sync();  // no block leaves while a peer may read its part
 }
 
-constexpr int BVW = 32;  // vocab columns per dw block
-
-// one block per 32-column vocab tile, all of H: dw[:, v0:v0+32] = x^T @ g
-__global__ void __launch_bounds__(kThreads) lxent_dw_resident_kernel(
+// ---- dw: a cluster of n blocks along H per 64-column vocab tile ------------------
+// Block c owns dw[c HS .. (c + 1) HS, v0 .. v0 + 64).  Per row tile: the
+// slice's logits stages, the cluster sum, g into gs, then acc += x^T @ g
+// over the tile's 64 rows, 16 at a time.  Warp (wr, wc) = (warp / 4, warp %
+// 4) owns rows (SW / 2) wr .. and columns 16 wc .. of the block's [SW, 64]
+// rows of this pass: MI m16 tiles (SW / 32 used) x 2 n8 tiles.
+// - MI 8 (HS <= 256): one pass, SW = HS; the block's w [HS, 64] stays in
+//   shared memory, and the ring's stages are the tile's x chunks [64, KC],
+//   kept until the product has read them (x^T from the same tiles).
+// - MI 24 (wider slices): passes of SW <= kSubHS rows; a stage holds x and
+//   w chunks, and the product stages x [16, SW] again.
+template <int MI>
+__global__ void __launch_bounds__(kThreads, 1) lxent_dw_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const long long* __restrict__ labels, const float* __restrict__ vld,
     const float* __restrict__ lse, const float* __restrict__ dy,
-    float* __restrict__ dw, int R, int H, int V, int VT, float eps) {
+    float* __restrict__ dw, int R, int H, int V, int VT, float eps, int HS,
+    int n, int stages, int stage_floats, bool xvec, bool wvec) {
+  constexpr bool kRes = MI * 32 <= kResHS;
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                  // [H][32 + PAD], w vocab tile, resident
-  float* xbuf = ws + H * (BVW + PAD);  // 2 x [H][32 + PAD], x^T row tiles
-  float* gt = xbuf + 2 * H * (32 + PAD);  // [32 v][32 + PAD], g^T tile
-  const int tid = threadIdx.x;
-  const int tx = tid % 8, ty = tid / 8;        // logits: row ty, cols tx 4 ..
-  const int vg = tid / 64, hl = tid % 64;      // dw: v vg 8 .., h = hl + 64 j
-  const int v0 = blockIdx.x * BVW;
-  const float inv_v = 1.f / static_cast<float>(VT);
-  load_w_tile(w, ws, H, V, v0, BVW);  // waited for with the first x tile
-  load_x_tile(x, xbuf, R, H, 0);
-  float acc[kResidentH / 64][8];
-#pragma unroll
-  for (int j = 0; j < kResidentH / 64; ++j)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
-  const int n_rt = (R + 31) / 32;
-  for (int rt = 0; rt < n_rt; ++rt) {
-    const int r0 = rt * 32;
-    const float* xs = xbuf + (rt & 1) * H * (32 + PAD);
-    cp_async_wait_all();  // this row tile's x has landed
-    __syncthreads();      // ... for every thread; the last tile's readers are done
-    if (rt + 1 < n_rt)    // the next row tile's x lands while this one computes
-      load_x_tile(x, xbuf + ((rt + 1) & 1) * H * (32 + PAD), R, H, r0 + 32);
-    float z[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float a = xs[k * (32 + PAD) + ty];
-      const float4 b = *reinterpret_cast<const float4*>(&ws[k * (BVW + PAD) + tx * 4]);
-      z[0] = fmaf(a, b.x, z[0]);
-      z[1] = fmaf(a, b.y, z[1]);
-      z[2] = fmaf(a, b.z, z[2]);
-      z[3] = fmaf(a, b.w, z[3]);
-    }
-    {
-      const int gr = r0 + ty;
-      const bool row = gr < R;  // the row tail gives zero
-      const long long lbl = row ? labels[gr] : -1;
-      const float rl = row ? lse[gr] : 0.f;
-      const float rdy = row ? dy[gr] : 0.f;
-      const bool valid = row && row_valid(vld, gr, lbl, V);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gv = v0 + tx * 4 + j;
-        gt[(tx * 4 + j) * (32 + PAD) + ty] =
-            (row && gv < V) ? grad_elem(z[j], rl, rdy, valid, gv == lbl, eps, inv_v)
-                            : 0.f;
+  cg::cluster_group cluster = cg::this_cluster();
+  float* ws = smem;                                     // [HS][BV] (kRes)
+  float* ring_base = ws + (kRes ? HS * BV : 0);
+  float* part = ring_base + stages * stage_floats;      // [2 kTile]: the k-halves
+  float* zs = part + 2 * kTile;                         // [kTile]: the owned share of z
+  float* gs = zs + kTile;                               // [BR][BV]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h0 = static_cast<int>(cluster.block_rank()) * HS;
+  const int h_end = min(H, h0 + HS);
+  const int v0 = blockIdx.y * BV;
+  const int n_rt = (R + BR - 1) / BR;
+  const int n_lg = slice_stages(h0, H, HS);
+  const int per_tile = kRes ? n_lg : n_lg + BR / KG;
+  const int passes = (HS + kSubHS - 1) / kSubHS;  // the same in every block
+  Ring ring{ring_base, stage_floats, stages, kRes ? stages - n_lg : stages - 1,
+            passes * n_rt * per_tile};
+  int f_pass = 0, f_tile = 0, f_step = 0;
+  auto feed = [&](float* slot) {
+    if (kRes)  // x[r0 .., h0 + KC f_step ..]
+      stage<kSwz>(slot, x, BR, KC, H, f_tile * BR, h0 + f_step * KC, R, h_end,
+                            xvec);
+    else if (f_step < n_lg)
+      stage_logits(slot, x, w, R, H, V, f_tile * BR, h0 + f_step * KC, h_end, v0,
+                   xvec, wvec);
+    else  // x rows r0 + KG (f_step - n_lg) .., the pass's columns
+      stage<kSwz>(slot, x, KG, min(kSubHS, HS - f_pass * kSubHS), H,
+                  f_tile * BR + (f_step - n_lg) * KG, h0 + f_pass * kSubHS, R, H,
+                  xvec);
+    if (++f_step == per_tile) {
+      f_step = 0;
+      if (++f_tile == n_rt) {
+        f_tile = 0;
+        ++f_pass;
       }
     }
-    __syncthreads();
-    // acc[j][i] += sum over the tile's rows r of x[r][hl + 64 j] g[r][vg 8 + i],
-    // r ascending
-    for (int c = 0; c < 32; c += 4) {
-      float4 b[8];
+  };
+  const float inv_v = 1.f / static_cast<float>(VT);
+  const int wr = warp >> 2, wc = warp & 3;
+  if (kRes) {  // the block's w tile: one group before the ring's
+    stage<kSwzW>(ws, w, HS, BV, V, h0, v0, h_end, V, wvec);
+    cp_async_commit();
+  }
+  ring.prologue(feed);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int p0 = h0 + pass * kSubHS;               // the pass's first row
+    const int sw = min(kSubHS, HS - pass * kSubHS);  // and its height
+    const int mi = sw / 32;                          // m16 tiles a warp
+    const int hw = wr * (sw / 2);  // the warp's first row in the pass
+    float acc[MI][2][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        b[i] = *reinterpret_cast<const float4*>(&gt[(vg * 8 + i) * (32 + PAD) + c]);
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < kResidentH / 64; ++j) {
-        const int h = hl + 64 * j;
-        if (h < H) {
-          const float4 a = *reinterpret_cast<const float4*>(&xs[h * (32 + PAD) + c]);
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            float s = acc[j][i];
-            s = fmaf(a.x, b[i].x, s);
-            s = fmaf(a.y, b[i].y, s);
-            s = fmaf(a.z, b[i].z, s);
-            s = fmaf(a.w, b[i].w, s);
-            acc[j][i] = s;
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int tile = 0; tile < n_rt; ++tile) {
+      const int r0 = tile * BR;
+      const int first = ring.read;  // the slot of this tile's first stage
+      float lg[2][4][4] = {};
+      for (int s = 0; s < n_lg; ++s) {
+        const float* st = ring.consume(feed);
+        if (kRes)
+          logits_stage(st, KC, ws + s * KC * BV, lg);
+        else
+          logits_stage(st, KC, st + BR * KC, lg);
+      }
+      float z[4][4];
+      cluster_sum(lg, part, zs, n, cluster, z);
+      long long lbl[2];
+      float rl[2], rdy[2];
+      bool rok[2], rvalid[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the row tail gives zero
+        const int gr = r0 + z_row(i);
+        rok[i] = gr < R;
+        lbl[i] = rok[i] ? labels[gr] : -1;
+        rl[i] = rok[i] ? lse[gr] : 0.f;
+        rdy[i] = rok[i] ? dy[gr] : 0.f;
+        rvalid[i] = rok[i] && row_valid(vld, gr, lbl[i], V);
+      }
+      store_grad(z, gs, lbl, rl, rdy, rok, rvalid, v0, V, eps, inv_v);
+      if (kRes) __syncthreads();  // gs is read below
+      for (int k = 0; k < BR / KG; ++k) {
+        // x^T: the resident form reads the tile's x chunks (the chunk of
+        // column h at h / KC), the streaming form an x stage [KG][SW]
+        const float* xr = kRes ? nullptr : ring.consume(feed);
+        Split b[KG / 8][2][2];
+#pragma unroll
+        for (int kk = 0; kk < KG / 8; ++kk) {
+          const int kr = k * KG + kk * 8;  // row of gs
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int v = wc * 16 + j * 8 + g;
+            b[kk][j][0] = split(gs[(kr + t) * BV + (v ^ swz(kr + t))]);
+            b[kk][j][1] = split(gs[(kr + t + 4) * BV + (v ^ swz(kr + t + 4))]);
+          }
+        }
+        // a 16-deep product starts from zero and is added to the running sum
+        // in float32 (see dx)
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          if (i < mi) {
+            const int h = hw + i * 16 + g;  // column of x in the pass
+            const float* xa;  // x rows k KG .., columns h .. (and h + 8)
+            int xstride, hc, r_base;
+            if (kRes) {
+              int sl = first + (hw + i * 16) / KC;
+              if ((hw + i * 16) / KC >= n_lg) continue;  // past the slice's end
+              if (sl >= stages) sl -= stages;
+              xa = ring.slot(sl);
+              xstride = KC;
+              hc = h % KC;
+              r_base = k * KG;
+            } else {
+              xa = xr;
+              xstride = sw;
+              hc = h;
+              r_base = 0;
+            }
+            float d[2][4] = {};
+#pragma unroll
+            for (int kk = 0; kk < KG / 8; ++kk) {
+              const int ra = r_base + kk * 8 + t;
+              const int s0 = swz(ra), s1 = swz(ra + 4);
+              Split a[4];
+              a[0] = split(xa[ra * xstride + (hc ^ s0)]);
+              a[1] = split(xa[ra * xstride + ((hc + 8) ^ s0)]);
+              a[2] = split(xa[(ra + 4) * xstride + (hc ^ s1)]);
+              a[3] = split(xa[(ra + 4) * xstride + ((hc + 8) ^ s1)]);
+              mma3(d[0], a, b[kk][0]);
+              mma3(d[1], a, b[kk][1]);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[i][0][e] += d[0][e];
+              acc[i][1][e] += d[1][e];
+            }
           }
         }
       }
     }
-  }
 #pragma unroll
-  for (int j = 0; j < kResidentH / 64; ++j) {
-    const int h = hl + 64 * j;
-    if (h >= H) continue;
+    for (int i = 0; i < MI; ++i) {
+      if (i >= mi) continue;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int gv = v0 + vg * 8 + i;
-      if (gv < V) dw[static_cast<long>(h) * V + gv] = acc[j][i];
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gh = p0 + hw + i * 16 + g + 8 * (e >> 1);
+          const int gv = v0 + wc * 16 + j * 8 + 2 * t + (e & 1);
+          if (gh < H && gv < V) dw[static_cast<long>(gh) * V + gv] = acc[i][j][e];
+        }
     }
   }
+  cp_async_wait(0);
+  cluster.sync();  // no block leaves while a peer may read its part
 }
 
-size_t dx_resident_smem(int H) {
-  return sizeof(float) * (static_cast<size_t>(H) * (32 + PAD + BV + PAD) +
-                          32 * (BV + PAD));
+// ---- host side ---------------------------------------------------------------
+// the plan from linear_xent.py's lxent_plan; the tile is BR x BV
+struct Plan {
+  int HS, n, stages, smem;
+};
+
+// dx / dw: a ring stage is a w (dx) or x (dw) chunk [KC, 64] when the
+// slice's other operand stays resident (HS <= kResHS, which is then 256),
+// else x and w chunks or a product stage of one pass's columns x KG
+bool resident(int HS) { return HS <= kResHS; }
+
+int stage_floats(int HS) {
+  return resident(HS) ? KC * BV : max((BR + BV) * KC, KG * min(HS, kSubHS));
 }
 
-size_t dw_resident_smem(int H) {
-  return sizeof(float) * (static_cast<size_t>(H) * (BVW + PAD + 2 * (32 + PAD)) +
-                          BVW * (32 + PAD));
+// the bytes this file's layout takes for a plan, which the plan's smem must
+// cover: the resident operand, the ring, the two k-halves, the owned share
+// of z and the g tile
+size_t plan_smem(const Plan& p) {
+  return sizeof(float) * ((resident(p.HS) ? static_cast<size_t>(BR) * p.HS : 0) +
+                          static_cast<size_t>(p.stages) * stage_floats(p.HS) +
+                          4 * kTile);
 }
 
-// the forward's streaming pass over the vocab splits; returns the split
-// count used (every used split has a tile)
-int launch_fwd_parts(const float* x, const float* w, const long long* labels,
-                     float* workspace, int R, int H, int V, int splits,
-                     cudaStream_t stream) {
+// the forward's ring of (x, w) chunk pairs: as many as the plan's bytes hold
+// beside its two buffers of two k-halves, at most 4
+constexpr int kFwdStage = (BR + BV) * KC;
+int fwd_stages(const Plan& p) {
+  return min(4, (p.smem / static_cast<int>(sizeof(float)) - 4 * kTile) / kFwdStage);
+}
+
+// the plan checked against this file's layout and H: (n - 1) HS < H <= n HS
+bool plan_ok(const Plan& p, int H) {
+  const int n_lg = (p.HS + KC - 1) / KC;
+  return p.HS > 0 && p.HS % 32 == 0 &&
+         (!resident(p.HS) || p.HS == kResHS) && p.n >= 1 && p.n <= 8 &&
+         static_cast<long>(p.n - 1) * p.HS < H && H <= static_cast<long>(p.n) * p.HS &&
+         (resident(p.HS) ? p.stages >= n_lg + 2 : p.stages >= 3 && p.stages <= 4) &&
+         p.smem >= static_cast<int>(plan_smem(p)) && p.smem <= kSmemMax &&
+         fwd_stages(p) >= 3;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
+// the dynamic shared-memory limit is raised once per kernel, at its first
+// launch (outside any CUDA-graph capture in this package's use)
+template <class K>
+cudaError_t raise_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemMax);
+}
+
+// a cluster of p.n blocks along x over `tiles` blocks along y.  Whether the
+// card can place such a cluster is asked once per (kernel, n, smem).
+template <class K, class... Args>
+cudaError_t launch_cluster(K kernel, const Plan& p, int tiles, cudaStream_t stream,
+                           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.n, tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(p.smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  struct Checked {
+    const void* fn;
+    int n, smem;
+  };
+  static Checked checked[32];
+  static int n_checked = 0;
+  bool seen = false;
+  for (int i = 0; i < n_checked; ++i)
+    seen |= checked[i].fn == reinterpret_cast<const void*>(kernel) &&
+            checked[i].n == p.n && checked[i].smem == p.smem;
+  if (!seen) {
+    int clusters = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    if (n_checked < 32) checked[n_checked++] = {reinterpret_cast<const void*>(kernel), p.n, p.smem};
+  }
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// the forward's pass over the vocab splits; *used: the split count used
+// (every used split has a tile)
+cudaError_t launch_fwd_parts(const float* x, const float* w, const long long* labels,
+                             float* workspace, int R, int H, int V, int splits,
+                             const Plan& p, cudaStream_t stream, int* used) {
+  static const cudaError_t raised = raise_smem(lxent_fwd_kernel);
+  if (raised != cudaSuccess) return raised;
   const int n_vt = (V + BV - 1) / BV;
   const int per = (n_vt + splits - 1) / splits;  // tiles per split
-  const int used = (n_vt + per - 1) / per;
-  lxent_fwd_kernel<<<dim3((R + 63) / 64, used), kThreads, 0, stream>>>(
-      x, w, labels, workspace, R, H, V, per);
-  return used;
+  *used = (n_vt + per - 1) / per;
+  lxent_fwd_kernel<<<dim3((R + BR - 1) / BR, *used), kThreads, p.smem, stream>>>(
+      x, w, labels, workspace, R, H, V, p.HS, fwd_stages(p), kFwdStage, per,
+      (H % 4 == 0) && aligned16(x), (V % 4 == 0) && aligned16(w));
+  return cudaGetLastError();
 }
 
 int launch_dx(const float* x, const float* w, const long long* labels,
               const float* vld, const float* lse, const float* dy, float* dx,
-              int R, int H, int V, int VT, float eps, cudaStream_t stream) {
+              int R, int H, int V, int VT, float eps, const Plan& p,
+              cudaStream_t stream) {
   if (R == 0 || H == 0) return static_cast<int>(cudaSuccess);
-  if (V <= 0 || VT <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (H <= kResidentH) {
-    const size_t smem = dx_resident_smem(H);
-    // the dynamic shared-memory limit is raised once, at the first launch
-    // (outside any CUDA-graph capture in this package's use)
-    static const cudaError_t raised = cudaFuncSetAttribute(
-        lxent_dx_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dx_resident_smem(kResidentH)));
+  if (V <= 0 || VT <= 0 || !plan_ok(p, H)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool xvec = (H % 4 == 0) && aligned16(x), wvec = (V % 4 == 0) && aligned16(w);
+  const int tiles = (R + BR - 1) / BR;
+  cudaError_t e;
+  if (p.HS <= 256) {
+    static const cudaError_t raised = raise_smem(lxent_dx_kernel<8>);
     if (raised != cudaSuccess) return static_cast<int>(raised);
-    lxent_dx_resident_kernel<<<(R + 31) / 32, kThreads, smem, stream>>>(
-        x, w, labels, vld, lse, dy, dx, R, H, V, VT, eps);
+    e = launch_cluster(lxent_dx_kernel<8>, p, tiles, stream, x, w, labels, vld, lse,
+                       dy, dx, R, H, V, VT, eps, p.HS, p.n, p.stages,
+                       stage_floats(p.HS), xvec, wvec);
   } else {
-    lxent_dx_kernel<<<dim3((R + 31) / 32, (H + HS - 1) / HS), kThreads, 0, stream>>>(
-        x, w, labels, vld, lse, dy, dx, R, H, V, VT, eps);
+    static const cudaError_t raised = raise_smem(lxent_dx_kernel<kSubHS / 32>);
+    if (raised != cudaSuccess) return static_cast<int>(raised);
+    e = launch_cluster(lxent_dx_kernel<kSubHS / 32>, p, tiles, stream, x, w, labels,
+                       vld, lse, dy, dx, R, H, V, VT, eps, p.HS, p.n, p.stages,
+                       stage_floats(p.HS), xvec, wvec);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 int launch_dw(const float* x, const float* w, const long long* labels,
               const float* vld, const float* lse, const float* dy, float* dw,
-              int R, int H, int V, int VT, float eps, cudaStream_t stream) {
+              int R, int H, int V, int VT, float eps, const Plan& p,
+              cudaStream_t stream) {
   if (H == 0 || V == 0) return static_cast<int>(cudaSuccess);
-  if (VT <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (VT <= 0 || !plan_ok(p, H)) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaMemsetAsync(
       dw, 0, sizeof(float) * static_cast<size_t>(H) * V, stream));
-  if (H <= kResidentH) {
-    const size_t smem = dw_resident_smem(H);
-    // the dynamic shared-memory limit is raised once, at the first launch
-    // (outside any CUDA-graph capture in this package's use)
-    static const cudaError_t raised = cudaFuncSetAttribute(
-        lxent_dw_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dw_resident_smem(kResidentH)));
+  const bool xvec = (H % 4 == 0) && aligned16(x), wvec = (V % 4 == 0) && aligned16(w);
+  const int tiles = (V + BV - 1) / BV;
+  cudaError_t e;
+  if (p.HS <= 256) {
+    static const cudaError_t raised = raise_smem(lxent_dw_kernel<8>);
     if (raised != cudaSuccess) return static_cast<int>(raised);
-    lxent_dw_resident_kernel<<<(V + BVW - 1) / BVW, kThreads, smem, stream>>>(
-        x, w, labels, vld, lse, dy, dw, R, H, V, VT, eps);
+    e = launch_cluster(lxent_dw_kernel<8>, p, tiles, stream, x, w, labels, vld, lse,
+                       dy, dw, R, H, V, VT, eps, p.HS, p.n, p.stages,
+                       stage_floats(p.HS), xvec, wvec);
   } else {
-    lxent_dw_kernel<<<dim3((V + BV - 1) / BV, (H + HS - 1) / HS), kThreads, 0, stream>>>(
-        x, w, labels, vld, lse, dy, dw, R, H, V, VT, eps);
+    static const cudaError_t raised = raise_smem(lxent_dw_kernel<kSubHS / 32>);
+    if (raised != cudaSuccess) return static_cast<int>(raised);
+    e = launch_cluster(lxent_dw_kernel<kSubHS / 32>, p, tiles, stream, x, w, labels,
+                       vld, lse, dy, dw, R, H, V, VT, eps, p.HS, p.n, p.stages,
+                       stage_floats(p.HS), xvec, wvec);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
-// workspace: [splits, 4, R] floats
+// workspace: [splits, 4, R] floats; (hs, nsl, stages, smem): the plan
 extern "C" int ptt_linear_xent_fwd(const float* x, const float* w,
                                    const long long* labels, float* loss,
                                    float* lse, float* workspace, int R, int H,
-                                   int V, int splits, float eps,
+                                   int V, int splits, int hs, int nsl, int stages,
+                                   int smem, float eps,
                                    cudaStream_t stream) {
   if (R == 0) return static_cast<int>(cudaSuccess);
-  if (H <= 0 || V <= 0 || splits <= 0 || workspace == nullptr)
+  const Plan p{hs, nsl, stages, smem};
+  if (H <= 0 || V <= 0 || splits <= 0 || workspace == nullptr || !plan_ok(p, H))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int used = launch_fwd_parts(x, w, labels, workspace, R, H, V, splits, stream);
+  int used = 0;
+  const cudaError_t e = launch_fwd_parts(x, w, labels, workspace, R, H, V, splits, p,
+                                         stream, &used);
+  if (e != cudaSuccess) return static_cast<int>(e);
   lxent_fwd_combine<<<(R + 255) / 256, 256, 0, stream>>>(workspace, labels, loss,
                                                           lse, R, V, used, eps);
   return static_cast<int>(cudaGetLastError());
@@ -778,15 +1171,21 @@ extern "C" int ptt_linear_xent_fwd(const float* x, const float* w,
 extern "C" int ptt_linear_xent_dx(const float* x, const float* w,
                                   const long long* labels, const float* lse,
                                   const float* dy, float* dx, int R, int H,
-                                  int V, float eps, cudaStream_t stream) {
-  return launch_dx(x, w, labels, nullptr, lse, dy, dx, R, H, V, V, eps, stream);
+                                  int V, int hs, int nsl, int stages,
+                                  int smem, float eps,
+                                  cudaStream_t stream) {
+  return launch_dx(x, w, labels, nullptr, lse, dy, dx, R, H, V, V, eps,
+                   Plan{hs, nsl, stages, smem}, stream);
 }
 
 extern "C" int ptt_linear_xent_dw(const float* x, const float* w,
                                   const long long* labels, const float* lse,
                                   const float* dy, float* dw, int R, int H,
-                                  int V, float eps, cudaStream_t stream) {
-  return launch_dw(x, w, labels, nullptr, lse, dy, dw, R, H, V, V, eps, stream);
+                                  int V, int hs, int nsl, int stages,
+                                  int smem, float eps,
+                                  cudaStream_t stream) {
+  return launch_dw(x, w, labels, nullptr, lse, dy, dw, R, H, V, V, eps,
+                   Plan{hs, nsl, stages, smem}, stream);
 }
 
 // one vocab shard's parts: w is the [H, V] slab, labels local; lse, gold
@@ -794,12 +1193,17 @@ extern "C" int ptt_linear_xent_dw(const float* x, const float* w,
 extern "C" int ptt_linear_xent_parts(const float* x, const float* w,
                                      const long long* labels, float* lse,
                                      float* gold, float* sum, float* workspace,
-                                     int R, int H, int V, int splits,
+                                     int R, int H, int V, int splits, int hs,
+                                     int nsl, int stages, int smem,
                                      cudaStream_t stream) {
   if (R == 0) return static_cast<int>(cudaSuccess);
-  if (H <= 0 || V <= 0 || splits <= 0 || workspace == nullptr)
+  const Plan p{hs, nsl, stages, smem};
+  if (H <= 0 || V <= 0 || splits <= 0 || workspace == nullptr || !plan_ok(p, H))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int used = launch_fwd_parts(x, w, labels, workspace, R, H, V, splits, stream);
+  int used = 0;
+  const cudaError_t e = launch_fwd_parts(x, w, labels, workspace, R, H, V, splits, p,
+                                         stream, &used);
+  if (e != cudaSuccess) return static_cast<int>(e);
   lxent_parts_combine<<<(R + 255) / 256, 256, 0, stream>>>(workspace, lse, gold,
                                                             sum, R, used);
   return static_cast<int>(cudaGetLastError());
@@ -811,20 +1215,24 @@ extern "C" int ptt_linear_xent_dx_sharded(const float* x, const float* w,
                                           const long long* labels,
                                           const float* valid, const float* lse,
                                           const float* dy, float* dx, int R,
-                                          int H, int V, int vocab_total,
-                                          float eps, cudaStream_t stream) {
+                                          int H, int V, int vocab_total, int hs,
+                                          int nsl, int stages, int smem,
+                                          float eps,
+                                          cudaStream_t stream) {
   if (valid == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_dx(x, w, labels, valid, lse, dy, dx, R, H, V, vocab_total, eps,
-                   stream);
+                   Plan{hs, nsl, stages, smem}, stream);
 }
 
 extern "C" int ptt_linear_xent_dw_sharded(const float* x, const float* w,
                                           const long long* labels,
                                           const float* valid, const float* lse,
                                           const float* dy, float* dw, int R,
-                                          int H, int V, int vocab_total,
-                                          float eps, cudaStream_t stream) {
+                                          int H, int V, int vocab_total, int hs,
+                                          int nsl, int stages, int smem,
+                                          float eps,
+                                          cudaStream_t stream) {
   if (valid == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_dw(x, w, labels, valid, lse, dy, dw, R, H, V, vocab_total, eps,
-                   stream);
+                   Plan{hs, nsl, stages, smem}, stream);
 }

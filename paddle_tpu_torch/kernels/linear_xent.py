@@ -28,12 +28,15 @@ launches dx and dw, so the op's grad lowering (``torch.func.vjp`` of
 the forward rule) runs the kernels.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from . import build
 
 __all__ = ["fused_linear_xent", "linear_xent_plain", "linear_xent_grad_plain",
-           "linear_xent_fwd", "linear_xent_dx", "linear_xent_dw"]
+           "linear_xent_fwd", "linear_xent_dx", "linear_xent_dw", "lxent_plan",
+           "LxentPlan"]
 
 
 def _valid(labels, v):
@@ -96,6 +99,50 @@ def fwd_splits(R, V):
     return max(1, min(vocab_tiles, -(-256 // row_tiles)))
 
 
+SMEM_MAX = 232448  # dynamic shared memory a block can have on the H100
+SUB_SLICE = 768    # the widest pass a dx / dw block's registers hold
+
+
+class LxentPlan(NamedTuple):
+    """How ``csrc/linear_xent.cu`` cuts a shape into its 64 x 64 logits
+    tiles; the C entry points take these four ints in this order.  hs: the
+    H slice; n: slices (dx / dw cluster size); stages: the cp.async ring's
+    depth; smem: dynamic shared-memory bytes a block."""
+    hs: int
+    n: int
+    stages: int
+    smem: int
+
+
+def lxent_plan(R, H, V):
+    """The kernels' plan for x [R, H] @ w [H, V], from H alone, so a
+    shape always sums in one order: H in slices of 256 while that takes
+    at most 8 (the portable cluster size), else 8 slices of
+    round_up(ceil(H / 8), 32).  Each logit is the sum, in slice order, of
+    per-slice 3xTF32 partials over 64-deep steps.  A 256 slice keeps dx's
+    x rows ([64, 256]) or dw's w columns ([256, 64]) resident, and the
+    ring holds the tile's 4 chunks [64, 64] of the other operand (read
+    again by the product) and 2 ahead; a wider slice streams 3 or 4
+    stages of x and w chunks or of 16 x min(hs, 768), and a slice wider
+    than 768 (H > 6144) is done in passes of 768.  The forward's ring of
+    (x, w) chunk pairs takes as many as smem holds, at most 4."""
+    if min(R, H, V) < 0:
+        raise ValueError("lxent_plan: shape R %d, H %d, V %d" % (R, H, V))
+    n = max(1, -(-H // 256))
+    hs = 256
+    if n > 8:
+        n = 8
+        hs = -(-H // (8 * 32)) * 32  # round_up(ceil(H / 8), 32)
+    tile = 64 * 64
+    fixed = 4 * 4 * tile  # two k-half partials, a share of z, the g tile
+    if hs == 256:
+        stages = hs // 64 + 2
+        return LxentPlan(hs, n, stages, 4 * (64 * hs + stages * tile) + fixed)
+    stage = 4 * max(2 * 64 * 64, 16 * min(hs, SUB_SLICE))
+    stages = min(4, (SMEM_MAX - fixed) // stage)
+    return LxentPlan(hs, n, stages, stages * stage + fixed)
+
+
 def linear_xent_fwd(x2d, w, labels, eps=0.0):
     """Forward kernel: (loss [R, 1], lse [R, 1])."""
     if not build.use_kernel(x2d):
@@ -108,7 +155,7 @@ def linear_xent_fwd(x2d, w, labels, eps=0.0):
     lse = torch.empty((R, 1), dtype=torch.float32, device=x2d.device)
     part = torch.empty((splits, 4, R), dtype=torch.float32, device=x2d.device)
     build.launch("ptt_linear_xent_fwd", x2d, w, labels, loss, lse, part, R, H,
-                 V, splits, float(eps))
+                 V, splits, *lxent_plan(R, H, V), float(eps))
     linear_xent_fwd.launches += 1
     return loss, lse
 
@@ -121,7 +168,7 @@ def linear_xent_dx(x2d, w, labels, lse, dy, eps=0.0):
     R, H = x2d.shape
     dx = torch.empty_like(x2d)
     build.launch("ptt_linear_xent_dx", x2d, w, labels, lse, dy, dx, R, H,
-                 w.shape[1], float(eps))
+                 w.shape[1], *lxent_plan(R, H, w.shape[1]), float(eps))
     linear_xent_dx.launches += 1
     return dx
 
@@ -134,7 +181,7 @@ def linear_xent_dw(x2d, w, labels, lse, dy, eps=0.0):
     R, H = x2d.shape
     dw = torch.empty_like(w)
     build.launch("ptt_linear_xent_dw", x2d, w, labels, lse, dy, dw, R, H,
-                 w.shape[1], float(eps))
+                 w.shape[1], *lxent_plan(R, H, w.shape[1]), float(eps))
     linear_xent_dw.launches += 1
     return dw
 

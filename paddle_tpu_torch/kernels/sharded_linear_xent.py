@@ -40,7 +40,7 @@ import torch
 
 from ..parallel import collective
 from . import build
-from .linear_xent import _check, fwd_splits
+from .linear_xent import _check, fwd_splits, lxent_plan
 
 __all__ = ["sharded_linear_xent", "linear_xent_parts",
            "linear_xent_dx_sharded", "linear_xent_dw_sharded",
@@ -90,7 +90,7 @@ def linear_xent_parts(x2d, w_local, lbl_local):
            for _ in range(3)]
     part = torch.empty((splits, 4, R), dtype=torch.float32, device=x2d.device)
     build.launch("ptt_linear_xent_parts", x2d, w_local, lbl_local, *out, part,
-                 R, H, V, splits)
+                 R, H, V, splits, *lxent_plan(R, H, V))
     linear_xent_parts.launches += 1
     return tuple(out)
 
@@ -116,7 +116,7 @@ def linear_xent_dx_sharded(x2d, w_local, lbl_local, valid, lse, dy, eps,
     dx = torch.empty_like(x2d)
     build.launch("ptt_linear_xent_dx_sharded", x2d, w_local, lbl_local, valid,
                  lse, dy, dx, R, H, w_local.shape[1], int(vocab_total),
-                 float(eps))
+                 *lxent_plan(R, H, w_local.shape[1]), float(eps))
     linear_xent_dx_sharded.launches += 1
     return dx
 
@@ -133,7 +133,7 @@ def linear_xent_dw_sharded(x2d, w_local, lbl_local, valid, lse, dy, eps,
     dw = torch.empty_like(w_local)
     build.launch("ptt_linear_xent_dw_sharded", x2d, w_local, lbl_local, valid,
                  lse, dy, dw, R, H, w_local.shape[1], int(vocab_total),
-                 float(eps))
+                 *lxent_plan(R, H, w_local.shape[1]), float(eps))
     linear_xent_dw_sharded.launches += 1
     return dw
 

@@ -341,6 +341,112 @@ def test_linear_xent_matches_reference_kernel(R, H, V, eps):
     np.testing.assert_array_equal(gdw.numpy(), dw.numpy())
 
 
+# the training paths' (R, H, V): WMT, GPT-2, TinyLlama widths, BERT's MLM
+# head, and B12's slabs (WMT on mp 2, TinyLlama widths on mp 4)
+LXENT_PATH_SHAPES = [(4096, 512, 10000), (8192, 768, 50257),
+                     (4096, 2048, 32000), (4096, 768, 30522),
+                     (4096, 512, 5000), (4096, 2048, 8000)]
+
+
+@pytest.mark.parametrize("R,H,V", [(64, h, 1000) for h in (
+    8, 24, 256, 512, 600, 768, 776, 2048, 4096, 5000, 6144, 6145, 8192,
+    65536)] + LXENT_PATH_SHAPES)
+def test_lxent_plan_cuts_h_into_a_cluster(R, H, V):
+    """The linear cross-entropy kernels' plan: n slices of HS (a cluster
+    of n blocks along H in dx / dw), n <= 8 (the portable cluster size),
+    (n - 1) HS < H <= n HS (no slice empty), HS a multiple of the mma
+    depth 8 and of a 16-byte copy's 4 floats, 256 while n <= 8; a ring of
+    at least 3 stages in at most 232,448 bytes, which also hold the
+    forward's ring of at least 3 (x, w) chunk pairs beside its four 64 x
+    64 buffers; the same plan again.  Any H has a plan: a slice wider
+    than a block's registers hold is done in passes."""
+    from paddle_tpu_torch.kernels.linear_xent import lxent_plan
+
+    p = lxent_plan(R, H, V)
+    assert 1 <= p.n <= 8
+    assert (p.n - 1) * p.hs < H <= p.n * p.hs
+    assert p.hs % 8 == 0 and p.hs % 4 == 0 and p.hs % 32 == 0
+    assert p.hs == 256 or (p.n == 8 and H > 2048)
+    assert p.stages >= 3
+    assert p.smem <= 232448
+    assert (p.smem // 4 - 4 * 64 * 64) // (2 * 64 * 64) >= 3
+    assert lxent_plan(R, H, V) == p
+
+
+def _tf32_rna(a):
+    """float32 -> TF32 (10 explicit mantissa bits) rounded to nearest,
+    ties away from zero, as cvt.rna.tf32.f32: add half of the 13 dropped
+    bits' unit to the magnitude's bit pattern, then clear them."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("K", [768, 2048])
+def test_3xtf32_split_holds_float32_accuracy(K):
+    """Why the kernels split each operand: one TF32 product (operands
+    rounded to TF32, products exact, float32 sums) is off by >= 1e-4 of
+    the largest logit against float64, which fails the card's 1e-4 and
+    the port's 1e-5 parity; big*big + big*small + small*big, with
+    big = tf32(a) and small = tf32(a - big), holds 1e-5."""
+    rng = np.random.RandomState(40 + K)
+    x = rng.randn(64, K).astype("float32")
+    w = (rng.randn(K, 64) * K ** -0.5).astype("float32")
+    ref = x.astype("float64") @ w.astype("float64")
+    xt, wt = _t(x), _t(w)
+    xb, wb = _tf32_rna(xt), _tf32_rna(wt)
+    xs, ws = _tf32_rna(xt - xb), _tf32_rna(wt - wb)
+    assert torch.equal(xb + (xt - xb), xt)  # the split is exact before rounding
+    one = (xb @ wb).double().numpy()
+    three = (xs @ wb + xb @ ws + xb @ wb).double().numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(one - ref).max() / scale >= 1e-4
+    assert np.abs(three - ref).max() / scale <= 1e-5
+
+
+def test_linear_xent_launches_pass_the_plan(monkeypatch):
+    """Each linear cross-entropy entry point (B4's forward, dx, dw; B12's
+    parts, dx, dw) is handed lxent_plan's four ints, in the order
+    build.SIGNATURES declares: after the shape ints, before eps (or the
+    stream, for parts)."""
+    import importlib
+
+    from paddle_tpu_torch.kernels.linear_xent import fwd_splits, lxent_plan
+
+    slx = importlib.import_module(
+        "paddle_tpu_torch.kernels.sharded_linear_xent")
+    R, H, V, VT = 20, 776, 33, 99
+    rng = np.random.RandomState(41)
+    x = _t(rng.randn(R, H).astype("float32"))
+    w = _t(rng.randn(H, V).astype("float32"))
+    lbl = _t(rng.randint(0, V, (R,)).astype("int64"))
+    row = torch.ones(R, 1)
+    calls = []
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    linear_xent_fwd(x, w, lbl, 0.1)
+    linear_xent_dx(x, w, lbl, row, row, 0.1)
+    linear_xent_dw(x, w, lbl, row, row, 0.1)
+    slx.linear_xent_parts(x, w, lbl)
+    slx.linear_xent_dx_sharded(x, w, lbl, row.reshape(-1), row, row, 0.1, VT)
+    slx.linear_xent_dw_sharded(x, w, lbl, row.reshape(-1), row, row, 0.1, VT)
+    plan = tuple(lxent_plan(R, H, V))
+    assert plan[:2] == (256, 4)
+    shape_ints = {"ptt_linear_xent_fwd": (R, H, V, fwd_splits(R, V)),
+                  "ptt_linear_xent_dx": (R, H, V),
+                  "ptt_linear_xent_dw": (R, H, V),
+                  "ptt_linear_xent_parts": (R, H, V, fwd_splits(R, V)),
+                  "ptt_linear_xent_dx_sharded": (R, H, V, VT),
+                  "ptt_linear_xent_dw_sharded": (R, H, V, VT)}
+    assert [name for name, _ in calls] == list(shape_ints)
+    for name, args in calls:
+        sig = build.SIGNATURES[name]
+        assert len(args) + 1 == len(sig), name  # launch appends the stream
+        ints = [i for i, kind in enumerate(sig[:-1]) if kind is build._I]
+        assert tuple(args[i] for i in ints) == shape_ints[name] + plan, name
+        assert ints[-1] == len(args) - 1 - (sig[-2] is build._F), name
+
+
 # ---------------------------------------------------------------------------
 # the dense backward of the PR 1 kernels, through torch.func.vjp
 # ---------------------------------------------------------------------------

@@ -348,10 +348,11 @@ def test_packed_training_matches_reference_over_adam_steps(monkeypatch,
 
 
 def test_packed_example_main_learns_the_successor_rule():
-    """The port example's main(): 24 seeded ragged sequences, 60 Adam
-    steps on the CPU, the masked loss below half its first value (it
-    asserts so itself)."""
-    losses = _example("packed_training_torch").main()
+    """The port example's main() on the CPU place it is handed: 24
+    seeded ragged sequences, 60 Adam steps, the masked loss below half
+    its first value (it asserts so itself)."""
+    example = _example("packed_training_torch")
+    losses = example.main(place=ptt.CPUPlace())
     assert len(losses) == 60 and losses[-1] < 0.5 * losses[0]
 
 
