@@ -337,6 +337,12 @@ def _bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _bound_3xtf32_ms(nbytes, flops):
+    """The bound with the FLOPs at the 3xTF32 rate (three TF32 products
+    per float32 product), for the kernels that run on the tensor cores."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / TF32X3_FLOPS_PER_S) * 1e3
+
+
 def check_kernels(dev):
     """Each kernel against its plain version at the path's shapes and
     ragged ones; returns {name: record} with error and times."""
@@ -352,6 +358,7 @@ def check_kernels(dev):
         matmul_bias_act,
         matmul_bias_act_plain,
     )
+    from paddle_tpu_torch.kernels.matmul_epilogue import mm_plan
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -419,20 +426,25 @@ def check_kernels(dev):
     mark("fused_add_layer_norm")
 
     # ---- matmul_bias_act: unit-scale outputs (w ~ N(0, 1/K)) ----------
+    _print_ptxas("matmul_bias_act.cu", ("mm_",))
     err = 0.0
     cases = [(rows, d_model, d_ff, "gelu"), (rows, d_ff, d_model, ""),
              (100, d_model, d_ff, "gelu")]
     cases += [(37, 100, 70, a) for a in MM_ACTS]
-    # split-K with a ragged last slice (K = 1000, 1600: 2 and 3 slices)
+    # K slices with a ragged last one (K = 1000, 1600: 3 and 6 slices)
     cases += [(37, 1000, 70, "gelu"), (45, 1600, 90, "swish")]
-    # the training step's FFN: K = 2048 runs slices of 768, 768 and 512
+    # the skinny form's edges (M 1 and 16), the tiled form's first row
+    # count (M 17), a skinny ragged N, and M 4 at K 3072 (8 K slices)
+    cases += [(1, d_model, d_ff, "gelu"), (16, d_model, d_ff, "gelu"),
+              (17, d_model, d_ff, "gelu"), (16, 1000, 333, "swish"),
+              (4, d_ff, d_model, "")]
+    # the training step's FFN (WMT, K 512 and 2048)
     cases += [(TRAIN_ROWS, HP_D_MODEL, 4 * HP_D_MODEL, "relu"),
               (TRAIN_ROWS, 4 * HP_D_MODEL, HP_D_MODEL, "")]
-    # the GPT-2 training step's FFN: K = 3072 runs four slices of 768
+    # the GPT-2 training step's FFN (K 768 and 3072)
     cases += [(GPT2_ROWS, GPT2_D, 4 * GPT2_D, "gelu"),
               (GPT2_ROWS, 4 * GPT2_D, GPT2_D, "")]
-    # the TinyLlama steps' ffn_out: K = 5632 runs seven slices of 768 and a
-    # ragged last one of 256
+    # the TinyLlama steps' ffn_out (K 5632: the serving step's in 6 slices)
     cases += [(LLAMA_ROWS, LLAMA_FF, LLAMA_D, ""), (rows, LLAMA_FF, LLAMA_D, "")]
     # the BERT step's FFN (relu), MLM transform (gelu), pooler (tanh) and
     # NSP head (N = 2)
@@ -456,6 +468,8 @@ def check_kernels(dev):
             out = matmul_bias_act(xm, wm, bias, act)
             ref = matmul_bias_act_plain(xm, wm, bias, act)
             err = max(err, (out - ref).abs().max().item())
+            assert torch.equal(out, matmul_bias_act(xm, wm, bias, act)), (
+                "matmul_bias_act rerun", m, k, n, act)
     assert err <= 1e-4, ("matmul_bias_act disagrees", err)
     times = {}
     for tag, (m, k, n, act) in (
@@ -481,7 +495,10 @@ def check_kernels(dev):
             ms=_time_ms(lambda: matmul_bias_act(xm, wm, bm, act), inner=inner),
             plain_ms=_time_ms(lambda: matmul_bias_act_plain(xm, wm, bm, act),
                               inner=inner),
-            library_ms=_time_ms(lib, inner=inner), bound_ms=b, bound_by=fl)
+            library_ms=_time_ms(lib, inner=inner), bound_ms=b, bound_by=fl,
+            bound_ms_3xtf32=_bound_3xtf32_ms(4 * (m * k + k * n + n + m * n),
+                                             2 * m * k * n),
+            plan=list(mm_plan(m, n, k)))
         print("matmul_bias_act %s [%d, %d] @ [%d, %d] %s: %s" % (
             tag, m, k, k, n, act or "identity", json.dumps(times[tag])))
     # each shape launches once per layer and step: the line reports the
@@ -494,7 +511,7 @@ def check_kernels(dev):
                   rows, d_model, d_model, d_ff, rows, d_ff, d_ff, d_model),
         max_abs_err=err, bound_by=times["ffn_in"]["bound_by"],
         per_shape=times)
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_3xtf32"):
         rec["matmul_bias_act"][key] = (
             times["ffn_in"][key] + times["ffn_out"][key]) / 2
 
@@ -585,19 +602,24 @@ def check_matmul_swiglu(randn):
     """matmul_swiglu against its plain version at the TinyLlama paths'
     shapes (training x [4096, 2048], serving x [128, 2048], one-token
     decode x [2, 2048], chunked prefill x [256, 2048], all against wg/wu
-    [2048, 5632]) and a ragged one ([200, 1000] @ [1000, 333]);
-    limit 1e-4 of the plain output's largest magnitude.  Timed beside the
-    plain version and the library's two matmuls + silu(g) * u."""
+    [2048, 5632]), a ragged one ([200, 1000] @ [1000, 333]) and the
+    plan's edges (the skinny form at M 1 and 16 and at M 2 with N 333,
+    the tiled form at M 17); limit 1e-4 of the plain output's largest
+    magnitude, every rerun bit-equal.  Timed beside the plain version and
+    the library's two matmuls + silu(g) * u."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import matmul_swiglu, matmul_swiglu_plain
+    from paddle_tpu_torch.kernels.matmul_epilogue import mm_plan
 
     shapes = (("train", LLAMA_ROWS, LLAMA_D, LLAMA_FF),
               ("serve", N_SLOTS * WIDTH, LLAMA_D, LLAMA_FF),
               ("ragged", 200, 1000, 333)) + tuple(
                   (tag, r, h, LLAMA_FF) for tag, r, h in DECODE_ROWS
-                  if h == LLAMA_D)
+                  if h == LLAMA_D) + (
+                  ("edge", 1, LLAMA_D, LLAMA_FF), ("edge", 16, LLAMA_D, LLAMA_FF),
+                  ("edge", 17, LLAMA_D, LLAMA_FF), ("edge", 2, LLAMA_D, 333))
     err = err_abs = 0.0
     times = {}
     for tag, m, k, n in shapes:
@@ -608,17 +630,22 @@ def check_matmul_swiglu(randn):
         diff = (out - ref).abs().max()
         err = max(err, (diff / ref.abs().max()).item())
         err_abs = max(err_abs, diff.item())
-        if tag == "ragged":
+        assert torch.equal(out, matmul_swiglu(x, wg, wu)), (
+            "matmul_swiglu rerun", m, k, n)
+        if tag in ("ragged", "edge"):
             continue
         inner = 5 if tag == "train" else 20  # ~10 ms a call in training
-        b, fl = _bound_ms(4 * (m * k + 2 * k * n + m * n), 4 * m * k * n)
+        nbytes, flops = 4 * (m * k + 2 * k * n + m * n), 4 * m * k * n
+        b, fl = _bound_ms(nbytes, flops)
         times["%s [%d, %d] @ [%d, %d]" % (tag, m, k, k, n)] = dict(
             ms=_time_ms(lambda: matmul_swiglu(x, wg, wu), inner=inner),
             plain_ms=_time_ms(lambda: matmul_swiglu_plain(x, wg, wu),
                               inner=inner),
             library_ms=_time_ms(lambda: F.silu(torch.matmul(x, wg))
                                 * torch.matmul(x, wu), inner=inner),
-            bound_ms=b, bound_by=fl)
+            bound_ms=b, bound_by=fl,
+            bound_ms_3xtf32=_bound_3xtf32_ms(nbytes, flops),
+            plan=list(mm_plan(m, n, k, gated=True)))
     assert err <= 1e-4, ("matmul_swiglu disagrees", err)
     torch.cuda.synchronize()
     head = times["train [%d, %d] @ [%d, %d]" % (LLAMA_ROWS, LLAMA_D, LLAMA_D,

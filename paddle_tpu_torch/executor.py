@@ -1,7 +1,8 @@
 """User-facing Executor (the counterpart of ``paddle_tpu/executor.py``).
 
-``Executor(place).run(program, feed={...}, fetch_list=[...], scope,
-return_numpy)`` keeps the reference's contract.  Feeds go onto the
+``Executor(place).run(program, feed={...}, fetch_list=[...],
+feed_var_name, fetch_var_name, scope, return_numpy, use_program_cache)``
+keeps the reference's contract and order.  Feeds go onto the
 executor's device, the block runs eagerly through the PyTorch
 lowerings (``core/trace.py``), updated persistables go back into the
 scope, and fetches come back as numpy arrays.
@@ -55,6 +56,10 @@ def _kind(dtype_str):
 
 
 def as_numpy(t):
+    """Fetch result -> numpy; lists and tuples map element by element, as
+    the reference's as_numpy does."""
+    if isinstance(t, (list, tuple)):
+        return [as_numpy(v) for v in t]
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
 
 
@@ -205,8 +210,13 @@ class Executor:
                     "this rank's slab %s" % (name, shape, sl.full_shape,
                                              sl.shape))
 
-    def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name="feed", fetch_var_name="fetch", scope=None,
+            return_numpy=True, use_program_cache=True):
+        """The reference's signature and order.  feed_var_name,
+        fetch_var_name and use_program_cache change nothing here: feeds
+        and fetches go by name, and plans are always cached per (program
+        version, feeds, fetches, scope)."""
         if program is None:
             program = framework.default_main_program()
         if scope is None:

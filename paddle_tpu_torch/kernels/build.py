@@ -41,8 +41,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point's argument types, in order; the stream is last
 SIGNATURES = {
     "ptt_add_layer_norm": (_P,) * 8 + (_I, _I, _F, _P),
-    "ptt_matmul_bias_act": (_P,) * 5 + (_I,) * 5 + (_P,),
-    "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 3 + (_P,),
+    # the shape ints (and the activation), then the plan's five (form,
+    # bm, bn, slices, k_slice: matmul_epilogue.mm_plan)
+    "ptt_matmul_bias_act": (_P,) * 4 + (_I,) * 9 + (_P,),
+    "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 8 + (_P,),
     "ptt_flash_attention_qvec": (_P,) * 8 + (_I,) * 5 + (_F, _P),
     # the linear cross entropy's shape ints, then its plan's four (hs, n,
     # stages, smem: linear_xent.lxent_plan)

@@ -15,20 +15,105 @@ The JAX package has no backward kernel for it either.
 """
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
-__all__ = ["matmul_bias_act", "matmul_bias_act_plain", "mm_act", "MM_ACTS"]
+__all__ = ["matmul_bias_act", "matmul_bias_act_plain", "mm_act", "MM_ACTS",
+           "mm_plan", "MmPlan"]
 
 # the epilogue activations, in the kernel's enum order ("" is identity)
 MM_ACTS = ("", "identity", "relu", "tanh", "sigmoid", "gelu", "swish")
 _ACT_CODE = {"": 0, "identity": 0, "relu": 1, "tanh": 2, "sigmoid": 3,
              "gelu": 4, "swish": 5}
-# the kernel's fixed split-K: K is cut into slices of this many (a
-# multiple of the kernel's 16-deep k step), summed in slice order
-K_SLICE = 768
+
+SMS = 132          # streaming multiprocessors of the H100 SXM: one wave
+TILED, SKINNY = 0, 1
+SKINNY_ROWS = 16   # the skinny form's most rows
+K_STEP = 32        # a K slice is a multiple of the kernels' 32-deep stage
+MIN_SLICE = 256    # the shallowest K slice a plan cuts
+MAX_SLICES = 8     # a cluster along K: the portable cluster size
+BLOCK_K = 128      # a block's fixed cost (its ring's fill, the cluster's
+                   # sum) in k of its slice, as the plan counts it
+# the tiled form's block tiles: rows, columns (of each product), blocks an
+# SM holds at once, and the tile's rate an SM relative to the large one's
+# in percent; large first: matmul_bias_act's and matmul_swiglu's
+TILES = {False: ((128, 128, 1, 100), (64, 64, 2, 68)),
+         True: ((128, 64, 1, 100), (64, 64, 2, 68))}
+# blocks the H100 SXM holds at once in clusters of 1..8 along K, with one
+# or two blocks an SM (cudaOccupancyMaxActiveClusters): a cluster lives in
+# one GPC, so sizes that do not divide a GPC's SMs leave SMs idle
+CLUSTER_BLOCKS = {1: (132, 132, 117, 120, 110, 102, 105, 120),
+                  2: (264, 264, 237, 248, 235, 234, 224, 240)}
+SKINNY_COLS = (128, 64, 32)  # the skinny form's column strips, wide first
+
+
+class MmPlan(NamedTuple):
+    """How ``csrc/matmul_bias_act.cu`` cuts [M, K] @ [K, N]; the C entry
+    points take these five ints in this order.  form: TILED (3xTF32
+    tensor-core tiles) or SKINNY (M <= 16: FP32 FMAs over column strips);
+    bm, bn: the block's rows (SKINNY: M rounded up to a power of two) and
+    columns; slices: K slices, a cluster of blocks along K summed through
+    distributed shared memory in slice order; k_slice: the depth of each
+    slice (the last one ragged)."""
+    form: int
+    bm: int
+    bn: int
+    slices: int
+    k_slice: int
+
+
+def _cut_k(K, want):
+    """(slices, k_slice): at most `want` and MAX_SLICES slices, each at
+    least MIN_SLICE deep (but one), k_slice a multiple of K_STEP, every
+    slice nonempty."""
+    most = max(1, min(want, MAX_SLICES, K // MIN_SLICE))
+    per = -(-K // most)
+    k_slice = max(K_STEP, -(-per // K_STEP) * K_STEP)
+    return max(1, -(-K // k_slice)), k_slice
+
+
+def mm_plan(M, N, K, gated=False):
+    """The kernels' plan for x [M, K] @ w [K, N] (gated: matmul_swiglu's
+    wg and wu), a pure function of the shape, so a shape always sums in
+    one order.  M <= 16 takes the skinny form: the widest column strip
+    whose blocks, with K slices, reach two per SM.  Otherwise the tiled
+    form: of every tile and K cut, the one whose blocks take the least
+    time, counted in whole waves of the clusters the card holds at once
+    (CLUSTER_BLOCKS), a wave's time the tile's area x (k_slice + BLOCK_K)
+    x blocks an SM / the tile's rate: a partial last wave costs a whole
+    one, so the cut fills the card where the shape allows.  Ties go to
+    the large tile and to fewer slices."""
+    if min(M, N, K) < 0:
+        raise ValueError("mm_plan: shape M %d, N %d, K %d" % (M, N, K))
+    if M <= SKINNY_ROWS:
+        rows = 1 << max(0, M - 1).bit_length()
+        for bn in SKINNY_COLS:
+            strips = -(-N // bn)
+            slices, k_slice = _cut_k(K, -(-2 * SMS // max(1, strips)))
+            if strips * slices >= 2 * SMS:
+                break
+        return MmPlan(SKINNY, rows, bn, slices, k_slice)
+    best = None
+    for bm, bn, per_sm, rate in TILES[bool(gated)]:
+        tiles = -(-M // bm) * -(-N // bn)
+        for want in range(1, MAX_SLICES + 1):
+            slices, k_slice = _cut_k(K, want)
+            waves = -(-tiles // (CLUSTER_BLOCKS[per_sm][slices - 1] // slices))
+            cost = waves * per_sm * bm * bn * (k_slice + BLOCK_K) * 100 / rate
+            if best is None or cost < best[0]:
+                best = (cost, MmPlan(TILED, bm, bn, slices, k_slice))
+    return best[1]
+
+
+def check_extent(name, M, N, K, plan):
+    """Raise for shapes past the kernels' 32-bit indexing or grid."""
+    tiles = -(-M // plan.bm) * -(-N // plan.bn)
+    if max(M * K, K * N, M * N) >= 2 ** 31 or tiles > 65535:
+        raise ValueError("%s: [%d, %d] @ [%d, %d] exceeds the kernel's "
+                         "32-bit indexing" % (name, M, K, K, N))
 
 
 def mm_act(z, act):
@@ -90,16 +175,11 @@ def _mm_forward(x2d, w, bias, act):
             tuple(x2d.shape), tuple(w.shape),
             None if bias is None else tuple(bias.shape)))
     N = w.shape[1]
-    if max(M * K, K * N, -(-K // K_SLICE) * M * N) >= 2 ** 31 or (
-            M > 32 * 65535):
-        raise ValueError("matmul_bias_act: [%d, %d] @ [%d, %d] exceeds the "
-                         "kernel's 32-bit indexing" % (M, K, K, N))
+    plan = mm_plan(M, N, K)
+    check_extent("matmul_bias_act", M, N, K, plan)
     out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    slices = -(-K // K_SLICE)
-    workspace = (torch.empty((slices, M, N), dtype=torch.float32,
-                             device=x2d.device) if slices > 1 else None)
-    build.launch("ptt_matmul_bias_act", x2d, w, bias, out, workspace, M, N,
-                 K, K_SLICE, _ACT_CODE[act])
+    build.launch("ptt_matmul_bias_act", x2d, w, bias, out, M, N, K,
+                 _ACT_CODE[act], *plan)
     matmul_bias_act.launches += 1
     return out
 

@@ -21,6 +21,7 @@ it either.
 import torch
 
 from . import build
+from .matmul_epilogue import check_extent, mm_plan
 
 __all__ = ["matmul_swiglu", "matmul_swiglu_plain"]
 
@@ -40,11 +41,10 @@ def _swiglu_forward(x2d, wg, wu):
         raise ValueError("matmul_swiglu: shapes x %s, wg %s, wu %s" % (
             tuple(x2d.shape), tuple(wg.shape), tuple(wu.shape)))
     N = wg.shape[1]
-    if max(M * K, K * N, M * N) >= 2 ** 31 or M > 32 * 65535:
-        raise ValueError("matmul_swiglu: [%d, %d] @ [%d, %d] exceeds the "
-                         "kernel's 32-bit indexing" % (M, K, K, N))
+    plan = mm_plan(M, N, K, gated=True)
+    check_extent("matmul_swiglu", M, N, K, plan)
     out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    build.launch("ptt_matmul_swiglu", x2d, wg, wu, out, M, N, K)
+    build.launch("ptt_matmul_swiglu", x2d, wg, wu, out, M, N, K, *plan)
     matmul_swiglu.launches += 1
     return out
 

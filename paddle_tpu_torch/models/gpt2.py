@@ -284,7 +284,7 @@ def gpt2_decode_step_program(hp=GPT2Config, batch=1, t_max=None, width=1,
 
 
 def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
-                             cache_prefix="gpt2"):
+                             cache_dtype="float32", cache_prefix="gpt2"):
     """The continuous-batching serving step: width-W decode over a pool
     of `batch` cache slots, each at its own position.
 
@@ -294,8 +294,8 @@ def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
                 pos_rows[b] + i + 1
         state:  per-layer <cache_prefix>_{k,v}cache_<i> persistables
                 [batch, n_kv_head or n_head, t_max, dh], float32 (the
-                kernels take float32; the reference's cache_dtype waits
-                for their bf16 forms)
+                kernels take float32, so `cache_dtype` other than
+                "float32" raises: the bf16 caches are ROADMAP A3)
 
     Cache writes go through slot_cache_write (per-row position and
     width, out-of-width columns dropped) and attention masks per-row
@@ -303,6 +303,9 @@ def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
     logits depend only on row b's request, the serving engine's
     pooled == solo contract.  Returns (main, cache_startup, feeds,
     fetches, cache_names)."""
+    if str(cache_dtype) != "float32":
+        raise NotImplementedError("only float32 KV caches are ported (the "
+                                  "kernels' bf16 forms are ROADMAP A3)")
     from .decode_cache import add_cache_zero_fills, create_kv_caches
 
     t_max = t_max or hp.n_ctx

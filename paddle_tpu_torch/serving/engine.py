@@ -24,11 +24,13 @@ row alone) plus per-request sampling keys.  Occupancy changes only
 change feed values, never shapes, so the executor builds the step's
 run plan once (Executor.compile_count).
 
-Not ported yet (ROADMAP A5): in-pool speculative decoding (`draft`),
-the prefix cache (`prefix_rows`), tensor-parallel pools (`mesh`) and
-weight-only int8 (`quantize_int8`); each raises NotImplementedError.
-The KV cache is float32 (the reference's `cache_dtype` waits for the
-bf16 kernel forms).
+The constructor takes the reference's parameters in the reference's
+order.  Not ported yet, each raising NotImplementedError when set:
+in-pool speculative decoding (`draft`, `spec_k`), the prefix cache
+(`prefix_rows`, `prefix_chunk`), weight-only int8 (`quantize_int8`) and
+tensor-parallel pools (`mesh`), ROADMAP A5; the pools' sharding
+(`partition_rules`, `mp_axis`), A7; a `cache_dtype` other than
+"float32" (the bf16 kernel forms), A3.
 """
 
 import time
@@ -48,17 +50,28 @@ class ServingEngine:
     serving)."""
 
     def __init__(self, exe, hp, n_slots=4, width=8, t_max=None,
-                 quantize_int8=False, queue_depth=None, mesh=None, draft=None,
-                 prefix_rows=0):
-        for flag, what in ((quantize_int8, "quantize_int8 (weight-only "
-                            "int8 serving)"),
-                           (mesh, "mesh (tensor-parallel pools)"),
-                           (draft, "draft (in-pool speculative decoding)"),
-                           (prefix_rows, "prefix_rows (prefix-cache KV "
-                            "reuse)")):
+                 cache_dtype="float32", quantize_int8=False,
+                 queue_depth=None, mesh=None, partition_rules=None,
+                 mp_axis=None, draft=None, spec_k=None, prefix_rows=0,
+                 prefix_chunk=None):
+        for flag, what, item in (
+                (str(cache_dtype) != "float32",
+                 "cache_dtype %r (bf16 KV caches)" % (cache_dtype,), "A3"),
+                (quantize_int8, "quantize_int8 (weight-only int8 serving)",
+                 "A5"),
+                (mesh, "mesh (tensor-parallel pools)", "A5"),
+                (partition_rules, "partition_rules (tensor-parallel pools)",
+                 "A7"),
+                (mp_axis, "mp_axis (tensor-parallel pools)", "A7"),
+                (draft, "draft (in-pool speculative decoding)", "A5"),
+                (spec_k, "spec_k (in-pool speculative decoding)", "A5"),
+                (prefix_rows, "prefix_rows (prefix-cache KV reuse)", "A5"),
+                (prefix_chunk, "prefix_chunk (prefix-cache KV reuse)",
+                 "A5")):
             if flag:
                 raise NotImplementedError(
-                    "ServingEngine: %s is not ported yet (ROADMAP A5)" % what)
+                    "ServingEngine: %s is not ported yet (ROADMAP %s)"
+                    % (what, item))
         from ..models import gpt2
         from ..models.decode_cache import make_slot_reset_program
         from .pool import SlotPool

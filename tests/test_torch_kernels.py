@@ -59,6 +59,9 @@ from paddle_tpu_torch.kernels import (
     softmax_xent_plain,
 )
 
+from paddle_tpu_torch.kernels import matmul_epilogue as me
+from paddle_tpu_torch.kernels.matmul_epilogue import SKINNY, TILED, mm_plan
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -381,13 +384,16 @@ def _tf32_rna(a):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-@pytest.mark.parametrize("K", [768, 2048])
+@pytest.mark.parametrize("K", [768, 2048, 3072, 5632])
 def test_3xtf32_split_holds_float32_accuracy(K):
     """Why the kernels split each operand: one TF32 product (operands
     rounded to TF32, products exact, float32 sums) is off by >= 1e-4 of
     the largest logit against float64, which fails the card's 1e-4 and
     the port's 1e-5 parity; big*big + big*small + small*big, with
-    big = tf32(a) and small = tf32(a - big), holds 1e-5."""
+    big = tf32(a) and small = tf32(a - big), holds 1e-5.  So does the
+    kernels' chunked accumulation at the FFN depths (K 3072, 5632):
+    each 16-deep chunk's three products summed alone, the chunks added
+    in float32 in ascending k."""
     rng = np.random.RandomState(40 + K)
     x = rng.randn(64, K).astype("float32")
     w = (rng.randn(K, 64) * K ** -0.5).astype("float32")
@@ -401,6 +407,11 @@ def test_3xtf32_split_holds_float32_accuracy(K):
     scale = np.abs(ref).max()
     assert np.abs(one - ref).max() / scale >= 1e-4
     assert np.abs(three - ref).max() / scale <= 1e-5
+    chunked = torch.zeros(64, 64)
+    for k in range(0, K, 16):
+        c = slice(k, k + 16)
+        chunked += (xs[:, c] @ wb[c] + xb[:, c] @ ws[c]) + xb[:, c] @ wb[c]
+    assert np.abs(chunked.double().numpy() - ref).max() / scale <= 1e-5
 
 
 def test_linear_xent_launches_pass_the_plan(monkeypatch):
@@ -822,9 +833,136 @@ def test_matmul_swiglu_kernel_path_checks(monkeypatch):
         matmul_swiglu(x, torch.ones(11, 7), torch.ones(11, 7))
     before = matmul_swiglu.launches
     out = matmul_swiglu(x, w, w)
-    assert launched == [("ptt_matmul_swiglu", (5, 7, 12))]
+    assert launched == [("ptt_matmul_swiglu",
+                         (5, 7, 12) + tuple(mm_plan(5, 7, 12, gated=True)))]
     assert out.shape == (5, 7) and out.grad_fn is not None
     assert matmul_swiglu.launches == before + 1
+
+
+def test_matmul_bias_act_kernel_path_checks(monkeypatch):
+    """On the kernel path matmul_bias_act refuses mismatched shapes and
+    launches with (M, N, K, act code) and then mm_plan's five ints, in
+    build.SIGNATURES' order, into a fresh [M, N] output that carries a
+    grad_fn; the bias (or None) is the third pointer."""
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    launched = []
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *args: launched.append((name, args)))
+    x, w = torch.ones(37, 1000), torch.ones(1000, 333, requires_grad=True)
+    b = torch.ones(333)
+    with pytest.raises(ValueError, match="shapes"):
+        matmul_bias_act(x, torch.ones(999, 333), b, "gelu")
+    with pytest.raises(ValueError, match="shapes"):
+        matmul_bias_act(x, w, torch.ones(332), "gelu")
+    before = matmul_bias_act.launches
+    out = matmul_bias_act(x, w, b, "gelu")
+    matmul_bias_act(x[:4], w, None, "")
+    assert [name for name, _ in launched] == ["ptt_matmul_bias_act"] * 2
+    for (_, args), (m, act, bias) in zip(launched, ((37, 4, b), (4, 0, None))):
+        assert len(args) + 1 == len(build.SIGNATURES["ptt_matmul_bias_act"])
+        assert args[0].shape == (m, 1000) and args[1] is w and args[2] is bias
+        assert args[3].shape == (m, 333)
+        assert args[4:] == (m, 333, 1000, act) + tuple(mm_plan(m, 333, 1000))
+    assert out.shape == (37, 333) and out.grad_fn is not None
+    assert matmul_bias_act.launches == before + 2
+    assert mm_plan(37, 333, 1000).form == TILED
+    assert mm_plan(4, 333, 1000).form == SKINNY
+
+
+# (M, K, N, gated): every shape chip_smoke.py hands matmul_bias_act and
+# matmul_swiglu on a path (serving, WMT, GPT-2, TinyLlama widths, BERT, the
+# decode, beam and prefill steps), then the plan's edges
+MM_PATH_SHAPES = [
+    (128, 768, 3072, False), (128, 3072, 768, False),
+    (4096, 512, 2048, False), (4096, 2048, 512, False),
+    (8192, 768, 3072, False), (8192, 3072, 768, False),
+    (4096, 5632, 2048, False), (128, 5632, 2048, False),
+    (4096, 768, 3072, False), (4096, 3072, 768, False),
+    (4096, 768, 768, False), (32, 768, 768, False), (32, 768, 2, False),
+    (4, 768, 3072, False), (4, 3072, 768, False), (256, 768, 3072, False),
+    (256, 3072, 768, False), (8, 768, 3072, False), (8, 3072, 768, False),
+    (512, 768, 3072, False), (512, 3072, 768, False),
+    (2, 5632, 2048, False), (256, 5632, 2048, False),
+    (4096, 2048, 5632, True), (128, 2048, 5632, True),
+    (2, 2048, 5632, True), (256, 2048, 5632, True), (200, 1000, 333, True)]
+MM_EDGE_SHAPES = [
+    (1, 768, 3072, False), (16, 768, 3072, False), (17, 768, 3072, False),
+    (1, 2048, 5632, True), (16, 2048, 5632, True), (17, 2048, 5632, True),
+    (4, 3072, 768, False), (2, 2048, 333, True), (37, 1000, 70, False),
+    (45, 1600, 90, False), (16, 1000, 333, False), (3, 100, 70, False),
+    (37, 100, 2, False), (5, 0, 7, False), (0, 64, 64, True),
+    (21, 19, 15, True), (70000, 64, 64, False)]
+
+
+def _mm_blocks(plan, M, N):
+    rows = 1 if plan.form == SKINNY else -(-M // plan.bm)
+    return rows * -(-N // plan.bn) * plan.slices
+
+
+def _mm_tiled_time(M, N, K, bm, bn, per_sm, rate, slices):
+    """The tiled plan's counted time, as mm_plan's docstring states it:
+    whole waves of the clusters the card holds at once, each wave the
+    tile's area x (k_slice + BLOCK_K) x blocks an SM / the tile's rate;
+    k_slice the depth of the widest slice."""
+    k_slice = -(-K // slices)
+    k_slice = max(32, -(-k_slice // 32) * 32)
+    tiles = -(-M // bm) * -(-N // bn)
+    at_once = me.CLUSTER_BLOCKS[per_sm][slices - 1] // slices
+    return -(-tiles // at_once) * per_sm * bm * bn * (k_slice + 128) * 100 / rate
+
+
+@pytest.mark.parametrize("M,K,N,gated", MM_PATH_SHAPES + MM_EDGE_SHAPES)
+def test_mm_plan_covers_k_once_and_takes_the_least_time(M, K, N, gated):
+    """matmul_bias_act's and matmul_swiglu's plan: skinny exactly for
+    M <= 16 (its rows the next power of two >= M), else the tiled form
+    on a tile of whole warps (32 rows each); K slices of a multiple of
+    the 32-deep stage that cover every k once in ascending order, none
+    empty, at most 8 (a portable cluster), at least 256 deep but one; of
+    every tile and slice count the least counted time (cluster waves on
+    the card); a shape whose large tiles alone fill the card keeps at
+    least one wave; the same plan again."""
+    p = mm_plan(M, N, K, gated)
+    assert mm_plan(M, N, K, gated) == p
+    if M <= 16:
+        assert p.form == SKINNY and p.bn in (32, 64, 128)
+        assert p.bm in (1, 2, 4, 8, 16) and M <= p.bm and (
+            p.bm == 1 or p.bm // 2 < M)
+    else:
+        assert p.form == TILED and p.bm % 32 == 0
+        assert (p.bm, p.bn) in ([(128, 64), (64, 64)] if gated
+                                else [(128, 128), (64, 64)])
+        assert -(-M // p.bm) * p.bm >= M > (-(-M // p.bm) - 1) * p.bm
+    assert 1 <= p.slices <= 8 and p.k_slice % 32 == 0
+    assert p.slices == 1 or p.k_slice >= 256
+    cuts = [(s * p.k_slice, min(K, (s + 1) * p.k_slice))
+            for s in range(p.slices)]
+    covered = [k for lo, hi in cuts for k in range(lo, hi)]
+    assert covered == list(range(K))
+    assert all(lo < hi for lo, hi in cuts) or K == 0
+    if p.form == TILED:
+        most = max(1, min(8, K // 256))
+        times = {(bm, bn, s): _mm_tiled_time(M, N, K, bm, bn, per_sm, rate, s)
+                 for bm, bn, per_sm, rate in me.TILES[gated]
+                 for s in range(1, most + 1)}
+        assert times[(p.bm, p.bn, p.slices)] == min(times.values())
+        large = me.TILES[gated][0]
+        if -(-M // large[0]) * -(-N // large[1]) >= 132:
+            assert _mm_blocks(p, M, N) >= 132
+
+
+def test_mm_plan_paths_fill_the_card():
+    """The path shapes' plans: each uses at least 96 SMs' worth of blocks
+    but the BERT pooler and NSP head (32 rows: 36 and 3 blocks) and the
+    ragged matmul_swiglu check, and the skinny ones at least one wave."""
+    short = {(32, 768, 768, False), (32, 768, 2, False),
+             (200, 1000, 333, True)}
+    for M, K, N, gated in MM_PATH_SHAPES:
+        p = mm_plan(M, N, K, gated)
+        blocks = _mm_blocks(p, M, N)
+        if p.form == SKINNY:
+            assert blocks >= 132, (M, K, N)
+        else:
+            assert (blocks >= 96) != ((M, K, N, gated) in short), (M, K, N)
 
 
 # ---------------------------------------------------------------------------

@@ -279,3 +279,88 @@ def test_cache_startup_and_reset_run_on_cpu():
         assert bool((v[[0, 2]] == 1).all())
     exe.run(start)
     assert all(float(scope.find_var(n).abs().sum()) == 0.0 for n in names)
+
+
+def _scale_program():
+    main, startup = framework.Program(), framework.Program()
+    with framework.program_guard(main, startup):
+        x = ptt.layers.data("x", shape=[3], dtype="float32")
+        y = ptt.layers.scale(x, scale=2.0)
+    return main, y
+
+
+def test_executor_run_takes_the_reference_signature():
+    """exe.run(program, feed, fetch_list, feed_var_name, fetch_var_name,
+    scope, return_numpy, use_program_cache), positional as in the
+    reference: the same fetches as the keyword call, and the scope lands
+    where it is named."""
+    main, y = _scale_program()
+    feed = {"x": np.arange(6, dtype="float32").reshape(2, 3)}
+    exe = ptt.Executor(ptt.CPUPlace())
+    (want,) = exe.run(main, feed=feed, fetch_list=[y])
+    scope = ptt.Scope()
+    (got,) = exe.run(main, feed, [y], "feed", "fetch", scope, True, True)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, 2 * feed["x"])
+    (cached,) = exe.run(main, feed=feed, fetch_list=[y],
+                        use_program_cache=True)
+    np.testing.assert_array_equal(cached, want)
+    (raw,) = exe.run(main, feed, [y], "feed", "fetch", scope, False)
+    assert isinstance(raw, torch.Tensor)
+    np.testing.assert_array_equal(raw.numpy(), want)
+
+
+def test_as_numpy_maps_over_lists():
+    from paddle_tpu_torch.executor import as_numpy
+
+    out = as_numpy([torch.ones(2), (torch.zeros(1), 3)])
+    assert isinstance(out, list) and isinstance(out[1], list)
+    np.testing.assert_array_equal(out[0], np.ones(2, "float32"))
+    np.testing.assert_array_equal(out[1][0], np.zeros(1, "float32"))
+    assert out[1][1] == 3
+
+
+def test_ragged_step_program_positional_cache_dtype():
+    """A reference-style positional call: the fifth argument is
+    cache_dtype, so the caches keep the reference's gpt2_ prefix."""
+    r_main, _, _, _, r_names = ref_gpt2.gpt2_ragged_step_program(
+        _tiny(ref_gpt2.GPT2Config), 2, 32, 4, "float32")
+    p_main, _, _, _, p_names = port_gpt2.gpt2_ragged_step_program(
+        _tiny(port_gpt2.GPT2Config), 2, 32, 4, "float32")
+    assert p_names == r_names
+    assert "gpt2_kcache_0" in p_names
+    assert all(n.startswith("gpt2_") for n in p_names)
+    _assert_same_program(r_main, p_main)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        port_gpt2.gpt2_ragged_step_program(
+            _tiny(port_gpt2.GPT2Config), 2, 32, 4, "bfloat16")
+
+
+@pytest.mark.parametrize("option, item", [
+    ("spec_k", "A5"), ("prefix_chunk", "A5"), ("partition_rules", "A7"),
+    ("mp_axis", "A7"), ("cache_dtype", "A3")])
+def test_engine_reference_options_raise(option, item):
+    from paddle_tpu_torch.serving import ServingEngine
+
+    exe = ptt.Executor(ptt.CPUPlace())
+    value = {"cache_dtype": "bfloat16", "mp_axis": "mp"}.get(option, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP " + item):
+        ServingEngine(exe, _tiny(port_gpt2.GPT2Config), n_slots=2, width=2,
+                      t_max=8, **{option: value})
+
+
+def test_engine_takes_the_reference_parameter_order():
+    """ServingEngine(exe, hp, n_slots, width, t_max, cache_dtype, ...)
+    positional as in the reference: the sixth argument is cache_dtype."""
+    import inspect
+
+    from paddle_tpu.serving import ServingEngine as RefEngine
+    from paddle_tpu_torch.serving import ServingEngine
+
+    assert (list(inspect.signature(ServingEngine.__init__).parameters)
+            == list(inspect.signature(RefEngine.__init__).parameters))
+    exe = ptt.Executor(ptt.CPUPlace())
+    eng = ServingEngine(exe, _tiny(port_gpt2.GPT2Config), 2, 2, 8, "float32")
+    assert eng.cache_names[0].startswith("gpt2_")
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        ServingEngine(exe, _tiny(port_gpt2.GPT2Config), 2, 2, 8, "bfloat16")
