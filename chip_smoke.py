@@ -16,9 +16,11 @@ In order, it:
    30522]; flash_attention_piece's forward at the chunked prefills'
    shapes and its backward, with an lse cotangent, at ring-like ones;
    flash_attention_qvec's backward at the serving shape; fused_lstm and
-   fused_gru at the recurrent paths' shapes with ragged lengths), and
-   times kernel, plain version and one PyTorch library call with CUDA
-   events;
+   fused_gru at the recurrent paths' shapes with ragged lengths; B3's
+   few-row forward at the decode steps' three shapes and its plan's
+   edges, an all-masked row among them; fused_layer_norm at the edge
+   widths 1000 and 770), and times kernel, plain version and one
+   PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
    kernel's launch count reset just before and read just after; checks
@@ -88,7 +90,9 @@ In order, it:
    on gpt2_logits_program step by step over the first 16, seeded sampling (top-k 40, top-p 0.9) and beam 4 over 2 prompts
    (programs at batch 8, the cache reorder every step), every run's
    launches held to its program's (flash_attention_piece's forward 12
-   per wide step, flash_attention's 12 per one-token step); prints the
+   per wide step, flash_attention's 12 per one-token step, every one of
+   them on its few-row form: its own count equals the one-token and
+   beam steps' attention launches); prints the
    one-token step's p50 and decode tokens/s, the chunked prefill's
    tokens/s and the beam step's p50 (with --profile,
    chiprun_out/profile_decode.json); then a narrow GPT-2 decoded greedy,
@@ -96,9 +100,9 @@ In order, it:
    logits within 1e-5 relative;
 16. decodes at TinyLlama-1.1B's widths (t_max 2048, batch 2, prompts of
    256, chunks of 128, 32 new tokens, greedy) with the same checks (the
-   GQA fold puts flash_attention at Tq 8 with a key bias; with
-   --profile, chiprun_out/profile_decode_llama.json), and the narrow
-   modern config card vs CPU;
+   GQA fold puts flash_attention's few-row form at Tq 8 with a key bias;
+   with --profile, chiprun_out/profile_decode_llama.json), and the
+   narrow modern config card vs CPU;
 17. trains the stacked dynamic LSTM (build_stacked_lstm_train at
    bench.py's setting: dict 10000, 64 tokens, emb and hidden 512, 3
    layers, 2 classes, Adam 1e-3) on batch 32 x 64: one warm-up step (its
@@ -561,6 +565,8 @@ def check_kernels(dev):
     mark("fused_layer_norm")
     rec.update(check_flash_attention(dev, randn))
     mark("flash_attention")
+    rec.update(check_flash_attention_rows(randn))
+    mark("flash_attention_fwd_rows")
     rec.update(check_matmul_swiglu(randn))
     mark("matmul_swiglu")
     rec.update(check_softmax_xent(dev, randn, g))
@@ -1076,28 +1082,36 @@ def check_layer_norm(randn):
     """fused_layer_norm against its plain version at the GPT-2 path's
     [8192, 768] rows, the TinyLlama paths' [4096, 2048] and [128, 2048],
     the BERT path's [4096, 768], the decode steps' rows (DECODE_ROWS),
-    and ragged row counts; limit 1e-5 absolute on the output and the row
-    statistics.  Timed at GPT-2's shape, the others as `per_shape`."""
+    ragged row counts and the edge widths H 1000 (float4, a partial
+    slot) and 770 (scalar); limit 1e-5 absolute on the output and the
+    row statistics, reruns bit-equal.  Timed at GPT-2's shape, the others
+    as `per_shape`."""
+    import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import fused_layer_norm, layer_norm_plain
+    from paddle_tpu_torch.kernels.layer_norm import ln_plan
 
     err = 0.0
     for r, h in ((GPT2_ROWS, GPT2_D), (7, GPT2_D), (1000, GPT2_D),
                  (LLAMA_ROWS, LLAMA_D), (N_SLOTS * WIDTH, LLAMA_D),
-                 (BERT_ROWS, BERT_D)) + tuple(
+                 (BERT_ROWS, BERT_D), (37, 1000), (300, 770)) + tuple(
                      (r, h) for _, r, h in DECODE_ROWS):
         x = randn(r, h, scale=2.0) + 0.5
         gam, bet = randn(h), randn(h)
-        for got, want in zip(fused_layer_norm(x, gam, bet, 1e-5),
-                             layer_norm_plain(x, gam, bet, 1e-5)):
+        outs = fused_layer_norm(x, gam, bet, 1e-5)
+        for got, want in zip(outs, layer_norm_plain(x, gam, bet, 1e-5)):
             err = max(err, (got - want).abs().max().item())
+        assert all(torch.equal(a, b) for a, b in zip(
+            outs, fused_layer_norm(x, gam, bet, 1e-5))), (
+                "fused_layer_norm rerun differs", r, h)
     assert err <= 1e-5, ("fused_layer_norm disagrees", err)
 
     def times(R, H):
         x, gam, bet = randn(R, H), randn(H), randn(H)
         b, fl = _bound_ms(8 * R * H + 8 * H + 8 * R, 8 * R * H)
         return dict(
+            plan=list(ln_plan(R, H)),
             ms=_time_ms(lambda: fused_layer_norm(x, gam, bet, 1e-5)),
             plain_ms=_time_ms(lambda: layer_norm_plain(x, gam, bet, 1e-5)),
             library_ms=_time_ms(lambda: F.layer_norm(x, (H,), gam, bet,
@@ -1279,15 +1293,6 @@ def check_flash_attention(dev, randn):
                                         **forms).items():
             rec[name]["per_shape"]["%s %s" % (tag, times.pop("shape"))] = \
                 times
-    for tag, n, tq, t_, pos in (
-            ("gpt2 decode", DECODE_BATCH * GPT2_HEADS, 1, T_MAX,
-             DECODE_PROMPT + DECODE_NEW - 1),
-            ("llama decode (GQA fold)", LLAMA_DECODE_BATCH * 4,
-             LLAMA_HEADS // 4, LLAMA_LEN,
-             LLAMA_DECODE_PROMPT + LLAMA_DECODE_NEW - 1)):
-        times = _flash_decode_times(randn, n, tq, t_, d, pos)
-        rec["flash_attention_fwd"]["per_shape"][
-            "%s %s" % (tag, times.pop("shape"))] = times
     for name, e in (("flash_attention_fwd", "fwd"), ("flash_attention_dq", "dq"),
                     ("flash_attention_dkv", "dkv")):
         rec[name].update(max_abs_err=err_abs[e], max_rel_err=err[e])
@@ -1295,17 +1300,86 @@ def check_flash_attention(dev, randn):
     return rec
 
 
+# the decode steps' few-row attention calls (tag, BH, Tq, Tk, d, the last
+# key the cache holds): GPT-2's one-token step, its beam step (8 rows of
+# the beam's batch) and the TinyLlama widths' GQA fold (Tq 8 over 4 kv
+# heads)
+DECODE_ATTENTION = (
+    ("gpt2 decode", DECODE_BATCH * GPT2_HEADS, 1, T_MAX, GPT2_D // GPT2_HEADS,
+     DECODE_PROMPT + DECODE_NEW - 1),
+    ("gpt2 beam", BEAM_PROMPTS * BEAM_SIZE * GPT2_HEADS, 1, T_MAX,
+     GPT2_D // GPT2_HEADS, DECODE_PROMPT + BEAM_NEW - 1),
+    ("llama decode (GQA fold)", LLAMA_DECODE_BATCH * 4, LLAMA_HEADS // 4,
+     LLAMA_LEN, LLAMA_D // LLAMA_HEADS,
+     LLAMA_DECODE_PROMPT + LLAMA_DECODE_NEW - 1))
+
+
+def check_flash_attention_rows(randn):
+    """B3's forward in its few-row form (B3d) against the plain version:
+    the decode steps' shapes (DECODE_ATTENTION) and the plan's edges (Tq
+    1, 3, 5 and 8; Tk not a multiple of the slice, below one slice, one
+    key past a slice, and cut into 16 slices; head dim 128), each with a
+    random key bias whose first row is all NEG_INF (o the mean of v) and
+    whose last row has half its keys and its last 3 at -1e9 (at BH 1 the
+    same row: keys at -1e9 and NEG_INF together), and with no bias.
+    Limit 1e-5
+    absolute on o, and on lse relative to max(1, |lse|) (an all-masked
+    row's is -1e30 + log(Tk)); reruns bit-equal.  Timed at GPT-2's
+    one-token shape, the beam step and the fold as `per_shape`."""
+    import torch
+
+    from paddle_tpu_torch.kernels import (flash_attention_fwd_rows,
+                                          flash_attention_plain)
+    from paddle_tpu_torch.kernels.flash_attention import NEG_INF, rows_plan
+
+    err = lse_err = 0.0
+    for bh, tq, tk, d in ((3, 1, 1000, 64), (5, 3, 300, 64), (2, 8, 40, 64),
+                          (6, 2, 4000, 64), (3, 8, 1000, 128),
+                          (1, 5, 129, 128)) + tuple(
+                              c[1:5] for c in DECODE_ATTENTION):
+        q, k, v = randn(bh, tq, d), randn(bh, tk, d), randn(bh, tk, d)
+        kb = randn(bh, tk)
+        kb[0] = NEG_INF
+        kb[-1, :tk // 2] = -1e9
+        kb[-1, -3:] = -1e9
+        for bias in (kb, None):
+            o, lse = flash_attention_fwd_rows(q, k, v, bias, d ** -0.5)
+            p_o, p_lse = flash_attention_plain(q, k, v, bias, False,
+                                               d ** -0.5)
+            err = max(err, (o - p_o).abs().max().item())
+            lse_err = max(lse_err, ((lse - p_lse).abs()
+                                    / p_lse.abs().clamp_min(1.0)).max().item())
+            again = flash_attention_fwd_rows(q, k, v, bias, d ** -0.5)
+            assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), (
+                "few-row forward rerun differs", bh, tq, tk, d)
+    assert err <= 1e-5 and lse_err <= 1e-5, (
+        "few-row forward disagrees", err, lse_err)
+    times = {}
+    for tag, bh, tq, tk, d, pos in DECODE_ATTENTION:
+        t = _flash_decode_times(randn, bh, tq, tk, d, pos)
+        t["plan"] = list(rows_plan(tk, d))
+        times["%s %s" % (tag, t.pop("shape"))] = t
+    first = next(iter(times))
+    rec = dict(
+        route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/flash_attention_rows.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:279", shape=first,
+        max_abs_err=err, max_lse_err=lse_err, **times.pop(first))
+    rec["per_shape"] = times
+    return {"flash_attention_fwd_rows": rec}
+
+
 def _flash_decode_times(randn, bh, tq, tk, d, pos):
-    """The flash forward at a one-token decode step's shape: q [BH, Tq,
-    d] over the whole cache k/v [BH, Tk, d] with decode_pos_mask's key
-    bias (0 up to `pos`, -1e30 beyond), beside the plain version and
+    """The few-row flash forward at a decode step's shape: q [BH, Tq, d]
+    over the whole cache k/v [BH, Tk, d] with decode_pos_mask's key bias
+    (0 up to `pos`, -1e30 beyond), beside the plain version and
     scaled_dot_product_attention with the bias as its additive mask.
     The kernel reads every key: the bias, not the tiles, masks the
     cache's tail; the bound counts the same."""
     import torch
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.kernels import (flash_attention_fwd,
+    from paddle_tpu_torch.kernels import (flash_attention_fwd_rows,
                                           flash_attention_plain)
 
     q, k, v = randn(bh, tq, d), randn(bh, tk, d), randn(bh, tk, d)
@@ -1317,7 +1391,7 @@ def _flash_decode_times(randn, bh, tq, tk, d, pos):
     return dict(
         shape="q [%d, %d, %d], k/v [%d, %d, %d], key bias to %d" % (
             bh, tq, d, bh, tk, d, pos),
-        ms=_time_ms(lambda: flash_attention_fwd(q, k, v, kb, False, scale)),
+        ms=_time_ms(lambda: flash_attention_fwd_rows(q, k, v, kb, scale)),
         plain_ms=_time_ms(lambda: flash_attention_plain(q, k, v, kb, False,
                                                         scale)),
         library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
@@ -1983,6 +2057,8 @@ def _expected_train_launches(main):
 
     block = main.global_block()
     ops = [op.type for op in block.ops]
+    rows = sum(_rows_form(block, op) for op in block.ops
+               if op.type in ("fused_attention", "fused_attention_grad"))
     sxent = [op.type for op in block.ops
              if op.type.startswith("softmax_with_cross_entropy")
              and softmax_xent_kernel_form(
@@ -2000,7 +2076,9 @@ def _expected_train_launches(main):
         "fused_layer_norm": (ops.count("layer_norm")
                              + ops.count("layer_norm_grad")),
         "flash_attention_fwd": (ops.count("fused_attention")
-                                + ops.count("fused_attention_grad")),
+                                + ops.count("fused_attention_grad")
+                                - rows),
+        "flash_attention_fwd_rows": rows,
         "flash_attention_dq": ops.count("fused_attention_grad"),
         "flash_attention_dkv": ops.count("fused_attention_grad"),
         "matmul_swiglu": (ops.count("fused_swiglu")
@@ -2010,6 +2088,21 @@ def _expected_train_launches(main):
         "fused_lstm": _forward_recurrent(block, "padded_lstm"),
         "fused_gru": _forward_recurrent(block, "padded_gru"),
     }
+
+
+def _rows_form(block, op):
+    """Whether a fused_attention op without a QStart, or its grad (which
+    re-runs the forward rule), runs B3's forward in its few-row form:
+    Tq <= 8 (Q is [B, H, Tq, d]), not causal, no window, no segment
+    ids."""
+    from paddle_tpu_torch.kernels.flash_attention import rows_form
+
+    if op.type.endswith("_grad"):
+        op = block.ops[op.attrs["__fwd_op_idx__"]]
+    return rows_form(block.var(op.inputs["Q"][0]).shape[2],
+                     op.attrs.get("causal", False),
+                     op.attrs.get("window", 0) or 0,
+                     op.inputs.get("SegmentIds") or None)
 
 
 def _forward_recurrent(block, op_type):
@@ -2158,6 +2251,7 @@ def train_transformer_base(dev, profile_dir=None):
                         "linear_xent_fwd": 2, "linear_xent_dx": 1,
                         "linear_xent_dw": 1, "flash_attention_qvec": 0,
                         "fused_layer_norm": 0, "flash_attention_fwd": 0,
+                        "flash_attention_fwd_rows": 0,
                         "flash_attention_dq": 0,
                         "flash_attention_dkv": 0,
                         "matmul_swiglu": 0, "softmax_xent_fwd": 0,
@@ -2189,6 +2283,7 @@ def train_gpt2_small(dev, profile_dir=None):
                         "linear_xent_fwd": 2, "linear_xent_dx": 1,
                         "linear_xent_dw": 1, "flash_attention_qvec": 0,
                         "fused_layer_norm": 2, "flash_attention_fwd": 24,
+                        "flash_attention_fwd_rows": 0,
                         "flash_attention_dq": 12,
                         "flash_attention_dkv": 12,
                         "matmul_swiglu": 0, "softmax_xent_fwd": 0,
@@ -2223,6 +2318,7 @@ def train_tinyllama(dev, profile_dir=None):
                         "linear_xent_fwd": 2, "linear_xent_dx": 1,
                         "linear_xent_dw": 1, "flash_attention_qvec": 0,
                         "fused_layer_norm": 2, "flash_attention_fwd": 44,
+                        "flash_attention_fwd_rows": 0,
                         "flash_attention_dq": 22,
                         "flash_attention_dkv": 22,
                         "matmul_swiglu": 44, "softmax_xent_fwd": 0,
@@ -2326,6 +2422,7 @@ def train_transformer_base_fused_attn(dev):
                         "linear_xent_fwd": 2, "linear_xent_dx": 1,
                         "linear_xent_dw": 1, "flash_attention_qvec": 0,
                         "fused_layer_norm": 0, "flash_attention_fwd": 36,
+                        "flash_attention_fwd_rows": 0,
                         "flash_attention_dq": 18,
                         "flash_attention_dkv": 18,
                         "matmul_swiglu": 0, "softmax_xent_fwd": 0,
@@ -2657,6 +2754,7 @@ def train_bert_base(dev, profile_dir=None):
                         "linear_xent_fwd": 2, "linear_xent_dx": 1,
                         "linear_xent_dw": 1, "flash_attention_qvec": 0,
                         "fused_layer_norm": 4, "flash_attention_fwd": 24,
+                        "flash_attention_fwd_rows": 0,
                         "flash_attention_dq": 12,
                         "flash_attention_dkv": 12,
                         "matmul_swiglu": 0, "softmax_xent_fwd": 2,
@@ -2736,9 +2834,11 @@ def _decode_launches(main):
     these programs) on layer norm, fused_attention on the B3 forward
     (key bias or causal), on B9's forward (one QStart for a batch of
     several rows) or on the qvec forward (a QStart per row), and a
-    forward padded_gru or padded_lstm on its recurrent kernel.  A program
-    without these ops (the cache startup, the beam reorder) launches
-    nothing."""
+    forward padded_gru or padded_lstm on its recurrent kernel; the B3
+    forward's few-row calls (_rows_form) count on its few-row form
+    instead.
+    A program without these ops (the cache startup, the beam reorder)
+    launches nothing."""
     from paddle_tpu_torch import kernels
 
     block = main.global_block()
@@ -2755,7 +2855,9 @@ def _decode_launches(main):
         elif op.type == "fused_attention":
             qs = op.inputs.get("QStart")
             if not qs:
-                want["flash_attention_fwd"] += 1
+                rows = _rows_form(block, op)
+                want["flash_attention_fwd_rows"] += rows
+                want["flash_attention_fwd"] += not rows
             elif (block.var(qs[0]).shape[0] == 1
                   and block.var(op.inputs["Q"][0]).shape[0] > 1):
                 want["flash_attention_piece_fwd"] += 1
@@ -2963,6 +3065,19 @@ def _decode_on_card(label, hp, t_max, batch, prompt_len, width, new, seed,
                   "reorder, step p50 %.3f ms, scores %s" % (
                       label, SAMPLE_NEW, BEAM_SIZE, BEAM_PROMPTS, n_steps,
                       _p50_ms(runs.times[id(bstep)]), scores.tolist()))
+
+        # every one-token step's attention (greedy, sampled, beam; GPT-2's
+        # Tq 1, the GQA fold's Tq 8) ran B3's few-row form, and nothing
+        # else did
+        one_token = [step] + ([bstep] if beam_and_sample else [])
+        attn = sum(len(runs.times[id(p)]) * sum(
+            op.type == "fused_attention" for op in p.global_block().ops)
+                   for p in one_token)
+        assert runs.totals["flash_attention_fwd_rows"] == attn > 0, (
+            "few-row launches", label, runs.totals["flash_attention_fwd_rows"],
+            attn)
+        print("%s decode: B3's few-row form launched %d times, once per "
+              "one-token step attention" % (label, attn))
 
         if profile_dir:
             from torch.profiler import ProfilerActivity, profile
@@ -3487,7 +3602,9 @@ def packed_train_card_matches_cpu(dev):
                           [loss], feed, GPT2_KERNELS[1:])
 
 
-DECODE_KERNELS = ("flash_attention_fwd", "flash_attention_piece_fwd",
+# the narrow decode's one-token steps take B3's few-row form, its chunked
+# prefill B9's forward: no decode step launches B3's tile kernel
+DECODE_KERNELS = ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
                   "matmul_bias_act", "fused_add_layer_norm")
 # held on the card by the kernel phase only: no path of the repo trains
 # through chunked attention or the ragged step yet (ring attention is
@@ -3641,7 +3758,7 @@ def main():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape"):
             entry[key] = r[key]
-        for key in ("per_shape", "max_rel_err", "library_note",
+        for key in ("per_shape", "max_rel_err", "max_lse_err", "library_note",
                     "bound_ms_3xtf32"):
             if key in r:
                 entry[key] = r[key]

@@ -9,6 +9,7 @@ from .flash_attention import (
     flash_attention_dkv,
     flash_attention_dq,
     flash_attention_fwd,
+    flash_attention_fwd_rows,
     flash_attention_grad_plain,
     flash_attention_piece,
     flash_attention_piece_dkv,
@@ -69,7 +70,8 @@ KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            flash_attention_piece_fwd, flash_attention_piece_dq,
            flash_attention_piece_dkv, flash_attention_qvec_dq,
            flash_attention_qvec_dkv, fused_lstm, fused_gru, linear_xent_parts,
-           linear_xent_dx_sharded, linear_xent_dw_sharded)
+           linear_xent_dx_sharded, linear_xent_dw_sharded,
+           flash_attention_fwd_rows)
 
 
 def reset_launch_counts():

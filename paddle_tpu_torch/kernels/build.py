@@ -46,6 +46,9 @@ SIGNATURES = {
     "ptt_matmul_bias_act": (_P,) * 4 + (_I,) * 9 + (_P,),
     "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 8 + (_P,),
     "ptt_flash_attention_qvec": (_P,) * 8 + (_I,) * 5 + (_F, _P),
+    # BH, Tq, Tk, d, then the plan's two (slice_len, slices:
+    # flash_attention.rows_plan)
+    "ptt_flash_attention_rows": (_P,) * 8 + (_I,) * 6 + (_F, _P),
     # the linear cross entropy's shape ints, then its plan's four (hs, n,
     # stages, smem: linear_xent.lxent_plan)
     "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 8 + (_F, _P),
@@ -54,7 +57,8 @@ SIGNATURES = {
     "ptt_linear_xent_parts": (_P,) * 7 + (_I,) * 8 + (_P,),
     "ptt_linear_xent_dx_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
     "ptt_linear_xent_dw_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
-    "ptt_layer_norm": (_P,) * 6 + (_I, _I, _F, _P),
+    # R, H, then the plan's four (form, n4, vec, rows: layer_norm.ln_plan)
+    "ptt_layer_norm": (_P,) * 6 + (_I,) * 6 + (_F, _P),
     "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P, _P),
     "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 6 + (_F, _I, _P, _P),
     "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 6 + (_F, _I, _P, _P),

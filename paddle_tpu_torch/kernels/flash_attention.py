@@ -37,6 +37,14 @@ sync on a position):
   every row, Tq != Tk allowed, with an optional window; returns (o,
   lse), differentiable through both (the lse cotangent folds into
   delta, as ``_flash_bwd`` does);
+- the few-row form of B3's forward (B3d, ``flash_attention_fwd_rows``,
+  ``csrc/flash_attention_rows.cu``): ``flash_attention_fwd`` hands it
+  the decode steps' calls, Tq <= ``ROWS_MAX_TQ`` with or without a key
+  bias and no other mask (``rows_form``); the keys are cut into fixed
+  slices (``rows_plan``, a function of Tk and d only), one block a
+  (head row, slice), merged by log-sum-exp in slice order.  Its
+  launches count on its own counter, the tile kernel's on
+  ``flash_attention_fwd``'s;
 - ``flash_attention_qvec`` (B8, ``_flash_fwd``/``_flash_bwd`` with
   ``qvec``): a [BH] base per row.  Its forward is
   ``csrc/flash_attention_qvec.cu`` (a key-split kernel for the serving
@@ -54,12 +62,15 @@ raise.  The forms are ``torch.autograd.Function``s (the reference's
 dq and dk/dv in a nested function.  Each form counts its own launches.
 """
 
+import collections
+
 import torch
 
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "attention_scores",
            "flash_attention_grad_plain", "flash_attention_fwd",
+           "flash_attention_fwd_rows", "rows_form", "rows_plan",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_piece", "flash_attention_piece_plain",
            "flash_attention_piece_grad_plain", "flash_attention_piece_fwd",
@@ -71,6 +82,38 @@ NEG_INF = -1e30
 # the qvec kernel's fixed key split: keys in slices of this many (a
 # multiple of its 32-key tile), merged by log-sum-exp in slice order
 KV_CHUNK = 128
+# the few-row forward: at most this many query rows; keys cut into about
+# ROWS_SLICES slices of 128 to ROWS_SLICE_MAX[d] keys (a multiple of 32:
+# one 32-key chunk a warp, at most 8 warps, 4 at d 128 for shared memory),
+# the split measured fastest at the decode steps' shapes on the card
+# (scripts/decode_kernels_check.py)
+ROWS_MAX_TQ = 8
+ROWS_SLICES = 8
+ROWS_SLICE_MIN = 128
+ROWS_SLICE_MAX = {64: 256, 128: 128}
+
+RowsPlan = collections.namedtuple("RowsPlan", "slice_len slices")
+
+
+def rows_form(tq, causal=False, window=0, seg=None):
+    """Whether B3's forward takes the few-row kernel: the decode steps'
+    calls, Tq <= ROWS_MAX_TQ, not causal, no window and no segment ids
+    (a key bias or none).  The based forms (B8, B9) never do."""
+    return (0 < tq <= ROWS_MAX_TQ and not causal and not window
+            and seg is None)
+
+
+def rows_plan(tk, d):
+    """The few-row kernel's fixed key split for Tk keys at head dim d:
+    (slice_len, slices).  About ROWS_SLICES slices, each a multiple of 32
+    keys in [ROWS_SLICE_MIN, ROWS_SLICE_MAX[d]], or one slice of Tk
+    rounded up to 32 where Tk is shorter.  Depends on Tk and d alone,
+    never on the rows or the bias, so a row's bits do not depend on its
+    batch."""
+    per = 32 * -(-tk // (32 * ROWS_SLICES))
+    slice_len = min(max(per, ROWS_SLICE_MIN), ROWS_SLICE_MAX[d],
+                    32 * -(-tk // 32))
+    return RowsPlan(slice_len, -(-tk // slice_len))
 
 
 def _check_form(name, tq, tk, causal, qbase, window, seg):
@@ -114,12 +157,20 @@ def attention_scores(q, k, kbias, causal, scale, qbase=None, window=0,
 
 def flash_attention_plain(q, k, v, kbias=None, causal=False, scale=None,
                           qbase=None, window=0, seg=None):
-    """(o [BH, Tq, d], lse [BH, Tq] float32)."""
+    """(o [BH, Tq, d], lse [BH, Tq] float32).  Where a row's scores sit
+    at one large bias (every one at NEG_INF, or at -1e9, under which
+    float32 loses the scores), log(l) rounds away: lse equals the row's
+    max and exp(s - lse) would weigh each top key by 1.  Those rows are
+    renormalized, weighing the keys alike as _flash_fwd_kernel's acc / l
+    and the reference's softmax do; every other row keeps exp(s - lse)
+    bit for bit."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = attention_scores(q, k, kbias, causal, scale, qbase, window, seg)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
+    p = torch.where((lse == s.amax(-1))[..., None],
+                    p / p.sum(-1, keepdim=True), p)
     return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v), lse
 
 
@@ -260,12 +311,52 @@ def _dkv(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None,
     return dk, dv, dkb
 
 
+def flash_attention_fwd_rows(q, k, v, kbias=None, scale=None):
+    """B3's forward in its few-row form (B3d): (o, lse) of q [BH, Tq <=
+    ROWS_MAX_TQ, d] over k/v [BH, Tk, d] with an optional key bias, no
+    other mask, at rows_plan's split; k and v start on 16 bytes."""
+    if not build.use_kernel(q):
+        return flash_attention_plain(q, k, v, kbias, False, scale)
+    bh, tq, tk, d = _check("flash_attention_fwd_rows", q, k, v, kbias, False,
+                           None, 0, None)
+    if not rows_form(tq):
+        raise ValueError("flash_attention_fwd_rows: Tq %d is not in 1 .. %d"
+                         % (tq, ROWS_MAX_TQ))
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention_fwd_rows: k and v must start on "
+                         "16 bytes (the kernel stages them in 16-byte "
+                         "copies)")
+    if scale is None:
+        scale = d ** -0.5
+    plan = rows_plan(tk, d)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    part_o = part_ml = None
+    if plan.slices > 1:
+        part_o = torch.empty((bh, tq, plan.slices, d), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((bh, tq, plan.slices, 2), dtype=torch.float32,
+                              device=q.device)
+    build.launch("ptt_flash_attention_rows", q, k, v, kbias, o, lse, part_o,
+                 part_ml, bh, tq, tk, d, *plan, float(scale))
+    flash_attention_fwd_rows.launches += 1
+    return o, lse
+
+
 def flash_attention_fwd(q, k, v, kbias=None, causal=False, scale=None,
                         window=0, seg=None):
-    """B3's forward kernel: (o, lse)."""
+    """B3's forward kernel: (o, lse).  The decode steps' few-row calls
+    (rows_form) take flash_attention_fwd_rows, which counts them; this
+    entry point counts the tile kernel's launches only.  A few-row call
+    needs k and v to start on 16 bytes, where the tile kernel took any
+    start: a contiguous [BH, Tk, d] at d 64 or 128 cut along BH or Tk
+    from an allocation always does, a view at some other offset
+    raises."""
     if not build.use_kernel(q):
         return flash_attention_plain(q, k, v, kbias, causal, scale, None,
                                      window, seg)
+    if rows_form(q.shape[1], causal, window, seg):
+        return flash_attention_fwd_rows(q, k, v, kbias, scale)
     out = _fwd("flash_attention_fwd", q, k, v, kbias, causal, scale, None,
                window, seg)
     flash_attention_fwd.launches += 1
@@ -361,7 +452,8 @@ def flash_attention_qvec_dkv(q, k, v, lse, do, delta, qstart, scale=None):
     return dk, dv
 
 
-for _fn in (flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+for _fn in (flash_attention_fwd, flash_attention_fwd_rows,
+            flash_attention_dq, flash_attention_dkv,
             flash_attention_piece_fwd, flash_attention_piece_dq,
             flash_attention_piece_dkv, flash_attention_qvec_dq,
             flash_attention_qvec_dkv):

@@ -9,6 +9,8 @@ kernel path raises rather than falling back.
 Tolerance: rtol = atol = 1e-5 in float32 — the two sides sum in
 different orders (XLA vs PyTorch CPU kernels), nothing else differs."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from paddle_tpu_torch.kernels import (
     flash_attention_dkv,
     flash_attention_dq,
     flash_attention_fwd,
+    flash_attention_fwd_rows,
     flash_attention_grad_plain,
     flash_attention_piece,
     flash_attention_piece_dkv,
@@ -59,8 +62,12 @@ from paddle_tpu_torch.kernels import (
     softmax_xent_plain,
 )
 
+from paddle_tpu_torch.kernels import layer_norm as ln_mod
 from paddle_tpu_torch.kernels import matmul_epilogue as me
 from paddle_tpu_torch.kernels.matmul_epilogue import SKINNY, TILED, mm_plan
+
+# the module (the package exports a function of the same name)
+fa_mod = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -524,6 +531,48 @@ def test_layer_norm_plain_and_vjp_match_reference(rows):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("R", [1, 8, 264, 8192])
+def test_ln_plan_takes_every_width(R):
+    """ln_plan takes every H up to the block form's 48 KB row (12288
+    floats) and raises past it; the register form exactly where the row
+    fits it (H <= WARP_MAX_H), with the fewest float4 slots a lane that
+    hold the row, float4 access where H % 4 == 0 and 1 to 8 rows a block
+    (every SM a block where the rows allow)."""
+    for H in range(1, ln_mod.BLOCK_MAX_H + 1):
+        plan = ln_mod.ln_plan(R, H)
+        if H > ln_mod.WARP_MAX_H:
+            assert plan == (ln_mod.BLOCK, 0, 0, 0), H
+            continue
+        assert plan.form == ln_mod.WARP and 128 * plan.n4 >= H, H
+        smaller = [n for n in ln_mod.N4_SLOTS if n < plan.n4]
+        assert all(128 * n < H for n in smaller), H
+        assert plan.vec == (H % 4 == 0), H
+        assert plan.rows == max(1, min(8, R // ln_mod.SMS)), H
+    with pytest.raises(ValueError, match="48 KB"):
+        ln_mod.ln_plan(R, ln_mod.BLOCK_MAX_H + 1)
+
+
+def test_layer_norm_launch_passes_the_plan(monkeypatch):
+    """fused_layer_norm hands build.launch (R, H) and ln_plan's four ints
+    in the order build.SIGNATURES declares; a view that does not start on
+    16 bytes takes the register form by floats (vec 0)."""
+    calls = []
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    sig = build.SIGNATURES["ptt_layer_norm"]
+    ints = [i for i, kind in enumerate(sig[:-1]) if kind is build._I]
+    for R, H in ((8192, 768), (3, 770), (2, 2048), (5, 1000)):
+        fused_layer_norm(torch.ones(R, H), torch.ones(H), torch.zeros(H))
+        name, args = calls[-1]
+        assert name == "ptt_layer_norm" and len(args) + 1 == len(sig)
+        assert tuple(args[i] for i in ints) == (R, H) + tuple(
+            ln_mod.ln_plan(R, H))
+    x = torch.ones(5 * 768 + 1)[1:].view(5, 768)
+    fused_layer_norm(x, torch.ones(768), torch.zeros(768))
+    assert tuple(calls[-1][1][i] for i in ints)[2:] == (ln_mod.WARP, 6, 0, 1)
+
+
 # ---------------------------------------------------------------------------
 # flash_attention: forward, dq and dk/dv against the Pallas kernels
 # ---------------------------------------------------------------------------
@@ -620,6 +669,197 @@ def test_flash_attention_kernel_path_checks_shapes(monkeypatch):
         flash_attention_fwd(q, k, k, torch.zeros(2, 4))
     o, lse = flash_attention_fwd(q, k, k, torch.zeros(2, 6))
     assert o.shape == (2, 4, 64) and lse.shape == (2, 4)
+
+
+# ---------------------------------------------------------------------------
+# B3d: the few-row form of flash attention's forward (the decode steps)
+# ---------------------------------------------------------------------------
+def _decode_bias(rng, bh, tk):
+    """decode_pos_mask's key bias (0 up to a row's position, NEG_INF
+    beyond), each row at its own position, the first row with every key
+    masked."""
+    pos = rng.randint(0, tk, bh)
+    kb = np.where(np.arange(tk)[None, :] <= pos[:, None], 0.0,
+                  -1e30).astype("float32")
+    kb[0] = -1e30
+    return kb
+
+
+@pytest.mark.parametrize("tq", [1, 8])
+def test_flash_attention_plain_matches_reference_at_decode_forms(tq):
+    """flash_attention_plain's (o, lse) at the decode steps' forms (Tq 1,
+    the one-token step; Tq 8, the GQA fold) over Tk 256 with a
+    decode_pos_mask key bias, one row whose every key is masked and one
+    whose every key sits at -1e9 (o is the mean of v in both), against
+    the reference's _flash_fwd in Pallas interpret mode (key blocks of
+    128).  rtol = atol = 1e-5."""
+    rng = np.random.RandomState(35)
+    bh, tk, d, scale = 4, 256, 16, 0.25
+    q = rng.randn(bh, tq, d).astype("float32")
+    k = rng.randn(bh, tk, d).astype("float32")
+    v = rng.randn(bh, tk, d).astype("float32")
+    kb = _decode_bias(rng, bh, tk)
+    kb[1] = -1e9
+    r_o, r_lse = pk._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), jnp.asarray(kb), False, scale,
+                               tq, 128)
+    o, lse = flash_attention_plain(_t(q), _t(k), _t(v), _t(kb), False, scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(r_o), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(r_lse), **TOL)
+    for row in (0, 1):
+        np.testing.assert_allclose(o.numpy()[row], np.broadcast_to(
+            v[row].mean(0), (tq, d)), **TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tk", [1, 7, 32, 33, 129, 300, 1000, 1024, 2048,
+                                2050, 4000])
+def test_rows_plan_cuts_tk_into_fixed_slices(tk, d):
+    """rows_plan covers Tk exactly once: slices of a multiple of 32 keys,
+    at most 256 (128 at d 128: the kernel's shared memory), the last
+    one ragged or whole, one slice where Tk is shorter than a slice; the
+    decode steps' Tk 1024 and 2048 in 8 slices."""
+    plan = fa_mod.rows_plan(tk, d)
+    assert plan.slice_len % 32 == 0
+    assert 32 <= plan.slice_len <= (256 if d == 64 else 128)
+    assert ((plan.slices - 1) * plan.slice_len < tk
+            <= plan.slices * plan.slice_len)
+    if tk <= 128:
+        assert plan.slices == 1 and plan.slice_len == 32 * -(-tk // 32)
+    if d == 64 and tk in (1024, 2048):
+        assert plan == (tk // 8, 8)
+
+
+def _rows_emulation(q, k, v, kb, scale, plan):
+    """The few-row kernel's arithmetic in plain PyTorch: q scaled first,
+    a 32-key chunk a warp with its own (m, l, acc), the warps merged in
+    order into their slice, the slices merged in order by log-sum-exp."""
+    s = torch.einsum("bqd,bkd->bqk", q * scale, k)
+    if kb is not None:
+        s = s + kb[:, None, :]
+
+    def merge(parts):
+        m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+        l_all = torch.zeros_like(m_all)
+        acc = torch.zeros(q.shape)
+        for m, l, a in parts:
+            w = torch.exp(m - m_all)
+            l_all = l_all + l * w
+            acc = acc + a * w[..., None]
+        return m_all, l_all, acc
+
+    tk = k.shape[1]
+    slices = []
+    for s0 in range(0, tk, plan.slice_len):
+        s1 = min(tk, s0 + plan.slice_len)
+        chunks = []
+        for c0 in range(s0, s1, 32):
+            c1 = min(s1, c0 + 32)
+            m = s[:, :, c0:c1].amax(-1)
+            p = torch.exp(s[:, :, c0:c1] - m[..., None])
+            chunks.append((m, p.sum(-1),
+                           torch.einsum("bqk,bkd->bqd", p, v[:, c0:c1])))
+        slices.append(merge(chunks))
+    m, l, acc = merge(slices)
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.mark.parametrize("tq,tk", [(1, 1024), (8, 2048), (3, 300), (2, 40)])
+def test_rows_slice_and_merge_math_matches_plain(tq, tk):
+    """The emulated slice-and-merge arithmetic of the few-row kernel, at
+    rows_plan's split, equals flash_attention_plain within 1e-6: a row
+    with every key masked (the mean of v), a row whose first slice is
+    wholly masked while later keys are live, keys at -1e9, and no
+    bias."""
+    rng = np.random.RandomState(36)
+    bh, d, scale = 4, 64, 0.125
+    q, k, v = (_t(rng.randn(bh, n, d).astype("float32"))
+               for n in (tq, tk, tk))
+    kb = _decode_bias(rng, bh, tk)
+    kb[1] = 0.0
+    kb[1, :min(tk - 1, 128)] = -1e30  # a slice wholly masked, keys after
+    kb[2, -3:] = -1e9
+    plan = fa_mod.rows_plan(tk, d)
+    for bias in (_t(kb), None):
+        o, lse = _rows_emulation(q, k, v, bias, scale, plan)
+        p_o, p_lse = flash_attention_plain(q, k, v, bias, False, scale)
+        np.testing.assert_allclose(o.numpy(), p_o.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(lse.numpy(), p_lse.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_rows_form_is_chosen_exactly_for_the_decode_forms(monkeypatch):
+    """flash_attention_fwd hands the decode steps' calls (Tq <= 8, not
+    causal, no window, no segment ids; with or without a key bias) to
+    the few-row kernel and every other form to the tile kernel; each
+    launch counts on its own kernel's counter only, the tile kernel's on
+    the entry point's."""
+    assert fa_mod.rows_form(1) and fa_mod.rows_form(8)
+    assert not fa_mod.rows_form(9) and not fa_mod.rows_form(0)
+    assert not fa_mod.rows_form(1, causal=True)
+    assert not fa_mod.rows_form(1, True, window=4)
+    assert not fa_mod.rows_form(1, seg=torch.zeros(1, 1))
+    calls = []
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch", lambda name, *a: calls.append(name))
+    k = torch.ones(2, 40, 64)
+    kb = torch.zeros(2, 40)
+    seg = torch.zeros(2, 8, dtype=torch.int32)
+    fwd, rows = flash_attention_fwd.launches, flash_attention_fwd_rows.launches
+    for q, bias, causal, window, sg, want in (
+            (torch.ones(2, 1, 64), kb, False, 0, None, "rows"),
+            (torch.ones(2, 8, 64), None, False, 0, None, "rows"),
+            (torch.ones(2, 9, 64), kb, False, 0, None, "fwd"),
+            (torch.ones(2, 40, 64), None, True, 0, None, "fwd"),
+            (torch.ones(2, 40, 64), None, True, 16, None, "fwd")):
+        flash_attention_fwd(q, k, k, bias, causal, None, window, sg)
+        assert calls[-1] == "ptt_flash_attention_" + want
+    q8, k8 = torch.ones(2, 8, 64), torch.ones(2, 8, 64)
+    flash_attention_fwd(q8, k8, k8, None, False, None, 0, seg)
+    assert calls[-1] == "ptt_flash_attention_fwd"
+    flash_attention_piece_fwd(torch.ones(2, 1, 64), k, k, True, None,
+                              torch.zeros(1, dtype=torch.long))
+    assert calls[-1] == "ptt_flash_attention_fwd"
+    assert flash_attention_fwd.launches - fwd == 4
+    assert flash_attention_fwd_rows.launches - rows == 2
+    with pytest.raises(ValueError, match="Tq 9"):
+        flash_attention_fwd_rows(torch.ones(2, 9, 64), k, k)
+    off = torch.ones(2 * 40 * 64 + 1)[1:].view(2, 40, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_fwd_rows(torch.ones(2, 1, 64), off, k)
+
+
+def test_rows_launch_passes_the_plan(monkeypatch):
+    """The few-row wrapper hands build.launch the shape ints (BH, Tq, Tk,
+    d) and rows_plan's two, in the order build.SIGNATURES declares, and
+    the [BH, Tq, slices, d] and [BH, Tq, slices, 2] workspaces where
+    there is more than one slice; the plan is the same at any BH and
+    any bias."""
+    calls = []
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    sig = build.SIGNATURES["ptt_flash_attention_rows"]
+    ints = [i for i, kind in enumerate(sig[:-1]) if kind is build._I]
+    for bh, tq, tk, d in ((1, 1, 1024, 64), (48, 1, 1024, 64),
+                          (8, 8, 2048, 64), (3, 3, 40, 128)):
+        kb = torch.full((bh, tk), -1e30)
+        flash_attention_fwd_rows(torch.ones(bh, tq, d), torch.ones(bh, tk, d),
+                                 torch.ones(bh, tk, d), kb)
+        name, args = calls[-1]
+        plan = fa_mod.rows_plan(tk, d)
+        assert name == "ptt_flash_attention_rows"
+        assert len(args) + 1 == len(sig)  # launch appends the stream
+        assert tuple(args[i] for i in ints) == (bh, tq, tk, d) + tuple(plan)
+        part_o, part_ml = args[6], args[7]
+        if plan.slices > 1:
+            assert part_o.shape == (bh, tq, plan.slices, d)
+            assert part_ml.shape == (bh, tq, plan.slices, 2)
+        else:
+            assert part_o is None and part_ml is None
+    # BH 1 and BH 48 at one Tk: the same split
+    assert calls[0][1][12:14] == calls[1][1][12:14] == (128, 8)
 
 
 # ---------------------------------------------------------------------------
