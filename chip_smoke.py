@@ -18,7 +18,9 @@ In order, it:
    flash_attention_qvec's backward at the serving shape; fused_lstm and
    fused_gru at the recurrent paths' shapes with ragged lengths; B3's
    few-row forward at the decode steps' three shapes and its plan's
-   edges, an all-masked row among them; fused_layer_norm at the edge
+   edges, an all-masked row among them; B3's tensor-core tiles at their
+   edges: T 17, window 24, Tq 8 at a scalar base, per-row bases at 0
+   and T - 1, every rerun bit-equal; fused_layer_norm at the edge
    widths 1000 and 770), and times kernel, plain version and one
    PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
@@ -341,10 +343,20 @@ def _bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _bound_3xtf32_ms(nbytes, flops):
-    """The bound with the FLOPs at the 3xTF32 rate (three TF32 products
-    per float32 product), for the kernels that run on the tensor cores."""
-    return max(nbytes / HBM_BYTES_PER_S, flops / TF32X3_FLOPS_PER_S) * 1e3
+def _bounds(nbytes, flops, tensor_cores):
+    """A record's bound_ms and bound_by: the larger of the bytes over the
+    HBM rate and the FLOPs over the peak of the units that run them, the
+    3xTF32 rate on the tensor cores (three TF32 products per float32
+    product), else FP32 outside them.  A tensor-core kernel's record
+    keeps the FP32 bound beside, as bound_ms_fp32."""
+    b, fl = _bound_ms(nbytes, flops)
+    if not tensor_cores:
+        return dict(bound_ms=b, bound_by=fl)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TF32X3_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms_fp32=b)
 
 
 def check_kernels(dev):
@@ -362,7 +374,7 @@ def check_kernels(dev):
         matmul_bias_act,
         matmul_bias_act_plain,
     )
-    from paddle_tpu_torch.kernels.matmul_epilogue import mm_plan
+    from paddle_tpu_torch.kernels.matmul_epilogue import TILED, mm_plan
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -493,16 +505,16 @@ def check_kernels(dev):
         act_fn = {"gelu": F.gelu, "relu": F.relu}.get(act)
         lib = ((lambda: act_fn(torch.addmm(bm, xm, wm))) if act
                else (lambda: torch.addmm(bm, xm, wm)))
-        b, fl = _bound_ms(4 * (m * k + k * n + n + m * n), 2 * m * k * n)
+        plan = mm_plan(m, n, k)
         inner = 5 if m * k * n > 2e10 else 20  # the Llama step: ~6 ms a call
         times[tag] = dict(
             ms=_time_ms(lambda: matmul_bias_act(xm, wm, bm, act), inner=inner),
             plain_ms=_time_ms(lambda: matmul_bias_act_plain(xm, wm, bm, act),
                               inner=inner),
-            library_ms=_time_ms(lib, inner=inner), bound_ms=b, bound_by=fl,
-            bound_ms_3xtf32=_bound_3xtf32_ms(4 * (m * k + k * n + n + m * n),
-                                             2 * m * k * n),
-            plan=list(mm_plan(m, n, k)))
+            library_ms=_time_ms(lib, inner=inner),
+            **_bounds(4 * (m * k + k * n + n + m * n), 2 * m * k * n,
+                      plan.form == TILED),
+            plan=list(plan))
         print("matmul_bias_act %s [%d, %d] @ [%d, %d] %s: %s" % (
             tag, m, k, k, n, act or "identity", json.dumps(times[tag])))
     # each shape launches once per layer and step: the line reports the
@@ -515,7 +527,7 @@ def check_kernels(dev):
                   rows, d_model, d_model, d_ff, rows, d_ff, d_ff, d_model),
         max_abs_err=err, bound_by=times["ffn_in"]["bound_by"],
         per_shape=times)
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_3xtf32"):
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_fp32"):
         rec["matmul_bias_act"][key] = (
             times["ffn_in"][key] + times["ffn_out"][key]) / 2
 
@@ -617,7 +629,7 @@ def check_matmul_swiglu(randn):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import matmul_swiglu, matmul_swiglu_plain
-    from paddle_tpu_torch.kernels.matmul_epilogue import mm_plan
+    from paddle_tpu_torch.kernels.matmul_epilogue import TILED, mm_plan
 
     shapes = (("train", LLAMA_ROWS, LLAMA_D, LLAMA_FF),
               ("serve", N_SLOTS * WIDTH, LLAMA_D, LLAMA_FF),
@@ -642,16 +654,15 @@ def check_matmul_swiglu(randn):
             continue
         inner = 5 if tag == "train" else 20  # ~10 ms a call in training
         nbytes, flops = 4 * (m * k + 2 * k * n + m * n), 4 * m * k * n
-        b, fl = _bound_ms(nbytes, flops)
+        plan = mm_plan(m, n, k, gated=True)
         times["%s [%d, %d] @ [%d, %d]" % (tag, m, k, k, n)] = dict(
             ms=_time_ms(lambda: matmul_swiglu(x, wg, wu), inner=inner),
             plain_ms=_time_ms(lambda: matmul_swiglu_plain(x, wg, wu),
                               inner=inner),
             library_ms=_time_ms(lambda: F.silu(torch.matmul(x, wg))
                                 * torch.matmul(x, wu), inner=inner),
-            bound_ms=b, bound_by=fl,
-            bound_ms_3xtf32=_bound_3xtf32_ms(nbytes, flops),
-            plan=list(mm_plan(m, n, k, gated=True)))
+            **_bounds(nbytes, flops, plan.form == TILED),
+            plan=list(plan))
     assert err <= 1e-4, ("matmul_swiglu disagrees", err)
     torch.cuda.synchronize()
     head = times["train [%d, %d] @ [%d, %d]" % (LLAMA_ROWS, LLAMA_D, LLAMA_D,
@@ -835,7 +846,6 @@ def _lxent_times(dev, randn, g, R, H, V, eps, slow):
     )
     out = {}
     for name, kern, plain, lib, nbytes, flops in specs:
-        b, fl = _bound_ms(nbytes, flops)
         out[name] = dict(
             shape=shape + ("" if plain else
                            "; plain_ms is the plain backward (dx and dw "
@@ -843,8 +853,7 @@ def _lxent_times(dev, randn, g, R, H, V, eps, slow):
                            "forward and backward"),
             ms=timed(kern), plain_ms=timed(plain) if plain else plain_grad,
             library_ms=timed(lib) if lib else lib_fwd_bwd,
-            bound_ms=b, bound_by=fl,
-            bound_ms_3xtf32=flops / TF32X3_FLOPS_PER_S * 1e3)
+            **_bounds(nbytes, flops, True))
     return out
 
 
@@ -983,7 +992,6 @@ def _sharded_lxent_times(dev, randn, g, R, H, V, eps, vocab_total, shard,
     )
     out = {}
     for name, kern, plain, lib, nbytes, flops in specs:
-        b, fl = _bound_ms(nbytes, flops)
         out[name] = dict(
             shape=shape + ("" if plain else
                            "; plain_ms is the plain backward (dx and dw "
@@ -991,8 +999,7 @@ def _sharded_lxent_times(dev, randn, g, R, H, V, eps, vocab_total, shard,
                            "g @ w^T and x^T @ g"),
             ms=timed(kern), plain_ms=timed(plain) if plain else plain_grad,
             library_ms=timed(lib) if lib else lib_bwd,
-            bound_ms=b, bound_by=fl,
-            bound_ms_3xtf32=flops / TF32X3_FLOPS_PER_S * 1e3)
+            **_bounds(nbytes, flops, True))
     return out
 
 
@@ -1131,7 +1138,7 @@ def check_layer_norm(randn):
         **times(GPT2_ROWS, GPT2_D))}
 
 
-def check_flash_attention(dev, randn):
+def check_flash_attention(dev, randn, times=True):
     """The three flash-attention kernels (forward, dq, dk/dv) against the
     plain version on the card: the GPT-2 path's shapes (BH 96, T 1024, d
     64, causal), the TinyLlama path's (BH 64, T 2048, d 64, causal), the
@@ -1146,9 +1153,14 @@ def check_flash_attention(dev, randn):
     and non-causal with a key bias), window 256 alone and with the ids
     (timed as `per_shape`, the bound over the visible pairs), window 200
     at T 1000 (with ragged ids and a key bias too) and window 100 with
-    ids at head dim 128.  Limit:
+    ids at head dim 128; then the tensor-core tiles' edges: T 17 (under
+    one warp's 16 rows past a whole one), window 24 (no multiple of 8 or
+    16), Tq 8 causal at a scalar base (B9's kernels: a block's one warp
+    half full) and per-row bases at 0 and T - 1 (B8's backward).  Limit:
     1e-4 of the largest magnitude of each of o, dq, dk, dv and dkbias
-    (lse: 1e-4 absolute)."""
+    (lse: 1e-4 absolute); the forward, dq and dk/dv reruns bit-equal from
+    the segment and window forms on.  With `times`, the kernels are timed
+    at the paths' shapes."""
     import numpy as np
     import torch
 
@@ -1157,7 +1169,12 @@ def check_flash_attention(dev, randn):
         flash_attention_dq,
         flash_attention_fwd,
         flash_attention_grad_plain,
+        flash_attention_piece_dkv,
+        flash_attention_piece_dq,
+        flash_attention_piece_fwd,
         flash_attention_plain,
+        flash_attention_qvec_dkv,
+        flash_attention_qvec_dq,
     )
 
     err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}  # relative to the max magnitude
@@ -1176,6 +1193,8 @@ def check_flash_attention(dev, randn):
              (5, 200, 333, 64, False, True),
              (4, 384, 384, 128, True, True),
              (3, 130, 70, 128, False, False),
+             (3, 17, 17, 64, True, True),
+             (3, 17, 17, 64, False, False),
              # the BERT path: key-padding bias, not causal
              (BERT_BATCH * BERT_HEADS, BERT_LEN, BERT_LEN, d, False, True),
              # WMT's fused_attn path: the source key bias (encoder, cross
@@ -1237,7 +1256,9 @@ def check_flash_attention(dev, randn):
             (pbh, t, d, True, False, PACKED_WINDOW, path_seg),
             (6, 1000, 64, True, False, 200, None),
             (5, 1000, 64, True, True, 200, ragged_ids(5, 1000)),
-            (4, 384, 128, True, False, 100, ragged_ids(4, 384))):
+            (4, 384, 128, True, False, 100, ragged_ids(4, 384)),
+            (4, 200, 64, True, True, 24, None),
+            (3, 300, 64, True, False, 24, ragged_ids(3, 300))):
         q, k, v, do = (randn(n, t_, dh) for _ in range(4))
         kb = randn(n, t_) if with_bias else None
         scale = dh ** -0.5
@@ -1262,17 +1283,55 @@ def check_flash_attention(dev, randn):
                                     scale, window, seg)
         assert all(torch.equal(a, b) for a, b in zip((dk, dv), again)), (
             "dk/dv rerun differs")
+        assert all(torch.equal(a, b) for a, b in zip(
+            (o, lse), flash_attention_fwd(q, k, v, kb, causal, scale, window,
+                                          seg))), "forward rerun differs"
+        assert torch.equal(dq, flash_attention_dq(
+            q, k, v, kb, lse, do, delta, causal, scale, window, seg)), (
+                "dq rerun differs")
+    # the based kernels at the tiles' edges: Tq 8 causal at a scalar base
+    # (the chunk's last 8 positions and a mid one) and per-row bases at 0
+    # and T - 1 (each row's queries past the last key see every key)
+    for n, tq, tk, bases in ((4, 8, 300, (292,)), (4, 8, 300, (100,)),
+                             (4, 16, 300, (0, 299, 150, 7))):
+        q, do = randn(n, tq, 64), randn(n, tq, 64)
+        k, v = randn(n, tk, 64), randn(n, tk, 64)
+        qb = torch.tensor(bases, device=dev)
+        scale = 0.125
+        p_o, p_lse = flash_attention_plain(q, k, v, None, True, scale, qb)
+        delta = (do * p_o).sum(-1)
+        if len(bases) == 1:
+            o, lse = flash_attention_piece_fwd(q, k, v, True, scale, qb)
+            note("fwd", o, p_o)
+            assert (lse - p_lse).abs().max().item() <= 1e-4, ("lse", bases)
+            grads = (flash_attention_piece_dq(q, k, v, p_lse, do, delta, True,
+                                              scale, qb),
+                     *flash_attention_piece_dkv(q, k, v, p_lse, do, delta,
+                                                True, scale, qb))
+        else:
+            grads = (flash_attention_qvec_dq(q, k, v, p_lse, do, delta, qb,
+                                             scale),
+                     *flash_attention_qvec_dkv(q, k, v, p_lse, do, delta, qb,
+                                               scale))
+        want = flash_attention_grad_plain(q, k, v, None, p_lse, do, delta,
+                                          True, scale, qb)
+        for key, got, w in zip(("dq", "dkv", "dkv"), grads, want):
+            note(key, got, w)
     for key, val in err.items():
         assert val <= 1e-4, ("flash_attention disagrees", key, val)
 
     rec = {}
-    for name, site in (("flash_attention_fwd", ":279"),
-                       ("flash_attention_dq", ":447"),
-                       ("flash_attention_dkv", ":471")):
+    for name, site, e in (("flash_attention_fwd", ":279", "fwd"),
+                          ("flash_attention_dq", ":447", "dq"),
+                          ("flash_attention_dkv", ":471", "dkv")):
         rec[name] = dict(
             route="cuda",
             source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
-            replaces="paddle_tpu/ops/pallas_kernels.py" + site)
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site,
+            max_abs_err=err_abs[e], max_rel_err=err[e])
+    if not times:
+        torch.cuda.synchronize()
+        return rec
     for tag, n, t_, causal in (
             ("gpt2", bh, t, True), ("llama", llama_bh, LLAMA_LEN, True),
             ("bert", BERT_BATCH * BERT_HEADS, BERT_LEN, False),
@@ -1293,9 +1352,6 @@ def check_flash_attention(dev, randn):
                                         **forms).items():
             rec[name]["per_shape"]["%s %s" % (tag, times.pop("shape"))] = \
                 times
-    for name, e in (("flash_attention_fwd", "fwd"), ("flash_attention_dq", "dq"),
-                    ("flash_attention_dkv", "dkv")):
-        rec[name].update(max_abs_err=err_abs[e], max_rel_err=err[e])
     torch.cuda.synchronize()
     return rec
 
@@ -1423,7 +1479,9 @@ def _flash_times(randn, bh, t, d, causal=True, window=0, seg=None):
     mask (the boolean mask of the visible pairs, the key bias added).
     The bound counts the visible pairs only: the kernels skip the tiles
     outside the causal band and the window, not those of other
-    segments."""
+    segments; each at the rate of the form flash_plan gives (_bounds)."""
+    import importlib
+
     import torch
     import torch.nn.functional as F
 
@@ -1435,6 +1493,7 @@ def _flash_times(randn, bh, t, d, causal=True, window=0, seg=None):
         flash_attention_plain,
     )
 
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
     q, k, v, do = (randn(bh, t, d) for _ in range(4))
     scale = d ** -0.5
     kb = mask = None
@@ -1493,8 +1552,8 @@ def _flash_times(randn, bh, t, d, causal=True, window=0, seg=None):
         what += ", packed segment ids (%d visible pairs of %d)" % (
             pairs, bh * t * t)
     out = {}
-    for name, kern, plain, lib, nbytes, flops in specs:
-        b, fl = _bound_ms(nbytes, flops)
+    for (name, kern, plain, lib, nbytes, flops), kernel in zip(
+            specs, ("fwd", "dq", "dkv")):
         out[name] = dict(
             shape="q, k, v [%d, %d, %d], %s%s" % (
                 bh, t, d, what,
@@ -1505,7 +1564,8 @@ def _flash_times(randn, bh, t, d, causal=True, window=0, seg=None):
             ms=_time_ms(kern, reps=5, inner=5),
             plain_ms=_time_ms(plain, reps=5, inner=5) if plain else plain_grad,
             library_ms=_time_ms(lib, reps=5, inner=5) if lib else lib_fwd_bwd,
-            bound_ms=b, bound_by=fl)
+            **_bounds(nbytes, flops,
+                      fa.flash_plan(kernel, t, t, d) == fa.FLASH_TC))
     return out
 
 
@@ -1523,24 +1583,29 @@ def _pairs(tq, tk, qbases, window=0):
 
 
 def _based_bounds(bh, tq, tk, d, qbases, window=0):
-    """(fwd, dq, dkv) bound records of the based kernels over rows whose
-    query bases are `qbases` (one per row): bytes of q, o (or do, dq),
-    lse and delta, and of the keys each row needs (dk and dv are written
-    whole), against 4, 6 and 8 flops per pair and head-dim column."""
+    """(fwd, dq, dkv) bound records (_bounds) of the based kernels over
+    rows whose query bases are `qbases` (one per row): bytes of q, o (or
+    do, dq), lse and delta, and of the keys each row needs (dk and dv are
+    written whole), against 4, 6 and 8 flops per pair and head-dim
+    column, each at the rate of the form flash_plan gives."""
+    import importlib
+
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
     pairs = _pairs(tq, tk, qbases, window)
     keys = sum(max(0, min(tk, b + tq) - _first_key(b, window))
                for b in qbases)  # needed K/V rows
     qrow, krow = 4 * tq * d, 4 * d
-    fwd = _bound_ms(2 * bh * qrow + 2 * keys * krow + 4 * bh * tq,
-                    4 * pairs * d)
-    dq = _bound_ms(3 * bh * qrow + 2 * keys * krow + 8 * bh * tq,
-                   6 * pairs * d)
-    dkv = _bound_ms(2 * bh * qrow + 2 * keys * krow + 2 * bh * tk * krow
-                    + 8 * bh * tq, 8 * pairs * d)
-    return fwd, dq, dkv
+    return tuple(
+        _bounds(nbytes, per_pair * pairs * d,
+                fa.flash_plan(kernel, tq, tk, d) == fa.FLASH_TC)
+        for kernel, nbytes, per_pair in (
+            ("fwd", 2 * bh * qrow + 2 * keys * krow + 4 * bh * tq, 4),
+            ("dq", 3 * bh * qrow + 2 * keys * krow + 8 * bh * tq, 6),
+            ("dkv", 2 * bh * qrow + 2 * keys * krow + 2 * bh * tk * krow
+             + 8 * bh * tq, 8)))
 
 
-def check_attention_pieces(dev, randn):
+def check_attention_pieces(dev, randn, times=True):
     """flash_attention_piece (B9: the based forward, dq and dk/dv kernels
     with one offset for every row) and flash_attention_qvec's backward
     (B8: the based dq and dk/dv with a base per row) against their plain
@@ -1557,8 +1622,8 @@ def check_attention_pieces(dev, randn):
     see no key and must keep the lse sentinel and zero dq) and at the
     prefill chunk (qoff 192 and 960, the cache's last chunk).  Limits as the B3 rows: 1e-4 of
     the largest magnitude of o (of the rows that see a key), dq, dk and
-    dv, 1e-4 absolute on the lse; every rerun bit-equal.  Timed with
-    CUDA events beside the plain version and
+    dv, 1e-4 absolute on the lse; every rerun bit-equal.  With `times`,
+    timed with CUDA events beside the plain version and
     scaled_dot_product_attention with the same boolean mask."""
     import importlib
 
@@ -1701,6 +1766,9 @@ def check_attention_pieces(dev, randn):
             source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             replaces="paddle_tpu/ops/pallas_kernels.py" + site,
             max_abs_err=err_abs[e], max_rel_err=err[e])
+    if not times:
+        torch.cuda.synchronize()
+        return rec
 
     def piece_times(bh, tq, tk, off, window=0):
         q, k, v, do = (randn(bh, n, d) for n in (tq, tk, tk, tq))
@@ -1733,21 +1801,21 @@ def check_attention_pieces(dev, randn):
                     q, k, v, True, scale, qoff, window), inner=5),
                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, scale=scale), inner=5),
-                bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+                **fwd_b),
             "flash_attention_piece_dq": dict(
                 shape=shape + bwd_note,
                 ms=_time_ms(lambda: flash_attention_piece_dq(
                     q, k, v, lse, do, delta, True, scale, qoff, window),
                     inner=5),
                 plain_ms=plain_bwd, library_ms=lib_bwd,
-                bound_ms=dq_b[0], bound_by=dq_b[1]),
+                **dq_b),
             "flash_attention_piece_dkv": dict(
                 shape=shape + bwd_note,
                 ms=_time_ms(lambda: flash_attention_piece_dkv(
                     q, k, v, lse, do, delta, True, scale, qoff, window),
                     inner=5),
                 plain_ms=plain_bwd, library_ms=lib_bwd,
-                bound_ms=dkv_b[0], bound_by=dkv_b[1])}
+                **dkv_b)}
 
     # the GPT-2 path's chunk is the forward's row; the ring's diagonal
     # chunk the backward's (no path of the repo runs it yet)
@@ -1790,8 +1858,7 @@ def check_attention_pieces(dev, randn):
             ("flash_attention_qvec_dkv", lambda: flash_attention_qvec_dkv(
                 q, k, v, lse, do, delta, qs, scale), dkv_b)):
         rec[name].update(shape=shape, ms=_time_ms(fn, inner=5),
-                         plain_ms=plain_bwd, library_ms=lib_bwd,
-                         bound_ms=b[0], bound_by=b[1])
+                         plain_ms=plain_bwd, library_ms=lib_bwd, **b)
     torch.cuda.synchronize()
     return rec
 
@@ -3759,7 +3826,7 @@ def main():
                     "library_ms", "shape"):
             entry[key] = r[key]
         for key in ("per_shape", "max_rel_err", "max_lse_err", "library_note",
-                    "bound_ms_3xtf32"):
+                    "bound_ms_fp32"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

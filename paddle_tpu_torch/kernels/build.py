@@ -59,9 +59,11 @@ SIGNATURES = {
     "ptt_linear_xent_dw_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
     # R, H, then the plan's four (form, n4, vec, rows: layer_norm.ln_plan)
     "ptt_layer_norm": (_P,) * 6 + (_I,) * 6 + (_F, _P),
-    "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P, _P),
-    "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 6 + (_F, _I, _P, _P),
-    "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 6 + (_F, _I, _P, _P),
+    # BH, Tq, Tk, d, then the plan's form (flash_attention.flash_plan),
+    # then the mask: causal, qstride, scale, window, segment ids
+    "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P, _P),
+    "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 7 + (_F, _I, _P, _P),
+    "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_softmax_xent_fwd": (_P,) * 3 + (_I, _I, _P),
     "ptt_softmax_xent_bwd": (_P,) * 4 + (_I, _I, _P),
     "ptt_lstm_seq": (_P,) * 7 + (_I,) * 3 + (_P,),
@@ -123,10 +125,10 @@ def build():
         out, _ = p.communicate()
         logs.append("== %s\n%s" % (os.path.basename(src), out))
         if p.returncode != 0:
-            failed.append(os.path.basename(src))
+            failed.append(logs[-1])
     build_log = "\n".join(logs)
     if failed:
-        raise RuntimeError("nvcc failed for %s:\n%s" % (failed, build_log))
+        raise RuntimeError("nvcc failed:\n%s" % "\n".join(failed))
     tmp = lib_path + ".tmp%d" % os.getpid()
     link = subprocess.run(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",

@@ -34,8 +34,9 @@
 //
 // Tiled form (M > 16): 3xTF32 on mma.sync.m16n8k8 (tf32_mma.cuh, shared
 // with linear_xent.cu: the same split, big*small order and fragment
-// layout; the split's rounding is done in integer ops, see split_rna).  A
-// block of 8 warps owns a bm x bn output tile (matmul_bias_act 128 x 128
+// layout; the split's rounding is done in integer ops, tf32_mma.cuh's
+// split_rna, as the mainloop does 96 splits a warp per stage beside its
+// 192 mma).  A block of 8 warps owns a bm x bn output tile (matmul_bias_act 128 x 128
 // or 64 x 64; matmul_swiglu 128 x 64 or 64 x 64 of each of g and u, two
 // accumulator sets from the same x fragments); a warp owns 32 rows and
 // bn / (8 / (bm / 32)) columns.  K advances in 32-deep stages through a
@@ -83,6 +84,8 @@ using ptt::cp_async4;
 using ptt::cp_async_commit;
 using ptt::cp_async_wait;
 using ptt::mma3;
+using ptt::split2_rna;
+using ptt::split_rna;
 
 constexpr int kThreads = 256;
 constexpr int BK = 32;        // depth of a stage: one mma accumulation from zero
@@ -182,30 +185,6 @@ __device__ __forceinline__ void cluster_finish(float* part, int rows, int cols, 
 }
 
 // ---- tiled form: 3xTF32 tensor-core tiles -------------------------------------
-// The split of mma3's operands, with the values of tf32_mma.cuh's split
-// for finite normal floats: cvt.rna.tf32.f32 rounds the magnitude to
-// nearest, ties away from zero, which on the bit pattern is adding half of
-// the 13 dropped bits' unit and clearing them.  Done so in integer ops:
-// cvt issues at a quarter of their rate (16 against 64 results a clock an
-// SM in the CUDA guide's table), and the mainloop does 96 splits a warp
-// per stage beside its 192 mma.
-__device__ __forceinline__ unsigned rna_bits(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ Split split_rna(float a) {
-  Split s;
-  s.big = rna_bits(a);
-  s.small = rna_bits(a - __uint_as_float(s.big));
-  return s;
-}
-
-__device__ __forceinline__ void split2_rna(const float* p, Split& lo, Split& hi) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  lo = split_rna(v.x);
-  hi = split_rna(v.y);
-}
-
 constexpr int kStages = 4;  // the cp.async ring
 
 __device__ __forceinline__ int swz_x(int row) { return (row & 3) << 3; }

@@ -1,6 +1,6 @@
 // 3xTF32 on mma.sync and cp.async staging: the device helpers shared by
 // the kernels that run float32 products on the tensor cores
-// (linear_xent.cu, matmul_bias_act.cu).
+// (linear_xent.cu, matmul_bias_act.cu, flash_attention.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,6 +55,36 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4],
   mma_tf32(d, a[0].small, a[1].small, a[2].small, a[3].small, b[0].big, b[1].big);
   mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b[0].small, b[1].small);
   mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b[0].big, b[1].big);
+}
+
+// The split with the values of split() for finite normal floats:
+// cvt.rna.tf32.f32 rounds the magnitude to nearest, ties away from zero,
+// which on the bit pattern is adding half of the 13 dropped bits' unit and
+// clearing them.  Done so in integer ops: cvt issues at a quarter of their
+// rate (16 against 64 results a clock an SM in the CUDA guide's table).
+__device__ __forceinline__ unsigned rna_bits(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ Split split_rna(float a) {
+  Split s;
+  s.big = rna_bits(a);
+  s.small = rna_bits(a - __uint_as_float(s.big));
+  return s;
+}
+
+__device__ __forceinline__ void split2_rna(const float* p, Split& lo, Split& hi) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  lo = split_rna(v.x);
+  hi = split_rna(v.y);
+}
+
+// mma3 with the B fragment split ahead of time into one 16-byte word,
+// b = {b[0].big, b[1].big, b[0].small, b[1].small}
+__device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4], const uint4& b) {
+  mma_tf32(d, a[0].small, a[1].small, a[2].small, a[3].small, b.x, b.y);
+  mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b.z, b.w);
+  mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b.x, b.y);
 }
 
 // ---- cp.async staging ---------------------------------------------------------

@@ -57,8 +57,10 @@ reference's ``_dense_attention``, with its lse and its segment mask);
 ``flash_attention_piece_plain`` and ``flash_attention_piece_grad_plain``
 name the piece's, ``flash_attention_qvec_plain`` the serving forward's.
 CPU and meta tensors take them, CUDA tensors launch the kernels or
-raise.  The forms are ``torch.autograd.Function``s (the reference's
-``jax.custom_vjp``): the forward saves o and lse, the backward launches
+raise.  The tile kernels run each launch in the form flash_plan gives
+(a function of the shape): 3xTF32 tensor-core tiles at head dim 64,
+SIMT FP32 tiles at 128.  The forms are ``torch.autograd.Function``s
+(the reference's ``jax.custom_vjp``): the forward saves o and lse, the backward launches
 dq and dk/dv in a nested function.  Each form counts its own launches.
 """
 
@@ -69,7 +71,7 @@ import torch
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "attention_scores",
-           "flash_attention_grad_plain", "flash_attention_fwd",
+           "flash_attention_grad_plain", "flash_attention_fwd", "flash_plan",
            "flash_attention_fwd_rows", "rows_form", "rows_plan",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_piece", "flash_attention_piece_plain",
@@ -93,6 +95,9 @@ ROWS_SLICE_MIN = 128
 ROWS_SLICE_MAX = {64: 256, 128: 128}
 
 RowsPlan = collections.namedtuple("RowsPlan", "slice_len slices")
+# the tile kernels' forms: 3xTF32 tensor-core tiles and SIMT FP32 tiles
+# (flash_plan chooses)
+FLASH_SIMT, FLASH_TC = 0, 1
 
 
 def rows_form(tq, causal=False, window=0, seg=None):
@@ -114,6 +119,23 @@ def rows_plan(tk, d):
     slice_len = min(max(per, ROWS_SLICE_MIN), ROWS_SLICE_MAX[d],
                     32 * -(-tk // 32))
     return RowsPlan(slice_len, -(-tk // slice_len))
+
+
+def flash_plan(kernel, tq, tk, d):
+    """The form of one tile kernel ("fwd", "dq" or "dkv") at a shape,
+    handed to it as one int; each form fixes its tiles in the kernel
+    source.  Head dim 64 takes the tensor-core form (128-row blocks; the
+    forward walks 64-key tiles, dq 32-key tiles, dk/dv 32-query tiles),
+    except dq at a shape with at most 64 queries and 64 keys (WMT's
+    512 x 64 x 64): there a 128-row block runs half its warps idle over
+    two key tiles, and the SIMT form measured faster on the card
+    (scripts/flash_attention_forms_check.py).  Head dim 128 takes the
+    SIMT form (64-row blocks walking 64-key tiles, dk/dv 32-query tiles),
+    whose resident operands fit the registers.  A function of the shape
+    alone, never of the data, the masks or the query base."""
+    if d == 64 and (kernel != "dq" or tq > 64 or tk > 64):
+        return FLASH_TC
+    return FLASH_SIMT
 
 
 def _check_form(name, tq, tk, causal, qbase, window, seg):
@@ -246,6 +268,9 @@ def _check(name, q, k, v, kbias, causal, qbase, window, seg, *rows):
     if max(q.numel(), k.numel()) >= 2 ** 31:
         raise ValueError("%s: operands exceed the kernels' 32-bit row "
                          "indexing" % name)
+    if any(t.data_ptr() % 16 for t in (q, k, v, *rows) if t.dim() == 3):
+        raise ValueError("%s: q, k, v (and dO) must start on 16 bytes (the "
+                         "kernels stage their rows in 16-byte copies)" % name)
     return bh, tq, tk, d
 
 
@@ -275,8 +300,8 @@ def _fwd(name, q, k, v, kbias, causal, scale, qbase=None, window=0,
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     build.launch("ptt_flash_attention_fwd", q, k, v, kbias, qb, o, lse, bh,
-                 tq, tk, d, int(bool(causal)), stride, float(scale),
-                 int(window), _seg_arg(seg))
+                 tq, tk, d, flash_plan("fwd", tq, tk, d), int(bool(causal)),
+                 stride, float(scale), int(window), _seg_arg(seg))
     return o, lse
 
 
@@ -289,8 +314,9 @@ def _dq(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None,
     qb, stride = _qbase_arg(qbase, q.device)
     dq = torch.empty_like(q)
     build.launch("ptt_flash_attention_dq", q, k, v, kbias, qb, lse, do, delta,
-                 dq, bh, tq, tk, d, int(bool(causal)), stride, float(scale),
-                 int(window), _seg_arg(seg))
+                 dq, bh, tq, tk, d, flash_plan("dq", tq, tk, d),
+                 int(bool(causal)), stride, float(scale), int(window),
+                 _seg_arg(seg))
     return dq
 
 
@@ -306,7 +332,8 @@ def _dkv(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None,
     dkb = (torch.empty((bh, tk), dtype=torch.float32, device=q.device)
            if kbias is not None else None)
     build.launch("ptt_flash_attention_dkv", q, k, v, kbias, qb, lse, do,
-                 delta, dk, dv, dkb, bh, tq, tk, d, int(bool(causal)), stride,
+                 delta, dk, dv, dkb, bh, tq, tk, d,
+                 flash_plan("dkv", tq, tk, d), int(bool(causal)), stride,
                  float(scale), int(window), _seg_arg(seg))
     return dk, dv, dkb
 
@@ -347,11 +374,10 @@ def flash_attention_fwd(q, k, v, kbias=None, causal=False, scale=None,
                         window=0, seg=None):
     """B3's forward kernel: (o, lse).  The decode steps' few-row calls
     (rows_form) take flash_attention_fwd_rows, which counts them; this
-    entry point counts the tile kernel's launches only.  A few-row call
-    needs k and v to start on 16 bytes, where the tile kernel took any
-    start: a contiguous [BH, Tk, d] at d 64 or 128 cut along BH or Tk
-    from an allocation always does, a view at some other offset
-    raises."""
+    entry point counts the tile kernel's launches only.  Both kernels
+    need their operands to start on 16 bytes: a contiguous [BH, T, d]
+    at d 64 or 128 cut along BH or T from an allocation always does, a
+    view at some other offset raises."""
     if not build.use_kernel(q):
         return flash_attention_plain(q, k, v, kbias, causal, scale, None,
                                      window, seg)
@@ -366,7 +392,7 @@ def flash_attention_fwd(q, k, v, kbias=None, causal=False, scale=None,
 def flash_attention_dq(q, k, v, kbias, lse, do, delta, causal=False,
                        scale=None, window=0, seg=None):
     """B3's dq kernel: one block per query tile walks the key tiles in
-    order."""
+    order (flash_plan's tiles)."""
     if not build.use_kernel(q):
         return flash_attention_grad_plain(q, k, v, kbias, lse, do, delta,
                                           causal, scale, None, window,
@@ -380,7 +406,7 @@ def flash_attention_dq(q, k, v, kbias, lse, do, delta, causal=False,
 def flash_attention_dkv(q, k, v, kbias, lse, do, delta, causal=False,
                         scale=None, window=0, seg=None):
     """B3's dk/dv kernel: (dk, dv, dkbias or None); one block per key
-    tile walks the query tiles in order."""
+    tile walks the query tiles in order (flash_plan's tiles)."""
     if not build.use_kernel(q):
         _, dk, dv, dkb = flash_attention_grad_plain(q, k, v, kbias, lse, do,
                                                     delta, causal, scale,

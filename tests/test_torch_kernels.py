@@ -863,6 +863,122 @@ def test_rows_launch_passes_the_plan(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# B3's tile kernels: the plan (the form), and dk/dv at the tiles' edges
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_flash_plan_depends_on_the_shape_only(kernel):
+    """flash_plan is a function of (kernel, Tq, Tk, d) alone: head dim 64
+    takes the tensor-core form except dq at a shape within 64 x 64 (the
+    SIMT form), head dim 128 the SIMT form."""
+    tc, simt = fa_mod.FLASH_TC, fa_mod.FLASH_SIMT
+    for tq, tk in ((1024, 1024), (2048, 2048), (128, 128), (64, 64),
+                   (16, 1024), (1024, 16), (65, 64), (17, 17)):
+        form = fa_mod.flash_plan(kernel, tq, tk, 64)
+        assert form == fa_mod.flash_plan(kernel, tq, tk, 64)
+        if kernel == "dq" and tq <= 64 and tk <= 64:
+            assert form == simt
+        else:
+            assert form == tc
+        assert fa_mod.flash_plan(kernel, tq, tk, 128) == simt
+
+
+@pytest.mark.parametrize("tq,tk,block_q,block_k,causal,window,with_bias", [
+    (17, 17, 17, 17, True, 0, False),     # under one warp's 16 rows past one
+    (17, 17, 17, 17, False, 0, True),
+    (64, 64, 32, 32, True, 0, False),     # one 128-row block, half its warps
+    (33, 33, 33, 33, True, 1, False),     # each query sees itself only
+    (200, 200, 40, 40, True, 24, False),  # window 24: no multiple of 8 or 16
+    (300, 300, 100, 100, True, 24, True),
+    (96, 96, 32, 32, True, 40, False),
+    (130, 70, 65, 70, False, 0, True),    # ragged Tq != Tk, key bias
+    (48, 48, 48, 48, True, 0, True),
+    (40, 136, 40, 68, False, 0, False),
+])
+def test_dkv_matches_the_reference_at_the_tile_edges(
+        tq, tk, block_q, block_k, causal, window, with_bias):
+    """flash_attention_dkv's (dk, dv, dkbias) against the reference's
+    _flash_bwd (Pallas interpret mode) at the edges of the tensor-core
+    form's tiles (16-row warps, 128-row blocks, 32-query dk/dv tiles):
+    lengths under and past one warp's rows, windows of 1, 24 and 40, and
+    ragged non-causal shapes.  On the CPU the wrapper takes its plain
+    version, the one chip_smoke.py holds the kernel against at these
+    edges.  rtol = atol = 1e-5."""
+    rng = np.random.RandomState(tq + tk + window)
+    bh, d, scale = 2, 16, 0.25
+    q, do = (rng.randn(bh, tq, d).astype("float32") for _ in range(2))
+    k, v = (rng.randn(bh, tk, d).astype("float32") for _ in range(2))
+    kb = rng.randn(bh, tk).astype("float32")
+    if with_bias:
+        kb[:, -3:] = -1e9  # masked keys: zero probability and gradient
+    else:
+        kb[:] = 0.0
+    jq, jk, jv, jkb = (jnp.asarray(a) for a in (q, k, v, kb))
+    r_o, r_lse = pk._flash_fwd(jq, jk, jv, jkb, causal, scale, block_q,
+                               block_k, window)
+    _, r_dk, r_dv, r_dkb = pk._flash_bwd(
+        jq, jk, jv, jkb, r_o, r_lse, jnp.asarray(do), causal, scale,
+        block_q, block_k, window=window)
+    o, lse = _t(np.array(r_o)), _t(np.array(r_lse))
+    delta = (_t(do) * o).sum(-1)
+    dk, dv, dkb = flash_attention_dkv(
+        _t(q), _t(k), _t(v), _t(kb) if with_bias else None, lse, _t(do),
+        delta, causal, scale, window)
+    np.testing.assert_allclose(dk.numpy(), np.asarray(r_dk), **TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(r_dv), **TOL)
+    if with_bias:
+        np.testing.assert_allclose(dkb.numpy(), np.asarray(r_dkb), **TOL)
+        assert np.abs(dkb.numpy()[:, -3:]).max() == 0.0
+    else:
+        assert dkb is None
+
+
+def test_flash_launches_pass_the_plan(monkeypatch):
+    """_fwd, _dq and _dkv (B3, B9's piece, B8's backward) hand
+    build.launch flash_plan's form right after the head dim, in the
+    order build.SIGNATURES declares, the form of the kernel and the
+    shape whatever the batch; a q, k or v that does not start on 16
+    bytes raises."""
+    calls = []
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+
+    def form_arg(name, args):
+        sig = build.SIGNATURES[name]
+        assert len(args) + 1 == len(sig)  # launch appends the stream
+        ints = [i for i, kind in enumerate(sig[:-1]) if kind is build._I]
+        # BH, Tq, Tk, d, the form, causal, qstride
+        return [args[i] for i in ints[:7]]
+
+    for bh, tq, tk, causal, window in ((2, 40, 40, True, 0),
+                                       (3, 300, 300, True, 24),
+                                       (1, 64, 64, False, 0),
+                                       (2, 130, 70, False, 0)):
+        q, k = torch.ones(bh, tq, 64), torch.ones(bh, tk, 64)
+        lse, do = torch.zeros(bh, tq), torch.ones(bh, tq, 64)
+        flash_attention_fwd(q, k, k, None, causal, None, window)
+        flash_attention_dq(q, k, k, None, lse, do, lse, causal, None, window)
+        flash_attention_dkv(q, k, k, None, lse, do, lse, causal, None, window)
+        for (name, args), kernel in zip(calls[-3:], ("fwd", "dq", "dkv")):
+            assert name == "ptt_flash_attention_" + kernel
+            assert form_arg(name, args) == [
+                bh, tq, tk, 64, fa_mod.flash_plan(kernel, tq, tk, 64),
+                int(causal), 0]
+    qoff, q, k = torch.tensor([5]), torch.ones(2, 8, 64), torch.ones(2, 40, 64)
+    lse = torch.zeros(2, 8)
+    flash_attention_piece_fwd(q, k, k, True, None, qoff)
+    flash_attention_piece_dkv(q, k, k, lse, q, lse, True, None, qoff)
+    flash_attention_qvec_dq(q, k, k, lse, q, lse, torch.tensor([0, 39]))
+    for (name, args), kernel, stride in zip(calls[-3:], ("fwd", "dkv", "dq"),
+                                            (0, 0, 1)):
+        assert form_arg(name, args) == [
+            2, 8, 40, 64, fa_mod.flash_plan(kernel, 8, 40, 64), 1, stride]
+    off = torch.ones(2 * 40 * 64 + 1)[1:].view(2, 40, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_fwd(off, off, off, None, True)
+
+
+# ---------------------------------------------------------------------------
 # flash_attention_piece and the qvec backward: the based kernels
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("qoff", [0, 128])
@@ -958,13 +1074,15 @@ def test_based_kernels_take_the_query_base_on_the_device(monkeypatch):
     name, args = launched[0]
     assert name == "ptt_flash_attention_fwd"
     assert args[4].dtype == torch.int32 and args[4].tolist() == [2]
-    assert args[7:13] == (2, 4, 6, 64, 1, 0)  # BH, Tq, Tk, d, causal, stride
+    # BH, Tq, Tk, d, the form (flash_plan), causal, stride
+    tc, simt = fa_mod.FLASH_TC, fa_mod.FLASH_SIMT
+    assert args[7:14] == (2, 4, 6, 64, tc, 1, 0)
     name, args = launched[1]
     assert name == "ptt_flash_attention_dkv" and args[4].tolist() == [2]
-    assert args[11:17] == (2, 4, 6, 64, 1, 0)
+    assert args[11:18] == (2, 4, 6, 64, tc, 1, 0)
     name, args = launched[2]
     assert name == "ptt_flash_attention_dq" and args[4].tolist() == [1, 2]
-    assert args[9:15] == (2, 4, 6, 64, 1, 1)
+    assert args[9:16] == (2, 4, 6, 64, simt, 1, 1)
     qs = torch.tensor([1, 2])
     flash_attention_qvec(q, k, k, qs)
     assert launched[-1][0] == "ptt_flash_attention_qvec"
