@@ -9,14 +9,17 @@ In order, it:
 
 1. prints the card (nvidia-smi name and power limit) and the toolchain
    (torch, its CUDA, nvcc);
-2. builds the hand-written kernels from paddle_tpu_torch/kernels/csrc;
+2. builds the hand-written kernels from paddle_tpu_torch/kernels/csrc,
+   and beside them scripts/recurrent_kernel_check.py's step-split
+   library (the recurrent kernels run for a prefix of each step);
 3. holds each kernel against its plain PyTorch version on the card, at
    the serving, training and decode paths' shapes plus ragged ones (the
    softmax cross entropy at BERT's NSP [32, 2] and MLM-wide [4096,
    30522]; flash_attention_piece's forward at the chunked prefills'
    shapes and its backward, with an lse cotangent, at ring-like ones;
    flash_attention_qvec's backward at the serving shape; fused_lstm and
-   fused_gru at the recurrent paths' shapes with ragged lengths; B3's
+   fused_gru at the recurrent paths' shapes with ragged lengths, and two
+   launches back to back on one stream, with where a step goes; B3's
    few-row forward at the decode steps' three shapes and its plan's
    edges, an all-masked row among them; B3's tensor-core tiles at their
    edges: T 17, window 24, Tq 8 at a scalar base, per-row bases at 0
@@ -121,7 +124,9 @@ In order, it:
 19. beam-decodes with build_decode_step at those widths (beam 4 over 2
    sentences, 16 steps through BeamSearchDecoder; fused_gru at T 50 and
    at T 1 from H0 every step), prints the decode step's p50, and the
-   narrow decode step card vs CPU (tokens equal, log-probs 1e-5);
+   narrow decode step card vs CPU (tokens equal, log-probs 1e-5) (with
+   --profile, 3 decode steps under the profiler,
+   chiprun_out/profile_decode_seq2seq.json);
 20. trains Transformer-base vocab-parallel (the WMT program on a {"dp":
    1, "mp": 2} mesh whose rule table vocab-shards softmax_out.w): two
    ranks spawned on the one card over a gloo group, each holding its
@@ -3273,18 +3278,30 @@ def check_recurrent(dev, randn, g):
     3 x 512], the decode step's encoder [8, 50, 3 x 512] and its one GRU
     step [8, 1, 3 x 512] from a nonzero h0, and the narrow legs' H 16;
     with ragged lengths (0, 1 and T among them) and full ones; plus H 200
-    and 700 (700 over 132 SMs leaves the last block 4 of its 6 units)
-    and 200 rows at H 512 (more rows than one staged tile).  Limit 1e-5
-    absolute on hs and cs (2e-6 measured on the H100 at the paths'
-    shapes: the kernel's fixed-order dot and the plain version's matmul
-    differ in summation order over up to 64 steps); every rerun is
-    bit-equal.  Timed with CUDA events (a cooperative launch, so no
-    graph capture) at the paths' full-length shapes, beside the plain
-    version and, for the LSTM, torch.nn.LSTM (cuDNN)."""
+    and 700 (W in shared memory: rnn_plan's second form; 117 blocks of 6
+    units, the last one 4), 200 rows at H 512 (7 passes of 32 rows) and H
+    130 (rows not 16-byte aligned: 4-byte copies; 130 blocks of one unit).
+    Limit 1e-5 absolute on hs and cs (the kernels' 3xTF32 tensor-core
+    products and the plain version's float32 matmul differ in rounding
+    and summation order over up to 64 steps); every rerun is bit-equal,
+    and so is each of two launches back to back on one stream, with
+    other inputs, against its own solo run (an arrival of the first
+    launch must not release the second's waiters).  Timed at the paths'
+    full-length shapes with CUDA events (a cooperative launch, so no graph
+    capture): the kernel and, for the LSTM, torch.nn.LSTM (cuDNN) as
+    device time, the calls queued behind a spin
+    (recurrent_kernel_check.device_ms: issued one by one, a 0.3 ms kernel
+    measures the wrappers' Python), the plain version as issued; with
+    each record its rnn_plan, the empty recurrence
+    (floor_ms: the barriers alone, the design's serial floor) and
+    where a step goes in this form and the grid-sync form it replaced
+    (scripts/recurrent_kernel_check.py's step_split)."""
     import torch
 
+    import recurrent_kernel_check as rkc
     from paddle_tpu_torch.kernels import (fused_gru, fused_lstm,
                                           gru_seq_plain, lstm_seq_plain)
+    from paddle_tpu_torch.kernels.recurrent import rnn_plan
 
     def inputs(b, t, h, gates, ragged):
         if ragged:
@@ -3305,11 +3322,11 @@ def check_recurrent(dev, randn, g):
     rows = S2S_BEAM * S2S_BEAM_SENTS
     shapes = [("lstm", LSTM_BATCH, LSTM_LEN, LSTM_H),
               ("lstm", 4, 12, 16), ("lstm", 5, 7, 200), ("lstm", 6, 9, 700),
-              ("lstm", 200, 5, LSTM_H),
+              ("lstm", 200, 5, LSTM_H), ("lstm", 3, 6, 130),
               ("gru", S2S_BATCH, S2S_LEN, S2S_H),
               ("gru", rows, S2S_LEN, S2S_H),
               ("gru", rows, 1, S2S_H), ("gru", 4, 8, 16), ("gru", 5, 7, 200),
-              ("gru", 6, 9, 700), ("gru", 200, 5, S2S_H)]
+              ("gru", 6, 9, 700), ("gru", 200, 5, S2S_H), ("gru", 3, 6, 130)]
     err = {"lstm": 0.0, "gru": 0.0}
     for kind, b, t, h in shapes:
         for ragged in (True, False):
@@ -3321,6 +3338,23 @@ def check_recurrent(dev, randn, g):
             want = run(kind, *args, plain=True)
             err[kind] = max(err[kind], max((a - c).abs().max().item()
                                            for a, c in zip(got, want)))
+    # two launches back to back on one stream (no sync between), each
+    # against its own solo run and its plain version
+    for kind, b, t, h in (("lstm", LSTM_BATCH, LSTM_LEN, LSTM_H),
+                          ("gru", S2S_BATCH, S2S_LEN, S2S_H),
+                          ("gru", rows, S2S_LEN, S2S_H),
+                          ("lstm", 6, 9, 700)):
+        gates = 4 if kind == "lstm" else 3
+        first, second = (inputs(b, t, h, gates, True) for _ in range(2))
+        solo = [run(kind, *first), run(kind, *second)]
+        torch.cuda.synchronize()
+        pair = [run(kind, *first), run(kind, *second)]
+        for got, alone, args in zip(pair, solo, (first, second)):
+            assert all(torch.equal(a, c) for a, c in zip(got, alone)), (
+                "back-to-back launch not bit-equal", kind, b, t, h)
+            want = run(kind, *args, plain=True)
+            err[kind] = max(err[kind], max((a - c).abs().max().item()
+                                           for a, c in zip(got, want)))
     assert max(err.values()) <= 1e-5, ("recurrent kernels disagree", err)
 
     def times(kind, b, t, h):
@@ -3328,22 +3362,29 @@ def check_recurrent(dev, randn, g):
         x, w, h0, c0, lens = inputs(b, t, h, gates, False)
         states = 2 if kind == "lstm" else 1
         # the work this run's lengths need: each valid step's product
-        # h [b, H] @ W [H, gates H]; bytes: xproj, W, the initial states
-        # and the lengths read once, hs (and cs) written once
+        # h [b, H] @ W [H, gates H] at the 3xTF32 rate (both of rnn_plan's
+        # forms run it on mma.sync; the FP32 bound beside); bytes: xproj,
+        # W, the initial states and the lengths read once, hs (and cs)
+        # written once
         steps = int(lens.sum())
-        b_ms, by = _bound_ms(4 * (b * t * gates * h + h * gates * h
-                                  + states * b * h + b + states * b * t * h),
-                             2 * steps * h * gates * h)
-        rec = dict(ms=_events_ms(lambda: run(kind, x, w, h0, c0, lens), 10),
+        bounds = _bounds(4 * (b * t * gates * h + h * gates * h
+                              + states * b * h + b + states * b * t * h),
+                         2 * steps * h * gates * h, True)
+        split = rkc.step_split(kind, b, t, h)
+        plan = rnn_plan(b, h, gates)
+        rec = dict(ms=rkc.device_ms(lambda: run(kind, x, w, h0, c0, lens)),
                    plain_ms=_events_ms(
                        lambda: run(kind, x, w, h0, c0, lens, plain=True), 3),
-                   bound_ms=b_ms, bound_by=by, library_ms=None)
+                   library_ms=None, **bounds,
+                   floor_ms=split["shipped"]["barrier"],
+                   plan=dict(plan._asdict(), k_slice=8 * plan.k_steps),
+                   step_split=split)
         if kind == "lstm":
             cudnn = torch.nn.LSTM(h, h, batch_first=True).to(dev)
             xin = randn(b, t, h)
             with torch.no_grad():
-                rec["library_ms"] = _events_ms(
-                    lambda: cudnn(xin, (h0[None], c0[None])), 10)
+                rec["library_ms"] = rkc.device_ms(
+                    lambda: cudnn(xin, (h0[None], c0[None])))
         return rec
 
     lstm = times("lstm", LSTM_BATCH, LSTM_LEN, LSTM_H)
@@ -3523,7 +3564,7 @@ def _beam_decode(exe, main, logp, new_h, src, beam, hidden, steps):
     return ids, scores, logps
 
 
-def decode_seq2seq(dev):
+def decode_seq2seq(dev, profile_dir=None):
     """The GRU beam decode path: build_decode_step at the seq2seq widths
     (dictionaries 30000, embedding and hidden 512, source 50 tokens),
     random weights from a seed, driven by BeamSearchDecoder: beam 4 over
@@ -3531,7 +3572,9 @@ def decode_seq2seq(dev):
     T 50) and takes one GRU step from the previous hidden state
     (fused_gru at T 1 with H0); every run's launches are held to its
     program's, every step's log-probs are finite with rows that
-    normalize."""
+    normalize.  With profile_dir, 3 more decode steps (from the start
+    token and a zero state) under the profiler
+    (chiprun_out/profile_decode_seq2seq.json)."""
     import numpy as np
 
     import paddle_tpu_torch as ptt
@@ -3552,6 +3595,15 @@ def decode_seq2seq(dev):
         ids, scores, logps = _beam_decode(exe, main, logp, new_h, src,
                                           S2S_BEAM, S2S_H, S2S_BEAM_STEPS)
         wall = time.perf_counter() - t0
+        launches = dict(runs.totals)
+        p50 = _p50_ms(runs.times[id(main)])
+        if profile_dir:
+            feed = {"src_word_id": src,
+                    "cur_token": np.ones((len(src), 1), "int64"),
+                    "prev_hidden": np.zeros((len(src), S2S_H), "float32")}
+            profile_training(lambda: exe.run(main, feed=feed,
+                                             fetch_list=[logp, new_h]),
+                             profile_dir, name="decode_seq2seq")
     rows = S2S_BEAM * S2S_BEAM_SENTS
     for lp in logps:
         assert lp.shape == (rows, S2S_DICT) and np.isfinite(lp).all()
@@ -3559,9 +3611,7 @@ def decode_seq2seq(dev):
         assert np.abs(mass - 1).max() < 1e-3, mass
     assert ids.shape[:2] == (S2S_BEAM_SENTS, S2S_BEAM)
     assert np.isfinite(scores).all()
-    launches = runs.totals
     assert launches["fused_gru"] == 2 * len(logps) > 0, launches
-    p50 = _p50_ms(runs.times[id(main)])
     print("decoded GRU seq2seq (beam %d over %d sentences, source %d): %d "
           "steps in %.3f s, decode step p50 %.3f ms, %.1f hypothesis "
           "tokens/s; scores %s; launches %s" % (
@@ -3703,15 +3753,22 @@ def main():
                "--format=csv,noheader"]).splitlines()[0]
     print(smi)
     print("torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import recurrent_kernel_check as rkc
     from paddle_tpu_torch.kernels import build
 
     print("nvcc: %s" % _sh([build.nvcc_path(), "--version"]).splitlines()[-1])
     t0 = time.time()
+    split_build = rkc.start_split_build()  # beside the library's nvccs
     build.load()
     print("kernels built in %.1f s from %s" % (time.time() - t0, build.CSRC))
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
+    rkc.split_lib(split_build)
+    print("step-split library (scripts/recurrent_split.cu, "
+          "scripts/recurrent_grid_sync.cu) built in %.1f s" % (
+              time.time() - t0))
 
     laps = [time.time()]
 
@@ -3783,7 +3840,7 @@ def main():
     trained_s2s = train_seq2seq(dev, profile_dir)
     seq2seq_train_card_matches_cpu(dev)
     lap("seq2seq training")
-    decoded_s2s = decode_seq2seq(dev)
+    decoded_s2s = decode_seq2seq(dev, profile_dir)
     seq2seq_decode_card_matches_cpu(dev)
     lap("seq2seq beam decode")
     torch.cuda.empty_cache()
@@ -3826,7 +3883,7 @@ def main():
                     "library_ms", "shape"):
             entry[key] = r[key]
         for key in ("per_shape", "max_rel_err", "max_lse_err", "library_note",
-                    "bound_ms_fp32"):
+                    "bound_ms_fp32", "plan", "floor_ms", "step_split"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

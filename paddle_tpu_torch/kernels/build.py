@@ -66,8 +66,10 @@ SIGNATURES = {
     "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_softmax_xent_fwd": (_P,) * 3 + (_I, _I, _P),
     "ptt_softmax_xent_bwd": (_P,) * 4 + (_I, _I, _P),
-    "ptt_lstm_seq": (_P,) * 7 + (_I,) * 3 + (_P,),
-    "ptt_gru_seq": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # B, T, H, then the plan's seven (units, k_warps, n_warps, k_steps,
+    # rows, regs, smem: recurrent.rnn_plan)
+    "ptt_lstm_seq": (_P,) * 9 + (_I,) * 10 + (_P,),
+    "ptt_gru_seq": (_P,) * 7 + (_I,) * 10 + (_P,),
 }
 
 _lib = None

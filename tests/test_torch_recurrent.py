@@ -29,6 +29,8 @@ tensor's largest magnitude.  The reference runs its dense lowerings:
 FLAGS_use_pallas is off by default, so its padded_lstm / padded_gru take
 the scan, and its kernels are run directly in interpret mode above."""
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -55,11 +57,14 @@ from paddle_tpu_torch.kernels import (
     fused_gru,
     fused_lstm,
     gru_seq_plain,
+    lstm_cell,
     lstm_seq_plain,
 )
+from paddle_tpu_torch.kernels.recurrent import rnn_plan
 from paddle_tpu_torch.models import machine_translation as port_mt
 from paddle_tpu_torch.models import stacked_dynamic_lstm as port_sl
 
+from test_torch_kernels import _tf32_rna
 from test_torch_ops import _check, _grad_attrs, _run_both
 from test_torch_program import _assert_same_program
 
@@ -199,7 +204,13 @@ def test_recurrent_kernel_path_launches_or_raises(monkeypatch):
     assert out.shape == (2, 3, 8)
     assert [n for n, _ in launched] == ["ptt_lstm_seq", "ptt_gru_seq"]
     assert launched[0][1][4].dtype == torch.int32
-    assert launched[0][1][-3:] == (2, 3, 8)
+    # B, T, H, then rnn_plan's seven ints, as build.SIGNATURES declares
+    assert launched[0][1][-10:] == (2, 3, 8) + tuple(rnn_plan(2, 8, 4))
+    assert launched[1][1][-10:] == (2, 3, 8) + tuple(rnn_plan(2, 8, 3))
+    for (name, args), pointers in zip(launched, (9, 7)):
+        assert len(args) == len(build.SIGNATURES[name]) - 1, name
+        # the exchange and the barrier counter, zeroed for the launch
+        assert all(a.abs().sum() == 0 for a in args[pointers - 2:pointers])
     assert (fused_lstm.launches, fused_gru.launches) == (before[0] + 1,
                                                          before[1] + 1)
     with pytest.raises(ValueError, match="shapes"):
@@ -218,6 +229,177 @@ def test_recurrent_kernel_path_launches_or_raises(monkeypatch):
     monkeypatch.setattr(build, "launch", refuse)
     with pytest.raises(RuntimeError, match="B 2, T 3, H 8"):
         fused_gru(torch.ones(2, 3, 24), torch.ones(8, 24), s, lens)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' plan and their arithmetic
+# ---------------------------------------------------------------------------
+def _registers(plan):
+    """An upper estimate of a kernel thread's registers under `plan`:
+    W's fragments in the register form (8 k-steps x 2 slots x 4 words),
+    the accumulators (2 m-tiles x 2 n-tiles x 4), a split A fragment (8)
+    and two B fragments being split (8), and 64 for addresses, indices
+    and the epilogue.  ptxas reports the real count on the card
+    (scripts/recurrent_kernel_check.py)."""
+    return (64 if plan.regs else 0) + 16 + 8 + 8 + 64
+
+
+def _pairs(plan, B, H):
+    """How many times the kernel's blocks and passes under `plan` take each
+    (row, unit) pair: block k owns units [k units, (k + 1) units) and walks
+    the rows in passes of plan.rows."""
+    seen = collections.Counter()
+    for u0 in range(0, H, plan.units):
+        for r0 in range(0, B, plan.rows):
+            for b in range(r0, min(r0 + plan.rows, B)):
+                for u in range(u0, min(u0 + plan.units, H)):
+                    seen[b, u] += 1
+    return seen
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+@pytest.mark.parametrize("H", [16, 200, 512, 700])
+@pytest.mark.parametrize("B", [1, 8, 32, 200])
+def test_rnn_plan_covers_every_pair_once_and_fits_a_block(B, H, gates,
+                                                          monkeypatch):
+    """rnn_plan: every (row, unit) pair taken exactly once; K covered by
+    the warps' slices with no warp idle; the n-tiles by the warps along N;
+    at most 132 blocks of at most 256 threads; passes of 16 or 32 rows;
+    the register estimate under 255 and the shared memory under 232,448
+    bytes; W in registers exactly where its slices fit them (H <= 512).
+    The plan asks nothing of a card: with every device query refusing, it
+    is the same."""
+    plan = rnn_plan(B, H, gates)
+    seen = _pairs(plan, B, H)
+    assert len(seen) == B * H and set(seen.values()) <= {1}
+    assert -(-H // plan.units) <= 132
+    kp = plan.k_warps * plan.k_steps * 8
+    assert kp >= H > kp - plan.k_steps * 8
+    n_tiles = (-(-4 * plan.units // 8),) if gates == 4 else (
+        -(-2 * plan.units // 8), -(-plan.units // 8))
+    assert 2 * (plan.n_warps - 1) < max(n_tiles) <= 2 * plan.n_warps
+    assert 32 * plan.k_warps * plan.n_warps <= 256
+    assert plan.rows in (16, 32) and (plan.rows == 16 or B > 16)
+    assert _registers(plan) <= 255 and plan.smem <= 232448
+    assert plan.regs == (H <= 512)
+
+    def refuse(*args, **kw):
+        raise AssertionError("rnn_plan asked the card")
+
+    for name in ("get_device_properties", "device_count", "current_device",
+                 "is_available"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    assert rnn_plan(B, H, gates) == plan
+
+
+def test_rnn_plan_refuses_a_w_slice_past_shared_memory():
+    with pytest.raises(ValueError, match="does not fit"):
+        rnn_plan(32, 2048, 4)
+    with pytest.raises(ValueError, match="gates"):
+        rnn_plan(32, 512, 2)
+
+
+def _kernel_product(h, w_split, plan):
+    """h [B, H] @ W [H, N] as the kernels sum it under `plan`: K padded
+    to the warps' slices, each operand split into TF32 big + small
+    (cvt.rna), each 8-deep k-step's three products (small x big, big x
+    small, big x big) added in that order to the warp's float32
+    accumulator over its k-steps in ascending k, and the warps' partials
+    summed in warp order."""
+    w_big, w_small = w_split
+    B, H = h.shape
+    kp = plan.k_warps * plan.k_steps * 8
+    hp = torch.nn.functional.pad(h, (0, kp - H))
+    h_big = _tf32_rna(hp)
+    h_small = _tf32_rna(hp - h_big)
+    steps = kp // 8
+
+    def per_step(a, b):
+        return torch.bmm(a.reshape(B, steps, 8).transpose(0, 1), b)
+
+    prods = (per_step(h_small, w_big), per_step(h_big, w_small),
+             per_step(h_big, w_big))
+    total = None
+    for kw in range(plan.k_warps):
+        acc = torch.zeros(B, w_big.shape[-1])
+        for ks in range(kw * plan.k_steps, (kw + 1) * plan.k_steps):
+            for p in prods:
+                acc = acc + p[ks]
+        total = acc if total is None else total + acc
+    return total
+
+
+def _split_w(w, plan):
+    kp = plan.k_warps * plan.k_steps * 8
+    wp = torch.nn.functional.pad(w, (0, 0, 0, kp - w.shape[0]))
+    big = _tf32_rna(wp)
+    return (big.reshape(kp // 8, 8, -1),
+            _tf32_rna(wp - big).reshape(kp // 8, 8, -1))
+
+
+def _emulated_lstm(x, w, h0, c0, lens):
+    B, T, _ = x.shape
+    plan = rnn_plan(B, w.shape[0], 4)
+    ws = _split_w(w, plan)
+    h, c = h0, c0
+    hs = []
+    for t in range(T):
+        g = x[:, t] + _kernel_product(h, ws, plan)
+        c_new, h_new = lstm_cell(c, h, g)
+        act = (t < lens)[:, None]
+        c = torch.where(act, c_new, c)
+        h = torch.where(act, h_new, h)
+        hs.append(h)
+    return torch.stack(hs, 1)
+
+
+def _emulated_gru(x, w, h0, lens):
+    B, T, H3 = x.shape
+    H = H3 // 3
+    plan = rnn_plan(B, H, 3)
+    w_ur, w_c = _split_w(w[:, :2 * H], plan), _split_w(w[:, 2 * H:], plan)
+    h = h0
+    hs = []
+    for t in range(T):
+        g = x[:, t, :2 * H] + _kernel_product(h, w_ur, plan)
+        u, r = torch.sigmoid(g[:, :H]), torch.sigmoid(g[:, H:])
+        c = torch.tanh(x[:, t, 2 * H:] + _kernel_product(r * h, w_c, plan))
+        h = torch.where((t < lens)[:, None], u * c + (1.0 - u) * h, h)
+        hs.append(h)
+    return torch.stack(hs, 1)
+
+
+@pytest.mark.parametrize("kind,B,T,H", [
+    ("lstm", 32, 64, 512), ("gru", 32, 50, 512), ("lstm", 8, 12, 64),
+    ("gru", 8, 12, 64)])
+def test_kernel_arithmetic_holds_the_reference_over_the_recurrence(kind, B,
+                                                                   T, H):
+    """The kernels' arithmetic emulated on the CPU (3xTF32 split products,
+    the plan's K slices summed in warp order, the gates applied per step)
+    through the paths' whole recurrences (64 LSTM steps, 50 GRU steps at
+    B 32, H 512; and a narrow H 64, T 12) stays within 1e-5 absolute of
+    the reference's dense scans (_lstm_seq_dense, _gru_seq_dense) with
+    ragged lengths, a row of length 0 among them: the split's error does
+    not grow through the recurrence."""
+    gates = 4 if kind == "lstm" else 3
+    rng = np.random.RandomState(50 + H + T)
+    x = rng.randn(B, T, gates * H).astype("float32")
+    w = (rng.randn(H, gates * H) / np.sqrt(H)).astype("float32")
+    h0 = rng.randn(B, H).astype("float32")
+    c0 = rng.randn(B, H).astype("float32")
+    lens = rng.randint(0, T + 1, B)
+    lens[0], lens[-1] = 0, T
+    lens_t = torch.from_numpy(lens)
+    if kind == "lstm":
+        got = _emulated_lstm(_t(x), _t(w), _t(h0), _t(c0), lens_t)
+        want, _ = pk._lstm_seq_dense(*map(jnp.asarray, (x, w, h0, c0)),
+                                     jnp.asarray(lens))
+    else:
+        got = _emulated_gru(_t(x), _t(w), _t(h0), lens_t)
+        want = pk._gru_seq_dense(*map(jnp.asarray, (x, w, h0)),
+                                 jnp.asarray(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
