@@ -373,8 +373,6 @@ def check_kernels(dev):
     from paddle_tpu_torch.kernels import (
         MM_ACTS,
         add_layer_norm_plain,
-        flash_attention_qvec,
-        flash_attention_qvec_plain,
         fused_add_layer_norm,
         matmul_bias_act,
         matmul_bias_act_plain,
@@ -538,41 +536,7 @@ def check_kernels(dev):
 
     mark("matmul_bias_act")
 
-    # ---- flash_attention_qvec: live K/V prefix bytes -------------------
-    heads, dh, tq, tk = 12, 64, WIDTH, T_MAX
-    err = 0.0
-    # per slot: 0, mid-cache, Tk - Tq, a decode row, and width-0 free slots;
-    # then head dim 128 over three key slices (the last one ragged, and
-    # dead for the row at 0), and one slice of 40 keys
-    slot_q = [0, 500, tk - tq, 37, 0, 250, 999, 1]
-    # the TinyLlama serving step: 8 slots x 32 heads over its t_max 2048
-    # cache (16 key slices)
-    llama_q = [0, 1000, LLAMA_LEN - tq, 37, 0, 1500, 2000, 1]
-    for d, qs_slots, n_tk, per in ((dh, slot_q, tk, heads),
-                                   (128, [0, 130, 300 - 4], 300, 2),
-                                   (64, [3, 0], 40, 2),
-                                   (dh, llama_q, LLAMA_LEN, LLAMA_HEADS)):
-        bh = len(qs_slots) * per
-        tq_ = tq if d == dh else 4
-        q, k_, v = randn(bh, tq_, d), randn(bh, n_tk, d), randn(bh, n_tk, d)
-        qs = torch.tensor(qs_slots, device=dev).repeat_interleave(per)
-        out = flash_attention_qvec(q, k_, v, qs, d ** -0.5)
-        ref = flash_attention_qvec_plain(q, k_, v, qs, d ** -0.5)
-        err = max(err, (out - ref).abs().max().item())
-    assert err <= 1e-5, ("flash_attention_qvec disagrees", err)
-    rec["flash_attention_qvec"] = dict(
-        route="cuda",
-        source="paddle_tpu_torch/kernels/csrc/flash_attention_qvec.cu",
-        replaces="paddle_tpu/ops/pallas_kernels.py:621",
-        shape="q [%d, %d, %d], k/v [%d, %d, %d], qstart = Tk - Tq" % (
-            N_SLOTS * heads, tq, dh, N_SLOTS * heads, tk, dh),
-        max_abs_err=err, **_qvec_times(dev, randn, N_SLOTS * heads, tq, tk, dh))
-    bh = N_SLOTS * LLAMA_HEADS
-    rec["flash_attention_qvec"]["per_shape"] = {
-        "llama_serve q [%d, %d, %d], k/v [%d, %d, %d]" % (
-            bh, tq, dh, bh, LLAMA_LEN, dh):
-        _qvec_times(dev, randn, bh, tq, LLAMA_LEN, dh)}
-    torch.cuda.synchronize()
+    rec.update(check_flash_attention_qvec(dev, randn))
     mark("flash_attention_qvec")
     rec.update(check_linear_xent(dev, randn, g))
     mark("linear_xent")
@@ -593,6 +557,76 @@ def check_kernels(dev):
     rec.update(check_recurrent(dev, randn, g))
     mark("fused_lstm, fused_gru")
     return rec
+
+
+def check_flash_attention_qvec(dev, randn, times=True):
+    """B8's forward (csrc/flash_attention_qvec.cu, B8a) against
+    flash_attention_qvec_plain, limit 1e-5 absolute: the GPT-2 serving
+    shape with its 8 slot bases (0, mid-cache, Tk - Tq, a decode row,
+    width-0 free slots: base 0), head dim 128 over Tk 300 and over Tk
+    2100 (three slices, the last ragged, two dead for the row at 0), Tk
+    40 (one slice), Tq 20 (a ragged second query tile) and the
+    TinyLlama serving shape.  At each: two reruns bit-equal to the first
+    run, and one row run alone bit-equal to its row in the batch (the
+    pooled == solo contract).  Prints ptxas's lines and qvec_plan at
+    each shape; with `times`, times both serving shapes (_qvec_times)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import (flash_attention_qvec,
+                                          flash_attention_qvec_plain)
+    from paddle_tpu_torch.kernels.flash_attention import qvec_plan
+
+    _print_ptxas("flash_attention_qvec.cu", ("qvec",))
+    heads, dh, tq, tk = 12, 64, WIDTH, T_MAX
+    err = 0.0
+    # per slot: 0, mid-cache, Tk - Tq, a decode row, and width-0 free slots
+    slot_q = [0, 500, tk - tq, 37, 0, 250, 999, 1]
+    # the TinyLlama serving step: 8 slots x 32 heads over its t_max 2048
+    # cache
+    llama_q = [0, 1000, LLAMA_LEN - tq, 37, 0, 1500, 2000, 1]
+    for d, qs_slots, n_tk, per, tq_ in (
+            (dh, slot_q, tk, heads, tq), (128, [0, 130, 300 - 4], 300, 2, 4),
+            (128, [0, 1100, 2100 - 4], 2100, 2, 4), (64, [3, 0], 40, 2, 4),
+            (64, [0, 150, 300 - 20], 300, 2, 20),
+            (dh, llama_q, LLAMA_LEN, LLAMA_HEADS, tq)):
+        bh = len(qs_slots) * per
+        q, k_, v = randn(bh, tq_, d), randn(bh, n_tk, d), randn(bh, n_tk, d)
+        qs = torch.tensor(qs_slots, device=dev).repeat_interleave(per)
+        out = flash_attention_qvec(q, k_, v, qs, d ** -0.5)
+        ref = flash_attention_qvec_plain(q, k_, v, qs, d ** -0.5)
+        err = max(err, (out - ref).abs().max().item())
+        for _ in range(2):
+            assert torch.equal(out, flash_attention_qvec(q, k_, v, qs,
+                                                         d ** -0.5)), (
+                "flash_attention_qvec rerun differs", bh, tq_, n_tk, d)
+        row = bh // 2 + 1  # a row of a mid-cache slot
+        solo = flash_attention_qvec(q[row:row + 1], k_[row:row + 1],
+                                    v[row:row + 1], qs[row:row + 1],
+                                    d ** -0.5)
+        assert torch.equal(solo[0], out[row]), (
+            "flash_attention_qvec: a row alone differs from its row in the "
+            "batch", bh, tq_, n_tk, d)
+        print("  qvec q [%d, %d, %d] k/v [%d, %d, %d]: plan %s" % (
+            bh, tq_, d, bh, n_tk, d, dict(qvec_plan(n_tk, d)._asdict())))
+    assert err <= 1e-5, ("flash_attention_qvec disagrees", err)
+    plan = qvec_plan(tk, dh)
+    entry = dict(
+        route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/flash_attention_qvec.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:621",
+        shape="q [%d, %d, %d], k/v [%d, %d, %d], qstart = Tk - Tq" % (
+            N_SLOTS * heads, tq, dh, N_SLOTS * heads, tk, dh),
+        max_abs_err=err, plan=list(plan))
+    if times:
+        entry.update(_qvec_times(dev, randn, N_SLOTS * heads, tq, tk, dh))
+        bh = N_SLOTS * LLAMA_HEADS
+        entry["per_shape"] = {
+            "llama_serve q [%d, %d, %d], k/v [%d, %d, %d]" % (
+                bh, tq, dh, bh, LLAMA_LEN, dh):
+            dict(_qvec_times(dev, randn, bh, tq, LLAMA_LEN, dh),
+                 plan=list(qvec_plan(LLAMA_LEN, dh)))}
+    torch.cuda.synchronize()
+    return {"flash_attention_qvec": entry}
 
 
 def _qvec_times(dev, randn, bh, tq, tk, dh):

@@ -45,7 +45,9 @@ SIGNATURES = {
     # bm, bn, slices, k_slice: matmul_epilogue.mm_plan)
     "ptt_matmul_bias_act": (_P,) * 4 + (_I,) * 9 + (_P,),
     "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 8 + (_P,),
-    "ptt_flash_attention_qvec": (_P,) * 8 + (_I,) * 5 + (_F, _P),
+    # BH, Tq, Tk, d, then the plan's four (warps, slice_len, slices,
+    # smem: flash_attention.qvec_plan)
+    "ptt_flash_attention_qvec": (_P,) * 8 + (_I,) * 8 + (_F, _P),
     # BH, Tq, Tk, d, then the plan's two (slice_len, slices:
     # flash_attention.rows_plan)
     "ptt_flash_attention_rows": (_P,) * 8 + (_I,) * 6 + (_F, _P),

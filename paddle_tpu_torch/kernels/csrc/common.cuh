@@ -9,6 +9,12 @@
 namespace ptt {
 
 constexpr float kNegInf = -1e30f;  // the reference kernels' NEG_INF mask
+constexpr float kLog2e = 1.4426950408889634f;
+
+// component e of a float4
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -20,6 +26,17 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+// over the 4 lanes of a quad (an mma.sync fragment row's lanes)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Block-wide sum broadcast to every thread.  `red` is shared scratch of at

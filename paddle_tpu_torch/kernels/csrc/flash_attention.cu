@@ -114,6 +114,12 @@
 
 namespace {
 
+using ptt::comp;
+using ptt::kLog2e;
+using ptt::quad_max;
+using ptt::quad_sum;
+using ptt::split_acc;
+
 // ---- SIMT form (d 128) ----------------------------------------------------------
 constexpr int kThreads = 256;
 constexpr int BQ = 64;  // query rows of the forward and dq tiles
@@ -133,10 +139,6 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
 // rows [r0, r0 + rows) of a [T, D] matrix into dst[D][rows] (transposed),
@@ -720,7 +722,6 @@ constexpr int FWALK = 64;      // the forward's key tile
 constexpr int BWALK = 32;      // dq's key tile, dk/dv's query tile
 constexpr int LDR = TD + 8;    // a staged row's stride: conflict-free float2 reads
 constexpr int AFRAG = 8 * 64;  // 16-byte words of a warp's split A operand
-constexpr float kLog2e = 1.4426950408889634f;
 
 // a walked tile of R rows: floats staged, 16-byte words of its split form
 template <int R>
@@ -728,16 +729,6 @@ struct Walk {
   static constexpr int kRaw = R * LDR;
   static constexpr int kFrag = R * TD / 2;
 };
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // The warp's 16 rows [r0, r0 + 16) of a [T, 64] matrix as the A operand,
 // 8-deep step kk: x[kk] = rows (g, g + 8, g, g + 8) at depths (2t, 2t,
@@ -786,17 +777,6 @@ __device__ __forceinline__ void load_a_split(Split (&a)[4], const uint4* AF, int
   a[1] = Split{b.y, s.y};
   a[2] = Split{b.z, s.z};
   a[3] = Split{b.w, s.w};
-}
-
-// An accumulator fragment of an 8-column block as the A operand of the
-// next product's 8-deep step over those columns: d[0], d[1], d[2], d[3]
-// sit at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), which is
-// a[0], a[2], a[1], a[3].
-__device__ __forceinline__ void split_acc(Split (&a)[4], const float (&d)[4]) {
-  a[0] = split_rna(d[0]);
-  a[1] = split_rna(d[2]);
-  a[2] = split_rna(d[1]);
-  a[3] = split_rna(d[3]);
 }
 
 // rows [r0, r0 + R) of a [T, 64] matrix into a staged tile (row stride

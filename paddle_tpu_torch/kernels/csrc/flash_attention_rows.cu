@@ -51,6 +51,7 @@
 
 namespace {
 
+using ptt::comp;
 using ptt::cp_async16;
 
 constexpr int kMaxWarps = 8;  // a slice of at most 256 keys
@@ -61,10 +62,6 @@ __host__ __device__ constexpr int smem_floats(int D, int TQ, int W) {
          + TQ * D            // Qs: q * scale
          + W * TQ * 32       // Ps: a warp's probabilities
          + W * TQ * 2;       // Wml: a warp's (m, l) a row
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
 // One block of W = blockDim.x / 32 warps per (head row, slice): block x is

@@ -79,6 +79,17 @@ __device__ __forceinline__ void split2_rna(const float* p, Split& lo, Split& hi)
   hi = split_rna(v.y);
 }
 
+// An accumulator fragment of an 8-column block as the A operand of the
+// next product's 8-deep step over those columns: d[0], d[1], d[2], d[3]
+// sit at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), which is
+// a[0], a[2], a[1], a[3] under the depth order above.
+__device__ __forceinline__ void split_acc(Split (&a)[4], const float (&d)[4]) {
+  a[0] = split_rna(d[0]);
+  a[1] = split_rna(d[2]);
+  a[2] = split_rna(d[1]);
+  a[3] = split_rna(d[3]);
+}
+
 // mma3 with the B fragment split ahead of time into one 16-byte word,
 // b = {b[0].big, b[1].big, b[0].small, b[1].small}
 __device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4], const uint4& b) {

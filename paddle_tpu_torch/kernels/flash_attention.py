@@ -47,8 +47,12 @@ sync on a position):
   ``flash_attention_fwd``'s;
 - ``flash_attention_qvec`` (B8, ``_flash_fwd``/``_flash_bwd`` with
   ``qvec``): a [BH] base per row.  Its forward is
-  ``csrc/flash_attention_qvec.cu`` (a key-split kernel for the serving
-  step's few rows), which gives the lse the backward needs only when a
+  ``csrc/flash_attention_qvec.cu`` (B8a), the serving step's few rows
+  over a long cache: one block a (head row, 16-query tile, key slice),
+  each warp a ring of ``cp.async``-staged key chunks, both products on
+  3xTF32 ``mma.sync``, the warps merged in order and the slices by
+  log-sum-exp in slice order, cut as ``qvec_plan`` says (a function of
+  Tk and d only).  It gives the lse the backward needs only when a
   gradient is wanted; the serving step asks for none.
 
 ``flash_attention_plain`` (o, lse) and ``flash_attention_grad_plain``
@@ -72,7 +76,7 @@ from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "attention_scores",
            "flash_attention_grad_plain", "flash_attention_fwd", "flash_plan",
-           "flash_attention_fwd_rows", "rows_form", "rows_plan",
+           "flash_attention_fwd_rows", "rows_form", "rows_plan", "qvec_plan",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_piece", "flash_attention_piece_plain",
            "flash_attention_piece_grad_plain", "flash_attention_piece_fwd",
@@ -81,9 +85,16 @@ __all__ = ["flash_attention", "flash_attention_plain", "attention_scores",
            "flash_attention_qvec_dq", "flash_attention_qvec_dkv", "NEG_INF"]
 
 NEG_INF = -1e30
-# the qvec kernel's fixed key split: keys in slices of this many (a
-# multiple of its 32-key tile), merged by log-sum-exp in slice order
-KV_CHUNK = 128
+# the qvec forward's split (qvec_plan): QVEC_WARPS[d] warps a block (8
+# do not fit the shared memory at d 128), each walking chunks of
+# QVEC_CHUNK keys, in slices of QVEC_SLICE keys merged by log-sum-exp in
+# slice order; the split measured fastest at the serving steps' shapes
+# on the card, full caches and a pool's mixed ones
+# (scripts/qvec_forms_check.py)
+QVEC_CHUNK = 16
+QVEC_WARPS = {64: 8, 128: 4}
+QVEC_SLICE = 1024
+QVEC_ROWS = 16  # query rows of the kernel's tile
 # the few-row forward: at most this many query rows; keys cut into about
 # ROWS_SLICES slices of 128 to ROWS_SLICE_MAX[d] keys (a multiple of 32:
 # one 32-key chunk a warp, at most 8 warps, 4 at d 128 for shared memory),
@@ -95,6 +106,7 @@ ROWS_SLICE_MIN = 128
 ROWS_SLICE_MAX = {64: 256, 128: 128}
 
 RowsPlan = collections.namedtuple("RowsPlan", "slice_len slices")
+QvecPlan = collections.namedtuple("QvecPlan", "warps slice_len slices smem")
 # the tile kernels' forms: 3xTF32 tensor-core tiles and SIMT FP32 tiles
 # (flash_plan chooses)
 FLASH_SIMT, FLASH_TC = 0, 1
@@ -119,6 +131,31 @@ def rows_plan(tk, d):
     slice_len = min(max(per, ROWS_SLICE_MIN), ROWS_SLICE_MAX[d],
                     32 * -(-tk // 32))
     return RowsPlan(slice_len, -(-tk // slice_len))
+
+
+def qvec_smem(d, warps):
+    """Bytes of dynamic shared memory of the qvec forward's block: the
+    split q tile (big and small words), each warp's ring of two K and V
+    chunks, each warp's (m, l) a row; the kernel checks it against its
+    own layout."""
+    return 4 * (2 * QVEC_ROWS * d + warps * 2 * 2 * QVEC_CHUNK * d
+                + warps * QVEC_ROWS * 2)
+
+
+def qvec_plan(tk, d, warps=None, slice_len=QVEC_SLICE):
+    """The qvec forward's split of Tk keys at head dim d: (warps,
+    slice_len, slices, smem), handed to the kernel as ints.  Slices of
+    `slice_len` keys (a multiple of the 16-key chunk; one slice of Tk
+    rounded up to the chunk where Tk is shorter), at most one warp a
+    chunk of the slice.  Both head dims run the 3xTF32 tensor-core form.
+    Depends on Tk and d alone, never on BH, the query bases or the data,
+    so a row's bits do not depend on its batch.  The keyword arguments
+    are the candidates scripts/qvec_forms_check.py times."""
+    c = QVEC_CHUNK
+    slice_len = min(c * -(-slice_len // c), c * -(-tk // c))
+    warps = min(QVEC_WARPS[d] if warps is None else warps, slice_len // c)
+    return QvecPlan(warps, slice_len, -(-tk // slice_len),
+                    qvec_smem(d, warps))
 
 
 def flash_plan(kernel, tq, tk, d):
@@ -624,7 +661,8 @@ def flash_attention_qvec_plain(q, k, v, qstart, scale=None):
 
 
 def _qvec_forward(q, k, v, qstart, scale, with_lse):
-    """The serving forward: o, or (o, lse) with `with_lse`."""
+    """The serving forward: o, or (o, lse) with `with_lse`, at
+    qvec_plan's split."""
     if not build.use_kernel(q):
         if with_lse:
             return flash_attention_plain(q, k, v, None, True, scale, qstart)
@@ -633,29 +671,32 @@ def _qvec_forward(q, k, v, qstart, scale, with_lse):
     bh, tq, d = q.shape
     tk = k.shape[1]
     if (tuple(k.shape) != (bh, tk, d) or tuple(v.shape) != (bh, tk, d)
-            or qstart.numel() != bh):
+            or qstart.numel() != bh or tk == 0):
         raise ValueError("flash_attention_qvec: shapes q %s k %s v %s qstart "
                          "%s" % (tuple(q.shape), tuple(k.shape),
                                  tuple(v.shape), tuple(qstart.shape)))
     if d not in (64, 128):
         raise ValueError("flash_attention_qvec: the CUDA kernel is built for "
                          "head dims 64 and 128, got %d" % d)
-    slices = -(-tk // KV_CHUNK) if tk > KV_CHUNK else 1
-    if max(q.numel(), k.numel(), q.numel() * slices) >= 2 ** 31:
+    plan = qvec_plan(tk, d)
+    if max(q.numel(), k.numel(), q.numel() * plan.slices) >= 2 ** 31:
         raise ValueError("flash_attention_qvec: operands exceed the "
                          "kernel's 32-bit row indexing")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_qvec: q, k and v must start on 16 "
+                         "bytes (the kernel stages them in 16-byte copies)")
     qs = qstart.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = (torch.empty((bh, tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     part_o = part_ml = None
-    if slices > 1:
-        part_o = torch.empty((bh, tq, slices, d), dtype=torch.float32,
+    if plan.slices > 1:
+        part_o = torch.empty((bh, tq, plan.slices, d), dtype=torch.float32,
                              device=q.device)
-        part_ml = torch.empty((bh, tq, slices, 2), dtype=torch.float32,
+        part_ml = torch.empty((bh, tq, plan.slices, 2), dtype=torch.float32,
                               device=q.device)
     build.launch("ptt_flash_attention_qvec", q, k, v, qs, out, lse, part_o,
-                 part_ml, bh, tq, tk, d, KV_CHUNK, float(scale))
+                 part_ml, bh, tq, tk, d, *plan, float(scale))
     flash_attention_qvec.launches += 1
     return (out, lse) if with_lse else out
 

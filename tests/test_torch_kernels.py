@@ -1054,6 +1054,192 @@ def test_flash_attention_qvec_backward_matches_reference_kernel():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# ---------------------------------------------------------------------------
+# flash_attention_qvec's forward kernel (B8a): its plan and its arithmetic
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tk", [1, 16, 40, 300, 1024, 2048, 4096])
+def test_qvec_plan_cuts_tk_into_fixed_slices(tk, d):
+    """qvec_plan puts every key in exactly one slice: slices a multiple
+    of the kernel's 16-key chunk, none wholly past Tk, at most one warp
+    a chunk of the slice, and shared memory within the 232,448 bytes a
+    block may have; the serving steps' Tk 1024 and 2048 in 1 and 2
+    slices of 1024 keys over 8 warps; a function of Tk and d alone (the
+    same plan twice)."""
+    plan = fa_mod.qvec_plan(tk, d)
+    chunk = fa_mod.QVEC_CHUNK
+    assert plan.slice_len % chunk == 0
+    assert (plan.slices - 1) * plan.slice_len < tk <= plan.slices * plan.slice_len
+    assert plan.slice_len - tk < chunk  # no chunk wholly past Tk
+    assert 1 <= plan.warps <= min(8, plan.slice_len // chunk)
+    assert plan.smem == fa_mod.qvec_smem(d, plan.warps) <= 232448
+    owners = np.zeros(tk, int)
+    for s in range(plan.slices):
+        owners[s * plan.slice_len:(s + 1) * plan.slice_len] += 1
+    assert (owners == 1).all()
+    if d == 64 and tk in (1024, 2048):
+        assert plan[:3] == (8, 1024, tk // 1024)
+    assert fa_mod.qvec_plan(tk, d) == plan
+
+
+NEG_INF = fa_mod.NEG_INF
+
+
+def _split3(x):
+    """x as tf32 big + small parts (cvt.rna's rounding, as the kernel's
+    integer split)."""
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32: small*big + big*small + big*big of the split
+    operands, float32 sums."""
+    a_big, a_small = _split3(a)
+    b_big, b_small = _split3(b)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _qvec_emulation(q, k, v, qstart, scale, plan):
+    """The qvec forward kernel's arithmetic in plain PyTorch: q * scale
+    split once; per (row, 16-query tile, slice) each warp w walks the
+    slice's chunks w, w + W, ... that start before the tile's last
+    cutoff, S over 64-deep parts of 3xTF32 products added in float32,
+    the per-query cutoff, the online softmax, P v in 3xTF32 from zero
+    each chunk; the warps merged in order, then the slices in order by
+    log-sum-exp.  Returns (o, lse)."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    out = torch.zeros(bh, tq, d)
+    lse = torch.zeros(bh, tq)
+    qsc = q * scale
+
+    def merge(parts):
+        m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+        l_all = torch.zeros_like(m_all)
+        acc = torch.zeros(parts[0][2].shape)
+        for m, l, a in parts:
+            wgt = torch.exp(m - m_all)
+            l_all = l_all + l * wgt
+            acc = acc + a * wgt[:, None]
+        return m_all, l_all, acc
+
+    for b in range(bh):
+        for q0 in range(0, tq, 16):
+            rows = qsc[b, q0:q0 + 16]
+            pos = int(qstart[b]) + q0 + torch.arange(rows.shape[0])
+            kend = min(tk, int(pos[-1]) + 1)
+            slices = []
+            for s in range(plan.slices):
+                s_lo = s * plan.slice_len
+                s_hi = min(kend, s_lo + plan.slice_len)
+                chunks = list(range(s_lo, s_hi, fa_mod.QVEC_CHUNK))
+                warps = []
+                for w in range(plan.warps):
+                    m = torch.full((rows.shape[0],), NEG_INF)
+                    l = torch.zeros(rows.shape[0])
+                    acc = torch.zeros(rows.shape[0], d)
+                    for c0 in chunks[w::plan.warps]:
+                        c1 = min(tk, c0 + fa_mod.QVEC_CHUNK)
+                        sc = torch.zeros(rows.shape[0], c1 - c0)
+                        for p0 in range(0, d, 64):
+                            sc = sc + _mm3(rows[:, p0:p0 + 64],
+                                           k[b, c0:c1, p0:p0 + 64].T)
+                        live = torch.arange(c0, c1)[None, :] <= pos[:, None]
+                        sc = torch.where(live, sc, torch.tensor(NEG_INF))
+                        m_new = torch.maximum(m, sc.amax(-1))
+                        p = torch.where(live, torch.exp(sc - m_new[:, None]),
+                                        torch.tensor(0.0))
+                        alpha = torch.exp(m - m_new)
+                        l = l * alpha + p.sum(-1)
+                        acc = acc * alpha[:, None] + _mm3(p, v[b, c0:c1])
+                        m = m_new
+                    warps.append((m, l, acc))
+                slices.append(merge(warps))
+            m, l, acc = merge(slices)
+            safe = torch.where(l == 0, torch.ones_like(l), l)
+            out[b, q0:q0 + 16] = acc / safe[:, None]
+            lse[b, q0:q0 + 16] = m + torch.log(safe)
+    return out, lse
+
+
+
+@pytest.mark.parametrize("tk", [300, 1024])
+def test_qvec_kernel_arithmetic_matches_reference_kernel(tk):
+    """The qvec kernel's arithmetic, emulated at qvec_plan's split,
+    against pk.flash_attention_qvec in Pallas interpret mode within 1e-5
+    (o, and the lse against flash_attention_plain's): BH 8, Tq 16, query
+    bases 0, mid-cache and Tk - Tq, and a free slot (width 0: base 0,
+    zero queries) among them."""
+    rng = np.random.RandomState(41)
+    bh, tq, d, scale = 8, 16, 64, 0.125
+    q = rng.randn(bh, tq, d).astype("float32")
+    k = rng.randn(bh, tk, d).astype("float32")
+    v = rng.randn(bh, tk, d).astype("float32")
+    q[4] = 0.0  # the free slot
+    qs = np.array([0, tk // 2, tk - tq, 37, 0, tk // 3, tk - tq - 1, 1],
+                  "int32")
+    ref = pk.flash_attention_qvec(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(qs), scale, tq,
+                                  100 if tk == 300 else 128)
+    plan = fa_mod.qvec_plan(tk, d)
+    o, lse = _qvec_emulation(_t(q), _t(k), _t(v), qs, scale, plan)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref), **TOL)
+    _, p_lse = flash_attention_plain(_t(q), _t(k), _t(v), None, True, scale,
+                                     _t(qs))
+    np.testing.assert_allclose(lse.numpy(), p_lse.numpy(), **TOL)
+
+
+def test_qvec_kernel_arithmetic_at_head_dim_128_and_ragged_tiles():
+    """The same emulation at d 128 (two 64-deep score parts) and Tq 20
+    (a second, ragged query tile) over Tk 300 in slices of 128 (three,
+    the last ragged), against the plain version within 1e-5."""
+    rng = np.random.RandomState(42)
+    bh, tq, tk, d = 3, 20, 300, 128
+    q, k, v = (_t(rng.randn(bh, n, d).astype("float32"))
+               for n in (tq, tk, tk))
+    qs = np.array([0, 130, tk - tq], "int32")
+    plan = fa_mod.qvec_plan(tk, d, slice_len=128)
+    assert plan.slices == 3
+    o, lse = _qvec_emulation(q, k, v, qs, d ** -0.5, plan)
+    p_o, p_lse = flash_attention_plain(q, k, v, None, True, d ** -0.5,
+                                       _t(qs))
+    np.testing.assert_allclose(o.numpy(), p_o.numpy(), **TOL)
+    np.testing.assert_allclose(lse.numpy(), p_lse.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("bh,tq,tk,d", [(1, 16, 1024, 64), (96, 16, 1024, 64),
+                                        (256, 16, 2048, 64), (6, 4, 300, 128),
+                                        (2, 16, 40, 64)])
+def test_qvec_launch_passes_the_plan(monkeypatch, bh, tq, tk, d):
+    """The qvec wrapper hands build.launch the shape ints (BH, Tq, Tk,
+    d) and qvec_plan's six, in the order build.SIGNATURES declares, the
+    int32 query bases, and the [BH, Tq, slices, d] and [BH, Tq, slices,
+    2] workspaces where there is more than one slice; the plan is the
+    same at any BH."""
+    calls = []
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    sig = build.SIGNATURES["ptt_flash_attention_qvec"]
+    ints = [i for i, kind in enumerate(sig[:-1]) if kind is build._I]
+    kv = torch.ones(bh, tk, d)
+    flash_attention_qvec(torch.ones(bh, tq, d), kv, kv,
+                         torch.zeros(bh, dtype=torch.long))
+    name, args = calls[-1]
+    plan = fa_mod.qvec_plan(tk, d)
+    assert name == "ptt_flash_attention_qvec"
+    assert len(args) + 1 == len(sig)  # launch appends the stream
+    assert tuple(args[i] for i in ints) == (bh, tq, tk, d) + tuple(plan)
+    assert args[3].dtype == torch.int32
+    part_o, part_ml = args[6], args[7]
+    if plan.slices > 1:
+        assert part_o.shape == (bh, tq, plan.slices, d)
+        assert part_ml.shape == (bh, tq, plan.slices, 2)
+    else:
+        assert part_o is None and part_ml is None
+
+
 def test_based_kernels_take_the_query_base_on_the_device(monkeypatch):
     """On the kernel path the piece passes its offset as a one-element
     int32 tensor read at stride 0 (Tq != Tk allowed under causal), the
