@@ -150,7 +150,31 @@ In order, it:
    0 and 48 card vs CPU; the kernel phase holds the segment and window
    forms of B3 and B9 (with --profile, chiprun_out/profile_training_packed
    and profile_training_packed_window.json);
-22. prints the kernels line and, last, the result line.
+22. prints, for every path, its eager and captured numbers (one JSON
+   line), the kernels line and, last, the result line.
+
+Every path's executor but the vocab-parallel one's captures its step as
+a CUDA graph at the step's second run and replays it after that
+(paddle_tpu_torch/core/graph.py); kernel launches are counted per
+replay.  Each captured path also runs eagerly (use_program_cache=False)
+and prints a "capture <path>:" line with both modes' step p50, peak
+memory and compile_count (with --profile, busy ms and idle share): a
+training path from a saved state, 3 captured steps against 3 eager
+ones, losses and every updated persistable bit for bit (WMT and GPT-2:
+run_loop(4) against 4 runs too); a serving path a short trace, a decode
+path two greedy generations, the GRU beam decode one search, the logits
+of every step bit for bit; the serving paths check that the slot churn
+makes no capture after the pooled step's and the slot reset's second
+runs.  Each training path also captures a second fetch list on its
+executor, into the one pool the executor's captures share (the pool
+must stay under 1.5 times one key's), and runs an eager step on the
+same executor; an eager step (a key's warm-up, a run without the
+program cache) releases the executor's graphs first.  The line gives
+the pool with one and two keys and the peaks from there.  The captured
+p50 must be under the eager one on the GPT-2 decode and WMT training
+paths.  The vocab-parallel step runs eagerly (its gloo
+collectives stage through the host) and prints "captured": false with
+its spmd_comm_stats.
 
 Any failure raises and exits non-zero.  It imports torch and the port,
 never jax or paddle_tpu.  TF32 is off for matmuls and cuDNN.
@@ -200,6 +224,9 @@ LLAMA_DECODE_WIDTH, LLAMA_DECODE_NEW = 128, 32
 # first chunk and 8 tokens of the next; cached against uncached greedy
 # over the first 16 new tokens
 PREFILL_CHECK_EXTRA, GREEDY_CHECK_NEW = 8, 16
+# each decode path's eager and captured legs: greedy generations of 8 new
+# tokens
+CAPTURE_NEW = 8
 # rows of the decode programs' fc, fused_swiglu, add-LN and layer norm
 # launches: GPT-2's one-token and wide steps (batch 4), its beam steps
 # (batch 8), and the TinyLlama widths' (batch 2)
@@ -624,15 +651,23 @@ def check_flash_attention_qvec(dev, randn, times=True):
             "llama_serve q [%d, %d, %d], k/v [%d, %d, %d]" % (
                 bh, tq, dh, bh, LLAMA_LEN, dh):
             dict(_qvec_times(dev, randn, bh, tq, LLAMA_LEN, dh),
-                 plan=list(qvec_plan(LLAMA_LEN, dh)))}
+                 plan=list(qvec_plan(LLAMA_LEN, dh))),
+            # the pools' mixed bases: the slot bases above over 12 / 32
+            # heads
+            "gpt2 pool bases %s" % slot_q: _qvec_times(
+                dev, randn, N_SLOTS * heads, tq, tk, dh, slot_q),
+            "llama pool bases %s" % llama_q: _qvec_times(
+                dev, randn, bh, tq, LLAMA_LEN, dh, llama_q)}
     torch.cuda.synchronize()
     return {"flash_attention_qvec": entry}
 
 
-def _qvec_times(dev, randn, bh, tq, tk, dh):
-    """flash_attention_qvec's times at one shape with every row's cutoff at
-    the last key (qstart = Tk - Tq), beside the plain version and masked
-    scaled_dot_product_attention."""
+def _qvec_times(dev, randn, bh, tq, tk, dh, bases=None):
+    """flash_attention_qvec's times at one shape, beside the plain version
+    and scaled_dot_product_attention under the same causal mask: every
+    row's cutoff at the last key (qstart = Tk - Tq), or with `bases` a
+    serving pool's slot bases, each over bh / len(bases) heads (the bound
+    then counts the keys the rows read)."""
     import torch
     import torch.nn.functional as F
 
@@ -640,12 +675,16 @@ def _qvec_times(dev, randn, bh, tq, tk, dh):
                                           flash_attention_qvec_plain)
 
     q, k_, v = randn(bh, tq, dh), randn(bh, tk, dh), randn(bh, tk, dh)
-    qs = torch.full((bh,), tk - tq, device=dev, dtype=torch.long)
-    live = tk  # every row's cutoff reaches the last key
+    if bases is None:
+        qs = torch.full((bh,), tk - tq, device=dev, dtype=torch.long)
+    else:
+        qs = torch.tensor(bases, device=dev).repeat_interleave(
+            bh // len(bases))
+    live = int(torch.clamp(qs + tq, max=tk).sum())  # keys the rows read
     mask = (qs[:, None, None] + torch.arange(tq, device=dev)[None, :, None]
             >= torch.arange(tk, device=dev)[None, None, :])
-    b, fl = _bound_ms(4 * (2 * bh * tq * dh + 2 * bh * live * dh) + 4 * bh,
-                      4 * bh * tq * live * dh)
+    b, fl = _bound_ms(4 * (2 * bh * tq * dh + 2 * live * dh) + 4 * bh,
+                      4 * tq * live * dh)
     return dict(
         ms=_time_ms(lambda: flash_attention_qvec(q, k_, v, qs, dh ** -0.5)),
         plain_ms=_time_ms(lambda: flash_attention_qvec_plain(q, k_, v, qs,
@@ -1902,15 +1941,23 @@ def check_attention_pieces(dev, randn, times=True):
     return rec
 
 
-def _serve_on_card(label, hp, t_max, per_step, seed):
+def _serve_on_card(label, hp, t_max, per_step, seed, profile_dir=None,
+                   profile_name=None):
     """One serving path on the card: `hp` with random weights from `seed`
     through ServingEngine(n_slots=8, width=16, t_max), the seeded
     24-request Poisson trace, every launch count reset just before and
     read just after and held to `per_step` times the engine's steps;
     every request OK with its full budget, a greedy and a sampled request
-    equal to their run_solo bit for bit.  Returns (launches, eng,
-    scope)."""
+    equal to their run_solo bit for bit; no capture after the pooled
+    step's and the slot reset's first two runs across the trace's slot
+    churn; then a 3-request trace eagerly (use_program_cache=False) and
+    captured, the logits of every step bit for bit.  With `profile_dir`,
+    both modes under the profiler.  Returns (launches, eng, scope, the
+    path's capture record)."""
+    import hashlib
+
     import numpy as np
+    import torch
 
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import kernels
@@ -1927,9 +1974,22 @@ def _serve_on_card(label, hp, t_max, per_step, seed):
         trace = make_poisson_trace(24, rate=0.5, prompt_len_range=(16, 384),
                                    out_len_range=(16, 64),
                                    vocab_size=hp.vocab_size, seed=0)
+        run = exe.run
+        counts = []  # (program, compile_count) after each run
+
+        def counting(program=None, feed=None, fetch_list=None, **kw):
+            out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+            counts.append((program, exe.compile_count))
+            return out
+
+        exe.run = counting
         kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         results, stats = eng.run(trace)
+        peak = torch.cuda.max_memory_allocated()
         launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        exe.run = run
         steps = stats["steps"]
         for name, n in per_step.items():
             assert launches[name] == n * steps, (
@@ -1940,22 +2000,107 @@ def _serve_on_card(label, hp, t_max, per_step, seed):
             toks = res["tokens"]
             assert toks.size == r.max_new_tokens, (r.rid, toks.size)
             assert ((toks >= 0) & (toks < hp.vocab_size)).all(), r.rid
+        # the pooled step and the slot reset each capture at their second
+        # run; the churn after that changes feed values, never a capture
+        seen = {id(eng.step_main): 0, id(eng.reset_prog): 0}
+        settled = None
+        for i, (program, _) in enumerate(counts):
+            if id(program) in seen:
+                seen[id(program)] += 1
+            if settled is None and min(seen.values()) >= 2:
+                settled = i
+        assert settled is not None, seen
+        churn = {c for _, c in counts[settled:]}
+        assert churn == {counts[settled][1]} == {2}, (
+            "captures across the churn", label, counts[settled:][:5])
         greedy = next(r for r in trace if r.greedy)
         sampled = next(r for r in trace if not r.greedy)
         for r in (greedy, sampled):
             solo, _ = eng.run_solo(r)
             assert np.array_equal(solo, results[r.rid]["tokens"]), (
                 "pooled != solo", label, r.rid)
+
+        # a short trace eagerly and captured: every step's logits bit for
+        # bit (the engine fetches them to the host each step)
+        short = make_poisson_trace(3, rate=0.5, prompt_len_range=(16, 384),
+                                   out_len_range=(16, 64),
+                                   vocab_size=hp.vocab_size, seed=2)
+        legs = {}
+        for mode in ("eager", "captured"):
+            seen = []
+
+            def recording(program=None, feed=None, fetch_list=None, **kw):
+                kw["use_program_cache"] = mode == "captured"
+                out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+                if program is eng.step_main:
+                    seen.append(out[0])
+                return out
+
+            exe.run = recording
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, st = eng.run(short)
+            legs[mode] = ([hashlib.sha256(lg.tobytes()).digest()
+                           for lg in seen], st["step_s_p50"],
+                          torch.cuda.max_memory_allocated())
+            del seen
+        exe.run = run
+        assert legs["eager"][0] == legs["captured"][0] and legs["eager"][0], (
+            "captured != eager serving logits", label)
+        # the engine's host copy of the logits, [slots, width, vocab] f32
+        lg = torch.empty((N_SLOTS, WIDTH, hp.vocab_size), device="cuda")
+        copy_ms = _p50_ms([_timed(lg.cpu) for _ in range(5)])
+        reports = {}
+        if profile_dir:
+            reports["captured"] = profile_serving(eng, scope, profile_dir,
+                                                  profile_name)
+            exe.run = _eager_run(run)
+            reports["eager"] = profile_serving(eng, scope, profile_dir,
+                                               profile_name + "_eager")
+            exe.run = run
         print("served %s: %d requests in %d steps: %.1f tokens/s, step p50 "
               "%.3f ms, mean %.3f ms; pooled == solo for rid %d (greedy) and "
-              "%d (sampled); launches %s" % (
+              "%d (sampled); no capture across the churn after run %d of %d; "
+              "a %d-request trace eagerly and captured: %d steps' logits bit "
+              "for bit; the logits' host copy %.3f ms; launches %s" % (
                   label, len(trace), steps, stats["tokens_per_s"],
                   stats["step_s_p50"] * 1e3, stats["step_s_mean"] * 1e3,
-                  greedy.rid, sampled.rid, json.dumps(launches)))
-    return launches, eng, scope
+                  greedy.rid, sampled.rid, settled + 1, len(counts),
+                  len(short), len(legs["eager"][0]), copy_ms,
+                  json.dumps(launches)))
+    cap = {"eager_p50_ms": legs["eager"][1] * 1e3,
+           "captured_p50_ms": stats["step_s_p50"] * 1e3,
+           "replay_p50_ms": legs["captured"][1] * 1e3,
+           "eager_peak_gb": legs["eager"][2] / 1e9,
+           "captured_peak_gb": peak / 1e9,
+           "compile_count": exe.compile_count,
+           "logits_host_copy_ms": copy_ms,
+           "logits_copy_share": copy_ms / (stats["step_s_p50"] * 1e3)}
+    _busy_idle(cap, reports)
+    return launches, eng, scope, _capture_line(label + " serving", cap)
 
 
-def serve_gpt2_small(dev):
+def _eager_run(run):
+    """`run` (an executor's run) with use_program_cache=False: the eager
+    leg of a loop that calls exe.run itself (the engine, the decoders)."""
+    def eager(program=None, feed=None, fetch_list=None, **kw):
+        kw["use_program_cache"] = False
+        return run(program, feed=feed, fetch_list=fetch_list, **kw)
+    return eager
+
+
+def _timed(fn):
+    """Seconds of one call of `fn`, ended by a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def serve_gpt2_small(dev, profile_dir=None):
     """The first serving path: GPT-2 small served through the engine on
     the card, t_max 1024."""
     from paddle_tpu_torch.models import gpt2
@@ -1965,10 +2110,11 @@ def serve_gpt2_small(dev):
         "GPT-2 small", hp, T_MAX,
         {"flash_attention_qvec": hp.n_layer,
          "matmul_bias_act": 2 * hp.n_layer,
-         "fused_add_layer_norm": 2 * hp.n_layer + 1}, 1234)
+         "fused_add_layer_norm": 2 * hp.n_layer + 1}, 1234, profile_dir,
+        "serving")
 
 
-def serve_tinyllama(dev):
+def serve_tinyllama(dev, profile_dir=None):
     """The modern-decoder serving path at TinyLlama-1.1B's widths, t_max
     2048.  Per engine step: matmul_swiglu and matmul_bias_act (ffn_out)
     once per layer, flash_attention_qvec once per layer, add-LN twice per
@@ -1979,7 +2125,7 @@ def serve_tinyllama(dev):
         "TinyLlama-1.1B widths", hp, hp.n_ctx,
         {"matmul_swiglu": 22, "matmul_bias_act": 22,
          "flash_attention_qvec": 22, "fused_add_layer_norm": 44,
-         "fused_layer_norm": 1}, 1235)
+         "fused_layer_norm": 1}, 1235, profile_dir, "serving_llama")
 
 
 def _profile_report(prof, wall_us, steps, name, out_dir):
@@ -2034,6 +2180,7 @@ def _profile_report(prof, wall_us, steps, name, out_dir):
         {k: v / 1e3 / steps for k, v in sorted(spans.items())})))
     print("profile %s device top 12 (ms/step): %s" % (name, json.dumps(
         {k[:70]: v / 1e3 / steps for k, v in top[:12]})))
+    return report
 
 
 def profile_serving(eng, scope, out_dir, name="serving"):
@@ -2057,7 +2204,7 @@ def profile_serving(eng, scope, out_dir, name="serving"):
             _, stats = eng.run(trace)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    _profile_report(prof, wall_us, stats["steps"], name, out_dir)
+    return _profile_report(prof, wall_us, stats["steps"], name, out_dir)
 
 
 def profile_training(run_step, out_dir, steps=3, name="training"):
@@ -2075,7 +2222,7 @@ def profile_training(run_step, out_dir, steps=3, name="training"):
             run_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _profile_report(prof, wall_us, steps, name, out_dir)
+    return _profile_report(prof, wall_us, steps, name, out_dir)
 
 
 def narrow_gpt2_config():
@@ -2226,19 +2373,25 @@ def _forward_recurrent(block, op_type):
 
 def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
                    first_range, per_step, profile_dir, profile_name,
-                   steps=TRAIN_STEPS, dropout=True, loss_parts=None):
+                   steps=TRAIN_STEPS, dropout=True, loss_parts=None,
+                   loop=False):
     """One training path on the card: one warm-up step (its loss within
-    `first_range`), then `steps` timed steps with every launch count
-    reset just before and read just after and held to `per_step` times
-    the steps; then the same step twice from one saved state (kept on
-    the host), bit for bit, and, for a path with `dropout`, a step
-    checking every dropout_grad against its forward op's mask.  fetch[1]
+    `first_range`) and the capture of the step, then `steps` timed steps
+    (replays) with every launch count reset just before and read just
+    after and held to `per_step` times the steps, one capture in all;
+    then a second fetch list on the same executor (its warm-up releases
+    the first's graph; both then capture into one pool, under 1.5 times
+    one key's pool), and an eager step, which releases the graphs again
+    (the next run captures again); then the same step twice from one
+    saved state (kept on the host), bit for bit, and, for a path with
+    `dropout`, a step checking every dropout_grad against its forward
+    op's mask; then _eager_vs_captured from the same saved state (with `loop`, run_loop(4) too).  fetch[1]
     is the step's token count, held to `n_tok`, unless `loss_parts`
     names fetch[1:] (BERT's MLM and NSP losses, the LSTM classifier's
     accuracy; none for a program that fetches its loss alone), which are
-    then printed.  Prints the path's line (tokens/s counts
-    `n_tok` a step, examples/s the batch's rows) and returns the launch
-    counts."""
+    then printed.  Prints the path's line (tokens/s counts `n_tok` a
+    step, examples/s the batch's rows).  Returns (the launch counts, the
+    path's capture record)."""
     import numpy as np
     import torch
 
@@ -2249,11 +2402,16 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
     with ptt.scope_guard(scope):
         exe = ptt.Executor(ptt.CUDAPlace(0))
         exe.run(startup)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        first = float(exe.run(main, feed=batch, fetch_list=[fetch[0]])[0].sum())
+        first = float(exe.run(main, feed=batch, fetch_list=fetch)[0].sum())
         assert first_range[0] < first < first_range[1], (
             "first loss out of range", label, first, first_range)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        live = torch.cuda.memory_reserved()
+        exe.run(main, feed=batch, fetch_list=fetch)  # the capture
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool_one = torch.cuda.memory_reserved() - live
         kernels.reset_launch_counts()
         losses, times = [], []
         for _ in range(steps):
@@ -2268,13 +2426,77 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
             else:
                 parts = [float(v.sum()) for v in out[1:]]
         launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-        peak = torch.cuda.max_memory_allocated()
+        assert exe.compile_count == 1, ("captures", label, exe.compile_count)
         assert all(np.isfinite(losses)), losses
         if loss_parts:
             assert all(np.isfinite(parts)), parts
         for name, n in per_step.items():
             assert launches[name] == n * steps, (
                 "launch count", label, name, launches[name], n, steps)
+
+        # a second key (another fetch list): its warm-up, an eager step,
+        # releases the executor's graphs first (it would not fit beside
+        # them at TinyLlama's widths); then both keys capture into the
+        # executor's one pool, which keeps about one step's activations.
+        # An eager run (use_program_cache=False) releases them again, and
+        # the next cached run captures again.
+        other = [fetch[0]] if len(fetch) > 1 else [fetch[0], fetch[0]]
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):  # its warm-up, its capture, a replay
+            exe.run(main, feed=batch, fetch_list=other)
+        exe.run(main, feed=batch, fetch_list=fetch)  # captured again
+        torch.cuda.synchronize()
+        warm = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        pool_two = torch.cuda.memory_reserved() - live
+        assert exe.compile_count == 3, ("captures", label, exe.compile_count)
+        assert pool_two < 1.5 * pool_one, ("two keys' pool", label,
+                                           pool_one, pool_two)
+        torch.cuda.reset_peak_memory_stats()
+        exe.run(main, feed=batch, fetch_list=fetch, use_program_cache=False)
+        torch.cuda.synchronize()
+        beside = torch.cuda.max_memory_allocated()
+        exe.run(main, feed=batch, fetch_list=fetch)
+        assert exe.compile_count == 4, ("captures", label, exe.compile_count)
+        print("%s: the graph pool %.3f GB with one key, %.3f GB with two "
+              "(peak %.3f GB from the second key's warm-up on); an eager "
+              "step on the same executor released it (peak %.3f GB), the "
+              "next run captured again" % (
+                  label, pool_one / 1e9, pool_two / 1e9, warm / 1e9,
+                  beside / 1e9))
+
+        # each dropout_grad redraws its forward op's mask on the card: its
+        # X@GRAD is Out@GRAD times the forward's Mask, bit for bit, in the
+        # eager warm-up of these fetches and in their captured step
+        block = main.global_block()
+        names = []
+        for op in block.ops:
+            if dropout and op.type == "dropout_grad":
+                fwd = block.ops[op.attrs["__fwd_op_idx__"]]
+                names += [fwd.outputs["Mask"][0], op.inputs["Out@GRAD"][0],
+                          op.outputs["X@GRAD"][0]]
+        assert names or not dropout, "no dropout_grad op"
+        for _ in range(2 if names else 0):
+            vals = exe.run(main, feed=batch, fetch_list=names,
+                           return_numpy=False)
+            for i in range(0, len(vals), 3):
+                mask, dout, dx = vals[i:i + 3]
+                assert torch.equal(dx, dout * mask), ("dropout_grad mask",
+                                                      names[i])
+                assert 0.85 < float(mask.mean()) < 0.95, (names[i],
+                                                          mask.mean())
+            del vals
+        reports = {}
+        if profile_dir:
+            reports["captured"] = profile_training(
+                lambda: exe.run(main, feed=batch, fetch_list=fetch),
+                profile_dir, name=profile_name)
+            reports["eager"] = profile_training(
+                lambda: exe.run(main, feed=batch, fetch_list=fetch,
+                                use_program_cache=False),
+                profile_dir, name=profile_name + "_eager")
+        exe.close()
+        del exe, out
 
         # the same step twice from one saved state: a fresh executor each
         # time, so both draw the same dropout masks.  The state and the
@@ -2287,8 +2509,9 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
         for _ in range(2):
             for n, v in state.items():
                 scope.set(n, v.to(where[n]))
-            loss = ptt.Executor(ptt.CUDAPlace(0)).run(
-                main, feed=batch, fetch_list=[fetch[0]])[0]
+            again = ptt.Executor(ptt.CUDAPlace(0))
+            loss = again.run(main, feed=batch, fetch_list=[fetch[0]])[0]
+            again.close()
             after = {n: scope.find_var(n).cpu() for n in state}
             if first_run is None:
                 first_run = (loss, after)
@@ -2297,48 +2520,135 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
                                                       after[n])]
         assert not differ, ("updated state not reproducible", differ[:5])
         moved = sum(not torch.equal(after[n], state[n]) for n in state)
-        del first_run, after, state
-
-        # each dropout_grad redraws its forward op's mask on the card: its
-        # X@GRAD is Out@GRAD times the forward's Mask, bit for bit
-        block = main.global_block()
-        names = []
-        for op in block.ops:
-            if dropout and op.type == "dropout_grad":
-                fwd = block.ops[op.attrs["__fwd_op_idx__"]]
-                names += [fwd.outputs["Mask"][0], op.inputs["Out@GRAD"][0],
-                          op.outputs["X@GRAD"][0]]
-        assert names or not dropout, "no dropout_grad op"
-        if names:
-            vals = exe.run(main, feed=batch, fetch_list=names,
-                           return_numpy=False)
-            for i in range(0, len(vals), 3):
-                mask, dout, dx = vals[i:i + 3]
-                assert torch.equal(dx, dout * mask), ("dropout_grad mask",
-                                                      names[i])
-                assert 0.85 < float(mask.mean()) < 0.95, (names[i],
-                                                          mask.mean())
-            del vals
-        if profile_dir:
-            profile_training(lambda: exe.run(main, feed=batch,
-                                             fetch_list=fetch), profile_dir,
-                             name=profile_name)
+        del first_run, after
+        cap = _eager_vs_captured(label, main, batch, fetch[0], scope, state,
+                                 where, loop)
+        del state
     p50 = sorted(times)[len(times) // 2]
     examples = len(next(iter(batch.values())))
     print("trained %s %d steps: step p50 %.3f ms, mean %.3f ms; %.1f "
           "tokens/s (%d a step), %.1f rows/s, %.1f examples/s; losses %s "
-          "(first %.4f)%s; peak memory %.2f GB; launches per step %s; one "
-          "step from a saved state twice: bit-equal loss and %d updated state "
-          "tensors; %d dropout_grad ops redrew their forward masks" % (
+          "(first %.4f)%s; launches per step %s; one step from a saved state "
+          "twice: bit-equal loss and %d updated state tensors; %d "
+          "dropout_grad ops redrew their forward masks, eager and captured" % (
               label, steps, p50 * 1e3, sum(times) / len(times) * 1e3,
               n_tok / p50, n_tok, rows / p50, examples / p50,
               json.dumps([round(v, 6) for v in losses]), first,
               "; last step's %s" % ", ".join(
                   "%s %.6f" % kv for kv in zip(loss_parts, parts))
-              if loss_parts else "", peak / 1e9,
+              if loss_parts else "",
               json.dumps({k: v // steps for k, v in launches.items()}),
               moved, len(names) // 3))
-    return launches
+    cap.update(captured_p50_ms=p50 * 1e3, compile_count=1,
+               pool_gb_one_key=pool_one / 1e9, pool_gb_two_keys=pool_two / 1e9,
+               second_key_peak_gb=warm / 1e9, eager_run_peak_gb=beside / 1e9)
+    _busy_idle(cap, reports)
+    return launches, _capture_line(label, cap)
+
+
+def _busy_idle(cap, reports):
+    """Each mode's device busy ms a step and idle share from its --profile
+    leg; "not profiled" without one."""
+    for mode in ("eager", "captured"):
+        rep = reports.get(mode)
+        if rep is None or not rep["device_busy_us"]:
+            cap[mode + "_busy_ms"] = cap[mode + "_idle"] = "not profiled"
+        else:
+            cap[mode + "_busy_ms"] = rep["device_busy_us"] / 1e3 / rep["steps"]
+            cap[mode + "_idle"] = rep["device_idle_share"]
+
+
+def _capture_line(label, cap):
+    """Prints a path's eager and captured numbers on one line."""
+    cap.setdefault("captured", True)
+    print("capture %s: %s" % (label, json.dumps(cap)))
+    return cap
+
+
+def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop):
+    """From the saved `state` (on the host; `where` its devices), on fresh
+    executors, 3 captured steps against 3 eager ones
+    (use_program_cache=False): the losses and every updated persistable
+    bit for bit.  Each leg first runs 2 steps from the state and then
+    starts again from it, so the captured leg's 3 steps are replays and
+    both legs draw at step counters 2-4.  With `loop`, a 4th captured
+    step against run_loop(4) on a third executor, the same way.  The
+    state comes back by scope.set, which the entry copies into its own
+    tensors, or, past 8 GB, by a copy into the scope's tensors.  Returns
+    the eager p50 and the peak memory of each leg (captured: from the
+    capture on)."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+
+    in_place = sum(v.numel() * v.element_size()
+                   for v in state.values()) > 8e9
+
+    def restore():
+        for n, v in state.items():
+            cur = scope.find_var(n)
+            if in_place and cur.shape == v.shape:
+                cur.copy_(v)
+            else:
+                scope.set(n, v.to(where[n]))
+
+    def leg(mode):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        cached = mode != "eager"
+        restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(2):
+            exe.run(main, feed=batch, fetch_list=[loss],
+                    use_program_cache=cached)
+            if i == 0 and cached:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()  # from the capture on
+        restore()
+        if mode == "loop":
+            out = [exe.run_loop(4, main, feed=batch, fetch_list=[loss])[0]]
+            times = []
+        else:
+            out, times = [], []
+            for _ in range(4 if mode == "captured" and loop else 3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out.append(exe.run(main, feed=batch, fetch_list=[loss],
+                                   use_program_cache=cached)[0])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if len(out) == 3:
+                    after3 = {n: scope.find_var(n).cpu() for n in state}
+        peak = torch.cuda.max_memory_allocated()
+        final = ({n: scope.find_var(n).cpu() for n in state}
+                 if mode != "eager" and (loop or mode == "loop") else None)
+        exe.close()
+        return out, times, peak, (after3 if mode != "loop" else None), final
+
+    cap_out, cap_times, cap_peak, cap3, cap4 = leg("captured")
+    eag_out, eag_times, eag_peak, eag3, _ = leg("eager")
+    assert all(np.array_equal(a, b) for a, b in zip(cap_out, eag_out)), (
+        "captured != eager losses", label)
+    differ = [n for n in state if not torch.equal(cap3[n], eag3[n])]
+    assert not differ, ("captured != eager state", label, differ[:5])
+    moved = sum(not torch.equal(cap3[n], state[n]) for n in state)
+    del cap3, eag3
+    line = ("%s: 3 captured steps == 3 eager steps from a saved state, bit "
+            "for bit (losses %s; %d of %d state tensors moved)" % (
+                label, [float(v.sum()) for v in eag_out], moved, len(state)))
+    if loop:
+        loop_out, _, _, _, loop4 = leg("loop")
+        assert np.array_equal(loop_out[0], cap_out[3]), (
+            "run_loop(4) != 4 runs", label)
+        differ = [n for n in state if not torch.equal(loop4[n], cap4[n])]
+        assert not differ, ("run_loop(4) state != 4 runs'", label, differ[:5])
+        line += "; run_loop(4) == 4 x run (loss %.6f and every state tensor)" \
+            % float(loop_out[0].sum())
+    print(line)
+    return {"eager_p50_ms": _p50_ms(eag_times),
+            "eager_peak_gb": eag_peak / 1e9, "captured_peak_gb": cap_peak / 1e9,
+            "replay_p50_ms": _p50_ms(cap_times)}
 
 
 def train_transformer_base(dev, profile_dir=None):
@@ -2367,7 +2677,7 @@ def train_transformer_base(dev, profile_dir=None):
     return _train_on_card(
         "Transformer-base (batch %d x %d)" % (TRAIN_BATCH, TRAIN_LEN), main,
         startup, fetch, batch, float(batch["lbl_weight"].sum()), TRAIN_ROWS,
-        (8.0, 10.5), per_step, profile_dir, "training")
+        (8.0, 10.5), per_step, profile_dir, "training", loop=True)
 
 
 def train_gpt2_small(dev, profile_dir=None):
@@ -2400,7 +2710,8 @@ def train_gpt2_small(dev, profile_dir=None):
     return _train_on_card(
         "GPT-2 small (batch %d x %d)" % (GPT2_BATCH, GPT2_LEN), main, startup,
         fetch, batch, float(batch["loss_weight"].sum()), GPT2_ROWS,
-        (ln_v - 0.5, ln_v + 0.5), per_step, profile_dir, "training_gpt2")
+        (ln_v - 0.5, ln_v + 0.5), per_step, profile_dir, "training_gpt2",
+        loop=True)
 
 
 def train_tinyllama(dev, profile_dir=None):
@@ -2652,6 +2963,9 @@ def _vp_rank_run(rank, store, out_dir, profile_dir):
         out["times"] = times
         out["peak"] = torch.cuda.max_memory_allocated()
         out["sums_last"] = _state_sums(scope, whole)
+        # the stamped program spans ranks: it runs eagerly, one plan
+        out["compile_count"] = exe.compile_count
+        out["comm"] = exe.spmd_comm_stats(main)
         if profile_dir:
             # rank 0's process under the profiler (its own kernels: the
             # idle share counts the card's time with rank 1 as idle); rank
@@ -2660,8 +2974,8 @@ def _vp_rank_run(rank, store, out_dir, profile_dir):
                 exe.run(main, feed=batch, fetch_list=fetch)
 
             if rank == 0:
-                profile_training(step, profile_dir,
-                                 name="training_vocab_parallel")
+                out["profile"] = profile_training(
+                    step, profile_dir, name="training_vocab_parallel")
             else:
                 for _ in range(4):
                     step()
@@ -2824,7 +3138,23 @@ def train_vocab_parallel(dev, smi, profile_dir=None):
               json.dumps({k: v // VP_STEPS for k, v in r0["launches"].items()
                           if v}),
               r0["narrow"]["cuda"], r0["narrow"]["cpu"], ranks_s))
-    return r0["launches"]
+    # 4 all-reduces in the forward of sharded_linear_xent, 4 more in the
+    # grad op's re-run of it and dx's: 8 of [R, 1] and one of [R, H]
+    comm = r0["comm"]
+    rows = TRAIN_BATCH * TRAIN_LEN
+    assert comm["per_op"] == {"all-reduce": {
+        "count": 9, "bytes": 4 * (8 * rows + rows * HP_D_MODEL)}}, comm
+    # one plan for each fetch list the rank ran: the loss, and the timed
+    # steps' loss and token count
+    assert r0["compile_count"] == 2, r0["compile_count"]
+    cap = {"captured": False, "eager_p50_ms": p50 * 1e3,
+           "captured_p50_ms": None, "eager_peak_gb": r0["peak"] / 1e9,
+           "captured_peak_gb": None, "compile_count": r0["compile_count"],
+           "spmd_comm_stats": comm}
+    _busy_idle(cap, {"eager": r0.get("profile")})
+    cap["captured_busy_ms"] = cap["captured_idle"] = None
+    return r0["launches"], _capture_line(
+        "WMT vocab-parallel training (rank 0)", cap)
 
 
 def bert_base_config():
@@ -3185,23 +3515,86 @@ def _decode_on_card(label, hp, t_max, batch, prompt_len, width, new, seed,
         print("%s decode: B3's few-row form launched %d times, once per "
               "one-token step attention" % (label, attn))
 
+        compiles = exe.compile_count
+        cap = _decode_legs(label, step, cache_start, fetch, prompts, prefill)
+        reports = {}
         if profile_dir:
             from torch.profiler import ProfilerActivity, profile
 
             tok = cached[:, -1:]
-            exe.run(cache_start)  # the beam's batch-8 caches share names
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for i in range(8):
-                    exe.run(step, feed={"step_ids": tok, "pos": np.array(
-                        [min(total - 1 + i, t_max - 1)], "int64")},
-                            fetch_list=fetch)
+            for mode, cached_ in (("captured", True), ("eager", False)):
+                exe.run(cache_start)  # the beam's batch-8 caches share names
+                # one step outside the window: the beam's warm-ups
+                # released the step's graph, and its capture is not a step
+                exe.run(step, feed={"step_ids": tok, "pos": np.array(
+                    [total - 1], "int64")}, fetch_list=fetch,
+                        use_program_cache=cached_)
                 torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            _profile_report(prof, wall_us, 8, profile_name, profile_dir)
-    return runs.totals
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for i in range(8):
+                        exe.run(step, feed={"step_ids": tok, "pos": np.array(
+                            [min(total - 1 + i, t_max - 1)], "int64")},
+                                fetch_list=fetch, use_program_cache=cached_)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                reports[mode] = _profile_report(
+                    prof, wall_us, 8, profile_name + (
+                        "" if cached_ else "_eager"), profile_dir)
+    cap.update(captured_p50_ms=step_p50, compile_count=compiles)
+    _busy_idle(cap, reports)
+    return runs.totals, _capture_line(label + " decode", cap)
+
+
+def _decode_legs(label, step, cache_start, fetch, prompts, prefill):
+    """Cached greedy generation of CAPTURE_NEW tokens, twice, on a fresh
+    executor eagerly (use_program_cache=False) and on another captured:
+    the logits of every run (the chunked prefill's and the one-token
+    steps') bit for bit.  Returns the eager one-token step's p50 and each
+    leg's peak memory."""
+    import hashlib
+
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt2
+
+    legs = {}
+    for mode in ("eager", "captured"):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        run = exe.run
+        digests, times = [], []
+
+        def recording(program=None, feed=None, fetch_list=None, **kw):
+            kw["use_program_cache"] = mode == "captured"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+            torch.cuda.synchronize()
+            if program is step:
+                times.append(time.perf_counter() - t0)
+            if fetch_list:
+                digests.append(hashlib.sha256(out[0].tobytes()).digest())
+            return out
+
+        exe.run = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            gpt2.greedy_generate_cached(exe, step, cache_start, fetch,
+                                        prompts, CAPTURE_NEW, prefill=prefill)
+        legs[mode] = (digests, times, torch.cuda.max_memory_allocated())
+        exe.close()
+    assert legs["eager"][0] == legs["captured"][0] and legs["eager"][0], (
+        "captured != eager decode logits", label)
+    print("%s decode: %d runs' logits (2 greedy generations of %d tokens) "
+          "bit for bit eagerly and captured" % (label, len(legs["eager"][0]),
+                                                CAPTURE_NEW))
+    return {"eager_p50_ms": _p50_ms(legs["eager"][1]),
+            "replay_p50_ms": _p50_ms(legs["captured"][1]),
+            "eager_peak_gb": legs["eager"][2] / 1e9,
+            "captured_peak_gb": legs["captured"][2] / 1e9}
 
 
 def decode_gpt2_small(dev, profile_dir=None):
@@ -3621,6 +4014,8 @@ def decode_seq2seq(dev, profile_dir=None):
     rng = np.random.RandomState(5)
     src = np.repeat(rng.randint(2, S2S_DICT, (S2S_BEAM_SENTS, S2S_LEN)),
                     S2S_BEAM, axis=0).astype("int64")
+    import torch
+
     with ptt.scope_guard(ptt.Scope()):
         exe = ptt.Executor(ptt.CUDAPlace(0))
         exe.run(startup)
@@ -3631,13 +4026,47 @@ def decode_seq2seq(dev, profile_dir=None):
         wall = time.perf_counter() - t0
         launches = dict(runs.totals)
         p50 = _p50_ms(runs.times[id(main)])
+        compiles = exe.compile_count
+        # the same beam search eagerly and captured on fresh executors:
+        # every step's log-probs and the tokens bit for bit
+        legs = {}
+        for mode in ("eager", "captured"):
+            leg_exe = ptt.Executor(ptt.CUDAPlace(0))
+            run = leg_exe.run
+            times = []
+
+            def timed_run(program=None, feed=None, fetch_list=None, **kw):
+                kw["use_program_cache"] = mode == "captured"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+                times.append(time.perf_counter() - t0)
+                return out
+
+            leg_exe.run = timed_run
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got = _beam_decode(leg_exe, main, logp, new_h, src, S2S_BEAM,
+                               S2S_H, S2S_BEAM_STEPS)
+            legs[mode] = (got, times, torch.cuda.max_memory_allocated())
+            leg_exe.close()
+        (e_ids, _, e_logps), (c_ids, _, c_logps) = (legs["eager"][0],
+                                                     legs["captured"][0])
+        assert np.array_equal(e_ids, c_ids) and len(e_logps) == len(
+            c_logps) and all(np.array_equal(a, b)
+                             for a, b in zip(e_logps, c_logps)), (
+            "captured != eager beam decode")
+        reports = {}
         if profile_dir:
             feed = {"src_word_id": src,
                     "cur_token": np.ones((len(src), 1), "int64"),
                     "prev_hidden": np.zeros((len(src), S2S_H), "float32")}
-            profile_training(lambda: exe.run(main, feed=feed,
-                                             fetch_list=[logp, new_h]),
-                             profile_dir, name="decode_seq2seq")
+            for mode, cached in (("captured", True), ("eager", False)):
+                reports[mode] = profile_training(
+                    lambda: exe.run(main, feed=feed, fetch_list=[logp, new_h],
+                                    use_program_cache=cached),
+                    profile_dir, name="decode_seq2seq" + (
+                        "" if cached else "_eager"))
     rows = S2S_BEAM * S2S_BEAM_SENTS
     for lp in logps:
         assert lp.shape == (rows, S2S_DICT) and np.isfinite(lp).all()
@@ -3652,7 +4081,15 @@ def decode_seq2seq(dev, profile_dir=None):
               S2S_BEAM, S2S_BEAM_SENTS, S2S_LEN, len(logps), wall, p50,
               rows / p50 * 1e3, json.dumps(np.round(scores, 4).tolist()),
               json.dumps(launches)))
-    return launches
+    print("GRU seq2seq beam decode: %d steps' log-probs and the tokens bit "
+          "for bit eagerly and captured" % len(e_logps))
+    cap = {"eager_p50_ms": _p50_ms(legs["eager"][1]), "captured_p50_ms": p50,
+           "replay_p50_ms": _p50_ms(legs["captured"][1]),
+           "eager_peak_gb": legs["eager"][2] / 1e9,
+           "captured_peak_gb": legs["captured"][2] / 1e9,
+           "compile_count": compiles}
+    _busy_idle(cap, reports)
+    return launches, _capture_line("GRU seq2seq beam decode", cap)
 
 
 def seq2seq_decode_card_matches_cpu(dev):
@@ -3818,76 +4255,86 @@ def main():
             {k: v for k, v in r.items() if k.endswith("ms") or k == "shape"})))
     profile_dir = (os.path.join(ROOT, "chiprun_out")
                    if "--profile" in sys.argv[1:] else None)
-    served, eng, scope = serve_gpt2_small(dev)
+    caps = {}  # each path's eager and captured numbers
+    served, eng, scope, caps["serving"] = serve_gpt2_small(dev, profile_dir)
+    eng.exe.close()
+    del eng, scope
     for n_slots in (3, 1):  # a one-slot pool has a one-row QStart
         card_matches_cpu(dev, n_slots, narrow_gpt2_config(), SERVING_KERNELS)
-    if profile_dir:
-        profile_serving(eng, scope, profile_dir)
-    del eng, scope
     lap("gpt2 serving")
     torch.cuda.empty_cache()
-    trained = train_transformer_base(dev, profile_dir)
+    trained, caps["wmt_training"] = train_transformer_base(dev, profile_dir)
     train_card_matches_cpu(dev)
     lap("wmt training")
     torch.cuda.empty_cache()
-    trained_gpt2 = train_gpt2_small(dev, profile_dir)
+    trained_gpt2, caps["gpt2_training"] = train_gpt2_small(dev, profile_dir)
     gpt2_train_card_matches_cpu(dev)
     lap("gpt2 training")
     torch.cuda.empty_cache()
-    served_llama, eng, scope = serve_tinyllama(dev)
+    served_llama, eng, scope, caps["llama_serving"] = serve_tinyllama(
+        dev, profile_dir)
+    eng.exe.close()
+    del eng, scope
     for n_slots in (3, 1):
         card_matches_cpu(dev, n_slots, narrow_modern_config(),
                          SERVING_KERNELS + ("matmul_swiglu",
                                             "fused_layer_norm"))
-    if profile_dir:
-        profile_serving(eng, scope, profile_dir, name="serving_llama")
-    del eng, scope
     lap("llama serving")
     torch.cuda.empty_cache()
-    trained_llama = train_tinyllama(dev, profile_dir)
+    trained_llama, caps["llama_training"] = train_tinyllama(dev, profile_dir)
     llama_train_card_matches_cpu(dev)
     lap("llama training")
     torch.cuda.empty_cache()
-    trained_bert = train_bert_base(dev, profile_dir)
+    trained_bert, caps["bert_training"] = train_bert_base(dev, profile_dir)
     bert_train_card_matches_cpu(dev)
     lap("bert training")
     torch.cuda.empty_cache()
-    trained_wmt_fused = train_transformer_base_fused_attn(dev)
+    trained_wmt_fused, caps["wmt_fused_attn_training"] = (
+        train_transformer_base_fused_attn(dev))
     train_card_matches_cpu(dev, fused_attn=True)
     lap("wmt fused_attn training")
     torch.cuda.empty_cache()
-    decoded = decode_gpt2_small(dev, profile_dir)
+    decoded, caps["gpt2_decode"] = decode_gpt2_small(dev, profile_dir)
     lap("gpt2 decode")
     decode_card_matches_cpu(dev, narrow_gpt2_config(), DECODE_KERNELS)
     lap("narrow gpt2 decode, card vs CPU")
     torch.cuda.empty_cache()
-    decoded_llama = decode_tinyllama(dev, profile_dir)
+    decoded_llama, caps["llama_decode"] = decode_tinyllama(dev, profile_dir)
     lap("llama decode")
     decode_card_matches_cpu(dev, narrow_modern_config(),
                             DECODE_KERNELS + ("matmul_swiglu",
                                               "fused_layer_norm"))
     lap("narrow modern decode, card vs CPU")
     torch.cuda.empty_cache()
-    trained_lstm = train_stacked_lstm(dev, profile_dir)
+    trained_lstm, caps["lstm_training"] = train_stacked_lstm(dev, profile_dir)
     lstm_train_card_matches_cpu(dev)
     lap("lstm training")
-    trained_s2s = train_seq2seq(dev, profile_dir)
+    trained_s2s, caps["seq2seq_training"] = train_seq2seq(dev, profile_dir)
     seq2seq_train_card_matches_cpu(dev)
     lap("seq2seq training")
-    decoded_s2s = decode_seq2seq(dev, profile_dir)
+    decoded_s2s, caps["seq2seq_decode"] = decode_seq2seq(dev, profile_dir)
     seq2seq_decode_card_matches_cpu(dev)
     lap("seq2seq beam decode")
     torch.cuda.empty_cache()
-    trained_packed = train_packed_lm(dev, 0, profile_dir)
+    trained_packed, caps["packed_lm_training"] = train_packed_lm(
+        dev, 0, profile_dir)
     lap("packed LM training")
     torch.cuda.empty_cache()
-    trained_packed_window = train_packed_lm(dev, PACKED_WINDOW, profile_dir)
+    trained_packed_window, caps["packed_lm_window_training"] = (
+        train_packed_lm(dev, PACKED_WINDOW, profile_dir))
     lap("packed LM training, window %d" % PACKED_WINDOW)
     packed_train_card_matches_cpu(dev)
     lap("narrow packed LM, card vs CPU")
     torch.cuda.empty_cache()
-    trained_vp = train_vocab_parallel(dev, smi, profile_dir)
+    trained_vp, caps["wmt_vocab_parallel_training"] = train_vocab_parallel(
+        dev, smi, profile_dir)
     lap("wmt vocab-parallel training (2 ranks on one card)")
+    assert sum(c["captured"] for c in caps.values()) == 14, caps
+    for path in ("gpt2_decode", "wmt_training"):
+        assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
+            "the captured step is not faster than the eager one", path,
+            caps[path])
+    print("eager and captured, each path (%s): %s" % (smi, json.dumps(caps)))
 
     # launches: each path's run, counted from 0 just before it and read
     # just after

@@ -15,8 +15,8 @@ kernel's ``torch.autograd.Function`` backward through the same vjp.
 
 import torch
 
-__all__ = ["register", "get_op", "is_registered", "LowerCtx", "OPS",
-           "lower_grad_op"]
+__all__ = ["register", "get_op", "is_registered", "LowerCtx", "DrawSites",
+           "OPS", "lower_grad_op"]
 
 
 class OpDef:
@@ -73,17 +73,69 @@ def fold_seed(seed, *data):
     return z & 0x7FFFFFFFFFFFFFFF
 
 
+class DrawSites:
+    """One ``torch.Generator`` per random draw of a step, in draw order,
+    made at the step's first run and kept with its cache entry, so a
+    captured CUDA graph can replay the draws (each generator is
+    registered with the graph).  A draw's generator is seeded with
+    ``fold_seed(step seed, kind, value)``, the fold the fresh generators
+    of the eager runner take, so it starts at offset 0 and draws what a
+    fresh one draws.  A grad op that re-runs its forward op's draw has a
+    generator of its own with the same seed: one shared generator would
+    have advanced between the two draws."""
+
+    def __init__(self, device):
+        self.device = device
+        self.gens = []
+        self.keys = []  # (kind, value) of each draw
+        self.pos = 0
+        self.capturing = False  # draws recorded into a graph: seeded later
+
+    def start(self):
+        self.pos = 0
+
+    def next(self, kind, value, seed):
+        i = self.pos
+        self.pos += 1
+        if i == len(self.gens):
+            if self.capturing:
+                raise RuntimeError(
+                    "a random draw appeared during capture that the step's "
+                    "first run did not make")
+            self.gens.append(torch.Generator(device=self.device))
+            self.keys.append((kind, value))
+        elif self.keys[i] != (kind, value):
+            raise RuntimeError("random draw %d changed from %s to %s between "
+                               "runs of one step" % (i, self.keys[i],
+                                                     (kind, value)))
+        g = self.gens[i]
+        if not self.capturing:
+            g.manual_seed(seed)
+        return g
+
+    def reseed(self, step_seed):
+        """Seed every draw for a replay of the step at `step_seed`."""
+        for g, (kind, value) in zip(self.gens, self.keys):
+            g.manual_seed(fold_seed(step_seed, kind, value))
+
+
 class LowerCtx:
     """Per-run context handed to lowering rules: the run's base seed
     (the executor folds in its step counter), the device, the block
     being run and the op's index in it (the mesh-aware lowerings read
-    the op's weight names through ``block.ops[op_idx]``)."""
+    the op's weight names through ``block.ops[op_idx]``).  `draws` (a
+    ``DrawSites``) and `consts` belong to a cache entry and outlive the
+    run; without them each draw takes a fresh generator and each
+    constant is made anew."""
 
-    def __init__(self, seed=0, device=None, block=None):
+    def __init__(self, seed=0, device=None, block=None, draws=None,
+                 consts=None):
         self.seed = int(seed)
         self.device = torch.device(device) if device is not None else None
         self.block = block
         self.op_idx = 0
+        self.draws = draws
+        self.consts = consts if consts is not None else {}
 
     def rng(self, attrs=None):
         """A seeded ``torch.Generator`` on the run's device for a
@@ -96,9 +148,25 @@ class LowerCtx:
             return None  # shape inference draws nothing
         seed = int(attrs.get("seed", 0)) if attrs else 0
         kind, value = (1, seed) if seed else (2, self.op_idx)
+        folded = fold_seed(self.seed, kind, value)
+        if self.draws is not None:
+            return self.draws.next(kind, value, folded)
         g = torch.Generator(device=self.device or "cpu")
-        g.manual_seed(fold_seed(self.seed, kind, value))
+        g.manual_seed(folded)
         return g
+
+    def constant(self, make):
+        """The op's constant tensor: `make()` at its first run, kept for
+        the entry's later runs, so a captured step copies nothing from
+        the host."""
+        t = self.consts.get(self.op_idx)
+        if t is None:
+            if self.draws is not None and self.draws.capturing:
+                raise RuntimeError(
+                    "a constant appeared during capture that the step's "
+                    "first run did not make")
+            t = self.consts[self.op_idx] = make()
+        return t
 
 
 def lower_grad_op(ctx, ins, attrs):
@@ -131,7 +199,8 @@ def lower_grad_op(ctx, ins, attrs):
                 if s not in opdef.no_grad_inputs and s in fwd_ins
                 for i, v in enumerate(fwd_ins[s])
                 if torch.is_tensor(v) and v.is_floating_point()]
-    sub_ctx = LowerCtx(ctx.seed, ctx.device, ctx.block)
+    sub_ctx = LowerCtx(ctx.seed, ctx.device, ctx.block, ctx.draws,
+                       ctx.consts)
     sub_ctx.op_idx = attrs.get("__fwd_op_idx__", ctx.op_idx)
     kept = []  # (slot, index) of each float output, in vjp order
 

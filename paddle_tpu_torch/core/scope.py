@@ -1,7 +1,7 @@
 """Runtime Scope: name -> tensor store (the counterpart of
 ``paddle_tpu/core/scope.py``).  Values are ``torch.Tensor``s on the
-executor's device; the executor writes a run's updated persistables
-back here after the block has run.
+executor's device; a run updates the persistables it writes in place,
+in the tensors held here (``core/graph.py``).
 """
 
 import contextlib
@@ -35,6 +35,17 @@ class Scope:
 
     def local_var_names(self):
         return list(self._vars)
+
+    def visible_vars(self):
+        """(name, value) of every var this scope finds: its own and its
+        ancestors' that it does not shadow."""
+        seen = {}
+        s = self
+        while s is not None:
+            for n, v in s._vars.items():
+                seen.setdefault(n, v)
+            s = s.parent
+        return list(seen.items())
 
 
 _scope_stack = [Scope()]

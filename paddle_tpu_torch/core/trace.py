@@ -1,14 +1,19 @@
-"""Eager block runner (the counterpart of ``paddle_tpu/core/trace.py``).
+"""Block runner (the counterpart of ``paddle_tpu/core/trace.py``).
 
 The reference traces a block's ops into one jitted XLA function.  Here
 the block runs op by op through the PyTorch lowerings, on tensors that
-already live on the executor's device.  What carries over unchanged:
+already live on the executor's device.  ``run_step`` is that op loop as
+a function of (feeds, state tensors) to (fetches, updated-state
+tensors), with no scope inside, as the reference's
+``build_traced_function`` is: ``core/graph.py`` runs it between the
+scope's reads and writes, and captures it as a CUDA graph.  What
+carries over unchanged:
 
 - the DCE mask (``dce_mask``): ops reachable from the fetches, plus
   every op writing persistable state, run; the rest are skipped;
 - the state split: the block reads scope state it does not produce,
-  and every persistable it writes goes back into the scope after the
-  run (the reference threads these as donated outputs).
+  and every persistable it writes is returned for the scope (the
+  reference threads these as donated outputs).
 
 A run's plan (keep mask, state reads, persistable writes) depends only
 on the program version, the feed and fetch names and the scope, so the
@@ -29,7 +34,7 @@ backward's host time by op type.
 from ..profiler import RecordEvent
 from .registry import OPS, get_op, lower_grad_op
 
-__all__ = ["dce_mask", "analyze_block", "RunPlan", "build_plan", "run_block"]
+__all__ = ["dce_mask", "analyze_block", "RunPlan", "build_plan", "run_step"]
 
 
 class _RunContextError(RuntimeError):
@@ -122,13 +127,19 @@ def build_plan(program, block_idx, feed_names, fetch_names, scope):
                    frozenset(snap_idx))
 
 
-def run_block(program, plan, feeds, scope, ctx):
-    """Run the plan's kept ops eagerly.  Returns the fetched tensors and
-    writes every updated persistable back into `scope`."""
-    env = {n: scope.find_var(n) for n in plan.state_names}
+def run_step(program, plan, feeds, state, ctx):
+    """One run of the plan's kept ops as a function of tensors alone, the
+    counterpart of the reference's ``build_traced_function``: from the
+    feeds and the state the block reads (each by name) to (the fetched
+    tensors, {name: value} of the plan's updated vars).  No scope is
+    read or written here, so a CUDA graph can capture it
+    (``core/graph.py``)."""
+    env = dict(state)
     env.update(feeds)
     blk = program.block(plan.block_idx)
     ctx.block = blk
+    if ctx.draws is not None:
+        ctx.draws.start()
     snapshots = {}
     for idx, op in enumerate(blk.ops):
         if not plan.keep[idx]:
@@ -174,7 +185,4 @@ def run_block(program, plan, feeds, scope, ctx):
         if n not in env:
             raise RuntimeError("fetch var %s was never produced" % n)
         fetches.append(env[n])
-    for n in plan.updated:
-        if n in env:
-            scope.set(n, env[n])
-    return fetches
+    return fetches, {n: env[n] for n in plan.updated if n in env}

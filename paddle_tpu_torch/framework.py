@@ -18,6 +18,7 @@ import torch
 from . import unique_name
 
 __all__ = [
+    "VarType",
     "Program",
     "Block",
     "Operator",
@@ -36,6 +37,17 @@ def grad_var_name(var_name):
     return var_name + GRAD_VAR_SUFFIX
 
 
+class VarType:
+    """The reference's VarType names (framework.proto:105), as strings."""
+
+    LOD_TENSOR = "lod_tensor"
+    SELECTED_ROWS = "selected_rows"
+    LOD_TENSOR_ARRAY = "lod_tensor_array"
+    STEP_SCOPES = "step_scopes"
+    READER = "reader"
+    RAW = "raw"
+
+
 def _to_dtype_str(dtype):
     if isinstance(dtype, torch.dtype):
         return str(dtype).replace("torch.", "")
@@ -48,8 +60,8 @@ class Variable:
     """A named tensor slot in a Block (VarDesc analog)."""
 
     def __init__(self, block, name=None, shape=None, dtype=None, lod_level=0,
-                 persistable=False, stop_gradient=False, is_data=False,
-                 **kwargs):
+                 persistable=False, stop_gradient=False,
+                 type=VarType.LOD_TENSOR, is_data=False, **kwargs):
         self.block = block
         if name is None:
             name = unique_name.generate("_generated_var")
@@ -59,6 +71,7 @@ class Variable:
         self.lod_level = lod_level
         self.persistable = persistable
         self.stop_gradient = stop_gradient
+        self.type = type
         self.is_data = is_data
         self.op = None  # producing op (filled by append_op)
 

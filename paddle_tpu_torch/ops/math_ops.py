@@ -73,8 +73,8 @@ def _clip(ctx, ins, attrs):
     0.5 / 0.5 at a bound, as the reference's jnp.clip does
     (torch.clamp's gives 1 there)."""
     x = ins["X"][0]
-    lo = torch.tensor(attrs["min"], dtype=x.dtype, device=x.device)
-    hi = torch.tensor(attrs["max"], dtype=x.dtype, device=x.device)
+    lo = torch.full((), attrs["min"], dtype=x.dtype, device=x.device)
+    hi = torch.full((), attrs["max"], dtype=x.dtype, device=x.device)
     return {"Out": [torch.minimum(torch.maximum(x, lo), hi)]}
 
 
@@ -231,7 +231,7 @@ def _cross_entropy(ctx, ins, attrs):
     torch.maximum against a tensor bound, whose derivative splits a tie
     0.5 / 0.5 as the reference's jnp.clip does."""
     x, label = ins["X"][0], ins["Label"][0]
-    floor = torch.tensor(1e-20, dtype=x.dtype, device=x.device)
+    floor = torch.full((), 1e-20, dtype=x.dtype, device=x.device)
     if attrs.get("soft_label", False):
         loss = -(label * torch.log(torch.maximum(x, floor))).sum(
             -1, keepdim=True)

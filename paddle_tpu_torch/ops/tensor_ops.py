@@ -36,12 +36,19 @@ def _fill_zeros_like(ctx, ins, attrs):
 
 @register("assign_value")
 def _assign_value(ctx, ins, attrs):
-    vals = np.array(attrs["values"],
-                    dtype=np.dtype(attrs.get("np_dtype", "float32")))
-    if attrs.get("shape"):
-        vals = vals.reshape(attrs["shape"])
-    out = torch.from_numpy(vals).to(tdt(str(vals.dtype)))
-    return {"Out": [out.to(_device(ctx))]}
+    """The attr's values as a tensor.  They reach the device once per
+    cache entry (``LowerCtx.constant``); each run returns a copy, so no
+    later op's in-place write reaches the constant."""
+
+    def make():
+        vals = np.array(attrs["values"],
+                        dtype=np.dtype(attrs.get("np_dtype", "float32")))
+        if attrs.get("shape"):
+            vals = vals.reshape(attrs["shape"])
+        out = torch.from_numpy(vals).to(tdt(str(vals.dtype)))
+        return out.to(_device(ctx))
+
+    return {"Out": [ctx.constant(make).clone()]}
 
 
 @register("uniform_random")
@@ -232,5 +239,5 @@ def _increment(ctx, ins, attrs):
     schedule's step counter), so the runner keeps the input as it was
     where a grad op re-runs it."""
     x = ins["X"][0]
-    return {"Out": [x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
-                                     device=x.device)]}
+    return {"Out": [x + torch.full((), attrs.get("step", 1.0), dtype=x.dtype,
+                                   device=x.device)]}

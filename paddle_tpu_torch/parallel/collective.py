@@ -14,6 +14,7 @@ stages a CUDA tensor through the host on a gloo group.  No backend is
 ever switched for another on failure.
 """
 
+import contextlib
 import os
 
 import torch
@@ -21,7 +22,7 @@ import torch.distributed as dist
 
 __all__ = [
     "init_distributed_env", "all_reduce", "all_gather", "broadcast",
-    "barrier", "trainer_id", "num_trainers",
+    "barrier", "trainer_id", "num_trainers", "recording",
 ]
 
 
@@ -70,6 +71,31 @@ def init_distributed_env(coordinator_address=None, num_processes=None,
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 
+# the open recordings: lists of (kind, bytes).  Process-wide, not a
+# context variable: a collective under a CUDA tensor's backward runs on
+# the autograd engine's device thread
+_recordings = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a list that collects (kind, bytes) of every collective this
+    process issues over a group inside the block: "all-reduce" and
+    "all-gather" (the reference's HLO names) and "broadcast", each with
+    the bytes of its result, as the reference counts a collective's
+    output bytes."""
+    log = []
+    _recordings.append(log)
+    try:
+        yield log
+    finally:
+        _recordings.remove(log)
+
+
+def _record(kind, t):
+    for log in _recordings:
+        log.append((kind, t.numel() * t.element_size()))
+
 
 def all_reduce(x, axis, op="sum"):
     """The element-wise sum, max, min or mean of `x` over the ranks of
@@ -80,6 +106,7 @@ def all_reduce(x, axis, op="sum"):
     if axis is None:
         return out
     dist.all_reduce(out, op=_OPS.get(op, dist.ReduceOp.SUM), group=axis)
+    _record("all-reduce", out)
     if op == "mean":
         out = out / dist.get_world_size(axis)
     return out
@@ -95,6 +122,7 @@ def all_gather(x, axis, dim=0):
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(axis))]
     dist.all_gather(parts, src, group=axis)
     out = torch.cat(parts, dim=dim)
+    _record("all-gather", out)
     return out.to(x.device) if staged else out
 
 
@@ -104,6 +132,7 @@ def broadcast(x, axis, src=0):
     if axis is None:
         return out
     dist.broadcast(out, src=dist.get_global_rank(axis, src), group=axis)
+    _record("broadcast", out)
     return out
 
 

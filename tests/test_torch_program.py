@@ -364,3 +364,29 @@ def test_engine_takes_the_reference_parameter_order():
     assert eng.cache_names[0].startswith("gpt2_")
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         ServingEngine(exe, _tiny(port_gpt2.GPT2Config), 2, 2, 8, "bfloat16")
+
+
+def test_variable_type_in_the_reference_position():
+    """Variable's `type` sits between stop_gradient and is_data with the
+    reference's default, is kept as var.type, and Block.create_var
+    passes it through (it was swallowed by **kwargs)."""
+    import paddle_tpu as pfluid
+
+    ref_block = pfluid.Program().global_block()
+    port_block = ptt.Program().global_block()
+    for pkg, block in ((pfluid.framework, ref_block),
+                       (framework, port_block)):
+        args = (block, "v", [2, 3], "float32", 0, True, False,
+                pkg.VarType.LOD_TENSOR_ARRAY, True)
+        v = pkg.Variable(*args)
+        assert v.type == pkg.VarType.LOD_TENSOR_ARRAY and v.is_data is True
+        assert v.persistable is True and v.stop_gradient is False
+        w = block.create_var(name="w", shape=[4], dtype="int64",
+                             type=pkg.VarType.SELECTED_ROWS)
+        assert w.type == pkg.VarType.SELECTED_ROWS
+        d = block.create_var(name="d", shape=[4], dtype="float32")
+        assert d.type == pkg.VarType.LOD_TENSOR and d.is_data is False
+    for name in ("LOD_TENSOR", "SELECTED_ROWS", "LOD_TENSOR_ARRAY",
+                 "STEP_SCOPES", "READER", "RAW"):
+        assert getattr(framework.VarType, name) == getattr(
+            pfluid.framework.VarType, name)

@@ -123,7 +123,7 @@ def _train_rank(model, mesh, init, vocab=64):
                                         vocab)
     annotate_spmd(main, mesh, TrainPartitionRules(VOCAB_RULE))
     scope = ptt.Scope()
-    out = {"losses": [], "replicated": []}
+    out = {"losses": [], "replicated": [], "comm": []}
     with ptt.scope_guard(scope):
         params_from_numpy(init, scope, ptt.CPUPlace())
         exe = ptt.Executor(ptt.CPUPlace())
@@ -132,6 +132,7 @@ def _train_rank(model, mesh, init, vocab=64):
             fetch = [loss] + (names[:1] if step == STEPS - 1 else [])
             got = exe.run(main, feed=batch, fetch_list=fetch)
             out["losses"].append(float(np.asarray(got[0]).sum()))
+            out["comm"].append(exe.spmd_comm_stats(main))
             out["replicated"].append({
                 n: _digest(scope.find_var(n)) for n in sorted(init)
                 if n not in names})
@@ -627,6 +628,38 @@ def test_vocab_parallel_replicated_state_bit_equal_across_ranks(ranks, model):
 # ---------------------------------------------------------------------------
 # 5. the port's own contracts
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("model", ["wmt", "gpt2"])
+def test_spmd_comm_stats_count_each_steps_collectives(ranks, model):
+    """Executor.spmd_comm_stats after each of a rank's steps: the step's
+    collectives, read off the program.  fused_linear_xent's forward on a
+    vocab slab all-reduces four [R, 1] parts (row max, exp-sum, gold
+    logit, row sum), its grad op re-runs that forward and all-reduces dx
+    [R, H]: 9 all-reduces a rank-step.  The last step also fetches the
+    sharded softmax_out.w, gathered [H, V]."""
+    _, res = ranks
+    unique_name.switch()
+    main, _, _, _ = _program(port_tfm, port_gpt2, model, None)
+    block = main.global_block()
+    xent = next(op for op in block.ops if op.type == "fused_linear_xent")
+    x_shape = block.var(xent.inputs["X"][0]).shape
+    w_shape = block.var(xent.inputs["W"][0]).shape
+    rows = int(np.prod([BATCH if d < 0 else d for d in x_shape[:-1]]))
+    hidden = x_shape[-1]
+    step = {"all-reduce": {"count": 9,
+                           "bytes": 4 * (8 * rows + rows * hidden)}}
+    gather = {"count": 1, "bytes": 4 * w_shape[0] * w_shape[1]}
+    for r in range(2):
+        comm = res[r][model]["comm"]
+        assert len(comm) == STEPS
+        for stats in comm[:-1]:
+            assert stats == {"per_op": step, "total_bytes":
+                             step["all-reduce"]["bytes"]}, stats
+        last = comm[-1]
+        assert last["per_op"] == dict(step, **{"all-gather": gather}), last
+        assert last["total_bytes"] == (step["all-reduce"]["bytes"]
+                                       + gather["bytes"])
+
+
 def test_fetch_of_sharded_weight_returns_the_full_value(ranks):
     _, res = ranks
     assert [res[r]["coord"] for r in range(2)] == [{"dp": 0, "mp": 0},
