@@ -11,11 +11,14 @@ In order, it:
    (torch, its CUDA, nvcc);
 2. builds the hand-written kernels from paddle_tpu_torch/kernels/csrc,
    and beside them scripts/recurrent_kernel_check.py's step-split
-   library (the recurrent kernels run for a prefix of each step);
+   library (the recurrent kernels run for a prefix of each step) and
+   scripts/row_forms_before.cu (the forms that fused_add_layer_norm and
+   fused_softmax_xent replaced, timed beside them);
 3. holds each kernel against its plain PyTorch version on the card, at
    the serving, training and decode paths' shapes plus ragged ones (the
-   softmax cross entropy at BERT's NSP [32, 2] and MLM-wide [4096,
-   30522]; flash_attention_piece's forward at the chunked prefills'
+   softmax cross entropy at BERT's NSP [32, 2], MLM-wide [4096, 30522]
+   and its forms' edges; fused_add_layer_norm at its forms' edges and a
+   view not on 16 bytes; flash_attention_piece's forward at the chunked prefills'
    shapes and its backward, with an lse cotangent, at ring-like ones;
    flash_attention_qvec's backward at the serving shape; fused_lstm and
    fused_gru at the recurrent paths' shapes with ragged lengths, and two
@@ -399,8 +402,6 @@ def check_kernels(dev):
 
     from paddle_tpu_torch.kernels import (
         MM_ACTS,
-        add_layer_norm_plain,
-        fused_add_layer_norm,
         matmul_bias_act,
         matmul_bias_act_plain,
     )
@@ -422,53 +423,7 @@ def check_kernels(dev):
         marks.append(time.time())
         print("kernel check %s: %.1f s" % (what, marks[-1] - marks[-2]))
 
-    # ---- fused_add_layer_norm: 16 R H bytes ---------------------------
-    err = 0.0
-    # the serving rows, ragged ones, the WMT step's [4096, 512], the GPT-2
-    # step's [8192, 768], the TinyLlama steps' [4096, 2048] and
-    # [128, 2048], the BERT step's [4096, 768] and the decode steps' rows
-    for r, h in ((rows, d_model), (7, d_model), (1, d_model),
-                 (TRAIN_ROWS, HP_D_MODEL), (5, HP_D_MODEL),
-                 (GPT2_ROWS, GPT2_D), (LLAMA_ROWS, LLAMA_D), (rows, LLAMA_D),
-                 (BERT_ROWS, BERT_D)) + tuple(
-                     (r, h) for _, r, h in DECODE_ROWS):
-        x, y = randn(r, h), randn(r, h)
-        gam, bet = randn(h), randn(h)
-        outs = fused_add_layer_norm(x, y, gam, bet, 1e-5)
-        plain = add_layer_norm_plain(x, y, gam, bet, 1e-5)
-        for got, want in zip(outs, plain):  # s, y, mean, variance
-            err = max(err, (got - want).abs().max().item())
-    assert err <= 1e-5, ("fused_add_layer_norm disagrees", err)
-    x, y = randn(rows, d_model), randn(rows, d_model)
-    gam, bet = randn(d_model), randn(d_model)
-    b, fl = _bound_ms(16 * rows * d_model + 8 * d_model + 8 * rows,
-                      10 * rows * d_model)
-    rec["fused_add_layer_norm"] = dict(
-        route="cuda", source="paddle_tpu_torch/kernels/csrc/add_layer_norm.cu",
-        replaces="paddle_tpu/ops/pallas_kernels.py:1400",
-        shape="x, y [%d, %d]" % (rows, d_model), max_abs_err=err,
-        ms=_time_ms(lambda: fused_add_layer_norm(x, y, gam, bet, 1e-5)),
-        plain_ms=_time_ms(lambda: add_layer_norm_plain(x, y, gam, bet, 1e-5)),
-        library_ms=_time_ms(lambda: F.layer_norm(x + y, (d_model,), gam, bet,
-                                                 1e-5)),
-        bound_ms=b, bound_by=fl)
-    per_shape = rec["fused_add_layer_norm"]["per_shape"] = {}
-    for tag, r, h in (("train", TRAIN_ROWS, HP_D_MODEL),
-                      ("gpt2", GPT2_ROWS, GPT2_D),
-                      ("llama_train", LLAMA_ROWS, LLAMA_D),
-                      ("llama_serve", rows, LLAMA_D),
-                      ("bert", BERT_ROWS, BERT_D)) + DECODE_ROWS:
-        x, y = randn(r, h), randn(r, h)
-        gam, bet = randn(h), randn(h)
-        b, fl = _bound_ms(16 * r * h + 8 * h + 8 * r, 10 * r * h)
-        per_shape["%s [%d, %d]" % (tag, r, h)] = dict(
-            ms=_time_ms(lambda: fused_add_layer_norm(x, y, gam, bet, 1e-5)),
-            plain_ms=_time_ms(lambda: add_layer_norm_plain(x, y, gam, bet,
-                                                           1e-5)),
-            library_ms=_time_ms(lambda: F.layer_norm(x + y, (h,), gam, bet,
-                                                     1e-5)),
-            bound_ms=b, bound_by=fl)
-
+    rec.update(check_add_layer_norm(randn))
     mark("fused_add_layer_norm")
 
     # ---- matmul_bias_act: unit-scale outputs (w ~ N(0, 1/K)) ----------
@@ -1084,29 +1039,61 @@ def _sharded_lxent_times(dev, randn, g, R, H, V, eps, vocab_total, shard,
 def check_softmax_xent(dev, randn, g):
     """The two softmax cross-entropy kernels (forward, backward) against
     their plain versions on the card: the BERT path's NSP head [32, 2],
-    the MLM head's width [4096, 30522] (the row form), a ragged [1000,
-    1001] (the warp form, 32 columns a lane) and a ragged [37, 1500] (the
-    row form), with labels -1 and C among them; limit 1e-5 of the largest
-    magnitude of the loss and of dx.  Two runs at [4096, 30522] must be
-    bit-equal.  Timed at every shape but the last, with in-range labels,
-    beside the plain version and F.cross_entropy (forward; forward and
-    backward for the backward kernel)."""
+    the MLM head's width [4096, 30522] (the staged form), a ragged [1000,
+    1001] (the warp form, 32 columns a lane), 3 and 33 columns, the
+    forms' boundary C 1024 / 1025, a ragged [37, 1500], an odd C (4097)
+    and C % 4 == 2 (4098, rows alternately 8 bytes past 16), a view that
+    does not start on 16 bytes, and the first two-read width
+    (STAGED_MAX_C + 1), with labels -1 and C among them; at [4, 30522]
+    and the two-read width, rows with -inf columns (a staged part all
+    -inf, and every column but the last 100, so that whole parts and
+    whole threads' columns are -inf); limit 1e-5 of the largest
+    magnitude of the loss and of dx, two runs bit-equal at every shape.
+    Timed at the NSP head, the MLM head's width and C 1025, with in-range
+    labels, beside the plain version, F.cross_entropy (forward; forward
+    and backward for the backward kernel) and the form it replaced
+    (scripts/row_forms_before.cu, this call: before_ms); each shape's plan
+    (sxent_plan) is printed and kept."""
     import torch
     import torch.nn.functional as F
 
+    import row_kernels_check as rowk
     from paddle_tpu_torch.kernels import softmax_xent as sx
 
+    _print_ptxas("softmax_xent.cu", ("sxent",))
+    timed = ("nsp", "mlm", "c1025")
     shapes = (("nsp", BERT_BATCH, 2), ("mlm", BERT_ROWS, BERT_VOCAB),
-              ("ragged", 1000, 1001), ("ragged_row", 37, 1500))
+              ("ragged", 1000, 1001), ("c3", 37, 3), ("c33", 5, 33),
+              ("c1024", 300, 1024),
+              ("c1025", BERT_ROWS, 1025), ("ragged_row", 37, 1500),
+              ("odd", 9, 4097), ("c4098", 6, 4098), ("view", 9, 4098),
+              ("masked", 4, BERT_VOCAB), ("two_read", 2, sx.STAGED_MAX_C + 1))
     err = {"fwd": 0.0, "bwd": 0.0}
     err_abs = dict(err)
     times = {"fwd": {}, "bwd": {}}
     for tag, r, c in shapes:
-        x = randn(r, c, scale=3.0)
+        if tag == "view":  # 4 bytes past 16: the staged form's scalar dx
+            x = (randn(r * c + 1, scale=3.0))[1:].view(r, c)
+        else:
+            x = randn(r, c, scale=3.0)
         lbl = torch.randint(0, c, (r,), generator=g, device=dev)
         dy = torch.rand(r, 1, generator=g, device=dev)
         bad = lbl.clone()
         bad[0], bad[-1] = -1, c  # no column: the loss is the lse
+        if tag in ("masked", "two_read"):
+            # the last row: all but 100 columns -inf; at [4, C] also row 1
+            # with its label among them and row 2 with the plan's second
+            # part -inf
+            x[-1, :c - 100] = float("-inf")
+            if r == 4:
+                x[1, 100:] = float("-inf")
+                bad[1] = 7
+                _, _, _, smem = sx.sxent_plan(r, c)
+                part = smem // 4 - 4
+                x[2, part:2 * part] = float("-inf")
+                bad[2] = 0
+        plan = list(sx.sxent_plan(r, c))
+        print("  softmax_xent %s [%d, %d]: plan %s" % (tag, r, c, plan))
         for key, got, want in (
                 ("fwd", sx.softmax_xent_fwd(x, bad), sx.softmax_xent_plain(
                     x, bad)),
@@ -1115,13 +1102,13 @@ def check_softmax_xent(dev, randn, g):
             diff = (got - want).abs().max()
             err[key] = max(err[key], (diff / want.abs().max()).item())
             err_abs[key] = max(err_abs[key], diff.item())
-        if tag == "mlm":
-            assert torch.equal(sx.softmax_xent_fwd(x, bad),
-                               sx.softmax_xent_fwd(x, bad)), "fwd not bit-equal"
-            assert torch.equal(sx.softmax_xent_bwd(x, bad, dy),
-                               sx.softmax_xent_bwd(x, bad, dy)), (
-                                   "bwd not bit-equal")
-        if tag == "ragged_row":
+        assert torch.equal(sx.softmax_xent_fwd(x, bad),
+                           sx.softmax_xent_fwd(x, bad)), (
+                               "fwd not bit-equal", tag)
+        assert torch.equal(sx.softmax_xent_bwd(x, bad, dy),
+                           sx.softmax_xent_bwd(x, bad, dy)), (
+                               "bwd not bit-equal", tag)
+        if tag not in timed:
             continue
         xg = x.clone().requires_grad_()
 
@@ -1130,19 +1117,28 @@ def check_softmax_xent(dev, randn, g):
             return torch.autograd.grad(loss, (xg,), dy.reshape(-1))
 
         key = "%s [%d, %d]" % (tag, r, c)
+        before = {k: _time_ms(lambda: rowk.before_sxent(k, x, lbl, dy))
+                  for k in ("fwd", "bwd")}
         b, fl = _bound_ms(4 * r * c + 12 * r, 4 * r * c)
         times["fwd"][key] = dict(
-            ms=_time_ms(lambda: sx.softmax_xent_fwd(x, lbl)),
+            plan=plan, ms=_time_ms(lambda: sx.softmax_xent_fwd(x, lbl)),
             plain_ms=_time_ms(lambda: sx.softmax_xent_plain(x, lbl)),
             library_ms=_time_ms(lambda: F.cross_entropy(x, lbl,
                                                         reduction="none")),
-            bound_ms=b, bound_by=fl)
+            bound_ms=b, bound_by=fl, before_ms=before["fwd"])
         b, fl = _bound_ms(8 * r * c + 12 * r, 6 * r * c)
         times["bwd"][key] = dict(
-            ms=_time_ms(lambda: sx.softmax_xent_bwd(x, lbl, dy)),
+            plan=plan, ms=_time_ms(lambda: sx.softmax_xent_bwd(x, lbl, dy)),
             plain_ms=_time_ms(lambda: sx.softmax_xent_grad_plain(x, lbl, dy)),
             library_ms=_events_ms(library_fwd_bwd, reps=10),
-            bound_ms=b, bound_by=fl)
+            bound_ms=b, bound_by=fl, before_ms=before["bwd"])
+        for k in ("fwd", "bwd"):
+            t = times[k][key]
+            print("  softmax_xent_%s %s: %.6f ms, the form before %.6f, "
+                  "library %.6f, bound %.6g" % (k, key, t["ms"],
+                                                t["before_ms"],
+                                                t["library_ms"],
+                                                t["bound_ms"]))
     for key, val in err.items():
         assert val <= 1e-5, ("softmax_xent disagrees", key, val)
     torch.cuda.synchronize()
@@ -1161,6 +1157,82 @@ def check_softmax_xent(dev, randn, g):
             per_shape={k: v for k, v in per_shape.items() if k != head},
             **per_shape[head])
     return rec
+
+
+def check_add_layer_norm(randn):
+    """fused_add_layer_norm (B2) against its plain version at the serving
+    rows [128, 768] and ragged 7 and 1, the training paths' [4096, 512],
+    [8192, 768], [4096, 2048] and [4096, 768], TinyLlama serving's [128,
+    2048], the decode steps' rows (DECODE_ROWS), the plan's form edges H
+    1024, 1025 and 2048, an H that is not a multiple of 4 (1027), the
+    widest H the plan takes (16384, float4 slots with gamma and beta
+    loaded late), a wide H % 4 == 2 (12290, the same as scalars), H 12288
+    (12 slots a lane, the old form's launch fault), and a view of x that does
+    not start on 16 bytes; limit 1e-5 absolute on s,
+    the output and the row statistics, two launches bit-equal at every
+    shape.  Timed at the serving shape, the path shapes as `per_shape`,
+    each with add_ln_plan's pick, the block form it replaced
+    (scripts/row_forms_before.cu, this call: before_ms) and F.layer_norm
+    of x + y."""
+    import torch
+    import torch.nn.functional as F
+
+    import row_kernels_check as rowk
+    from paddle_tpu_torch.kernels import (add_layer_norm_plain,
+                                          fused_add_layer_norm)
+    from paddle_tpu_torch.kernels.add_layer_norm import add_ln_plan
+
+    _print_ptxas("add_layer_norm.cu", ("add_ln",))
+    serve = N_SLOTS * WIDTH
+    off = randn(5 * 768 + 1)[1:].view(5, 768)  # 4 bytes past 16
+    err = 0.0
+    for r, h in ((serve, 768), (7, 768), (1, 768), (TRAIN_ROWS, HP_D_MODEL),
+                 (5, HP_D_MODEL), (GPT2_ROWS, GPT2_D), (LLAMA_ROWS, LLAMA_D),
+                 (serve, LLAMA_D), (BERT_ROWS, BERT_D), (300, 1024),
+                 (300, 1025), (64, 2048), (33, 1027), (3, 16384),
+                 (5, 12290), (4, 12288), (5, 768)) + tuple(
+                     (r, h) for _, r, h in DECODE_ROWS):
+        x = off if (r, h) == (5, 768) else randn(r, h)
+        y, gam, bet = randn(r, h), randn(h), randn(h)
+        outs = fused_add_layer_norm(x, y, gam, bet, 1e-5)
+        plain = add_layer_norm_plain(x, y, gam, bet, 1e-5)
+        for got, want in zip(outs, plain):  # s, y, mean, variance
+            err = max(err, (got - want).abs().max().item())
+        assert all(torch.equal(a, b) for a, b in zip(
+            outs, fused_add_layer_norm(x, y, gam, bet, 1e-5))), (
+                "fused_add_layer_norm rerun differs", r, h)
+    assert err <= 1e-5, ("fused_add_layer_norm disagrees", err)
+
+    def times(r, h):
+        x, y = randn(r, h), randn(r, h)
+        gam, bet = randn(h), randn(h)
+        b, fl = _bound_ms(16 * r * h + 8 * h + 8 * r, 10 * r * h)
+        return dict(
+            plan=list(add_ln_plan(r, h)),
+            ms=_time_ms(lambda: fused_add_layer_norm(x, y, gam, bet, 1e-5)),
+            before_ms=_time_ms(lambda: rowk.before_add_ln(x, y, gam, bet)),
+            plain_ms=_time_ms(lambda: add_layer_norm_plain(x, y, gam, bet,
+                                                           1e-5)),
+            library_ms=_time_ms(lambda: F.layer_norm(x + y, (h,), gam, bet,
+                                                     1e-5)),
+            bound_ms=b, bound_by=fl)
+
+    per_shape = {"%s [%d, %d]" % (tag, r, h): times(r, h) for tag, r, h in (
+        ("train", TRAIN_ROWS, HP_D_MODEL), ("gpt2", GPT2_ROWS, GPT2_D),
+        ("llama_train", LLAMA_ROWS, LLAMA_D), ("llama_serve", serve, LLAMA_D),
+        ("bert", BERT_ROWS, BERT_D)) + DECODE_ROWS}
+    head = times(serve, 768)
+    for key, t in [("serve [%d, 768]" % serve, head)] + list(
+            per_shape.items()):
+        print("  fused_add_layer_norm %s: plan %s, %.6f ms, block form "
+              "before %.6f, layer_norm(x + y) %.6f, bound %.6g" % (
+                  key, t["plan"], t["ms"], t["before_ms"], t["library_ms"],
+                  t["bound_ms"]))
+    return {"fused_add_layer_norm": dict(
+        route="cuda", source="paddle_tpu_torch/kernels/csrc/add_layer_norm.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:1400",
+        shape="x, y [%d, 768]" % serve, max_abs_err=err,
+        per_shape=per_shape, **head)}
 
 
 def check_layer_norm(randn):
@@ -4226,19 +4298,23 @@ def main():
     print("torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import recurrent_kernel_check as rkc
+    import row_kernels_check as rowk
     from paddle_tpu_torch.kernels import build
 
     print("nvcc: %s" % _sh([build.nvcc_path(), "--version"]).splitlines()[-1])
     t0 = time.time()
     split_build = rkc.start_split_build()  # beside the library's nvccs
+    before_build = rowk.start_before_build()
     build.load()
     print("kernels built in %.1f s from %s" % (time.time() - t0, build.CSRC))
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
     rkc.split_lib(split_build)
+    rowk.before_lib(before_build)
     print("step-split library (scripts/recurrent_split.cu, "
-          "scripts/recurrent_grid_sync.cu) built in %.1f s" % (
+          "scripts/recurrent_grid_sync.cu) and the row kernels' replaced "
+          "forms (scripts/row_forms_before.cu) built in %.1f s" % (
               time.time() - t0))
 
     laps = [time.time()]
@@ -4364,7 +4440,8 @@ def main():
                     "library_ms", "shape"):
             entry[key] = r[key]
         for key in ("per_shape", "max_rel_err", "max_lse_err", "library_note",
-                    "bound_ms_fp32", "plan", "floor_ms", "step_split"):
+                    "bound_ms_fp32", "plan", "before_ms", "floor_ms",
+                    "step_split"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -40,7 +40,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point's argument types, in order; the stream is last
 SIGNATURES = {
-    "ptt_add_layer_norm": (_P,) * 8 + (_I, _I, _F, _P),
+    # R, H, then the plan's four (n4, vec, warps, rows:
+    # add_layer_norm.add_ln_plan)
+    "ptt_add_layer_norm": (_P,) * 8 + (_I,) * 6 + (_F, _P),
     # the shape ints (and the activation), then the plan's five (form,
     # bm, bn, slices, k_slice: matmul_epilogue.mm_plan)
     "ptt_matmul_bias_act": (_P,) * 4 + (_I,) * 9 + (_P,),
@@ -66,8 +68,10 @@ SIGNATURES = {
     "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P, _P),
-    "ptt_softmax_xent_fwd": (_P,) * 3 + (_I, _I, _P),
-    "ptt_softmax_xent_bwd": (_P,) * 4 + (_I, _I, _P),
+    # the plan's four (form, ctas, threads, smem: softmax_xent.sxent_plan),
+    # then R, C
+    "ptt_softmax_xent_fwd": (_P,) * 3 + (_I,) * 6 + (_P,),
+    "ptt_softmax_xent_bwd": (_P,) * 4 + (_I,) * 6 + (_P,),
     # B, T, H, then the plan's seven (units, k_warps, n_warps, k_steps,
     # rows, regs, smem: recurrent.rnn_plan)
     "ptt_lstm_seq": (_P,) * 9 + (_I,) * 10 + (_P,),

@@ -21,14 +21,72 @@ kernels.
 ``fused_softmax_xent`` is a ``torch.autograd.Function`` (the reference's
 ``jax.custom_vjp``), so the ``softmax_with_cross_entropy`` grad op
 (``torch.func.vjp`` of the forward rule) runs the backward kernel.
+
+``sxent_plan`` picks the kernels' form from C alone, so a row's sums run
+in one order whatever R is: the warp form up to ``WARP_MAX_C`` columns;
+then the staged form, the row cut into 1, 2, 4 or 8 parts of at most
+``PART_FLOATS`` floats (as many as fit shared memory at 8), each staged
+in one block's shared memory, the blocks of a row one cluster, so the
+backward reads each row once; past that the two-read row form.  No path
+runs the staged or the two-read form today: BERT's MLM head, the one
+path with rows past 1024 columns, is folded into ``linear_xent`` by
+``linear_xent_fuse_pass``.  The staged form's constants were tuned at
+[4096, 30522] alone; a step that runs such a head unfused (BERT
+without that pass) would have to exist before they are tuned again.
 """
+
+import collections
 
 import torch
 
 from . import build
 
 __all__ = ["fused_softmax_xent", "softmax_xent_plain",
-           "softmax_xent_grad_plain", "softmax_xent_fwd", "softmax_xent_bwd"]
+           "softmax_xent_grad_plain", "softmax_xent_fwd", "softmax_xent_bwd",
+           "sxent_plan"]
+
+WARP, STAGED, TWO_READ = 0, 1, 2  # the plan's forms
+WARP_MAX_C = 1024  # 32 values a lane
+CTAS = (1, 2, 4, 8)  # blocks a row (a cluster) in the staged form
+# the most floats a staged block takes before the row spreads over more
+# blocks (8 blocks take up to what shared memory holds)
+PART_FLOATS = 8192
+# a staged block's threads: one per 64 floats of its part, at least 64
+# (at [4096, 30522] 4 blocks of 128 threads ran fastest on an H100,
+# scripts/row_kernels_check.py)
+THREAD_FLOATS, MIN_THREADS = 64, 64
+STAGE_BYTES = 232448 - 1024  # a block's dynamic shared memory at most (C side)
+STAGED_MAX_C = CTAS[-1] * (STAGE_BYTES // 4 - 4)
+
+SxentPlan = collections.namedtuple("SxentPlan", "form ctas threads smem")
+
+
+def sxent_plan(R, C):
+    """The kernels' form for [R, C] logits: (form, ctas, threads, smem).
+    WARP for C <= WARP_MAX_C (the other three 0).  STAGED up to
+    STAGED_MAX_C: the fewest blocks a row of CTAS whose parts (ceil(C /
+    ctas) rounded up to a multiple of 4) hold at most PART_FLOATS (8
+    blocks past that), one thread per THREAD_FLOATS of a part (MIN_THREADS
+    to 1024, whole warps), and the part's stage in bytes with 3 floats of
+    slack (at most STAGE_BYTES).  TWO_READ beyond (all 0).  Raises where
+    no form takes the shape.  The staged form serves no path today (see
+    the module's docstring)."""
+    if not 1 <= C < 2 ** 31 or not 0 <= R < 2 ** 31:
+        raise ValueError("fused_softmax_xent: [%d, %d] is past the kernels' "
+                         "1 to 2**31 - 1 columns or 32-bit row count"
+                         % (R, C))
+    if C <= WARP_MAX_C:
+        return SxentPlan(WARP, 0, 0, 0)
+    if C > STAGED_MAX_C:
+        return SxentPlan(TWO_READ, 0, 0, 0)
+    ctas = next((n for n in CTAS if -(-C // n) <= PART_FLOATS), CTAS[-1])
+    part = -(-C // ctas) + 3 & ~3
+    if ctas * R >= 2 ** 31:
+        raise ValueError("fused_softmax_xent: [%d, %d] needs %d blocks, past "
+                         "the grid's 2**31 - 1" % (R, C, ctas * R))
+    threads = 32 * min(32, max(MIN_THREADS // 32,
+                                -(-part // (32 * THREAD_FLOATS))))
+    return SxentPlan(STAGED, ctas, threads, 4 * (part + 4))
 
 
 def _onehot(labels, c, device):
@@ -95,7 +153,8 @@ def softmax_xent_fwd(logits, labels):
     _check("softmax_xent_fwd", logits, labels)
     R, C = logits.shape
     loss = torch.empty((R, 1), dtype=torch.float32, device=logits.device)
-    build.launch("ptt_softmax_xent_fwd", logits, labels, loss, R, C)
+    build.launch("ptt_softmax_xent_fwd", logits, labels, loss,
+                 *sxent_plan(R, C), R, C)
     softmax_xent_fwd.launches += 1
     return loss
 
@@ -108,7 +167,8 @@ def softmax_xent_bwd(logits, labels, dy):
     _check("softmax_xent_bwd", logits, labels, dy)
     R, C = logits.shape
     dx = torch.empty_like(logits)
-    build.launch("ptt_softmax_xent_bwd", logits, labels, dy, dx, R, C)
+    build.launch("ptt_softmax_xent_bwd", logits, labels, dy, dx,
+                 *sxent_plan(R, C), R, C)
     softmax_xent_bwd.launches += 1
     return dx
 

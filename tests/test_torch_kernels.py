@@ -62,7 +62,9 @@ from paddle_tpu_torch.kernels import (
     softmax_xent_plain,
 )
 
+from paddle_tpu_torch.kernels import add_layer_norm as aln_mod
 from paddle_tpu_torch.kernels import layer_norm as ln_mod
+from paddle_tpu_torch.kernels import softmax_xent as sx_mod
 from paddle_tpu_torch.kernels import matmul_epilogue as me
 from paddle_tpu_torch.kernels.matmul_epilogue import SKINNY, TILED, mm_plan
 
@@ -571,6 +573,84 @@ def test_layer_norm_launch_passes_the_plan(monkeypatch):
     x = torch.ones(5 * 768 + 1)[1:].view(5, 768)
     fused_layer_norm(x, torch.ones(768), torch.zeros(768))
     assert tuple(calls[-1][1][i] for i in ints)[2:] == (ln_mod.WARP, 6, 0, 1)
+
+
+@pytest.mark.parametrize("H", [1024, 1025, 2048])
+def test_add_layer_norm_matches_reference_at_the_form_edges(H):
+    """The plain version and the autograd wrapper against the reference's
+    fused_add_layer_norm (Pallas interpret mode) at add_ln_plan's edges:
+    H 1024 (one warp of 8 float4 slots a lane), 1025 (two warps, scalar
+    access) and 2048 (the TinyLlama widths).  rtol = atol = 1e-5."""
+    rng = np.random.RandomState(H)
+    x, y = (rng.randn(9, H).astype("float32") for _ in range(2))
+    g = (rng.rand(H) + 0.5).astype("float32")
+    b = rng.randn(H).astype("float32")
+    rs, ro = pk.fused_add_layer_norm(*(jnp.asarray(a) for a in (x, y, g, b)),
+                                     1e-5, 1)
+    s, o, mean, var = fused_add_layer_norm(_t(x), _t(y), _t(g), _t(b), 1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), **TOL)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ro), **TOL)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(rs).mean(-1), **TOL)
+    np.testing.assert_allclose(var.numpy(), np.asarray(rs).var(-1), **TOL)
+
+
+@pytest.mark.parametrize("R", [1, 8, 264, 8192])
+def test_add_ln_plan_takes_every_width(R):
+    """add_ln_plan takes every H from 1 to MAX_H (16384, past the 12288
+    the block form claimed and failed at from 12256) and raises exactly
+    past it: the fewest warps a row of 1, 2, 4, 8 that hold the row at
+    WARP_SLOTS float4 slots a lane (8 warps beyond), the fewest
+    instantiated slots that cover H, float4 access where H % 4 == 0, 1 to
+    8 rows a block with rows x warps <= 8 (the kernel's static exchange
+    of a float a warp, no dynamic shared memory) and every SM a block
+    where the rows allow; warps and slots, which fix a row's sums, the
+    same at every R."""
+    for H in range(1, aln_mod.MAX_H + 1):
+        plan = aln_mod.add_ln_plan(R, H)
+        need = -(-H // 128)
+        assert plan.warps in (1, 2, 4, 8), H
+        assert need <= aln_mod.WARP_SLOTS * plan.warps or plan.warps == 8, H
+        assert plan.warps == 1 or need > aln_mod.WARP_SLOTS * plan.warps // 2
+        assert plan.n4 in aln_mod.N4_SLOTS and 128 * plan.n4 * plan.warps >= H
+        assert all(128 * n * plan.warps < H
+                   for n in aln_mod.N4_SLOTS if n < plan.n4), H
+        assert plan.vec == (H % 4 == 0), H
+        assert 1 <= plan.rows and plan.rows * plan.warps <= aln_mod.MAX_WARPS
+        assert plan.rows == max(1, min(8 // plan.warps, R // aln_mod.SMS))
+        assert plan[:3] == aln_mod.add_ln_plan(1, H)[:3], H
+    for H in (0, aln_mod.MAX_H + 1):
+        with pytest.raises(ValueError, match=r"\[%d, %d\]" % (R, H)):
+            aln_mod.add_ln_plan(R, H)
+
+
+def test_add_layer_norm_launch_passes_the_plan(monkeypatch):
+    """fused_add_layer_norm hands build.launch (R, H) and add_ln_plan's
+    four ints in the order build.SIGNATURES declares; a view of x or y
+    that does not start on 16 bytes takes the scalar form (vec 0), and a
+    row past MAX_H raises before any launch."""
+    calls = []
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    sig = build.SIGNATURES["ptt_add_layer_norm"]
+    ints = [i for i, kind in enumerate(sig[:-1]) if kind is build._I]
+    for R, H in ((8192, 768), (3, 770), (2, 2048), (5, 1025), (4, 12288)):
+        fused_add_layer_norm(torch.ones(R, H), torch.ones(R, H),
+                             torch.ones(H), torch.zeros(H))
+        name, args = calls[-1]
+        assert name == "ptt_add_layer_norm" and len(args) + 1 == len(sig)
+        assert tuple(args[i] for i in ints) == (R, H) + tuple(
+            aln_mod.add_ln_plan(R, H))
+    off = torch.ones(5 * 768 + 1)[1:].view(5, 768)
+    for x, y in ((off, torch.ones(5, 768)), (torch.ones(5, 768), off)):
+        fused_add_layer_norm(x, y, torch.ones(768), torch.zeros(768))
+        assert tuple(calls[-1][1][i] for i in ints)[2:] == (6, 0, 1, 1)
+    n = len(calls)
+    H = aln_mod.MAX_H + 4
+    with pytest.raises(ValueError, match="fused_add_layer_norm"):
+        fused_add_layer_norm(torch.ones(2, H), torch.ones(2, H),
+                             torch.ones(H), torch.zeros(H))
+    assert len(calls) == n
 
 
 # ---------------------------------------------------------------------------
@@ -1516,6 +1596,8 @@ def test_mm_plan_paths_fill_the_card():
     (32, 2),      # the BERT path's NSP head
     (300, 1001),  # the kernel's warp form at its widest share (32 a lane)
     (7, 1500),    # the kernel's row form, R not a multiple of 8
+    (9, 1025),    # the staged form's first width (one column past the warp's)
+    (6, 4098),    # C % 4 == 2: rows alternate 0 and 8 bytes past 16
 ])
 def test_softmax_xent_matches_reference_kernel(R, C):
     """The plain versions and the autograd wrapper (forward, and dx under
@@ -1602,3 +1684,77 @@ def test_softmax_xent_kernel_path_checks(monkeypatch):
         "ptt_softmax_xent_bwd"]
     assert softmax_xent_fwd.launches == fwd0 + 2
     assert softmax_xent_bwd.launches == bwd0 + 1
+
+
+@pytest.mark.parametrize("R", [1, 8, 264, 8192])
+def test_sxent_plan_takes_every_width(R):
+    """sxent_plan takes every C from 1 to 70000, the staged form's widest
+    and the two-read form's up to 2**31 - 1, and raises past it: the warp
+    form to 1024 columns; the staged form to
+    STAGED_MAX_C, at the fewest
+    blocks a row whose parts (a multiple of 4) hold at most PART_FLOATS
+    (8 past that), each column in exactly one part, whole warps of
+    MIN_THREADS to 1024 threads, and a stage of the part plus 3 floats of slack that
+    fits the STAGE_BYTES the kernel raises its limit to; the two-read
+    form beyond; the same form at every R."""
+    widths = list(range(1, 70001)) + [sx_mod.STAGED_MAX_C - 1,
+                                      sx_mod.STAGED_MAX_C,
+                                      sx_mod.STAGED_MAX_C + 1, 2 ** 31 - 1]
+    for C in widths:
+        plan = sx_mod.sxent_plan(R, C)
+        assert plan == sx_mod.sxent_plan(1, C), C
+        if C <= sx_mod.WARP_MAX_C:
+            assert plan == (sx_mod.WARP, 0, 0, 0), C
+            continue
+        if C > sx_mod.STAGED_MAX_C:
+            assert plan == (sx_mod.TWO_READ, 0, 0, 0), C
+            continue
+        assert plan.form == sx_mod.STAGED, C
+        assert plan.ctas in sx_mod.CTAS, C
+        part = plan.smem // 4 - 4
+        assert part % 4 == 0 and part >= -(-C // plan.ctas) > part - 4, C
+        assert (plan.ctas - 1) * part < C <= plan.ctas * part, C
+        assert part <= sx_mod.PART_FLOATS or plan.ctas == sx_mod.CTAS[-1], C
+        assert all(-(-C // n) > sx_mod.PART_FLOATS
+                   for n in sx_mod.CTAS if n < plan.ctas), C
+        assert plan.threads % 32 == 0, C
+        assert sx_mod.MIN_THREADS <= plan.threads <= 1024, C
+        assert plan.smem <= sx_mod.STAGE_BYTES, C
+    for C in (0, 2 ** 31):
+        with pytest.raises(ValueError, match=r"\[%d, %d\]" % (R, C)):
+            sx_mod.sxent_plan(R, C)
+
+
+def test_softmax_xent_launch_passes_the_plan(monkeypatch):
+    """Both kernels' wrappers hand build.launch sxent_plan's four ints,
+    then (R, C), in the order build.SIGNATURES declares, at each form
+    (warp, staged at 1, 2 and 4 blocks a row, two-read, and
+    a view that does not start on 16 bytes: the staged form takes any
+    start)."""
+    calls = []
+    monkeypatch.setattr(build, "use_kernel", lambda t: True)
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    for name, fn in (("ptt_softmax_xent_fwd", softmax_xent_fwd),
+                     ("ptt_softmax_xent_bwd", softmax_xent_bwd)):
+        sig = build.SIGNATURES[name]
+        ints = [i for i, kind in enumerate(sig[:-1]) if kind is build._I]
+        off = torch.ones(2 * 4098 + 1)[1:].view(2, 4098)
+        for x in (torch.ones(32, 2), torch.ones(5, 1024), torch.ones(5, 1025),
+                  torch.ones(2, 4098), torch.ones(3, 30522),
+                  torch.ones(2, sx_mod.PART_FLOATS + 1),
+                  torch.ones(2, 2 * sx_mod.PART_FLOATS + 1),
+                  torch.ones(2, sx_mod.STAGED_MAX_C + 1), off):
+            R, C = x.shape
+            lbl = torch.zeros(R, dtype=torch.long)
+            fn(x, lbl, *(() if "fwd" in name else (torch.ones(R, 1),)))
+            got, args = calls[-1]
+            assert got == name and len(args) + 1 == len(sig)
+            assert tuple(args[i] for i in ints) == tuple(
+                sx_mod.sxent_plan(R, C)) + (R, C)
+    forms = {sx_mod.sxent_plan(2, C)[:2] for C in (
+        2, 1024, 1025, sx_mod.PART_FLOATS + 1, 2 * sx_mod.PART_FLOATS + 1,
+        sx_mod.STAGED_MAX_C + 1)}
+    assert forms == {(sx_mod.WARP, 0), (sx_mod.STAGED, 1),
+                     (sx_mod.STAGED, 2), (sx_mod.STAGED, 4),
+                     (sx_mod.TWO_READ, 0)}
