@@ -153,7 +153,23 @@ In order, it:
    0 and 48 card vs CPU; the kernel phase holds the segment and window
    forms of B3 and B9 (with --profile, chiprun_out/profile_training_packed
    and profile_training_packed_window.json);
-22. prints, for every path, its eager and captured numbers (one JSON
+22. trains ResNet-50 (build_resnet_train_program at 224 x 224, 1000
+   classes, Momentum 0.9 at lr 0.1; conv2d, pool2d and batch_norm on
+   cuDNN and PyTorch's CUDA kernels, no hand-written kernel) on batch 128
+   of seeded images staged on the card once: one warm-up step (its loss
+   near ln 1000), 3 timed steps, every batch-norm running stat moved, no
+   kernel count above 0 over the leg, the bit-equal repeat, captured ==
+   eager and run_loop(4) == 4 runs; prints images/s over the captured
+   p50 and the step's conv and fc FLOPs against FP32's 67 TFLOP/s (with
+   --profile, chiprun_out/profile_training_resnet50.json);
+23. the same with use_nhwc (the conv trunk channels-last through
+   rewrite_nhwc), its p50 and first loss beside the NCHW leg's
+   (profile_training_resnet50_nhwc.json);
+24. trains the narrow ResNet of the CPU tests (resnet_cifar10 depth 8,
+   32 x 32, batch 8) 3 Momentum steps on the card and on the CPU, in
+   NCHW and NHWC: losses, parameters, running stats and velocities
+   within 1e-4 relative to each tensor's largest magnitude;
+25. prints, for every path, its eager and captured numbers (one JSON
    line), the kernels line and, last, the result line.
 
 Every path's executor but the vocab-parallel one's captures its step as
@@ -256,6 +272,12 @@ RNN_STEPS = 5  # timed steps of each recurrent training path
 # the packed segment ids, and with a 256-position sliding window
 PACKED_ROWS, PACKED_SEQS, PACKED_WINDOW = 8, 64, 256
 PACKED_STEPS = 10
+# ResNet-50 training at the reference bench's chip setting (bench.py:164-275
+# over the reference's benchmark/fluid/models/resnet.py): 224 x 224, 1000
+# classes, Momentum 0.9 at lr 0.1, batch 128; and the narrow CIFAR-10
+# ResNet (depth 8, 32 x 32) of the CPU tests, card vs CPU at batch 8
+RESNET_BATCH, RESNET_HW, RESNET_CLASSES, RESNET_STEPS = 128, 224, 1000, 3
+CIFAR_BATCH, CIFAR_STEPS, CIFAR_LR = 8, 3, 0.01
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
 GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
@@ -2446,7 +2468,7 @@ def _forward_recurrent(block, op_type):
 def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
                    first_range, per_step, profile_dir, profile_name,
                    steps=TRAIN_STEPS, dropout=True, loss_parts=None,
-                   loop=False):
+                   loop=False, check=None):
     """One training path on the card: one warm-up step (its loss within
     `first_range`) and the capture of the step, then `steps` timed steps
     (replays) with every launch count reset just before and read just
@@ -2461,9 +2483,11 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
     is the step's token count, held to `n_tok`, unless `loss_parts`
     names fetch[1:] (BERT's MLM and NSP losses, the LSTM classifier's
     accuracy; none for a program that fetches its loss alone), which are
-    then printed.  Prints the path's line (tokens/s counts `n_tok` a
+    then printed.  `check`, where given, is called with the scope after
+    the timed steps.  Prints the path's line (tokens/s counts `n_tok` a
     step, examples/s the batch's rows).  Returns (the launch counts, the
-    path's capture record)."""
+    path's capture record: its first loss and the feeds' staging time a
+    timed step among the numbers)."""
     import numpy as np
     import torch
 
@@ -2485,6 +2509,7 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
         torch.cuda.empty_cache()
         pool_one = torch.cuda.memory_reserved() - live
         kernels.reset_launch_counts()
+        feed_ms = exe.host_feed_ms
         losses, times = [], []
         for _ in range(steps):
             torch.cuda.synchronize()
@@ -2498,6 +2523,7 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
             else:
                 parts = [float(v.sum()) for v in out[1:]]
         launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        feed_ms = (exe.host_feed_ms - feed_ms) / steps
         assert exe.compile_count == 1, ("captures", label, exe.compile_count)
         assert all(np.isfinite(losses)), losses
         if loss_parts:
@@ -2505,6 +2531,8 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
         for name, n in per_step.items():
             assert launches[name] == n * steps, (
                 "launch count", label, name, launches[name], n, steps)
+        if check is not None:
+            check(scope)
 
         # a second key (another fetch list): its warm-up, an eager step,
         # releases the executor's graphs first (it would not fit beside
@@ -2613,7 +2641,8 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
               moved, len(names) // 3))
     cap.update(captured_p50_ms=p50 * 1e3, compile_count=1,
                pool_gb_one_key=pool_one / 1e9, pool_gb_two_keys=pool_two / 1e9,
-               second_key_peak_gb=warm / 1e9, eager_run_peak_gb=beside / 1e9)
+               second_key_peak_gb=warm / 1e9, eager_run_peak_gb=beside / 1e9,
+               host_feed_ms=feed_ms, first_loss=first)
     _busy_idle(cap, reports)
     return launches, _capture_line(label, cap)
 
@@ -4264,6 +4293,258 @@ def packed_train_card_matches_cpu(dev):
 
 # the narrow decode's one-token steps take B3's few-row form, its chunked
 # prefill B9's forward: no decode step launches B3's tile kernel
+def _step_flops(main, batch):
+    """A training step's FP32 product operations, reckoned from the
+    shapes: every conv2d (2 N C_out H_out W_out C_in/groups kh kw) and
+    mul (2 M K N) runs its forward, again in its grad op (which re-runs
+    the forward rule under torch.func.vjp), and the vjp's two products
+    (the input's and the weight's): 4 times its forward."""
+    import numpy as np
+
+    block = main.global_block()
+
+    def shape(name):
+        return [batch if d == -1 else d for d in block.var(name).shape]
+
+    fwd = 0
+    for op in block.ops:
+        if op.type in ("conv2d", "depthwise_conv2d"):
+            w = shape(op.inputs["Filter"][0])
+            fwd += 2 * int(np.prod(shape(op.outputs["Output"][0]))) * int(
+                np.prod(w[1:]))
+        elif op.type == "mul":
+            x, y = shape(op.inputs["X"][0]), shape(op.inputs["Y"][0])
+            xn = op.attrs.get("x_num_col_dims", 1)
+            yn = op.attrs.get("y_num_col_dims", 1)
+            fwd += 2 * int(np.prod(x)) * int(np.prod(y[yn:]))
+            assert int(np.prod(x[xn:])) == int(np.prod(y[:yn]))
+    return 4 * fwd
+
+
+def train_resnet50(dev, use_nhwc=False, profile_dir=None, nchw=None):
+    """ResNet-50 training: build_resnet_train_program(image_shape=(3,
+    224, 224), class_dim=1000, depth=50, lr=0.1) with Momentum 0.9,
+    random weights from the startup program's seed, f32 with TF32 off,
+    on batch 128 of RandomState(0) images and labels (bench.py:207-209)
+    staged on the card once (bench.py:232-235), so no step times PCIe;
+    with `use_nhwc` the conv trunk runs channels-last (rewrite_nhwc).
+    Through _train_on_card (1 eager step and the capture, 3 timed
+    replays, the checks; run_loop(4) == 4 runs): the first loss within
+    [ln 1000 - 0.5, ln 1000 + 1], every batch-norm running stat moved,
+    and no hand-written kernel launched (every count 0 from before the
+    timed steps to the leg's end).  Prints images/s over the captured
+    p50 and the step's product FLOPs against FP32's 67 TFLOP/s; `nchw`,
+    the NCHW leg's record, puts its p50 and first loss beside this
+    leg's (the same weights and images: within 1e-4 relative)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import resnet
+
+    main, startup, _, fetch = resnet.build_resnet_train_program(
+        image_shape=(3, RESNET_HW, RESNET_HW), class_dim=RESNET_CLASSES,
+        depth=50, lr=0.1, use_nhwc=use_nhwc)
+    startup.random_seed = main.random_seed = 2026
+    per_step = _expected_train_launches(main)
+    assert not any(per_step.values()), per_step
+    rng = np.random.RandomState(0)
+    x = rng.rand(RESNET_BATCH, 3, RESNET_HW, RESNET_HW).astype("float32")
+    y = rng.randint(0, RESNET_CLASSES, (RESNET_BATCH, 1)).astype("int64")
+    batch = {"image": torch.from_numpy(x).to(dev),
+             "label": torch.from_numpy(y).to(dev)}
+    stats = [(op.inputs["Mean"][0], op.inputs["Variance"][0])
+             for op in main.global_block().ops if op.type == "batch_norm"]
+    assert len(stats) == 53, len(stats)
+
+    def stats_moved(scope):
+        """Every moving mean left 0 and every moving variance left 1."""
+        still = [m for m, v in stats
+                 if not bool(scope.find_var(m).abs().max() > 0)
+                 or bool((scope.find_var(v) == 1).all())]
+        assert not still, ("batch-norm running stats did not move",
+                           still[:4])
+
+    label = "ResNet-50%s (batch %d, %d x %d)" % (
+        ", NHWC" if use_nhwc else "", RESNET_BATCH, RESNET_HW, RESNET_HW)
+    ln_c = math.log(RESNET_CLASSES)
+    kernels.reset_launch_counts()
+    launches, cap = _train_on_card(
+        label, main, startup, fetch, batch, RESNET_BATCH, RESNET_BATCH,
+        (ln_c - 0.5, ln_c + 1.0), per_step, profile_dir,
+        "training_resnet50" + ("_nhwc" if use_nhwc else ""),
+        steps=RESNET_STEPS, dropout=False, loss_parts=("accuracy",),
+        loop=True, check=stats_moved)
+    after = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    assert not any(after.values()), (
+        "a hand-written kernel launched on the ResNet-50 leg", after)
+    flops = _step_flops(main, RESNET_BATCH)
+    p50 = cap["captured_p50_ms"]
+    cap.update(images_per_s=RESNET_BATCH / p50 * 1e3, step_tflop=flops / 1e12,
+               fp32_peak_share=flops / (p50 / 1e3) / FP32_FLOPS_PER_S)
+    line = ("%s: %.1f images/s over the captured p50 %.3f ms (eager %.3f "
+            "ms); the step's conv and fc products (forward, the grad ops' "
+            "re-run of it, the vjp's two products) %.4g TFLOP, %.3f of "
+            "FP32's 67 TFLOP/s at that p50; first loss %.6f (ln 1000 = "
+            "%.4f); every batch-norm running stat moved; no hand-written "
+            "kernel launched" % (
+                label, cap["images_per_s"], p50, cap["eager_p50_ms"],
+                cap["step_tflop"], cap["fp32_peak_share"], cap["first_loss"],
+                ln_c))
+    if nchw is not None:
+        rel = abs(cap["first_loss"] - nchw["first_loss"]) / abs(
+            nchw["first_loss"])
+        assert rel < 1e-4, ("NHWC first loss != NCHW's", cap["first_loss"],
+                            nchw["first_loss"])
+        line += ("; beside NCHW: captured p50 %.3f vs %.3f ms, eager %.3f "
+                 "vs %.3f ms, first loss %.6f vs %.6f (relative difference "
+                 "%.3g)" % (p50, nchw["captured_p50_ms"], cap["eager_p50_ms"],
+                            nchw["eager_p50_ms"], cap["first_loss"],
+                            nchw["first_loss"], rel))
+    print(line)
+    return launches, cap
+
+
+def _cifar_resnet_program(use_nhwc):
+    """The CPU tests' narrow ResNet: resnet_cifar10(depth=8) on 32 x 32
+    images and 10 classes, cross entropy, mean and accuracy, optionally
+    rewritten to NHWC, then Momentum 0.9 at CIFAR_LR."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.transpiler.layout_transpiler import rewrite_nhwc
+
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        img = ptt.layers.data("image", shape=[3, 32, 32])
+        label = ptt.layers.data("label", shape=[1], dtype="int64")
+        predict = resnet.resnet_cifar10(img, 10, depth=8)
+        loss = ptt.layers.mean(ptt.layers.cross_entropy(predict, label))
+        ptt.layers.accuracy(predict, label)
+        if use_nhwc:
+            rewrite_nhwc(main)
+        optimizer.Momentum(learning_rate=CIFAR_LR,
+                           momentum=0.9).minimize(loss)
+    return main, startup, loss
+
+
+def resnet_card_matches_cpu(dev):
+    """The narrow ResNet (resnet_cifar10(depth=8), 32 x 32, batch 8)
+    trained 3 Momentum steps from the same weights on the card (cuDNN,
+    TF32 off) and on the CPU, in NCHW and in NHWC: the losses within 1e-4
+    relative.  Each step also runs on the card from the CPU run's state
+    before it; its loss and batch-norm running stats are held within 1e-4
+    (convs through batch norm carry summation-order differences further
+    than the transformer legs' products, whose bar is 1e-5), and so are
+    its parameters and velocities, each within 1e-4 of its largest
+    magnitude, unless a relu input changed sign between the two.  Such
+    an input must lie within 1e-5 of 0 (relative to its tensor's
+    largest magnitude): relu's derivative then moves one gradient
+    element by its whole value, which no tolerance on the state can
+    hold.  The free run's state differences are printed beside them.  No
+    hand-written kernel launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+
+    rng = np.random.RandomState(1)
+    batch = {"image": rng.rand(CIFAR_BATCH, 3, 32, 32).astype("float32"),
+             "label": rng.randint(0, 10, (CIFAR_BATCH, 1)).astype("int64")}
+
+    def kind(name):
+        return ("velocity" if "velocity" in name else "running stat"
+                if name.endswith((".w_1", ".w_2")) else "parameter")
+
+    def worst(got, want):
+        """Each kind's largest difference over the tensor's largest
+        magnitude."""
+        out = {"parameter": 0.0, "running stat": 0.0, "velocity": 0.0}
+        for n, w in want.items():
+            err = float((got[n] - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            out[kind(n)] = max(out[kind(n)], err)
+        return out
+
+    for use_nhwc in (False, True):
+        main, startup, loss = _cifar_resnet_program(use_nhwc)
+        startup.random_seed = main.random_seed = 9
+        block = main.global_block()
+        names = [n for n, v in block.vars.items() if v.persistable]
+        relu_in = [op.inputs["X"][0] for op in block.ops if op.type == "relu"]
+        kernels.reset_launch_counts()
+
+        def run(place, state, steps):
+            """`steps` steps on `place` from `state`: (losses, the state
+            after each step, the relu inputs of each step)."""
+            scope = ptt.Scope()
+            for n, v in state.items():
+                scope.set(n, v.to(place.torch_device(), copy=True))
+            exe = ptt.Executor(place)
+            losses, after, acts = [], [], []
+            for _ in range(steps):
+                out = exe.run(main, feed=batch, fetch_list=[loss] + relu_in,
+                              scope=scope)
+                losses.append(float(out[0].sum()))
+                acts.append(out[1:])
+                after.append({n: scope.find_var(n).to("cpu", copy=True)
+                              for n in names})
+            exe.close()
+            return losses, after, acts
+
+        scope = ptt.Scope()
+        ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope)
+        init = {n: scope.find_var(n).clone() for n in names}
+        l_cpu, s_cpu, a_cpu = run(ptt.CPUPlace(), init, CIFAR_STEPS)
+        l_card, s_card, _ = run(ptt.CUDAPlace(0), init, CIFAR_STEPS)
+        assert np.isfinite(l_card).all(), l_card
+        assert len(set(l_card)) == CIFAR_STEPS, l_card
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+        assert loss_err < 1e-4, ("losses", l_card, l_cpu)
+        free = worst(s_card[-1], s_cpu[-1])
+        held = {k: 0.0 for k in free}
+        flips = []  # (step, relu input, count, largest |x| over its max)
+        for k in range(CIFAR_STEPS):
+            before = init if k == 0 else s_cpu[k - 1]
+            l_one, s_one, a_one = run(ptt.CUDAPlace(0), before, 1)
+            assert abs(l_one[0] - l_cpu[k]) < 1e-4 * abs(l_cpu[k]), (
+                k, l_one, l_cpu[k])
+            step_flips = []
+            for n, x_card, x_cpu in zip(relu_in, a_one[0], a_cpu[k]):
+                differ = (x_card > 0) != (x_cpu > 0)
+                if differ.any():
+                    near = float(np.abs(x_cpu[differ]).max()) / float(
+                        np.abs(x_cpu).max())
+                    assert near < 1e-5, ("a relu input far from 0 changed "
+                                         "sign", k, n, near)
+                    step_flips.append((k, n, int(differ.sum()), near))
+            errs = worst(s_one[0], s_cpu[k])
+            assert errs["running stat"] < 1e-4, ("running stats", k, errs)
+            if not step_flips:
+                assert max(errs.values()) < 1e-4, ("state", k, errs)
+            for n, err in errs.items():
+                if not step_flips or n == "running stat":
+                    held[n] = max(held[n], err)
+            flips += step_flips
+        moved = sum(not bool((s_cpu[-1][n] == init[n]).all()) for n in names)
+        launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        assert not any(launched.values()), launched
+        print("narrow ResNet (resnet_cifar10 depth 8, batch %d, %s) trained "
+              "%d Momentum steps on the card vs the CPU: losses %s vs %s, "
+              "max relative difference %.3g; each step from the CPU's state, "
+              "the largest difference over each tensor's largest magnitude "
+              "%s over %d of %d steps (the others' relu inputs changed sign "
+              "near 0: %s); the free run's after %d steps: %s; %d of %d "
+              "state tensors moved; no hand-written kernel launched" % (
+                  CIFAR_BATCH, "NHWC" if use_nhwc else "NCHW", CIFAR_STEPS,
+                  l_card, l_cpu, loss_err, json.dumps(held),
+                  CIFAR_STEPS - len({f[0] for f in flips}), CIFAR_STEPS,
+                  json.dumps(flips), CIFAR_STEPS, json.dumps(free), moved,
+                  len(names)))
+
+
 DECODE_KERNELS = ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
                   "matmul_bias_act", "fused_add_layer_norm")
 # held on the card by the kernel phase only: no path of the repo trains
@@ -4405,7 +4686,18 @@ def main():
     trained_vp, caps["wmt_vocab_parallel_training"] = train_vocab_parallel(
         dev, smi, profile_dir)
     lap("wmt vocab-parallel training (2 ranks on one card)")
-    assert sum(c["captured"] for c in caps.values()) == 14, caps
+    torch.cuda.empty_cache()
+    trained_resnet, caps["resnet50_training"] = train_resnet50(
+        dev, False, profile_dir)
+    lap("resnet-50 training")
+    torch.cuda.empty_cache()
+    trained_resnet_nhwc, caps["resnet50_nhwc_training"] = train_resnet50(
+        dev, True, profile_dir, nchw=caps["resnet50_training"])
+    lap("resnet-50 training, NHWC")
+    torch.cuda.empty_cache()
+    resnet_card_matches_cpu(dev)
+    lap("narrow resnet, card vs CPU")
+    assert sum(c["captured"] for c in caps.values()) == 16, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
             "the captured step is not faster than the eager one", path,
@@ -4429,7 +4721,9 @@ def main():
                    "seq2seq_decode": decoded_s2s[name],
                    "packed_lm_training": trained_packed[name],
                    "packed_lm_window_training": trained_packed_window[name],
-                   "wmt_vocab_parallel_training": trained_vp[name]}
+                   "wmt_vocab_parallel_training": trained_vp[name],
+                   "resnet50_training": trained_resnet[name],
+                   "resnet50_nhwc_training": trained_resnet_nhwc[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),

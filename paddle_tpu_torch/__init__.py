@@ -13,12 +13,13 @@ only: never jax, and nothing of ``paddle_tpu``.
 The port grows slice by slice: continuous-batching serving of GPT-2
 (``serving.ServingEngine``, the modern-decoder options included),
 KV-cached decoding, and training of the WMT Transformer, GPT-2, BERT,
-the stacked dynamic LSTM and the GRU seq2seq model (``models``), and of
-a causal LM on packed sequences (``reader.pack_sequences``).
+the stacked dynamic LSTM, the GRU seq2seq model and the conv nets
+(ResNet, VGG, SE-ResNeXt, the MNIST CNN) (``models``), and of a causal
+LM on packed sequences (``reader.pack_sequences``).
 """
 
 from . import ops  # noqa: F401  (registers the op lowerings)
-from . import layers, transpiler, unique_name  # noqa: F401
+from . import layers, nets, transpiler, unique_name  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard
 from .executor import Executor
 from .framework import (
@@ -32,5 +33,6 @@ from .places import CPUPlace, CUDAPlace, default_place
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
     "default_main_program", "default_place", "default_startup_program",
-    "global_scope", "layers", "program_guard", "scope_guard", "unique_name",
+    "global_scope", "layers", "nets", "program_guard", "scope_guard",
+    "unique_name",
 ]

@@ -13,6 +13,9 @@ with ``jax.vjp``.  Ops whose forward rule sits on a kernel get the
 kernel's ``torch.autograd.Function`` backward through the same vjp.
 """
 
+import contextlib
+import functools
+
 import torch
 
 __all__ = ["register", "get_op", "is_registered", "LowerCtx", "DrawSites",
@@ -20,22 +23,32 @@ __all__ = ["register", "get_op", "is_registered", "LowerCtx", "DrawSites",
 
 
 class OpDef:
-    def __init__(self, type, lower, no_grad_inputs=None):
+    def __init__(self, type, lower, no_grad_inputs=None, guard=None):
         self.type = type
         self.lower = lower  # fn(ctx, ins, attrs) -> {slot: [tensors]}
         # input slots that never take a gradient (ids, labels, optimizer
         # state), beside the integer inputs, which never do
         self.no_grad_inputs = set(no_grad_inputs or ())
+        # the context the rule runs under, its vjp's backward too (the
+        # convs' cuDNN settings, read when each kernel is dispatched)
+        self.guard = guard or contextlib.nullcontext
 
 
 OPS = {}
 
 
-def register(type_, no_grad_inputs=None):
-    """Decorator: register a lowering rule for op `type_`."""
+def register(type_, no_grad_inputs=None, guard=None):
+    """Decorator: register a lowering rule for op `type_`; `guard` makes
+    the context its rule and its grad run under."""
 
     def deco(fn):
-        OPS[type_] = OpDef(type_, fn, no_grad_inputs)
+        lower = fn
+        if guard is not None:
+            @functools.wraps(fn)
+            def lower(ctx, ins, attrs):
+                with guard():
+                    return fn(ctx, ins, attrs)
+        OPS[type_] = OpDef(type_, lower, no_grad_inputs, guard)
         return fn
 
     return deco
@@ -188,7 +201,8 @@ def lower_grad_op(ctx, ins, attrs):
     is the forward op's plain position in its block, while the runner
     sets ``(block << 20) | idx``: the two agree in block 0, the only
     block a training program differentiates, as in the reference.
-    ``torch.func.vjp`` runs under the executor's ``torch.no_grad()``.
+    ``torch.func.vjp`` runs under the executor's ``torch.no_grad()``, and
+    both it and the vjp's backward under the op's guard.
     """
     opdef = get_op(attrs["__fwd_type__"])
     fwd_attrs = attrs["__fwd_attrs__"]
@@ -221,15 +235,16 @@ def lower_grad_op(ctx, ins, attrs):
     primals = [fwd_ins[s][i] for s, i in diff_pos]
     if not primals:
         return {}
-    fwd_flat, vjp_fn = torch.func.vjp(fwd_fn, *primals)
-    cots = []
-    for (s, i), ref in zip(kept, fwd_flat):
-        g = ins.get(s + "@GRAD")
-        if g is not None and i < len(g) and g[i] is not None:
-            cots.append(g[i].to(ref.dtype).reshape(ref.shape))
-        else:
-            cots.append(torch.zeros_like(ref))
-    grads = vjp_fn(tuple(cots))
+    with opdef.guard():
+        fwd_flat, vjp_fn = torch.func.vjp(fwd_fn, *primals)
+        cots = []
+        for (s, i), ref in zip(kept, fwd_flat):
+            g = ins.get(s + "@GRAD")
+            if g is not None and i < len(g) and g[i] is not None:
+                cots.append(g[i].to(ref.dtype).reshape(ref.shape))
+            else:
+                cots.append(torch.zeros_like(ref))
+        grads = vjp_fn(tuple(cots))
     result = {}
     for (s, i), g in zip(diff_pos, grads):
         lst = result.setdefault(s + "@GRAD", [])

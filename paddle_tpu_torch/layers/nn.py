@@ -1,14 +1,16 @@
 """Neural-net layers (the counterpart of ``paddle_tpu/layers/nn.py``):
 the builders the serving slice, the GPT-2 (modern-decoder options
 included), WMT Transformer and BERT pretraining programs and the
-recurrent models (stacked LSTM classifier, GRU seq2seq) call.  Each
+recurrent models (stacked LSTM classifier, GRU seq2seq) and the conv
+nets (ResNet, VGG, SE-ResNeXt, the MNIST CNN) call.  Each
 appends ops through LayerHelper exactly as the reference does, so the
 same calls generate the same var and parameter names."""
 
 import numpy as np
 
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "layer_norm", "mul", "matmul", "reshape", "transpose",
@@ -19,6 +21,8 @@ __all__ = [
     "reduce_sum", "mean", "squeeze", "unsqueeze", "one_hot",
     "scale", "clip", "swish", "expand", "rotary_embed", "dynamic_lstm",
     "dynamic_gru", "cross_entropy", "topk", "reduce_mean", "log", "tanh",
+    "sigmoid", "relu", "conv2d", "depthwise_conv2d", "pool2d",
+    "adaptive_pool2d", "batch_norm",
 ]
 
 
@@ -123,6 +127,14 @@ def _simple(op_type, x, attrs=None, name=None):
 
 def tanh(x, name=None):
     return _simple("tanh", x, name=name)
+
+
+def sigmoid(x, name=None):
+    return _simple("sigmoid", x, name=name)
+
+
+def relu(x, name=None):
+    return _simple("relu", x, name=name)
 
 
 def log(x, name=None):
@@ -439,3 +451,110 @@ def dynamic_gru(input, size, param_attr=None, bias_attr=None,
                      outputs={"Hidden": [hidden], "LastH": [last_h]},
                      attrs={"is_reverse": is_reverse})
     return hidden
+
+
+# ---------------------------------------------------------------------------
+# the conv nets
+# ---------------------------------------------------------------------------
+def _pair(v):
+    return [v, v] if isinstance(v, int) else v
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """OIHW filters drawn from Normal(0, sqrt(2 / (kh kw C_in))), a bias
+    over the channels (unless bias_attr is False), then `act`."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size, stride, padding, dilation = map(
+        _pair, (filter_size, stride, padding, dilation))
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype,
+                                default_initializer=Normal(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv2d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def depthwise_conv2d(input, num_filters, filter_size, **kwargs):
+    kwargs["groups"] = input.shape[1]
+    return conv2d(input, num_filters, filter_size, **kwargs)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("adaptive_pool2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"ksize": list(pool_size),
+                            "pooling_type": pool_type})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Scale = 1 and Bias = 0 as parameters; the moving Mean = 0 and
+    Variance = 1 as non-trainable, stop-gradient persistables, which the
+    op updates in place in training (MeanOut, VarianceOut name them)."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    param_shape = [channels]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=param_shape,
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=param_shape,
+                                   dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, trainable=False),
+        shape=param_shape, dtype=dtype, default_initializer=Constant(0.0))
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, trainable=False),
+        shape=param_shape, dtype=dtype, default_initializer=Constant(1.0))
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_variance = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean],
+                 "SavedVariance": [saved_variance]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)

@@ -3,8 +3,8 @@
 the serving slice, the GPT-2 (with its modern-decoder options), WMT
 Transformer and BERT pretraining steps, the recurrent models (the
 stacked LSTM classifier's cross entropy and accuracy, the GRU seq2seq
-model's) and the packed causal LM (the compare ops of its loss mask)
-run.  ``mul`` and ``matmul`` are
+model's), the packed causal LM (the compare ops of its loss mask) and
+the conv nets (SE-ResNeXt's sigmoid) run.  ``mul`` and ``matmul`` are
 plain products outside any kernel of the reference, so they stay
 ``torch.matmul`` here too.
 ``fused_linear_xent`` sits on the hand-written linear cross-entropy
@@ -274,6 +274,12 @@ def _relu(ctx, ins, attrs):
     x = ins["X"][0]
     return {"Out": [torch.maximum(x, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))]}
+
+
+@register("sigmoid")
+def _sigmoid(ctx, ins, attrs):
+    """fc(act="sigmoid") emits it (SE-ResNeXt's excitation)."""
+    return {"Out": [torch.sigmoid(ins["X"][0])]}
 
 
 @register("tanh")

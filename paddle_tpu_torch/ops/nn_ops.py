@@ -1,8 +1,9 @@
 """Neural-net op lowerings (the counterpart of ``paddle_tpu/ops/nn_ops.py``),
 limited to the ops of the serving slice, the KV-cached decode step, the
 GPT-2 (with its modern-decoder options: rotary positions, SwiGLU) and
-WMT Transformer training steps, and the recurrent models (the stacked
-LSTM classifier, the GRU seq2seq model).
+WMT Transformer training steps, the recurrent models (the stacked
+LSTM classifier, the GRU seq2seq model) and the conv nets (ResNet, VGG,
+SE-ResNeXt, the MNIST CNN).
 
 Seven ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
 ``fc`` on ``matmul_bias_act``, ``fused_swiglu`` on ``matmul_swiglu``,
@@ -19,10 +20,23 @@ Each wrapper takes its plain version for CPU and meta tensors and
 launches its kernel for CUDA tensors.
 ``layer_norm``'s other forms are the reference's own XLA branch, which
 has no kernel: they stay plain PyTorch on any device.
+
+The conv family, the pooling ops and ``batch_norm`` reach no kernel of
+the reference either (``lax.conv_general_dilated`` and plain ``jnp``):
+here they run on ``torch.nn.functional``, so on cuDNN and PyTorch's own
+CUDA kernels.  Their NHWC form (``data_format`` / ``data_layout``, set by
+``transpiler.layout_transpiler.rewrite_nhwc``) permutes the [N, H, W, C]
+tensor to an NCHW view with channels-last strides, runs the same call on
+it, so that the library takes its channels-last kernels, and permutes
+the result back; filters stay OIHW.
 """
+
+import contextlib
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register
 from ..kernels import (
@@ -426,3 +440,177 @@ def _padded_gru(ctx, ins, attrs):
         h = h_new
         hs[ti] = h
     return {"Hidden": [torch.stack(hs, 1)], "LastH": [h]}
+
+
+# ---------------------------------------------------------------------------
+# the conv nets: convolution, pooling, batch norm
+# ---------------------------------------------------------------------------
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+@contextlib.contextmanager
+def cudnn_exact():
+    """cuDNN's deterministic algorithms, picked by its heuristics: no
+    autotuning, which a CUDA-graph capture cannot hold, and no atomics
+    in the backward, so a captured step equals the eager one bit for
+    bit.  TF32 stays as the process set it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+
+
+def _to_nchw(x):
+    """An NHWC tensor as an NCHW view with channels-last strides (an
+    entry transpose's view is laid out first)."""
+    return x.contiguous().permute(0, 3, 1, 2)
+
+
+def _conv2d_impl(x, w, attrs, groups=None):
+    groups = groups if groups is not None else attrs.get("groups", 1) or 1
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    out = F.conv2d(_to_nchw(x) if nhwc else x, w, None,
+                   _pair(attrs.get("strides", [1, 1])),
+                   _pair(attrs.get("paddings", [0, 0])),
+                   _pair(attrs.get("dilations", [1, 1])), groups)
+    return out.permute(0, 2, 3, 1) if nhwc else out
+
+
+def _bias_shape(attrs, ndim=4):
+    shape = [1] * ndim
+    shape[1 if attrs.get("data_format", "NCHW") == "NCHW" else ndim - 1] = -1
+    return shape
+
+
+@register("conv2d", guard=cudnn_exact)
+def _conv2d(ctx, ins, attrs):
+    """With the reference's optional Bias and fuse_relu epilogue (relu
+    as a maximum against 0, whose derivative is 0.5 at 0 as
+    jnp.maximum's)."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    out = _conv2d_impl(x, w, attrs)
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(_bias_shape(attrs))
+    if attrs.get("fuse_relu"):
+        out = torch.maximum(out, torch.zeros((), dtype=out.dtype,
+                                             device=out.device))
+    return {"Output": [out]}
+
+
+@register("depthwise_conv2d", guard=cudnn_exact)
+def _depthwise_conv2d(ctx, ins, attrs):
+    x, w = ins["Input"][0], ins["Filter"][0]
+    ch = x.shape[1 if attrs.get("data_format", "NCHW") == "NCHW" else -1]
+    out = _conv2d_impl(x, w, attrs, groups=ch)
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0].reshape(_bias_shape(attrs))
+    return {"Output": [out]}
+
+
+@register("pool2d")
+def _pool2d(ctx, ins, attrs):
+    """Max and avg pooling as the reference's reduce_window: padding is
+    explicit (-inf for max, 0 for avg), and ceil_mode pads the right and
+    bottom so that the window count rounds up, so a window may lie
+    wholly in padding (-inf for max, NaN for exclusive avg; PyTorch's
+    own ceil_mode would drop it).  Exclusive avg divides by the count of
+    unpadded elements in each window.  Global pooling is amax / mean
+    over H, W: amax's gradient splits ties evenly, as jnp.max's."""
+    x = ins["X"][0]
+    ptype = attrs.get("pooling_type", "max")
+    ksize = _pair(attrs.get("ksize", [2, 2]))
+    strides = _pair(attrs.get("strides", [1, 1]))
+    paddings = _pair(attrs.get("paddings", [0, 0]))
+    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
+    if attrs.get("global_pooling", False) or attrs.get("adaptive", False) \
+            and list(attrs.get("ksize")) == [1, 1]:
+        dims = (1, 2) if nhwc else (2, 3)
+        out = (x.amax(dims, keepdim=True) if ptype == "max"
+               else x.mean(dims, keepdim=True))
+        return {"Out": [out]}
+    if nhwc:
+        x = _to_nchw(x)
+    extra = [0, 0]
+    if attrs.get("ceil_mode", False):
+        for i, (dim, k, s, p) in enumerate(zip(x.shape[2:], ksize, strides,
+                                               paddings)):
+            rem = (dim + 2 * p - k) % s
+            extra[i] = (s - rem) % s if rem else 0
+    # F.pad's order: W's left and right, then H's
+    pad = (paddings[1], paddings[1] + extra[1], paddings[0],
+           paddings[0] + extra[0])
+    padded = any(pad)
+    if ptype == "max":
+        xp = F.pad(x, pad, value=-math.inf) if padded else x
+        out = F.max_pool2d(xp, ksize, strides)
+    elif attrs.get("exclusive", True) and padded:
+        summed = F.avg_pool2d(F.pad(x, pad), ksize, strides,
+                              divisor_override=1)
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        counts = F.avg_pool2d(F.pad(ones, pad), ksize, strides,
+                              divisor_override=1)
+        out = summed / counts
+    else:
+        out = F.avg_pool2d(F.pad(x, pad) if padded else x, ksize, strides)
+    return {"Out": [out.permute(0, 2, 3, 1) if nhwc else out]}
+
+
+@register("adaptive_pool2d")
+def _adaptive_pool2d(ctx, ins, attrs):
+    """The reference's form: NCHW, output sizes that divide H and W."""
+    x = ins["X"][0]
+    oh, ow = attrs["pooling_size"] if "pooling_size" in attrs \
+        else attrs["ksize"]
+    n, c, h, w = x.shape
+    if h % oh or w % ow:
+        raise ValueError("adaptive_pool2d needs output sizes that divide "
+                         "the input's: %s into %s" % ((oh, ow), (h, w)))
+    x = x.reshape(n, c, oh, h // oh, ow, w // ow)
+    if attrs.get("pooling_type", "avg") == "max":
+        return {"Out": [x.amax((3, 5))]}
+    return {"Out": [x.mean((3, 5))]}
+
+
+@register("batch_norm", no_grad_inputs=("Mean", "Variance"))
+def _batch_norm(ctx, ins, attrs):
+    """The reference's statistics, which are not PyTorch's: MeanOut = m
+    Mean + (1 - m) batch mean (PyTorch's momentum is 1 - m), the biased
+    batch variance for both the normalization and VarianceOut (PyTorch
+    updates with the unbiased one), and SavedVariance the inverse std.
+    So F.batch_norm computes Y alone and never sees the running stats in
+    training; the statistics are var_mean's in float32, detached: no
+    gradient reaches the running stats, and SavedMean, which the
+    reference leaves differentiable, is read by no op, so the step's vjp
+    does no work for it.  In test mode (is_test,
+    use_global_stats) Y normalizes with the running stats, which pass
+    through unchanged."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    m = attrs.get("momentum", 0.9)
+    nhwc = attrs.get("data_layout", "NCHW") == "NHWC" and x.dim() > 2
+    xs = x.float()
+    if nhwc:  # channels last: an NC... view, channels-last strides
+        xs = xs.contiguous().movedim(-1, 1)
+    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+        y = F.batch_norm(xs, mean, var, scale, bias, False, 0.0, eps)
+        saved_mean, inv = mean, torch.rsqrt(var + eps).detach()
+        mean_out, var_out = mean, var
+    else:
+        y = F.batch_norm(xs, None, None, scale, bias, True, 0.0, eps)
+        dims = [0] + list(range(2, xs.dim()))
+        bvar, bmean = torch.var_mean(xs.detach(), dims, correction=0)
+        saved_mean, inv = bmean, torch.rsqrt(bvar + eps)
+        mean_out = m * mean + (1 - m) * bmean
+        var_out = m * var + (1 - m) * bvar
+    if nhwc:
+        y = y.movedim(1, -1)
+    return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
+            "VarianceOut": [var_out], "SavedMean": [saved_mean],
+            "SavedVariance": [inv]}

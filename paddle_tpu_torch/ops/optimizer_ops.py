@@ -1,6 +1,7 @@
 """Optimizer op lowerings (the counterpart of
-``paddle_tpu/ops/optimizer_ops.py``): ``sgd`` and ``adam``, the dense
-forms.  Each op maps (param, grad, accumulators) to the updated tensors
+``paddle_tpu/ops/optimizer_ops.py``): ``sgd``, ``momentum`` and
+``adam``, the dense forms (the SelectedRows branches wait for ROADMAP
+A1).  Each op maps (param, grad, accumulators) to the updated tensors
 under the ``*Out`` slots, which name the same vars, so the executor
 writes them back into the scope.  None is differentiated: optimizer ops
 sit after the backward.
@@ -19,6 +20,21 @@ def _lr(ins):
 def _sgd(ctx, ins, attrs):
     p, g = ins["Param"][0], ins["Grad"][0]
     return {"ParamOut": [p - _lr(ins) * g.to(p.dtype)]}
+
+
+@register("momentum", no_grad_inputs=("Param", "Grad", "Velocity",
+                                      "LearningRate"))
+def _momentum(ctx, ins, attrs):
+    """v = mu v + g; p -= lr v, or with use_nesterov p -= (g + mu v) lr."""
+    p, v = ins["Param"][0], ins["Velocity"][0]
+    g = ins["Grad"][0].to(p.dtype)
+    mu = attrs.get("mu", 0.9)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * _lr(ins)
+    else:
+        p_out = p - _lr(ins) * v_out
+    return {"ParamOut": [p_out], "VelocityOut": [v_out]}
 
 
 @register("adam", no_grad_inputs=("Param", "Grad", "Moment1", "Moment2",

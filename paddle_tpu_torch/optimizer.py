@@ -1,11 +1,11 @@
 """Optimizers (the counterpart of ``paddle_tpu/optimizer.py``).
 
 ``Optimizer.minimize`` = ``append_backward`` + one optimizer op per
-parameter, with the accumulators (Adam's moments and beta powers) as
-persistable vars initialized by the startup program.  The ops update
-their state in place (``ParamOut`` names the param), as the
-reference's do; the executor writes the updated persistables back into
-the scope.  Gradient clipping and regularization are not ported yet
+parameter, with the accumulators (Momentum's velocities, Adam's moments
+and beta powers) as persistable vars initialized by the startup
+program.  The ops update their state in place (``ParamOut`` names the
+param), as the reference's do; the executor writes the updated
+persistables back into the scope.  Gradient clipping and regularization are not ported yet
 (ROADMAP A1): asking for them raises.
 """
 
@@ -15,7 +15,8 @@ from .framework import Variable
 from .initializer import Constant
 from .layer_helper import LayerHelper
 
-__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer", "Optimizer"]
+__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer", "Optimizer"]
 
 
 class Optimizer:
@@ -134,6 +135,29 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": [param]})
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator("velocity", param)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kwargs):
@@ -171,4 +195,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
