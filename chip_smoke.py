@@ -39,10 +39,36 @@ In order, it:
    (plain path) with the same weights, in a pool of three slots and in
    one of one slot, and holds the logits of every step against each
    other;
-6. with --profile, serves a short trace under torch.profiler and reports
+6. over the same weights and trace, serves with in-pool speculative
+   decoding (spec_k 4): with the reference bench's six-block draft of
+   GPT-2 small in a scope of its own, then with draft "self" (a second
+   KV pool); every request OK, the greedy streams equal the plain
+   engine's, a greedy and a sampled request equal their run_solo, the
+   launches equal the target program's per step plus the draft
+   program's per draft dispatch, no capture across the trace after a
+   warm-up, a 3-request trace eagerly and captured with every target
+   and draft dispatch's logits bit for bit, and the self draft's
+   acceptance rate exactly 1.0; prints tokens/s, step p50s, the
+   acceptance rate and target dispatches per emitted token (with
+   --profile, chiprun_out/profile_serving_speculative_*.json);
+7. serves make_prefix_trace (24 requests, 2 templates of 512 tokens,
+   90% reuse) with the prefix cache (4 rows, chunk 16): cold,
+   registered, and registered with the self draft; the registered
+   streams equal the cold ones bit for bit (the speculative leg's
+   greedy ones; its sampled ones equal their run_solo), no capture
+   across the trace, the launches the programs'; prints prefill chunks,
+   hit rate, tokens/s, the load program's p50 and kv_pool_bytes; then
+   decodes with the solo speculative loops (batch 4, 64-token prompts,
+   64 new tokens, spec_k 4; the six-block draft and a copy of the
+   model): greedy equal to greedy_generate_cached but where a top-2
+   margin under 1e-4 decides, sampled twice bit for bit, every run's
+   launches its program's; and serves a narrow config speculatively
+   (a one-block draft) with the prefix cache on the card and on the
+   CPU: target and draft logits within 1e-5, the streams equal;
+8. with --profile, serves a short trace under torch.profiler and reports
    device busy time and idle share, torch calls, device time by kernel
    and host time by engine span (chiprun_out/profile_serving.json);
-7. trains Transformer-base (the WMT program: 6+6 layers, d_model 512,
+9. trains Transformer-base (the WMT program: 6+6 layers, d_model 512,
    vocab 10000, dropout and label smoothing 0.1, noam lr, Adam) on batch
    64 x 64 from seeded random weights: one warm-up step, 10 timed steps
    with every launch count reset just before and read just after and
@@ -50,9 +76,9 @@ In order, it:
    same saved state, bit for bit, and one step whose dropout_grad ops
    must redraw their forward ops' masks (with --profile, 3 more steps
    under the profiler, chiprun_out/profile_training.json);
-8. trains a narrow WMT config 3 steps on the card and on the CPU plain
+10. trains a narrow WMT config 3 steps on the card and on the CPU plain
    path from the same weights and holds the losses to 1e-5 relative;
-9. trains GPT-2 small (gpt2_lm_program: vocab 50257, d_model 768, 12
+11. trains GPT-2 small (gpt2_lm_program: vocab 50257, d_model 768, 12
    layers, 12 heads, dropout 0.1, untied head, Adam) on batch 8 x 1024
    from seeded random weights: one warm-up step (its loss near ln
    50257), 10 timed steps with every launch count reset just before and
@@ -61,10 +87,10 @@ In order, it:
    dropout_grad ops must redraw their forward ops' masks (with
    --profile, 3 more steps under the profiler,
    chiprun_out/profile_training_gpt2.json);
-10. trains a narrow GPT-2 (vocab 1000, d_model 256, 4 heads, 2 layers,
+12. trains a narrow GPT-2 (vocab 1000, d_model 256, 4 heads, 2 layers,
    seq 128, dropout 0) 3 steps on the card and on the CPU plain path from
    the same weights and holds the losses to 1e-5 relative;
-11. serves the same 24-request trace with the modern-decoder GPT-2
+13. serves the same 24-request trace with the modern-decoder GPT-2
    options at TinyLlama-1.1B's widths (vocab 32000, n_ctx 2048, d_model
    2048, 22 layers, 32 query and 4 KV heads, rotary positions, SwiGLU
    FFN 5632 wide; random weights from a seed; t_max 2048), with the same
@@ -72,13 +98,13 @@ In order, it:
    kernels), then a narrow modern config on the card and the CPU in a
    three-slot and a one-slot pool (with --profile:
    chiprun_out/profile_serving_llama.json);
-12. trains that TinyLlama-width config (dropout 0, Adam) on batch 2 x
+14. trains that TinyLlama-width config (dropout 0, Adam) on batch 2 x
    2048: one warm-up step (its loss near ln 32000), 5 timed steps with
    the launch counts held to the program's, then one step twice from the
    same saved state, bit for bit (with --profile,
    chiprun_out/profile_training_llama.json); then a narrow modern config
    3 steps on the card and on the CPU, losses within 1e-5 relative;
-13. pretrains BERT-base (bert_pretrain_program: vocab 30522, hidden 768,
+15. pretrains BERT-base (bert_pretrain_program: vocab 30522, hidden 768,
    12 layers, 12 heads, dropout 0.1, fused attention with the
    key-padding bias, MLM over every position and NSP, Adam lr 1e-4) on
    batch 32 x 128 with ragged lengths: one warm-up step (its loss near
@@ -88,10 +114,10 @@ In order, it:
    --profile, chiprun_out/profile_training_bert.json); then a narrow
    BERT 3 steps on the card and on the CPU, the total, MLM and NSP
    losses within 1e-5 relative;
-14. trains Transformer-base with hp.fused_attn (every attention on the
+16. trains Transformer-base with hp.fused_attn (every attention on the
    flash kernels, causal and key-bias forms) 1 + 3 steps with the same
    checks, and a narrow fused_attn WMT config card vs CPU;
-15. decodes GPT-2 small with the KV cache (gpt2_decode_step_program at
+17. decodes GPT-2 small with the KV cache (gpt2_decode_step_program at
    batch 4, t_max 1024, one token and 64 wide; 4 seeded prompts of 200
    tokens): chunked prefill against one-token prefill (over a chunk and
    a ragged one), cached greedy (56 new tokens) against greedy_generate
@@ -106,12 +132,12 @@ In order, it:
    chiprun_out/profile_decode.json); then a narrow GPT-2 decoded greedy,
    sampled and by beam on the card and on the CPU, tokens equal and
    logits within 1e-5 relative;
-16. decodes at TinyLlama-1.1B's widths (t_max 2048, batch 2, prompts of
+18. decodes at TinyLlama-1.1B's widths (t_max 2048, batch 2, prompts of
    256, chunks of 128, 32 new tokens, greedy) with the same checks (the
    GQA fold puts flash_attention's few-row form at Tq 8 with a key bias;
    with --profile, chiprun_out/profile_decode_llama.json), and the
    narrow modern config card vs CPU;
-17. trains the stacked dynamic LSTM (build_stacked_lstm_train at
+19. trains the stacked dynamic LSTM (build_stacked_lstm_train at
    bench.py's setting: dict 10000, 64 tokens, emb and hidden 512, 3
    layers, 2 classes, Adam 1e-3) on batch 32 x 64: one warm-up step (its
    loss near ln 2), 5 timed steps with the launch counts held to the
@@ -119,18 +145,18 @@ In order, it:
    layer 2 is reversed, the reference's plain scan), the bit-equal
    repeat (with --profile, chiprun_out/profile_training_lstm.json); then
    the narrow LSTM of the CPU tests 3 steps on the card and the CPU;
-18. trains the GRU seq2seq model (build_seq2seq_train at Paddle's
+20. trains the GRU seq2seq model (build_seq2seq_train at Paddle's
    benchmark machine_translation widths: 512, dictionaries 30000, Adam
    1e-3) on batch 32 x 50 the same way (its first loss near ln 30000;
    fused_gru 4 a step; chiprun_out/profile_training_seq2seq.json), and
    the narrow seq2seq card vs CPU;
-19. beam-decodes with build_decode_step at those widths (beam 4 over 2
+21. beam-decodes with build_decode_step at those widths (beam 4 over 2
    sentences, 16 steps through BeamSearchDecoder; fused_gru at T 50 and
    at T 1 from H0 every step), prints the decode step's p50, and the
    narrow decode step card vs CPU (tokens equal, log-probs 1e-5) (with
    --profile, 3 decode steps under the profiler,
    chiprun_out/profile_decode_seq2seq.json);
-20. trains Transformer-base vocab-parallel (the WMT program on a {"dp":
+22. trains Transformer-base vocab-parallel (the WMT program on a {"dp":
    1, "mp": 2} mesh whose rule table vocab-shards softmax_out.w): two
    ranks spawned on the one card over a gloo group, each holding its
    [512, 5000] slab and running sharded_linear_xent's kernels (parts 2,
@@ -141,7 +167,7 @@ In order, it:
    the CPU's; the kernel phase holds the three B12 kernels at the path's
    shapes, a ragged R and TinyLlama's widths on mp 4 (with --profile,
    rank 0's chiprun_out/profile_training_vocab_parallel.json);
-21. trains the packed causal LM (examples/packed_training_torch.py's
+23. trains the packed causal LM (examples/packed_training_torch.py's
    build at GPT-2 small's vocab 50257, width 768, 12 heads and context
    1024; one attention block over packed segment ids, Adam) on the first
    8 rows of 64 seeded ragged sequences (lengths log-uniform in [8,
@@ -153,7 +179,7 @@ In order, it:
    0 and 48 card vs CPU; the kernel phase holds the segment and window
    forms of B3 and B9 (with --profile, chiprun_out/profile_training_packed
    and profile_training_packed_window.json);
-22. trains ResNet-50 (build_resnet_train_program at 224 x 224, 1000
+24. trains ResNet-50 (build_resnet_train_program at 224 x 224, 1000
    classes, Momentum 0.9 at lr 0.1; conv2d, pool2d and batch_norm on
    cuDNN and PyTorch's CUDA kernels, no hand-written kernel) on batch 128
    of seeded images staged on the card once: one warm-up step (its loss
@@ -162,14 +188,14 @@ In order, it:
    eager and run_loop(4) == 4 runs; prints images/s over the captured
    p50 and the step's conv and fc FLOPs against FP32's 67 TFLOP/s (with
    --profile, chiprun_out/profile_training_resnet50.json);
-23. the same with use_nhwc (the conv trunk channels-last through
+25. the same with use_nhwc (the conv trunk channels-last through
    rewrite_nhwc), its p50 and first loss beside the NCHW leg's
    (profile_training_resnet50_nhwc.json);
-24. trains the narrow ResNet of the CPU tests (resnet_cifar10 depth 8,
+26. trains the narrow ResNet of the CPU tests (resnet_cifar10 depth 8,
    32 x 32, batch 8) 3 Momentum steps on the card and on the CPU, in
    NCHW and NHWC: losses, parameters, running stats and velocities
    within 1e-4 relative to each tensor's largest magnitude;
-25. prints, for every path, its eager and captured numbers (one JSON
+27. prints, for every path, its eager and captured numbers (one JSON
    line), the kernels line and, last, the result line.
 
 Every path's executor but the vocab-parallel one's captures its step as
@@ -209,6 +235,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # GPT-2 small serving pool of the smoke run
 N_SLOTS, WIDTH, T_MAX = 8, 16, 1024
+# speculative decoding: spec_k of the speculative engines and of the solo
+# loops, which run at batch 4 over seeded 64-token prompts, 64 new tokens
+SPEC_K = 4
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 4, 64, 64
+# the prefix cache: rows of the prefix pool, and the templates' length of
+# the prefix trace (bench.py's prefix leg: half of t_max)
+PREFIX_ROWS, PREFIX_LEN = 4, 512
 # Transformer-base training step: batch 64 x (64 source, 64 target) tokens
 TRAIN_BATCH, TRAIN_LEN = 64, 64
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_LEN  # 4096 target rows per step
@@ -1537,6 +1570,8 @@ DECODE_ATTENTION = (
      DECODE_PROMPT + DECODE_NEW - 1),
     ("gpt2 beam", BEAM_PROMPTS * BEAM_SIZE * GPT2_HEADS, 1, T_MAX,
      GPT2_D // GPT2_HEADS, DECODE_PROMPT + BEAM_NEW - 1),
+    ("gpt2 speculative draft step", SPEC_BATCH * GPT2_HEADS, 1, T_MAX,
+     GPT2_D // GPT2_HEADS, SPEC_PROMPT + SPEC_NEW - 1),
     ("llama decode (GQA fold)", LLAMA_DECODE_BATCH * 4, LLAMA_HEADS // 4,
      LLAMA_LEN, LLAMA_D // LLAMA_HEADS,
      LLAMA_DECODE_PROMPT + LLAMA_DECODE_NEW - 1))
@@ -1992,6 +2027,9 @@ def check_attention_pieces(dev, randn, times=True):
     # the GPT-2 path's chunk is the forward's row; the ring's diagonal
     # chunk the backward's (no path of the repo runs it yet)
     for tag, args in (("gpt2 prefill", (pre_bh, DECODE_WIDTH, T_MAX, 192)),
+                      ("gpt2 speculative verify", (
+                          SPEC_BATCH * GPT2_HEADS, SPEC_K, T_MAX,
+                          SPEC_PROMPT + SPEC_NEW - SPEC_K)),
                       ("llama prefill", (llama_bh, LLAMA_DECODE_WIDTH,
                                          LLAMA_LEN, 128)),
                       ("ring diagonal", (pre_bh, T_MAX, T_MAX, 0)),
@@ -2047,9 +2085,7 @@ def _serve_on_card(label, hp, t_max, per_step, seed, profile_dir=None,
     churn; then a 3-request trace eagerly (use_program_cache=False) and
     captured, the logits of every step bit for bit.  With `profile_dir`,
     both modes under the profiler.  Returns (launches, eng, scope, the
-    path's capture record)."""
-    import hashlib
-
+    path's capture record, (the trace's results, its run stats))."""
     import numpy as np
     import torch
 
@@ -2119,28 +2155,7 @@ def _serve_on_card(label, hp, t_max, per_step, seed, profile_dir=None,
         short = make_poisson_trace(3, rate=0.5, prompt_len_range=(16, 384),
                                    out_len_range=(16, 64),
                                    vocab_size=hp.vocab_size, seed=2)
-        legs = {}
-        for mode in ("eager", "captured"):
-            seen = []
-
-            def recording(program=None, feed=None, fetch_list=None, **kw):
-                kw["use_program_cache"] = mode == "captured"
-                out = run(program, feed=feed, fetch_list=fetch_list, **kw)
-                if program is eng.step_main:
-                    seen.append(out[0])
-                return out
-
-            exe.run = recording
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _, st = eng.run(short)
-            legs[mode] = ([hashlib.sha256(lg.tobytes()).digest()
-                           for lg in seen], st["step_s_p50"],
-                          torch.cuda.max_memory_allocated())
-            del seen
-        exe.run = run
-        assert legs["eager"][0] == legs["captured"][0] and legs["eager"][0], (
-            "captured != eager serving logits", label)
+        legs = _logits_legs(eng, run, short)
         # the engine's host copy of the logits, [slots, width, vocab] f32
         lg = torch.empty((N_SLOTS, WIDTH, hp.vocab_size), device="cuda")
         copy_ms = _p50_ms([_timed(lg.cpu) for _ in range(5)])
@@ -2171,7 +2186,8 @@ def _serve_on_card(label, hp, t_max, per_step, seed, profile_dir=None,
            "logits_host_copy_ms": copy_ms,
            "logits_copy_share": copy_ms / (stats["step_s_p50"] * 1e3)}
     _busy_idle(cap, reports)
-    return launches, eng, scope, _capture_line(label + " serving", cap)
+    return (launches, eng, scope, _capture_line(label + " serving", cap),
+            (results, stats))
 
 
 def _eager_run(run):
@@ -2387,6 +2403,515 @@ def card_matches_cpu(dev, n_slots, Narrow, must_launch):
           "steps, max abs logit difference %.3g, launches %s" % (
               Narrow.__name__, n_slots,
               len(logits["cpu"]), err, json.dumps(launched)))
+
+
+def six_block_draft(scope):
+    """The reference bench's "half" draft of GPT-2 small: its first six
+    blocks, the embeddings and the final norm, in a Scope of its own
+    that holds the target's tensors by name.  Returns (hp, scope)."""
+    from paddle_tpu_torch.models import gpt2
+
+    class SixBlocks(gpt2.GPT2Config):
+        n_layer = gpt2.GPT2Config.n_layer // 2
+
+    return SixBlocks, _draft_scope(SixBlocks, scope)
+
+
+def _draft_scope(draft_hp, scope):
+    """A new Scope holding `scope`'s tensors of the parameters of
+    `draft_hp`'s logits program (gpt2_logits_program names a config's
+    parameters as it names the target's)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt2
+
+    with ptt.program_guard(ptt.Program(), ptt.Program()):
+        main, _, _, _ = gpt2.gpt2_logits_program(draft_hp,
+                                                 seq_len=draft_hp.n_ctx)
+    dscope = ptt.Scope()
+    for p in main.global_block().all_parameters():
+        dscope.set(p.name, scope.find_var(p.name))
+    return dscope
+
+
+class _RunLog:
+    """An executor's run, wrapped: the compile count after every run, and
+    the synchronized wall seconds of the runs of `timed` programs."""
+
+    def __init__(self, exe, timed=()):
+        import torch
+
+        self.exe, self.run = exe, exe.run
+        self.counts, self.times = [], []
+        timed = {id(p) for p in timed}
+
+        def logged(program=None, feed=None, fetch_list=None, **kw):
+            t0 = None
+            if id(program) in timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = self.run(program, feed=feed, fetch_list=fetch_list, **kw)
+            if t0 is not None:
+                torch.cuda.synchronize()
+                self.times.append(time.perf_counter() - t0)
+            self.counts.append(exe.compile_count)
+            return out
+
+        exe.run = logged
+
+    def close(self):
+        self.exe.run = self.run
+        assert self.counts and len(set(self.counts)) == 1, (
+            "a capture across the churn", self.counts[0], self.counts[-1])
+        return self.counts[0]
+
+
+def _spec_launch_check(label, launches, eng, stats):
+    """Each kernel's launches over a run: the target program's count
+    times its dispatches (one an engine step) plus the draft program's
+    times draft_steps (the resets and row copies launch none)."""
+    want_t = _decode_launches(eng.step_main)
+    want_d = (_decode_launches(eng.draft_main) if eng.spec_k
+              else dict.fromkeys(want_t, 0))
+    for name, n in launches.items():
+        want = (want_t[name] * stats["steps"]
+                + want_d[name] * stats.get("draft_steps", 0))
+        assert n == want, ("launch count", label, name, n, want_t[name],
+                           stats["steps"], want_d[name],
+                           stats.get("draft_steps"))
+
+
+class _SelfDraftProbe:
+    """On a self-drafting engine: the row each proposal was drawn from
+    against the target's column that verifies it (raw logits for greedy
+    rows, filtered for sampled ones), and the due rows of plain picks
+    against the draft's, for each request until its first greedy round
+    that accepts every proposal.  Such a round emits its bonus token
+    without the draft dispatch that would write that token's K/V to the
+    draft's cache (the reference's round), so from then on the draft's
+    history has a hole and its rows may differ.  Before it, both caches
+    hold the same history and each pair must be bit-equal: a pooled
+    step's column against the width-1 row of the same token.  Keeps the
+    count compared and the first pair that differs, if any."""
+
+    def __init__(self, eng):
+        import numpy as np
+
+        self.first, self.compared, self.rows, self.holed = None, 0, {}, set()
+        draft_pick, resolve = eng._draft_pick, eng._resolve_spec_row
+        pick = eng._pick_tokens
+
+        def note(what, a, b):
+            if what[1] in self.holed:
+                return
+            self.compared += 1
+            if self.first is None and not np.array_equal(a, b):
+                self.first = what + (float(np.abs(a - b).max()),)
+
+        def probe_draft_pick(s, row, index):
+            self.rows[(s.req.rid, index)] = np.array(row)
+            return draft_pick(s, row, index)
+
+        def probe_resolve(s, logits_row, d_list, pd_list, k_s):
+            base = len(s.out) + s.req.sample_step_base
+            for j in range(k_s):
+                col = (logits_row[j] if s.req.greedy
+                       else eng._filtered_row(s, logits_row[j]))
+                note(("verify", s.req.rid, base + j), col,
+                     self.rows.pop((s.req.rid, base + j)))
+            emit, accepted = resolve(s, logits_row, d_list, pd_list, k_s)
+            if s.req.greedy and accepted == k_s:
+                self.holed.add(s.req.rid)
+            return emit, accepted
+
+        def probe_pick(rows, slots, draft_rows=None):
+            if draft_rows is not None:
+                for i, slot in enumerate(slots):
+                    s = eng.pool.slots[slot]
+                    note(("first or tail", s.req.rid, len(s.out)), rows[i],
+                         draft_rows[i])
+            return pick(rows, slots, draft_rows)
+
+        self.eng = eng
+        eng._draft_pick = probe_draft_pick
+        eng._resolve_spec_row = probe_resolve
+        eng._pick_tokens = probe_pick
+
+    def close(self):
+        for name in ("_draft_pick", "_resolve_spec_row", "_pick_tokens"):
+            delattr(self.eng, name)  # the class's methods again
+
+
+def _logits_legs(eng, run, short):
+    """`short` served eagerly (use_program_cache=False) and captured: the
+    digests of every target (and draft) dispatch's logits, taken after
+    the leg so that hashing stays out of its step times; each leg's
+    step p50 and peak memory.  The two legs' digests must be equal."""
+    import hashlib
+
+    import torch
+
+    legs = {}
+    watched = {id(eng.step_main)} | (
+        {id(eng.draft_main)} if eng.spec_k else set())
+    for mode in ("eager", "captured"):
+        seen = []
+
+        def recording(program=None, feed=None, fetch_list=None, **kw):
+            kw["use_program_cache"] = mode == "captured"
+            out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+            if id(program) in watched:
+                seen.append(out[0])
+            return out
+
+        eng.exe.run = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, st = eng.run(short)
+        legs[mode] = ([hashlib.sha256(lg.tobytes()).digest() for lg in seen],
+                      st["step_s_p50"], torch.cuda.max_memory_allocated())
+        del seen
+    eng.exe.run = run
+    assert legs["eager"][0] == legs["captured"][0] and legs["eager"][0], (
+        "captured != eager serving logits")
+    return legs
+
+
+def serve_gpt2_small_speculative(dev, scope, plain, profile_dir=None):
+    """In-pool speculative decoding at GPT-2 small's widths over the
+    serving path's weights (`scope`) and trace: ServingEngine(n_slots 8,
+    width 16, t_max 1024, spec_k SPEC_K) with the six-block draft in its
+    own scope, then with draft "self" (a second KV pool in `scope`).
+    Each engine first serves the trace's first 3 requests twice, so that
+    every program (target step, draft step, both resets) has made its
+    captures; then the trace with every launch count reset just before
+    and read just after.  Checks: every request OK with its full budget;
+    the greedy requests' streams equal the plain engine's (`plain`: its
+    results and stats) bit for bit; a greedy and a sampled request equal
+    their run_solo; each kernel's launches equal the target program's
+    count times the engine's steps plus the draft program's times
+    draft_steps; no capture across the trace; a 3-request trace eagerly
+    and captured, every target and draft dispatch's logits bit for bit;
+    with the self draft, the acceptance rate exactly 1.0 (a rejection
+    names the first draft row that differs from the target's column).
+    Prints tokens/s, the step p50 eager and captured, the acceptance
+    rate, spec_rounds, draft_steps and target dispatches per emitted
+    token against the plain engine's, and the host copy of one draft
+    dispatch's logits.  Returns (the launch totals, the two capture
+    records)."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import gpt2
+    from paddle_tpu_torch.serving import ServingEngine, make_poisson_trace
+
+    hp = gpt2.GPT2Config
+    plain_results, plain_stats = plain
+    trace = make_poisson_trace(24, rate=0.5, prompt_len_range=(16, 384),
+                               out_len_range=(16, 64),
+                               vocab_size=hp.vocab_size, seed=0)
+    short = make_poisson_trace(3, rate=0.5, prompt_len_range=(16, 384),
+                               out_len_range=(16, 64),
+                               vocab_size=hp.vocab_size, seed=2)
+    totals = {fn.__name__: 0 for fn in kernels.KERNELS}
+    caps = {}
+    plain_per_token = plain_stats["steps"] / plain_stats["new_tokens"]
+    for tag, label, draft in (
+            ("six_block", "six-block draft", six_block_draft(scope)),
+            ("self", "self draft", "self")):
+        with ptt.scope_guard(scope):
+            exe = ptt.Executor(ptt.CUDAPlace(0))
+            eng = ServingEngine(exe, hp, n_slots=N_SLOTS, width=WIDTH,
+                                t_max=T_MAX, draft=draft, spec_k=SPEC_K)
+            for _ in range(2):
+                eng.run(trace[:3])
+            probe = _SelfDraftProbe(eng) if draft == "self" else None
+            log = _RunLog(exe)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            results, stats = eng.run(trace)
+            peak = torch.cuda.max_memory_allocated()
+            launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+            compiles = log.close()
+            _spec_launch_check(label, launches, eng, stats)
+            for name, n in launches.items():
+                totals[name] += n
+            for r in trace:
+                res = results[r.rid]
+                assert res["status"] == "OK", (label, r.rid, res["status"])
+                assert res["tokens"].size == r.max_new_tokens, (label, r.rid)
+                if r.greedy:
+                    assert np.array_equal(
+                        res["tokens"], plain_results[r.rid]["tokens"]), (
+                        "greedy speculative != plain", label, r.rid)
+            assert stats["spec_rounds"] > 0 and stats["draft_steps"] > 0
+            if probe is not None:
+                probe.close()
+                # the pooled step's columns against the width-1 rows of the
+                # same tokens: bit for bit, so every sampled request (no
+                # bonus, so no hole in the draft's history) accepts every
+                # proposal
+                assert probe.first is None and probe.compared, (
+                    "a pooled column differs from the width-1 row of its "
+                    "token (kind, rid, token index, max abs difference)",
+                    probe.first, probe.compared)
+                rates = {r.rid: results[r.rid]["accept_rate"]
+                         for r in trace if not r.greedy}
+                assert set(rates.values()) == {1.0}, (
+                    "a sampled request's self-draft acceptance", rates)
+            greedy = next(r for r in trace if r.greedy)
+            sampled = next(r for r in trace if not r.greedy)
+            for r in (greedy, sampled):
+                solo, _ = eng.run_solo(r)
+                assert np.array_equal(solo, results[r.rid]["tokens"]), (
+                    "pooled != solo", label, r.rid)
+            legs = _logits_legs(eng, exe.run, short)
+            lg = torch.empty((N_SLOTS, WIDTH, hp.vocab_size), device="cuda")
+            copy_ms = _p50_ms([_timed(lg.cpu) for _ in range(5)])
+            reports = {}
+            if profile_dir:
+                name = "serving_speculative_" + tag
+                reports["captured"] = profile_serving(eng, scope, profile_dir,
+                                                      name)
+                run = exe.run
+                exe.run = _eager_run(run)
+                reports["eager"] = profile_serving(eng, scope, profile_dir,
+                                                   name + "_eager")
+                exe.run = run
+            per_token = stats["steps"] / stats["new_tokens"]
+            print("served GPT-2 small speculatively, %s (spec_k %d): %d "
+                  "requests in %d steps, %.1f tokens/s (plain %.1f), step "
+                  "p50 %.3f ms; acceptance %.4f over %d rounds (%d proposed, "
+                  "%d accepted), %d draft dispatches; target dispatches per "
+                  "emitted token %.4f (plain %.4f); greedy streams == the "
+                  "plain engine's, pooled == solo for rid %d (greedy) and %d "
+                  "(sampled); no capture across the trace (compile_count "
+                  "%d); a %d-request trace eagerly and captured: %d target "
+                  "and draft dispatches' logits bit for bit; one draft "
+                  "dispatch's logits to the host %.3f ms%s; launches %s" % (
+                      label, SPEC_K, len(trace), stats["steps"],
+                      stats["tokens_per_s"], plain_stats["tokens_per_s"],
+                      stats["step_s_p50"] * 1e3, stats["accept_rate"],
+                      stats["spec_rounds"], stats["spec_proposed"],
+                      stats["spec_accepted"], stats["draft_steps"],
+                      per_token, plain_per_token, greedy.rid, sampled.rid,
+                      compiles, len(short), len(legs["eager"][0]), copy_ms,
+                      "" if probe is None else
+                      "; %d draft rows bit-equal to the target's columns "
+                      "(each request's until its first greedy round "
+                      "accepting all, after which the draft's cache lacks "
+                      "the bonus token's K/V: %d requests), every sampled "
+                      "request's acceptance 1.0" % (probe.compared,
+                                                    len(probe.holed)),
+                      json.dumps(launches)))
+            cap = {"eager_p50_ms": legs["eager"][1] * 1e3,
+                   "captured_p50_ms": stats["step_s_p50"] * 1e3,
+                   "replay_p50_ms": legs["captured"][1] * 1e3,
+                   "eager_peak_gb": legs["eager"][2] / 1e9,
+                   "captured_peak_gb": peak / 1e9,
+                   "compile_count": exe.compile_count,
+                   "tokens_per_s": stats["tokens_per_s"],
+                   "accept_rate": stats["accept_rate"],
+                   "spec_rounds": stats["spec_rounds"],
+                   "draft_steps": stats["draft_steps"],
+                   "target_dispatches_per_token": per_token,
+                   "plain_target_dispatches_per_token": plain_per_token,
+                   "draft_logits_host_copy_ms": copy_ms}
+            _busy_idle(cap, reports)
+            caps["gpt2_serving_speculative_" + tag] = _capture_line(
+                "GPT-2 small speculative serving, " + label, cap)
+            exe.close()
+            del eng
+            torch.cuda.empty_cache()
+    return totals, caps
+
+
+def serve_gpt2_small_prefix(dev, scope):
+    """The prefix cache at GPT-2 small's widths over the serving path's
+    weights: make_prefix_trace(24, rate 0.5, 2 templates of PREFIX_LEN
+    tokens, tails of 2-6, outputs of 16-64, reuse 0.9, half sampled,
+    seed 0; bench.py:1072's shape at t_max 1024) through three engines
+    with prefix_rows PREFIX_ROWS and prefix_chunk WIDTH: cold (nothing
+    registered), registered (both templates stored by register_prefix),
+    and registered with draft "self" (spec_k SPEC_K; both banks).  Each
+    serves the trace's first 3 requests twice first (every program,
+    the load program included, makes its captures), then the trace with
+    the launch counts reset just before and read just after.  Checks:
+    every request OK with its full budget; the registered leg's streams
+    equal the cold leg's bit for bit, and so do the speculative leg's
+    greedy streams (its sampled ones take the keyed speculative rule:
+    a greedy and a sampled request equal their run_solo); the launches
+    are the programs' (the row copies launch none); no capture across
+    the trace.  Prints each leg's prefill chunks, tokens/s, prefix hit
+    rate and tokens reused, the load program's p50 and kv_pool_bytes().
+    Returns the launch totals."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import gpt2
+    from paddle_tpu_torch.serving import ServingEngine, make_prefix_trace
+
+    hp = gpt2.GPT2Config
+    trace, templates = make_prefix_trace(
+        24, rate=0.5, n_prefixes=2, prefix_len=PREFIX_LEN,
+        tail_len_range=(2, 6), out_len_range=(16, 64),
+        vocab_size=hp.vocab_size, reuse_fraction=0.9, sampled_fraction=0.5,
+        seed=0)
+    totals = {fn.__name__: 0 for fn in kernels.KERNELS}
+    legs = {}
+    for leg, register, draft in (("cold", False, None),
+                                 ("registered", True, None),
+                                 ("registered, self draft", True, "self")):
+        with ptt.scope_guard(scope):
+            exe = ptt.Executor(ptt.CUDAPlace(0))
+            eng = ServingEngine(exe, hp, n_slots=N_SLOTS, width=WIDTH,
+                                t_max=T_MAX, draft=draft,
+                                spec_k=SPEC_K if draft else None,
+                                prefix_rows=PREFIX_ROWS, prefix_chunk=WIDTH)
+            rows = [eng.register_prefix(t) for t in templates if register]
+            assert None not in rows and len(set(rows)) == len(rows), rows
+            for _ in range(2):
+                _, warm = eng.run(trace[:3])
+            assert warm["prefix_hits"] >= register, warm
+            loads = [b.load_prog for b in eng.prefix.banks]
+            log = _RunLog(exe, timed=loads[:1])
+            kernels.reset_launch_counts()
+            results, stats = eng.run(trace)
+            launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+            compiles = log.close()
+            _spec_launch_check("prefix " + leg, launches, eng, stats)
+            for name, n in launches.items():
+                totals[name] += n
+            for r in trace:
+                res = results[r.rid]
+                assert res["status"] == "OK", (leg, r.rid, res["status"])
+                assert res["tokens"].size == r.max_new_tokens, (leg, r.rid)
+            solo = []
+            if draft:
+                for r in (next(r for r in trace if r.greedy),
+                          next(r for r in trace if not r.greedy)):
+                    toks, _ = eng.run_solo(r)
+                    assert np.array_equal(toks, results[r.rid]["tokens"]), (
+                        "pooled != solo", leg, r.rid)
+                    solo.append(r.rid)
+            legs[leg] = dict(
+                results=results, stats=stats, compiles=compiles, solo=solo,
+                load_ms=_p50_ms(log.times) if log.times else None,
+                kv=eng.kv_pool_bytes())
+            exe.close()
+            del eng
+            torch.cuda.empty_cache()
+    cold = legs["cold"]["results"]
+    for leg, got in legs.items():
+        for r in trace:
+            if leg == "registered" or (leg != "cold" and r.greedy):
+                assert np.array_equal(got["results"][r.rid]["tokens"],
+                                      cold[r.rid]["tokens"]), (
+                    "prefix hit != cold", leg, r.rid)
+        st = got["stats"]
+        print("served GPT-2 small with the prefix cache, %s: %d requests, "
+              "%d prefill chunks (cold %d), %d steps, %.1f tokens/s, step "
+              "p50 %.3f ms; prefix hit rate %.4f, %d hits, %d tokens "
+              "reused; load program p50 %s ms; acceptance %.4f; no capture "
+              "across the trace (compile_count %d)%s; kv_pool_bytes %s" % (
+                  leg, len(trace), st["prefill_chunks"],
+                  legs["cold"]["stats"]["prefill_chunks"], st["steps"],
+                  st["tokens_per_s"], st["step_s_p50"] * 1e3,
+                  st["prefix_hit_rate"], st["prefix_hits"],
+                  st["prefix_tokens_reused"],
+                  "%.3f" % got["load_ms"] if got["load_ms"] else "(no load)",
+                  st["accept_rate"], got["compiles"],
+                  "; pooled == solo for rids %s" % got["solo"]
+                  if got["solo"] else "", json.dumps(got["kv"])))
+    print("prefix cache: the registered leg's %d streams == the cold leg's "
+          "bit for bit, the speculative leg's %d greedy streams too" % (
+              len(trace), sum(r.greedy for r in trace)))
+    return totals
+
+
+def spec_prefix_card_matches_cpu(dev):
+    """narrow_gpt2_config() served on the card and on the CPU plain path
+    from the same weights through a speculative engine (a one-block draft
+    in its own scope, spec_k 3) with a prefix cache (2 rows, chunk 4;
+    both seeded templates registered): a 6-request prefix trace, half
+    sampled.  Every target and draft dispatch's logits within 1e-5 of
+    the CPU's (relative to their largest magnitude), the token streams
+    equal, and the card's run launched each serving kernel."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import gpt2
+    from paddle_tpu_torch.serving import ServingEngine, make_prefix_trace
+
+    Narrow = narrow_gpt2_config()
+
+    class NarrowDraft(Narrow):
+        n_layer = 1
+
+    trace, templates = make_prefix_trace(
+        6, rate=0.7, n_prefixes=2, prefix_len=12, tail_len_range=(1, 3),
+        out_len_range=(3, 8), vocab_size=Narrow.vocab_size, seed=3,
+        reuse_fraction=0.9)
+    logits, results, stats = {}, {}, {}
+    for kind in ("cpu", "cuda"):
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+            exe = ptt.Executor(place)
+            _, startup, _, _ = gpt2.gpt2_logits_program(Narrow, seq_len=48)
+            if kind == "cpu":
+                startup.random_seed = 5
+                exe.run(startup)
+                weights = {n: scope.find_var(n).clone()
+                           for n in scope.local_var_names()}
+            else:
+                for n, w in weights.items():
+                    scope.set(n, w.to(dev))
+            eng = ServingEngine(
+                exe, Narrow, n_slots=3, width=4, t_max=48,
+                draft=(NarrowDraft, _draft_scope(NarrowDraft, scope)),
+                spec_k=3, prefix_rows=2, prefix_chunk=4)
+            seen = logits[kind] = []
+            run = exe.run
+
+            def recording(program=None, feed=None, fetch_list=None, **kw):
+                out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+                if program is eng.step_main or program is eng.draft_main:
+                    seen.append(out[0])
+                return out
+
+            exe.run = recording
+            for t in templates:
+                eng.register_prefix(t)
+            kernels.reset_launch_counts()
+            results[kind], stats[kind] = eng.run(trace)
+    launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    assert all(launched[n] for n in SERVING_KERNELS), (
+        "a kernel did not launch", launched)
+    assert len(logits["cpu"]) == len(logits["cuda"]) > 0
+    err = 0.0
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        assert b.shape == a.shape and np.isfinite(b).all()
+        err = max(err, _rel_err(b, a))
+    assert err <= 1e-5, ("card != CPU speculative prefix logits", err)
+    for r in trace:
+        assert np.array_equal(results["cuda"][r.rid]["tokens"],
+                              results["cpu"][r.rid]["tokens"]), r.rid
+    st = stats["cuda"]
+    for key in ("spec_rounds", "spec_accepted", "prefix_hits", "draft_steps"):
+        assert st[key] == stats["cpu"][key], key
+    print("%s served speculatively (a one-block draft) with the prefix "
+          "cache on the card vs the CPU plain path: %d target and draft "
+          "dispatches' logits within %.3g relative, %d streams equal; %d "
+          "prefix hits, %d rounds, acceptance %.4f; launches %s" % (
+              Narrow.__name__, len(logits["cpu"]), err, len(trace),
+              st["prefix_hits"], st["spec_rounds"], st["accept_rate"],
+              json.dumps(launched)))
 
 
 def _expected_train_launches(main):
@@ -3799,6 +4324,103 @@ def decode_card_matches_cpu(dev, Narrow, must_launch):
                            json.dumps(launched)))
 
 
+def decode_gpt2_small_speculative(dev, scope):
+    """The solo speculative loops at GPT-2 small's widths over the serving
+    path's weights (`scope`): batch SPEC_BATCH, a seeded SPEC_PROMPT-token
+    prompt, SPEC_NEW new tokens, spec_k SPEC_K (the verify on
+    gpt2_decode_step_program at width SPEC_K: B9 at Tq SPEC_K), against
+    the six-block draft and a copy of the whole model, each in its own
+    scope (their one-token steps on B3d).  speculative_generate_cached's
+    tokens equal greedy_generate_cached's (prefilled through the same wide
+    program) except where a near tie decides differently: a row may
+    differ first only at a position whose top-2 margin in the plain
+    loop's logits is under 1e-4 (the verify's B9 and the plain loop's B3d
+    sum in other orders); speculative_sample_generate_cached (temperature
+    0.8, top-k 32, seed 7) twice, bit for bit.  Every run's launches are
+    its program's (_DecodeRuns).  Prints tokens/s against the plain
+    greedy loop, the acceptance rate and the rounds.  Returns the phase's
+    launch totals."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt2
+
+    hp = gpt2.GPT2Config
+    prompts = np.random.RandomState(1238).randint(
+        1, hp.vocab_size, (SPEC_BATCH, SPEC_PROMPT)).astype("int64")
+    with ptt.scope_guard(scope):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        runs = _DecodeRuns(exe)
+        step, start, _, fetch, _ = gpt2.gpt2_decode_step_program(
+            hp, batch=SPEC_BATCH, t_max=T_MAX)
+        wide, _, _, wide_fetch, _ = gpt2.gpt2_decode_step_program(
+            hp, batch=SPEC_BATCH, t_max=T_MAX, width=SPEC_K)
+        runs.keep[id(step)] = lambda lg, k: lg
+        runs.keep[id(wide)] = lambda lg, k: lg[:, SPEC_PROMPT - 1 - (
+            _last_chunk_start(SPEC_PROMPT, SPEC_K, T_MAX))]
+        t0 = time.perf_counter()
+        plain = gpt2.greedy_generate_cached(
+            exe, step, start, fetch, prompts, SPEC_NEW,
+            prefill=(wide, wide_fetch, SPEC_K, T_MAX))
+        plain_s = time.perf_counter() - t0
+        # the plain loop's logits for each new token: the prefill's last
+        # column, then the one-token steps'
+        n_chunks = -(-SPEC_PROMPT // SPEC_K)
+        plain_logits = ([runs.kept[id(wide)][n_chunks - 1]]
+                        + runs.kept[id(step)][-(SPEC_NEW - 1):])
+        top2 = np.sort(np.stack(plain_logits, axis=1), axis=-1)[..., -2:]
+        margins = top2[..., 1] - top2[..., 0]  # [batch, new]
+        del runs.keep[id(step)], runs.keep[id(wide)]
+        for tag, draft_hp in (("six-block draft", six_block_draft(scope)[0]),
+                              ("self copy", hp)):
+            dscope = _draft_scope(draft_hp, scope)
+            dstep, dstart, _, dfetch, _ = gpt2.gpt2_decode_step_program(
+                draft_hp, batch=SPEC_BATCH, t_max=T_MAX)
+            args = (exe, step, start, fetch, wide, wide_fetch, SPEC_K, dstep,
+                    dstart, dfetch, prompts, SPEC_NEW)
+            t0 = time.perf_counter()
+            tokens, stats = gpt2.speculative_generate_cached(
+                *args, draft_scope=dscope)
+            spec_s = time.perf_counter() - t0
+            assert tokens.shape == plain.shape
+            np.testing.assert_array_equal(tokens[:, :SPEC_PROMPT], prompts)
+            differ = []
+            for b in range(SPEC_BATCH):
+                bad = np.nonzero(tokens[b, SPEC_PROMPT:]
+                                 != plain[b, SPEC_PROMPT:])[0]
+                if bad.size:
+                    i = int(bad[0])
+                    assert margins[b, i] < 1e-4, (
+                        "speculative greedy != greedy", tag, b, i,
+                        float(margins[b, i]))
+                    differ.append((b, i, float(margins[b, i])))
+            sampled = [gpt2.speculative_sample_generate_cached(
+                *args, temperature=0.8, top_k=32, seed=7,
+                draft_scope=dscope) for _ in range(2)]
+            np.testing.assert_array_equal(sampled[0][0], sampled[1][0])
+            assert sampled[0][1] == sampled[1][1], (sampled[0][1],
+                                                     sampled[1][1])
+            assert ((sampled[0][0] >= 0)
+                    & (sampled[0][0] < hp.vocab_size)).all()
+            n_tok = SPEC_BATCH * SPEC_NEW
+            print("GPT-2 small speculative decode, %s (batch %d, prompt %d, "
+                  "%d new, spec_k %d): greedy %.1f tokens/s against the plain "
+                  "greedy loop's %.1f; acceptance %.4f over %d rounds; rows "
+                  "that differ from the plain loop (row, first new token, "
+                  "its top-2 margin) %s (the plain loop's smallest margin "
+                  "%.3g); sampled (T 0.8, top-k 32, seed 7) twice bit for "
+                  "bit, acceptance %.4f over %d rounds" % (
+                      tag, SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_K,
+                      n_tok / spec_s, n_tok / plain_s, stats["accept_rate"],
+                      stats["rounds"], differ, float(margins.min()),
+                      sampled[0][1]["accept_rate"],
+                      sampled[0][1]["rounds"]))
+        exe.close()
+    print("GPT-2 small speculative decode: every run's launches its "
+          "program's; %s" % json.dumps(runs.totals))
+    return runs.totals
+
+
 def check_recurrent(dev, randn, g):
     """fused_lstm (B11) and fused_gru (B10) against their plain versions
     on the card at every shape the recurrent paths give them: the LSTM
@@ -4613,12 +5235,26 @@ def main():
     profile_dir = (os.path.join(ROOT, "chiprun_out")
                    if "--profile" in sys.argv[1:] else None)
     caps = {}  # each path's eager and captured numbers
-    served, eng, scope, caps["serving"] = serve_gpt2_small(dev, profile_dir)
+    served, eng, scope, caps["serving"], plain = serve_gpt2_small(
+        dev, profile_dir)
     eng.exe.close()
-    del eng, scope
+    del eng
     for n_slots in (3, 1):  # a one-slot pool has a one-row QStart
         card_matches_cpu(dev, n_slots, narrow_gpt2_config(), SERVING_KERNELS)
     lap("gpt2 serving")
+    # speculation, the prefix cache and the solo speculative loops over the
+    # serving path's weights
+    served_spec, spec_caps = serve_gpt2_small_speculative(dev, scope, plain,
+                                                          profile_dir)
+    caps.update(spec_caps)
+    lap("gpt2 serving, speculative")
+    served_prefix = serve_gpt2_small_prefix(dev, scope)
+    lap("gpt2 serving, prefix cache")
+    decoded_spec = decode_gpt2_small_speculative(dev, scope)
+    lap("gpt2 speculative decode")
+    del scope, plain
+    spec_prefix_card_matches_cpu(dev)
+    lap("narrow speculative prefix serving, card vs CPU")
     torch.cuda.empty_cache()
     trained, caps["wmt_training"] = train_transformer_base(dev, profile_dir)
     train_card_matches_cpu(dev)
@@ -4628,7 +5264,7 @@ def main():
     gpt2_train_card_matches_cpu(dev)
     lap("gpt2 training")
     torch.cuda.empty_cache()
-    served_llama, eng, scope, caps["llama_serving"] = serve_tinyllama(
+    served_llama, eng, scope, caps["llama_serving"], _ = serve_tinyllama(
         dev, profile_dir)
     eng.exe.close()
     del eng, scope
@@ -4697,7 +5333,7 @@ def main():
     torch.cuda.empty_cache()
     resnet_card_matches_cpu(dev)
     lap("narrow resnet, card vs CPU")
-    assert sum(c["captured"] for c in caps.values()) == 16, caps
+    assert sum(c["captured"] for c in caps.values()) == 18, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
             "the captured step is not faster than the eager one", path,
@@ -4708,7 +5344,11 @@ def main():
     # just after
     kernels = []
     for name, r in rec.items():
-        by_path = {"serving": served[name], "wmt_training": trained[name],
+        by_path = {"serving": served[name],
+                   "serving_speculative": served_spec[name],
+                   "serving_prefix": served_prefix[name],
+                   "gpt2_decode_speculative": decoded_spec[name],
+                   "wmt_training": trained[name],
                    "gpt2_training": trained_gpt2[name],
                    "llama_serving": served_llama[name],
                    "llama_training": trained_llama[name],

@@ -2,21 +2,26 @@
 counterpart of ``paddle_tpu/models/decode_cache.py``): per-layer cache
 variables, the zeroing program, the per-slot reset and beam reorder
 programs, capacity probes, the prologue checks and chunk loop of the
-cached generation loops, and the host-side numpy samplers.  The
-samplers are copied from the reference unchanged: they are plain numpy,
-and keeping them bit-identical is what lets a request sample the same
-tokens through either package from the same logits."""
+cached generation loops, the prefix cache's row-copy program, and the
+host-side numpy samplers with the speculative resolver's keyed rule.
+The samplers and the resolver are copied from the reference unchanged:
+they are plain numpy, and keeping them bit-identical is what lets a
+request sample the same tokens through either package from the same
+logits."""
 
 import numpy as np
 
 from .. import framework, layers
 
 __all__ = ["create_kv_caches", "add_cache_zero_fills",
-           "make_slot_reset_program", "probe_cache_len", "probe_cache_dtype",
+           "make_slot_reset_program", "make_row_copy_program",
+           "probe_cache_len", "probe_cache_dtype",
            "make_cache_reorder_program", "validate_cached_call",
            "run_chunked_ids", "filtered_probs", "sample_rows",
            "sample_from_logits", "fold_in_seed", "sample_rows_keyed",
-           "filtered_probs_rows"]
+           "filtered_probs_rows", "greedy_accept_len", "residual_probs",
+           "spec_key", "spec_propose_keyed", "spec_accept_keyed",
+           "spec_token_keyed"]
 
 
 def create_kv_caches(block, prefix, n_layer, batch, n_head, t_max, dh,
@@ -63,15 +68,58 @@ def make_slot_reset_program(named_shapes, batch, dtype="float32"):
             cname, shape = entry[0], entry[1]
             vdtype = entry[2] if len(entry) > 2 else dtype
             assert int(shape[0]) == batch, (cname, shape, batch)
-            if str(vdtype) != "float32":
-                raise NotImplementedError(
-                    "only float32 KV caches are ported (the kernels take "
-                    "float32; bf16 forms are on ROADMAP)")
+            _check_f32_cache(vdtype)
             cvar = blk.create_var(name=cname, shape=list(shape), dtype=vdtype,
                                   persistable=True)
             masked = layers.elementwise_mul(cvar, keep, axis=0)
             blk.append_op("assign", inputs={"X": [masked]},
                           outputs={"Out": [cvar]})
+    return prog
+
+
+def _check_f32_cache(dtype):
+    if str(dtype) != "float32":
+        raise NotImplementedError(
+            "only float32 KV caches are ported (the kernels take float32; "
+            "the bf16 forms are ROADMAP A3)")
+
+
+def make_row_copy_program(named_pairs, n_dst, dtype="float32"):
+    """make_slot_reset_program generalized to row copies between two
+    pools (the prefix cache's load and store): for every (src_name,
+    src_shape, dst_name, dst_shape) pair, gather `n_dst` rows of the
+    [R, ...] src persistable by the fed `copy_src_rows` ids and lerp
+    them into the [n_dst, ...] dst persistable under the fed
+    `copy_take` / `copy_keep` [n_dst] row masks (callers pass keep =
+    1 - take; take=0 rows keep dst).  One program covers every row
+    assignment: the ids and masks are feeds.  A pair may append its own
+    dtype; only float32 is ported (ROADMAP A3)."""
+    prog = framework.Program()
+    with framework.program_guard(prog, framework.Program()):
+        rows = layers.data("copy_src_rows", shape=[n_dst], dtype="int64",
+                           append_batch_size=False)
+        take = layers.data("copy_take", shape=[n_dst], dtype="float32",
+                           append_batch_size=False)
+        keep = layers.data("copy_keep", shape=[n_dst], dtype="float32",
+                           append_batch_size=False)
+        blk = prog.global_block()
+        for entry in named_pairs:
+            src_name, src_shape, dst_name, dst_shape = entry[:4]
+            vdtype = entry[4] if len(entry) > 4 else dtype
+            assert int(dst_shape[0]) == n_dst, (dst_name, dst_shape, n_dst)
+            assert list(src_shape[1:]) == list(dst_shape[1:]), (
+                src_name, src_shape, dst_name, dst_shape)
+            _check_f32_cache(vdtype)
+            src = blk.create_var(name=src_name, shape=list(src_shape),
+                                 dtype=vdtype, persistable=True)
+            dst = blk.create_var(name=dst_name, shape=list(dst_shape),
+                                 dtype=vdtype, persistable=True)
+            g = layers.gather(src, rows)
+            mixed = layers.elementwise_add(
+                layers.elementwise_mul(g, take, axis=0),
+                layers.elementwise_mul(dst, keep, axis=0))
+            blk.append_op("assign", inputs={"X": [mixed]},
+                          outputs={"Out": [dst]})
     return prog
 
 
@@ -259,3 +307,80 @@ def filtered_probs_rows(logits, temperatures, top_ks, top_ps):
         sub /= sub.sum(-1, keepdims=True)
         probs[pr] = sub
     return probs
+
+
+# ---------------------------------------------------------------------------
+# the speculative resolver's rule (solo loops and the serving engine),
+# copied from the reference unchanged
+# ---------------------------------------------------------------------------
+# The keyed accept rule is the pooled twin of solo rejection sampling:
+# every sub-draw (draft proposal, accept uniform, residual pick) is keyed
+# by (request seed, stream tag, global token index), so the token emitted
+# at index t is a pure function of (seed, t, token prefix), whatever the
+# round boundaries, the batch neighbours or the admission order.  A fully
+# accepted sampled round emits no bonus token (the bonus has no draft
+# proposal, so it would leak round structure into the stream).  Greedy
+# keeps its bonus: argmax is already prefix-pure.
+
+_SPEC_TAG_DRAFT = 0x5D01
+_SPEC_TAG_ACCEPT = 0x5D02
+_SPEC_TAG_RESID = 0x5D03
+
+
+def greedy_accept_len(tgt_next, drafts):
+    """Longest prefix j such that every batch row's draft token equals
+    the target argmax at every position < j.  tgt_next [B, K] int64,
+    drafts: list of [B] arrays (may be shorter than K)."""
+    j = 0
+    while j < len(drafts) and bool((drafts[j] == tgt_next[:, j]).all()):
+        j += 1
+    return j
+
+
+def residual_probs(pt, pd):
+    """The rejection-sampling residual normalize(max(pt - pd, 0)) per
+    row ([..., V] in, same shape out); degenerate rows (pt <= pd
+    everywhere, residual mass ~0) fall back to pt."""
+    resid = np.maximum(np.asarray(pt, np.float64)
+                       - np.asarray(pd, np.float64), 0.0)
+    rs = resid.sum(-1, keepdims=True)
+    return np.where(rs > 1e-12, resid / np.maximum(rs, 1e-12), pt)
+
+
+def spec_key(seed, tag, step):
+    """Key of one speculative sub-draw at global token index `step`: a
+    fold_in_seed stream per tag, so the three draws at one index are
+    independent and none collides with the plain sampler's
+    fold_in_seed(seed, step)."""
+    return fold_in_seed(fold_in_seed(seed, tag), step)
+
+
+def spec_propose_keyed(pd_row, seed, step):
+    """The draft proposal at global token index `step`: one categorical
+    draw from the filtered draft row, keyed."""
+    rng = np.random.RandomState(spec_key(seed, _SPEC_TAG_DRAFT, step))
+    return int(rng.choice(pd_row.shape[-1], p=pd_row))
+
+
+def spec_accept_keyed(d, pt_row, pd_row, seed, step):
+    """Resolve proposal `d` at global token index `step` against the
+    filtered target row: accept with probability min(1, pt[d]/pd[d]),
+    else draw the residual.  Returns (token, accepted); the token's
+    distribution is exactly the target row's."""
+    u = np.random.RandomState(
+        spec_key(seed, _SPEC_TAG_ACCEPT, step)).rand()
+    ratio = float(pt_row[d]) / max(float(pd_row[d]), 1e-12)
+    if u <= ratio:
+        return int(d), True
+    resid = residual_probs(pt_row[None, :], pd_row[None, :])[0]
+    rng = np.random.RandomState(spec_key(seed, _SPEC_TAG_RESID, step))
+    return int(rng.choice(resid.shape[-1], p=resid)), False
+
+
+def spec_token_keyed(pt_row, pd_row, seed, step):
+    """Propose and resolve in one call: the per-index rule where no round
+    is running (the first token after prefill, a capacity-tail step).
+    The same composition as a round's propose-then-accept, so a stream
+    never forks on the path that emitted a token."""
+    d = spec_propose_keyed(pd_row, seed, step)
+    return spec_accept_keyed(d, pt_row, pd_row, seed, step)

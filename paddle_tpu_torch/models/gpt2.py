@@ -5,8 +5,10 @@ fuse passes, backward, Adam), ``make_fake_lm_batch``,
 ``gpt2_logits_program`` (its startup initializes the weights),
 ``gpt2_decode_step_program`` (the KV-cached decode step, one token or a
 chunk at a scalar position) with the generation loops over it (chunked
-prefill, greedy, sampled and beam), ``greedy_generate`` and
-``beam_generate`` on the logits program, and
+prefill, greedy, sampled and beam) and the speculative loops
+(``speculative_generate_cached``, ``speculative_sample_generate_cached``:
+a draft proposes, one wide target dispatch verifies),
+``greedy_generate`` and ``beam_generate`` on the logits program, and
 ``gpt2_ragged_step_program`` (the serving engine's step).  Built under
 ``unique_name.guard()`` as in the reference, so the parameter names are
 the reference's and weights cross between the packages by name
@@ -33,7 +35,9 @@ __all__ = ["GPT2Config", "gpt2_lm", "gpt2_lm_program", "make_fake_lm_batch",
            "gpt2_logits_program", "gpt2_decode_step_program",
            "gpt2_ragged_step_program", "prefill_cached_chunked",
            "greedy_generate_cached", "sample_generate_cached",
-           "beam_generate_cached", "greedy_generate", "beam_generate"]
+           "beam_generate_cached", "speculative_generate_cached",
+           "speculative_sample_generate_cached", "greedy_generate",
+           "beam_generate"]
 
 
 class GPT2Config:
@@ -378,6 +382,231 @@ def _prefill_cached(exe, step_main, fetches, ids):
             feed={"step_ids": ids[:, t:t + 1], "pos": np.array([t], "int64")},
             fetch_list=fetches)
     return logits
+
+
+def _speculative_core(
+        exe, tgt_step_main, tgt_cache_startup, tgt_step_fetch,
+        tgt_wide_main, tgt_wide_fetch, spec_k,
+        draft_step_main, draft_cache_startup, draft_step_fetch,
+        prompt_ids, max_new_tokens, draft_scope,
+        target_pick, draft_pick, resolve_round):
+    """The speculative round, shared by the greedy and the sampling
+    loops, which plug in their token rules:
+
+    - target_pick(logits [B, V]) -> [B] token (prefill, capacity tail)
+    - draft_pick(logits [B, V]) -> ([B] token, aux); aux goes to the
+      resolver (the sampling loop's filtered draft probabilities)
+    - resolve_round(wl [B, spec_k, V], drafts, aux) -> (accepted token
+      list, cur [B], j): wl row i is the target's distribution at
+      position pos+i+1 given chunk[:, :i+1]; j tokens were accepted and
+      `cur` goes to position pos+j+1
+
+    A round: the draft proposes k = spec_k-1 tokens one step at a time,
+    one width-spec_k target dispatch scores the anchor and the drafts,
+    the resolver keeps the longest valid prefix.  Rejected tokens' K/V
+    lie beyond the accepted position, masked until overwritten.  Near the
+    cache's end the tail takes one-token target steps (a fixed-width
+    verify write would clamp onto valid slots)."""
+    from ..core.scope import global_scope
+    from .decode_cache import (probe_cache_dtype, probe_cache_len,
+                               validate_cached_call)
+
+    prompt_ids = np.asarray(prompt_ids, "int64")
+    b, p = prompt_ids.shape
+    spec_k = int(spec_k)
+    if spec_k < 2:
+        raise ValueError(
+            "speculative decoding needs spec_k >= 2 (the wide verify "
+            "program needs width > 1; spec_k == 1 is just the plain "
+            "cached generator)")
+    validate_cached_call(tgt_step_main, "gpt2", "step_ids", b, p,
+                         max_new_tokens)
+    t_max = probe_cache_len(tgt_wide_main, "gpt2")
+    step_t_max = probe_cache_len(tgt_step_main, "gpt2")
+    if t_max != step_t_max:
+        raise ValueError(
+            "speculative decode: wide program cache length %d != step "
+            "program's %d — both must address the same cache"
+            % (t_max, step_t_max))
+    wd = probe_cache_dtype(tgt_wide_main, "gpt2")
+    sd = probe_cache_dtype(tgt_step_main, "gpt2")
+    if wd != sd:
+        raise ValueError(
+            "speculative decode: wide program cache dtype %s != step "
+            "program's %s — build both with the same cache_dtype"
+            % (wd, sd))
+    draft_scope = draft_scope if draft_scope is not None else global_scope()
+
+    def run_draft(main, feed, fetches):
+        return exe.run(main, feed=feed, fetch_list=fetches,
+                       scope=draft_scope)
+
+    # prefill both caches with the prompt; the target's through its wide
+    # program
+    exe.run(tgt_cache_startup)
+    run_draft(draft_cache_startup, {}, [])
+    tgt_logits = prefill_cached_chunked(
+        exe, tgt_wide_main, tgt_wide_fetch, prompt_ids, spec_k, t_max)
+    for t in range(p):
+        run_draft(draft_step_main,
+                  feed={"step_ids": prompt_ids[:, t:t + 1],
+                        "pos": np.array([t], "int64")},
+                  fetches=draft_step_fetch)
+
+    out = [prompt_ids[:, i] for i in range(p)]
+    # the batch's rows advance in lockstep on the slowest row's
+    # acceptance; every row's tokens stay valid under its own rule
+    cur = target_pick(tgt_logits)  # token at position p
+    pos = p
+    proposals = accepted_total = rounds = 0
+    while pos < p + max_new_tokens:
+        out.append(cur)
+        if pos + 1 >= p + max_new_tokens:
+            break
+        if pos + spec_k > t_max:
+            # capacity tail: one-token target steps
+            (tl,) = exe.run(
+                tgt_step_main,
+                feed={"step_ids": cur[:, None],
+                      "pos": np.array([pos], "int64")},
+                fetch_list=tgt_step_fetch)
+            cur = target_pick(tl)
+            pos += 1
+            continue
+        k = min(spec_k - 1, p + max_new_tokens - pos - 2)
+        drafts, aux = [], []
+        (dl,) = run_draft(
+            draft_step_main,
+            feed={"step_ids": cur[:, None], "pos": np.array([pos], "int64")},
+            fetches=draft_step_fetch)
+        for i in range(k):
+            tok, a = draft_pick(dl)
+            drafts.append(tok)
+            aux.append(a)
+            (dl,) = run_draft(
+                draft_step_main,
+                feed={"step_ids": tok[:, None],
+                      "pos": np.array([pos + 1 + i], "int64")},
+                fetches=draft_step_fetch)
+        # one target dispatch scores cur and the k drafts: row i is the
+        # target's distribution at position pos+i+1
+        chunk = np.stack([cur] + drafts, axis=1)
+        if chunk.shape[1] < spec_k:
+            chunk = np.pad(chunk, ((0, 0), (0, spec_k - chunk.shape[1])))
+        (wl,) = exe.run(
+            tgt_wide_main,
+            feed={"step_ids": chunk,
+                  "pos": np.array([pos], "int64"),
+                  "pos_vec": np.minimum(
+                      np.arange(pos, pos + spec_k, dtype="int64"),
+                      t_max - 1)},
+            fetch_list=tgt_wide_fetch)
+        rounds += 1
+        proposals += k
+        acc, cur, j = resolve_round(np.asarray(wl), drafts, aux)
+        out.extend(acc)
+        accepted_total += j
+        pos = pos + 1 + j
+    tokens = np.stack(out, axis=1)[:, :p + max_new_tokens]
+    stats = {
+        "rounds": rounds,
+        "proposed": proposals,
+        "accepted": accepted_total,
+        "accept_rate": (accepted_total / proposals) if proposals else 1.0,
+    }
+    return tokens, stats
+
+
+def speculative_generate_cached(
+        exe, tgt_step_main, tgt_cache_startup, tgt_step_fetch,
+        tgt_wide_main, tgt_wide_fetch, spec_k,
+        draft_step_main, draft_cache_startup, draft_step_fetch,
+        prompt_ids, max_new_tokens, draft_scope=None):
+    """Speculative greedy decoding: the resolver keeps the longest prefix
+    where every batch row's draft equals the target's argmax, then takes
+    the target's bonus or correction token.  The tokens are the target's
+    own greedy_generate_cached sequence for any draft; the draft changes
+    only how many target dispatches it takes.  draft_scope: the draft
+    model's own Scope (its weights and caches); the current scope by
+    default (a self-draft).  Returns (tokens [B, P+new], stats dict)."""
+    from .decode_cache import greedy_accept_len
+
+    def target_pick(logits):
+        return np.asarray(logits).argmax(-1).astype("int64")
+
+    def draft_pick(logits):
+        return np.asarray(logits).argmax(-1).astype("int64"), None
+
+    def resolve(wl, drafts, aux):
+        tgt_next = wl.argmax(-1).astype("int64")  # [B, spec_k]
+        j = greedy_accept_len(tgt_next, drafts)
+        # bonus (all accepted) or correction (first mismatch)
+        return list(drafts[:j]), tgt_next[:, j], j
+
+    return _speculative_core(
+        exe, tgt_step_main, tgt_cache_startup, tgt_step_fetch,
+        tgt_wide_main, tgt_wide_fetch, spec_k,
+        draft_step_main, draft_cache_startup, draft_step_fetch,
+        prompt_ids, max_new_tokens, draft_scope,
+        target_pick, draft_pick, resolve)
+
+
+def speculative_sample_generate_cached(
+        exe, tgt_step_main, tgt_cache_startup, tgt_step_fetch,
+        tgt_wide_main, tgt_wide_fetch, spec_k,
+        draft_step_main, draft_cache_startup, draft_step_fetch,
+        prompt_ids, max_new_tokens, temperature=1.0, top_k=0, top_p=1.0,
+        seed=None, draft_scope=None):
+    """Speculative sampling (rejection sampling): the draft proposes
+    d ~ p_d, accepted with probability min(1, p_t(d)/p_d(d)); a rejected
+    token is drawn again from normalize(max(p_t - p_d, 0)).  The tokens
+    follow the target's filtered sampling distribution (the same
+    temperature / top_k / top_p on both models' logits) for any draft.
+    A round stops at the first index where any batch row rejects; there
+    accepted rows keep their draft token and rejected rows draw the
+    residual.  Returns (tokens [B, P+new], stats dict)."""
+    from .decode_cache import filtered_probs, residual_probs, sample_rows
+
+    rng = np.random.RandomState(seed)
+    b = np.asarray(prompt_ids).shape[0]
+
+    def probs(logits):
+        return filtered_probs(logits, temperature, top_k, top_p)
+
+    def target_pick(logits):
+        return sample_rows(probs(logits), rng)
+
+    def draft_pick(logits):
+        pd = probs(logits)
+        return sample_rows(pd, rng), pd
+
+    def resolve(wl, drafts, aux):
+        j, acc = 0, []
+        while j < len(drafts):
+            pt = probs(wl[:, j])
+            pd = aux[j]
+            d = drafts[j]
+            ratio = (np.take_along_axis(pt, d[:, None], 1).reshape(-1)
+                     / np.maximum(
+                         np.take_along_axis(pd, d[:, None], 1).reshape(-1),
+                         1e-12))
+            reject = rng.rand(b) > ratio
+            if not reject.any():
+                acc.append(d)
+                j += 1
+                continue
+            # stop: rejected rows draw the residual, accepted rows keep d
+            repl = sample_rows(residual_probs(pt, pd), rng)
+            return acc, np.where(reject, repl, d).astype("int64"), j
+        # every draft accepted: the bonus from the target's last row
+        return acc, sample_rows(probs(wl[:, len(drafts)]), rng), j
+
+    return _speculative_core(
+        exe, tgt_step_main, tgt_cache_startup, tgt_step_fetch,
+        tgt_wide_main, tgt_wide_fetch, spec_k,
+        draft_step_main, draft_cache_startup, draft_step_fetch,
+        prompt_ids, max_new_tokens, draft_scope,
+        target_pick, draft_pick, resolve)
 
 
 def _dispatch_prefill(exe, step_main, fetches, ids, prefill):

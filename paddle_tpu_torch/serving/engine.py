@@ -16,6 +16,17 @@ the scheduler
      sample_rows_keyed),
   4. evicts finished slots immediately.
 
+Two options of the reference ride on that loop:
+
+- in-pool speculative decoding (`draft`, `spec_k`): a draft model (the
+  target itself over a second KV pool, draft="self", or a smaller model
+  in its own scope, draft=(draft_hp, draft_scope)) proposes up to
+  spec_k - 1 tokens for each decoding slot through its own ragged step,
+  and the one target dispatch verifies them in the widened rows;
+- the prefix cache (`prefix_rows`, `prefix_chunk`; serving/prefix.py):
+  admission longest-matches a prompt against registered prefixes and
+  copies their KV rows into the slot, so prefill starts at the match.
+
 Exactness contract: every request's emitted tokens are bit-identical
 to its solo run through the same engine (greedy, and sampled given the
 same per-request seed), whatever shares the batch — row-independent
@@ -24,13 +35,16 @@ row alone) plus per-request sampling keys.  Occupancy changes only
 change feed values, never shapes, so the executor builds the step's
 run plan once (Executor.compile_count).
 
+Speculation and the prefix cache keep it: a sampled token at index t
+is one keyed function of (seed, t, prefix) whichever path emitted it
+(decode_cache.spec_token_keyed), and a prefix hit resumes at a chunk
+boundary of the cold schedule.
+
 The constructor takes the reference's parameters in the reference's
 order.  Not ported yet, each raising NotImplementedError when set:
-in-pool speculative decoding (`draft`, `spec_k`), the prefix cache
-(`prefix_rows`, `prefix_chunk`), weight-only int8 (`quantize_int8`) and
-tensor-parallel pools (`mesh`), ROADMAP A5; the pools' sharding
-(`partition_rules`, `mp_axis`), A7; a `cache_dtype` other than
-"float32" (the bf16 kernel forms), A3.
+weight-only int8 (`quantize_int8`) and tensor-parallel pools (`mesh`),
+ROADMAP A5; the pools' sharding (`partition_rules`, `mp_axis`), A7; a
+`cache_dtype` other than "float32" (the bf16 kernel forms), A3.
 """
 
 import time
@@ -38,9 +52,15 @@ import time
 import numpy as np
 
 from ..profiler import RecordEvent
-from .pool import PREFILL
+from .pool import DECODE, PREFILL
 
 __all__ = ["ServingEngine", "serve_one_at_a_time"]
+
+
+def _accept_rate(accepted, proposed):
+    """The solo loops' convention: no proposal (speculation off, a
+    request that only prefilled) reads 1.0."""
+    return (accepted / proposed) if proposed else 1.0
 
 
 class ServingEngine:
@@ -62,12 +82,7 @@ class ServingEngine:
                 (mesh, "mesh (tensor-parallel pools)", "A5"),
                 (partition_rules, "partition_rules (tensor-parallel pools)",
                  "A7"),
-                (mp_axis, "mp_axis (tensor-parallel pools)", "A7"),
-                (draft, "draft (in-pool speculative decoding)", "A5"),
-                (spec_k, "spec_k (in-pool speculative decoding)", "A5"),
-                (prefix_rows, "prefix_rows (prefix-cache KV reuse)", "A5"),
-                (prefix_chunk, "prefix_chunk (prefix-cache KV reuse)",
-                 "A5")):
+                (mp_axis, "mp_axis (tensor-parallel pools)", "A7")):
             if flag:
                 raise NotImplementedError(
                     "ServingEngine: %s is not ported yet (ROADMAP %s)"
@@ -90,6 +105,69 @@ class ServingEngine:
             [(n, (self.n_slots, n_kv, self.t_max, dh))
              for n in self.cache_names],
             self.n_slots)
+        # ---- in-pool speculative decoding ----------------------------
+        # draft="self" runs the target's own ragged step over a second KV
+        # pool in the same scope (cache_prefix renames its persistables);
+        # draft=(draft_hp, draft_scope) a smaller model with its weights
+        # and caches in its own Scope, over the same slot layout.  Either
+        # way the draft program's feeds are the target's, so the pooled
+        # feed drives both and admit / reset / evict cover the draft pool
+        self.draft_hp = None
+        self.draft_scope = None
+        self.spec_k = 0
+        if draft is not None:
+            if isinstance(draft, str):
+                assert draft == "self", draft
+                self.draft_hp, self.draft_scope = hp, None
+                dprefix = "gpt2sd"
+            else:
+                self.draft_hp, self.draft_scope = draft
+                dprefix = "gpt2"
+            self.spec_k = int(spec_k or min(4, self.width))
+            assert 2 <= self.spec_k <= self.width, (
+                "spec_k must be in [2, width]", self.spec_k, self.width)
+            assert self.draft_hp.n_ctx >= self.t_max, (
+                self.draft_hp.n_ctx, self.t_max)
+            (self.draft_main, self.draft_startup, _, self.draft_fetch,
+             self.draft_cache_names) = gpt2.gpt2_ragged_step_program(
+                self.draft_hp, batch=self.n_slots, t_max=self.t_max,
+                width=self.width, cache_prefix=dprefix)
+            dn_kv = (getattr(self.draft_hp, "n_kv_head", None)
+                     or self.draft_hp.n_head)
+            ddh = self.draft_hp.d_model // self.draft_hp.n_head
+            self._draft_slot_shape = (self.n_slots, dn_kv, self.t_max, ddh)
+            self.draft_reset = make_slot_reset_program(
+                [(n, self._draft_slot_shape)
+                 for n in self.draft_cache_names],
+                self.n_slots)
+        # ---- prefix-cache KV reuse -----------------------------------
+        # a pool of rows holding registered prompt prefixes; admission
+        # longest-matches on token ids and the load program copies the
+        # matched KV into the slot, so prefill starts at the boundary.
+        # The chunk is a multiple of the width, so a resumed prefill
+        # replays the cold chunk schedule.  A speculative engine mirrors
+        # every row in a draft bank: the draft's distribution must resume
+        # exactly too, or sampled accept / reject draws fork a hit's
+        # stream from the cold one
+        self.prefix = None
+        self.prefix_chunk = 0
+        if prefix_rows:
+            from .prefix import PrefixCache
+
+            chunk = int(prefix_chunk or self.width)
+            assert chunk % self.width == 0, (chunk, self.width)
+            self.prefix = PrefixCache(int(prefix_rows), chunk)
+            self.prefix_chunk = chunk
+            self.prefix.add_bank(
+                self.cache_names, (self.n_slots, n_kv, self.t_max, dh),
+                cache_dtype, tag="target")
+            if self.spec_k:
+                self.prefix.add_bank(
+                    self.draft_cache_names, self._draft_slot_shape,
+                    cache_dtype, tag="draft", scope=self.draft_scope)
+            # zero the prefix pools once: registered rows outlive a
+            # serving episode (run() zeroes only the slot pools)
+            self.prefix.startup(self.exe)
         self.pool = SlotPool(self.n_slots, self.width, self.t_max)
         self.queue = []  # submitted, not yet admitted (arrival order)
         # admission control: an arrival that finds `queue_depth` requests
@@ -100,7 +178,11 @@ class ServingEngine:
         self.counters = {"steps": 0, "admitted": 0, "finished": 0,
                          "new_tokens": 0, "occupancy_sum": 0.0,
                          "prefill_steps": 0, "decode_steps": 0,
-                         "rejected": 0, "expired": 0, "prefill_chunks": 0}
+                         "rejected": 0, "expired": 0, "prefill_chunks": 0,
+                         "draft_steps": 0, "spec_rounds": 0,
+                         "spec_proposed": 0, "spec_accepted": 0,
+                         "prefix_hits": 0, "prefix_misses": 0,
+                         "prefix_tokens_reused": 0}
         self._step_wall = []
         self.step_seconds = []  # wall time of each dispatching step
         self._results = {}
@@ -131,6 +213,12 @@ class ServingEngine:
             "latency_steps": self.now - req.arrival_step + 1,
             "latency_s": wall - (self._step_wall[a] if self._step_wall
                                  else wall),
+            "prefix_len": getattr(slot_state, "prefix_len", 0),
+            "spec_proposed": getattr(slot_state, "spec_proposed", 0),
+            "spec_accepted": getattr(slot_state, "spec_accepted", 0),
+            "accept_rate": _accept_rate(
+                getattr(slot_state, "spec_accepted", 0),
+                getattr(slot_state, "spec_proposed", 0)),
         }
 
     def _terminal(self, req, status, slot_state=None):
@@ -154,6 +242,7 @@ class ServingEngine:
                     terminal.append(s.req.rid)
             keep = np.ones(self.n_slots, "float32")
             admitted = False
+            loads = {}  # slot -> prefix row (this wave's prefix hits)
             waiting = 0
             still = []
             for req in self.queue:  # arrival order
@@ -164,10 +253,22 @@ class ServingEngine:
                     self._terminal(req, "DEADLINE_EXPIRED")
                     terminal.append(req.rid)
                 elif self.pool.free_slots():
-                    slot = self.pool.admit(req, self.now)
+                    pfx_row, pfx_len = (None, 0)
+                    if self.prefix is not None:
+                        pfx_row, pfx_len = self.prefix.match(req.prompt)
+                    slot = self.pool.admit(req, self.now,
+                                           prefix_len=pfx_len)
                     keep[slot] = 0.0
                     admitted = True
                     self.counters["admitted"] += 1
+                    if pfx_row is not None:
+                        loads[slot] = pfx_row
+                        self.prefix.touch(pfx_row, pfx_len)
+                        self.counters["prefix_hits"] += 1
+                        self.counters["prefix_tokens_reused"] += pfx_len
+                    elif self.prefix is not None:
+                        self.prefix.miss()
+                        self.counters["prefix_misses"] += 1
                 elif self.queue_depth is None or waiting < self.queue_depth:
                     waiting += 1
                     still.append(req)
@@ -176,9 +277,18 @@ class ServingEngine:
                     terminal.append(req.rid)
             self.queue = still
             if admitted:
-                # zero exactly the admitted slots' cache rows
+                # zero exactly the admitted slots' cache rows, the draft
+                # pool's in lockstep (the same mask)
                 self.exe.run(self.reset_prog, feed={"slot_keep": keep},
                              fetch_list=[])
+                if self.spec_k:
+                    self.exe.run(self.draft_reset,
+                                 feed={"slot_keep": keep}, fetch_list=[],
+                                 scope=self.draft_scope)
+                if loads:
+                    # prefix hits: copy the matched KV rows into the
+                    # slots just reset (target and draft banks)
+                    self.prefix.load(self.exe, loads)
         active = self.pool.active_slots()
         if not active:
             self.now += 1
@@ -189,6 +299,18 @@ class ServingEngine:
             1 for _, s in active if s.state == PREFILL)
         phase = "prefill" if self.pool.any_prefilling() else "decode"
         self.counters[phase + "_steps"] += 1
+        # the speculative round: the draft proposes k_s tokens for each
+        # decoding slot (its first dispatch runs the pooled feed as
+        # built, so prompt chunks prefill the draft's cache in lockstep),
+        # then the spec rows of the one target dispatch widen to the
+        # anchor and the drafts: feed values change, shapes never
+        spec, drafts, daux, draft_due = [], {}, {}, None
+        if self.spec_k:
+            with RecordEvent("serve_draft", cat="draft"):
+                spec, drafts, daux, draft_due = self._draft_round(feed, plan)
+            for slot, k_s in spec:
+                feed["step_ids"][slot, 1:1 + k_s] = drafts[slot]
+                feed["width_rows"][slot] = 1 + k_s
         with RecordEvent("serve_step", cat=phase):
             (logits,) = self.exe.run(self.step_main, feed=feed,
                                      fetch_list=self.step_fetch)
@@ -198,27 +320,191 @@ class ServingEngine:
             for slot, s in active:
                 if slot not in due:
                     self.pool.advance_prefill(slot)
-            if plan:
-                rows = np.stack([logits[slot, col] for slot, col in plan])
-                toks = self._pick_tokens(rows, [s for s, _ in plan])
-                for (slot, _), tok in zip(plan, toks):
+            spec_set = {slot for slot, _ in spec}
+            plain = [(slot, col) for slot, col in plan
+                     if slot not in spec_set]
+            if plain:
+                rows = np.stack([logits[slot, col] for slot, col in plain])
+                drows = (np.stack([draft_due[slot] for slot, _ in plain])
+                         if draft_due is not None else None)
+                toks = self._pick_tokens(rows, [s for s, _ in plain],
+                                         draft_rows=drows)
+                for (slot, _), tok in zip(plain, toks):
                     s = self.pool.slots[slot]
                     self.counters["new_tokens"] += 1
                     if self.pool.advance(slot, tok):
                         self._finish(slot)
                         finished.append(s.req.rid)
+            for slot, k_s in spec:
+                s = self.pool.slots[slot]
+                emit, accepted = self._resolve_spec_row(
+                    s, logits[slot], drafts[slot], daux.get(slot), k_s)
+                self.counters["spec_rounds"] += 1
+                self.counters["spec_proposed"] += k_s
+                self.counters["spec_accepted"] += accepted
+                s.spec_proposed += k_s
+                s.spec_accepted += accepted
+                for tok in emit:
+                    self.counters["new_tokens"] += 1
+                    if self.pool.advance(slot, tok):
+                        # budget or EOS inside the round: the later tokens
+                        # go (a solo run would never have emitted them)
+                        self._finish(slot)
+                        finished.append(s.req.rid)
+                        break
         self.step_seconds.append(time.perf_counter() - t0)
         self.counters["steps"] += 1
         self.counters["occupancy_sum"] += len(active) / self.n_slots
         self.now += 1
         return terminal + finished
 
-    def _pick_tokens(self, rows, slots):
+    # ---- the speculative round -----------------------------------------
+    def _spec_eligible(self, slot, s):
+        """How many tokens the draft may propose for this slot this
+        round: spec_k - 1, capped by the budget left (a round emits at
+        most k_s + 1 tokens) and by the cache (the verify row writes the
+        anchor and the drafts at pos..pos+k_s; the tail falls back to
+        one-token steps, the solo loops' capacity rule)."""
+        if s.state != DECODE:
+            return 0
+        remaining = s.req.max_new_tokens - len(s.out)
+        return max(0, min(self.spec_k - 1, remaining - 1,
+                          self.t_max - s.pos - 1))
+
+    def _run_draft(self, feed):
+        self.counters["draft_steps"] += 1
+        dfeed = dict(feed)
+        # the draft's position table may be shorter than the target's:
+        # clip the (never read) columns past the row's width into it
+        dfeed["pos_mat"] = np.minimum(feed["pos_mat"],
+                                      self.draft_hp.n_ctx - 1)
+        (dl,) = self.exe.run(self.draft_main, feed=dfeed,
+                             fetch_list=self.draft_fetch,
+                             scope=self.draft_scope)
+        return dl
+
+    def _draft_pick(self, s, pd_row, token_index):
+        """One draft proposal: a greedy row's argmax; a sampled row draws
+        from the filtered draft row with the keyed draft stream at the
+        global token index (the resolver and any replay re-derive it)."""
+        from ..models.decode_cache import spec_propose_keyed
+
+        if s.req.greedy:
+            return int(pd_row.argmax())
+        return spec_propose_keyed(pd_row, s.req.seed, token_index)
+
+    def _filtered_row(self, s, logits_row):
+        from ..models.decode_cache import filtered_probs_rows
+
+        return filtered_probs_rows(
+            np.asarray(logits_row)[None, :], [s.req.temperature],
+            [s.req.top_k], [s.req.top_p])[0]
+
+    def _draft_round(self, feed, plan):
+        """The step's draft phase.  Dispatch 1 runs the pooled feed as
+        built through the draft program: prompt chunks prefill the draft
+        cache in lockstep with the target's, and every decoding slot's
+        anchor keeps the draft cache current.  Eligible slots then draft
+        k_s - 1 more tokens a dispatch at a time (max k_s dispatches in
+        all, feed values only).  Returns (spec rows [(slot, k_s)],
+        drafts {slot: [token]}, daux {slot: [filtered draft rows]} of
+        sampled slots, draft_due {slot: the raw draft logits row} of the
+        plan's due rows: the keyed rule needs the draft's distribution
+        on plain-decode and prefill-finishing rows too)."""
+        active = self.pool.active_slots()
+        spec = [(slot, k) for slot, s in active
+                for k in (self._spec_eligible(slot, s),) if k >= 1]
+        dl = self._run_draft(feed)
+        draft_due = {slot: dl[slot, col] for slot, col in plan}
+        drafts, daux = {}, {}
+        live = []
+        for slot, k_s in spec:
+            s = self.pool.slots[slot]
+            base = len(s.out) + s.req.sample_step_base
+            pd = (None if s.req.greedy
+                  else self._filtered_row(s, dl[slot, 0]))
+            raw = dl[slot, 0] if s.req.greedy else pd
+            drafts[slot] = [self._draft_pick(s, raw, base)]
+            daux[slot] = [pd]
+            live.append((slot, k_s, base))
+        max_k = max((k for _, k in spec), default=0)
+        b, w = self.n_slots, self.width
+        for j in range(1, max_k):
+            ids = np.zeros((b, w), "int64")
+            pos_rows = np.zeros(b, "int64")
+            width_rows = np.zeros(b, "int64")
+            rows = [(slot, k_s, base) for slot, k_s, base in live
+                    if k_s > j]
+            if not rows:
+                break
+            for slot, k_s, base in rows:
+                ids[slot, 0] = drafts[slot][-1]
+                pos_rows[slot] = self.pool.slots[slot].pos + j
+                width_rows[slot] = 1
+            pos_mat = np.clip(
+                pos_rows[:, None] + np.arange(w, dtype="int64")[None, :],
+                0, self.hp.n_ctx - 1)
+            dl = self._run_draft({"step_ids": ids, "pos_rows": pos_rows,
+                                  "width_rows": width_rows,
+                                  "pos_mat": pos_mat})
+            for slot, k_s, base in rows:
+                s = self.pool.slots[slot]
+                pd = (None if s.req.greedy
+                      else self._filtered_row(s, dl[slot, 0]))
+                raw = dl[slot, 0] if s.req.greedy else pd
+                drafts[slot].append(self._draft_pick(s, raw, base + j))
+                daux[slot].append(pd)
+        return spec, drafts, daux, draft_due
+
+    def _resolve_spec_row(self, s, logits_row, d_list, pd_list, k_s):
+        """Resolve one slot's verify row: logits_row [W, vocab] of the
+        widened target dispatch, columns 0..k_s scoring the anchor and
+        the drafts.  Greedy: the solo loops' rule
+        (decode_cache.greedy_accept_len), the longest prefix of drafts
+        equal to the argmax, then the bonus or correction column — the
+        plain argmax chain's tokens.  Sampled: keyed rejection sampling
+        per index (decode_cache.spec_accept_keyed); the first rejection
+        emits the residual's draw and stops; no bonus on full acceptance
+        (it has no draft proposal, so the token at its index would
+        depend on the rounds and break solo equality).  Rollback costs
+        nothing: pool.advance moves `pos` over emitted tokens only, and
+        rejected drafts' K/V lie beyond it, masked until overwritten.
+        Returns (emitted tokens, accepted draft count)."""
+        from ..models.decode_cache import (greedy_accept_len,
+                                           spec_accept_keyed)
+
+        r = s.req
+        if r.greedy:
+            tgt_next = np.asarray(logits_row[:k_s + 1]).argmax(-1)
+            tgt_next = tgt_next.astype("int64")[None, :]
+            j = greedy_accept_len(
+                tgt_next, [np.asarray([d], "int64") for d in d_list])
+            return d_list[:j] + [int(tgt_next[0, j])], j
+        base = len(s.out) + r.sample_step_base
+        emit, accepted = [], 0
+        for jj in range(k_s):
+            pt = self._filtered_row(s, logits_row[jj])
+            tok, ok = spec_accept_keyed(
+                d_list[jj], pt, pd_list[jj], r.seed, base + jj)
+            emit.append(tok)
+            if not ok:
+                break
+            accepted += 1
+        return emit, accepted
+
+    def _pick_tokens(self, rows, slots, draft_rows=None):
         """Per-row token selection with per-request params: greedy rows
         argmax, sampled rows draw from their filtered row with the keyed
         fold_in(seed, request_step) stream — a pure function of
-        (request, step), neighbours invisible."""
-        from ..models.decode_cache import filtered_probs_rows, sample_rows_keyed
+        (request, step), neighbours invisible.  draft_rows (a speculative
+        engine): the matching raw draft logits rows; sampled rows then
+        take the keyed propose / accept / residual rule the round's
+        resolver takes, so a request's token at index t is one function
+        of (seed, t, prefix) whether a verify round, the first token
+        after prefill or a capacity-tail step emitted it."""
+        from ..models.decode_cache import (filtered_probs_rows,
+                                           sample_rows_keyed,
+                                           spec_token_keyed)
 
         rows = np.asarray(rows)
         sl = [self.pool.slots[s] for s in slots]
@@ -229,12 +515,24 @@ class ServingEngine:
         samp = np.nonzero(~greedy)[0]
         if samp.size:
             ss = [sl[j] for j in samp]
-            probs = filtered_probs_rows(
-                rows[samp], [s.req.temperature for s in ss],
-                [s.req.top_k for s in ss], [s.req.top_p for s in ss])
+            params = ([s.req.temperature for s in ss],
+                      [s.req.top_k for s in ss], [s.req.top_p for s in ss])
+            probs = filtered_probs_rows(rows[samp], *params)
             steps = [len(s.out) + s.req.sample_step_base for s in ss]
-            out[samp] = sample_rows_keyed(probs, [s.req.seed for s in ss],
-                                          steps)
+            if draft_rows is None:
+                out[samp] = sample_rows_keyed(
+                    probs, [s.req.seed for s in ss], steps)
+            else:
+                pds = filtered_probs_rows(np.asarray(draft_rows)[samp],
+                                          *params)
+                for i, s in enumerate(ss):
+                    tok, ok = spec_token_keyed(probs[i], pds[i], s.req.seed,
+                                               steps[i])
+                    out[samp[i]] = tok
+                    self.counters["spec_proposed"] += 1
+                    self.counters["spec_accepted"] += int(ok)
+                    s.spec_proposed += 1
+                    s.spec_accepted += int(ok)
         return out
 
     def _finish(self, slot):
@@ -242,12 +540,128 @@ class ServingEngine:
         self.counters["finished"] += 1
         self._results[s.req.rid] = self._result(s.req, "OK", s)
 
+    # ---- pool placement ------------------------------------------------
+    def kv_pool_bytes(self, scope=None):
+        """Where the KV slot pool lives: its total bytes, the bytes on
+        each device ("cuda:0", "cpu"), and their largest.  Call after a
+        run (the caches must be in the scope)."""
+        from ..core.scope import global_scope
+
+        scope = scope or global_scope()
+        total = 0
+        per_dev = {}
+        for n in self.cache_names:
+            t = scope.find_var(n)
+            if t is None:
+                raise RuntimeError(
+                    "kv_pool_bytes: cache %r not in scope — run the "
+                    "engine (or its cache startup) first" % n)
+            nbytes = t.numel() * t.element_size()
+            total += nbytes
+            d = str(t.device)
+            per_dev[d] = per_dev.get(d, 0) + nbytes
+        return {"total_bytes": total, "per_device_bytes": per_dev,
+                "max_device_bytes": max(per_dev.values()) if per_dev else 0}
+
+    # ---- prefix registration -------------------------------------------
+    def register_prefix(self, tokens):
+        """Make the KV of a common prompt prefix resident: prefill slot 0
+        with `tokens` (chunk-floored) through the serving step programs
+        (the target's and, on a speculative engine, the draft's, so both
+        banks hold exactly what a cold prefill writes), then copy slot
+        0's rows into a prefix row with the store program.  The engine
+        must be idle (registration borrows slot 0).  Returns the prefix
+        row, or None when `tokens` are shorter than one chunk.  The same
+        tokens again dedup to their resident row without a prefill."""
+        if self.prefix is None:
+            raise RuntimeError("engine built without prefix_rows")
+        if self.queue or self.pool.active_slots():
+            raise RuntimeError("register_prefix on a busy engine")
+        tokens = np.asarray(tokens, "int64").reshape(-1)
+        ln = (int(tokens.size) // self.prefix_chunk) * self.prefix_chunk
+        if ln < self.prefix_chunk:
+            return None
+        tokens = tokens[:ln]
+        row, fresh = self.prefix.assign(tokens)
+        if not fresh:
+            return row
+        # the whole cache startups (the engine is idle, and registration
+        # may precede the first run(): the slot pools must exist before
+        # the copy programs touch them)
+        self.exe.run(self.cache_startup)
+        if self.spec_k:
+            self.exe.run(self.draft_startup, scope=self.draft_scope)
+        b, w = self.n_slots, self.width
+        for c0 in range(0, ln, w):
+            chunk = tokens[c0:c0 + w]
+            ids = np.zeros((b, w), "int64")
+            ids[0, :chunk.size] = chunk
+            pos_rows = np.zeros(b, "int64")
+            pos_rows[0] = c0
+            width_rows = np.zeros(b, "int64")
+            width_rows[0] = chunk.size
+            pos_mat = np.clip(
+                pos_rows[:, None] + np.arange(w, dtype="int64")[None, :],
+                0, self.hp.n_ctx - 1)
+            feed = {"step_ids": ids, "pos_rows": pos_rows,
+                    "width_rows": width_rows, "pos_mat": pos_mat}
+            # fetch the (discarded) logits: the serving step's own cache
+            # entry, not a second one without the fetch
+            self.exe.run(self.step_main, feed=feed,
+                         fetch_list=self.step_fetch)
+            if self.spec_k:
+                self._run_draft(feed)
+        self.prefix.store(self.exe, row, slot=0)
+        return row
+
+    def observe_prefixes(self, requests, min_count=2):
+        """Register the chunk-floored prompt prefixes that at least
+        `min_count` of `requests` share (grouped by their first chunk,
+        the longest common prefix of each group).  Host analysis, then
+        register_prefix: run it while the engine is idle.  Returns the
+        registered rows."""
+        if self.prefix is None:
+            raise RuntimeError("engine built without prefix_rows")
+        chunk = self.prefix_chunk
+        groups = {}
+        for r in requests:
+            p = np.asarray(r.prompt, "int64").reshape(-1)
+            if p.size - 1 < chunk:
+                continue
+            groups.setdefault(tuple(p[:chunk].tolist()), []).append(p)
+        rows = []
+        for ps in groups.values():
+            if len(ps) < min_count:
+                continue
+            base = ps[0]
+            lcp = min(int(q.size) for q in ps)
+            for q in ps[1:]:
+                n = min(lcp, int(base.size), int(q.size))
+                eq = base[:n] == q[:n]
+                lcp = n if eq.all() else int(np.argmax(~eq))
+            ln = (lcp // chunk) * chunk
+            if ln >= chunk:
+                row = self.register_prefix(base[:ln])
+                if row is not None:
+                    rows.append(row)
+        return rows
+
     # ---- control-plane snapshot ----------------------------------------
     def stats(self):
         """Counters snapshot (the shape the reference's `stats` verb
-        surfaces per pool)."""
+        surfaces per pool), with the acceptance rate and the prefix
+        cache's counters."""
         c = dict(self.counters)
         c["compile_count"] = int(self.exe.compile_count)
+        c["accept_rate"] = _accept_rate(c["spec_accepted"],
+                                        c["spec_proposed"])
+        c["spec_on"] = bool(self.spec_k)
+        c["spec_k"] = int(self.spec_k)
+        if self.prefix is not None:
+            c["prefix_hit_rate"] = (
+                c["prefix_hits"]
+                / max(1, c["prefix_hits"] + c["prefix_misses"]))
+            c.update(self.prefix.counters())
         return c
 
     # ---- episode drivers ----------------------------------------------
@@ -264,6 +678,8 @@ class ServingEngine:
         for r in requests or []:
             self.submit(r)
         self.exe.run(self.cache_startup)
+        if self.spec_k:
+            self.exe.run(self.draft_startup, scope=self.draft_scope)
         t0 = time.time()
         while self.queue or self.pool.active_slots():
             self._step_wall.append(time.time())
@@ -289,6 +705,12 @@ class ServingEngine:
             "step_s_p50": (float(np.median(self.step_seconds))
                            if self.step_seconds else 0.0),
             "compile_count": self.exe.compile_count,
+            "accept_rate": _accept_rate(c["spec_accepted"],
+                                        c["spec_proposed"]),
+            "prefix_hit_rate": (c["prefix_hits"]
+                                / max(1, c["prefix_hits"]
+                                      + c["prefix_misses"])
+                                if self.prefix is not None else 0.0),
         }
         stats.update(c)
         return self._results, stats

@@ -1,16 +1,16 @@
 """Slot pool for the continuous-batching engine (the port's copy of
-``paddle_tpu/serving/pool.py``, without the prefix-cache and speculative
-decoding fields, which are not ported yet): per-slot request lifecycle
-(PREFILL -> DECODE -> done) and the per-step ragged feed.
+``paddle_tpu/serving/pool.py``): per-slot request lifecycle (PREFILL ->
+DECODE -> done) and the per-step ragged feed.
 
 The pool owns NO device state — the KV caches are the step program's
 persistable vars; the pool only tracks which cache ROWS belong to which
 request and at what position, and lays each step's work out as the
 ragged step program's feed vectors (per-slot pos/width/ids).  A slot's
 schedule is a pure function of its request (prompt length, budget):
-prefill chunks of the program width W starting at 0, W, 2W, ... then
-one-token decode — identical whether the request runs solo or shares
-the pool, which is what the exactness contract leans on.
+prefill chunks of the program width W starting at 0, W, 2W, ... (or at
+a prefix-cache hit's boundary, a multiple of W) then one-token decode —
+identical whether the request runs solo or shares the pool, which is
+what the exactness contract leans on.
 """
 
 import numpy as np
@@ -23,16 +23,23 @@ DECODE = "decode"
 
 class _Slot:
     __slots__ = ("req", "state", "prefill_pos", "pos", "last_token",
-                 "out", "admit_step")
+                 "out", "admit_step", "prefix_len", "spec_proposed",
+                 "spec_accepted")
 
-    def __init__(self, req, admit_step):
+    def __init__(self, req, admit_step, prefix_len=0):
         self.req = req
         self.state = PREFILL
-        self.prefill_pos = 0     # next prompt chunk starts here
-        self.pos = 0             # tokens currently resident in the cache
+        # a prefix-cache hit starts prefill at the match boundary: the
+        # first prefix_len cache rows were copied in, not dispatched
+        self.prefill_pos = int(prefix_len)  # next prompt chunk starts here
+        self.pos = int(prefix_len)  # tokens currently resident in the cache
         self.last_token = None   # decode input for the next step
         self.out = []            # generated tokens (int)
         self.admit_step = admit_step
+        self.prefix_len = int(prefix_len)
+        # the request's speculative-decoding acceptance
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
 
 class SlotPool:
@@ -49,26 +56,43 @@ class SlotPool:
     def active_slots(self):
         return [(i, s) for i, s in enumerate(self.slots) if s is not None]
 
+    def occupancy(self):
+        return sum(1 for s in self.slots if s is not None) / self.n_slots
+
     # ---- lifecycle ----------------------------------------------------
+    def fits(self, req):
+        """The capacity rule without raising: prompt + budget within
+        t_max + 1."""
+        return req.prompt.size + req.max_new_tokens <= self.t_max + 1
+
     def validate(self, req):
         """The pool's capacity rule (it owns t_max): the last generated
         token is never fed back, hence the +1 — the single source of
         truth for engine.submit and admit."""
-        if req.prompt.size + req.max_new_tokens > self.t_max + 1:
+        if not self.fits(req):
             raise ValueError(
                 "request %r: prompt %d + new %d exceeds pool capacity %d"
                 % (req.rid, req.prompt.size, req.max_new_tokens,
                    self.t_max))
 
-    def admit(self, req, admit_step):
+    def admit(self, req, admit_step, prefix_len=0):
         """Place `req` in a free slot; returns the slot index (caller
-        zero-resets that slot's cache rows before the next dispatch)."""
+        zero-resets that slot's cache rows before the next dispatch).
+        prefix_len > 0 (a prefix-cache hit): the caller copies the
+        matched KV rows in after the reset, and prefill resumes at that
+        boundary — a multiple of the pool width that leaves at least one
+        prompt token to dispatch (the finishing chunk's logits emit the
+        first token)."""
         free = self.free_slots()
         if not free:
             raise RuntimeError("admit with no free slot")
         self.validate(req)
+        if prefix_len:
+            assert prefix_len % self.width == 0, (prefix_len, self.width)
+            assert 0 < prefix_len < req.prompt.size, (
+                prefix_len, req.prompt.size)
         slot = free[0]
-        self.slots[slot] = _Slot(req, admit_step)
+        self.slots[slot] = _Slot(req, admit_step, prefix_len=prefix_len)
         return slot
 
     def evict(self, slot):

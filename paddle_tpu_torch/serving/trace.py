@@ -9,12 +9,14 @@ and an optional eos_id.  Arrival times are in ENGINE-STEP units (the
 scheduler's virtual clock): a request becomes admittable at the first
 step whose index >= arrival.  make_poisson_trace draws a reproducible
 open-loop trace — exponential inter-arrivals at `rate` requests/step
-over mixed prompt/output lengths — the bench/test workload shape.
+over mixed prompt/output lengths — the bench/test workload shape;
+make_prefix_trace the prefix-cache workload (shared templates and
+fresh tails).
 """
 
 import numpy as np
 
-__all__ = ["Request", "make_poisson_trace"]
+__all__ = ["Request", "make_poisson_trace", "make_prefix_trace"]
 
 
 class Request:
@@ -101,3 +103,54 @@ def make_poisson_trace(n_requests, rate, prompt_len_range, out_len_range,
             arrival=t,
         ))
     return reqs
+
+
+def make_prefix_trace(n_requests, rate, n_prefixes, prefix_len,
+                      tail_len_range, out_len_range, vocab_size, seed=0,
+                      reuse_fraction=0.8, sampled_fraction=0.5,
+                      eos_id=None):
+    """The prefix-heavy open-loop trace: a pool of `n_prefixes` shared
+    template prefixes (system prompts / few-shot scaffolds) of
+    `prefix_len` tokens each; every request with probability `reuse_fraction` opens with one of
+    them (uniform choice) followed by a fresh random tail of
+    tail_len_range tokens, else carries a fully random prompt of
+    prefix_len//2 + tail tokens (cold traffic).  Arrivals, lengths and
+    sampling params draw exactly like make_poisson_trace — seeded and
+    deterministic, same seed -> byte-identical trace.
+
+    Returns (requests, prefixes): register `prefixes` on the engine
+    (engine.register_prefix) to arm the prefix cache; the same trace
+    served with and without registration gives the same streams bit
+    for bit, and only the prefill dispatch count and tokens/s move."""
+    rng = np.random.RandomState(seed)
+    prefix_len = int(prefix_len)
+    prefixes = [rng.randint(1, vocab_size, prefix_len).astype("int64")
+                for _ in range(int(n_prefixes))]
+    t_lo, t_hi = tail_len_range
+    o_lo, o_hi = out_len_range
+    t = 0.0
+    reqs = []
+    for i in range(int(n_requests)):
+        t += rng.exponential(1.0 / float(rate))
+        tail = rng.randint(
+            1, vocab_size, int(rng.randint(t_lo, t_hi + 1))).astype("int64")
+        if rng.rand() < reuse_fraction:
+            tmpl = prefixes[int(rng.randint(0, len(prefixes)))]
+            prompt = np.concatenate([tmpl, tail])
+        else:
+            cold = rng.randint(
+                1, vocab_size, max(1, prefix_len // 2)).astype("int64")
+            prompt = np.concatenate([cold, tail])
+        sampled = rng.rand() < sampled_fraction
+        reqs.append(Request(
+            rid=i,
+            prompt=prompt,
+            max_new_tokens=int(rng.randint(o_lo, o_hi + 1)),
+            temperature=float(rng.uniform(0.7, 1.3)) if sampled else 1.0,
+            top_k=int(rng.choice([0, 8, 32])) if sampled else 0,
+            top_p=float(rng.choice([1.0, 0.9])) if sampled else 1.0,
+            seed=int(rng.randint(0, 2 ** 31)) if sampled else None,
+            eos_id=eos_id,
+            arrival=t,
+        ))
+    return reqs, prefixes

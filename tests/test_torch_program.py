@@ -224,15 +224,42 @@ def test_ragged_rotary_cache_needs_pos_mat():
                                  fused=True, n_kv_head=2)
 
 
-@pytest.mark.parametrize("option", ["draft", "prefix_rows", "mesh",
-                                    "quantize_int8"])
+@pytest.mark.parametrize("option", ["mesh", "quantize_int8"])
 def test_unported_engine_options_raise(option):
     from paddle_tpu_torch.serving import ServingEngine
 
     exe = ptt.Executor(ptt.CPUPlace())
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         ServingEngine(exe, _tiny(port_gpt2.GPT2Config), n_slots=2, width=2,
-                      t_max=8, **{option: "self" if option == "draft" else 1})
+                      t_max=8, **{option: 1})
+
+
+@pytest.mark.parametrize("case", ["spec_k_below_2", "spec_k_above_width",
+                                  "prefix_chunk_not_a_width_multiple",
+                                  "register_prefix_without_prefix_rows"])
+def test_engine_invalid_spec_and_prefix_values_raise(case):
+    """The speculative and prefix-cache options raise on the values the
+    reference refuses, as the reference does."""
+    from paddle_tpu.serving import ServingEngine as RefEngine
+    from paddle_tpu_torch.serving import ServingEngine
+
+    kw, exc, match = {
+        "spec_k_below_2": (dict(draft="self", spec_k=1), AssertionError,
+                           "spec_k"),
+        "spec_k_above_width": (dict(draft="self", spec_k=5), AssertionError,
+                               "spec_k"),
+        "prefix_chunk_not_a_width_multiple": (
+            dict(prefix_rows=1, prefix_chunk=6), AssertionError, "6"),
+        "register_prefix_without_prefix_rows": (
+            {}, RuntimeError, "prefix_rows")}[case]
+    for engine, exe, cfg in (
+            (RefEngine, paddle_tpu.Executor(paddle_tpu.CPUPlace()),
+             _tiny(ref_gpt2.GPT2Config)),
+            (ServingEngine, ptt.Executor(ptt.CPUPlace()),
+             _tiny(port_gpt2.GPT2Config))):
+        with pytest.raises(exc, match=match):
+            eng = engine(exe, cfg, n_slots=2, width=4, t_max=8, **kw)
+            eng.register_prefix(np.arange(1, 9))
 
 
 def test_executor_without_cuda_raises(monkeypatch):
@@ -337,8 +364,7 @@ def test_ragged_step_program_positional_cache_dtype():
 
 
 @pytest.mark.parametrize("option, item", [
-    ("spec_k", "A5"), ("prefix_chunk", "A5"), ("partition_rules", "A7"),
-    ("mp_axis", "A7"), ("cache_dtype", "A3")])
+    ("partition_rules", "A7"), ("mp_axis", "A7"), ("cache_dtype", "A3")])
 def test_engine_reference_options_raise(option, item):
     from paddle_tpu_torch.serving import ServingEngine
 

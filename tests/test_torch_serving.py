@@ -125,8 +125,8 @@ def _lockstep(engine, trace, ref_hp=RefHP, port_hp=PortHP):
         port_picks = []
         own_pick = port_eng._pick_tokens
 
-        def lockstep_pick(rows, slots):
-            mine = own_pick(rows, slots)
+        def lockstep_pick(rows, slots, draft_rows=None):
+            mine = own_pick(rows, slots, draft_rows)
             port_picks.append(mine.copy())
             return ref_picks[len(port_picks) - 1][1].copy()
 
@@ -279,6 +279,9 @@ bad = [n for n in sys.modules
        if n == "jax" or n.startswith("jax.") or n == "paddle_tpu"
        or n.startswith("paddle_tpu.")]
 assert not bad, bad
+for n in ("paddle_tpu_torch.serving.prefix", "paddle_tpu_torch.serving.engine",
+          "paddle_tpu_torch.models.decode_cache"):
+    assert n in sys.modules, n
 print("OK", len([n for n in sys.modules if n.startswith("paddle_tpu_torch")]))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
