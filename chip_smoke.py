@@ -27,8 +27,10 @@ In order, it:
    edges, an all-masked row among them; B3's tensor-core tiles at their
    edges: T 17, window 24, Tq 8 at a scalar base, per-row bases at 0
    and T - 1, every rerun bit-equal; fused_layer_norm at the edge
-   widths 1000 and 770), and times kernel, plain version and one
-   PyTorch library call with CUDA events;
+   widths 1000 and 770; the Transformer translate paths' shapes: B3d
+   with the source-padding bias, B9 16 wide, B3's tile at Tq 16 over
+   Tk 64, B1, and B5 where the paths' mul ops run), and times kernel,
+   plain version and one PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
    kernel's launch count reset just before and read just after; checks
@@ -137,7 +139,29 @@ In order, it:
    GQA fold puts flash_attention's few-row form at Tq 8 with a key bias;
    with --profile, chiprun_out/profile_decode_llama.json), and the
    narrow modern config card vs CPU;
-19. trains the stacked dynamic LSTM (build_stacked_lstm_train at
+19. translates with Transformer-base (transformer_decode_programs at
+   ModelHyperParams' widths, dropout 0, fused_attn; random weights from
+   a seed) 16 sentences of make_fake_batch's 64 source tokens (lengths
+   32-64) at t_max 256: every key warmed twice, then cached greedy over
+   255 steps; a second source batch through the same executor with no
+   new capture, bit for bit equal to a fresh executor's; beam 4 over 4
+   sentences (64 steps, the cache reorder before each), each best
+   score equal to its hypothesis's force-decoded log-probability;
+   seeded sampling twice, bit for bit; force_decode_logits_cached 16
+   wide over the greedy output's first 64 tokens against its one-token
+   steps; greedy_translate and beam_translate on the logits program (64
+   / 64, fused_attn on and off) against the cached greedy (logits within
+   1e-4 relative, tokens where the top-2 margin exceeds 1e-3); every
+   run's launches held to its program's (B3d, B9, B3's forward and B1:
+   the projections are mul ops, as in the reference, on cuBLAS); prints
+   the encoder p50, the one-token step's p50 and output tokens/s, the
+   beam step's p50, force-decode tokens/s and the cross k/v
+   projections' share of the step (with --profile,
+   chiprun_out/profile_translate{,_eager,_force_decode}.json);
+20. translates a narrow config on the card and on the CPU (greedy,
+   sampled, beam 3, force-decode 4 wide, full re-decode): tokens equal,
+   every run's logits within 1e-5 relative;
+21. trains the stacked dynamic LSTM (build_stacked_lstm_train at
    bench.py's setting: dict 10000, 64 tokens, emb and hidden 512, 3
    layers, 2 classes, Adam 1e-3) on batch 32 x 64: one warm-up step (its
    loss near ln 2), 5 timed steps with the launch counts held to the
@@ -145,18 +169,18 @@ In order, it:
    layer 2 is reversed, the reference's plain scan), the bit-equal
    repeat (with --profile, chiprun_out/profile_training_lstm.json); then
    the narrow LSTM of the CPU tests 3 steps on the card and the CPU;
-20. trains the GRU seq2seq model (build_seq2seq_train at Paddle's
+22. trains the GRU seq2seq model (build_seq2seq_train at Paddle's
    benchmark machine_translation widths: 512, dictionaries 30000, Adam
    1e-3) on batch 32 x 50 the same way (its first loss near ln 30000;
    fused_gru 4 a step; chiprun_out/profile_training_seq2seq.json), and
    the narrow seq2seq card vs CPU;
-21. beam-decodes with build_decode_step at those widths (beam 4 over 2
+23. beam-decodes with build_decode_step at those widths (beam 4 over 2
    sentences, 16 steps through BeamSearchDecoder; fused_gru at T 50 and
    at T 1 from H0 every step), prints the decode step's p50, and the
    narrow decode step card vs CPU (tokens equal, log-probs 1e-5) (with
    --profile, 3 decode steps under the profiler,
    chiprun_out/profile_decode_seq2seq.json);
-22. trains Transformer-base vocab-parallel (the WMT program on a {"dp":
+24. trains Transformer-base vocab-parallel (the WMT program on a {"dp":
    1, "mp": 2} mesh whose rule table vocab-shards softmax_out.w): two
    ranks spawned on the one card over a gloo group, each holding its
    [512, 5000] slab and running sharded_linear_xent's kernels (parts 2,
@@ -167,7 +191,7 @@ In order, it:
    the CPU's; the kernel phase holds the three B12 kernels at the path's
    shapes, a ragged R and TinyLlama's widths on mp 4 (with --profile,
    rank 0's chiprun_out/profile_training_vocab_parallel.json);
-23. trains the packed causal LM (examples/packed_training_torch.py's
+25. trains the packed causal LM (examples/packed_training_torch.py's
    build at GPT-2 small's vocab 50257, width 768, 12 heads and context
    1024; one attention block over packed segment ids, Adam) on the first
    8 rows of 64 seeded ragged sequences (lengths log-uniform in [8,
@@ -179,7 +203,7 @@ In order, it:
    0 and 48 card vs CPU; the kernel phase holds the segment and window
    forms of B3 and B9 (with --profile, chiprun_out/profile_training_packed
    and profile_training_packed_window.json);
-24. trains ResNet-50 (build_resnet_train_program at 224 x 224, 1000
+26. trains ResNet-50 (build_resnet_train_program at 224 x 224, 1000
    classes, Momentum 0.9 at lr 0.1; conv2d, pool2d and batch_norm on
    cuDNN and PyTorch's CUDA kernels, no hand-written kernel) on batch 128
    of seeded images staged on the card once: one warm-up step (its loss
@@ -188,14 +212,14 @@ In order, it:
    eager and run_loop(4) == 4 runs; prints images/s over the captured
    p50 and the step's conv and fc FLOPs against FP32's 67 TFLOP/s (with
    --profile, chiprun_out/profile_training_resnet50.json);
-25. the same with use_nhwc (the conv trunk channels-last through
+27. the same with use_nhwc (the conv trunk channels-last through
    rewrite_nhwc), its p50 and first loss beside the NCHW leg's
    (profile_training_resnet50_nhwc.json);
-26. trains the narrow ResNet of the CPU tests (resnet_cifar10 depth 8,
+28. trains the narrow ResNet of the CPU tests (resnet_cifar10 depth 8,
    32 x 32, batch 8) 3 Momentum steps on the card and on the CPU, in
    NCHW and NHWC: losses, parameters, running stats and velocities
    within 1e-4 relative to each tensor's largest magnitude;
-27. prints, for every path, its eager and captured numbers (one JSON
+29. prints, for every path, its eager and captured numbers (one JSON
    line), the kernels line and, last, the result line.
 
 Every path's executor but the vocab-parallel one's captures its step as
@@ -279,6 +303,19 @@ PREFILL_CHECK_EXTRA, GREEDY_CHECK_NEW = 8, 16
 # each decode path's eager and captured legs: greedy generations of 8 new
 # tokens
 CAPTURE_NEW = 8
+# Transformer-base translation: 16 sentences of make_fake_batch's 64
+# source tokens (lengths 32-64), t_max 256 (max_length: the cached greedy
+# runs 255 steps), beam 4 over 4 sentences and seeded sampling 64 steps
+# each, force-decode 16 wide over 64 targets, the full re-decode loops on
+# the logits program at 64 / 64 (BH 128 at head dim 64 in every attention)
+TR_BATCH, TR_SRC, TR_TMAX, TR_WIDTH, TR_FULL = 16, 64, 256, 16, 64
+TR_BEAM, TR_BEAM_SENTS, TR_STEPS = 4, 4, 64
+# the kernels the translate paths launch: B3d (the one-token step's self-
+# and cross-attention), B9 (the wide step's self-attention), B3's tile
+# forward (the wide step's cross-attention, the fused_attn encoder and
+# logits program) and B1 (every layer_norm: no fuse pass runs)
+TRANSLATE_KERNELS = ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
+                     "flash_attention_fwd", "fused_layer_norm")
 # rows of the decode programs' fc, fused_swiglu, add-LN and layer norm
 # launches: GPT-2's one-token and wide steps (batch 4), its beam steps
 # (batch 8), and the TinyLlama widths' (batch 2)
@@ -593,6 +630,8 @@ def check_kernels(dev):
     mark("flash_attention_piece, qvec backward")
     rec.update(check_recurrent(dev, randn, g))
     mark("fused_lstm, fused_gru")
+    check_translate_kernels(dev, randn, rec)
+    mark("translate shapes (B3d, B9, B3, B5, B1)")
     return rec
 
 
@@ -1661,6 +1700,235 @@ def _flash_decode_times(randn, bh, tq, tk, d, pos):
             q, k, v, attn_mask=kb[:, None, :], scale=scale)),
         bound_ms=b, bound_by=fl)
 
+
+def _attn_times(kern, plain, library, nbytes, flops, tensor_cores=False):
+    """A kernel's record at one attention shape: its time, its plain
+    version's and the library call's (CUDA-graph replays), its bound."""
+    return dict(ms=_time_ms(kern), plain_ms=_time_ms(plain),
+                library_ms=_time_ms(library),
+                **_bounds(nbytes, flops, tensor_cores))
+
+
+def check_translate_kernels(dev, randn, rec):
+    """The kernels of the Transformer-base translate paths against
+    their plain versions at those paths' shapes (TR_BATCH sentences x 8
+    heads = BH 128, head dim 64, d_model 512), each timed beside its
+    plain version and one library call, into `rec`'s per_shape:
+
+    - B3d, the one-token step's self-attention (q [128, 1, 64] over the
+      [128, 256, 64] cache, decode_pos_mask's bias up to pos 254) and its
+      cross-attention (q [128, 1, 64] over enc_out's [128, 64, 64] k/v,
+      the source-padding bias: each sentence's own cutoff, 32-64 keys);
+    - B9, the 16-wide step's self-attention (q [128, 16, 64] over the
+      cache, offset-causal at qoff 0, 48 and 240);
+    - B3's tile forward: the 16-wide step's cross-attention (Tq 16 over
+      Tk 64, not causal, the source-padding bias), and the fused_attn
+      logits program's encoder / cross (key bias) and decoder (causal
+      and key bias) at [128, 64, 64];
+    - B5 at the steps' projections: M 16 (one token a sentence) and M
+      256 (16 wide) at 512 x 512 (no bias), 512 x 2048 + relu, 2048 x
+      512 and 512 x 10000 (no bias), and M 1024 at 512 x 512 (the cross
+      k/v projections of enc_out, every step).  The translate programs
+      run no fuse pass, as the reference's do, so these are `mul` ops
+      (torch.matmul, cuBLAS: the library call timed beside) with their
+      bias add and relu apart, and B5 launches nowhere on these paths:
+      the rows say what it would take there;
+    - B1 at the step's rows 16 and 256 and the encoder's 1024, x 512.
+
+    Limits: B3d 1e-5 absolute on o and relative on the lse, B3 and B9
+    1e-4 of o's largest magnitude and 1e-4 absolute on the lse, B5 1e-4
+    absolute, B1 1e-5 absolute; every rerun bit-equal."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import (
+        flash_attention_fwd,
+        flash_attention_fwd_rows,
+        flash_attention_piece_fwd,
+        flash_attention_piece_plain,
+        flash_attention_plain,
+        fused_layer_norm,
+        layer_norm_plain,
+        matmul_bias_act,
+        matmul_bias_act_plain,
+    )
+    from paddle_tpu_torch.kernels.layer_norm import ln_plan
+    from paddle_tpu_torch.kernels.matmul_epilogue import TILED, mm_plan
+
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    d, heads = HP_D_MODEL // HP_HEADS, HP_HEADS
+    bh, scale = TR_BATCH * heads, (HP_D_MODEL // HP_HEADS) ** -0.5
+    lens = torch.tensor(_translate_batch(TR_BATCH, 0)[1], device=dev)
+    src_bias = torch.where(
+        torch.arange(TR_SRC, device=dev)[None, :] < lens[:, None], 0.0,
+        -1e9).repeat_interleave(heads, 0)  # [BH, Ts]
+    pos = TR_TMAX - 2  # the last one-token step's position
+    self_bias = torch.zeros(bh, TR_TMAX, device=dev)
+    self_bias[:, pos + 1:] = -1e30
+    row, err = 4 * d, {"rows": 0.0, "tile": 0.0, "piece": 0.0}
+
+    def rel(got, want):
+        return ((got - want).abs().max()
+                / want.abs().max().clamp_min(1e-30)).item()
+
+    def library(q, k, v, bias, causal=False):
+        mask = None if bias is None else bias[:, None, :]
+        if causal:
+            tri = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                             device=dev).tril()
+            mask = torch.where(tri, mask, float("-inf"))
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask,
+                                                      scale=scale)
+
+    # B3d: the one-token step's self- and cross-attention
+    per = rec["flash_attention_fwd_rows"].setdefault("per_shape", {})
+    for tag, tk, bias in (("self", TR_TMAX, self_bias),
+                          ("cross", TR_SRC, src_bias)):
+        q, k, v = randn(bh, 1, d), randn(bh, tk, d), randn(bh, tk, d)
+        o, lse = flash_attention_fwd_rows(q, k, v, bias, scale)
+        p_o, p_lse = flash_attention_plain(q, k, v, bias, False, scale)
+        err["rows"] = max(err["rows"], (o - p_o).abs().max().item())
+        assert ((lse - p_lse).abs()
+                / p_lse.abs().clamp_min(1.0)).max().item() <= 1e-5, tag
+        again = flash_attention_fwd_rows(q, k, v, bias, scale)
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), tag
+        t = _attn_times(
+            lambda: flash_attention_fwd_rows(q, k, v, bias, scale),
+            lambda: flash_attention_plain(q, k, v, bias, False, scale),
+            library(q, k, v, bias),
+            4 * (2 * bh * d + 2 * bh * tk * d + bh * tk + bh),
+            4 * bh * tk * d)
+        t["plan"] = list(fa.rows_plan(tk, d))
+        per["translate %s q [%d, 1, %d], k/v [%d, %d, %d], %s" % (
+            tag, bh, d, bh, tk, d, "key bias to %d" % pos if tag == "self"
+            else "source-padding bias (32-64 keys a sentence)")] = t
+    assert err["rows"] <= 1e-5, ("few-row forward disagrees", err["rows"])
+
+    # B9: the 16-wide step's self-attention over the cache
+    q, k, v = (randn(bh, TR_WIDTH, d), randn(bh, TR_TMAX, d),
+               randn(bh, TR_TMAX, d))
+    for off in (0, 48, TR_TMAX - TR_WIDTH):
+        qoff = torch.tensor([off], device=dev)
+        o, lse = flash_attention_piece_fwd(q, k, v, True, scale, qoff)
+        p_o, p_lse = flash_attention_piece_plain(q, k, v, True, scale, qoff)
+        err["piece"] = max(err["piece"], rel(o, p_o))
+        assert (lse - p_lse).abs().max().item() <= 1e-4, ("lse", off)
+        again = flash_attention_piece_fwd(q, k, v, True, scale, qoff)
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), off
+    qoff = torch.tensor([48], device=dev)
+    fwd_bound = _based_bounds(bh, TR_WIDTH, TR_TMAX, d, [48] * bh)[0]
+    rec["flash_attention_piece_fwd"].setdefault("per_shape", {})[
+        "translate 16-wide step q [%d, %d, %d] over k/v [%d, %d, %d], "
+        "qoff 48" % (bh, TR_WIDTH, d, bh, TR_TMAX, d)] = dict(
+            ms=_time_ms(lambda: flash_attention_piece_fwd(q, k, v, True,
+                                                          scale, qoff)),
+            plain_ms=_time_ms(lambda: flash_attention_piece_plain(
+                q, k, v, True, scale, qoff)),
+            library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=(torch.arange(TR_TMAX, device=dev)[None]
+                                    <= 48 + torch.arange(
+                                        TR_WIDTH, device=dev)[:, None]),
+                scale=scale)),
+            **fwd_bound)
+    assert err["piece"] <= 1e-4, ("piece forward disagrees", err["piece"])
+
+    # B3's tile forward: the wide step's cross-attention (Tq 16 != Tk 64)
+    # and the logits program's three forms
+    per = rec["flash_attention_fwd"].setdefault("per_shape", {})
+    for tag, tq, causal in (("16-wide step cross", TR_WIDTH, False),
+                            ("logits program encoder / cross", TR_SRC,
+                             False),
+                            ("logits program decoder", TR_SRC, True)):
+        q, k, v = randn(bh, tq, d), randn(bh, TR_SRC, d), randn(bh, TR_SRC, d)
+        o, lse = flash_attention_fwd(q, k, v, src_bias, causal, scale)
+        p_o, p_lse = flash_attention_plain(q, k, v, src_bias, causal, scale)
+        err["tile"] = max(err["tile"], rel(o, p_o))
+        assert (lse - p_lse).abs().max().item() <= 1e-4, ("lse", tag)
+        again = flash_attention_fwd(q, k, v, src_bias, causal, scale)
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), tag
+        pairs = bh * (tq * (tq + 1) // 2 if causal else tq * TR_SRC)
+        per["translate %s q [%d, %d, %d], k/v [%d, %d, %d], key bias%s" % (
+            tag, bh, tq, d, bh, TR_SRC, d, ", causal" if causal else "")] = \
+            _attn_times(
+                lambda: flash_attention_fwd(q, k, v, src_bias, causal, scale),
+                lambda: flash_attention_plain(q, k, v, src_bias, causal,
+                                              scale),
+                library(q, k, v, src_bias, causal),
+                4 * (2 * bh * tq * d + 2 * bh * TR_SRC * d + bh * TR_SRC
+                     + bh * tq), 4 * pairs * d,
+                fa.flash_plan("fwd", tq, TR_SRC, d) == fa.FLASH_TC)
+    assert err["tile"] <= 1e-4, ("tile forward disagrees", err["tile"])
+
+    # B5 at the steps' projections (the paths' own mul ops: library_ms)
+    mm_err, per = 0.0, rec["matmul_bias_act"]["per_shape"]
+    D, FF, V = HP_D_MODEL, 4 * HP_D_MODEL, HP_VOCAB
+    for m in (TR_BATCH, TR_BATCH * TR_WIDTH, TR_BATCH * TR_SRC):
+        shapes = ((D, D, False, ""),) if m == TR_BATCH * TR_SRC else (
+            (D, D, False, ""), (D, FF, True, "relu"), (FF, D, True, ""),
+            (D, V, False, ""))
+        for k_, n, has_bias, act in shapes:
+            x, w = randn(m, k_), randn(k_, n, scale=k_ ** -0.5)
+            b = randn(n) if has_bias else None
+            out = matmul_bias_act(x, w, b, act)
+            mm_err = max(mm_err, (out - matmul_bias_act_plain(
+                x, w, b, act)).abs().max().item())
+            assert torch.equal(out, matmul_bias_act(x, w, b, act)), (m, k_, n)
+            if m == TR_BATCH * TR_WIDTH:
+                continue  # checked; the one-token and k/v shapes are timed
+            if act:
+                lib = lambda: F.relu(torch.addmm(b, x, w))  # noqa: E731
+            elif has_bias:
+                lib = lambda: torch.addmm(b, x, w)  # noqa: E731
+            else:
+                lib = lambda: torch.mm(x, w)  # noqa: E731
+            plan = mm_plan(m, n, k_)
+            per["translate mul M %d [%d, %d] @ [%d, %d]%s%s" % (
+                m, m, k_, k_, n, " + bias" if has_bias else "",
+                " " + act if act else "")] = dict(
+                    ms=_time_ms(lambda: matmul_bias_act(x, w, b, act)),
+                    plain_ms=_time_ms(lambda: matmul_bias_act_plain(
+                        x, w, b, act)),
+                    library_ms=_time_ms(lib),
+                    **_bounds(4 * (m * k_ + k_ * n + (n if has_bias else 0)
+                                   + m * n), 2 * m * k_ * n,
+                              plan.form == TILED),
+                    plan=list(plan))
+    assert mm_err <= 1e-4, ("matmul_bias_act disagrees", mm_err)
+
+    # B1: the step's rows and the encoder's
+    ln_err, per = 0.0, rec["fused_layer_norm"]["per_shape"]
+    for r in (TR_BATCH, TR_BATCH * TR_WIDTH, TR_BATCH * TR_SRC):
+        x = randn(r, HP_D_MODEL, scale=2.0) + 0.5
+        gam, bet = randn(HP_D_MODEL), randn(HP_D_MODEL)
+        outs = fused_layer_norm(x, gam, bet, 1e-5)
+        for got, want in zip(outs, layer_norm_plain(x, gam, bet, 1e-5)):
+            ln_err = max(ln_err, (got - want).abs().max().item())
+        assert all(torch.equal(a, b) for a, b in zip(
+            outs, fused_layer_norm(x, gam, bet, 1e-5))), r
+        H = HP_D_MODEL
+        b_, fl = _bound_ms(8 * r * H + 8 * H + 8 * r, 8 * r * H)
+        per["translate [%d, %d]" % (r, H)] = dict(
+            plan=list(ln_plan(r, H)),
+            ms=_time_ms(lambda: fused_layer_norm(x, gam, bet, 1e-5)),
+            plain_ms=_time_ms(lambda: layer_norm_plain(x, gam, bet, 1e-5)),
+            library_ms=_time_ms(lambda: F.layer_norm(x, (H,), gam, bet,
+                                                     1e-5)),
+            bound_ms=b_, bound_by=fl)
+    assert ln_err <= 1e-5, ("fused_layer_norm disagrees", ln_err)
+    torch.cuda.synchronize()
+    print("translate kernels held to their plain versions at the translate "
+          "shapes: B3d %.3g abs, B9 %.3g rel, B3 tile %.3g rel, B5 %.3g abs, "
+          "B1 %.3g abs; reruns bit-equal" % (
+              err["rows"], err["piece"], err["tile"], mm_err, ln_err))
+    for name in ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
+                 "flash_attention_fwd", "matmul_bias_act",
+                 "fused_layer_norm"):
+        for tag, t in rec[name]["per_shape"].items():
+            if tag.startswith("translate"):  # B5's: no launch on the path
+                print("%s %s: %s" % (name, tag, json.dumps(t)))
 
 def _visible(t, causal, window=0, seg=None, dev=None):
     """[BH or 1, T, T] bool: the (query, key) pairs the causal mask, the
@@ -4142,7 +4410,11 @@ def _decode_on_card(label, hp, t_max, batch, prompt_len, width, new, seed,
               "one-token step attention" % (label, attn))
 
         compiles = exe.compile_count
-        cap = _decode_legs(label, step, cache_start, fetch, prompts, prefill)
+        cap = _decode_legs(
+            label + " decode", step,
+            lambda exe_: gpt2.greedy_generate_cached(
+                exe_, step, cache_start, fetch, prompts, CAPTURE_NEW,
+                prefill=prefill))
         reports = {}
         if profile_dir:
             from torch.profiler import ProfilerActivity, profile
@@ -4173,18 +4445,17 @@ def _decode_on_card(label, hp, t_max, batch, prompt_len, width, new, seed,
     return runs.totals, _capture_line(label + " decode", cap)
 
 
-def _decode_legs(label, step, cache_start, fetch, prompts, prefill):
-    """Cached greedy generation of CAPTURE_NEW tokens, twice, on a fresh
-    executor eagerly (use_program_cache=False) and on another captured:
-    the logits of every run (the chunked prefill's and the one-token
-    steps') bit for bit.  Returns the eager one-token step's p50 and each
-    leg's peak memory."""
+def _decode_legs(label, step, generate):
+    """`generate(exe)`, a cached greedy generation of CAPTURE_NEW tokens,
+    twice, on a fresh executor eagerly (use_program_cache=False) and on
+    another captured: the logits of every run that fetches (a chunked
+    prefill's, the one-token steps') bit for bit.  Returns the eager
+    one-token step's (`step`'s) p50 and each leg's peak memory."""
     import hashlib
 
     import torch
 
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.models import gpt2
 
     legs = {}
     for mode in ("eager", "captured"):
@@ -4208,15 +4479,14 @@ def _decode_legs(label, step, cache_start, fetch, prompts, prefill):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
-            gpt2.greedy_generate_cached(exe, step, cache_start, fetch,
-                                        prompts, CAPTURE_NEW, prefill=prefill)
+            generate(exe)
         legs[mode] = (digests, times, torch.cuda.max_memory_allocated())
         exe.close()
     assert legs["eager"][0] == legs["captured"][0] and legs["eager"][0], (
         "captured != eager decode logits", label)
-    print("%s decode: %d runs' logits (2 greedy generations of %d tokens) "
-          "bit for bit eagerly and captured" % (label, len(legs["eager"][0]),
-                                                CAPTURE_NEW))
+    print("%s: %d runs' logits (2 greedy generations of %d tokens) bit for "
+          "bit eagerly and captured" % (label, len(legs["eager"][0]),
+                                        CAPTURE_NEW))
     return {"eager_p50_ms": _p50_ms(legs["eager"][1]),
             "replay_p50_ms": _p50_ms(legs["captured"][1]),
             "eager_peak_gb": legs["eager"][2] / 1e9,
@@ -4420,6 +4690,385 @@ def decode_gpt2_small_speculative(dev, scope):
           "program's; %s" % json.dumps(runs.totals))
     return runs.totals
 
+
+def _translate_hp(fused_attn=True, **narrow):
+    """Transformer-base (ModelHyperParams: vocab 10000 / 10000, d_model
+    512, 8 heads, 6 + 6 layers, max_length 256) with dropout 0: at
+    ModelHyperParams' 0.1 the is_test dropout ops scale by 0.9, and the
+    logits program has one after each embedding where the decode programs
+    have none, so the cached loops would not decode the full loops'
+    model (in the reference too)."""
+    from paddle_tpu_torch.models import transformer
+
+    return type("TransformerBase", (transformer.ModelHyperParams,),
+                dict(narrow, dropout=0.0, fused_attn=fused_attn))
+
+
+def _translate_batch(batch, seed):
+    """make_fake_batch's sources (lengths 32-64 of 64) and their lengths."""
+    from paddle_tpu_torch.models import transformer
+
+    fake = transformer.make_fake_batch(batch, TR_SRC, TR_SRC, seed=seed)
+    lens = (fake["src_slf_attn_bias"][:, 0, 0, :] == 0).sum(-1)
+    return fake["src_word"], lens
+
+
+def _log_probs(logits):
+    """float64 log-softmax of [..., V] logits."""
+    import numpy as np
+
+    x = np.asarray(logits, np.float64)
+    m = x.max(-1, keepdims=True)
+    return x - m - np.log(np.exp(x - m).sum(-1, keepdims=True))
+
+
+def translate_transformer_base(dev, profile_dir=None):
+    """Transformer-base translation on the card (random weights from a
+    seed through transformer_logits_program's startup, dropout 0):
+    transformer_decode_programs at batch TR_BATCH, t_max TR_TMAX, one
+    token and TR_WIDTH wide, over make_fake_batch's sources (64 tokens,
+    lengths 32-64).  After two warm-up rounds of every key:
+    greedy_translate_cached over the whole t_max (255 steps); a second
+    source batch through the same executor, no new capture, equal bit
+    for bit to a fresh executor's; beam_translate_cached (beam 4 over 4
+    sentences, 64 steps, the reorder every step), each best hypothesis's
+    score equal to its log-probability from force-decoding it; seeded
+    sample_translate_cached (64 steps) twice, bit for bit;
+    force_decode_logits_cached (16 wide over the greedy output's first
+    64 tokens) against the greedy run's one-token steps; then
+    greedy_translate and beam_translate on the logits program (64 / 64)
+    with fused_attn on and off: the cached greedy's logits within 1e-4
+    relative step by step, its tokens equal wherever the top-2 margin
+    exceeds 1e-3, the beams finite.  Every run's launches are held to
+    its program's.  Prints the encoder ms, the one-token step's p50,
+    output tokens/s, the beam step's p50 and force-decode tokens/s;
+    the eager and captured greedy (CAPTURE_NEW tokens, twice) bit for
+    bit; with a profile dir, 8 one-token steps each way under the
+    profiler.  Returns (the cached loops' launches, the full loops',
+    the capture record)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tfm
+
+    hp, hp_unfused = _translate_hp(True), _translate_hp(False)
+    scope = ptt.Scope()
+    with ptt.scope_guard(scope):
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        logits_main, start, _, logits_fetch = tfm.transformer_logits_program(
+            hp, src_len=TR_SRC, trg_len=TR_FULL)
+        unfused_main, _, _, unfused_fetch = tfm.transformer_logits_program(
+            hp_unfused, src_len=TR_SRC, trg_len=TR_FULL)
+        start.random_seed = 1238
+        exe.run(start)
+        progs = tfm.transformer_decode_programs(
+            hp, batch=TR_BATCH, src_len=TR_SRC, t_max=TR_TMAX)
+        wide = tfm.transformer_decode_programs(
+            hp, batch=TR_BATCH, src_len=TR_SRC, t_max=TR_TMAX,
+            width=TR_WIDTH)
+        enc, step = progs[0], progs[1]
+        src_a, lens_a = _translate_batch(TR_BATCH, 0)
+        src_b, lens_b = _translate_batch(TR_BATCH, 1)
+        beam_src, beam_lens = src_a[:TR_BEAM_SENTS], lens_a[:TR_BEAM_SENTS]
+        bos, eos = 1, -1  # no early end: every loop runs its length
+
+        def greedy(exe_, src, lens, n=None):
+            return tfm.greedy_translate_cached(exe_, progs, src, lens, bos,
+                                               eos, max_out_len=n)
+
+        def beam(n):
+            return tfm.beam_translate_cached(exe, progs, beam_src, beam_lens,
+                                             bos, eos, beam_size=TR_BEAM,
+                                             max_out_len=n)
+
+        trg_probe = np.ones((TR_BATCH, TR_FULL), "int64")
+        for _ in range(2):  # every key's warm-up, then its capture
+            greedy(exe, src_a, lens_a, 4)
+            beam(4)
+            tfm.force_decode_logits_cached(exe, wide, src_a, lens_a,
+                                           trg_probe)
+        runs = _DecodeRuns(exe)
+        compiles = exe.compile_count
+
+        def keep_head(lg, k):
+            """Every step's logits finite; the first TR_FULL kept (all
+            255 would page in 163 MB of fresh host memory while timed)."""
+            assert np.isfinite(lg).all(), k
+            return lg if k < TR_FULL else None
+
+        runs.keep[id(step)] = keep_head
+        out_a = greedy(exe, src_a, lens_a)
+        n_steps = TR_TMAX - 1
+        assert out_a.shape == (TR_BATCH, TR_TMAX), out_a.shape
+        assert len(runs.kept[id(step)]) == n_steps
+        greedy_logits = runs.kept.pop(id(step))[:TR_FULL]
+        step_times = runs.times[id(step)][-n_steps:]
+        step_p50 = _p50_ms(step_times)
+        del runs.keep[id(step)]
+
+        # a second source batch: no new capture, and the fresh
+        # executor's tokens and logits bit for bit
+        runs.keep[id(step)] = lambda lg, k: hashlib.sha256(
+            lg.tobytes()).digest()
+        out_b = greedy(exe, src_b, lens_b)
+        digests_b = runs.kept.pop(id(step))
+        del runs.keep[id(step)]
+        assert not (out_b == out_a).all()
+        fresh = ptt.Executor(ptt.CUDAPlace(0))
+        fresh_digests = []
+        run_fresh = fresh.run
+
+        def digesting(program=None, feed=None, fetch_list=None, **kw):
+            out = run_fresh(program, feed=feed, fetch_list=fetch_list, **kw)
+            if program is step:
+                fresh_digests.append(hashlib.sha256(out[0].tobytes()).digest())
+            return out
+
+        fresh.run = digesting
+        np.testing.assert_array_equal(greedy(fresh, src_b, lens_b), out_b)
+        assert fresh_digests == digests_b, "second batch != fresh executor"
+        fresh.close()
+
+        # beam 4 over 4 sentences, 64 steps, the reorder before each
+        n_bsteps = len(runs.times[id(step)])
+        reorders = runs.feeds[("parents",)]
+        ids, scores = beam(TR_STEPS + 1)
+        b_times = runs.times[id(step)][n_bsteps:]
+        assert len(b_times) == TR_STEPS, len(b_times)
+        assert runs.feeds[("parents",)] - reorders == TR_STEPS - 1
+        assert ids.shape == (TR_BEAM_SENTS, TR_STEPS + 1)
+        assert np.isfinite(scores).all(), scores
+
+        # seeded sampling, twice
+        samples = [tfm.sample_translate_cached(
+            exe, progs, src_a, lens_a, bos, eos, max_out_len=TR_STEPS + 1,
+            top_k=40, top_p=0.9, seed=0) for _ in range(2)]
+        np.testing.assert_array_equal(samples[0], samples[1])
+        assert ((samples[0] >= 0) & (samples[0] < HP_VOCAB)).all()
+
+        # force-decode: the greedy output's first 64 tokens, 16 wide,
+        # against the greedy run's one-token steps; then the beams'
+        # best hypotheses, whose log-probabilities are their scores
+        n_wide = len(runs.times.get(id(wide[1]), []))
+        forced = tfm.force_decode_logits_cached(exe, wide, src_a, lens_a,
+                                                out_a[:, :TR_FULL])
+        force_s = sum(runs.times[id(wide[1])][n_wide:])
+        n_chunks = len(runs.times[id(wide[1])]) - n_wide
+        assert n_chunks == TR_FULL // TR_WIDTH, n_chunks
+        force_err = max(_rel_err(forced[:, t], greedy_logits[t])
+                        for t in range(TR_FULL))
+        assert force_err <= 1e-4, ("force-decode != one-token steps",
+                                   force_err)
+        rep = np.repeat(np.arange(TR_BEAM_SENTS), TR_BATCH // TR_BEAM_SENTS)
+        rescored = tfm.force_decode_logits_cached(
+            exe, wide, beam_src[rep], beam_lens[rep], ids[rep])
+        lp = _log_probs(rescored[::TR_BATCH // TR_BEAM_SENTS, :TR_STEPS])
+        logprob = np.take_along_axis(lp, ids[:, 1:, None], -1)[..., 0].sum(1)
+        score_err = float(np.abs(logprob - scores).max()
+                          / np.abs(logprob).max())
+        assert score_err <= 1e-4, ("beam scores != rescored", scores,
+                                   logprob)
+        assert exe.compile_count == compiles, (
+            "a translate captured again", compiles, exe.compile_count)
+        enc_p50 = _p50_ms(runs.times[id(enc)])
+        cached_totals = dict(runs.totals)
+
+        # the full re-decode loops on the logits program, fused_attn on
+        # and off, against the cached greedy step by step
+        full_err, compared, near_ties = 0.0, {}, 0
+        for tag, main, fetch in (("fused_attn", logits_main, logits_fetch),
+                                 ("unfused", unfused_main, unfused_fetch)):
+            runs.keep[id(main)] = lambda lg, k: np.array(lg[:, k])
+            full = tfm.greedy_translate(exe, main, fetch, src_a, lens_a, bos,
+                                        eos)
+            assert full.shape == (TR_BATCH, TR_FULL)
+            compared[tag] = 0
+            for i, b in enumerate(runs.kept.pop(id(main))):
+                full_err = max(full_err, _rel_err(greedy_logits[i], b))
+                assert full_err <= 1e-4, ("cached != full logits", tag, i,
+                                          full_err)
+                compared[tag] += 1
+                top2 = np.sort(b, axis=-1)[:, -2:]
+                clear = top2[:, 1] - top2[:, 0] > 1e-3
+                tok_c, tok_f = out_a[:, i + 1], full[:, i + 1]
+                assert (tok_c == tok_f)[clear].all(), (
+                    "cached != full tokens", tag, i)
+                if not (tok_c == tok_f).all():
+                    near_ties += 1
+                    break  # a near tie decided differently: rows diverge
+            del runs.keep[id(main)]
+            f_ids, f_scores = tfm.beam_translate(
+                exe, main, fetch, beam_src, beam_lens, bos, eos,
+                beam_size=TR_BEAM, max_out_len=TR_FULL)
+            assert f_ids.shape == (TR_BEAM_SENTS, TR_FULL)
+            assert np.isfinite(f_scores).all(), f_scores
+            n = min(f_ids.shape[1], ids.shape[1])
+            print("transformer-base translate: full re-decode (%s) greedy == "
+                  "cached over %d steps; beam %d: %d of %d sentences' ids "
+                  "equal to the cached beam's first %d" % (
+                      tag, compared[tag], TR_BEAM,
+                      int((f_ids[:, :n] == ids[:, :n]).all(1).sum()),
+                      TR_BEAM_SENTS, n))
+        assert all(n == TR_FULL - 1 for n in compared.values()) or near_ties
+        full_totals = {n: runs.totals[n] - cached_totals[n]
+                       for n in runs.totals}
+        for name in TRANSLATE_KERNELS:
+            assert cached_totals[name] > 0, ("not launched", name)
+        # no fuse pass: every projection is a mul op (cuBLAS), as in the
+        # reference, whose mul is XLA's dot and no Pallas kernel
+        assert cached_totals["matmul_bias_act"] == 0
+        print("transformer-base translate: batch %d, source %d (lengths "
+              "%d-%d), t_max %d; encoder p50 %.3f ms; greedy %d steps, "
+              "one-token step p50 %.3f ms (mean %.3f), %.1f output tokens/s; "
+              "a second batch through the same executor captured nothing "
+              "(compile_count %d) and equals a fresh executor's bit for bit; "
+              "beam %d over %d: %d steps, step p50 %.3f ms, scores %s equal "
+              "their rescored log-probabilities within %.3g; sampled twice "
+              "bit for bit; force-decode %d wide over %d targets within %.3g "
+              "of the one-token steps, %d dispatches in %.2f ms (%.1f "
+              "tokens/s); cached == full re-decode logits within %.3g "
+              "(%d near-tie stops)" % (
+                  TR_BATCH, TR_SRC, lens_a.min(), lens_a.max(), TR_TMAX,
+                  enc_p50, n_steps, step_p50,
+                  1e3 * sum(step_times) / len(step_times),
+                  TR_BATCH * 1e3 / step_p50, compiles, TR_BEAM,
+                  TR_BEAM_SENTS, TR_STEPS, _p50_ms(b_times), scores.tolist(),
+                  score_err, TR_WIDTH, TR_FULL, force_err, n_chunks,
+                  force_s * 1e3, TR_BATCH * TR_FULL / force_s, full_err,
+                  near_ties))
+
+        cap = _decode_legs("transformer-base translate", step,
+                           lambda exe_: greedy(exe_, src_a, lens_a,
+                                               CAPTURE_NEW + 1))
+        cap.update(captured_p50_ms=step_p50, compile_count=compiles,
+                   encoder_p50_ms=enc_p50)
+
+        reports = {}
+        if profile_dir:
+            # the 16-wide step: the 4 dispatches of the greedy output's
+            # force-decode (after one outside the window: the full loops'
+            # warm-ups released the graphs); then 8 one-token steps each
+            # way
+            profile_training(lambda: tfm.force_decode_logits_cached(
+                exe, wide, src_a, lens_a, out_a[:, :TR_FULL]), profile_dir,
+                             steps=1, name="translate_force_decode")
+            feed = {"trg_tok": np.ascontiguousarray(out_a[:, -1:]),
+                    "pos": np.array([TR_TMAX - 2], "int64")}
+            for mode, cached_ in (("captured", True), ("eager", False)):
+                reports[mode] = profile_training(
+                    lambda: exe.run(step, feed=feed, fetch_list=progs[6],
+                                    use_program_cache=cached_),
+                    profile_dir, steps=8,
+                    name="translate" + ("" if cached_ else "_eager"))
+    # the cross-attention k/v projections of enc_out rerun every step,
+    # as in the reference: 2 per layer of [B * Ts, D] @ [D, D], timed
+    # alone (CUDA-graph replay) against the step
+    x = torch.randn(TR_BATCH * TR_SRC, HP_D_MODEL, device=dev)
+    w = torch.randn(HP_D_MODEL, HP_D_MODEL, device=dev)
+    kv_ms = 2 * hp.n_layer * _time_ms(lambda: torch.mm(x, w))
+    cap["cross_kv_projection_ms"] = kv_ms
+    cap["cross_kv_projection_share_of_p50"] = kv_ms / step_p50
+    busy = (reports.get("captured") or {}).get("device_busy_us")
+    cap["cross_kv_projection_share_of_busy"] = (
+        kv_ms * 1e3 * 8 / busy if busy else "not profiled")
+    print("transformer-base translate: the cross k/v projections of enc_out "
+          "(%d x [%d, %d] @ [%d, %d] a step) take %.4f ms alone, %.3f of the "
+          "captured step's p50, %s of its device busy time" % (
+              2 * hp.n_layer, TR_BATCH * TR_SRC, HP_D_MODEL, HP_D_MODEL,
+              HP_D_MODEL, kv_ms, kv_ms / step_p50,
+              cap["cross_kv_projection_share_of_busy"]))
+    _busy_idle(cap, reports)
+    return cached_totals, full_totals, _capture_line(
+        "transformer-base translate", cap)
+
+
+def translate_card_matches_cpu(dev):
+    """A narrow Transformer (vocab 1000 / 997, d_model 128, 2 heads of 64,
+    2 + 2 layers, max_length 32, fused_attn) translated on the card and
+    on the CPU plain path from the same weights: greedy, seeded sample
+    (top-k 8, top-p 0.9, temperature 0.8) and beam 3 over 2 sentences of
+    12 tokens at t_max 16, force-decode 4 wide over 10 targets, and the
+    full re-decode greedy on the logits program.  Tokens and ids equal,
+    scores and every run's logits within 1e-5 relative; the card's runs
+    launched B3d, B9, B3's forward and B1 (and no B5: the projections are
+    mul ops)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import transformer as tfm
+
+    narrow = _translate_hp(True, src_vocab_size=1000, trg_vocab_size=997,
+                           max_length=32, d_model=128, d_inner_hid=256,
+                           n_head=2, n_layer=2)
+    ts, t_max = 12, 16
+    rng = np.random.RandomState(5)
+    src = rng.randint(2, 1000, (2, ts)).astype("int64")
+    lens = np.array([ts, 7])
+    trg = rng.randint(1, 997, (2, 10)).astype("int64")
+    results, logits = {}, {}
+    launched = {fn.__name__: 0 for fn in kernels.KERNELS}
+    for kind in ("cpu", "cuda"):
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+            exe = ptt.Executor(place)
+            main, startup, _, fetch = tfm.transformer_logits_program(
+                narrow, src_len=ts, trg_len=t_max)
+            if kind == "cpu":
+                startup.random_seed = 8
+                exe.run(startup)
+                weights = {n: scope.find_var(n).clone()
+                           for n in scope.local_var_names()}
+            else:
+                for n, w in weights.items():
+                    scope.set(n, w.to(dev))
+            progs = {rows: tfm.transformer_decode_programs(
+                narrow, batch=rows, src_len=ts, t_max=t_max)
+                for rows in (2, 6)}
+            wide = tfm.transformer_decode_programs(
+                narrow, batch=2, src_len=ts, t_max=t_max, width=4)
+            seen = logits[kind] = []
+            run = exe.run
+
+            def recording(program=None, feed=None, fetch_list=None, **kw):
+                kernels.reset_launch_counts()
+                out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+                if kind == "cuda":
+                    for fn in kernels.KERNELS:
+                        launched[fn.__name__] += fn.launches
+                if fetch_list:
+                    seen.append(out[0])
+                return out
+
+            exe.run = recording
+            results[kind] = (
+                tfm.greedy_translate_cached(exe, progs[2], src, lens, 1, 996),
+                tfm.sample_translate_cached(exe, progs[2], src, lens, 1, 996,
+                                            temperature=0.8, top_k=8,
+                                            top_p=0.9, seed=1),
+                *tfm.beam_translate_cached(exe, progs[6], src, lens, 1, 996,
+                                           beam_size=3),
+                tfm.greedy_translate(exe, main, fetch, src, lens, 1, 996))
+            seen.append(tfm.force_decode_logits_cached(exe, wide, src, lens,
+                                                       trg))
+    cpu, card = results["cpu"], results["cuda"]
+    for i in (0, 1, 2, 4):
+        np.testing.assert_array_equal(card[i], cpu[i])
+    np.testing.assert_allclose(card[3], cpu[3], rtol=1e-5)
+    assert len(logits["cpu"]) == len(logits["cuda"]) > 0
+    err = max(_rel_err(b, a) for a, b in zip(logits["cpu"], logits["cuda"]))
+    assert err <= 1e-5, ("card != CPU translate logits", err)
+    assert all(launched[n] for n in TRANSLATE_KERNELS), (
+        "a kernel did not launch", launched)
+    assert launched["matmul_bias_act"] == 0, launched
+    print("narrow transformer translated on the card vs the CPU plain path "
+          "(greedy, sample, beam, force-decode, full re-decode): tokens "
+          "equal, %d runs' logits within %.3g relative; launches %s" % (
+              len(logits["cpu"]), err, json.dumps(launched)))
 
 def check_recurrent(dev, randn, g):
     """fused_lstm (B11) and fused_gru (B10) against their plain versions
@@ -5299,6 +5948,13 @@ def main():
                                               "fused_layer_norm"))
     lap("narrow modern decode, card vs CPU")
     torch.cuda.empty_cache()
+    (translated, translated_full,
+     caps["transformer_translate"]) = translate_transformer_base(
+         dev, profile_dir)
+    lap("transformer-base translate")
+    translate_card_matches_cpu(dev)
+    lap("narrow translate, card vs CPU")
+    torch.cuda.empty_cache()
     trained_lstm, caps["lstm_training"] = train_stacked_lstm(dev, profile_dir)
     lstm_train_card_matches_cpu(dev)
     lap("lstm training")
@@ -5333,7 +5989,7 @@ def main():
     torch.cuda.empty_cache()
     resnet_card_matches_cpu(dev)
     lap("narrow resnet, card vs CPU")
-    assert sum(c["captured"] for c in caps.values()) == 18, caps
+    assert sum(c["captured"] for c in caps.values()) == 19, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
             "the captured step is not faster than the eager one", path,
@@ -5356,6 +6012,8 @@ def main():
                    "wmt_fused_attn_training": trained_wmt_fused[name],
                    "gpt2_decode": decoded[name],
                    "llama_decode": decoded_llama[name],
+                   "transformer_translate": translated[name],
+                   "transformer_translate_full": translated_full[name],
                    "lstm_training": trained_lstm[name],
                    "seq2seq_training": trained_s2s[name],
                    "seq2seq_decode": decoded_s2s[name],

@@ -5,19 +5,27 @@ the encoder-decoder Transformer-base of the WMT training program
 (batched matmul / softmax / dropout), the fused (flash) form, and the
 cached forms of the decode step (one token or a chunk at a scalar
 position) and of the serving step (ragged), each with grouped-query
-attention and rotary positions as options.  Parameter names (mha_q.w
-... softmax_out.w) are the reference's, so the programs built here list
-the same ops over the same names as the reference's."""
+attention and rotary positions as options.  Translation: the logits
+program with the full re-decode greedy and beam loops, and the KV-cached
+decode programs (encoder once, then one cached decoder step a token, or
+W known tokens a dispatch) with their greedy, beam and sampled loops and
+chunked teacher-forced rescoring.  Parameter names (mha_q.w ...
+softmax_out.w) are the reference's, so the programs built here list the
+same ops over the same names as the reference's."""
 
 import numpy as np
 
-from .. import layers, unique_name
+from .. import framework, layers, unique_name
 from ..initializer import Normal, NumpyArrayInitializer
 from ..param_attr import ParamAttr
 
 __all__ = ["ModelHyperParams", "multi_head_attention", "transformer",
            "wmt_transformer_program", "make_fake_batch", "pad_bias",
-           "causal_plus_pad_bias"]
+           "causal_plus_pad_bias", "transformer_logits_program",
+           "greedy_translate", "greedy_translate_cached",
+           "beam_translate_cached", "sample_translate_cached",
+           "transformer_decode_programs", "force_decode_logits_cached",
+           "beam_translate"]
 
 
 def _pa(base):
@@ -281,17 +289,26 @@ def encoder_layer(x, attn_bias, hp, is_test=False, kpad_bias=None):
 
 
 def decoder_layer(x, enc_out, self_bias, cross_bias, hp, is_test=False,
-                  self_kpad=None, cross_kpad=None):
-    """The training form (the reference's cached decode step is still to
-    port)."""
+                  self_kpad=None, cross_kpad=None, cache=None):
+    """One decoder layer.  Without `cache` the training form; with
+    `cache` ({"k", "v", "pos"} and "pos_vec" when W > 1) x is the W
+    current target tokens: self-attention runs KV-cached (the decode
+    step's cache form, dropout 0) and cross-attention takes the fused
+    form over the whole enc_out with the rank-1 `cross_kpad`.  One
+    function builds both graphs, so the parameter order (weight sharing
+    by name) holds by construction."""
     fused = getattr(hp, "fused_attn", False)
     self_attn = multi_head_attention(
-        x, x, x, self_bias, hp.d_model, hp.n_head, hp.dropout, is_test,
-        fused=fused, kpad_bias=self_kpad, causal=fused)
+        x, x, x, self_bias if cache is None else None, hp.d_model,
+        hp.n_head, 0.0 if cache is not None else hp.dropout, is_test,
+        fused=fused or cache is not None,
+        kpad_bias=self_kpad if cache is None else None,
+        causal=fused and cache is None, cache=cache)
     x = pre_post_process(x, self_attn, hp.dropout, is_test)
     cross = multi_head_attention(
-        x, enc_out, enc_out, cross_bias, hp.d_model, hp.n_head, hp.dropout,
-        is_test, fused=fused, kpad_bias=cross_kpad)
+        x, enc_out, enc_out, cross_bias, hp.d_model, hp.n_head,
+        0.0 if cache is not None else hp.dropout, is_test,
+        fused=fused or cache is not None, kpad_bias=cross_kpad)
     x = pre_post_process(x, cross, hp.dropout, is_test)
     ffn = positionwise_ffn(x, hp.d_inner_hid, hp.d_model, hp.dropout, is_test)
     return pre_post_process(x, ffn, hp.dropout, is_test)
@@ -345,7 +362,7 @@ def wmt_transformer_program(hp=ModelHyperParams, src_len=64, trg_len=64,
     if use_bf16:
         raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
                                   "(ROADMAP A3)")
-    from .. import framework, optimizer
+    from .. import optimizer
     from ..transpiler.pass_registry import apply_pass
 
     main = framework.Program()
@@ -439,3 +456,408 @@ def make_fake_batch(batch_size, src_len, trg_len, hp=ModelHyperParams,
         "trg_src_attn_bias": pad_bias(src_lens, src_len),
         "lbl_weight": weights,
     }
+
+
+def transformer_logits_program(hp=ModelHyperParams, src_len=64, trg_len=64):
+    """Inference program fetching the [B, Tt, trg_vocab] logits, the
+    full re-decode loops' step.  Built under unique_name.guard(), so it
+    shares weights by name with wmt_transformer_program."""
+    main = framework.Program()
+    startup = framework.Program()
+    with framework.program_guard(main, startup), unique_name.guard():
+        src = layers.data("src_word", shape=[src_len], dtype="int64")
+        trg = layers.data("trg_word", shape=[trg_len], dtype="int64")
+        src_bias = layers.data("src_slf_attn_bias", shape=[1, 1, src_len],
+                               dtype="float32")
+        trg_bias = layers.data("trg_slf_attn_bias",
+                               shape=[1, trg_len, trg_len], dtype="float32")
+        cross_bias = layers.data("trg_src_attn_bias", shape=[1, 1, src_len],
+                                 dtype="float32")
+        trg_kpad = None
+        if getattr(hp, "fused_attn", False):
+            # the dense decoder bias's last causal row is pure key padding
+            # (causality adds 0 there): the rank-1 bias of the fused path
+            last_row = layers.slice(trg_bias, axes=[2], starts=[trg_len - 1],
+                                    ends=[trg_len])
+            trg_kpad = layers.reshape(last_row, [-1, trg_len])
+            trg_kpad.stop_gradient = True
+        logits = transformer(src, trg, src_bias, trg_bias, cross_bias, hp,
+                             is_test=True, trg_kpad_bias=trg_kpad)
+    feeds = ["src_word", "trg_word", "src_slf_attn_bias",
+             "trg_slf_attn_bias", "trg_src_attn_bias"]
+    return main, startup, feeds, [logits]
+
+
+def _translate_prologue(main, src_ids, src_lens, max_out_len):
+    """The full re-decode loops' prologue: the program's widths, the
+    source checked against them, its padding bias."""
+    blk = main.global_block()
+    src_len = int(blk.vars["src_word"].shape[1])
+    trg_len = int(blk.vars["trg_word"].shape[1])
+    max_out_len = min(max_out_len or trg_len, trg_len)
+    src_ids = np.asarray(src_ids, "int64")
+    b, p = src_ids.shape
+    assert p == src_len, "src must be padded to the program's %d" % src_len
+    src_lens = np.asarray(src_lens).reshape(-1)
+    return (src_ids, src_lens, pad_bias(src_lens, src_len), trg_len,
+            max_out_len, b)
+
+
+def greedy_translate(exe, main, fetches, src_ids, src_lens, bos_id, eos_id,
+                     max_out_len=None, pad_id=0):
+    """Greedy decoding on transformer_logits_program: every step re-runs
+    the whole fixed-shape program and reads the logits at the last real
+    position (causal masking hides the padded target tail).  src_ids
+    [B, Ts] int64, src_lens [B]; returns [B, T_out] int64 rows starting
+    with bos_id, stopping once every row has emitted eos_id."""
+    src_ids, src_lens, src_bias, trg_len, max_out_len, b = \
+        _translate_prologue(main, src_ids, src_lens, max_out_len)
+    trg = np.full((b, trg_len), pad_id, "int64")
+    trg[:, 0] = bos_id
+    done = np.zeros(b, bool)
+    cur = 1
+    while cur < max_out_len and not done.all():
+        feed = {
+            "src_word": src_ids,
+            "trg_word": trg,
+            "src_slf_attn_bias": src_bias,
+            "trg_slf_attn_bias": causal_plus_pad_bias(np.full(b, cur),
+                                                      trg_len),
+            "trg_src_attn_bias": src_bias,
+        }
+        (logits,) = exe.run(main, feed=feed, fetch_list=fetches)
+        nxt = np.asarray(logits)[:, cur - 1, :].argmax(axis=-1)
+        nxt = np.where(done, pad_id, nxt)
+        trg[:, cur] = nxt
+        done |= nxt == eos_id
+        cur += 1
+    return trg[:, :cur]
+
+
+def beam_translate(exe, main, fetches, src_ids, src_lens, bos_id, eos_id,
+                   beam_size=4, max_out_len=None, pad_id=0,
+                   length_penalty=0.0):
+    """Beam-search decoding on transformer_logits_program (the feed
+    contract of greedy_translate).  Returns (ids [B, T_out], scores
+    [B])."""
+    from ..contrib.decoder.beam_search_decoder import full_sequence_beam_search
+
+    src_ids, src_lens, src_bias, trg_len, max_out_len, b = \
+        _translate_prologue(main, src_ids, src_lens, max_out_len)
+    src_rep = np.repeat(src_ids, beam_size, axis=0)
+    src_bias_rep = np.repeat(src_bias, beam_size, axis=0)
+    trg0 = np.full((b, trg_len), pad_id, "int64")
+    trg0[:, 0] = bos_id
+
+    def logits_fn(rows, cur):
+        feed = {
+            "src_word": src_rep,
+            "trg_word": rows,
+            "src_slf_attn_bias": src_bias_rep,
+            "trg_slf_attn_bias": causal_plus_pad_bias(
+                np.full(rows.shape[0], cur), trg_len),
+            "trg_src_attn_bias": src_bias_rep,
+        }
+        (logits,) = exe.run(main, feed=feed, fetch_list=fetches)
+        return np.asarray(logits)[:, cur - 1, :]
+
+    return full_sequence_beam_search(logits_fn, trg0, 1, beam_size,
+                                     max_out_len, eos_id, pad_id,
+                                     length_penalty)
+
+
+def transformer_decode_programs(hp=ModelHyperParams, batch=1, src_len=64,
+                                t_max=None, width=1):
+    """KV-cached seq2seq decoding as three programs over one scope's
+    persistable state (weights shared by name with
+    wmt_transformer_program and transformer_logits_program):
+
+      enc_main:  feeds src_word [B, Ts] and src_slf_attn_bias
+                 [B, 1, 1, Ts]; runs the encoder once and persists
+                 tfm_enc_out_cache [B, Ts, D] and the cross-attention
+                 key-padding row tfm_cross_kpad_cache [B, Ts];
+      step_main: feeds trg_tok [B, W] and pos [1] (and pos_vec [W] when
+                 W > 1); one cached decoder step (self-attention over
+                 the per-layer tfm_{k,v}cache_<i>, offset-causal when
+                 W > 1, and W-query cross-attention over the persisted
+                 enc_out); fetches logits [B, trg_vocab] (W 1) or
+                 [B, W, trg_vocab];
+      cache_startup: zeroes all of that state.
+
+    A token costs O((t_max + Ts) d) instead of the full re-decode's
+    O(t_max^2 d); W > 1 scores W known target positions a dispatch (the
+    rescoring step of force_decode_logits_cached).  Returns (enc_main,
+    step_main, cache_startup, enc_feeds, step_feeds, enc_fetch,
+    step_fetch)."""
+    from .decode_cache import add_cache_zero_fills, create_kv_caches
+
+    t_max = t_max or hp.max_length
+    assert t_max <= hp.max_length, (
+        "t_max %d exceeds hp.max_length %d" % (t_max, hp.max_length))
+    width = int(width)
+    assert 1 <= width <= t_max, (width, t_max)
+    dh = hp.d_model // hp.n_head
+    enc_main = framework.Program()
+    step_main = framework.Program()
+    cache_startup = framework.Program()
+    throwaway = framework.Program()  # weights come by name
+
+    with unique_name.guard():
+        # the encoder program: the source embedding and encoder layers
+        with framework.program_guard(enc_main, throwaway):
+            src = layers.data("src_word", shape=[batch, src_len],
+                              dtype="int64", append_batch_size=False)
+            src_bias = layers.data(
+                "src_slf_attn_bias", shape=[batch, 1, 1, src_len],
+                dtype="float32", append_batch_size=False)
+            src_kpad = layers.reshape(src_bias, [-1, src_len])
+            x = prepare_embedding(src, hp.src_vocab_size, hp.d_model,
+                                  hp.max_length, 0.0, "src_pos_enc_table",
+                                  is_test=True)
+            for _ in range(hp.n_layer):
+                x = encoder_layer(x, src_bias, hp, is_test=True,
+                                  kpad_bias=src_kpad)
+            eb = enc_main.global_block()
+            enc_cache = eb.create_var(
+                name="tfm_enc_out_cache", shape=[batch, src_len, hp.d_model],
+                dtype="float32", persistable=True)
+            kpad_cache = eb.create_var(
+                name="tfm_cross_kpad_cache", shape=[batch, src_len],
+                dtype="float32", persistable=True)
+            eb.append_op("assign", inputs={"X": [x]},
+                         outputs={"Out": [enc_cache]})
+            eb.append_op("assign", inputs={"X": [src_kpad]},
+                         outputs={"Out": [kpad_cache]})
+
+        # the step program: names continue with the target embedding and
+        # the decoder layers
+        with framework.program_guard(step_main, throwaway):
+            tok = layers.data("trg_tok", shape=[batch, width], dtype="int64",
+                              append_batch_size=False)
+            pos = layers.data("pos", shape=[1], dtype="int64",
+                              append_batch_size=False)
+            pos_vec = None
+            if width > 1:
+                pos_vec = layers.data("pos_vec", shape=[width],
+                                      dtype="int64", append_batch_size=False)
+            word = layers.embedding(
+                tok, size=[hp.trg_vocab_size, hp.d_model],
+                param_attr=ParamAttr(
+                    initializer=Normal(0.0, hp.d_model ** -0.5)),
+            )  # [B, W, D] (W 1 squeezes in the lookup)
+            word = layers.scale(
+                layers.reshape(word, shape=[batch, width, hp.d_model]),
+                scale=hp.d_model ** 0.5)
+            pos_table = layers.create_parameter(
+                shape=[hp.max_length, hp.d_model], dtype="float32",
+                name="trg_pos_enc_table",
+                attr=ParamAttr(name="trg_pos_enc_table", trainable=False,
+                               initializer=NumpyArrayInitializer(
+                                   _pos_encoding_table(hp.max_length,
+                                                       hp.d_model))))
+            if width == 1:
+                pos_row = layers.reshape(layers.gather(pos_table, pos),
+                                         shape=[1, 1, hp.d_model])
+                y = layers.elementwise_add(word, pos_row)
+            else:
+                pos_rows = layers.gather(pos_table, pos_vec)  # [W, D]
+                y = layers.elementwise_add(word, pos_rows, axis=1)
+            sb = step_main.global_block()
+            enc_ref = sb.create_var(
+                name="tfm_enc_out_cache", shape=[batch, src_len, hp.d_model],
+                dtype="float32", persistable=True)
+            kpad_ref = sb.create_var(
+                name="tfm_cross_kpad_cache", shape=[batch, src_len],
+                dtype="float32", persistable=True)
+            cache_names = ["tfm_enc_out_cache", "tfm_cross_kpad_cache"]
+            kv_caches, kv_names = create_kv_caches(
+                sb, "tfm", hp.n_layer, batch, hp.n_head, t_max, dh)
+            cache_names += kv_names
+            for cache in kv_caches:
+                cache["pos"] = pos
+                if pos_vec is not None:
+                    cache["pos_vec"] = pos_vec
+                y = decoder_layer(y, enc_ref, None, None, hp, is_test=True,
+                                  cross_kpad=kpad_ref, cache=cache)
+            logits = layers.fc(y, size=hp.trg_vocab_size, num_flatten_dims=2,
+                               bias_attr=False,
+                               param_attr=_pa("softmax_out.w"))
+            if width == 1:
+                logits = layers.reshape(logits,
+                                        shape=[batch, hp.trg_vocab_size])
+
+        # the zeroing program
+        add_cache_zero_fills(cache_startup, [
+            (cname, (enc_main.global_block()._find_var_recursive(cname)
+                     or sb._find_var_recursive(cname)).shape)
+            for cname in cache_names])
+
+    step_feeds = ["trg_tok", "pos"] + (["pos_vec"] if width > 1 else [])
+    return (enc_main, step_main, cache_startup,
+            ["src_word", "src_slf_attn_bias"], step_feeds,
+            ["tfm_enc_out_cache"], [logits])
+
+
+def _run_encoder(exe, enc_main, src_ids, src_lens, repeat=1):
+    """Run the encoder once: its persistable writes survive with no
+    fetch (fetching the [B, Ts, D] activation would be a wasted copy).
+    repeat > 1 replicates each source row for the beams."""
+    src_bias = pad_bias(src_lens, src_ids.shape[1])
+    if repeat > 1:
+        src_ids = np.repeat(src_ids, repeat, axis=0)
+        src_bias = np.repeat(src_bias, repeat, axis=0)
+    exe.run(enc_main, feed={"src_word": src_ids,
+                            "src_slf_attn_bias": src_bias}, fetch_list=[])
+
+
+def force_decode_logits_cached(exe, programs, src_ids, src_lens, trg_ids):
+    """Teacher-forced scoring through the cached decoder: the encoder
+    once, then the given target tokens in ceil(T/W) width-W dispatches
+    (programs from transformer_decode_programs(width=W)).  Returns
+    [B, T, V] logits, row t the next-token distribution after
+    trg_ids[:, t]: a hypothesis's log-probability without a token loop.
+    The last chunk re-anchors inside the cache bound (rewriting
+    identical slots is idempotent)."""
+    from .decode_cache import probe_cache_len, run_chunked_ids
+
+    (enc_main, step_main, cache_startup, _enc_feeds, step_feeds,
+     _enc_fetch, step_fetch) = programs
+    src_ids = np.asarray(src_ids, "int64")
+    trg_ids = np.asarray(trg_ids, "int64")
+    b, T = trg_ids.shape
+    sb = step_main.global_block()
+    step_b, width = (int(sb.vars["trg_tok"].shape[0]),
+                     int(sb.vars["trg_tok"].shape[1]))
+    assert b == step_b, (b, step_b)
+    t_max = probe_cache_len(step_main, "tfm")
+    assert T <= t_max, (T, t_max)
+    src_lens = np.asarray(src_lens).reshape(-1)
+
+    exe.run(cache_startup)
+    _run_encoder(exe, enc_main, src_ids, src_lens)
+    out = None
+    for c0, lg in run_chunked_ids(exe, step_main, step_fetch, trg_ids,
+                                  width, t_max, "trg_tok",
+                                  has_pos_vec="pos_vec" in step_feeds):
+        lg = lg.reshape(b, width, -1)
+        if out is None:
+            out = np.zeros((b, T, lg.shape[-1]), lg.dtype)
+        hi = min(c0 + width, T)
+        out[:, c0:hi] = lg[:, :hi - c0]
+    return out
+
+
+def _translate_cached_loop(exe, programs, src_ids, src_lens, bos_id,
+                           eos_id, max_out_len, pad_id, pick_fn):
+    """The cached loops' driver: check, zero the caches, run the encoder
+    once, then step the cached decoder; pick_fn(logits [B, V]) -> [B]
+    chooses each next token (argmax or a sampler)."""
+    from .decode_cache import probe_cache_len
+
+    (enc_main, step_main, cache_startup, _enc_feeds, _step_feeds,
+     _enc_fetch, step_fetch) = programs
+    src_ids = np.asarray(src_ids, "int64")
+    b, _ = src_ids.shape
+    step_b = int(step_main.global_block().vars["trg_tok"].shape[0])
+    assert b == step_b, (
+        "src batch %d != decode programs' static batch %d" % (b, step_b))
+    t_max = probe_cache_len(step_main, "tfm")
+    max_out_len = min(max_out_len or t_max, t_max)
+    src_lens = np.asarray(src_lens).reshape(-1)
+
+    exe.run(cache_startup)
+    _run_encoder(exe, enc_main, src_ids, src_lens)
+    trg = np.full((b, max_out_len), pad_id, "int64")
+    trg[:, 0] = bos_id
+    done = np.zeros(b, bool)
+    cur = 1
+    while cur < max_out_len and not done.all():
+        (logits,) = exe.run(step_main, feed={
+            "trg_tok": trg[:, cur - 1:cur],
+            "pos": np.array([cur - 1], "int64"),
+        }, fetch_list=step_fetch)
+        nxt = np.where(done, pad_id, pick_fn(logits))
+        trg[:, cur] = nxt
+        done |= nxt == eos_id
+        cur += 1
+    return trg[:, :cur]
+
+
+def greedy_translate_cached(exe, programs, src_ids, src_lens, bos_id, eos_id,
+                            max_out_len=None, pad_id=0):
+    """Greedy decoding through the KV-cached decode programs (the output
+    contract of greedy_translate at O((t_max + Ts) d) a token).
+    `programs` is transformer_decode_programs' tuple."""
+    return _translate_cached_loop(
+        exe, programs, src_ids, src_lens, bos_id, eos_id, max_out_len,
+        pad_id, lambda lg: np.asarray(lg).argmax(axis=-1).astype("int64"))
+
+
+def beam_translate_cached(exe, programs, src_ids, src_lens, bos_id, eos_id,
+                          beam_size=4, max_out_len=None, pad_id=0,
+                          length_penalty=0.0):
+    """Beam-search decoding through the KV-cached decode programs (built
+    with batch = B * beam_size).  The self-attention caches follow the
+    surviving beams through a reorder program every step; the encoder
+    state is beam-replicated at encode time and invariant under it.
+    Output contract of beam_translate: (ids [B, T_out], scores [B])."""
+    from ..contrib.decoder.beam_search_decoder import incremental_beam_search
+    from .decode_cache import make_cache_reorder_program, probe_cache_len
+
+    (enc_main, step_main, cache_startup, _enc_feeds, _step_feeds,
+     _enc_fetch, step_fetch) = programs
+    src_ids = np.asarray(src_ids, "int64")
+    b, _ = src_ids.shape
+    sb = step_main.global_block()
+    r = int(sb.vars["trg_tok"].shape[0])
+    assert r == b * beam_size, (
+        "decode programs' batch %d != src batch %d * beam %d"
+        % (r, b, beam_size))
+    t_max = probe_cache_len(step_main, "tfm")
+    max_out_len = min(max_out_len or t_max, t_max)
+    src_lens = np.asarray(src_lens).reshape(-1)
+
+    exe.run(cache_startup)
+    _run_encoder(exe, enc_main, src_ids, src_lens, repeat=beam_size)
+    # only the per-layer self-attention caches follow the beams; the
+    # reorder program is built once a step program, so a second beam
+    # translate through one executor runs only keys it has compiled
+    reorder = getattr(step_main, "_tfm_beam_reorder", None)
+    if reorder is None:
+        reorder = step_main._tfm_beam_reorder = make_cache_reorder_program(
+            [(n, v.shape) for n, v in sb.vars.items()
+             if n.startswith(("tfm_kcache_", "tfm_vcache_"))], r)
+
+    bos = np.full((r, 1), bos_id, "int64")
+    (first,) = exe.run(step_main, feed={
+        "trg_tok": bos, "pos": np.array([0], "int64")}, fetch_list=step_fetch)
+
+    def step_fn(tokens, pos):
+        (lg,) = exe.run(step_main, feed={
+            "trg_tok": tokens, "pos": np.array([pos], "int64")},
+            fetch_list=step_fetch)
+        return lg
+
+    def reorder_fn(rows):
+        exe.run(reorder, feed={"parents": rows.astype("int64")},
+                fetch_list=[])
+
+    prompt = np.full((b, 1), bos_id, "int64")
+    return incremental_beam_search(step_fn, reorder_fn, first, prompt, 1,
+                                   beam_size, max_out_len, eos_id, pad_id,
+                                   length_penalty)
+
+
+def sample_translate_cached(exe, programs, src_ids, src_lens, bos_id,
+                            eos_id, max_out_len=None, temperature=1.0,
+                            top_k=0, top_p=1.0, seed=None, pad_id=0):
+    """Stochastic seq2seq decoding through the KV-cached programs:
+    temperature, top-k and nucleus filtering with seeded host numpy
+    draws (the sampling twin of greedy_translate_cached)."""
+    from .decode_cache import sample_from_logits
+
+    rng = np.random.RandomState(seed)
+    return _translate_cached_loop(
+        exe, programs, src_ids, src_lens, bos_id, eos_id, max_out_len,
+        pad_id,
+        lambda lg: sample_from_logits(lg, rng, temperature, top_k, top_p))
