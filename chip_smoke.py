@@ -67,10 +67,31 @@ In order, it:
    launches its program's; and serves a narrow config speculatively
    (a one-block draft) with the prefix cache on the card and on the
    CPU: target and draft logits within 1e-5, the streams equal;
-8. with --profile, serves a short trace under torch.profiler and reports
+8. serves a 48-request trace (rate 1.5, half sampled) through the
+   serving fabric (FabricRouter) over GPT-2 small pools (the serving
+   engine's 8 slots x 16 at t_max 1024, each in a scope of its own
+   holding a copy of the serving path's weights) in three legs: three
+   static pools; the same with a seeded bare pool_kill at a step where
+   every pool decodes; one pool scaled 1 -> 3 -> 1 ("5:+2,20:-2").
+   Each leg: every request OK with its full budget, the launches the
+   serving step's count times the steps the pools dispatched, every
+   pool's captures settled after its keys' second runs (none on the
+   survivors after the failover), the replayed requests and 3 greedy and
+   3 sampled others equal to their run_solo; the kill replays some, the
+   dead pool's executor is closed, the scale walk adds 3 pools, retires
+   2, rejects none, and memory_reserved falls after the retirements.
+   Prints fabric tokens/s, the fabric step p50 beside each pool's
+   engine step p50, latency p50 / p99 in fabric steps, each pool's mean
+   occupancy, replaced, pools died and peak memory (with --profile,
+   chiprun_out/profile_serving_fabric.json); then a narrow config
+   through a 3-pool fabric with a pool kill on the card and on the CPU:
+   every pick at the same (request, token index), its logits within
+   1e-5, greedy picks equal where the top-2 margin is clear, the
+   results' pools, statuses and steps, counters and stats equal;
+9. with --profile, serves a short trace under torch.profiler and reports
    device busy time and idle share, torch calls, device time by kernel
    and host time by engine span (chiprun_out/profile_serving.json);
-9. trains Transformer-base (the WMT program: 6+6 layers, d_model 512,
+10. trains Transformer-base (the WMT program: 6+6 layers, d_model 512,
    vocab 10000, dropout and label smoothing 0.1, noam lr, Adam) on batch
    64 x 64 from seeded random weights: one warm-up step, 10 timed steps
    with every launch count reset just before and read just after and
@@ -78,9 +99,9 @@ In order, it:
    same saved state, bit for bit, and one step whose dropout_grad ops
    must redraw their forward ops' masks (with --profile, 3 more steps
    under the profiler, chiprun_out/profile_training.json);
-10. trains a narrow WMT config 3 steps on the card and on the CPU plain
+11. trains a narrow WMT config 3 steps on the card and on the CPU plain
    path from the same weights and holds the losses to 1e-5 relative;
-11. trains GPT-2 small (gpt2_lm_program: vocab 50257, d_model 768, 12
+12. trains GPT-2 small (gpt2_lm_program: vocab 50257, d_model 768, 12
    layers, 12 heads, dropout 0.1, untied head, Adam) on batch 8 x 1024
    from seeded random weights: one warm-up step (its loss near ln
    50257), 10 timed steps with every launch count reset just before and
@@ -89,10 +110,10 @@ In order, it:
    dropout_grad ops must redraw their forward ops' masks (with
    --profile, 3 more steps under the profiler,
    chiprun_out/profile_training_gpt2.json);
-12. trains a narrow GPT-2 (vocab 1000, d_model 256, 4 heads, 2 layers,
+13. trains a narrow GPT-2 (vocab 1000, d_model 256, 4 heads, 2 layers,
    seq 128, dropout 0) 3 steps on the card and on the CPU plain path from
    the same weights and holds the losses to 1e-5 relative;
-13. serves the same 24-request trace with the modern-decoder GPT-2
+14. serves the same 24-request trace with the modern-decoder GPT-2
    options at TinyLlama-1.1B's widths (vocab 32000, n_ctx 2048, d_model
    2048, 22 layers, 32 query and 4 KV heads, rotary positions, SwiGLU
    FFN 5632 wide; random weights from a seed; t_max 2048), with the same
@@ -100,13 +121,13 @@ In order, it:
    kernels), then a narrow modern config on the card and the CPU in a
    three-slot and a one-slot pool (with --profile:
    chiprun_out/profile_serving_llama.json);
-14. trains that TinyLlama-width config (dropout 0, Adam) on batch 2 x
+15. trains that TinyLlama-width config (dropout 0, Adam) on batch 2 x
    2048: one warm-up step (its loss near ln 32000), 5 timed steps with
    the launch counts held to the program's, then one step twice from the
    same saved state, bit for bit (with --profile,
    chiprun_out/profile_training_llama.json); then a narrow modern config
    3 steps on the card and on the CPU, losses within 1e-5 relative;
-15. pretrains BERT-base (bert_pretrain_program: vocab 30522, hidden 768,
+16. pretrains BERT-base (bert_pretrain_program: vocab 30522, hidden 768,
    12 layers, 12 heads, dropout 0.1, fused attention with the
    key-padding bias, MLM over every position and NSP, Adam lr 1e-4) on
    batch 32 x 128 with ragged lengths: one warm-up step (its loss near
@@ -116,10 +137,10 @@ In order, it:
    --profile, chiprun_out/profile_training_bert.json); then a narrow
    BERT 3 steps on the card and on the CPU, the total, MLM and NSP
    losses within 1e-5 relative;
-16. trains Transformer-base with hp.fused_attn (every attention on the
+17. trains Transformer-base with hp.fused_attn (every attention on the
    flash kernels, causal and key-bias forms) 1 + 3 steps with the same
    checks, and a narrow fused_attn WMT config card vs CPU;
-17. decodes GPT-2 small with the KV cache (gpt2_decode_step_program at
+18. decodes GPT-2 small with the KV cache (gpt2_decode_step_program at
    batch 4, t_max 1024, one token and 64 wide; 4 seeded prompts of 200
    tokens): chunked prefill against one-token prefill (over a chunk and
    a ragged one), cached greedy (56 new tokens) against greedy_generate
@@ -134,12 +155,12 @@ In order, it:
    chiprun_out/profile_decode.json); then a narrow GPT-2 decoded greedy,
    sampled and by beam on the card and on the CPU, tokens equal and
    logits within 1e-5 relative;
-18. decodes at TinyLlama-1.1B's widths (t_max 2048, batch 2, prompts of
+19. decodes at TinyLlama-1.1B's widths (t_max 2048, batch 2, prompts of
    256, chunks of 128, 32 new tokens, greedy) with the same checks (the
    GQA fold puts flash_attention's few-row form at Tq 8 with a key bias;
    with --profile, chiprun_out/profile_decode_llama.json), and the
    narrow modern config card vs CPU;
-19. translates with Transformer-base (transformer_decode_programs at
+20. translates with Transformer-base (transformer_decode_programs at
    ModelHyperParams' widths, dropout 0, fused_attn; random weights from
    a seed) 16 sentences of make_fake_batch's 64 source tokens (lengths
    32-64) at t_max 256: every key warmed twice, then cached greedy over
@@ -158,10 +179,10 @@ In order, it:
    beam step's p50, force-decode tokens/s and the cross k/v
    projections' share of the step (with --profile,
    chiprun_out/profile_translate{,_eager,_force_decode}.json);
-20. translates a narrow config on the card and on the CPU (greedy,
+21. translates a narrow config on the card and on the CPU (greedy,
    sampled, beam 3, force-decode 4 wide, full re-decode): tokens equal,
    every run's logits within 1e-5 relative;
-21. trains the stacked dynamic LSTM (build_stacked_lstm_train at
+22. trains the stacked dynamic LSTM (build_stacked_lstm_train at
    bench.py's setting: dict 10000, 64 tokens, emb and hidden 512, 3
    layers, 2 classes, Adam 1e-3) on batch 32 x 64: one warm-up step (its
    loss near ln 2), 5 timed steps with the launch counts held to the
@@ -169,18 +190,18 @@ In order, it:
    layer 2 is reversed, the reference's plain scan), the bit-equal
    repeat (with --profile, chiprun_out/profile_training_lstm.json); then
    the narrow LSTM of the CPU tests 3 steps on the card and the CPU;
-22. trains the GRU seq2seq model (build_seq2seq_train at Paddle's
+23. trains the GRU seq2seq model (build_seq2seq_train at Paddle's
    benchmark machine_translation widths: 512, dictionaries 30000, Adam
    1e-3) on batch 32 x 50 the same way (its first loss near ln 30000;
    fused_gru 4 a step; chiprun_out/profile_training_seq2seq.json), and
    the narrow seq2seq card vs CPU;
-23. beam-decodes with build_decode_step at those widths (beam 4 over 2
+24. beam-decodes with build_decode_step at those widths (beam 4 over 2
    sentences, 16 steps through BeamSearchDecoder; fused_gru at T 50 and
    at T 1 from H0 every step), prints the decode step's p50, and the
    narrow decode step card vs CPU (tokens equal, log-probs 1e-5) (with
    --profile, 3 decode steps under the profiler,
    chiprun_out/profile_decode_seq2seq.json);
-24. trains Transformer-base vocab-parallel (the WMT program on a {"dp":
+25. trains Transformer-base vocab-parallel (the WMT program on a {"dp":
    1, "mp": 2} mesh whose rule table vocab-shards softmax_out.w): two
    ranks spawned on the one card over a gloo group, each holding its
    [512, 5000] slab and running sharded_linear_xent's kernels (parts 2,
@@ -191,7 +212,7 @@ In order, it:
    the CPU's; the kernel phase holds the three B12 kernels at the path's
    shapes, a ragged R and TinyLlama's widths on mp 4 (with --profile,
    rank 0's chiprun_out/profile_training_vocab_parallel.json);
-25. trains the packed causal LM (examples/packed_training_torch.py's
+26. trains the packed causal LM (examples/packed_training_torch.py's
    build at GPT-2 small's vocab 50257, width 768, 12 heads and context
    1024; one attention block over packed segment ids, Adam) on the first
    8 rows of 64 seeded ragged sequences (lengths log-uniform in [8,
@@ -203,7 +224,7 @@ In order, it:
    0 and 48 card vs CPU; the kernel phase holds the segment and window
    forms of B3 and B9 (with --profile, chiprun_out/profile_training_packed
    and profile_training_packed_window.json);
-26. trains ResNet-50 (build_resnet_train_program at 224 x 224, 1000
+27. trains ResNet-50 (build_resnet_train_program at 224 x 224, 1000
    classes, Momentum 0.9 at lr 0.1; conv2d, pool2d and batch_norm on
    cuDNN and PyTorch's CUDA kernels, no hand-written kernel) on batch 128
    of seeded images staged on the card once: one warm-up step (its loss
@@ -212,14 +233,14 @@ In order, it:
    eager and run_loop(4) == 4 runs; prints images/s over the captured
    p50 and the step's conv and fc FLOPs against FP32's 67 TFLOP/s (with
    --profile, chiprun_out/profile_training_resnet50.json);
-27. the same with use_nhwc (the conv trunk channels-last through
+28. the same with use_nhwc (the conv trunk channels-last through
    rewrite_nhwc), its p50 and first loss beside the NCHW leg's
    (profile_training_resnet50_nhwc.json);
-28. trains the narrow ResNet of the CPU tests (resnet_cifar10 depth 8,
+29. trains the narrow ResNet of the CPU tests (resnet_cifar10 depth 8,
    32 x 32, batch 8) 3 Momentum steps on the card and on the CPU, in
    NCHW and NHWC: losses, parameters, running stats and velocities
    within 1e-4 relative to each tensor's largest magnitude;
-29. prints, for every path, its eager and captured numbers (one JSON
+30. prints, for every path, its eager and captured numbers (one JSON
    line), the kernels line and, last, the result line.
 
 Every path's executor but the vocab-parallel one's captures its step as
@@ -266,6 +287,11 @@ SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 4, 64, 64
 # the prefix cache: rows of the prefix pool, and the templates' length of
 # the prefix trace (bench.py's prefix leg: half of t_max)
 PREFIX_ROWS, PREFIX_LEN = 4, 512
+# the serving fabric: FABRIC_POOLS pools of the serving path's engine over a
+# FABRIC_REQUESTS-request trace at BENCH_FABRIC.json's rate for three pools,
+# and its 1 -> 3 -> 1 scale walk (fabric steps)
+FABRIC_POOLS, FABRIC_REQUESTS, FABRIC_RATE = 3, 48, 1.5
+FABRIC_SCALE = "5:+2,20:-2"
 # Transformer-base training step: batch 64 x (64 source, 64 target) tokens
 TRAIN_BATCH, TRAIN_LEN = 64, 64
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_LEN  # 4096 target rows per step
@@ -2484,12 +2510,8 @@ def serve_gpt2_small(dev, profile_dir=None):
     from paddle_tpu_torch.models import gpt2
 
     hp = gpt2.GPT2Config
-    return _serve_on_card(
-        "GPT-2 small", hp, T_MAX,
-        {"flash_attention_qvec": hp.n_layer,
-         "matmul_bias_act": 2 * hp.n_layer,
-         "fused_add_layer_norm": 2 * hp.n_layer + 1}, 1234, profile_dir,
-        "serving")
+    return _serve_on_card("GPT-2 small", hp, T_MAX, _gpt2_serving_step(hp),
+                          1234, profile_dir, "serving")
 
 
 def serve_tinyllama(dev, profile_dir=None):
@@ -2690,14 +2712,10 @@ def _draft_scope(draft_hp, scope):
     `draft_hp`'s logits program (gpt2_logits_program names a config's
     parameters as it names the target's)."""
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.models import gpt2
 
-    with ptt.program_guard(ptt.Program(), ptt.Program()):
-        main, _, _, _ = gpt2.gpt2_logits_program(draft_hp,
-                                                 seq_len=draft_hp.n_ctx)
     dscope = ptt.Scope()
-    for p in main.global_block().all_parameters():
-        dscope.set(p.name, scope.find_var(p.name))
+    for n, t in _model_weights(draft_hp, scope).items():
+        dscope.set(n, t)
     return dscope
 
 
@@ -3180,6 +3198,467 @@ def spec_prefix_card_matches_cpu(dev):
               Narrow.__name__, len(logits["cpu"]), err, len(trace),
               st["prefix_hits"], st["spec_rounds"], st["accept_rate"],
               json.dumps(launched)))
+
+
+def _model_weights(hp, scope):
+    """{name: tensor} of `scope`'s tensors of the parameters of `hp`'s
+    logits program (gpt2_logits_program names a config's parameters as
+    it names the target's)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt2
+
+    with ptt.program_guard(ptt.Program(), ptt.Program()):
+        main, _, _, _ = gpt2.gpt2_logits_program(hp, seq_len=hp.n_ctx)
+    return {p.name: scope.find_var(p.name)
+            for p in main.global_block().all_parameters()}
+
+
+def _gpt2_serving_step(hp):
+    """Each kernel's launches in one GPT-2 ragged serving step: qvec
+    attention once a layer, the FFN's two matmul_bias_act, and add-LN
+    twice a layer plus the final norm."""
+    return {"flash_attention_qvec": hp.n_layer,
+            "matmul_bias_act": 2 * hp.n_layer,
+            "fused_add_layer_norm": 2 * hp.n_layer + 1}
+
+
+def _fabric_factory(hp, weights, engines, place, n_slots=N_SLOTS,
+                    width=WIDTH, t_max=T_MAX):
+    """A FabricRouter pool factory: each pool a ServingEngine with its own
+    executor on `place`, in a fresh Scope holding a copy of every tensor
+    of `weights` (identical weights in every pool, failover's
+    precondition).  Each engine built lands in `engines`, with `_log`:
+    (program id, compile_count) after each of its executor's runs."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.serving import ServingEngine
+
+    def factory():
+        scope = ptt.Scope()
+        for n, w in weights.items():
+            scope.set(n, w.clone())
+        with ptt.scope_guard(scope):
+            exe = ptt.Executor(place)
+            eng = ServingEngine(exe, hp, n_slots=n_slots, width=width,
+                                t_max=t_max)
+        eng._log = []
+        run = exe.run
+
+        def logged(program=None, feed=None, fetch_list=None, **kw):
+            out = run(program, feed=feed, fetch_list=fetch_list, **kw)
+            eng._log.append((id(program), exe.compile_count))
+            return out
+
+        exe.run = logged
+        engines.append(eng)
+        return eng, scope
+
+    return factory
+
+
+def _fabric_settled(label, eng, card):
+    """A pool's captures settle after its step and slot-reset programs'
+    second runs (on the card each key captures at its second run; on the
+    CPU every entry counts at its first): the compile_count there, which
+    no later run moves.  A pool gone before both keys ran twice has
+    captured no more than its two keys.  Returns the count."""
+    runs = {id(eng.step_main): 0, id(eng.reset_prog): 0}
+    for i, (program, count) in enumerate(eng._log):
+        if program in runs:
+            runs[program] += 1
+        if min(runs.values()) >= 2:
+            later = {c for _, c in eng._log[i:]}
+            assert later == {count}, ("a capture after the keys' second "
+                                      "runs", label, sorted(later))
+            assert count == 2 or not card, (label, count)
+            return count
+    count = eng.exe.compile_count
+    assert count <= 2 or not card, (label, runs, count)
+    return count
+
+
+def _fabric_leg(label, router, trace, engines, per_step, card,
+                schedule=None, on_step=None):
+    """One fabric leg: every launch count reset just before router.run
+    and read just after, held to the serving step's count times the
+    steps every pool dispatched; every request OK with its full budget;
+    every pool's captures settled.  Returns (results, stats, launches,
+    the fabric steps' seconds, the peak bytes allocated)."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    seconds = []
+    step = router.step
+
+    def timed():
+        if on_step is not None:
+            on_step(router)
+        t0 = time.perf_counter()
+        out = step()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    router.step = timed
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, stats = router.run(trace, pool_schedule=schedule)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    router.step = step
+    steps = sum(e.counters["steps"] for e in engines)
+    for name, n in launches.items():
+        assert n == per_step.get(name, 0) * steps, (
+            "launch count", label, name, n, per_step.get(name, 0), steps)
+    for r in trace:
+        res = results[r.rid]
+        assert res["status"] == "OK", (label, r.rid, res["status"])
+        assert res["tokens"].size == r.max_new_tokens, (label, r.rid)
+    for e in engines:
+        _fabric_settled(label, e, card)
+    return results, stats, launches, seconds, peak
+
+
+def _fabric_line(label, results, stats, engines, seconds, peak, smi, solo):
+    """Prints a leg's numbers on one line."""
+    import numpy as np
+
+    lat = sorted(r["latency_steps"] for r in results.values())
+    print("served GPT-2 small through the fabric, %s (%s): %d requests in "
+          "%d fabric steps, %.1f tokens/s; fabric step p50 %.3f ms, engine "
+          "step p50 by pool %s ms; latency p50 %d, p99 %d fabric steps; "
+          "mean occupancy by pool %s; replaced %d, pools died %d, added %d, "
+          "retired %d; peak memory %.2f GB; == run_solo for rids %s" % (
+              label, smi, len(results), stats["step"],
+              stats["tokens_per_s"], _p50_ms(seconds),
+              json.dumps([round(_p50_ms(e.step_seconds), 3)
+                          for e in engines]),
+              int(np.percentile(lat, 50, method="lower")),
+              int(np.percentile(lat, 99, method="higher")),
+              json.dumps([round(e.counters["occupancy_sum"]
+                                / max(1, e.counters["steps"]), 4)
+                          for e in engines]),
+              stats["replaced"], stats["pools_died"], stats["pools_added"],
+              stats["pools_retired"], peak / 1e9, json.dumps(solo)))
+
+
+def _profile_fabric(router, vocab, out_dir):
+    """Where a fabric step's time goes: torch.profiler over 12 more
+    requests (make_poisson_trace, seed 1, arrivals from the router's
+    clock on) through `router`'s pools."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import make_poisson_trace
+
+    short = make_poisson_trace(12, rate=FABRIC_RATE,
+                               prompt_len_range=(16, 384),
+                               out_len_range=(16, 64), vocab_size=vocab,
+                               seed=1)
+    for r in short:
+        r.rid = "profile-%d" % r.rid
+        r.arrival += router.now
+    first = router.now
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        router.run(short)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _profile_report(prof, wall_us, router.now - first,
+                           "serving_fabric", out_dir)
+
+
+def serve_gpt2_small_fabric(dev, scope, smi="", profile_dir=None):
+    """The serving fabric at GPT-2 small's widths over the serving path's
+    weights (`scope`), each pool a ServingEngine(N_SLOTS, WIDTH, T_MAX)
+    in a fresh scope holding a copy of them: make_poisson_trace(
+    FABRIC_REQUESTS, rate FABRIC_RATE, prompts 16-384, outputs 16-64,
+    half sampled, seed 0) through FabricRouter in three legs:
+    FABRIC_POOLS static pools; the same with FaultSchedule({"fabric": {k:
+    "pool_kill"}}, seed=5), k the first fabric step >= 8 at which every
+    pool of the static leg had slots decoding; one pool scaled by
+    FABRIC_SCALE.  No pool dies in the static and scale legs (a kernel
+    refusing its inputs ends the run instead of failing a pool over, and
+    this holds that no other error did).  Each leg: launch counts reset
+    just before and read
+    just after, equal to the serving step's count times the steps the
+    pools dispatched; every request OK with its full budget; every
+    pool's captures settled after its keys' second runs (so no capture
+    on the survivors after the failover); every replayed request and 3
+    greedy and 3 sampled others equal to their run_solo on a fresh pool.
+    Chaos: one pool died, some requests replayed.  Scale: 3 pools added,
+    2 retired, no rejection, no pool capturing more than a static one,
+    memory_reserved lower once the retired pools' executors are closed.
+    With `profile_dir`, 12 more requests through the static pools under
+    the profiler.  Returns (the legs' launch totals, the path's capture
+    record)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed.faults import FaultSchedule
+    from paddle_tpu_torch.models import gpt2
+    from paddle_tpu_torch.serving import FabricRouter, make_poisson_trace
+    from paddle_tpu_torch.serving.pool import DECODE
+
+    hp = gpt2.GPT2Config
+    card = dev.type == "cuda"
+    place = ptt.CUDAPlace(0)
+    weights = _model_weights(hp, scope)
+    per_step = _gpt2_serving_step(hp)
+    trace = make_poisson_trace(FABRIC_REQUESTS, rate=FABRIC_RATE,
+                               prompt_len_range=(16, 384),
+                               out_len_range=(16, 64),
+                               vocab_size=hp.vocab_size, seed=0)
+    solo_eng, solo_scope = _fabric_factory(hp, weights, [], place)()
+    solos = {}
+
+    def solo_check(label, results, extra=()):
+        """The leg's replayed requests, and 3 greedy and 3 sampled
+        others, equal to their run_solo bit for bit."""
+        picked = ([r for r in trace if r.greedy][:3]
+                  + [r for r in trace if not r.greedy][:3])
+        picked += [r for r in trace if r.rid in set(extra)
+                   and r not in picked]
+        with ptt.scope_guard(solo_scope):
+            for r in picked:
+                if r.rid not in solos:
+                    solos[r.rid], _ = solo_eng.run_solo(r)
+                assert np.array_equal(solos[r.rid],
+                                      results[r.rid]["tokens"]), (
+                    "fabric != solo", label, r.rid)
+        return [r.rid for r in picked]
+
+    # 1. static pools; note the steps at which every pool has slots
+    # decoding as the step begins (the chaos leg's kill candidates)
+    static_engines, decoding = [], []
+
+    def note_decoding(router):
+        if len(router.pools) == FABRIC_POOLS and all(
+                any(s.state == DECODE and s.out
+                    for _, s in h.engine.pool.active_slots())
+                for h in router.pools.values()):
+            decoding.append(router.now)
+
+    router = FabricRouter(_fabric_factory(hp, weights, static_engines,
+                                          place), n_pools=FABRIC_POOLS)
+    results, stats, launches, seconds, peak = _fabric_leg(
+        "static", router, trace, static_engines, per_step, card,
+        on_step=note_decoding)
+    assert stats["pools_died"] == 0 and stats["pool_kills"] == 0, stats
+    _fabric_line("%d static pools" % FABRIC_POOLS, results, stats,
+                 static_engines, seconds, peak, smi,
+                 solo_check("static", results))
+    static = dict(stats=stats, seconds=seconds, peak=peak)
+    totals = dict(launches)
+    static_count = max(e.exe.compile_count for e in static_engines)
+    engine_p50 = _p50_ms([t for e in static_engines for t in e.step_seconds])
+    reports = {}
+    if profile_dir:
+        reports["captured"] = _profile_fabric(router, hp.vocab_size,
+                                              profile_dir)
+    for e in static_engines:
+        e.exe.close()
+    del router
+
+    # 2. chaos: a seeded bare pool_kill at a step where every pool decodes
+    kill = next(t for t in decoding if t >= 8)
+    chaos_engines = []
+    router = FabricRouter(_fabric_factory(hp, weights, chaos_engines, place),
+                          n_pools=FABRIC_POOLS,
+                          fault_schedule=FaultSchedule(
+                              {"fabric": {kill: "pool_kill"}}, seed=5))
+    results, stats, launches, seconds, peak = _fabric_leg(
+        "chaos", router, trace, chaos_engines, per_step, card)
+    assert stats["pools_died"] == 1 and stats["pool_kills"] == 1, stats
+    assert stats["replaced"] > 0, stats
+    replayed = [rid for rid, r in results.items() if r.get("replayed")]
+    assert len(replayed) == stats["replaced"], (replayed, stats["replaced"])
+    # the survivors' captures settled after their keys' second runs
+    # (_fabric_leg), so the replays' longer prompts captured nothing
+    assert len(router.pools) == FABRIC_POOLS - 1, sorted(router.pools)
+    survivors = {pid: h.engine.exe.compile_count
+                 for pid, h in router.pools.items()}
+    victim = next(e for e in chaos_engines
+                  if all(h.engine is not e for h in router.pools.values()))
+    assert victim.exe._closed
+    _fabric_line("%d pools, pool_kill at fabric step %d (seed 5)"
+                 % (FABRIC_POOLS, kill), results, stats, chaos_engines,
+                 seconds, peak, smi, solo_check("chaos", results, replayed))
+    print("fabric chaos: %d requests replayed %s, each == its run_solo; "
+          "no capture on the survivors after the failover (compile_count "
+          "%s); the dead pool's executor closed" % (
+              len(replayed), json.dumps(sorted(replayed)),
+              json.dumps(survivors)))
+    for k, n in launches.items():
+        totals[k] += n
+    for h in router.pools.values():
+        h.engine.exe.close()
+    del router
+
+    # 3. scale 1 -> 3 -> 1
+    scale_engines, reserved = [], {"three": 0}
+
+    def note_memory(router):
+        if len(router.pools) == 3:
+            reserved["three"] = max(reserved["three"],
+                                    torch.cuda.memory_reserved())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved["before"] = torch.cuda.memory_reserved()
+    router = FabricRouter(_fabric_factory(hp, weights, scale_engines, place),
+                          n_pools=1)
+    results, stats, launches, seconds, peak = _fabric_leg(
+        "scale", router, trace, scale_engines, per_step, card,
+        schedule=FABRIC_SCALE, on_step=note_memory)
+    assert stats["pools_added"] == 3 and stats["pools_retired"] == 2, stats
+    assert stats["pools_died"] == 0 and stats["pool_kills"] == 0, stats
+    assert stats["rejected"] == 0 and stats["n_pools"] == 1, stats
+    for e in scale_engines:
+        assert e.exe.compile_count <= static_count, (
+            "scaling captured more than a static pool",
+            e.exe.compile_count, static_count)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved["after"] = torch.cuda.memory_reserved()
+    assert reserved["after"] < reserved["three"], reserved
+    _fabric_line("1 -> 3 -> 1 pools (%s)" % FABRIC_SCALE, results, stats,
+                 scale_engines, seconds, peak, smi,
+                 solo_check("scale", results))
+    print("fabric scale-down: memory_reserved %.3f GB with 3 pools, %.3f GB "
+          "after the 2 retirements (%.3f GB before the leg)" % (
+              reserved["three"] / 1e9, reserved["after"] / 1e9,
+              reserved["before"] / 1e9))
+    for k, n in launches.items():
+        totals[k] += n
+    for h in router.pools.values():
+        h.engine.exe.close()
+    solo_eng.exe.close()
+    del router, solo_eng, solo_scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap = {"eager_p50_ms": "not measured",
+           "captured_p50_ms": engine_p50,
+           "fabric_step_p50_ms": _p50_ms(static["seconds"]),
+           "fabric_tokens_per_s": static["stats"]["tokens_per_s"],
+           "captured_peak_gb": static["peak"] / 1e9,
+           "compile_count": static_count,
+           "memory_reserved_gb": {k: v / 1e9 for k, v in reserved.items()}}
+    _busy_idle(cap, reports)
+    return totals, _capture_line("GPT-2 small serving fabric", cap)
+
+
+def fabric_card_matches_cpu(dev):
+    """narrow_gpt2_config() through a fabric of three pools (2 slots,
+    width 4, t_max 48) on the card and on the CPU plain path from the
+    same weights, with FaultSchedule({"fabric": {8: "pool_kill:0"}}), on
+    a 14-request trace, half sampled.  The card's pools are fed the
+    CPU's pick of each (request, token index): every pick is made at
+    the same index on both, its logits row within 1e-5 of the CPU's
+    (relative to its largest magnitude), and the card's own greedy
+    picks equal the CPU's wherever the CPU's top-2 margin exceeds 1e-3;
+    every result's pool, status, steps and replay flag, the counters and
+    stats() (minus the wall clock and compile counts) are equal; the
+    card's run launched each serving kernel."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed.faults import FaultSchedule
+    from paddle_tpu_torch.models import gpt2
+    from paddle_tpu_torch.serving import FabricRouter, make_poisson_trace
+
+    Narrow = narrow_gpt2_config()
+    scope = ptt.Scope()
+    with ptt.scope_guard(scope), \
+            ptt.program_guard(ptt.Program(), ptt.Program()):
+        _, startup, _, _ = gpt2.gpt2_logits_program(Narrow, seq_len=48)
+        startup.random_seed = 5
+        ptt.Executor(ptt.CPUPlace()).run(startup)
+    weights = _model_weights(Narrow, scope)
+    trace = make_poisson_trace(14, rate=1.2, prompt_len_range=(2, 20),
+                               out_len_range=(4, 12),
+                               vocab_size=Narrow.vocab_size, seed=4)
+    picks, runs = {}, {}
+    for kind in ("cpu", "cuda"):
+        place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+        on = {n: w.to(place.torch_device()) for n, w in weights.items()}
+        made = _fabric_factory(Narrow, on, [], place, n_slots=2, width=4,
+                               t_max=48)
+        mine = picks[kind] = {}
+
+        def factory():
+            eng, pool_scope = made()
+            pick = eng._pick_tokens
+
+            def recorded(rows, slots, draft_rows=None):
+                own = pick(rows, slots, draft_rows)
+                out = own.copy()
+                for i, slot in enumerate(slots):
+                    s = eng.pool.slots[slot]
+                    key = (s.req.rid, len(s.out) + s.req.sample_step_base)
+                    assert key not in mine, key
+                    mine[key] = (int(own[i]), np.array(rows[i]),
+                                 s.req.greedy)
+                    if kind == "cuda":  # lockstep: the CPU's token
+                        out[i] = picks["cpu"][key][0]
+                return out
+
+            eng._pick_tokens = recorded
+            return eng, pool_scope
+
+        router = FabricRouter(factory, n_pools=3, fault_schedule=FaultSchedule(
+            {"fabric": {8: "pool_kill:0"}}))
+        kernels.reset_launch_counts()
+        runs[kind] = router.run(trace) + (dict(router.counters),)
+        for h in router.pools.values():
+            h.engine.exe.close()
+    launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    assert all(launched[n] for n in SERVING_KERNELS), (
+        "a kernel did not launch", launched)
+    assert sorted(picks["cuda"]) == sorted(picks["cpu"])
+    err, checked = 0.0, 0
+    for key, (tok, row, greedy) in picks["cpu"].items():
+        own, card_row, _ = picks["cuda"][key]
+        assert np.isfinite(card_row).all(), key
+        err = max(err, _rel_err(card_row, row))
+        top2 = np.sort(row)[-2:]
+        if greedy and top2[1] - top2[0] > 1e-3:
+            assert own == tok, ("card pick != CPU pick", key)
+            checked += 1
+    assert err <= 1e-5, ("card != CPU fabric logits", err)
+    (cpu_res, cpu_stats, cpu_ctr), (res, stats, ctr) = runs["cpu"], \
+        runs["cuda"]
+    assert sorted(res) == sorted(cpu_res)
+    for rid, r in cpu_res.items():
+        for k in ("pool", "status", "admit_step", "finish_step",
+                  "latency_steps", "prompt_len"):
+            assert res[rid][k] == r[k], (rid, k)
+        assert res[rid].get("replayed") == r.get("replayed"), rid
+        assert np.array_equal(res[rid]["tokens"], r["tokens"]), rid
+    assert ctr == cpu_ctr and ctr["pools_died"] == 1 and ctr["replaced"], ctr
+
+    def schedule(s):
+        s = {k: v for k, v in s.items() if k not in ("wall_s",
+                                                     "tokens_per_s")}
+        s["pools"] = {p: {k: v for k, v in pp.items()
+                          if k != "compile_count"}
+                      for p, pp in s["pools"].items()}
+        return s
+
+    assert schedule(stats) == schedule(cpu_stats)
+    print("%s through a 3-pool fabric with a pool kill on the card vs the "
+          "CPU plain path: %d picks at the same (request, index), logits "
+          "within %.3g relative, %d greedy picks equal where the margin is "
+          "clear; %d results' pools, statuses and steps, the counters and "
+          "stats equal (replaced %d); launches %s" % (
+              Narrow.__name__, len(picks["cpu"]), err, checked,
+              len(cpu_res), ctr["replaced"], json.dumps(launched)))
 
 
 def _expected_train_launches(main):
@@ -5826,6 +6305,26 @@ OFF_PATH_KERNELS = ("flash_attention_piece_dq", "flash_attention_piece_dkv",
                     "flash_attention_qvec_dq", "flash_attention_qvec_dkv")
 
 
+def card_setup():
+    """What every run on the card starts with: the repository on the
+    path, TF32 off (the kernels are held to float32 plain versions), and
+    the card (nvidia-smi name and power limit), torch and nvcc printed.
+    Returns (the device, the nvidia-smi line)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.kernels import build
+
+    smi = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    print(smi)
+    print("torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
+    print("nvcc: %s" % _sh([build.nvcc_path(), "--version"]).splitlines()[-1])
+    return torch.device("cuda", 0), smi
+
+
 def main():
     try:
         import torch
@@ -5839,21 +6338,12 @@ def main():
         print("chip_smoke: run from a checkout of the repository (no "
               "paddle_tpu_torch package beside this script)", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-
-    smi = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    print(smi)
-    print("torch %s, CUDA %s" % (torch.__version__, torch.version.cuda))
+    dev, smi = card_setup()
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import recurrent_kernel_check as rkc
     import row_kernels_check as rowk
     from paddle_tpu_torch.kernels import build
 
-    print("nvcc: %s" % _sh([build.nvcc_path(), "--version"]).splitlines()[-1])
     t0 = time.time()
     split_build = rkc.start_split_build()  # beside the library's nvccs
     before_build = rowk.start_before_build()
@@ -5899,6 +6389,11 @@ def main():
     lap("gpt2 serving, speculative")
     served_prefix = serve_gpt2_small_prefix(dev, scope)
     lap("gpt2 serving, prefix cache")
+    served_fabric, caps["serving_fabric"] = serve_gpt2_small_fabric(
+        dev, scope, smi, profile_dir)
+    lap("gpt2 serving fabric")
+    fabric_card_matches_cpu(dev)
+    lap("narrow serving fabric, card vs CPU")
     decoded_spec = decode_gpt2_small_speculative(dev, scope)
     lap("gpt2 speculative decode")
     del scope, plain
@@ -5989,7 +6484,7 @@ def main():
     torch.cuda.empty_cache()
     resnet_card_matches_cpu(dev)
     lap("narrow resnet, card vs CPU")
-    assert sum(c["captured"] for c in caps.values()) == 19, caps
+    assert sum(c["captured"] for c in caps.values()) == 20, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
             "the captured step is not faster than the eager one", path,
@@ -6003,6 +6498,7 @@ def main():
         by_path = {"serving": served[name],
                    "serving_speculative": served_spec[name],
                    "serving_prefix": served_prefix[name],
+                   "serving_fabric": served_fabric[name],
                    "gpt2_decode_speculative": decoded_spec[name],
                    "wmt_training": trained[name],
                    "gpt2_training": trained_gpt2[name],

@@ -73,12 +73,13 @@ def _kind(dtype_str):
     return _KIND.get(np.dtype(dtype_str).kind, "?")
 
 
-def as_numpy(t):
+def as_numpy(value):
     """Fetch result -> numpy; lists and tuples map element by element, as
     the reference's as_numpy does."""
-    if isinstance(t, (list, tuple)):
-        return [as_numpy(v) for v in t]
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+    if isinstance(value, (list, tuple)):
+        return [as_numpy(v) for v in value]
+    return (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+            else value)
 
 
 def _declared_shape(program, name):

@@ -55,9 +55,9 @@ def add_ln_plan(R, H):
     warps <= 8) that still give every SM a block.  Raises where the
     kernel cannot take the shape."""
     if not 1 <= H <= MAX_H or not 0 <= R < 2 ** 31:
-        raise ValueError("fused_add_layer_norm: [%d, %d] is past the kernel's "
-                         "rows of 1 to %d floats or 32-bit row count"
-                         % (R, H, MAX_H))
+        raise build.KernelInputError("fused_add_layer_norm: [%d, %d] is past "
+                                     "the kernel's rows of 1 to %d floats or "
+                                     "32-bit row count" % (R, H, MAX_H))
     need = -(-H // 128)
     warps = 1
     while warps < MAX_WARPS and need > WARP_SLOTS * warps:
@@ -82,9 +82,10 @@ def _add_ln_forward(x2d, y2d, gamma, beta, eps):
     build.check_inputs("fused_add_layer_norm", x2d, y2d, gamma, beta)
     R, H = x2d.shape
     if tuple(y2d.shape) != (R, H) or gamma.numel() != H or beta.numel() != H:
-        raise ValueError("fused_add_layer_norm: shapes %s %s %s %s" % (
-            tuple(x2d.shape), tuple(y2d.shape), tuple(gamma.shape),
-            tuple(beta.shape)))
+        raise build.KernelInputError(
+            "fused_add_layer_norm: shapes %s %s %s %s" % (
+                tuple(x2d.shape), tuple(y2d.shape), tuple(gamma.shape),
+                tuple(beta.shape)))
     plan = add_ln_plan(R, H)
     s = torch.empty_like(x2d)
     out = torch.empty_like(x2d)

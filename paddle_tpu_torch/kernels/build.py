@@ -12,9 +12,13 @@ are declared (``SIGNATURES``): pointers and the stream pass as
 nonzero code: a refused launch never runs, and a synchronize would not
 report it.
 
-A missing ``nvcc`` or a failed compile raises; nothing falls back to a
-plain path for a CUDA tensor.  Nothing here runs at import, so the
-package imports on a machine with no CUDA toolchain.
+A missing ``nvcc``, a failed compile, load or launch raises KernelError
+(a RuntimeError), and a kernel that refuses its inputs raises
+KernelInputError or KernelTypeError (KernelErrors that are also a
+ValueError or a TypeError); nothing falls back to a plain path for a
+CUDA tensor.
+Nothing here runs at import, so the package imports on a machine with
+no CUDA toolchain.
 """
 
 import ctypes
@@ -27,7 +31,7 @@ import threading
 import torch
 
 __all__ = ["load", "build", "use_kernel", "check_inputs", "launch",
-           "BUILD_DIR"]
+           "BUILD_DIR", "KernelError", "KernelInputError", "KernelTypeError"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.environ.get("PADDLE_TPU_TORCH_BUILD_DIR") or os.path.join(
@@ -83,6 +87,22 @@ _lock = threading.Lock()
 build_log = ""  # nvcc/ptxas output of the last build (registers, spills)
 
 
+class KernelError(RuntimeError):
+    """A kernel that cannot build, load or launch, or that refuses its
+    inputs.  Callers that recover from other errors (the serving
+    fabric's failover) let this one end the run."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A kernel that refuses its inputs' shapes, extents, alignment or
+    devices: a ValueError, and a KernelError all the same."""
+
+
+class KernelTypeError(KernelError, TypeError):
+    """A kernel that refuses its inputs' dtype: a TypeError, and a
+    KernelError all the same."""
+
+
 def sources():
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                   if f.endswith(".cu"))
@@ -98,7 +118,7 @@ def nvcc_path():
         return found
     if os.path.exists(DEFAULT_NVCC):
         return DEFAULT_NVCC
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
         "kernels of paddle_tpu_torch cannot be built, and a CUDA tensor has "
         "no other path")
@@ -136,15 +156,15 @@ def build():
             failed.append(logs[-1])
     build_log = "\n".join(logs)
     if failed:
-        raise RuntimeError("nvcc failed:\n%s" % "\n".join(failed))
+        raise KernelError("nvcc failed:\n%s" % "\n".join(failed))
     tmp = lib_path + ".tmp%d" % os.getpid()
     link = subprocess.run(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
          tmp] + [obj for _, obj, _ in procs],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
-        raise RuntimeError("linking the kernel library failed:\n%s"
-                           % link.stdout)
+        raise KernelError("linking the kernel library failed:\n%s"
+                          % link.stdout)
     os.replace(tmp, lib_path)
     shutil.rmtree(obj_dir, ignore_errors=True)
     return lib_path
@@ -155,7 +175,11 @@ def load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            path = build()
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError("loading %s failed: %s" % (path, e)) from e
             lib.ptt_error_string.restype = ctypes.c_char_p
             lib.ptt_error_string.argtypes = [_I]
             for name, argtypes in SIGNATURES.items():
@@ -176,7 +200,7 @@ def use_kernel(t):
         return False
     if kind == "cuda":
         return True
-    raise RuntimeError("no kernel and no plain path for device %s" % t.device)
+    raise KernelError("no kernel and no plain path for device %s" % t.device)
 
 
 def check_inputs(name, *tensors):
@@ -187,14 +211,15 @@ def check_inputs(name, *tensors):
     dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError(
+            raise KernelTypeError(
                 "%s: the CUDA kernel takes float32, got %s (the bf16 form is "
                 "still to be ported, see ROADMAP)" % (name, t.dtype))
         if t.device != dev:
-            raise ValueError("%s: inputs on %s and %s" % (name, dev, t.device))
+            raise KernelInputError("%s: inputs on %s and %s"
+                                   % (name, dev, t.device))
         if not t.is_contiguous():
-            raise ValueError("%s: the CUDA kernel takes contiguous tensors"
-                             % name)
+            raise KernelInputError("%s: the CUDA kernel takes contiguous "
+                                   "tensors" % name)
 
 
 def launch(fn_name, *args):
@@ -207,5 +232,5 @@ def launch(fn_name, *args):
     cargs.append(torch.cuda.current_stream().cuda_stream)
     rc = getattr(lib, fn_name)(*cargs)
     if rc != 0:
-        raise RuntimeError("%s: CUDA error %d (%s)" % (
+        raise KernelError("%s: CUDA error %d (%s)" % (
             fn_name, rc, lib.ptt_error_string(rc).decode()))

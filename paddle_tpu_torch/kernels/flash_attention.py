@@ -179,12 +179,14 @@ def _check_form(name, tq, tk, causal, qbase, window, seg):
     """The masks the kernels take, as the reference asserts them: a
     window needs causal; segment ids need Tq == Tk and no query base."""
     if window < 0:
-        raise ValueError("%s: window must be >= 0, got %d" % (name, window))
+        raise build.KernelInputError("%s: window must be >= 0, got %d"
+                                     % (name, window))
     if window and not causal:
-        raise ValueError("%s: a window requires causal=True" % name)
+        raise build.KernelInputError("%s: a window requires causal=True"
+                                     % name)
     if seg is not None and (qbase is not None or tq != tk):
-        raise ValueError("%s: segment ids require Tq == Tk and no query "
-                         "base" % name)
+        raise build.KernelInputError("%s: segment ids require Tq == Tk and no "
+                                     "query base" % name)
 
 
 def attention_scores(q, k, kbias, causal, scale, qbase=None, window=0,
@@ -284,30 +286,33 @@ def _check(name, q, k, v, kbias, causal, qbase, window, seg, *rows):
     if (tuple(k.shape) != (bh, tk, d) or tuple(v.shape) != (bh, tk, d)
             or (kbias is not None and tuple(kbias.shape) != (bh, tk))
             or (seg is not None and tuple(seg.shape) != (bh, tk))):
-        raise ValueError("%s: shapes q %s k %s v %s kbias %s seg %s" % (
-            name, tuple(q.shape), tuple(k.shape), tuple(v.shape),
-            None if kbias is None else tuple(kbias.shape),
-            None if seg is None else tuple(seg.shape)))
+        raise build.KernelInputError(
+            "%s: shapes q %s k %s v %s kbias %s seg %s" % (
+                name, tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                None if kbias is None else tuple(kbias.shape),
+                None if seg is None else tuple(seg.shape)))
     _check_form(name, tq, tk, causal, qbase, window, seg)
     if seg is not None and (seg.is_floating_point()
                             or seg.device != q.device):
-        raise ValueError("%s: segment ids must be an integer tensor on %s"
-                         % (name, q.device))
+        raise build.KernelInputError("%s: segment ids must be an integer "
+                                     "tensor on %s" % (name, q.device))
     if causal and qbase is None and tq != tk:
-        raise ValueError("%s: causal requires Tq == Tk, got %d vs %d"
-                         % (name, tq, tk))
+        raise build.KernelInputError("%s: causal requires Tq == Tk, got %d vs "
+                                     "%d" % (name, tq, tk))
     if qbase is not None and qbase.numel() not in (1, bh):
-        raise ValueError("%s: the query base has %d entries, not 1 or BH = "
-                         "%d" % (name, qbase.numel(), bh))
+        raise build.KernelInputError(
+            "%s: the query base has %d entries, not 1 or BH = %d"
+            % (name, qbase.numel(), bh))
     if d not in (64, 128):
-        raise ValueError("%s: the CUDA kernels are built for head dims 64 "
-                         "and 128, got %d" % (name, d))
+        raise build.KernelInputError("%s: the CUDA kernels are built for head "
+                                     "dims 64 and 128, got %d" % (name, d))
     if max(q.numel(), k.numel()) >= 2 ** 31:
-        raise ValueError("%s: operands exceed the kernels' 32-bit row "
-                         "indexing" % name)
+        raise build.KernelInputError("%s: operands exceed the kernels' 32-bit "
+                                     "row indexing" % name)
     if any(t.data_ptr() % 16 for t in (q, k, v, *rows) if t.dim() == 3):
-        raise ValueError("%s: q, k, v (and dO) must start on 16 bytes (the "
-                         "kernels stage their rows in 16-byte copies)" % name)
+        raise build.KernelInputError("%s: q, k, v (and dO) must start on 16 "
+                                     "bytes (the kernels stage their rows in "
+                                     "16-byte copies)" % name)
     return bh, tq, tk, d
 
 
@@ -384,12 +389,12 @@ def flash_attention_fwd_rows(q, k, v, kbias=None, scale=None):
     bh, tq, tk, d = _check("flash_attention_fwd_rows", q, k, v, kbias, False,
                            None, 0, None)
     if not rows_form(tq):
-        raise ValueError("flash_attention_fwd_rows: Tq %d is not in 1 .. %d"
-                         % (tq, ROWS_MAX_TQ))
+        raise build.KernelInputError("flash_attention_fwd_rows: Tq %d is not "
+                                     "in 1 .. %d" % (tq, ROWS_MAX_TQ))
     if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention_fwd_rows: k and v must start on "
-                         "16 bytes (the kernel stages them in 16-byte "
-                         "copies)")
+        raise build.KernelInputError("flash_attention_fwd_rows: k and v must "
+                                     "start on 16 bytes (the kernel stages "
+                                     "them in 16-byte copies)")
     if scale is None:
         scale = d ** -0.5
     plan = rows_plan(tk, d)
@@ -672,19 +677,22 @@ def _qvec_forward(q, k, v, qstart, scale, with_lse):
     tk = k.shape[1]
     if (tuple(k.shape) != (bh, tk, d) or tuple(v.shape) != (bh, tk, d)
             or qstart.numel() != bh or tk == 0):
-        raise ValueError("flash_attention_qvec: shapes q %s k %s v %s qstart "
-                         "%s" % (tuple(q.shape), tuple(k.shape),
-                                 tuple(v.shape), tuple(qstart.shape)))
+        raise build.KernelInputError(
+            "flash_attention_qvec: shapes q %s k %s v %s qstart %s" % (
+                tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                tuple(qstart.shape)))
     if d not in (64, 128):
-        raise ValueError("flash_attention_qvec: the CUDA kernel is built for "
-                         "head dims 64 and 128, got %d" % d)
+        raise build.KernelInputError("flash_attention_qvec: the CUDA kernel "
+                                     "is built for head dims 64 and 128, got "
+                                     "%d" % d)
     plan = qvec_plan(tk, d)
     if max(q.numel(), k.numel(), q.numel() * plan.slices) >= 2 ** 31:
-        raise ValueError("flash_attention_qvec: operands exceed the "
-                         "kernel's 32-bit row indexing")
+        raise build.KernelInputError("flash_attention_qvec: operands exceed "
+                                     "the kernel's 32-bit row indexing")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_qvec: q, k and v must start on 16 "
-                         "bytes (the kernel stages them in 16-byte copies)")
+        raise build.KernelInputError("flash_attention_qvec: q, k and v must "
+                                     "start on 16 bytes (the kernel stages "
+                                     "them in 16-byte copies)")
     qs = qstart.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = (torch.empty((bh, tq), dtype=torch.float32, device=q.device)

@@ -52,9 +52,9 @@ def ln_plan(R, H):
     block (up to MAX_ROWS) that still gives every SM a block; else
     (BLOCK, 0, 0, 0).  Raises where neither form takes the shape."""
     if H > BLOCK_MAX_H or R >= 2 ** 31:
-        raise ValueError("fused_layer_norm: [%d, %d] exceeds the kernel's "
-                         "48 KB shared-memory row buffer or 32-bit rows"
-                         % (R, H))
+        raise build.KernelInputError("fused_layer_norm: [%d, %d] exceeds the "
+                                     "kernel's 48 KB shared-memory row buffer "
+                                     "or 32-bit rows" % (R, H))
     if H > WARP_MAX_H:
         return LnPlan(BLOCK, 0, 0, 0)
     need = -(-H // 128)
@@ -77,7 +77,7 @@ def _ln_forward(x2d, gamma, beta, eps):
     build.check_inputs("fused_layer_norm", x2d, gamma, beta)
     R, H = x2d.shape
     if gamma.numel() != H or beta.numel() != H:
-        raise ValueError("fused_layer_norm: shapes %s %s %s" % (
+        raise build.KernelInputError("fused_layer_norm: shapes %s %s %s" % (
             tuple(x2d.shape), tuple(gamma.shape), tuple(beta.shape)))
     plan = ln_plan(R, H)
     out = torch.empty_like(x2d)

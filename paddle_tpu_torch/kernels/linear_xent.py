@@ -80,15 +80,15 @@ def _check(name, x2d, w, labels, *rows):
     build.check_inputs(name, x2d, w, *rows)
     R, H = x2d.shape
     if w.dim() != 2 or w.shape[0] != H or labels.numel() != R:
-        raise ValueError("%s: shapes x %s, w %s, labels %s" % (
+        raise build.KernelInputError("%s: shapes x %s, w %s, labels %s" % (
             name, tuple(x2d.shape), tuple(w.shape), tuple(labels.shape)))
     if labels.dtype != torch.int64 or not labels.is_contiguous() or (
             labels.device != x2d.device):
-        raise TypeError("%s: labels must be contiguous int64 on %s" % (
-            name, x2d.device))
+        raise build.KernelTypeError("%s: labels must be contiguous int64 on %s"
+                                    % (name, x2d.device))
     if max(R * H, H * w.shape[1]) >= 2 ** 31:
-        raise ValueError("%s: operands exceed the kernel's 32-bit indexing"
-                         % name)
+        raise build.KernelInputError("%s: operands exceed the kernel's 32-bit "
+                                     "indexing" % name)
 
 
 def fwd_splits(R, V):
@@ -127,7 +127,8 @@ def lxent_plan(R, H, V):
     than 768 (H > 6144) is done in passes of 768.  The forward's ring of
     (x, w) chunk pairs takes as many as smem holds, at most 4."""
     if min(R, H, V) < 0:
-        raise ValueError("lxent_plan: shape R %d, H %d, V %d" % (R, H, V))
+        raise build.KernelInputError("lxent_plan: shape R %d, H %d, V %d"
+                                     % (R, H, V))
     n = max(1, -(-H // 256))
     hs = 256
     if n > 8:

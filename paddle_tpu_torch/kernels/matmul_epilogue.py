@@ -87,7 +87,8 @@ def mm_plan(M, N, K, gated=False):
     one, so the cut fills the card where the shape allows.  Ties go to
     the large tile and to fewer slices."""
     if min(M, N, K) < 0:
-        raise ValueError("mm_plan: shape M %d, N %d, K %d" % (M, N, K))
+        raise build.KernelInputError("mm_plan: shape M %d, N %d, K %d"
+                                     % (M, N, K))
     if M <= SKINNY_ROWS:
         rows = 1 << max(0, M - 1).bit_length()
         for bn in SKINNY_COLS:
@@ -112,8 +113,9 @@ def check_extent(name, M, N, K, plan):
     """Raise for shapes past the kernels' 32-bit indexing or grid."""
     tiles = -(-M // plan.bm) * -(-N // plan.bn)
     if max(M * K, K * N, M * N) >= 2 ** 31 or tiles > 65535:
-        raise ValueError("%s: [%d, %d] @ [%d, %d] exceeds the kernel's "
-                         "32-bit indexing" % (name, M, K, K, N))
+        raise build.KernelInputError(
+            "%s: [%d, %d] @ [%d, %d] exceeds the kernel's 32-bit indexing"
+            % (name, M, K, K, N))
 
 
 def mm_act(z, act):
@@ -131,7 +133,8 @@ def mm_act(z, act):
         return torch.nn.functional.gelu(z)
     if act == "swish":
         return z * torch.sigmoid(z)
-    raise ValueError("matmul epilogue: unsupported activation %r" % (act,))
+    raise build.KernelInputError("matmul epilogue: unsupported activation %r"
+                                 % (act,))
 
 
 def matmul_bias_act_plain(x2d, w, bias=None, act=""):
@@ -160,7 +163,8 @@ def mm_act_grad(z, act):
     if act == "swish":
         s = torch.sigmoid(z)
         return s + z * s * (1.0 - s)
-    raise ValueError("matmul epilogue: unsupported activation %r" % (act,))
+    raise build.KernelInputError("matmul epilogue: unsupported activation %r"
+                                 % (act,))
 
 
 def _mm_forward(x2d, w, bias, act):
@@ -171,7 +175,7 @@ def _mm_forward(x2d, w, bias, act):
     M, K = x2d.shape
     if w.dim() != 2 or w.shape[0] != K or (
             bias is not None and bias.numel() != w.shape[1]):
-        raise ValueError("matmul_bias_act: shapes %s @ %s + %s" % (
+        raise build.KernelInputError("matmul_bias_act: shapes %s @ %s + %s" % (
             tuple(x2d.shape), tuple(w.shape),
             None if bias is None else tuple(bias.shape)))
     N = w.shape[1]
@@ -213,7 +217,8 @@ def matmul_bias_act(x2d, w, bias=None, act=""):
     """act(x2d @ w + bias); act in MM_ACTS, bias [N] or None.
     Differentiable in x2d, w and bias (dense backward)."""
     if act not in _ACT_CODE:
-        raise ValueError("matmul epilogue: unsupported activation %r" % (act,))
+        raise build.KernelInputError("matmul epilogue: unsupported activation "
+                                     "%r" % (act,))
     return _MatmulBiasAct.apply(x2d, w, bias, act)
 
 

@@ -38,8 +38,9 @@ def _swiglu_forward(x2d, wg, wu):
     build.check_inputs("matmul_swiglu", x2d, wg, wu)
     M, K = x2d.shape
     if wg.dim() != 2 or wg.shape[0] != K or wu.shape != wg.shape:
-        raise ValueError("matmul_swiglu: shapes x %s, wg %s, wu %s" % (
-            tuple(x2d.shape), tuple(wg.shape), tuple(wu.shape)))
+        raise build.KernelInputError(
+            "matmul_swiglu: shapes x %s, wg %s, wu %s" % (
+                tuple(x2d.shape), tuple(wg.shape), tuple(wu.shape)))
     N = wg.shape[1]
     plan = mm_plan(M, N, K, gated=True)
     check_extent("matmul_swiglu", M, N, K, plan)

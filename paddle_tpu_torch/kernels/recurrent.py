@@ -97,7 +97,8 @@ def rnn_plan(B, H, gates):
     rows (16 where shared memory runs short).  Raises ValueError for an H
     whose W slice and tiles do not fit in a block's shared memory."""
     if gates not in (3, 4) or H < 1 or B < 0:
-        raise ValueError("rnn_plan: B %d, H %d, gates %d" % (B, H, gates))
+        raise build.KernelInputError("rnn_plan: B %d, H %d, gates %d"
+                                     % (B, H, gates))
     units = _cdiv(H, MAX_BLOCKS)
     nts = _n_tiles(units, gates)
     n_warps = _cdiv(max(nts), WARP_N_TILES)
@@ -113,7 +114,7 @@ def rnn_plan(B, H, gates):
         smem = _smem(B, gates, units, k_warps, k_steps, rows)
         if smem <= SMEM_MAX:
             return RnnPlan(units, k_warps, n_warps, k_steps, rows, regs, smem)
-    raise ValueError(
+    raise build.KernelInputError(
         "rnn_plan: B %d, H %d does not fit the recurrent kernel: a block's W "
         "columns ([%d, %d]) and tiles need %d bytes of shared memory, more "
         "than %d" % (B, H, H, gates * units, smem, SMEM_MAX))
@@ -170,20 +171,20 @@ def gru_seq_plain(xproj, w, h0, lens):
 def _check(name, gates, xproj, w, states, lens):
     build.check_inputs(name, xproj, w, *states)
     if xproj.dim() != 3 or xproj.shape[-1] % gates:
-        raise ValueError("%s: xproj must be [B, T, %dH], got %s" % (
-            name, gates, tuple(xproj.shape)))
+        raise build.KernelInputError("%s: xproj must be [B, T, %dH], got %s"
+                                     % (name, gates, tuple(xproj.shape)))
     B, T, GH = xproj.shape
     H = GH // gates
     if tuple(w.shape) != (H, GH) or any(tuple(s.shape) != (B, H)
                                         for s in states):
-        raise ValueError("%s: shapes xproj %s, w %s, states %s" % (
+        raise build.KernelInputError("%s: shapes xproj %s, w %s, states %s" % (
             name, tuple(xproj.shape), tuple(w.shape),
             [tuple(s.shape) for s in states]))
     if lens.numel() != B or lens.device != xproj.device:
-        raise ValueError("%s: lens must be [B]=%d on %s" % (name, B,
-                                                            xproj.device))
+        raise build.KernelInputError("%s: lens must be [B]=%d on %s"
+                                     % (name, B, xproj.device))
     if T == 0:
-        raise ValueError("%s: T must be at least 1" % name)
+        raise build.KernelInputError("%s: T must be at least 1" % name)
     return B, T, H
 
 
@@ -203,7 +204,7 @@ def _launch(name, fn_name, B, T, H, plan, *args):
     try:
         build.launch(fn_name, *args, B, T, H, *plan)
     except RuntimeError as e:
-        raise RuntimeError(
+        raise build.KernelError(
             "%s at B %d, T %d, H %d (plan %s): %s (the kernel needs every "
             "block of the plan co-resident)" % (name, B, T, H, tuple(plan),
                                                 e)) from e

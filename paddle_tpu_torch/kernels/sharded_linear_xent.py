@@ -98,10 +98,10 @@ def linear_xent_parts(x2d, w_local, lbl_local):
 def _grad_args(name, x2d, w_local, lbl_local, valid, lse, dy, vocab_total):
     _check(name, x2d, w_local, lbl_local, valid, lse, dy)
     if valid.numel() != x2d.shape[0] or vocab_total < w_local.shape[1]:
-        raise ValueError("%s: valid %s for %d rows, vocab_total %d for a "
-                         "slab of %d" % (name, tuple(valid.shape),
-                                         x2d.shape[0], vocab_total,
-                                         w_local.shape[1]))
+        raise build.KernelInputError(
+            "%s: valid %s for %d rows, vocab_total %d for a slab of %d" % (
+                name, tuple(valid.shape), x2d.shape[0], vocab_total,
+                w_local.shape[1]))
 
 
 def linear_xent_dx_sharded(x2d, w_local, lbl_local, valid, lse, dy, eps,

@@ -72,9 +72,9 @@ def sxent_plan(R, C):
     no form takes the shape.  The staged form serves no path today (see
     the module's docstring)."""
     if not 1 <= C < 2 ** 31 or not 0 <= R < 2 ** 31:
-        raise ValueError("fused_softmax_xent: [%d, %d] is past the kernels' "
-                         "1 to 2**31 - 1 columns or 32-bit row count"
-                         % (R, C))
+        raise build.KernelInputError("fused_softmax_xent: [%d, %d] is past "
+                                     "the kernels' 1 to 2**31 - 1 columns or "
+                                     "32-bit row count" % (R, C))
     if C <= WARP_MAX_C:
         return SxentPlan(WARP, 0, 0, 0)
     if C > STAGED_MAX_C:
@@ -82,8 +82,9 @@ def sxent_plan(R, C):
     ctas = next((n for n in CTAS if -(-C // n) <= PART_FLOATS), CTAS[-1])
     part = -(-C // ctas) + 3 & ~3
     if ctas * R >= 2 ** 31:
-        raise ValueError("fused_softmax_xent: [%d, %d] needs %d blocks, past "
-                         "the grid's 2**31 - 1" % (R, C, ctas * R))
+        raise build.KernelInputError(
+            "fused_softmax_xent: [%d, %d] needs %d blocks, past the grid's "
+            "2**31 - 1" % (R, C, ctas * R))
     threads = 32 * min(32, max(MIN_THREADS // 32,
                                 -(-part // (32 * THREAD_FLOATS))))
     return SxentPlan(STAGED, ctas, threads, 4 * (part + 4))
@@ -114,35 +115,35 @@ def _validate(logits, labels):
     """The reference's loud shape contract (``_sxent_validate``): 2-D
     logits, one integer label per row."""
     if logits.dim() != 2:
-        raise ValueError(
+        raise build.KernelInputError(
             "fused_softmax_xent: logits must be 2-D [rows, classes], got "
             "shape %s — reshape leading dims into rows first"
             % (tuple(logits.shape),))
     rows = int(logits.shape[0])
     if labels.dim() > 2 or labels.numel() != rows or (
             labels.dim() == 2 and labels.shape[1] != 1):
-        raise ValueError(
+        raise build.KernelInputError(
             "fused_softmax_xent: labels must be [rows]=%d (or [rows, 1]) "
             "ints, got shape %s" % (rows, tuple(labels.shape)))
     if labels.is_floating_point() or labels.is_complex() or (
             labels.dtype == torch.bool):
-        raise ValueError("fused_softmax_xent: labels must be integers, got %s"
-                         % labels.dtype)
+        raise build.KernelInputError("fused_softmax_xent: labels must be "
+                                     "integers, got %s" % labels.dtype)
 
 
 def _check(name, logits, labels, *rows):
     build.check_inputs(name, logits, *rows)
     R, C = logits.shape
     if C == 0 or labels.numel() != R or any(t.numel() != R for t in rows):
-        raise ValueError("%s: shapes logits %s, labels %s" % (
+        raise build.KernelInputError("%s: shapes logits %s, labels %s" % (
             name, tuple(logits.shape), tuple(labels.shape)))
     if labels.dtype != torch.int64 or not labels.is_contiguous() or (
             labels.device != logits.device):
-        raise TypeError("%s: labels must be contiguous int64 on %s" % (
-            name, logits.device))
+        raise build.KernelTypeError("%s: labels must be contiguous int64 on %s"
+                                    % (name, logits.device))
     if R >= 2 ** 31 or C >= 2 ** 31:
-        raise ValueError("%s: %d x %d exceeds the kernel's 32-bit row and "
-                         "column indices" % (name, R, C))
+        raise build.KernelInputError("%s: %d x %d exceeds the kernel's 32-bit "
+                                     "row and column indices" % (name, R, C))
 
 
 def softmax_xent_fwd(logits, labels):

@@ -321,7 +321,7 @@ def transformer(src_ids, trg_ids, src_slf_attn_bias, trg_slf_attn_bias,
     if getattr(hp, "recompute", False) and not is_test:
         raise NotImplementedError("per-layer rematerialization "
                                   "(layers.recompute) is not ported yet "
-                                  "(ROADMAP A3)")
+                                  "(ROADMAP A9)")
     fused = getattr(hp, "fused_attn", False)
     src_kpad = cross_kpad = None
     if fused:

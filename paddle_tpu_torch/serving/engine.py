@@ -540,6 +540,40 @@ class ServingEngine:
         self.counters["finished"] += 1
         self._results[s.req.rid] = self._result(s.req, "OK", s)
 
+    # ---- result serialization (out-of-process pools) -------------------
+    @staticmethod
+    def wire_result(r):
+        """One terminal result coerced onto the RPC wire's closed type
+        system: tokens stay an int64 ndarray, every scalar becomes a plain
+        int / float / str / bool / None (a stray np.int64 would fail the
+        codec), and the statuses cross unchanged."""
+
+        def _scalar(v):
+            if v is None or isinstance(v, (str, bool)):
+                return v
+            if isinstance(v, (int, np.integer)):
+                return int(v)
+            return float(v)
+
+        out = {}
+        for k, v in r.items():
+            if k == "tokens":
+                out[k] = np.asarray(v, "int64")
+            else:
+                out[k] = _scalar(v)
+        return out
+
+    def wire_results(self, rids=None):
+        """Terminal results for `rids` (default: all) as wire-safe dicts,
+        each tagged with its "rid"."""
+        keys = self._results.keys() if rids is None else rids
+        out = []
+        for rid in keys:
+            r = self.wire_result(self._results[rid])
+            r["rid"] = rid
+            out.append(r)
+        return out
+
     # ---- pool placement ------------------------------------------------
     def kv_pool_bytes(self, scope=None):
         """Where the KV slot pool lives: its total bytes, the bytes on

@@ -1,7 +1,7 @@
 """Serving request records + the seeded Poisson arrival generator (the
-port's own copy of ``paddle_tpu/serving/trace.py``, without the
-out-of-process wire codec: what it computes is unchanged, so both
-packages serve byte-identical traces from one seed).
+port's own copy of ``paddle_tpu/serving/trace.py``, the wire codec
+included: what it computes is unchanged, so both packages serve
+byte-identical traces from one seed).
 
 A Request is one user call: a prompt, a budget, per-request sampling
 params (temperature / top-k / top-p / seed — seed None means greedy)
@@ -56,6 +56,30 @@ class Request:
     @property
     def greedy(self):
         return self.seed is None
+
+    # ---- wire codec (out-of-process pools) ----------------------------
+    def to_wire(self):
+        """Flatten to the RPC wire's closed type system (ints / floats /
+        None / ndarray): from_wire must rebuild a Request whose schedule
+        AND sampling keys are identical, or a stream replayed across the
+        boundary leaves its solo run."""
+        return {
+            "rid": self.rid,
+            "prompt": self.prompt,
+            "max_new_tokens": self.max_new_tokens,
+            "temperature": self.temperature,
+            "top_k": self.top_k,
+            "top_p": self.top_p,
+            "seed": self.seed,
+            "eos_id": self.eos_id,
+            "arrival": self.arrival,
+            "deadline": self.deadline,
+            "sample_step_base": self.sample_step_base,
+        }
+
+    @classmethod
+    def from_wire(cls, d):
+        return cls(**d)
 
     @property
     def arrival_step(self):

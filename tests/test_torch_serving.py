@@ -280,7 +280,9 @@ bad = [n for n in sys.modules
        or n.startswith("paddle_tpu.")]
 assert not bad, bad
 for n in ("paddle_tpu_torch.serving.prefix", "paddle_tpu_torch.serving.engine",
-          "paddle_tpu_torch.models.decode_cache"):
+          "paddle_tpu_torch.models.decode_cache",
+          "paddle_tpu_torch.serving.router",
+          "paddle_tpu_torch.distributed.faults"):
     assert n in sys.modules, n
 print("OK", len([n for n in sys.modules if n.startswith("paddle_tpu_torch")]))
 """
