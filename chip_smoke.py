@@ -29,7 +29,10 @@ In order, it:
    and T - 1, every rerun bit-equal; fused_layer_norm at the edge
    widths 1000 and 770; the Transformer translate paths' shapes: B3d
    with the source-padding bias, B9 16 wide, B3's tile at Tq 16 over
-   Tk 64, B1, and B5 where the paths' mul ops run), and times kernel,
+   Tk 64, B1, and B5 where the paths' mul ops run; the inference paths'
+   shapes: B3 at the encoder's [256, 256, 64] with a key bias, B5 at its
+   8192-row FFN and the classifiers' and LSTM's fc, B1 at [8192, 512],
+   B11 forward-only at the LSTM's [32, 64, 2048]), and times kernel,
    plain version and one PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
@@ -240,7 +243,27 @@ In order, it:
    32 x 32, batch 8) 3 Momentum steps on the card and on the CPU, in
    NCHW and NHWC: losses, parameters, running stats and velocities
    within 1e-4 relative to each tensor's largest magnitude;
-30. prints, for every path, its eager and captured numbers (one JSON
+30. serves three saved models through the inference deployment path:
+   startup from a seed, every batch norm's statistics drawn from a seed,
+   save_inference_model into build/, then
+   create_paddle_predictor(AnalysisConfig(model_dir)) on the card (its
+   12 passes: the batch-norm fold, attention, fc and recurrent fusions,
+   the is_test rewrite, the memory plan); batch 32 of host arrays, the
+   warm-up and the capture, 10 timed replays with the launch counts held
+   to the passed program's, each equal to the warm-up bit for bit, 3
+   eager runs (equal too), a profiler window of each (idle share), and
+   the output against the unpassed clone(for_test=True) on the card:
+   ResNet-50 at 224 x 224 (all 53 batch norms folded; rtol 2e-3, atol
+   1e-5; images/s), the reference analyzer's Transformer encoder
+   classifier at ModelHyperParams' widths over 256 tokens with the last
+   16 keys padded (6 fused_attention, B3's forward 6 a run; rtol 2e-4,
+   atol 1e-6; sentences/s) and the stacked LSTM classifier at its
+   training setting (B11 on layers 1 and 3); then each at a small width,
+   and the reference tests' fc_gru and embedding_fc_lstm programs
+   (fusion_gru on B10, fused_embedding_fc_lstm on B11), served on the
+   card and on the CPU from one saved model: the same ops, bit-equal
+   folded weights, outputs within 1e-5 (conv net 1e-4) of the largest;
+31. prints, for every path, its eager and captured numbers (one JSON
    line), the kernels line and, last, the result line.
 
 Every path's executor but the vocab-parallel one's captures its step as
@@ -374,6 +397,15 @@ PACKED_STEPS = 10
 # ResNet (depth 8, 32 x 32) of the CPU tests, card vs CPU at batch 8
 RESNET_BATCH, RESNET_HW, RESNET_CLASSES, RESNET_STEPS = 128, 224, 1000, 3
 CIFAR_BATCH, CIFAR_STEPS, CIFAR_LR = 8, 3, 0.01
+# the inference deployment paths (save_inference_model, then
+# create_paddle_predictor(AnalysisConfig(model_dir))): ResNet-50 at 224 x 224
+# and 1000 classes, the reference analyzer's Transformer encoder classifier
+# (tests/test_inference_models.py:133-160) at ModelHyperParams' widths over
+# sentences of 256 tokens, the last 16 keys padded, 4 classes, and the
+# stacked LSTM classifier at its training setting; batch 32 each, INF_RUNS
+# timed captured runs and INF_EAGER eager ones
+INF_BATCH, ENC_LEN, ENC_PAD, ENC_CLASSES = 32, 256, 16, 4
+INF_RUNS, INF_EAGER = 10, 3
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
 GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
@@ -658,6 +690,8 @@ def check_kernels(dev):
     mark("fused_lstm, fused_gru")
     check_translate_kernels(dev, randn, rec)
     mark("translate shapes (B3d, B9, B3, B5, B1)")
+    check_inference_kernels(dev, randn, rec)
+    mark("inference shapes (B3, B5, B1, B11)")
     return rec
 
 
@@ -1955,6 +1989,152 @@ def check_translate_kernels(dev, randn, rec):
         for tag, t in rec[name]["per_shape"].items():
             if tag.startswith("translate"):  # B5's: no launch on the path
                 print("%s %s: %s" % (name, tag, json.dumps(t)))
+
+def check_inference_kernels(dev, randn, rec):
+    """The kernels of the inference paths against their plain versions at
+    those paths' shapes, each timed beside its plain version and one
+    library call, into `rec`'s per_shape:
+
+    - B3's tile forward at the encoder's q, k, v [256, 256, 64] (32
+      sentences x 8 heads), not causal, the key bias padding the last 16
+      keys (every pair is computed: the bias is additive);
+    - B5 at the encoder's FFN (M 8192: 512 x 2048 + bias, relu and 2048 x
+      512 + bias), the classifiers' fc (the encoder's 512 x 4, ResNet-50's
+      2048 x 1000, both M 32 + bias) and the stacked LSTM's first fc (M
+      2048, 512 x 2048 + bias);
+    - B1 at the encoder's rows, [8192, 512];
+    - B11 forward-only at the LSTM path's xproj [32, 64, 2048], W [512,
+      2048], full lengths: CUDA events around queued calls (a cooperative
+      launch), torch.nn.LSTM (cuDNN) beside.
+
+    Limits: B3 1e-4 of o's largest magnitude and 1e-4 absolute on the
+    lse, B5 1e-4 absolute, B1 1e-5 absolute, B11 1e-5 absolute; every
+    rerun bit-equal."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    import recurrent_kernel_check as rkc
+    from paddle_tpu_torch.kernels import (
+        flash_attention_fwd,
+        flash_attention_plain,
+        fused_layer_norm,
+        fused_lstm,
+        layer_norm_plain,
+        lstm_seq_plain,
+        matmul_bias_act,
+        matmul_bias_act_plain,
+    )
+    from paddle_tpu_torch.kernels.layer_norm import ln_plan
+    from paddle_tpu_torch.kernels.matmul_epilogue import TILED, mm_plan
+
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    d, T = HP_D_MODEL // HP_HEADS, ENC_LEN
+    bh, scale = INF_BATCH * HP_HEADS, (HP_D_MODEL // HP_HEADS) ** -0.5
+    kbias = torch.zeros(bh, T, device=dev)
+    kbias[:, T - ENC_PAD:] = -1e9
+
+    # B3's tile forward at the encoder's self-attention
+    q, k, v = randn(bh, T, d), randn(bh, T, d), randn(bh, T, d)
+    o, lse = flash_attention_fwd(q, k, v, kbias, False, scale)
+    p_o, p_lse = flash_attention_plain(q, k, v, kbias, False, scale)
+    attn_err = ((o - p_o).abs().max() / p_o.abs().max()).item()
+    assert attn_err <= 1e-4, ("encoder flash forward disagrees", attn_err)
+    assert (lse - p_lse).abs().max().item() <= 1e-4, "encoder lse"
+    again = flash_attention_fwd(q, k, v, kbias, False, scale)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    rec["flash_attention_fwd"].setdefault("per_shape", {})[
+        "inference encoder q, k, v [%d, %d, %d], key bias (last %d keys "
+        "padded)" % (bh, T, d, ENC_PAD)] = _attn_times(
+            lambda: flash_attention_fwd(q, k, v, kbias, False, scale),
+            lambda: flash_attention_plain(q, k, v, kbias, False, scale),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=kbias[:, None, :], scale=scale),
+            4 * (4 * bh * T * d + bh * T + bh * T), 4 * bh * T * T * d,
+            fa.flash_plan("fwd", T, T, d) == fa.FLASH_TC)
+
+    # B5 at the paths' fc ops
+    mm_err, per = 0.0, rec["matmul_bias_act"]["per_shape"]
+    D, FF = HP_D_MODEL, 4 * HP_D_MODEL
+    for tag, (m, k_, n, act) in (
+            ("encoder ffn_in", (INF_BATCH * T, D, FF, "relu")),
+            ("encoder ffn_out", (INF_BATCH * T, FF, D, "")),
+            ("encoder classifier", (INF_BATCH, D, ENC_CLASSES, "")),
+            ("resnet50 fc", (INF_BATCH, 2048, RESNET_CLASSES, "")),
+            ("lstm fc", (INF_BATCH * LSTM_LEN, LSTM_H, 4 * LSTM_H, ""))):
+        x, w, b = randn(m, k_), randn(k_, n, scale=k_ ** -0.5), randn(n)
+        out = matmul_bias_act(x, w, b, act)
+        mm_err = max(mm_err, (out - matmul_bias_act_plain(
+            x, w, b, act)).abs().max().item())
+        assert torch.equal(out, matmul_bias_act(x, w, b, act)), tag
+        lib = ((lambda: F.relu(torch.addmm(b, x, w))) if act
+               else (lambda: torch.addmm(b, x, w)))
+        plan = mm_plan(m, n, k_)
+        per["inference %s [%d, %d] @ [%d, %d] + bias%s" % (
+            tag, m, k_, k_, n, " " + act if act else "")] = dict(
+                ms=_time_ms(lambda: matmul_bias_act(x, w, b, act)),
+                plain_ms=_time_ms(lambda: matmul_bias_act_plain(x, w, b, act)),
+                library_ms=_time_ms(lib),
+                **_bounds(4 * (m * k_ + k_ * n + n + m * n), 2 * m * k_ * n,
+                          plan.form == TILED),
+                plan=list(plan))
+    assert mm_err <= 1e-4, ("matmul_bias_act disagrees", mm_err)
+
+    # B1 at the encoder's rows
+    r, H = INF_BATCH * T, HP_D_MODEL
+    x = randn(r, H, scale=2.0) + 0.5
+    gam, bet = randn(H), randn(H)
+    outs = fused_layer_norm(x, gam, bet, 1e-5)
+    ln_err = max((a - b_).abs().max().item() for a, b_ in zip(
+        outs, layer_norm_plain(x, gam, bet, 1e-5)))
+    assert ln_err <= 1e-5, ("fused_layer_norm disagrees", ln_err)
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        outs, fused_layer_norm(x, gam, bet, 1e-5)))
+    b_ms, by = _bound_ms(8 * r * H + 8 * H + 8 * r, 8 * r * H)
+    rec["fused_layer_norm"]["per_shape"]["inference encoder [%d, %d]" % (
+        r, H)] = dict(
+            plan=list(ln_plan(r, H)),
+            ms=_time_ms(lambda: fused_layer_norm(x, gam, bet, 1e-5)),
+            plain_ms=_time_ms(lambda: layer_norm_plain(x, gam, bet, 1e-5)),
+            library_ms=_time_ms(lambda: F.layer_norm(x, (H,), gam, bet,
+                                                     1e-5)),
+            bound_ms=b_ms, bound_by=by)
+
+    # B11 forward-only at the LSTM path's layers 1 and 3
+    b, t, h = INF_BATCH, LSTM_LEN, LSTM_H
+    xp, w = randn(b, t, 4 * h), randn(h, 4 * h, scale=h ** -0.5)
+    h0 = c0 = torch.zeros(b, h, device=dev)
+    lens = torch.full((b,), t, device=dev, dtype=torch.long)
+    hs, cs = fused_lstm(xp, w, h0, c0, lens)
+    lstm_err = max((a - c).abs().max().item() for a, c in zip(
+        (hs, cs), lstm_seq_plain(xp, w, h0, c0, lens)))
+    assert lstm_err <= 1e-5, ("fused_lstm disagrees", lstm_err)
+    assert all(torch.equal(a, c) for a, c in zip(
+        (hs, cs), fused_lstm(xp, w, h0, c0, lens)))
+    cudnn = torch.nn.LSTM(h, h, batch_first=True).to(dev)
+    xin = randn(b, t, h)
+    with torch.no_grad():
+        lib_ms = rkc.device_ms(lambda: cudnn(xin, (h0[None], c0[None])))
+    rec["fused_lstm"].setdefault("per_shape", {})[
+        "inference LSTM xproj [%d, %d, %d], W [%d, %d], zero h0 / c0, full "
+        "lengths (forward only)" % (b, t, 4 * h, h, 4 * h)] = dict(
+            ms=rkc.device_ms(lambda: fused_lstm(xp, w, h0, c0, lens)),
+            plain_ms=_events_ms(lambda: lstm_seq_plain(xp, w, h0, c0, lens),
+                                3),
+            library_ms=lib_ms,
+            **_bounds(4 * (b * t * 4 * h + h * 4 * h + 2 * b * h + b
+                           + 2 * b * t * h), 2 * b * t * h * 4 * h, True))
+    torch.cuda.synchronize()
+    print("inference kernels held to their plain versions at the inference "
+          "shapes: B3 %.3g rel, B5 %.3g abs, B1 %.3g abs, B11 %.3g abs; "
+          "reruns bit-equal" % (attn_err, mm_err, ln_err, lstm_err))
+    for name in ("flash_attention_fwd", "matmul_bias_act",
+                 "fused_layer_norm", "fused_lstm"):
+        for tag, t_ in rec[name]["per_shape"].items():
+            if tag.startswith("inference"):
+                print("%s %s: %s" % (name, tag, json.dumps(t_)))
+
 
 def _visible(t, causal, window=0, seg=None, dev=None):
     """[BH or 1, T, T] bool: the (query, key) pairs the causal mask, the
@@ -6295,6 +6475,483 @@ def resnet_card_matches_cpu(dev):
                   len(names)))
 
 
+# ---------------------------------------------------------------------------
+# the inference deployment paths
+# ---------------------------------------------------------------------------
+def _build_dir():
+    """The checkout's build/ (ignored by git): saved models live there for
+    the length of a path."""
+    path = os.path.join(ROOT, "build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _seed_batch_norm(main, scope, seed):
+    """Every batch_norm's gamma, beta and mean from normal draws (sd 0.1
+    about 1, 0 and 0) and its variance uniform in [0.5, 1.5], from
+    RandomState(seed), into `scope` on the device of its values, so that
+    the fold has statistics to fold (the startup's are 1, 0, 0, 1).
+    Returns how many batch norms were seeded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    block = main.global_block()
+    n = 0
+    for op in block.ops:
+        if op.type != "batch_norm":
+            continue
+        c = int(block.var(op.inputs["Scale"][0]).shape[0])
+        for slot, arr in (("Scale", rng.normal(1.0, 0.1, c)),
+                          ("Bias", rng.normal(0.0, 0.1, c)),
+                          ("Mean", rng.normal(0.0, 0.1, c)),
+                          ("Variance", rng.uniform(0.5, 1.5, c))):
+            name = op.inputs[slot][0]
+            scope.set(name, torch.tensor(arr.astype("float32"),
+                                         device=scope.find_var(name).device))
+        n += 1
+    return n
+
+
+def _expected_inference_launches(program):
+    """Kernel launches a run of an inference program, read off its ops
+    (_expected_train_launches' counts, with the fused recurrent ops the
+    predictor's passes make: each runs padded_lstm's or padded_gru's
+    forward direction)."""
+    block = program.global_block()
+    per = _expected_train_launches(program)
+    per["fused_lstm"] += sum(_forward_recurrent(block, t) for t in (
+        "lstm", "fusion_lstm", "fused_embedding_fc_lstm"))
+    per["fused_gru"] += sum(_forward_recurrent(block, t)
+                            for t in ("gru", "fusion_gru"))
+    return per
+
+
+def _serve_inference(label, name, main, startup, feeds, targets, batch, unit,
+                     seed, tol, profile_dir, check=None):
+    """One inference path on the card: startup from `seed`, the batch
+    norms seeded (_seed_batch_norm), save_inference_model into build/,
+    then create_paddle_predictor(AnalysisConfig(model_dir)) with no place
+    (the card) runs its 12 passes.  Its first run is the eager warm-up,
+    its second the capture; INF_RUNS timed runs (replays) follow, with
+    every launch count reset just before and read just after and held to
+    the passed program's launches times the runs, one capture in all, and
+    each run's outputs (`targets`: the prediction first) equal to the
+    warm-up's bit for bit.  Then INF_EAGER eager runs on a clone (its own
+    executor, use_program_cache=False): the eager p50, the same outputs;
+    a torch.profiler window of each (device busy and idle share); and
+    each output against the unpassed clone(for_test=True) program's, run
+    on the card from the startup scope, within `tol` (rtol, atol; atol
+    scaled by the output's largest magnitude where that exceeds 1).
+    `check(predictor, types, per_run, n_bn)` adds the path's own
+    checks.  `batch` holds host arrays, as a user feeds a
+    predictor: the timed runs stage them.  Returns (the launch counts of
+    the timed runs, the path's capture record)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    startup.random_seed = main.random_seed = seed
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    n_bn = _seed_batch_norm(main, scope, seed)
+    test_prog = main.clone(for_test=True)
+    wants = exe.run(test_prog, feed=batch, fetch_list=targets, scope=scope)
+    model_dir = tempfile.mkdtemp(prefix="inference_", dir=_build_dir())
+    try:
+        t0 = time.time()
+        ptt.save_inference_model(model_dir, feeds, targets, exe,
+                                 main_program=main, scope=scope)
+        save_s = time.time() - t0
+        exe.close()
+        del scope
+        saved_mb = sum(os.path.getsize(os.path.join(model_dir, f))
+                       for f in os.listdir(model_dir)) / 1e6
+        t0 = time.time()
+        pred = create_paddle_predictor(AnalysisConfig(model_dir))
+        load_s = time.time() - t0
+        assert pred.exe.place == ptt.CUDAPlace(0), pred.exe.place
+        types = [op.type for op in pred.program.global_block().ops]
+        per_run = _expected_inference_launches(pred.program)
+        if check is not None:
+            check(pred, types, per_run, n_bn)
+
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        first = pred.run(batch)  # the eager warm-up
+        pred.run(batch)  # the capture
+        times = []
+        kernels.reset_launch_counts()
+        feed_ms = pred.exe.host_feed_ms
+        for _ in range(INF_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = pred.run(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            assert all(np.array_equal(a, b) for a, b in zip(got, first)), (
+                "replay != warm-up", label)
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        feed_ms = (pred.exe.host_feed_ms - feed_ms) / INF_RUNS
+        peak = torch.cuda.max_memory_allocated()
+        assert pred.exe.compile_count == 1, ("captures", label,
+                                             pred.exe.compile_count)
+        for k, n in per_run.items():
+            assert launches[k] == n * INF_RUNS, (
+                "launch count", label, k, launches[k], n)
+        assert all(np.isfinite(g).all() for g in got), label
+
+        eager = pred.clone()
+        assert eager.scope is pred.scope and eager.exe is not pred.exe
+
+        def eager_run():
+            return eager.exe.run(eager.program, feed=batch,
+                                 fetch_list=eager.fetch_names,
+                                 scope=eager.scope,
+                                 use_program_cache=False)
+
+        eager_times = []
+        for _ in range(INF_EAGER):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eager_run()
+            torch.cuda.synchronize()
+            eager_times.append(time.perf_counter() - t0)
+            assert all(np.array_equal(a, b) for a, b in zip(out, first)), (
+                "eager != captured", label)
+        out_dir = profile_dir or model_dir
+        reports = {
+            "captured": profile_training(lambda: pred.run(batch), out_dir,
+                                         steps=5, name=name),
+            "eager": profile_training(eager_run, out_dir, steps=INF_EAGER,
+                                      name=name + "_eager")}
+        rtol, atol = tol
+        errs, mags = [], []
+        for g_, w_ in zip(got, wants):
+            mag = float(np.abs(w_).max())
+            np.testing.assert_allclose(g_, w_, rtol=rtol,
+                                       atol=atol * max(1.0, mag))
+            errs.append(float(np.abs(g_ - w_).max()))
+            mags.append(mag)
+        eager.exe.close()
+        pred.exe.close()
+    finally:
+        shutil.rmtree(model_dir)
+    p50 = _p50_ms(times)
+    cap = dict(captured=True, captured_p50_ms=p50,
+               eager_p50_ms=_p50_ms(eager_times), compile_count=1,
+               host_feed_ms=feed_ms, peak_gb=peak / 1e9,
+               save_s=save_s, load_and_passes_s=load_s, saved_mb=saved_mb,
+               max_abs_err_vs_unpassed=errs, largest_output=mags)
+    cap[unit + "_per_s"] = INF_BATCH / p50 * 1e3
+    _busy_idle(cap, reports)
+    counts = {}
+    for t in types:
+        counts[t] = counts.get(t, 0) + 1
+    print("%s served through create_paddle_predictor(AnalysisConfig) on the "
+          "card: captured p50 %.3f ms (%.1f %s/s), eager p50 %.3f ms; idle "
+          "%s captured, %s eager; saved %.1f MB in %.1f s, loaded with its "
+          "12 passes in %.1f s; ops after the passes %s; launches a run %s; "
+          "against the unpassed clone(for_test=True) on the card, each "
+          "fetch's max abs difference %s, largest magnitude %s (rtol %g, "
+          "atol %g); %d replays == the warm-up == %d eager runs, bit for "
+          "bit" % (
+              label, p50, cap[unit + "_per_s"], unit, cap["eager_p50_ms"],
+              cap["captured_idle"], cap["eager_idle"], saved_mb, save_s,
+              load_s, json.dumps(counts),
+              json.dumps({k: v for k, v in per_run.items() if v}), errs,
+              mags, rtol, atol, INF_RUNS, INF_EAGER))
+    return launches, _capture_line(label, cap)
+
+
+def _inference_resnet50(batch_hw, class_dim):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), unique_name.guard():
+        img = ptt.layers.data("image", shape=[3, batch_hw, batch_hw])
+        pred = resnet.resnet_imagenet(img, class_dim=class_dim, depth=50)
+    return main, startup, ["image"], pred
+
+
+def resnet50_inference(dev, profile_dir=None):
+    """ResNet-50 served: resnet_imagenet(depth=50, class_dim=1000) at 3 x
+    224 x 224, batch 32 of RandomState(0) images, through _serve_inference,
+    saved with two fetches: the prediction and the classifier's logits
+    (the softmax's input: with random weights and seeded running
+    statistics the activations grow through the trunk and the softmax
+    saturates, so the logits carry the comparison).  All 53 batch_norm
+    ops fold into their convs (the fold's arithmetic in numpy float32 on
+    host copies, the weights back on the card); both outputs within the
+    reference analyzer's bound of the unfolded program (rtol 2e-3, atol
+    1e-5 of the largest magnitude; tests/test_inference_models.py:73),
+    TF32 off.  No hand-written kernel but B5, at the classifier's fc."""
+    import numpy as np
+
+    main, startup, feeds, pred = _inference_resnet50(RESNET_HW,
+                                                     RESNET_CLASSES)
+    sm = [op for op in main.global_block().ops if op.type == "softmax"][-1]
+    logits = main.global_block().var(sm.inputs["X"][0])
+    batch = {"image": np.random.RandomState(0).rand(
+        INF_BATCH, 3, RESNET_HW, RESNET_HW).astype("float32")}
+
+    def check(predictor, types, per_run, n_bn):
+        assert n_bn == 53 and "batch_norm" not in types, types
+        assert types.count("conv2d") == 53, types
+        folded = [n for n in predictor.program.global_block().vars
+                  if n.endswith("@BN_FOLDED_BIAS")]
+        assert len(folded) == 53, len(folded)
+        assert per_run["matmul_bias_act"] == 1 and sum(
+            per_run.values()) == 1, per_run
+
+    return _serve_inference(
+        "ResNet-50 inference (batch %d, %d x %d)" % (
+            INF_BATCH, RESNET_HW, RESNET_HW), "inference_resnet50", main,
+        startup, feeds, [pred, logits], batch, "images", 2031, (2e-3, 1e-5),
+        profile_dir, check)
+
+
+def _encoder_classifier(hp, seq_len, classes):
+    """The reference analyzer's encoder classifier: prepare_embedding,
+    hp.n_layer encoder layers over a rank-1 key-padding bias [B, 1, 1, T],
+    reduce_mean over time, fc softmax."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import transformer as tfm
+
+    L = ptt.layers
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), unique_name.guard():
+        ids = L.data("src_ids", shape=[seq_len], dtype="int64")
+        bias = L.data("src_bias", shape=[1, 1, seq_len])
+        x = tfm.prepare_embedding(ids, hp.src_vocab_size, hp.d_model,
+                                  hp.max_length, hp.dropout,
+                                  "src_pos_enc_table")
+        for _ in range(hp.n_layer):
+            x = tfm.encoder_layer(x, bias, hp)
+        pred = L.fc(L.reduce_mean(x, dim=1), size=classes, act="softmax")
+    return main, startup, ["src_ids", "src_bias"], pred
+
+
+def _encoder_batch(batch, seq_len, pad, vocab, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    bias = np.zeros((batch, 1, 1, seq_len), "float32")
+    bias[..., seq_len - pad:] = -1e9
+    return {"src_ids": rng.randint(1, vocab, (batch, seq_len)).astype(
+        "int64"), "src_bias": bias}
+
+
+def transformer_encoder_inference(dev, profile_dir=None):
+    """The reference analyzer's Transformer encoder classifier at
+    ModelHyperParams' widths (vocab 10000, d_model 512, d_inner 2048, 8
+    heads, 6 layers, dropout 0.1 in the saved program) over 32 sentences
+    of 256 tokens, the last 16 keys padded, 4 classes, through
+    _serve_inference.  attention_fuse_pass turns each layer's attention
+    (matmul, bias add, softmax, is_test dropout, matmul) into one
+    fused_attention and a scale by 0.9: B3's forward launches 6 times a
+    run at [256, 256, 64] with the key bias; fc_fuse_pass makes the FFN's
+    fc ops (B5, 13 a run with the classifier) and every layer_norm is
+    B1's (12).  Output within the reference analyzer's bound of the
+    unfused program (rtol 2e-4, atol 1e-6)."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    hp = tfm.ModelHyperParams
+    main, startup, feeds, pred = _encoder_classifier(hp, ENC_LEN,
+                                                     ENC_CLASSES)
+    batch = _encoder_batch(INF_BATCH, ENC_LEN, ENC_PAD, hp.src_vocab_size, 0)
+
+    def check(predictor, types, per_run, n_bn):
+        assert types.count("fused_attention") == hp.n_layer, types
+        assert predictor.program._attention_fused_count == hp.n_layer
+        assert "dropout" not in types and "matmul" not in types, types
+        assert per_run["flash_attention_fwd"] == hp.n_layer, per_run
+        assert per_run["matmul_bias_act"] == 2 * hp.n_layer + 1, per_run
+        assert per_run["fused_layer_norm"] == 2 * hp.n_layer, per_run
+
+    return _serve_inference(
+        "Transformer-base encoder inference (batch %d x %d)" % (
+            INF_BATCH, ENC_LEN), "inference_encoder", main, startup, feeds,
+        [pred], batch, "sentences", 2032, (2e-4, 1e-6), profile_dir, check)
+
+
+def _lstm_classifier(dict_size, seq_len, width, stacked):
+    """build_stacked_lstm_train's classifier without its optimizer: (main,
+    startup, feeds, the softmax prediction)."""
+    from paddle_tpu_torch.models import stacked_dynamic_lstm as sdl
+
+    main, startup, (_, loss, _) = _rnn_program(
+        sdl.build_stacked_lstm_train, dict_size, seq_len, emb_dim=width,
+        hidden_dim=width, stacked_num=stacked, class_dim=2, adam=False)
+    xent = [op for op in main.global_block().ops
+            if op.type == "cross_entropy"][0]
+    pred = main.global_block().var(xent.inputs["X"][0])
+    return main, startup, ["words", "seq_len"], pred
+
+
+def lstm_inference(dev, profile_dir=None):
+    """The stacked LSTM classifier at train_stacked_lstm's setting (dict
+    10000, 64 tokens, emb and hidden 512, 3 layers, batch 32, full
+    lengths), saved with the prediction's fetch, through
+    _serve_inference: B11 launches on layers 1 and 3 (layer 2 is
+    reversed: the reference's plain scan), B5 at the first fc (the
+    others take two inputs: mul ops and a sum).  Output within rtol 2e-4,
+    atol 1e-6 of the unpassed program."""
+    main, startup, feeds, pred = _lstm_classifier(LSTM_DICT, LSTM_LEN,
+                                                  LSTM_H, LSTM_STACK)
+    batch = _lstm_batch(INF_BATCH, LSTM_LEN, LSTM_DICT, seed=1)
+    batch.pop("label")
+
+    def check(predictor, types, per_run, n_bn):
+        assert per_run["fused_lstm"] == 2, per_run
+        assert sum(per_run.values()) == 2 + per_run["matmul_bias_act"]
+
+    return _serve_inference(
+        "stacked LSTM inference (batch %d x %d)" % (INF_BATCH, LSTM_LEN),
+        "inference_lstm", main, startup, feeds, [pred], batch, "sentences",
+        2033, (2e-4, 1e-6), profile_dir, check)
+
+
+def _narrow_inference_models():
+    """(label, (main, startup, feeds, target), feed, relative limit, the
+    kernels that must launch) of the narrow predictors: each path's model
+    at a small width, and the reference tests' fc_gru and
+    embedding_fc_lstm programs (tests/test_fuse_passes.py:140-230), whose
+    fusion_gru and fused_embedding_fc_lstm run B10 and B11."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.models import transformer as tfm
+
+    L = ptt.layers
+    out = []
+
+    class Narrow(tfm.ModelHyperParams):
+        src_vocab_size = 61
+        max_length = 64
+        d_model = 128
+        d_inner_hid = 256
+        n_head = 2
+        n_layer = 2
+        dropout = 0.1
+
+    rng = np.random.RandomState(4)
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), unique_name.guard():
+        img = L.data("image", shape=[3, 32, 32])
+        pred = resnet.resnet_cifar10(img, 10, depth=8)
+    out.append(("resnet_cifar10 depth 8, 32 x 32", (main, startup, ["image"],
+                                                     pred),
+                {"image": rng.rand(4, 3, 32, 32).astype("float32")}, 1e-4,
+                ("matmul_bias_act",)))
+    out.append(("encoder d_model 128, 2 heads of 64, 2 layers, T 32",
+                _encoder_classifier(Narrow, 32, ENC_CLASSES),
+                _encoder_batch(4, 32, 4, Narrow.src_vocab_size, 5), 1e-5,
+                ("flash_attention_fwd", "matmul_bias_act",
+                 "fused_layer_norm")))
+    batch = _lstm_batch(4, 12, 61, seed=3, ragged=True)
+    batch.pop("label")
+    out.append(("stacked LSTM 16 wide, 3 layers, 12 tokens",
+                _lstm_classifier(61, 12, 16, 3), batch, 1e-5,
+                ("fused_lstm",)))
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), unique_name.guard():
+        x = L.data("x", shape=[5, 6])
+        h = L.dynamic_gru(L.fc(x, 3 * 4, num_flatten_dims=2,
+                               bias_attr=False), size=4)
+    out.append(("fc_gru (fusion_gru)", (main, startup, ["x"], h),
+                {"x": rng.rand(2, 5, 6).astype("float32")}, 1e-5,
+                ("fused_gru",)))
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), unique_name.guard():
+        ids = L.data("ids", shape=[7], dtype="int64")
+        emb = L.embedding(ids, size=[30, 6])
+        h, _ = L.dynamic_lstm(L.fc(emb, 16, num_flatten_dims=2,
+                                   bias_attr=False), size=16)
+    out.append(("embedding_fc_lstm (fused_embedding_fc_lstm)",
+                (main, startup, ["ids"], h),
+                {"ids": rng.randint(0, 30, (2, 7)).astype("int64")}, 1e-5,
+                ("fused_lstm",)))
+    return out
+
+
+def inference_card_matches_cpu(dev):
+    """Each narrow model saved once from the CPU (startup from a seed, its
+    batch norms seeded) and served by two AnalysisConfig predictors, on
+    CUDAPlace(0) and on CPUPlace(): the same ops after the passes, the
+    folded weights bit-equal (the fold runs in numpy on host copies on
+    both), the card's three runs (warm-up, capture, replay) equal to each
+    other and within the model's limit of the CPU's output relative to
+    its largest magnitude (1e-4 for the conv net, cuDNN against the CPU;
+    1e-5 else), and the launch counts three runs of the program's, the
+    listed kernels among them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    for i, (label, (main, startup, feeds, target), batch, limit,
+            must) in enumerate(_narrow_inference_models()):
+        startup.random_seed = main.random_seed = 40 + i
+        scope = ptt.Scope()
+        exe = ptt.Executor(ptt.CPUPlace())
+        exe.run(startup, scope=scope)
+        _seed_batch_norm(main, scope, 40 + i)
+        model_dir = tempfile.mkdtemp(prefix="narrow_", dir=_build_dir())
+        try:
+            ptt.save_inference_model(model_dir, feeds, [target], exe,
+                                     main_program=main, scope=scope)
+            cpu = create_paddle_predictor(AnalysisConfig(
+                model_dir, place=ptt.CPUPlace()))
+            card = create_paddle_predictor(AnalysisConfig(
+                model_dir, place=ptt.CUDAPlace(0)))
+        finally:
+            shutil.rmtree(model_dir)
+        types = [op.type for op in card.program.global_block().ops]
+        assert types == [op.type for op in cpu.program.global_block().ops]
+        for v in card.program.list_vars():
+            if v.persistable and cpu.scope.find_var(v.name) is not None:
+                assert np.array_equal(
+                    card.scope.find_var(v.name).cpu().numpy(),
+                    cpu.scope.find_var(v.name).numpy()), (label, v.name)
+        want = cpu.run(batch)[0]
+        kernels.reset_launch_counts()
+        outs = [card.run(batch)[0] for _ in range(3)]
+        launched = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        per_run = _expected_inference_launches(card.program)
+        for name, n in per_run.items():
+            assert launched[name] == 3 * n, (label, name, launched)
+        assert all(launched[n] for n in must), (label, launched)
+        assert all(np.array_equal(o, outs[0]) for o in outs), label
+        assert card.exe.compile_count == 1, label
+        err = float(np.abs(outs[0] - want).max() / np.abs(want).max())
+        assert err <= limit, (label, err, limit)
+        card.exe.close()
+        print("narrow predictor %s on the card vs the CPU: ops %s, folded "
+              "weights bit-equal, max difference %.3g of the largest "
+              "output (limit %g), launches in 3 runs %s" % (
+                  label, len(types), err, limit,
+                  json.dumps({k: v for k, v in launched.items() if v})))
+
+
 DECODE_KERNELS = ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
                   "matmul_bias_act", "fused_add_layer_norm")
 # held on the card by the kernel phase only: no path of the repo trains
@@ -6484,7 +7141,19 @@ def main():
     torch.cuda.empty_cache()
     resnet_card_matches_cpu(dev)
     lap("narrow resnet, card vs CPU")
-    assert sum(c["captured"] for c in caps.values()) == 20, caps
+    torch.cuda.empty_cache()
+    inferred_resnet, caps["resnet50_inference"] = resnet50_inference(
+        dev, profile_dir)
+    lap("resnet-50 inference")
+    torch.cuda.empty_cache()
+    inferred_encoder, caps["transformer_encoder_inference"] = (
+        transformer_encoder_inference(dev, profile_dir))
+    lap("transformer-base encoder inference")
+    inferred_lstm, caps["lstm_inference"] = lstm_inference(dev, profile_dir)
+    lap("stacked LSTM inference")
+    inference_card_matches_cpu(dev)
+    lap("narrow predictors, card vs CPU")
+    assert sum(c["captured"] for c in caps.values()) == 23, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
             "the captured step is not faster than the eager one", path,
@@ -6517,7 +7186,10 @@ def main():
                    "packed_lm_window_training": trained_packed_window[name],
                    "wmt_vocab_parallel_training": trained_vp[name],
                    "resnet50_training": trained_resnet[name],
-                   "resnet50_nhwc_training": trained_resnet_nhwc[name]}
+                   "resnet50_nhwc_training": trained_resnet_nhwc[name],
+                   "resnet50_inference": inferred_resnet[name],
+                   "transformer_encoder_inference": inferred_encoder[name],
+                   "lstm_inference": inferred_lstm[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),

@@ -15,11 +15,14 @@ The port grows slice by slice: continuous-batching serving of GPT-2
 KV-cached decoding, and training of the WMT Transformer, GPT-2, BERT,
 the stacked dynamic LSTM, the GRU seq2seq model and the conv nets
 (ResNet, VGG, SE-ResNeXt, the MNIST CNN) (``models``), and of a causal
-LM on packed sequences (``reader.pack_sequences``).
+LM on packed sequences (``reader.pack_sequences``); and the inference
+deployment path: ``save_inference_model`` / ``load_inference_model``
+(``io``), the ``InferenceTranspiler`` and the ``AnalysisConfig``
+predictor (``inference``).
 """
 
 from . import ops  # noqa: F401  (registers the op lowerings)
-from . import layers, nets, transpiler, unique_name  # noqa: F401
+from . import inference, io, layers, nets, transpiler, unique_name  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard
 from .executor import Executor
 from .framework import (
@@ -28,11 +31,16 @@ from .framework import (
     default_startup_program,
     program_guard,
 )
+from .io import load_inference_model, save_inference_model
 from .places import CPUPlace, CUDAPlace, default_place
+from .transpiler import (InferenceTranspiler, list_passes, memory_optimize,
+                         release_memory)
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
-    "default_main_program", "default_place", "default_startup_program",
-    "global_scope", "layers", "nets", "program_guard", "scope_guard",
-    "unique_name",
+    "CPUPlace", "CUDAPlace", "Executor", "InferenceTranspiler", "Program",
+    "Scope", "default_main_program", "default_place",
+    "default_startup_program", "global_scope", "inference", "io", "layers",
+    "list_passes", "load_inference_model", "memory_optimize", "nets",
+    "program_guard", "release_memory", "save_inference_model",
+    "scope_guard", "unique_name",
 ]

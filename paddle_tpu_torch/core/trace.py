@@ -43,17 +43,24 @@ class _RunContextError(RuntimeError):
 
 def dce_mask(program, block_idx, fetch_names):
     """Keep ops reachable from the fetch targets or writing persistable
-    state (interpreter side-effect semantics), as the reference does."""
+    state (interpreter side-effect semantics), as the reference does.  A
+    test-mode program (clone(for_test=True)) never runs its training-only
+    ops, though they write persistable state: an is_test run steps no
+    optimizer."""
     blk = program.block(block_idx)
 
     def is_persistable(name):
         v = blk._find_var_recursive(name)
         return v is not None and v.persistable
 
+    is_test = getattr(program, "_is_test", False)
+    train_roles = ("backward", "optimize", "lrsched", "loss", "rpc")
     needed = set(fetch_names)
     keep = [False] * len(blk.ops)
     for i in range(len(blk.ops) - 1, -1, -1):
         op = blk.ops[i]
+        if is_test and op.attrs.get("op_role") in train_roles:
+            continue
         outs = op.output_arg_names()
         if any(n in needed for n in outs) or any(is_persistable(n) for n in outs):
             keep[i] = True

@@ -7,10 +7,16 @@ attrs).  Var names and op slot names are the reference package's own,
 so a program built here lists the same ops over the same names as one
 built there.  The executor (``executor.py``) runs a block eagerly, op
 by op, through the PyTorch lowerings in ``ops/``.
+
+Serialization is the reference's JSON (``Program.to_json`` /
+``from_json``, ndarray attrs as ``{"__ndarray__": ..., "dtype": ...}``),
+so a program written by either package loads in the other.
 """
 
 import collections
 import contextlib
+import copy
+import json
 
 import numpy as np
 import torch
@@ -28,6 +34,7 @@ __all__ = [
     "default_startup_program",
     "program_guard",
     "grad_var_name",
+    "backward_slice_keep",
 ]
 
 GRAD_VAR_SUFFIX = "@GRAD"
@@ -137,6 +144,18 @@ class Variable:
 
         return tensor_layers.cast(self, dtype)
 
+    def to_dict(self):
+        return {
+            "name": self.name,
+            "shape": list(self.shape) if self.shape is not None else None,
+            "dtype": self.dtype,
+            "lod_level": self.lod_level,
+            "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient,
+            "type": self.type,
+            "is_data": self.is_data,
+        }
+
 
 class Parameter(Variable):
     """A persistable, trainable Variable."""
@@ -147,6 +166,13 @@ class Parameter(Variable):
         self.trainable = kwargs.get("trainable", True)
         self.optimize_attr = kwargs.get("optimize_attr",
                                         {"learning_rate": 1.0})
+
+    def to_dict(self):
+        d = super().to_dict()
+        d["is_parameter"] = True
+        d["trainable"] = self.trainable
+        d["optimize_attr"] = _serializable_optimize_attr(self.optimize_attr)
+        return d
 
 
 def _as_list(x):
@@ -187,6 +213,46 @@ class Operator:
     def __repr__(self):
         return "Op(type=%s, inputs=%s, outputs=%s)" % (
             self.type, self.inputs, self.outputs)
+
+    def to_dict(self):
+        """The reference's OpDesc dict: ndarray attrs as
+        {"__ndarray__": list, "dtype": str}, numpy scalars as Python's."""
+        attrs = {}
+        for k, v in self.attrs.items():
+            if isinstance(v, np.ndarray):
+                attrs[k] = {"__ndarray__": v.tolist(), "dtype": str(v.dtype)}
+            elif isinstance(v, np.integer):
+                attrs[k] = int(v)
+            elif isinstance(v, np.floating):
+                attrs[k] = float(v)
+            else:
+                attrs[k] = v
+        return {"type": self.type, "inputs": self.inputs,
+                "outputs": self.outputs, "attrs": attrs}
+
+
+def _serializable_optimize_attr(attr):
+    """A Variable in optimize_attr (a per-parameter learning-rate var)
+    as a {"__var__": name} marker, so to_json stays JSON."""
+    if not attr:
+        return attr
+    return {k: {"__var__": v.name} if isinstance(v, Variable) else v
+            for k, v in attr.items()}
+
+
+def _resolve_optimize_attr(attr, block):
+    """Inverse of _serializable_optimize_attr: a marker resolves to the
+    block's Variable, or stays a marker where that var was pruned."""
+    if not attr:
+        return attr
+    out = {}
+    for k, v in attr.items():
+        if isinstance(v, dict) and set(v) == {"__var__"}:
+            resolved = block._find_var_recursive(v["__var__"])
+            out[k] = resolved if resolved is not None else v
+        else:
+            out[k] = v
+    return out
 
 
 class Block:
@@ -255,6 +321,14 @@ class Block:
         self.program._bump_version()
         return op
 
+    def to_dict(self):
+        return {
+            "idx": self.idx,
+            "parent_idx": self.parent_idx,
+            "vars": [v.to_dict() for v in self.vars.values()],
+            "ops": [op.to_dict() for op in self.ops],
+        }
+
 
 class Program:
     """ProgramDesc analog.  ``_version`` keys the executor's plan cache."""
@@ -264,6 +338,7 @@ class Program:
         self.current_block_idx = 0
         self._seed = 0
         self._version = 0
+        self._is_test = False
         self.op_role = "forward"
         self._op_role_var = []
 
@@ -304,8 +379,99 @@ class Program:
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
+
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
+
     def all_parameters(self):
         return self.global_block().all_parameters()
+
+    # ---- cloning / pruning ---------------------------------------------
+    def clone(self, for_test=False):
+        """A deep copy; with for_test every op's is_test attr (and every
+        dropout's and batch_norm's) set True.  A program stamped by
+        parallel.annotate_spmd shares its stamp with the copy: the stamp
+        holds process groups, which are not copied."""
+        memo = {}
+        spmd = getattr(self, "_spmd", None)
+        if spmd is not None:
+            memo[id(spmd)] = spmd
+        p = copy.deepcopy(self, memo)
+        if for_test:
+            p._is_test = True
+            for b in p.blocks:
+                for op in b.ops:
+                    if "is_test" in op.attrs:
+                        op.attrs["is_test"] = True
+                    if op.type in ("dropout", "batch_norm"):
+                        op.attrs["is_test"] = True
+        p._bump_version()
+        return p
+
+    def _prune(self, targets):
+        """A copy holding only the global block's ancestor ops of
+        `targets` (prune.cc's reverse walk); every var stays."""
+        target_names = set(t.name if isinstance(t, Variable) else t
+                           for t in _as_list(targets))
+        keep = backward_slice_keep(self, target_names)
+        p = self.clone()
+        pb = p.global_block()
+        pb.ops = [op for i, op in enumerate(pb.ops) if keep[i]]
+        p._bump_version()
+        return p
+
+    # ---- serialization --------------------------------------------------
+    def to_json(self):
+        return json.dumps({
+            "version": 1,
+            "random_seed": self._seed,
+            "blocks": [b.to_dict() for b in self.blocks],
+        })
+
+    @staticmethod
+    def from_json(text):
+        data = json.loads(text)
+        prog = Program()
+        prog._seed = data.get("random_seed", 0)
+        prog.blocks = []
+        for bd in data["blocks"]:
+            blk = Block(prog, bd["idx"], bd.get("parent_idx", -1))
+            prog.blocks.append(blk)
+            for vd in bd["vars"]:
+                is_param = vd.pop("is_parameter", False)
+                trainable = vd.pop("trainable", True)
+                optimize_attr = vd.pop("optimize_attr", None)
+                name = vd.pop("name")
+                shape = vd.pop("shape")
+                if is_param:
+                    p = Parameter(blk, shape, vd.pop("dtype"), name=name, **vd)
+                    p.trainable = trainable
+                    if optimize_attr is not None:
+                        p.optimize_attr = optimize_attr
+                    blk.vars[name] = p
+                else:
+                    blk.create_var(name=name, shape=shape, **vd)
+            for v in blk.vars.values():
+                if isinstance(v, Parameter):
+                    v.optimize_attr = _resolve_optimize_attr(
+                        v.optimize_attr, blk)
+            for od in bd["ops"]:
+                attrs = {}
+                for k, v in od["attrs"].items():
+                    if isinstance(v, dict) and "__ndarray__" in v:
+                        attrs[k] = np.array(v["__ndarray__"], dtype=v["dtype"])
+                    else:
+                        attrs[k] = v
+                op = Operator(blk, od["type"], None, None, attrs)
+                op.inputs = {k: list(v) for k, v in od["inputs"].items()}
+                op.outputs = {k: list(v) for k, v in od["outputs"].items()}
+                blk.ops.append(op)
+        prog.current_block_idx = 0
+        return prog
 
     def __str__(self):
         lines = []
@@ -313,6 +479,27 @@ class Program:
             lines.append("-- block %d (parent %d) --" % (b.idx, b.parent_idx))
             lines.extend("  " + str(op) for op in b.ops)
         return "\n".join(lines)
+
+
+def backward_slice_keep(program, target_names):
+    """Keep-mask of the global block's ancestor ops of `target_names`
+    (prune.cc's reverse walk), behind Program._prune and the inference
+    transpiler's fetch cut.  The reference also counts the external
+    reads of a kept op's sub-blocks; the port has no op that owns a
+    sub-block yet (control flow is ROADMAP A6c), so one raises."""
+    block = program.global_block()
+    needed = set(target_names)
+    keep = [False] * len(block.ops)
+    for i in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[i]
+        if any(n in needed for n in op.output_arg_names()):
+            if any(a.startswith("sub_block") for a in op.attrs):
+                raise NotImplementedError(
+                    "backward_slice_keep: op '%s' owns a sub-block; control "
+                    "flow is not ported yet (ROADMAP A6c)" % op.type)
+            keep[i] = True
+            needed.update(op.input_arg_names())
+    return keep
 
 
 _main_program_ = Program()

@@ -1,3 +1,4 @@
 """Op lowerings; importing this package registers them all."""
 
-from . import math_ops, nn_ops, optimizer_ops, tensor_ops  # noqa: F401
+from . import (compat_ops, math_ops, nn_ops, optimizer_ops,  # noqa: F401
+               tensor_ops)

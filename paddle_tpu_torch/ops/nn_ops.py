@@ -2,8 +2,9 @@
 limited to the ops of the serving slice, the KV-cached decode step, the
 GPT-2 (with its modern-decoder options: rotary positions, SwiGLU) and
 WMT Transformer training steps, the recurrent models (the stacked
-LSTM classifier, the GRU seq2seq model) and the conv nets (ResNet, VGG,
-SE-ResNeXt, the MNIST CNN).
+LSTM classifier, the GRU seq2seq model), the conv nets (ResNet, VGG,
+SE-ResNeXt, the MNIST CNN) and the inference fuse passes' targets
+(``fused_embedding_fc_lstm``, ``fusion_seqexpand_concat_fc``).
 
 Seven ops sit on hand-written kernels (``paddle_tpu_torch/kernels``):
 ``fc`` on ``matmul_bias_act``, ``fused_swiglu`` on ``matmul_swiglu``,
@@ -15,7 +16,8 @@ chunked decode step, with or without a window) on
 ``flash_attention_piece`` and its forms without a QStart (causal or
 not, with or without a key Bias, a sliding window or SegmentIds: the
 packed causal LM) on ``flash_attention``, and the forward direction of
-``padded_lstm`` and ``padded_gru`` on ``fused_lstm`` and ``fused_gru``.
+``padded_lstm`` and ``padded_gru`` on ``fused_lstm`` and ``fused_gru``
+(``fused_embedding_fc_lstm`` too, through ``padded_lstm``).
 Each wrapper takes its plain version for CPU and meta tensors and
 launches its kernel for CUDA tensors.
 ``layer_norm``'s other forms are the reference's own XLA branch, which
@@ -440,6 +442,49 @@ def _padded_gru(ctx, ins, attrs):
         h = h_new
         hs[ti] = h
     return {"Hidden": [torch.stack(hs, 1)], "LastH": [h]}
+
+
+@register("fusion_seqexpand_concat_fc")
+def _fusion_seqexpand_concat_fc(ctx, ins, attrs):
+    """X[0] a [B, T, D0] sequence; every further X[i] a per-example
+    [B, Di] vector expanded to all T steps; the features concatenated
+    into one fc (+ activation): a plain torch.matmul, as the reference's
+    is an XLA dot."""
+    xs = ins["X"]
+    seq = xs[0]
+    b, t = seq.shape[0], seq.shape[1]
+    parts = [seq] + [v[:, None, :].expand(b, t, v.shape[-1]) for v in xs[1:]]
+    out = torch.matmul(torch.cat(parts, dim=-1), ins["FCWeight"][0])
+    if ins.get("FCBias"):
+        out = out + ins["FCBias"][0].reshape(1, 1, -1)
+    act = attrs.get("fc_activation", "identity")
+    fn = {"identity": lambda x: x, "relu": torch.relu, "tanh": torch.tanh,
+          "sigmoid": torch.sigmoid}[act]
+    return {"Out": [fn(out)]}
+
+
+@register("fused_embedding_fc_lstm", no_grad_inputs=("Ids",))
+def _fused_embedding_fc_lstm(ctx, ins, attrs):
+    """Embedding lookup, input projection and LSTM recurrence as one op
+    (the embedding_fc_lstm_fuse_pass target): Ids, Embeddings [vocab,
+    D], WeightX [D, 4H], WeightH [H, 4H], optional BiasX / Bias, SeqLen,
+    H0 / C0; the outputs of `lstm`.  The recurrence is padded_lstm's, on
+    the fused_lstm kernel."""
+    from ..core.registry import get_op
+    from .compat_ops import project_input_maybe
+
+    ids = ins["Ids"][0].long()
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    emb = F.embedding(ids, ins["Embeddings"][0])  # [B, T, D]
+    xproj = project_input_maybe(dict(ins, Input=[emb]))["Input"][0]
+    lstm_ins = {"Input": [xproj], "Weight": ins["WeightH"]}
+    for slot in ("Bias", "SeqLen", "H0", "C0"):
+        if ins.get(slot):
+            lstm_ins[slot] = ins[slot]
+    out = get_op("padded_lstm").lower(ctx, lstm_ins, attrs)
+    return {"Hidden": out["Hidden"], "Cell": out["CellSeq"],
+            "LastH": out["LastH"], "LastC": out["LastC"]}
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,25 @@ chain of the training builders: ``smooth_label_xent_fuse_pass``
 (one_hot -> label_smooth -> soft-label xent -> smooth_label_xent) and
 ``linear_xent_fuse_pass`` (vocab projection + xent -> fused_linear_xent).
 The fused ops' lowerings sit on the matmul-epilogue, matmul-SwiGLU,
-add-LN and linear cross-entropy kernels.  Each pass records how many
-chains it fused on the program (``_fc_fused_count`` ...), as the
-reference does."""
+add-LN and linear cross-entropy kernels.
+
+The inference predictor's passes: ``fuse_elewise_add_act_pass`` (add +
+act -> fused_elemwise_activation), ``conv_eltadd_relu_fuse_pass``
+(conv2d + channel bias add [+ relu] -> conv2d with Bias and fuse_relu),
+``seqconv_eltadd_relu_fuse_pass`` (-> fusion_seqconv_eltadd_relu,
+whose lowering waits with sequence_conv for ROADMAP A6c: the pass
+matches programs made with ``block.append_op``), ``fc_gru_fuse_pass``
+and ``fc_lstm_fuse_pass`` (fc / mul + gru / lstm -> fusion_gru /
+fusion_lstm, the projection inside the op, on the recurrent kernels),
+``seqexpand_concat_fc_fuse_pass`` and ``embedding_fc_lstm_fuse_pass``.
+Each pass records how many chains it fused on the program
+(``_fc_fused_count`` ...), as the reference does."""
 
 from .. import framework as _fw
+from ..analysis.graph import consumer_ops, producer_ops
 from .pass_registry import OpPattern, Pass, apply_pass, register_pass
+
+_ACTS = ("relu", "tanh", "sigmoid")
 
 # fc epilogue activations (the matmul-epilogue kernel's set); gelu fuses
 # only in its exact-erf form and swish only at beta=1
@@ -56,7 +69,7 @@ def _replace_chain(block, program, chain, new_ops):
     program._bump_version()
 
 
-def _bias_of_add(add, producer_out):
+def _bias_of_add(block, add, producer_out):
     """The add operand that is NOT `producer_out`, or None."""
     add_ins = add.inputs.get("X", []) + add.inputs.get("Y", [])
     others = [n for n in add_ins if n != producer_out]
@@ -65,9 +78,11 @@ def _bias_of_add(add, producer_out):
     return others[0]
 
 
-def _is_bias_vector(block, name, want):
-    """True for a length-`want` vector that broadcasts onto the last
-    axis (the reference's check at channel_axis_from_end = 0)."""
+def _is_bias_vector(block, name, want, channel_axis_from_end):
+    """True for a length-`want` vector laid out so that broadcasting
+    against the producer's output applies it along the axis
+    `channel_axis_from_end` places from the end: all dims 1 but that
+    one (a bare [C] counts only at 0, onto the last axis)."""
     v = block._find_var_recursive(name)
     if v is None or v.shape is None:
         return False
@@ -79,9 +94,11 @@ def _is_bias_vector(block, name, want):
         n *= d
     if n != int(want):
         return False
-    if len(dims) == 0:
-        return False
-    return dims[-1] == int(want) and all(d == 1 for d in dims[:-1])
+    k = channel_axis_from_end
+    if len(dims) <= k:
+        return k == 0 and len(dims) == 1
+    return dims[len(dims) - 1 - k] == int(want) and all(
+        d == 1 for i, d in enumerate(dims) if i != len(dims) - 1 - k)
 
 
 def _consumers_all_blocks(program, name, exclude=()):
@@ -106,9 +123,9 @@ class FcFusePass(Pass):
             w = block._find_var_recursive(mul.inputs["Y"][0])
             if w is None or w.shape is None or len(w.shape) != 2:
                 return False
-            bname = _bias_of_add(add, mul.outputs["Out"][0])
+            bname = _bias_of_add(block, add, mul.outputs["Out"][0])
             if bname is None or not _is_bias_vector(block, bname,
-                                                    int(w.shape[-1])):
+                                                    int(w.shape[-1]), 0):
                 return False
             if not _chain_safe(program, chain):
                 return False
@@ -127,6 +144,325 @@ class FcFusePass(Pass):
                     + [["mul", "elementwise_add"]]):
             n += OpPattern(pat).rewrite(block, fuse)
         program._fc_fused_count = n
+        return program
+
+
+@register_pass("fuse_elewise_add_act_pass")
+class FuseElewiseAddActPass(Pass):
+    """elementwise_add + relu / tanh / sigmoid ->
+    fused_elemwise_activation (functor_list [act, elementwise_add]: the
+    act of the sum)."""
+
+    def apply(self, program, scope=None):
+        block = program.global_block()
+
+        def fuse(chain):
+            add, act = chain
+            if int(add.attrs.get("axis", -1)) != -1:
+                return False  # the fused lowering applies a plain +
+            if not _chain_safe(program, chain):
+                return False
+            fused = _mk_op(
+                block, "fused_elemwise_activation",
+                {"X": [add.inputs["X"][0]], "Y": [add.inputs["Y"][0]]},
+                {"Out": [act.outputs["Out"][0]]},
+                {"functor_list": [act.type, "elementwise_add"]})
+            _replace_chain(block, program, chain, [fused])
+            return True
+
+        n = 0
+        for a in _ACTS:
+            n += OpPattern(["elementwise_add", a]).rewrite(block, fuse)
+        program._elewise_act_fused_count = n
+        return program
+
+
+@register_pass("conv_eltadd_relu_fuse_pass")
+class ConvEltaddReluFusePass(Pass):
+    """conv2d + elementwise_add (a per-channel bias) [+ relu] -> conv2d
+    with its Bias input and the fuse_relu epilogue."""
+
+    def apply(self, program, scope=None):
+        block = program.global_block()
+
+        def fuse(chain):
+            conv, add = chain[0], chain[1]
+            relu = chain[2] if len(chain) == 3 else None
+            if conv.inputs.get("Bias"):
+                return False  # already biased
+            f = block._find_var_recursive(conv.inputs["Filter"][0])
+            if f is None or f.shape is None:
+                return False
+            cout = int(f.shape[0])
+            bname = _bias_of_add(block, add, conv.outputs["Output"][0])
+            if bname is None:
+                return False
+            # an NCHW channel bias: [*, C, 1, 1] under plain broadcasting,
+            # or a bare [C] under fluid's axis=1 add
+            axis = int(add.attrs.get("axis", -1))
+            if axis == 1:
+                bv = block._find_var_recursive(bname)
+                if (bv is None or bv.shape is None
+                        or [int(d) for d in bv.shape] != [cout]):
+                    return False
+            elif not _is_bias_vector(block, bname, cout, 2):
+                return False
+            if not _chain_safe(program, chain):
+                return False
+            conv.inputs["Bias"] = [bname]
+            conv.outputs["Output"] = [chain[-1].outputs["Out"][0]]
+            if relu is not None:
+                conv.attrs["fuse_relu"] = True
+            # the conv moves to the chain's tail: its new Bias input may
+            # be produced between the conv and the add (a reshape)
+            _replace_chain(block, program, chain, [conv])
+            return True
+
+        n = 0
+        for pat in (["conv2d", "elementwise_add", "relu"],
+                    ["conv2d", "elementwise_add"]):
+            n += OpPattern(pat).rewrite(block, fuse)
+        program._conv_eltadd_fused_count = n
+        return program
+
+
+@register_pass("seqconv_eltadd_relu_fuse_pass")
+class SeqconvEltaddReluFusePass(Pass):
+    """sequence_conv + elementwise_add + relu ->
+    fusion_seqconv_eltadd_relu.  Neither op's lowering is ported
+    (sequence_conv is ROADMAP A6c): the rewrite itself is the
+    reference's."""
+
+    def apply(self, program, scope=None):
+        block = program.global_block()
+
+        def fuse(chain):
+            sc, add, relu = chain
+            f = block._find_var_recursive(sc.inputs["Filter"][0])
+            if f is None or f.shape is None:
+                return False
+            nfilt = int(f.shape[-1])
+            bname = _bias_of_add(block, add, sc.outputs["Out"][0])
+            if bname is None or not _is_bias_vector(block, bname, nfilt, 0):
+                return False
+            if not _chain_safe(program, chain):
+                return False
+            inputs = {"X": sc.inputs["X"], "Filter": sc.inputs["Filter"],
+                      "Bias": [bname]}
+            if sc.inputs.get("SeqLen"):
+                inputs["SeqLen"] = sc.inputs["SeqLen"]
+            fused = _mk_op(block, "fusion_seqconv_eltadd_relu", inputs,
+                           {"Out": [relu.outputs["Out"][0]]}, sc.attrs)
+            _replace_chain(block, program, chain, [fused])
+            return True
+
+        program._seqconv_fused_count = OpPattern(
+            ["sequence_conv", "elementwise_add", "relu"]).rewrite(block, fuse)
+        return program
+
+
+def _fuse_fc_into_recurrent(program, rec_types, fused_type):
+    """fc_gru_fuse_pass / fc_lstm_fuse_pass: an fc (no activation) or a
+    bare mul producing the recurrent op's Input becomes its in-op
+    WeightX / BiasX projection of the raw [B, T, D] sequence."""
+    block = program.global_block()
+
+    def fuse(chain):
+        proj, rec = chain
+        if rec.inputs.get("WeightX"):
+            return False
+        if proj.outputs["Out"][0] != rec.inputs["Input"][0]:
+            return False
+        if not _chain_safe(program, chain):
+            return False
+        x_in = proj.inputs["Input" if proj.type == "fc" else "X"][0]
+        xv = block._find_var_recursive(x_in)
+        if xv is None or xv.shape is None or len(xv.shape) != 3:
+            return False  # the in-op projection is [B, T, D] @ [D, kH]
+        if proj.type == "fc":
+            if proj.attrs.get("activation_type"):
+                return False
+            if int(proj.attrs.get("in_num_col_dims", 1)) != 2:
+                return False
+            rec.inputs["WeightX"] = proj.inputs["W"]
+            if proj.inputs.get("Bias"):
+                rec.inputs["BiasX"] = proj.inputs["Bias"]
+        else:  # bare mul
+            if int(proj.attrs.get("x_num_col_dims", 1)) != 2:
+                return False
+            rec.inputs["WeightX"] = proj.inputs["Y"]
+        rec.inputs["Input"] = [x_in]
+        rec.type = fused_type
+        block.ops.remove(proj)
+        program._bump_version()
+        return True
+
+    n = 0
+    for rec_type in rec_types:
+        for head in ("fc", "mul"):
+            n += OpPattern([head, rec_type]).rewrite(block, fuse)
+    return n
+
+
+@register_pass("fc_gru_fuse_pass")
+def _fc_gru_fuse(program, scope):
+    """fc / mul + gru -> fusion_gru."""
+    program._fc_gru_fused_count = _fuse_fc_into_recurrent(
+        program, ("gru", "padded_gru"), "fusion_gru")
+    return program
+
+
+@register_pass("fc_lstm_fuse_pass")
+def _fc_lstm_fuse(program, scope):
+    """fc / mul + lstm -> fusion_lstm."""
+    program._fc_lstm_fused_count = _fuse_fc_into_recurrent(
+        program, ("lstm", "padded_lstm"), "fusion_lstm")
+    return program
+
+
+@register_pass("seqexpand_concat_fc_fuse_pass")
+class SeqexpandConcatFcFusePass(Pass):
+    """sequence_expand(s) + concat + fc / mul ->
+    fusion_seqexpand_concat_fc, after fc_fuse_pass.  The concat's first
+    input is the [B, T, D] sequence; every further input must be a
+    single-consumer sequence_expand of a [B, Di] vector.  The port has
+    no sequence_expand layer yet (ROADMAP A6c): the pass matches
+    programs made with ``block.append_op``."""
+
+    def apply(self, program, scope=None):
+        block = program.global_block()
+        n = 0
+        changed = True
+        while changed:
+            changed = False
+            producers, consumers = producer_ops(block), consumer_ops(block)
+            for cat in list(block.ops):
+                if cat.type != "concat":
+                    continue
+                if int(cat.attrs.get("axis", 0)) not in (2, -1):
+                    continue
+                xs = cat.inputs.get("X", [])
+                if len(xs) < 2:
+                    continue
+                sv = block._find_var_recursive(xs[0])
+                if sv is None or sv.shape is None or len(sv.shape) != 3:
+                    continue
+                expands = []
+                for name in xs[1:]:
+                    p = producers.get(name)
+                    xv = (block._find_var_recursive(p.inputs["X"][0])
+                          if p is not None and p.type == "sequence_expand"
+                          else None)
+                    if (p is None or p.type != "sequence_expand"
+                            or xv is None or xv.shape is None
+                            or len(xv.shape) != 2
+                            or len(consumers.get(name, [])) != 1):
+                        expands = None
+                        break
+                    expands.append(p)
+                if not expands:
+                    continue
+                cat_out = cat.outputs["Out"][0]
+                cons = consumers.get(cat_out, [])
+                if len(cons) != 1:
+                    continue
+                proj = cons[0]
+                if proj.type == "fc":
+                    if int(proj.attrs.get("in_num_col_dims", 1)) != 2:
+                        continue
+                    if proj.inputs.get("Input", [None])[0] != cat_out:
+                        continue
+                    weight = proj.inputs["W"]
+                    bias = proj.inputs.get("Bias")
+                    act = proj.attrs.get("activation_type") or "identity"
+                elif proj.type == "mul":
+                    if int(proj.attrs.get("x_num_col_dims", 1)) != 2:
+                        continue
+                    if int(proj.attrs.get("y_num_col_dims", 1)) != 1:
+                        continue
+                    if proj.inputs.get("X", [None])[0] != cat_out:
+                        continue
+                    wv = block._find_var_recursive(proj.inputs["Y"][0])
+                    if wv is None or wv.shape is None or len(wv.shape) != 2:
+                        continue  # the fused lowering takes FCWeight as-is
+                    weight = proj.inputs["Y"]
+                    bias = None
+                    act = "identity"
+                else:
+                    continue
+                if act not in ("identity", "relu", "tanh", "sigmoid"):
+                    continue
+                chain = expands + [cat, proj]
+                if not _chain_safe(program, chain):
+                    continue
+                inputs = {"X": [xs[0]] + [e.inputs["X"][0] for e in expands],
+                          "FCWeight": weight}
+                if bias:
+                    inputs["FCBias"] = bias
+                fused = _mk_op(block, "fusion_seqexpand_concat_fc", inputs,
+                               {"Out": [proj.outputs["Out"][0]]},
+                               {"fc_activation": act})
+                # at the projection's position (every fused input is
+                # defined by then); the chain need not be contiguous
+                block.ops.insert(block.ops.index(proj), fused)
+                for op in chain:
+                    block.ops.remove(op)
+                program._bump_version()
+                n += 1
+                changed = True
+                break
+        program._seqexpand_concat_fc_fused_count = n
+        return program
+
+
+@register_pass("embedding_fc_lstm_fuse_pass")
+class EmbeddingFcLstmFusePass(Pass):
+    """lookup_table + fc / mul + lstm -> fused_embedding_fc_lstm."""
+
+    def apply(self, program, scope=None):
+        block = program.global_block()
+
+        def fuse(chain):
+            lt, proj, lstm = chain
+            if proj.outputs["Out"][0] != lstm.inputs["Input"][0]:
+                return False
+            if lt.attrs.get("padding_idx", -1) not in (-1, None):
+                return False
+            # the embedding must be the projection's DATA side
+            emb_out = lt.outputs["Out"][0]
+            data_slot = "Input" if proj.type == "fc" else "X"
+            if proj.inputs.get(data_slot, [None])[0] != emb_out:
+                return False
+            inputs = {"Ids": lt.inputs["Ids"], "Embeddings": lt.inputs["W"],
+                      "WeightH": lstm.inputs["Weight"]}
+            if proj.type == "fc":
+                if proj.attrs.get("activation_type"):
+                    return False
+                if int(proj.attrs.get("in_num_col_dims", 1)) != 2:
+                    return False
+                inputs["WeightX"] = proj.inputs["W"]
+                if proj.inputs.get("Bias"):
+                    inputs["BiasX"] = proj.inputs["Bias"]
+            else:
+                if int(proj.attrs.get("x_num_col_dims", 1)) != 2:
+                    return False
+                inputs["WeightX"] = proj.inputs["Y"]
+            if not _chain_safe(program, chain):
+                return False
+            for slot in ("Bias", "SeqLen", "H0", "C0"):
+                if lstm.inputs.get(slot):
+                    inputs[slot] = lstm.inputs[slot]
+            fused = _mk_op(block, "fused_embedding_fc_lstm", inputs,
+                           dict(lstm.outputs), lstm.attrs)
+            _replace_chain(block, program, chain, [fused])
+            return True
+
+        n = 0
+        for rec in ("lstm", "padded_lstm"):
+            for head in ("fc", "mul"):
+                n += OpPattern(["lookup_table", head, rec]).rewrite(
+                    block, fuse)
+        program._emb_fc_lstm_fused_count = n
         return program
 
 
@@ -194,16 +530,6 @@ class ResidualLnFusePass(Pass):
         return program
 
 
-def _producer_ops(block):
-    """name -> the LAST op writing it (the reference's
-    analysis.graph.producer_ops)."""
-    prod = {}
-    for op in block.ops:
-        for n in op.output_arg_names():
-            prod[n] = op
-    return prod
-
-
 def _swiglu_diamond(program, block, producers, emul):
     """(gate mul, swish, up mul, x_num_col_dims) when `emul` closes a
     SwiGLU diamond that may fuse, else None."""
@@ -263,7 +589,7 @@ class SwigluFusePass(Pass):
         changed = True
         while changed:
             changed = False
-            producers = _producer_ops(block)
+            producers = producer_ops(block)
             for emul in list(block.ops):
                 if (emul.type != "elementwise_mul"
                         or int(emul.attrs.get("axis", -1)) != -1):
