@@ -32,7 +32,8 @@ In order, it:
    Tk 64, B1, and B5 where the paths' mul ops run; the inference paths'
    shapes: B3 at the encoder's [256, 256, 64] with a key bias, B5 at its
    8192-row FFN and the classifiers' and LSTM's fc, B1 at [8192, 512],
-   B11 forward-only at the LSTM's [32, 64, 2048]), and times kernel,
+   B11 forward-only at the LSTM's [32, 64, 2048]; B5 at DeepFM's three
+   fc shapes, K 429 and N 1 among them), and times kernel,
    plain version and one PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
@@ -263,7 +264,21 @@ In order, it:
    (fusion_gru on B10, fused_embedding_fc_lstm on B11), served on the
    card and on the CPU from one saved model: the same ops, bit-equal
    folded weights, outputs within 1e-5 (conv net 1e-4) of the largest;
-31. prints, for every path, its eager and captured numbers (one JSON
+31. trains DeepFM as BASELINE.json config 4 (26 sparse fields of 1000
+   ids, 13 dense features, embed_dim 16, batch 4096, is_sparse,
+   Adagrad 0.01; every table's gradient a SelectedRows), then the same
+   program through matmul_epilogue_fuse_pass (B5 under its three fc
+   ops, 6 launches a step, the first loss within 1e-5 of the unfused
+   leg's), each through the training checks below with 5 captured ==
+   5 eager steps and run_loop(6) == 6 runs; then 26 fields of
+   1,000,000 ids sparse against dense (peak memory above the state,
+   captured and eager p50, the two Adagrads within 1e-5 over 3 steps);
+   then the narrow DeepFM of the CPU tests on the card and on the CPU,
+   5 steps under each optimizer (sparse and dense where it has a sparse
+   branch), global-norm clipping with L2Decay, ModelAverage's apply and
+   restore, GradientMergeOptimizer with k 2 and the streaming AUCs, all
+   within 1e-5 (with --profile, profile_training_deepfm*.json);
+32. prints, for every path, its eager and captured numbers (one JSON
    line), the kernels line and, last, the result line.
 
 Every path's executor but the vocab-parallel one's captures its step as
@@ -406,6 +421,14 @@ CIFAR_BATCH, CIFAR_STEPS, CIFAR_LR = 8, 3, 0.01
 # timed captured runs and INF_EAGER eager ones
 INF_BATCH, ENC_LEN, ENC_PAD, ENC_CLASSES = 32, 256, 16, 4
 INF_RUNS, INF_EAGER = 10, 3
+# DeepFM CTR training, BASELINE.json config 4 as bench.py:533-549 runs
+# it: 26 sparse fields of 1000 ids, 13 dense features, embed_dim 16,
+# batch 4096, is_sparse, Adagrad(0.01); the wide leg's tables of 1,000,000
+# ids a field; the narrow config of tests/test_book.py:183
+DEEPFM_FIELDS, DEEPFM_IDS, DEEPFM_DENSE, DEEPFM_EMBED = 26, 1000, 13, 16
+DEEPFM_BATCH, DEEPFM_STEPS = 4096, 10
+DEEPFM_WIDE_IDS, DEEPFM_WIDE_STEPS = 1000000, 3
+DEEPFM_NARROW = [17, 23, 11]
 SERVING_KERNELS = ("fused_add_layer_norm", "matmul_bias_act",
                    "flash_attention_qvec")
 GPT2_KERNELS = ("fused_layer_norm", "flash_attention_fwd",
@@ -692,6 +715,8 @@ def check_kernels(dev):
     mark("translate shapes (B3d, B9, B3, B5, B1)")
     check_inference_kernels(dev, randn, rec)
     mark("inference shapes (B3, B5, B1, B11)")
+    check_deepfm_kernels(dev, randn, rec)
+    mark("DeepFM shapes (B5)")
     return rec
 
 
@@ -3920,7 +3945,7 @@ def _forward_recurrent(block, op_type):
 def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
                    first_range, per_step, profile_dir, profile_name,
                    steps=TRAIN_STEPS, dropout=True, loss_parts=None,
-                   loop=False, check=None):
+                   loop=False, check=None, compare_steps=3):
     """One training path on the card: one warm-up step (its loss within
     `first_range`) and the capture of the step, then `steps` timed steps
     (replays) with every launch count reset just before and read just
@@ -3931,7 +3956,8 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
     (the next run captures again); then the same step twice from one
     saved state (kept on the host), bit for bit, and, for a path with
     `dropout`, a step checking every dropout_grad against its forward
-    op's mask; then _eager_vs_captured from the same saved state (with `loop`, run_loop(4) too).  fetch[1]
+    op's mask; then _eager_vs_captured from the same saved state
+    (`compare_steps` a leg; with `loop`, run_loop too).  fetch[1]
     is the step's token count, held to `n_tok`, unless `loss_parts`
     names fetch[1:] (BERT's MLM and NSP losses, the LSTM classifier's
     accuracy; none for a program that fetches its loss alone), which are
@@ -4074,7 +4100,7 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
         moved = sum(not torch.equal(after[n], state[n]) for n in state)
         del first_run, after
         cap = _eager_vs_captured(label, main, batch, fetch[0], scope, state,
-                                 where, loop)
+                                 where, loop, compare_steps)
         del state
     p50 = sorted(times)[len(times) // 2]
     examples = len(next(iter(batch.values())))
@@ -4118,14 +4144,16 @@ def _capture_line(label, cap):
     return cap
 
 
-def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop):
+def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop,
+                       steps=3):
     """From the saved `state` (on the host; `where` its devices), on fresh
-    executors, 3 captured steps against 3 eager ones
+    executors, `steps` captured steps against as many eager ones
     (use_program_cache=False): the losses and every updated persistable
     bit for bit.  Each leg first runs 2 steps from the state and then
-    starts again from it, so the captured leg's 3 steps are replays and
-    both legs draw at step counters 2-4.  With `loop`, a 4th captured
-    step against run_loop(4) on a third executor, the same way.  The
+    starts again from it, so the captured leg's steps are replays and
+    both legs draw at step counters from 2 on.  With `loop`, one more
+    captured step against run_loop(steps + 1) on a third executor, the
+    same way.  The
     state comes back by scope.set, which the entry copies into its own
     tensors, or, past 8 GB, by a copy into the scope's tensors.  Returns
     the eager p50 and the peak memory of each leg (captured: from the
@@ -4143,8 +4171,8 @@ def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop):
             cur = scope.find_var(n)
             if in_place and cur.shape == v.shape:
                 cur.copy_(v)
-            else:
-                scope.set(n, v.to(where[n]))
+            else:  # a copy: a step updates the scope's tensors in place
+                scope.set(n, v.to(where[n], copy=True))
 
     def leg(mode):
         exe = ptt.Executor(ptt.CUDAPlace(0))
@@ -4160,44 +4188,50 @@ def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop):
                 torch.cuda.reset_peak_memory_stats()  # from the capture on
         restore()
         if mode == "loop":
-            out = [exe.run_loop(4, main, feed=batch, fetch_list=[loss])[0]]
+            out = [exe.run_loop(steps + 1, main, feed=batch,
+                                fetch_list=[loss])[0]]
             times = []
         else:
             out, times = [], []
-            for _ in range(4 if mode == "captured" and loop else 3):
+            for _ in range(steps + (mode == "captured" and loop)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out.append(exe.run(main, feed=batch, fetch_list=[loss],
                                    use_program_cache=cached)[0])
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-                if len(out) == 3:
-                    after3 = {n: scope.find_var(n).cpu() for n in state}
+                if len(out) == steps:  # copies on the CPU too
+                    after_n = {n: scope.find_var(n).to("cpu", copy=True)
+                               for n in state}
         peak = torch.cuda.max_memory_allocated()
-        final = ({n: scope.find_var(n).cpu() for n in state}
+        final = ({n: scope.find_var(n).to("cpu", copy=True) for n in state}
                  if mode != "eager" and (loop or mode == "loop") else None)
         exe.close()
-        return out, times, peak, (after3 if mode != "loop" else None), final
+        return out, times, peak, (after_n if mode != "loop" else None), final
 
-    cap_out, cap_times, cap_peak, cap3, cap4 = leg("captured")
-    eag_out, eag_times, eag_peak, eag3, _ = leg("eager")
+    cap_out, cap_times, cap_peak, cap_n, cap_last = leg("captured")
+    eag_out, eag_times, eag_peak, eag_n, _ = leg("eager")
     assert all(np.array_equal(a, b) for a, b in zip(cap_out, eag_out)), (
         "captured != eager losses", label)
-    differ = [n for n in state if not torch.equal(cap3[n], eag3[n])]
+    differ = [n for n in state if not torch.equal(cap_n[n], eag_n[n])]
     assert not differ, ("captured != eager state", label, differ[:5])
-    moved = sum(not torch.equal(cap3[n], state[n]) for n in state)
-    del cap3, eag3
-    line = ("%s: 3 captured steps == 3 eager steps from a saved state, bit "
-            "for bit (losses %s; %d of %d state tensors moved)" % (
-                label, [float(v.sum()) for v in eag_out], moved, len(state)))
+    moved = sum(not torch.equal(cap_n[n], state[n]) for n in state)
+    del cap_n, eag_n
+    line = ("%s: %d captured steps == %d eager steps from a saved state, "
+            "bit for bit (losses %s; %d of %d state tensors moved)" % (
+                label, steps, steps, [float(v.sum()) for v in eag_out],
+                moved, len(state)))
     if loop:
-        loop_out, _, _, _, loop4 = leg("loop")
-        assert np.array_equal(loop_out[0], cap_out[3]), (
-            "run_loop(4) != 4 runs", label)
-        differ = [n for n in state if not torch.equal(loop4[n], cap4[n])]
-        assert not differ, ("run_loop(4) state != 4 runs'", label, differ[:5])
-        line += "; run_loop(4) == 4 x run (loss %.6f and every state tensor)" \
-            % float(loop_out[0].sum())
+        loop_out, _, _, _, loop_last = leg("loop")
+        assert np.array_equal(loop_out[0], cap_out[steps]), (
+            "run_loop != as many runs", label)
+        differ = [n for n in state
+                  if not torch.equal(loop_last[n], cap_last[n])]
+        assert not differ, ("run_loop state != as many runs'", label,
+                            differ[:5])
+        line += ("; run_loop(%d) == %d x run (loss %.6f and every state "
+                 "tensor)" % (steps + 1, steps + 1,
+                              float(loop_out[0].sum())))
     print(line)
     return {"eager_p50_ms": _p50_ms(eag_times),
             "eager_peak_gb": eag_peak / 1e9, "captured_peak_gb": cap_peak / 1e9,
@@ -6952,6 +6986,478 @@ def inference_card_matches_cpu(dev):
                   json.dumps({k: v for k, v in launched.items() if v})))
 
 
+# ---------------------------------------------------------------------------
+# DeepFM CTR training with sparse embeddings
+# ---------------------------------------------------------------------------
+def _deepfm_program(fields, dense_dim, embed_dim, is_sparse, make_opt,
+                    fused=False, with_auc=False, before=None):
+    """build_deepfm_train under a fresh name generator, seeded; `fused`
+    applies matmul_epilogue_fuse_pass before minimize (the fc ops onto
+    B5), as the reference's model builders do; `before()` runs first
+    (a global clip); `make_opt()` gives the optimizer.  Returns (main,
+    startup, outputs, what the optimizer's minimize returned)."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.optimizer  # noqa: F401  (ptt.optimizer)
+    from paddle_tpu_torch.models import ctr_deepfm
+    from paddle_tpu_torch.transpiler.pass_registry import apply_pass
+
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        if before is not None:
+            before()
+        outs = ctr_deepfm.build_deepfm_train(
+            fields, dense_dim=dense_dim, embed_dim=embed_dim,
+            is_sparse=is_sparse, with_auc=with_auc)
+        if fused:
+            apply_pass(main, "matmul_epilogue_fuse_pass")
+        result = make_opt().minimize(outs[1])
+    main.random_seed = startup.random_seed = 2026
+    return main, startup, outs, result
+
+
+def _deepfm_feed(fields, batch, dense_dim, seed, dev=None):
+    """bench.py's DeepFM batch: each field's ids uniform over its ids,
+    dense features uniform in [0, 1), clicks 0 / 1; numpy, or staged on
+    `dev` once, so no timed step reads the host."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    feed = {"C%d" % i: rng.randint(0, d, (batch, 1)).astype("int64")
+            for i, d in enumerate(fields)}
+    feed["dense"] = rng.rand(batch, dense_dim).astype("float32")
+    feed["click"] = rng.randint(0, 2, (batch, 1)).astype("float32")
+    if dev is None:
+        return feed
+    return {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+
+
+def train_deepfm(dev, fused=False, profile_dir=None, base=None):
+    """DeepFM as BASELINE.json config 4 and bench.py:533-549 train it: 26
+    sparse fields of 1000 ids, 13 dense features, embed_dim 16, dnn_dims
+    (32, 32), batch 4096, is_sparse, Adagrad(0.01); random weights from
+    the startup program's seed, seeded ids, features and clicks staged on
+    the card.  Through _train_on_card (the warm-up and the capture, 10
+    timed replays, the second key, a saved-state step twice, 5 captured
+    steps == 5 eager ones bit for bit, run_loop(6) == 6 runs): every
+    table's gradient a SelectedRows.  Without `fused` no hand-written
+    kernel launches (the fc layers are mul + elementwise_add + relu on
+    cuBLAS, as the reference's are XLA dots); with it
+    matmul_epilogue_fuse_pass puts B5 under the three fc ops: launches
+    exactly the program's (fc and fc_grad, 6 a step), and `base`, the
+    unfused leg's record, must have the same first loss within 1e-5
+    relative.  Prints examples/s over the captured p50."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+
+    fields = [DEEPFM_IDS] * DEEPFM_FIELDS
+    main, startup, outs, _ = _deepfm_program(
+        fields, DEEPFM_DENSE, DEEPFM_EMBED, True,
+        lambda: ptt.optimizer.Adagrad(0.01), fused=fused)
+    per_step = _expected_train_launches(main)
+    ops = [op.type for op in main.global_block().ops]
+    assert ops.count("lookup_table_grad") == 2 * DEEPFM_FIELDS
+    assert ops.count("adagrad") == len(main.global_block().all_parameters())
+    if fused:
+        assert ops.count("fc") == 3 and per_step["matmul_bias_act"] == 6, (
+            ops.count("fc"), per_step)
+        assert sum(per_step.values()) == 6, per_step
+    else:
+        assert not any(per_step.values()), per_step
+    batch = _deepfm_feed(fields, DEEPFM_BATCH, DEEPFM_DENSE, 0, dev)
+    label = "DeepFM%s (26 x 1000 ids, embed 16, batch %d, sparse Adagrad)" % (
+        ", fused" if fused else "", DEEPFM_BATCH)
+    kernels.reset_launch_counts()
+    launches, cap = _train_on_card(
+        label, main, startup, [outs[1]], batch, DEEPFM_BATCH, DEEPFM_BATCH,
+        (0.3, 1.5), per_step, profile_dir,
+        "training_deepfm" + ("_fused" if fused else ""), steps=DEEPFM_STEPS,
+        dropout=False, loss_parts=(), loop=True, compare_steps=5)
+    cap["examples_per_s"] = DEEPFM_BATCH / cap["captured_p50_ms"] * 1e3
+    line = ("%s: %.1f examples/s over the captured p50 %.4f ms (eager %.4f "
+            "ms), peak %.3f GB captured, first loss %.7f" % (
+                label, cap["examples_per_s"], cap["captured_p50_ms"],
+                cap["eager_p50_ms"], cap["captured_peak_gb"],
+                cap["first_loss"]))
+    if base is not None:
+        rel = abs(cap["first_loss"] - base["first_loss"]) / abs(
+            base["first_loss"])
+        assert rel <= 1e-5, ("fused DeepFM's loss != the unfused one's",
+                             cap["first_loss"], base["first_loss"])
+        line += ("; beside the unfused leg: first loss %.7f (relative "
+                 "difference %.3g), captured p50 %.4f ms" % (
+                     base["first_loss"], rel, base["captured_p50_ms"]))
+    print(line)
+    return launches, cap
+
+
+def train_deepfm_wide(dev, profile_dir=None):
+    """DeepFM at 26 fields of 1,000,000 ids (embed 16, batch 4096,
+    Adagrad 0.01), is_sparse against dense from one saved start: the
+    fm_v tables hold 1.66 GB, fm_w1 104 MB and the Adagrad moments as
+    much again.  Each mode: 3 steps (the warm-up, the capture, a replay)
+    with the peak allocated above the state read across them, then 5
+    timed replays and 3 eager steps (use_program_cache=False).  The
+    sparse step's gradients are the touched rows (~106 k of 26 M), so its
+    peak adds nothing of table size (under a tenth of the tables: the
+    batch's activations and the graph's pool, which do not grow with the
+    vocab); the dense one's adds the [vocab, dim] gradients and the
+    update's temporaries (more than the tables).  Sparse and dense Adagrad agree
+    within 1e-5 over the 3 steps (losses, and every table and moment
+    within 1e-5 of its largest magnitude): an untouched row's dense
+    update is exactly zero.  No hand-written kernel launches.  Returns
+    (the launch counts, {mode: capture record})."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import kernels
+
+    fields = [DEEPFM_WIDE_IDS] * DEEPFM_FIELDS
+    batch = _deepfm_feed(fields, DEEPFM_BATCH, DEEPFM_DENSE, 1, dev)
+    scope = ptt.Scope()
+    caps, losses, after = {}, {}, {}
+    kernels.reset_launch_counts()
+    for mode in ("sparse", "dense"):
+        main, startup, outs, _ = _deepfm_program(
+            fields, DEEPFM_DENSE, DEEPFM_EMBED, mode == "sparse",
+            lambda: ptt.optimizer.Adagrad(0.01))
+        with ptt.scope_guard(scope):
+            exe = ptt.Executor(ptt.CUDAPlace(0))
+            if mode == "sparse":
+                exe.run(startup)
+                names = scope.local_var_names()
+                start = {n: scope.find_var(n).clone() for n in names}
+                state = sum(v.numel() * v.element_size()
+                            for v in start.values())
+                tables = sum(scope.find_var(n).numel() * 4 for n in names
+                             if n.startswith("fm_") and "moment" not in n)
+            else:
+                for n, v in start.items():
+                    scope.find_var(n).copy_(v)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            losses[mode] = [float(exe.run(main, feed=batch,
+                                          fetch_list=[outs[1]])[0].sum())
+                            for _ in range(DEEPFM_WIDE_STEPS)]
+            torch.cuda.synchronize()
+            added = torch.cuda.max_memory_allocated() - held
+            after[mode] = {n: scope.find_var(n).clone() for n in names}
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exe.run(main, feed=batch, fetch_list=[outs[1]])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            reports = {}
+            if profile_dir:
+                reports["captured"] = profile_training(
+                    lambda: exe.run(main, feed=batch, fetch_list=[outs[1]]),
+                    profile_dir, name="training_deepfm_wide_" + mode)
+            eager = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exe.run(main, feed=batch, fetch_list=[outs[1]],
+                        use_program_cache=False)
+                torch.cuda.synchronize()
+                eager.append(time.perf_counter() - t0)
+            if profile_dir:
+                reports["eager"] = profile_training(
+                    lambda: exe.run(main, feed=batch, fetch_list=[outs[1]],
+                                    use_program_cache=False),
+                    profile_dir, name="training_deepfm_wide_%s_eager" % mode)
+            exe.close()
+        cap = {"captured_p50_ms": _p50_ms(times), "eager_p50_ms":
+               _p50_ms(eager), "captured_peak_gb": peak / 1e9,
+               "step_added_peak_gb": added / 1e9, "state_gb": state / 1e9,
+               "tables_gb": tables / 1e9, "first_loss": losses[mode][0],
+               "examples_per_s": DEEPFM_BATCH / _p50_ms(times) * 1e3}
+        _busy_idle(cap, reports)
+        caps[mode] = _capture_line("DeepFM wide tables, " + mode, cap)
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    assert not any(launches.values()), launches
+    np.testing.assert_allclose(losses["sparse"], losses["dense"], rtol=1e-5)
+    worst = 0.0
+    for n, want in after["dense"].items():
+        scale = max(float(want.abs().max()), 1e-30)
+        worst = max(worst, float((after["sparse"][n] - want).abs().max())
+                    / scale)
+    assert worst <= 1e-5, ("sparse != dense Adagrad", worst)
+    moved = sum(not torch.equal(after["sparse"][n], start[n])
+                for n in start)
+    assert caps["sparse"]["step_added_peak_gb"] < 0.1 * tables / 1e9, caps
+    assert caps["dense"]["step_added_peak_gb"] > tables / 1e9, caps
+    print("DeepFM wide tables (26 x %d ids, embed 16, batch %d; tables %.3f "
+          "GB, state %.3f GB): sparse captured p50 %.4f ms, eager %.4f ms, "
+          "the step adds %.4f GB at peak; dense captured p50 %.4f ms, eager "
+          "%.4f ms, adds %.4f GB; sparse == dense Adagrad over %d steps "
+          "(losses %s vs %s; state within %.3g of its largest magnitude, %d "
+          "of %d tensors moved)" % (
+              DEEPFM_WIDE_IDS, DEEPFM_BATCH, tables / 1e9, state / 1e9,
+              caps["sparse"]["captured_p50_ms"],
+              caps["sparse"]["eager_p50_ms"],
+              caps["sparse"]["step_added_peak_gb"],
+              caps["dense"]["captured_p50_ms"], caps["dense"]["eager_p50_ms"],
+              caps["dense"]["step_added_peak_gb"], DEEPFM_WIDE_STEPS,
+              losses["sparse"], losses["dense"], worst, moved, len(start)))
+    del start, after
+    return launches, caps
+
+
+def _auc_close(got, want, hist_got, hist_want):
+    """An AUC on the card against the CPU's: within 1e-5, or, where a
+    prediction within float rounding of a bucket edge (1 / 4095) landed
+    in the neighbouring bucket, final (positive, negative) histograms of
+    the same totals that differ by such moves alone, and the AUC within
+    what the moved counts can change: each moves at most the largest
+    bucket's count of pairs.  Returns the counts moved."""
+    import numpy as np
+
+    if abs(got - want) <= 1e-5 * max(abs(want), 1e-30):
+        return 0
+    moves = 0
+    for a, b in zip(hist_got, hist_want):
+        assert a.sum() == b.sum(), "histogram totals differ"
+        assert np.abs(np.cumsum(a - b, axis=-1)).max() <= 2, "not edge moves"
+        moves += int(np.abs(a - b).sum()) // 2
+    pos, neg = hist_want[0].sum(), hist_want[1].sum()
+    most = max(float(h.max()) for h in hist_want)
+    assert moves and abs(got - want) <= moves * most / max(pos * neg, 1.0), (
+        got, want, moves)
+    return moves
+
+
+def deepfm_card_matches_cpu(dev):
+    """The narrow DeepFM of tests/test_book.py:183 (fields [17, 23, 11],
+    embed_dim 4, dense 4, batch 32) trained 5 steps on the card and on
+    the CPU from one startup, under each optimizer, with is_sparse on and
+    off where the optimizer has a sparse branch: SGD, Momentum (with and
+    without Nesterov), lazy Adam, Adagrad, Adamax, DecayedAdagrad,
+    Adadelta, RMSProp (centered and not), Ftrl, LarsMomentum; Adagrad
+    with GradientClipByGlobalNorm and L2Decay on the sparse tables; Adam
+    with ModelAverage (apply: the averaged weights' test loss, restore:
+    the trained weights back); GradientMergeOptimizer(Adagrad, k 2) with
+    its apply program after every second step; with_auc (global and
+    20-batch AUC, Adam 0.05, batch 64).  Every loss and AUC within 1e-5
+    relative (an AUC: or a bucket-edge move, _auc_close), every
+    parameter and accumulator within 1e-5 of its largest magnitude; no
+    hand-written kernel launches.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import clip, kernels, regularizer
+
+    opt = lambda name, *a, **k: (  # noqa: E731
+        lambda: getattr(ptt.optimizer, name)(*a, **k))
+    both = (False, True)
+    cases = [
+        ("SGD", opt("SGD", 0.1), both), ("Momentum", opt("Momentum", 0.05,
+                                                          0.9), both),
+        ("Momentum Nesterov", opt("Momentum", 0.05, 0.9, use_nesterov=True),
+         both),
+        ("Adam (lazy when sparse)", opt("Adam", 0.02), both),
+        ("Adagrad", opt("Adagrad", 0.05), both),
+        ("Adamax", opt("Adamax", 0.02), (True,)),
+        ("DecayedAdagrad", opt("DecayedAdagrad", 0.005), (True,)),
+        ("Adadelta", opt("Adadelta", 0.5), (True,)),
+        ("RMSProp", opt("RMSProp", 0.01), (True,)),
+        ("RMSProp centered", opt("RMSProp", 0.01, momentum=0.5,
+                                 centered=True), (True,)),
+        ("Ftrl", opt("Ftrl", 0.05, l1=0.001, l2=0.01), (True,)),
+        ("LarsMomentum", opt("LarsMomentum", 0.05), (True,)),
+        ("Adagrad, global-norm clip, L2Decay", lambda: ptt.optimizer.Adagrad(
+            0.05, regularization=regularizer.L2Decay(1e-3)), (True,)),
+    ]
+    fields = DEEPFM_NARROW
+    feeds = [_deepfm_feed(fields, 32, 4, 4 + i % 2) for i in range(5)]
+    kernels.reset_launch_counts()
+    worst, moves, n_legs = 0.0, 0, 0
+
+    def start_weights(startup):
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            ptt.Executor(ptt.CPUPlace()).run(startup)
+        return {n: scope.find_var(n).clone() for n in scope.local_var_names()}
+
+    def run(kind, weights, body):
+        """body(exe) in a scope holding `weights` on `kind`; returns
+        (body's result, the final state on the host)."""
+        place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            for n, w in weights.items():  # copies: updates are in place
+                scope.set(n, w.to(place.torch_device(), copy=True))
+            exe = ptt.Executor(place)
+            out = body(exe, scope)
+            state = {n: scope.find_var(n).to("cpu", copy=True)
+                     for n in weights}
+            exe.close()
+        return out, state
+
+    def compare(label, got, want):
+        nonlocal worst, n_legs
+        (g_vals, g_state), (w_vals, w_state) = got, want
+        np.testing.assert_allclose(g_vals, w_vals, rtol=1e-5, err_msg=label)
+        assert np.isfinite(g_vals).all(), label
+        for n, w in w_state.items():
+            scale = max(float(w.abs().max()), 1e-30)
+            err = float((g_state[n] - w).abs().max()) / scale
+            assert err <= 1e-5, (label, n, err)
+            worst = max(worst, err)
+        n_legs += 1
+
+    for label, make_opt, modes in cases:
+        for sparse in modes:
+            before = None
+            if "clip" in label:
+                before = lambda: clip.set_gradient_clip(  # noqa: E731
+                    clip.GradientClipByGlobalNorm(0.5))
+            try:
+                main, startup, outs, _ = _deepfm_program(
+                    fields, 4, 4, sparse, make_opt, before=before)
+            finally:
+                clip._clip_attr = None
+            weights = start_weights(startup)
+
+            def steps(exe, scope):
+                return [float(exe.run(main, feed=f, fetch_list=[outs[1]])[0]
+                              .sum()) for f in feeds]
+
+            compare("%s%s" % (label, ", sparse" if sparse else ""),
+                    run("cuda", weights, steps), run("cpu", weights, steps))
+
+    # ModelAverage: apply / restore
+    main, startup, outs, _ = _deepfm_program(
+        fields, 4, 4, True, opt("Adam", 0.02))
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        test = main.clone(for_test=True)
+        avg = ptt.optimizer.ModelAverage(0.15, min_average_window=10,
+                                         max_average_window=20)
+    weights = start_weights(startup)
+
+    def averaged(exe, scope):
+        vals = [float(exe.run(main, feed=f, fetch_list=[outs[1]])[0].sum())
+                for f in feeds]
+        trained = {n: scope.find_var(n).clone() for n in avg._accums}
+        with avg.apply(exe):
+            vals.append(float(exe.run(test, feed=feeds[0],
+                                      fetch_list=[outs[1]])[0].sum()))
+            assert any(not torch.equal(scope.find_var(n), trained[n])
+                       for n in trained)
+        avg.restore(exe)
+        assert all(torch.equal(scope.find_var(n), trained[n])
+                   for n in trained)
+        return vals
+
+    compare("ModelAverage apply / restore", run("cuda", weights, averaged),
+            run("cpu", weights, averaged))
+
+    # GradientMergeOptimizer, k 2
+    main, startup, outs, apply_prog = _deepfm_program(
+        fields, 4, 4, True, lambda: ptt.optimizer.GradientMergeOptimizer(
+            ptt.optimizer.Adagrad(0.05), k_steps=2))
+    weights = start_weights(startup)
+
+    def merged(exe, scope):
+        vals = []
+        for i, f in enumerate(feeds[:4]):
+            vals.append(float(exe.run(main, feed=f,
+                                      fetch_list=[outs[1]])[0].sum()))
+            if i % 2:
+                exe.run(apply_prog)
+        return vals
+
+    compare("GradientMergeOptimizer k 2", run("cuda", weights, merged),
+            run("cpu", weights, merged))
+
+    # with_auc: the global and the batch AUC
+    main, startup, outs, _ = _deepfm_program(
+        fields, 4, 4, False, opt("Adam", 0.05), with_auc=True)
+    weights = start_weights(startup)
+    auc_feed = _deepfm_feed(fields, 64, 4, 9)
+    hists = {1: ("auc_stat_pos_0", "auc_stat_neg_0"),
+             2: ("auc_batch_stat_pos_0", "auc_batch_stat_neg_0")}
+    assert all(n in weights for pair in hists.values() for n in pair)
+
+    def aucs(exe, scope):
+        return [[float(v.sum()) for v in exe.run(
+            main, feed=auc_feed, fetch_list=[outs[1], outs[3], outs[4]])]
+            for _ in range(5)]
+
+    (g_vals, g_state), (w_vals, w_state) = (run("cuda", weights, aucs),
+                                            run("cpu", weights, aucs))
+    np.testing.assert_allclose([v[0] for v in g_vals],
+                               [v[0] for v in w_vals], rtol=1e-5)
+    for step in range(5):
+        for j, pair in hists.items():
+            moves += _auc_close(g_vals[step][j], w_vals[step][j],
+                                [g_state[n].numpy() for n in pair],
+                                [w_state[n].numpy() for n in pair])
+    assert 0.0 <= g_vals[-1][1] <= 1.0 and g_vals[-1][1] > 0.5, g_vals[-1]
+    n_legs += 1
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    assert not any(launches.values()), launches
+    print("narrow DeepFM (fields %s, embed 4, batch 32) card vs CPU: %d legs "
+          "of 5 steps (SGD, Momentum, Nesterov, Adam, Adagrad sparse and "
+          "dense; Adamax, DecayedAdagrad, Adadelta, RMSProp, centered "
+          "RMSProp, Ftrl, LarsMomentum; global-norm clip + L2Decay; "
+          "ModelAverage; GradientMerge k 2; with_auc) within 1e-5, the "
+          "state within %.3g of each tensor's largest magnitude; final "
+          "AUCs card %.6f / %.6f, CPU %.6f / %.6f; %d histogram counts "
+          "across a bucket edge" % (
+              fields, n_legs, worst, g_vals[-1][1], g_vals[-1][2],
+              w_vals[-1][1], w_vals[-1][2], moves))
+    return launches
+
+
+def check_deepfm_kernels(dev, randn, rec):
+    """B5 at DeepFM's three fc shapes (M 4096): [4096, 429] @ [429, 32] +
+    relu (K = 26 x 16 + 13, not a multiple of 4: 4-byte copies of x),
+    [4096, 32] @ [32, 32] + relu and [4096, 32] @ [32, 1] (N 1), each
+    against its plain version (1e-4 absolute), rerun bit-equal, and
+    timed beside it and addmm (+ relu), into `rec`'s per_shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import matmul_bias_act, matmul_bias_act_plain
+    from paddle_tpu_torch.kernels.matmul_epilogue import TILED, mm_plan
+
+    m, k0 = DEEPFM_BATCH, DEEPFM_FIELDS * DEEPFM_EMBED + DEEPFM_DENSE
+    err, per = 0.0, rec["matmul_bias_act"]["per_shape"]
+    for tag, (k_, n, act) in (("dnn 1", (k0, 32, "relu")),
+                              ("dnn 2", (32, 32, "relu")),
+                              ("y_deep", (32, 1, ""))):
+        x, w, b = randn(m, k_), randn(k_, n, scale=k_ ** -0.5), randn(n)
+        out = matmul_bias_act(x, w, b, act)
+        err = max(err, (out - matmul_bias_act_plain(x, w, b, act))
+                  .abs().max().item())
+        assert torch.equal(out, matmul_bias_act(x, w, b, act)), tag
+        lib = ((lambda: F.relu(torch.addmm(b, x, w))) if act
+               else (lambda: torch.addmm(b, x, w)))
+        plan = mm_plan(m, n, k_)
+        per["deepfm %s [%d, %d] @ [%d, %d] + bias%s" % (
+            tag, m, k_, k_, n, " " + act if act else "")] = dict(
+                ms=_time_ms(lambda: matmul_bias_act(x, w, b, act)),
+                plain_ms=_time_ms(lambda: matmul_bias_act_plain(x, w, b, act)),
+                library_ms=_time_ms(lib),
+                **_bounds(4 * (m * k_ + k_ * n + n + m * n), 2 * m * k_ * n,
+                          plan.form == TILED),
+                plan=list(plan))
+    assert err <= 1e-4, ("matmul_bias_act disagrees at DeepFM's shapes", err)
+    torch.cuda.synchronize()
+    print("B5 held to its plain version at DeepFM's fc shapes: %.3g abs; "
+          "reruns bit-equal" % err)
+    for tag, t_ in per.items():
+        if tag.startswith("deepfm"):
+            print("matmul_bias_act %s: %s" % (tag, json.dumps(t_)))
+
+
 DECODE_KERNELS = ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
                   "matmul_bias_act", "fused_add_layer_norm")
 # held on the card by the kernel phase only: no path of the repo trains
@@ -7153,7 +7659,21 @@ def main():
     lap("stacked LSTM inference")
     inference_card_matches_cpu(dev)
     lap("narrow predictors, card vs CPU")
-    assert sum(c["captured"] for c in caps.values()) == 23, caps
+    torch.cuda.empty_cache()
+    trained_deepfm, caps["deepfm_training"] = train_deepfm(
+        dev, False, profile_dir)
+    lap("deepfm training")
+    trained_deepfm_fused, caps["deepfm_fused_training"] = train_deepfm(
+        dev, True, profile_dir, base=caps["deepfm_training"])
+    lap("deepfm training, fused")
+    torch.cuda.empty_cache()
+    trained_deepfm_wide, wide = train_deepfm_wide(dev, profile_dir)
+    caps["deepfm_wide_sparse"] = wide["sparse"]
+    caps["deepfm_wide_dense"] = wide["dense"]
+    lap("deepfm wide tables, sparse and dense")
+    deepfm_card_matches_cpu(dev)
+    lap("narrow deepfm, card vs CPU")
+    assert sum(c["captured"] for c in caps.values()) == 27, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
             "the captured step is not faster than the eager one", path,
@@ -7189,7 +7709,10 @@ def main():
                    "resnet50_nhwc_training": trained_resnet_nhwc[name],
                    "resnet50_inference": inferred_resnet[name],
                    "transformer_encoder_inference": inferred_encoder[name],
-                   "lstm_inference": inferred_lstm[name]}
+                   "lstm_inference": inferred_lstm[name],
+                   "deepfm_training": trained_deepfm[name],
+                   "deepfm_fused_training": trained_deepfm_fused[name],
+                   "deepfm_wide_training": trained_deepfm_wide[name]}
         entry = {"name": name, "route": r["route"], "source": r["source"],
                  "replaces": r["replaces"],
                  "launches": sum(by_path.values()),

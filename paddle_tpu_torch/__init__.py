@@ -18,11 +18,14 @@ the stacked dynamic LSTM, the GRU seq2seq model and the conv nets
 LM on packed sequences (``reader.pack_sequences``); and the inference
 deployment path: ``save_inference_model`` / ``load_inference_model``
 (``io``), the ``InferenceTranspiler`` and the ``AnalysisConfig``
-predictor (``inference``).
+predictor (``inference``); and DeepFM CTR training with sparse
+embeddings (``models.ctr_deepfm``: SelectedRows gradients, every
+optimizer, ``clip``, ``regularizer``).
 """
 
 from . import ops  # noqa: F401  (registers the op lowerings)
 from . import inference, io, layers, nets, transpiler, unique_name  # noqa: F401
+from . import clip, flags, optimizer, regularizer  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard
 from .executor import Executor
 from .framework import (
@@ -32,15 +35,16 @@ from .framework import (
     program_guard,
 )
 from .io import load_inference_model, save_inference_model
+from .param_attr import ParamAttr
 from .places import CPUPlace, CUDAPlace, default_place
 from .transpiler import (InferenceTranspiler, list_passes, memory_optimize,
                          release_memory)
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "Executor", "InferenceTranspiler", "Program",
-    "Scope", "default_main_program", "default_place",
-    "default_startup_program", "global_scope", "inference", "io", "layers",
-    "list_passes", "load_inference_model", "memory_optimize", "nets",
-    "program_guard", "release_memory", "save_inference_model",
-    "scope_guard", "unique_name",
+    "CPUPlace", "CUDAPlace", "Executor", "InferenceTranspiler", "ParamAttr",
+    "Program", "Scope", "clip", "default_main_program", "default_place",
+    "default_startup_program", "flags", "global_scope", "inference", "io",
+    "layers", "list_passes", "load_inference_model", "memory_optimize",
+    "nets", "optimizer", "program_guard", "regularizer", "release_memory",
+    "save_inference_model", "scope_guard", "unique_name",
 ]

@@ -12,9 +12,9 @@ same ops as one built there.
 
 from . import unique_name
 from .core.registry import OPS
-from .framework import Parameter, grad_var_name
+from .framework import Parameter, Variable, grad_var_name
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "calc_gradient"]
 
 _FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
 
@@ -32,8 +32,10 @@ def _create_grad_var(block, ref_name, grad_name):
         persistable=False, stop_gradient=True)
 
 
-def append_backward(loss, parameter_list=None, no_grad_set=None):
-    """Append grad ops for `loss` to its program; return [(param, grad)]."""
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None):
+    """Append grad ops for `loss` to its program; return [(param, grad)].
+    `callbacks` is accepted and never called, as in the reference."""
     program = loss.block.program
     block = program.global_block()
     with program._op_role_guard("backward"):
@@ -184,3 +186,23 @@ def _append_backward_impl(loss, program, block, no_grad, parameter_list):
         if g is not None:
             params_grads.append((p, block._find_var_recursive(g)))
     return params_grads
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """The gradient vars of one target with respect to `inputs` (any
+    vars, not only parameters; None where no gradient reaches one),
+    through append_backward's published name map.  `target_gradients`
+    is accepted and unused, as in the reference."""
+    if isinstance(targets, Variable):
+        targets = [targets]
+    if isinstance(inputs, Variable):
+        inputs = [inputs]
+    assert len(targets) == 1, "calc_gradient: single target supported"
+    append_backward(targets[0], parameter_list=None, no_grad_set=no_grad_set)
+    block = targets[0].block
+    grad_map = getattr(block.program, "_grad_names", {})
+    outs = []
+    for iv in inputs:
+        gname = grad_map.get(iv.name)
+        outs.append(block._find_var_recursive(gname) if gname else None)
+    return outs

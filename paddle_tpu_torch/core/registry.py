@@ -23,7 +23,8 @@ __all__ = ["register", "get_op", "is_registered", "LowerCtx", "DrawSites",
 
 
 class OpDef:
-    def __init__(self, type, lower, no_grad_inputs=None, guard=None):
+    def __init__(self, type, lower, no_grad_inputs=None, guard=None,
+                 handles_selected_rows=False):
         self.type = type
         self.lower = lower  # fn(ctx, ins, attrs) -> {slot: [tensors]}
         # input slots that never take a gradient (ids, labels, optimizer
@@ -32,14 +33,20 @@ class OpDef:
         # the context the rule runs under, its vjp's backward too (the
         # convs' cuDNN settings, read when each kernel is dispatched)
         self.guard = guard or contextlib.nullcontext
+        # ops that take SelectedRows inputs as they are (the sparse
+        # gradient's consumers); every other op gets them densified by
+        # the block runner (core/trace.py)
+        self.handles_selected_rows = handles_selected_rows
 
 
 OPS = {}
 
 
-def register(type_, no_grad_inputs=None, guard=None):
+def register(type_, no_grad_inputs=None, guard=None,
+             handles_selected_rows=False):
     """Decorator: register a lowering rule for op `type_`; `guard` makes
-    the context its rule and its grad run under."""
+    the context its rule and its grad run under; `handles_selected_rows`
+    lets SelectedRows inputs reach the rule undensified."""
 
     def deco(fn):
         lower = fn
@@ -48,7 +55,8 @@ def register(type_, no_grad_inputs=None, guard=None):
             def lower(ctx, ins, attrs):
                 with guard():
                     return fn(ctx, ins, attrs)
-        OPS[type_] = OpDef(type_, lower, no_grad_inputs, guard)
+        OPS[type_] = OpDef(type_, lower, no_grad_inputs, guard,
+                           handles_selected_rows)
         return fn
 
     return deco

@@ -11,6 +11,14 @@ class Scope:
     def __init__(self, parent=None):
         self._vars = {}
         self.parent = parent
+        self._kids = []
+
+    def var(self, name):
+        """Get or create `name` here (None until set), returning the
+        name, as the reference's ``Scope::Var`` counterpart does."""
+        if name not in self._vars:
+            self._vars[name] = None
+        return name
 
     def find_var(self, name):
         s = self
@@ -23,6 +31,9 @@ class Scope:
     def has_var(self, name):
         return self.find_var(name) is not None
 
+    def get(self, name):
+        return self.find_var(name)
+
     def set(self, name, value):
         """Write where the var already exists, else locally."""
         s = self
@@ -33,8 +44,29 @@ class Scope:
             s = s.parent
         self._vars[name] = value
 
+    def erase(self, name):
+        self._vars.pop(name, None)
+
+    def new_scope(self):
+        kid = Scope(self)
+        self._kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        self._kids = []
+
     def local_var_names(self):
         return list(self._vars)
+
+    def all_var_names(self):
+        """This scope's names, then each ancestor's (a shadowed name
+        repeats), as the reference lists them."""
+        names = []
+        s = self
+        while s is not None:
+            names.extend(s._vars)
+            s = s.parent
+        return names
 
     def visible_vars(self):
         """(name, value) of every var this scope finds: its own and its

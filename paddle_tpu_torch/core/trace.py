@@ -29,10 +29,16 @@ Only ops a kept grad op refers to are snapshotted, so Adam's in-place
 updates keep no second copy of the parameters.  Each grad op runs inside
 an ``op_grad:<forward type>`` profiler span, so a trace splits the
 backward's host time by op type.
+
+A SelectedRows value (``core/selected_rows.py``, the sparse embedding
+gradient) reaches only the ops registered with
+``handles_selected_rows``; every other op, and every fetch and updated
+var, gets it densified, as the reference's tracer does.
 """
 
 from ..profiler import RecordEvent
 from .registry import OPS, get_op, lower_grad_op
+from .selected_rows import SelectedRows, densify_maybe
 
 __all__ = ["dce_mask", "analyze_block", "RunPlan", "build_plan", "run_step"]
 
@@ -170,10 +176,17 @@ def run_step(program, plan, feeds, state, ctx):
                                        % (op.type, n))
                 vals.append(env[n])
             ins[slot] = vals
+        opdef = OPS.get(op.type)
+        if not (opdef is not None and opdef.handles_selected_rows) and any(
+                isinstance(v, SelectedRows) for vals in ins.values()
+                for v in vals):
+            ins = {s: [densify_maybe(v) for v in vals]
+                   for s, vals in ins.items()}
         try:
-            if op.type not in OPS and is_grad:
+            if is_grad:
+                lower = opdef.lower if opdef is not None else lower_grad_op
                 with RecordEvent("op_grad", cat=op.attrs["__fwd_type__"]):
-                    outs = lower_grad_op(ctx, ins, op.attrs)
+                    outs = lower(ctx, ins, op.attrs)
             else:
                 outs = get_op(op.type).lower(ctx, ins, op.attrs)
         except Exception as e:
@@ -191,5 +204,6 @@ def run_step(program, plan, feeds, state, ctx):
     for n in plan.fetch_names:
         if n not in env:
             raise RuntimeError("fetch var %s was never produced" % n)
-        fetches.append(env[n])
-    return fetches, {n: env[n] for n in plan.updated if n in env}
+        fetches.append(densify_maybe(env[n]))
+    return fetches, {n: densify_maybe(env[n]) for n in plan.updated
+                     if n in env}

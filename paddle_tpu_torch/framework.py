@@ -166,6 +166,11 @@ class Parameter(Variable):
         self.trainable = kwargs.get("trainable", True)
         self.optimize_attr = kwargs.get("optimize_attr",
                                         {"learning_rate": 1.0})
+        # read by regularizer.append_regularization_ops and
+        # clip.append_gradient_clip_ops
+        self.regularizer = kwargs.get("regularizer", None)
+        self.gradient_clip_attr = kwargs.get("gradient_clip_attr", None)
+        self.do_model_average = kwargs.get("do_model_average", None)
 
     def to_dict(self):
         d = super().to_dict()
@@ -209,6 +214,18 @@ class Operator:
 
     def output_arg_names(self):
         return [n for names in self.outputs.values() for n in names if n]
+
+    def input(self, slot):
+        return self.inputs.get(slot, [])
+
+    def output(self, slot):
+        return self.outputs.get(slot, [])
+
+    def has_attr(self, name):
+        return name in self.attrs
+
+    def attr(self, name):
+        return self.attrs[name]
 
     def __repr__(self):
         return "Op(type=%s, inputs=%s, outputs=%s)" % (
@@ -321,6 +338,19 @@ class Block:
         self.program._bump_version()
         return op
 
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self.insert_op(0, type, inputs, outputs, attrs)
+
+    def insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
+    def remove_op(self, index):
+        del self.ops[index]
+        self.program._bump_version()
+
     def to_dict(self):
         return {
             "idx": self.idx,
@@ -378,6 +408,19 @@ class Program:
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None):
+        """A new block under `parent_idx` (default: the current block),
+        which becomes the current block."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.blocks.append(Block(self, len(self.blocks), parent))
+        self.current_block_idx = len(self.blocks) - 1
+        self._bump_version()
+        return self.current_block()
+
+    def rollback(self):
+        """Back to the current block's parent."""
+        self.current_block_idx = self.current_block().parent_idx
 
     @property
     def num_blocks(self):

@@ -1,8 +1,9 @@
 """Neural-net layers (the counterpart of ``paddle_tpu/layers/nn.py``):
 the builders the serving slice, the GPT-2 (modern-decoder options
 included), WMT Transformer and BERT pretraining programs and the
-recurrent models (stacked LSTM classifier, GRU seq2seq) and the conv
-nets (ResNet, VGG, SE-ResNeXt, the MNIST CNN) call.  Each
+recurrent models (stacked LSTM classifier, GRU seq2seq), the conv
+nets (ResNet, VGG, SE-ResNeXt, the MNIST CNN), DeepFM and gradient
+clipping call.  Each
 appends ops through LayerHelper exactly as the reference does, so the
 same calls generate the same var and parameter names."""
 
@@ -15,14 +16,15 @@ from ..param_attr import ParamAttr
 __all__ = [
     "fc", "embedding", "layer_norm", "mul", "matmul", "reshape", "transpose",
     "slice", "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "elementwise_div", "elementwise_min",
+    "elementwise_div", "elementwise_max", "elementwise_min",
     "elementwise_pow", "gather", "fused_attention", "slot_cache_write",
     "dropout", "softmax", "softmax_with_cross_entropy", "label_smooth",
     "reduce_sum", "mean", "squeeze", "unsqueeze", "one_hot",
     "scale", "clip", "swish", "expand", "rotary_embed", "dynamic_lstm",
     "dynamic_gru", "cross_entropy", "topk", "reduce_mean", "log", "tanh",
     "sigmoid", "relu", "conv2d", "depthwise_conv2d", "pool2d",
-    "adaptive_pool2d", "batch_norm",
+    "adaptive_pool2d", "batch_norm", "sum", "pow", "log_loss",
+    "clip_by_norm", "square", "sqrt", "sign",
 ]
 
 
@@ -145,6 +147,48 @@ def clip(x, min, max, name=None):
     return _simple("clip", x, {"min": float(min), "max": float(max)}, name)
 
 
+def clip_by_norm(x, max_norm, name=None):
+    return _simple("clip_by_norm", x, {"max_norm": float(max_norm)}, name)
+
+
+def square(x, name=None):
+    return _simple("square", x, name=name)
+
+
+def sqrt(x, name=None):
+    return _simple("sqrt", x, name=name)
+
+
+def sign(x, name=None):
+    return _simple("sign", x, name=name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _simple("pow", x, {"factor": float(factor)}, name)
+
+
+def sum(x):
+    """The elementwise sum of a Variable or a list of them."""
+    from ..framework import Variable
+
+    helper = LayerHelper("sum")
+    if isinstance(x, Variable):
+        x = [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("sum", inputs={"X": x}, outputs={"Out": [out]})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    """The negative log likelihood of a probability."""
+    helper = LayerHelper("log_loss", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
 def swish(x, beta=1.0, name=None):
     return _simple("swish", x, {"beta": beta}, name)
 
@@ -214,6 +258,10 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
 
 
 def elementwise_min(x, y, axis=-1, act=None, name=None):

@@ -7,7 +7,7 @@ from .. import framework
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "create_global_var", "assign", "cast",
-           "fill_constant", "concat"]
+           "fill_constant", "concat", "sums"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -32,14 +32,32 @@ def create_global_var(shape, value, dtype, persistable=False,
     return var
 
 
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": input}, outputs={"Out": [out]})
+    return out
+
+
 def assign(input, output=None):
-    if not isinstance(input, framework.Variable):
-        raise NotImplementedError(
-            "assign from a host value (assign_value) is not ported yet")
+    """Copy a Variable (``assign``) or a host value (``assign_value``:
+    the array's values, shape and dtype as attrs) into `output`."""
     helper = LayerHelper("assign")
+    if isinstance(input, framework.Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+        return output
+    value = np.asarray(input)
     if output is None:
-        output = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op("assign", inputs={"X": [input]}, outputs={"Out": [output]})
+        output = helper.create_variable_for_type_inference(str(value.dtype))
+    helper.append_op(
+        "assign_value", outputs={"Out": [output]},
+        attrs={"shape": list(value.shape),
+               "values": value.flatten().tolist(),
+               "np_dtype": str(value.dtype)})
     return output
 
 

@@ -93,8 +93,9 @@ def bert_pretrain_program(hp=BertConfig, seq_len=128, lr=1e-4, is_test=False,
     linear_xent_fuse_pass (the [B, T, V] logits never exist) and
     matmul_epilogue_fuse_pass run before Adam.minimize, as in the
     reference.  The reference's rematerialization hook emits nothing
-    without its HBM-budget flag, and the port has no flags, so it emits
-    nothing here either."""
+    without its HBM-budget flag (FLAGS_hbm_budget_bytes, 0 by default),
+    and its pass is not ported yet (ROADMAP A9), so nothing is emitted
+    here either."""
     if use_bf16:
         raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
                                   "(ROADMAP A3)")

@@ -114,8 +114,8 @@ def build_resnet_train_program(batch_size=None, image_shape=(3, 224, 224),
 
             rewrite_nhwc(main)
         # the reference's maybe_remat(main, avg_cost) changes nothing
-        # unless FLAGS_hbm_budget_bytes is set, and the port has no flags
-        # module yet (ROADMAP A1): the call is left out
+        # unless FLAGS_hbm_budget_bytes is set; the pass it drives is not
+        # ported yet (ROADMAP A9): the call is left out
         if optimizer == "momentum":
             opt = opt_mod.Momentum(learning_rate=lr, momentum=0.9)
         else:

@@ -357,8 +357,9 @@ def wmt_transformer_program(hp=ModelHyperParams, src_len=64, trg_len=64,
     smooth_label_xent_fuse_pass into linear_xent_fuse_pass (the [R, V]
     logits never exist), and the FFN / residual-LN chains by
     matmul_epilogue_fuse_pass, before minimize.  The reference's
-    rematerialization hook emits nothing without its HBM-budget flag,
-    and the port has no flags yet, so it emits nothing here either."""
+    rematerialization hook emits nothing without its HBM-budget flag
+    (FLAGS_hbm_budget_bytes, 0 by default), and its pass is not ported
+    yet (ROADMAP A9), so nothing is emitted here either."""
     if use_bf16:
         raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
                                   "(ROADMAP A3)")

@@ -4,7 +4,10 @@ the serving slice, the GPT-2 (with its modern-decoder options), WMT
 Transformer and BERT pretraining steps, the recurrent models (the
 stacked LSTM classifier's cross entropy and accuracy, the GRU seq2seq
 model's), the packed causal LM (the compare ops of its loss mask) and
-the conv nets (SE-ResNeXt's sigmoid) run.  ``mul`` and ``matmul`` are
+the conv nets (SE-ResNeXt's sigmoid), DeepFM (``pow``; the SelectedRows
+branches of ``scale`` and ``sum``) and gradient clipping and
+regularization (``clip_by_norm``, ``elementwise_max``, ``sqrt``,
+``square``, ``sign``) run.  ``mul`` and ``matmul`` are
 plain products outside any kernel of the reference, so they stay
 ``torch.matmul`` here too.
 ``fused_linear_xent`` sits on the hand-written linear cross-entropy
@@ -16,6 +19,7 @@ kernels (``kernels/linear_xent.py``), the hard-label 2-D form of
 import torch
 
 from ..core.registry import register
+from ..core.selected_rows import SelectedRows, densify_maybe
 from ..kernels import fused_linear_xent, fused_softmax_xent
 from .common import bcast_y
 from .spmd_epilogue import spmd_linear_xent
@@ -37,6 +41,7 @@ for _name, _fn in (("elementwise_add", torch.add),
                    ("elementwise_sub", torch.sub),
                    ("elementwise_mul", torch.mul),
                    ("elementwise_div", torch.div),
+                   ("elementwise_max", torch.maximum),
                    ("elementwise_min", torch.minimum),
                    ("elementwise_pow", torch.pow)):
     register(_name)(_elementwise(_fn))
@@ -57,11 +62,17 @@ for _name, _fn in (("less_than", torch.lt), ("less_equal", torch.le),
     register(_name, no_grad_inputs=("X", "Y"))(_compare(_fn))
 
 
-@register("scale")
+@register("scale", handles_selected_rows=True)
 def _scale(ctx, ins, attrs):
+    """x * scale + bias (or (x + bias) * scale).  A SelectedRows X stays
+    sparse under a bias of 0; a bias densifies it."""
     x = ins["X"][0]
     s = attrs.get("scale", 1.0)
     b = attrs.get("bias", 0.0)
+    if isinstance(x, SelectedRows):
+        if not b:
+            return {"Out": [x.scaled(s)]}
+        x = x.densify()
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}
@@ -78,9 +89,27 @@ def _clip(ctx, ins, attrs):
     return {"Out": [torch.minimum(torch.maximum(x, lo), hi)]}
 
 
-@register("sum")
+@register("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    """X scaled to L2 norm max_norm where its norm is larger."""
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [torch.where(norm > max_norm, x * (max_norm / norm), x)]}
+
+
+@register("sum", handles_selected_rows=True)
 def _sum(ctx, ins, attrs):
+    """The inputs' sum.  Over SelectedRows inputs alone the rows are
+    concatenated (a sparse gradient's fan-in stays sparse; consumers
+    merge or scatter-add duplicates); a mix with a dense input densifies
+    (regularization on a sparse gradient)."""
     xs = ins["X"]
+    if xs and all(isinstance(x, SelectedRows) for x in xs):
+        return {"Out": [SelectedRows(torch.cat([x.rows for x in xs]),
+                                     torch.cat([x.value for x in xs]),
+                                     xs[0].height)]}
+    xs = [densify_maybe(x) for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -265,6 +294,26 @@ def _accuracy(ctx, ins, attrs):
 @register("log")
 def _log(ctx, ins, attrs):
     return {"Out": [torch.log(ins["X"][0])]}
+
+
+@register("sqrt")
+def _sqrt(ctx, ins, attrs):
+    return {"Out": [torch.sqrt(ins["X"][0])]}
+
+
+@register("square")
+def _square(ctx, ins, attrs):
+    return {"Out": [torch.square(ins["X"][0])]}
+
+
+@register("sign")
+def _sign(ctx, ins, attrs):
+    return {"Out": [torch.sign(ins["X"][0])]}
+
+
+@register("pow")
+def _pow(ctx, ins, attrs):
+    return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
 
 
 @register("relu")

@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/tensor_ops.py``), limited to the ops the serving slice,
 the GPT-2 programs (grouped-query attention's ``expand`` included), the
 WMT Transformer's training step, BERT pretraining (``squeeze2``), the
-GRU seq2seq model (``concat``) and the packed causal LM (``cast``) run.
+GRU seq2seq model (``concat``), the packed causal LM (``cast``) and
+DeepFM (the sparse embedding gradient, ``lookup_table_grad``) run.
 Random ops draw from the run's seeded ``torch.Generator``
 (``LowerCtx.rng``).
 """
@@ -10,7 +11,8 @@ Random ops draw from the run's seeded ``torch.Generator``
 import numpy as np
 import torch
 
-from ..core.registry import register
+from ..core.registry import lower_grad_op, register
+from ..core.selected_rows import SelectedRows
 from .common import tdt
 
 
@@ -162,31 +164,22 @@ class _Embedding(torch.autograd.Function):
     ``index_select``'s backward scatters with float atomics."""
 
     @staticmethod
-    def forward(ids, w, sparse):
+    def forward(ids, w):
         return torch.nn.functional.embedding(ids, w)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ids, w, sparse = inputs
+        ids, w = inputs
         ctx.save_for_backward(ids)
         ctx.rows = w.shape[0]
-        ctx.sparse = sparse
 
     @staticmethod
     def backward(ctx, dout):
-        if ctx.sparse:
-            # the reference emits SelectedRows and runs lazy Adam (only
-            # the touched rows decay and move); a dense gradient would
-            # train every row instead
-            raise NotImplementedError(
-                "lookup_table with is_sparse=True: the SelectedRows "
-                "gradient is not ported yet (ROADMAP A1); build the "
-                "embedding with is_sparse=False")
         ids, = ctx.saved_tensors
         h = dout.shape[-1]
         dw = dout.new_zeros((ctx.rows, h)).index_put(
             (ids.reshape(-1),), dout.reshape(-1, h), accumulate=True)
-        return None, dw, None
+        return None, dw
 
 
 @register("gather", no_grad_inputs=("Index",))
@@ -199,7 +192,7 @@ def _gather(ctx, ins, attrs):
     axis = attrs.get("axis", 0)
     idx = idx.reshape(-1).long()
     if axis == 0:
-        out = _Embedding.apply(idx, x.reshape(x.shape[0], -1), False)
+        out = _Embedding.apply(idx, x.reshape(x.shape[0], -1))
     else:
         out = x.index_select(axis, idx)
     shape = list(x.shape[:axis]) + list(ins["Index"][0].shape) + list(
@@ -207,18 +200,44 @@ def _gather(ctx, ins, attrs):
     return {"Out": [out.reshape(shape)]}
 
 
-@register("lookup_table", no_grad_inputs=("Ids",))
-def _lookup_table(ctx, ins, attrs):
-    """Embedding rows, with a reproducible backward (``_Embedding``).
-    With ``is_sparse`` the forward runs and a gradient raises."""
-    w, ids = ins["W"][0], ins["Ids"][0].long()
+def _ids(ins):
+    ids = ins["Ids"][0].long()
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids[..., 0]
-    out = _Embedding.apply(ids, w, bool(attrs.get("is_sparse", False)))
+    return ids
+
+
+@register("lookup_table", no_grad_inputs=("Ids",))
+@register("lookup_table_v2", no_grad_inputs=("Ids",))
+def _lookup_table(ctx, ins, attrs):
+    """Embedding rows, with a reproducible backward (``_Embedding``)."""
+    w, ids = ins["W"][0], _ids(ins)
+    out = _Embedding.apply(ids, w)
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out * (ids != pad).to(out.dtype)[..., None]
     return {"Out": [out]}
+
+
+@register("lookup_table_grad", handles_selected_rows=True)
+@register("lookup_table_v2_grad", handles_selected_rows=True)
+def _lookup_table_grad(ctx, ins, attrs):
+    """The embedding's gradient.  With ``is_sparse`` it is a
+    SelectedRows: the ids as rows, Out@GRAD's rows as values, the
+    ``padding_idx`` rows zeroed, never a [vocab, dim] tensor (the
+    reference's hand rule, ``paddle_tpu/ops/tensor_ops.py:331``).
+    Otherwise the generic vjp, ``_Embedding``'s dense backward."""
+    fwd_attrs = attrs.get("__fwd_attrs__", {})
+    if not fwd_attrs.get("is_sparse", False):
+        return lower_grad_op(ctx, ins, attrs)
+    w, og = ins["W"][0], ins["Out@GRAD"][0]
+    rows = _ids(ins).reshape(-1)
+    vals = og.reshape(-1, og.shape[-1]).to(w.dtype)
+    pad = fwd_attrs.get("padding_idx", -1)
+    if pad is not None and pad != -1:
+        vals = torch.where((rows == pad)[:, None], torch.zeros_like(vals),
+                           vals)
+    return {"W@GRAD": [SelectedRows(rows, vals, w.shape[0])]}
 
 
 @register("one_hot", no_grad_inputs=("X",))

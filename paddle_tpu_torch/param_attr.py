@@ -12,7 +12,10 @@ class ParamAttr:
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
+        self.regularizer = regularizer
         self.trainable = trainable
+        self.gradient_clip = gradient_clip
+        self.do_model_average = do_model_average
 
     def _set_default_initializer(self, initializer):
         if self.initializer is None:
@@ -43,4 +46,7 @@ class ParamAttr:
     def _to_kwargs(self):
         return {"name": self.name,
                 "optimize_attr": {"learning_rate": self.learning_rate},
-                "trainable": self.trainable}
+                "regularizer": self.regularizer,
+                "trainable": self.trainable,
+                "gradient_clip_attr": self.gradient_clip,
+                "do_model_average": self.do_model_average}

@@ -652,21 +652,36 @@ def test_dropout_grad_redraws_the_forward_mask():
 
 
 def test_sparse_lookup_table_gradient_raises():
-    """is_sparse: the reference's SelectedRows gradient and lazy Adam are
-    not ported (ROADMAP A1), so the gradient raises instead of training
-    every row densely; the forward (inference) still runs."""
+    """is_sparse: the forward (inference) runs as the reference's, and
+    the gradient no longer raises: lookup_table_grad gives the
+    reference's SelectedRows (the ids as rows, Out@GRAD's rows as
+    values), whose dense form equals the generic vjp of the forward (the
+    dense-mode gradient)."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.core.registry import get_op as ref_get
     from paddle_tpu_torch.core.registry import lower_grad_op
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
 
     ins = {"W": [_F(11, 6)], "Ids": [_I(11, 3, 4)]}
     attrs = {"padding_idx": -1, "is_sparse": True}
     ref, out = _run_both("lookup_table", ins, attrs)
     np.testing.assert_array_equal(out["Out"][0], ref["Out"][0])
     gins = dict(ins, **{"Out@GRAD": [_F(3, 4, 6)]})
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        lower_grad_op(LowerCtx(device="cpu"),
-                      {s: [torch.tensor(a) for a in v]
-                       for s, v in gins.items()},
-                      _grad_attrs("lookup_table", attrs, ins, ["Out"]))
+    gattrs = _grad_attrs("lookup_table", attrs, ins, ["Out"])
+    t_ins = {s: [torch.tensor(a) for a in v] for s, v in gins.items()}
+    sparse = get_op("lookup_table_grad").lower(LowerCtx(device="cpu"),
+                                               t_ins, gattrs)["W@GRAD"][0]
+    want = ref_get("lookup_table_grad").lower(
+        RefCtx(), {s: [jnp.asarray(a) for a in v] for s, v in gins.items()},
+        gattrs)["W@GRAD"][0]
+    assert isinstance(sparse, SelectedRows) and sparse.height == 11
+    np.testing.assert_array_equal(sparse.rows.numpy(), np.asarray(want.rows))
+    np.testing.assert_allclose(sparse.value.numpy(), np.asarray(want.value),
+                               **TOL)
+    dense = lower_grad_op(LowerCtx(device="cpu"), t_ins, gattrs)["W@GRAD"][0]
+    np.testing.assert_allclose(sparse.densify().numpy(), dense.numpy(),
+                               **TOL)
 
 
 def _ref_and_port_grads(op_type, ins, attrs, cot):
