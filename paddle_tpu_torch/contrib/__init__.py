@@ -1,2 +1,3 @@
 """Contributed modules (the counterpart of ``paddle_tpu/contrib``): the
-beam-search decoder."""
+beam-search decoder and bf16 automatic mixed precision
+(``mixed_precision``)."""

@@ -75,11 +75,17 @@ def _kind(dtype_str):
 
 def as_numpy(value):
     """Fetch result -> numpy; lists and tuples map element by element, as
-    the reference's as_numpy does."""
+    the reference's as_numpy does.  numpy has no bfloat16, so a bfloat16
+    tensor comes back widened to float32, exactly (the reference hands
+    back ml_dtypes' bfloat16 array of the same values)."""
     if isinstance(value, (list, tuple)):
         return [as_numpy(v) for v in value]
-    return (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
-            else value)
+    if not isinstance(value, torch.Tensor):
+        return value
+    value = value.detach().cpu()
+    if value.dtype == torch.bfloat16:
+        value = value.float()
+    return value.numpy()
 
 
 def _declared_shape(program, name):

@@ -3,7 +3,11 @@
 its plain PyTorch version beside it.  ``build.py`` compiles ``csrc/``
 at first use."""
 
-from .add_layer_norm import add_layer_norm_plain, fused_add_layer_norm
+from .add_layer_norm import (
+    add_layer_norm_plain,
+    fused_add_layer_norm,
+    fused_add_layer_norm_bf16,
+)
 from .flash_attention import (
     flash_attention,
     flash_attention_dkv,
@@ -23,18 +27,22 @@ from .flash_attention import (
     flash_attention_qvec_dq,
     flash_attention_qvec_plain,
 )
-from .layer_norm import fused_layer_norm, layer_norm_plain
+from .layer_norm import fused_layer_norm, fused_layer_norm_bf16, layer_norm_plain
 from .linear_xent import (
     fused_linear_xent,
     linear_xent_dw,
+    linear_xent_dw_bf16,
     linear_xent_dx,
+    linear_xent_dx_bf16,
     linear_xent_fwd,
+    linear_xent_fwd_bf16,
     linear_xent_grad_plain,
     linear_xent_plain,
 )
 from .matmul_epilogue import (
     MM_ACTS,
     matmul_bias_act,
+    matmul_bias_act_bf16,
     matmul_bias_act_plain,
     mm_act,
 )
@@ -62,7 +70,8 @@ from .softmax_xent import (
     softmax_xent_plain,
 )
 
-# every kernel wrapper, each with its launch count
+# every kernel wrapper, each with its launch count; the bf16 forms count
+# under names of their own
 KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
            flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
@@ -71,7 +80,9 @@ KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            flash_attention_piece_dkv, flash_attention_qvec_dq,
            flash_attention_qvec_dkv, fused_lstm, fused_gru, linear_xent_parts,
            linear_xent_dx_sharded, linear_xent_dw_sharded,
-           flash_attention_fwd_rows)
+           flash_attention_fwd_rows, matmul_bias_act_bf16,
+           fused_layer_norm_bf16, fused_add_layer_norm_bf16,
+           linear_xent_fwd_bf16, linear_xent_dx_bf16, linear_xent_dw_bf16)
 
 
 def reset_launch_counts():

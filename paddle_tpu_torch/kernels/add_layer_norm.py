@@ -22,6 +22,12 @@ registers over ``warps`` warps (one warp up to ``WARP_SLOTS`` float4
 slots a lane, then 2, 4 or 8), ``n4`` slots a lane, as many rows a block
 as keep every SM busy.  Warps and slots depend on H alone, so a row's
 sums run in one order whatever R is.
+
+bf16: bfloat16 x and y (gamma and beta float32, as the AMP trunk pass
+keeps them) launch the kernel's bf16 form on the same plan: the
+statistics on the float32 sum before it is rounded, the sum written
+rounded to bfloat16 (the reference's ``_add_ln_kernel`` and
+``_add_ln_dense``), the output rounded once.
 """
 
 import collections
@@ -30,7 +36,8 @@ import torch
 
 from . import build
 
-__all__ = ["fused_add_layer_norm", "add_layer_norm_plain", "add_ln_plan"]
+__all__ = ["fused_add_layer_norm", "fused_add_layer_norm_bf16",
+           "add_layer_norm_plain", "add_ln_plan"]
 
 N4_SLOTS = (1, 2, 3, 4, 6, 8, 12, 16)  # the kernel's instantiations
 # the most float4 slots a lane before a row spreads over more warps: on an
@@ -91,13 +98,15 @@ def _add_ln_forward(x2d, y2d, gamma, beta, eps):
     out = torch.empty_like(x2d)
     mean = torch.empty(R, dtype=torch.float32, device=x2d.device)
     var = torch.empty(R, dtype=torch.float32, device=x2d.device)
-    # float4 access needs 16-byte aligned rows (a view may start anywhere)
-    vec = plan.vec and all(t.data_ptr() % 16 == 0
-                           for t in (x2d, y2d, gamma, beta, s, out))
-    build.launch("ptt_add_layer_norm", x2d, y2d, gamma, beta, s, out, mean,
-                 var, R, H, plan.n4, int(vec), plan.warps, plan.rows,
-                 float(eps))
-    fused_add_layer_norm.launches += 1
+    # 16-byte access needs 16-byte aligned rows (a view may start
+    # anywhere): 4 float32 columns, or 8 bfloat16 ones (H % 8 == 0)
+    bf16 = x2d.dtype == torch.bfloat16
+    vec = plan.vec and (not bf16 or H % 8 == 0) and all(
+        t.data_ptr() % 16 == 0 for t in (x2d, y2d, gamma, beta, s, out))
+    build.launch("ptt_add_layer_norm_bf16" if bf16 else "ptt_add_layer_norm",
+                 x2d, y2d, gamma, beta, s, out, mean, var, R, H, plan.n4,
+                 int(vec), plan.warps, plan.rows, float(eps))
+    (fused_add_layer_norm_bf16 if bf16 else fused_add_layer_norm).launches += 1
     return s, out, mean, var
 
 
@@ -141,3 +150,12 @@ def fused_add_layer_norm(x2d, y2d, gamma, beta, eps=1e-5):
 
 
 fused_add_layer_norm.launches = 0
+
+
+def fused_add_layer_norm_bf16(x2d, y2d, gamma, beta, eps=1e-5):
+    """fused_add_layer_norm on bfloat16 x2d and y2d: the kernel's bf16
+    form, under a name of its own so that its launches count apart."""
+    return fused_add_layer_norm(x2d, y2d, gamma, beta, eps)
+
+
+fused_add_layer_norm_bf16.launches = 0

@@ -31,7 +31,8 @@ import threading
 import torch
 
 __all__ = ["load", "build", "use_kernel", "check_inputs", "launch",
-           "BUILD_DIR", "KernelError", "KernelInputError", "KernelTypeError"]
+           "BUILD_DIR", "BF16_FORMS", "KernelError", "KernelInputError",
+           "KernelTypeError"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.environ.get("PADDLE_TPU_TORCH_BUILD_DIR") or os.path.join(
@@ -47,9 +48,11 @@ SIGNATURES = {
     # R, H, then the plan's four (n4, vec, warps, rows:
     # add_layer_norm.add_ln_plan)
     "ptt_add_layer_norm": (_P,) * 8 + (_I,) * 6 + (_F, _P),
+    "ptt_add_layer_norm_bf16": (_P,) * 8 + (_I,) * 6 + (_F, _P),
     # the shape ints (and the activation), then the plan's five (form,
     # bm, bn, slices, k_slice: matmul_epilogue.mm_plan)
     "ptt_matmul_bias_act": (_P,) * 4 + (_I,) * 9 + (_P,),
+    "ptt_matmul_bias_act_bf16": (_P,) * 4 + (_I,) * 9 + (_P,),
     "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 8 + (_P,),
     # BH, Tq, Tk, d, then the plan's four (warps, slice_len, slices,
     # smem: flash_attention.qvec_plan)
@@ -63,10 +66,16 @@ SIGNATURES = {
     "ptt_linear_xent_dx": (_P,) * 6 + (_I,) * 7 + (_F, _P),
     "ptt_linear_xent_dw": (_P,) * 6 + (_I,) * 7 + (_F, _P),
     "ptt_linear_xent_parts": (_P,) * 7 + (_I,) * 8 + (_P,),
+    # the bf16 forms: R, H, V (the forward: and its split count), eps
+    # (linear_xent_bf16.cu; no plan)
+    "ptt_linear_xent_fwd_bf16": (_P,) * 6 + (_I,) * 4 + (_F, _P),
+    "ptt_linear_xent_dx_bf16": (_P,) * 6 + (_I,) * 3 + (_F, _P),
+    "ptt_linear_xent_dw_bf16": (_P,) * 6 + (_I,) * 3 + (_F, _P),
     "ptt_linear_xent_dx_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
     "ptt_linear_xent_dw_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
     # R, H, then the plan's four (form, n4, vec, rows: layer_norm.ln_plan)
     "ptt_layer_norm": (_P,) * 6 + (_I,) * 6 + (_F, _P),
+    "ptt_layer_norm_bf16": (_P,) * 6 + (_I,) * 6 + (_F, _P),
     # BH, Tq, Tk, d, then the plan's form (flash_attention.flash_plan),
     # then the mask: causal, qstride, scale, window, segment ids
     "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P, _P),
@@ -203,17 +212,38 @@ def use_kernel(t):
     raise KernelError("no kernel and no plain path for device %s" % t.device)
 
 
+# the per-kernel dtype rule: the kernels with a bf16 form, each with the
+# positions of its check_inputs operands that stay float32 whatever the
+# working dtype (B1 and B2's gamma and beta, which the AMP trunk pass
+# keeps float32; B4's saved lse and dy)
+BF16_FORMS = {"matmul_bias_act": (), "fused_layer_norm": (1, 2),
+              "fused_add_layer_norm": (2, 3), "linear_xent_fwd": (),
+              "linear_xent_dx": (2, 3), "linear_xent_dw": (2, 3)}
+
+
 def check_inputs(name, *tensors):
-    """What every kernel takes: float32, contiguous, on one CUDA device.
+    """What every kernel takes: contiguous tensors on one CUDA device, of
+    the kernel's working dtype, which is the first tensor's: float32, or
+    bfloat16 for the kernels with a bf16 form (``BF16_FORMS``, whose
+    float32 operands stay float32 in both forms).  Any other dtype
+    raises KernelTypeError: there is no fallback to the plain version.
     Whether autograd is on decides nothing here: the kernels' wrappers
     are ``torch.autograd.Function``s, whose backward is a kernel or a
     dense recompute."""
     dev = tensors[0].device
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise KernelTypeError(
-                "%s: the CUDA kernel takes float32, got %s (the bf16 form is "
-                "still to be ported, see ROADMAP)" % (name, t.dtype))
+    work = tensors[0].dtype
+    if work != torch.float32 and not (work == torch.bfloat16
+                                      and name in BF16_FORMS):
+        raise KernelTypeError(
+            "%s: the CUDA kernel takes float32, got %s (its bf16 form is "
+            "queued in ROADMAP B, the bf16 forms)" % (name, work))
+    f32 = BF16_FORMS.get(name, ())
+    for i, t in enumerate(tensors):
+        want = torch.float32 if i in f32 else work
+        if t.dtype != want:
+            raise KernelTypeError("%s: the CUDA kernel's operand %d must be %s "
+                                  "with %s inputs, got %s"
+                                  % (name, i, want, work, t.dtype))
         if t.device != dev:
             raise KernelInputError("%s: inputs on %s and %s"
                                    % (name, dev, t.device))

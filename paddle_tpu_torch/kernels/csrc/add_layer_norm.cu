@@ -31,8 +31,20 @@
 // of the row in order).  The plan fixes warps and slots by H alone, so a
 // row's result is a function of that row only: deterministic, and equal
 // whatever the other rows and however many there are.
+//
+// bf16 form (ptt_add_layer_norm_bf16): x, y, s and the output bf16, gamma
+// and beta float32 (the AMP trunk pass keeps them float32), as
+// _add_ln_kernel with bf16 refs: s = x + y formed in float32, the
+// statistics computed on that float32 sum before any rounding, s written
+// rounded to bf16, the output rounded once.  8 R H bytes, half the
+// float32 form's.  The same plan: a row's n4 float4 slots of 4 columns
+// paired into ceil(n4 / 2) slots of 8 bf16 columns, lane `lane` of warp w
+// holding columns 8 (32 (i warps + w) + lane) .. + 8 of slot i, one
+// 16-byte load or store a slot where vec (H % 8 == 0, pointers on 16
+// bytes), else the same columns as scalars.
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -169,6 +181,111 @@ __global__ void __launch_bounds__(32 * kMaxWarps) add_ln_kernel(
   }
 }
 
+template <int N8, bool VEC>
+__global__ void __launch_bounds__(32 * kMaxWarps) add_ln_bf16_kernel(
+    const ptt::bf16* __restrict__ x, const ptt::bf16* __restrict__ y,
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    ptt::bf16* __restrict__ s_out, ptt::bf16* __restrict__ o_out,
+    float* __restrict__ mean_out, float* __restrict__ var_out, int R, int H, int warps,
+    float eps) {
+  __shared__ float red[2][kMaxWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int w = warp % warps;
+  const int rb = warp / warps;
+  const long row = static_cast<long>(blockIdx.x) * (blockDim.x / (32 * warps)) + rb;
+  const bool live = row < R;
+  if (warps == 1 && !live) return;  // warp-uniform; no barrier follows
+  const long base = live ? row * H : 0;
+  float v[N8][8];
+#pragma unroll
+  for (int i = 0; i < N8; ++i) {
+    const int c = 8 * (32 * (i * warps + w) + lane);
+    float u[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[i][e] = u[e] = 0.f;
+    if (!live || c >= H) continue;
+    if (VEC) {
+      ptt::unpack8(*reinterpret_cast<const uint4*>(x + base + c), v[i]);
+      ptt::unpack8(*reinterpret_cast<const uint4*>(y + base + c), u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c + e < H) v[i][e] = ptt::bf2f(x[base + c + e]), u[e] = ptt::bf2f(y[base + c + e]);
+    }
+    // the float32 sum: the statistics read it before any rounding
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[i][e] += u[e];
+    if (VEC) {
+      *reinterpret_cast<uint4*>(s_out + base + c) = ptt::pack8(v[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c + e < H) s_out[base + c + e] = ptt::f2bf(v[i][e]);
+    }
+  }
+  float acc = 0.f;  // padding holds 0
+#pragma unroll
+  for (int i = 0; i < N8; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc += v[i][e];
+  const float mean = row_total(acc, red[0], warps, rb, w, lane) / static_cast<float>(H);
+  float acc2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N8; ++i) {
+    const int c = 8 * (32 * (i * warps + w) + lane);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float d = v[i][e] - mean;
+      if (c + e < H) acc2 = fmaf(d, d, acc2);
+    }
+  }
+  const float var = row_total(acc2, red[1], warps, rb, w, lane) / static_cast<float>(H);
+  if (!live) return;  // after the last barrier
+  if (w == 0 && lane == 0) {
+    mean_out[row] = mean;
+    var_out[row] = var;
+  }
+  const float inv = 1.f / sqrtf(var + eps);
+#pragma unroll
+  for (int i = 0; i < N8; ++i) {
+    const int c = 8 * (32 * (i * warps + w) + lane);
+    if (c >= H) continue;
+    float o[8];
+    if (VEC) {
+      const float4 g0 = *reinterpret_cast<const float4*>(gamma + c);
+      const float4 g1 = *reinterpret_cast<const float4*>(gamma + c + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(beta + c);
+      const float4 b1 = *reinterpret_cast<const float4*>(beta + c + 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = (v[i][e] - mean) * inv * g[e] + b[e];
+      *reinterpret_cast<uint4*>(o_out + base + c) = ptt::pack8(o);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c + e < H)
+          o_out[base + c + e] = ptt::f2bf((v[i][e] - mean) * inv * gamma[c + e] + beta[c + e]);
+    }
+  }
+}
+
+template <int N8>
+int launch_bf16(const ptt::bf16* x, const ptt::bf16* y, const float* gamma, const float* beta,
+                ptt::bf16* s_out, ptt::bf16* o_out, float* mean_out, float* var_out, int R,
+                int H, bool vec, int warps, int rows, float eps, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((R + rows - 1) / rows);
+  const unsigned threads = static_cast<unsigned>(32 * warps * rows);
+  if (vec)
+    add_ln_bf16_kernel<N8, true><<<blocks, threads, 0, stream>>>(
+        x, y, gamma, beta, s_out, o_out, mean_out, var_out, R, H, warps, eps);
+  else
+    add_ln_bf16_kernel<N8, false><<<blocks, threads, 0, stream>>>(
+        x, y, gamma, beta, s_out, o_out, mean_out, var_out, R, H, warps, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int N4>
 int launch(const float* x, const float* y, const float* gamma, const float* beta,
            float* s_out, float* o_out, float* mean_out, float* var_out, int R, int H,
@@ -220,4 +337,34 @@ extern "C" int ptt_add_layer_norm(const float* x, const float* y,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PTT_ADD_LN
+}
+
+// The bf16 form, on the same plan (add_ln_plan): n4 float4 slots a lane
+// taken as ceil(n4 / 2) slots of 8 bf16; vec: 16-byte access.
+extern "C" int ptt_add_layer_norm_bf16(const ptt::bf16* x, const ptt::bf16* y,
+                                       const float* gamma, const float* beta,
+                                       ptt::bf16* s_out, ptt::bf16* o_out, float* mean_out,
+                                       float* var_out, int R, int H, int n4, int vec, int warps,
+                                       int rows, float eps, cudaStream_t stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  const bool v8 = vec != 0;
+  if (H < 1 || (warps != 1 && warps != 2 && warps != 4 && warps != 8) || rows < 1 ||
+      warps * rows > kMaxWarps || static_cast<long>(128) * n4 * warps < H ||
+      (v8 && (H % 8 != 0 || !aligned16(x) || !aligned16(y) || !aligned16(gamma) ||
+              !aligned16(beta) || !aligned16(s_out) || !aligned16(o_out))))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_ADD_LN_BF16(N)                                                                 \
+  case N:                                                                                  \
+    return launch_bf16<N>(x, y, gamma, beta, s_out, o_out, mean_out, var_out, R, H, v8,    \
+                          warps, rows, eps, stream);
+  switch ((n4 + 1) / 2) {
+    PTT_ADD_LN_BF16(1)
+    PTT_ADD_LN_BF16(2)
+    PTT_ADD_LN_BF16(3)
+    PTT_ADD_LN_BF16(4)
+    PTT_ADD_LN_BF16(6)
+    PTT_ADD_LN_BF16(8)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PTT_ADD_LN_BF16
 }

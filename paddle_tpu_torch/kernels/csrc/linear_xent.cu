@@ -88,6 +88,7 @@
 //   instead of derived from the local V.  dx is this shard's partial of
 //   g @ w_local^T; the caller sums it over the shards.
 #include "common.cuh"
+#include "lxent_common.cuh"
 #include "tf32_mma.cuh"
 
 #include <cooperative_groups.h>
@@ -303,16 +304,6 @@ __device__ __forceinline__ void stage_logits(float* slot, const float* __restric
   stage<kSwzW>(slot + BR * KC, w, KC, BV, V, h0, v0, h_end, V, wvec);
 }
 
-// d loss / d z at one logits element (valid column), times dy
-__device__ __forceinline__ float grad_elem(float z, float lse, float dy,
-                                           bool valid, bool gold, float eps,
-                                           float inv_v) {
-  const float p = expf(z - lse);
-  float g = valid ? (1.f - eps) * (p - (gold ? 1.f : 0.f)) : 0.f;
-  if (eps != 0.f) g += eps * (p - inv_v);
-  return g * dy;
-}
-
 // Does row gr (< R) take the label term?  The unsharded form derives it
 // from its label; the sharded form is handed it (vld != nullptr), since a
 // local label cannot tell an other shard's column from outside the vocab.
@@ -517,32 +508,6 @@ __global__ void __launch_bounds__(kThreads, 1) lxent_fwd_kernel(
     part[base + 2L * R] = a[2] + b[2];
     part[base + 3L * R] = a[3] + b[3];
   }
-}
-
-// merge the splits of each row in split order; write loss and lse
-__global__ void lxent_fwd_combine(const float* __restrict__ part,
-                                  const long long* __restrict__ labels,
-                                  float* __restrict__ loss,
-                                  float* __restrict__ lse, int R, int V,
-                                  int splits, float eps) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  float mx = ptt::kNegInf;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part[static_cast<long>(s) * 4 * R + r]);
-  float l = 0.f, gold = 0.f, zsum = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const long base = static_cast<long>(s) * 4 * R + r;
-    l += part[base + R] * expf(part[base] - mx);
-    gold += part[base + 2L * R];
-    zsum += part[base + 3L * R];
-  }
-  const float ls = mx + logf(l);
-  const long long lbl = labels[r];
-  const bool valid = lbl >= 0 && lbl < V;
-  float out = valid ? (1.f - eps) * (ls - gold) : 0.f;
-  if (eps != 0.f) out += eps * (ls - zsum / static_cast<float>(V));
-  loss[r] = out;
-  lse[r] = ls;
 }
 
 // the same merge for one vocab shard: lse_j, gold_j and sum_j, no loss

@@ -70,6 +70,26 @@
 // Why mma.sync and not yet wgmma: tf32 wgmma takes both operands K-major
 // in shared memory, and w [K, N] is N-major; a wgmma form needs a
 // transposing stage and separate big / small tiles.
+//
+// bf16 form (matmul_bias_act only; ptt_matmul_bias_act_bf16): x, w and
+// bias bf16 (the AMP pass casts all three of fc's slots), z formed in
+// float32, the bias added as float32, the activation applied in float32,
+// and the output rounded once to bf16, as the reference's _mm_kernel does
+// with bf16 refs.  Bound: operations, 2 M K N FLOPs at bf16's dense
+// tensor-core rate (989 TFLOP/s); its bytes are half the float32 form's.
+// The same plan, grid, raster, K slices and cluster sum as the tiled
+// form, on native bf16 products: mma.sync.m16n8k16.bf16 with float32
+// accumulation, exact products, no split (bf16_mma.cuh), fragments by
+// ldmatrix (.trans for w [K, N]).  A stage is 32 deep (two k16 steps):
+// x [bm][32] and w [32][bn] bf16 in a 4-deep cp.async ring of 16-byte
+// copies (8 elements: K and N multiples of 8; else 4-byte copies where
+// they are even, element loads through registers where odd), 16-byte
+// chunks XOR swizzled (x: chunk c of row r at c ^ (r /
+// 2 % 4); w: c ^ (r % 8)) so each ldmatrix phase reads 8 bank groups.
+// The accumulation runs in the tensor core from the slice's first stage
+// to its last.  Every shape takes the tiled form here: the skinny bf16
+// form (M <= 16) is on no path yet.
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 #include <cooperative_groups.h>
@@ -108,36 +128,50 @@ __device__ __forceinline__ float apply_act(float z, int act) {
   }
 }
 
-// the epilogue of one output element: act(z + bias) or silu(z) * u
-template <bool Gated>
-__device__ __forceinline__ float finish(float z, float u, const float* __restrict__ bias,
-                                        int col, int act) {
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(ptt::bf16 v) { return ptt::bf2f(v); }
+
+// the epilogue of one output element: act(z + bias) or silu(z) * u, in
+// float32 (a bf16 bias is widened first)
+template <bool Gated, class T>
+__device__ __forceinline__ float finish(float z, float u, const T* __restrict__ bias, int col,
+                                        int act) {
   if constexpr (Gated) {
     return z / (1.f + expf(-z)) * u;
   } else {
-    if (bias != nullptr) z += __ldg(bias + col);
+    if (bias != nullptr) z += to_f(bias[col]);
     return apply_act(z, act);
   }
 }
 
-// out[row][col .. col + 3] from v (and u), masked at N; vec: N % 4 == 0 and
-// out 16-byte aligned, so a 4-group is wholly in or out
-template <bool Gated>
-__device__ __forceinline__ void store4(float* __restrict__ out, const float* __restrict__ bias,
-                                       int row, int col, int N, int act, float4 v, float4 u,
-                                       bool vec) {
+// out[row][col .. col + 3] from v (and u), masked at N, rounded once to
+// the output type; vec: N % 4 == 0 and out aligned to 4 elements, so a
+// 4-group is wholly in or out
+template <bool Gated, class T>
+__device__ __forceinline__ void store4(T* __restrict__ out, const T* __restrict__ bias, int row,
+                                       int col, int N, int act, float4 v, float4 u, bool vec) {
   float r[4] = {v.x, v.y, v.z, v.w};
   const float ru[4] = {u.x, u.y, u.z, u.w};
-  float* dst = out + static_cast<long>(row) * N + col;
+  T* dst = out + static_cast<long>(row) * N + col;
   if (vec) {
     if (col >= N) return;
 #pragma unroll
     for (int j = 0; j < 4; ++j) r[j] = finish<Gated>(r[j], ru[j], bias, col + j, act);
-    *reinterpret_cast<float4*>(dst) = make_float4(r[0], r[1], r[2], r[3]);
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(r[0], r[1], r[2], r[3]);
+    } else {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(ptt::pack2(r[0], r[1]), ptt::pack2(r[2], r[3]));
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (col + j < N) dst[j] = finish<Gated>(r[j], ru[j], bias, col + j, act);
+      if (col + j < N) {
+        const float f = finish<Gated>(r[j], ru[j], bias, col + j, act);
+        if constexpr (sizeof(T) == 4)
+          dst[j] = f;
+        else
+          dst[j] = ptt::f2bf(f);
+      }
   }
 }
 
@@ -151,11 +185,11 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 // its 1/n share of the tile's 4-groups, the n partials in slice order,
 // finishes and stores them; a second barrier keeps every block's shared
 // memory alive until its peers have read it.  n == 1 reads its own tile.
-template <bool Gated>
+template <bool Gated, class T>
 __device__ __forceinline__ void cluster_finish(float* part, int rows, int cols, int ld,
                                                int rank, int n, int m0, int n0, int M,
-                                               int N, const float* __restrict__ bias,
-                                               float* __restrict__ out, int act, bool vec) {
+                                               int N, const T* __restrict__ bias,
+                                               T* __restrict__ out, int act, bool vec) {
   cg::cluster_group cluster = cg::this_cluster();
   if (n > 1)
     cluster.sync();
@@ -364,6 +398,124 @@ __global__ void __launch_bounds__(kThreads, BM == 128 ? 1 : 2) mm_tiled(
                         act, vec_out);
 }
 
+// ---- bf16 tiled form: mma.sync.m16n8k16.bf16 tiles --------------------------------
+// x tile: chunk c of row r at c ^ (r / 2 % 4) (4 chunks a row: the 8 rows
+// of an ldmatrix phase land on 8 bank groups); w tile: c ^ (r % 8)
+struct SwzX16 {
+  __device__ __forceinline__ int operator()(int r) const { return (r >> 1) & 3; }
+};
+struct SwzW16 {
+  __device__ __forceinline__ int operator()(int r) const { return r & 7; }
+};
+
+template <int BM, int BN>
+struct TileBf16 {
+  static constexpr int kWarpsM = BM / 32;
+  static constexpr int kWarpsN = 8 / kWarpsM;
+  static constexpr int WN = BN / kWarpsN;  // a warp's columns
+  static constexpr int NJ = WN / 8;
+  static constexpr int kXElems = BM * BK;
+  static constexpr int kStageElems = kXElems + BK * BN;
+  static constexpr int kMainBytes = 2 * kStages * kStageElems;
+  static constexpr int kPartLd = BN + 8;
+  static constexpr int kPartBytes = 4 * BM * kPartLd;
+  static constexpr int kSmem = kMainBytes > kPartBytes ? kMainBytes : kPartBytes;
+  static_assert(kWarpsM * kWarpsN == 8 && NJ % 2 == 0, "tile");
+  static_assert(kSmem <= kSmemMax, "shared memory");
+};
+
+// grid (slices, tiles): block (s, t) sums K slice s of output tile t in
+// bf16 products; copy_x / copy_w: ptt::copy_mode of x and w; vec_out:
+// 8-byte stores
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads, BM == 128 ? 1 : 2) mm_tiled_bf16(
+    const ptt::bf16* __restrict__ x, const ptt::bf16* __restrict__ w,
+    const ptt::bf16* __restrict__ bias, ptt::bf16* __restrict__ out, int M, int N, int K,
+    int k_slice, int act, int copy_x, int copy_w, bool vec_out) {
+  using T = TileBf16<BM, BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ptt::bf16* smem = reinterpret_cast<ptt::bf16*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int warp_m = warp % T::kWarpsM, warp_n = warp / T::kWarpsM;
+  int tm, tn;
+  raster(blockIdx.y, (M + BM - 1) / BM, (N + BN - 1) / BN, tm, tn);
+  const int m0 = tm * BM, n0 = tn * BN;
+  const int slice = blockIdx.x;
+  const int k_begin = slice * k_slice;
+  const int k_end = min(K, k_begin + k_slice);
+  const int n_stages = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  auto feed = [&](int s) {
+    if (s < n_stages) {
+      ptt::bf16* xs = smem + (s % kStages) * T::kStageElems;
+      const int k0 = k_begin + s * BK;
+      ptt::stage_bf16(xs, x, BM, BK, K, m0, k0, M, k_end, copy_x, tid, kThreads, SwzX16());
+      ptt::stage_bf16(xs + T::kXElems, w, BK, BN, N, k0, n0, k_end, N, copy_w, tid, kThreads,
+                      SwzW16());
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][T::NJ][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < T::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  // ldmatrix lanes: A rows (lane % 16) at k chunk lane / 16; B (trans) k
+  // rows lane % 8 + 8 (lane / 8 % 2) at column block lane / 16
+  const int a_row = warp_m * 32 + (lane & 15);
+  const int a_k = (lane >> 4) * 8;
+  const int b_k = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int b_col = warp_n * T::WN + 8 * (lane >> 4);
+  for (int s = 0; s < kStages - 1; ++s) feed(s);
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait(kStages - 2);
+    __syncthreads();  // stage s landed for all; slot (s - 1) % kStages is free
+    feed(s + kStages - 1);
+    const ptt::bf16* xs = smem + (s % kStages) * T::kStageElems;
+    const ptt::bf16* ws = xs + T::kXElems;
+#pragma unroll
+    for (int kq = 0; kq < BK / 16; ++kq) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ptt::ldsm_x4(a[mi], ptt::at_bf16(xs, BK, a_row + 16 * mi, 16 * kq + a_k, SwzX16()));
+#pragma unroll
+      for (int j = 0; j < T::NJ; j += 2) {
+        unsigned b[4];
+        ptt::ldsm_x4_t(b, ptt::at_bf16(ws, BN, 16 * kq + b_k, b_col + 8 * j, SwzW16()));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          ptt::mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
+          ptt::mma_bf16(acc[mi][j + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait(0);
+  __syncthreads();  // the ring is free: it holds the partial tile now
+
+  float* part = reinterpret_cast<float*>(smem_raw);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < T::NJ; ++j) {
+      const int r = warp_m * 32 + 16 * mi + g;
+      const int col = warp_n * T::WN + 8 * j + 2 * t;
+      float* dst = part + r * T::kPartLd + col;
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[mi][j][0], acc[mi][j][1]);
+      *reinterpret_cast<float2*>(dst + 8 * T::kPartLd) =
+          make_float2(acc[mi][j][2], acc[mi][j][3]);
+    }
+  cluster_finish<false>(part, BM, BN, T::kPartLd, slice, gridDim.x, m0, n0, M, N, bias, out,
+                        act, vec_out);
+}
+
 // ---- skinny form: few rows, bound by w's bytes ----------------------------------
 template <int MR, bool Gated>
 struct Skinny {
@@ -569,6 +721,24 @@ cudaError_t run_tiled(const Plan& p, const float* x, const float* w, const float
                                         out, M, N, K, p.k_slice, act, vec_x, vec_w, vec_out);
 }
 
+cudaError_t run_tiled_bf16(const Plan& p, const ptt::bf16* x, const ptt::bf16* w,
+                           const ptt::bf16* bias, ptt::bf16* out, int M, int N, int K, int act,
+                           cudaStream_t stream) {
+  const int tiles = ((M + p.bm - 1) / p.bm) * ((N + p.bn - 1) / p.bn);
+  const int copy_x = ptt::copy_mode(K, x);
+  const int copy_w = ptt::copy_mode(N, w);
+  const bool vec_out = N % 4 == 0 && (reinterpret_cast<size_t>(out) & 7) == 0;
+  if (p.bm == 128) {
+    constexpr int smem = TileBf16<128, 128>::kSmem;
+    return launch<mm_tiled_bf16<128, 128>>(kThreads, p.slices, tiles, smem, smem, stream, x, w,
+                                           bias, out, M, N, K, p.k_slice, act, copy_x, copy_w,
+                                           vec_out);
+  }
+  constexpr int smem = TileBf16<64, 64>::kSmem;
+  return launch<mm_tiled_bf16<64, 64>>(kThreads, p.slices, tiles, smem, smem, stream, x, w, bias,
+                                       out, M, N, K, p.k_slice, act, copy_x, copy_w, vec_out);
+}
+
 template <int MR, bool Gated>
 cudaError_t run_skinny_rows(const Plan& p, const float* x, const float* w, const float* wu,
                             const float* bias, float* out, int M, int N, int K, int act,
@@ -618,6 +788,21 @@ extern "C" int ptt_matmul_bias_act(const float* x, const float* w, const float* 
                                    cudaStream_t stream) {
   return run<false>(Plan{form, bm, bn, slices, k_slice}, x, w, nullptr, bias, out, M, N, K,
                     act, stream);
+}
+
+// the bf16 form: the tiled plan only (form 0, bm x bn 128 x 128 or 64 x 64)
+extern "C" int ptt_matmul_bias_act_bf16(const ptt::bf16* x, const ptt::bf16* w,
+                                        const ptt::bf16* bias, ptt::bf16* out, int M, int N,
+                                        int K, int act, int form, int bm, int bn, int slices,
+                                        int k_slice, cudaStream_t stream) {
+  const Plan p{form, bm, bn, slices, k_slice};
+  if (M < 0 || N < 0 || K < 0 || act < kIdentity || act > kSwish || form != kTiled ||
+      !plan_ok(p, M, K, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t e = run_tiled_bf16(p, x, w, bias, out, M, N, K, act, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ptt_matmul_swiglu(const float* x, const float* wg, const float* wu,

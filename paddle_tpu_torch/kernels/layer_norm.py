@@ -19,6 +19,13 @@ for it either.
 ``ln_plan`` picks the kernel's form: one warp per row with the row in
 registers up to ``WARP_MAX_H``, as many rows a block as keep every SM
 busy; one block per row with the row in shared memory beyond.
+
+bf16: a bfloat16 x (and float32 gamma and beta, which the AMP trunk pass
+keeps float32) launches the kernel's bf16 form on the same plan: float32
+statistics, the output rounded once to bfloat16, 16-byte loads of 8
+columns where H % 8 == 0.  The backward is the reference's ``jax.vjp``
+of ``_ln_dense`` in dtype: float32 arithmetic, dx rounded to x's dtype,
+dgamma and dbeta float32.
 """
 
 import collections
@@ -27,7 +34,8 @@ import torch
 
 from . import build
 
-__all__ = ["fused_layer_norm", "layer_norm_plain", "ln_plan"]
+__all__ = ["fused_layer_norm", "fused_layer_norm_bf16", "layer_norm_plain",
+           "ln_plan"]
 
 WARP, BLOCK = 0, 1  # the plan's forms
 # the register form's widest row (8 float4 a lane): on the card it beat
@@ -83,12 +91,15 @@ def _ln_forward(x2d, gamma, beta, eps):
     out = torch.empty_like(x2d)
     mean = torch.empty(R, dtype=torch.float32, device=x2d.device)
     var = torch.empty(R, dtype=torch.float32, device=x2d.device)
-    # float4 access needs 16-byte aligned rows (a view may start anywhere)
-    vec = plan.vec and all(t.data_ptr() % 16 == 0
-                           for t in (x2d, gamma, beta))
-    build.launch("ptt_layer_norm", x2d, gamma, beta, out, mean, var, R, H,
-                 plan.form, plan.n4, int(vec), plan.rows, float(eps))
-    fused_layer_norm.launches += 1
+    # 16-byte access needs 16-byte aligned rows (a view may start
+    # anywhere): 4 float32 columns, or 8 bfloat16 ones (H % 8 == 0)
+    bf16 = x2d.dtype == torch.bfloat16
+    vec = plan.vec and (not bf16 or H % 8 == 0) and all(
+        t.data_ptr() % 16 == 0 for t in (x2d, gamma, beta, out))
+    build.launch("ptt_layer_norm_bf16" if bf16 else "ptt_layer_norm", x2d,
+                 gamma, beta, out, mean, var, R, H, plan.form, plan.n4,
+                 int(vec), plan.rows, float(eps))
+    (fused_layer_norm_bf16 if bf16 else fused_layer_norm).launches += 1
     return out, mean, var
 
 
@@ -130,3 +141,12 @@ def fused_layer_norm(x2d, gamma, beta, eps=1e-5):
 
 
 fused_layer_norm.launches = 0
+
+
+def fused_layer_norm_bf16(x2d, gamma, beta, eps=1e-5):
+    """fused_layer_norm on a bfloat16 x2d: the kernel's bf16 form, under a
+    name of its own so that its launches count apart."""
+    return fused_layer_norm(x2d, gamma, beta, eps)
+
+
+fused_layer_norm_bf16.launches = 0

@@ -26,6 +26,13 @@ and meta tensors take them, CUDA tensors launch the kernels.
 ``jax.custom_vjp``): its forward saves the per-row lse, its backward
 launches dx and dw, so the op's grad lowering (``torch.func.vjp`` of
 the forward rule) runs the kernels.
+
+bf16: bfloat16 x and w launch the bf16 forms (``csrc/linear_xent_bf16.cu``):
+the logits, lse and loss float32, and in dx and dw the logits' gradient
+tile g rounded to bfloat16 before its product, as the reference's
+kernels do (``g.astype(x_ref.dtype)``); dx and dw come out in x's and
+w's dtype.  The plain versions round g the same way (a no-op in
+float32).
 """
 
 from typing import NamedTuple
@@ -35,8 +42,9 @@ import torch
 from . import build
 
 __all__ = ["fused_linear_xent", "linear_xent_plain", "linear_xent_grad_plain",
-           "linear_xent_fwd", "linear_xent_dx", "linear_xent_dw", "lxent_plan",
-           "LxentPlan"]
+           "linear_xent_fwd", "linear_xent_dx", "linear_xent_dw",
+           "linear_xent_fwd_bf16", "linear_xent_dx_bf16",
+           "linear_xent_dw_bf16", "lxent_plan", "LxentPlan"]
 
 
 def _valid(labels, v):
@@ -71,7 +79,9 @@ def linear_xent_grad_plain(x2d, w, labels, lse, dy, eps=0.0):
     g = valid * (1.0 - eps) * (p - onehot)
     if eps:
         g = g + eps * (p - 1.0 / v)
-    g = g * dy.reshape(-1, 1).float()
+    # rounded to the operands' dtype before the products, as the
+    # reference's dx / dw kernels do; the products exact in float32
+    g = (g * dy.reshape(-1, 1).float()).to(x2d.dtype).float()
     return ((g @ w.float().t()).to(x2d.dtype),
             (x2d.float().t() @ g).to(w.dtype))
 
@@ -155,9 +165,14 @@ def linear_xent_fwd(x2d, w, labels, eps=0.0):
     loss = torch.empty((R, 1), dtype=torch.float32, device=x2d.device)
     lse = torch.empty((R, 1), dtype=torch.float32, device=x2d.device)
     part = torch.empty((splits, 4, R), dtype=torch.float32, device=x2d.device)
-    build.launch("ptt_linear_xent_fwd", x2d, w, labels, loss, lse, part, R, H,
-                 V, splits, *lxent_plan(R, H, V), float(eps))
-    linear_xent_fwd.launches += 1
+    if x2d.dtype == torch.bfloat16:
+        build.launch("ptt_linear_xent_fwd_bf16", x2d, w, labels, loss, lse,
+                     part, R, H, V, splits, float(eps))
+    else:
+        build.launch("ptt_linear_xent_fwd", x2d, w, labels, loss, lse, part,
+                     R, H, V, splits, *lxent_plan(R, H, V), float(eps))
+    (linear_xent_fwd_bf16 if x2d.dtype == torch.bfloat16
+     else linear_xent_fwd).launches += 1
     return loss, lse
 
 
@@ -168,9 +183,14 @@ def linear_xent_dx(x2d, w, labels, lse, dy, eps=0.0):
     _check("linear_xent_dx", x2d, w, labels, lse, dy)
     R, H = x2d.shape
     dx = torch.empty_like(x2d)
-    build.launch("ptt_linear_xent_dx", x2d, w, labels, lse, dy, dx, R, H,
-                 w.shape[1], *lxent_plan(R, H, w.shape[1]), float(eps))
-    linear_xent_dx.launches += 1
+    if x2d.dtype == torch.bfloat16:
+        build.launch("ptt_linear_xent_dx_bf16", x2d, w, labels, lse, dy, dx,
+                     R, H, w.shape[1], float(eps))
+    else:
+        build.launch("ptt_linear_xent_dx", x2d, w, labels, lse, dy, dx, R, H,
+                     w.shape[1], *lxent_plan(R, H, w.shape[1]), float(eps))
+    (linear_xent_dx_bf16 if x2d.dtype == torch.bfloat16
+     else linear_xent_dx).launches += 1
     return dx
 
 
@@ -181,13 +201,35 @@ def linear_xent_dw(x2d, w, labels, lse, dy, eps=0.0):
     _check("linear_xent_dw", x2d, w, labels, lse, dy)
     R, H = x2d.shape
     dw = torch.empty_like(w)
-    build.launch("ptt_linear_xent_dw", x2d, w, labels, lse, dy, dw, R, H,
-                 w.shape[1], *lxent_plan(R, H, w.shape[1]), float(eps))
-    linear_xent_dw.launches += 1
+    if x2d.dtype == torch.bfloat16:
+        build.launch("ptt_linear_xent_dw_bf16", x2d, w, labels, lse, dy, dw,
+                     R, H, w.shape[1], float(eps))
+    else:
+        build.launch("ptt_linear_xent_dw", x2d, w, labels, lse, dy, dw, R, H,
+                     w.shape[1], *lxent_plan(R, H, w.shape[1]), float(eps))
+    (linear_xent_dw_bf16 if x2d.dtype == torch.bfloat16
+     else linear_xent_dw).launches += 1
     return dw
 
 
-for _fn in (linear_xent_fwd, linear_xent_dx, linear_xent_dw):
+def linear_xent_fwd_bf16(x2d, w, labels, eps=0.0):
+    """The forward kernel's bf16 form (bfloat16 x2d and w), under a name
+    of its own so that its launches count apart."""
+    return linear_xent_fwd(x2d, w, labels, eps)
+
+
+def linear_xent_dx_bf16(x2d, w, labels, lse, dy, eps=0.0):
+    """The dx kernel's bf16 form: g rounded to bfloat16 before g @ w^T."""
+    return linear_xent_dx(x2d, w, labels, lse, dy, eps)
+
+
+def linear_xent_dw_bf16(x2d, w, labels, lse, dy, eps=0.0):
+    """The dw kernel's bf16 form: g rounded to bfloat16 before x^T @ g."""
+    return linear_xent_dw(x2d, w, labels, lse, dy, eps)
+
+
+for _fn in (linear_xent_fwd, linear_xent_dx, linear_xent_dw,
+            linear_xent_fwd_bf16, linear_xent_dx_bf16, linear_xent_dw_bf16):
     _fn.launches = 0
 
 
@@ -235,6 +277,6 @@ class _LinearXentGrad(torch.autograd.Function):
 
 def fused_linear_xent(x2d, w, labels, eps=0.0):
     """Per-row loss [R, 1] float32 of the projected cross entropy; x2d
-    [R, H] and w [H, V] float32, labels [R] int64.  Differentiable in x2d
+    [R, H] and w [H, V] float32 or both bfloat16, labels [R] int64.  Differentiable in x2d
     and w (the backward runs the dx and dw kernels on CUDA tensors)."""
     return _LinearXent.apply(x2d, w, labels, float(eps))[0]

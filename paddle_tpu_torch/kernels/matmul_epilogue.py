@@ -12,6 +12,13 @@ take it, CUDA tensors launch the kernel.
 the dense recompute of the reference's ``_mm_vjp_bwd`` (z = x @ w + b
 again, then dz = dy act'(z), dx = dz w^T, dw = x^T dz, db = sum dz).
 The JAX package has no backward kernel for it either.
+
+bf16: x, w and bias bfloat16 (the AMP pass casts all three of fc's
+slots) launch the kernel's bf16 form: z and the epilogue in float32,
+the output rounded once to bfloat16.  The backward follows the
+reference's ``jax.vjp`` of ``_mm_dense`` in dtype: dz in float32, its
+products with the bf16 operands exact in float32, each grad rounded
+once to its operand's dtype.
 """
 
 import math
@@ -21,8 +28,8 @@ import torch
 
 from . import build
 
-__all__ = ["matmul_bias_act", "matmul_bias_act_plain", "mm_act", "MM_ACTS",
-           "mm_plan", "MmPlan"]
+__all__ = ["matmul_bias_act", "matmul_bias_act_bf16", "matmul_bias_act_plain",
+           "mm_act", "MM_ACTS", "mm_plan", "MmPlan"]
 
 # the epilogue activations, in the kernel's enum order ("" is identity)
 MM_ACTS = ("", "identity", "relu", "tanh", "sigmoid", "gelu", "swish")
@@ -75,11 +82,12 @@ def _cut_k(K, want):
     return max(1, -(-K // k_slice)), k_slice
 
 
-def mm_plan(M, N, K, gated=False):
+def mm_plan(M, N, K, gated=False, bf16=False):
     """The kernels' plan for x [M, K] @ w [K, N] (gated: matmul_swiglu's
-    wg and wu), a pure function of the shape, so a shape always sums in
-    one order.  M <= 16 takes the skinny form: the widest column strip
-    whose blocks, with K slices, reach two per SM.  Otherwise the tiled
+    wg and wu; bf16: the bf16 form, which has the tiled form only), a
+    pure function of the shape, so a shape always sums in one order.
+    M <= 16 takes the skinny form: the widest column strip whose blocks,
+    with K slices, reach two per SM.  Otherwise (and for bf16) the tiled
     form: of every tile and K cut, the one whose blocks take the least
     time, counted in whole waves of the clusters the card holds at once
     (CLUSTER_BLOCKS), a wave's time the tile's area x (k_slice + BLOCK_K)
@@ -89,7 +97,7 @@ def mm_plan(M, N, K, gated=False):
     if min(M, N, K) < 0:
         raise build.KernelInputError("mm_plan: shape M %d, N %d, K %d"
                                      % (M, N, K))
-    if M <= SKINNY_ROWS:
+    if M <= SKINNY_ROWS and not bf16:
         rows = 1 << max(0, M - 1).bit_length()
         for bn in SKINNY_COLS:
             strips = -(-N // bn)
@@ -172,6 +180,7 @@ def _mm_forward(x2d, w, bias, act):
         return matmul_bias_act_plain(x2d, w, bias, act)
     tensors = (x2d, w) if bias is None else (x2d, w, bias)
     build.check_inputs("matmul_bias_act", *tensors)
+    bf16 = x2d.dtype == torch.bfloat16
     M, K = x2d.shape
     if w.dim() != 2 or w.shape[0] != K or (
             bias is not None and bias.numel() != w.shape[1]):
@@ -179,12 +188,12 @@ def _mm_forward(x2d, w, bias, act):
             tuple(x2d.shape), tuple(w.shape),
             None if bias is None else tuple(bias.shape)))
     N = w.shape[1]
-    plan = mm_plan(M, N, K)
+    plan = mm_plan(M, N, K, bf16=bf16)
     check_extent("matmul_bias_act", M, N, K, plan)
     out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    build.launch("ptt_matmul_bias_act", x2d, w, bias, out, M, N, K,
-                 _ACT_CODE[act], *plan)
-    matmul_bias_act.launches += 1
+    build.launch("ptt_matmul_bias_act_bf16" if bf16 else "ptt_matmul_bias_act",
+                 x2d, w, bias, out, M, N, K, _ACT_CODE[act], *plan)
+    (matmul_bias_act_bf16 if bf16 else matmul_bias_act).launches += 1
     return out
 
 
@@ -223,3 +232,13 @@ def matmul_bias_act(x2d, w, bias=None, act=""):
 
 
 matmul_bias_act.launches = 0
+
+
+def matmul_bias_act_bf16(x2d, w, bias=None, act=""):
+    """matmul_bias_act on bfloat16 x2d, w and bias: the kernel's bf16
+    form, under a name of its own so that its launches count apart
+    (``matmul_bias_act`` dispatches bf16 inputs to it the same way)."""
+    return matmul_bias_act(x2d, w, bias, act)
+
+
+matmul_bias_act_bf16.launches = 0

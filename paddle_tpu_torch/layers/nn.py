@@ -24,7 +24,7 @@ __all__ = [
     "dynamic_gru", "cross_entropy", "topk", "reduce_mean", "log", "tanh",
     "sigmoid", "relu", "conv2d", "depthwise_conv2d", "pool2d",
     "adaptive_pool2d", "batch_norm", "sum", "pow", "log_loss",
-    "clip_by_norm", "square", "sqrt", "sign",
+    "clip_by_norm", "square", "sqrt", "sign", "random_crop",
 ]
 
 
@@ -606,3 +606,19 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                "data_layout": data_layout,
                "use_global_stats": use_global_stats})
     return helper.append_activation(out)
+
+
+def random_crop(x, shape, seed=None):
+    """A random window of `shape` over x's trailing dims, one offset a
+    step shared by the batch (the reference's ``layers.random_crop``);
+    SeedOut is declared int64 as the reference declares it."""
+    helper = LayerHelper("random_crop")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    seed_out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        "random_crop", inputs={"X": [x]},
+        outputs={"Out": [out], "SeedOut": [seed_out]},
+        attrs={"shape": [int(s) for s in shape],
+               "startup_seed": int(seed or 0)},
+    )
+    return out

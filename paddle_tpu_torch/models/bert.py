@@ -15,8 +15,10 @@ As in the reference, the programs are built under the current name
 generator (no ``unique_name.guard()``), so the same generator state
 gives the reference's parameter names, and weights cross between the
 packages by name (``paddle_tpu_torch.io.params_from_numpy``).  Options
-not ported yet raise: ``hp.recompute`` (ROADMAP A9), and
-``bert_pretrain_program``'s ``use_bf16`` (A3).  Its ``mesh``
+not ported yet raise: ``hp.recompute`` (ROADMAP A9).
+``bert_pretrain_program``'s ``use_bf16`` applies ``bf16_amp_pass``; on
+the card its bf16 attention and B7 raise until their bf16 forms are
+ported (ROADMAP B).  Its ``mesh``
 stamps the program with the family's training rules: the executor runs
 the vocab projection's slab and raises for the trunk's entries (A7).
 """
@@ -92,13 +94,10 @@ def bert_pretrain_program(hp=BertConfig, seq_len=128, lr=1e-4, is_test=False,
     no masked slot gives 0, never 0/0), the NSP loss the mean over rows.
     linear_xent_fuse_pass (the [B, T, V] logits never exist) and
     matmul_epilogue_fuse_pass run before Adam.minimize, as in the
-    reference.  The reference's rematerialization hook emits nothing
-    without its HBM-budget flag (FLAGS_hbm_budget_bytes, 0 by default),
-    and its pass is not ported yet (ROADMAP A9), so nothing is emitted
-    here either."""
-    if use_bf16:
-        raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
-                                  "(ROADMAP A3)")
+    reference, then use_bf16's bf16_amp_pass.  The reference's
+    rematerialization hook emits nothing without its HBM-budget flag
+    (FLAGS_hbm_budget_bytes, 0 by default), and its pass is not ported
+    yet (ROADMAP A9), so nothing is emitted here either."""
     from .. import optimizer
     from ..transpiler.pass_registry import apply_pass
 
@@ -147,6 +146,8 @@ def bert_pretrain_program(hp=BertConfig, seq_len=128, lr=1e-4, is_test=False,
 
         apply_pass(main, "linear_xent_fuse_pass")
         apply_pass(main, "matmul_epilogue_fuse_pass")
+        if use_bf16:
+            apply_pass(main, "bf16_amp_pass")
         if not is_test:
             optimizer.Adam(learning_rate=lr).minimize(total)
     if mesh is not None:

@@ -19,8 +19,10 @@ The modern-decoder options of ``GPT2Config`` are ported: ``n_kv_head``
 the position table), ``use_swiglu`` (the gated SiLU FFN, ``ffn_gate.w``
 and ``ffn_up.w`` in place of ``ffn_in.w``, its hidden width 2/3 of 4 d
 rounded up to ``ffn_multiple_of``; the matmul_swiglu kernel).  Options
-not ported yet raise: ``recompute`` (ROADMAP A9), and
-``gpt2_lm_program``'s ``use_bf16`` (A3).  Its ``mesh``
+not ported yet raise: ``recompute`` (ROADMAP A9).
+``gpt2_lm_program``'s ``use_bf16`` applies ``bf16_amp_pass``; on the
+card its bf16 ``fused_attention`` raises until B3's bf16 forms are
+ported (ROADMAP B).  Its ``mesh``
 stamps the program with the family's training rules: the executor runs
 the vocab projection's slab and raises for the trunk's entries (A7).
 """
@@ -141,13 +143,10 @@ def gpt2_lm_program(hp=GPT2Config, seq_len=128, lr=3e-4, is_test=False,
     the loss is the weighted mean token cross entropy (an all-pad batch
     gives 0, never 0/0).  linear_xent_fuse_pass (the [B, T, V] logits
     never exist) and matmul_epilogue_fuse_pass run before Adam.minimize,
-    as in the reference.  The reference's rematerialization hook emits
-    nothing without its HBM-budget flag (FLAGS_hbm_budget_bytes, 0 by
-    default), and its pass is not ported yet (ROADMAP A9), so nothing
-    is emitted here either."""
-    if use_bf16:
-        raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
-                                  "(ROADMAP A3)")
+    as in the reference, then use_bf16's ``bf16_amp_pass``.  The
+    reference's rematerialization hook emits nothing without its
+    HBM-budget flag (FLAGS_hbm_budget_bytes, 0 by default), and its pass
+    is not ported yet (ROADMAP A9), so nothing is emitted here either."""
     if getattr(hp, "recompute", False) and not is_test:
         raise NotImplementedError("per-layer rematerialization "
                                   "(layers.recompute) is not ported yet "
@@ -170,6 +169,8 @@ def gpt2_lm_program(hp=GPT2Config, seq_len=128, lr=3e-4, is_test=False,
                                       layers.clip(tokens, 1e-5, 1e30))
         apply_pass(main, "linear_xent_fuse_pass")
         apply_pass(main, "matmul_epilogue_fuse_pass")
+        if use_bf16:
+            apply_pass(main, "bf16_amp_pass")
         if not is_test:
             optimizer.Adam(learning_rate=lr).minimize(loss)
     if mesh is not None:

@@ -1,12 +1,18 @@
 """ResNet-50/101/152 and the CIFAR-10 ResNet (the counterpart of
 ``paddle_tpu/models/resnet.py``): conv_bn_layer + bottleneck or basic
 block stacks, on the conv, pool and batch_norm lowerings (cuDNN on the
-card; no hand-written kernel is on this path)."""
+card; no hand-written kernel is on this path), and the two training
+programs: ``build_resnet_train_program`` and
+``build_resnet_preprocess_train_program`` (uint8 images cropped,
+normalized and transposed inside the step)."""
+
+import numpy as np
 
 from .. import framework, layers, optimizer as opt_mod
 
 __all__ = ["resnet_imagenet", "resnet_cifar10", "resnet50", "ResNetConfig",
-           "build_resnet_train_program"]
+           "build_resnet_train_program",
+           "build_resnet_preprocess_train_program"]
 
 
 class ResNetConfig:
@@ -90,12 +96,10 @@ def build_resnet_train_program(batch_size=None, image_shape=(3, 224, 224),
     fetches [avg_cost, acc], Momentum 0.9 (or SGD) at `lr`.  use_nhwc
     runs the conv trunk channels-last (``rewrite_nhwc``, before the
     optimizer so that the grads run through its transposes).  use_bf16
-    (the AMP pass, ROADMAP A3) and use_reader_op (py_reader, ROADMAP A9)
-    are not ported yet and raise."""
-    if use_bf16:
-        raise NotImplementedError("build_resnet_train_program(use_bf16=True)"
-                                  ": the bf16 AMP pass is not ported yet "
-                                  "(ROADMAP A3)")
+    applies ``bf16_amp_pass`` after it (bf16 convs and products, float32
+    master weights and Momentum state), so that the inserted transposes
+    ride the AMP trunk.  use_reader_op (py_reader, ROADMAP A9) is not
+    ported yet and raises."""
     if use_reader_op:
         raise NotImplementedError("build_resnet_train_program(use_reader_op="
                                   "True): py_reader is not ported yet "
@@ -113,6 +117,10 @@ def build_resnet_train_program(batch_size=None, image_shape=(3, 224, 224),
             from ..transpiler.layout_transpiler import rewrite_nhwc
 
             rewrite_nhwc(main)
+        if use_bf16:
+            from ..transpiler.pass_registry import apply_pass
+
+            apply_pass(main, "bf16_amp_pass")
         # the reference's maybe_remat(main, avg_cost) changes nothing
         # unless FLAGS_hbm_budget_bytes is set; the pass it drives is not
         # ported yet (ROADMAP A9): the call is left out
@@ -120,5 +128,52 @@ def build_resnet_train_program(batch_size=None, image_shape=(3, 224, 224),
             opt = opt_mod.Momentum(learning_rate=lr, momentum=0.9)
         else:
             opt = opt_mod.SGD(learning_rate=lr)
+        opt.minimize(avg_cost)
+    return main, startup, ["image", "label"], [avg_cost, acc]
+
+
+def build_resnet_preprocess_train_program(batch_size=None,
+                                          image_shape=(224, 224, 3),
+                                          class_dim=1000, depth=50, lr=0.1,
+                                          raw_margin=32, use_bf16=False,
+                                          use_nhwc=False):
+    """ResNet with the imagenet preprocessing inside the training step,
+    as the reference builds it: a uint8 HWC feed "image" `raw_margin`
+    pixels larger than `image_shape` on each spatial dim, random_crop ->
+    cast to float32 -> HWC to CHW transpose -> /255 -> per-channel mean
+    / std normalization (host arrays through ``assign``), then the
+    ResNet trunk, Momentum 0.9.  The host feeds raw bytes, a quarter of
+    float32's.  use_nhwc runs ``rewrite_nhwc``, then use_bf16
+    ``rewrite_bf16``, before minimize.  Returns (main, startup, ["image",
+    "label"], [avg_cost, acc])."""
+    raw_shape = [image_shape[0] + raw_margin, image_shape[1] + raw_margin,
+                 image_shape[2]]
+    main = framework.Program()
+    startup = framework.Program()
+    with framework.program_guard(main, startup):
+        img = layers.data("image", shape=raw_shape, dtype="uint8")
+        label = layers.data("label", shape=[1], dtype="int64")
+        crop = layers.random_crop(img, shape=list(image_shape))
+        casted = layers.cast(crop, "float32")
+        trans = layers.transpose(casted, [0, 3, 1, 2]) / 255.0
+        img_mean = layers.assign(
+            np.array([0.485, 0.456, 0.406], "float32").reshape(3, 1, 1))
+        img_std = layers.assign(
+            np.array([0.229, 0.224, 0.225], "float32").reshape(3, 1, 1))
+        h = layers.elementwise_sub(trans, img_mean, axis=1)
+        h = layers.elementwise_div(h, img_std, axis=1)
+        predict = resnet_imagenet(h, class_dim, depth)
+        cost = layers.cross_entropy(input=predict, label=label)
+        avg_cost = layers.mean(cost)
+        acc = layers.accuracy(input=predict, label=label)
+        if use_nhwc:
+            from ..transpiler.layout_transpiler import rewrite_nhwc
+
+            rewrite_nhwc(main)
+        if use_bf16:
+            from ..contrib.mixed_precision import rewrite_bf16
+
+            rewrite_bf16(main)
+        opt = opt_mod.Momentum(learning_rate=lr, momentum=0.9)
         opt.minimize(avg_cost)
     return main, startup, ["image", "label"], [avg_cost, acc]

@@ -356,13 +356,12 @@ def wmt_transformer_program(hp=ModelHyperParams, src_len=64, trg_len=64,
     Adam(0.9, 0.997, 1e-9).  The loss chain is folded by
     smooth_label_xent_fuse_pass into linear_xent_fuse_pass (the [R, V]
     logits never exist), and the FFN / residual-LN chains by
-    matmul_epilogue_fuse_pass, before minimize.  The reference's
-    rematerialization hook emits nothing without its HBM-budget flag
+    matmul_epilogue_fuse_pass, before minimize; use_bf16 then applies
+    bf16_amp_pass (bf16 products, float32 master weights and Adam
+    state), as the reference does.  The reference's rematerialization
+    hook emits nothing without its HBM-budget flag
     (FLAGS_hbm_budget_bytes, 0 by default), and its pass is not ported
     yet (ROADMAP A9), so nothing is emitted here either."""
-    if use_bf16:
-        raise NotImplementedError("the bf16 AMP rewrite is not ported yet "
-                                  "(ROADMAP A3)")
     from .. import optimizer
     from ..transpiler.pass_registry import apply_pass
 
@@ -398,6 +397,8 @@ def wmt_transformer_program(hp=ModelHyperParams, src_len=64, trg_len=64,
         apply_pass(main, "smooth_label_xent_fuse_pass")
         apply_pass(main, "linear_xent_fuse_pass")
         apply_pass(main, "matmul_epilogue_fuse_pass")
+        if use_bf16:
+            apply_pass(main, "bf16_amp_pass")
         if not is_test:
             lr = layers.learning_rate_scheduler.noam_decay(hp.d_model,
                                                            warmup_steps)

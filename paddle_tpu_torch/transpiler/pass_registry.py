@@ -4,10 +4,11 @@
 ``OpPattern`` chain matcher over a block's def-use graph, and the
 reference's built-in registrations: the inference passes
 (``conv_bn_fuse_pass``, ``bn_fold_pass``, ``is_test_pass``,
-``train_prune_pass``), ``memory_optimize_pass``, ``nhwc_layout_pass``,
-``fuse_relu_into_conv_pass`` and ``attention_fuse_pass``.  Four of the
-reference's passes are not ported: ``get_pass`` raises its KeyError for
-them, naming the ROADMAP item that ports them."""
+``train_prune_pass``), ``memory_optimize_pass``, ``bf16_amp_pass``,
+``nhwc_layout_pass``, ``fuse_relu_into_conv_pass`` and
+``attention_fuse_pass``.  Three of the reference's passes are not
+ported: ``get_pass`` raises its KeyError for them, naming the ROADMAP
+item that ports them."""
 
 from ..analysis.graph import consumer_map
 
@@ -18,7 +19,6 @@ _PASSES = {}
 
 # the reference's passes that wait for a module of the port
 _NOT_PORTED = {
-    "bf16_amp_pass": "ROADMAP A3, contrib/mixed_precision",
     "weight_int8_pass": "ROADMAP A6c, contrib/quantize",
     "graph_viz_pass": "ROADMAP A9, debugger",
     "remat_pass": "ROADMAP A9, transpiler/remat",
@@ -174,6 +174,14 @@ def _memory_optimize(program, scope):
     from .memory_optimization_transpiler import memory_optimize
 
     memory_optimize(program)
+    return program
+
+
+@register_pass("bf16_amp_pass")
+def _bf16_amp(program, scope):
+    from ..contrib.mixed_precision import rewrite_bf16
+
+    rewrite_bf16(program)
     return program
 
 

@@ -240,7 +240,6 @@ def test_bert_config_is_bert_base():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"use_bf16": True}, "A3"),
     ({"mesh": Mesh(("dp", "mp"), (1, 2), (0, 0), {})}, "A7"),
     ({"hp_recompute": True}, "A9")])
 def test_bert_pretrain_program_unported_options_raise(option, item):

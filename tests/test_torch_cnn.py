@@ -440,10 +440,17 @@ def test_cnn_programs_match_reference(net, use_nhwc, optimizer):
 
 
 def test_resnet_builder_raises_for_options_not_ported():
+    """use_reader_op (py_reader, ROADMAP A9) raises; use_bf16, ported,
+    builds the program through bf16_amp_pass: bf16 convs between casts,
+    the master weights float32."""
     from paddle_tpu_torch.models import resnet
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        resnet.build_resnet_train_program(use_bf16=True)
+    main = resnet.build_resnet_train_program(use_bf16=True)[0]
+    block = main.global_block()
+    convs = [o for o in block.ops if o.type == "conv2d"]
+    assert convs and all(block.var(o.inputs["Input"][0]).dtype == "bfloat16"
+                         for o in convs)
+    assert all(p.dtype == "float32" for p in block.all_parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         resnet.build_resnet_train_program(use_reader_op=True)
 

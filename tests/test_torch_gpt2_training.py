@@ -180,7 +180,6 @@ def test_make_fake_lm_batch_matches_reference():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"use_bf16": True}, "A3"),
     ({"mesh": Mesh(("dp", "mp"), (1, 2), (0, 0), {})}, "A7"),
     ({"hp_recompute": True}, "A9")])
 def test_gpt2_lm_program_unported_options_raise(option, item):

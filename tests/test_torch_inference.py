@@ -531,8 +531,10 @@ def test_zero_copy_and_paddle_tensor_modes(tmp_path):
 
 
 def test_pass_list_resolved_before_any_mutation(tmp_path, monkeypatch):
-    """A registered pass runs in the pipeline by name; an unknown name
-    (or a pass not ported yet) raises before any pass has run."""
+    """A registered pass runs in the pipeline by name (bf16_amp_pass
+    too: the predictor's program then holds its casts, and its output
+    stays float32 near the float32 predictor's); an unknown name (or a
+    pass not ported yet) raises before any pass has run."""
     from paddle_tpu_torch import transpiler
     from paddle_tpu_torch.transpiler import pass_registry
 
@@ -548,14 +550,21 @@ def test_pass_list_resolved_before_any_mutation(tmp_path, monkeypatch):
         cfg = AnalysisConfig(d, place=ptt.CPUPlace())
         cfg.pass_builder().append("test_probe_pass")
         pred = create_paddle_predictor(cfg)
-        assert calls and pred.run({"img": x})[0].shape == (8, 10)
+        want = pred.run({"img": x})[0]
+        assert calls and want.shape == (8, 10)
+        cfg = AnalysisConfig(d, place=ptt.CPUPlace())
+        cfg.pass_builder().append("bf16_amp_pass")
+        pred = create_paddle_predictor(cfg)
+        got = pred.run({"img": x})[0]
+        assert got.shape == (8, 10) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0.05, atol=0.05)
         applied = []
         monkeypatch.setattr(pass_registry, "apply_pass",
                             lambda *a, **k: applied.append(a))
         monkeypatch.setattr(transpiler, "apply_pass",
                             lambda *a, **k: applied.append(a))
         for bad, hint in (("no_such_pass", "known"),
-                          ("bf16_amp_pass", "A3"), ("weight_int8_pass", "A6c"),
+                          ("weight_int8_pass", "A6c"),
                           ("graph_viz_pass", "A9"), ("remat_pass", "A9")):
             cfg = AnalysisConfig(d, place=ptt.CPUPlace())
             cfg.pass_builder().insert(0, bad)
