@@ -34,7 +34,9 @@ In order, it:
    8192-row FFN and the classifiers' and LSTM's fc, B1 at [8192, 512],
    B11 forward-only at the LSTM's [32, 64, 2048]; B5 at DeepFM's three
    fc shapes, K 429 and N 1 among them; the bf16 forms of B5, B1, B2
-   and B4 at WMT's and BERT's shapes and their staging edges, through
+   and B4 at WMT's and BERT's shapes and their staging edges, and of B3
+   (forward, dq, dk/dv) and B6 at the four bf16 paths' shapes, the
+   packed form, d 128 and their edges, through
    scripts/bf16_kernels_check.py), and times kernel,
    plain version and one PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
@@ -151,8 +153,16 @@ In order, it:
    and B4 in their bf16 forms (B2 float32: the reference's AMP pass
    keeps the residual stream float32), and the is_test loss of both
    programs from one startup within 1e-2; then BERT-base in bf16 with
-   its attention unfused (matmul + softmax; B3 has no bf16 form yet),
-   B1's bf16 form under the MLM transform's layer_norm;
+   its attention unfused (matmul + softmax), B1's bf16 form under the
+   MLM transform's layer_norm; then four bf16 paths on B3's bf16 forms,
+   each 1 + 3 steps with the same checks, its launches held to the
+   program's and its is_test loss within 1e-2 of the float32 program's
+   from one startup (dropout 0): GPT-2 small at 8 x 1024, TinyLlama's
+   widths at 2 x 2048 (B6's bf16 form too), BERT-base with fused_attn
+   (B3's key-padding form) and Transformer-base with fused_attn (the
+   encoder, the causal decoder and the cross attention); then a narrow
+   bf16 modern-decoder GPT-2 3 steps on the card and on the CPU, the
+   losses within 5e-3 relative, every bf16 form of its path launched;
 18. decodes GPT-2 small with the KV cache (gpt2_decode_step_program at
    batch 4, t_max 1024, one token and 64 wide; 4 seeded prompts of 200
    tokens): chunked prefill against one-token prefill (over a chunk and
@@ -738,7 +748,7 @@ def check_kernels(dev):
 
     rec.update(bf16_kernels_check.check_bf16(sys.modules[__name__], dev,
                                              randn, g))
-    mark("bf16 forms (B5, B1, B2, B4)")
+    mark("bf16 forms (B5, B1, B2, B4, B3, B6)")
     return rec
 
 
@@ -3899,14 +3909,15 @@ def _expected_train_launches(main):
     programs every layer_norm is the kernel form (last axis, Scale and
     Bias) and no fused_attention has a QStart: its window and segment-id
     forms launch the same three flash kernels.  A program that holds
-    bf16 vars (the AMP pass) also lists the bf16 forms of B5, B1, B2 and
-    B4, which count apart: an op whose data input is bf16 launches the
-    bf16 form (its grad too, which reads the same input)."""
+    bf16 vars (the AMP pass) also lists the bf16 forms of B5, B1, B2, B3,
+    B4 and B6, which count apart: an op whose data input is bf16 launches
+    the bf16 form (its grad too, which reads the same input)."""
     from paddle_tpu_torch.ops.math_ops import softmax_xent_kernel_form
 
     block = main.global_block()
     data_slot = {"fc": "Input", "layer_norm": "X", "fused_residual_ln": "X",
-                 "fused_linear_xent": "X"}
+                 "fused_linear_xent": "X", "fused_attention": "Q",
+                 "fused_swiglu": "X"}
 
     def form(op):
         """The op's type, with "@BF16" where its data input is bf16."""
@@ -3960,7 +3971,13 @@ def _expected_train_launches(main):
             linear_xent_fwd_bf16=(bf.count("fused_linear_xent")
                                   + bf.count("fused_linear_xent_grad")),
             linear_xent_dx_bf16=bf.count("fused_linear_xent_grad"),
-            linear_xent_dw_bf16=bf.count("fused_linear_xent_grad"))
+            linear_xent_dw_bf16=bf.count("fused_linear_xent_grad"),
+            flash_attention_fwd_bf16=(bf.count("fused_attention")
+                                      + bf.count("fused_attention_grad")),
+            flash_attention_dq_bf16=bf.count("fused_attention_grad"),
+            flash_attention_dkv_bf16=bf.count("fused_attention_grad"),
+            matmul_swiglu_bf16=(bf.count("fused_swiglu")
+                                + bf.count("fused_swiglu_grad")))
     return want
 
 
@@ -4004,11 +4021,11 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
     the first's graph; both then capture into one pool, under 1.5 times
     one key's pool), and an eager step, which releases the graphs again
     (the next run captures again); then the same step twice from one
-    saved state (kept on the host), bit for bit, and, for a path with
-    `dropout`, a step checking every dropout_grad against its forward
-    op's mask; then _eager_vs_captured from the same saved state
-    (`compare_steps` a leg; with `loop`, run_loop too).  fetch[1]
-    is the step's token count, held to `n_tok`, unless `loss_parts`
+    saved state (device copies, or host copies past 8 GB), bit for bit,
+    and, for a path with `dropout`, a step checking every dropout_grad
+    against its forward op's mask; then _eager_vs_captured from the same
+    saved state (`compare_steps` a leg; with `loop`, run_loop too).
+    fetch[1] is the step's token count, held to `n_tok`, unless `loss_parts`
     names fetch[1:] (BERT's MLM and NSP losses, the LSTM classifier's
     accuracy; none for a program that fetches its loss alone), which are
     then printed.  `check`, where given, is called with the scope after
@@ -4128,19 +4145,22 @@ def _train_on_card(label, main, startup, fetch, batch, n_tok, rows,
 
         # the same step twice from one saved state: a fresh executor each
         # time, so both draw the same dropout masks.  The state and the
-        # first run's result wait on the host: at 1.1 B parameters three
-        # device copies of the weights and Adam moments would not fit
-        # beside the step.
+        # runs' results are device copies, or host copies past 8 GB: at
+        # TinyLlama's 1.1 B parameters three device copies of the weights
+        # and Adam moments would not fit beside the step
         where = {n: scope.find_var(n).device for n in scope.local_var_names()}
-        state = {n: scope.find_var(n).cpu() for n in where}
+        big = sum(scope.find_var(n).numel() * scope.find_var(n).element_size()
+                  for n in where) > 8e9
+        keep = (lambda t: t.cpu()) if big else (lambda t: t.clone())
+        state = {n: keep(scope.find_var(n)) for n in where}
         first_run = None
         for _ in range(2):
             for n, v in state.items():
-                scope.set(n, v.to(where[n]))
+                scope.set(n, v.to(where[n], copy=True))
             again = ptt.Executor(ptt.CUDAPlace(0))
             loss = again.run(main, feed=batch, fetch_list=[fetch[0]])[0]
             again.close()
-            after = {n: scope.find_var(n).cpu() for n in state}
+            after = {n: keep(scope.find_var(n)) for n in state}
             if first_run is None:
                 first_run = (loss, after)
         assert np.array_equal(first_run[0], loss), "loss not reproducible"
@@ -4196,7 +4216,7 @@ def _capture_line(label, cap):
 
 def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop,
                        steps=3):
-    """From the saved `state` (on the host; `where` its devices), on fresh
+    """From the saved `state` (`where` its tensors' devices), on fresh
     executors, `steps` captured steps against as many eager ones
     (use_program_cache=False): the losses and every updated persistable
     bit for bit.  Each leg first runs 2 steps from the state and then
@@ -4207,12 +4227,16 @@ def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop,
     state comes back by scope.set, which the entry copies into its own
     tensors, or, past 8 GB, by a copy into the scope's tensors.  Returns
     the eager p50 and the peak memory of each leg (captured: from the
-    capture on)."""
+    capture on), less the saved state's device copies where it has them
+    (resident throughout), so a peak counts what the step holds; the
+    legs' results wait on the host."""
     import numpy as np
     import torch
 
     import paddle_tpu_torch as ptt
 
+    held = sum(v.numel() * v.element_size() for v in state.values()
+               if v.is_cuda)
     in_place = sum(v.numel() * v.element_size()
                    for v in state.values()) > 8e9
 
@@ -4250,10 +4274,10 @@ def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop,
                                    use_program_cache=cached)[0])
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
-                if len(out) == steps:  # copies on the CPU too
+                if len(out) == steps:
                     after_n = {n: scope.find_var(n).to("cpu", copy=True)
                                for n in state}
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() - held
         final = ({n: scope.find_var(n).to("cpu", copy=True) for n in state}
                  if mode != "eager" and (loop or mode == "loop") else None)
         exe.close()
@@ -4265,7 +4289,7 @@ def _eager_vs_captured(label, main, batch, loss, scope, state, where, loop,
         "captured != eager losses", label)
     differ = [n for n in state if not torch.equal(cap_n[n], eag_n[n])]
     assert not differ, ("captured != eager state", label, differ[:5])
-    moved = sum(not torch.equal(cap_n[n], state[n]) for n in state)
+    moved = sum(not torch.equal(cap_n[n], state[n].cpu()) for n in state)
     del cap_n, eag_n
     line = ("%s: %d captured steps == %d eager steps from a saved state, "
             "bit for bit (losses %s; %d of %d state tensors moved)" % (
@@ -4317,71 +4341,98 @@ def train_transformer_base(dev, profile_dir=None):
         (8.0, 10.5), per_step, profile_dir, "training", loop=True)
 
 
-def train_transformer_base_bf16(dev, profile_dir=None, f32=None):
-    """The WMT training path in bf16: wmt_transformer_program(use_bf16=
-    True) at Transformer-base's widths, fused_attn off, the f32 path's
-    seed and batch (64 x 64), 1 + 3 steps through _train_on_card.  Per
-    step the bf16 forms launch B5 48 times and B4's forward 2, dx 1 and
-    dw 1; the reference's AMP pass leaves every fused_residual_ln in
-    float32 (the residual stream starts at the float32 embedding, which
-    is not dtype-transparent), so B2 runs its float32 form 60 times and
-    its bf16 form not at all, and the program has no layer_norm (B1).
-    Then both programs' is_test forms (no Adam, dropout in test mode)
-    from one startup with dropout 0: the bf16 loss within 1e-2 of the
-    float32 one.  `f32`, the f32 path's record, puts its p50 beside."""
+def _hold_launches(label, per_step, want):
+    """The program's launches a step, its nonzero counts, are `want`."""
+    got = {k: v for k, v in per_step.items() if v}
+    assert got == want, ("launches a step", label, got)
+
+
+def _bf16_vs_f32(label, build, batch, seed, cap, f32=None):
+    """A path's is_test programs (no optimizer; `build(use_bf16)` gives
+    them from a config with dropout 0), float32 then bf16, from one
+    startup in one scope on the card: the bf16 loss (the first fetch)
+    within 1e-2 of the float32 one.  Both go into `cap`; the line puts
+    the captured p50 beside `f32`'s, the float32 path's record."""
     import torch
 
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.models import transformer as tfm
-
-    hp = tfm.ModelHyperParams
-    main, startup, _, fetch = tfm.wmt_transformer_program(
-        hp, src_len=TRAIN_LEN, trg_len=TRAIN_LEN, use_bf16=True)
-    startup.random_seed = main.random_seed = 4321
-    per_step = _expected_train_launches(main)
-    bf16 = {k: v for k, v in per_step.items() if k.endswith("_bf16")}
-    assert bf16 == {"matmul_bias_act_bf16": 48, "fused_layer_norm_bf16": 0,
-                    "fused_add_layer_norm_bf16": 0,
-                    "linear_xent_fwd_bf16": 2, "linear_xent_dx_bf16": 1,
-                    "linear_xent_dw_bf16": 1}, per_step
-    assert per_step["matmul_bias_act"] == per_step["linear_xent_fwd"] == 0
-    assert per_step["fused_add_layer_norm"] == 60, per_step
-    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
-    launches, cap = _train_on_card(
-        "Transformer-base bf16 (batch %d x %d)" % (TRAIN_BATCH, TRAIN_LEN),
-        main, startup, fetch, batch, float(batch["lbl_weight"].sum()),
-        TRAIN_ROWS, (8.0, 10.5), per_step, profile_dir, "training_bf16",
-        steps=3, compare_steps=2)
-
-    class NoDropout(hp):
-        dropout = 0.0
+    from paddle_tpu_torch import unique_name
 
     losses = {}
     scope = ptt.Scope()
     with ptt.scope_guard(scope):
         exe = ptt.Executor(ptt.CUDAPlace(0))
         for use_bf16 in (False, True):
-            test, test_start, _, test_fetch = tfm.wmt_transformer_program(
-                NoDropout, src_len=TRAIN_LEN, trg_len=TRAIN_LEN, is_test=True,
-                use_bf16=use_bf16)
+            with unique_name.guard():  # the same parameter names in both
+                test, test_start, _, test_fetch = build(use_bf16)
             if not use_bf16:
-                test_start.random_seed = 4321
+                test_start.random_seed = seed
                 exe.run(test_start)
             losses[use_bf16] = float(exe.run(
                 test, feed=batch, fetch_list=[test_fetch[0]],
                 use_program_cache=False)[0].sum())
         exe.close()
     rel = abs(losses[True] - losses[False]) / abs(losses[False])
-    assert rel < 1e-2, ("bf16 loss far from float32's", losses)
+    assert rel < 1e-2, ("bf16 loss far from float32's", label, losses)
     torch.cuda.synchronize()
     cap.update(f32_loss=losses[False], bf16_loss=losses[True],
                bf16_vs_f32=rel)
-    print("Transformer-base bf16: the is_test loss from one startup, dropout "
-          "0: bf16 %.6f vs float32 %.6f (relative difference %.3g); captured "
-          "p50 %.3f ms%s; launches a step %s" % (
-              losses[True], losses[False], rel, cap["captured_p50_ms"],
-              " vs float32's %.3f ms" % f32["captured_p50_ms"] if f32 else "",
-              json.dumps({k: v // 3 for k, v in launches.items() if v})))
+    print("%s bf16: the is_test loss from one startup, dropout 0: bf16 %.6f "
+          "vs float32 %.6f (relative difference %.3g); captured p50 %.3f "
+          "ms%s" % (label, losses[True], losses[False], rel,
+                    cap["captured_p50_ms"],
+                    " vs float32's %.3f ms" % f32["captured_p50_ms"]
+                    if f32 else ""))
+
+
+def train_transformer_base_bf16(dev, profile_dir=None, f32=None,
+                                fused_attn=False):
+    """The WMT training path in bf16: wmt_transformer_program(use_bf16=
+    True) at Transformer-base's widths, the f32 path's seed and batch (64
+    x 64), 1 + 3 steps through _train_on_card.  Per step the bf16 forms
+    launch B5 48 times and B4's forward 2, dx 1 and dw 1; the reference's
+    AMP pass leaves every fused_residual_ln in float32 (the residual
+    stream starts at the float32 embedding, which is not
+    dtype-transparent), so B2 runs its float32 form 60 times and its bf16
+    form not at all, and the program has no layer_norm (B1).  With
+    `fused_attn` every attention runs B3's bf16 forms (forward 36, dq 18,
+    dk/dv 18: the encoder's key-padding form, the decoder's causal form
+    and the cross attention, Tq and Tk the two sides' lengths).  Then
+    both programs' is_test forms from one startup with dropout 0
+    (_bf16_vs_f32).  `f32`, the f32 path's record, puts its p50
+    beside."""
+    from paddle_tpu_torch.models import transformer as tfm
+
+    class Hp(tfm.ModelHyperParams):
+        pass
+
+    Hp.fused_attn = fused_attn
+    main, startup, _, fetch = tfm.wmt_transformer_program(
+        Hp, src_len=TRAIN_LEN, trg_len=TRAIN_LEN, use_bf16=True)
+    startup.random_seed = main.random_seed = 4321
+    per_step = _expected_train_launches(main)
+    want = {"matmul_bias_act_bf16": 48, "fused_add_layer_norm": 60,
+            "linear_xent_fwd_bf16": 2, "linear_xent_dx_bf16": 1,
+            "linear_xent_dw_bf16": 1}
+    if fused_attn:
+        want.update(flash_attention_fwd_bf16=36, flash_attention_dq_bf16=18,
+                    flash_attention_dkv_bf16=18)
+    label = "Transformer-base" + (" fused_attn" if fused_attn else "")
+    _hold_launches(label + " bf16", per_step, want)
+    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, Hp, seed=0)
+    launches, cap = _train_on_card(
+        "%s bf16 (batch %d x %d)" % (label, TRAIN_BATCH, TRAIN_LEN),
+        main, startup, fetch, batch, float(batch["lbl_weight"].sum()),
+        TRAIN_ROWS, (8.0, 10.5), per_step, profile_dir,
+        "training_bf16" + ("_fused_attn" if fused_attn else ""),
+        steps=3, compare_steps=2)
+
+    class NoDropout(Hp):
+        dropout = 0.0
+
+    _bf16_vs_f32(label, lambda bf: tfm.wmt_transformer_program(
+        NoDropout, src_len=TRAIN_LEN, trg_len=TRAIN_LEN, is_test=True,
+        use_bf16=bf), batch, 4321, cap, f32)
     return launches, cap
 
 
@@ -4455,11 +4506,91 @@ def train_tinyllama(dev, profile_dir=None):
         "training_llama", steps=LLAMA_STEPS, dropout=False)
 
 
-def _card_matches_cpu(label, main, startup, fetch, batch, must_launch):
+def train_gpt2_small_bf16(dev, profile_dir=None, f32=None):
+    """GPT-2 small in bf16: gpt2_lm_program(GPT2Config, use_bf16=True)
+    on the f32 path's seed and batch (8 x 1024), 1 + 3 steps through
+    _train_on_card.  Per step B3's bf16 forms 24 / 12 / 12 (causal), B5's
+    bf16 form 48, B4's 2 / 1 / 1; B2 (the residual stream) and B1 (ln_f
+    on it) stay float32, 48 and 2.  Then the is_test losses from one
+    startup with dropout 0 (_bf16_vs_f32)."""
+    import math
+
+    from paddle_tpu_torch.models import gpt2
+
+    hp = gpt2.GPT2Config
+    main, startup, _, fetch = gpt2.gpt2_lm_program(hp, seq_len=GPT2_LEN,
+                                                   use_bf16=True)
+    startup.random_seed = main.random_seed = 2024
+    per_step = _expected_train_launches(main)
+    _hold_launches("GPT-2 small bf16", per_step, {
+        "matmul_bias_act_bf16": 48, "fused_add_layer_norm": 48,
+        "fused_layer_norm": 2, "linear_xent_fwd_bf16": 2,
+        "linear_xent_dx_bf16": 1, "linear_xent_dw_bf16": 1,
+        "flash_attention_fwd_bf16": 24, "flash_attention_dq_bf16": 12,
+        "flash_attention_dkv_bf16": 12})
+    batch = gpt2.make_fake_lm_batch(GPT2_BATCH, GPT2_LEN, hp, seed=0)
+    ln_v = math.log(hp.vocab_size)
+    launches, cap = _train_on_card(
+        "GPT-2 small bf16 (batch %d x %d)" % (GPT2_BATCH, GPT2_LEN), main,
+        startup, fetch, batch, float(batch["loss_weight"].sum()), GPT2_ROWS,
+        (ln_v - 0.5, ln_v + 0.5), per_step, profile_dir,
+        "training_gpt2_bf16", steps=3, compare_steps=2)
+
+    class NoDropout(hp):
+        dropout = 0.0
+
+    _bf16_vs_f32("GPT-2 small", lambda bf: gpt2.gpt2_lm_program(
+        NoDropout, seq_len=GPT2_LEN, is_test=True, use_bf16=bf), batch, 2024,
+        cap, f32)
+    return launches, cap
+
+
+def train_tinyllama_bf16(dev, profile_dir=None, f32=None):
+    """The modern-decoder path at TinyLlama-1.1B's widths in bf16:
+    gpt2_lm_program(tinyllama_config(), seq_len=2048, use_bf16=True) on
+    the f32 path's seed and batch (2 x 2048), 1 + 3 steps through
+    _train_on_card (no dropout masks to check).  Per step B6's bf16 form
+    44, B3's 44 / 22 / 22 (causal, grouped-query heads expanded), B5's
+    44, B2 88 float32 (the residual stream), B4's 2 / 1 / 1 and B1 2
+    float32 (ln_f).  Then the is_test losses from one startup
+    (_bf16_vs_f32; the config has dropout 0).  Run after the float32
+    phase has closed its executor and dropped its scope: that step peaks
+    at 56 GB, this one at 61 GB."""
+    import math
+
+    from paddle_tpu_torch.models import gpt2
+
+    hp = tinyllama_config()
+    main, startup, _, fetch = gpt2.gpt2_lm_program(hp, seq_len=LLAMA_LEN,
+                                                   use_bf16=True)
+    startup.random_seed = main.random_seed = 2025
+    per_step = _expected_train_launches(main)
+    _hold_launches("TinyLlama bf16", per_step, {
+        "matmul_swiglu_bf16": 44, "matmul_bias_act_bf16": 44,
+        "fused_add_layer_norm": 88, "fused_layer_norm": 2,
+        "linear_xent_fwd_bf16": 2, "linear_xent_dx_bf16": 1,
+        "linear_xent_dw_bf16": 1, "flash_attention_fwd_bf16": 44,
+        "flash_attention_dq_bf16": 22, "flash_attention_dkv_bf16": 22})
+    batch = gpt2.make_fake_lm_batch(LLAMA_BATCH, LLAMA_LEN, hp, seed=0)
+    ln_v = math.log(hp.vocab_size)
+    launches, cap = _train_on_card(
+        "TinyLlama-1.1B widths bf16 (batch %d x %d)" % (LLAMA_BATCH,
+                                                        LLAMA_LEN),
+        main, startup, fetch, batch, float(batch["loss_weight"].sum()),
+        LLAMA_ROWS, (ln_v - 0.5, ln_v + 0.5), per_step, profile_dir,
+        "training_llama_bf16", steps=3, dropout=False, compare_steps=2)
+    _bf16_vs_f32("TinyLlama-1.1B widths", lambda bf: gpt2.gpt2_lm_program(
+        hp, seq_len=LLAMA_LEN, is_test=True, use_bf16=bf), batch, 2025, cap,
+        f32)
+    return launches, cap
+
+
+def _card_matches_cpu(label, main, startup, fetch, batch, must_launch,
+                      rtol=1e-5):
     """A narrow program trained 3 steps from the same weights on the card
     and on the CPU plain path: every fetch (the loss, and BERT's MLM and
-    NSP losses or the token count) agrees to 1e-5 relative, every launch
-    count is 3 steps of what the program implies, and each of
+    NSP losses or the token count) agrees to `rtol` relative, every
+    launch count is 3 steps of what the program implies, and each of
     `must_launch` launched."""
     import numpy as np
 
@@ -4488,7 +4619,7 @@ def _card_matches_cpu(label, main, startup, fetch, batch, must_launch):
         assert launched[name] == 3 * n, ("launch count", name, launched)
     assert all(launched[n] for n in must_launch), launched
     assert np.isfinite(losses["cuda"]).all()
-    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=rtol)
     err = max(abs(a - b) / abs(b) for x, y in zip(losses["cuda"],
                                                    losses["cpu"])
               for a, b in zip(x, y))
@@ -4909,42 +5040,56 @@ def train_bert_base(dev, profile_dir=None):
         profile_dir, "training_bert", loss_parts=("mlm", "nsp"))
 
 
-def train_bert_base_bf16(dev, profile_dir=None, f32=None):
-    """BERT-base pretraining in bf16: bert_pretrain_program(BertConfig,
-    use_bf16=True) with the config's own fused_attn off (its attention
-    is matmul + softmax on cuBLAS; B3 has no bf16 form yet), the f32
-    path's seed and batch, 1 + 3 steps through _train_on_card.  The AMP
-    pass leaves the residual stream float32 (B2 runs its float32 form)
-    and flips the MLM transform's layer_norm to bf16: per step B1's bf16
-    form 2 (forward, grad) beside its float32 form 2 (the embedding
-    norm), B5's bf16 form 54, B4's bf16 forms 2 / 1 / 1, B7's float32
-    forms 2 / 1 on the NSP head."""
+def train_bert_base_bf16(dev, profile_dir=None, f32=None, fused_attn=False):
+    """BERT-base pretraining in bf16: bert_pretrain_program(use_bf16=True)
+    on the f32 path's seed and batch, 1 + 3 steps through _train_on_card.
+    Without `fused_attn` (BertConfig's own default) its attention is
+    matmul + softmax on cuBLAS; with it (bert_base_config) B3's bf16
+    forms in the key-padding form, 24 / 12 / 12 a step.  The AMP pass
+    leaves the residual stream float32 (B2 runs its float32 form 48
+    times) and flips the MLM transform's layer_norm to bf16: per step
+    B1's bf16 form 2 (forward, grad) beside its float32 form 2 (the
+    embedding norm), B5's bf16 form 54, B4's bf16 forms 2 / 1 / 1, and
+    B7's float32 forms 2 / 1 on the NSP head, whose
+    softmax_with_cross_entropy stays float32.  With `fused_attn`, the
+    is_test losses from one startup with dropout 0 (_bf16_vs_f32)."""
     import math
 
     from paddle_tpu_torch.models import bert
 
-    hp = bert.BertConfig
-    assert not hp.fused_attn
+    hp = bert_base_config() if fused_attn else bert.BertConfig
+    assert bool(hp.fused_attn) == fused_attn
     main, startup, _, fetch = bert.bert_pretrain_program(
         hp, seq_len=BERT_LEN, lr=1e-4, use_bf16=True)
     startup.random_seed = main.random_seed = 2026
     per_step = _expected_train_launches(main)
     want = {"matmul_bias_act_bf16": 54, "fused_layer_norm_bf16": 2,
             "fused_layer_norm": 2, "fused_add_layer_norm": 48,
-            "fused_add_layer_norm_bf16": 0, "linear_xent_fwd_bf16": 2,
-            "linear_xent_dx_bf16": 1, "linear_xent_dw_bf16": 1,
-            "softmax_xent_fwd": 2, "softmax_xent_bwd": 1,
-            "flash_attention_fwd": 0}
-    assert {k: per_step[k] for k in want} == want, per_step
+            "linear_xent_fwd_bf16": 2, "linear_xent_dx_bf16": 1,
+            "linear_xent_dw_bf16": 1, "softmax_xent_fwd": 2,
+            "softmax_xent_bwd": 1}
+    if fused_attn:
+        want.update(flash_attention_fwd_bf16=24, flash_attention_dq_bf16=12,
+                    flash_attention_dkv_bf16=12)
+    label = "BERT-base" + (" fused_attn" if fused_attn else
+                           ", fused_attn off")
+    _hold_launches(label + " bf16", per_step, want)
     batch = bert.make_fake_bert_batch(BERT_BATCH, BERT_LEN, hp, seed=0)
     ln = math.log(hp.vocab_size) + math.log(2)
     launches, cap = _train_on_card(
-        "BERT-base bf16, fused_attn off (batch %d x %d)" % (BERT_BATCH,
-                                                            BERT_LEN),
+        "%s bf16 (batch %d x %d)" % (label, BERT_BATCH, BERT_LEN),
         main, startup, fetch, batch, BERT_ROWS, BERT_ROWS,
-        (ln - 0.5, ln + 0.5), per_step, profile_dir, "training_bert_bf16",
+        (ln - 0.5, ln + 0.5), per_step, profile_dir,
+        "training_bert_bf16" + ("_fused_attn" if fused_attn else ""),
         steps=3, loss_parts=("mlm", "nsp"), compare_steps=2)
-    if f32 is not None:
+    if fused_attn:
+        class NoDropout(hp):
+            dropout = 0.0
+
+        _bf16_vs_f32(label, lambda bf: bert.bert_pretrain_program(
+            NoDropout, seq_len=BERT_LEN, is_test=True, use_bf16=bf), batch,
+            2026, cap, f32)
+    elif f32 is not None:
         print("BERT-base bf16: captured p50 %.3f ms beside the float32 "
               "fused_attn path's %.3f ms; first loss %.6f vs %.6f" % (
                   cap["captured_p50_ms"], f32["captured_p50_ms"],
@@ -5009,6 +5154,28 @@ def llama_train_card_matches_cpu(dev):
                                       "fused_add_layer_norm",
                                       "linear_xent_fwd", "linear_xent_dx",
                                       "linear_xent_dw"))
+
+
+def bf16_train_card_matches_cpu(dev):
+    """The narrow modern-decoder config (narrow_modern_config: SwiGLU,
+    rotary, grouped-query attention, heads of 64) in bf16, seq 128: 3
+    steps on the card and on the CPU plain path from the same weights,
+    the losses within 5e-3 relative (bf16's unit roundoff is 3.9e-3: an
+    activation one rounding apart moves a later one), every launch the
+    program's and every bf16 form of the path launched (B3's three, B6,
+    B5, B4's three)."""
+    from paddle_tpu_torch.models import gpt2
+
+    hp = narrow_modern_config()
+    main, startup, _, fetch = gpt2.gpt2_lm_program(hp, seq_len=128,
+                                                   use_bf16=True)
+    startup.random_seed = 11
+    _card_matches_cpu("bf16 modern config", main, startup, fetch,
+                      gpt2.make_fake_lm_batch(4, 128, hp, seed=3),
+                      tuple(k + "_bf16" for k in GPT2_KERNELS[1:]) + (
+                          "matmul_swiglu_bf16", "matmul_bias_act_bf16",
+                          "linear_xent_fwd_bf16", "linear_xent_dx_bf16",
+                          "linear_xent_dw_bf16"), rtol=5e-3)
 
 
 def _decode_launches(main):
@@ -7862,6 +8029,27 @@ def main():
         dev, profile_dir, caps["bert_training"])
     lap("bert training, bf16")
     torch.cuda.empty_cache()
+    trained_gpt2_bf16, caps["gpt2_bf16_training"] = train_gpt2_small_bf16(
+        dev, profile_dir, caps["gpt2_training"])
+    lap("gpt2 training, bf16")
+    torch.cuda.empty_cache()
+    trained_llama_bf16, caps["llama_bf16_training"] = train_tinyllama_bf16(
+        dev, profile_dir, caps["llama_training"])
+    lap("llama training, bf16")
+    torch.cuda.empty_cache()
+    trained_bert_bf16_fused, caps["bert_bf16_fused_attn_training"] = (
+        train_bert_base_bf16(dev, profile_dir, caps["bert_training"],
+                             fused_attn=True))
+    lap("bert fused_attn training, bf16")
+    torch.cuda.empty_cache()
+    trained_wmt_bf16_fused, caps["wmt_bf16_fused_attn_training"] = (
+        train_transformer_base_bf16(dev, profile_dir,
+                                    caps["wmt_fused_attn_training"],
+                                    fused_attn=True))
+    lap("wmt fused_attn training, bf16")
+    bf16_train_card_matches_cpu(dev)
+    lap("narrow bf16 modern config, card vs CPU")
+    torch.cuda.empty_cache()
     decoded, caps["gpt2_decode"] = decode_gpt2_small(dev, profile_dir)
     lap("gpt2 decode")
     decode_card_matches_cpu(dev, narrow_gpt2_config(), DECODE_KERNELS)
@@ -7960,7 +8148,7 @@ def main():
     lap("deepfm wide tables, sparse and dense")
     deepfm_card_matches_cpu(dev)
     lap("narrow deepfm, card vs CPU")
-    assert sum(c["captured"] for c in caps.values()) == 33, caps
+    assert sum(c["captured"] for c in caps.values()) == 37, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
             "the captured step is not faster than the eager one", path,
@@ -8002,6 +8190,12 @@ def main():
                    "deepfm_wide_training": trained_deepfm_wide[name],
                    "wmt_bf16_training": trained_wmt_bf16[name],
                    "bert_bf16_training": trained_bert_bf16[name],
+                   "gpt2_bf16_training": trained_gpt2_bf16[name],
+                   "llama_bf16_training": trained_llama_bf16[name],
+                   "bert_bf16_fused_attn_training":
+                       trained_bert_bf16_fused[name],
+                   "wmt_bf16_fused_attn_training":
+                       trained_wmt_bf16_fused[name],
                    "resnet50_bf16_training": trained_resnet_bf16[name],
                    "resnet50_nhwc_bf16_training":
                        trained_resnet_nhwc_bf16[name],

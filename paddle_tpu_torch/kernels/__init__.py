@@ -11,8 +11,11 @@ from .add_layer_norm import (
 from .flash_attention import (
     flash_attention,
     flash_attention_dkv,
+    flash_attention_dkv_bf16,
     flash_attention_dq,
+    flash_attention_dq_bf16,
     flash_attention_fwd,
+    flash_attention_fwd_bf16,
     flash_attention_fwd_rows,
     flash_attention_grad_plain,
     flash_attention_piece,
@@ -46,7 +49,11 @@ from .matmul_epilogue import (
     matmul_bias_act_plain,
     mm_act,
 )
-from .matmul_swiglu import matmul_swiglu, matmul_swiglu_plain
+from .matmul_swiglu import (
+    matmul_swiglu,
+    matmul_swiglu_bf16,
+    matmul_swiglu_plain,
+)
 from .recurrent import (
     fused_gru,
     fused_lstm,
@@ -71,7 +78,7 @@ from .softmax_xent import (
 )
 
 # every kernel wrapper, each with its launch count; the bf16 forms count
-# under names of their own
+# apart, under names of their own (build.LaunchCount)
 KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
            flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
@@ -82,7 +89,9 @@ KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            linear_xent_dx_sharded, linear_xent_dw_sharded,
            flash_attention_fwd_rows, matmul_bias_act_bf16,
            fused_layer_norm_bf16, fused_add_layer_norm_bf16,
-           linear_xent_fwd_bf16, linear_xent_dx_bf16, linear_xent_dw_bf16)
+           linear_xent_fwd_bf16, linear_xent_dx_bf16, linear_xent_dw_bf16,
+           flash_attention_fwd_bf16, flash_attention_dq_bf16,
+           flash_attention_dkv_bf16, matmul_swiglu_bf16)
 
 
 def reset_launch_counts():

@@ -31,8 +31,8 @@ import threading
 import torch
 
 __all__ = ["load", "build", "use_kernel", "check_inputs", "launch",
-           "BUILD_DIR", "BF16_FORMS", "KernelError", "KernelInputError",
-           "KernelTypeError"]
+           "BUILD_DIR", "BF16_FORMS", "BF16_QUEUED", "LaunchCount",
+           "KernelError", "KernelInputError", "KernelTypeError"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.environ.get("PADDLE_TPU_TORCH_BUILD_DIR") or os.path.join(
@@ -54,6 +54,7 @@ SIGNATURES = {
     "ptt_matmul_bias_act": (_P,) * 4 + (_I,) * 9 + (_P,),
     "ptt_matmul_bias_act_bf16": (_P,) * 4 + (_I,) * 9 + (_P,),
     "ptt_matmul_swiglu": (_P,) * 4 + (_I,) * 8 + (_P,),
+    "ptt_matmul_swiglu_bf16": (_P,) * 4 + (_I,) * 8 + (_P,),
     # BH, Tq, Tk, d, then the plan's four (warps, slice_len, slices,
     # smem: flash_attention.qvec_plan)
     "ptt_flash_attention_qvec": (_P,) * 8 + (_I,) * 8 + (_F, _P),
@@ -81,6 +82,9 @@ SIGNATURES = {
     "ptt_flash_attention_fwd": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P, _P),
+    "ptt_flash_attention_fwd_bf16": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P, _P),
+    "ptt_flash_attention_dq_bf16": (_P,) * 9 + (_I,) * 7 + (_F, _I, _P, _P),
+    "ptt_flash_attention_dkv_bf16": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P, _P),
     # the plan's four (form, ctas, threads, smem: softmax_xent.sxent_plan),
     # then R, C
     "ptt_softmax_xent_fwd": (_P,) * 3 + (_I,) * 6 + (_P,),
@@ -212,13 +216,40 @@ def use_kernel(t):
     raise KernelError("no kernel and no plain path for device %s" % t.device)
 
 
+class LaunchCount:
+    """The launch count of a kernel's bf16 form, which the kernel's
+    wrapper keeps apart from its float32 form's: ``__name__`` and
+    ``launches`` as a wrapper in ``kernels.KERNELS`` has them."""
+
+    def __init__(self, name):
+        self.__name__ = name
+        self.launches = 0
+
+
 # the per-kernel dtype rule: the kernels with a bf16 form, each with the
 # positions of its check_inputs operands that stay float32 whatever the
 # working dtype (B1 and B2's gamma and beta, which the AMP trunk pass
-# keeps float32; B4's saved lse and dy)
+# keeps float32; B4's saved lse and dy; B3's lse and delta and its key
+# bias, which check_inputs sees after the rows: position 3 in the
+# forward, 6 in dq and dk/dv)
 BF16_FORMS = {"matmul_bias_act": (), "fused_layer_norm": (1, 2),
               "fused_add_layer_norm": (2, 3), "linear_xent_fwd": (),
-              "linear_xent_dx": (2, 3), "linear_xent_dw": (2, 3)}
+              "linear_xent_dx": (2, 3), "linear_xent_dw": (2, 3),
+              "matmul_swiglu": (), "flash_attention_fwd": (3,),
+              "flash_attention_dq": (3, 5, 6),
+              "flash_attention_dkv": (3, 5, 6)}
+# where the bf16 forms of the other kernels are queued in ROADMAP: B3's
+# few-row form, B9 and B8 read the KV caches (A3 (b)), B12 is the
+# vocab-parallel cross entropy (A3 (c)); the rest wait in queue B
+_KV = "A3 (b), the bf16 KV caches"
+_VP = "A3 (c), the vocab-parallel cross entropy"
+BF16_QUEUED = dict(
+    {n: _KV for n in ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
+                      "flash_attention_piece_dq", "flash_attention_piece_dkv",
+                      "flash_attention_qvec", "flash_attention_qvec_dq",
+                      "flash_attention_qvec_dkv")},
+    **{n: _VP for n in ("linear_xent_parts", "linear_xent_dx_sharded",
+                        "linear_xent_dw_sharded")})
 
 
 def check_inputs(name, *tensors):
@@ -236,7 +267,9 @@ def check_inputs(name, *tensors):
                                       and name in BF16_FORMS):
         raise KernelTypeError(
             "%s: the CUDA kernel takes float32, got %s (its bf16 form is "
-            "queued in ROADMAP B, the bf16 forms)" % (name, work))
+            "queued in ROADMAP B, the bf16 forms%s)" % (
+                name, work, ": " + BF16_QUEUED[name] if name in BF16_QUEUED
+                else ""))
     f32 = BF16_FORMS.get(name, ())
     for i, t in enumerate(tensors):
         want = torch.float32 if i in f32 else work

@@ -71,8 +71,9 @@
 // in shared memory, and w [K, N] is N-major; a wgmma form needs a
 // transposing stage and separate big / small tiles.
 //
-// bf16 form (matmul_bias_act only; ptt_matmul_bias_act_bf16): x, w and
-// bias bf16 (the AMP pass casts all three of fc's slots), z formed in
+// bf16 forms (ptt_matmul_bias_act_bf16, ptt_matmul_swiglu_bf16): x, w and
+// bias bf16 (the AMP pass casts all three of fc's slots; fused_swiglu's
+// x, wg and wu), z formed in
 // float32, the bias added as float32, the activation applied in float32,
 // and the output rounded once to bf16, as the reference's _mm_kernel does
 // with bf16 refs.  Bound: operations, 2 M K N FLOPs at bf16's dense
@@ -87,8 +88,11 @@
 // chunks XOR swizzled (x: chunk c of row r at c ^ (r /
 // 2 % 4); w: c ^ (r % 8)) so each ldmatrix phase reads 8 bank groups.
 // The accumulation runs in the tensor core from the slice's first stage
-// to its last.  Every shape takes the tiled form here: the skinny bf16
-// form (M <= 16) is on no path yet.
+// to its last.  The gated bf16 form (matmul_swiglu's, silu(g) u in
+// float32, rounded once as _swiglu_kernel does) stages wg and wu in each
+// stage, 128 x 64 or 64 x 64 of each as the float32 gated form, and runs
+// both products from the same x fragments.  Every shape takes the tiled
+// form here: the skinny bf16 form (M <= 16) is on no path yet.
 #include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
@@ -408,31 +412,36 @@ struct SwzW16 {
   __device__ __forceinline__ int operator()(int r) const { return r & 7; }
 };
 
-template <int BM, int BN>
+template <int BM, int BN, bool Gated>
 struct TileBf16 {
   static constexpr int kWarpsM = BM / 32;
   static constexpr int kWarpsN = 8 / kWarpsM;
-  static constexpr int WN = BN / kWarpsN;  // a warp's columns
+  static constexpr int WN = BN / kWarpsN;  // a warp's columns (of each product)
   static constexpr int NJ = WN / 8;
+  static constexpr int kW = Gated ? 2 : 1;  // weight tiles a stage
   static constexpr int kXElems = BM * BK;
-  static constexpr int kStageElems = kXElems + BK * BN;
+  static constexpr int kWElems = BK * BN;
+  static constexpr int kStageElems = kXElems + kW * kWElems;
   static constexpr int kMainBytes = 2 * kStages * kStageElems;
   static constexpr int kPartLd = BN + 8;
-  static constexpr int kPartBytes = 4 * BM * kPartLd;
+  static constexpr int kPartBytes = 4 * kW * BM * kPartLd;
   static constexpr int kSmem = kMainBytes > kPartBytes ? kMainBytes : kPartBytes;
   static_assert(kWarpsM * kWarpsN == 8 && NJ % 2 == 0, "tile");
   static_assert(kSmem <= kSmemMax, "shared memory");
 };
 
 // grid (slices, tiles): block (s, t) sums K slice s of output tile t in
-// bf16 products; copy_x / copy_w: ptt::copy_mode of x and w; vec_out:
-// 8-byte stores
-template <int BM, int BN>
+// bf16 products; copy_x / copy_w: ptt::copy_mode of x and w (and wu);
+// vec_out: 8-byte stores.  Gated (matmul_swiglu's bf16 form): a second
+// weight tile wu in each stage, its products from the same x fragments
+// into a second accumulator set, the gate formed in the epilogue.
+template <int BM, int BN, bool Gated>
 __global__ void __launch_bounds__(kThreads, BM == 128 ? 1 : 2) mm_tiled_bf16(
     const ptt::bf16* __restrict__ x, const ptt::bf16* __restrict__ w,
-    const ptt::bf16* __restrict__ bias, ptt::bf16* __restrict__ out, int M, int N, int K,
-    int k_slice, int act, int copy_x, int copy_w, bool vec_out) {
-  using T = TileBf16<BM, BN>;
+    const ptt::bf16* __restrict__ wu, const ptt::bf16* __restrict__ bias,
+    ptt::bf16* __restrict__ out, int M, int N, int K, int k_slice, int act, int copy_x,
+    int copy_w, bool vec_out) {
+  using T = TileBf16<BM, BN, Gated>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ptt::bf16* smem = reinterpret_cast<ptt::bf16*>(smem_raw);
   const int tid = threadIdx.x;
@@ -453,17 +462,23 @@ __global__ void __launch_bounds__(kThreads, BM == 128 ? 1 : 2) mm_tiled_bf16(
       ptt::stage_bf16(xs, x, BM, BK, K, m0, k0, M, k_end, copy_x, tid, kThreads, SwzX16());
       ptt::stage_bf16(xs + T::kXElems, w, BK, BN, N, k0, n0, k_end, N, copy_w, tid, kThreads,
                       SwzW16());
+      if constexpr (Gated)
+        ptt::stage_bf16(xs + T::kXElems + T::kWElems, wu, BK, BN, N, k0, n0, k_end, N, copy_w,
+                        tid, kThreads, SwzW16());
     }
     cp_async_commit();
   };
 
-  float acc[2][T::NJ][4];
+  float acc[2][T::NJ][4], accu[Gated ? 2 : 1][T::NJ][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int j = 0; j < T::NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        acc[mi][j][e] = 0.f;
+        if constexpr (Gated) accu[mi][j][e] = 0.f;
+      }
 
   // ldmatrix lanes: A rows (lane % 16) at k chunk lane / 16; B (trans) k
   // rows lane % 8 + 8 (lane / 8 % 2) at column block lane / 16
@@ -493,6 +508,15 @@ __global__ void __launch_bounds__(kThreads, BM == 128 ? 1 : 2) mm_tiled_bf16(
           ptt::mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
           ptt::mma_bf16(acc[mi][j + 1], a[mi], b[2], b[3]);
         }
+        if constexpr (Gated) {
+          ptt::ldsm_x4_t(b, ptt::at_bf16(ws + T::kWElems, BN, 16 * kq + b_k, b_col + 8 * j,
+                                         SwzW16()));
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            ptt::mma_bf16(accu[mi][j], a[mi], b[0], b[1]);
+            ptt::mma_bf16(accu[mi][j + 1], a[mi], b[2], b[3]);
+          }
+        }
       }
     }
   }
@@ -511,8 +535,14 @@ __global__ void __launch_bounds__(kThreads, BM == 128 ? 1 : 2) mm_tiled_bf16(
       *reinterpret_cast<float2*>(dst) = make_float2(acc[mi][j][0], acc[mi][j][1]);
       *reinterpret_cast<float2*>(dst + 8 * T::kPartLd) =
           make_float2(acc[mi][j][2], acc[mi][j][3]);
+      if constexpr (Gated) {  // the u tile follows the g tile
+        float* du = dst + BM * T::kPartLd;
+        *reinterpret_cast<float2*>(du) = make_float2(accu[mi][j][0], accu[mi][j][1]);
+        *reinterpret_cast<float2*>(du + 8 * T::kPartLd) =
+            make_float2(accu[mi][j][2], accu[mi][j][3]);
+      }
     }
-  cluster_finish<false>(part, BM, BN, T::kPartLd, slice, gridDim.x, m0, n0, M, N, bias, out,
+  cluster_finish<Gated>(part, BM, BN, T::kPartLd, slice, gridDim.x, m0, n0, M, N, bias, out,
                         act, vec_out);
 }
 
@@ -721,22 +751,40 @@ cudaError_t run_tiled(const Plan& p, const float* x, const float* w, const float
                                         out, M, N, K, p.k_slice, act, vec_x, vec_w, vec_out);
 }
 
+template <bool Gated>
 cudaError_t run_tiled_bf16(const Plan& p, const ptt::bf16* x, const ptt::bf16* w,
-                           const ptt::bf16* bias, ptt::bf16* out, int M, int N, int K, int act,
-                           cudaStream_t stream) {
+                           const ptt::bf16* wu, const ptt::bf16* bias, ptt::bf16* out, int M,
+                           int N, int K, int act, cudaStream_t stream) {
   const int tiles = ((M + p.bm - 1) / p.bm) * ((N + p.bn - 1) / p.bn);
   const int copy_x = ptt::copy_mode(K, x);
-  const int copy_w = ptt::copy_mode(N, w);
+  const int copy_wg = ptt::copy_mode(N, w), copy_wu = Gated ? ptt::copy_mode(N, wu) : copy_wg;
+  const int copy_w = copy_wu < copy_wg ? copy_wu : copy_wg;  // one mode for both tiles
   const bool vec_out = N % 4 == 0 && (reinterpret_cast<size_t>(out) & 7) == 0;
   if (p.bm == 128) {
-    constexpr int smem = TileBf16<128, 128>::kSmem;
-    return launch<mm_tiled_bf16<128, 128>>(kThreads, p.slices, tiles, smem, smem, stream, x, w,
-                                           bias, out, M, N, K, p.k_slice, act, copy_x, copy_w,
-                                           vec_out);
+    constexpr int BN = Gated ? 64 : 128;
+    constexpr int smem = TileBf16<128, BN, Gated>::kSmem;
+    return launch<mm_tiled_bf16<128, BN, Gated>>(kThreads, p.slices, tiles, smem, smem, stream,
+                                                 x, w, wu, bias, out, M, N, K, p.k_slice, act,
+                                                 copy_x, copy_w, vec_out);
   }
-  constexpr int smem = TileBf16<64, 64>::kSmem;
-  return launch<mm_tiled_bf16<64, 64>>(kThreads, p.slices, tiles, smem, smem, stream, x, w, bias,
-                                       out, M, N, K, p.k_slice, act, copy_x, copy_w, vec_out);
+  constexpr int smem = TileBf16<64, 64, Gated>::kSmem;
+  return launch<mm_tiled_bf16<64, 64, Gated>>(kThreads, p.slices, tiles, smem, smem, stream, x,
+                                              w, wu, bias, out, M, N, K, p.k_slice, act, copy_x,
+                                              copy_w, vec_out);
+}
+
+// the bf16 form's checks and launch: the tiled plan only
+template <bool Gated>
+int run_bf16(const Plan& p, const ptt::bf16* x, const ptt::bf16* w, const ptt::bf16* wu,
+             const ptt::bf16* bias, ptt::bf16* out, int M, int N, int K, int act,
+             cudaStream_t stream) {
+  if (M < 0 || N < 0 || K < 0 || act < kIdentity || act > kSwish || p.form != kTiled ||
+      !plan_ok(p, M, K, Gated))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t e = run_tiled_bf16<Gated>(p, x, w, wu, bias, out, M, N, K, act, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MR, bool Gated>
@@ -795,14 +843,8 @@ extern "C" int ptt_matmul_bias_act_bf16(const ptt::bf16* x, const ptt::bf16* w,
                                         const ptt::bf16* bias, ptt::bf16* out, int M, int N,
                                         int K, int act, int form, int bm, int bn, int slices,
                                         int k_slice, cudaStream_t stream) {
-  const Plan p{form, bm, bn, slices, k_slice};
-  if (M < 0 || N < 0 || K < 0 || act < kIdentity || act > kSwish || form != kTiled ||
-      !plan_ok(p, M, K, false))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
-  const cudaError_t e = run_tiled_bf16(p, x, w, bias, out, M, N, K, act, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return run_bf16<false>(Plan{form, bm, bn, slices, k_slice}, x, w, nullptr, bias, out, M, N,
+                         K, act, stream);
 }
 
 extern "C" int ptt_matmul_swiglu(const float* x, const float* wg, const float* wu,
@@ -810,4 +852,14 @@ extern "C" int ptt_matmul_swiglu(const float* x, const float* wg, const float* w
                                  int slices, int k_slice, cudaStream_t stream) {
   return run<true>(Plan{form, bm, bn, slices, k_slice}, x, wg, wu, nullptr, out, M, N, K,
                    kIdentity, stream);
+}
+
+// the bf16 form of matmul_swiglu: the tiled plan only (form 0, bm x bn 128
+// x 64 or 64 x 64)
+extern "C" int ptt_matmul_swiglu_bf16(const ptt::bf16* x, const ptt::bf16* wg,
+                                      const ptt::bf16* wu, ptt::bf16* out, int M, int N, int K,
+                                      int form, int bm, int bn, int slices, int k_slice,
+                                      cudaStream_t stream) {
+  return run_bf16<true>(Plan{form, bm, bn, slices, k_slice}, x, wg, wu, nullptr, out, M, N, K,
+                        kIdentity, stream);
 }

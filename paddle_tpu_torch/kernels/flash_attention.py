@@ -66,6 +66,18 @@ raise.  The tile kernels run each launch in the form flash_plan gives
 SIMT FP32 tiles at 128.  The forms are ``torch.autograd.Function``s
 (the reference's ``jax.custom_vjp``): the forward saves o and lse, the backward launches
 dq and dk/dv in a nested function.  Each form counts its own launches.
+
+bf16: the training form's three kernels have bf16 forms
+(``csrc/flash_attention_bf16.cu``: bf16 q, k, v and dO; the key bias,
+lse and delta float32; o, dq, dk, dv rounded once from float32
+accumulators; bf16 ``mma.sync`` tiles at head dim 64, the SIMT form
+widening its operands at 128), counted under
+``flash_attention_{fwd,dq,dkv}_bf16``.  ``flash_plan`` gives the same
+form for a shape in both dtypes.  The few-row form (B3d), the piece
+(B9) and the qvec form (B8) refuse bf16 (ROADMAP A3 (b), the bf16 KV
+caches).  The plain versions follow the Pallas kernels' arithmetic in
+bf16: q, k and v widened before the score product, p and dS float32 in
+the second products, each output rounded once.
 """
 
 import collections
@@ -82,7 +94,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "attention_scores",
            "flash_attention_piece_grad_plain", "flash_attention_piece_fwd",
            "flash_attention_piece_dq", "flash_attention_piece_dkv",
            "flash_attention_qvec", "flash_attention_qvec_plain",
-           "flash_attention_qvec_dq", "flash_attention_qvec_dkv", "NEG_INF"]
+           "flash_attention_qvec_dq", "flash_attention_qvec_dkv",
+           "flash_attention_fwd_bf16", "flash_attention_dq_bf16",
+           "flash_attention_dkv_bf16", "NEG_INF"]
 
 NEG_INF = -1e30
 # the qvec forward's split (qvec_plan): QVEC_WARPS[d] warps a block (8
@@ -169,7 +183,9 @@ def flash_plan(kernel, tq, tk, d):
     (scripts/flash_attention_forms_check.py).  Head dim 128 takes the
     SIMT form (64-row blocks walking 64-key tiles, dk/dv 32-query tiles),
     whose resident operands fit the registers.  A function of the shape
-    alone, never of the data, the masks or the query base."""
+    alone, never of the data, the masks or the query base; the bf16
+    forms take the same rule (their tensor-core tiles are bf16
+    ``mma.sync``, their SIMT form widens the operands)."""
     if d == 64 and (kernel != "dq" or tq > 64 or tk > 64):
         return FLASH_TC
     return FLASH_SIMT
@@ -194,10 +210,12 @@ def attention_scores(q, k, kbias, causal, scale, qbase=None, window=0,
     """[BH, Tq, Tk] float32 scores with the key bias, the causal and
     window masks and the segment mask (NEG_INF) applied; query i of row
     b at global position qbase[b] + i (a one-element qbase serves every
-    row), keys at their indices; seg [BH, T] segment ids."""
+    row), keys at their indices; seg [BH, T] segment ids.  q and k are
+    widened to float32 before the product, as the Pallas kernels do (a
+    no-op in float32; bf16 products are exact there)."""
     _check_form("attention_scores", q.shape[1], k.shape[1], causal, qbase,
                 int(window), seg)
-    s = torch.einsum("bqd,bkd->bqk", q, k).float() * float(scale)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * float(scale)
     if kbias is not None:
         s = s + kbias[:, None, :].float()
     if seg is not None:
@@ -224,7 +242,9 @@ def flash_attention_plain(q, k, v, kbias=None, causal=False, scale=None,
     max and exp(s - lse) would weigh each top key by 1.  Those rows are
     renormalized, weighing the keys alike as _flash_fwd_kernel's acc / l
     and the reference's softmax do; every other row keeps exp(s - lse)
-    bit for bit."""
+    bit for bit.  p stays float32 for p v over the widened v and o is
+    rounded once to q's dtype: the Pallas kernel's arithmetic in bf16,
+    where the reference's dense path would round p first."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = attention_scores(q, k, kbias, causal, scale, qbase, window, seg)
@@ -232,7 +252,7 @@ def flash_attention_plain(q, k, v, kbias=None, causal=False, scale=None,
     p = torch.exp(s - lse[..., None])
     p = torch.where((lse == s.amax(-1))[..., None],
                     p / p.sum(-1, keepdim=True), p)
-    return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v), lse
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype), lse
 
 
 def flash_attention_grad_plain(q, k, v, kbias, lse, do, delta, causal=False,
@@ -341,9 +361,14 @@ def _fwd(name, q, k, v, kbias, causal, scale, qbase=None, window=0,
     qb, stride = _qbase_arg(qbase, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    build.launch("ptt_flash_attention_fwd", q, k, v, kbias, qb, o, lse, bh,
-                 tq, tk, d, flash_plan("fwd", tq, tk, d), int(bool(causal)),
-                 stride, float(scale), int(window), _seg_arg(seg))
+    # the bf16 entry point takes only the training form's calls:
+    # check_inputs refuses bf16 for the based ones
+    bf16 = q.dtype == torch.bfloat16
+    build.launch("ptt_flash_attention_fwd_bf16" if bf16
+                 else "ptt_flash_attention_fwd", q, k, v, kbias, qb, o,
+                 lse, bh, tq, tk, d, flash_plan("fwd", tq, tk, d),
+                 int(bool(causal)), stride, float(scale), int(window),
+                 _seg_arg(seg))
     return o, lse
 
 
@@ -355,8 +380,9 @@ def _dq(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None,
         scale = d ** -0.5
     qb, stride = _qbase_arg(qbase, q.device)
     dq = torch.empty_like(q)
-    build.launch("ptt_flash_attention_dq", q, k, v, kbias, qb, lse, do, delta,
-                 dq, bh, tq, tk, d, flash_plan("dq", tq, tk, d),
+    build.launch("ptt_flash_attention_dq_bf16" if q.dtype == torch.bfloat16
+                 else "ptt_flash_attention_dq", q, k, v, kbias, qb, lse,
+                 do, delta, dq, bh, tq, tk, d, flash_plan("dq", tq, tk, d),
                  int(bool(causal)), stride, float(scale), int(window),
                  _seg_arg(seg))
     return dq
@@ -373,8 +399,9 @@ def _dkv(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None,
     dv = torch.empty_like(v)
     dkb = (torch.empty((bh, tk), dtype=torch.float32, device=q.device)
            if kbias is not None else None)
-    build.launch("ptt_flash_attention_dkv", q, k, v, kbias, qb, lse, do,
-                 delta, dk, dv, dkb, bh, tq, tk, d,
+    build.launch("ptt_flash_attention_dkv_bf16" if q.dtype == torch.bfloat16
+                 else "ptt_flash_attention_dkv", q, k, v, kbias, qb, lse,
+                 do, delta, dk, dv, dkb, bh, tq, tk, d,
                  flash_plan("dkv", tq, tk, d), int(bool(causal)), stride,
                  float(scale), int(window), _seg_arg(seg))
     return dk, dv, dkb
@@ -427,7 +454,8 @@ def flash_attention_fwd(q, k, v, kbias=None, causal=False, scale=None,
         return flash_attention_fwd_rows(q, k, v, kbias, scale)
     out = _fwd("flash_attention_fwd", q, k, v, kbias, causal, scale, None,
                window, seg)
-    flash_attention_fwd.launches += 1
+    (flash_attention_fwd_bf16 if q.dtype == torch.bfloat16
+     else flash_attention_fwd).launches += 1
     return out
 
 
@@ -441,7 +469,8 @@ def flash_attention_dq(q, k, v, kbias, lse, do, delta, causal=False,
                                           seg)[0]
     dq = _dq("flash_attention_dq", q, k, v, kbias, lse, do, delta, causal,
              scale, None, window, seg)
-    flash_attention_dq.launches += 1
+    (flash_attention_dq_bf16 if q.dtype == torch.bfloat16
+     else flash_attention_dq).launches += 1
     return dq
 
 
@@ -456,7 +485,8 @@ def flash_attention_dkv(q, k, v, kbias, lse, do, delta, causal=False,
         return dk, dv, (dkb if kbias is not None else None)
     out = _dkv("flash_attention_dkv", q, k, v, kbias, lse, do, delta, causal,
                scale, None, window, seg)
-    flash_attention_dkv.launches += 1
+    (flash_attention_dkv_bf16 if q.dtype == torch.bfloat16
+     else flash_attention_dkv).launches += 1
     return out
 
 
@@ -518,6 +548,12 @@ def flash_attention_qvec_dkv(q, k, v, lse, do, delta, qstart, scale=None):
                      delta, True, scale, qstart)
     flash_attention_qvec_dkv.launches += 1
     return dk, dv
+
+
+# the bf16 forms' launches count apart from the float32 forms'
+flash_attention_fwd_bf16 = build.LaunchCount("flash_attention_fwd_bf16")
+flash_attention_dq_bf16 = build.LaunchCount("flash_attention_dq_bf16")
+flash_attention_dkv_bf16 = build.LaunchCount("flash_attention_dkv_bf16")
 
 
 for _fn in (flash_attention_fwd, flash_attention_fwd_rows,
@@ -601,8 +637,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, kbias=None, causal=False, scale=None, window=0,
                     seg=None):
-    """Attention over q [BH, Tq, d], k/v [BH, Tk, d] float32, with an
-    optional additive key bias [BH, Tk], causal masking (Tq == Tk), an
+    """Attention over q [BH, Tq, d], k/v [BH, Tk, d] float32 or bf16, with
+    an optional additive float32 key bias [BH, Tk], causal masking (Tq == Tk), an
     optional sliding window (causal only) and optional [BH, T] integer
     segment ids (Tq == Tk).  Differentiable in q, k, v and kbias (the
     backward runs the dq and dk/dv kernels on CUDA tensors); the segment
@@ -656,13 +692,13 @@ def flash_attention_qvec_plain(q, k, v, qstart, scale=None):
     tk = k.shape[1]
     if scale is None:
         scale = d ** -0.5
-    s = torch.einsum("bqd,bkd->bqk", q, k).float() * float(scale)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * float(scale)
     q_pos = (qstart.reshape(bh, 1).long()
              + torch.arange(tq, device=q.device)[None, :])
     keep = q_pos[:, :, None] >= torch.arange(tk, device=q.device)[None, None, :]
     s = torch.where(keep, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
 def _qvec_forward(q, k, v, qstart, scale, with_lse):

@@ -143,10 +143,5 @@ def fused_layer_norm(x2d, gamma, beta, eps=1e-5):
 fused_layer_norm.launches = 0
 
 
-def fused_layer_norm_bf16(x2d, gamma, beta, eps=1e-5):
-    """fused_layer_norm on a bfloat16 x2d: the kernel's bf16 form, under a
-    name of its own so that its launches count apart."""
-    return fused_layer_norm(x2d, gamma, beta, eps)
-
-
-fused_layer_norm_bf16.launches = 0
+# the bf16 form's launches count apart from the float32 form's
+fused_layer_norm_bf16 = build.LaunchCount("fused_layer_norm_bf16")

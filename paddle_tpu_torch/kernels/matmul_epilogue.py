@@ -234,11 +234,5 @@ def matmul_bias_act(x2d, w, bias=None, act=""):
 matmul_bias_act.launches = 0
 
 
-def matmul_bias_act_bf16(x2d, w, bias=None, act=""):
-    """matmul_bias_act on bfloat16 x2d, w and bias: the kernel's bf16
-    form, under a name of its own so that its launches count apart
-    (``matmul_bias_act`` dispatches bf16 inputs to it the same way)."""
-    return matmul_bias_act(x2d, w, bias, act)
-
-
-matmul_bias_act_bf16.launches = 0
+# the bf16 form's launches count apart from the float32 form's
+matmul_bias_act_bf16 = build.LaunchCount("matmul_bias_act_bf16")

@@ -16,6 +16,16 @@ the dense recompute of the reference's ``_swiglu_vjp_bwd`` (its
 du = dy g s, dg = dy u s (1 + g (1 - s)), dx = dg wg^T + du wu^T,
 dwg = x^T dg, dwu = x^T du.  The JAX package has no backward kernel for
 it either.
+
+bf16: x, wg and wu bfloat16 (the AMP pass flips ``fused_swiglu``) launch
+the kernel's bf16 form (entry point ``ptt_matmul_swiglu_bf16``, the gated
+form of ``mm_tiled_bf16`` on ``mm_plan(gated=True, bf16=True)``): both
+products on bf16 ``mma.sync`` with float32 accumulation, silu(g) u in
+float32, the output rounded once, as ``_swiglu_kernel`` does with its
+``preferred_element_type=float32`` dots.  Its launches count under
+``matmul_swiglu_bf16``.  The backward stays the dense recompute above on
+the widened operands (float32 products, each grad rounded once to its
+operand's dtype), as the reference's ``jax.vjp(_swiglu_dense)``.
 """
 
 import torch
@@ -23,7 +33,7 @@ import torch
 from . import build
 from .matmul_epilogue import check_extent, mm_plan
 
-__all__ = ["matmul_swiglu", "matmul_swiglu_plain"]
+__all__ = ["matmul_swiglu", "matmul_swiglu_bf16", "matmul_swiglu_plain"]
 
 
 def matmul_swiglu_plain(x2d, wg, wu):
@@ -36,17 +46,19 @@ def _swiglu_forward(x2d, wg, wu):
     if not build.use_kernel(x2d):
         return matmul_swiglu_plain(x2d, wg, wu)
     build.check_inputs("matmul_swiglu", x2d, wg, wu)
+    bf16 = x2d.dtype == torch.bfloat16
     M, K = x2d.shape
     if wg.dim() != 2 or wg.shape[0] != K or wu.shape != wg.shape:
         raise build.KernelInputError(
             "matmul_swiglu: shapes x %s, wg %s, wu %s" % (
                 tuple(x2d.shape), tuple(wg.shape), tuple(wu.shape)))
     N = wg.shape[1]
-    plan = mm_plan(M, N, K, gated=True)
+    plan = mm_plan(M, N, K, gated=True, bf16=bf16)
     check_extent("matmul_swiglu", M, N, K, plan)
     out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    build.launch("ptt_matmul_swiglu", x2d, wg, wu, out, M, N, K, *plan)
-    matmul_swiglu.launches += 1
+    build.launch("ptt_matmul_swiglu_bf16" if bf16 else "ptt_matmul_swiglu",
+                 x2d, wg, wu, out, M, N, K, *plan)
+    (matmul_swiglu_bf16 if bf16 else matmul_swiglu).launches += 1
     return out
 
 
@@ -81,3 +93,7 @@ def matmul_swiglu(x2d, wg, wu):
 
 
 matmul_swiglu.launches = 0
+
+
+# the bf16 form's launches count apart from the float32 form's
+matmul_swiglu_bf16 = build.LaunchCount("matmul_swiglu_bf16")

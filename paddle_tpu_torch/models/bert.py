@@ -17,8 +17,11 @@ gives the reference's parameter names, and weights cross between the
 packages by name (``paddle_tpu_torch.io.params_from_numpy``).  Options
 not ported yet raise: ``hp.recompute`` (ROADMAP A9).
 ``bert_pretrain_program``'s ``use_bf16`` applies ``bf16_amp_pass``; on
-the card its bf16 attention and B7 raise until their bf16 forms are
-ported (ROADMAP B).  Its ``mesh``
+the card its attention runs B3's bf16 forms with ``fused_attn`` (the
+key-padding bias float32) and matmul + softmax without, beside the bf16
+forms of B5, B4 and the MLM transform's B1; the NSP head's
+``softmax_with_cross_entropy`` stays float32 under the pass, so B7 runs
+its float32 form.  Its ``mesh``
 stamps the program with the family's training rules: the executor runs
 the vocab projection's slab and raises for the trunk's entries (A7).
 """

@@ -21,8 +21,10 @@ and ``ffn_up.w`` in place of ``ffn_in.w``, its hidden width 2/3 of 4 d
 rounded up to ``ffn_multiple_of``; the matmul_swiglu kernel).  Options
 not ported yet raise: ``recompute`` (ROADMAP A9).
 ``gpt2_lm_program``'s ``use_bf16`` applies ``bf16_amp_pass``; on the
-card its bf16 ``fused_attention`` raises until B3's bf16 forms are
-ported (ROADMAP B).  Its ``mesh``
+card its bf16 ``fused_attention`` runs B3's bf16 forms (forward, dq,
+dk/dv) and the modern decoder's bf16 ``fused_swiglu`` B6's, beside the
+bf16 forms of B5 and B4 (the residual stream's B2 and ``ln_f``'s B1
+stay float32, as the reference's AMP pass leaves them).  Its ``mesh``
 stamps the program with the family's training rules: the executor runs
 the vocab projection's slab and raises for the trunk's entries (A7).
 """

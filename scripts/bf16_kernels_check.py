@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Holds the bf16 forms of four kernels against their plain versions on
+"""Holds the bf16 forms of six kernels against their plain versions on
 the card, and times them at the bf16 paths' shapes:
 
 - matmul_bias_act (B5, csrc/matmul_bias_act.cu's mm_tiled_bf16): the WMT
@@ -12,15 +12,34 @@ the card, and times them at the bf16 paths' shapes:
 - fused_linear_xent's three kernels (B4, csrc/linear_xent_bf16.cu): x
   4096 x 512, w 512 x 10000, eps 0.1 (WMT) and BERT's MLM head, x 4096 x
   768, w 768 x 30522, against torch.matmul + F.cross_entropy in bf16
-  (forward; forward and backward for dx and dw).
+  (forward; forward and backward for dx and dw);
+- flash attention's forward, dq and dk/dv (B3,
+  csrc/flash_attention_bf16.cu): GPT-2 96 x 1024 x 64 causal, TinyLlama
+  64 x 2048 x 64 causal, BERT 384 x 128 x 64 with a key-padding bias,
+  WMT 512 x 64 x 64 with a key bias, causal, and Tq != Tk (64 queries
+  over 96 keys), the packed 96 x 1024 x 64 with segment ids and window
+  256, d 128 (the SIMT form widening its operands) and a row whose keys
+  are all at NEG_INF, against the plain versions (float32 arithmetic on
+  the widened operands) and scaled_dot_product_attention in bf16
+  (forward, and forward and backward);
+- matmul_swiglu (B6, csrc/matmul_bias_act.cu's gated mm_tiled_bf16):
+  TinyLlama's [4096, 2048] @ [2048, 5632] and M, N off the tile, against
+  two bf16 matmuls and silu(g) u.
 
 Each form first meets its plain version at the path shapes and at the
 edges of its staging (K, N, H or V not a multiple of 8: element loads in
 place of 16-byte copies; ragged M, R and V; K slices; H past one pass of
-dx / dw; labels -1 and V), every rerun bit-equal.  Limits: a bf16
+dx / dw; labels -1 and V; segment ids, windows, Tq != Tk, ragged T,
+an all-NEG_INF key row), every rerun bit-equal.  Limits: a bf16
 output within one bf16 unit in the last place of the plain version
 (|d| <= 2^-7 |plain| + 1e-5 max |plain|: both round a float32 value
-that differs only in the order of its sums); B4's loss and lse
+that differs only in the order of its sums); flash attention's and
+matmul_swiglu's bf16 outputs within one bf16 unit in the last place of
+their largest magnitude (_one_unit; p and dS reach the second products
+as a bf16 hi + lo pair) and equal to the plain version in 98% of their
+elements (EQUAL_MIN, which a control with p and dS rounded once must
+fail), the lse within 1e-5 relative, dkbias within
+1e-4 of its largest magnitude; B4's loss and lse
 (float32) within 1e-5 of the largest magnitude; its dx and dw within
 1e-2 of the largest magnitude (g is rounded to bf16 before the product,
 and a float32 logit that differs in its last bits may round g the other
@@ -34,7 +53,9 @@ chip_smoke.py's kernel phase calls check_bf16(); its records are the
 bf16 forms' entries of the kernels line.
 """
 
+import importlib
 import json
+import math
 import os
 import sys
 
@@ -358,6 +379,339 @@ def _lxent_times(cs, dev, randn, g, R, H, V, eps, slow):
     return out
 
 
+# flash attention (B3): (label, BH, Tq, Tk, d, causal, key bias, window,
+# segment ids): the four paths' shapes, the packed form, d 128, a row
+# whose keys all sit at NEG_INF
+FLASH_CASES = (
+    ("gpt2", 96, 1024, 1024, 64, True, None, 0, False),
+    ("tinyllama", 64, 2048, 2048, 64, True, None, 0, False),
+    ("bert", 384, 128, 128, 64, False, "padding", 0, False),
+    ("wmt", 512, 64, 64, 64, False, "random", 0, False),
+    ("wmt_causal", 512, 64, 64, 64, True, None, 0, False),
+    ("cross", 64, 64, 96, 64, False, "padding", 0, False),
+    ("packed", 96, 1024, 1024, 64, True, None, 256, True),
+    ("d128", 16, 300, 300, 128, True, "random", 0, False),
+    ("d128_bias", 16, 200, 333, 128, False, "padding", 0, False),
+    ("masked_row", 8, 200, 200, 64, False, "masked", 0, False),
+    ("ragged", 6, 77, 77, 64, True, "random", 40, False),
+)
+# matmul_swiglu (B6): (M, K, N): TinyLlama's FFN, then M and N off the
+# tile (and K off a stage), the staging edges
+SWIGLU_CASES = ((4096, 2048, 5632), (200, 1000, 333), (77, 512, 96),
+                (4096, 256, 72), (130, 2048, 5632))
+# the least share of a B3 or B6 bf16 output's elements equal to the plain
+# version's.  A float32 value that differs by e relative from the plain
+# one rounds the other way at about 2^8 e of the elements: the hi + lo
+# pair keeps p and dS to ~2^-17, so a few tenths of a percent flip, up
+# to ~1% in dq, whose sums cancel (each row's dS sums to zero); p or dS
+# rounded once to bf16 (2^-9) moves ~40%.  One unit of the largest
+# magnitude, the limit above, cannot tell these apart: a single flip
+# near the top moves that far.
+EQUAL_MIN = 0.98
+
+
+def _one_unit(out, ref):
+    """max |out - ref| over one bf16 unit in the last place of ref's
+    largest magnitude (2^(e - 7) for a largest magnitude in [2^e,
+    2^(e + 1)): a single rounding of a float32 value that differs in its
+    last bits, which may go the other way at any element, moves an
+    element by at most that), <= 1 within the limit; and the max
+    |out - ref|."""
+    d = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    return d / (2.0 ** (math.floor(math.log2(top)) - 7) if top > 0
+                else 1e-30), d
+
+
+def _equal_share(out, ref):
+    """The share of out's elements equal to ref's, bit for bit."""
+    return (out == ref).float().mean().item()
+
+
+def _rounded_once(fa, q, k, v, kb, lse, do, delta, causal, scale, window,
+                  ids):
+    """The control for EQUAL_MIN: the plain versions' arithmetic with p
+    and dS each rounded once to bf16 before its second product, as a
+    kernel feeding them to one bf16 product (no lo part) would; (o, dq,
+    dk, dv) in bf16."""
+    import torch
+
+    bf = torch.bfloat16
+    s = fa.attention_scores(q, k, kb, causal, scale, None, window, ids)
+    p = torch.exp(s - lse[..., None])
+    dof, vf = do.float(), v.float()
+    ds = p * (torch.einsum("bqd,bkd->bqk", dof, vf) - delta[..., None])
+    p, ds = p.to(bf).float(), ds.to(bf).float()
+    return (torch.einsum("bqk,bkd->bqd", p, vf).to(bf),
+            (scale * torch.einsum("bqk,bkd->bqd", ds, k.float())).to(bf),
+            (scale * torch.einsum("bqk,bqd->bkd", ds, q.float())).to(bf),
+            torch.einsum("bqk,bqd->bkd", p, dof).to(bf))
+
+
+def _flash_inputs(randn, g, bh, tq, tk, d, bias, window, seg):
+    """bf16 q, k, v, dO, a float32 key bias of the asked kind and int32
+    segment ids."""
+    import torch
+
+    bf = torch.bfloat16
+    q, do = randn(bh, tq, d).to(bf), randn(bh, tq, d).to(bf)
+    k, v = randn(bh, tk, d).to(bf), randn(bh, tk, d).to(bf)
+    kb = None
+    if bias == "random":
+        kb = randn(bh, tk)
+    elif bias in ("padding", "masked"):
+        keep = torch.randint(tk // 2, tk + 1, (bh, 1), generator=g,
+                             device=q.device)
+        kb = torch.where(torch.arange(tk, device=q.device)[None] < keep,
+                         torch.zeros((), device=q.device),
+                         torch.full((), -1e9, device=q.device))
+        if bias == "masked":
+            kb[0] = -1e30  # every key of row 0 at NEG_INF
+    ids = None
+    if seg:
+        cuts = torch.sort(torch.randint(1, tq, (bh, 6), generator=g,
+                                        device=q.device), dim=1)[0]
+        ids = (torch.arange(tq, device=q.device)[None, None]
+               >= cuts[:, :, None]).sum(1).to(torch.int32)
+    return q, k, v, do, kb, ids
+
+
+def check_flash_attention(cs, dev, randn, g, times=True):
+    """B3's bf16 forward, dq and dk/dv against the plain versions at
+    FLASH_CASES, each rerun bit-equal, each output within one unit of its
+    largest magnitude and equal to the plain version in EQUAL_MIN of its
+    elements; at the first case, the p-rounded-once control
+    (_rounded_once) must fall below EQUAL_MIN; {name: record}."""
+    import torch
+
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+
+    err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    err_abs, lse_err, dkb_err = dict(err), 0.0, 0.0
+    equal = {"fwd": 1.0, "dq": 1.0, "dkv": 1.0}
+    control = None
+    for label, bh, tq, tk, d, causal, bias, window, seg in FLASH_CASES:
+        q, k, v, do, kb, ids = _flash_inputs(randn, g, bh, tq, tk, d, bias,
+                                             window, seg)
+        scale = d ** -0.5
+        forms = dict(window=window, seg=ids)
+        o, lse = fa.flash_attention_fwd(q, k, v, kb, causal, scale, **forms)
+        assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        p_o, p_lse = fa.flash_attention_plain(q, k, v, kb, causal, scale,
+                                              None, window, ids)
+        delta = fa._delta(o, do)
+        dq = fa.flash_attention_dq(q, k, v, kb, lse, do, delta, causal, scale,
+                                   **forms)
+        dk, dv, dkb = fa.flash_attention_dkv(q, k, v, kb, lse, do, delta,
+                                             causal, scale, **forms)
+        assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+        p_dq, p_dk, p_dv, p_dkb = fa.flash_attention_grad_plain(
+            q, k, v, kb, lse, do, delta, causal, scale, None, window, ids)
+        again = fa.flash_attention_fwd(q, k, v, kb, causal, scale, **forms)
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), (
+            "flash_attention_fwd bf16 rerun", label)
+        assert torch.equal(dq, fa.flash_attention_dq(
+            q, k, v, kb, lse, do, delta, causal, scale, **forms)), (
+            "flash_attention_dq bf16 rerun", label)
+        again = fa.flash_attention_dkv(q, k, v, kb, lse, do, delta, causal,
+                                       scale, **forms)
+        assert torch.equal(dk, again[0]) and torch.equal(dv, again[1]), (
+            "flash_attention_dkv bf16 rerun", label)
+        for key, pairs in (("fwd", ((o, p_o),)), ("dq", ((dq, p_dq),)),
+                           ("dkv", ((dk, p_dk), (dv, p_dv)))):
+            for got, want in pairs:
+                u, a = _one_unit(got, want)
+                err[key], err_abs[key] = max(err[key], u), max(err_abs[key], a)
+                equal[key] = min(equal[key], _equal_share(got, want))
+        if control is None:
+            ctl = _rounded_once(fa, q, k, v, kb, p_lse, do, delta, causal,
+                                scale, window, ids)
+            control = dict(zip(("fwd", "dq", "dk", "dv"), (
+                _equal_share(a, b) for a, b in zip(ctl, (p_o, p_dq, p_dk,
+                                                         p_dv)))))
+            print("flash attention bf16 %s: the p-rounded-once control "
+                  "equals the plain version in %s of its elements" % (
+                      label, {k_: "%.4f" % v_ for k_, v_ in control.items()}))
+            del ctl
+        lse_err = max(lse_err, ((lse - p_lse).abs()
+                                / p_lse.abs().clamp_min(1.0)).max().item())
+        if kb is not None:
+            dkb_err = max(dkb_err, (dkb - p_dkb).abs().max().item()
+                          / max(p_dkb.abs().max().item(), 1e-30))
+            if bias == "masked":
+                assert float(dq[0].float().abs().max()) == 0.0, label
+        print("flash attention bf16 %s [%d, %d / %d, %d]: units so far %s, "
+              "equal shares so far %s, lse %.3g, dkbias %.3g" % (
+                  label, bh, tq, tk, d,
+                  {k_: "%.3g" % v_ for k_, v_ in err.items()},
+                  {k_: "%.5f" % v_ for k_, v_ in equal.items()}, lse_err,
+                  dkb_err))
+        del q, k, v, do, o, dq, dk, dv, p_o, p_dq, p_dk, p_dv
+        torch.cuda.empty_cache()
+    assert max(err.values()) <= 1.0, ("flash attention bf16 disagrees", err)
+    assert min(equal.values()) >= EQUAL_MIN, (
+        "flash attention bf16 departs from the plain version", equal)
+    assert max(control.values()) < EQUAL_MIN, (
+        "the p-rounded-once control passes EQUAL_MIN", control)
+    assert lse_err <= 1e-5 and dkb_err <= 1e-4, (
+        "flash attention bf16 lse / dkbias disagree", lse_err, dkb_err)
+    rec = {}
+    for key, site in (("fwd", ":279"), ("dq", ":447"), ("dkv", ":471")):
+        rec["flash_attention_%s_bf16" % key] = dict(
+            route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/flash_attention_bf16.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site,
+            max_abs_err=err_abs[key], bf16_units=err[key],
+            equal_share=equal[key], control_equal_share=control,
+            max_lse_err=lse_err, dkbias_err=dkb_err)
+    if not times:
+        return rec
+    for c in FLASH_CASES[:5] + FLASH_CASES[6:7]:
+        for name, t in _flash_times(cs, randn, g, *c).items():
+            r = rec[name + "_bf16"]
+            if c[0] == "gpt2":
+                r.update(t)
+            else:
+                r.setdefault("per_shape", {})[c[0]] = t
+            print("%s bf16 %s: %s" % (name, c[0], json.dumps(
+                {k_: v_ for k_, v_ in t.items() if k_.endswith("ms")})))
+    return rec
+
+
+def _flash_times(cs, randn, g, label, bh, tq, tk, d, causal, bias, window,
+                 seg):
+    """The three bf16 kernels' times at one shape beside the plain
+    version and scaled_dot_product_attention in bf16 with the same mask
+    (forward; forward and backward for dq and dk/dv), given [1, BH, T, d]
+    so that its fused backends may take it.  The bound counts
+    the visible pairs (the kernels skip the tiles outside the causal band
+    and the window, not those of other segments) at bf16's rate."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+
+    q, k, v, do, kb, ids = _flash_inputs(randn, g, bh, tq, tk, d, bias,
+                                         window, seg)
+    scale = d ** -0.5
+    forms = dict(window=window, seg=ids)
+    mask = None if kb is None else kb[:, None, :].to(torch.bfloat16)
+    if window or ids is not None:
+        vis = cs._visible(tq, causal, window, ids, q.device)
+        mask = torch.where(vis, torch.zeros((), device=q.device),
+                           torch.full((), float("-inf"), device=q.device)
+                           ).to(torch.bfloat16)
+        pairs = int(vis.sum()) * (bh if vis.shape[0] == 1 else 1)
+    else:
+        pairs = bh * (tq * (tq + 1) // 2 if causal else tq * tk)
+    o, lse = fa.flash_attention_fwd(q, k, v, kb, causal, scale, **forms)
+    delta = fa._delta(o, do)
+    qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
+
+    def library(q_, k_, v_):
+        # [1, BH, T, d]: the fused backends take 4-D operands only
+        return F.scaled_dot_product_attention(
+            q_[None], k_[None], v_[None],
+            attn_mask=None if mask is None else mask[None],
+            is_causal=causal and mask is None, scale=scale)[0]
+
+    def library_fwd_bwd():
+        return torch.autograd.grad(library(qg, kg, vg), (qg, kg, vg), do)
+
+    plain_grad = cs._events_ms(lambda: fa.flash_attention_grad_plain(
+        q, k, v, kb, lse, do, delta, causal, scale, None, window, ids))
+    lib_fwd_bwd = cs._events_ms(library_fwd_bwd)
+    qrow, krow = 2 * bh * tq * d, 2 * bh * tk * d  # bytes of a bf16 operand
+    extra = (0 if kb is None else 4 * bh * tk) + (0 if ids is None
+                                                 else 4 * bh * tk)
+    specs = (
+        ("flash_attention_fwd",
+         lambda: fa.flash_attention_fwd(q, k, v, kb, causal, scale, **forms),
+         lambda: fa.flash_attention_plain(q, k, v, kb, causal, scale, None,
+                                          window, ids),
+         lambda: library(q, k, v),
+         2 * qrow + 2 * krow + 4 * bh * tq + extra, 4 * pairs * d),
+        ("flash_attention_dq",
+         lambda: fa.flash_attention_dq(q, k, v, kb, lse, do, delta, causal,
+                                       scale, **forms), None, None,
+         3 * qrow + 2 * krow + 8 * bh * tq + extra, 6 * pairs * d),
+        ("flash_attention_dkv",
+         lambda: fa.flash_attention_dkv(q, k, v, kb, lse, do, delta, causal,
+                                        scale, **forms), None, None,
+         2 * qrow + 4 * krow + 8 * bh * tq + extra
+         + (0 if kb is None else 4 * bh * tk), 8 * pairs * d),
+    )
+    out = {}
+    for name, kern, plain, lib, nbytes, flops in specs:
+        out[name] = dict(
+            shape="q [%d, %d, %d], k, v [%d, %d, %d] bf16, %s%s%s%s" % (
+                bh, tq, d, bh, tk, d, "causal" if causal else "not causal",
+                "" if kb is None else ", float32 key bias",
+                ", window %d" % window if window else "",
+                ", segment ids" if ids is not None else "")
+            + ("" if plain else "; plain_ms is the plain backward (dq, dk "
+               "and dv together), library_ms scaled_dot_product_attention "
+               "forward and backward"),
+            ms=cs._time_ms(kern, reps=5, inner=5),
+            plain_ms=cs._time_ms(plain, reps=5, inner=5) if plain
+            else plain_grad,
+            library_ms=cs._time_ms(lib, reps=5, inner=5) if lib
+            else lib_fwd_bwd,
+            **_bound(cs, nbytes, flops))
+    return out
+
+
+def check_matmul_swiglu(cs, dev, randn, times=True):
+    """B6's bf16 form against matmul_swiglu_plain at SWIGLU_CASES, each
+    rerun bit-equal; its record."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import matmul_epilogue as me
+    from paddle_tpu_torch.kernels import matmul_swiglu, matmul_swiglu_plain
+
+    bf = torch.bfloat16
+    worst, err, equal = 0.0, 0.0, 1.0
+    for m, k, n in SWIGLU_CASES:
+        x = randn(m, k).to(bf)
+        wg, wu = (randn(k, n, scale=k ** -0.5).to(bf) for _ in range(2))
+        out = matmul_swiglu(x, wg, wu)
+        assert out.dtype == bf and out.shape == (m, n)
+        want = matmul_swiglu_plain(x, wg, wu)
+        u, a = _one_unit(out, want)
+        worst, err = max(worst, u), max(err, a)
+        equal = min(equal, _equal_share(out, want))
+        assert torch.equal(out, matmul_swiglu(x, wg, wu)), (
+            "matmul_swiglu bf16 rerun", m, k, n)
+        print("matmul_swiglu bf16 [%d, %d] @ [%d, %d]: plan %s, units %.3g, "
+              "equal share %.5f" % (m, k, k, n, tuple(me.mm_plan(
+                  m, n, k, gated=True, bf16=True)), worst, equal))
+    assert worst <= 1.0, ("matmul_swiglu bf16 disagrees", worst)
+    assert equal >= EQUAL_MIN, ("matmul_swiglu bf16 departs from the plain "
+                                "version", equal)
+    rec = dict(route="cuda",
+               source="paddle_tpu_torch/kernels/csrc/matmul_bias_act.cu",
+               replaces="paddle_tpu/ops/pallas_kernels.py:1302",
+               max_abs_err=err, bf16_units=worst, equal_share=equal)
+    if not times:
+        return rec
+    m, k, n = SWIGLU_CASES[0]
+    x = randn(m, k).to(bf)
+    wg, wu = (randn(k, n, scale=k ** -0.5).to(bf) for _ in range(2))
+    rec.update(
+        shape="TinyLlama FFN x [%d, %d] @ wg, wu [%d, %d], bf16" % (m, k, k,
+                                                                   n),
+        ms=cs._time_ms(lambda: matmul_swiglu(x, wg, wu)),
+        plain_ms=cs._time_ms(lambda: matmul_swiglu_plain(x, wg, wu)),
+        library_ms=cs._time_ms(
+            lambda: F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu)),
+        plan=list(me.mm_plan(m, n, k, gated=True, bf16=True)),
+        **_bound(cs, 2 * (m * k + 2 * k * n + m * n), 4 * m * k * n))
+    print("matmul_swiglu bf16: %s" % json.dumps(
+        {k_: v_ for k_, v_ in rec.items() if k_.endswith("ms")}))
+    return rec
+
+
 def check_bf16(cs, dev, randn, g, times=True):
     """{name: record} of the bf16 forms, named as their launch counters
     (matmul_bias_act_bf16, ...)."""
@@ -367,12 +721,15 @@ def check_bf16(cs, dev, randn, g, times=True):
     cs._print_ptxas("linear_xent_bf16.cu", ("lxent",))
     cs._print_ptxas("layer_norm.cu", ("bf16",))
     cs._print_ptxas("add_layer_norm.cu", ("bf16",))
-    rec = {"matmul_bias_act_bf16": check_matmul(cs, dev, randn, times),
+    cs._print_ptxas("flash_attention_bf16.cu", ("bf16", "simt"))
+    rec = {"matmul_swiglu_bf16": check_matmul_swiglu(cs, dev, randn, times),
+           "matmul_bias_act_bf16": check_matmul(cs, dev, randn, times),
            "fused_layer_norm_bf16": check_layer_norm(cs, dev, randn, times),
            "fused_add_layer_norm_bf16": check_add_layer_norm(cs, dev, randn,
                                                              times)}
     for name, r in check_linear_xent(cs, dev, randn, g, times).items():
         rec[name + "_bf16"] = r
+    rec.update(check_flash_attention(cs, dev, randn, g, times))
     torch.cuda.synchronize()
     return rec
 

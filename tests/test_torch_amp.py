@@ -91,15 +91,23 @@ def _tiny_wmt(base, **kw):
     return type("Tiny", (base,), attrs)
 
 
-def _tiny_gpt2(base):
-    return type("Tiny", (base,), dict(vocab_size=61, n_ctx=32, d_model=64,
-                                      n_layer=2, n_head=4, dropout=0.0))
+def _tiny_gpt2(base, **kw):
+    attrs = dict(vocab_size=61, n_ctx=32, d_model=64, n_layer=2, n_head=4,
+                 dropout=0.0)
+    attrs.update(kw)
+    return type("Tiny", (base,), attrs)
 
 
-def _tiny_bert(base):
-    return type("Tiny", (base,), dict(vocab_size=61, d_model=64, n_layer=2,
-                                      n_head=4, d_inner_hid=128,
-                                      max_position=16))
+# the modern-decoder options together: SwiGLU, rotary, grouped-query
+MODERN = dict(n_kv_head=2, use_rotary=True, use_swiglu=True,
+              ffn_multiple_of=8)
+
+
+def _tiny_bert(base, **kw):
+    attrs = dict(vocab_size=61, d_model=64, n_layer=2, n_head=4,
+                 d_inner_hid=128, max_position=16)
+    attrs.update(kw)
+    return type("Tiny", (base,), attrs)
 
 
 def _same_json(ref, port):
@@ -129,18 +137,23 @@ def _programs(model):
                 port_tfm.wmt_transformer_program(
                     _tiny_wmt(port_tfm.ModelHyperParams, fused_attn=fa),
                     src_len=SRC, trg_len=TRG, use_bf16=True)[0])
-    if model == "gpt2":
-        return (ref_gpt2.gpt2_lm_program(_tiny_gpt2(ref_gpt2.GPT2Config),
-                                         seq_len=16, use_bf16=True)[0],
-                port_gpt2.gpt2_lm_program(_tiny_gpt2(port_gpt2.GPT2Config),
-                                          seq_len=16, use_bf16=True)[0])
-    if model == "bert":
+    if model.startswith("gpt2"):
+        kw = MODERN if model == "gpt2_modern" else {}
+        return (ref_gpt2.gpt2_lm_program(
+                    _tiny_gpt2(ref_gpt2.GPT2Config, **kw), seq_len=16,
+                    use_bf16=True)[0],
+                port_gpt2.gpt2_lm_program(
+                    _tiny_gpt2(port_gpt2.GPT2Config, **kw), seq_len=16,
+                    use_bf16=True)[0])
+    if model.startswith("bert"):
+        kw = dict(fused_attn=model == "bert_fused_attn")
         with fluid.unique_name.guard():
             ref = ref_bert.bert_pretrain_program(
-                _tiny_bert(ref_bert.BertConfig), seq_len=16, use_bf16=True)[0]
+                _tiny_bert(ref_bert.BertConfig, **kw), seq_len=16,
+                use_bf16=True)[0]
         with unique_name.guard():
             port = port_bert.bert_pretrain_program(
-                _tiny_bert(port_bert.BertConfig), seq_len=16,
+                _tiny_bert(port_bert.BertConfig, **kw), seq_len=16,
                 use_bf16=True)[0]
         return ref, port
     nhwc = model == "resnet50_nhwc"
@@ -153,12 +166,15 @@ def _programs(model):
     return ref, port
 
 
-@pytest.mark.parametrize("model", ["wmt", "wmt_fused_attn", "gpt2", "bert",
+@pytest.mark.parametrize("model", ["wmt", "wmt_fused_attn", "gpt2",
+                                   "gpt2_modern", "bert", "bert_fused_attn",
                                    "resnet50_nchw", "resnet50_nhwc"])
 def test_bf16_amp_pass_programs_match_reference(model):
     """bf16_amp_pass after the fuse passes (and rewrite_nhwc), before
     minimize: casts, @BF16 / @RAW_BF16 / @BIAS_BF16 vars, the flipped
-    trunk ops and their grads, op for op; master weights float32."""
+    trunk ops and their grads, op for op; master weights float32.  The
+    modern decoder's fused_swiglu and every fused_attention take bf16
+    data inputs, the key bias float32."""
     ref, port = _programs(model)
     ops = _same_json(ref, port)
     block = port.global_block()
@@ -174,6 +190,14 @@ def test_bf16_amp_pass_programs_match_reference(model):
         xent = block.ops[types.index("fused_linear_xent")]
         assert block.var(xent.inputs["X"][0]).dtype == "bfloat16"
         assert block.var(xent.inputs["Label"][0]).dtype == "int64"
+    for op in block.ops:
+        if op.type in ("fused_attention", "fused_swiglu"):
+            data = op.inputs["Q" if op.type == "fused_attention" else "X"]
+            assert block.var(data[0]).dtype == "bfloat16", op.type
+            for bias in op.inputs.get("Bias", []):
+                assert block.var(bias).dtype == "float32"
+    if model == "gpt2_modern":
+        assert any(o.type == "fused_swiglu" for o in block.ops)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
@@ -315,18 +339,20 @@ def test_linear_xent_bf16_plain_matches_pallas(eps):
 # the kernels' dtype rule and the bf16 forms' dispatch
 # ---------------------------------------------------------------------------
 def test_kernels_refuse_bf16_without_a_bf16_form():
-    """check_inputs takes bf16 for the four kernels' forms (B1 / B2 with
-    float32 gamma and beta, B4's dx / dw with float32 lse and dy) and
-    refuses it, naming ROADMAP B's bf16 forms, for every other kernel;
-    no form takes a float16 or a bf16 gamma."""
+    """check_inputs takes bf16 for the kernels' bf16 forms (B1 / B2 with
+    float32 gamma and beta, B4's dx / dw with float32 lse and dy; B3 and
+    B6: test_torch_amp_attention.py) and refuses it, naming ROADMAP B's
+    bf16 forms, for every other kernel (B3's few-row form and B9 among
+    them); no form takes a float16 or a bf16 gamma."""
     bf, f32 = torch.bfloat16, torch.float32
     x, v = torch.zeros(4, 8, dtype=bf), torch.zeros(8, dtype=f32)
     build.check_inputs("matmul_bias_act", x, x, v.to(bf))
     build.check_inputs("fused_layer_norm", x, v, v)
     build.check_inputs("fused_add_layer_norm", x, x, v, v)
     build.check_inputs("linear_xent_dx", x, x, v, v)
-    for name in ("matmul_swiglu", "flash_attention_fwd", "softmax_xent_fwd",
-                 "fused_lstm", "linear_xent_parts", "flash_attention_qvec"):
+    for name in ("flash_attention_piece_fwd", "flash_attention_fwd_rows",
+                 "softmax_xent_fwd", "fused_lstm", "linear_xent_parts",
+                 "flash_attention_qvec"):
         with pytest.raises(build.KernelTypeError, match="ROADMAP B"):
             build.check_inputs(name, x, x)
     with pytest.raises(build.KernelTypeError, match="operand 1"):
@@ -382,10 +408,10 @@ def test_bf16_forms_launch_their_own_entry_points(monkeypatch):
         "linear_xent_dx_bf16": 1, "linear_xent_dw_bf16": 1,
         "matmul_bias_act": 0, "linear_xent_fwd": 0}
     # a bf16 input to a kernel without a bf16 form raises, no launch
-    from paddle_tpu_torch.kernels import matmul_swiglu
+    from paddle_tpu_torch.kernels import flash_attention_piece_fwd
 
     with pytest.raises(build.KernelTypeError, match="ROADMAP B"):
-        matmul_swiglu(x, w, w)
+        flash_attention_piece_fwd(x[None], x[None], x[None])
     assert len(calls) == 6
 
 

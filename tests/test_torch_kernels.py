@@ -1441,16 +1441,17 @@ def test_matmul_swiglu_matches_reference_kernel(M, K, N, bm, bn):
 
 
 def test_matmul_swiglu_kernel_path_checks(monkeypatch):
-    """On the kernel path the wrapper refuses bf16 and mismatched
-    weights, and launches with (M, N, K) into a fresh [M, N] output that
-    carries a grad_fn."""
+    """On the kernel path the wrapper refuses float16 (bf16 has a form of
+    its own: test_torch_amp_attention.py) and mismatched weights, and
+    launches with (M, N, K) into a fresh [M, N] output that carries a
+    grad_fn."""
     monkeypatch.setattr(build, "use_kernel", lambda t: True)
     launched = []
     monkeypatch.setattr(build, "launch",
                         lambda name, *args: launched.append((name, args[4:])))
     x, w = torch.ones(5, 12), torch.ones(12, 7, requires_grad=True)
     with pytest.raises(TypeError, match="float32"):
-        matmul_swiglu(x.bfloat16(), w.bfloat16(), w.bfloat16())
+        matmul_swiglu(x.half(), w.half(), w.half())
     with pytest.raises(ValueError, match="shapes"):
         matmul_swiglu(x, w, torch.ones(12, 6))
     with pytest.raises(ValueError, match="shapes"):

@@ -390,12 +390,22 @@ def test_kernel_arithmetic_holds_the_reference_over_the_recurrence(kind, B,
     lens = rng.randint(0, T + 1, B)
     lens[0], lens[-1] = 0, T
     lens_t = torch.from_numpy(lens)
+    # the emulation is some 10,000 small elementwise ops: on one thread,
+    # since intra-op threads fight the other test workers for the cores
+    # (the same sums in the same order on any thread count)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        if kind == "lstm":
+            got = _emulated_lstm(_t(x), _t(w), _t(h0), _t(c0), lens_t)
+        else:
+            got = _emulated_gru(_t(x), _t(w), _t(h0), lens_t)
+    finally:
+        torch.set_num_threads(threads)
     if kind == "lstm":
-        got = _emulated_lstm(_t(x), _t(w), _t(h0), _t(c0), lens_t)
         want, _ = pk._lstm_seq_dense(*map(jnp.asarray, (x, w, h0, c0)),
                                      jnp.asarray(lens))
     else:
-        got = _emulated_gru(_t(x), _t(w), _t(h0), lens_t)
         want = pk._gru_seq_dense(*map(jnp.asarray, (x, w, h0)),
                                  jnp.asarray(lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
