@@ -37,7 +37,10 @@ In order, it:
    and B4 at WMT's and BERT's shapes and their staging edges, and of B3
    (forward, dq, dk/dv) and B6 at the four bf16 paths' shapes, the
    packed form, d 128 and their edges, through
-   scripts/bf16_kernels_check.py), and times kernel,
+   scripts/bf16_kernels_check.py; the bf16-KV forms of B3d, B9 and B8
+   (float32 q over bf16 k and v) at the decode and serving shapes and
+   their edges, each bit-equal to its float32 form on the widened cache,
+   through scripts/kv_bf16_check.py), and times kernel,
    plain version and one PyTorch library call with CUDA events;
 4. serves a seeded Poisson trace of 24 requests with GPT-2 small
    (random weights from a seed) through ServingEngine, with every
@@ -75,6 +78,14 @@ In order, it:
    launches its program's; and serves a narrow config speculatively
    (a one-block draft) with the prefix cache on the card and on the
    CPU: target and draft logits within 1e-5, the streams equal;
+   then, with bf16 KV caches (scripts/kv_bf16_check.py), serves the
+   24-request trace with GPT-2 small under step 4's and 6's checks (the
+   bf16-KV qvec form a launch a layer and step, no float32 attention
+   launch, the pool bf16 and kv_pool_bytes half the float32 engine's;
+   the captured step profiled for busy ms and idle share) and an
+   8-request prefix trace cold and registered with the self draft (its
+   greedy streams, prefix hits among them, equal to cold; pooled ==
+   solo, eager == captured);
 8. serves a 48-request trace (rate 1.5, half sampled) through the
    serving fabric (FabricRouter) over GPT-2 small pools (the serving
    engine's 8 slots x 16 at t_max 1024, each in a scope of its own
@@ -128,9 +139,12 @@ In order, it:
    checks (matmul_swiglu 22 launches an engine step beside the GPT-2
    kernels), then a narrow modern config on the card and the CPU in a
    three-slot and a one-slot pool (with --profile:
-   chiprun_out/profile_serving_llama.json);
-15. trains that TinyLlama-width config (dropout 0, Adam) on batch 2 x
-   2048: one warm-up step (its loss near ln 32000), 5 timed steps with
+   chiprun_out/profile_serving_llama.json); then the TinyLlama-width
+   engine again with bf16 KV caches, under the same checks and step 7's
+   bf16 ones;
+15. trains that TinyLlama-width config at 11 of its 22 layers
+   (LLAMA_TRAIN_LAYERS; dropout 0, Adam) on batch 2 x 2048: one warm-up
+   step (its loss near ln 32000), 5 timed steps with
    the launch counts held to the program's, then one step twice from the
    same saved state, bit for bit (with --profile,
    chiprun_out/profile_training_llama.json); then a narrow modern config
@@ -177,7 +191,13 @@ In order, it:
    tokens/s and the beam step's p50 (with --profile,
    chiprun_out/profile_decode.json); then a narrow GPT-2 decoded greedy,
    sampled and by beam on the card and on the CPU, tokens equal and
-   logits within 1e-5 relative;
+   logits within 1e-5 relative; then GPT-2 small again with bf16 KV
+   caches (scripts/kv_bf16_check.py decode_kv16): greedy with chunked
+   prefill (B9's and B3d's bf16-KV forms) against a float32-cache run
+   from the same weights, greedy with one-token prefill against it, and
+   beam 2 over 2 prompts (the bf16 reorder every step), every run's
+   launches its program's with no float32 attention launch, eager ==
+   captured, and 8 profiled one-token steps for busy ms and idle share;
 19. decodes at TinyLlama-1.1B's widths (t_max 2048, batch 2, prompts of
    256, chunks of 128, 32 new tokens, greedy) with the same checks (the
    GQA fold puts flash_attention's few-row form at Tq 8 with a key bias;
@@ -373,6 +393,10 @@ LLAMA_BATCH, LLAMA_LEN = 2, 2048
 LLAMA_ROWS = LLAMA_BATCH * LLAMA_LEN  # 4096 target rows per step
 LLAMA_D, LLAMA_FF, LLAMA_VOCAB, LLAMA_HEADS = 2048, 5632, 32000, 32
 LLAMA_STEPS = 5  # timed steps: a ~3 s step keeps the run well in its limit
+# TinyLlama's two training phases run 11 of its 22 layers: at 22 they took
+# 225 s of a 1178 s run (H100 80GB HBM3, 700 W), too near the 1200 s limit
+# once the bf16-cache legs joined; the widths are TinyLlama's
+LLAMA_TRAIN_LAYERS = 11
 # BERT-base pretraining step: batch 32 x 128 tokens (MLM over every
 # position, NSP on [CLS])
 BERT_BATCH, BERT_LEN = 32, 128
@@ -467,18 +491,21 @@ FP32_FLOPS_PER_S = 67e12
 TF32X3_FLOPS_PER_S = 495e12 / 3
 
 
-def tinyllama_config():
+def tinyllama_config(n_layer=22):
     """TinyLlama-1.1B's published config (TinyLlama/TinyLlama-1.1B: hidden
     2048, intermediate 5632, 22 layers, 32 query and 4 KV heads, vocab
     32000, context 2048, RoPE base 10000, untied head) as a GPT2Config
     with the modern-decoder options: SwiGLU's 2/3 of 4 x 2048 = 5461
     rounds up to 5632 at ffn_multiple_of 256.  Kept from the repo's
     builder: LayerNorm with a bias where TinyLlama has RMSNorm, a bias on
-    ffn_out, random weights.  Dropout 0, as in LLaMA pretraining."""
+    ffn_out, random weights.  Dropout 0, as in LLaMA pretraining.
+    `n_layer` cuts the depth (the training phases: LLAMA_TRAIN_LAYERS)."""
     from paddle_tpu_torch.models import gpt2
 
+    depth = n_layer
+
     class TinyLlama(gpt2.GPT2Config):
-        vocab_size, n_ctx, d_model, n_layer = 32000, 2048, 2048, 22
+        vocab_size, n_ctx, d_model, n_layer = 32000, 2048, 2048, depth
         n_head, n_kv_head = 32, 4
         use_rotary = use_swiglu = True
         ffn_multiple_of = 256
@@ -745,10 +772,14 @@ def check_kernels(dev):
     check_deepfm_kernels(dev, randn, rec)
     mark("DeepFM shapes (B5)")
     import bf16_kernels_check
+    import kv_bf16_check
 
     rec.update(bf16_kernels_check.check_bf16(sys.modules[__name__], dev,
                                              randn, g))
     mark("bf16 forms (B5, B1, B2, B4, B3, B6)")
+    rec.update(kv_bf16_check.check_kv_bf16(sys.modules[__name__], dev,
+                                           randn))
+    mark("bf16-KV forms (B3d, B9, B8)")
     return rec
 
 
@@ -2605,9 +2636,9 @@ def check_attention_pieces(dev, randn, times=True):
 
 
 def _serve_on_card(label, hp, t_max, per_step, seed, profile_dir=None,
-                   profile_name=None):
+                   profile_name=None, cache_dtype="float32"):
     """One serving path on the card: `hp` with random weights from `seed`
-    through ServingEngine(n_slots=8, width=16, t_max), the seeded
+    through ServingEngine(n_slots=8, width=16, t_max, cache_dtype), the seeded
     24-request Poisson trace, every launch count reset just before and
     read just after and held to `per_step` times the engine's steps;
     every request OK with its full budget, a greedy and a sampled request
@@ -2631,7 +2662,8 @@ def _serve_on_card(label, hp, t_max, per_step, seed, profile_dir=None,
         _, startup, _, _ = gpt2.gpt2_logits_program(hp, seq_len=t_max)
         startup.random_seed = seed
         exe.run(startup)
-        eng = ServingEngine(exe, hp, n_slots=N_SLOTS, width=WIDTH, t_max=t_max)
+        eng = ServingEngine(exe, hp, n_slots=N_SLOTS, width=WIDTH, t_max=t_max,
+                            cache_dtype=cache_dtype)
         trace = make_poisson_trace(24, rate=0.5, prompt_len_range=(16, 384),
                                    out_len_range=(16, 64),
                                    vocab_size=hp.vocab_size, seed=0)
@@ -2758,11 +2790,17 @@ def serve_tinyllama(dev, profile_dir=None):
     layer, and one plain layer norm: under rotary no position add
     precedes block 0's first norm."""
     hp = tinyllama_config()
-    return _serve_on_card(
-        "TinyLlama-1.1B widths", hp, hp.n_ctx,
-        {"matmul_swiglu": 22, "matmul_bias_act": 22,
-         "flash_attention_qvec": 22, "fused_add_layer_norm": 44,
-         "fused_layer_norm": 1}, 1235, profile_dir, "serving_llama")
+    return _serve_on_card("TinyLlama-1.1B widths", hp, hp.n_ctx,
+                          _llama_serving_step(), 1235, profile_dir,
+                          "serving_llama")
+
+
+def _llama_serving_step():
+    """Each kernel's launches in one TinyLlama-width ragged serving step
+    (serve_tinyllama's docstring)."""
+    return {"matmul_swiglu": 22, "matmul_bias_act": 22,
+            "flash_attention_qvec": 22, "fused_add_layer_norm": 44,
+            "fused_layer_norm": 1}
 
 
 def _profile_report(prof, wall_us, steps, name, out_dir):
@@ -4476,25 +4514,27 @@ def train_tinyllama(dev, profile_dir=None):
     (fused_swiglu on matmul_swiglu), grouped-query attention, dropout 0,
     Adam lr 3e-4 — on make_fake_lm_batch(2, 2048, seed=0), random weights
     from a seed, through _train_on_card (5 timed steps, no dropout
-    masks to check).  The first loss must be within 0.5 of ln 32000 =
-    10.37."""
+    masks to check), at LLAMA_TRAIN_LAYERS of its 22 layers.  The first
+    loss must be within 0.5 of ln 32000 = 10.37."""
     import math
 
     from paddle_tpu_torch.models import gpt2
 
-    hp = tinyllama_config()
+    hp = tinyllama_config(LLAMA_TRAIN_LAYERS)
+    n = hp.n_layer
     main, startup, _, fetch = gpt2.gpt2_lm_program(hp, seq_len=LLAMA_LEN)
     startup.random_seed = main.random_seed = 2025
-    assert main._swiglu_fused_count == hp.n_layer
+    assert main._swiglu_fused_count == n
     per_step = _expected_train_launches(main)
-    assert per_step == {"matmul_bias_act": 44, "fused_add_layer_norm": 88,
+    assert per_step == {"matmul_bias_act": 2 * n,
+                        "fused_add_layer_norm": 4 * n,
                         "linear_xent_fwd": 2, "linear_xent_dx": 1,
                         "linear_xent_dw": 1, "flash_attention_qvec": 0,
-                        "fused_layer_norm": 2, "flash_attention_fwd": 44,
+                        "fused_layer_norm": 2, "flash_attention_fwd": 2 * n,
                         "flash_attention_fwd_rows": 0,
-                        "flash_attention_dq": 22,
-                        "flash_attention_dkv": 22,
-                        "matmul_swiglu": 44, "softmax_xent_fwd": 0,
+                        "flash_attention_dq": n,
+                        "flash_attention_dkv": n,
+                        "matmul_swiglu": 2 * n, "softmax_xent_fwd": 0,
                         "softmax_xent_bwd": 0, "fused_lstm": 0,
                         "fused_gru": 0}, per_step
     batch = gpt2.make_fake_lm_batch(LLAMA_BATCH, LLAMA_LEN, hp, seed=0)
@@ -4548,29 +4588,30 @@ def train_gpt2_small_bf16(dev, profile_dir=None, f32=None):
 def train_tinyllama_bf16(dev, profile_dir=None, f32=None):
     """The modern-decoder path at TinyLlama-1.1B's widths in bf16:
     gpt2_lm_program(tinyllama_config(), seq_len=2048, use_bf16=True) on
-    the f32 path's seed and batch (2 x 2048), 1 + 3 steps through
-    _train_on_card (no dropout masks to check).  Per step B6's bf16 form
-    44, B3's 44 / 22 / 22 (causal, grouped-query heads expanded), B5's
-    44, B2 88 float32 (the residual stream), B4's 2 / 1 / 1 and B1 2
-    float32 (ln_f).  Then the is_test losses from one startup
-    (_bf16_vs_f32; the config has dropout 0).  Run after the float32
-    phase has closed its executor and dropped its scope: that step peaks
-    at 56 GB, this one at 61 GB."""
+    the f32 path's seed, depth (LLAMA_TRAIN_LAYERS) and batch (2 x
+    2048), 1 + 3 steps through _train_on_card (no dropout masks to
+    check).  Per step and layer B6's bf16 form 2, B3's 2 / 1 / 1
+    (causal, grouped-query heads expanded), B5's 2, B2 4 float32 (the
+    residual stream); B4's 2 / 1 / 1 and B1 2 float32 (ln_f).  Then the
+    is_test losses from one startup (_bf16_vs_f32; the config has
+    dropout 0).  Run after the float32 phase has closed its executor and
+    dropped its scope."""
     import math
 
     from paddle_tpu_torch.models import gpt2
 
-    hp = tinyllama_config()
+    hp = tinyllama_config(LLAMA_TRAIN_LAYERS)
+    n = hp.n_layer
     main, startup, _, fetch = gpt2.gpt2_lm_program(hp, seq_len=LLAMA_LEN,
                                                    use_bf16=True)
     startup.random_seed = main.random_seed = 2025
     per_step = _expected_train_launches(main)
     _hold_launches("TinyLlama bf16", per_step, {
-        "matmul_swiglu_bf16": 44, "matmul_bias_act_bf16": 44,
-        "fused_add_layer_norm": 88, "fused_layer_norm": 2,
+        "matmul_swiglu_bf16": 2 * n, "matmul_bias_act_bf16": 2 * n,
+        "fused_add_layer_norm": 4 * n, "fused_layer_norm": 2,
         "linear_xent_fwd_bf16": 2, "linear_xent_dx_bf16": 1,
-        "linear_xent_dw_bf16": 1, "flash_attention_fwd_bf16": 44,
-        "flash_attention_dq_bf16": 22, "flash_attention_dkv_bf16": 22})
+        "linear_xent_dw_bf16": 1, "flash_attention_fwd_bf16": 2 * n,
+        "flash_attention_dq_bf16": n, "flash_attention_dkv_bf16": n})
     batch = gpt2.make_fake_lm_batch(LLAMA_BATCH, LLAMA_LEN, hp, seed=0)
     ln_v = math.log(hp.vocab_size)
     launches, cap = _train_on_card(
@@ -5187,7 +5228,8 @@ def _decode_launches(main):
     several rows) or on the qvec forward (a QStart per row), and a
     forward padded_gru or padded_lstm on its recurrent kernel; the B3
     forward's few-row calls (_rows_form) count on its few-row form
-    instead.
+    instead.  Over a bf16 KV cache (bf16 K beside a float32 Q) the
+    few-row form, B9 and the qvec forward count on their bf16-KV forms.
     A program without these ops (the cache startup, the beam reorder)
     launches nothing."""
     from paddle_tpu_torch import kernels
@@ -5205,15 +5247,18 @@ def _decode_launches(main):
                 want["fused_" + op.type[len("padded_"):]] += 1
         elif op.type == "fused_attention":
             qs = op.inputs.get("QStart")
+            kv16 = ("_kvbf16" if (
+                block.var(op.inputs["K"][0]).dtype == "bfloat16"
+                and block.var(op.inputs["Q"][0]).dtype == "float32") else "")
             if not qs:
                 rows = _rows_form(block, op)
-                want["flash_attention_fwd_rows"] += rows
+                want["flash_attention_fwd_rows" + kv16] += rows
                 want["flash_attention_fwd"] += not rows
             elif (block.var(qs[0]).shape[0] == 1
                   and block.var(op.inputs["Q"][0]).shape[0] > 1):
-                want["flash_attention_piece_fwd"] += 1
+                want["flash_attention_piece_fwd" + kv16] += 1
             else:
-                want["flash_attention_qvec"] += 1
+                want["flash_attention_qvec" + kv16] += 1
     return want
 
 
@@ -7930,9 +7975,13 @@ def main():
         return 2
     dev, smi = card_setup()
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import kv_bf16_check as kv16
     import recurrent_kernel_check as rkc
     import row_kernels_check as rowk
     from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.models import gpt2
+
+    this = sys.modules[__name__]
 
     t0 = time.time()
     split_build = rkc.start_split_build()  # beside the library's nvccs
@@ -7966,6 +8015,7 @@ def main():
     caps = {}  # each path's eager and captured numbers
     served, eng, scope, caps["serving"], plain = serve_gpt2_small(
         dev, profile_dir)
+    f32_kv = eng.kv_pool_bytes(scope)["total_bytes"]
     eng.exe.close()
     del eng
     for n_slots in (3, 1):  # a one-slot pool has a one-row QStart
@@ -7989,6 +8039,17 @@ def main():
     del scope, plain
     spec_prefix_card_matches_cpu(dev)
     lap("narrow speculative prefix serving, card vs CPU")
+    # the bf16 KV caches: the serving path and its speculative prefix leg
+    served_kv16, eng, scope, caps["serving_kv16"] = kv16.serve_kv16(
+        this, "GPT-2 small", gpt2.GPT2Config, T_MAX,
+        _gpt2_serving_step(gpt2.GPT2Config), 1234, f32_kv, "serving_kv16")
+    eng.exe.close()
+    del eng
+    lap("gpt2 serving, bf16 KV caches")
+    served_spec_prefix_kv16, caps["serving_spec_prefix_kv16"] = (
+        kv16.serve_spec_prefix_kv16(this, scope, f32_kv))
+    del scope
+    lap("gpt2 speculative prefix serving, bf16 KV caches")
     torch.cuda.empty_cache()
     trained, caps["wmt_training"] = train_transformer_base(dev, profile_dir)
     train_card_matches_cpu(dev)
@@ -8000,6 +8061,7 @@ def main():
     torch.cuda.empty_cache()
     served_llama, eng, scope, caps["llama_serving"], _ = serve_tinyllama(
         dev, profile_dir)
+    f32_llama_kv = eng.kv_pool_bytes(scope)["total_bytes"]
     eng.exe.close()
     del eng, scope
     for n_slots in (3, 1):
@@ -8007,6 +8069,14 @@ def main():
                          SERVING_KERNELS + ("matmul_swiglu",
                                             "fused_layer_norm"))
     lap("llama serving")
+    torch.cuda.empty_cache()
+    served_llama_kv16, eng, scope, caps["llama_serving_kv16"] = (
+        kv16.serve_kv16(this, "TinyLlama-1.1B widths", tinyllama_config(),
+                        LLAMA_LEN, _llama_serving_step(), 1235, f32_llama_kv,
+                        "serving_llama_kv16"))
+    eng.exe.close()
+    del eng, scope
+    lap("llama serving, bf16 KV caches")
     torch.cuda.empty_cache()
     trained_llama, caps["llama_training"] = train_tinyllama(dev, profile_dir)
     llama_train_card_matches_cpu(dev)
@@ -8054,6 +8124,9 @@ def main():
     lap("gpt2 decode")
     decode_card_matches_cpu(dev, narrow_gpt2_config(), DECODE_KERNELS)
     lap("narrow gpt2 decode, card vs CPU")
+    torch.cuda.empty_cache()
+    decoded_kv16, caps["gpt2_decode_kv16"] = kv16.decode_kv16(this, dev)
+    lap("gpt2 decode, bf16 KV caches")
     torch.cuda.empty_cache()
     decoded_llama, caps["llama_decode"] = decode_tinyllama(dev, profile_dir)
     lap("llama decode")
@@ -8148,7 +8221,7 @@ def main():
     lap("deepfm wide tables, sparse and dense")
     deepfm_card_matches_cpu(dev)
     lap("narrow deepfm, card vs CPU")
-    assert sum(c["captured"] for c in caps.values()) == 37, caps
+    assert sum(c["captured"] for c in caps.values()) == 41, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
             "the captured step is not faster than the eager one", path,
@@ -8160,6 +8233,10 @@ def main():
     kernels = []
     for name, r in rec.items():
         by_path = {"serving": served[name],
+                   "serving_kv16": served_kv16[name],
+                   "serving_spec_prefix_kv16": served_spec_prefix_kv16[name],
+                   "llama_serving_kv16": served_llama_kv16[name],
+                   "gpt2_decode_kv16": decoded_kv16[name],
                    "serving_speculative": served_spec[name],
                    "serving_prefix": served_prefix[name],
                    "serving_fabric": served_fabric[name],
@@ -8213,7 +8290,7 @@ def main():
             entry[key] = r[key]
         for key in ("per_shape", "max_rel_err", "max_lse_err", "library_note",
                     "bound_ms_fp32", "plan", "before_ms", "floor_ms",
-                    "step_split"):
+                    "step_split", "library_bf16q_ms"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -74,13 +74,14 @@ def dce_mask(program, block_idx, fetch_names):
     return keep
 
 
-def analyze_block(program, block_idx, feed_names, fetch_names, keep):
+def analyze_block(program, block_idx, feed_names, fetch_names, keep=None):
     """(reads, writes): names the kept ops read before any kept op
-    writes them (scope state), and every name they write."""
+    writes them (scope state), and every name they write.  `keep` is a
+    mask over the block's ops; None keeps every op."""
     defined = set(feed_names)
     reads, writes = [], []
     for i, op in enumerate(program.block(block_idx).ops):
-        if not keep[i]:
+        if keep is not None and not keep[i]:
             continue
         for n in op.input_arg_names():
             if n not in defined and n not in reads:

@@ -17,17 +17,20 @@ from .flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_bf16,
     flash_attention_fwd_rows,
+    flash_attention_fwd_rows_kvbf16,
     flash_attention_grad_plain,
     flash_attention_piece,
     flash_attention_piece_dkv,
     flash_attention_piece_dq,
     flash_attention_piece_fwd,
+    flash_attention_piece_fwd_kvbf16,
     flash_attention_piece_grad_plain,
     flash_attention_piece_plain,
     flash_attention_plain,
     flash_attention_qvec,
     flash_attention_qvec_dkv,
     flash_attention_qvec_dq,
+    flash_attention_qvec_kvbf16,
     flash_attention_qvec_plain,
 )
 from .layer_norm import fused_layer_norm, fused_layer_norm_bf16, layer_norm_plain
@@ -77,8 +80,8 @@ from .softmax_xent import (
     softmax_xent_plain,
 )
 
-# every kernel wrapper, each with its launch count; the bf16 forms count
-# apart, under names of their own (build.LaunchCount)
+# every kernel wrapper, each with its launch count; the bf16 and bf16-KV
+# forms count apart, under names of their own (build.LaunchCount)
 KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            linear_xent_fwd, linear_xent_dx, linear_xent_dw, fused_layer_norm,
            flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
@@ -91,7 +94,9 @@ KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            fused_layer_norm_bf16, fused_add_layer_norm_bf16,
            linear_xent_fwd_bf16, linear_xent_dx_bf16, linear_xent_dw_bf16,
            flash_attention_fwd_bf16, flash_attention_dq_bf16,
-           flash_attention_dkv_bf16, matmul_swiglu_bf16)
+           flash_attention_dkv_bf16, matmul_swiglu_bf16,
+           flash_attention_fwd_rows_kvbf16, flash_attention_piece_fwd_kvbf16,
+           flash_attention_qvec_kvbf16)
 
 
 def reset_launch_counts():

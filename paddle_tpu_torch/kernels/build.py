@@ -31,7 +31,8 @@ import threading
 import torch
 
 __all__ = ["load", "build", "use_kernel", "check_inputs", "launch",
-           "BUILD_DIR", "BF16_FORMS", "BF16_QUEUED", "LaunchCount",
+           "BUILD_DIR", "BF16_FORMS", "BF16_QUEUED", "KV_BF16_FORMS",
+           "kv_bf16", "LaunchCount",
            "KernelError", "KernelInputError", "KernelTypeError"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -58,9 +59,11 @@ SIGNATURES = {
     # BH, Tq, Tk, d, then the plan's four (warps, slice_len, slices,
     # smem: flash_attention.qvec_plan)
     "ptt_flash_attention_qvec": (_P,) * 8 + (_I,) * 8 + (_F, _P),
+    "ptt_flash_attention_qvec_kvbf16": (_P,) * 8 + (_I,) * 8 + (_F, _P),
     # BH, Tq, Tk, d, then the plan's two (slice_len, slices:
     # flash_attention.rows_plan)
     "ptt_flash_attention_rows": (_P,) * 8 + (_I,) * 6 + (_F, _P),
+    "ptt_flash_attention_rows_kvbf16": (_P,) * 8 + (_I,) * 6 + (_F, _P),
     # the linear cross entropy's shape ints, then its plan's four (hs, n,
     # stages, smem: linear_xent.lxent_plan)
     "ptt_linear_xent_fwd": (_P,) * 6 + (_I,) * 8 + (_F, _P),
@@ -83,6 +86,7 @@ SIGNATURES = {
     "ptt_flash_attention_dq": (_P,) * 9 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_flash_attention_dkv": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_flash_attention_fwd_bf16": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P, _P),
+    "ptt_flash_attention_fwd_kvbf16": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_flash_attention_dq_bf16": (_P,) * 9 + (_I,) * 7 + (_F, _I, _P, _P),
     "ptt_flash_attention_dkv_bf16": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P, _P),
     # the plan's four (form, ctas, threads, smem: softmax_xent.sxent_plan),
@@ -238,10 +242,17 @@ BF16_FORMS = {"matmul_bias_act": (), "fused_layer_norm": (1, 2),
               "matmul_swiglu": (), "flash_attention_fwd": (3,),
               "flash_attention_dq": (3, 5, 6),
               "flash_attention_dkv": (3, 5, 6)}
-# where the bf16 forms of the other kernels are queued in ROADMAP: B3's
-# few-row form, B9 and B8 read the KV caches (A3 (b)), B12 is the
-# vocab-parallel cross entropy (A3 (c)); the rest wait in queue B
-_KV = "A3 (b), the bf16 KV caches"
+# the bf16-KV forms: the kernels that read a bf16 KV cache (B3's few-row
+# form, B9's forward, B8's forward) take float32 q with bf16 k and v, the
+# operands at these positions of check_inputs; their o, lse and key bias
+# stay float32
+KV_BF16_FORMS = {"flash_attention_fwd_rows": (1, 2),
+                 "flash_attention_piece_fwd": (1, 2),
+                 "flash_attention_qvec": (1, 2)}
+# where the bf16 forms of the other kernels are queued in ROADMAP: a bf16
+# q to the KV-cache readers, and bf16 k / v to their backwards, B8q; B12 is
+# the vocab-parallel cross entropy (A3 (c)); the rest wait in queue B
+_KV = "B8q, the bf16-q forms of the KV-cache readers and their backwards"
 _VP = "A3 (c), the vocab-parallel cross entropy"
 BF16_QUEUED = dict(
     {n: _KV for n in ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
@@ -252,27 +263,43 @@ BF16_QUEUED = dict(
                         "linear_xent_dw_sharded")})
 
 
+def kv_bf16(name, *tensors):
+    """Whether a call takes kernel `name`'s bf16-KV form: a float32 q (the
+    first tensor) with a bf16 k (the second), for the KV-cache readers
+    (``KV_BF16_FORMS``)."""
+    return (name in KV_BF16_FORMS and len(tensors) > 1
+            and tensors[0].dtype == torch.float32
+            and tensors[1].dtype == torch.bfloat16)
+
+
 def check_inputs(name, *tensors):
     """What every kernel takes: contiguous tensors on one CUDA device, of
     the kernel's working dtype, which is the first tensor's: float32, or
     bfloat16 for the kernels with a bf16 form (``BF16_FORMS``, whose
-    float32 operands stay float32 in both forms).  Any other dtype
-    raises KernelTypeError: there is no fallback to the plain version.
-    Whether autograd is on decides nothing here: the kernels' wrappers
-    are ``torch.autograd.Function``s, whose backward is a kernel or a
-    dense recompute."""
+    float32 operands stay float32 in both forms).  The KV-cache readers
+    (``KV_BF16_FORMS``) also take a float32 q with bf16 k and v, their
+    bf16-KV form.  Any other dtype raises KernelTypeError: there is no
+    fallback to the plain version.  Whether autograd is on decides
+    nothing here: the kernels' wrappers are ``torch.autograd.Function``s,
+    whose backward is a kernel or a dense recompute."""
     dev = tensors[0].device
     work = tensors[0].dtype
-    if work != torch.float32 and not (work == torch.bfloat16
-                                      and name in BF16_FORMS):
+    kv16 = kv_bf16(name, *tensors)
+    if (work != torch.float32 and not (work == torch.bfloat16
+                                       and name in BF16_FORMS)) or (
+            name in BF16_QUEUED and not kv16
+            and any(t.dtype == torch.bfloat16 for t in tensors)):
         raise KernelTypeError(
-            "%s: the CUDA kernel takes float32, got %s (its bf16 form is "
+            "%s: the CUDA kernel takes float32%s, got %s (its bf16 form is "
             "queued in ROADMAP B, the bf16 forms%s)" % (
-                name, work, ": " + BF16_QUEUED[name] if name in BF16_QUEUED
-                else ""))
+                name, " q" if name in KV_BF16_FORMS else "",
+                "/".join(sorted({str(t.dtype) for t in tensors})),
+                ": " + BF16_QUEUED[name] if name in BF16_QUEUED else ""))
     f32 = BF16_FORMS.get(name, ())
+    bf = KV_BF16_FORMS[name] if kv16 else ()
     for i, t in enumerate(tensors):
-        want = torch.float32 if i in f32 else work
+        want = (torch.bfloat16 if i in bf
+                else torch.float32 if i in f32 else work)
         if t.dtype != want:
             raise KernelTypeError("%s: the CUDA kernel's operand %d must be %s "
                                   "with %s inputs, got %s"

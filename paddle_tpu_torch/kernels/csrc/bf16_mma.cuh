@@ -137,6 +137,31 @@ __device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* __restrict__ s
   }
 }
 
+// ---- a KV cache's elements, float32 or bf16, read as float32 --------------------
+// The attention kernels' bf16-KV forms stage bf16 keys and values and widen
+// them where they are read; a bf16 value widened is exact in float32 (and
+// in TF32: 8 significant bits of 11).  The float32 overloads are the plain
+// reads, so one kernel source serves both forms.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return bf2f(v); }
+
+// 2 and 4 consecutive elements (8 / 16 bytes in float32, 4 / 8 in bf16)
+__device__ __forceinline__ float2 widen2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 widen2(const bf16* p) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float4 widen4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 widen4(const bf16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
 // the address of element (r, c) of such a tile (c a multiple of 8 for the
 // start of a chunk)
 template <class Swz>

@@ -88,6 +88,14 @@
 // with the bf16 forms (flash_attention_bf16.cu), which stage bf16
 // operands into the same float32 tiles.
 //
+// The forward's bf16-KV form (ptt_flash_attention_fwd_kvbf16: B9's chunked
+// decode and speculative verify over a bf16 KV cache) reads bf16 k and v
+// beside float32 q, o, lse and key bias, as _flash_fwd_kernel takes them:
+// the tensor-core form stages the bf16 tiles by 16-byte cp.async (8
+// elements a copy) and widens them as it splits them (a bf16 value is
+// exact in TF32, so its small word is 0), the SIMT form widens them as it
+// stages them.  Every product and sum is the float32 form's.
+//
 // SIMT form (d 128; dq within 64 x 64): FP32 FMAs, 256 threads a block,
 // the forward and dq per (bh, 64-query tile) walking 64-key tiles, dk/dv
 // per (bh, 64-key tile) walking 32-query tiles.  Every
@@ -197,16 +205,22 @@ __device__ __forceinline__ void load_a_split(Split (&a)[4], const uint4* AF, int
   a[3] = Split{b.w, s.w};
 }
 
-// rows [r0, r0 + R) of a [T, 64] matrix into a staged tile (row stride
-// LDR) by 16-byte cp.async; rows at or past T zero-filled
-template <int R>
-__device__ __forceinline__ void stage_tile(float* dst, const float* src, int r0, int T) {
+// rows [r0, r0 + R) of a [T, 64] matrix of E (float32; bf16 k and v in the
+// forward's bf16-KV form) into a staged tile of E (row stride LDR elements,
+// 16-byte aligned in both) by 16-byte cp.async; rows at or past T
+// zero-filled
+template <int R, class E = float>
+__device__ __forceinline__ void stage_tile(float* dst, const E* src, int r0, int T) {
+  constexpr int EPC = 16 / static_cast<int>(sizeof(E));  // elements a copy
+  constexpr int NC = TD / EPC;                           // copies a row
+  E* tile = reinterpret_cast<E*>(dst);
 #pragma unroll
-  for (int it = 0; it < R * TD / 4 / TT; ++it) {
+  for (int it = 0; it < R * NC / TT; ++it) {
     const int i = threadIdx.x + it * TT;
-    const int r = i >> 4, c = (i & 15) << 2;
+    const int r = i / NC, c = (i % NC) * EPC;
     const bool in = r0 + r < T;
-    cp_async16(dst + r * LDR + c, in ? src + static_cast<long>(r0 + r) * TD + c : src, in);
+    ptt::cp_async16_b(tile + r * LDR + c, in ? src + static_cast<long>(r0 + r) * TD + c : src,
+                      in);
   }
 }
 
@@ -215,15 +229,16 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src, int r0,
 // ({big, big, small, small} of its two values, mma3's order).  K-style,
 // X's rows are the product's columns (q k^T: X = k):
 // F[(j 8 + kk) 32 + lane] holds X[8j + g][8kk + 2t], X[8j + g][8kk + 2t + 1].
-template <int R>
-__device__ __forceinline__ void split_kstyle(uint4* F, const float* X) {
+// A bf16 tile is widened as it is read (exactly: its small words are 0).
+template <int R, class E = float>
+__device__ __forceinline__ void split_kstyle(uint4* F, const float* Xs) {
+  const E* X = reinterpret_cast<const E*>(Xs);
 #pragma unroll
   for (int it = 0; it < Walk<R>::kFrag / TT; ++it) {
     const int i = threadIdx.x + it * TT;
     const int lane = i & 31, jk = i >> 5;
     const int g = lane >> 2, t = lane & 3;
-    const float2 x =
-        *reinterpret_cast<const float2*>(X + (8 * (jk >> 3) + g) * LDR + 8 * (jk & 7) + 2 * t);
+    const float2 x = ptt::widen2(X + (8 * (jk >> 3) + g) * LDR + 8 * (jk & 7) + 2 * t);
     const Split a = split_rna(x.x), b = split_rna(x.y);
     F[i] = make_uint4(a.big, b.big, a.small, b.small);
   }
@@ -231,15 +246,16 @@ __device__ __forceinline__ void split_kstyle(uint4* F, const float* X) {
 
 // V-style, X's rows are the product's depth (P v: X = v):
 // F[(j 8 + n) 32 + lane] holds X[8j + 2t][8n + g], X[8j + 2t + 1][8n + g].
-template <int R>
-__device__ __forceinline__ void split_vstyle(uint4* F, const float* X) {
+template <int R, class E = float>
+__device__ __forceinline__ void split_vstyle(uint4* F, const float* Xs) {
+  const E* X = reinterpret_cast<const E*>(Xs);
 #pragma unroll
   for (int it = 0; it < Walk<R>::kFrag / TT; ++it) {
     const int i = threadIdx.x + it * TT;
     const int lane = i & 31, jn = i >> 5;
     const int g = lane >> 2, t = lane & 3;
-    const float* p = X + (8 * (jn >> 3) + 2 * t) * LDR + 8 * (jn & 7) + g;
-    const Split a = split_rna(p[0]), b = split_rna(p[LDR]);
+    const E* p = X + (8 * (jn >> 3) + 2 * t) * LDR + 8 * (jn & 7) + g;
+    const Split a = split_rna(ptt::widen(p[0])), b = split_rna(ptt::widen(p[LDR]));
     F[i] = make_uint4(a.big, b.big, a.small, b.small);
   }
 }
@@ -262,15 +278,18 @@ __device__ __forceinline__ void product_add(float (&acc)[8][4], const Split (&a)
 
 // ---------------------------------------------------------------------------
 // forward: a block per (bh, TOWN-query tile), walking FWALK-key tiles; q
-// split in shared memory, the registers holding o and a tile's scores
+// split in shared memory, the registers holding o and a tile's scores.  KV
+// is float32, or bf16 in the bf16-KV form (B9 over a bf16 cache), whose k
+// and v tiles take the first half of their float32 slots
 // ---------------------------------------------------------------------------
 constexpr int FRAW = Walk<FWALK>::kRaw;
 constexpr int FWD_SLOT = 2 * FRAW + 2 * FWALK;  // k, v; key bias, key ids
 constexpr size_t FWD_SMEM = sizeof(float) * (2 * FWD_SLOT + 2 * FWALK) +
                             (2 * Walk<FWALK>::kFrag + TW * AFRAG) * sizeof(uint4);
 
+template <class KV>
 __global__ void __launch_bounds__(TT, 1) tc_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
     const float* __restrict__ kb, const int* __restrict__ qbase, float* __restrict__ o,
     float* __restrict__ lse, int Tq, int Tk, bool causal, int qstride, float scale,
     int window, const int* __restrict__ seg) {
@@ -285,8 +304,8 @@ __global__ void __launch_bounds__(TT, 1) tc_fwd_kernel(
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * TOWN;  // heavy first
   const int r0 = q0 + 16 * (tid >> 5);  // the warp's first row
   const int qpos0 = query_base(qbase, qstride, bh);
-  const float* kbase = k + static_cast<long>(bh) * Tk * TD;
-  const float* vbase = v + static_cast<long>(bh) * Tk * TD;
+  const KV* kbase = k + static_cast<long>(bh) * Tk * TD;
+  const KV* vbase = v + static_cast<long>(bh) * Tk * TD;
   const float* kbb = kb != nullptr ? kb + static_cast<long>(bh) * Tk : nullptr;
   const int* segb = seg != nullptr ? seg + static_cast<long>(bh) * Tk : nullptr;
 
@@ -325,8 +344,8 @@ __global__ void __launch_bounds__(TT, 1) tc_fwd_kernel(
     cp_async_wait(1);
     __syncthreads();  // tile i landed; every warp is done with tile i - 1
     const float* slot = smem + (i & 1) * FWD_SLOT;
-    split_kstyle<FWALK>(Kf, slot);
-    split_vstyle<FWALK>(Vf, slot + FRAW);
+    split_kstyle<FWALK, KV>(Kf, slot);
+    split_vstyle<FWALK, KV>(Vf, slot + FRAW);
     if (tid < FWALK) {
       kbs[tid] = kbb != nullptr ? slot[2 * FRAW + tid] : 0.f;
       segk[tid] = reinterpret_cast<const int*>(slot + 2 * FRAW + FWALK)[tid];
@@ -755,14 +774,15 @@ __global__ void __launch_bounds__(TT, 1) tc_dkv_kernel(
   }
 }
 
-int launch_tc_fwd(const float* q, const float* k, const float* v, const float* kb,
+template <class KV>
+int launch_tc_fwd(const float* q, const KV* k, const KV* v, const float* kb,
                   const int* qbase, float* o, float* lse, int BH, int Tq, int Tk, bool causal,
                   int qstride, float scale, int window, const int* seg, cudaStream_t stream) {
-  static int ready = prepare(tc_fwd_kernel, FWD_SMEM);
+  static int ready = prepare(tc_fwd_kernel<KV>, FWD_SMEM);
   if (ready != 0) return ready;
   const dim3 grid(BH, (Tq + TOWN - 1) / TOWN);
-  tc_fwd_kernel<<<grid, TT, FWD_SMEM, stream>>>(q, k, v, kb, qbase, o, lse, Tq, Tk, causal,
-                                                qstride, scale, window, seg);
+  tc_fwd_kernel<KV><<<grid, TT, FWD_SMEM, stream>>>(q, k, v, kb, qbase, o, lse, Tq, Tk,
+                                                    causal, qstride, scale, window, seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -812,6 +832,28 @@ extern "C" int ptt_flash_attention_fwd(const float* q, const float* k,
                          window, seg, stream);
   return launch_simt_fwd<128>(q, k, v, kb, qbase, o, lse, BH, Tq, Tk, causal != 0, qstride,
                               scale, window, seg, stream);
+}
+
+// the forward's bf16-KV form: k, v bf16 [BH, Tk, d]; q, kb, o and lse
+// float32, as in ptt_flash_attention_fwd (the chunked decode step and the
+// speculative verify over a bf16 cache: B9)
+extern "C" int ptt_flash_attention_fwd_kvbf16(const float* q, const ptt::bf16* k,
+                                              const ptt::bf16* v, const float* kb,
+                                              const int* qbase, float* o, float* lse,
+                                              int BH, int Tq, int Tk, int d, int form,
+                                              int causal, int qstride, float scale,
+                                              int window, const int* seg,
+                                              cudaStream_t stream) {
+  if (BH == 0 || Tq == 0) return static_cast<int>(cudaSuccess);
+  if (Tk == 0 || bad_operands(qbase, Tq, Tk, causal, qstride, window, seg) ||
+      bad_form(form, d, Tq, Tk, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (form == 1)
+    return launch_tc_fwd(q, k, v, kb, qbase, o, lse, BH, Tq, Tk, causal != 0, qstride, scale,
+                         window, seg, stream);
+  return launch_simt_fwd<128, float, ptt::bf16>(q, k, v, kb, qbase, o, lse, BH, Tq, Tk,
+                                                causal != 0, qstride, scale, window, seg,
+                                                stream);
 }
 
 // delta [BH, Tq] = rowsum(o * dout) (minus the lse cotangent, if any);

@@ -67,6 +67,17 @@
 //   them by log-sum-exp in slice order.  No atomics; l == 0 divides by 1.  A row's result is a function of its
 //   own q, k, v and qstart (the serving engine's pooled == solo
 //   contract).  No [Tq, Tk] score tile ever reaches device memory.
+//
+// The bf16-KV form (ptt_flash_attention_qvec_kvbf16: the serving step over
+// bf16 KV pools, cache_dtype="bfloat16") is the same kernel on bf16 k and v
+// beside float32 q, o and lse, as _flash_fwd_kernel takes them: a 16-byte
+// cp.async stages 8 keys' elements into a ring of half the bytes (the
+// swizzles move whole 16-byte chunks, so they keep their meaning), and each
+// lane's fragment read takes 4 elements (8 bytes) and widens them.  A bf16
+// value widened is exact in TF32, so split_rna leaves its small word 0 and
+// the third product of 3xTF32 adds exactly 0: the form keeps all three, and
+// computes what the float32 form computes on the widened cache.
+#include "bf16_mma.cuh"
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
@@ -74,13 +85,14 @@ namespace {
 
 using ptt::Split;
 using ptt::comp;
-using ptt::cp_async16;
 using ptt::kLog2e;
 using ptt::mma3;
 using ptt::quad_max;
 using ptt::quad_sum;
 using ptt::split_acc;
 using ptt::split_rna;
+using ptt::widen4;
+using ptt::bf16;
 
 constexpr int QT = 16;         // query rows of a tile: mma.sync's M
 constexpr int CK = 16;         // keys of a warp's chunk
@@ -88,16 +100,19 @@ constexpr int NS = 2;          // chunks of a warp's ring
 constexpr int kMaxWarps = 8;
 constexpr int kMaxSmem = 232448;  // the most a block may have on the card
 
-// floats of dynamic shared memory: QF, the split q tile (big and small
-// words of every 8-deep step); the warps' rings, K and V of a chunk a
-// slot; Wml, a warp's (m, l) a row
-__host__ __device__ constexpr int smem_floats(int D, int W) {
-  return 2 * QT * D + W * NS * 2 * CK * D + W * QT * 2;
+// bytes of dynamic shared memory: QF, the split q tile (big and small
+// words of every 8-deep step); the warps' rings, K and V of a chunk a slot,
+// as KV (float32, or bf16 in the bf16-KV form); Wml, a warp's (m, l) a row
+template <class KV>
+__host__ __device__ constexpr int smem_bytes(int D, int W) {
+  return 4 * (2 * QT * D + W * QT * 2) + static_cast<int>(sizeof(KV)) * W * NS * 2 * CK * D;
 }
 
-// Swizzled float4 columns of a staged chunk (row = the key in the chunk):
-// K's by key (the B fragment's keys g of a quarter-warp), V's by key pair
-// (the rows 2t, 2t + 1 of a quarter-warp)
+// Swizzled 4-element columns of a staged chunk (row = the key in the
+// chunk): K's by key (the B fragment's keys g of a quarter-warp), V's by key
+// pair (the rows 2t, 2t + 1 of a quarter-warp).  Both XOR an even value, so
+// the two 4-element columns of a bf16 16-byte chunk stay together and in
+// order.
 __device__ __forceinline__ int kcol(int r, int c4) { return (c4 ^ ((r & 3) << 2)) * 4; }
 __device__ __forceinline__ int vcol(int r, int c4) { return (c4 ^ (r & 6)) * 4; }
 
@@ -114,14 +129,16 @@ __device__ __forceinline__ int vcol(int r, int c4) { return (c4 ^ (r & 6)) * 4; 
 // of head row x / (slices qtiles).  One slice writes o (and lse, if not
 // null); more write their partials to part_o [BH, Tq, slices, D] and
 // part_ml [BH, Tq, slices, 2] for qvec_combine.
-template <int D>
+template <int D, class KV>
 __global__ void __launch_bounds__(kMaxWarps * 32) qvec_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ qstart,
+    const float* __restrict__ q, const KV* __restrict__ k,
+    const KV* __restrict__ v, const int* __restrict__ qstart,
     float* __restrict__ o, float* __restrict__ lse, float* __restrict__ part_o,
     float* __restrict__ part_ml, int Tq, int Tk, int slice_len, int slices,
     float scale) {
   constexpr int D4 = D / 4;
+  constexpr int G = 4 / static_cast<int>(sizeof(KV));  // 4-element columns a 16-byte copy
+  constexpr int NC = D4 / G;                           // 16-byte copies a key row
   constexpr int KS = D / 8;   // 8-deep steps of q k^T
   constexpr int NJ = CK / 8;  // 8-key blocks of a chunk
   constexpr int NT = D / 8;   // n-tiles of P v
@@ -129,8 +146,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) qvec_kernel(
   extern __shared__ float4 smem4[];
   const int W = blockDim.x >> 5;
   uint4* QF = reinterpret_cast<uint4*>(smem4);  // [KS][big, small][32 lanes]
-  float* rings = reinterpret_cast<float*>(QF + 64 * KS);
-  float* Wml = rings + W * NS * SLOT;
+  KV* rings = reinterpret_cast<KV*>(QF + 64 * KS);
+  float* Wml = reinterpret_cast<float*>(rings + W * NS * SLOT);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int qtiles = (Tq + QT - 1) / QT;
@@ -144,23 +161,23 @@ __global__ void __launch_bounds__(kMaxWarps * 32) qvec_kernel(
   const int s_lo = slice * slice_len;
   const int n_chunks = kend > s_lo ? (min(kend, s_lo + slice_len) - s_lo + CK - 1) / CK : 0;
   const int n_mine = n_chunks > warp ? (n_chunks - warp + W - 1) / W : 0;
-  float* ring = rings + warp * NS * SLOT;
-  const float* kb = k + bh * Tk * D;
-  const float* vb = v + bh * Tk * D;
+  KV* ring = rings + warp * NS * SLOT;
+  const KV* kb = k + bh * Tk * D;
+  const KV* vb = v + bh * Tk * D;
 
   // the warp's i-th chunk (slice chunk warp + i W) into ring slot i % NS;
   // keys at or past Tk zero-filled, so a masked p = 0 meets v = 0
   auto issue = [&](int i) {
     if (i < n_mine) {
       const int c0 = s_lo + (warp + i * W) * CK;
-      float* slot = ring + (i % NS) * SLOT;
+      KV* slot = ring + (i % NS) * SLOT;
 #pragma unroll 4
-      for (int e = lane; e < CK * D4; e += 32) {
-        const int r = e / D4, c4 = e % D4;
+      for (int e = lane; e < CK * NC; e += 32) {
+        const int r = e / NC, c4 = (e % NC) * G;  // the copy's first column
         const bool ok = c0 + r < Tk;
         const long src = static_cast<long>(ok ? c0 + r : 0) * D + c4 * 4;
-        cp_async16(slot + r * D + kcol(r, c4), kb + src, ok);
-        cp_async16(slot + CK * D + r * D + vcol(r, c4), vb + src, ok);
+        ptt::cp_async16_b(slot + r * D + kcol(r, c4), kb + src, ok);
+        ptt::cp_async16_b(slot + CK * D + r * D + vcol(r, c4), vb + src, ok);
       }
     }
     ptt::cp_async_commit();
@@ -191,8 +208,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) qvec_kernel(
   for (int i = 0; i < n_mine; ++i) {
     ptt::cp_async_wait(NS - 1);
     __syncwarp();  // chunk i is in the warp's ring
-    const float* Ks = ring + (i % NS) * SLOT;
-    const float* Vs = Ks + CK * D;
+    const KV* Ks = ring + (i % NS) * SLOT;
+    const KV* Vs = Ks + CK * D;
     const int c0 = s_lo + (warp + i * W) * CK;
 
     // S = (q scale) k^T: 64-deep parts from zero, added in float32
@@ -219,7 +236,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) qvec_kernel(
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const int r = 8 * j + g;
-          const float4 kx = *reinterpret_cast<const float4*>(Ks + r * D + kcol(r, 4 * p + t));
+          const float4 kx = widen4(Ks + r * D + kcol(r, 4 * p + t));
           const Split b0[2] = {split_rna(kx.x), split_rna(kx.y)};
           const Split b1[2] = {split_rna(kx.z), split_rna(kx.w)};
           mma3(c[j], qa[0], b0);
@@ -295,9 +312,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) qvec_kernel(
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int r0 = 8 * j + 2 * t;
-        const float4 v0 = *reinterpret_cast<const float4*>(Vs + r0 * D + vcol(r0, 8 * mm + g));
-        const float4 v1 =
-            *reinterpret_cast<const float4*>(Vs + (r0 + 1) * D + vcol(r0 + 1, 8 * mm + g));
+        const float4 v0 = widen4(Vs + r0 * D + vcol(r0, 8 * mm + g));
+        const float4 v1 = widen4(Vs + (r0 + 1) * D + vcol(r0 + 1, 8 * mm + g));
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const Split b[2] = {split_rna(comp(v0, r)), split_rna(comp(v1, r))};
@@ -316,12 +332,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) qvec_kernel(
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
 
-  // the warp's partial: acc [16][D] into its own (consumed) ring, (m, l)
-  // to Wml
+  // the warp's partial: acc [16][D] as float32 into its own (consumed)
+  // ring, which holds it in either form, (m, l) to Wml
   __syncwarp();
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    float* arow = ring + (g + 8 * half) * D + 8 * t;
+    float* arow = reinterpret_cast<float*>(ring) + (g + 8 * half) * D + 8 * t;
 #pragma unroll
     for (int mm = 0; mm < D / 32; ++mm) {
       *reinterpret_cast<float4*>(arow + 32 * mm) =
@@ -350,7 +366,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) qvec_kernel(
     for (int w = 0; w < W; ++w) {
       const float wgt = expf(Wml[(w * QT + row) * 2] - M);
       L = fmaf(Wml[(w * QT + row) * 2 + 1], wgt, L);
-      const float4 a = *reinterpret_cast<const float4*>(rings + w * NS * SLOT + row * D + 4 * c4);
+      const float4 a = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(rings + w * NS * SLOT) + row * D + 4 * c4);
       A.x = fmaf(a.x, wgt, A.x);
       A.y = fmaf(a.y, wgt, A.y);
       A.z = fmaf(a.z, wgt, A.z);
@@ -404,22 +421,22 @@ __global__ void __launch_bounds__(128) qvec_combine(const float* __restrict__ pa
   if (lse != nullptr && lane == 0) lse[row] = M + logf(safe_l);
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const int* qstart, float* o,
+template <int D, class KV>
+int launch(const float* q, const KV* k, const KV* v, const int* qstart, float* o,
            float* lse, float* part_o, float* part_ml, int BH, int Tq, int Tk, int W,
            int slice_len, int slices, int smem, float scale, cudaStream_t stream) {
-  if (smem != static_cast<int>(sizeof(float)) * smem_floats(D, W) || smem > kMaxSmem)
+  if (smem != smem_bytes<KV>(D, W) || smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   // dynamic shared memory above 48 KB is opted into once, at the most a
   // block may have
   static int ready = static_cast<int>(cudaFuncSetAttribute(
-      qvec_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
+      qvec_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
   if (ready != 0) return ready;
   const long blocks = static_cast<long>(BH) * ((Tq + QT - 1) / QT) * slices;
   if (blocks >= (1L << 31)) return static_cast<int>(cudaErrorInvalidValue);
   if (slices > 1 && (part_o == nullptr || part_ml == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  qvec_kernel<D><<<static_cast<unsigned>(blocks), W * 32, smem, stream>>>(
+  qvec_kernel<D, KV><<<static_cast<unsigned>(blocks), W * 32, smem, stream>>>(
       q, k, v, qstart, o, lse, part_o, part_ml, Tq, Tk, slice_len, slices, scale);
   if (slices > 1) {
     const long rows = static_cast<long>(BH) * Tq;
@@ -427,6 +444,23 @@ int launch(const float* q, const float* k, const float* v, const int* qstart, fl
         part_o, part_ml, o, lse, rows, slices);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class KV>
+int entry(const float* q, const KV* k, const KV* v, const int* qstart, float* o, float* lse,
+          float* part_o, float* part_ml, int BH, int Tq, int Tk, int d, int warps,
+          int slice_len, int slices, int smem, float scale, cudaStream_t stream) {
+  if (BH == 0 || Tq == 0) return static_cast<int>(cudaSuccess);
+  if (Tk <= 0 || warps < 1 || warps > kMaxWarps || slice_len <= 0 || slice_len % CK != 0 ||
+      slices != (Tk + slice_len - 1) / slice_len)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64)
+    return launch<64, KV>(q, k, v, qstart, o, lse, part_o, part_ml, BH, Tq, Tk, warps,
+                          slice_len, slices, smem, scale, stream);
+  if (d == 128)
+    return launch<128, KV>(q, k, v, qstart, o, lse, part_o, part_ml, BH, Tq, Tk, warps,
+                           slice_len, slices, smem, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -441,15 +475,18 @@ extern "C" int ptt_flash_attention_qvec(const float* q, const float* k, const fl
                                         float* part_o, float* part_ml, int BH, int Tq,
                                         int Tk, int d, int warps, int slice_len, int slices,
                                         int smem, float scale, cudaStream_t stream) {
-  if (BH == 0 || Tq == 0) return static_cast<int>(cudaSuccess);
-  if (Tk <= 0 || warps < 1 || warps > kMaxWarps || slice_len <= 0 || slice_len % CK != 0 ||
-      slices != (Tk + slice_len - 1) / slice_len)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 64)
-    return launch<64>(q, k, v, qstart, o, lse, part_o, part_ml, BH, Tq, Tk, warps, slice_len,
-                      slices, smem, scale, stream);
-  if (d == 128)
-    return launch<128>(q, k, v, qstart, o, lse, part_o, part_ml, BH, Tq, Tk, warps, slice_len,
-                       slices, smem, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return entry<float>(q, k, v, qstart, o, lse, part_o, part_ml, BH, Tq, Tk, d, warps,
+                      slice_len, slices, smem, scale, stream);
+}
+
+// the bf16-KV form: k, v bf16 (the plan's smem from bf16 rings); q, o, lse
+// and the partials float32
+extern "C" int ptt_flash_attention_qvec_kvbf16(const float* q, const bf16* k, const bf16* v,
+                                               const int* qstart, float* o, float* lse,
+                                               float* part_o, float* part_ml, int BH,
+                                               int Tq, int Tk, int d, int warps,
+                                               int slice_len, int slices, int smem,
+                                               float scale, cudaStream_t stream) {
+  return entry<bf16>(q, k, v, qstart, o, lse, part_o, part_ml, BH, Tq, Tk, d, warps,
+                     slice_len, slices, smem, scale, stream);
 }

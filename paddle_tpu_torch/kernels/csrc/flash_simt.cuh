@@ -127,10 +127,10 @@ __device__ __forceinline__ int query_base(const int* qbase, int qstride, int bh)
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
-template <int D, class E>
+template <int D, class E, class EK = E>
 __global__ void __launch_bounds__(kThreads) simt_fwd_kernel(
-    const E* __restrict__ q, const E* __restrict__ k,
-    const E* __restrict__ v, const float* __restrict__ kb,
+    const E* __restrict__ q, const EK* __restrict__ k,
+    const EK* __restrict__ v, const float* __restrict__ kb,
     const int* __restrict__ qbase, E* __restrict__ o,
     float* __restrict__ lse, int Tq, int Tk, bool causal, int qstride,
     float scale, int window, const int* __restrict__ seg) {
@@ -148,8 +148,8 @@ __global__ void __launch_bounds__(kThreads) simt_fwd_kernel(
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qpos0 = query_base(qbase, qstride, bh);
   const E* qb = q + static_cast<long>(bh) * Tq * D;
-  const E* kbase = k + static_cast<long>(bh) * Tk * D;
-  const E* vbase = v + static_cast<long>(bh) * Tk * D;
+  const EK* kbase = k + static_cast<long>(bh) * Tk * D;
+  const EK* vbase = v + static_cast<long>(bh) * Tk * D;
   const int* segb = seg != nullptr ? seg + static_cast<long>(bh) * Tk : nullptr;
 
   load_t<D>(Qt, qb, q0, BQ, Tq, scale);
@@ -580,16 +580,18 @@ int prepare(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-template <int D, class E>
-int launch_simt_fwd(const E* q, const E* k, const E* v, const float* kb,
+// EK: the type of k and v (bf16 beside a float32 q in the forward's
+// bf16-KV form; E otherwise)
+template <int D, class E, class EK = E>
+int launch_simt_fwd(const E* q, const EK* k, const EK* v, const float* kb,
                const int* qbase, E* o, float* lse, int BH, int Tq, int Tk,
                bool causal, int qstride, float scale, int window, const int* seg,
                cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * D * 64 + 64 * D + 64 * 64);
-  static int ready = prepare(simt_fwd_kernel<D, E>, smem);
+  static int ready = prepare(simt_fwd_kernel<D, E, EK>, smem);
   if (ready != 0) return ready;
   const dim3 grid(BH, (Tq + BQ - 1) / BQ);
-  simt_fwd_kernel<D, E><<<grid, kThreads, smem, stream>>>(q, k, v, kb, qbase, o, lse, Tq,
+  simt_fwd_kernel<D, E, EK><<<grid, kThreads, smem, stream>>>(q, k, v, kb, qbase, o, lse, Tq,
                                                    Tk, causal, qstride, scale, window,
                                                    seg);
   return static_cast<int>(cudaGetLastError());

@@ -73,11 +73,23 @@ lse and delta float32; o, dq, dk, dv rounded once from float32
 accumulators; bf16 ``mma.sync`` tiles at head dim 64, the SIMT form
 widening its operands at 128), counted under
 ``flash_attention_{fwd,dq,dkv}_bf16``.  ``flash_plan`` gives the same
-form for a shape in both dtypes.  The few-row form (B3d), the piece
-(B9) and the qvec form (B8) refuse bf16 (ROADMAP A3 (b), the bf16 KV
-caches).  The plain versions follow the Pallas kernels' arithmetic in
-bf16: q, k and v widened before the score product, p and dS float32 in
-the second products, each output rounded once.
+form for a shape in both dtypes.  The plain versions follow the Pallas
+kernels' arithmetic in bf16: q, k and v widened before the score
+product, p and dS float32 in the second products, each output rounded
+once.
+
+bf16 KV caches: the forwards that read a cache (the few-row form B3d,
+the piece B9, the qvec form B8) have bf16-KV forms, which take a
+float32 q with bf16 k and v, as the reference's cached attention hands
+them to ``_flash_fwd``: o and lse float32, the key bias float32.  Each
+kernel stages the bf16 keys and values in 16-byte copies and widens
+them where it reads them (exact, also in TF32), so it computes what the
+float32 form computes over the widened cache; the plans take the
+dtype (``rows_plan``, ``qvec_plan``: the staged chunks' shared memory).
+They count under ``flash_attention_fwd_rows_kvbf16``,
+``flash_attention_piece_fwd_kvbf16`` and ``flash_attention_qvec_kvbf16``.
+A bf16 q to these kernels, and bf16 k or v to the piece's and the qvec
+form's backwards, raise KernelTypeError (ROADMAP B8q).
 """
 
 import collections
@@ -96,7 +108,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "attention_scores",
            "flash_attention_qvec", "flash_attention_qvec_plain",
            "flash_attention_qvec_dq", "flash_attention_qvec_dkv",
            "flash_attention_fwd_bf16", "flash_attention_dq_bf16",
-           "flash_attention_dkv_bf16", "NEG_INF"]
+           "flash_attention_dkv_bf16", "flash_attention_fwd_rows_kvbf16",
+           "flash_attention_piece_fwd_kvbf16", "flash_attention_qvec_kvbf16",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 # the qvec forward's split (qvec_plan): QVEC_WARPS[d] warps a block (8
@@ -111,13 +125,15 @@ QVEC_SLICE = 1024
 QVEC_ROWS = 16  # query rows of the kernel's tile
 # the few-row forward: at most this many query rows; keys cut into about
 # ROWS_SLICES slices of 128 to ROWS_SLICE_MAX[d] keys (a multiple of 32:
-# one 32-key chunk a warp, at most 8 warps, 4 at d 128 for shared memory),
-# the split measured fastest at the decode steps' shapes on the card
-# (scripts/decode_kernels_check.py)
+# one 32-key chunk a warp, at most 8 warps, 4 at d 128 for shared memory
+# in float32; the bf16-KV form's chunks take half the bytes, so 8 fit at
+# d 128 too), the split measured fastest at the decode steps' shapes on
+# the card (scripts/decode_kernels_check.py)
 ROWS_MAX_TQ = 8
 ROWS_SLICES = 8
 ROWS_SLICE_MIN = 128
 ROWS_SLICE_MAX = {64: 256, 128: 128}
+ROWS_SLICE_MAX_KV16 = {64: 256, 128: 256}
 
 RowsPlan = collections.namedtuple("RowsPlan", "slice_len slices")
 QvecPlan = collections.namedtuple("QvecPlan", "warps slice_len slices smem")
@@ -134,42 +150,48 @@ def rows_form(tq, causal=False, window=0, seg=None):
             and seg is None)
 
 
-def rows_plan(tk, d):
-    """The few-row kernel's fixed key split for Tk keys at head dim d:
+def rows_plan(tk, d, kv_dtype=torch.float32):
+    """The few-row kernel's fixed key split for Tk keys at head dim d over
+    keys and values of `kv_dtype` (float32, or bf16 in the bf16-KV form):
     (slice_len, slices).  About ROWS_SLICES slices, each a multiple of 32
-    keys in [ROWS_SLICE_MIN, ROWS_SLICE_MAX[d]], or one slice of Tk
-    rounded up to 32 where Tk is shorter.  Depends on Tk and d alone,
-    never on the rows or the bias, so a row's bits do not depend on its
-    batch."""
+    keys in [ROWS_SLICE_MIN, ROWS_SLICE_MAX[d]] (ROWS_SLICE_MAX_KV16 in
+    bf16), or one slice of Tk rounded up to 32 where Tk is shorter.
+    Depends on Tk, d and the dtype alone, never on the rows or the bias,
+    so a row's bits do not depend on its batch."""
+    most = (ROWS_SLICE_MAX_KV16 if kv_dtype == torch.bfloat16
+            else ROWS_SLICE_MAX)[d]
     per = 32 * -(-tk // (32 * ROWS_SLICES))
-    slice_len = min(max(per, ROWS_SLICE_MIN), ROWS_SLICE_MAX[d],
-                    32 * -(-tk // 32))
+    slice_len = min(max(per, ROWS_SLICE_MIN), most, 32 * -(-tk // 32))
     return RowsPlan(slice_len, -(-tk // slice_len))
 
 
-def qvec_smem(d, warps):
+def qvec_smem(d, warps, kv_dtype=torch.float32):
     """Bytes of dynamic shared memory of the qvec forward's block: the
     split q tile (big and small words), each warp's ring of two K and V
-    chunks, each warp's (m, l) a row; the kernel checks it against its
-    own layout."""
-    return 4 * (2 * QVEC_ROWS * d + warps * 2 * 2 * QVEC_CHUNK * d
-                + warps * QVEC_ROWS * 2)
+    chunks of `kv_dtype` (2 bytes an element in the bf16-KV form), each
+    warp's (m, l) a row; the kernel checks it against its own layout."""
+    kv_bytes = 2 if kv_dtype == torch.bfloat16 else 4
+    return (4 * (2 * QVEC_ROWS * d + warps * QVEC_ROWS * 2)
+            + kv_bytes * warps * 2 * 2 * QVEC_CHUNK * d)
 
 
-def qvec_plan(tk, d, warps=None, slice_len=QVEC_SLICE):
+def qvec_plan(tk, d, warps=None, slice_len=QVEC_SLICE,
+              kv_dtype=torch.float32):
     """The qvec forward's split of Tk keys at head dim d: (warps,
     slice_len, slices, smem), handed to the kernel as ints.  Slices of
     `slice_len` keys (a multiple of the 16-key chunk; one slice of Tk
     rounded up to the chunk where Tk is shorter), at most one warp a
-    chunk of the slice.  Both head dims run the 3xTF32 tensor-core form.
-    Depends on Tk and d alone, never on BH, the query bases or the data,
-    so a row's bits do not depend on its batch.  The keyword arguments
-    are the candidates scripts/qvec_forms_check.py times."""
+    chunk of the slice.  Both head dims run the 3xTF32 tensor-core form;
+    `kv_dtype` bf16 (the bf16-KV form) stages half the bytes, the same
+    split.  Depends on Tk, d and the dtype alone, never on BH, the query
+    bases or the data, so a row's bits do not depend on its batch.  The
+    keyword arguments are the candidates scripts/qvec_forms_check.py
+    times."""
     c = QVEC_CHUNK
     slice_len = min(c * -(-slice_len // c), c * -(-tk // c))
     warps = min(QVEC_WARPS[d] if warps is None else warps, slice_len // c)
     return QvecPlan(warps, slice_len, -(-tk // slice_len),
-                    qvec_smem(d, warps))
+                    qvec_smem(d, warps, kv_dtype))
 
 
 def flash_plan(kernel, tq, tk, d):
@@ -361,11 +383,12 @@ def _fwd(name, q, k, v, kbias, causal, scale, qbase=None, window=0,
     qb, stride = _qbase_arg(qbase, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    # the bf16 entry point takes only the training form's calls:
-    # check_inputs refuses bf16 for the based ones
-    bf16 = q.dtype == torch.bfloat16
-    build.launch("ptt_flash_attention_fwd_bf16" if bf16
-                 else "ptt_flash_attention_fwd", q, k, v, kbias, qb, o,
+    # the bf16 entry point takes only the training form's calls, the
+    # bf16-KV one only the piece's: check_inputs refuses the others
+    fn = ("ptt_flash_attention_fwd_bf16" if q.dtype == torch.bfloat16
+          else "ptt_flash_attention_fwd_kvbf16" if k.dtype == torch.bfloat16
+          else "ptt_flash_attention_fwd")
+    build.launch(fn, q, k, v, kbias, qb, o,
                  lse, bh, tq, tk, d, flash_plan("fwd", tq, tk, d),
                  int(bool(causal)), stride, float(scale), int(window),
                  _seg_arg(seg))
@@ -410,7 +433,8 @@ def _dkv(name, q, k, v, kbias, lse, do, delta, causal, scale, qbase=None,
 def flash_attention_fwd_rows(q, k, v, kbias=None, scale=None):
     """B3's forward in its few-row form (B3d): (o, lse) of q [BH, Tq <=
     ROWS_MAX_TQ, d] over k/v [BH, Tk, d] with an optional key bias, no
-    other mask, at rows_plan's split; k and v start on 16 bytes."""
+    other mask, at rows_plan's split; k and v start on 16 bytes.  bf16
+    k and v beside a float32 q take the bf16-KV form."""
     if not build.use_kernel(q):
         return flash_attention_plain(q, k, v, kbias, False, scale)
     bh, tq, tk, d = _check("flash_attention_fwd_rows", q, k, v, kbias, False,
@@ -424,7 +448,8 @@ def flash_attention_fwd_rows(q, k, v, kbias=None, scale=None):
                                      "them in 16-byte copies)")
     if scale is None:
         scale = d ** -0.5
-    plan = rows_plan(tk, d)
+    kv16 = k.dtype == torch.bfloat16  # check_inputs: with a float32 q
+    plan = rows_plan(tk, d, k.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     part_o = part_ml = None
@@ -433,9 +458,11 @@ def flash_attention_fwd_rows(q, k, v, kbias=None, scale=None):
                              device=q.device)
         part_ml = torch.empty((bh, tq, plan.slices, 2), dtype=torch.float32,
                               device=q.device)
-    build.launch("ptt_flash_attention_rows", q, k, v, kbias, o, lse, part_o,
-                 part_ml, bh, tq, tk, d, *plan, float(scale))
-    flash_attention_fwd_rows.launches += 1
+    build.launch("ptt_flash_attention_rows_kvbf16" if kv16
+                 else "ptt_flash_attention_rows", q, k, v, kbias, o, lse,
+                 part_o, part_ml, bh, tq, tk, d, *plan, float(scale))
+    (flash_attention_fwd_rows_kvbf16 if kv16
+     else flash_attention_fwd_rows).launches += 1
     return o, lse
 
 
@@ -493,13 +520,15 @@ def flash_attention_dkv(q, k, v, kbias, lse, do, delta, causal=False,
 def flash_attention_piece_fwd(q, k, v, causal=False, scale=None, qoff=None,
                               window=0):
     """B9's forward: the based forward kernel with one offset for every
-    row; (o, lse)."""
+    row; (o, lse).  bf16 k and v beside a float32 q take its bf16-KV
+    form."""
     if not build.use_kernel(q):
         return flash_attention_piece_plain(q, k, v, causal, scale, qoff,
                                            window)
     out = _fwd("flash_attention_piece_fwd", q, k, v, None, causal, scale,
                qoff, window)
-    flash_attention_piece_fwd.launches += 1
+    (flash_attention_piece_fwd_kvbf16 if k.dtype == torch.bfloat16
+     else flash_attention_piece_fwd).launches += 1
     return out
 
 
@@ -550,10 +579,15 @@ def flash_attention_qvec_dkv(q, k, v, lse, do, delta, qstart, scale=None):
     return dk, dv
 
 
-# the bf16 forms' launches count apart from the float32 forms'
+# the bf16 and bf16-KV forms' launches count apart from the float32 forms'
 flash_attention_fwd_bf16 = build.LaunchCount("flash_attention_fwd_bf16")
 flash_attention_dq_bf16 = build.LaunchCount("flash_attention_dq_bf16")
 flash_attention_dkv_bf16 = build.LaunchCount("flash_attention_dkv_bf16")
+flash_attention_fwd_rows_kvbf16 = build.LaunchCount(
+    "flash_attention_fwd_rows_kvbf16")
+flash_attention_piece_fwd_kvbf16 = build.LaunchCount(
+    "flash_attention_piece_fwd_kvbf16")
+flash_attention_qvec_kvbf16 = build.LaunchCount("flash_attention_qvec_kvbf16")
 
 
 for _fn in (flash_attention_fwd, flash_attention_fwd_rows,
@@ -709,6 +743,7 @@ def _qvec_forward(q, k, v, qstart, scale, with_lse):
             return flash_attention_plain(q, k, v, None, True, scale, qstart)
         return flash_attention_qvec_plain(q, k, v, qstart, scale)
     build.check_inputs("flash_attention_qvec", q, k, v)
+    kv16 = k.dtype == torch.bfloat16  # check_inputs: with a float32 q
     bh, tq, d = q.shape
     tk = k.shape[1]
     if (tuple(k.shape) != (bh, tk, d) or tuple(v.shape) != (bh, tk, d)
@@ -721,7 +756,7 @@ def _qvec_forward(q, k, v, qstart, scale, with_lse):
         raise build.KernelInputError("flash_attention_qvec: the CUDA kernel "
                                      "is built for head dims 64 and 128, got "
                                      "%d" % d)
-    plan = qvec_plan(tk, d)
+    plan = qvec_plan(tk, d, kv_dtype=k.dtype)
     if max(q.numel(), k.numel(), q.numel() * plan.slices) >= 2 ** 31:
         raise build.KernelInputError("flash_attention_qvec: operands exceed "
                                      "the kernel's 32-bit row indexing")
@@ -739,9 +774,11 @@ def _qvec_forward(q, k, v, qstart, scale, with_lse):
                              device=q.device)
         part_ml = torch.empty((bh, tq, plan.slices, 2), dtype=torch.float32,
                               device=q.device)
-    build.launch("ptt_flash_attention_qvec", q, k, v, qs, out, lse, part_o,
-                 part_ml, bh, tq, tk, d, *plan, float(scale))
-    flash_attention_qvec.launches += 1
+    build.launch("ptt_flash_attention_qvec_kvbf16" if kv16
+                 else "ptt_flash_attention_qvec", q, k, v, qs, out, lse,
+                 part_o, part_ml, bh, tq, tk, d, *plan, float(scale))
+    (flash_attention_qvec_kvbf16 if kv16
+     else flash_attention_qvec).launches += 1
     return (out, lse) if with_lse else out
 
 
@@ -771,7 +808,9 @@ def flash_attention_qvec(q, k, v, qstart, scale=None):
     """Per-row-qstart causal attention; see flash_attention_qvec_plain.
     Differentiable in q, k and v: where a gradient is wanted the forward
     also gives the lse, and the backward runs the based dq and dk/dv
-    kernels on CUDA tensors.  Its launch count is the forward's."""
+    kernels on CUDA tensors.  Its launch count is the forward's; bf16 k
+    and v beside a float32 q take the bf16-KV form, counted under
+    flash_attention_qvec_kvbf16."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

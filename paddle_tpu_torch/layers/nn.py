@@ -127,20 +127,20 @@ def _simple(op_type, x, attrs=None, name=None):
     return out
 
 
-def tanh(x, name=None):
-    return _simple("tanh", x, name=name)
+def tanh(x, name=None, **kwargs):
+    return _simple("tanh", x, kwargs, name)
 
 
-def sigmoid(x, name=None):
-    return _simple("sigmoid", x, name=name)
+def sigmoid(x, name=None, **kwargs):
+    return _simple("sigmoid", x, kwargs, name)
 
 
 def relu(x, name=None):
     return _simple("relu", x, name=name)
 
 
-def log(x, name=None):
-    return _simple("log", x, name=name)
+def log(x, name=None, **kwargs):
+    return _simple("log", x, kwargs, name)
 
 
 def clip(x, min, max, name=None):
@@ -151,16 +151,16 @@ def clip_by_norm(x, max_norm, name=None):
     return _simple("clip_by_norm", x, {"max_norm": float(max_norm)}, name)
 
 
-def square(x, name=None):
-    return _simple("square", x, name=name)
+def square(x, name=None, **kwargs):
+    return _simple("square", x, kwargs, name)
 
 
-def sqrt(x, name=None):
-    return _simple("sqrt", x, name=name)
+def sqrt(x, name=None, **kwargs):
+    return _simple("sqrt", x, kwargs, name)
 
 
-def sign(x, name=None):
-    return _simple("sign", x, name=name)
+def sign(x, name=None, **kwargs):
+    return _simple("sign", x, kwargs, name)
 
 
 def pow(x, factor=1.0, name=None):

@@ -58,7 +58,9 @@ def make_slot_reset_program(named_shapes, batch, dtype="float32"):
     """Per-slot cache resets (the serving pool's admission step): every
     named [B, ...] cache is multiplied by the fed `slot_keep` [B] row
     mask — 1.0 keeps a slot's rows, 0.0 zeroes them.  One program covers
-    every subset of slots (the mask is a feed)."""
+    every subset of slots (the mask is a feed).  named_shapes entries:
+    (name, shape) or (name, shape, dtype), the entry's dtype overriding
+    `dtype` (bf16 caches reset in bf16)."""
     prog = framework.Program()
     with framework.program_guard(prog, framework.Program()):
         keep = layers.data("slot_keep", shape=[batch], dtype="float32",
@@ -68,20 +70,16 @@ def make_slot_reset_program(named_shapes, batch, dtype="float32"):
             cname, shape = entry[0], entry[1]
             vdtype = entry[2] if len(entry) > 2 else dtype
             assert int(shape[0]) == batch, (cname, shape, batch)
-            _check_f32_cache(vdtype)
             cvar = blk.create_var(name=cname, shape=list(shape), dtype=vdtype,
                                   persistable=True)
             masked = layers.elementwise_mul(cvar, keep, axis=0)
+            if str(vdtype) != "float32":
+                # the float32 mask promotes the product: cast it back, so
+                # a bf16 cache stays bf16 (assign does not cast)
+                masked = layers.cast(masked, str(vdtype))
             blk.append_op("assign", inputs={"X": [masked]},
                           outputs={"Out": [cvar]})
     return prog
-
-
-def _check_f32_cache(dtype):
-    if str(dtype) != "float32":
-        raise NotImplementedError(
-            "only float32 KV caches are ported (the kernels take float32; "
-            "the bf16 forms are ROADMAP A3)")
 
 
 def make_row_copy_program(named_pairs, n_dst, dtype="float32"):
@@ -93,7 +91,8 @@ def make_row_copy_program(named_pairs, n_dst, dtype="float32"):
     `copy_take` / `copy_keep` [n_dst] row masks (callers pass keep =
     1 - take; take=0 rows keep dst).  One program covers every row
     assignment: the ids and masks are feeds.  A pair may append its own
-    dtype; only float32 is ported (ROADMAP A3)."""
+    dtype (bf16 caches copy in bf16: the float32 masks promote the
+    product, a cast restores the dtype)."""
     prog = framework.Program()
     with framework.program_guard(prog, framework.Program()):
         rows = layers.data("copy_src_rows", shape=[n_dst], dtype="int64",
@@ -109,7 +108,6 @@ def make_row_copy_program(named_pairs, n_dst, dtype="float32"):
             assert int(dst_shape[0]) == n_dst, (dst_name, dst_shape, n_dst)
             assert list(src_shape[1:]) == list(dst_shape[1:]), (
                 src_name, src_shape, dst_name, dst_shape)
-            _check_f32_cache(vdtype)
             src = blk.create_var(name=src_name, shape=list(src_shape),
                                  dtype=vdtype, persistable=True)
             dst = blk.create_var(name=dst_name, shape=list(dst_shape),
@@ -118,6 +116,8 @@ def make_row_copy_program(named_pairs, n_dst, dtype="float32"):
             mixed = layers.elementwise_add(
                 layers.elementwise_mul(g, take, axis=0),
                 layers.elementwise_mul(dst, keep, axis=0))
+            if str(vdtype) != "float32":
+                mixed = layers.cast(mixed, str(vdtype))
             blk.append_op("assign", inputs={"X": [mixed]},
                           outputs={"Out": [dst]})
     return prog

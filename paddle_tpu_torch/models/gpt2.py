@@ -218,19 +218,18 @@ def gpt2_decode_step_program(hp=GPT2Config, batch=1, t_max=None, width=1,
         fetch:  next-token logits, [B, vocab] (W 1) or [B, W, vocab]
                 (W > 1; row i predicts position pos + i + 1)
         state:  per-layer gpt2_{k,v}cache_<i> persistables
-                [B, n_kv_head or n_head, t_max, dh], float32
+                [B, n_kv_head or n_head, t_max, dh] in `cache_dtype`
 
-    W 1 is the one-token step; W > 1 the chunked step (prefill): one
+    cache_dtype "bfloat16" halves the caches' bytes: seq_cache_write
+    rounds the new keys and values to bf16, and the attention kernels
+    read them widened to float32 beside a float32 query (their bf16-KV
+    forms).  W 1 is the one-token step; W > 1 the chunked step (prefill): one
     run writes W cache slots and scores W positions with offset-causal
     attention (the flash_attention_piece kernel).  Returns (main,
     cache_startup, feeds, fetches, cache_names); run `cache_startup` to
     zero the caches before each generation.  Built under
     unique_name.guard(), so the weights are shared by name with
-    gpt2_lm_program and gpt2_logits_program.  The kernels take float32,
-    so `cache_dtype` bfloat16 raises (ROADMAP A3)."""
-    if str(cache_dtype) != "float32":
-        raise NotImplementedError("only float32 KV caches are ported (the "
-                                  "kernels' bf16 forms are ROADMAP A3)")
+    gpt2_lm_program and gpt2_logits_program."""
     from .decode_cache import add_cache_zero_fills, create_kv_caches
 
     t_max = t_max or hp.n_ctx
@@ -272,10 +271,12 @@ def gpt2_decode_step_program(hp=GPT2Config, batch=1, t_max=None, width=1,
                     tok, layers.gather(pos_table, pos_vec), axis=1)
         n_kv = getattr(hp, "n_kv_head", None) or hp.n_head
         kv_caches, cache_names = create_kv_caches(
-            main.global_block(), "gpt2", hp.n_layer, batch, n_kv, t_max, dh)
+            main.global_block(), "gpt2", hp.n_layer, batch, n_kv, t_max, dh,
+            dtype=cache_dtype)
         add_cache_zero_fills(
             cache_startup,
-            [(n, (batch, n_kv, t_max, dh)) for n in cache_names])
+            [(n, (batch, n_kv, t_max, dh)) for n in cache_names],
+            dtype=cache_dtype)
         for cache in kv_caches:
             cache["pos"] = pos
             if pos_vec is not None:
@@ -301,9 +302,8 @@ def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
         fetch:  logits [B, W, vocab] — row b column i predicts position
                 pos_rows[b] + i + 1
         state:  per-layer <cache_prefix>_{k,v}cache_<i> persistables
-                [batch, n_kv_head or n_head, t_max, dh], float32 (the
-                kernels take float32, so `cache_dtype` other than
-                "float32" raises: the bf16 caches are ROADMAP A3)
+                [batch, n_kv_head or n_head, t_max, dh] in
+                `cache_dtype` (float32 or bfloat16, as the decode step's)
 
     Cache writes go through slot_cache_write (per-row position and
     width, out-of-width columns dropped) and attention masks per-row
@@ -311,9 +311,6 @@ def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
     logits depend only on row b's request, the serving engine's
     pooled == solo contract.  Returns (main, cache_startup, feeds,
     fetches, cache_names)."""
-    if str(cache_dtype) != "float32":
-        raise NotImplementedError("only float32 KV caches are ported (the "
-                                  "kernels' bf16 forms are ROADMAP A3)")
     from .decode_cache import add_cache_zero_fills, create_kv_caches
 
     t_max = t_max or hp.n_ctx
@@ -349,10 +346,11 @@ def gpt2_ragged_step_program(hp=GPT2Config, batch=4, t_max=None, width=8,
         n_kv = getattr(hp, "n_kv_head", None) or hp.n_head
         kv_caches, cache_names = create_kv_caches(
             main.global_block(), cache_prefix, hp.n_layer, batch, n_kv,
-            t_max, dh)
+            t_max, dh, dtype=cache_dtype)
         add_cache_zero_fills(
             cache_startup,
-            [(n, (batch, n_kv, t_max, dh)) for n in cache_names])
+            [(n, (batch, n_kv, t_max, dh)) for n in cache_names],
+            dtype=cache_dtype)
         for cache in kv_caches:
             cache["pos_rows"] = pos_rows
             cache["width_rows"] = width_rows

@@ -41,10 +41,13 @@ is one keyed function of (seed, t, prefix) whichever path emitted it
 boundary of the cold schedule.
 
 The constructor takes the reference's parameters in the reference's
-order.  Not ported yet, each raising NotImplementedError when set:
-weight-only int8 (`quantize_int8`) and tensor-parallel pools (`mesh`),
-ROADMAP A5; the pools' sharding (`partition_rules`, `mp_axis`), A7; a
-`cache_dtype` other than "float32" (the bf16 kernel forms), A3.
+order.  `cache_dtype` "bfloat16" keeps every KV pool in bf16 (the
+target's, the draft's and the prefix banks), half the bytes of float32
+(kv_pool_bytes): the attention kernels read the bf16 keys and values
+widened beside a float32 query.  Not ported yet, each raising
+NotImplementedError when set: weight-only int8 (`quantize_int8`) and
+tensor-parallel pools (`mesh`), ROADMAP A5; the pools' sharding
+(`partition_rules`, `mp_axis`), A7.
 """
 
 import time
@@ -75,8 +78,6 @@ class ServingEngine:
                  mp_axis=None, draft=None, spec_k=None, prefix_rows=0,
                  prefix_chunk=None):
         for flag, what, item in (
-                (str(cache_dtype) != "float32",
-                 "cache_dtype %r (bf16 KV caches)" % (cache_dtype,), "A3"),
                 (quantize_int8, "quantize_int8 (weight-only int8 serving)",
                  "A5"),
                 (mesh, "mesh (tensor-parallel pools)", "A5"),
@@ -96,15 +97,17 @@ class ServingEngine:
         self.n_slots = int(n_slots)
         self.width = int(width)
         self.t_max = int(t_max or hp.n_ctx)
+        self.cache_dtype = str(cache_dtype)
         (self.step_main, self.cache_startup, self._feeds, self.step_fetch,
          self.cache_names) = gpt2.gpt2_ragged_step_program(
-            hp, batch=self.n_slots, t_max=self.t_max, width=self.width)
+            hp, batch=self.n_slots, t_max=self.t_max, width=self.width,
+            cache_dtype=cache_dtype)
         dh = hp.d_model // hp.n_head
         n_kv = getattr(hp, "n_kv_head", None) or hp.n_head
         self.reset_prog = make_slot_reset_program(
             [(n, (self.n_slots, n_kv, self.t_max, dh))
              for n in self.cache_names],
-            self.n_slots)
+            self.n_slots, dtype=cache_dtype)
         # ---- in-pool speculative decoding ----------------------------
         # draft="self" runs the target's own ragged step over a second KV
         # pool in the same scope (cache_prefix renames its persistables);
@@ -131,7 +134,8 @@ class ServingEngine:
             (self.draft_main, self.draft_startup, _, self.draft_fetch,
              self.draft_cache_names) = gpt2.gpt2_ragged_step_program(
                 self.draft_hp, batch=self.n_slots, t_max=self.t_max,
-                width=self.width, cache_prefix=dprefix)
+                width=self.width, cache_dtype=cache_dtype,
+                cache_prefix=dprefix)
             dn_kv = (getattr(self.draft_hp, "n_kv_head", None)
                      or self.draft_hp.n_head)
             ddh = self.draft_hp.d_model // self.draft_hp.n_head
@@ -139,7 +143,7 @@ class ServingEngine:
             self.draft_reset = make_slot_reset_program(
                 [(n, self._draft_slot_shape)
                  for n in self.draft_cache_names],
-                self.n_slots)
+                self.n_slots, dtype=cache_dtype)
         # ---- prefix-cache KV reuse -----------------------------------
         # a pool of rows holding registered prompt prefixes; admission
         # longest-matches on token ids and the load program copies the

@@ -355,6 +355,10 @@ def test_kernels_refuse_bf16_without_a_bf16_form():
                  "flash_attention_qvec"):
         with pytest.raises(build.KernelTypeError, match="ROADMAP B"):
             build.check_inputs(name, x, x)
+    for name in build.KV_BF16_FORMS:  # a bf16 q: B8q, beside bf16 k or not
+        for k in (x, x.float()):
+            with pytest.raises(build.KernelTypeError, match="B8q"):
+                build.check_inputs(name, x, k, k)
     with pytest.raises(build.KernelTypeError, match="operand 1"):
         build.check_inputs("fused_layer_norm", x, v.to(bf), v)
     with pytest.raises(build.KernelTypeError, match="operand 2"):

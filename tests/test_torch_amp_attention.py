@@ -21,8 +21,8 @@ reference.
 - The dtype rule of the new ``BF16_FORMS`` entries, with their float32
   operands (the key bias after the rows, the saved lse and delta), the
   bf16 entry points reached through a spied ``build.launch`` and their
-  own counters, and the refusals that name their ROADMAP queue (B3's
-  few-row form, B9 and B8: A3 (b); B12: A3 (c)).
+  own counters, and the refusals that name their ROADMAP queue (a bf16
+  q to B3's few-row form, B9 and B8: B8q; B12: A3 (c)).
 - Three bf16 Adam steps of a tiny GPT-2 (d_model 128, 2 heads of 64), a
   tiny modern decoder (SwiGLU, rotary, grouped-query attention) and a
   tiny BERT with ``fused_attn`` against the reference under
@@ -215,10 +215,10 @@ def test_bf16_forms_of_attention_and_swiglu_take_their_float32_operands():
     build.check_inputs("matmul_swiglu", x, x, x)
     with pytest.raises(build.KernelTypeError, match="operand 1"):
         build.check_inputs("matmul_swiglu", x, x.float(), x)
-    for name, queue in (("flash_attention_fwd_rows", "A3 \\(b\\)"),
-                        ("flash_attention_piece_fwd", "A3 \\(b\\)"),
-                        ("flash_attention_qvec", "A3 \\(b\\)"),
-                        ("flash_attention_qvec_dkv", "A3 \\(b\\)"),
+    for name, queue in (("flash_attention_fwd_rows", "B8q"),
+                        ("flash_attention_piece_fwd", "B8q"),
+                        ("flash_attention_qvec", "B8q"),
+                        ("flash_attention_qvec_dkv", "B8q"),
                         ("linear_xent_parts", "A3 \\(c\\)"),
                         ("softmax_xent_fwd", "ROADMAP B")):
         with pytest.raises(build.KernelTypeError, match=queue):
@@ -230,7 +230,7 @@ def test_bf16_attention_and_swiglu_launch_their_own_entry_points(monkeypatch):
     flash_plan's form and the float32 forms' other ints, and
     matmul_swiglu's with mm_plan(gated, bf16)'s tiled plan, each counted
     under its bf16 name; the float32 counters do not move; B3's few-row
-    form and B9 refuse bf16 before any launch."""
+    form and B9 refuse a bf16 q before any launch (B8q)."""
     calls = []
     monkeypatch.setattr(build, "use_kernel", lambda t: True)
     monkeypatch.setattr(build, "launch",
@@ -262,9 +262,9 @@ def test_bf16_attention_and_swiglu_launch_their_own_entry_points(monkeypatch):
         "flash_attention_dkv": 0, "flash_attention_fwd_bf16": 1,
         "flash_attention_dq_bf16": 1, "flash_attention_dkv_bf16": 1,
         "matmul_swiglu": 0, "matmul_swiglu_bf16": 1}
-    with pytest.raises(build.KernelTypeError, match="A3 \\(b\\)"):
+    with pytest.raises(build.KernelTypeError, match="B8q"):
         fa.flash_attention_fwd(q[:, :4], q, q, kb)  # the few-row form
-    with pytest.raises(build.KernelTypeError, match="A3 \\(b\\)"):
+    with pytest.raises(build.KernelTypeError, match="B8q"):
         fa.flash_attention_piece_fwd(q, q, q, True, 0.125,
                                      torch.zeros(1, dtype=torch.int32))
     assert len(calls) == 4

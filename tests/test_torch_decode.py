@@ -94,9 +94,20 @@ def test_decode_step_program_matches_reference(config, width):
 
 
 def test_decode_step_program_refuses_bf16_caches():
-    _, port_hp = _configs("gpt2")
-    with pytest.raises(NotImplementedError, match="A3"):
-        port_gpt2.gpt2_decode_step_program(port_hp, cache_dtype="bfloat16")
+    """cache_dtype="bfloat16" (once refused, now ported): the one-token
+    step builds the reference's program op for op, its caches bf16 and
+    zeroed in bf16 by the cache startup."""
+    ref_hp, port_hp = _configs("gpt2")
+    kw = dict(batch=3, t_max=T_MAX, cache_dtype="bfloat16")
+    r = ref_gpt2.gpt2_decode_step_program(ref_hp, **kw)
+    p = port_gpt2.gpt2_decode_step_program(port_hp, **kw)
+    _assert_same_program(r[0], p[0])
+    _assert_same_program(r[1], p[1])
+    assert p[4] == r[4]
+    blk = p[0].global_block()
+    assert all(str(blk.vars[n].dtype) == "bfloat16" for n in p[4])
+    assert all(o.attrs["dtype"] == "bfloat16"
+               for o in p[1].global_block().ops if o.type == "fill_constant")
 
 
 @pytest.mark.parametrize("pos,width", [(0, 1), (5, 1), (3, 4), (7, 1),

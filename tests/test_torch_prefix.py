@@ -104,9 +104,17 @@ def test_row_copy_program_matches_reference(direction):
 
 
 def test_row_copy_program_is_float32_only():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        port_dc.make_row_copy_program(
-            [("a", (2, 1, 4, 2), "b", (2, 1, 4, 2), "bfloat16")], 2)
+    """A bf16 pair (once refused, now ported: bf16 prefix banks) builds
+    the reference's program, the float32 masks' product cast back to
+    bf16 before the assign."""
+    pair = [("a", (2, 1, 4, 2), "b", (2, 1, 4, 2), "bfloat16")]
+    with pfluid.unique_name.guard():
+        ref = ref_dc.make_row_copy_program(pair, 2)
+    port = port_dc.make_row_copy_program(pair, 2)
+    _assert_same_program(ref, port)
+    types = [o.type for o in port.global_block().ops]
+    assert types[-2:] == ["cast", "assign"]
+    assert str(port.global_block().vars["b"].dtype) == "bfloat16"
 
 
 # ---------------------------------------------------------------------------

@@ -358,18 +358,36 @@ def test_ragged_step_program_positional_cache_dtype():
     assert "gpt2_kcache_0" in p_names
     assert all(n.startswith("gpt2_") for n in p_names)
     _assert_same_program(r_main, p_main)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        port_gpt2.gpt2_ragged_step_program(
-            _tiny(port_gpt2.GPT2Config), 2, 32, 4, "bfloat16")
+    # bf16 caches (ported): the same program as the reference's
+    r_main, r_start, _, _, r_names = ref_gpt2.gpt2_ragged_step_program(
+        _tiny(ref_gpt2.GPT2Config), 2, 32, 4, "bfloat16")
+    p_main, p_start, _, _, p_names = port_gpt2.gpt2_ragged_step_program(
+        _tiny(port_gpt2.GPT2Config), 2, 32, 4, "bfloat16")
+    assert p_names == r_names
+    _assert_same_program(r_main, p_main)
+    _assert_same_program(r_start, p_start)
+    blk = p_main.global_block()
+    assert all(str(blk.vars[n].dtype) == "bfloat16" for n in p_names)
 
 
 @pytest.mark.parametrize("option, item", [
     ("partition_rules", "A7"), ("mp_axis", "A7"), ("cache_dtype", "A3")])
 def test_engine_reference_options_raise(option, item):
+    """The options that wait for their ROADMAP item raise naming it;
+    cache_dtype="bfloat16" (A3 (b), ported) builds an engine whose slot
+    reset keeps the pool bf16."""
     from paddle_tpu_torch.serving import ServingEngine
 
     exe = ptt.Executor(ptt.CPUPlace())
     value = {"cache_dtype": "bfloat16", "mp_axis": "mp"}.get(option, 2)
+    if option == "cache_dtype":
+        eng = ServingEngine(exe, _tiny(port_gpt2.GPT2Config), n_slots=2,
+                            width=2, t_max=8, **{option: value})
+        blk = eng.step_main.global_block()
+        assert all(str(blk.vars[n].dtype) == "bfloat16"
+                   for n in eng.cache_names)
+        assert "cast" in [o.type for o in eng.reset_prog.global_block().ops]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP " + item):
         ServingEngine(exe, _tiny(port_gpt2.GPT2Config), n_slots=2, width=2,
                       t_max=8, **{option: value})
@@ -388,8 +406,11 @@ def test_engine_takes_the_reference_parameter_order():
     exe = ptt.Executor(ptt.CPUPlace())
     eng = ServingEngine(exe, _tiny(port_gpt2.GPT2Config), 2, 2, 8, "float32")
     assert eng.cache_names[0].startswith("gpt2_")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        ServingEngine(exe, _tiny(port_gpt2.GPT2Config), 2, 2, 8, "bfloat16")
+    eng16 = ServingEngine(exe, _tiny(port_gpt2.GPT2Config), 2, 2, 8,
+                          "bfloat16")
+    assert eng16.cache_dtype == "bfloat16"
+    blk = eng16.step_main.global_block()
+    assert str(blk.vars[eng16.cache_names[0]].dtype) == "bfloat16"
 
 
 def test_variable_type_in_the_reference_position():

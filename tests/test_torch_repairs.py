@@ -115,3 +115,63 @@ def test_test_mode_clone_runs_no_training_op():
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
     for n in names:  # no parameter stepped
         assert np.array_equal(scope.find_var(n).numpy(), before[n]), n
+
+
+def _fc_program(pkg):
+    L = pkg.layers
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        x = L.data("x", shape=[6])
+        h = L.fc(x, 8, act="relu")
+        pred = L.fc(h, 3, act="softmax")
+    return main, pred
+
+
+def test_analyze_block_keeps_every_op_without_a_mask():
+    """analyze_block(program, block, feeds, fetches) with `keep` left
+    out keeps every op, as the reference's does: the same reads and
+    writes through both packages, and the same as an all-True mask."""
+    import paddle_tpu as fluid
+    import paddle_tpu_torch as ptt
+    from paddle_tpu.core import trace as ref_trace
+    from paddle_tpu_torch.core import trace
+
+    with fluid.unique_name.guard():
+        r_main, r_pred = _fc_program(fluid)
+    p_main, p_pred = _fc_program(ptt)
+    want = ref_trace.analyze_block(r_main, 0, ["x"], [r_pred.name])
+    got = trace.analyze_block(p_main, 0, ["x"], [p_pred.name])
+    assert got == want
+    assert got[0] and got[1]  # the weights are read, the outputs written
+    every = [True] * len(p_main.global_block().ops)
+    assert trace.analyze_block(p_main, 0, ["x"], [p_pred.name],
+                               every) == got
+
+
+@pytest.mark.parametrize("op", ["tanh", "sigmoid", "log", "sqrt", "square",
+                                "sign"])
+def test_unary_layers_pass_keywords_as_attrs(op):
+    """layers.<op>(x, some_attr=...) appends the op with that attr in
+    both packages, and a call without one appends no attr."""
+    import paddle_tpu as fluid
+    import paddle_tpu_torch as ptt
+
+    def build(pkg, **kw):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup):
+            x = pkg.layers.data("x", shape=[4])
+            out = getattr(pkg.layers, op)(x, **kw)
+        (o,) = [o for o in main.global_block().ops if o.type == op]
+        return o, out
+
+    kw = {"use_mkldnn": True, "some_attr": 0.25}
+    with fluid.unique_name.guard():
+        r_op, r_out = build(fluid, **kw)
+        r_plain, _ = build(fluid)
+    p_op, p_out = build(ptt, **kw)
+    p_plain, _ = build(ptt)
+    for k, v in kw.items():
+        assert p_op.attrs[k] == r_op.attrs[k] == v
+    assert p_op.inputs == r_op.inputs and p_op.outputs == r_op.outputs
+    assert not set(kw) & set(p_plain.attrs)
+    assert not set(kw) & set(r_plain.attrs)
