@@ -384,6 +384,17 @@ TRAIN_STEPS = 10
 # softmax_out.w vocab-sharded; two ranks share the one card over gloo
 VP_MP = 2
 VP_WARMUP, VP_STEPS = 2, 5
+# the bf16 leg's timed steps, and its steps 2-3 against the unsharded bf16
+# run, relative: bf16's unit roundoff (3.9e-3) and a little more.  After
+# step 1 the runs differ by roundings: g is rounded to bf16 before the
+# backward's products, and a logit that differs in its last float32 bits
+# (the sharded lse is merged from two slabs) rounds an element of g the
+# other way; the shards' dx partials are each rounded to bf16 and summed in
+# bf16, where the unsharded dx is rounded once.  So the trunk's gradients
+# differ by up to a bf16 unit, and the bf16 casts of the updated masters
+# round some weights the other way
+VP_BF16_STEPS = 3
+VP_BF16_LATER_RTOL = 5e-3
 # GPT-2 small training step: batch 8 x 1024 tokens
 GPT2_BATCH, GPT2_LEN = 8, 1024
 GPT2_ROWS = GPT2_BATCH * GPT2_LEN  # 8192 target rows per step
@@ -4415,12 +4426,12 @@ def _bf16_vs_f32(label, build, batch, seed, cap, f32=None):
     torch.cuda.synchronize()
     cap.update(f32_loss=losses[False], bf16_loss=losses[True],
                bf16_vs_f32=rel)
+    mode = "captured" if cap["captured_p50_ms"] is not None else "eager"
     print("%s bf16: the is_test loss from one startup, dropout 0: bf16 %.6f "
-          "vs float32 %.6f (relative difference %.3g); captured p50 %.3f "
-          "ms%s" % (label, losses[True], losses[False], rel,
-                    cap["captured_p50_ms"],
-                    " vs float32's %.3f ms" % f32["captured_p50_ms"]
-                    if f32 else ""))
+          "vs float32 %.6f (relative difference %.3g); %s p50 %.3f ms%s" % (
+              label, losses[True], losses[False], rel, mode,
+              cap[mode + "_p50_ms"],
+              " vs float32's %.3f ms" % f32[mode + "_p50_ms"] if f32 else ""))
 
 
 def train_transformer_base_bf16(dev, profile_dir=None, f32=None,
@@ -4741,14 +4752,17 @@ class TinyVocabParallelWMT:
     batch, length = 4, 8
 
 
-def _vp_program(hp, mesh, length):
-    """The WMT training program with softmax_out.w vocab-sharded over `mesh`
-    (the vocab-only rule table; None: unstamped), seed 4321."""
+def _vp_program(hp, mesh, length, use_bf16=False, is_test=False):
+    """The WMT training program (or its is_test form) with softmax_out.w
+    vocab-sharded over `mesh` (the vocab-only rule table; None:
+    unstamped), seed 4321; `use_bf16` applies the AMP pass, whose cast
+    feeds fused_linear_xent a bf16 mirror of the float32 master."""
     from paddle_tpu_torch.models import transformer as tfm
     from paddle_tpu_torch.parallel import P, TrainPartitionRules, annotate_spmd
 
     main, startup, _, fetch = tfm.wmt_transformer_program(
-        hp, src_len=length, trg_len=length, mesh=mesh)
+        hp, src_len=length, trg_len=length, mesh=mesh, use_bf16=use_bf16,
+        is_test=is_test)
     if mesh is not None:
         annotate_spmd(main, mesh, TrainPartitionRules(
             [(r"softmax_out\.w", P(None, "mp"))]))
@@ -4790,7 +4804,13 @@ def _vp_rank(rank, store, out_dir, profile_dir):
         pickle.dump(out, f)
 
 
-def _vp_rank_run(rank, store, out_dir, profile_dir):
+def _vp_leg(rank, mesh, batch, out_dir, profile_dir, use_bf16):
+    """One leg of the vocab-parallel phase on this rank, Transformer-base
+    in float32 or in bf16: the exactness steps (VP_WARMUP + 1), the
+    gathered softmax_out.w master (rank 0 saves it), then the timed steps
+    (VP_STEPS, or VP_BF16_STEPS in bf16) with the launch counts reset just
+    before and read just after; with `profile_dir`, 3 more steps under the
+    profiler on rank 0."""
     import numpy as np
     import torch
 
@@ -4798,16 +4818,12 @@ def _vp_rank_run(rank, store, out_dir, profile_dir):
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.executor import gather_persistable
     from paddle_tpu_torch.models import transformer as tfm
-    from paddle_tpu_torch.parallel import collective, make_mesh
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    collective.init_distributed_env("file://" + store, VP_MP, rank,
-                                    backend="gloo")
-    mesh = make_mesh({"dp": 1, "mp": VP_MP})
-    hp = tfm.ModelHyperParams
-    main, startup, fetch = _vp_program(hp, mesh, TRAIN_LEN)
-    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
+    t0 = time.time()
+    tag = "_bf16" if use_bf16 else ""
+    steps = VP_BF16_STEPS if use_bf16 else VP_STEPS
+    main, startup, fetch = _vp_program(tfm.ModelHyperParams, mesh, TRAIN_LEN,
+                                       use_bf16)
     out = {}
     scope = ptt.Scope()
     with ptt.scope_guard(scope):
@@ -4823,17 +4839,19 @@ def _vp_rank_run(rank, store, out_dir, profile_dir):
                                [0].sum()) for _ in range(VP_WARMUP + 1)]
         w = gather_persistable(scope, main, slabs[0])
         if rank == 0:
-            np.save(os.path.join(out_dir, "w_gathered.npy"), w.cpu().numpy())
-        out["held"] = {n: tuple(scope.find_var(n).shape) for n in slabs}
+            np.save(os.path.join(out_dir, "w_gathered%s.npy" % tag),
+                    w.cpu().numpy())
+        out["held"] = {n: (tuple(scope.find_var(n).shape),
+                           scope.find_var(n).dtype) for n in slabs}
         out["sums_exact"] = _state_sums(scope, whole)
         kernels.reset_launch_counts()
         times = []
-        for _ in range(VP_STEPS):
+        for _ in range(steps):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             loss = exe.run(main, feed=batch, fetch_list=fetch)
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+            times.append(time.perf_counter() - t1)
             assert float(loss[1].sum()) == float(batch["lbl_weight"].sum())
             out["losses"].append(float(loss[0].sum()))
         out["launches"] = {fn.__name__: fn.launches for fn in kernels.KERNELS}
@@ -4852,23 +4870,33 @@ def _vp_rank_run(rank, store, out_dir, profile_dir):
 
             if rank == 0:
                 out["profile"] = profile_training(
-                    step, profile_dir, name="training_vocab_parallel")
+                    step, profile_dir, name="training_vocab_parallel" + tag)
             else:
                 for _ in range(4):
                     step()
     del scope, exe
     torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    return out
 
-    # the narrow config on the card's two ranks and on the CPU's (the same
-    # gloo group, CPU tensors): 3 steps each from the same weights
-    narrow = type("NarrowVP", (hp,), TinyVocabParallelWMT.attrs)
+
+def _vp_narrow(mesh, use_bf16):
+    """The narrow config (TinyVocabParallelWMT) on the card's two ranks
+    and on the CPU's (the same gloo group, CPU tensors): 3 steps each
+    from the same weights; {"cpu": losses, "cuda": losses}."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tfm
+
+    narrow = type("NarrowVP", (tfm.ModelHyperParams,),
+                  TinyVocabParallelWMT.attrs)
     n_batch = tfm.make_fake_batch(TinyVocabParallelWMT.batch,
                                   TinyVocabParallelWMT.length,
                                   TinyVocabParallelWMT.length, narrow, seed=0)
-    out["narrow"] = {}
+    out = {}
     for kind in ("cpu", "cuda"):
         main, startup, fetch = _vp_program(narrow, mesh,
-                                           TinyVocabParallelWMT.length)
+                                           TinyVocabParallelWMT.length,
+                                           use_bf16)
         scope = ptt.Scope()
         with ptt.scope_guard(scope):
             place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
@@ -4880,57 +4908,75 @@ def _vp_rank_run(rank, store, out_dir, profile_dir):
             else:
                 for n, v in weights.items():
                     scope.set(n, v.to(place.torch_device()))
-            out["narrow"][kind] = [float(exe.run(
+            out[kind] = [float(exe.run(
                 main, feed=n_batch, fetch_list=[fetch[0]])[0].sum())
                 for _ in range(3)]
+    return out
+
+
+def _vp_rank_run(rank, store, out_dir, profile_dir):
+    import torch
+
+    from paddle_tpu_torch.models import transformer as tfm
+    from paddle_tpu_torch.parallel import collective, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    collective.init_distributed_env("file://" + store, VP_MP, rank,
+                                    backend="gloo")
+    mesh = make_mesh({"dp": 1, "mp": VP_MP})
+    hp = tfm.ModelHyperParams
+    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
+    out = _vp_leg(rank, mesh, batch, out_dir, profile_dir, False)
+    out["narrow"] = _vp_narrow(mesh, False)
+    # the bf16 leg, in the same processes: no new spawn, import or build
+    t0 = time.time()
+    bf = _vp_leg(rank, mesh, batch, out_dir, profile_dir, True)
+    bf["narrow"] = _vp_narrow(mesh, True)
+
+    class NoDropout(hp):
+        dropout = 0.0
+
+    def test_program(use_bf16):
+        main, startup, fetch = _vp_program(NoDropout, mesh, TRAIN_LEN,
+                                           use_bf16, is_test=True)
+        return main, startup, None, fetch
+
+    # both legs' first losses from one startup, is_test and dropout 0, on
+    # the two ranks
+    cap = {"captured_p50_ms": None,
+           "eager_p50_ms": sorted(bf["times"])[len(bf["times"]) // 2] * 1e3}
+    _bf16_vs_f32("Transformer-base vocab-parallel (rank %d)" % rank,
+                 test_program, batch, 4321, cap)
+    bf["vs_f32"] = {k: cap[k] for k in ("f32_loss", "bf16_loss",
+                                        "bf16_vs_f32")}
+    bf["leg_seconds"] = time.time() - t0
+    out["bf16"] = bf
     collective.barrier()
     return out
 
 
-def train_vocab_parallel(dev, smi, profile_dir=None):
-    """Transformer-base (the WMT program of train_transformer_base, seed
-    4321, batch 64 x 64) on a {"dp": 1, "mp": 2} mesh whose rule table
-    vocab-shards softmax_out.w: two ranks on cuda:0 over gloo, each
-    holding the [512, 5000] slab of its mp coordinate and running
-    sharded_linear_xent's kernels.  First a one-process unsharded run of
-    the same program, weights and batch (3 steps); then the ranks run 2
-    warm-up steps and one more (the three exactness steps: losses within
-    1e-5 relative at step 1 and 1e-4 at steps 2-3, the gathered
-    softmax_out.w within 1e-4 of its largest magnitude), then 5 timed
-    steps with the launch counts reset just before and read just after,
-    held per step to parts 2 / dx 1 / dw 1 (no B4), add-LN 60,
-    matmul_bias_act 48; every replicated persistable bit-equal across the
-    ranks after step 3 and after the last; and the narrow config of the
-    CPU tests 3 steps on the card's two ranks against the CPU's (1e-5
-    relative).  With `profile_dir`, rank 0 profiles 3 more steps
-    (chiprun_out/profile_training_vocab_parallel.json).  Returns rank 0's
-    launches over the timed steps."""
-    import multiprocessing
-    import pickle
-    import tempfile
+def _vp_expected(main, use_bf16):
+    """The vocab-parallel step's launches per rank, from the unsharded
+    program's: B4's forward, dx and dw (float32 or bf16) move to B12's
+    parts, dx and dw of the same form."""
+    per_step = _expected_train_launches(main)
+    tag = "_bf16" if use_bf16 else ""
+    for kind in ("fwd", "dx", "dw"):
+        sharded = "linear_xent_parts" if kind == "fwd" else (
+            "linear_xent_%s_sharded" % kind)
+        per_step[sharded + tag] = per_step.pop("linear_xent_%s%s" % (kind, tag))
+        per_step["linear_xent_%s%s" % (kind, tag)] = 0
+    return per_step
 
-    import numpy as np
+
+def _vp_unsharded(main, startup, fetch, batch):
+    """The unsharded program, one process: the losses of the exactness
+    steps and softmax_out.w after them."""
     import torch
 
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.models import transformer as tfm
 
-    hp = tfm.ModelHyperParams
-    main, startup, fetch = _vp_program(hp, None, TRAIN_LEN)
-    per_step = _expected_train_launches(main)
-    for kind in ("fwd", "dx", "dw"):  # the projection moves to B12's kernels
-        sharded = "linear_xent_parts" if kind == "fwd" else (
-            "linear_xent_%s_sharded" % kind)
-        per_step[sharded] = per_step.pop("linear_xent_" + kind)
-        per_step["linear_xent_" + kind] = 0
-    assert {k: per_step[k] for k in (
-        "linear_xent_parts", "linear_xent_dx_sharded",
-        "linear_xent_dw_sharded", "linear_xent_fwd", "fused_add_layer_norm",
-        "matmul_bias_act")} == {
-            "linear_xent_parts": 2, "linear_xent_dx_sharded": 1,
-            "linear_xent_dw_sharded": 1, "linear_xent_fwd": 0,
-            "fused_add_layer_norm": 60, "matmul_bias_act": 48}, per_step
-    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
     scope = ptt.Scope()
     with ptt.scope_guard(scope):
         exe = ptt.Executor(ptt.CUDAPlace(0))
@@ -4941,6 +4987,148 @@ def train_vocab_parallel(dev, smi, profile_dir=None):
             scope.local_var_names())[0]).cpu().numpy()
     del scope, exe
     torch.cuda.empty_cache()
+    return base, w_base
+
+
+def _vp_check(label, res, base, w_vp, w_base, per_step, steps, later_rtol,
+              narrow_rtol, dx_bytes):
+    """What both legs hold: step 1's loss within 1e-5 relative of the
+    unsharded run and steps 2-3 within `later_rtol`, the gathered float32
+    master within 1e-4 of its largest magnitude, the ranks' losses equal
+    and every replicated persistable bit-equal across them after step 3
+    and after the last, the slabs float32 [512, 5000] on every rank, the
+    narrow config on the card within `narrow_rtol` of the CPU's, the
+    launches `per_step` over the timed steps, the all-reduces (8 of [R, 1]
+    float32 and dx's, `dx_bytes`) and the plans.  Returns rank 0's losses'
+    relative differences from the unsharded run and the master's error."""
+    import numpy as np
+    import torch
+
+    r0 = res[0]
+    exact = r0["losses"][:VP_WARMUP + 1]
+    rel = [abs(a - b) / abs(b) for a, b in zip(exact, base)]
+    assert rel[0] <= 1e-5 and max(rel[1:]) <= later_rtol, (
+        label, exact, base, rel)
+    w_err = float(np.abs(w_vp - w_base).max() / np.abs(w_base).max())
+    assert w_vp.shape == w_base.shape == (HP_D_MODEL, HP_VOCAB) and (
+        w_err <= 1e-4), (label, w_vp.shape, w_err)
+    for r in range(1, VP_MP):
+        assert res[r]["losses"] == r0["losses"], (label, "ranks disagree on "
+                                                  "the loss")
+        for key in ("sums_exact", "sums_last"):
+            differ = [n for n, v in r0[key].items() if res[r][key][n] != v]
+            assert not differ, ("replicated state differs across ranks",
+                                label, key, differ[:5])
+    for out in res:
+        assert all(held == ((HP_D_MODEL, HP_VOCAB // VP_MP), torch.float32)
+                   for held in out["held"].values()), out["held"]
+        assert len(out["held"]) == 3, out["held"]
+        assert np.isfinite(out["losses"]).all()
+        np.testing.assert_allclose(out["narrow"]["cuda"], out["narrow"]["cpu"],
+                                   rtol=narrow_rtol)
+    for name, n in r0["launches"].items():
+        assert n == per_step.get(name, 0) * steps, (
+            "launch count", label, name, n, per_step.get(name, 0))
+    # 4 all-reduces in the forward of sharded_linear_xent, 4 more in the
+    # grad op's re-run of it and dx's: 8 of [R, 1] and one of [R, H]
+    rows = TRAIN_BATCH * TRAIN_LEN
+    assert r0["comm"]["per_op"] == {"all-reduce": {
+        "count": 9, "bytes": 4 * 8 * rows + dx_bytes}}, (label, r0["comm"])
+    # one plan for each fetch list the rank ran: the loss, and the timed
+    # steps' loss and token count
+    assert r0["compile_count"] == 2, (label, r0["compile_count"])
+    return rel, w_err
+
+
+def _vp_line(label, smi, res, steps, rel, w_err, base, n_tok):
+    """Prints a leg's line from the ranks' results; returns rank 0's
+    record (eager only: the stamped program's gloo collectives cannot be
+    captured)."""
+    r0 = res[0]
+    times = r0["times"]
+    p50 = sorted(times)[len(times) // 2]
+    print("trained %s (mp %d, batch %d x %d; %s; %d ranks time-slice ONE "
+          "card over gloo, so this is no multi-card step time) %d timed steps "
+          "after %d warm-up: step p50 %.3f ms, mean %.3f ms, %.1f target "
+          "tokens/s (%d a step); peak memory per rank %s GB; losses %s vs the "
+          "unsharded run's %s (relative differences %s), gathered "
+          "softmax_out.w within %.3g of its largest magnitude after step %d; "
+          "replicated state bit-equal across the ranks; launches per step per "
+          "rank %s; narrow config on the card's ranks %s vs the CPU's %s; %.1f "
+          "s" % (
+              label, VP_MP, TRAIN_BATCH, TRAIN_LEN, smi, VP_MP, steps,
+              VP_WARMUP, p50 * 1e3, sum(times) / len(times) * 1e3,
+              n_tok / p50, n_tok, [round(o["peak"] / 1e9, 3) for o in res],
+              json.dumps([round(v, 6) for v in r0["losses"]]),
+              json.dumps([round(v, 6) for v in base]),
+              ["%.3g" % v for v in rel], w_err, VP_WARMUP + 1,
+              json.dumps({k: v // steps for k, v in r0["launches"].items()
+                          if v}),
+              r0["narrow"]["cuda"], r0["narrow"]["cpu"], r0["seconds"]))
+    cap = {"captured": False, "eager_p50_ms": p50 * 1e3,
+           "captured_p50_ms": None, "eager_peak_gb": r0["peak"] / 1e9,
+           "captured_peak_gb": None, "compile_count": r0["compile_count"],
+           "spmd_comm_stats": r0["comm"]}
+    _busy_idle(cap, {"eager": r0.get("profile")})
+    cap["captured_busy_ms"] = cap["captured_idle"] = None
+    return cap
+
+
+def train_vocab_parallel(dev, smi, profile_dir=None):
+    """Transformer-base (the WMT program of train_transformer_base, seed
+    4321, batch 64 x 64) on a {"dp": 1, "mp": 2} mesh whose rule table
+    vocab-shards softmax_out.w: two ranks on cuda:0 over gloo, each
+    holding the [512, 5000] slab of its mp coordinate and running
+    sharded_linear_xent's kernels, first in float32, then in bf16
+    (wmt_transformer_program(use_bf16=True): the AMP pass's cast hands
+    B12's bf16 forms a bf16 mirror of the float32 master slab).
+
+    Each leg: first a one-process unsharded run of the same program,
+    weights and batch (3 steps); then the ranks run 2 warm-up steps and
+    one more (the exactness steps: losses within 1e-5 relative at step 1
+    and, at steps 2-3, 1e-4 in float32 and VP_BF16_LATER_RTOL in bf16,
+    the gathered float32 softmax_out.w within 1e-4 of its largest
+    magnitude), then the timed steps (5 in float32, 3 in bf16) with the
+    launch counts reset just before and read just after, held per step:
+    in float32 parts 2 / dx 1 / dw 1 (no B4), add-LN 60, matmul_bias_act
+    48; in bf16 B12's bf16 parts 2 / dx 1 / dw 1, no float32 B12 and no B4
+    in either form, the rest at the bf16 WMT step's counts; every
+    replicated persistable bit-equal across the ranks after step 3 and
+    after the last; and the narrow config of the CPU tests 3 steps on the
+    card's two ranks against the CPU's (1e-5 relative in float32, 5e-3 in
+    bf16).  The bf16 leg also holds its first is_test loss within 1e-2 of
+    the float32 program's (_bf16_vs_f32, on the ranks).  With
+    `profile_dir`, rank 0 profiles 3 more steps of each leg
+    (chiprun_out/profile_training_vocab_parallel[_bf16].json).  Returns
+    rank 0's launches over the timed steps and the record of each leg:
+    (float32 launches, float32 record, bf16 launches, bf16 record)."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.models import transformer as tfm
+
+    hp = tfm.ModelHyperParams
+    batch = tfm.make_fake_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, hp, seed=0)
+    n_tok = float(batch["lbl_weight"].sum())
+    per_step, base, w_base, base_s = {}, {}, {}, {}
+    for use_bf16 in (False, True):
+        t0 = time.time()
+        main, startup, fetch = _vp_program(hp, None, TRAIN_LEN, use_bf16)
+        per_step[use_bf16] = _vp_expected(main, use_bf16)
+        base[use_bf16], w_base[use_bf16] = _vp_unsharded(main, startup,
+                                                         fetch, batch)
+        base_s[use_bf16] = time.time() - t0
+    want = {"linear_xent_parts": 2, "linear_xent_dx_sharded": 1,
+            "linear_xent_dw_sharded": 1, "fused_add_layer_norm": 60,
+            "matmul_bias_act": 48}
+    _hold_launches("vocab-parallel", per_step[False], want)
+    _hold_launches("vocab-parallel bf16", per_step[True], {
+        "linear_xent_parts_bf16": 2, "linear_xent_dx_sharded_bf16": 1,
+        "linear_xent_dw_sharded_bf16": 1, "fused_add_layer_norm": 60,
+        "matmul_bias_act_bf16": 48})
 
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as d:
@@ -4969,69 +5157,35 @@ def train_vocab_parallel(dev, smi, profile_dir=None):
                 r, res[r]["error"])
         assert [p.exitcode for p in procs] == [0] * VP_MP, [
             p.exitcode for p in procs]
-        w_vp = np.load(os.path.join(d, "w_gathered.npy"))
+        w_vp = {bf: np.load(os.path.join(d, "w_gathered%s.npy"
+                                         % ("_bf16" if bf else "")))
+                for bf in (False, True)}
         ranks_s = time.time() - t0
-    r0 = res[0]
-    exact = r0["losses"][:VP_WARMUP + 1]
-    rel = [abs(a - b) / abs(b) for a, b in zip(exact, base)]
-    assert rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4, (exact, base, rel)
-    w_err = float(np.abs(w_vp - w_base).max() / np.abs(w_base).max())
-    assert w_vp.shape == w_base.shape == (HP_D_MODEL, HP_VOCAB) and (
-        w_err <= 1e-4), (w_vp.shape, w_err)
-    for r in range(1, VP_MP):
-        assert res[r]["losses"] == r0["losses"], "ranks disagree on the loss"
-        for key in ("sums_exact", "sums_last"):
-            differ = [n for n, v in r0[key].items() if res[r][key][n] != v]
-            assert not differ, ("replicated state differs across ranks", key,
-                                differ[:5])
-    for out in res:
-        assert all(shape == (HP_D_MODEL, HP_VOCAB // VP_MP)
-                   for shape in out["held"].values()), out["held"]
-        assert len(out["held"]) == 3, out["held"]
-        assert np.isfinite(out["losses"]).all()
-        np.testing.assert_allclose(out["narrow"]["cuda"], out["narrow"]["cpu"],
-                                   rtol=1e-5)
-    for name, n in per_step.items():
-        assert r0["launches"][name] == n * VP_STEPS, (
-            "launch count", name, r0["launches"][name], n)
-    times = r0["times"]
-    p50 = sorted(times)[len(times) // 2]
-    n_tok = float(batch["lbl_weight"].sum())
-    print("trained Transformer-base vocab-parallel (mp %d, batch %d x %d; %s; "
-          "%d ranks time-slice ONE card over gloo, so this is no multi-card "
-          "step time) %d timed steps after %d warm-up: step p50 %.3f ms, mean "
-          "%.3f ms, %.1f target tokens/s (%d a step); peak memory per rank "
-          "%s GB; losses %s vs the unsharded run's %s (relative differences "
-          "%s), gathered softmax_out.w within %.3g of its largest magnitude "
-          "after step %d; replicated state bit-equal across the ranks; launches "
-          "per step per rank %s; narrow config on the card's ranks %s vs the "
-          "CPU's %s; ranks' wall %.1f s" % (
-              VP_MP, TRAIN_BATCH, TRAIN_LEN, smi, VP_MP, VP_STEPS, VP_WARMUP,
-              p50 * 1e3, sum(times) / len(times) * 1e3, n_tok / p50, n_tok,
-              [round(o["peak"] / 1e9, 3) for o in res],
-              json.dumps([round(v, 6) for v in r0["losses"]]),
-              json.dumps([round(v, 6) for v in base]),
-              ["%.3g" % v for v in rel], w_err, VP_WARMUP + 1,
-              json.dumps({k: v // VP_STEPS for k, v in r0["launches"].items()
-                          if v}),
-              r0["narrow"]["cuda"], r0["narrow"]["cpu"], ranks_s))
-    # 4 all-reduces in the forward of sharded_linear_xent, 4 more in the
-    # grad op's re-run of it and dx's: 8 of [R, 1] and one of [R, H]
-    comm = r0["comm"]
     rows = TRAIN_BATCH * TRAIN_LEN
-    assert comm["per_op"] == {"all-reduce": {
-        "count": 9, "bytes": 4 * (8 * rows + rows * HP_D_MODEL)}}, comm
-    # one plan for each fetch list the rank ran: the loss, and the timed
-    # steps' loss and token count
-    assert r0["compile_count"] == 2, r0["compile_count"]
-    cap = {"captured": False, "eager_p50_ms": p50 * 1e3,
-           "captured_p50_ms": None, "eager_peak_gb": r0["peak"] / 1e9,
-           "captured_peak_gb": None, "compile_count": r0["compile_count"],
-           "spmd_comm_stats": comm}
-    _busy_idle(cap, {"eager": r0.get("profile")})
-    cap["captured_busy_ms"] = cap["captured_idle"] = None
-    return r0["launches"], _capture_line(
-        "WMT vocab-parallel training (rank 0)", cap)
+    out = []
+    for use_bf16 in (False, True):
+        legs = [o["bf16"] if use_bf16 else o for o in res]
+        steps = VP_BF16_STEPS if use_bf16 else VP_STEPS
+        label = "Transformer-base vocab-parallel" + (" bf16" if use_bf16
+                                                     else "")
+        rel, w_err = _vp_check(
+            label, legs, base[use_bf16], w_vp[use_bf16], w_base[use_bf16],
+            per_step[use_bf16], steps,
+            VP_BF16_LATER_RTOL if use_bf16 else 1e-4,
+            5e-3 if use_bf16 else 1e-5,
+            (2 if use_bf16 else 4) * rows * HP_D_MODEL)
+        cap = _vp_line(label, smi, legs, steps, rel, w_err, base[use_bf16],
+                       n_tok)
+        if use_bf16:
+            cap.update(legs[0]["vs_f32"])
+            print("vocab-parallel bf16 leg: the unsharded bf16 run %.1f s, the "
+                  "ranks' bf16 work (exactness and timed steps, the narrow config, "
+                  "the is_test losses) %.1f s; the ranks' wall, both legs, %.1f s"
+                  % (base_s[True], legs[0]["leg_seconds"], ranks_s))
+        out += [legs[0]["launches"], _capture_line(
+            "WMT vocab-parallel%s training (rank 0)" % (
+                " bf16" if use_bf16 else ""), cap)]
+    return tuple(out)
 
 
 def bert_base_config():
@@ -7925,6 +8079,122 @@ def check_deepfm_kernels(dev, randn, rec):
             print("matmul_bias_act %s: %s" % (tag, json.dumps(t_)))
 
 
+# A1's schedules on the card: each builds its rate from layers.*
+SCHEDULE_CASES = (
+    ("exponential_decay", lambda L: L.exponential_decay(0.1, 2, 0.5)),
+    ("natural_exp_decay", lambda L: L.natural_exp_decay(0.1, 3, 0.3, True)),
+    ("inverse_time_decay", lambda L: L.inverse_time_decay(0.1, 2, 0.7)),
+    ("polynomial_decay", lambda L: L.polynomial_decay(0.1, 3, 0.001, 1.5,
+                                                      cycle=True)),
+    ("piecewise_decay", lambda L: L.piecewise_decay([2, 4],
+                                                    [0.1, 0.03, 0.01])),
+    ("cosine_decay", lambda L: L.cosine_decay(0.1, 2, 4)),
+    ("linear_lr_warmup", lambda L: L.linear_lr_warmup(
+        L.exponential_decay(0.1, 2, 0.5), 3, 0.01, 0.1)),
+)
+
+
+def schedules_card_matches_cpu(dev):
+    """A1's leftovers on the card.  A narrow fc regression (16 -> 32 relu
+    -> 4, batch 64, SGD) trained 6 steps under each learning-rate
+    schedule, on the card and on the CPU plain path from the same
+    weights: the rates per step within 1e-6 relative, the losses within
+    1e-5.  Bilinear's startup on the card exact (the CPU's values), and
+    TruncatedNormal's 10^6 samples on the card inside mean +- 2 std,
+    their mean and std the truncated normal's within 5 standard
+    errors."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import unique_name
+
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.randn(64, 16).astype("float32"),
+            "y": rng.randn(64, 4).astype("float32")}
+
+    def build(schedule):
+        main, startup = ptt.Program(), ptt.Program()
+        with unique_name.guard(), ptt.program_guard(main, startup):
+            x = ptt.layers.data("x", shape=[16])
+            y = ptt.layers.data("y", shape=[4])
+            h = ptt.layers.fc(x, size=32, act="relu")
+            loss = ptt.layers.mean(ptt.layers.square(
+                ptt.layers.fc(h, size=4) - y))
+            lr = schedule(ptt.layers)
+            ptt.optimizer.SGD(lr).minimize(loss)
+        startup.random_seed = 5
+        return main, startup, [loss, lr]
+
+    worst = {"lr": 0.0, "loss": 0.0}
+    for name, schedule in SCHEDULE_CASES:
+        main, startup, fetch = build(schedule)
+        runs = {}
+        for kind in ("cpu", "cuda"):
+            scope = ptt.Scope()
+            with ptt.scope_guard(scope):
+                place = ptt.CPUPlace() if kind == "cpu" else ptt.CUDAPlace(0)
+                exe = ptt.Executor(place)
+                if kind == "cpu":
+                    exe.run(startup)
+                    weights = {n: scope.find_var(n).clone()
+                               for n in scope.local_var_names()}
+                else:
+                    for n, v in weights.items():
+                        scope.set(n, v.to(place.torch_device()))
+                runs[kind] = np.array([[float(np.asarray(v).sum()) for v in
+                                        exe.run(main, feed=feed,
+                                                fetch_list=fetch)]
+                                       for _ in range(6)])
+                exe.close()
+        got, want = runs["cuda"], runs["cpu"]
+        assert np.isfinite(got).all() and len(set(want[:, 1])) > 1, (name,
+                                                                     want)
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-6)
+        np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-5)
+        for col, key in ((1, "lr"), (0, "loss")):
+            worst[key] = max(worst[key], float(np.max(
+                np.abs(got[:, col] - want[:, col]) / np.abs(want[:, col]))))
+
+    def init_value(init, shape, place):
+        main, startup = ptt.Program(), ptt.Program()
+        with unique_name.guard(), ptt.program_guard(main, startup):
+            ptt.layers.create_parameter(
+                shape, "float32", attr=ptt.ParamAttr(name="w",
+                                                     initializer=init))
+        scope = ptt.Scope()
+        with ptt.scope_guard(scope):
+            ptt.Executor(place).run(startup)
+            return scope.find_var("w")
+
+    bilinear = [init_value(ptt.initializer.Bilinear(), [8, 8, 6, 6], place)
+                for place in (ptt.CPUPlace(), ptt.CUDAPlace(0))]
+    assert bilinear[1].is_cuda and torch.equal(bilinear[1].cpu(), bilinear[0])
+    mean, std = 0.5, 2.0
+    v = init_value(ptt.initializer.TruncatedNormal(mean, std, seed=3),
+                   [1000, 1000], ptt.CUDAPlace(0))
+    assert v.is_cuda
+    n = v.numel()
+    mass = math.erf(2 / math.sqrt(2))
+    t_std = std * math.sqrt(1 - 4 * math.exp(-2.0) / math.sqrt(2 * math.pi)
+                            / mass)
+    stats = [float(v.min()), float(v.max()), float(v.double().mean()),
+             float(v.double().std())]
+    assert stats[0] >= mean - 2 * std and stats[1] <= mean + 2 * std, stats
+    assert abs(stats[2] - mean) <= 5 * t_std / math.sqrt(n), stats
+    assert abs(stats[3] - t_std) <= 5 * t_std / math.sqrt(2 * n), stats
+    torch.cuda.synchronize()
+    print("A1 on the card: %d schedules (%s), 6 SGD steps each, card vs CPU: "
+          "rates within %.3g relative, losses within %.3g; Bilinear [8, 8, "
+          "6, 6] startup equal to the CPU's; TruncatedNormal(0.5, 2) on "
+          "10^6 samples: min %.4f, max %.4f, mean %.5f, std %.5f (the "
+          "truncated normal's %.5f)" % (
+              len(SCHEDULE_CASES), ", ".join(n for n, _ in SCHEDULE_CASES),
+              worst["lr"], worst["loss"], *stats, t_std))
+
+
 DECODE_KERNELS = ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
                   "matmul_bias_act", "fused_add_layer_norm")
 # held on the card by the kernel phase only: no path of the repo trains
@@ -7975,6 +8245,7 @@ def main():
         return 2
     dev, smi = card_setup()
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import bf16_kernels_check as bf16k
     import kv_bf16_check as kv16
     import recurrent_kernel_check as rkc
     import row_kernels_check as rowk
@@ -7986,6 +8257,7 @@ def main():
     t0 = time.time()
     split_build = rkc.start_split_build()  # beside the library's nvccs
     before_build = rowk.start_before_build()
+    bf16k.start_b4_before_build()  # B4's bf16 forms as they were
     build.load()
     print("kernels built in %.1f s from %s" % (time.time() - t0, build.CSRC))
     for line in build.build_log.splitlines():
@@ -7993,10 +8265,12 @@ def main():
             print("  " + line.strip())
     rkc.split_lib(split_build)
     rowk.before_lib(before_build)
+    bf16k.b4_before_lib()
     print("step-split library (scripts/recurrent_split.cu, "
-          "scripts/recurrent_grid_sync.cu) and the row kernels' replaced "
-          "forms (scripts/row_forms_before.cu) built in %.1f s" % (
-              time.time() - t0))
+          "scripts/recurrent_grid_sync.cu), the row kernels' replaced "
+          "forms (scripts/row_forms_before.cu) and B4's bf16 forms before "
+          "B12's joined them (scripts/linear_xent_bf16_before.cu) built in "
+          "%.1f s" % (time.time() - t0))
 
     laps = [time.time()]
 
@@ -8162,9 +8436,11 @@ def main():
     packed_train_card_matches_cpu(dev)
     lap("narrow packed LM, card vs CPU")
     torch.cuda.empty_cache()
-    trained_vp, caps["wmt_vocab_parallel_training"] = train_vocab_parallel(
-        dev, smi, profile_dir)
-    lap("wmt vocab-parallel training (2 ranks on one card)")
+    (trained_vp, caps["wmt_vocab_parallel_training"], trained_vp_bf16,
+     caps["wmt_vocab_parallel_bf16_training"]) = train_vocab_parallel(
+         dev, smi, profile_dir)
+    lap("wmt vocab-parallel training, float32 and bf16 (2 ranks on one "
+        "card)")
     torch.cuda.empty_cache()
     trained_resnet, caps["resnet50_training"] = train_resnet50(
         dev, False, profile_dir)
@@ -8221,6 +8497,8 @@ def main():
     lap("deepfm wide tables, sparse and dense")
     deepfm_card_matches_cpu(dev)
     lap("narrow deepfm, card vs CPU")
+    schedules_card_matches_cpu(dev)
+    lap("A1: learning-rate schedules and initializers, card vs CPU")
     assert sum(c["captured"] for c in caps.values()) == 41, caps
     for path in ("gpt2_decode", "wmt_training"):
         assert caps[path]["captured_p50_ms"] < caps[path]["eager_p50_ms"], (
@@ -8257,6 +8535,7 @@ def main():
                    "packed_lm_training": trained_packed[name],
                    "packed_lm_window_training": trained_packed_window[name],
                    "wmt_vocab_parallel_training": trained_vp[name],
+                   "wmt_vocab_parallel_bf16_training": trained_vp_bf16[name],
                    "resnet50_training": trained_resnet[name],
                    "resnet50_nhwc_training": trained_resnet_nhwc[name],
                    "resnet50_inference": inferred_resnet[name],
@@ -8290,7 +8569,7 @@ def main():
             entry[key] = r[key]
         for key in ("per_shape", "max_rel_err", "max_lse_err", "library_note",
                     "bound_ms_fp32", "plan", "before_ms", "floor_ms",
-                    "step_split", "library_bf16q_ms"):
+                    "step_split", "library_bf16q_ms", "f32_ms"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

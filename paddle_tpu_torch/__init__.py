@@ -25,26 +25,47 @@ optimizer, ``clip``, ``regularizer``).
 
 from . import ops  # noqa: F401  (registers the op lowerings)
 from . import inference, io, layers, nets, transpiler, unique_name  # noqa: F401
-from . import clip, flags, optimizer, regularizer  # noqa: F401
+from . import backward, clip, flags, framework, initializer  # noqa: F401
+from . import optimizer, param_attr, places, regularizer  # noqa: F401
 from .core.scope import Scope, global_scope, scope_guard
-from .executor import Executor
+from .executor import Executor, as_numpy
 from .framework import (
+    Block,
+    Operator,
+    Parameter,
     Program,
+    Variable,
+    cpu_places,
     default_main_program,
     default_startup_program,
+    name_scope,
     program_guard,
 )
-from .io import load_inference_model, save_inference_model
-from .param_attr import ParamAttr
-from .places import CPUPlace, CUDAPlace, default_place
+from .io import (
+    load_inference_model,
+    load_params,
+    load_persistables,
+    load_vars,
+    save_inference_model,
+    save_params,
+    save_persistables,
+    save_vars,
+)
+from .param_attr import ParamAttr, WeightNormParamAttr
+from .places import CPUPlace, CUDAPlace, default_place, is_compiled_with_cuda
 from .transpiler import (InferenceTranspiler, list_passes, memory_optimize,
                          release_memory)
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "Executor", "InferenceTranspiler", "ParamAttr",
-    "Program", "Scope", "clip", "default_main_program", "default_place",
-    "default_startup_program", "flags", "global_scope", "inference", "io",
-    "layers", "list_passes", "load_inference_model", "memory_optimize",
-    "nets", "optimizer", "program_guard", "regularizer", "release_memory",
-    "save_inference_model", "scope_guard", "unique_name",
+    "Block", "CPUPlace", "CUDAPlace", "Executor", "InferenceTranspiler",
+    "Operator", "ParamAttr", "Parameter", "Program", "Scope", "Variable",
+    "WeightNormParamAttr", "as_numpy", "backward", "clip", "cpu_places",
+    "default_main_program", "default_place", "default_startup_program",
+    "flags", "framework", "global_scope", "inference", "initializer", "io",
+    "is_compiled_with_cuda", "layers", "list_passes", "load_inference_model",
+    "load_params", "load_persistables", "load_vars", "memory_optimize",
+    "name_scope", "nets", "optimizer", "param_attr", "places",
+    "program_guard", "regularizer", "release_memory", "save_inference_model",
+    "save_params", "save_persistables", "save_vars", "scope_guard",
+    "unique_name",
 ]

@@ -129,10 +129,16 @@ def gather_persistable(scope, program, name):
 
 def _vocab_projections(block):
     """Names of the weights fed untransposed to fused_linear_xent: the
-    only persistables the port holds as vocab slabs."""
-    return {op.inputs["W"][0] for op in block.ops
-            if op.type == "fused_linear_xent"
-            and not op.attrs.get("transpose_w", False)}
+    only persistables the port holds as vocab slabs.  Under AMP the op's
+    W is the bf16 mirror that a ``cast`` writes from the float32 master
+    each step; the master is the persistable, so the cast is followed
+    back to its X (the cast then runs on the rank's slab)."""
+    cast_from = {op.outputs["Out"][0]: op.inputs["X"][0]
+                 for op in block.ops if op.type == "cast"}
+    return {cast_from.get(w, w) for w in (
+        op.inputs["W"][0] for op in block.ops
+        if op.type == "fused_linear_xent"
+        and not op.attrs.get("transpose_w", False))}
 
 
 def _spmd_layout(program, plan):

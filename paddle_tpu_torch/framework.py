@@ -35,6 +35,8 @@ __all__ = [
     "program_guard",
     "grad_var_name",
     "backward_slice_keep",
+    "name_scope",
+    "cpu_places",
 ]
 
 GRAD_VAR_SUFFIX = "@GRAD"
@@ -583,3 +585,24 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_startup is not None:
             switch_startup_program(prev_startup)
+
+
+_name_scope_stack = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """The reference's name scope: a stack of prefixes that names
+    nothing (var and op names are unique_name's)."""
+    _name_scope_stack.append(prefix or "")
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
+
+
+def cpu_places(device_count=None):
+    """`device_count` CPUPlaces (one by default)."""
+    from .places import CPUPlace
+
+    return [CPUPlace() for _ in range(device_count or 1)]

@@ -66,9 +66,12 @@ from .recurrent import (
 )
 from .sharded_linear_xent import (
     linear_xent_dw_sharded,
+    linear_xent_dw_sharded_bf16,
     linear_xent_dx_sharded,
+    linear_xent_dx_sharded_bf16,
     linear_xent_grad_sharded_plain,
     linear_xent_parts,
+    linear_xent_parts_bf16,
     linear_xent_parts_plain,
     sharded_linear_xent,
 )
@@ -96,7 +99,8 @@ KERNELS = (fused_add_layer_norm, matmul_bias_act, flash_attention_qvec,
            flash_attention_fwd_bf16, flash_attention_dq_bf16,
            flash_attention_dkv_bf16, matmul_swiglu_bf16,
            flash_attention_fwd_rows_kvbf16, flash_attention_piece_fwd_kvbf16,
-           flash_attention_qvec_kvbf16)
+           flash_attention_qvec_kvbf16, linear_xent_parts_bf16,
+           linear_xent_dx_sharded_bf16, linear_xent_dw_sharded_bf16)
 
 
 def reset_launch_counts():

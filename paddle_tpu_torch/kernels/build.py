@@ -77,6 +77,11 @@ SIGNATURES = {
     "ptt_linear_xent_dw_bf16": (_P,) * 6 + (_I,) * 3 + (_F, _P),
     "ptt_linear_xent_dx_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
     "ptt_linear_xent_dw_sharded": (_P,) * 7 + (_I,) * 8 + (_F, _P),
+    # B12's bf16 forms: R, H, V (parts: and its split count; dx / dw: and
+    # vocab_total), eps (linear_xent_bf16.cu; no plan)
+    "ptt_linear_xent_parts_bf16": (_P,) * 7 + (_I,) * 4 + (_P,),
+    "ptt_linear_xent_dx_sharded_bf16": (_P,) * 7 + (_I,) * 4 + (_F, _P),
+    "ptt_linear_xent_dw_sharded_bf16": (_P,) * 7 + (_I,) * 4 + (_F, _P),
     # R, H, then the plan's four (form, n4, vec, rows: layer_norm.ln_plan)
     "ptt_layer_norm": (_P,) * 6 + (_I,) * 6 + (_F, _P),
     "ptt_layer_norm_bf16": (_P,) * 6 + (_I,) * 6 + (_F, _P),
@@ -233,12 +238,14 @@ class LaunchCount:
 # the per-kernel dtype rule: the kernels with a bf16 form, each with the
 # positions of its check_inputs operands that stay float32 whatever the
 # working dtype (B1 and B2's gamma and beta, which the AMP trunk pass
-# keeps float32; B4's saved lse and dy; B3's lse and delta and its key
-# bias, which check_inputs sees after the rows: position 3 in the
-# forward, 6 in dq and dk/dv)
+# keeps float32; B4's saved lse and dy; B12's row validity, lse and dy;
+# B3's lse and delta and its key bias, which check_inputs sees after the
+# rows: position 3 in the forward, 6 in dq and dk/dv)
 BF16_FORMS = {"matmul_bias_act": (), "fused_layer_norm": (1, 2),
               "fused_add_layer_norm": (2, 3), "linear_xent_fwd": (),
               "linear_xent_dx": (2, 3), "linear_xent_dw": (2, 3),
+              "linear_xent_parts": (), "linear_xent_dx_sharded": (2, 3, 4),
+              "linear_xent_dw_sharded": (2, 3, 4),
               "matmul_swiglu": (), "flash_attention_fwd": (3,),
               "flash_attention_dq": (3, 5, 6),
               "flash_attention_dkv": (3, 5, 6)}
@@ -250,17 +257,14 @@ KV_BF16_FORMS = {"flash_attention_fwd_rows": (1, 2),
                  "flash_attention_piece_fwd": (1, 2),
                  "flash_attention_qvec": (1, 2)}
 # where the bf16 forms of the other kernels are queued in ROADMAP: a bf16
-# q to the KV-cache readers, and bf16 k / v to their backwards, B8q; B12 is
-# the vocab-parallel cross entropy (A3 (c)); the rest wait in queue B
+# q to the KV-cache readers, and bf16 k / v to their backwards, B8q; the
+# rest wait in queue B
 _KV = "B8q, the bf16-q forms of the KV-cache readers and their backwards"
-_VP = "A3 (c), the vocab-parallel cross entropy"
-BF16_QUEUED = dict(
-    {n: _KV for n in ("flash_attention_fwd_rows", "flash_attention_piece_fwd",
-                      "flash_attention_piece_dq", "flash_attention_piece_dkv",
-                      "flash_attention_qvec", "flash_attention_qvec_dq",
-                      "flash_attention_qvec_dkv")},
-    **{n: _VP for n in ("linear_xent_parts", "linear_xent_dx_sharded",
-                        "linear_xent_dw_sharded")})
+BF16_QUEUED = {n: _KV for n in (
+    "flash_attention_fwd_rows", "flash_attention_piece_fwd",
+    "flash_attention_piece_dq", "flash_attention_piece_dkv",
+    "flash_attention_qvec", "flash_attention_qvec_dq",
+    "flash_attention_qvec_dkv")}
 
 
 def kv_bf16(name, *tensors):

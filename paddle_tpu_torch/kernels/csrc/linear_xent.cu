@@ -304,14 +304,6 @@ __device__ __forceinline__ void stage_logits(float* slot, const float* __restric
   stage<kSwzW>(slot + BR * KC, w, KC, BV, V, h0, v0, h_end, V, wvec);
 }
 
-// Does row gr (< R) take the label term?  The unsharded form derives it
-// from its label; the sharded form is handed it (vld != nullptr), since a
-// local label cannot tell an other shard's column from outside the vocab.
-__device__ __forceinline__ bool row_valid(const float* __restrict__ vld,
-                                          int gr, long long lbl, int V) {
-  return vld != nullptr ? vld[gr] != 0.f : (lbl >= 0 && lbl < V);
-}
-
 // The cluster's z, as a reduce-scatter and a gather: every block puts its
 // two k-halves in part [2 kTile]; after a cluster barrier block c adds, for
 // the float4s of the tile it owns (a 1/n share, owner(f) = f n / 1024), the
@@ -508,28 +500,6 @@ __global__ void __launch_bounds__(kThreads, 1) lxent_fwd_kernel(
     part[base + 2L * R] = a[2] + b[2];
     part[base + 3L * R] = a[3] + b[3];
   }
-}
-
-// the same merge for one vocab shard: lse_j, gold_j and sum_j, no loss
-__global__ void lxent_parts_combine(const float* __restrict__ part,
-                                    float* __restrict__ lse,
-                                    float* __restrict__ gold_out,
-                                    float* __restrict__ sum_out, int R,
-                                    int splits) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  float mx = ptt::kNegInf;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part[static_cast<long>(s) * 4 * R + r]);
-  float l = 0.f, gold = 0.f, zsum = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const long base = static_cast<long>(s) * 4 * R + r;
-    l += part[base + R] * expf(part[base] - mx);
-    gold += part[base + 2L * R];
-    zsum += part[base + 3L * R];
-  }
-  lse[r] = mx + logf(l);
-  gold_out[r] = gold;
-  sum_out[r] = zsum;
 }
 
 // ---- dx: a cluster of n blocks along H per 64-row tile ---------------------------

@@ -34,6 +34,17 @@ Replaces ``paddle_tpu/ops/pallas_kernels.py`` ``sharded_linear_xent``:
 ``linear_xent_parts_plain`` and ``linear_xent_grad_sharded_plain`` are
 the plain PyTorch versions on the dense per-shard logits: CPU and meta
 tensors take them, CUDA tensors launch the kernels.
+
+bf16: bfloat16 x and w_local (the AMP pass's mirror of the float32
+master slab) launch the bf16 forms (``csrc/linear_xent_bf16.cu``,
+B4's bf16 tiles): lse, gold and sum stay float32 [R, 1], and so do the
+row validity, lse and dy the backward takes; g is rounded to bfloat16
+before each product, as the reference's kernels do (``g.astype(
+x_ref.dtype)``), and dx and dw come back in bfloat16.  The dx partials
+are summed over the shards in bfloat16, as the reference's shard_map
+transpose sums its bf16 cotangents.  Each bf16 form counts its launches
+apart (``linear_xent_parts_bf16``, ``linear_xent_dx_sharded_bf16``,
+``linear_xent_dw_sharded_bf16``).
 """
 
 import torch
@@ -44,7 +55,9 @@ from .linear_xent import _check, fwd_splits, lxent_plan
 
 __all__ = ["sharded_linear_xent", "linear_xent_parts",
            "linear_xent_dx_sharded", "linear_xent_dw_sharded",
-           "linear_xent_parts_plain", "linear_xent_grad_sharded_plain"]
+           "linear_xent_parts_bf16", "linear_xent_dx_sharded_bf16",
+           "linear_xent_dw_sharded_bf16", "linear_xent_parts_plain",
+           "linear_xent_grad_sharded_plain"]
 
 
 def linear_xent_parts_plain(x2d, w_local, lbl_local):
@@ -73,7 +86,9 @@ def linear_xent_grad_sharded_plain(x2d, w_local, lbl_local, valid, lse, dy,
     g = valid.reshape(-1, 1).float() * (1.0 - eps) * (p - onehot)
     if eps:
         g = g + eps * (p - 1.0 / vocab_total)
-    g = g * dy.reshape(-1, 1).float()
+    # rounded to the operands' dtype before the products, as the
+    # reference's dx / dw kernels do (a no-op in float32)
+    g = (g * dy.reshape(-1, 1).float()).to(x2d.dtype).float()
     return ((g @ w_local.float().t()).to(x2d.dtype),
             (x2d.float().t() @ g).to(w_local.dtype))
 
@@ -89,19 +104,42 @@ def linear_xent_parts(x2d, w_local, lbl_local):
     out = [torch.empty((R, 1), dtype=torch.float32, device=x2d.device)
            for _ in range(3)]
     part = torch.empty((splits, 4, R), dtype=torch.float32, device=x2d.device)
-    build.launch("ptt_linear_xent_parts", x2d, w_local, lbl_local, *out, part,
-                 R, H, V, splits, *lxent_plan(R, H, V))
-    linear_xent_parts.launches += 1
+    if x2d.dtype == torch.bfloat16:
+        build.launch("ptt_linear_xent_parts_bf16", x2d, w_local, lbl_local,
+                     *out, part, R, H, V, splits)
+        linear_xent_parts_bf16.launches += 1
+    else:
+        build.launch("ptt_linear_xent_parts", x2d, w_local, lbl_local, *out,
+                     part, R, H, V, splits, *lxent_plan(R, H, V))
+        linear_xent_parts.launches += 1
     return tuple(out)
 
 
-def _grad_args(name, x2d, w_local, lbl_local, valid, lse, dy, vocab_total):
+def _grad_kernel(fn, x2d, w_local, lbl_local, valid, lse, dy, eps,
+                 vocab_total):
+    """Launch wrapper `fn`'s kernel (dx or dw, by name) in the operands'
+    form: the float32 form with lxent_plan's ints, or the bf16 form,
+    counted under its own name; returns its output, x's shape for dx and
+    w_local's for dw."""
+    name = fn.__name__
     _check(name, x2d, w_local, lbl_local, valid, lse, dy)
-    if valid.numel() != x2d.shape[0] or vocab_total < w_local.shape[1]:
+    R, H = x2d.shape
+    V = w_local.shape[1]
+    if valid.numel() != R or vocab_total < V:
         raise build.KernelInputError(
             "%s: valid %s for %d rows, vocab_total %d for a slab of %d" % (
-                name, tuple(valid.shape), x2d.shape[0], vocab_total,
-                w_local.shape[1]))
+                name, tuple(valid.shape), R, vocab_total, V))
+    out = torch.empty_like(x2d if name == "linear_xent_dx_sharded"
+                           else w_local)
+    args = (x2d, w_local, lbl_local, valid, lse, dy, out, R, H, V,
+            int(vocab_total))
+    if x2d.dtype == torch.bfloat16:
+        build.launch("ptt_%s_bf16" % name, *args, float(eps))
+        _BF16_COUNTS[name].launches += 1
+    else:
+        build.launch("ptt_" + name, *args, *lxent_plan(R, H, V), float(eps))
+        fn.launches += 1
+    return out
 
 
 def linear_xent_dx_sharded(x2d, w_local, lbl_local, valid, lse, dy, eps,
@@ -110,15 +148,8 @@ def linear_xent_dx_sharded(x2d, w_local, lbl_local, valid, lse, dy, eps,
     if not build.use_kernel(x2d):
         return linear_xent_grad_sharded_plain(
             x2d, w_local, lbl_local, valid, lse, dy, eps, vocab_total)[0]
-    _grad_args("linear_xent_dx_sharded", x2d, w_local, lbl_local, valid, lse,
-               dy, vocab_total)
-    R, H = x2d.shape
-    dx = torch.empty_like(x2d)
-    build.launch("ptt_linear_xent_dx_sharded", x2d, w_local, lbl_local, valid,
-                 lse, dy, dx, R, H, w_local.shape[1], int(vocab_total),
-                 *lxent_plan(R, H, w_local.shape[1]), float(eps))
-    linear_xent_dx_sharded.launches += 1
-    return dx
+    return _grad_kernel(linear_xent_dx_sharded, x2d, w_local, lbl_local,
+                        valid, lse, dy, eps, vocab_total)
 
 
 def linear_xent_dw_sharded(x2d, w_local, lbl_local, valid, lse, dy, eps,
@@ -127,19 +158,18 @@ def linear_xent_dw_sharded(x2d, w_local, lbl_local, valid, lse, dy, eps,
     if not build.use_kernel(x2d):
         return linear_xent_grad_sharded_plain(
             x2d, w_local, lbl_local, valid, lse, dy, eps, vocab_total)[1]
-    _grad_args("linear_xent_dw_sharded", x2d, w_local, lbl_local, valid, lse,
-               dy, vocab_total)
-    R, H = x2d.shape
-    dw = torch.empty_like(w_local)
-    build.launch("ptt_linear_xent_dw_sharded", x2d, w_local, lbl_local, valid,
-                 lse, dy, dw, R, H, w_local.shape[1], int(vocab_total),
-                 *lxent_plan(R, H, w_local.shape[1]), float(eps))
-    linear_xent_dw_sharded.launches += 1
-    return dw
+    return _grad_kernel(linear_xent_dw_sharded, x2d, w_local, lbl_local,
+                        valid, lse, dy, eps, vocab_total)
 
 
 for _fn in (linear_xent_parts, linear_xent_dx_sharded, linear_xent_dw_sharded):
     _fn.launches = 0
+# the bf16 forms' launches count apart from the float32 forms'
+linear_xent_parts_bf16 = build.LaunchCount("linear_xent_parts_bf16")
+linear_xent_dx_sharded_bf16 = build.LaunchCount("linear_xent_dx_sharded_bf16")
+linear_xent_dw_sharded_bf16 = build.LaunchCount("linear_xent_dw_sharded_bf16")
+_BF16_COUNTS = {"linear_xent_dx_sharded": linear_xent_dx_sharded_bf16,
+                "linear_xent_dw_sharded": linear_xent_dw_sharded_bf16}
 
 
 class _ShardedLinearXent(torch.autograd.Function):
@@ -204,8 +234,9 @@ class _ShardedLinearXentGrad(torch.autograd.Function):
 def sharded_linear_xent(x2d, w_local, labels, eps, group, col0, vocab_total):
     """Per-row loss [R, 1] float32 of the projected cross entropy over a
     vocab split across the ranks of `group` (a process group; None is a
-    one-rank split): x2d [R, H] float32 (every rank's the same), w_local
-    [H, V/n] this rank's slab of columns col0 ... col0 + V/n, labels [R]
+    one-rank split): x2d [R, H] (every rank's the same) and w_local [H,
+    V/n], this rank's slab of columns col0 ... col0 + V/n, both float32
+    or both bfloat16 (then dx and dw are bfloat16), labels [R]
     int64 in GLOBAL vocab coordinates, vocab_total = V.  Every rank
     issues the same four all-reduces in the forward and one in the
     backward, and gets the same loss and dx."""

@@ -89,6 +89,13 @@ class LayerHelper:
             return [inputs]
         return list(inputs)
 
+    def input(self, input_param_name="input"):
+        inputs = self.multiple_input(input_param_name)
+        if len(inputs) != 1:
+            raise ValueError("%s layer needs exactly one input"
+                             % self.layer_type)
+        return inputs[0]
+
     def input_dtype(self, input_param_name="input"):
         dtype = None
         for i in self.multiple_input(input_param_name):
@@ -140,6 +147,12 @@ class LayerHelper:
             dtype=dtype, shape=None, persistable=False,
             stop_gradient=stop_gradient)
 
+    # the reference's older name, which fluid layer code still calls
+    create_tmp_variable = create_variable_for_type_inference
+
+    def create_variable(self, *args, **kwargs):
+        return self.main_program.current_block().create_var(*args, **kwargs)
+
     def create_global_variable(self, persistable=False, *args, **kwargs):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, **kwargs)
@@ -187,3 +200,10 @@ class LayerHelper:
         self.append_op(act_type, inputs={"X": [input_var]},
                        outputs={"Out": [tmp]}, attrs=act)
         return tmp
+
+    def is_instance(self, param_name, cls):
+        """Raises TypeError unless the layer's kwarg `param_name` is a
+        `cls`."""
+        param = self.kwargs.get(param_name, None)
+        if not isinstance(param, cls):
+            raise TypeError("%s must be %s" % (param_name, cls))

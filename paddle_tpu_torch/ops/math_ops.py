@@ -7,7 +7,10 @@ model's), the packed causal LM (the compare ops of its loss mask) and
 the conv nets (SE-ResNeXt's sigmoid), DeepFM (``pow``; the SelectedRows
 branches of ``scale`` and ``sum``) and gradient clipping and
 regularization (``clip_by_norm``, ``elementwise_max``, ``sqrt``,
-``square``, ``sign``) run.  ``mul`` and ``matmul`` are
+``square``, ``sign``) run, and the rest of the reference's activation
+table (``_ACTS``: ``exp``, ``floor``, ``cos`` and the others the
+learning-rate schedules and the unary layers of ``layers/ops.py``
+emit).  ``mul`` and ``matmul`` are
 plain products outside any kernel of the reference, so they stay
 ``torch.matmul`` here too.
 ``fused_linear_xent`` sits on the hand-written linear cross-entropy
@@ -351,6 +354,64 @@ def _swish(ctx, ins, attrs):
     before swiglu_fuse_pass folds it into fused_swiglu)."""
     x = ins["X"][0]
     return {"Out": [x * torch.sigmoid(attrs.get("beta", 1.0) * x)]}
+
+
+def _clip(x, lo, hi):
+    """jnp.clip's order: maximum, then minimum, against scalar tensors,
+    whose derivative splits a tie 0.5 / 0.5 as jnp's does."""
+    def scalar(v):
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+
+    return torch.minimum(torch.maximum(x, scalar(lo)), scalar(hi))
+
+
+def _act(fn):
+    def lower(ctx, ins, attrs):
+        return {"Out": [fn(ins["X"][0], attrs)]}
+
+    return lower
+
+
+# the rest of the reference's activation table (its _ACTS, with selu from
+# its image ops), each with the reference's attrs and their defaults; the
+# grads come from the generic vjp of these forward rules
+_ACTS = {
+    "rsqrt": lambda x, a: torch.rsqrt(x),
+    "abs": lambda x, a: torch.abs(x),
+    "ceil": lambda x, a: torch.ceil(x),
+    "floor": lambda x, a: torch.floor(x),
+    "round": lambda x, a: torch.round(x),
+    "cos": lambda x, a: torch.cos(x),
+    "sin": lambda x, a: torch.sin(x),
+    "exp": lambda x, a: torch.exp(x),
+    "reciprocal": lambda x, a: 1.0 / x,
+    "softplus": lambda x, a: torch.logaddexp(x, torch.zeros_like(x)),
+    "softsign": lambda x, a: x / (1 + torch.abs(x)),
+    "relu6": lambda x, a: _clip(x, 0.0, a.get("threshold", 6.0)),
+    "leaky_relu": lambda x, a: torch.where(x > 0, x,
+                                           a.get("alpha", 0.02) * x),
+    "elu": lambda x, a: torch.where(
+        x > 0, x, a.get("alpha", 1.0) * (torch.exp(x) - 1)),
+    "hard_sigmoid": lambda x, a: _clip(
+        a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0),
+    "brelu": lambda x, a: _clip(x, a.get("t_min", 0.0), a.get("t_max", 24.0)),
+    "soft_relu": lambda x, a: torch.log(1 + torch.exp(_clip(
+        x, -a.get("threshold", 40.0), a.get("threshold", 40.0)))),
+    "stanh": lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+        a.get("scale_a", 0.67) * x),
+    "thresholded_relu": lambda x, a: torch.where(
+        x > a.get("threshold", 1.0), x, torch.zeros_like(x)),
+    "hard_shrink": lambda x, a: torch.where(
+        torch.abs(x) > a.get("threshold", 0.5), x, torch.zeros_like(x)),
+    "tanh_shrink": lambda x, a: x - torch.tanh(x),
+    "logsigmoid": lambda x, a: torch.nn.functional.logsigmoid(x),
+    "erf": lambda x, a: torch.erf(x),
+    "selu": lambda x, a: a.get("scale", 1.0507009873554804934193349852946)
+    * torch.where(x > 0, x, a.get("alpha", 1.6732632423543772848170429916717)
+                  * (torch.exp(x) - 1.0)),
+}
+for _name, _fn in _ACTS.items():
+    register(_name)(_act(_fn))
 
 
 def _flatten2(x, ncol):

@@ -8,6 +8,8 @@ Random ops draw from the run's seeded ``torch.Generator``
 (``LowerCtx.rng``).
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -69,6 +71,23 @@ def _gaussian_random(ctx, ins, attrs):
                       dtype=torch.float32, device=_device(ctx))
     return {"Out": [(out * std + mean).to(tdt(attrs.get("dtype",
                                                        "float32")))]}
+
+
+@register("truncated_gaussian_random")
+def _truncated_gaussian_random(ctx, ins, attrs):
+    """A normal draw truncated to [-2, 2] standard deviations, then
+    scaled and shifted: the reference's jax.random.truncated_normal, by
+    the same inverse-CDF method (a uniform draw between the bounds'
+    erf values, through erfinv), from ctx.rng's generator.  The two
+    frameworks' streams differ: the samples match in distribution."""
+    mean, std = float(attrs.get("mean", 0.0)), float(attrs.get("std", 1.0))
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(_shape(attrs), generator=ctx.rng(attrs),
+                   dtype=torch.float32, device=_device(ctx))
+    z = math.sqrt(2.0) * torch.erfinv(lo + (hi - lo) * u)
+    z = torch.clamp(z, math.nextafter(-2.0, 0.0), math.nextafter(2.0, 0.0))
+    return {"Out": [(z * std + mean).to(tdt(attrs.get("dtype",
+                                                      "float32")))]}
 
 
 @register("assign")

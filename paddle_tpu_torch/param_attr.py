@@ -2,7 +2,7 @@
 
 from .initializer import Constant, Initializer, Xavier
 
-__all__ = ["ParamAttr"]
+__all__ = ["ParamAttr", "WeightNormParamAttr"]
 
 
 class ParamAttr:
@@ -50,3 +50,13 @@ class ParamAttr:
                 "trainable": self.trainable,
                 "gradient_clip_attr": self.gradient_clip,
                 "do_model_average": self.do_model_average}
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that carries the weight-normalization dim `dim`.  As in
+    the reference, nothing reads `dim`: the parameter is created and
+    trained as any other."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

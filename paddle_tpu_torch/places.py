@@ -6,11 +6,16 @@ Executor runs on.
 present it raises: a run that silently lands on the CPU would report
 CPU numbers under a GPU's name.  Callers that want the CPU ask for it
 with ``CPUPlace()``.
+
+``is_compiled_with_cuda()`` reports whether torch was built with CUDA,
+as the reference's ``is_compiled_with_tpu()`` reports its accelerator.
+The reference's ``TPUPlace``, ``TPUPinnedPlace``, ``tpu_places`` and
+``is_compiled_with_tpu`` name the TPU and have no counterpart here.
 """
 
 import torch
 
-__all__ = ["CPUPlace", "CUDAPlace", "default_place"]
+__all__ = ["CPUPlace", "CUDAPlace", "default_place", "is_compiled_with_cuda"]
 
 
 class Place:
@@ -53,3 +58,9 @@ def default_place():
             "no CUDA device is available: pass CPUPlace() explicitly to run "
             "on the CPU (there is no silent fallback)")
     return CUDAPlace(0)
+
+
+def is_compiled_with_cuda():
+    """Whether this torch was built with CUDA (a card may still be
+    absent: ``torch.cuda.is_available()`` says that)."""
+    return torch.backends.cuda.is_built()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Holds the bf16 forms of six kernels against their plain versions on
+"""Holds the bf16 forms of seven kernels against their plain versions on
 the card, and times them at the bf16 paths' shapes:
 
 - matmul_bias_act (B5, csrc/matmul_bias_act.cu's mm_tiled_bf16): the WMT
@@ -12,7 +12,15 @@ the card, and times them at the bf16 paths' shapes:
 - fused_linear_xent's three kernels (B4, csrc/linear_xent_bf16.cu): x
   4096 x 512, w 512 x 10000, eps 0.1 (WMT) and BERT's MLM head, x 4096 x
   768, w 768 x 30522, against torch.matmul + F.cross_entropy in bf16
-  (forward; forward and backward for dx and dw);
+  (forward; forward and backward for dx and dw); and bit-equal to their
+  forms before B12's bf16 forms joined the file
+  (scripts/linear_xent_bf16_before.cu, built into a library of its own)
+  at both shapes;
+- sharded_linear_xent's three kernels (B12, csrc/linear_xent_bf16.cu):
+  parts, dx and dw on the vocab-parallel WMT step's slab, x 4096 x 512,
+  w_local 512 x 5000 of 10000, eps 0.1, against one bf16 matmul +
+  logsumexp + gold gather + row sum (parts) and the dense bf16 backward
+  (dx and dw), beside the float32 forms on the widened values;
 - flash attention's forward, dq and dk/dv (B3,
   csrc/flash_attention_bf16.cu): GPT-2 96 x 1024 x 64 causal, TinyLlama
   64 x 2048 x 64 causal, BERT 384 x 128 x 64 with a key-padding bias,
@@ -39,11 +47,11 @@ their largest magnitude (_one_unit; p and dS reach the second products
 as a bf16 hi + lo pair) and equal to the plain version in 98% of their
 elements (EQUAL_MIN, which a control with p and dS rounded once must
 fail), the lse within 1e-5 relative, dkbias within
-1e-4 of its largest magnitude; B4's loss and lse
-(float32) within 1e-5 of the largest magnitude; its dx and dw within
-1e-2 of the largest magnitude (g is rounded to bf16 before the product,
-and a float32 logit that differs in its last bits may round g the other
-way).  Times are chip_smoke's (CUDA graph replays, the median of 5;
+1e-4 of its largest magnitude; B4's loss and lse and B12's lse, gold
+and sum (float32) within 1e-5 of the largest magnitude; their dx and
+dw within 1e-2 of the largest magnitude (g is rounded to bf16 before
+the product, and a float32 logit that differs in its last bits may
+round g the other way).  Times are chip_smoke's (CUDA graph replays, the median of 5;
 B4 at BERT's shape and the plain backward CUDA events); bounds are the larger of bytes over 3.35 TB/s and FLOPs over bf16's
 dense tensor-core rate, 989 TFLOP/s.
 
@@ -53,10 +61,13 @@ chip_smoke.py's kernel phase calls check_bf16(); its records are the
 bf16 forms' entries of the kernels line.
 """
 
+import ctypes
+import hashlib
 import importlib
 import json
 import math
 import os
+import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,10 +90,14 @@ LN_CASES = ((WMT_ROWS, WMT_D), (WMT_ROWS, BERT_D), (37, 100), (5, 1001),
 ADD_LN_CASES = ((WMT_ROWS, WMT_D), (WMT_ROWS, BERT_D), (64, 2048),
                 (37, 100), (5, 1001), (300, 1025), (9, 16384))
 # (R, H, V, eps): the WMT step, then ragged V (odd: element loads of w),
-# H % 8 != 0 (element loads of x), two and three dx / dw passes
+# H % 8 != 0 (element loads of x), two and three dx / dw passes, and R
+# 4096 over V 300, whose 5 vocab tiles in fwd_splits' 4 splits of 2 leave
+# the last split without a tile (ROADMAP C14: only the splits that hold
+# a tile launch)
 LX_CASES = ((WMT_ROWS, WMT_D, WMT_VOCAB, 0.1), (100, 96, 333, 0.0),
             (64, 100, 1000, 0.1), (300, 768, 1000, 0.0),
-            (70, 1100, 301, 0.1), (8191, 512, 777, 0.1), (300, 64, 1002, 0.1))
+            (70, 1100, 301, 0.1), (8191, 512, 777, 0.1), (300, 64, 1002, 0.1),
+            (WMT_ROWS, 64, 300, 0.1))
 # BERT's MLM head (V % 8 = 2: 4-byte copies of w; H 768: two dx / dw
 # passes), timed beside the WMT shape
 LX_BERT = (4096, BERT_D, 30522, 0.0)
@@ -377,6 +392,281 @@ def _lxent_times(cs, dev, randn, g, R, H, V, eps, slow):
             library_ms=timed(lib) if lib else lib_fwd_bwd,
             **_bound(cs, nbytes, flops))
     return out
+
+
+# B12's bf16 forms (csrc/linear_xent_bf16.cu): (R, H, V_local, eps,
+# vocab_total, shard): the vocab-parallel WMT step's slab (mp 2: x [4096,
+# 512], w_local [512, 5000] of 10000; V_local % 8 == 0, 16-byte copies), a
+# ragged R, an odd slab (element copies of w), an even slab that is no
+# multiple of 8 (4-byte copies), H past one dx / dw pass of 512 (3 passes,
+# H % 8 != 0: element copies of x), H 768, and a slab of 5 vocab tiles
+# at R 4096 (a split without a tile before C14's repair)
+VP_CASES = ((WMT_ROWS, WMT_D, WMT_VOCAB // 2, 0.1, WMT_VOCAB, 1),
+            (WMT_ROWS - 1, WMT_D, WMT_VOCAB // 2, 0.1, WMT_VOCAB, 0),
+            (300, WMT_D, 1007, 0.1, 3021, 2), (300, WMT_D, 1002, 0.0, 2004, 1),
+            (200, 1100, 333, 0.1, 999, 1), (70, BERT_D, 1000, 0.0, 2000, 0),
+            (WMT_ROWS, 128, 300, 0.1, 900, 1))
+
+
+def _vp_inputs(randn, g, dev, r, h, v, vt, shard):
+    """bf16 x and w_local, local labels (global ones over the whole vocab,
+    rows 0-2 at -1, vocab_total and the slab's first column), the global
+    row validity and a dy."""
+    import torch
+
+    bf = torch.bfloat16
+    x = randn(r, h).to(bf)
+    w = randn(h, v, scale=h ** -0.5).to(bf)
+    lbl = torch.randint(0, vt, (r,), generator=g, device=dev)
+    lbl[:3] = torch.tensor([-1, vt, shard * v], device=dev)
+    valid = ((lbl >= 0) & (lbl < vt)).float()
+    dy = torch.rand(r, 1, generator=g, device=dev)
+    return x, w, lbl - shard * v, valid, dy
+
+
+def check_sharded_linear_xent(cs, dev, randn, g, times=True):
+    """B12's bf16 parts, dx and dw against their plain versions at
+    VP_CASES, every rerun bit-equal: lse, gold and sum within 1e-5 of
+    each one's largest magnitude (float32 sums of exact bf16 products in
+    another order), dx and dw within 1e-2 of theirs (g is rounded to bf16
+    before the product: a logit that differs in its last bits may round
+    it the other way).  The lse handed to dx / dw is a global one (this
+    shard's plus log 2).  Records named as the launch counters."""
+    import torch
+
+    slx = importlib.import_module(
+        "paddle_tpu_torch.kernels.sharded_linear_xent")
+    bf = torch.bfloat16
+    err = {"parts": 0.0, "dx": 0.0, "dw": 0.0}
+    err_abs = dict(err)
+
+    def note(key, a, b):
+        d = (a.float() - b.float()).abs().max().item()
+        err_abs[key] = max(err_abs[key], d)
+        err[key] = max(err[key], d / max(b.float().abs().max().item(), 1e-30))
+
+    for r, h, v, e, vt, shard in VP_CASES:
+        x, w, lbl, valid, dy = _vp_inputs(randn, g, dev, r, h, v, vt, shard)
+        parts = slx.linear_xent_parts(x, w, lbl)
+        assert all(t.dtype == torch.float32 and t.shape == (r, 1)
+                   for t in parts)
+        assert all(torch.equal(a, b) for a, b in zip(
+            parts, slx.linear_xent_parts(x, w, lbl))), ("parts bf16 rerun",
+                                                          r, h, v)
+        p_parts = slx.linear_xent_parts_plain(x, w, lbl)
+        for a, b in zip(parts, p_parts):
+            note("parts", a, b)
+        args = (x, w, lbl, valid, p_parts[0] + math.log(2.0), dy, e, vt)
+        dx = slx.linear_xent_dx_sharded(*args)
+        dw = slx.linear_xent_dw_sharded(*args)
+        assert dx.dtype == dw.dtype == bf
+        assert torch.equal(dx, slx.linear_xent_dx_sharded(*args)), (
+            "dx sharded bf16 rerun", r, h, v)
+        assert torch.equal(dw, slx.linear_xent_dw_sharded(*args)), (
+            "dw sharded bf16 rerun", r, h, v)
+        p_dx, p_dw = slx.linear_xent_grad_sharded_plain(*args)
+        note("dx", dx, p_dx)
+        note("dw", dw, p_dw)
+        print("sharded_linear_xent bf16 [%d, %d] x [%d, %d] of %d eps %.1f: "
+              "relative error so far %s" % (
+                  r, h, h, v, vt, e,
+                  {k: "%.3g" % v_ for k, v_ in err.items()}))
+    assert err["parts"] <= 1e-5, ("linear_xent_parts bf16 disagrees", err)
+    assert err["dx"] <= 1e-2 and err["dw"] <= 1e-2, (
+        "linear_xent dx / dw sharded bf16 disagree", err)
+    rec = {}
+    for name, site, key in (("linear_xent_parts", ":1818", "parts"),
+                            ("linear_xent_dx_sharded", ":1900", "dx"),
+                            ("linear_xent_dw_sharded", ":1914", "dw")):
+        rec[name] = dict(
+            route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/linear_xent_bf16.cu",
+            replaces="paddle_tpu/ops/pallas_kernels.py" + site,
+            max_abs_err=err_abs[key], max_rel_err=err[key])
+    if not times:
+        return rec
+    for name, t in _sharded_lxent_times(cs, dev, randn, g,
+                                        *VP_CASES[0]).items():
+        rec[name].update(t)
+        print("%s bf16 wmt_vp: %s" % (name, json.dumps(
+            {k: v for k, v in t.items() if k.endswith("ms")})))
+    return rec
+
+
+def _sharded_lxent_times(cs, dev, randn, g, R, H, V, eps, vocab_total,
+                         shard):
+    """The three bf16 forms' times at one shard's shape (graph replays),
+    beside their plain versions (parts; the plain backward for dx and dw,
+    CUDA events), the float32 forms on the same values widened, and the
+    library: one bf16 matmul + logsumexp + gold gather + row sum for
+    parts, the dense bf16 backward (logits, softmax, g, g @ w^T and
+    x^T @ g) for dx and dw."""
+    import torch
+
+    slx = importlib.import_module(
+        "paddle_tpu_torch.kernels.sharded_linear_xent")
+    bf = torch.bfloat16
+    x, w, lbl, valid, dy = _vp_inputs(randn, g, dev, R, H, V, vocab_total,
+                                      shard)
+    lse = slx.linear_xent_parts(x, w, lbl)[0] + math.log(2.0)
+    args = (x, w, lbl, valid, lse, dy, eps, vocab_total)
+    xf, wf = x.float(), w.float()
+    args32 = (xf, wf) + args[2:]
+    cols = torch.arange(V, device=dev)[None, :]
+    inside = ((lbl >= 0) & (lbl < V))[:, None]
+    gold_col = lbl.clamp(0, V - 1)[:, None]
+
+    def library_parts():
+        z = torch.matmul(x, w).float()
+        return (torch.logsumexp(z, -1, keepdim=True),
+                z.gather(1, gold_col) * inside, z.sum(-1, keepdim=True))
+
+    def library_bwd():
+        z = torch.matmul(x, w).float()
+        p = torch.exp(z - lse)
+        gg = valid[:, None] * (1.0 - eps) * (p - (cols == lbl[:, None]).float())
+        if eps:
+            gg = gg + eps * (p - 1.0 / vocab_total)
+        gg = (gg * dy).to(bf)
+        return gg @ w.t(), x.t() @ gg
+
+    plain_grad = cs._events_ms(
+        lambda: slx.linear_xent_grad_sharded_plain(*args))
+    lib_bwd = cs._time_ms(library_bwd, inner=5)
+    rows = 2 * (R * H + H * V) + 8 * R
+    shape = "x [%d, %d], w_local [%d, %d] of %d bf16, eps %.1f" % (
+        R, H, H, V, vocab_total, eps)
+    specs = (
+        ("linear_xent_parts", lambda: slx.linear_xent_parts(x, w, lbl),
+         lambda: slx.linear_xent_parts(xf, wf, lbl),
+         lambda: slx.linear_xent_parts_plain(x, w, lbl), library_parts,
+         rows + 4 * 3 * R, 2 * R * H * V),
+        ("linear_xent_dx_sharded", lambda: slx.linear_xent_dx_sharded(*args),
+         lambda: slx.linear_xent_dx_sharded(*args32), None, None,
+         rows + 4 * 3 * R + 2 * R * H, 4 * R * H * V),
+        ("linear_xent_dw_sharded", lambda: slx.linear_xent_dw_sharded(*args),
+         lambda: slx.linear_xent_dw_sharded(*args32), None, None,
+         rows + 4 * 3 * R + 2 * H * V, 4 * R * H * V))
+    out = {}
+    for name, kern, f32, plain, lib, nbytes, flops in specs:
+        out[name] = dict(
+            shape=shape + ("" if plain else
+                           "; plain_ms is the plain backward (dx and dw "
+                           "together), library_ms the dense bf16 backward "
+                           "(dx and dw together)"),
+            ms=cs._time_ms(kern, inner=5),
+            f32_ms=cs._time_ms(f32, inner=5),
+            plain_ms=cs._time_ms(plain, inner=5) if plain else plain_grad,
+            library_ms=cs._time_ms(lib, inner=5) if lib else lib_bwd,
+            **_bound(cs, nbytes, flops))
+    return out
+
+
+# B4's bf16 forms as they were before B12's bf16 forms joined their file:
+# scripts/linear_xent_bf16_before.cu, built into a library of its own
+B4_BEFORE_SOURCE = os.path.join(ROOT, "scripts", "linear_xent_bf16_before.cu")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+B4_BEFORE_SIGNATURES = {
+    "ptt_linear_xent_fwd_bf16_before": (_P,) * 6 + (_I,) * 4 + (_F, _P),
+    "ptt_linear_xent_dx_bf16_before": (_P,) * 6 + (_I,) * 3 + (_F, _P),
+    "ptt_linear_xent_dw_bf16_before": (_P,) * 6 + (_I,) * 3 + (_F, _P),
+}
+_b4_before = {}
+
+
+def _b4_before_path():
+    from paddle_tpu_torch.kernels import build
+
+    with open(B4_BEFORE_SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(
+            build.NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(build.BUILD_DIR, "liblxent_bf16_before_%s.so" % digest)
+
+
+def start_b4_before_build():
+    """Starts nvcc on the B4 before-library (None if it is built):
+    returns (process, path)."""
+    from paddle_tpu_torch.kernels import build
+
+    path = _b4_before_path()
+    if os.path.exists(path):
+        return None, path
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    proc = subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-I", build.CSRC, "-shared",
+         "-o", path + ".tmp%d" % os.getpid(), B4_BEFORE_SOURCE],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _b4_before["started"] = proc, path
+    return proc, path
+
+
+def b4_before_lib():
+    """The loaded B4 before-library, built at first use (or by the
+    build start_b4_before_build began)."""
+    if "lib" in _b4_before:
+        return _b4_before["lib"]
+    proc, path = _b4_before.get("started") or start_b4_before_build()
+    if proc is not None:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on %s:\n%s" % (B4_BEFORE_SOURCE,
+                                                           out))
+        os.replace(path + ".tmp%d" % os.getpid(), path)
+    lib = ctypes.CDLL(path)
+    for name, argtypes in B4_BEFORE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = _I
+    _b4_before["lib"] = lib
+    return lib
+
+
+def check_b4_unchanged(dev, randn, g):
+    """B4's bf16 forward, dx and dw bit-equal to their forms before B12's
+    bf16 forms joined the file, at WMT's and BERT's shapes: the check
+    that the shared launchers, the row-validity pointer and the launched
+    split count changed nothing there.  Returns the shapes held."""
+    import torch
+
+    from paddle_tpu_torch.kernels import linear_xent as lx
+
+    lib = b4_before_lib()
+
+    def call(name, *args):
+        cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        rc = getattr(lib, name)(*cargs, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (name, rc)
+
+    held = []
+    for r, h, v, e in (LX_CASES[0], LX_BERT):
+        x = randn(r, h).to(torch.bfloat16)
+        w = randn(h, v, scale=h ** -0.5).to(torch.bfloat16)
+        lbl = torch.randint(0, v, (r,), generator=g, device=dev)
+        lbl[0], lbl[1] = -1, v
+        dy = torch.rand(r, 1, generator=g, device=dev)
+        loss, lse = lx.linear_xent_fwd(x, w, lbl, e)
+        dx = lx.linear_xent_dx(x, w, lbl, lse, dy, e)
+        dw = lx.linear_xent_dw(x, w, lbl, lse, dy, e)
+        splits = lx.fwd_splits(r, v)
+        b_loss, b_lse = (torch.empty_like(loss) for _ in range(2))
+        part = torch.empty((splits, 4, r), dtype=torch.float32, device=dev)
+        b_dx, b_dw = torch.empty_like(dx), torch.empty_like(dw)
+        call("ptt_linear_xent_fwd_bf16_before", x, w, lbl, b_loss, b_lse,
+             part, r, h, v, splits, float(e))
+        call("ptt_linear_xent_dx_bf16_before", x, w, lbl, lse, dy, b_dx, r,
+             h, v, float(e))
+        call("ptt_linear_xent_dw_bf16_before", x, w, lbl, lse, dy, b_dw, r,
+             h, v, float(e))
+        torch.cuda.synchronize()
+        for name, now, before in (("loss", loss, b_loss), ("lse", lse, b_lse),
+                                  ("dx", dx, b_dx), ("dw", dw, b_dw)):
+            assert torch.equal(now, before), (
+                "B4's bf16 %s changed" % name, r, h, v)
+        held.append("x [%d, %d], w [%d, %d], eps %.1f" % (r, h, h, v, e))
+    print("B4's bf16 forward, dx and dw bit-equal to their forms before the "
+          "B12 bf16 forms at %s" % held)
+    return held
 
 
 # flash attention (B3): (label, BH, Tq, Tk, d, causal, key bias, window,
@@ -729,6 +1019,10 @@ def check_bf16(cs, dev, randn, g, times=True):
                                                              times)}
     for name, r in check_linear_xent(cs, dev, randn, g, times).items():
         rec[name + "_bf16"] = r
+    for name, r in check_sharded_linear_xent(cs, dev, randn, g,
+                                             times).items():
+        rec[name + "_bf16"] = r
+    check_b4_unchanged(dev, randn, g)
     rec.update(check_flash_attention(cs, dev, randn, g, times))
     torch.cuda.synchronize()
     return rec
@@ -744,6 +1038,7 @@ def main():
     from paddle_tpu_torch.kernels import build
 
     dev, smi = cs.card_setup()
+    start_b4_before_build()
     build.load()
     g = torch.Generator(device=dev).manual_seed(0)
 

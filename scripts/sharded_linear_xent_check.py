@@ -4,16 +4,23 @@ cross-entropy kernels it shares its tiles with: builds the kernel
 library, prints ptxas's spill lines, holds B4 (`fused_linear_xent`'s
 forward, dx and dw) against its plain version at four shapes, runs
 `chip_smoke.check_sharded_linear_xent` (B12's parts, dx and dw against
-their plain versions, timed), and then spawns two ranks on the one card
-over gloo that check the collectives on CUDA tensors (all-reduce sum and
-max, broadcast, the host-staged all-gather) and run `sharded_linear_xent`
-under `torch.func.vjp` against the unsharded `fused_linear_xent`.
+their plain versions, timed) and its bf16 forms
+(`bf16_kernels_check.check_sharded_linear_xent`, timed), and then spawns
+two ranks on the one card over gloo that check the collectives on CUDA
+tensors (all-reduce sum and max, in float32 and a bf16 sum, broadcast,
+the host-staged all-gather) and run `sharded_linear_xent` under
+`torch.func.vjp` against the unsharded `fused_linear_xent`, in float32
+and in bf16.
 
-    python3 scripts/sharded_linear_xent_check.py   # one CUDA card, nvcc
+    python3 scripts/sharded_linear_xent_check.py [--train [--profile]]
 
 It takes under a minute, most of it the build: the quick first call for
-a change to csrc/linear_xent.cu or the collectives before a full
-chip_smoke.py run.
+a change to csrc/linear_xent.cu, csrc/linear_xent_bf16.cu or the
+collectives before a full chip_smoke.py run.  `--train` then runs
+`chip_smoke.train_vocab_parallel` (both legs of the vocab-parallel
+training phase, ~90 s), and `--profile` profiles each leg's rank 0
+(chiprun_out/profile_training_vocab_parallel[_bf16].json): the busy ms
+and idle share of the capture lines.
 """
 
 import json
@@ -48,8 +55,13 @@ def _rank(rank, store, out_dir):
     group = make_mesh({"dp": 1, "mp": 2}).group("mp")
     dev = torch.device("cuda", 0)
     x = torch.tensor([1.0 + rank, -float(rank)], device=dev)
+    # rank 0's 1 and rank 1's 1 + 2^-7 are bf16 values, their sum 2 + 2^-7
+    # is not: a bf16 sum rounds it to 2
+    y = torch.tensor([1.0 + rank * 2.0 ** -7], device=dev,
+                     dtype=torch.bfloat16)
     out = {"sum": collective.all_reduce(x, group).tolist(),
            "max": collective.all_reduce(x, group, "max").tolist(),
+           "sum_bf16": collective.all_reduce(y, group).float().tolist(),
            "broadcast": collective.broadcast(x, group, 1).tolist(),
            "all_gather": collective.all_gather(x, group).tolist()}
     g = torch.Generator(device=dev).manual_seed(0)
@@ -69,6 +81,22 @@ def _rank(rank, store, out_dir):
     r_dx, r_dw = r_vjp(dy)
     out.update(loss_rel=_rel(loss, r_loss), dx_rel=_rel(dx, r_dx),
                dw_rel=_rel(dw, r_dw[:, rank * vl:(rank + 1) * vl]))
+    # bf16: dx and dw against the unsharded bf16 kernels' (g rounded to
+    # bf16 where a logit differs in its last bits; dx's partials summed in
+    # bf16)
+    xb, wb = xx.to(torch.bfloat16), w.to(torch.bfloat16)
+    loss, vjp = torch.func.vjp(lambda a, b: sharded_linear_xent(
+        a, b, lbl, eps, group, rank * vl, V), xb,
+        wb[:, rank * vl:(rank + 1) * vl].contiguous())
+    dx, dw = vjp(dy)
+    r_loss, r_vjp = torch.func.vjp(
+        lambda a, b: fused_linear_xent(a, b, lbl, eps), xb, wb)
+    r_dx, r_dw = r_vjp(dy)
+    out.update(bf16_dtypes=[str(t.dtype) for t in (loss, dx, dw)],
+               bf16_loss_rel=_rel(loss, r_loss),
+               bf16_dx_rel=_rel(dx.float(), r_dx.float()),
+               bf16_dw_rel=_rel(dw.float(), r_dw[:, rank * vl:(rank + 1) * vl]
+                                .float()))
     with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
         json.dump(out, f)
 
@@ -78,6 +106,8 @@ def main():
         print("sharded_linear_xent_check: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import bf16_kernels_check
     from paddle_tpu_torch.kernels import build
     from paddle_tpu_torch.kernels import linear_xent as lx
 
@@ -87,6 +117,7 @@ def main():
     print("built in %.1f s" % (time.time() - t0))
     log = build.build_log
     print(log[log.find("== linear_xent"):].split("\n== ")[0])
+    print(log[log.find("== linear_xent_bf16"):].split("\n== ")[0])
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -110,6 +141,9 @@ def main():
     rec = chip_smoke.check_sharded_linear_xent(dev, randn, g)
     print("sharded_linear_xent checked in %.1f s" % (time.time() - t0))
     print(json.dumps(rec, indent=1))
+    rec = bf16_kernels_check.check_sharded_linear_xent(chip_smoke, dev, randn,
+                                                        g)
+    print(json.dumps(rec, indent=1))
 
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as d:
@@ -130,12 +164,20 @@ def main():
             if os.path.exists(path):
                 with open(path) as f:
                     print("rank %d: %s" % (r, f.read()))
-    print(os.popen("nvidia-smi --query-gpu=name,power.limit "
-                   "--format=csv,noheader").read().strip())
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip()
+    print(smi)
     if codes != [0, 0]:
         print("sharded_linear_xent_check: ranks exited %s" % codes,
               file=sys.stderr)
         return 1
+    if "--train" in sys.argv[1:]:
+        t0 = time.time()
+        chip_smoke.train_vocab_parallel(
+            dev, smi, os.path.join(ROOT, "chiprun_out")
+            if "--profile" in sys.argv[1:] else None)
+        print("vocab-parallel training phase, both legs: %.1f s"
+              % (time.time() - t0))
     return 0
 
 

@@ -340,7 +340,8 @@ def test_linear_xent_bf16_plain_matches_pallas(eps):
 # ---------------------------------------------------------------------------
 def test_kernels_refuse_bf16_without_a_bf16_form():
     """check_inputs takes bf16 for the kernels' bf16 forms (B1 / B2 with
-    float32 gamma and beta, B4's dx / dw with float32 lse and dy; B3 and
+    float32 gamma and beta, B4's dx / dw with float32 lse and dy, B12's
+    parts and its dx / dw with float32 row validity, lse and dy; B3 and
     B6: test_torch_amp_attention.py) and refuses it, naming ROADMAP B's
     bf16 forms, for every other kernel (B3's few-row form and B9 among
     them); no form takes a float16 or a bf16 gamma."""
@@ -350,9 +351,13 @@ def test_kernels_refuse_bf16_without_a_bf16_form():
     build.check_inputs("fused_layer_norm", x, v, v)
     build.check_inputs("fused_add_layer_norm", x, x, v, v)
     build.check_inputs("linear_xent_dx", x, x, v, v)
+    build.check_inputs("linear_xent_parts", x, x)
+    build.check_inputs("linear_xent_dx_sharded", x, x, v, v, v)
+    build.check_inputs("linear_xent_dw_sharded", x, x, v, v, v)
+    with pytest.raises(build.KernelTypeError, match="operand 4"):
+        build.check_inputs("linear_xent_dw_sharded", x, x, v, v, v.to(bf))
     for name in ("flash_attention_piece_fwd", "flash_attention_fwd_rows",
-                 "softmax_xent_fwd", "fused_lstm", "linear_xent_parts",
-                 "flash_attention_qvec"):
+                 "softmax_xent_fwd", "fused_lstm", "flash_attention_qvec"):
         with pytest.raises(build.KernelTypeError, match="ROADMAP B"):
             build.check_inputs(name, x, x)
     for name in build.KV_BF16_FORMS:  # a bf16 q: B8q, beside bf16 k or not

@@ -22,7 +22,8 @@ reference.
   operands (the key bias after the rows, the saved lse and delta), the
   bf16 entry points reached through a spied ``build.launch`` and their
   own counters, and the refusals that name their ROADMAP queue (a bf16
-  q to B3's few-row form, B9 and B8: B8q; B12: A3 (c)).
+  q to B3's few-row form, B9 and B8: B8q); B12's bf16 forms take bf16 x
+  and w_local with a float32 row validity, lse and dy.
 - Three bf16 Adam steps of a tiny GPT-2 (d_model 128, 2 heads of 64), a
   tiny modern decoder (SwiGLU, rotary, grouped-query attention) and a
   tiny BERT with ``fused_attn`` against the reference under
@@ -219,10 +220,18 @@ def test_bf16_forms_of_attention_and_swiglu_take_their_float32_operands():
                         ("flash_attention_piece_fwd", "B8q"),
                         ("flash_attention_qvec", "B8q"),
                         ("flash_attention_qvec_dkv", "B8q"),
-                        ("linear_xent_parts", "A3 \\(c\\)"),
                         ("softmax_xent_fwd", "ROADMAP B")):
         with pytest.raises(build.KernelTypeError, match=queue):
             build.check_inputs(name, x, x)
+    # B12's bf16 forms (no longer queued): bf16 x and w_local, the row
+    # validity, lse and dy float32
+    row = torch.zeros(4, dtype=f32)
+    build.check_inputs("linear_xent_parts", x, x)
+    for name in ("linear_xent_dx_sharded", "linear_xent_dw_sharded"):
+        build.check_inputs(name, x, x, row, row[:, None], row[:, None])
+        with pytest.raises(build.KernelTypeError, match="operand 2"):
+            build.check_inputs(name, x, x, row.to(bf), row[:, None],
+                               row[:, None])
 
 
 def test_bf16_attention_and_swiglu_launch_their_own_entry_points(monkeypatch):
